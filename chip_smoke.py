@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's CG main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's CG and BiCGStab paths on one NVIDIA GPU.
 
-Run from the repository root:  python3 chip_smoke.py
+Run from the repository root:  python3 chip_smoke.py [--profile]
 
 Phases (any failure raises, and the exit code is non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit; no CUDA -> exit 2;
-2. build the hand-written kernels of ``legionsolvers_tpu_torch/csrc``;
+2. build the hand-written kernels of ``legionsolvers_tpu_torch/csrc`` (one
+   nvcc per source, all started together);
 3. hold every kernel against its plain PyTorch version on the card, at the
    main-path shape 4096 x 4096 and a ragged 200 x 328: elementwise outputs
    to atol 1e-5 * max|ref|, dots and Gram entries to rtol 1e-4 of the
    entry's Cauchy-Schwarz scale sqrt(<a,a><b,b>) (the f32 sums run in
-   another order; the scale is the entry itself for squared norms);
-4. drive the main path, ``entry.build_system(4096)`` -> ``CGSolver``: a
+   another order; the scale is the entry itself for squared norms).  The
+   BiCGStab passes (K5) run with compensated dots off and on; compensated
+   dots are also held within 4e-7 relative of the float64 sum of their f32
+   operands;
+4. drive the CG path, ``entry.build_system(4096)`` -> ``CGSolver``: a
    few eager ``step()``s (K3 y_dot), ``solve(200)`` (K1 x100, K2 x7),
    ``solve(201)`` (adds one K3 update), a two-pass ``solve(8)`` under
    LEGIONSOLVERS_NO_SSTEP (K3 pq/update, K4) and a residual check through
@@ -23,9 +27,27 @@ Phases (any failure raises, and the exit code is non-zero):
    twice textbook f32 CG: f32 CG on this system leaves exact arithmetic by
    ~3e-3 within 200 iterations), and at 256 x 256 against a float64
    numpy CG (rtol 1e-3);
-5. time each kernel and the whole solve(200) against their plain versions
-   with CUDA events, after a warm-up, refusing any time that would beat the
-   card's measured copy bandwidth.
+4b. drive the BiCGStab path, ``build_system(4096)`` -> ``BiCGStabSolver``:
+   eager ``step()``s (K3 y, y_dot), ``solve(200)`` (K5 pv, st, update
+   x200 each, counted exactly), the same solve again from the same state
+   (bit-identical history and x: a halo race would show here), ``||b -
+   Ax||^2`` through ``planner.matvec`` (K3 y) against the last history
+   entry (rel 5e-2: a wrong update leaves an O(1) gap, f32 rounding along
+   this trajectory ~1e-2).  f32 BiCGStab on this system amplifies a 1e-7
+   difference ~1e3-fold per iteration after the second, so two f32 codes
+   are held together through two iterations (rtol 1e-6: eager vs fused;
+   compensated kernel vs plain-driven), and one iteration continued from
+   the kernel path's own state at iterations 0..199 to 1e-2.  Against
+   float64 BiCGStab: the kernel path stays within 1e-3 at least as long
+   as textbook f32 BiCGStab does, and ends with ||b - Ax||^2 and x error
+   no worse than twice textbook f32's, at 4096^2 (f32 dots) and at 256^2
+   (compensated dots: with f32 dots that run breaks down when rho sums to
+   exactly 0 near the f32 floor);
+5. time each kernel and the whole solve(200) of both solvers against their
+   plain versions with CUDA events, after a warm-up, over a ring of input
+   sets so that L2 does not serve repeats, refusing any time that would
+   beat the card's measured copy bandwidth.  ``--profile`` adds a
+   ``torch.profiler`` trace of the BiCGStab solve, last.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Details also go to
@@ -58,6 +80,18 @@ KERNELS = {
     "gram2": ("grid2d_cg_gram2", 1107, 8),
     "step2": ("grid2d_cg_step2", 1107, 24),
 }
+BICG_CSRC = "legionsolvers_tpu_torch/csrc/bicgstab2d.cu"
+BICG_PALLAS = "legionsolvers_tpu/ops/pallas/bicgstab2d.py"
+# BiCGStab pass (= wrapper) name -> (pallas_call line it replaces, B/elt)
+BICG_KERNELS = {"bicg_pv": (310, 24), "bicg_st": (395, 8),
+                "bicg_update": (487, 28)}
+N_ITERS = 200
+# leading history entries (the initial one and two iterations) over which
+# two f32 BiCGStab codes that round the vector updates differently are held
+# together; past them the 4096^2 recurrence amplifies a 1e-7 difference
+# ~1e3-fold per iteration
+N_AGREE = 3
+CONTINUE_AT = (0, 50, 100, 150, 199)
 
 
 def log(*a):
@@ -180,43 +214,144 @@ def compare_kernels(torch, T, device):
     return errs
 
 
+def bicg_inputs(torch, shape, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    d = {k: torch.randn(shape, generator=g, device=device)
+         for k in ("x", "r", "p", "v", "rt")}
+    for k, val in (("alpha", 0.83), ("beta", 0.37), ("omega", 0.41)):
+        d[k] = torch.tensor(val, device=device)
+    return d
+
+
+def bicg_call(TB, name, d, compensated, plain, out=None):
+    """A closure running one K5 pass on ``d`` in place (x of update) with
+    outputs to ``out``: the wrapper or its plain version."""
+    kw = dict(KW, compensated=compensated)
+    fn = getattr(TB, name + "_plain" if plain else name)
+    if name == "bicg_pv":
+        return lambda: fn(d["r"], d["p"], d["v"], d["rt"], d["beta"],
+                          d["omega"], out=out, **kw)
+    if name == "bicg_st":
+        return lambda: fn(d["r"], d["v"], d["alpha"], **kw)
+    return lambda: fn(d["r"], d["v"], d["x"], d["p"], d["rt"], d["alpha"],
+                      d["omega"], out=out, **kw)
+
+
+def run_bicg(TB, name, d, compensated, plain):
+    """One K5 pass on fresh copies of ``d``: {output name: tensor}."""
+    c = {k: v.clone() for k, v in d.items()}
+    names = {"bicg_pv": ("p", "v", "rtv"), "bicg_st": ("ts", "tt"),
+             "bicg_update": ("x", "r", "rr", "rtr")}[name]
+    return dict(zip(names, bicg_call(TB, name, c, compensated, plain)()))
+
+
+def bicg_operands(T, name, d, outs):
+    """The f32 operand pair of each dot of a K5 pass: v' or r' from
+    ``outs``, s = r - alpha v and t = A s formed by the plain version."""
+    if name == "bicg_pv":
+        return {"rtv": (d["rt"], outs["v"])}
+    if name == "bicg_update":
+        return {"rr": (outs["r"], outs["r"]), "rtr": (d["rt"], outs["r"])}
+    s = d["r"] - d["alpha"] * d["v"]
+    t = T.apply_plain(s, OFFS, VALS)
+    return {"ts": (t, s), "tt": (t, t)}
+
+
+def compare_bicg_kernels(torch, T, TB, device):
+    """Phase 3b: K5 against its plain version, compensated dots off and on.
+    Same bounds as phase 3; under compensation each dot is also held within
+    4e-7 relative of the float64 sum of its f32 operands (the f32 rounding
+    of an exactly accumulated sum, test_25's bound).  Returns {name: max
+    abs error}."""
+    f64dot = lambda a, b: torch.dot(a.double().reshape(-1),
+                                    b.double().reshape(-1)).item()
+    nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
+    errs = {}
+    for shape in ((N_GRID, N_GRID), RAGGED):
+        d = bicg_inputs(torch, shape, 23, device)
+        for comp in (False, True):
+            for name in BICG_KERNELS:
+                got = run_bicg(TB, name, d, comp, plain=False)
+                ref = run_bicg(TB, name, d, comp, plain=True)
+                torch.cuda.synchronize()
+                ops = bicg_operands(T, name, d, ref)
+                worst = 0.0
+                for key, want in ref.items():
+                    err = (got[key].double() - want.double()).abs().max()
+                    worst = max(worst, err.item())
+                    if want.dim():
+                        ok = err.item() <= 1e-5 * want.abs().max().item()
+                    else:
+                        a, b = ops[key]
+                        ok = err.item() <= 1e-4 * nrm(a) * nrm(b)
+                    if not ok:
+                        raise AssertionError(
+                            f"{name} {shape} compensated={comp} {key}: "
+                            f"kernel disagrees with its plain version "
+                            f"(max abs err {err.item():g})")
+                exact_rel = 0.0
+                if comp:
+                    for key, (a, b) in bicg_operands(T, name, d, got).items():
+                        exact = f64dot(a, b)
+                        rel = abs(got[key].item() - exact) / abs(exact)
+                        exact_rel = max(exact_rel, rel)
+                        if rel > 4e-7:
+                            raise AssertionError(
+                                f"{name} {shape} {key}: compensated dot "
+                                f"{rel:g} off the float64 sum")
+                errs[name] = max(errs.get(name, 0.0), worst)
+                log(f"[check] {name:11s} {shape} compensated={comp}: "
+                    f"kernel == plain (max abs err {worst:.3g}"
+                    + (f"; dots vs float64 sum max rel {exact_rel:.3g})"
+                       if comp else ")"))
+        del d
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
 class plain_driven:
     """Within the block, ``solver``'s passes run their plain versions on
-    CUDA tensors: the wrappers are swapped on the module, and the solver's
-    cached runners (which hold the wrappers they were built with) are
-    dropped on the way in and out."""
+    CUDA tensors: the wrappers named in ``plain`` are swapped on ``module``,
+    and the solver's cached runners (which hold the wrappers they were
+    built with) are dropped on the way in and out."""
 
-    def __init__(self, T, solver):
-        self.T, self.solver = T, solver
-        plain = {
-            "grid2d_stencil_matvec": lambda x, top=None, bot=None, *,
-            with_dot=False, **kw: (
-                T.stencil_plain("y_dot", x, top, bot, **kw) if with_dot
-                else T.stencil_plain("y", x, top, bot, **kw)[0]),
-            "grid2d_cg_pq": lambda p, top=None, bot=None, **kw:
-                T.stencil_plain("pq", p, top, bot, **kw)[0],
-            "grid2d_cg_update": lambda p, x, r, alpha, top=None, bot=None,
-            **kw: T.stencil_plain("update", p, top, bot, (x, r, alpha), **kw),
-            "grid2d_cg_xpay_pq": T.xpay_pq_plain,
-            "grid2d_cg_gram2": T.gram2_plain,
-            "grid2d_cg_step2": T.step2_plain,
-        }
-        self.plain = plain
+    def __init__(self, module, solver, plain):
+        self.module, self.solver, self.plain = module, solver, plain
 
     def __enter__(self):
-        self.saved = {k: getattr(self.T, k) for k in self.plain}
+        self.saved = {k: getattr(self.module, k) for k in self.plain}
         for k, fn in self.plain.items():
-            setattr(self.T, k, fn)
+            setattr(self.module, k, fn)
         self.solver._solve_cache.clear()
 
     def __exit__(self, *exc):
         for k, fn in self.saved.items():
-            setattr(self.T, k, fn)
+            setattr(self.module, k, fn)
         self.solver._solve_cache.clear()
+
+
+def cg_plain(T):
+    """The plain versions of the CG path's wrappers, by wrapper name."""
+    return {
+        "grid2d_stencil_matvec": lambda x, top=None, bot=None, *,
+        with_dot=False, **kw: (
+            T.stencil_plain("y_dot", x, top, bot, **kw) if with_dot
+            else T.stencil_plain("y", x, top, bot, **kw)[0]),
+        "grid2d_cg_pq": lambda p, top=None, bot=None, **kw:
+            T.stencil_plain("pq", p, top, bot, **kw)[0],
+        "grid2d_cg_update": lambda p, x, r, alpha, top=None, bot=None,
+        **kw: T.stencil_plain("update", p, top, bot, (x, r, alpha), **kw),
+        "grid2d_cg_xpay_pq": T.xpay_pq_plain,
+        "grid2d_cg_gram2": T.gram2_plain,
+        "grid2d_cg_step2": T.step2_plain,
+    }
+
+
+def bicg_plain(TB):
+    return {k: getattr(TB, k + "_plain") for k in BICG_KERNELS}
 
 
 def restart(solver):
@@ -224,18 +359,20 @@ def restart(solver):
     solver.reset()
 
 
+def lap5(v):
+    """The 5-point negative Laplacian with zero boundary, numpy or torch."""
+    out = 4.0 * v
+    out[1:, :] -= v[:-1, :]
+    out[:-1, :] -= v[1:, :]
+    out[:, 1:] -= v[:, :-1]
+    out[:, :-1] -= v[:, 1:]
+    return out
+
+
 def classic_cg(xp, n_grid, iters, dtype=None, device=None):
     """Textbook CG on the 5-point Laplacian, b = 1, in numpy (``xp`` =
     numpy, float64) or torch (``xp`` = torch, ``dtype`` on ``device``):
     (history, x), both float64."""
-    def A(v):
-        out = 4.0 * v
-        out[1:, :] -= v[:-1, :]
-        out[:-1, :] -= v[1:, :]
-        out[:, 1:] -= v[:, :-1]
-        out[:, :-1] -= v[:, 1:]
-        return out
-
     if device is None:
         b = xp.ones((n_grid, n_grid))
     else:
@@ -244,7 +381,7 @@ def classic_cg(xp, n_grid, iters, dtype=None, device=None):
     rr = (r * r).sum()
     hist = [rr]
     for _ in range(iters):
-        q = A(p)
+        q = lap5(p)
         a = rr / (p * q).sum()
         x += a * p
         r -= a * q
@@ -325,7 +462,7 @@ def main_path(torch, np, T, lt, device):
     # and plain are held to 1e-3 over the iterations where textbook f32 CG
     # stays within half that of float64 CG; over all 200 the kernel path is
     # held to twice textbook f32 CG's distance from float64 CG.
-    with plain_driven(T, solver):
+    with plain_driven(T, solver, cg_plain(T)):
         restart(solver)
         hist_plain = solver.solve(200)
     x_plain = planner.sol_vectors[0].data.clone()
@@ -369,6 +506,228 @@ def main_path(torch, np, T, lt, device):
                "kernel_vs_plain": (window, dev), "vs_f64_200": env,
                "vs_f64_small": (dev50, xdev50), "residual_check": rel}
     return counts, results, solver
+
+
+def textbook_bicgstab(torch, n_grid, iters, dtype, device, dot_dtype=None):
+    """Textbook BiCGStab on the 5-point Laplacian, b = 1, x0 = 0, r~ = b,
+    in torch on ``device``; the dots summed in ``dot_dtype`` (default
+    ``dtype``).  Returns (history, x), both float64."""
+    dd = dot_dtype or dtype
+    dot = lambda a, b: torch.sum(a.to(dd) * b.to(dd)).to(dtype)
+    b = torch.ones(n_grid, n_grid, dtype=dtype, device=device)
+    x, r, rt = b * 0, b * 1, b * 1
+    p, v = b * 0, b * 0
+    rho, alpha, omega = (torch.tensor(c, dtype=dtype, device=device)
+                         for c in (1.0, 0.0, 1.0))
+    hist = [dot(r, r)]
+    for _ in range(iters):
+        rho_new = dot(r, rt)
+        beta = (rho_new / rho) * (alpha / omega)
+        rho = rho_new
+        p = r + beta * (p - omega * v)
+        v = lap5(p)
+        alpha = rho / dot(rt, v)
+        s = r - alpha * v
+        t = lap5(s)
+        omega = dot(t, s) / dot(t, t)
+        x = x + alpha * p + omega * s
+        r = s - omega * t
+        hist.append(dot(r, r))
+    return torch.stack(hist).double(), x.double()
+
+
+def solution_quality(torch, hist, x, h64, x64):
+    """(history max rel dev from float64, x max rel dev, true residual
+    ||b - A x||^2 in float64)."""
+    x = x.double().reshape(x64.shape)
+    return (((hist.double() - h64) / h64).abs().max().item(),
+            ((x - x64).abs().max() / x64.abs().max()).item(),
+            torch.sum((1.0 - lap5(x)) ** 2).item())
+
+
+def agree_window(hist, h64, rtol=1e-3):
+    """Leading entries of ``hist`` within ``rtol`` of ``h64``."""
+    off = (((hist.double() - h64) / h64).abs() > rtol).nonzero()
+    return int(off[0]) if len(off) else len(h64)
+
+
+def snapshot(solver):
+    planner = solver.planner
+    vecs = {i: planner.get_vector(i, 0).data.clone()
+            for i in (solver.SOL, solver.R, solver.P, solver.V)}
+    return vecs, [s[-1] for s in (solver.rho, solver.alpha, solver.omega)]
+
+
+def restore(solver, snap):
+    vecs, (rho, alpha, omega) = snap
+    for i, d in vecs.items():
+        solver.planner.get_vector(i, 0).data = d.clone()
+    solver.rho, solver.alpha, solver.omega = [rho], [alpha], [omega]
+
+
+def bicgstab_path(torch, T, TB, lt, device):
+    """Phase 4b, the BiCGStab path.  Returns (launch counts of the main-path
+    run, results, the solver).  Everything is measured first and logged;
+    the bounds are checked at the end."""
+    from legionsolvers_tpu_torch.entry import build_system
+
+    planner = build_system(N_GRID, lt.SolverOptions(entry_dtype=torch.float32),
+                           device)
+    op = planner.row_partitioned_matrices[0][0]
+    if not op.supports_fused_bicgstab:
+        raise AssertionError("the 4096^2 operator has no fused BiCGStab")
+    solver = lt.BiCGStabSolver(planner)
+    b = planner.rhs_vectors[0].data
+    torch.cuda.synchronize()
+
+    T.reset_launch_counts()
+    eager = [solver.residual_norm_squared().value]
+    for _ in range(N_EAGER):
+        solver.step()
+        eager.append(solver.residual_norm_squared().value)
+    eager = torch.stack(eager)
+    restart(solver)
+    hist = solver.solve(N_ITERS)
+    after = dict(T.LAUNCHES)
+    x = planner.sol_vectors[0].data.clone()
+    restart(solver)
+    hist2 = solver.solve(N_ITERS)
+    planner.matvec(solver.U, solver.SOL)  # K3 y: A x of the second solve
+    torch.cuda.synchronize()
+    counts = dict(T.LAUNCHES)
+    T.reset_launch_counts()
+    true_rr = torch.sum((b - planner.get_vector(solver.U, 0).data)
+                        .double() ** 2).item()
+    repeat = (torch.equal(hist, hist2)
+              and torch.equal(x, planner.sol_vectors[0].data))
+    rel = lambda a, c: ((a.double() - c.double()) / c.double()).abs()
+    eager_dev = rel(eager, hist[:N_EAGER + 1])
+    gap = abs(true_rr - hist[-1].item()) / hist[-1].item()
+    log(f"[bicg] launches {counts}; repeat bit-identical {repeat}; eager vs "
+        f"fused rel dev {[f'{e:.3g}' for e in eager_dev.tolist()]}; "
+        f"||b-Ax||^2 {true_rr:.8g} vs history {hist[-1].item():.8g} "
+        f"(rel {gap:.3g})")
+    del hist2
+
+    # compensated dots: kernel vs plain-driven, and one iteration continued
+    # from the kernel path's own state along the whole trajectory
+    comp = build_system(N_GRID, lt.SolverOptions(
+        entry_dtype=torch.float32, compensated_dots=True), device)
+    csolver = lt.BiCGStabSolver(comp)
+    hist_ck = csolver.solve(N_ITERS)
+    x_ck = comp.sol_vectors[0].data.clone()
+    T.reset_launch_counts()
+    with plain_driven(TB, csolver, bicg_plain(TB)):
+        restart(csolver)
+        hist_cp = csolver.solve(N_ITERS)
+    x_cp = comp.sol_vectors[0].data.clone()
+    if T.LAUNCHES:
+        raise AssertionError("plain-driven solve launched kernels")
+    comp_dev = rel(hist_ck, hist_cp)
+    cont = []
+    for k in CONTINUE_AT:
+        restart(csolver)
+        if k:
+            csolver.solve(k)
+        snap = snapshot(csolver)
+        outs = []
+        for plain in (False, True):
+            restore(csolver, snap)
+            if plain:
+                with plain_driven(TB, csolver, bicg_plain(TB)):
+                    h = csolver.solve(1)
+            else:
+                h = csolver.solve(1)
+            outs.append((h[1], comp.sol_vectors[0].data.clone(),
+                         comp.get_vector(csolver.R, 0).data.clone()))
+        (hk, xk, rk), (hp, xp, rp) = outs
+        vec = lambda a, c: ((a - c).abs().max() / c.abs().max()).item()
+        cont.append((k, rel(hk, hp).item(), vec(xk, xp), vec(rk, rp)))
+    log(f"[bicg] compensated, kernel vs plain-driven: first {N_AGREE + 4} "
+        f"entries rel dev {[f'{e:.3g}' for e in comp_dev[:N_AGREE + 4]]}; "
+        "one iteration from the kernel path's state at k (k, history, x, r): "
+        + "; ".join(f"{k} {h:.3g} {xv:.3g} {rv:.3g}" for k, h, xv, rv in cont))
+
+    # against float64 BiCGStab: 4096^2 plain dots (the main path) and 256^2
+    # compensated (with plain f32 dots this 256^2 run breaks down: near the
+    # f32 floor rho = <r~, r> is rounding noise and can sum to exactly 0)
+    h64, x64 = textbook_bicgstab(torch, N_GRID, N_ITERS, torch.float64, device)
+    h32, x32 = textbook_bicgstab(torch, N_GRID, N_ITERS, torch.float32, device)
+    big = {"textbook f32": solution_quality(torch, h32, x32, h64, x64),
+           "kernel": solution_quality(torch, hist, x, h64, x64),
+           "kernel compensated": solution_quality(torch, hist_ck, x_ck,
+                                                  h64, x64),
+           "plain compensated": solution_quality(torch, hist_cp, x_cp,
+                                                 h64, x64),
+           "float64": solution_quality(torch, h64, x64, h64, x64)}
+    win = (agree_window(h32, h64), agree_window(hist, h64))
+    del h32, x32, x_cp
+    small = build_system(SMALL_GRID, lt.SolverOptions(
+        entry_dtype=torch.float32, compensated_dots=True), device)
+    hs = lt.BiCGStabSolver(small).solve(N_ITERS)
+    xs = small.sol_vectors[0].data
+    s64, xs64 = textbook_bicgstab(torch, SMALL_GRID, N_ITERS, torch.float64,
+                                  device)
+    s32, xs32 = textbook_bicgstab(torch, SMALL_GRID, N_ITERS, torch.float32,
+                                  device, dot_dtype=torch.float64)
+    sm = {"textbook f32 (f64 dots)": solution_quality(torch, s32, xs32, s64,
+                                                      xs64),
+          "kernel compensated": solution_quality(torch, hs, xs, s64, xs64),
+          "float64": solution_quality(torch, s64, xs64, s64, xs64)}
+    swin = (agree_window(s32, s64), agree_window(hs, s64))
+    fmt = lambda q: ", ".join(f"{k} {h:.3g} {xx:.3g} {res:.6g}"
+                              for k, (h, xx, res) in q.items())
+    log(f"[bicg] {N_GRID}^2 solve({N_ITERS}) against float64 BiCGStab "
+        f"(history max rel, x max rel, ||b-Ax||^2): {fmt(big)}; entries "
+        f"within 1e-3 of float64: textbook f32 {win[0]}, kernel {win[1]}")
+    log(f"[bicg] {SMALL_GRID}^2 solve({N_ITERS}): {fmt(sm)}; entries within "
+        f"1e-3 of float64: textbook f32 {swin[0]}, kernel {swin[1]}")
+
+    # the bounds
+    want = {"y": N_EAGER + 1, "y_dot": N_EAGER, "bicg_pv": 2 * N_ITERS,
+            "bicg_st": 2 * N_ITERS, "bicg_update": 2 * N_ITERS}
+    want_after = dict(want, y=N_EAGER, bicg_pv=N_ITERS, bicg_st=N_ITERS,
+                      bicg_update=N_ITERS)
+    if after != want_after or counts != want:
+        raise AssertionError(f"BiCGStab launches {after}, then {counts}")
+    if not repeat:
+        raise AssertionError("two solves from the same state differ")
+    for name, h in (("eager", eager), ("solve", hist),
+                    ("compensated", hist_ck), ("256^2", hs)):
+        if not bool(torch.isfinite(h).all()):
+            raise AssertionError(f"BiCGStab {name} history is not finite")
+    if not bool((b == 1.0).all()):
+        raise AssertionError("the BiCGStab solve overwrote b")
+    checks = {
+        "eager step() vs fused solve, first entries, rtol 1e-6":
+            eager_dev[:N_AGREE].max().item() <= 1e-6,
+        "compensated kernel vs plain-driven, first entries, rtol 1e-6":
+            comp_dev[:N_AGREE].max().item() <= 1e-6,
+        "one iteration from the kernel path's states, kernel vs plain, 1e-2":
+            max(max(c[1:]) for c in cont) <= 1e-2,
+        "||b - Ax||^2 vs history[-1], rel 5e-2": gap <= 5e-2,
+        f"{N_GRID}^2 kernel within 1e-3 of float64 while textbook f32 is":
+            win[1] >= win[0],
+        f"{N_GRID}^2 ||b-Ax||^2 and x error <= 2x textbook f32":
+            big["kernel"][2] <= 2 * big["textbook f32"][2]
+            and big["kernel"][1] <= 2 * big["textbook f32"][1],
+        f"{SMALL_GRID}^2 kernel within 1e-3 of float64 while textbook is":
+            swin[1] >= swin[0],
+        f"{SMALL_GRID}^2 ||b-Ax||^2 and x error <= 2x textbook f32":
+            sm["kernel compensated"][2]
+            <= 2 * sm["textbook f32 (f64 dots)"][2]
+            and sm["kernel compensated"][1]
+            <= 2 * sm["textbook f32 (f64 dots)"][1],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    log(f"[bicg] checks: {len(checks) - len(failed)} of {len(checks)} hold"
+        + (f"; FAILED: {failed}" if failed else ""))
+    results = {"hist_last": hist[-1].item(), "true_rr": true_rr,
+               "residual_gap": gap, "eager_dev": eager_dev.tolist(),
+               "comp_kernel_vs_plain": comp_dev[:N_AGREE + 4].tolist(),
+               "continuation": cont, "vs_f64": big, "window": win,
+               "vs_f64_small": sm, "window_small": swin, "checks": checks}
+    return counts, results, solver, failed
 
 
 # ---------------------------------------------------------------------------
@@ -471,7 +830,8 @@ def time_solve(torch, T, solver, bw, card):
     nbytes = (24 * 100 + 8 * 7) * n
     res = {}
     for label in ("kernel", "plain"):
-        ctx = plain_driven(T, solver) if label == "plain" else None
+        ctx = (plain_driven(T, solver, cg_plain(T)) if label == "plain"
+               else None)
         if ctx:
             ctx.__enter__()
         try:
@@ -499,6 +859,104 @@ def time_solve(torch, T, solver, bw, card):
     return res
 
 
+def time_bicg_kernels(torch, TB, device, bw, card):
+    """Phase 5c.  {name: {compensated: (kernel ms, plain ms)}} at the main
+    path shape, over a ring of three input sets as in phase 5a."""
+    n = N_GRID * N_GRID
+    out = {name: {} for name in BICG_KERNELS}
+    ring = [bicg_inputs(torch, (N_GRID, N_GRID), 40 + s, device)
+            for s in range(3)]
+    for d in ring:
+        d["alpha"] = d["alpha"] * 1e-3  # keep the in-place x bounded
+        d["p_out"], d["v_out"], d["r_out"] = (torch.empty_like(d["r"])
+                                              for _ in range(3))
+    for name, (_, bpe) in BICG_KERNELS.items():
+        for comp in (False, True):
+            times = {}
+            for plain in (False, True):
+                fns = [bicg_call(TB, name, d, comp, plain,
+                                 out=(d["p_out"], d["v_out"])
+                                 if name == "bicg_pv" else d["r_out"])
+                       for d in ring]
+                k = iter(range(10**9))
+                times[plain] = event_ms(
+                    torch, lambda: fns[next(k) % 3](), 6 if plain else 30)
+            sane(name, times[False], bpe * n, bw)
+            out[name][comp] = (times[False], times[True])
+            log(f"[time] {name:11s} compensated={comp!s:5s} kernel "
+                f"{times[False]:.4f} ms ({bpe * n / times[False] / 1e6:.1f} "
+                f"GB/s), plain {times[True]:.4f} ms at {N_GRID}^2 f32 on "
+                f"{card}")
+    return out
+
+
+def time_bicg_solve(torch, TB, solver, bw, card):
+    """Phase 5d.  ms/iter of BiCGStab solve(200) at 4096^2, kernel- and
+    plain-driven, as in phase 5b."""
+    n = N_GRID * N_GRID
+    # 60 B/unknown/iteration + the two bootstrap dots (8 B each)
+    nbytes = (60 * N_ITERS + 16) * n
+    res = {}
+    for label in ("kernel", "plain"):
+        ctx = (plain_driven(TB, solver, bicg_plain(TB)) if label == "plain"
+               else None)
+        if ctx:
+            ctx.__enter__()
+        try:
+            runs = []
+            for _ in range(3 if label == "kernel" else 2):
+                restart(solver)
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                solver.solve(N_ITERS)
+                end.record()
+                host = time.perf_counter() - t0
+                end.synchronize()
+                runs.append((start.elapsed_time(end), host * 1e3))
+        finally:
+            if ctx:
+                ctx.__exit__(None, None, None)
+        ms, host_ms = min(runs[1:])  # the first run is the warm-up
+        sane(f"BiCGStab solve({N_ITERS}) {label}", ms, nbytes, bw)
+        res[label] = ms / N_ITERS
+        log(f"[time] BiCGStab solve({N_ITERS}) {label}-driven: "
+            f"{ms / N_ITERS:.4f} ms/iter ({nbytes / ms / 1e6:.1f} GB/s "
+            f"effective; host enqueue {host_ms / N_ITERS:.4f} ms/iter) at "
+            f"{N_GRID}^2 f32 on {card}")
+    return res
+
+
+def profile_bicg_solve(torch, solver, card):
+    """With --profile: device time by kernel over one BiCGStab solve(200),
+    from a torch.profiler trace, written to chiprun_out/bicg_profile.txt.
+    Runs last, because the tracer slows the host's later launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    restart(solver)
+    solver.solve(N_ITERS)
+    restart(solver)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solver.solve(N_ITERS)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    table = events.table(sort_by="cuda_time_total", row_limit=25)
+    path = pathlib.Path("chiprun_out") / "bicg_profile.txt"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(f"{card}\n{table}\n")
+    log(table)
+    from torch.autograd import DeviceType
+
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    log(f"[profile] BiCGStab solve({N_ITERS}): device time {device_ms:.3f} "
+        f"ms in all kernels and copies, on {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -513,6 +971,7 @@ def main() -> int:
         import numpy as np
         import legionsolvers_tpu_torch as lt
         from legionsolvers_tpu_torch.ops.cuda import build
+        from legionsolvers_tpu_torch.ops.cuda import bicgstab2d as TB
         from legionsolvers_tpu_torch.ops.cuda import stencil2d as T
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -538,20 +997,44 @@ def main() -> int:
             log(f"[ptxas] {line.strip()}")
 
     errs = compare_kernels(torch, T, device)
+    errs.update(compare_bicg_kernels(torch, T, TB, device))
     counts, results, solver = main_path(torch, np, T, lt, device)
+    bcounts, bresults, bsolver, failed = bicgstab_path(torch, T, TB, lt,
+                                                       device)
     bw = copy_bandwidth(torch, device)
     log(f"[time] copy bandwidth {bw / 1e9:.1f} GB/s on {card}")
     ktimes = time_kernels(torch, T, device, bw, card)
+    btimes = time_bicg_kernels(torch, TB, device, bw, card)
+    bsolve_ms = time_bicg_solve(torch, TB, bsolver, bw, card)
     solve_ms = time_solve(torch, T, solver, bw, card)
+    if "--profile" in sys.argv[1:]:  # last: tracing slows later launches
+        profile_bicg_solve(torch, bsolver, card)
+    if failed:
+        raise AssertionError(f"BiCGStab checks failed: {failed}")
 
+    launches = {m: counts.get(m, 0) + bcounts.get(m, 0)
+                for m in (*KERNELS, *BICG_KERNELS)}
+    missing = [m for m, c in launches.items() if not c]
+    if missing:
+        raise AssertionError(f"kernels never launched on a main path: "
+                             f"{missing}")
     kernels = [{
         "name": f"{KERNELS[m][0]} [{m}]", "route": "cuda", "source": CSRC,
-        "replaces": f"{PALLAS}:{KERNELS[m][1]}", "launches": counts[m],
+        "replaces": f"{PALLAS}:{KERNELS[m][1]}", "launches": launches[m],
         "max_abs_err": errs[m], "ms": ktimes[m][0], "plain_ms": ktimes[m][1],
-    } for m in KERNELS]
+    } for m in KERNELS] + [{
+        "name": m, "route": "cuda", "source": BICG_CSRC,
+        "replaces": f"{BICG_PALLAS}:{line}", "launches": launches[m],
+        "max_abs_err": errs[m], "ms": btimes[m][False][0],
+        "plain_ms": btimes[m][False][1],
+    } for m, (line, _) in BICG_KERNELS.items()]
     report = {"card": card, "kind": kind, "build_s": build_s,
               "copy_GBps": bw / 1e9, "kernels": kernels,
-              "solve200_ms_per_iter": solve_ms, "main_path": results}
+              "bicg_kernel_ms": {m: {str(c): t for c, t in v.items()}
+                                 for m, v in btimes.items()},
+              "solve200_ms_per_iter": solve_ms, "main_path": results,
+              "bicgstab_solve200_ms_per_iter": bsolve_ms,
+              "bicgstab_path": bresults}
     out_dir = pathlib.Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

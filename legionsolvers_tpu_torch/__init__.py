@@ -1,11 +1,13 @@
 """legionsolvers_tpu_torch: the PyTorch + CUDA port of legionsolvers_tpu.
 
 Same module paths and public names as the JAX package, on torch tensors
-with explicit devices.  This first slice covers the single-device CG main
-path on 2-D stencils: deferred scalars, vectors, COO/CSR/ELL operators, the
-planner, the matrix-free stencil operator whose passes are hand-written
-CUDA kernels for Hopper (``ops/cuda/``, ``csrc/``), and ``CGSolver``.  The
-package imports torch and numpy, never jax.
+with explicit devices.  Ported so far: the single-device CG and BiCGStab
+paths on 2-D stencils, i.e. deferred scalars, vectors, COO/CSR/ELL
+operators, the planner (with compensated dots), the matrix-free stencil
+operator whose passes are hand-written CUDA kernels for Hopper
+(``ops/cuda/``, ``csrc/``), ``CGSolver`` and ``BiCGStabSolver``.  Not ported
+yet: GMRES and PCG, 3-D kernels, DIA/windowed-ELL/general sparsity, block
+systems and sharding.  The package imports torch and numpy, never jax.
 """
 
 from .options import DEFAULT_OPTIONS, SolverOptions, resolve_device
@@ -21,6 +23,7 @@ from .core.matrix import (
 from .parallel.distmatrix import RowPartitionedMatrix
 from .parallel.stencil_op import StencilOperator
 from .planner import SquarePlanner
+from .solvers.bicgstab import BiCGStabSolver
 from .solvers.cg import CGSolver
 from .problems.laplacian import (
     coo_negative_laplacian_1d,

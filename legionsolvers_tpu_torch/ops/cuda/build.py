@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
-``csrc/*.cu`` is compiled with ``nvcc`` into one shared library with a plain
-C interface and loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  The library goes to ``build/`` at the repository root, named by a
+Each ``csrc/*.cu`` (all include the shared header ``csrc/common.cuh``) is
+compiled by its own ``nvcc``, all started together, and the objects are
+linked into one shared library with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds).  The library goes to ``build/`` at the repository root, named by a
 hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as is.  Nothing is built when this module is
 imported: the first CUDA launch calls :func:`load_library`.  Without
@@ -24,8 +25,9 @@ import time
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 NVCC_FALLBACKS = ("/usr/local/cuda/bin/nvcc",)
 
@@ -58,7 +60,7 @@ def _sources():
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"liblegionsolvers_cuda_{h.hexdigest()[:16]}.so"
@@ -73,13 +75,31 @@ def build() -> pathlib.Path:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    srcs, jobs = _sources(), []
+    for src in srcs:
+        obj = BUILD_DIR / f"{tmp.name}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for (obj, proc), src in zip(jobs, srcs):
+        log += proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+             *(str(obj) for obj, _ in jobs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log += link.stdout
+        if link.returncode != 0:
+            failed.append("link")
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, out)
     out.with_suffix(".log").write_text(log)
     BUILD_INFO.update(path=str(out), seconds=seconds, log=log)
@@ -103,6 +123,9 @@ def load_library() -> ctypes.CDLL:
         "ls_xpay_pq": [_P] * 10 + [_I, _I, _P, _P],
         "ls_gram2": [_P] * 4 + [_I, _I, _P, _P],
         "ls_step2": [_P] * 8 + [_I, _I, _P, _P],
+        "ls_bicg_pv": [_P] * 10 + [_I, _I, _I, _P, _P],
+        "ls_bicg_st": [_P] * 5 + [_I, _I, _I, _P, _P],
+        "ls_bicg_update": [_P] * 10 + [_I, _I, _I, _P, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -14,6 +14,7 @@ without a card raises instead of carrying on on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -30,19 +31,22 @@ class SolverOptions:
 
     entry_dtype: dtype of matrix entries and vector elements.
     index_dtype: dtype of index arrays (ELL columns, COO rows/cols).
-    compensated_dots: two-float accumulation of the solver dots.  Not
-        ported yet (it needs ``ops/ddsum.py``); ``True`` raises.
+    compensated_dots: accumulate the solver dots from exact products in
+        float64 (``ops/ddsum.py``), honoured by ``SquarePlanner.dot`` and
+        the fused BiCGStab kernels.  The default is read from
+        LEGIONSOLVERS_COMPENSATED_DOTS each time a ``SolverOptions`` is
+        constructed, as in the JAX package.
     """
 
     entry_dtype: torch.dtype = torch.float32
     index_dtype: torch.dtype = torch.int64
-    compensated_dots: bool = False
+    compensated_dots: bool = dataclasses.field(
+        default_factory=lambda: bool(
+            int(os.environ.get("LEGIONSOLVERS_COMPENSATED_DOTS", "0"))
+        )
+    )
 
     def __post_init__(self) -> None:
-        if self.compensated_dots:
-            raise NotImplementedError(
-                "compensated_dots is not ported to the torch package yet"
-            )
         if self.entry_dtype not in ENTRY_DTYPES:
             raise ValueError(f"unsupported entry dtype {self.entry_dtype}")
         if self.index_dtype not in INDEX_DTYPES:

@@ -13,13 +13,16 @@ operator is built:
 * **linearized path** (any dimension and dtype): shifted 1-D slices with
   integer-computed boundary masks, in torch.
 
-The fused CG runners (``make_fused_cg_runner``) drive the whole loop: the
-s-step schedule (one K1 pass per two iterations), the two-pass schedule
-(K4 + K3 ``update``) and the torch recompute runner.  Scalars stay on the
-device throughout; no runner reads one back to the host.
+The fused runners drive the whole loop.  CG (``make_fused_cg_runner``):
+the s-step schedule (one K1 pass per two iterations), the two-pass schedule
+(K4 + K3 ``update``) and the torch recompute runner.  BiCGStab
+(``make_fused_bicgstab_runner``): the three K5 passes per iteration on the
+2-D view.  Scalars stay on the device throughout; no runner reads one back
+to the host.
 
 Not ported yet: sharding (a mesh raises), the 1-D flat-offset view, the
-3-D kernels and the fused BiCGStab runners.
+3-D kernels, and the fused BiCGStab runners of the 3-D view and of sharded
+operators.
 """
 
 from __future__ import annotations
@@ -326,6 +329,80 @@ class StencilOperator:
                 rr = rr_new
             return (x.reshape(shape), r.reshape(shape), p.reshape(shape),
                     torch.stack(hist))
+
+        return run
+
+    # ======================================================================
+    # fused BiCGStab runner
+    # ======================================================================
+    @property
+    def supports_fused_bicgstab(self) -> bool:
+        """Whether :meth:`make_fused_bicgstab_runner` is available: the 2-D
+        kernel view within the K5 gate, not disabled by
+        LEGIONSOLVERS_NO_FUSED_BICGSTAB.  The 3-D view and sharded
+        operators have fused runners in the JAX package; they come to the
+        port with the 3-D and multi-device slices."""
+        from ..ops.cuda.bicgstab2d import bicgstab_supported
+
+        if os.environ.get("LEGIONSOLVERS_NO_FUSED_BICGSTAB"):
+            return False
+        v = self._view
+        return v is not None and bicgstab_supported(v["Br"], v["C"], v["offs"])
+
+    def make_fused_bicgstab_runner(self, num_iterations: int):
+        """Whole-loop BiCGStab on the three K5 passes (60 B/unknown per
+        iteration at f32), or None where :attr:`supports_fused_bicgstab`
+        is False.  Contract: ``run(x, r, p, v, rt, rho, alpha, omega) ->
+        (x, r, p, v, rho, alpha, omega, history)`` with history[0] = <r, r>
+        on entry; an exact continuation of the transcription recurrence
+        (reference: BiCGStabSolver.hpp:64-82) from any state.  Inputs are
+        flat or grid layout; outputs take the input layout.
+
+        Per iteration: ``pv`` gives p', v' = A p' and <r~, v'> (alpha);
+        ``st`` gives <t, s> and <t, t> (omega); ``update`` gives x', r',
+        <r', r'> (history) and <r~, r'> (the next rho).  About six scalar
+        ops on 0-dim device tensors join them; nothing is read back.
+
+        Buffers: x is updated in place.  p, v and r alternate with
+        ping-pong spares, because a pass writing p, v or r in place would
+        race a neighbouring block's halo read.  So the runner holds eight
+        live [R, C] vectors (x, r, r', p, p', v', v, r~: 537 MB at 4096^2)
+        where the JAX runner holds five; it writes into the x, r, p and v
+        it is given (which must share no storage with r~ or each other)
+        and never into r~."""
+        if not self.supports_fused_bicgstab:
+            return None
+        from ..ops.cuda.bicgstab2d import _pdot, bicg_pv, bicg_st, bicg_update
+
+        kw = dict(self._kw(), compensated=bool(self.options.compensated_dots))
+        dot = lambda a, b: _pdot(a, b, kw["compensated"])
+
+        def run(x, r, p, v, rt, rho, alpha, omega):
+            shape = x.shape
+            x, r, p, v, rt = (self._grid(a) for a in (x, r, p, v, rt))
+            rho, alpha, omega = (
+                torch.as_tensor(a).to(device=x.device, dtype=torch.float32)
+                for a in (rho, alpha, omega))
+            hist = [dot(r, r)]
+            rtr = dot(rt, r)
+            spare_r, spare_p, spare_v = (torch.empty_like(a)
+                                         for a in (r, p, v))
+            for _ in range(num_iterations):
+                rho_new = rtr
+                beta = (rho_new / rho) * (alpha / omega)
+                pn, vn, rtv = bicg_pv(r, p, v, rt, beta, omega,
+                                      out=(spare_p, spare_v), **kw)
+                spare_p, spare_v, p, v = p, v, pn, vn
+                alpha = rho_new / rtv
+                ts, tt = bicg_st(r, v, alpha, **kw)
+                omega = ts / tt
+                _, rn, rr, rtr = bicg_update(r, v, x, p, rt, alpha, omega,
+                                             out=spare_r, **kw)
+                spare_r, r = r, rn
+                hist.append(rr)
+                rho = rho_new
+            x, r, p, v = (a.reshape(shape) for a in (x, r, p, v))
+            return x, r, p, v, rho, alpha, omega, torch.stack(hist)
 
         return run
 

@@ -23,6 +23,7 @@ from .core.partition import BlockPartition
 from .core.scalar import Scalar
 from .core.vector import PartitionedVector
 from .ops import blas1
+from .ops.ddsum import dd_dot
 from .options import DEFAULT_OPTIONS, SolverOptions, resolve_device
 from .parallel.distmatrix import RowPartitionedMatrix
 
@@ -170,9 +171,15 @@ class SquarePlanner:
             d.xpay(*alpha, s)
 
     def dot(self, v_idx: int, w_idx: int) -> Scalar:
-        """Sum of per-space dots (reference: SquarePlanner.hpp:331-338)."""
+        """Sum of per-space dots (reference: SquarePlanner.hpp:331-338).
+        Under ``options.compensated_dots`` each dot is :func:`dd_dot`."""
+        if self.options.compensated_dots:
+            dtype = self.options.entry_dtype
+            d = lambda a, b: dd_dot(a, b).to(dtype)
+        else:
+            d = blas1.dot
         parts = [
-            blas1.dot(v.data, w.data)
+            d(v.data, w.data)
             for v, w in zip(self._vectors(v_idx), self._vectors(w_idx))
         ]
         total = parts[0]

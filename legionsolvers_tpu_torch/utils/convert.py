@@ -3,9 +3,9 @@
 A JAX system reaches this module as plain numpy: its grid shape and
 ``(offset, value)`` stencil list (or its COO arrays), the vectors of
 ``SquarePlanner.dump_state()`` after ``np.asarray``, and the tail of its
-residual² history.  The functions build the port's planner and CG solver
-holding the same state, so both packages continue the same computation.
-Nothing here imports jax.
+residual² history (CG) or its x, r, p, v and rho, alpha, omega (BiCGStab).
+The functions build the port's planner and solver holding the same state,
+so both packages continue the same computation.  Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from ..core.vector import PartitionedVector
 from ..options import DEFAULT_OPTIONS, SolverOptions
 from ..parallel.stencil_op import StencilOperator
 from ..planner import SquarePlanner
+from ..solvers.bicgstab import BiCGStabSolver
 from ..solvers.cg import CGSolver
 
 
@@ -56,6 +57,25 @@ def cg_solver_from_state(planner: SquarePlanner, state: Mapping,
         Scalar(torch.tensor(float(v), dtype=dtype, device=planner.device))
         for v in rr_history
     ]
+    return solver
+
+
+def bicgstab_solver_from_state(planner: SquarePlanner,
+                               state: Mapping) -> BiCGStabSolver:
+    """A :class:`BiCGStabSolver` on ``planner`` continuing from ``state``:
+    numpy arrays ``x``, ``r``, ``p``, ``v`` (the JAX solver's SOL, R, P and
+    V vectors) and the scalars ``rho``, ``alpha`` and ``omega`` (the last
+    entries of its lists).  R_TILDE stays the copy of the planner's b."""
+    solver = BiCGStabSolver(planner)
+    for idx, key in ((solver.SOL, "x"), (solver.R, "r"), (solver.P, "p"),
+                     (solver.V, "v")):
+        vec = planner.get_vector(idx, 0)
+        vec.data = _tensor(state[key], vec)
+    dtype = planner.options.entry_dtype
+    solver.rho, solver.alpha, solver.omega = (
+        [Scalar(torch.tensor(float(state[k]), dtype=dtype,
+                             device=planner.device))]
+        for k in ("rho", "alpha", "omega"))
     return solver
 
 

@@ -121,9 +121,12 @@ def test_launch_counts_stay_zero_on_cpu():
     assert sum(TK.LAUNCHES.values()) == 0
 
 
-def test_options():
-    with pytest.raises(NotImplementedError):
-        T.SolverOptions(compensated_dots=True)
+def test_options(monkeypatch):
+    assert T.SolverOptions(compensated_dots=True).compensated_dots
+    monkeypatch.setenv("LEGIONSOLVERS_COMPENSATED_DOTS", "1")
+    assert T.SolverOptions().compensated_dots
+    monkeypatch.delenv("LEGIONSOLVERS_COMPENSATED_DOTS")
+    assert not T.SolverOptions().compensated_dots
     with pytest.raises(ValueError):
         T.SolverOptions(entry_dtype=torch.bfloat16)
 
