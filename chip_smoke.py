@@ -43,11 +43,33 @@ Phases (any failure raises, and the exit code is non-zero):
    no worse than twice textbook f32's, at 4096^2 (f32 dots) and at 256^2
    (compensated dots: with f32 dots that run breaks down when rho sums to
    exactly 0 near the f32 floor);
+3c. the 3-D kernels: K6a (y, y_dot, pq, update), K6b (xpay_pq) and K7
+   (pv, st, update; compensated dots off and on) against their plain
+   versions, 7- and 27-point stencils, at the main-path shape 256^3 and a
+   ragged 37 x 45 x 130, with random halo planes; the bounds of phases 3
+   and 3b;
+4c. drive the 3-D CG path, ``entry.build_stencil_system(3 | 4, (256,)*3)``
+   -> ``CGSolver``: eager ``step()``s (K6a y_dot), ``solve(200)`` (1 pq +
+   200 update + 199 xpay_pq, counted exactly), the same solve again
+   (bit-identical), ||b - Ax||^2 through ``planner.matvec`` (K6a y)
+   against the last history entry, and the solve against float64 CG
+   written here with its own matvec; the bounds (constants below) come
+   from textbook f32 CG's own distance from float64 on these systems;
+4d. drive the 3-D BiCGStab path on the same systems: 200 launches of each
+   K7 pass, a bit-identical repeat, ||b - Ax||^2 after 20 iterations
+   against the history, and float64 BiCGStab as phase 4b holds it (f32
+   BiCGStab breaks down on the 7-point system, textbook f32 too, so the
+   end result is held with compensated dots);
 5. time each kernel and the whole solve(200) of both solvers against their
    plain versions with CUDA events, after a warm-up, over a ring of input
    sets so that L2 does not serve repeats, refusing any time that would
    beat the card's measured copy bandwidth.  ``--profile`` adds a
-   ``torch.profiler`` trace of the BiCGStab solve, last.
+   ``torch.profiler`` trace of the 2-D BiCGStab solve and of the four 3-D
+   solves, last.  The 3-D kernels and the four 3-D solves are timed the
+   same way at 256^3; ``F.conv2d`` and ``F.conv3d`` computing K3's and
+   K6a's y are timed as the library yardstick.  Each kernel's bound is the
+   larger of its minimum bytes over the measured copy bandwidth and its
+   f32 operations over the card's f32 peak.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Details also go to
@@ -92,6 +114,57 @@ N_ITERS = 200
 # ~1e3-fold per iteration
 N_AGREE = 3
 CONTINUE_AT = (0, 50, 100, 150, 199)
+
+# the 3-D path: -dim 3 (7-point) and 4 (27-point) at 256^3, the JAX bench
+# matrix's size (scripts/bench_matrix.py:25-30)
+SHAPE3 = (256, 256, 256)
+RAGGED3 = (37, 45, 130)
+DIMS3 = (3, 4)
+CSRC3 = "legionsolvers_tpu_torch/csrc/stencil3d.cu"
+PALLAS3 = "legionsolvers_tpu/ops/pallas/stencil3d.py"
+KERNELS3 = {
+    "y3d": ("grid3d_stencil_matvec", 334, 8),
+    "y_dot3d": ("grid3d_stencil_matvec(with_dot)", 334, 8),
+    "pq3d": ("grid3d_cg_pq", 334, 4),
+    "update3d": ("grid3d_cg_update", 334, 20),
+    "xpay_pq3d": ("grid3d_cg_xpay_pq", 495, 12),
+}
+BICG3_CSRC = "legionsolvers_tpu_torch/csrc/bicgstab3d.cu"
+BICG3_PALLAS = "legionsolvers_tpu/ops/pallas/bicgstab3d.py"
+BICG3_KERNELS = {"bicg3d_pv": (243, 24), "bicg3d_st": (243, 8),
+                 "bicg3d_update": (243, 28)}
+NAMES3 = {"y3d": ("y",), "y_dot3d": ("y", "dot"), "pq3d": ("dot",),
+          "update3d": ("x", "r", "dot"), "xpay_pq3d": ("p", "dot"),
+          "bicg3d_pv": ("p", "v", "rtv"), "bicg3d_st": ("ts", "tt"),
+          "bicg3d_update": ("x", "r", "rr", "rtr")}
+# Bounds of the 3-D solves, set from what f32 arithmetic itself does on
+# these systems (textbook f32 against float64 on an H100; PERF.md §6):
+# textbook f32 CG is 1.5e-4 off float64 CG by iteration 3, so eager step()s
+# and the fused solve, which sum in other orders, are held to 1e-5 over the
+# first two history entries and 1e-3 over the first N_EAGER + 1; 27-point
+# f32 CG ends with ||b - Ax||^2 13.7% off its recurrence residual (textbook
+# f32 too), so the kernel path's gap is held to twice textbook f32's, or
+# 1e-3; f32 BiCGStab's recurrence is held to ||b - Ax||^2 after GAP_ITERS
+# iterations, while its residual is far above f32's attainable accuracy.
+EAGER3_RTOL = (1e-5, 1e-3)
+CG3_GAP_FLOOR = 1e-3
+CG3_F64_FLOOR = 1e-4
+GAP_ITERS = 20
+BICG3_GAP = 1e-3
+BICG3_X_FLOOR = 1e-3
+
+# f32 peak outside the tensor cores of one H100 SXM at 700 W (NVIDIA's data
+# sheet), for the operations side of each kernel's bound
+F32_PEAK = 67e12
+# per pass: (stencil applications, other f32 operations) per element
+PASS_OPS = {"y": (1, 0), "y_dot": (1, 2), "pq": (1, 2), "update": (1, 6),
+            "xpay_pq": (1, 4), "gram2": (3, 20), "step2": (5, 40),
+            "bicg_pv": (1, 6), "bicg_st": (1, 6), "bicg_update": (1, 12)}
+
+
+def ops_per_elt(name, n_terms):
+    apps, other = PASS_OPS[name.replace("3d", "")]
+    return 2 * n_terms * apps + other
 
 
 def log(*a):
@@ -369,19 +442,20 @@ def lap5(v):
     return out
 
 
-def classic_cg(xp, n_grid, iters, dtype=None, device=None):
-    """Textbook CG on the 5-point Laplacian, b = 1, in numpy (``xp`` =
-    numpy, float64) or torch (``xp`` = torch, ``dtype`` on ``device``):
-    (history, x), both float64."""
+def classic_cg(xp, shape, iters, dtype=None, device=None, matvec=lap5):
+    """Textbook CG on ``matvec`` (default the 5-point Laplacian) over a
+    grid of ``shape``, b = 1, in numpy (``xp`` = numpy, float64) or torch
+    (``xp`` = torch, ``dtype`` on ``device``): (history, x), both
+    float64."""
     if device is None:
-        b = xp.ones((n_grid, n_grid))
+        b = xp.ones(shape)
     else:
-        b = xp.ones(n_grid, n_grid, dtype=dtype, device=device)
+        b = xp.ones(shape, dtype=dtype, device=device)
     x, r, p = b * 0, b * 1, b * 1
     rr = (r * r).sum()
     hist = [rr]
     for _ in range(iters):
-        q = lap5(p)
+        q = matvec(p)
         a = rr / (p * q).sum()
         x += a * p
         r -= a * q
@@ -469,8 +543,10 @@ def main_path(torch, np, T, lt, device):
     if T.LAUNCHES:
         raise AssertionError("plain-driven solve launched kernels")
     rel_dev = lambda a, b: ((a.double() - b) / b).abs()
-    h64, x64 = classic_cg(torch, N_GRID, 200, torch.float64, device)
-    h32, x32 = classic_cg(torch, N_GRID, 200, torch.float32, device)
+    h64, x64 = classic_cg(torch, (N_GRID, N_GRID), 200, torch.float64,
+                          device)
+    h32, x32 = classic_cg(torch, (N_GRID, N_GRID), 200, torch.float32,
+                          device)
     off = (rel_dev(h32, h64) > 5e-4).nonzero()
     window = int(off[0]) if len(off) else len(h64)
     dev = rel_dev(hist200, hist_plain.double())[:window].max().item()
@@ -493,7 +569,7 @@ def main_path(torch, np, T, lt, device):
     # a smaller grid, where f32 stays within 1e-3 of float64 CG (numpy)
     small = build_system(SMALL_GRID, f32, device)
     hist50 = lt.CGSolver(small).solve(50).cpu().numpy()
-    ref50, xref = classic_cg(np, SMALL_GRID, 50)
+    ref50, xref = classic_cg(np, (SMALL_GRID, SMALL_GRID), 50)
     dev50 = float(np.max(np.abs(hist50 - ref50) / ref50))
     xs = small.sol_vectors[0].to_numpy().reshape(SMALL_GRID, SMALL_GRID)
     xdev50 = float(np.max(np.abs(xs - xref)) / np.max(np.abs(xref)))
@@ -508,13 +584,15 @@ def main_path(torch, np, T, lt, device):
     return counts, results, solver
 
 
-def textbook_bicgstab(torch, n_grid, iters, dtype, device, dot_dtype=None):
-    """Textbook BiCGStab on the 5-point Laplacian, b = 1, x0 = 0, r~ = b,
-    in torch on ``device``; the dots summed in ``dot_dtype`` (default
-    ``dtype``).  Returns (history, x), both float64."""
+def textbook_bicgstab(torch, shape, iters, dtype, device, dot_dtype=None,
+                      matvec=lap5):
+    """Textbook BiCGStab on ``matvec`` (default the 5-point Laplacian) over
+    a grid of ``shape``, b = 1, x0 = 0, r~ = b, in torch on ``device``; the
+    dots summed in ``dot_dtype`` (default ``dtype``).  Returns (history,
+    x), both float64."""
     dd = dot_dtype or dtype
     dot = lambda a, b: torch.sum(a.to(dd) * b.to(dd)).to(dtype)
-    b = torch.ones(n_grid, n_grid, dtype=dtype, device=device)
+    b = torch.ones(shape, dtype=dtype, device=device)
     x, r, rt = b * 0, b * 1, b * 1
     p, v = b * 0, b * 0
     rho, alpha, omega = (torch.tensor(c, dtype=dtype, device=device)
@@ -525,10 +603,10 @@ def textbook_bicgstab(torch, n_grid, iters, dtype, device, dot_dtype=None):
         beta = (rho_new / rho) * (alpha / omega)
         rho = rho_new
         p = r + beta * (p - omega * v)
-        v = lap5(p)
+        v = matvec(p)
         alpha = rho / dot(rt, v)
         s = r - alpha * v
-        t = lap5(s)
+        t = matvec(s)
         omega = dot(t, s) / dot(t, t)
         x = x + alpha * p + omega * s
         r = s - omega * t
@@ -536,18 +614,19 @@ def textbook_bicgstab(torch, n_grid, iters, dtype, device, dot_dtype=None):
     return torch.stack(hist).double(), x.double()
 
 
-def solution_quality(torch, hist, x, h64, x64):
+def solution_quality(torch, hist, x, h64, x64, matvec=lap5):
     """(history max rel dev from float64, x max rel dev, true residual
     ||b - A x||^2 in float64)."""
     x = x.double().reshape(x64.shape)
     return (((hist.double() - h64) / h64).abs().max().item(),
             ((x - x64).abs().max() / x64.abs().max()).item(),
-            torch.sum((1.0 - lap5(x)) ** 2).item())
+            torch.sum((1.0 - matvec(x)) ** 2).item())
 
 
 def agree_window(hist, h64, rtol=1e-3):
-    """Leading entries of ``hist`` within ``rtol`` of ``h64``."""
-    off = (((hist.double() - h64) / h64).abs() > rtol).nonzero()
+    """Leading entries of ``hist`` within ``rtol`` of ``h64`` (a NaN
+    disagrees)."""
+    off = (~(((hist.double() - h64) / h64).abs() <= rtol)).nonzero()
     return int(off[0]) if len(off) else len(h64)
 
 
@@ -651,8 +730,9 @@ def bicgstab_path(torch, T, TB, lt, device):
     # against float64 BiCGStab: 4096^2 plain dots (the main path) and 256^2
     # compensated (with plain f32 dots this 256^2 run breaks down: near the
     # f32 floor rho = <r~, r> is rounding noise and can sum to exactly 0)
-    h64, x64 = textbook_bicgstab(torch, N_GRID, N_ITERS, torch.float64, device)
-    h32, x32 = textbook_bicgstab(torch, N_GRID, N_ITERS, torch.float32, device)
+    grid = (N_GRID, N_GRID)
+    h64, x64 = textbook_bicgstab(torch, grid, N_ITERS, torch.float64, device)
+    h32, x32 = textbook_bicgstab(torch, grid, N_ITERS, torch.float32, device)
     big = {"textbook f32": solution_quality(torch, h32, x32, h64, x64),
            "kernel": solution_quality(torch, hist, x, h64, x64),
            "kernel compensated": solution_quality(torch, hist_ck, x_ck,
@@ -666,9 +746,10 @@ def bicgstab_path(torch, T, TB, lt, device):
         entry_dtype=torch.float32, compensated_dots=True), device)
     hs = lt.BiCGStabSolver(small).solve(N_ITERS)
     xs = small.sol_vectors[0].data
-    s64, xs64 = textbook_bicgstab(torch, SMALL_GRID, N_ITERS, torch.float64,
+    sgrid = (SMALL_GRID, SMALL_GRID)
+    s64, xs64 = textbook_bicgstab(torch, sgrid, N_ITERS, torch.float64,
                                   device)
-    s32, xs32 = textbook_bicgstab(torch, SMALL_GRID, N_ITERS, torch.float32,
+    s32, xs32 = textbook_bicgstab(torch, sgrid, N_ITERS, torch.float32,
                                   device, dot_dtype=torch.float64)
     sm = {"textbook f32 (f64 dots)": solution_quality(torch, s32, xs32, s64,
                                                       xs64),
@@ -824,7 +905,7 @@ def kernel_call(T, mode, d, plain):
 
 def time_solve(torch, T, solver, bw, card):
     """Phase 5b.  ms/iter of solve(200) at 4096^2, kernel- and
-    plain-driven; each timed run follows a reset outside the events."""
+    plain-driven (:func:`solve_ms`)."""
     n = N_GRID * N_GRID
     # 12 B/unknown/iteration for the s-step passes + 7 gram2 passes of 8 B
     nbytes = (24 * 100 + 8 * 7) * n
@@ -832,24 +913,7 @@ def time_solve(torch, T, solver, bw, card):
     for label in ("kernel", "plain"):
         ctx = (plain_driven(T, solver, cg_plain(T)) if label == "plain"
                else None)
-        if ctx:
-            ctx.__enter__()
-        try:
-            runs = []
-            for _ in range(3 if label == "kernel" else 2):
-                restart(solver)
-                torch.cuda.synchronize()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                solver.solve(200)
-                end.record()
-                end.synchronize()
-                runs.append(start.elapsed_time(end))
-        finally:
-            if ctx:
-                ctx.__exit__(None, None, None)
-        ms = min(runs[1:])  # the first run is the warm-up
+        ms, _ = solve_ms(torch, solver, 200, ctx)
         sane(f"solve(200) {label}", ms, nbytes, bw)
         res[label] = ms / 200
         log(f"[time] solve(200) {label}-driven: {ms / 200:.4f} ms/iter "
@@ -900,26 +964,7 @@ def time_bicg_solve(torch, TB, solver, bw, card):
     for label in ("kernel", "plain"):
         ctx = (plain_driven(TB, solver, bicg_plain(TB)) if label == "plain"
                else None)
-        if ctx:
-            ctx.__enter__()
-        try:
-            runs = []
-            for _ in range(3 if label == "kernel" else 2):
-                restart(solver)
-                torch.cuda.synchronize()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                t0 = time.perf_counter()
-                start.record()
-                solver.solve(N_ITERS)
-                end.record()
-                host = time.perf_counter() - t0
-                end.synchronize()
-                runs.append((start.elapsed_time(end), host * 1e3))
-        finally:
-            if ctx:
-                ctx.__exit__(None, None, None)
-        ms, host_ms = min(runs[1:])  # the first run is the warm-up
+        ms, host_ms = solve_ms(torch, solver, N_ITERS, ctx)
         sane(f"BiCGStab solve({N_ITERS}) {label}", ms, nbytes, bw)
         res[label] = ms / N_ITERS
         log(f"[time] BiCGStab solve({N_ITERS}) {label}-driven: "
@@ -929,10 +974,11 @@ def time_bicg_solve(torch, TB, solver, bw, card):
     return res
 
 
-def profile_bicg_solve(torch, solver, card):
-    """With --profile: device time by kernel over one BiCGStab solve(200),
-    from a torch.profiler trace, written to chiprun_out/bicg_profile.txt.
+def profile_solve(torch, solver, label, card):
+    """With --profile: device time by kernel over one solve(200), from a
+    torch.profiler trace, written to chiprun_out/profile_<label>.txt.
     Runs last, because the tracer slows the host's later launches."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     restart(solver)
@@ -945,16 +991,559 @@ def profile_bicg_solve(torch, solver, card):
         torch.cuda.synchronize()
     events = prof.key_averages()
     table = events.table(sort_by="cuda_time_total", row_limit=25)
-    path = pathlib.Path("chiprun_out") / "bicg_profile.txt"
+    path = pathlib.Path("chiprun_out") / f"profile_{label}.txt"
     path.parent.mkdir(exist_ok=True)
     path.write_text(f"{card}\n{table}\n")
     log(table)
-    from torch.autograd import DeviceType
-
     device_ms = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA) / 1e3
-    log(f"[profile] BiCGStab solve({N_ITERS}): device time {device_ms:.3f} "
+    log(f"[profile] {label} solve({N_ITERS}): device time {device_ms:.3f} "
         f"ms in all kernels and copies, on {card}")
+
+
+# ---------------------------------------------------------------------------
+# 3-D: phase 3c (K6, K7 against their plain versions), 4c (CG), 4d
+# (BiCGStab), 5e (timing)
+# ---------------------------------------------------------------------------
+
+def stencil_kw(lt, dim):
+    """offsets= and values= of the -dim 3 (7-point) or 4 (27-point)
+    stencil."""
+    st = lt.laplacian_stencil(dim)
+    return dict(offsets=tuple(o for o, _ in st),
+                values=tuple(v for _, v in st))
+
+
+def stencil_matvec(torch, lt, dim):
+    """y = A v for the -dim ``dim`` stencil by shifted slices of a
+    zero-padded copy of v: the references' own matvec, any dtype."""
+    import torch.nn.functional as F
+
+    terms = lt.laplacian_stencil(dim)
+
+    def A(v):
+        X, Y, Z = v.shape
+        e = F.pad(v, (1, 1, 1, 1, 1, 1))
+        out = torch.zeros_like(v)
+        for (ox, oy, oz), w in terms:
+            out += w * e[1 + ox: 1 + ox + X, 1 + oy: 1 + oy + Y,
+                         1 + oz: 1 + oz + Z]
+        return out
+
+    return A
+
+
+def inputs3d(torch, shape, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    d = {k: torch.randn(shape, generator=g, device=device)
+         for k in ("x", "r", "p", "v", "rt")}
+    for k in ("top", "bot"):
+        d[k] = torch.randn(shape[1:], generator=g, device=device)
+    for k, val in (("alpha", 0.83), ("beta", 0.37), ("omega", 0.41)):
+        d[k] = torch.tensor(val, device=device)
+    return d
+
+
+def call3d(T3, TB3, name, d, kw, plain, compensated=False, out=None):
+    """A closure running one 3-D pass on ``d`` (x and r of update3d, x of
+    bicg3d_update in place) with the halo planes d["top"], d["bot"]: the
+    wrapper or its plain version.  Results as tuples named by NAMES3."""
+    h = (d["top"], d["bot"])
+    if name in ("y3d", "y_dot3d", "pq3d", "update3d"):
+        mode = name[:-2]
+        src = d["p"] if mode in ("pq", "update") else d["x"]
+        extra = (d["x"], d["r"], d["alpha"]) if mode == "update" else ()
+        if plain:
+            return lambda: T3.stencil3d_plain(mode, src, *h, extra, **kw)
+        if mode == "update":
+            return lambda: T3.grid3d_cg_update(src, *extra, *h, **kw)
+        if mode == "pq":
+            return lambda: (T3.grid3d_cg_pq(src, *h, **kw),)
+        if mode == "y":
+            return lambda: (T3.grid3d_stencil_matvec(src, *h, **kw),)
+        return lambda: T3.grid3d_stencil_matvec(src, *h, with_dot=True, **kw)
+    if name == "xpay_pq3d":
+        fn = T3.xpay_pq3d_plain if plain else T3.grid3d_cg_xpay_pq
+        return lambda: fn(d["r"], d["p"], d["beta"], *h, out=out, **kw)
+    fn = getattr(TB3, name + "_plain" if plain else name)
+    kw = dict(kw, compensated=compensated)
+    if name == "bicg3d_pv":
+        return lambda: fn(d["r"], d["p"], d["v"], d["rt"], d["beta"],
+                          d["omega"], *h, out=out, **kw)
+    if name == "bicg3d_st":
+        return lambda: fn(d["r"], d["v"], d["alpha"], *h, **kw)
+    return lambda: fn(d["r"], d["v"], d["x"], d["p"], d["rt"], d["alpha"],
+                      d["omega"], *h, out=out, **kw)
+
+
+def dot_operands3(T3, name, d, outs, kw):
+    """The f32 operand pair of each dot a 3-D pass returns, from ``outs``
+    where the pass writes it and from the plain stencil otherwise."""
+    A = lambda v: T3.apply_planes_plain(v, kw["offsets"], kw["values"],
+                                        d["top"], d["bot"])
+    if name == "y_dot3d":
+        return {"dot": (d["x"], outs["y"])}
+    if name == "pq3d":
+        return {"dot": (d["p"], A(d["p"]))}
+    if name == "update3d":
+        return {"dot": (outs["r"], outs["r"])}
+    if name == "xpay_pq3d":
+        return {"dot": (outs["p"], A(outs["p"]))}
+    if name == "bicg3d_pv":
+        return {"rtv": (d["rt"], outs["v"])}
+    if name == "bicg3d_update":
+        return {"rr": (outs["r"], outs["r"]), "rtr": (d["rt"], outs["r"])}
+    s = d["r"] - d["alpha"] * d["v"]
+    t = A(s)
+    return {"ts": (t, s), "tt": (t, t)}
+
+
+def compare_3d_kernels(torch, lt, T3, TB3, device):
+    """Phase 3c: K6a (four modes), K6b and K7 (compensated dots off and on)
+    against their plain versions, 7- and 27-point stencils, at 256^3 and a
+    ragged 37 x 45 x 130, with random halo planes.  The bounds of phases 3
+    and 3b.  Returns {(name, dim): max abs error}."""
+    f64dot = lambda a, b: torch.dot(a.double().reshape(-1),
+                                    b.double().reshape(-1)).item()
+    nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
+    errs = {}
+    for shape in (SHAPE3, RAGGED3):
+        d = inputs3d(torch, shape, 29, device)
+        for dim in DIMS3:
+            kw = stencil_kw(lt, dim)
+            for name in (*KERNELS3, *BICG3_KERNELS):
+                for comp in ((False, True) if name in BICG3_KERNELS
+                             else (False,)):
+                    outs = {}
+                    for plain in (False, True):
+                        c = {k: v.clone() for k, v in d.items()}
+                        res = call3d(T3, TB3, name, c, kw, plain, comp)()
+                        outs[plain] = dict(zip(NAMES3[name], res))
+                    got, ref = outs[False], outs[True]
+                    torch.cuda.synchronize()
+                    ops = dot_operands3(T3, name, d, ref, kw)
+                    worst = 0.0
+                    for key, want in ref.items():
+                        err = (got[key].double() - want.double()).abs().max()
+                        worst = max(worst, err.item())
+                        if want.dim():
+                            ok = err.item() <= 1e-5 * want.abs().max().item()
+                        else:
+                            a, b = ops[key]
+                            ok = err.item() <= 1e-4 * nrm(a) * nrm(b)
+                        if not ok:
+                            raise AssertionError(
+                                f"{name} {shape} dim {dim} compensated="
+                                f"{comp} {key}: kernel disagrees with its "
+                                f"plain version (max abs err {err.item():g})")
+                    exact_rel = 0.0
+                    if comp:
+                        for key, (a, b) in dot_operands3(
+                                T3, name, d, got, kw).items():
+                            exact = f64dot(a, b)
+                            rel = abs(got[key].item() - exact) / abs(exact)
+                            exact_rel = max(exact_rel, rel)
+                            if rel > 4e-7:
+                                raise AssertionError(
+                                    f"{name} {shape} dim {dim} {key}: "
+                                    f"compensated dot {rel:g} off the "
+                                    "float64 sum")
+                    errs[name, dim] = max(errs.get((name, dim), 0.0), worst)
+                    log(f"[check3d] {name:13s} {shape} dim {dim}"
+                        + (f" compensated={comp}" if name in BICG3_KERNELS
+                           else "")
+                        + f": kernel == plain (max abs err {worst:.3g}"
+                        + (f"; dots vs float64 sum max rel {exact_rel:.3g})"
+                           if comp else ")"))
+        del d
+    return errs
+
+
+def cg3d_plain(T3):
+    """The plain versions of the 3-D CG runner's wrappers."""
+    return {
+        "grid3d_cg_pq": lambda p, top=None, bot=None, **kw:
+            T3.stencil3d_plain("pq", p, top, bot, **kw)[0],
+        "grid3d_cg_update": lambda p, x, r, alpha, top=None, bot=None, **kw:
+            T3.stencil3d_plain("update", p, top, bot, (x, r, alpha), **kw),
+        "grid3d_cg_xpay_pq": T3.xpay_pq3d_plain,
+    }
+
+
+def bicg3d_plain(TB3):
+    return {k: getattr(TB3, k + "_plain") for k in BICG3_KERNELS}
+
+
+def rel_dev(a, b):
+    return ((a.double() - b.double()) / b.double()).abs()
+
+
+def max_rel(a, b):
+    return rel_dev(a, b).max().item()
+
+
+def same_bits(a, b):
+    """Bit-identical, NaNs included (torch.equal calls NaN != NaN)."""
+    import torch
+
+    as_int = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.shape == b.shape and torch.equal(a.view(as_int), b.view(as_int))
+
+
+def eager_ok(dev):
+    """Eager step()s vs the fused solve: the first two history entries to
+    EAGER3_RTOL[0], the rest to EAGER3_RTOL[1]."""
+    return (dev[:2].max().item() <= EAGER3_RTOL[0]
+            and dev.max().item() <= EAGER3_RTOL[1])
+
+
+def x_rel(x, x64):
+    x = x.double().reshape(x64.shape)
+    return ((x - x64).abs().max() / x64.abs().max()).item()
+
+
+def cg3d_path(torch, T, lt, device, dim):
+    """Phase 4c: ``build_stencil_system(dim, 256^3)`` -> ``CGSolver``: eager
+    ``step()``s (K6a y_dot), ``solve(200)`` (1 pq + 200 update + 199
+    xpay_pq, counted exactly), the same solve again (bit-identical history
+    and x), ||b - Ax||^2 through ``planner.matvec`` (K6a y) against the
+    last history entry, and the solve against float64 CG.  Returns (launch
+    counts of the run, results, solver, failed checks)."""
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+
+    planner = build_stencil_system(
+        dim, SHAPE3, lt.SolverOptions(entry_dtype=torch.float32), device)
+    op = planner.row_partitioned_matrices[0][0]
+    if not (op.uses_pallas and op._view["kind"] == "3d"):
+        raise AssertionError(f"-dim {dim} 256^3 is not on the 3-D view")
+    solver = lt.CGSolver(planner)
+    b = planner.rhs_vectors[0].data
+    torch.cuda.synchronize()
+
+    T.reset_launch_counts()
+    for _ in range(N_EAGER):
+        solver.step()
+    eager = torch.stack([s.value for s in solver.residual_norm_squared])
+    restart(solver)
+    hist = solver.solve(N_ITERS)
+    after = dict(T.LAUNCHES)
+    x = planner.sol_vectors[0].data.clone()
+    restart(solver)
+    hist2 = solver.solve(N_ITERS)
+    planner.matvec(solver.Q, solver.SOL)
+    torch.cuda.synchronize()
+    counts = dict(T.LAUNCHES)
+    T.reset_launch_counts()
+    repeat = same_bits(hist, hist2) and same_bits(
+        x, planner.sol_vectors[0].data)
+    true_rr = torch.sum((b - planner.get_vector(solver.Q, 0).data)
+                        .double() ** 2).item()
+    gap = abs(true_rr - hist[-1].item()) / hist[-1].item()
+    eager_dev = rel_dev(eager, hist[:N_EAGER + 1])
+
+    A = stencil_matvec(torch, lt, dim)
+    h64, x64 = classic_cg(torch, SHAPE3, N_ITERS, torch.float64, device, A)
+    h32, x32 = classic_cg(torch, SHAPE3, N_ITERS, torch.float32, device, A)
+    gap32 = abs(torch.sum((1.0 - A(x32)) ** 2).item() - h32[-1].item()) \
+        / h32[-1].item()
+    env = {"textbook f32": (max_rel(h32, h64), x_rel(x32, x64)),
+           "kernel": (max_rel(hist, h64), x_rel(x, x64))}
+    text_dev = rel_dev(h32, h64)[:N_EAGER + 1]
+    log(f"[cg3d] dim {dim}: launches {after}, then {counts}; repeat "
+        f"bit-identical {repeat}; eager vs fused rel dev "
+        f"{[f'{e:.3g}' for e in eager_dev.tolist()]}; textbook f32 vs "
+        f"float64 rel dev {[f'{e:.3g}' for e in text_dev.tolist()]}; "
+        f"residual^2 {hist[0].item():.6g} -> {hist[-1].item():.6g} (float64 "
+        f"CG {h64[-1].item():.6g}); ||b-Ax||^2 {true_rr:.6g} (rel gap "
+        f"{gap:.3g}; textbook f32 {gap32:.3g}); against float64 CG "
+        "(history, x max rel): " + ", ".join(
+            f"{k} {h:.3g} {xx:.3g}" for k, (h, xx) in env.items()))
+
+    want_after = {"y_dot3d": N_EAGER, "pq3d": 1, "update3d": N_ITERS,
+                  "xpay_pq3d": N_ITERS - 1}
+    want = {k: 2 * v for k, v in want_after.items()}
+    want.update(y_dot3d=N_EAGER, y3d=1)
+    k_env, t_env = env["kernel"], env["textbook f32"]
+    checks = {
+        "launches": after == want_after and counts == want,
+        "two solves from one state are bit-identical": repeat,
+        "histories finite": bool(torch.isfinite(hist).all()
+                                 and torch.isfinite(eager).all()),
+        "b intact": bool((b == 1.0).all()),
+        f"eager step() vs fused solve, rtol {EAGER3_RTOL}": eager_ok(eager_dev),
+        "||b - Ax||^2 vs history[-1] within twice textbook f32's gap (or "
+        f"{CG3_GAP_FLOOR})": gap <= max(2 * gap32, CG3_GAP_FLOOR),
+        "history and x within twice textbook f32 CG's distance from "
+        f"float64 CG (floor {CG3_F64_FLOOR})":
+            k_env[0] <= max(2 * t_env[0], CG3_F64_FLOOR)
+            and k_env[1] <= max(2 * t_env[1], CG3_F64_FLOOR),
+    }
+    failed = [f"cg3d dim {dim}: {k}" for k, ok in checks.items() if not ok]
+    results = {"hist_first_last": (hist[0].item(), hist[-1].item()),
+               "true_rr": true_rr, "gap": gap, "gap_textbook": gap32,
+               "eager_dev": eager_dev.tolist(), "vs_f64": env,
+               "checks": checks}
+    return counts, results, solver, failed
+
+
+def bicg3d_path(torch, T, lt, device, dim):
+    """Phase 4d: the same system -> ``BiCGStabSolver``: eager ``step()``s
+    (K6a y, y_dot), ``solve(200)`` (200 of each K7 pass, counted exactly),
+    the same solve again (bit-identical, NaNs included), ``solve(20)`` and
+    ||b - Ax||^2 through ``planner.matvec`` (K6a y) against its last
+    history entry.  Against float64 BiCGStab: the f32-dot solve stays
+    within 1e-3 as long as textbook f32 does; f32 BiCGStab breaks down on
+    the 7-point system (textbook f32 too), so the end result is held with
+    compensated dots, as phase 4b does at 256^2, against textbook f32 with
+    float64 dots.  Returns (launch counts of the run, results, solver,
+    failed checks)."""
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+
+    planner = build_stencil_system(
+        dim, SHAPE3, lt.SolverOptions(entry_dtype=torch.float32), device)
+    op = planner.row_partitioned_matrices[0][0]
+    if not op.supports_fused_bicgstab:
+        raise AssertionError(f"-dim {dim} 256^3 has no fused BiCGStab")
+    solver = lt.BiCGStabSolver(planner)
+    b = planner.rhs_vectors[0].data
+    torch.cuda.synchronize()
+
+    T.reset_launch_counts()
+    eager = [solver.residual_norm_squared().value]
+    for _ in range(N_EAGER):
+        solver.step()
+        eager.append(solver.residual_norm_squared().value)
+    eager = torch.stack(eager)
+    restart(solver)
+    hist = solver.solve(N_ITERS)
+    after = dict(T.LAUNCHES)
+    x = planner.sol_vectors[0].data.clone()
+    restart(solver)
+    hist2 = solver.solve(N_ITERS)
+    repeat = same_bits(hist, hist2) and same_bits(
+        x, planner.sol_vectors[0].data)
+    restart(solver)
+    h_gap = solver.solve(GAP_ITERS)
+    planner.matvec(solver.U, solver.SOL)
+    torch.cuda.synchronize()
+    counts = dict(T.LAUNCHES)
+    T.reset_launch_counts()
+    true_rr = torch.sum((b - planner.get_vector(solver.U, 0).data)
+                        .double() ** 2).item()
+    gap = abs(true_rr - h_gap[-1].item()) / h_gap[-1].item()
+    eager_dev = rel_dev(eager, hist[:N_EAGER + 1])
+
+    comp = build_stencil_system(dim, SHAPE3, lt.SolverOptions(
+        entry_dtype=torch.float32, compensated_dots=True), device)
+    hist_c = lt.BiCGStabSolver(comp).solve(N_ITERS)
+    x_c = comp.sol_vectors[0].data
+    T.reset_launch_counts()
+
+    A = stencil_matvec(torch, lt, dim)
+    h64, x64 = textbook_bicgstab(torch, SHAPE3, N_ITERS, torch.float64,
+                                 device, matvec=A)
+    h32, x32 = textbook_bicgstab(torch, SHAPE3, N_ITERS, torch.float32,
+                                 device, matvec=A)
+    hd, xd = textbook_bicgstab(torch, SHAPE3, N_ITERS, torch.float32, device,
+                               dot_dtype=torch.float64, matvec=A)
+    finite = lambda h: bool(torch.isfinite(h).all())
+    first_bad = lambda h: (None if finite(h)
+                           else int((~torch.isfinite(h)).nonzero()[0]))
+    q = {"textbook f32 (f64 dots)": solution_quality(torch, hd, xd, h64, x64,
+                                                     A),
+         "kernel compensated": solution_quality(torch, hist_c, x_c, h64, x64,
+                                                A),
+         "float64": solution_quality(torch, h64, x64, h64, x64, A)}
+    win = (agree_window(h32, h64), agree_window(hist, h64),
+           agree_window(hd, h64), agree_window(hist_c, h64))
+    breakdown = (first_bad(h32), first_bad(hist))
+    log(f"[bicg3d] dim {dim}: launches {after}, then {counts}; repeat "
+        f"bit-identical {repeat}; eager vs fused rel dev "
+        f"{[f'{e:.3g}' for e in eager_dev.tolist()]}; f32 dots: residual^2 "
+        f"{hist[0].item():.6g} -> {hist[-1].item():.6g} (float64 "
+        f"{h64[-1].item():.6g}), first non-finite entry: textbook f32 "
+        f"{breakdown[0]}, kernel {breakdown[1]}; after {GAP_ITERS}: "
+        f"||b-Ax||^2 {true_rr:.8g} vs history {h_gap[-1].item():.8g} (rel "
+        f"{gap:.3g}); compensated, against float64 BiCGStab (history max "
+        "rel, x max rel, ||b-Ax||^2): " + ", ".join(
+            f"{k} {h:.3g} {xx:.3g} {res:.6g}" for k, (h, xx, res) in q.items())
+        + "; entries within 1e-3 of float64 (textbook f32, kernel; with "
+        f"f64 dots: textbook, kernel compensated): {win}")
+
+    want_after = {"y3d": N_EAGER, "y_dot3d": N_EAGER, "bicg3d_pv": N_ITERS,
+                  "bicg3d_st": N_ITERS, "bicg3d_update": N_ITERS}
+    n_pass = 2 * N_ITERS + GAP_ITERS
+    want = dict(want_after, y3d=N_EAGER + 1, bicg3d_pv=n_pass,
+                bicg3d_st=n_pass, bicg3d_update=n_pass)
+    kq, tq = q["kernel compensated"], q["textbook f32 (f64 dots)"]
+    checks = {
+        "launches": after == want_after and counts == want,
+        "two solves from one state are bit-identical": repeat,
+        "eager and compensated histories finite":
+            finite(eager) and finite(hist_c),
+        "b intact": bool((b == 1.0).all()),
+        f"eager step() vs fused solve, rtol {EAGER3_RTOL}": eager_ok(eager_dev),
+        f"||b - Ax||^2 vs history after {GAP_ITERS}, rel {BICG3_GAP}":
+            gap <= BICG3_GAP,
+        "f32 dots: kernel within 1e-3 of float64 as long as textbook f32 is":
+            win[1] >= win[0],
+        "compensated: kernel within 1e-3 of float64 as long as textbook "
+        "f32 with f64 dots is": win[3] >= win[2],
+        "compensated: ||b-Ax||^2 <= 2x textbook f32's, x error <= 2x "
+        f"textbook f32's (or {BICG3_X_FLOOR})":
+            kq[2] <= 2 * tq[2] and kq[1] <= max(2 * tq[1], BICG3_X_FLOOR),
+    }
+    failed = [f"bicg3d dim {dim}: {k}" for k, ok in checks.items() if not ok]
+    results = {"hist_first_last": (hist[0].item(), hist[-1].item()),
+               "breakdown": breakdown, "true_rr": true_rr, "gap": gap,
+               "eager_dev": eager_dev.tolist(), "vs_f64": q, "window": win,
+               "checks": checks}
+    return counts, results, solver, failed
+
+
+def time_3d_kernels(torch, lt, T3, TB3, device, bw, card):
+    """Phase 5e.  {(name, dim, compensated): (kernel ms, plain ms)} at
+    256^3 over a ring of three input sets (3 x 67 MB per vector against
+    the 50 MB L2), without halo planes, as the main path calls them; and
+    {dim: ms} of F.conv3d computing K6a's y on the same inputs (cuDNN,
+    TF32 off), held to the kernel's y."""
+    import torch.nn.functional as F
+
+    n = SHAPE3[0] * SHAPE3[1] * SHAPE3[2]
+    out, lib = {}, {}
+    for dim in DIMS3:
+        kw = stencil_kw(lt, dim)
+        ring = [inputs3d(torch, SHAPE3, 50 + s, device) for s in range(3)]
+        for d in ring:
+            d["alpha"] = d["alpha"] * 1e-3  # keep the in-place x, r bounded
+            d["top"] = d["bot"] = None
+            d["o1"], d["o2"] = torch.empty_like(d["x"]), torch.empty_like(d["x"])
+        for name in (*KERNELS3, *BICG3_KERNELS):
+            bpe = (KERNELS3[name][2] if name in KERNELS3
+                   else BICG3_KERNELS[name][1])
+            for comp in ((False, True) if name in BICG3_KERNELS
+                         else (False,)):
+                times = {}
+                for plain in (False, True):
+                    fns = [call3d(T3, TB3, name, d, kw, plain, comp,
+                                  out=((d["o1"], d["o2"])
+                                       if name == "bicg3d_pv" else d["o1"]))
+                           for d in ring]
+                    k = iter(range(10**9))
+                    times[plain] = event_ms(
+                        torch, lambda: fns[next(k) % 3](), 6 if plain else 30)
+                sane(f"{name} dim {dim}", times[False], bpe * n, bw)
+                out[name, dim, comp] = (times[False], times[True])
+                gbps = bpe * n / times[False] / 1e6
+                log(f"[time3d] {name:13s} dim {dim} compensated={comp!s:5s} "
+                    f"kernel {times[False]:.4f} ms ({gbps:.1f} GB/s), plain "
+                    f"{times[True]:.4f} ms at 256^3 f32 on {card}")
+        w = torch.zeros(1, 1, 3, 3, 3, device=device)
+        for (ox, oy, oz), v in zip(kw["offsets"], kw["values"]):
+            w[0, 0, 1 + ox, 1 + oy, 1 + oz] = v
+        conv = [lambda d=d: F.conv3d(d["x"][None, None], w, padding=1)
+                for d in ring]
+        y_lib = conv[0]()[0, 0]
+        y_ker = T3.grid3d_stencil_matvec(ring[0]["x"], **kw)
+        err = (y_lib - y_ker).abs().max().item()
+        if err > 1e-5 * y_ker.abs().max().item():
+            raise AssertionError(f"F.conv3d disagrees with K6a y: {err:g}")
+        k = iter(range(10**9))
+        lib[dim] = event_ms(torch, lambda: conv[next(k) % 3](), 30)
+        log(f"[time3d] F.conv3d y dim {dim}: {lib[dim]:.4f} ms (max abs "
+            f"diff from K6a y {err:.3g}) at 256^3 f32 on {card}")
+        del ring, conv
+    return out, lib
+
+
+def solve_ms(torch, solver, n_iters, ctx=None):
+    """(device ms, host enqueue ms) of one ``solve(n_iters)``, CUDA events,
+    the better of two runs after a warm-up run; each run follows a reset
+    outside the events.  ``ctx`` (a plain_driven) swaps in plain
+    versions."""
+    if ctx:
+        ctx.__enter__()
+    try:
+        runs = []
+        for _ in range(3):
+            restart(solver)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            solver.solve(n_iters)
+            end.record()
+            host = time.perf_counter() - t0
+            end.synchronize()
+            runs.append((start.elapsed_time(end), host * 1e3))
+    finally:
+        if ctx:
+            ctx.__exit__(None, None, None)
+    return min(runs[1:])
+
+
+def time_3d_solves(torch, T3, TB3, solvers, bw, card):
+    """Phase 5f.  {(solver, dim, label): (ms/iter, host ms/iter)} of
+    solve(200) at 256^3, kernel- and plain-driven."""
+    n = SHAPE3[0] * SHAPE3[1] * SHAPE3[2]
+    # CG: pq + update (24 B) then 199 x (xpay_pq + update, 32 B);
+    # BiCGStab: 60 B/iteration + the two bootstrap dots (16 B)
+    nbytes = {"cg": (24 + 32 * (N_ITERS - 1)) * n,
+              "bicg": (60 * N_ITERS + 16) * n}
+    res = {}
+    for (kind, dim), solver in solvers.items():
+        plain = cg3d_plain(T3) if kind == "cg" else bicg3d_plain(TB3)
+        module = T3 if kind == "cg" else TB3
+        for label in ("kernel", "plain"):
+            ctx = plain_driven(module, solver, plain) if label == "plain" \
+                else None
+            ms, host = solve_ms(torch, solver, N_ITERS, ctx)
+            sane(f"{kind} dim {dim} solve {label}", ms, nbytes[kind], bw)
+            res[kind, dim, label] = (ms / N_ITERS, host / N_ITERS)
+            log(f"[time3d] {kind} dim {dim} solve({N_ITERS}) {label}-driven: "
+                f"{ms / N_ITERS:.4f} ms/iter ({nbytes[kind] / ms / 1e6:.1f} "
+                f"GB/s effective; host enqueue {host / N_ITERS:.4f} ms/iter)"
+                f" at 256^3 f32 on {card}")
+    return res
+
+
+def library_2d(torch, T, device, card):
+    """F.conv2d computing K3's y at 4096^2 (cuDNN, TF32 off), held to the
+    kernel's y: ms over a ring of three inputs."""
+    import torch.nn.functional as F
+
+    w = torch.zeros(1, 1, 3, 3, device=device)
+    for (dy, dx), v in zip(OFFS, VALS):
+        w[0, 0, 1 + dy, 1 + dx] = v
+    g = torch.Generator(device=device).manual_seed(61)
+    ring = [torch.randn(N_GRID, N_GRID, generator=g, device=device)
+            for _ in range(3)]
+    y_ker = T.grid2d_stencil_matvec(ring[0], **KW)
+    y_lib = F.conv2d(ring[0][None, None], w, padding=1)[0, 0]
+    err = (y_lib - y_ker).abs().max().item()
+    if err > 1e-5 * y_ker.abs().max().item():
+        raise AssertionError(f"F.conv2d disagrees with K3 y: {err:g}")
+    k = iter(range(10**9))
+    ms = event_ms(torch, lambda: F.conv2d(ring[next(k) % 3][None, None], w,
+                                          padding=1), 30)
+    log(f"[time] F.conv2d y: {ms:.4f} ms (max abs diff from K3 y "
+        f"{err:.3g}) at {N_GRID}^2 f32 on {card}")
+    return ms
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
+               nflops, bw, library_ms=None):
+    """One entry of the kernels line: bound_ms is the larger of the bytes
+    over the measured copy bandwidth and the f32 operations over the card's
+    f32 peak."""
+    t_bytes = nbytes / bw * 1e3
+    t_ops = nflops / F32_PEAK * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
 
 
 def main() -> int:
@@ -972,7 +1561,9 @@ def main() -> int:
         import legionsolvers_tpu_torch as lt
         from legionsolvers_tpu_torch.ops.cuda import build
         from legionsolvers_tpu_torch.ops.cuda import bicgstab2d as TB
+        from legionsolvers_tpu_torch.ops.cuda import bicgstab3d as TB3
         from legionsolvers_tpu_torch.ops.cuda import stencil2d as T
+        from legionsolvers_tpu_torch.ops.cuda import stencil3d as T3
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
@@ -998,43 +1589,81 @@ def main() -> int:
 
     errs = compare_kernels(torch, T, device)
     errs.update(compare_bicg_kernels(torch, T, TB, device))
+    errs3 = compare_3d_kernels(torch, lt, T3, TB3, device)
     counts, results, solver = main_path(torch, np, T, lt, device)
     bcounts, bresults, bsolver, failed = bicgstab_path(torch, T, TB, lt,
                                                        device)
+    counts3, results3, solvers3 = {}, {}, {}
+    for dim in DIMS3:
+        for kind3, path in (("cg", cg3d_path), ("bicg", bicg3d_path)):
+            c, r, slv, f = path(torch, T, lt, device, dim)
+            counts3[kind3, dim], solvers3[kind3, dim] = c, slv
+            results3[f"{kind3} dim {dim}"] = r
+            failed += f
     bw = copy_bandwidth(torch, device)
     log(f"[time] copy bandwidth {bw / 1e9:.1f} GB/s on {card}")
     ktimes = time_kernels(torch, T, device, bw, card)
     btimes = time_bicg_kernels(torch, TB, device, bw, card)
     bsolve_ms = time_bicg_solve(torch, TB, bsolver, bw, card)
     solve_ms = time_solve(torch, T, solver, bw, card)
+    conv2d_ms = library_2d(torch, T, device, card)
+    ktimes3, conv3d_ms = time_3d_kernels(torch, lt, T3, TB3, device, bw,
+                                         card)
+    solve3 = time_3d_solves(torch, T3, TB3, solvers3, bw, card)
     if "--profile" in sys.argv[1:]:  # last: tracing slows later launches
-        profile_bicg_solve(torch, bsolver, card)
+        profile_solve(torch, bsolver, "bicgstab_2d", card)
+        for (kind3, dim), slv in solvers3.items():
+            profile_solve(torch, slv, f"{kind3}_3d_dim{dim}", card)
     if failed:
-        raise AssertionError(f"BiCGStab checks failed: {failed}")
+        raise AssertionError(f"checks failed: {failed}")
 
     launches = {m: counts.get(m, 0) + bcounts.get(m, 0)
                 for m in (*KERNELS, *BICG_KERNELS)}
+    for dim in DIMS3:
+        for m in (*KERNELS3, *BICG3_KERNELS):
+            launches[m, dim] = (counts3["cg", dim].get(m, 0)
+                                + counts3["bicg", dim].get(m, 0))
     missing = [m for m, c in launches.items() if not c]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "
                              f"{missing}")
-    kernels = [{
-        "name": f"{KERNELS[m][0]} [{m}]", "route": "cuda", "source": CSRC,
-        "replaces": f"{PALLAS}:{KERNELS[m][1]}", "launches": launches[m],
-        "max_abs_err": errs[m], "ms": ktimes[m][0], "plain_ms": ktimes[m][1],
-    } for m in KERNELS] + [{
-        "name": m, "route": "cuda", "source": BICG_CSRC,
-        "replaces": f"{BICG_PALLAS}:{line}", "launches": launches[m],
-        "max_abs_err": errs[m], "ms": btimes[m][False][0],
-        "plain_ms": btimes[m][False][1],
-    } for m, (line, _) in BICG_KERNELS.items()]
+    n2, n3 = N_GRID * N_GRID, SHAPE3[0] * SHAPE3[1] * SHAPE3[2]
+    kernels = [kernel_row(
+        f"{KERNELS[m][0]} [{m}]", CSRC, f"{PALLAS}:{KERNELS[m][1]}",
+        launches[m], errs[m], ktimes[m][0], ktimes[m][1],
+        KERNELS[m][2] * n2, ops_per_elt(m, len(OFFS)) * n2, bw,
+        conv2d_ms if m == "y" else None) for m in KERNELS]
+    kernels += [kernel_row(
+        m, BICG_CSRC, f"{BICG_PALLAS}:{line}", launches[m], errs[m],
+        btimes[m][False][0], btimes[m][False][1], bpe * n2,
+        ops_per_elt(m, len(OFFS)) * n2, bw)
+        for m, (line, bpe) in BICG_KERNELS.items()]
+    for dim in DIMS3:
+        pts, terms = {3: (7, 7), 4: (27, 27)}[dim]
+        kernels += [kernel_row(
+            f"{KERNELS3[m][0]} [{m}] {pts}-point", CSRC3,
+            f"{PALLAS3}:{KERNELS3[m][1]}", launches[m, dim], errs3[m, dim],
+            *ktimes3[m, dim, False], KERNELS3[m][2] * n3,
+            ops_per_elt(m, terms) * n3, bw,
+            conv3d_ms[dim] if m == "y3d" else None) for m in KERNELS3]
+        kernels += [kernel_row(
+            f"{m} {pts}-point", BICG3_CSRC, f"{BICG3_PALLAS}:{line}",
+            launches[m, dim], errs3[m, dim], *ktimes3[m, dim, False],
+            bpe * n3, ops_per_elt(m, terms) * n3, bw)
+            for m, (line, bpe) in BICG3_KERNELS.items()]
     report = {"card": card, "kind": kind, "build_s": build_s,
               "copy_GBps": bw / 1e9, "kernels": kernels,
               "bicg_kernel_ms": {m: {str(c): t for c, t in v.items()}
                                  for m, v in btimes.items()},
               "solve200_ms_per_iter": solve_ms, "main_path": results,
               "bicgstab_solve200_ms_per_iter": bsolve_ms,
-              "bicgstab_path": bresults}
+              "bicgstab_path": bresults,
+              "kernel3d_ms": {f"{m} dim {d} compensated={c}": t
+                              for (m, d, c), t in ktimes3.items()},
+              "conv3d_ms": conv3d_ms, "conv2d_ms": conv2d_ms,
+              "solve3d_ms_per_iter": {f"{k} dim {d} {lab}": t for
+                                      (k, d, lab), t in solve3.items()},
+              "paths3d": results3}
     out_dir = pathlib.Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -1,13 +1,14 @@
 """legionsolvers_tpu_torch: the PyTorch + CUDA port of legionsolvers_tpu.
 
 Same module paths and public names as the JAX package, on torch tensors
-with explicit devices.  Ported so far: the single-device CG and BiCGStab
-paths on 2-D stencils, i.e. deferred scalars, vectors, COO/CSR/ELL
-operators, the planner (with compensated dots), the matrix-free stencil
-operator whose passes are hand-written CUDA kernels for Hopper
-(``ops/cuda/``, ``csrc/``), ``CGSolver`` and ``BiCGStabSolver``.  Not ported
-yet: GMRES and PCG, 3-D kernels, DIA/windowed-ELL/general sparsity, block
-systems and sharding.  The package imports torch and numpy, never jax.
+that live on the card unless the caller asks for the CPU.  Ported so far:
+the single-device CG and BiCGStab paths on 2-D and 3-D stencils, i.e.
+deferred scalars, vectors, COO/CSR/ELL operators, the planner (with
+compensated dots), the matrix-free stencil operator whose passes are
+hand-written CUDA kernels for Hopper (``ops/cuda/``, ``csrc/``),
+``CGSolver``, ``BiCGStabSolver`` and the systems of ``entry.py``.  Not
+ported yet: GMRES and PCG, DIA/windowed-ELL/general sparsity, block systems
+and sharding.  The package imports torch and numpy, never jax.
 """
 
 from .options import DEFAULT_OPTIONS, SolverOptions, resolve_device
@@ -35,6 +36,7 @@ from .problems.stencil import (
     create_coo_stencil_matrix,
     create_csr_stencil_matrix,
     laplacian_stencil,
+    stencil_grid_ndim,
 )
 
 __version__ = "0.1.0"

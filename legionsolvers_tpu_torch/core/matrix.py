@@ -81,8 +81,9 @@ class AbstractMatrix(AbstractLinearOperator):
         np.add.at(A, (self.rows, self.cols), np.asarray(self.vals, np.float64))
         return A
 
-    def device_arrays(self, device="cpu"):
-        """(rows, cols, vals) tensors on ``device``, made once per device."""
+    def device_arrays(self, device):
+        """(rows, cols, vals) tensors on the caller's ``device``, made once
+        per device."""
         device = resolve_device(device)
         if device not in self._dev:
             o = self.options

@@ -48,7 +48,7 @@ class PartitionedVector:
         options: SolverOptions = DEFAULT_OPTIONS,
         grid_shape: Optional[tuple] = None,
         lazy: bool = False,
-        device="cpu",
+        device=None,
     ):
         """``grid_shape``: optional N-D layout, which requires an unpadded
         partition whose size it covers exactly.  ``lazy``: materialize the
@@ -125,7 +125,7 @@ class PartitionedVector:
         mesh=None,
         options: SolverOptions = DEFAULT_OPTIONS,
         grid_shape: Optional[tuple] = None,
-        device="cpu",
+        device=None,
     ) -> "PartitionedVector":
         """Build from a host array of length ``n`` (pads with zeros)."""
         values = np.asarray(values).reshape(-1)

@@ -55,17 +55,6 @@ __device__ __forceinline__ void load_window(float* w, int W, int h, int r0,
   }
 }
 
-template <bool COMP>
-struct Acc;
-template <>
-struct Acc<false> {
-  using T = float;
-};
-template <>
-struct Acc<true> {
-  using T = double;
-};
-
 // K5a: p' = r + beta (p - omega v) on the window, v' = A p', <r~, v'>.
 template <bool COMP>
 __global__ void __launch_bounds__(LS_THREADS)

@@ -1,28 +1,41 @@
-"""Entry point of the port's main path.
+"""Entry points of the port's main paths.
 
-:func:`build_system` mirrors ``__graft_entry__._build_system`` of the JAX
-package for one device: CG's system for the 2-D 5-point negative Laplacian
-on an ``n_grid x n_grid`` grid, b = 1 and x0 = 0, with the vectors in their
-grid layout whenever the operator's kernel view is active.
+:func:`build_stencil_system` mirrors ``legionsolvers_tpu.benchmark
+.build_planner`` with one piece and no block system: the benchmark's
+``-dim`` selector (1: 1-D 3-point, 2: 2-D 5-point, 3: 3-D 7-point, 4: 3-D
+27-point negative Laplacian) on the given grid, b = 1 and x0 = 0, with the
+vectors in their grid layout whenever the operator's kernel view is active.
+:func:`build_system` is its 2-D square case, as
+``__graft_entry__._build_system`` builds it for one device.  Both run on
+the card unless the caller asks for another device.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
+import numpy as np
+
 from .core.partition import BlockPartition
 from .core.vector import PartitionedVector
-from .options import DEFAULT_OPTIONS, SolverOptions
+from .options import DEFAULT_OPTIONS, SolverOptions, resolve_device
 from .parallel.stencil_op import StencilOperator
 from .planner import SquarePlanner
-from .problems.stencil import laplacian_stencil
+from .problems.stencil import laplacian_stencil, stencil_grid_ndim
 
 
-def build_system(n_grid: int, options: SolverOptions = DEFAULT_OPTIONS,
-                 device="cpu") -> SquarePlanner:
-    n = n_grid * n_grid
-    part = BlockPartition(n, 1)
-    op = StencilOperator((n_grid, n_grid), laplacian_stencil(2),
-                         partition=part, options=options, device=device)
-    gs = (n_grid, n_grid) if op.uses_pallas else None
+def build_stencil_system(dim: int, shape: Sequence[int],
+                         options: SolverOptions = DEFAULT_OPTIONS,
+                         device=None) -> SquarePlanner:
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != stencil_grid_ndim(dim):
+        raise ValueError(f"-dim {dim} needs a {stencil_grid_ndim(dim)}-D "
+                         f"grid, got {shape}")
+    device = resolve_device(device)
+    part = BlockPartition(int(np.prod(shape)), 1)
+    op = StencilOperator(shape, laplacian_stencil(dim), partition=part,
+                         options=options, device=device)
+    gs = shape if op.uses_pallas else None
     rhs = PartitionedVector("rhs", part, options=options, grid_shape=gs,
                             device=device)
     rhs.constant_fill(1.0)
@@ -33,3 +46,8 @@ def build_system(n_grid: int, options: SolverOptions = DEFAULT_OPTIONS,
     planner.add_rhs_vector(rhs)
     planner.add_operator(op, 0, 0)
     return planner
+
+
+def build_system(n_grid: int, options: SolverOptions = DEFAULT_OPTIONS,
+                 device=None) -> SquarePlanner:
+    return build_stencil_system(2, (n_grid, n_grid), options, device)

@@ -74,37 +74,55 @@ def _pdot(a, b, compensated: bool):
     return dd_dot(a, b) if compensated else _dot(a, b)
 
 
-def bicg_pv_plain(r, p, v, rt, beta, omega, *, offsets, values,
-                  compensated: bool = False, out=None):
-    """K5a: (p', v', <r~, v'>) with p' = r + beta (p - omega v), v' = A p'."""
+# The pass arithmetic, for any stencil application ``A`` (the 2-D plain
+# versions here, the 3-D ones in bicgstab3d.py).
+
+def pv_math(A, r, p, v, rt, beta, omega, compensated, out):
     b, om = _coef(beta, r), _coef(omega, r)
     pn = r + b * (p - om * v)
-    vn = apply_plain(pn, offsets, values)
+    vn = A(pn)
     if out is not None:
         pn, vn = out[0].copy_(pn), out[1].copy_(vn)
     return pn, vn, _pdot(rt, vn, compensated)
 
 
+def st_math(A, r, v, alpha, compensated):
+    s = r - _coef(alpha, r) * v
+    t = A(s)
+    return _pdot(t, s, compensated), _pdot(t, t, compensated)
+
+
+def update_math(A, r, v, x, p, rt, alpha, omega, compensated, out):
+    al, om = _coef(alpha, r), _coef(omega, r)
+    s = r - al * v
+    t = A(s)
+    x.copy_(x + al * p + om * s)
+    rn = s - om * t
+    if out is not None:
+        rn = out.copy_(rn)
+    return x, rn, _pdot(rn, rn, compensated), _pdot(rt, rn, compensated)
+
+
+def bicg_pv_plain(r, p, v, rt, beta, omega, *, offsets, values,
+                  compensated: bool = False, out=None):
+    """K5a: (p', v', <r~, v'>) with p' = r + beta (p - omega v), v' = A p'."""
+    A = lambda a: apply_plain(a, offsets, values)
+    return pv_math(A, r, p, v, rt, beta, omega, compensated, out)
+
+
 def bicg_st_plain(r, v, alpha, *, offsets, values,
                   compensated: bool = False):
     """K5b: (<t, s>, <t, t>) with s = r - alpha v, t = A s."""
-    s = r - _coef(alpha, r) * v
-    t = apply_plain(s, offsets, values)
-    return _pdot(t, s, compensated), _pdot(t, t, compensated)
+    A = lambda a: apply_plain(a, offsets, values)
+    return st_math(A, r, v, alpha, compensated)
 
 
 def bicg_update_plain(r, v, x, p, rt, alpha, omega, *, offsets, values,
                       compensated: bool = False, out=None):
     """K5c: (x', r', <r', r'>, <r~, r'>) with s = r - alpha v, t = A s,
     x' = x + alpha p + omega s (written into x), r' = s - omega t."""
-    al, om = _coef(alpha, r), _coef(omega, r)
-    s = r - al * v
-    t = apply_plain(s, offsets, values)
-    x.copy_(x + al * p + om * s)
-    rn = s - om * t
-    if out is not None:
-        rn = out.copy_(rn)
-    return x, rn, _pdot(rn, rn, compensated), _pdot(rt, rn, compensated)
+    A = lambda a: apply_plain(a, offsets, values)
+    return update_math(A, r, v, x, p, rt, alpha, omega, compensated, out)
 
 
 # ===========================================================================

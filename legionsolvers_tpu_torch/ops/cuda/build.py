@@ -116,6 +116,7 @@ def load_library() -> ctypes.CDLL:
     point's argument types declared (pointers and the stream as
     ``c_void_p``, so that none is cut to 32 bits)."""
     from .stencil2d import MAX_TERMS, TILE
+    from .stencil3d import CHUNK_X, _Stencil3
 
     lib = ctypes.CDLL(str(build()))
     sigs = {
@@ -126,12 +127,17 @@ def load_library() -> ctypes.CDLL:
         "ls_bicg_pv": [_P] * 10 + [_I, _I, _I, _P, _P],
         "ls_bicg_st": [_P] * 5 + [_I, _I, _I, _P, _P],
         "ls_bicg_update": [_P] * 10 + [_I, _I, _I, _P, _P],
+        "ls_stencil3d": [_I] + [_P] * 9 + [_I] * 3 + [_P, _P],
+        "ls_xpay_pq3d": [_P] * 8 + [_I] * 3 + [_P, _P],
+        "ls_bicg3d_pv": [_P] * 12 + [_I] * 4 + [_P, _P],
+        "ls_bicg3d_st": [_P] * 7 + [_I] * 4 + [_P, _P],
+        "ls_bicg3d_update": [_P] * 12 + [_I] * 4 + [_P, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for name in ("ls_tile", "ls_max_terms"):
+    for name in ("ls_tile", "ls_max_terms", "ls_chunk_x", "ls_stencil3_size"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     lib.ls_error_string.argtypes = [ctypes.c_int]
@@ -139,4 +145,8 @@ def load_library() -> ctypes.CDLL:
     if lib.ls_tile() != TILE or lib.ls_max_terms() != MAX_TERMS:
         raise RuntimeError("csrc/stencil2d.cu and ops/cuda/stencil2d.py "
                            "disagree on LS_TILE or LS_MAX_TERMS")
+    if (lib.ls_chunk_x() != CHUNK_X
+            or lib.ls_stencil3_size() != ctypes.sizeof(_Stencil3)):
+        raise RuntimeError("csrc/common.cuh and ops/cuda/stencil3d.py "
+                           "disagree on LS_CHUNK_X or the LsStencil3 layout")
     return lib

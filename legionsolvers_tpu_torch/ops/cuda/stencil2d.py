@@ -129,7 +129,13 @@ def stencil_plain(mode, x, halo_top, halo_bot, extra=(), *, offsets, values):
     """The one-pass modes of K3 (see :func:`_stencil_call` for ``extra``).
     Returns ``(y,)``, ``(y, dot)``, ``(dot,)`` or ``(x', r', rr)``; the
     update mode writes x' and r' into the given x and r."""
-    y = apply_plain(x, offsets, values, halo_top, halo_bot)
+    return mode_outputs(mode, x, apply_plain(x, offsets, values, halo_top,
+                                             halo_bot), extra)
+
+
+def mode_outputs(mode, x, y, extra=()):
+    """What a one-pass mode returns, given its operand x and y = A x (the
+    2-D and 3-D plain versions share it)."""
     if mode == "y":
         return (y,)
     if mode == "y_dot":
@@ -260,11 +266,12 @@ def _on_cuda(*tensors) -> bool:
     return dev.type == "cuda"
 
 
-def _check_grid(name, t, shape=None):
+def _check_grid(name, t, shape=None, ndim=2):
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if t.dim() != 2:
-        raise ValueError(f"{name}: expected a 2-D grid, got {tuple(t.shape)}")
+    if t.dim() != ndim:
+        raise ValueError(
+            f"{name}: expected a {ndim}-D grid, got {tuple(t.shape)}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
     if not t.is_contiguous():

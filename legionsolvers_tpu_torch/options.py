@@ -6,9 +6,11 @@ Entry types are float32 and float64 only: the JAX package also lists
 bfloat16, but no test there exercises a bf16 solve, so there is no oracle
 to hold a port against.
 
-Devices are explicit.  Vectors, operators and planners take a ``device``
-argument, resolved by :func:`resolve_device`; asking for CUDA on a machine
-without a card raises instead of carrying on on the CPU.
+Devices default to the card.  Vectors, operators, planners and entry points
+take a ``device`` argument, resolved by :func:`resolve_device`: ``None``
+means CUDA, and asking for CUDA on a machine without a card raises instead
+of carrying on on the CPU.  The CPU runs only when the caller asks for it
+(``device="cpu"``, as the tests do).
 """
 
 from __future__ import annotations
@@ -56,14 +58,15 @@ class SolverOptions:
 DEFAULT_OPTIONS = SolverOptions()
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device=None) -> torch.device:
     """``torch.device`` with the CUDA index filled in, so that two spellings
-    of one card compare equal.  Raises when CUDA is asked for and absent."""
-    d = torch.device(device)
+    of one card compare equal; ``None`` is CUDA.  Raises when CUDA is asked
+    for and absent: there is no fallback to the CPU."""
+    d = torch.device("cuda" if device is None else device)
     if d.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                f"device {device!r} requested but torch.cuda.is_available() "
+                f"device {str(d)!r} requested but torch.cuda.is_available() "
                 "is False"
             )
         if d.index is None:

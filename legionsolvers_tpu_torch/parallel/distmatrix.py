@@ -29,7 +29,7 @@ class RowPartitionedMatrix:
         range_partition: BlockPartition,
         mesh=None,
         options: SolverOptions = DEFAULT_OPTIONS,
-        device="cpu",
+        device=None,
     ):
         if mesh is not None:
             raise NotImplementedError(

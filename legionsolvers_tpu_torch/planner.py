@@ -34,7 +34,7 @@ RHS = 1
 class SquarePlanner:
     def __init__(
         self, mesh=None, options: SolverOptions = DEFAULT_OPTIONS,
-        device="cpu",
+        device=None,
     ):
         if mesh is not None:
             raise NotImplementedError(

@@ -132,3 +132,8 @@ def laplacian_stencil(dim: int) -> Stencil:
                     offs.append(((dx, dy, dz), val))
         return offs
     raise ValueError(f"dim must be 1..4, got {dim}")
+
+
+def stencil_grid_ndim(dim: int) -> int:
+    """Grid dimensionality for a benchmark ``dim`` selector (4 -> 3-D grid)."""
+    return 3 if dim == 4 else dim

@@ -5,8 +5,9 @@ BiCGStabSolver.hpp:13-84): same vector indices (SOL=0, RHS=1, P=2, R=3,
 R_TILDE=4, U=5, V=6), same rho/alpha/omega recurrences carried as deferred
 scalars, two matvecs per ``step()``.  :meth:`BiCGStabSolver.solve` hands the
 whole loop to the operator's fused runner where one exists (the three
-hand-written CUDA passes of ``ops/cuda/bicgstab2d.py`` on a card) and loops
-over ``step()`` otherwise.  No step reads a scalar back to the host.
+hand-written CUDA passes of ``ops/cuda/bicgstab2d.py`` or ``bicgstab3d.py``
+on a card) and loops over ``step()`` otherwise.  No step reads a scalar
+back to the host.
 
 Numerics: at large n the f32 trajectory depends on the order in which the
 carried dots are summed.  ``SolverOptions(compensated_dots=True)`` sums them

@@ -5,7 +5,8 @@ same vector indices (SOL=0, RHS=1, P=2, Q=3, R=4), same future-ratio
 coefficient passing, same residual-norm-squared history.  ``step()`` is
 eager torch; :meth:`solve` hands the whole loop to the operator's fused
 runner where one exists (the hand-written CUDA passes of
-``ops/cuda/stencil2d.py`` on a card) and loops over ``step()`` otherwise.
+``ops/cuda/stencil2d.py`` or ``stencil3d.py`` on a card) and loops over
+``step()`` otherwise.
 No step reads a scalar back to the host.
 """
 
@@ -75,7 +76,8 @@ class CGSolver:
 
     def _make_fused_runner(self, num_iterations: int):
         """The operator's fused whole-loop runner for a single-space system
-        (two-pass, s-step, or the torch recompute runner), else None.
+        (s-step or two-pass on the 2-D view, two-pass on the 3-D view, or
+        the torch recompute runner), else None.
         Multi-space block systems take the eager path until
         ``parallel/block_fused.py``'s phase runners are ported."""
         from ..parallel.block_fused import diagonal_block_ops

@@ -95,7 +95,7 @@ def _planner(op_or_matrix, partition, grid_shape, options, device):
 def stencil_cg_system(shape: Sequence[int], stencil, state: Mapping,
                       rr_history: Sequence[float], *,
                       options: SolverOptions = DEFAULT_OPTIONS,
-                      device="cpu"):
+                      device=None):
     """(planner, solver) for a single-piece stencil system in the state
     ``state``.  Vectors take the grid layout when the kernel view is
     active, as in ``entry.build_system``."""
@@ -110,7 +110,7 @@ def stencil_cg_system(shape: Sequence[int], stencil, state: Mapping,
 
 def coo_cg_system(rows, cols, vals, n: int, state: Mapping,
                   rr_history: Sequence[float], *, pieces: int = 1,
-                  options: SolverOptions = DEFAULT_OPTIONS, device="cpu",
+                  options: SolverOptions = DEFAULT_OPTIONS, device=None,
                   grid_shape: Optional[tuple] = None):
     """(planner, solver) for an explicit COO system in the state ``state``."""
     A = COOMatrix(rows, cols, vals, n, n, options=options)

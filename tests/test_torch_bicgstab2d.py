@@ -32,6 +32,7 @@ torch.set_num_threads(2)
 KERNELS = ["pv", "st", "update"]
 ALPHA, BETA, OMEGA = 0.83, 0.37, 0.41
 ELEMENTWISE = {"p", "v", "x", "r"}
+DEV = "cpu"
 
 
 def make_state(shape, seed=7):
@@ -208,22 +209,28 @@ def test_bicgstab_supported_f32_only():
     assert JB.bicgstab_supported(4096, 4096, OFFS)
 
 
-def _op(shape, dtype=torch.float32):
+def _op(shape, dtype=torch.float32, stencil=None):
     n = int(np.prod(shape))
     return T.StencilOperator(
-        shape, T.laplacian_stencil(len(shape)),
+        shape, stencil or T.laplacian_stencil(len(shape)),
         partition=T.BlockPartition(n, 1),
-        options=T.SolverOptions(entry_dtype=dtype))
+        options=T.SolverOptions(entry_dtype=dtype), device=DEV)
 
 
 def test_supports_fused_bicgstab(monkeypatch):
+    """2-D and 3-D kernel views have a fused runner (K5, K7); the 1-D
+    linearized path and a 3-D stencil beyond the kernels' reach do not."""
+    far = T.laplacian_stencil(3) + [((0, 0, 9), -0.5)]
     assert _op((32, 128)).supports_fused_bicgstab
     assert _op((30, 100)).supports_fused_bicgstab
+    assert _op((4, 8, 16)).supports_fused_bicgstab
     assert not _op((32, 128), torch.float64).supports_fused_bicgstab
-    assert not _op((4, 8, 16)).supports_fused_bicgstab
-    assert _op((4, 8, 16)).make_fused_bicgstab_runner(3) is None
+    assert not _op((64,)).supports_fused_bicgstab
+    assert not _op((4, 8, 16), stencil=far).supports_fused_bicgstab
+    assert _op((4, 8, 16), stencil=far).make_fused_bicgstab_runner(3) is None
     monkeypatch.setenv("LEGIONSOLVERS_NO_FUSED_BICGSTAB", "1")
     assert not _op((32, 128)).supports_fused_bicgstab
+    assert not _op((4, 8, 16)).supports_fused_bicgstab
 
 
 # ---------------------------------------------------------------------------
@@ -297,9 +304,11 @@ def test_planner_dot_compensated_flag(compensated):
     part = T.BlockPartition(n, 1)
     F = T.SolverOptions(entry_dtype=torch.float32,
                         compensated_dots=compensated)
-    pl = T.SquarePlanner(options=F)
-    pl.add_sol_vector(T.PartitionedVector.from_array("x", x, part, options=F))
-    pl.add_rhs_vector(T.PartitionedVector.from_array("y", y, part, options=F))
+    pl = T.SquarePlanner(options=F, device=DEV)
+    pl.add_sol_vector(T.PartitionedVector.from_array("x", x, part, options=F,
+                                                     device=DEV))
+    pl.add_rhs_vector(T.PartitionedVector.from_array("y", y, part, options=F,
+                                                     device=DEV))
     d = pl.dot(0, 1).value
     assert d.dtype == torch.float32
     FJ = J.SolverOptions(entry_dtype=jnp.float32,

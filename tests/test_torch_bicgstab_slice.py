@@ -33,6 +33,7 @@ torch.set_num_threads(2)
 SHAPE = (32, 128)
 F64T = T.SolverOptions(entry_dtype=torch.float64)
 F64J = J.SolverOptions(entry_dtype=jnp.float64)
+DEV = "cpu"
 
 
 def build_jax(shape=SHAPE, compensated=False):
@@ -56,12 +57,13 @@ def port_planner(shape=SHAPE, compensated=False):
     n = int(np.prod(shape))
     part = T.BlockPartition(n, 1)
     op = T.StencilOperator(shape, T.laplacian_stencil(2), partition=part,
-                           options=F)
-    planner = T.SquarePlanner(options=F)
+                           options=F, device=DEV)
+    planner = T.SquarePlanner(options=F, device=DEV)
     planner.add_sol_vector(T.PartitionedVector(
-        "sol", part, options=F, grid_shape=shape).zero_fill())
+        "sol", part, options=F, grid_shape=shape, device=DEV).zero_fill())
     planner.add_rhs_vector(T.PartitionedVector(
-        "rhs", part, options=F, grid_shape=shape).constant_fill(1.0))
+        "rhs", part, options=F, grid_shape=shape,
+        device=DEV).constant_fill(1.0))
     planner.add_operator(op, 0, 0)
     return planner
 
@@ -269,7 +271,7 @@ def reference_bicgstab(A, b, its):
 
 def build_1d(pkg, A, n, pieces, options):
     part = pkg.BlockPartition(n, pieces)
-    kw = {} if pkg is T else {"mesh": None}
+    kw = {"device": DEV} if pkg is T else {"mesh": None}
     planner = pkg.SquarePlanner(options=options, **kw)
     planner.add_sol_vector(
         pkg.PartitionedVector("sol", part, options=options, **kw).zero_fill())

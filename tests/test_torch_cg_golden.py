@@ -22,6 +22,7 @@ torch.set_num_threads(2)
 
 GOLDEN = [100, 4900, 4704, 4512, 4324, 4140, 3960, 3784, 3612, 3444, 3280]
 F64 = T.SolverOptions(entry_dtype=torch.float64)
+DEV = "cpu"
 GEN = {"coo": T.coo_negative_laplacian_1d, "csr": T.csr_negative_laplacian_1d}
 
 
@@ -29,11 +30,13 @@ def setup_planner(fmt, n=100, pieces=4, rhs=None):
     part = T.BlockPartition(n, pieces)
     A = GEN[fmt](n, options=F64)
     if rhs is None:
-        b = T.PartitionedVector("rhs", part, options=F64).constant_fill(1.0)
+        b = T.PartitionedVector("rhs", part, options=F64,
+                               device=DEV).constant_fill(1.0)
     else:
-        b = T.PartitionedVector.from_array("rhs", rhs, part, options=F64)
-    sol = T.PartitionedVector("sol", part, options=F64).zero_fill()
-    planner = T.SquarePlanner(options=F64)
+        b = T.PartitionedVector.from_array("rhs", rhs, part, options=F64,
+                                           device=DEV)
+    sol = T.PartitionedVector("sol", part, options=F64, device=DEV).zero_fill()
+    planner = T.SquarePlanner(options=F64, device=DEV)
     planner.add_sol_vector(sol)
     planner.add_rhs_vector(b)
     planner.add_row_partitioned_matrix(A, 0, 0)
@@ -72,12 +75,13 @@ def test_cg_golden_stencil_operator():
     view, so solve() runs the torch recompute runner."""
     part = T.BlockPartition(100, 1)
     op = T.StencilOperator((100,), T.laplacian_stencil(1), partition=part,
-                           options=F64)
+                           options=F64, device=DEV)
     assert not op.uses_pallas and op.supports_fused_cg
-    planner = T.SquarePlanner(options=F64)
-    planner.add_sol_vector(T.PartitionedVector("sol", part, options=F64))
-    planner.add_rhs_vector(
-        T.PartitionedVector("rhs", part, options=F64).constant_fill(1.0))
+    planner = T.SquarePlanner(options=F64, device=DEV)
+    planner.add_sol_vector(T.PartitionedVector("sol", part, options=F64,
+                                               device=DEV))
+    planner.add_rhs_vector(T.PartitionedVector(
+        "rhs", part, options=F64, device=DEV).constant_fill(1.0))
     planner.add_operator(op, 0, 0)
     solver = T.CGSolver(planner)
     assert solver.solve(10).tolist() == GOLDEN
@@ -136,6 +140,7 @@ def test_golden_continues_from_jax_state():
              for k, v in pj.dump_state().items() if k != "ops"}
     rr = [float(s.value) for s in sj.residual_norm_squared]
     _, st = convert.coo_cg_system(A.rows, A.cols, A.vals, 100, state, rr,
-                                  pieces=4, options=F64)
+                                  pieces=4, options=F64,
+                                  device=DEV)
     assert [s.get_value() for s in st.residual_norm_squared] == GOLDEN[:4]
     assert st.solve(7).tolist() == GOLDEN[3:]

@@ -35,6 +35,7 @@ SHAPE = (64, 128)
 F32J = J.SolverOptions(entry_dtype=jnp.float32)
 F32T = T.SolverOptions(entry_dtype=torch.float32)
 SSTEP_RTOL = 3e-4
+DEV = "cpu"
 
 
 def build_jax(shape=SHAPE):
@@ -55,12 +56,13 @@ def build_port(shape=SHAPE):
     n = int(np.prod(shape))
     part = T.BlockPartition(n, 1)
     op = T.StencilOperator(shape, T.laplacian_stencil(2), partition=part,
-                           options=F32T)
-    planner = T.SquarePlanner(options=F32T)
+                           options=F32T, device=DEV)
+    planner = T.SquarePlanner(options=F32T, device=DEV)
     planner.add_sol_vector(T.PartitionedVector(
-        "sol", part, options=F32T, grid_shape=shape).zero_fill())
+        "sol", part, options=F32T, grid_shape=shape, device=DEV).zero_fill())
     planner.add_rhs_vector(T.PartitionedVector(
-        "rhs", part, options=F32T, grid_shape=shape).constant_fill(1.0))
+        "rhs", part, options=F32T, grid_shape=shape,
+        device=DEV).constant_fill(1.0))
     planner.add_operator(op, 0, 0)
     return planner, op
 
@@ -134,7 +136,8 @@ def test_exact_continuation_from_jax_state():
              for k, v in pj.dump_state().items() if k != "ops"}
     rr = [float(s.value) for s in sj.residual_norm_squared]
     pt, st = convert.stencil_cg_system(
-        SHAPE, T.laplacian_stencil(2), state, rr[-1:], options=F32T)
+        SHAPE, T.laplacian_stencil(2), state, rr[-1:], options=F32T,
+        device=DEV)
     hist_t = st.solve(4)
     hist_j = np.asarray(sj.solve(4))
     assert hist_t[0].item() == np.float32(rr[-1])
@@ -145,7 +148,7 @@ def test_exact_continuation_from_jax_state():
 def test_entry_build_system_matches_graft_entry():
     """entry.build_system mirrors __graft_entry__._build_system."""
     pj = ge._build_system(128, mesh=None, pieces=1, options=F32J)
-    pt = build_system(128, F32T, "cpu")
+    pt = build_system(128, F32T, DEV)
     opj = pj.row_partitioned_matrices[0][0]
     opt = pt.row_partitioned_matrices[0][0]
     assert opt.uses_pallas and opj.uses_pallas
@@ -199,12 +202,14 @@ def test_fp64_stencil_matches_jax():
         "b", J.BlockPartition(n, 1), options=F64J).constant_fill(1.0))
     opj = J.StencilOperator(shape, J.laplacian_stencil(2), options=F64J)
     pj.add_operator(opj, 0, 0)
-    pt = T.SquarePlanner(options=F64T)
+    pt = T.SquarePlanner(options=F64T, device=DEV)
     pt.add_sol_vector(T.PartitionedVector("s", T.BlockPartition(n, 1),
-                                          options=F64T))
+                                          options=F64T, device=DEV))
     pt.add_rhs_vector(T.PartitionedVector(
-        "b", T.BlockPartition(n, 1), options=F64T).constant_fill(1.0))
-    opt = T.StencilOperator(shape, T.laplacian_stencil(2), options=F64T)
+        "b", T.BlockPartition(n, 1), options=F64T,
+        device=DEV).constant_fill(1.0))
+    opt = T.StencilOperator(shape, T.laplacian_stencil(2), options=F64T,
+                            device=DEV)
     pt.add_operator(opt, 0, 0)
     assert not opt.uses_pallas and not opj.uses_pallas
     hist_j = np.asarray(J.CGSolver(pj).solve(15))

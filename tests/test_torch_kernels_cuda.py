@@ -6,7 +6,9 @@ tests/test_torch_kernels_cuda.py`` (tests/conftest.py imports jax).
 Tolerances are those of ``torch_stencil_cases.py``; the BiCGStab passes
 use test_torch_bicgstab2d.py's (elementwise 2e-5 * max|ref|, dots rtol
 2e-4), and their compensated dots must match the plain versions' float64
-sums to 4e-7.
+sums to 4e-7.  The 3-D passes (K6, K7) run at a ragged (37, 45, 130) with
+random halo planes: elementwise 2e-5 * max|ref|, dots 1e-4 of their
+Cauchy-Schwarz scale sqrt(<a,a><b,b>) (chip_smoke.py's bounds).
 """
 
 import numpy as np
@@ -14,7 +16,9 @@ import pytest
 import torch
 
 from legionsolvers_tpu_torch.ops.cuda import bicgstab2d as TB
+from legionsolvers_tpu_torch.ops.cuda import bicgstab3d as TB3
 from legionsolvers_tpu_torch.ops.cuda import stencil2d as T
+from legionsolvers_tpu_torch.ops.cuda import stencil3d as T3
 from torch_stencil_cases import KW, MODES, compare, make_inputs, run_port
 
 torch.set_num_threads(2)
@@ -89,3 +93,125 @@ def test_bicgstab_kernel_matches_plain_on_card(kernel, shape, compensated,
                  {"rr": (vec * vec).sum(), "rtr": (rt * vec).sum()})
         for key, want in exact.items():
             assert abs(got[key] - want) <= 4e-7 * abs(want), key
+
+
+# ---------------------------------------------------------------------------
+# 3-D: K6a, K6b, K7
+# ---------------------------------------------------------------------------
+
+SHAPE3 = (37, 45, 130)
+
+
+def _kw3(dim):
+    import legionsolvers_tpu_torch as lt
+
+    stencil = lt.laplacian_stencil(dim)
+    return dict(offsets=tuple(o for o, _ in stencil),
+                values=tuple(v for _, v in stencil))
+
+
+def _state3d(seed):
+    rng = np.random.default_rng(seed)
+    d = {k: rng.standard_normal(SHAPE3).astype(np.float32)
+         for k in ("x", "r", "p", "v", "rt")}
+    for k in ("top", "bot"):
+        d[k] = rng.standard_normal(SHAPE3[1:]).astype(np.float32)
+    return d
+
+
+def _tensors(d, device):
+    return {k: torch.as_tensor(np.array(v), device=device)
+            for k, v in d.items()}
+
+
+def _stencil3d(mode, d, device, dim, plain=False):
+    """One K6 pass on copies of ``d``: the wrapper, or its plain version."""
+    t, kw = _tensors(d, device), _kw3(dim)
+    h = (t["top"], t["bot"])
+    if mode == "xpay_pq":
+        fn = T3.xpay_pq3d_plain if plain else T3.grid3d_cg_xpay_pq
+        out, names = fn(t["r"], t["p"], 0.37, *h, **kw), ("p", "dot")
+    else:
+        src = t["p"] if mode in ("pq", "update") else t["x"]
+        extra = (t["x"], t["r"], 0.3) if mode == "update" else ()
+        if plain:
+            out = T3.stencil3d_plain(mode, src, *h, extra, **kw)
+        elif mode == "update":
+            out = T3.grid3d_cg_update(src, *extra, *h, **kw)
+        elif mode == "pq":
+            out = (T3.grid3d_cg_pq(src, *h, **kw),)
+        else:
+            out = T3.grid3d_stencil_matvec(src, *h, with_dot=mode == "y_dot",
+                                           **kw)
+            out = out if mode == "y_dot" else (out,)
+        names = {"y": ("y",), "y_dot": ("y", "dot"), "pq": ("dot",),
+                 "update": ("x", "r", "dot")}[mode]
+    return {k: v.double().cpu().numpy() for k, v in zip(names, out)}
+
+
+def _bicg3d(kernel, d, device, dim, compensated, plain=False):
+    """One K7 pass on copies of ``d``: the wrapper, or its plain version."""
+    t, kw = _tensors(d, device), dict(_kw3(dim), compensated=compensated)
+    h = (t["top"], t["bot"])
+    fn = getattr(TB3, f"bicg3d_{kernel}" + ("_plain" if plain else ""))
+    if kernel == "pv":
+        out = fn(t["r"], t["p"], t["v"], t["rt"], 0.37, 0.41, *h, **kw)
+        names = ("p", "v", "rtv")
+    elif kernel == "st":
+        out, names = fn(t["r"], t["v"], 0.83, *h, **kw), ("ts", "tt")
+    else:
+        out = fn(t["r"], t["v"], t["x"], t["p"], t["rt"], 0.83, 0.41, *h,
+                 **kw)
+        names = ("x", "r", "rr", "rtr")
+    return {k: v.double().cpu().numpy() for k, v in zip(names, out)}
+
+
+def _compare3d(got, ref, dot_scale):
+    """Arrays to 2e-5 * max|ref|; dots to 1e-4 of ``dot_scale``, a bound on
+    sqrt(<a,a><b,b>) of their operands."""
+    for key, want in ref.items():
+        if want.ndim:
+            np.testing.assert_allclose(got[key], want, rtol=0,
+                                       atol=2e-5 * np.abs(want).max(),
+                                       err_msg=key)
+        else:
+            assert abs(got[key] - want) <= 1e-4 * dot_scale, key
+
+
+def _norm_bound(d, *arrays):
+    """||a|| ||b|| bound for dots over the inputs and outputs: the largest
+    norm among them, squared, times the stencils' norm bound (< 26)."""
+    n = max(np.linalg.norm(np.asarray(a, np.float64)) for a in
+            (*(d[k] for k in ("x", "r", "p", "v", "rt")), *arrays))
+    return 26.0 * n * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [3, 4])
+@pytest.mark.parametrize("mode", ["y", "y_dot", "pq", "update", "xpay_pq"])
+def test_stencil3d_kernel_matches_plain_on_card(mode, dim, cuda_device):
+    """K6a (four modes) and K6b against their plain versions on the card,
+    at a ragged shape with random halo planes."""
+    d = _state3d(13)
+    T.reset_launch_counts()
+    got = _stencil3d(mode, d, cuda_device, dim)
+    assert dict(T.LAUNCHES) == {f"{mode}3d": 1}
+    ref = _stencil3d(mode, d, cuda_device, dim, plain=True)
+    arrays = [v for v in ref.values() if v.ndim]
+    _compare3d(got, ref, _norm_bound(d, *arrays))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("dim", [3, 4])
+@pytest.mark.parametrize("kernel", ["pv", "st", "update"])
+def test_bicgstab3d_kernel_matches_plain_on_card(kernel, dim, compensated,
+                                                 cuda_device):
+    """K7 against its plain versions on the card, with halo planes."""
+    d = _state3d(17)
+    T.reset_launch_counts()
+    got = _bicg3d(kernel, d, cuda_device, dim, compensated)
+    assert dict(T.LAUNCHES) == {f"bicg3d_{kernel}": 1}
+    ref = _bicg3d(kernel, d, cuda_device, dim, compensated, plain=True)
+    arrays = [v for v in ref.values() if v.ndim]
+    _compare3d(got, ref, 26.0 * _norm_bound(d, *arrays))

@@ -24,13 +24,16 @@ torch.set_num_threads(2)
 
 OFFS = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
 VALS = (4.0, -1.0, -1.0, -1.0, -1.0)
+DEV = "cpu"
 
 
 def test_import_does_not_load_jax():
     code = ("import sys, legionsolvers_tpu_torch, "
             "legionsolvers_tpu_torch.entry, "
             "legionsolvers_tpu_torch.utils.convert, "
-            "legionsolvers_tpu_torch.ops.cuda.build; "
+            "legionsolvers_tpu_torch.ops.cuda.build, "
+            "legionsolvers_tpu_torch.ops.cuda.stencil3d, "
+            "legionsolvers_tpu_torch.ops.cuda.bicgstab3d; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'legionsolvers_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -78,6 +81,34 @@ def test_cuda_request_without_card_raises(what, no_card):
                                               device="cuda"),
         "planner": lambda: T.SquarePlanner(device="cuda"),
         "system": lambda: build_system(8, device="cuda"),
+    }[what]
+    with pytest.raises(RuntimeError, match="cuda"):
+        make()
+
+
+@pytest.mark.parametrize("what", ["device", "vector", "from_array",
+                                  "operator", "planner", "matrix", "system",
+                                  "stencil_system", "convert"])
+def test_default_device_is_the_card(what, no_card):
+    """With no device given, every public constructor and entry point asks for
+    CUDA, so without a card it raises instead of running on the CPU."""
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+    from legionsolvers_tpu_torch.utils import convert
+
+    part = T.BlockPartition(64, 1)
+    A = T.create_coo_stencil_matrix((8, 8), T.laplacian_stencil(2))
+    make = {
+        "device": lambda: T.resolve_device(),
+        "vector": lambda: T.PartitionedVector("v", part),
+        "from_array": lambda: T.PartitionedVector.from_array(
+            "v", np.zeros(64), part),
+        "operator": lambda: T.StencilOperator((8, 8), T.laplacian_stencil(2)),
+        "planner": lambda: T.SquarePlanner(),
+        "matrix": lambda: T.RowPartitionedMatrix(A, part, part),
+        "system": lambda: build_system(8),
+        "stencil_system": lambda: build_stencil_system(3, (4, 4, 4)),
+        "convert": lambda: convert.stencil_cg_system(
+            (8, 8), T.laplacian_stencil(2), {}, [1.0]),
     }[what]
     with pytest.raises(RuntimeError, match="cuda"):
         make()
@@ -135,10 +166,11 @@ def test_options(monkeypatch):
 def test_mesh_not_ported(what):
     part = T.BlockPartition(64, 4)
     make = {
-        "vector": lambda: T.PartitionedVector("v", part, mesh=object()),
+        "vector": lambda: T.PartitionedVector("v", part, mesh=object(),
+                                              device=DEV),
         "operator": lambda: T.StencilOperator((8, 8), T.laplacian_stencil(2),
-                                              mesh=object()),
-        "planner": lambda: T.SquarePlanner(mesh=object()),
+                                              mesh=object(), device=DEV),
+        "planner": lambda: T.SquarePlanner(mesh=object(), device=DEV),
     }[what]
     with pytest.raises(NotImplementedError):
         make()
@@ -149,8 +181,8 @@ def test_planner_checks_devices():
     planner = T.SquarePlanner(device="cpu")
     with pytest.raises(ValueError, match="lives on meta"):
         planner.add_sol_vector(T.PartitionedVector("v", part, device="meta"))
-    planner.add_sol_vector(T.PartitionedVector("s", part))
-    planner.add_rhs_vector(T.PartitionedVector("b", part))
+    planner.add_sol_vector(T.PartitionedVector("s", part, device=DEV))
+    planner.add_rhs_vector(T.PartitionedVector("b", part, device=DEV))
     op = T.StencilOperator((8, 8), T.laplacian_stencil(2), device="meta")
     with pytest.raises(ValueError, match="lives on meta"):
         planner.add_operator(op, 0, 0)
@@ -191,14 +223,16 @@ def test_scalar_history_is_lazy():
 
 def test_vector_padding_and_fills():
     part = T.BlockPartition(10, 4)  # padded to 12
-    v = T.PartitionedVector.from_array("v", np.arange(10.0), part)
+    v = T.PartitionedVector.from_array("v", np.arange(10.0), part,
+                                       device=DEV)
     assert v.data.shape == (12,) and v.data[10:].eq(0).all()
     assert (v.to_numpy() == np.arange(10.0)).all()
-    c = T.PartitionedVector("c", part).constant_fill(3.0)
+    c = T.PartitionedVector("c", part, device=DEV).constant_fill(3.0)
     assert c.data.tolist() == [3.0] * 10 + [0.0, 0.0]
     g = torch.Generator().manual_seed(4)
-    r1 = T.PartitionedVector("r", part).random_fill(g, lo=-1.0, hi=1.0)
-    r2 = T.PartitionedVector("r", part).random_fill(
+    r1 = T.PartitionedVector("r", part, device=DEV).random_fill(
+        g, lo=-1.0, hi=1.0)
+    r2 = T.PartitionedVector("r", part, device=DEV).random_fill(
         torch.Generator().manual_seed(4), lo=-1.0, hi=1.0)
     assert torch.equal(r1.data, r2.data) and r1.data[10:].eq(0).all()
     assert r1.data[:10].abs().le(1.0).all()
@@ -209,8 +243,10 @@ def test_vector_blas1_matches_numpy():
     a, b = rng.standard_normal(37), rng.standard_normal(37)
     part = T.BlockPartition(37, 4)
     F64 = T.SolverOptions(entry_dtype=torch.float64)
-    va = T.PartitionedVector.from_array("a", a, part, options=F64)
-    vb = T.PartitionedVector.from_array("b", b, part, options=F64)
+    va = T.PartitionedVector.from_array("a", a, part, options=F64,
+                                        device=DEV)
+    vb = T.PartitionedVector.from_array("b", b, part, options=F64,
+                                        device=DEV)
     np.testing.assert_allclose(va.dot(vb).get_value(), a @ b, rtol=1e-12)
     va.axpy(T.Scalar(torch.tensor(6.0, dtype=torch.float64)),
             T.Scalar(torch.tensor(3.0, dtype=torch.float64)), vb)
@@ -253,15 +289,15 @@ def test_csr_to_ell_matches_jax():
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("shape", [(6, 10), (60,)])
+@pytest.mark.parametrize("shape", [(6, 10), (60,), (4, 6, 10)])
 def test_stencil_rmatvec_is_the_transpose(shape):
     """A non-symmetric stencil: rmatvec == dense A^T x, on the kernel view
-    (2-D, f32) and on the linearized path (1-D)."""
+    (2-D and 3-D, f32) and on the linearized path (1-D)."""
     stencil = [((0,) * len(shape), 3.0), ((1,) + (0,) * (len(shape) - 1),
                                           -2.0), ((0,) * (len(shape) - 1)
                                                   + (-1,), 0.5)]
-    op = T.StencilOperator(shape, stencil)
-    assert op.uses_pallas == (len(shape) == 2)
+    op = T.StencilOperator(shape, stencil, device=DEV)
+    assert op.uses_pallas == (len(shape) >= 2)
     A = T.create_coo_stencil_matrix(shape, stencil).to_dense()
     x = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
     xt = torch.from_numpy(x if len(shape) == 2 else x.reshape(-1))
