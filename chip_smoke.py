@@ -71,6 +71,42 @@ Phases (any failure raises, and the exit code is non-zero):
    larger of its minimum bytes over the measured copy bandwidth and its
    f32 operations over the card's f32 peak.
 
+The explicit-sparse path (the planner's upgrades of explicit matrices):
+
+4e-g. build three systems through ``entry.build_explicit_system`` (host
+   seconds printed; the operator chain and plan geometry asserted): the
+   2-D 5-point Laplacian at 4096^2 (``DiaOperator``, K8), the same
+   Laplacian at 2048^2 with rows and columns scrambled by
+   ``default_rng(0).permutation`` (an RCM basis, ``WinEllOperator``, K9)
+   and a random SPD matrix at n = 2^20 (4 entries per row symmetrized, plus
+   16 on the diagonal; the routed gather in its degree-sorted basis, K10,
+   six hops per matvec);
+3e. K8 (with and without the dot) at 4096^2 with D = 5 and at a ragged
+   200 x 328 with random coefficients and halos, K9 on the scrambled
+   system's plan, one ``SlicedWinEllOperator`` matvec on a graded band (n =
+   4.2M, bandwidth 512, degrees 3..27), and K10 on the six hop geometries
+   of the 2^20 plan in f32 and f64, each against its plain version: the
+   kernels round every product and sum as the plain versions do, so the
+   outputs must match bit for bit (K8's dot: phase 3's bound);
+   then each system's CG path: eager ``step()``s, ``solve(200)`` with K8
+   (dot), K9 and K10 launches counted exactly, a bit-identical repeat,
+   ||b - Ax||^2 through ``planner.matvec`` against the history, and the
+   history and x against float64 CG (the float64 ``lap5`` CG at 4096^2 and
+   2048^2 - b = 1 is unchanged by the scrambling - and a scipy CSR CG for
+   the random system), held to twice textbook f32's own distance; and
+   ``BiCGStabSolver.solve(200)`` on the random system, inside its basis,
+   against float64 BiCGStab the same way.  On the random system f32 CG's
+   recurrence sinks into f32's denormals and f32 BiCGStab's reaches 0 and
+   then divides 0 by 0 (near iteration 18), as the reference and textbook
+   f32 do; those checks hold the finite entries, and ||b - Ax||^2 after a
+   few iterations;
+5g. time K8, K9, K10 and the three CG solves with CUDA events, against the
+   plain versions; the library yardsticks are one ``torch.sparse`` CSR
+   SpMV (cuSPARSE) of the same matrix in the operator's basis (K8, K9 and
+   the whole routed matvec) and ``torch.take`` on each hop's precomputed
+   flat index (K10, its scale excluded).  ``--profile`` adds traces of the
+   three explicit CG solves.
+
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Details also go to
 ``chiprun_out/chip_smoke.json``.
@@ -974,7 +1010,7 @@ def time_bicg_solve(torch, TB, solver, bw, card):
     return res
 
 
-def profile_solve(torch, solver, label, card):
+def profile_solve(torch, solver, label, card, wall_ms=None):
     """With --profile: device time by kernel over one solve(200), from a
     torch.profiler trace, written to chiprun_out/profile_<label>.txt.
     Runs last, because the tracer slows the host's later launches."""
@@ -997,8 +1033,11 @@ def profile_solve(torch, solver, label, card):
     log(table)
     device_ms = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA) / 1e3
+    idle = ("" if wall_ms is None else
+            f"; idle {100 * (1 - device_ms / wall_ms):.1f}% of the unprofiled "
+            f"{wall_ms:.3f} ms")
     log(f"[profile] {label} solve({N_ITERS}): device time {device_ms:.3f} "
-        f"ms in all kernels and copies, on {card}")
+        f"ms in all kernels and copies{idle}, on {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -1532,6 +1571,641 @@ def library_2d(torch, T, device, card):
     return ms
 
 
+# ---------------------------------------------------------------------------
+# the explicit-sparse path: 4e-g (build the three systems, drive CG and
+# BiCGStab), 3e (K8, K9, K10 against their plain versions), 5g (timing)
+# ---------------------------------------------------------------------------
+
+DIA_CSRC = "legionsolvers_tpu_torch/csrc/dia2d.cu"
+WINELL_CSRC = "legionsolvers_tpu_torch/csrc/winell.cu"
+ROWPERM_CSRC = "legionsolvers_tpu_torch/csrc/rowperm.cu"
+# counter name -> (row name, source, the pallas_call it replaces)
+KERNELS_X = {
+    "dia2d": ("dia2d_matvec", DIA_CSRC,
+              "legionsolvers_tpu/ops/pallas/dia2d.py:235"),
+    "dia2d_dot": ("dia2d_matvec(with_dot)", DIA_CSRC,
+                  "legionsolvers_tpu/ops/pallas/dia2d.py:235"),
+    "winell": ("winell_spmv", WINELL_CSRC,
+               "legionsolvers_tpu/ops/pallas/winell.py:141"),
+    "blockperm": ("blockperm_gather (the six hops of one routed matvec)",
+                  ROWPERM_CSRC, "legionsolvers_tpu/ops/pallas/rowperm.py:132"),
+}
+EXPLICIT = ("dia", "scrambled", "random")
+# what the planner must pick: operator chain and plan geometry
+WANT_CHAIN = {"dia": ["DiaOperator"],
+              "scrambled": ["ReorderedOperator", "WinEllOperator"],
+              "random": ["ReorderedOperator", "GeneralSpmvOperator"]}
+WANT_GEOMETRY = {"dia": {"C": N_GRID, "D": 5},
+                 "scrambled": {"KR": 24, "L": 5, "Rt": 8},
+                 "random": {"hops": 6}}
+# iterations before the ||b - Ax||^2 check: the last one, except on the
+# random system, where the f32 recurrences fall below f32's attainable
+# accuracy within a few iterations (BiCGStab's within three)
+GAP_AT = {("cg", "dia"): N_ITERS, ("cg", "scrambled"): N_ITERS,
+          ("cg", "random"): 4, ("bicgstab", "random"): 2}
+X_GAP_FLOOR = 1e-3   # ||b - Ax||^2 vs history: twice textbook f32, or this
+X_F64_FLOOR = 1e-4   # history and x vs float64: twice textbook f32, or this
+EAGER_X_RTOL = 1e-5  # eager step()s vs the solve: other summation orders
+GRADED_N, GRADED_BW = 4 * 1024 * 1024, 512
+
+
+def chain(op):
+    return [type(op).__name__] + (chain(op.base) if hasattr(op, "base")
+                                  else [])
+
+
+def explicit_coo(np, lt, name):
+    """(rows, cols, vals, n, scramble) of one explicit system, made with
+    numpy from its seed; ``scramble`` is the row/column permutation of the
+    scrambled Laplacian (None otherwise)."""
+    if name in ("dia", "scrambled"):
+        nx = N_GRID if name == "dia" else N_GRID // 2
+        a = lt.create_coo_stencil_matrix((nx, nx), lt.laplacian_stencil(2))
+        rows, cols, vals, n = a.rows, a.cols, np.asarray(a.vals), a.n_range
+        if name == "dia":
+            return rows, cols, vals, n, None
+        pr = np.random.default_rng(0).permutation(n)
+        return pr[rows], pr[cols], vals, n, pr
+    n = 1 << 20
+    rng = np.random.default_rng(1)
+    m = 4 * n
+    rows, cols = rng.integers(0, n, m), rng.integers(0, n, m)
+    vals = rng.uniform(-1, 1, m)
+    return (np.concatenate([rows, cols, np.arange(n)]),
+            np.concatenate([cols, rows, np.arange(n)]),
+            np.concatenate([vals, vals, np.full(n, 16.0)]), n, None)
+
+
+def build_explicit(torch, np, lt, name, device):
+    """Phase 4e-g, the build: the system through build_explicit_system,
+    host seconds, and the operator chain and geometry checked."""
+    from legionsolvers_tpu_torch.entry import build_explicit_system
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    t0 = time.perf_counter()
+    rows, cols, vals, n, pr = explicit_coo(np, lt, name)
+    A = lt.COOMatrix(rows, cols, vals, n, n, options=f32)
+    t1 = time.perf_counter()
+    planner = build_explicit_system(A, f32, device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    op = planner.row_partitioned_matrices[0][0]
+    base = getattr(op, "base", op)
+    if name == "dia":
+        geo = {"C": base._view["C"], "D": len(base._view["offs"])}
+    elif name == "scrambled":
+        geo = {"KR": base.window_rows, "L": base.row_length,
+               "Rt": base.tile_rows_of_128}
+    else:
+        geo = {k: base._plan[k] for k in ("B1", "G2", "W2", "SRB3", "BR3",
+                                          "V")}
+        geo["hops"] = base.launches_per_matvec
+    ok = base.uses_pallas and all(geo[k] == v
+                                  for k, v in WANT_GEOMETRY[name].items())
+    log(f"[explicit] {name}: n {n}, nnz {A.n_kernel}; matrix {t1 - t0:.1f} s,"
+        f" planner {t2 - t1:.1f} s on the host; {chain(op)} {geo}")
+    if chain(op) != WANT_CHAIN[name] or not ok:
+        raise AssertionError(f"{name}: the planner picked {chain(op)} {geo}")
+    return {"planner": planner, "coo": (rows, cols, vals, n), "pr": pr,
+            "host_s": (t1 - t0, t2 - t1), "geometry": geo, "nnz": A.n_kernel}
+
+
+def csr_of(torch, rows, cols, vals, n, device):
+    """The f32 matrix as a torch CSR tensor on ``device`` (cuSPARSE's
+    input), duplicates summed; built on the device."""
+    import warnings
+
+    idx = torch.stack([torch.as_tensor(rows, device=device),
+                       torch.as_tensor(cols, device=device)])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # torch's beta notice
+        coo = torch.sparse_coo_tensor(
+            idx, torch.as_tensor(vals, dtype=torch.float32, device=device),
+            (n, n), check_invariants=False)
+        return coo.coalesce().to_sparse_csr()
+
+
+# -- phase 3e ----------------------------------------------------------------
+
+def capture_hops(op, x):
+    """The (hop, src, idx, vals) of every K10 call in one matvec of ``op``."""
+    from legionsolvers_tpu_torch.parallel import genspmv
+
+    calls, real = [], genspmv.gather_hop
+
+    def record(hop, src, idx, vals=None):
+        calls.append((hop, src, idx, vals))
+        return real(hop, src, idx, vals)
+
+    genspmv.gather_hop = record
+    try:
+        op.matvec(x)
+    finally:
+        genspmv.gather_hop = real
+    return calls
+
+
+def compare_explicit_kernels(torch, np, lt, T, systems, device):
+    """Phase 3e.  Returns {counter name: max abs error}."""
+    from legionsolvers_tpu_torch.ops.cuda import dia2d as TD
+    from legionsolvers_tpu_torch.ops.cuda import rowperm as RP
+    from legionsolvers_tpu_torch.ops.cuda import winell as TW
+    from legionsolvers_tpu_torch.parallel import winell_op
+
+    nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
+    errs = {}
+    g = torch.Generator(device=device).manual_seed(71)
+    dia = systems["dia"]["planner"].row_partitioned_matrices[0][0]
+    offs = dia._view["offs"]
+    cases = [(tuple(dia._view["diags"].shape[1:]), offs, dia._view["diags"]),
+             (RAGGED, ((-8, 3), (0, 0), (2, -200), (5, 130), (8, -1)), None)]
+    for shape, offsets, diags in cases:
+        R, C = shape
+        x = torch.randn(shape, generator=g, device=device)
+        top, bot = (torch.randn(8, C, generator=g, device=device)
+                    for _ in range(2))
+        if diags is None:
+            diags = torch.randn(len(offsets), R, C, generator=g,
+                                device=device)
+        for with_dot in (False, True):
+            got = TD.dia2d_matvec(x, top, bot, diags, offsets=offsets,
+                                  with_dot=with_dot)
+            want = TD.dia2d_plain(x, top, bot, diags, offsets=offsets,
+                                  with_dot=with_dot)
+            torch.cuda.synchronize()
+            derr = 0.0
+            if with_dot:
+                (got, gdot), (want, wdot) = got, want
+                derr = abs(gdot.item() - wdot.item())
+                if derr > 1e-4 * nrm(x) * nrm(want):
+                    raise AssertionError(f"K8 dot {shape}: {derr:g}")
+            err = (got - want).abs().max().item()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K8 {shape} with_dot={with_dot}: y "
+                                     f"differs from the plain version "
+                                     f"(max abs err {err:g})")
+            key = "dia2d_dot" if with_dot else "dia2d"
+            errs[key] = max(errs.get(key, 0.0), err, derr)
+            log(f"[check-x] K8 {shape} D={len(offsets)} with_dot={with_dot}:"
+                f" y == plain bit for bit" + (f", dot err {derr:.3g}"
+                                              if with_dot else ""))
+
+    w = systems["scrambled"]["planner"].row_partitioned_matrices[0][0].base
+    x2d = torch.randn(w._N // 128, 128, generator=g, device=device)
+    args = (x2d, w.wstart, w.ell_cols, w.ell_vals)
+    got = TW.winell_spmv(*args, window_rows=w.window_rows)
+    want = TW.winell_plain(*args, window_rows=w.window_rows)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K9 differs from its plain version")
+    errs["winell"] = 0.0
+    log(f"[check-x] K9 on the scrambled plan {tuple(w.ell_cols.shape)}: "
+        "== plain bit for bit")
+
+    rng = np.random.default_rng(3)
+    deg = (3 + 24 * (np.arange(GRADED_N) / GRADED_N)).astype(np.int64)
+    rows = np.repeat(np.arange(GRADED_N), deg)
+    cols = rows + rng.integers(-GRADED_BW, GRADED_BW + 1, len(rows))
+    keep = (cols >= 0) & (cols < GRADED_N)
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.uniform(-1, 1, len(rows))
+    t0 = time.perf_counter()
+    sliced = lt.SlicedWinEllOperator(
+        lt.COOMatrix(rows, cols, vals, GRADED_N, GRADED_N,
+                     options=lt.SolverOptions()),
+        lt.BlockPartition(GRADED_N, 1), lt.SolverOptions(), device=device)
+    host = time.perf_counter() - t0
+    xs = torch.randn(GRADED_N, generator=g, device=device)
+    T.reset_launch_counts()
+    y_k = sliced.matvec(xs)
+    launched = dict(T.LAUNCHES)
+    winell_op.winell_spmv = TW.winell_plain
+    try:
+        y_p = sliced.matvec(xs)
+    finally:
+        winell_op.winell_spmv = TW.winell_spmv
+    torch.cuda.synchronize()
+    if not torch.equal(y_k, y_p) or launched != {
+            "winell": len(sliced._class_meta)}:
+        raise AssertionError(f"sliced windowed ELL: kernel != plain or "
+                             f"launches {launched}")
+    log(f"[check-x] SlicedWinEllOperator, graded band n {GRADED_N}, "
+        f"{len(rows)} nnz, {len(sliced._class_meta)} classes (KR "
+        f"{[kr for _, kr in sliced._class_meta]}; host plan {host:.1f} s): "
+        "matvec == plain-driven bit for bit")
+    del sliced, rows, cols, vals
+
+    gop = systems["random"]["planner"].row_partitioned_matrices[0][0].base
+    xg = torch.randn(gop.partition.padded_size, generator=g, device=device)
+    hops = capture_hops(gop, xg)
+    for dtype in (torch.float32, torch.float64):
+        for i, (hop, src, idx, vals) in enumerate(hops):
+            src = src.to(dtype)
+            vals = None if vals is None else vals.to(dtype)
+            got = RP.gather_hop(hop, src, idx, vals)
+            want = RP.blockperm_plain(src, idx, vals, **hop.kwargs())
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K10 hop {i} {dtype} differs from its "
+                                     "plain version")
+    errs["blockperm"] = 0.0
+    log(f"[check-x] K10: {len(hops)} hops of the 2^20 plan (block rows, "
+        "source rows, w_rows: "
+        + ", ".join(f"{h.block_rows}/{h.src_block_rows}/{h.w_rows}"
+                    + ("s" if v is not None else "")
+                    for h, _, _, v in hops)
+        + "), f32 and f64: == plain bit for bit")
+    return errs
+
+
+# -- phases 4e-g ---------------------------------------------------------------
+
+def textbook_cg_scipy(np, S, iters, dtype):
+    """Textbook CG on the scipy matrix ``S``, b = 1, in numpy ``dtype``:
+    (history, x), float64."""
+    S = S.astype(dtype)
+    b = np.ones(S.shape[0], dtype)
+    x, r, p = b * 0, b.copy(), b.copy()
+    rr = r @ r
+    hist = [rr]
+    with np.errstate(all="ignore"):
+        for _ in range(iters):
+            q = S @ p
+            a = rr / (p @ q)
+            x = x + a * p
+            r = r - a * q
+            rr_new = r @ r
+            hist.append(rr_new)
+            p = r + (rr_new / rr) * p
+            rr = rr_new
+    return np.array(hist, np.float64), x.astype(np.float64)
+
+
+def textbook_bicgstab_scipy(np, S, iters, dtype):
+    S = S.astype(dtype)
+    b = np.ones(S.shape[0], dtype)
+    x, r, rt = b * 0, b.copy(), b.copy()
+    p, v = b * 0, b * 0
+    rho, alpha, omega = dtype(1), dtype(0), dtype(1)
+    hist = [r @ r]
+    with np.errstate(all="ignore"):
+        for _ in range(iters):
+            rho_new = r @ rt
+            beta = (rho_new / rho) * (alpha / omega)
+            rho = rho_new
+            p = r + beta * (p - omega * v)
+            v = S @ p
+            alpha = rho / (rt @ v)
+            s = r - alpha * v
+            t = S @ s
+            omega = (t @ s) / (t @ t)
+            x = x + alpha * p + omega * s
+            r = s - omega * t
+            hist.append(r @ r)
+    return np.array(hist, np.float64), x.astype(np.float64)
+
+
+def explicit_refs(torch, np, sysd, name, device, solver="cg"):
+    """Float64 and textbook f32 references of one system: {"h64", "x64",
+    "h32", "x32"} (float64 torch tensors on ``device``, x in the port's
+    ordering) and ``true_rr(x)``, ||1 - A x||^2 in float64."""
+    rows, cols, vals, n = sysd["coo"]
+    if name in ("dia", "scrambled"):
+        nx = int(round(n ** 0.5))
+        h64, x64 = classic_cg(torch, (nx, nx), N_ITERS, torch.float64, device)
+        h32, x32 = classic_cg(torch, (nx, nx), N_ITERS, torch.float32, device)
+        pr = sysd["pr"]
+        prt = None if pr is None else torch.as_tensor(pr, device=device)
+
+        def to_port(x):
+            x = x.reshape(-1)
+            if prt is None:
+                return x
+            out = torch.empty_like(x)
+            out[prt] = x
+            return out
+
+        def true_rr(x):
+            x = x.double().reshape(-1)
+            g = x if prt is None else x[prt]
+            return torch.sum((1.0 - lap5(g.reshape(nx, nx))) ** 2).item()
+
+        return ({"h64": h64, "x64": to_port(x64), "h32": h32,
+                 "x32": to_port(x32)}, true_rr)
+    import scipy.sparse as sp
+
+    S = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    fn = textbook_cg_scipy if solver == "cg" else textbook_bicgstab_scipy
+    out = {}
+    for key, dt in (("64", np.float64), ("32", np.float32)):
+        h, x = fn(np, S, N_ITERS, dt)
+        out["h" + key] = torch.as_tensor(h, device=device)
+        out["x" + key] = torch.as_tensor(x, device=device)
+
+    def true_rr(x):
+        xh = x.double().reshape(-1).cpu().numpy()[:n]
+        return float(np.sum((1.0 - S @ xh) ** 2))
+
+    return out, true_rr
+
+
+def finite_window(torch, *hists):
+    """Leading entries where every history is finite and positive."""
+    ok = None
+    for h in hists:
+        f = torch.isfinite(h) & (h > 0)
+        ok = f if ok is None else ok & f
+    bad = (~ok).nonzero()
+    return int(bad[0]) if len(bad) else len(ok)
+
+
+def explicit_path(torch, T, lt, name, sysd, refs, true_rr, device,
+                  kind="cg"):
+    """Phase 4e, 4f or 4g on one system: eager ``step()``s (CG only),
+    ``solve(200)``, the same solve again (bit-identical, NaNs included),
+    ``solve(GAP_AT[name])`` and ||b - Ax||^2 through ``planner.matvec``
+    against its last entry, every kernel launch counted; then the history
+    and x against float64.  Returns (counts, results, solver, failed)."""
+    planner = sysd["planner"]
+    op = planner.row_partitioned_matrices[0][0]
+    solver = (lt.CGSolver(planner) if kind == "cg"
+              else lt.BiCGStabSolver(planner))
+    scratch = solver.Q if kind == "cg" else solver.U
+    b = planner.rhs_vectors[0].data
+    torch.cuda.synchronize()
+    gap_at = GAP_AT[kind, name]
+
+    T.reset_launch_counts()
+    eager = None
+    if kind == "cg":
+        for _ in range(N_EAGER):
+            solver.step()
+        eager = torch.stack([s.value for s in solver.residual_norm_squared])
+    restart(solver)
+    hist = solver.solve(N_ITERS)
+    after = dict(T.LAUNCHES)
+    x = planner.sol_vectors[0].data.clone()
+    restart(solver)
+    hist2 = solver.solve(N_ITERS)
+    repeat = same_bits(hist, hist2) and same_bits(
+        x, planner.sol_vectors[0].data)
+    restart(solver)
+    h_gap = solver.solve(gap_at)
+    planner.matvec(scratch, solver.SOL)
+    torch.cuda.synchronize()
+    counts = dict(T.LAUNCHES)
+    T.reset_launch_counts()
+    rr_true = torch.sum((b - planner.get_vector(scratch, 0).data).double()
+                        ** 2).item()
+    gap = abs(rr_true - h_gap[-1].item()) / h_gap[-1].item()
+
+    h64, x64, h32, x32 = (refs[k] for k in ("h64", "x64", "h32", "x32"))
+    win = finite_window(torch, hist.double(), h64, h32)
+    agree = (agree_window(h32, h64), agree_window(hist, h64))
+    dev_k = rel_dev(hist[:win], h64[:win]).max().item()
+    dev_t = rel_dev(h32[:win], h64[:win]).max().item()
+    finite_x = bool(torch.isfinite(x).all())
+    xk = x_rel(x, x64) if finite_x else float("nan")
+    xt = x_rel(x32, x64) if bool(torch.isfinite(x32).all()) else float("nan")
+    # the textbook f32 run's own true-residual gap at the same iteration
+    if kind == "cg" and gap_at == N_ITERS:
+        gap32 = abs(true_rr(x32) - h32[-1].item()) / h32[-1].item()
+    else:
+        gap32 = 0.0
+    first_bad = lambda h: (None if bool(torch.isfinite(h).all())
+                           else int((~torch.isfinite(h)).nonzero()[0]))
+    hops = getattr(getattr(op, "base", op), "launches_per_matvec", 1)
+    per_mv = {"dia": ("dia2d_dot", "dia2d"), "scrambled": ("winell",) * 2,
+              "random": ("blockperm",) * 2}[name]
+    n_mv = (1 if kind == "cg" else 2)
+    want_after = {per_mv[0]: hops * n_mv * N_ITERS}
+    if eager is not None:
+        want_after[per_mv[0]] += hops * N_EAGER
+    want = dict(want_after)
+    want[per_mv[0]] += hops * n_mv * (N_ITERS + gap_at)
+    want[per_mv[1]] = want.get(per_mv[1], 0) + hops
+    eager_dev = (rel_dev(eager, hist[:N_EAGER + 1]).max().item()
+                 if eager is not None else 0.0)
+    log(f"[{kind}-x] {name}: launches {after}, then {counts}; repeat "
+        f"bit-identical {repeat}; eager vs solve rel dev {eager_dev:.3g}; "
+        f"residual^2 {hist[0].item():.6g} -> {hist[-1].item():.6g} (float64 "
+        f"{h64[-1].item():.6g}); first non-finite entry: kernel "
+        f"{first_bad(hist)}, textbook f32 {first_bad(h32)}, float64 "
+        f"{first_bad(h64)}; after {gap_at}: ||b-Ax||^2 {rr_true:.6g} vs "
+        f"history {h_gap[-1].item():.6g} (rel {gap:.3g}; textbook f32 "
+        f"{gap32:.3g}); entries within 1e-3 of float64: textbook f32 "
+        f"{agree[0]}, kernel {agree[1]}; against float64 over the {win} "
+        f"finite entries (history, x max rel): kernel {dev_k:.3g} {xk:.3g}, "
+        f"textbook f32 {dev_t:.3g} {xt:.3g}")
+    checks = {
+        "launches": after == want_after and counts == want,
+        "two solves from one state are bit-identical": repeat,
+        "b intact": bool((b == 1.0).all()),
+        f"eager step() vs solve, rtol {EAGER_X_RTOL}":
+            eager_dev <= EAGER_X_RTOL,
+        f"||b - Ax||^2 vs history after {gap_at}, within twice textbook "
+        f"f32's gap (or {X_GAP_FLOOR})": gap <= max(2 * gap32, X_GAP_FLOOR),
+        "the kernel path stays finite as long as textbook f32 does":
+            win >= finite_window(torch, h32, h64),
+        "the kernel path stays within 1e-3 of float64 as long as textbook "
+        "f32 does": agree[1] >= agree[0],
+        "history within twice textbook f32's distance from float64 (floor "
+        f"{X_F64_FLOOR})": dev_k <= max(2 * dev_t, X_F64_FLOOR),
+    }
+    if bool(torch.isfinite(x32).all()):  # else both broke down
+        checks[f"x within twice textbook f32's distance (floor "
+               f"{X_F64_FLOOR})"] = finite_x and xk <= max(2 * xt,
+                                                           X_F64_FLOOR)
+    failed = [f"{kind}-x {name}: {k}" for k, ok in checks.items() if not ok]
+    results = {"hist_first_last": (hist[0].item(), hist[-1].item()),
+               "first_nonfinite": (first_bad(hist), first_bad(h32),
+                                   first_bad(h64)),
+               "true_rr": rr_true, "gap": gap, "gap_textbook": gap32,
+               "eager_dev": eager_dev, "window": win, "agree": agree,
+               "vs_f64": {"kernel": (dev_k, xk), "textbook f32": (dev_t, xt)},
+               "checks": checks}
+    del x
+    return counts, results, solver, failed
+
+
+# -- phase 5g ------------------------------------------------------------------
+
+def time_explicit(torch, np, lt, systems, solvers, bw, card, device):
+    """Phase 5g.  Returns ({counter name: (ms, plain ms, bytes, flops,
+    library ms)}, {system: (ms/iter, host ms/iter)}, extra)."""
+    from legionsolvers_tpu_torch.ops.cuda import dia2d as TD
+    from legionsolvers_tpu_torch.ops.cuda import rowperm as RP
+    from legionsolvers_tpu_torch.ops.cuda import winell as TW
+
+    g = torch.Generator(device=device).manual_seed(83)
+    out, extra = {}, {}
+
+    def ring_ms(fns, reps):
+        k = iter(range(10**9))
+        return event_ms(torch, lambda: fns[next(k) % len(fns)](), reps)
+
+    # K8 at 4096^2, D = 5, on the DIA system's coefficients
+    dsys = systems["dia"]
+    dia = dsys["planner"].row_partitioned_matrices[0][0]
+    diags, offs = dia._view["diags"], dia._view["offs"]
+    n, D = N_GRID * N_GRID, len(offs)
+    xs = [torch.randn(diags.shape[1:], generator=g, device=device)
+          for _ in range(3)]
+    csr = csr_of(torch, *dsys["coo"], device)
+    y_lib = torch.mv(csr, xs[0].reshape(-1))
+    y_ker = TD.dia2d_matvec(xs[0], None, None, diags, offsets=offs)
+    lib_err = (y_lib - y_ker.reshape(-1)).abs().max().item()
+    if lib_err > 1e-5 * y_ker.abs().max().item():
+        raise AssertionError(f"cuSPARSE disagrees with K8: {lib_err:g}")
+    lib_ms = ring_ms([lambda x=x: torch.mv(csr, x.reshape(-1)) for x in xs],
+                     30)
+    del csr, y_lib
+    for key, with_dot in (("dia2d", False), ("dia2d_dot", True)):
+        ms = ring_ms([lambda x=x: TD.dia2d_matvec(
+            x, None, None, diags, offsets=offs, with_dot=with_dot)
+            for x in xs], 30)
+        plain = ring_ms([lambda x=x: TD.dia2d_plain(
+            x, None, None, diags, offsets=offs, with_dot=with_dot)
+            for x in xs], 6)
+        nbytes = (2 + D) * 4 * n
+        sane(key, ms, nbytes, bw)
+        out[key] = (ms, plain, nbytes, (2 * D + 2 * with_dot) * n, lib_ms)
+        log(f"[time-x] K8 {key}: {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s),"
+            f" plain {plain:.4f} ms, cuSPARSE CSR SpMV {lib_ms:.4f} ms (max "
+            f"abs diff {lib_err:.3g}) at {N_GRID}^2, D = {D}, f32 on {card}")
+    del xs
+
+    # K9 on the scrambled system's plan
+    ssys = systems["scrambled"]
+    w = ssys["planner"].row_partitioned_matrices[0][0].base
+    nt, L, Rt, _ = w.ell_cols.shape
+    xs = [torch.randn(w._N // 128, 128, generator=g, device=device)
+          for _ in range(3)]
+    args = lambda x: (x, w.wstart, w.ell_cols, w.ell_vals)
+    pm = w.matrix
+    csr = csr_of(torch, pm.rows, pm.cols, np.asarray(pm.vals),
+                 w.partition.padded_size, device)
+    nrow = w.partition.padded_size
+    y_lib = torch.mv(csr, xs[0].reshape(-1)[:nrow])
+    y_ker = TW.winell_spmv(*args(xs[0]), window_rows=w.window_rows)
+    lib_err = (y_lib - y_ker.reshape(-1)[:nrow]).abs().max().item()
+    if lib_err > 1e-5 * y_ker.abs().max().item():
+        raise AssertionError(f"cuSPARSE disagrees with K9: {lib_err:g}")
+    lib_ms = ring_ms([lambda x=x: torch.mv(csr, x.reshape(-1)[:nrow])
+                      for x in xs], 30)
+    del csr, y_lib
+    ms = ring_ms([lambda x=x: TW.winell_spmv(*args(x),
+                                             window_rows=w.window_rows)
+                  for x in xs], 30)
+    plain = ring_ms([lambda x=x: TW.winell_plain(*args(x),
+                                                 window_rows=w.window_rows)
+                     for x in xs], 6)
+    slots = nt * L * Rt * 128
+    nbytes = 8 * slots + 4 * nt * Rt * 128 + 4 * w._N
+    sane("winell", ms, nbytes, bw)
+    out["winell"] = (ms, plain, nbytes, 2 * slots, lib_ms)
+    log(f"[time-x] K9 winell: {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s; "
+        f"{ssys['nnz'] / ms / 1e6:.2f} Gnnz/s), plain {plain:.4f} ms, "
+        f"cuSPARSE CSR SpMV {lib_ms:.4f} ms (max abs diff {lib_err:.3g}) on "
+        f"the scrambled 2048^2 plan (nt {nt}, L {L}, Rt {Rt}, KR "
+        f"{w.window_rows}), f32 on {card}")
+    del xs
+
+    # K10: the six hops of one routed matvec, each timed over a ring of
+    # three copies of its inputs.  A hop reads only the source elements its
+    # windows reach (hop 5: 3 of every 24 rows), so its bytes count those,
+    # from this run's index, not the whole source.
+    rsys = systems["random"]
+    gop = rsys["planner"].row_partitioned_matrices[0][0].base
+    xg = torch.randn(gop.partition.padded_size, generator=g, device=device)
+    hops = capture_hops(gop, xg)
+    tot = {"ms": 0.0, "plain": 0.0, "take": 0.0, "bytes": 0, "flops": 0}
+    per_hop = []
+    for i, (hop, src, idx, vals) in enumerate(hops):
+        RD = idx.shape[0]
+        br = hop.block_rows
+        d = torch.arange(RD, device=device)
+        w0 = torch.as_tensor(hop.w0_table, device=device)
+        flat = ((d // br) * hop.src_block_rows
+                + w0[d % br])[:, None] * 1024 + idx.long()
+        if not torch.equal(torch.take(src, flat), RP.blockperm_plain(
+                src, idx, None, **hop.kwargs())):
+            raise AssertionError(f"torch.take disagrees with K10 hop {i}")
+        src_read = torch.unique(flat).numel()
+        ring = [(src, idx, vals, flat)] + [
+            (src.clone(), idx.clone(),
+             None if vals is None else vals.clone(), flat.clone())
+            for _ in range(2)]
+        ms = ring_ms([lambda r=r: RP.gather_hop(hop, *r[:3]) for r in ring],
+                     30)
+        plain = ring_ms([lambda r=r: RP.blockperm_plain(
+            *r[:3], **hop.kwargs()) for r in ring], 6)
+        take = ring_ms([lambda r=r: torch.take(r[0], r[3]) for r in ring],
+                       30)
+        elems = RD * 1024
+        nbytes = 4 * elems * (2 + (vals is not None)) + 4 * src_read
+        sane(f"blockperm hop {i}", ms, nbytes, bw)
+        per_hop.append((RD, br, hop.src_block_rows, hop.w_rows,
+                        vals is not None, src_read, ms, plain, take))
+        tot["ms"] += ms
+        tot["plain"] += plain
+        tot["take"] += take
+        tot["bytes"] += nbytes
+        tot["flops"] += elems if vals is not None else 0
+        del flat, ring
+    out["blockperm"] = (tot["ms"], tot["plain"], tot["bytes"], tot["flops"],
+                        tot["take"])
+    log(f"[time-x] K10 blockperm, six hops of one 2^20 matvec: {tot['ms']:.4f}"
+        f" ms ({tot['bytes'] / tot['ms'] / 1e6:.1f} GB/s), plain "
+        f"{tot['plain']:.4f} ms, torch.take {tot['take']:.4f} ms; per hop "
+        "(rows, block, source rows, w_rows, scaled, source elements read, "
+        "ms, plain, take): "
+        + "; ".join(" ".join(f"{v:.4f}" if isinstance(v, float) else str(v)
+                             for v in h) for h in per_hop)
+        + f" (f32 on {card})")
+    extra["K10_hops"] = per_hop
+
+    # the whole routed matvec against cuSPARSE on the same basis
+    pm = gop.matrix
+    csr = csr_of(torch, pm.rows, pm.cols, np.asarray(pm.vals),
+                 gop.partition.padded_size, device)
+    y_lib = torch.mv(csr, xg)
+    y_ker = gop.matvec(xg)
+    lib_err = (y_lib - y_ker).abs().max().item()
+    if lib_err > 1e-5 * y_ker.abs().max().item():
+        raise AssertionError(f"cuSPARSE disagrees with genspmv: {lib_err:g}")
+    mv_ms = event_ms(torch, lambda: gop.matvec(xg), 30)
+    mv_lib = event_ms(torch, lambda: torch.mv(csr, xg), 30)
+    extra["genspmv_matvec_ms"] = (mv_ms, mv_lib)
+    log(f"[time-x] routed matvec (6 x K10 + transposes + sums): {mv_ms:.4f} "
+        f"ms ({rsys['nnz'] / mv_ms / 1e6:.2f} Gnnz/s), cuSPARSE CSR SpMV "
+        f"{mv_lib:.4f} ms (max abs diff {lib_err:.3g}) at n 2^20, f32 on "
+        f"{card}")
+    del csr, y_lib
+
+    # the three CG solves
+    # B/unknown/iteration besides the matvec: two axpys 24, <r, r> 4,
+    # <p, q> 8 (inside K8 on the DIA system), xpay 12
+    vec_bytes = 48
+    solves = {}
+    for name in EXPLICIT:
+        solver = solvers[name]
+        n = systems[name]["coo"][3]
+        mv_bytes = {"dia": out["dia2d_dot"][2],
+                    "scrambled": out["winell"][2],
+                    "random": out["blockperm"][2]}[name]
+        vb = vec_bytes - (8 if name == "dia" else 0)  # the dot is in K8
+        nbytes = (mv_bytes + vb * n) * N_ITERS
+        ms, host = solve_ms(torch, solver, N_ITERS)
+        sane(f"explicit CG {name}", ms, nbytes, bw)
+        solves[name] = (ms / N_ITERS, host / N_ITERS)
+        log(f"[time-x] CG solve({N_ITERS}) {name}: {ms / N_ITERS:.4f} ms/iter "
+            f"({systems[name]['nnz'] / (ms / N_ITERS) / 1e6:.2f} Gnnz/s, "
+            f"{nbytes / ms / 1e6:.1f} GB/s of the schedule's minimum "
+            f"bytes; host enqueue {host / N_ITERS:.4f} ms/iter) on {card}")
+    return out, solves, extra
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
                nflops, bw, library_ms=None):
     """One entry of the kernels line: bound_ms is the larger of the bytes
@@ -1600,6 +2274,24 @@ def main() -> int:
             counts3[kind3, dim], solvers3[kind3, dim] = c, slv
             results3[f"{kind3} dim {dim}"] = r
             failed += f
+    systems = {name: build_explicit(torch, np, lt, name, device)
+               for name in EXPLICIT}
+    errs_x = compare_explicit_kernels(torch, np, lt, T, systems, device)
+    counts_x, results_x, solvers_x = {}, {}, {}
+    runs = [("cg", name, systems[name]) for name in EXPLICIT]
+    # BiCGStab on a system of its own, built by the entry point again
+    runs.append(("bicgstab", "random",
+                 build_explicit(torch, np, lt, "random", device)))
+    for kind_x, name, sysd in runs:
+        refs, true_rr = explicit_refs(torch, np, sysd, name, device, kind_x)
+        c, r, slv, f = explicit_path(torch, T, lt, name, sysd, refs, true_rr,
+                                     device, kind_x)
+        counts_x[kind_x, name] = c
+        results_x[f"{kind_x} {name}"] = r
+        if kind_x == "cg":
+            solvers_x[name] = slv
+        failed += f
+        del refs
     bw = copy_bandwidth(torch, device)
     log(f"[time] copy bandwidth {bw / 1e9:.1f} GB/s on {card}")
     ktimes = time_kernels(torch, T, device, bw, card)
@@ -1610,10 +2302,15 @@ def main() -> int:
     ktimes3, conv3d_ms = time_3d_kernels(torch, lt, T3, TB3, device, bw,
                                          card)
     solve3 = time_3d_solves(torch, T3, TB3, solvers3, bw, card)
+    ktimes_x, solve_x, extra_x = time_explicit(torch, np, lt, systems,
+                                               solvers_x, bw, card, device)
     if "--profile" in sys.argv[1:]:  # last: tracing slows later launches
         profile_solve(torch, bsolver, "bicgstab_2d", card)
         for (kind3, dim), slv in solvers3.items():
             profile_solve(torch, slv, f"{kind3}_3d_dim{dim}", card)
+        for name, slv in solvers_x.items():
+            profile_solve(torch, slv, f"cg_explicit_{name}", card,
+                          solve_x[name][0] * N_ITERS)
     if failed:
         raise AssertionError(f"checks failed: {failed}")
 
@@ -1623,6 +2320,12 @@ def main() -> int:
         for m in (*KERNELS3, *BICG3_KERNELS):
             launches[m, dim] = (counts3["cg", dim].get(m, 0)
                                 + counts3["bicg", dim].get(m, 0))
+    launches.update(
+        dia2d=counts_x["cg", "dia"].get("dia2d", 0),
+        dia2d_dot=counts_x["cg", "dia"].get("dia2d_dot", 0),
+        winell=counts_x["cg", "scrambled"].get("winell", 0),
+        blockperm=(counts_x["cg", "random"].get("blockperm", 0)
+                   + counts_x["bicgstab", "random"].get("blockperm", 0)))
     missing = [m for m, c in launches.items() if not c]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "
@@ -1651,6 +2354,11 @@ def main() -> int:
             launches[m, dim], errs3[m, dim], *ktimes3[m, dim, False],
             bpe * n3, ops_per_elt(m, terms) * n3, bw)
             for m, (line, bpe) in BICG3_KERNELS.items()]
+    for m, (row, source, replaces) in KERNELS_X.items():
+        ms, plain_ms, nbytes, nflops, lib_ms = ktimes_x[m]
+        kernels.append(kernel_row(f"{row} [{m}]", source, replaces,
+                                  launches[m], errs_x[m], ms, plain_ms,
+                                  nbytes, nflops, bw, lib_ms))
     report = {"card": card, "kind": kind, "build_s": build_s,
               "copy_GBps": bw / 1e9, "kernels": kernels,
               "bicg_kernel_ms": {m: {str(c): t for c, t in v.items()}
@@ -1663,7 +2371,16 @@ def main() -> int:
               "conv3d_ms": conv3d_ms, "conv2d_ms": conv2d_ms,
               "solve3d_ms_per_iter": {f"{k} dim {d} {lab}": t for
                                       (k, d, lab), t in solve3.items()},
-              "paths3d": results3}
+              "paths3d": results3,
+              "explicit": {
+                  "systems": {k: {"host_s": v["host_s"], "nnz": v["nnz"],
+                                  "geometry": v["geometry"]}
+                              for k, v in systems.items()},
+                  "paths": results_x,
+                  "solve200_ms_per_iter": solve_x,
+                  "kernel_ms": {k: v[:2] + v[4:] for k, v in
+                                ktimes_x.items()},
+                  **extra_x}}
     out_dir = pathlib.Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

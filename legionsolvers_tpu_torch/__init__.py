@@ -2,13 +2,15 @@
 
 Same module paths and public names as the JAX package, on torch tensors
 that live on the card unless the caller asks for the CPU.  Ported so far:
-the single-device CG and BiCGStab paths on 2-D and 3-D stencils, i.e.
-deferred scalars, vectors, COO/CSR/ELL operators, the planner (with
-compensated dots), the matrix-free stencil operator whose passes are
-hand-written CUDA kernels for Hopper (``ops/cuda/``, ``csrc/``),
-``CGSolver``, ``BiCGStabSolver`` and the systems of ``entry.py``.  Not
-ported yet: GMRES and PCG, DIA/windowed-ELL/general sparsity, block systems
-and sharding.  The package imports torch and numpy, never jax.
+the single-device CG and BiCGStab paths on 2-D and 3-D stencils and on
+explicit matrices, i.e. deferred scalars, vectors, COO/CSR/ELL operators,
+the planner (with compensated dots and the DIA, RCM and routed-gather
+upgrades of explicit matrices), the matrix-free stencil operator, the DIA,
+windowed-ELL and general-sparsity operators, whose passes are hand-written
+CUDA kernels for Hopper (``ops/cuda/``, ``csrc/``), ``CGSolver``,
+``BiCGStabSolver`` and the systems of ``entry.py``.  Not ported yet: GMRES
+and PCG, block systems and sharding.  The package imports torch, numpy and
+scipy, never jax.
 """
 
 from .options import DEFAULT_OPTIONS, SolverOptions, resolve_device
@@ -21,11 +23,16 @@ from .core.matrix import (
     COOMatrix,
     CSRMatrix,
 )
+from .parallel.dia_op import DiaOperator
 from .parallel.distmatrix import RowPartitionedMatrix
+from .parallel.genspmv import GeneralSpmvOperator
+from .parallel.reorder import ReorderedOperator
 from .parallel.stencil_op import StencilOperator
+from .parallel.winell_op import SlicedWinEllOperator, WinEllOperator
 from .planner import SquarePlanner
 from .solvers.bicgstab import BiCGStabSolver
 from .solvers.cg import CGSolver
+from .entry import build_explicit_system
 from .problems.laplacian import (
     coo_negative_laplacian_1d,
     csr_negative_laplacian_1d,

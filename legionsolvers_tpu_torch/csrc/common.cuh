@@ -1,8 +1,10 @@
-// What the hand-written stencil kernels share (stencil2d.cu, bicgstab2d.cu,
-// stencil3d.cu, bicgstab3d.cu): the stencil descriptions, the tile
-// geometry, the halo window loads, the stencil application from shared
-// memory, the fixed-order reduction of per-block partial dot products and,
-// for the 3-D kernels, the march of a block along x (march3d).
+// What the hand-written kernels share (stencil2d.cu, bicgstab2d.cu,
+// stencil3d.cu, bicgstab3d.cu, and dia2d.cu, winell.cu, rowperm.cu of the
+// explicit-sparse path): the stencil descriptions, the tile geometry, the
+// halo window loads, the stencil application from shared memory, the
+// fixed-order reduction of per-block partial dot products, unfused
+// round-to-nearest arithmetic and, for the 3-D kernels, the march of a
+// block along x (march3d).
 //
 // build.py compiles every csrc/*.cu into one shared library, so everything
 // here has internal linkage (an anonymous namespace): each translation unit
@@ -73,6 +75,14 @@ __device__ __forceinline__ float apply_at(const float* a, int W, int i, int j,
   for (int k = 0; k < s.n; ++k) acc += s.v[k] * a[(i + s.dy[k]) * W + (j + s.dx[k])];
   return acc;
 }
+
+// Products and sums rounded one at a time, never contracted into an FMA:
+// the explicit-sparse kernels (dia2d.cu, winell.cu, rowperm.cu) then give
+// the plain PyTorch versions' results bit for bit.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 __device__ __forceinline__ bool in_grid(int gr, int gc, int R, int C) {
   return gr >= 0 && gr < R && gc >= 0 && gc < C;

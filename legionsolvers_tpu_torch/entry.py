@@ -6,8 +6,12 @@
 27-point negative Laplacian) on the given grid, b = 1 and x0 = 0, with the
 vectors in their grid layout whenever the operator's kernel view is active.
 :func:`build_system` is its 2-D square case, as
-``__graft_entry__._build_system`` builds it for one device.  Both run on
-the card unless the caller asks for another device.
+``__graft_entry__._build_system`` builds it for one device.
+:func:`build_explicit_system` is the explicit-matrix counterpart of
+``scripts/bench_explicit.py``: one piece, flat vectors, b = 1, x0 = 0,
+the planner choosing the operator (DIA, a reordered windowed ELL or the
+routed gather, else ELL).  All run on the card unless the caller asks for
+another device.
 """
 
 from __future__ import annotations
@@ -51,3 +55,23 @@ def build_stencil_system(dim: int, shape: Sequence[int],
 def build_system(n_grid: int, options: SolverOptions = DEFAULT_OPTIONS,
                  device=None) -> SquarePlanner:
     return build_stencil_system(2, (n_grid, n_grid), options, device)
+
+
+def build_explicit_system(matrix, options: SolverOptions = DEFAULT_OPTIONS,
+                          device=None, prefer_dia: bool = True
+                          ) -> SquarePlanner:
+    """A one-piece system ``matrix`` x = 1 with x0 = 0, the square explicit
+    ``matrix`` registered through ``add_row_partitioned_matrix``."""
+    if matrix.n_domain != matrix.n_range:
+        raise ValueError("an explicit system needs a square matrix")
+    device = resolve_device(device)
+    part = BlockPartition(int(matrix.n_range), 1)
+    rhs = PartitionedVector("rhs", part, options=options, device=device)
+    rhs.constant_fill(1.0)
+    sol = PartitionedVector("sol", part, options=options, device=device,
+                            lazy=True)
+    planner = SquarePlanner(options=options, device=device)
+    planner.add_sol_vector(sol)
+    planner.add_rhs_vector(rhs)
+    planner.add_row_partitioned_matrix(matrix, 0, 0, prefer_dia=prefer_dia)
+    return planner

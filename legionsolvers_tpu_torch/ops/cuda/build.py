@@ -115,6 +115,7 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
     point's argument types declared (pointers and the stream as
     ``c_void_p``, so that none is cut to 32 bits)."""
+    from .dia2d import DIA_ELEMS, MAX_DIA_TERMS
     from .stencil2d import MAX_TERMS, TILE
     from .stencil3d import CHUNK_X, _Stencil3
 
@@ -132,12 +133,16 @@ def load_library() -> ctypes.CDLL:
         "ls_bicg3d_pv": [_P] * 12 + [_I] * 4 + [_P, _P],
         "ls_bicg3d_st": [_P] * 7 + [_I] * 4 + [_P, _P],
         "ls_bicg3d_update": [_P] * 12 + [_I] * 4 + [_P, _P],
+        "ls_dia2d": [_I] + [_P] * 5 + [_I] + [_P] * 3 + [_I, _I, _P],
+        "ls_winell": [_I] + [_P] * 5 + [_I] * 3 + [_P],
+        "ls_blockperm": [_I] + [_P] * 5 + [_I] * 3 + [_P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for name in ("ls_tile", "ls_max_terms", "ls_chunk_x", "ls_stencil3_size"):
+    for name in ("ls_tile", "ls_max_terms", "ls_chunk_x", "ls_stencil3_size",
+                 "ls_dia_max_terms", "ls_dia_elems"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     lib.ls_error_string.argtypes = [ctypes.c_int]
@@ -149,4 +154,8 @@ def load_library() -> ctypes.CDLL:
             or lib.ls_stencil3_size() != ctypes.sizeof(_Stencil3)):
         raise RuntimeError("csrc/common.cuh and ops/cuda/stencil3d.py "
                            "disagree on LS_CHUNK_X or the LsStencil3 layout")
+    if (lib.ls_dia_max_terms() != MAX_DIA_TERMS
+            or lib.ls_dia_elems() != DIA_ELEMS):
+        raise RuntimeError("csrc/dia2d.cu and ops/cuda/dia2d.py disagree on "
+                           "LS_DIA_MAX_TERMS or LS_DIA_ELEMS")
     return lib

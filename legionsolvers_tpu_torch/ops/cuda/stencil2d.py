@@ -308,6 +308,20 @@ def _dev_scalars(a, n: int, device) -> torch.Tensor:
     return t
 
 
+_TABLES = {}
+
+
+def _int32_table(values: tuple, device) -> torch.Tensor:
+    """``values`` as an int32 device array, made once per (values, device):
+    the small index tables a kernel reads (K8's offsets, K10's w0)."""
+    key = (values, device)
+    t = _TABLES.get(key)
+    if t is None:
+        t = torch.tensor(values, dtype=torch.int32, device=device)
+        _TABLES[key] = t
+    return t
+
+
 def _blocks(R, C) -> int:
     return -(-R // TILE) * -(-C // TILE)
 

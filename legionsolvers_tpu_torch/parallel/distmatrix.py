@@ -3,10 +3,12 @@
 Port of the unsharded path of ``legionsolvers_tpu/parallel/distmatrix.py``
 (reference: COOMatrix.cpp:144-191, SquarePlanner.hpp:209-235).  The matrix
 is stored as one global ELL slab over the padded range: row ``i`` holds its
-nonzeros in COO order, padded slots carry value 0 and column 0.  This is
-the operator the fp64 golden tests run through.  The sharded halo-exchange
-path (and its windowed-ELL kernel) waits for the multi-device slice: a
-non-``None`` mesh raises.
+nonzeros in COO order, padded slots carry value 0 and column 0.  The
+planner keeps explicit matrices here when none of its upgrades applies
+(DIA, a reordered windowed ELL or the routed gather, all one piece) and
+for multi-piece partitions, which it runs on one device.  The sharded
+halo-exchange path, with its per-shard windowed-ELL plans, waits for the
+multi-device slice: a non-``None`` mesh raises.
 """
 
 from __future__ import annotations

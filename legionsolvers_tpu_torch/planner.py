@@ -7,15 +7,23 @@ side set, ``2 + k`` the k-th workspace set, each set holding one vector per
 registered space, so the solvers are near-transcriptions of the reference.
 
 Every vector and operator must live on the planner's ``device``; the
-registration methods check it.  Explicit matrices always become the ELL
-:class:`~.parallel.distmatrix.RowPartitionedMatrix`; the JAX package's DIA
-and RCM upgrades are not ported yet.
+registration methods check it.  An explicit square matrix on a one-piece
+space is upgraded as in the JAX package: few well-filled diagonals become a
+:class:`~.parallel.dia_op.DiaOperator` (kernel K8); otherwise
+``parallel/reorder.py`` tries an RCM basis (DIA or windowed ELL, K9) and
+then the routed gather in a degree-sorted basis (K10).  Everything else,
+multi-piece partitions included, becomes the ELL
+:class:`~.parallel.distmatrix.RowPartitionedMatrix`.  A space that adopts a
+reordered basis keeps it: later operators on it are expressed in it, and
+solvers enter the basis for the duration of ``solve()``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .core.matrix import AbstractMatrix
@@ -49,6 +57,34 @@ class SquarePlanner:
         self.rhs_vectors: List[PartitionedVector] = []
         self.workspace_vectors: List[List[PartitionedVector]] = []
         self.row_partitioned_matrices: List[Tuple[object, int, int]] = []
+        # reordered-basis state, per space (parallel/reorder.py): perm_np,
+        # iperm_np (host) and perm_dev, iperm_dev (padded device indices)
+        self.basis_perms: Dict[int, Dict] = {}
+        self._in_solver_basis = False
+
+    @property
+    def basis_perm(self):
+        """Space 0's basis entry, or None (the JAX package's single-basis
+        view)."""
+        return self.basis_perms.get(0)
+
+    def adopt_basis(self, space: int, perm) -> None:
+        """Put ``space`` in the solver basis ``perm`` (perm[i] = the
+        original index at position i) before any operator touches it; the
+        space's matrices are then expressed in that basis, as when the
+        planner's own RCM upgrade chose it."""
+        from .parallel.reorder import inverse_perm, padded_perm
+
+        if any(space in (d, r) for _, d, r in self.row_partitioned_matrices):
+            raise ValueError(f"space {space} already has operators")
+        perm = np.asarray(perm, np.int64)
+        iperm = inverse_perm(perm)
+        P = self.canonical_partitions[space].padded_size
+        self.basis_perms[space] = {
+            "perm_np": perm, "iperm_np": iperm,
+            "perm_dev": padded_perm(perm, P, self.device),
+            "iperm_dev": padded_perm(iperm, P, self.device),
+        }
 
     def _check_device(self, what: str, device) -> None:
         if device != self.device:
@@ -112,17 +148,70 @@ class SquarePlanner:
 
     def add_row_partitioned_matrix(
         self, matrix: AbstractMatrix, domain_index: int, range_index: int,
+        prefer_dia: bool = True,
     ) -> None:
-        """reference: SquarePlanner.hpp:209-235.  Always the ELL operator."""
+        """reference: SquarePlanner.hpp:209-235.  The storage follows the
+        JAX planner's layout analysis: a space in a reordered basis gets
+        the matrix in that basis (a second square matrix through the forced
+        path of ``try_reordered_operator``, a cross-space one as a
+        ``CrossBasisOperator``); a square one-piece matrix with few
+        well-filled diagonals becomes a ``DiaOperator``; otherwise an RCM or
+        degree-sorted basis is tried on a space no operator touches yet;
+        the rest is the ELL ``RowPartitionedMatrix``.  ``prefer_dia=False``
+        or LEGIONSOLVERS_NO_DIA=1 skip the DIA upgrade, ``prefer_dia=False``
+        or LEGIONSOLVERS_NO_RCM=1 the basis upgrade."""
+        from .parallel.dia_op import DiaOperator, dia_offsets
+        from .parallel.reorder import (
+            cross_basis_operator,
+            try_reordered_operator,
+        )
+
         if domain_index >= self.num_spaces or range_index >= self.num_spaces:
             raise ValueError("space index out of range")
-        dist = RowPartitionedMatrix(
-            matrix,
-            domain_partition=self.canonical_partitions[domain_index],
-            range_partition=self.canonical_partitions[range_index],
-            options=self.options,
-            device=self.device,
-        )
+        dp = self.canonical_partitions[domain_index]
+        rp = self.canonical_partitions[range_index]
+        dist = None
+        same_space = domain_index == range_index
+        dom_basis = self.basis_perms.get(domain_index)
+        rng_basis = self.basis_perms.get(range_index)
+        # once a space is in a basis, every operator touching it must be
+        # expressed in that basis: to_solver_basis permutes its vectors
+        if same_space and rng_basis is not None:
+            dist = try_reordered_operator(
+                matrix, rp, self.options, perm=rng_basis["perm_np"],
+                force=True, device=self.device)
+        elif not same_space and (dom_basis is not None
+                                 or rng_basis is not None):
+            dist = cross_basis_operator(
+                matrix, dp, rp, dom_basis, rng_basis, None, self.options,
+                device=self.device)
+        one_piece_flat = (
+            matrix.n_domain == matrix.n_range and dp == rp
+            and dp.num_pieces == 1
+            and self.canonical_grid_shapes[domain_index] is None)
+        if (dist is None and prefer_dia and one_piece_flat
+                and not bool(int(os.environ.get("LEGIONSOLVERS_NO_DIA", "0")))
+                and dia_offsets(matrix, rp.padded_size) is not None):
+            dist = DiaOperator(matrix, partition=rp, options=self.options,
+                               device=self.device)
+        if (dist is None and prefer_dia and same_space and one_piece_flat
+                and not bool(int(os.environ.get("LEGIONSOLVERS_NO_RCM", "0")))
+                # a fresh basis only on a space no other operator touches
+                and not any(range_index in (d, r)
+                            for _, d, r in self.row_partitioned_matrices)):
+            dist = try_reordered_operator(matrix, rp, self.options,
+                                          device=self.device)
+            if dist is not None:
+                self.basis_perms[range_index] = {
+                    "perm_np": dist.perm_np,
+                    "iperm_np": dist.iperm_np,
+                    "perm_dev": dist.perm_dev,
+                    "iperm_dev": dist.iperm_dev,
+                }
+        if dist is None:
+            dist = RowPartitionedMatrix(
+                matrix, domain_partition=dp, range_partition=rp,
+                options=self.options, device=self.device)
         self.row_partitioned_matrices.append((dist, domain_index, range_index))
 
     def add_operator(self, op, domain_index: int, range_index: int) -> None:
@@ -131,6 +220,13 @@ class SquarePlanner:
         ``matvec``/``matvec_add`` over the space's vectors."""
         if domain_index >= self.num_spaces or range_index >= self.num_spaces:
             raise ValueError("space index out of range")
+        if domain_index in self.basis_perms or range_index in self.basis_perms:
+            # a matrix-free operator cannot be re-expressed in the basis
+            raise ValueError(
+                "cannot register a matrix-free operator on a space already "
+                "in an RCM solver basis; register it before any reorderable "
+                "matrix, or pass prefer_dia=False / set "
+                "LEGIONSOLVERS_NO_RCM=1 for the explicit matrices")
         self._check_device("operator", op.device)
         part = getattr(op, "partition", None)
         if part is not None and part != self.canonical_partitions[range_index]:
@@ -236,6 +332,40 @@ class SquarePlanner:
             part = part.to(self.options.entry_dtype)
             total = part if total is None else total + part
         return Scalar(total)
+
+    # -- reordered-basis solves (parallel/reorder.py) ----------------------
+    def to_solver_basis(self) -> None:
+        """Enter the reordered basis: permute every materialized vector of
+        each space that has one, and switch the reordered operators to
+        their no-permute path.  A no-op without a basis."""
+        if not self.basis_perms or self._in_solver_basis:
+            return
+        self._permute_vectors("perm_dev")
+        self._in_solver_basis = True
+        self._set_ops_in_basis(True)
+
+    def from_solver_basis(self) -> None:
+        if not self.basis_perms or not self._in_solver_basis:
+            return
+        self._permute_vectors("iperm_dev")
+        self._in_solver_basis = False
+        self._set_ops_in_basis(False)
+
+    def _permute_vectors(self, key: str) -> None:
+        """Permute each space's vectors with that space's own basis; lazy
+        vectors never materialized are zeros and stay lazy."""
+        for space, basis in self.basis_perms.items():
+            idx = basis[key]
+            for vset in (self.sol_vectors, self.rhs_vectors,
+                         *self.workspace_vectors):
+                v = vset[space]
+                if v._data is not None:
+                    v.data = v.data.reshape(-1)[idx].reshape(v.data.shape)
+
+    def _set_ops_in_basis(self, flag: bool) -> None:
+        for op, _, _ in self.row_partitioned_matrices:
+            if hasattr(op, "in_basis"):
+                op.in_basis = flag
 
     # -- state snapshots -----------------------------------------------------
     def dump_state(self) -> Dict:

@@ -105,6 +105,14 @@ class BiCGStabSolver:
         as a device tensor; the planner holds the final vectors.  On the
         fused path the U workspace vector is left untouched (s and t = A s
         never reach device memory)."""
+        # a reordered-basis system solves in its basis (parallel/reorder.py)
+        self.planner.to_solver_basis()
+        try:
+            return self._solve_in_basis(num_iterations)
+        finally:
+            self.planner.from_solver_basis()
+
+    def _solve_in_basis(self, num_iterations: int) -> torch.Tensor:
         planner = self.planner
         if num_iterations >= 1:
             if num_iterations not in self._solve_cache:

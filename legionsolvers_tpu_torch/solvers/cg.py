@@ -95,6 +95,15 @@ class CGSolver:
         history (length ``num_iterations + 1``) as a device tensor; the
         planner holds the final vectors.  On the fused path the Q workspace
         is left untouched."""
+        # a reordered-basis system solves in its basis, permuting at the
+        # edges only (a no-op otherwise): parallel/reorder.py
+        self.planner.to_solver_basis()
+        try:
+            return self._solve_in_basis(num_iterations)
+        finally:
+            self.planner.from_solver_basis()
+
+    def _solve_in_basis(self, num_iterations: int) -> torch.Tensor:
         planner = self.planner
         if num_iterations >= 1:
             fkey = (num_iterations, "fused")

@@ -5,7 +5,10 @@ A JAX system reaches this module as plain numpy: its grid shape and
 ``SquarePlanner.dump_state()`` after ``np.asarray``, and the tail of its
 residual² history (CG) or its x, r, p, v and rho, alpha, omega (BiCGStab).
 The functions build the port's planner and solver holding the same state,
-so both packages continue the same computation.  Nothing here imports jax.
+so both packages continue the same computation.  For an explicit system
+whose JAX planner adopted a reordered basis, :func:`explicit_cg_system`
+takes that basis (``basis_perms[0]["perm_np"]``) too, so that both
+packages compute in it.  Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -79,14 +82,18 @@ def bicgstab_solver_from_state(planner: SquarePlanner,
     return solver
 
 
-def _planner(op_or_matrix, partition, grid_shape, options, device):
+def _planner(op_or_matrix, partition, grid_shape, options, device,
+             prefer_dia: bool = True, perm=None):
     planner = SquarePlanner(options=options, device=device)
     for name, add in (("sol", planner.add_sol_vector),
                       ("rhs", planner.add_rhs_vector)):
         add(PartitionedVector(name, partition, options=options,
                               grid_shape=grid_shape, device=device))
+    if perm is not None:
+        planner.adopt_basis(0, perm)
     if isinstance(op_or_matrix, COOMatrix):
-        planner.add_row_partitioned_matrix(op_or_matrix, 0, 0)
+        planner.add_row_partitioned_matrix(op_or_matrix, 0, 0,
+                                           prefer_dia=prefer_dia)
     else:
         planner.add_operator(op_or_matrix, 0, 0)
     return planner
@@ -116,4 +123,20 @@ def coo_cg_system(rows, cols, vals, n: int, state: Mapping,
     A = COOMatrix(rows, cols, vals, n, n, options=options)
     part = BlockPartition(n, pieces)
     planner = _planner(A, part, grid_shape, options, device)
+    return planner, cg_solver_from_state(planner, state, rr_history)
+
+
+def explicit_cg_system(rows, cols, vals, n: int, state: Mapping,
+                       rr_history: Sequence[float], *,
+                       options: SolverOptions = DEFAULT_OPTIONS, device=None,
+                       prefer_dia: bool = True, perm=None):
+    """(planner, solver) for a one-piece explicit system, as
+    ``entry.build_explicit_system`` builds it, in the state ``state`` (the
+    vectors in the original basis, as ``dump_state()`` gives them between
+    solves).  ``perm``: the JAX planner's basis, adopted through the
+    forced path of ``try_reordered_operator``; without it the port's
+    planner chooses its own operator."""
+    A = COOMatrix(rows, cols, vals, n, n, options=options)
+    planner = _planner(A, BlockPartition(n, 1), None, options, device,
+                       prefer_dia=prefer_dia, perm=perm)
     return planner, cg_solver_from_state(planner, state, rr_history)

@@ -90,11 +90,14 @@ def test_cg_golden_stencil_operator():
 
 def test_cg_converges_small():
     """Full convergence: n=32 CG reaches machine precision in <= n steps.
-    On the ELL path the fp64 arithmetic stays integer-exact and the
-    residual reaches exactly 0 (at step 16); the recurrence has no guard
-    after that (0/0, as in the reference), so only the history up to
-    convergence is checked."""
+    The one-piece system upgrades to the DIA operator, as in the JAX
+    package, on its f64 linearized path.  Its fp64 arithmetic stays
+    integer-exact and the residual reaches exactly 0 (at step 16); the
+    recurrence has no guard after that (0/0, as in the reference), so only
+    the history up to convergence is checked.  (The JAX package's XLA path
+    contracts products and sums into FMAs and keeps ~1e-31 there.)"""
     planner = setup_planner("csr", n=32, pieces=1)
+    assert isinstance(planner.row_partitioned_matrices[0][0], T.DiaOperator)
     hist = T.CGSolver(planner).solve(40).numpy()
     done = np.flatnonzero(hist < 1e-18 * hist[0] + 1e-20)
     assert done.size and done[0] <= 32

@@ -8,7 +8,10 @@ use test_torch_bicgstab2d.py's (elementwise 2e-5 * max|ref|, dots rtol
 2e-4), and their compensated dots must match the plain versions' float64
 sums to 4e-7.  The 3-D passes (K6, K7) run at a ragged (37, 45, 130) with
 random halo planes: elementwise 2e-5 * max|ref|, dots 1e-4 of their
-Cauchy-Schwarz scale sqrt(<a,a><b,b>) (chip_smoke.py's bounds).
+Cauchy-Schwarz scale sqrt(<a,a><b,b>) (chip_smoke.py's bounds).  The
+explicit-sparse kernels K8, K9 and K10 round every product and sum as their
+plain versions do, so they must match them bit for bit (K8's dot: 1e-5 of
+its Cauchy-Schwarz scale).
 """
 
 import numpy as np
@@ -215,3 +218,136 @@ def test_bicgstab3d_kernel_matches_plain_on_card(kernel, dim, compensated,
     ref = _bicg3d(kernel, d, cuda_device, dim, compensated, plain=True)
     arrays = [v for v in ref.values() if v.ndim]
     _compare3d(got, ref, 26.0 * _norm_bound(d, *arrays))
+
+
+# ---------------------------------------------------------------------------
+# the explicit-sparse path: K8, K9, K10 (bit for bit: the kernels round
+# every product and sum as the plain versions do; K8's dot 1e-5 relative)
+# ---------------------------------------------------------------------------
+
+from legionsolvers_tpu_torch.ops.cuda import dia2d as TD  # noqa: E402
+from legionsolvers_tpu_torch.ops.cuda import rowperm as TR  # noqa: E402
+from legionsolvers_tpu_torch.ops.cuda import winell as TW  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dot", [False, True])
+@pytest.mark.parametrize("shape,offsets", [
+    ((64, 128), ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0))),
+    ((200, 328), ((-8, 3), (0, 0), (2, -200), (5, 130), (8, -1))),
+])
+def test_k8_matches_plain_on_card(shape, offsets, with_dot, cuda_device):
+    rng = np.random.default_rng(3)
+    R, C = shape
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=cuda_device)
+    x, top, bot = (t(rng.standard_normal(s)) for s in (shape, (8, C), (8, C)))
+    diags = t(rng.standard_normal((len(offsets), R, C)))
+    T.reset_launch_counts()
+    got = TD.dia2d_matvec(x, top, bot, diags, offsets=offsets,
+                          with_dot=with_dot)
+    assert dict(T.LAUNCHES) == {"dia2d_dot" if with_dot else "dia2d": 1}
+    want = TD.dia2d_plain(x, top, bot, diags, offsets=offsets,
+                          with_dot=with_dot)
+    if with_dot:
+        (got, gdot), (want, wdot) = got, want
+        assert abs(gdot.item() - wdot.item()) <= 1e-5 * (
+            x.double().norm() * want.double().norm()).item()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k9_matches_plain_on_card(dtype, cuda_device):
+    from legionsolvers_tpu_torch.parallel.winell_op import plan_winell
+
+    rng = np.random.default_rng(4)
+    n, bw = 50000, 600
+    rows = rng.integers(0, n, 7 * n)
+    cols = np.clip(rows + rng.integers(-bw, bw + 1, 7 * n), 0, n - 1)
+    vals = rng.uniform(-1, 1, 7 * n)
+    npd = np.float32 if dtype == torch.float32 else np.float64
+    plan = plan_winell(rows, cols, vals, n, n, npd)
+    dev = lambda a: torch.as_tensor(a, device=cuda_device)
+    x = torch.randn(plan["N"] // 128, 128, dtype=dtype, device=cuda_device)
+    args = (x, dev(plan["wstart"]), dev(plan["cols"]), dev(plan["vals"]))
+    T.reset_launch_counts()
+    got = TW.winell_spmv(*args, window_rows=plan["window_rows"])
+    assert dict(T.LAUNCHES) == {"winell": 1}
+    assert torch.equal(got, TW.winell_plain(
+        *args, window_rows=plan["window_rows"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("geometry", [(192, 8, 1, 1), (8, 8, 1, 1),
+                                      (8, 24, 3, 3), (8, 56, 7, 7)])
+def test_k10_matches_plain_on_card(geometry, dtype, cuda_device):
+    """Hop geometries (block_rows, src_block_rows, row step, w_rows) of the
+    routed gather, scaled and not."""
+    br, srb, step, w = geometry
+    tab = tuple((dl // (br // 8)) * step for dl in range(br))
+    RD = br * 5
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    src = torch.randn(5 * srb * 1024, generator=g, dtype=dtype,
+                      device=cuda_device)
+    idx = torch.randint(0, w * 1024, (RD, 1024), generator=g,
+                        dtype=torch.int32, device=cuda_device)
+    vals = torch.randn(RD, 1024, generator=g, dtype=dtype,
+                       device=cuda_device)
+    kw = dict(block_rows=br, src_block_rows=srb, w0_table=tab, w_rows=w)
+    for v in (None, vals):
+        T.reset_launch_counts()
+        got = TR.blockperm_gather(src, idx, v, **kw)
+        assert dict(T.LAUNCHES) == {"blockperm": 1}
+        assert torch.equal(got, TR.blockperm_plain(src, idx, v, **kw))
+
+
+def _explicit_coo(name):
+    """Small forms of chip_smoke.py's scrambled Laplacian and random SPD
+    systems (numpy, from their seeds)."""
+    import legionsolvers_tpu_torch as lt
+
+    if name == "scrambled":
+        a = lt.create_coo_stencil_matrix((64, 64), lt.laplacian_stencil(2))
+        pr = np.random.default_rng(0).permutation(a.n_range)
+        return pr[a.rows], pr[a.cols], np.asarray(a.vals), a.n_range
+    n = 1 << 14
+    rng = np.random.default_rng(1)
+    rows, cols = rng.integers(0, n, 4 * n), rng.integers(0, n, 4 * n)
+    vals = rng.uniform(-1, 1, 4 * n)
+    return (np.concatenate([rows, cols, np.arange(n)]),
+            np.concatenate([cols, rows, np.arange(n)]),
+            np.concatenate([vals, vals, np.full(n, 16.0)]), n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,chain,counter", [
+    ("scrambled", ["ReorderedOperator", "WinEllOperator"], "winell"),
+    ("random", ["ReorderedOperator", "GeneralSpmvOperator"], "blockperm"),
+])
+def test_f64_explicit_cg_on_card(name, chain, counter, cuda_device):
+    """An f64 CG solve through build_explicit_system launches K9 or K10 in
+    double, once per hop of every matvec, and matches the same solve on
+    the CPU (plain versions) to rtol 1e-9 (reductions in another order)."""
+    import legionsolvers_tpu_torch as lt
+
+    f64 = lt.SolverOptions(entry_dtype=torch.float64)
+    rows, cols, vals, n = _explicit_coo(name)
+    systems = [lt.build_explicit_system(
+        lt.COOMatrix(rows, cols, vals, n, n, options=f64), f64, device=d)
+        for d in (cuda_device, "cpu")]
+    op = systems[0].row_partitioned_matrices[0][0]
+    names = lambda o: [type(o).__name__] + (names(o.base)
+                                            if hasattr(o, "base") else [])
+    assert names(op) == chain
+    iters = 30
+    T.reset_launch_counts()
+    hist = lt.CGSolver(systems[0]).solve(iters)
+    torch.cuda.synchronize()
+    hops = getattr(op.base, "launches_per_matvec", 1)
+    assert dict(T.LAUNCHES) == {counter: hops * iters}
+    want = lt.CGSolver(systems[1]).solve(iters)
+    np.testing.assert_allclose(hist.cpu().numpy(), want.numpy(), rtol=1e-9)
+    np.testing.assert_allclose(systems[0].sol_vectors[0].to_numpy(),
+                               systems[1].sol_vectors[0].to_numpy(),
+                               rtol=1e-9, atol=1e-12)

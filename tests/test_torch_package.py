@@ -33,7 +33,15 @@ def test_import_does_not_load_jax():
             "legionsolvers_tpu_torch.utils.convert, "
             "legionsolvers_tpu_torch.ops.cuda.build, "
             "legionsolvers_tpu_torch.ops.cuda.stencil3d, "
-            "legionsolvers_tpu_torch.ops.cuda.bicgstab3d; "
+            "legionsolvers_tpu_torch.ops.cuda.bicgstab3d, "
+            "legionsolvers_tpu_torch.ops.cuda.dia2d, "
+            "legionsolvers_tpu_torch.ops.cuda.winell, "
+            "legionsolvers_tpu_torch.ops.cuda.rowperm, "
+            "legionsolvers_tpu_torch.native.bindings, "
+            "legionsolvers_tpu_torch.parallel.dia_op, "
+            "legionsolvers_tpu_torch.parallel.winell_op, "
+            "legionsolvers_tpu_torch.parallel.genspmv, "
+            "legionsolvers_tpu_torch.parallel.reorder; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'legionsolvers_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -88,7 +96,8 @@ def test_cuda_request_without_card_raises(what, no_card):
 
 @pytest.mark.parametrize("what", ["device", "vector", "from_array",
                                   "operator", "planner", "matrix", "system",
-                                  "stencil_system", "convert"])
+                                  "stencil_system", "convert", "dia",
+                                  "explicit_system", "convert_explicit"])
 def test_default_device_is_the_card(what, no_card):
     """With no device given, every public constructor and entry point asks for
     CUDA, so without a card it raises instead of running on the CPU."""
@@ -109,6 +118,10 @@ def test_default_device_is_the_card(what, no_card):
         "stencil_system": lambda: build_stencil_system(3, (4, 4, 4)),
         "convert": lambda: convert.stencil_cg_system(
             (8, 8), T.laplacian_stencil(2), {}, [1.0]),
+        "dia": lambda: T.DiaOperator(A, part),
+        "explicit_system": lambda: T.build_explicit_system(A),
+        "convert_explicit": lambda: convert.explicit_cg_system(
+            A.rows, A.cols, A.vals, 64, {}, [1.0]),
     }[what]
     with pytest.raises(RuntimeError, match="cuda"):
         make()
