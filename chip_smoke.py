@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's CG and BiCGStab paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's solver and benchmark paths on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
 
@@ -106,6 +106,35 @@ The explicit-sparse path (the planner's upgrades of explicit matrices):
    the whole routed matvec) and ``torch.take`` on each hop's precomputed
    flat index (K10, its scale excluded).  ``--profile`` adds traces of the
    three explicit CG solves.
+
+The benchmark CLI path (``legionsolvers_tpu_torch.benchmark``, GMRES, PCG
+and the roofline probes):
+
+3h. K11 (``chain_probe``: fma, roll, row at reps 1, 2 and 16) on the
+   probe's [256, 1024] tile: roll and row bit for bit, fma within
+   ``fma_rtol`` (one rounding per step where the plain version rounds
+   twice); K12 (``copy_probe``) bit for bit at 16384 x 4096 and 200 x 328;
+4h. ``benchmark.main`` at full width with the triad bandwidth measured once
+   and passed as ``bw``: ``-dim 2`` at 4096^2 with CG, BiCGStab and PCG at
+   ``-it 200`` and GMRES(10) at ``-it 20``, ``-dim 3`` at 256^3 with GMRES
+   and PCG; each run's launches are counted exactly from the solves it ran
+   (``benchmark.RUNS``): K1 one per two CG iterations plus the compute
+   ceiling's, K2 per Gram refresh, K5 per BiCGStab iteration, K3/K6a
+   ``y_dot`` per PCG iteration and ``y`` per GMRES matvec; the CG run
+   measures the op rates with K11; no roofline share above 100%.  Then
+   ``probe_roofline.main`` (the triads and K12).  Checks: PCG(Jacobi) at
+   4096^2 against float64 CG no worse than twice textbook f32 CG (the
+   diagonal is constant, so PCG is CG in exact arithmetic); f32 GMRES(10)
+   at 4096^2 non-increasing within GMRES_SLACK and ||b - Ax||^2 through
+   ``planner.matvec`` within 1e-3 of its last entry; f64 GMRES and PCG at
+   256^2 on the card against the CPU (rtol 1e-8);
+5h. K12 (against ``torch.add(x, 1.0, out=y)``) and K11 at 256 trips with
+   CUDA events, K11's three rates from the marginal time of its long and
+   short chains, the triads, the measured K1 compute ceiling (resident
+   only if its apparent rate is over 1.5x the stream's) and each CLI run's
+   ms/iter, Gnnz/s and binding roofline.  Every bound uses the faster of
+   ``copy_`` and K12.  ``--profile`` adds the idle share of each CLI run's
+   solve.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Details also go to
@@ -1010,20 +1039,21 @@ def time_bicg_solve(torch, TB, solver, bw, card):
     return res
 
 
-def profile_solve(torch, solver, label, card, wall_ms=None):
-    """With --profile: device time by kernel over one solve(200), from a
-    torch.profiler trace, written to chiprun_out/profile_<label>.txt.
-    Runs last, because the tracer slows the host's later launches."""
+def profile_solve(torch, solver, label, card, wall_ms=None, n_iters=N_ITERS):
+    """With --profile: device time by kernel over one solve(n_iters), from
+    a torch.profiler trace, written to profile_<label>.txt in the output
+    directory; returns the device ms.  Runs last, because the tracer slows the host's
+    later launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     restart(solver)
-    solver.solve(N_ITERS)
+    solver.solve(n_iters)
     restart(solver)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        solver.solve(N_ITERS)
+        solver.solve(n_iters)
         torch.cuda.synchronize()
     events = prof.key_averages()
     table = events.table(sort_by="cuda_time_total", row_limit=25)
@@ -1036,8 +1066,9 @@ def profile_solve(torch, solver, label, card, wall_ms=None):
     idle = ("" if wall_ms is None else
             f"; idle {100 * (1 - device_ms / wall_ms):.1f}% of the unprofiled "
             f"{wall_ms:.3f} ms")
-    log(f"[profile] {label} solve({N_ITERS}): device time {device_ms:.3f} "
+    log(f"[profile] {label} solve({n_iters}): device time {device_ms:.3f} "
         f"ms in all kernels and copies{idle}, on {card}")
+    return device_ms
 
 
 # ---------------------------------------------------------------------------
@@ -2206,6 +2237,318 @@ def time_explicit(torch, np, lt, systems, solvers, bw, card, device):
     return out, solves, extra
 
 
+# ---------------------------------------------------------------------------
+# the benchmark CLI path: 3h (K11, K12 against their plain versions), 4h
+# (``benchmark.main`` at full width and ``utils/probe_roofline``), 5h
+# (timing of the probes and the CLI runs)
+# ---------------------------------------------------------------------------
+
+K11_CSRC = "legionsolvers_tpu_torch/csrc/vpu_probe.cu"
+K11_PALLAS = "legionsolvers_tpu/utils/vpu_probe.py:70"
+K12_CSRC = "legionsolvers_tpu_torch/csrc/copy_probe.cu"
+K12_PALLAS = "scripts/probe_roofline.py:83"
+K11_REPS = (1, 2, 16)
+K11_ROW_REPS = 256   # loop trips per launch in the kernels line's K11 rows
+K12_SHAPES = ((16384, 4096), RAGGED)
+CLI_2D = ["-dim", "2", "-nx", "4096", "-ny", "4096"]
+CLI_3D = ["-dim", "3", "-nx", "256", "-ny", "256", "-nz", "256"]
+CLI_RUNS = {
+    "cg 2d": CLI_2D + ["-solver", "1", "-it", "200"],
+    "bicgstab 2d": CLI_2D + ["-solver", "2", "-it", "200"],
+    "pcg 2d": CLI_2D + ["-solver", "4", "-it", "200"],
+    "gmres 2d": CLI_2D + ["-solver", "3", "-restart", "10", "-it", "20"],
+    "gmres 3d": CLI_3D + ["-solver", "3", "-restart", "10", "-it", "20"],
+    "pcg 3d": CLI_3D + ["-solver", "4", "-it", "200"],
+}
+# GMRES's residual is non-increasing in exact arithmetic; in f32 each
+# cycle recomputes ||b - Ax||^2 from a new x, a sum of 16.7M rounded
+# squares, so successive entries may rise by rounding: held to 1e-3
+GMRES_SLACK = 1e-3
+F64_CARD_RTOL = 1e-8
+
+
+def compare_probe_kernels(torch, device):
+    """Phase 3h.  K11 (three kinds, reps 1, 2, 16) on the probe's tile: roll
+    and row bit for bit, fma to ``fma_rtol``; K12 bit for bit at the
+    probe's shape and a ragged one.  Returns {row: max abs error}."""
+    from legionsolvers_tpu_torch.ops.cuda import copy_probe as K12
+    from legionsolvers_tpu_torch.ops.cuda import vpu_probe as K11
+
+    g = torch.Generator(device=device).manual_seed(71)
+    x = torch.randn(K11.TR, K11.C, generator=g, device=device)
+    errs = {}
+    for kind in K11.KINDS:
+        errs[f"chain_{kind}"] = 0.0
+        for reps in K11_REPS:
+            got = K11.chain_probe(x, reps, kind)
+            want = K11.chain_plain(x, reps, kind)
+            err = (got - want).abs().max().item()
+            ok = (err <= K11.fma_rtol(reps) * want.abs().max().item()
+                  if kind == "fma" else same_bits(got, want))
+            if not ok:
+                raise AssertionError(f"K11 {kind} reps {reps}: kernel off "
+                                     f"its plain version by {err:g}")
+            errs[f"chain_{kind}"] = max(errs[f"chain_{kind}"], err)
+    errs["copy_probe"] = 0.0
+    for shape in K12_SHAPES:
+        a = torch.randn(shape, generator=g, device=device)
+        if not same_bits(K12.copy_probe(a), K12.copy_plain(a)):
+            raise AssertionError(f"K12 at {shape}: not bit for bit")
+    torch.cuda.synchronize()
+    log(f"[probe] K11 vs plain max abs err {errs}; K12 bit for bit at "
+        f"{K12_SHAPES}")
+    return errs
+
+
+def cli_expected(label, runs):
+    """Exact launches of one CLI run, from the solves it ran
+    (``benchmark.RUNS``): K1 one per two CG iterations plus the compute
+    ceiling's, K2 the bootstrap and one per 16 passes; K5 each pass per
+    BiCGStab iteration; PCG one y_dot per iteration; GMRES(10) one y per
+    matvec, 11 per cycle and one closing residual per solve."""
+    solves = {k: c for k, c in runs.items() if isinstance(k, int)}
+    total = lambda f: sum(c * f(k) for k, c in solves.items())
+    sfx = "3d" if label.endswith("3d") else ""
+    if label == "cg 2d":
+        return {"step2": total(lambda k: k // 2) + runs["step2_ceiling"],
+                "gram2": total(lambda k: max(1, -(-(k // 2) // 16)))}
+    if label == "bicgstab 2d":
+        return {m: total(lambda k: k) for m in BICG_KERNELS}
+    if label.startswith("pcg"):
+        return {"y_dot" + sfx: total(lambda k: k)}
+    return {"y" + sfx: total(lambda k: 11 * k + 1)}
+
+
+def cli_path(torch, np, T, lt, device, card):
+    """Phase 4h.  ``benchmark.main`` on each of CLI_RUNS with the stream
+    bandwidth measured once, then ``probe_roofline.main``, each run
+    between a reset and a read of the launch counters.  Returns (launches
+    by counter over all runs, {run: main's dict}, probe results, the
+    bandwidth passed)."""
+    from legionsolvers_tpu_torch import benchmark
+    from legionsolvers_tpu_torch.utils import probe_roofline, timing
+    from legionsolvers_tpu_torch.utils import vpu_probe
+
+    bw = timing.measure_stream_bandwidth(device=device)
+    log(f"[cli] stream bandwidth (triad, 256 MB arrays) {bw / 1e9:.1f} GB/s "
+        f"on {card}")
+    # the CG run measures the op rates with K11 rather than reading them
+    vpu_probe.cache_path(torch.cuda.get_device_name(0)).unlink(
+        missing_ok=True)
+    counts, results = {}, {}
+    for label, argv in CLI_RUNS.items():
+        T.reset_launch_counts()
+        results[label] = benchmark.main(argv, bw=bw)
+        torch.cuda.synchronize()
+        got = dict(T.LAUNCHES)
+        T.reset_launch_counts()
+        want = cli_expected(label, benchmark.RUNS)
+        body = {k: v for k, v in got.items() if not k.startswith("chain_")}
+        if body != want:
+            raise AssertionError(f"{label}: launches {got} != {want} "
+                                 f"(solves {dict(benchmark.RUNS)})")
+        if label == "cg 2d" and not all(
+                got.get(f"chain_{k}", 0) for k in ("fma", "roll", "row")):
+            raise AssertionError(f"cg 2d: K11 never launched: {got}")
+        pct = results[label]["pct_roofline"]
+        if pct is None or not 0 < pct <= 100:
+            raise AssertionError(f"{label}: pct_roofline {pct}")
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        log(f"[cli] {label}: launches {got}")
+    T.reset_launch_counts()
+    probes = probe_roofline.main([])
+    torch.cuda.synchronize()
+    got = dict(T.LAUNCHES)
+    T.reset_launch_counts()
+    if set(got) != {"copy_probe"}:
+        raise AssertionError(f"probe_roofline launches {got}")
+    counts["copy_probe"] = got["copy_probe"]
+    log(f"[cli] probe_roofline: launches {got}")
+    return counts, results, probes, bw
+
+
+def cli_checks(torch, np, lt, device):
+    """Phase 4h's solution checks: PCG(Jacobi) at 4096^2 against float64
+    CG as phase 4 holds f32 CG (no worse than twice textbook f32 CG); f32
+    GMRES(10) at 4096^2 non-increasing within GMRES_SLACK and ||b - Ax||^2
+    through ``planner.matvec`` within 1e-3 of its last entry; f64 GMRES
+    and PCG at 256^2 on the card against the same solves on the CPU."""
+    from legionsolvers_tpu_torch import benchmark
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    args = benchmark.make_parser().parse_args(CLI_2D)
+    planner, _, _ = benchmark.build_planner(args, f32, device)
+    h_pcg = lt.PCGSolver(planner, lt.JacobiPreconditioner(planner)).solve(
+        N_ITERS)
+    del planner
+    h64, _ = classic_cg(torch, (N_GRID, N_GRID), N_ITERS, torch.float64,
+                        device)
+    h32, _ = classic_cg(torch, (N_GRID, N_GRID), N_ITERS, torch.float32,
+                        device)
+    dev_pcg, dev_32 = max_rel(h_pcg, h64), max_rel(h32, h64)
+    if not dev_pcg <= 2 * dev_32:
+        raise AssertionError(f"PCG(Jacobi) vs float64 CG {dev_pcg:g}, over "
+                             f"twice textbook f32 CG's {dev_32:g}")
+    log(f"[cli] PCG(Jacobi) solve({N_ITERS}) at {N_GRID}^2 vs float64 CG: "
+        f"max rel {dev_pcg:.3g} (textbook f32 CG {dev_32:.3g})")
+
+    planner, _, _ = benchmark.build_planner(args, f32, device)
+    solver = lt.GMRESSolver(planner, 10)
+    h = solver.solve(20).double()
+    rise = (h[1:] / h[:-1]).max().item()
+    if not rise <= 1 + GMRES_SLACK:
+        raise AssertionError(f"f32 GMRES history rose by {rise - 1:g}")
+    kb0 = solver.krylov_basis(0)
+    planner.matvec(kb0, solver.SOL)
+    b = planner.rhs_vectors[0].data
+    res = torch.sum((b - planner.get_vector(kb0, 0).data).double() ** 2)
+    gap = abs(res.item() - h[-1].item()) / h[-1].item()
+    if gap > 1e-3:
+        raise AssertionError(f"f32 GMRES ||b - Ax||^2 off its history by "
+                             f"{gap:g}")
+    log(f"[cli] f32 GMRES(10) x 20 at {N_GRID}^2: {h[0].item():.6g} -> "
+        f"{h[-1].item():.6g}, largest rise {rise - 1:.3g}, ||b - Ax||^2 gap "
+        f"{gap:.3g}")
+    del planner, solver
+
+    f64 = lt.SolverOptions(entry_dtype=torch.float64)
+    devs = {}
+    for name in ("gmres", "pcg"):
+        hist, xs = [], []
+        for d in (device, "cpu"):
+            planner, _, _ = benchmark.build_planner(benchmark.make_parser(
+            ).parse_args(["-dim", "2", "-nx", str(SMALL_GRID), "-ny",
+                          str(SMALL_GRID)]), f64, d)
+            if name == "gmres":
+                hh = lt.GMRESSolver(planner, 10).solve(20)
+            else:
+                hh = lt.PCGSolver(planner, lt.JacobiPreconditioner(
+                    planner)).solve(100)
+            hist.append(hh.cpu().numpy())
+            xs.append(planner.sol_vectors[0].to_numpy())
+        devs[name] = (float(np.max(np.abs(hist[0] - hist[1]) /
+                                   np.abs(hist[1]))),
+                      float(np.max(np.abs(xs[0] - xs[1])) /
+                            np.max(np.abs(xs[1]))))
+        if max(devs[name]) > F64_CARD_RTOL:
+            raise AssertionError(f"f64 {name} card vs CPU: {devs[name]}")
+    log(f"[cli] f64 at {SMALL_GRID}^2, card vs CPU (history, x): {devs}")
+    return {"pcg_vs_f64": (dev_pcg, dev_32), "gmres_rise": rise,
+            "gmres_gap": gap, "f64_card_vs_cpu": devs}
+
+
+def time_probes(torch, device, card):
+    """Phase 5h, first part.  K12 at 16384 x 4096 (kernel, plain and
+    ``torch.add(x, 1.0, out=y)``), and K11's three kinds at K11_ROW_REPS
+    trips (kernel and plain), CUDA events.  Returns ({row: (ms, plain ms,
+    library ms)}, K12's bytes/s)."""
+    from legionsolvers_tpu_torch.ops.cuda import copy_probe as K12
+    from legionsolvers_tpu_torch.ops.cuda import vpu_probe as K11
+
+    g = torch.Generator(device=device).manual_seed(72)
+    x = torch.rand(K12_SHAPES[0], generator=g, device=device)
+    y = torch.empty_like(x)
+    out = {"copy_probe": (
+        event_ms(torch, lambda: K12.copy_probe(x, out=y), 20),
+        event_ms(torch, lambda: K12.copy_plain(x, out=y), 20),
+        event_ms(torch, lambda: torch.add(x, 1.0, out=y), 20))}
+    k12_bw = 8 * x.numel() / (out["copy_probe"][0] * 1e-3)
+    log(f"[time] K12 copy_probe {out['copy_probe'][0]:.4f} ms "
+        f"({k12_bw / 1e9:.1f} GB/s), plain {out['copy_probe'][1]:.4f}, "
+        f"torch.add {out['copy_probe'][2]:.4f} ms at {K12_SHAPES[0]} on "
+        f"{card}")
+    del x, y
+    t = torch.randn(K11.TR, K11.C, generator=g, device=device)
+    for kind in K11.KINDS:
+        out[f"chain_{kind}"] = (
+            event_ms(torch, lambda: K11.chain_probe(t, K11_ROW_REPS, kind), 5),
+            event_ms(torch, lambda: K11.chain_plain(t, K11_ROW_REPS, kind), 1),
+            None)
+        log(f"[time] K11 {kind} at {K11_ROW_REPS} trips: kernel "
+            f"{out[f'chain_{kind}'][0]:.4f} ms, plain "
+            f"{out[f'chain_{kind}'][1]:.4f} ms on {card}")
+    return out, k12_bw
+
+
+def time_rates(torch, device, card):
+    """Phase 5h.  K11's three rates from CUDA events: (long - short) extra
+    trips of UNROLL x ILP steps per element over the time they add."""
+    from legionsolvers_tpu_torch.ops.cuda import vpu_probe as K11
+    from legionsolvers_tpu_torch.utils import vpu_probe
+
+    g = torch.Generator(device=device).manual_seed(73)
+    t = torch.randn(K11.TR, K11.C, generator=g, device=device)
+    rates = {}
+    for kind, key in zip(K11.KINDS, vpu_probe.RATE_WINDOW):
+        short, long = vpu_probe.CHAIN_LENGTHS[kind]
+        ms = [event_ms(torch, lambda: K11.chain_probe(t, reps, kind), 3)
+              for reps in (short, long)]
+        steps = K11.UNROLL * K11.ILP * K11.TR * K11.C * (long - short)
+        rates[key] = (2.0 if kind == "fma" else 1.0) * steps / (
+            (ms[1] - ms[0]) * 1e-3)
+    if not vpu_probe.rates_sane(rates):
+        raise AssertionError(f"K11 rates outside the card's window: {rates}")
+    log(f"[time] K11 rates (CUDA events): fma "
+        f"{rates['vpu_fma_ops_per_s'] / 1e12:.2f} TFLOP/s, roll "
+        f"{rates['vpu_roll_plus_add_reps_per_s'] / 1e9:.1f} G steps/s, row "
+        f"{rates['vpu_row_shift_add_reps_per_s'] / 1e9:.1f} G steps/s on "
+        f"{card}")
+    return rates
+
+
+def report_cli(torch, results, probes, device, bw, card):
+    """Phase 5h, last part: the triads, the measured K1 compute ceiling
+    and each CLI run's numbers."""
+    from legionsolvers_tpu_torch.utils import timing
+
+    per_elt, apparent, _ = timing.measure_step2_compute_ceiling(
+        OFFS, VALS, device=device)
+    resident = apparent > 1.5 * bw
+    log(f"[time] triad 2^26 {probes['triad_2^26'] / 1e9:.1f} GB/s, 2^24 "
+        f"{probes['triad_2^24'] / 1e9:.1f} GB/s, K12 (probe_roofline) "
+        f"{probes['copy_k12'] / 1e9:.1f} GB/s; step2 ceiling "
+        f"{per_elt * 1e12:.3f} ps/elt ({apparent / 1e9:.0f} GB/s apparent, "
+        f"{'resident' if resident else 'not resident'}) on {card}")
+    for label, r in results.items():
+        log(f"[time] CLI {label}: {r['ms_per_iter']:.6f} ms/iter, "
+            f"{r['gnnz_per_s']:.2f} Gnnz/s, {r['pct_roofline']:.1f}% of "
+            f"{r['roofline_binding']} roofline ({r['schedule']}, "
+            f"{r['bytes_per_unknown']:.2f} B/unknown) on {card}")
+    return {"ceiling_ps_per_elt": per_elt * 1e12,
+            "ceiling_apparent_GBps": apparent / 1e9,
+            "ceiling_resident": resident}
+
+
+def profile_cli(torch, lt, label, argv, card):
+    """With --profile: the wall time and host enqueue time (until
+    ``solve`` returns) of one CLI run's solve of its -it length, then its
+    device time and idle share from :func:`profile_solve`."""
+    from legionsolvers_tpu_torch import benchmark
+
+    args = benchmark.make_parser().parse_args(argv)
+    planner, _, _ = benchmark.build_planner(
+        args, lt.SolverOptions(entry_dtype=torch.float32), "cuda")
+    solver = benchmark.make_solver(args, planner)
+
+    def once():
+        restart(solver)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve(args.it)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3
+
+    once()
+    wall, host = min(once() for _ in range(2))
+    device_ms = profile_solve(torch, solver, f"cli_{label.replace(' ', '_')}",
+                              card, wall, args.it)
+    log(f"[profile] CLI {label} solve({args.it}): host enqueue {host:.3f} "
+        f"ms of wall {wall:.3f} ms, on {card}")
+    return device_ms, wall, host
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
                nflops, bw, library_ms=None):
     """One entry of the kernels line: bound_ms is the larger of the bytes
@@ -2252,6 +2595,9 @@ def main() -> int:
     log(card)
     log(f"[card] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    t_run = time.perf_counter()
+    mark = lambda what: log(f"[elapsed] {what}: "
+                            f"{time.perf_counter() - t_run:.1f} s")
     t0 = time.perf_counter()
     build.load_library()
     build_s = time.perf_counter() - t0
@@ -2264,6 +2610,8 @@ def main() -> int:
     errs = compare_kernels(torch, T, device)
     errs.update(compare_bicg_kernels(torch, T, TB, device))
     errs3 = compare_3d_kernels(torch, lt, T3, TB3, device)
+    errs_h = compare_probe_kernels(torch, device)
+    mark("phases 3-3h")
     counts, results, solver = main_path(torch, np, T, lt, device)
     bcounts, bresults, bsolver, failed = bicgstab_path(torch, T, TB, lt,
                                                        device)
@@ -2274,6 +2622,7 @@ def main() -> int:
             counts3[kind3, dim], solvers3[kind3, dim] = c, slv
             results3[f"{kind3} dim {dim}"] = r
             failed += f
+    mark("phases 4-4d")
     systems = {name: build_explicit(torch, np, lt, name, device)
                for name in EXPLICIT}
     errs_x = compare_explicit_kernels(torch, np, lt, T, systems, device)
@@ -2292,8 +2641,18 @@ def main() -> int:
             solvers_x[name] = slv
         failed += f
         del refs
-    bw = copy_bandwidth(torch, device)
-    log(f"[time] copy bandwidth {bw / 1e9:.1f} GB/s on {card}")
+    mark("phases 3e, 4e-g")
+    counts_h, cli_results, probes, cli_bw = cli_path(torch, np, T, lt,
+                                                     device, card)
+    cli_checked = cli_checks(torch, np, lt, device)
+    mark("phase 4h")
+    bw_copy = copy_bandwidth(torch, device)
+    ptimes, k12_bw = time_probes(torch, device, card)
+    # K12 may stream faster than copy_: every bound takes the faster one
+    bw = max(bw_copy, k12_bw)
+    log(f"[time] copy bandwidth {bw_copy / 1e9:.1f} GB/s (copy_), "
+        f"{k12_bw / 1e9:.1f} GB/s (K12); bounds use {bw / 1e9:.1f} GB/s on "
+        f"{card}")
     ktimes = time_kernels(torch, T, device, bw, card)
     btimes = time_bicg_kernels(torch, TB, device, bw, card)
     bsolve_ms = time_bicg_solve(torch, TB, bsolver, bw, card)
@@ -2304,6 +2663,10 @@ def main() -> int:
     solve3 = time_3d_solves(torch, T3, TB3, solvers3, bw, card)
     ktimes_x, solve_x, extra_x = time_explicit(torch, np, lt, systems,
                                                solvers_x, bw, card, device)
+    mark("phase 5 to 5g")
+    rates = time_rates(torch, device, card)
+    cli_report = report_cli(torch, cli_results, probes, device, bw, card)
+    mark("phase 5h")
     if "--profile" in sys.argv[1:]:  # last: tracing slows later launches
         profile_solve(torch, bsolver, "bicgstab_2d", card)
         for (kind3, dim), slv in solvers3.items():
@@ -2311,6 +2674,10 @@ def main() -> int:
         for name, slv in solvers_x.items():
             profile_solve(torch, slv, f"cg_explicit_{name}", card,
                           solve_x[name][0] * N_ITERS)
+        for label, argv in CLI_RUNS.items():
+            cli_report[f"profile {label}"] = profile_cli(torch, lt, label,
+                                                         argv, card)
+    mark("all phases")
     if failed:
         raise AssertionError(f"checks failed: {failed}")
 
@@ -2326,6 +2693,8 @@ def main() -> int:
         winell=counts_x["cg", "scrambled"].get("winell", 0),
         blockperm=(counts_x["cg", "random"].get("blockperm", 0)
                    + counts_x["bicgstab", "random"].get("blockperm", 0)))
+    launches.update({m: counts_h.get(m, 0) for m in (
+        "chain_fma", "chain_roll", "chain_row", "copy_probe")})
     missing = [m for m, c in launches.items() if not c]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "
@@ -2359,8 +2728,21 @@ def main() -> int:
         kernels.append(kernel_row(f"{row} [{m}]", source, replaces,
                                   launches[m], errs_x[m], ms, plain_ms,
                                   nbytes, nflops, bw, lib_ms))
+    n_tile = 256 * 1024
+    for k11 in ("fma", "roll", "row"):
+        m = f"chain_{k11}"
+        kernels.append(kernel_row(
+            f"chain_probe [{k11}] ({K11_ROW_REPS} trips)", K11_CSRC,
+            K11_PALLAS, launches[m], errs_h[m], *ptimes[m][:2], 8 * n_tile,
+            2 * 64 * K11_ROW_REPS * n_tile, bw))
+    n12 = K12_SHAPES[0][0] * K12_SHAPES[0][1]
+    kernels.append(kernel_row(
+        "copy_probe", K12_CSRC, K12_PALLAS, launches["copy_probe"],
+        errs_h["copy_probe"], *ptimes["copy_probe"][:2], 8 * n12, n12, bw,
+        ptimes["copy_probe"][2]))
     report = {"card": card, "kind": kind, "build_s": build_s,
-              "copy_GBps": bw / 1e9, "kernels": kernels,
+              "copy_GBps": bw_copy / 1e9, "k12_GBps": k12_bw / 1e9,
+              "bound_GBps": bw / 1e9, "kernels": kernels,
               "bicg_kernel_ms": {m: {str(c): t for c, t in v.items()}
                                  for m, v in btimes.items()},
               "solve200_ms_per_iter": solve_ms, "main_path": results,
@@ -2380,7 +2762,10 @@ def main() -> int:
                   "solve200_ms_per_iter": solve_x,
                   "kernel_ms": {k: v[:2] + v[4:] for k, v in
                                 ktimes_x.items()},
-                  **extra_x}}
+                  **extra_x},
+              "cli": {"stream_GBps": cli_bw / 1e9, "runs": cli_results,
+                      "checks": cli_checked, "probes": probes,
+                      "k11_rates_events": rates, **cli_report}}
     out_dir = pathlib.Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

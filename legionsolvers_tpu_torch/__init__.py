@@ -2,14 +2,15 @@
 
 Same module paths and public names as the JAX package, on torch tensors
 that live on the card unless the caller asks for the CPU.  Ported so far:
-the single-device CG and BiCGStab paths on 2-D and 3-D stencils and on
-explicit matrices, i.e. deferred scalars, vectors, COO/CSR/ELL operators,
-the planner (with compensated dots and the DIA, RCM and routed-gather
-upgrades of explicit matrices), the matrix-free stencil operator, the DIA,
-windowed-ELL and general-sparsity operators, whose passes are hand-written
-CUDA kernels for Hopper (``ops/cuda/``, ``csrc/``), ``CGSolver``,
-``BiCGStabSolver`` and the systems of ``entry.py``.  Not ported yet: GMRES
-and PCG, block systems and sharding.  The package imports torch, numpy and
+the single-device solvers (CG, BiCGStab, GMRES, PCG with Jacobi) on 2-D
+and 3-D stencils and on explicit matrices, i.e. deferred scalars, vectors,
+COO/CSR/ELL operators, the planner (with compensated dots and the DIA, RCM
+and routed-gather upgrades of explicit matrices), the matrix-free stencil
+operator, the DIA, windowed-ELL and general-sparsity operators, whose
+passes are hand-written CUDA kernels for Hopper (``ops/cuda/``,
+``csrc/``), the systems of ``entry.py`` and the benchmark CLI
+(``benchmark.py``) with its timing, traffic and op-rate roofline
+(``utils/``).  Not ported yet: block systems and sharding.  The package imports torch, numpy and
 scipy, never jax.
 """
 
@@ -32,6 +33,8 @@ from .parallel.winell_op import SlicedWinEllOperator, WinEllOperator
 from .planner import SquarePlanner
 from .solvers.bicgstab import BiCGStabSolver
 from .solvers.cg import CGSolver
+from .solvers.gmres import GMRESSolver
+from .solvers.pcg import JacobiPreconditioner, PCGSolver
 from .entry import build_explicit_system
 from .problems.laplacian import (
     coo_negative_laplacian_1d,

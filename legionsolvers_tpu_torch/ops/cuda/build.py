@@ -108,6 +108,7 @@ def build() -> pathlib.Path:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 @functools.lru_cache(maxsize=None)
@@ -118,6 +119,7 @@ def load_library() -> ctypes.CDLL:
     from .dia2d import DIA_ELEMS, MAX_DIA_TERMS
     from .stencil2d import MAX_TERMS, TILE
     from .stencil3d import CHUNK_X, _Stencil3
+    from .vpu_probe import C as VPU_C, TR as VPU_TR
 
     lib = ctypes.CDLL(str(build()))
     sigs = {
@@ -136,13 +138,16 @@ def load_library() -> ctypes.CDLL:
         "ls_dia2d": [_I] + [_P] * 5 + [_I] + [_P] * 3 + [_I, _I, _P],
         "ls_winell": [_I] + [_P] * 5 + [_I] * 3 + [_P],
         "ls_blockperm": [_I] + [_P] * 5 + [_I] * 3 + [_P],
+        "ls_vpu_chain": [_I, _P, _P, _I, _I, _L, _P],
+        "ls_copy_probe": [_P, _P, _L, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     for name in ("ls_tile", "ls_max_terms", "ls_chunk_x", "ls_stencil3_size",
-                 "ls_dia_max_terms", "ls_dia_elems"):
+                 "ls_dia_max_terms", "ls_dia_elems", "ls_vpu_tile_rows",
+                 "ls_vpu_tile_cols"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     lib.ls_error_string.argtypes = [ctypes.c_int]
@@ -158,4 +163,7 @@ def load_library() -> ctypes.CDLL:
             or lib.ls_dia_elems() != DIA_ELEMS):
         raise RuntimeError("csrc/dia2d.cu and ops/cuda/dia2d.py disagree on "
                            "LS_DIA_MAX_TERMS or LS_DIA_ELEMS")
+    if lib.ls_vpu_tile_rows() != VPU_TR or lib.ls_vpu_tile_cols() != VPU_C:
+        raise RuntimeError("csrc/vpu_probe.cu and ops/cuda/vpu_probe.py "
+                           "disagree on the probe's tile")
     return lib

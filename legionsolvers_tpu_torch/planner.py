@@ -254,6 +254,11 @@ class SquarePlanner:
         for d, s in zip(self._vectors(dst_idx), self._vectors(src_idx)):
             d.assign(s)
 
+    def scal(self, dst_idx: int, *alpha) -> None:
+        """dst *= alpha, with the vectors' future-ratio protocol."""
+        for v in self._vectors(dst_idx):
+            v.scal(*alpha)
+
     def axpy(self, dst_idx: int, *args) -> None:
         """axpy(dst, alpha..., src): dst += alpha * src with the 1/2/3-scalar
         future-ratio protocol (reference: SquarePlanner.hpp:275-310)."""

@@ -3,8 +3,9 @@
 A JAX system reaches this module as plain numpy: its grid shape and
 ``(offset, value)`` stencil list (or its COO arrays), the vectors of
 ``SquarePlanner.dump_state()`` after ``np.asarray``, and the tail of its
-residual² history (CG) or its x, r, p, v and rho, alpha, omega (BiCGStab).
-The functions build the port's planner and solver holding the same state,
+residual² history (CG), its x, r, p, v and rho, alpha, omega (BiCGStab),
+its vectors and last rz (PCG), or its x and b (GMRES, whose cycles
+re-derive everything else).  The functions build the port's planner and solver holding the same state,
 so both packages continue the same computation.  For an explicit system
 whose JAX planner adopted a reordered basis, :func:`explicit_cg_system`
 takes that basis (``basis_perms[0]["perm_np"]``) too, so that both
@@ -27,6 +28,8 @@ from ..parallel.stencil_op import StencilOperator
 from ..planner import SquarePlanner
 from ..solvers.bicgstab import BiCGStabSolver
 from ..solvers.cg import CGSolver
+from ..solvers.gmres import GMRESSolver
+from ..solvers.pcg import JacobiPreconditioner, PCGSolver
 
 
 def _tensor(a, like: PartitionedVector) -> torch.Tensor:
@@ -79,6 +82,31 @@ def bicgstab_solver_from_state(planner: SquarePlanner,
         [Scalar(torch.tensor(float(state[k]), dtype=dtype,
                              device=planner.device))]
         for k in ("rho", "alpha", "omega"))
+    return solver
+
+
+def pcg_solver_from_state(planner: SquarePlanner, state: Mapping,
+                          rz: float, jacobi: bool = True) -> PCGSolver:
+    """A :class:`PCGSolver` on ``planner`` (Jacobi-preconditioned unless
+    ``jacobi`` is False) continuing from ``state``: a numpy snapshot of the
+    JAX planner's ``dump_state()`` (sol, rhs and the workspace P, Q, R, Z
+    as ``ws0``..``ws3``) and the JAX solver's last ``rz``."""
+    solver = PCGSolver(planner,
+                       JacobiPreconditioner(planner) if jacobi else None)
+    load_state(planner, state)
+    dtype = planner.options.entry_dtype
+    solver.rz = [Scalar(torch.tensor(float(rz), dtype=dtype,
+                                     device=planner.device))]
+    solver.residual_norm_squared = [planner.dot(solver.R, solver.R)]
+    return solver
+
+
+def gmres_solver_from_state(planner: SquarePlanner, state: Mapping,
+                            restart: int) -> GMRESSolver:
+    """A :class:`GMRESSolver` on ``planner`` continuing from ``state``
+    (its ``sol`` and ``rhs``; every cycle starts from x and b)."""
+    solver = GMRESSolver(planner, restart)
+    load_state(planner, state)
     return solver
 
 

@@ -351,3 +351,119 @@ def test_f64_explicit_cg_on_card(name, chain, counter, cuda_device):
     np.testing.assert_allclose(systems[0].sol_vectors[0].to_numpy(),
                                systems[1].sol_vectors[0].to_numpy(),
                                rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [1, 2, 16])
+@pytest.mark.parametrize("kind", ["fma", "roll", "row"])
+def test_k11_matches_plain_on_card(kind, reps, cuda_device):
+    """K11 on the probe's [256, 1024] tile: roll and row bit for bit, fma
+    to fma_rtol(reps) of the largest output (one rounding per step where
+    the plain version rounds twice)."""
+    from legionsolvers_tpu_torch.ops.cuda import vpu_probe as K11
+
+    g = torch.Generator(cuda_device).manual_seed(11)
+    x = torch.randn(K11.TR, K11.C, generator=g, device=cuda_device)
+    T.reset_launch_counts()
+    got = K11.chain_probe(x, reps, kind)
+    torch.cuda.synchronize()
+    assert dict(T.LAUNCHES) == {f"chain_{kind}": 1}
+    want = K11.chain_plain(x, reps, kind)
+    if kind == "fma":
+        err = (got - want).abs().max().item()
+        assert err <= K11.fma_rtol(reps) * want.abs().max().item()
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16384, 4096), (200, 328), (7, 3)])
+def test_k12_matches_plain_on_card(shape, cuda_device):
+    """K12 bit for bit, on aligned and unaligned (offset view) inputs, and
+    k chained launches give x + k exactly."""
+    from legionsolvers_tpu_torch.ops.cuda import copy_probe as K12
+    from legionsolvers_tpu_torch.utils.probe_roofline import copy_chain
+
+    g = torch.Generator(cuda_device).manual_seed(12)
+    x = torch.randn(shape, generator=g, device=cuda_device)
+    T.reset_launch_counts()
+    assert torch.equal(K12.copy_probe(x), x + 1.0)
+    flat = torch.randn(x.numel() + 1, generator=g, device=cuda_device)
+    assert torch.equal(K12.copy_probe(flat[1:]), flat[1:] + 1.0)
+    xi = torch.randint(-50, 50, shape, generator=g, device=cuda_device,
+                       dtype=torch.int32).float()
+    assert torch.equal(copy_chain(xi, 5), xi + 5)
+    torch.cuda.synchronize()
+    assert dict(T.LAUNCHES) == {"copy_probe": 7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("switch", ["allow_tf32", "fp32_precision"])
+def test_gmres_ignores_tf32_on_card(switch, cuda_device):
+    """GMRES(10) on the 2-D kernel view: with TF32 matmuls enabled
+    globally (through either of torch's switches) the history is the
+    same, bit for bit, as without (the solve holds its products at full
+    f32 and gives the caller's setting back), and every matvec is one K3 y
+    launch (m + 1 per cycle and one closing residual)."""
+    import legionsolvers_tpu_torch as lt
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+
+    matmul = torch.backends.cuda.matmul
+    if switch == "fp32_precision" and not hasattr(matmul, switch):
+        pytest.skip("this torch has no fp32_precision switch")
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    hists = []
+    try:
+        for tf32 in (False, True):
+            if switch == "allow_tf32":
+                matmul.allow_tf32 = tf32
+            else:
+                matmul.fp32_precision = "tf32" if tf32 else "ieee"
+            planner = build_stencil_system(2, (256, 512), f32, cuda_device)
+            T.reset_launch_counts()
+            hists.append(lt.GMRESSolver(planner, 10).solve(5))
+            torch.cuda.synchronize()
+            assert dict(T.LAUNCHES) == {"y": 5 * 11 + 1}
+            assert matmul.allow_tf32 == tf32
+    finally:
+        matmul.allow_tf32 = False
+    assert torch.equal(hists[0], hists[1])
+    assert bool(torch.all(hists[0][1:] <= hists[0][:-1] * (1 + 1e-5)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["gmres", "pcg"])
+def test_f64_gmres_pcg_on_card(solver, cuda_device):
+    """f64 GMRES(10) x 6 and PCG(Jacobi) x 40 on the 2-D Laplacian at
+    128^2 (linearized path) match the same solves on the CPU to rtol 1e-8
+    (reductions in another order)."""
+    import legionsolvers_tpu_torch as lt
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+
+    f64 = lt.SolverOptions(entry_dtype=torch.float64)
+    hists, xs = [], []
+    for d in (cuda_device, "cpu"):
+        planner = build_stencil_system(2, (128, 128), f64, d)
+        if solver == "gmres":
+            h = lt.GMRESSolver(planner, 10).solve(6)
+        else:
+            h = lt.PCGSolver(planner, lt.JacobiPreconditioner(planner)
+                             ).solve(40)
+        hists.append(h.cpu().numpy())
+        xs.append(planner.sol_vectors[0].to_numpy())
+    np.testing.assert_allclose(hists[0], hists[1], rtol=1e-8)
+    np.testing.assert_allclose(xs[0], xs[1], rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_benchmark_cli_on_card(cuda_device):
+    """The CLI's CG run at 512^2 on the card: the s-step kernels, the op
+    rates from K11 and a roofline share of at most 100%."""
+    from legionsolvers_tpu_torch import benchmark
+
+    T.reset_launch_counts()
+    out = benchmark.main(["-dim", "2", "-nx", "512", "-ny", "512", "-it",
+                          "40", "--device", cuda_device])
+    assert out["schedule"].startswith("fused2d_x2")
+    assert 0 < out["pct_roofline"] <= 100
+    assert T.LAUNCHES["step2"] >= 20 * benchmark.RUNS[40]

@@ -41,7 +41,16 @@ def test_import_does_not_load_jax():
             "legionsolvers_tpu_torch.parallel.dia_op, "
             "legionsolvers_tpu_torch.parallel.winell_op, "
             "legionsolvers_tpu_torch.parallel.genspmv, "
-            "legionsolvers_tpu_torch.parallel.reorder; "
+            "legionsolvers_tpu_torch.parallel.reorder, "
+            "legionsolvers_tpu_torch.solvers.gmres, "
+            "legionsolvers_tpu_torch.solvers.pcg, "
+            "legionsolvers_tpu_torch.benchmark, "
+            "legionsolvers_tpu_torch.ops.cuda.vpu_probe, "
+            "legionsolvers_tpu_torch.ops.cuda.copy_probe, "
+            "legionsolvers_tpu_torch.utils.timing, "
+            "legionsolvers_tpu_torch.utils.roofline, "
+            "legionsolvers_tpu_torch.utils.vpu_probe, "
+            "legionsolvers_tpu_torch.utils.probe_roofline; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'legionsolvers_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
