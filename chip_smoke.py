@@ -3,6 +3,14 @@
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
 
+Two other modes compare trees of the package on one card instead:
+``--solves [--tree DIR]`` prints, for the package of DIR (default this
+one), 2-D CG's distance from float64 at three sizes, the ms/iter and host
+enqueue ms/iter of the 2-D CG and random-2^20 CG solve(200)s, and the
+host's enqueue time of one K10 call (one JSON line); ``--ab PARENT`` runs
+``--solves`` on PARENT and on this tree, alternating parent, change,
+change, parent, and prints the medians.
+
 Phases (any failure raises, and the exit code is non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit; no CUDA -> exit 2;
@@ -15,7 +23,10 @@ Phases (any failure raises, and the exit code is non-zero):
    another order; the scale is the entry itself for squared norms).  The
    BiCGStab passes (K5) run with compensated dots off and on; compensated
    dots are also held within 4e-7 relative of the float64 sum of their f32
-   operands;
+   operands.  K1 (step2) also runs at 33 x 4097, 4099 x 130 and 1 x 5 (the
+   edges of its 120-column strips, its row chunks and its 16-byte
+   vectors), with the cross and a 9-point reach-1 stencil, to the same
+   bounds, and a repeat on the same inputs must match bit for bit;
 4. drive the CG path, ``entry.build_system(4096)`` -> ``CGSolver``: a
    few eager ``step()``s (K3 y_dot), ``solve(200)`` (K1 x100, K2 x7),
    ``solve(201)`` (adds one K3 update), a two-pass ``solve(8)`` under
@@ -25,8 +36,8 @@ Phases (any failure raises, and the exit code is non-zero):
    versions on the card (rtol 1e-3 while textbook f32 CG stays within
    5e-4 of float64 CG), against float64 CG over all 200 (no worse than
    twice textbook f32 CG: f32 CG on this system leaves exact arithmetic by
-   ~3e-3 within 200 iterations), and at 256 x 256 against a float64
-   numpy CG (rtol 1e-3);
+   ~3e-3 within 200 iterations; the same bound on fresh solves at 2048^2
+   and 3001^2), and at 256 x 256 against a float64 numpy CG (rtol 1e-3);
 4b. drive the BiCGStab path, ``build_system(4096)`` -> ``BiCGStabSolver``:
    eager ``step()``s (K3 y, y_dot), ``solve(200)`` (K5 pv, st, update
    x200 each, counted exactly), the same solve again from the same state
@@ -60,8 +71,8 @@ Phases (any failure raises, and the exit code is non-zero):
    against the history, and float64 BiCGStab as phase 4b holds it (f32
    BiCGStab breaks down on the 7-point system, textbook f32 too, so the
    end result is held with compensated dots);
-5. time each kernel and the whole solve(200) of both solvers against their
-   plain versions with CUDA events, after a warm-up, over a ring of input
+5. time each kernel and the whole solve(200) of both solvers (and the host's
+   enqueue time of the solve) against their plain versions with CUDA events, after a warm-up, over a ring of input
    sets so that L2 does not serve repeats, refusing any time that would
    beat the card's measured copy bandwidth.  ``--profile`` adds a
    ``torch.profiler`` trace of the 2-D BiCGStab solve and of the four 3-D
@@ -87,7 +98,10 @@ The explicit-sparse path (the planner's upgrades of explicit matrices):
    4.2M, bandwidth 512, degrees 3..27), and K10 on the six hop geometries
    of the 2^20 plan in f32 and f64, each against its plain version: the
    kernels round every product and sum as the plain versions do, so the
-   outputs must match bit for bit (K8's dot: phase 3's bound);
+   outputs must match bit for bit (K8's dot: phase 3's bound); and K10 at
+   the interface's caps (block_rows 256, src_block_rows 64, w_rows 8) with
+   runs of 256 rows (the window staged in shared memory) and of one row
+   (gathered from global memory), f32 and f64, bit for bit;
    then each system's CG path: eager ``step()``s, ``solve(200)`` with K8
    (dot), K9 and K10 launches counted exactly, a bit-identical repeat,
    ||b - Ax||^2 through ``planner.matvec`` against the history, and the
@@ -104,8 +118,11 @@ The explicit-sparse path (the planner's upgrades of explicit matrices):
    plain versions; the library yardsticks are one ``torch.sparse`` CSR
    SpMV (cuSPARSE) of the same matrix in the operator's basis (K8, K9 and
    the whole routed matvec) and ``torch.take`` on each hop's precomputed
-   flat index (K10, its scale excluded).  ``--profile`` adds traces of the
-   three explicit CG solves.
+   flat index (K10, its scale excluded).  K10's hops and ``torch.take`` are
+   also timed in CUDA graphs (device time alone: the small hops take less
+   time on the card than their enqueue on the host; ``graph_ms`` and
+   ``library_graph_ms`` in the kernels line).  ``--profile`` adds traces of
+   the three explicit CG solves.
 
 The benchmark CLI path (``legionsolvers_tpu_torch.benchmark``, GMRES, PCG
 and the roofline probes):
@@ -149,6 +166,7 @@ import sys
 import time
 
 N_GRID = 4096
+ACCURACY_GRIDS = (2048, 3001)  # 2-D CG held to float64 at these sizes too
 RAGGED = (200, 328)
 SMALL_GRID = 256
 N_EAGER = 3
@@ -352,6 +370,72 @@ def compare_kernels(torch, T, device):
     return errs
 
 
+# K1 at the edges of its 120-column strips, its row chunks and its 16-byte
+# vectors (C % 4 != 0 takes scalar loads), with the main path's cross and a
+# 9-point reach-1 stencil (terms not in box order: the kernel's switch
+# path)
+STEP2_SHAPES = ((N_GRID, N_GRID), RAGGED, (33, 4097), (4099, 130), (1, 5))
+OFFS9 = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (-1, 1),
+         (1, -1), (1, 1))
+VALS9 = (6.0, -1.0, -1.0, -1.0, -1.0, -0.5, -0.5, -0.5, -0.5)
+
+
+def gram_scales(torch, T, r, p, kw):
+    """sqrt(<a,a><b,b>) of each Gram entry of (r, p) (float64)."""
+    A = lambda v: T.apply_plain(v, kw["offsets"], kw["values"])
+    nrm = lambda v: torch.linalg.vector_norm(v.double()).item()
+    Ap, Ar = A(p), A(r)
+    n = {"r": nrm(r), "p": nrm(p), "Ap": nrm(Ap), "Ar": nrm(Ar),
+         "A2p": nrm(A(Ap))}
+    pairs = ("r r", "p Ap", "r Ap", "Ap Ap", "r Ar", "Ap Ar", "Ap A2p",
+             "Ar Ar", "Ar A2p", "A2p A2p")
+    return torch.tensor([n[a] * n[b] for a, b in map(str.split, pairs)],
+                        dtype=torch.float64)
+
+
+def compare_step2_edges(torch, T, device):
+    """Phase 3, K1 at STEP2_SHAPES with the cross and the 9-point stencil,
+    against step2_plain to phase 3's bounds, and a repeat of the kernel on
+    the same inputs, bit for bit (the last block's Gram fold is
+    deterministic).  Returns the max abs error."""
+    worst_all = 0.0
+    for kw in (KW, dict(offsets=OFFS9, values=VALS9)):
+        for shape in STEP2_SHAPES:
+            g = torch.Generator(device=device).manual_seed(29)
+            d = {k: torch.randn(shape, generator=g, device=device)
+                 for k in ("x", "r", "p")}
+            coef = T.cg2_coeffs(T.gram2_plain(d["r"], d["p"], **kw))[0]
+            runs = []
+            for fn in (T.grid2d_cg_step2, T.grid2d_cg_step2, T.step2_plain):
+                c = {k: v.clone() for k, v in d.items()}
+                runs.append(fn(c["x"], c["r"], c["p"], coef, **kw))
+            torch.cuda.synchronize()
+            (k1, k2, ref), worst = runs, 0.0
+            if not all(torch.equal(a, b) for a, b in zip(k1, k2)):
+                raise AssertionError(f"step2 {shape} {len(kw['offsets'])}-"
+                                     "point: a repeat is not bit-identical")
+            for name, have, want in zip("xrp", k1[:3], ref[:3]):
+                err = (have.double() - want.double()).abs().max().item()
+                worst = max(worst, err)
+                if not err <= 1e-5 * want.abs().max().item():
+                    raise AssertionError(
+                        f"step2 {shape} {len(kw['offsets'])}-point {name}: "
+                        f"kernel disagrees with its plain version ({err:g})")
+            gerr = (k1[3].double() - ref[3].double()).abs().cpu()
+            if not bool((gerr <= 1e-4 * gram_scales(torch, T, ref[1], ref[2],
+                                                    kw)).all()):
+                raise AssertionError(
+                    f"step2 {shape} {len(kw['offsets'])}-point gram: kernel "
+                    f"disagrees with its plain version ({gerr.max():g})")
+            worst = max(worst, gerr.max().item())
+            worst_all = max(worst_all, worst)
+            log(f"[check] step2    {shape} {len(kw['offsets'])}-point: "
+                f"kernel == plain (max abs err {worst:.3g}); repeat bit "
+                "for bit")
+            del d, runs, k1, k2, ref
+    return worst_all
+
+
 def bicg_inputs(torch, shape, seed, device):
     g = torch.Generator(device=device).manual_seed(seed)
     d = {k: torch.randn(shape, generator=g, device=device)
@@ -533,6 +617,33 @@ def classic_cg(xp, shape, iters, dtype=None, device=None, matvec=lap5):
     return xp.stack(hist).double(), x.double()
 
 
+def cg2d_accuracy(torch, T, lt, n, device):
+    """Distance from float64 CG of three f32 solve(200)s of the 2-D
+    Laplacian at n^2: textbook f32 CG, and the s-step schedule driven by
+    the kernels and by the plain versions.  {label: (max relative
+    deviation of the history, max |x - x64| / max |x64|)}."""
+    from legionsolvers_tpu_torch.entry import build_system
+
+    planner = build_system(n, lt.SolverOptions(entry_dtype=torch.float32),
+                           device)
+    solver = lt.CGSolver(planner)
+    h64, x64 = classic_cg(torch, (n, n), N_ITERS, torch.float64, device)
+    h32, x32 = classic_cg(torch, (n, n), N_ITERS, torch.float32, device)
+
+    def dist(h, x):
+        xd = (x.double().reshape(n, n) - x64).abs().max() / x64.abs().max()
+        return ((h.double() - h64) / h64).abs().max().item(), xd.item()
+
+    env = {"textbook f32": dist(h32, x32)}
+    restart(solver)
+    env["kernel"] = dist(solver.solve(N_ITERS), planner.sol_vectors[0].data)
+    with plain_driven(T, solver, cg_plain(T)):
+        restart(solver)
+        env["plain"] = dist(solver.solve(N_ITERS),
+                            planner.sol_vectors[0].data)
+    return env
+
+
 def main_path(torch, np, T, lt, device):
     """Phase 4.  Returns (launch counts of the main-path run, results,
     the solver)."""
@@ -630,6 +741,17 @@ def main_path(torch, np, T, lt, device):
             and env["kernel"][1] <= 2 * env["textbook f32"][1]):
         raise AssertionError("kernel-driven solve(200) is less accurate "
                              f"than twice textbook f32 CG: {env}")
+    # the same bound at other sizes: 2048^2 on the 16-byte path, 3001^2
+    # (odd width) on the scalar one
+    env_n = {}
+    for n in ACCURACY_GRIDS:
+        env_n[n] = e = cg2d_accuracy(torch, T, lt, n, device)
+        log(f"[main] {n}^2 solve(200) against float64 CG (history, x): "
+            + ", ".join(f"{k} {h:.3g} {x:.3g}" for k, (h, x) in e.items()))
+        if not (e["kernel"][0] <= 2 * e["textbook f32"][0]
+                and e["kernel"][1] <= 2 * e["textbook f32"][1]):
+            raise AssertionError(f"{n}^2 kernel-driven solve(200) is less "
+                                 f"accurate than twice textbook f32 CG: {e}")
 
     # a smaller grid, where f32 stays within 1e-3 of float64 CG (numpy)
     small = build_system(SMALL_GRID, f32, device)
@@ -645,6 +767,7 @@ def main_path(torch, np, T, lt, device):
         f"{dev50:.3g}, x max rel {xdev50:.3g}")
     results = {"hist200_last": hist200[-1].item(),
                "kernel_vs_plain": (window, dev), "vs_f64_200": env,
+               "vs_f64_200_other_sizes": env_n,
                "vs_f64_small": (dev50, xdev50), "residual_check": rel}
     return counts, results, solver
 
@@ -894,6 +1017,29 @@ def event_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fns, reps):
+    """Mean device ms of one call, ``reps`` calls cycling through ``fns``
+    captured in one CUDA graph and replayed between two CUDA events: the
+    device time alone, for kernels shorter than the host's enqueue of
+    them."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def copy_bandwidth(torch, device):
     """Bytes/s of a device-to-device copy of 1 GiB (read + write)."""
     src = torch.empty(2**28, dtype=torch.float32, device=device).fill_(1.0)
@@ -978,13 +1124,15 @@ def time_solve(torch, T, solver, bw, card):
     for label in ("kernel", "plain"):
         ctx = (plain_driven(T, solver, cg_plain(T)) if label == "plain"
                else None)
-        ms, _ = solve_ms(torch, solver, 200, ctx)
+        ms, host_ms = solve_ms(torch, solver, 200, ctx)
         sane(f"solve(200) {label}", ms, nbytes, bw)
         res[label] = ms / 200
+        res[f"{label} host enqueue"] = host_ms / 200
         log(f"[time] solve(200) {label}-driven: {ms / 200:.4f} ms/iter "
             f"({nbytes / 200 / (ms / 200) / 1e6:.1f} GB/s effective, "
-            f"{(5 * n - 4 * N_GRID) / (ms / 200 * 1e-3) / 1e9:.2f} Gnnz/s) "
-            f"at {N_GRID}^2 f32 on {card}")
+            f"{(5 * n - 4 * N_GRID) / (ms / 200 * 1e-3) / 1e9:.2f} Gnnz/s; "
+            f"host enqueue {host_ms / 200:.4f} ms/iter) at {N_GRID}^2 f32 on "
+            f"{card}")
     return res
 
 
@@ -1526,27 +1674,30 @@ def time_3d_kernels(torch, lt, T3, TB3, device, bw, card):
     return out, lib
 
 
+def solve_once(torch, solver, n_iters):
+    """(device ms, host enqueue ms) of one ``solve(n_iters)`` after a reset
+    outside the timing: CUDA events around the solve, and the host's clock
+    until ``solve`` returns."""
+    restart(solver)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    solver.solve(n_iters)
+    end.record()
+    host = time.perf_counter() - t0
+    end.synchronize()
+    return start.elapsed_time(end), host * 1e3
+
+
 def solve_ms(torch, solver, n_iters, ctx=None):
-    """(device ms, host enqueue ms) of one ``solve(n_iters)``, CUDA events,
-    the better of two runs after a warm-up run; each run follows a reset
-    outside the events.  ``ctx`` (a plain_driven) swaps in plain
-    versions."""
+    """:func:`solve_once`, the better of two runs after a warm-up run.
+    ``ctx`` (a plain_driven) swaps in plain versions."""
     if ctx:
         ctx.__enter__()
     try:
-        runs = []
-        for _ in range(3):
-            restart(solver)
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            solver.solve(n_iters)
-            end.record()
-            host = time.perf_counter() - t0
-            end.synchronize()
-            runs.append((start.elapsed_time(end), host * 1e3))
+        runs = [solve_once(torch, solver, n_iters) for _ in range(3)]
     finally:
         if ctx:
             ctx.__exit__(None, None, None)
@@ -1849,6 +2000,45 @@ def compare_explicit_kernels(torch, np, lt, T, systems, device):
     return errs
 
 
+# K10 at the interface's caps (block_rows 256, src_block_rows 64, w_rows 8):
+# one run of 256 rows over the last window (staged in shared memory; 64 KB
+# in f64), and runs of one row over windows that move by 7 rows (gathered
+# from global memory), f32 and f64, scaled and not
+K10_CAP_BLOCKS = 6
+
+
+def compare_blockperm_caps(torch, device):
+    """Phase 3e, K10 at its caps against blockperm_plain, bit for bit."""
+    from legionsolvers_tpu_torch.ops.cuda import rowperm as RP
+
+    br, srb, w = RP.MAX_BLOCK_ROWS, RP.MAX_SRC_ROWS, RP.MAX_W_ROWS
+    g = torch.Generator(device=device).manual_seed(37)
+    RD = K10_CAP_BLOCKS * br
+    idx = torch.randint(0, w * 1024, (RD, 1024), generator=g,
+                        dtype=torch.int32, device=device)
+    for run, tab in ((br, (srb - w,) * br),
+                     (1, tuple((7 * dl) % (srb - w + 1) for dl in range(br)))):
+        hop = RP.GatherHop(br, srb, tab, w, device)
+        if hop.stage != (run >= w):
+            raise AssertionError(f"K10 runs of {run}: stage {hop.stage}")
+        for dtype in (torch.float32, torch.float64):
+            src = torch.randn(K10_CAP_BLOCKS * srb * 1024, generator=g,
+                              dtype=dtype, device=device)
+            vals = torch.randn(RD, 1024, generator=g, dtype=dtype,
+                               device=device)
+            for v in (None, vals):
+                got = RP.gather_hop(hop, src, idx, v)
+                want = RP.blockperm_plain(src, idx, v, **hop.kwargs())
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"K10 caps, runs of {run}, {dtype}, scaled="
+                        f"{v is not None}: differs from its plain version")
+        log(f"[check-x] K10 at block_rows {br}, src_block_rows {srb}, w_rows "
+            f"{w}, runs of {run} ({'staged' if hop.stage else 'direct'}), "
+            "f32 and f64, scaled and not: == plain bit for bit")
+
+
 # -- phases 4e-g ---------------------------------------------------------------
 
 def textbook_cg_scipy(np, S, iters, dtype):
@@ -2145,12 +2335,17 @@ def time_explicit(torch, np, lt, systems, solvers, bw, card, device):
     # K10: the six hops of one routed matvec, each timed over a ring of
     # three copies of its inputs.  A hop reads only the source elements its
     # windows reach (hop 5: 3 of every 24 rows), so its bytes count those,
-    # from this run's index, not the whole source.
+    # from this run's index, not the whole source.  The small hops take
+    # less time on the card than the host takes to enqueue them.  K10 and
+    # torch.take are timed with CUDA events, as every other kernel is (the
+    # kernels line's ms and library_ms), and also in CUDA graphs (device
+    # time alone: graph_ms and library_graph_ms).
     rsys = systems["random"]
     gop = rsys["planner"].row_partitioned_matrices[0][0].base
     xg = torch.randn(gop.partition.padded_size, generator=g, device=device)
     hops = capture_hops(gop, xg)
-    tot = {"ms": 0.0, "plain": 0.0, "take": 0.0, "bytes": 0, "flops": 0}
+    tot = {"ms": 0.0, "plain": 0.0, "take": 0.0, "bytes": 0, "flops": 0,
+           "ms_graph": 0.0, "take_graph": 0.0}
     per_hop = []
     for i, (hop, src, idx, vals) in enumerate(hops):
         RD = idx.shape[0]
@@ -2167,20 +2362,23 @@ def time_explicit(torch, np, lt, systems, solvers, bw, card, device):
             (src.clone(), idx.clone(),
              None if vals is None else vals.clone(), flat.clone())
             for _ in range(2)]
-        ms = ring_ms([lambda r=r: RP.gather_hop(hop, *r[:3]) for r in ring],
-                     30)
+        kfns = [lambda r=r: RP.gather_hop(hop, *r[:3]) for r in ring]
+        tfns = [lambda r=r: torch.take(r[0], r[3]) for r in ring]
+        ms, take = ring_ms(kfns, 30), ring_ms(tfns, 30)
+        ms_gr, take_gr = graph_ms(torch, kfns, 30), graph_ms(torch, tfns, 30)
         plain = ring_ms([lambda r=r: RP.blockperm_plain(
             *r[:3], **hop.kwargs()) for r in ring], 6)
-        take = ring_ms([lambda r=r: torch.take(r[0], r[3]) for r in ring],
-                       30)
         elems = RD * 1024
         nbytes = 4 * elems * (2 + (vals is not None)) + 4 * src_read
-        sane(f"blockperm hop {i}", ms, nbytes, bw)
+        sane(f"blockperm hop {i}", ms_gr, nbytes, bw)
         per_hop.append((RD, br, hop.src_block_rows, hop.w_rows,
-                        vals is not None, src_read, ms, plain, take))
+                        vals is not None, hop.stage, src_read, ms, plain,
+                        take, ms_gr, take_gr))
         tot["ms"] += ms
         tot["plain"] += plain
         tot["take"] += take
+        tot["ms_graph"] += ms_gr
+        tot["take_graph"] += take_gr
         tot["bytes"] += nbytes
         tot["flops"] += elems if vals is not None else 0
         del flat, ring
@@ -2188,13 +2386,16 @@ def time_explicit(torch, np, lt, systems, solvers, bw, card, device):
                         tot["take"])
     log(f"[time-x] K10 blockperm, six hops of one 2^20 matvec: {tot['ms']:.4f}"
         f" ms ({tot['bytes'] / tot['ms'] / 1e6:.1f} GB/s), plain "
-        f"{tot['plain']:.4f} ms, torch.take {tot['take']:.4f} ms; per hop "
-        "(rows, block, source rows, w_rows, scaled, source elements read, "
-        "ms, plain, take): "
+        f"{tot['plain']:.4f} ms, torch.take {tot['take']:.4f} ms (CUDA "
+        f"events, the host's enqueue included); in CUDA graphs: K10 "
+        f"{tot['ms_graph']:.4f} ms, torch.take {tot['take_graph']:.4f} ms; "
+        "per hop (rows, block, source rows, w_rows, scaled, staged, source "
+        "elements read, ms, plain, take, ms graph, take graph): "
         + "; ".join(" ".join(f"{v:.4f}" if isinstance(v, float) else str(v)
                              for v in h) for h in per_hop)
         + f" (f32 on {card})")
     extra["K10_hops"] = per_hop
+    extra["K10_graph_ms"] = (tot["ms_graph"], tot["take_graph"])
 
     # the whole routed matvec against cuSPARSE on the same basis
     pm = gop.matrix
@@ -2549,6 +2750,81 @@ def profile_cli(torch, lt, label, argv, card):
     return device_ms, wall, host
 
 
+# -- --solves and --ab: two trees of the package on the same card ------------
+
+def solves(torch, np, T, lt, device, card, reps=5):
+    """--solves: for the package this process imports, 2-D CG's distance
+    from float64 at N_GRID and ACCURACY_GRIDS (:func:`cg2d_accuracy`);
+    ``reps`` timed solve(200)s (:func:`solve_once`, after a warm-up) of the
+    main path's 2-D CG at 4096^2 and of CG on the random 2^20 system; and
+    the host's enqueue time of one K10 call, per hop of one routed matvec
+    (200 calls, no sync between them).  One JSON line."""
+    from legionsolvers_tpu_torch.entry import build_system
+    from legionsolvers_tpu_torch.ops.cuda import rowperm as RP
+
+    out = {"card": card, "tree": os.getcwd(), "accuracy": {
+        n: cg2d_accuracy(torch, T, lt, n, device)
+        for n in (N_GRID, *ACCURACY_GRIDS)}}
+    rsys = build_explicit(torch, np, lt, "random", device)
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    for name, planner in (("cg2d", build_system(N_GRID, f32, device)),
+                          ("random", rsys["planner"])):
+        solver = lt.CGSolver(planner)
+        runs = [solve_once(torch, solver, N_ITERS)
+                for _ in range(reps + 1)][1:]
+        out[name] = {"ms_per_iter": [d / N_ITERS for d, _ in runs],
+                     "host_ms_per_iter": [h / N_ITERS for _, h in runs]}
+        del solver
+    gop = rsys["planner"].row_partitioned_matrices[0][0].base
+    hops = capture_hops(gop, torch.randn(gop.partition.padded_size,
+                                         device=device))
+    out["gather_hop_host_us"] = []
+    for hop, src, idx, vals in hops:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            RP.gather_hop(hop, src, idx, vals)
+        out["gather_hop_host_us"].append(
+            (time.perf_counter() - t0) / 200 * 1e6)
+        torch.cuda.synchronize()
+    log(json.dumps(out))
+    return 0
+
+
+def ab_solves(parent, torch):
+    """--ab PARENT: :func:`solves` on the package of the tree PARENT and
+    on this script's own, alternating parent, change, change, parent, each
+    in a process of its own.  Prints each run's JSON line and, last, the
+    medians of each tree's pooled solves."""
+    import statistics
+
+    here = str(pathlib.Path(__file__).resolve().parent)
+    trees = {"parent": os.path.abspath(parent), "change": here}
+    runs = {"parent": [], "change": []}
+    for label in ("parent", "change", "change", "parent"):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--solves",
+             "--tree", trees[label]],
+            capture_output=True, text=True, timeout=1200)
+        sys.stdout.write(proc.stdout)
+        if proc.returncode:
+            sys.stderr.write(proc.stderr[-8000:])
+            raise RuntimeError(f"--solves on {trees[label]} exited "
+                               f"{proc.returncode}")
+        runs[label].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    summary = {"card": card_line(), "kind": torch.cuda.get_device_name(0)}
+    for label, rs in runs.items():
+        med = lambda f: statistics.median(v for r in rs for v in f(r))
+        summary[label] = {
+            f"{name} {key}": med(lambda r: r[name][key])
+            for name in ("cg2d", "random")
+            for key in ("ms_per_iter", "host_ms_per_iter")}
+        summary[label]["gather_hop_host_us"] = med(
+            lambda r: r["gather_hop_host_us"])
+    log(json.dumps(summary))
+    return 0
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
                nflops, bw, library_ms=None):
     """One entry of the kernels line: bound_ms is the larger of the bytes
@@ -2573,6 +2849,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    argv = sys.argv[1:]
+    if "--ab" in argv:
+        return ab_solves(argv[argv.index("--ab") + 1], torch)
+    if "--tree" in argv:  # import the package of another tree
+        tree = os.path.abspath(argv[argv.index("--tree") + 1])
+        os.chdir(tree)
+        sys.path.insert(0, tree)
     try:
         import numpy as np
         import legionsolvers_tpu_torch as lt
@@ -2606,8 +2889,11 @@ def main() -> int:
     for line in build.BUILD_INFO["log"].splitlines():
         if "registers" in line or "spill" in line:
             log(f"[ptxas] {line.strip()}")
+    if "--solves" in argv:
+        return solves(torch, np, T, lt, device, card)
 
     errs = compare_kernels(torch, T, device)
+    errs["step2"] = max(errs["step2"], compare_step2_edges(torch, T, device))
     errs.update(compare_bicg_kernels(torch, T, TB, device))
     errs3 = compare_3d_kernels(torch, lt, T3, TB3, device)
     errs_h = compare_probe_kernels(torch, device)
@@ -2626,6 +2912,7 @@ def main() -> int:
     systems = {name: build_explicit(torch, np, lt, name, device)
                for name in EXPLICIT}
     errs_x = compare_explicit_kernels(torch, np, lt, T, systems, device)
+    compare_blockperm_caps(torch, device)
     counts_x, results_x, solvers_x = {}, {}, {}
     runs = [("cg", name, systems[name]) for name in EXPLICIT]
     # BiCGStab on a system of its own, built by the entry point again
@@ -2728,6 +3015,9 @@ def main() -> int:
         kernels.append(kernel_row(f"{row} [{m}]", source, replaces,
                                   launches[m], errs_x[m], ms, plain_ms,
                                   nbytes, nflops, bw, lib_ms))
+    # K10 and torch.take also in CUDA graphs (device time alone)
+    kernels[-1]["graph_ms"], kernels[-1]["library_graph_ms"] = \
+        extra_x["K10_graph_ms"]
     n_tile = 256 * 1024
     for k11 in ("fma", "roll", "row"):
         m = f"chain_{k11}"

@@ -45,6 +45,7 @@ from .problems.stencil import (
     calculate_stencil_size,
     create_coo_stencil_matrix,
     create_csr_stencil_matrix,
+    create_linearized_csr_stencil_matrix,
     laplacian_stencil,
     stencil_grid_ndim,
 )

@@ -35,6 +35,10 @@ class AbstractLinearOperator(abc.ABC):
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x on global (possibly padded) vectors."""
 
+    def apply_add(self, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """y + A @ x (the planner's accumulation form)."""
+        return y + self.apply(x)
+
 
 class AbstractMatrix(AbstractLinearOperator):
     """An explicit sparse matrix with a kernel (nonzero) space and the four
@@ -164,6 +168,12 @@ class COOMatrix(AbstractMatrix):
             name=self.name + "_csr", options=self.options,
         )
 
+    def print(self) -> None:
+        """Debug dump (reference: COOPrintTask, COOMatrixTasks.cpp:86-127)."""
+        for k in range(self.n_kernel):
+            print(f"{self.name} [{self.rows[k]}, {self.cols[k]}]: "
+                  f"{self.vals[k]}")
+
 
 class CSRMatrix(AbstractMatrix):
     """Compressed-sparse-row operator (reference: CSRMatrix.hpp/.cpp),
@@ -204,6 +214,18 @@ class CSRMatrix(AbstractMatrix):
     @property
     def n_range(self) -> int:
         return self._n_range
+
+    def row_rects(self) -> np.ndarray:
+        """[n_range, 2] array of (first, last) kernel index per row: the
+        reference's Rect-valued rowptr field (CSRMatrix.hpp:22-23).  A row
+        with no nonzeros gets the empty rect (lo, lo - 1)."""
+        return np.stack([self.indptr[:-1], self.indptr[1:] - 1], axis=1)
+
+    def print(self) -> None:
+        """Debug dump (reference: CSRPrintTask, CSRMatrixTasks.cpp:103-160)."""
+        for i in range(self.n_range):
+            for k in range(self.indptr[i], self.indptr[i + 1]):
+                print(f"{self.name} [{i}, {self.cols[k]}]: {self.vals[k]}")
 
     def to_ell(self):
         """Pad rows to the max row length -> (ell_cols, ell_vals) host

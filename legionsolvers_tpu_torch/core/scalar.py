@@ -78,6 +78,12 @@ class Scalar:
         place a single scalar leaves the device."""
         return float(self.value.item())
 
+    def print(self, dummy=None):
+        """Print the value (reference: Scalar.cpp:96-116); returns
+        ``dummy``, as the JAX package does."""
+        print(f"{self.get_value():g}")
+        return dummy
+
     def __repr__(self) -> str:
         return f"Scalar({self.value!r})"
 

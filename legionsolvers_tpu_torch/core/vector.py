@@ -153,6 +153,18 @@ class PartitionedVector:
         self._data = None
         return self
 
+    def refill_constant(self, value) -> "PartitionedVector":
+        """``constant_fill`` that releases the previous buffer before it
+        allocates the new one and never reads the old one: the fill for
+        when two live copies of a vector would not fit."""
+        self._data = None
+        d = torch.full(self._shape(), value, dtype=self.options.entry_dtype,
+                       device=self.device)
+        if self.grid_shape is None:
+            d[self.n:] = 0
+        self.data = d
+        return self
+
     def random_fill(
         self, generator: Optional[torch.Generator] = None, lo=0.0, hi=1.0
     ) -> "PartitionedVector":
@@ -177,6 +189,16 @@ class PartitionedVector:
             raise ValueError("assign requires identical partitions")
         self.data = other.data
         return self
+
+    def copy(self, name: Optional[str] = None) -> "PartitionedVector":
+        """A new vector with its own copy of the data (the JAX package's
+        arrays are immutable, so its copy may share them; torch tensors are
+        updated in place, so this one clones)."""
+        return PartitionedVector(
+            name or self.name, self.partition, data=self.data.clone(),
+            options=self.options, grid_shape=self.grid_shape,
+            device=self.device,
+        )
 
     # -- BLAS-1 (reference: PartitionedVector.cpp:196-358) ------------------
     def scal(self, *alpha: AlphaLike) -> "PartitionedVector":
@@ -207,6 +229,10 @@ class PartitionedVector:
     def to_numpy(self) -> np.ndarray:
         """The true (unpadded) values on the host, flattened."""
         return self.data.detach().cpu().numpy().reshape(-1)[: self.n]
+
+    def print(self) -> None:
+        """Debug dump (reference: PrintVectorTask path)."""
+        print(f"[legionsolvers] vector {self.name}: {self.to_numpy()}")
 
     def __repr__(self) -> str:
         return (

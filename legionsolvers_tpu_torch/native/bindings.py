@@ -1,10 +1,15 @@
-"""DIA extraction and RCM ordering on the host.
+"""Host helpers: stencil sizes, CSR row pointers, DIA extraction and RCM
+ordering.
 
 Port of the numpy/scipy paths of ``legionsolvers_tpu/native/bindings.py``
-(``dia_unique_offsets``, ``dia_accumulate``, ``rcm_permutation``).  The JAX
+(``stencil_size``, ``stencil_fill_coo``, ``build_indptr``,
+``dia_unique_offsets``, ``dia_accumulate``, ``rcm_permutation``).  The JAX
 package prefers a C++ library and falls back to these; the port has no
-C++ host code.  Duplicate (row, col) entries are summed, as COO semantics
-require (reference: COOMatrixTasks.cpp:38-39).
+C++ host code, so :func:`available` is False and
+:func:`stencil_fill_coo` leaves the work to the numpy generator of
+``problems/stencil.py``, as the JAX package's does without its library.
+Duplicate (row, col) entries are summed, as COO semantics require
+(reference: COOMatrixTasks.cpp:38-39).
 """
 
 from __future__ import annotations
@@ -12,6 +17,34 @@ from __future__ import annotations
 import numpy as np
 
 _DIA_CHUNK = 1 << 24  # nnz per pass of the offset scan
+
+
+def available() -> bool:
+    """Whether a native host library is loaded: never, in the port."""
+    return False
+
+
+def stencil_size(shape, offsets) -> int:
+    """Nonzeros of the stencil matrix over a grid of ``shape``: for each
+    offset, the grid points whose neighbour at that offset is inside."""
+    shape = np.ascontiguousarray(shape, np.int64)
+    offs = np.ascontiguousarray(offsets, np.int64)
+    cnt = np.maximum(shape[None, :] - np.abs(offs), 0)
+    return int(np.prod(cnt, axis=1).sum())
+
+
+def stencil_fill_coo(shape, offsets, values):
+    """The native generator's (rows, cols, vals), or None without a native
+    library (always, here): callers use their numpy generator."""
+    return None
+
+
+def build_indptr(rows, n_rows):
+    """CSR row pointers [n_rows + 1] of a row index array."""
+    rows = np.ascontiguousarray(rows, np.int64)
+    indptr = np.zeros(n_rows + 1, np.int64)
+    np.add.at(indptr, rows + 1, 1)
+    return np.cumsum(indptr)
 
 
 def dia_unique_offsets(rows, cols, max_diags):

@@ -117,7 +117,9 @@ def load_library() -> ctypes.CDLL:
     point's argument types declared (pointers and the stream as
     ``c_void_p``, so that none is cut to 32 bits)."""
     from .dia2d import DIA_ELEMS, MAX_DIA_TERMS
-    from .stencil2d import MAX_TERMS, TILE
+    from .rowperm import PIECE_ROWS
+    from .stencil2d import MAX_TERMS, STEP2_COLS, STEP2_MIN_ROWS, TILE
+    from .stencil2d import STEP2_WARPS
     from .stencil3d import CHUNK_X, _Stencil3
     from .vpu_probe import C as VPU_C, TR as VPU_TR
 
@@ -126,7 +128,7 @@ def load_library() -> ctypes.CDLL:
         "ls_stencil2d": [_I] + [_P] * 9 + [_I, _I, _P, _P],
         "ls_xpay_pq": [_P] * 10 + [_I, _I, _P, _P],
         "ls_gram2": [_P] * 4 + [_I, _I, _P, _P],
-        "ls_step2": [_P] * 8 + [_I, _I, _P, _P],
+        "ls_step2": [_P] * 8 + [_I, _P, _I, _I, _P, _P],
         "ls_bicg_pv": [_P] * 10 + [_I, _I, _I, _P, _P],
         "ls_bicg_st": [_P] * 5 + [_I, _I, _I, _P, _P],
         "ls_bicg_update": [_P] * 10 + [_I, _I, _I, _P, _P],
@@ -137,7 +139,7 @@ def load_library() -> ctypes.CDLL:
         "ls_bicg3d_update": [_P] * 12 + [_I] * 4 + [_P, _P],
         "ls_dia2d": [_I] + [_P] * 5 + [_I] + [_P] * 3 + [_I, _I, _P],
         "ls_winell": [_I] + [_P] * 5 + [_I] * 3 + [_P],
-        "ls_blockperm": [_I] + [_P] * 5 + [_I] * 3 + [_P],
+        "ls_blockperm": [_I] + [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_P],
         "ls_vpu_chain": [_I, _P, _P, _I, _I, _L, _P],
         "ls_copy_probe": [_P, _P, _L, _P],
     }
@@ -147,14 +149,22 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     for name in ("ls_tile", "ls_max_terms", "ls_chunk_x", "ls_stencil3_size",
                  "ls_dia_max_terms", "ls_dia_elems", "ls_vpu_tile_rows",
-                 "ls_vpu_tile_cols"):
+                 "ls_vpu_tile_cols", "ls_step2_cols", "ls_step2_min_rows",
+                 "ls_step2_warps", "ls_blockperm_piece_rows"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     lib.ls_error_string.argtypes = [ctypes.c_int]
     lib.ls_error_string.restype = ctypes.c_char_p
-    if lib.ls_tile() != TILE or lib.ls_max_terms() != MAX_TERMS:
+    if (lib.ls_tile() != TILE or lib.ls_max_terms() != MAX_TERMS
+            or lib.ls_step2_cols() != STEP2_COLS
+            or lib.ls_step2_min_rows() != STEP2_MIN_ROWS
+            or lib.ls_step2_warps() != STEP2_WARPS):
         raise RuntimeError("csrc/stencil2d.cu and ops/cuda/stencil2d.py "
-                           "disagree on LS_TILE or LS_MAX_TERMS")
+                           "disagree on LS_TILE, LS_MAX_TERMS or K1's "
+                           "strip geometry")
+    if lib.ls_blockperm_piece_rows() != PIECE_ROWS:
+        raise RuntimeError("csrc/rowperm.cu and ops/cuda/rowperm.py "
+                           "disagree on LS_BLOCKPERM_PIECE_ROWS")
     if (lib.ls_chunk_x() != CHUNK_X
             or lib.ls_stencil3_size() != ctypes.sizeof(_Stencil3)):
         raise RuntimeError("csrc/common.cuh and ops/cuda/stencil3d.py "

@@ -25,16 +25,33 @@ from .winell import _check
 MAX_W_ROWS = 8
 MAX_BLOCK_ROWS = 256
 MAX_SRC_ROWS = 64
+PIECE_ROWS = 8  # rows of one CUDA block (csrc: LS_BLOCKPERM_PIECE_ROWS)
+
+
+def _runs(w0_table: tuple) -> list:
+    """(first row, rows, w0) of each run of equal consecutive w0 (the JAX
+    kernel's ``runs``)."""
+    runs, s0 = [], 0
+    for dl in range(1, len(w0_table) + 1):
+        if dl == len(w0_table) or w0_table[dl] != w0_table[s0]:
+            runs.append((s0, dl - s0, w0_table[s0]))
+            s0 = dl
+    return runs
 
 
 class GatherHop:
     """One hop's static geometry, checked once: ``block_rows``,
-    ``src_block_rows``, ``w_rows`` and ``w0_table``, with the table also
-    as an int32 array on ``device`` for the kernel.  A routed matvec builds
-    its hops at plan time and runs them with :func:`gather_hop`."""
+    ``src_block_rows``, ``w_rows`` and ``w0_table``, and the kernel's plan
+    of it: the runs of equal w0 cut into pieces of at most
+    :data:`PIECE_ROWS` rows (``pieces``, (first row, rows, w0) triples,
+    also as an int32 array on ``device``), and ``stage``, whether each
+    piece copies its window to shared memory (every run at least
+    ``w_rows`` rows long, so that a window is read by as many rows as it
+    has).  A routed matvec builds its hops at plan time and runs them with
+    :func:`gather_hop`."""
 
     __slots__ = ("block_rows", "src_block_rows", "w_rows", "w0_table",
-                 "w0_dev")
+                 "pieces", "stage", "pieces_dev")
 
     def __init__(self, block_rows: int, src_block_rows: int,
                  w0_table: tuple, w_rows: int = 1, device="cpu"):
@@ -51,7 +68,12 @@ class GatherHop:
             raise ValueError("bad w0_table")
         self.block_rows, self.src_block_rows, self.w_rows = BRK, SRB, W
         self.w0_table = w0_table
-        self.w0_dev = _int32_table(w0_table, torch.device(device))
+        runs = _runs(w0_table)
+        self.stage = min(n for _, n, _ in runs) >= W
+        self.pieces = tuple(
+            v for s0, n, w0 in runs for dl in range(s0, s0 + n, PIECE_ROWS)
+            for v in (dl, min(PIECE_ROWS, s0 + n - dl), w0))
+        self.pieces_dev = _int32_table(self.pieces, torch.device(device))
 
     def kwargs(self) -> dict:
         """The keyword arguments of :func:`blockperm_gather`."""
@@ -101,11 +123,21 @@ def gather_hop(hop: GatherHop, src, idx, vals=None):
     if not _on_cuda(src, idx, vals):
         return blockperm_plain(src, idx, vals, **hop.kwargs())
     dev = src.device
-    if hop.w0_dev.device != dev:
-        raise ValueError(f"hop built for {hop.w0_dev.device}, not {dev}")
+    if hop.pieces_dev.device != dev:
+        raise ValueError(f"hop built for {hop.pieces_dev.device}, not {dev}")
     out = torch.empty((RD, 1024), dtype=src.dtype, device=dev)
+    src, idx, vals = _aligned(src), _aligned(idx), _aligned(vals)
     _launch("blockperm", "ls_blockperm", (
         int(src.dtype == torch.float64), _ptr(src), _ptr(idx), _ptr(vals),
-        _ptr(hop.w0_dev), _ptr(out), RD, BRK, SRB,
+        _ptr(hop.pieces_dev), len(hop.pieces) // 3, int(hop.stage),
+        _ptr(out), RD, BRK, SRB, hop.w_rows,
     ), dev)
     return out
+
+
+def _aligned(t):
+    """``t``, or a copy of it where its storage is not 16-byte aligned (a
+    view at an odd offset): the kernel reads 16-byte vectors."""
+    if t is None or t.data_ptr() % 16 == 0:
+        return t
+    return t.clone()

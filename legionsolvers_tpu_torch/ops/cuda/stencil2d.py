@@ -45,11 +45,14 @@ import torch.nn.functional as F
 GRAM_NAMES = ("rr", "pAp", "rAp", "ApAp", "rAr",
               "ApAr", "ApA2p", "ArAr", "ArA2p", "A2pA2p")
 
-TILE = 32          # output tile edge of every kernel (csrc: LS_TILE)
+TILE = 32          # output tile edge of K2-K4 (csrc: LS_TILE)
 MAX_TERMS = 32     # stencil terms a kernel accepts (csrc: LS_MAX_TERMS)
 HALO_ROWS = 8      # rows in a halo block
 STENCIL_REACH = 8  # K3/K4 gate: |dy|, |dx| <= 8
 STEP2_REACH = 1    # K1/K2 gate: four chained applications inside a 4-halo
+STEP2_COLS = 120   # K1: output columns of one warp's strip (LS_STEP2_COLS)
+STEP2_MIN_ROWS = 16  # K1: shortest row chunk (LS_STEP2_MIN_ROWS)
+STEP2_WARPS = 4    # K1: warps per block (LS_STEP2_WARPS)
 
 #: CUDA launches per pass name since the last :func:`reset_launch_counts`.
 LAUNCHES = collections.Counter()
@@ -243,11 +246,19 @@ class _Stencil(ctypes.Structure):
     ]
 
 
+_STRUCTS = {}
+
+
 def _stencil_struct(offsets, values) -> _Stencil:
-    st = _Stencil()
-    st.n = len(offsets)
-    for k, ((dy, dx), v) in enumerate(zip(offsets, values)):
-        st.dy[k], st.dx[k], st.v[k] = int(dy), int(dx), float(v)
+    """The kernels' stencil argument, made once per (offsets, values)."""
+    key = (tuple(map(tuple, offsets)), tuple(values))
+    st = _STRUCTS.get(key)
+    if st is None:
+        st = _Stencil()
+        st.n = len(offsets)
+        for k, ((dy, dx), v) in enumerate(zip(offsets, values)):
+            st.dy[k], st.dx[k], st.v[k] = int(dy), int(dx), float(v)
+        _STRUCTS[key] = st
     return st
 
 
@@ -301,6 +312,9 @@ def _ptr(t: Optional[torch.Tensor]):
 def _dev_scalars(a, n: int, device) -> torch.Tensor:
     """``n`` f32 scalars as a contiguous device tensor (no host sync for a
     tensor already on the device)."""
+    if (isinstance(a, torch.Tensor) and a.dtype == torch.float32
+            and a.device == device and a.is_contiguous() and a.numel() == n):
+        return a.reshape(-1)
     t = torch.as_tensor(a).to(device=device, dtype=torch.float32)
     t = t.reshape(-1).contiguous()
     if t.numel() != n:
@@ -326,13 +340,37 @@ def _blocks(R, C) -> int:
     return -(-R // TILE) * -(-C // TILE)
 
 
+_STEP2_SCRATCH = {}
+
+
+def _step2_scratch(device, R: int, C: int):
+    """K1's Gram partials (float64, room for the most blocks it can launch
+    on an [R, C] grid) and its last-block counter (zero between launches),
+    made once per (device, stream, R, C): launches on one stream are
+    ordered, so they can share them."""
+    key = (device, _raw_stream(device), R, C)
+    scratch = _STEP2_SCRATCH.get(key)
+    if scratch is None:
+        units = -(-C // STEP2_COLS) * -(-R // STEP2_MIN_ROWS)
+        capacity = -(-units // STEP2_WARPS)
+        scratch = (torch.empty(10 * capacity, dtype=torch.float64,
+                               device=device), capacity,
+                   torch.zeros(1, dtype=torch.int32, device=device))
+        _STEP2_SCRATCH[key] = scratch
+    return scratch
+
+
+def _raw_stream(device) -> int:
+    """The handle of ``device``'s current stream (no Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def _launch(name: str, fn: str, args, device) -> None:
     from .build import load_library
 
     lib = load_library()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
+        err = getattr(lib, fn)(*args, _raw_stream(device))
     if err:
         raise RuntimeError(
             f"{fn}: CUDA error {err} "
@@ -494,12 +532,13 @@ def grid2d_cg_step2(x, r, p, coef, *, offsets, values,
                            out=out)
     dev = r.device
     c = _dev_scalars(coef, 6, dev)
+    # g is fresh per pass: callers keep earlier passes' g (the runner's
+    # history holds g[0])
     g = torch.empty(10, dtype=torch.float32, device=dev)
-    partials = torch.empty(10 * _blocks(R, C), dtype=torch.float32,
-                           device=dev)
-    st = _stencil_struct(offsets, values)
+    partials, capacity, counter = _step2_scratch(dev, R, C)
     _launch("step2", "ls_step2", (
         _ptr(x), _ptr(r), _ptr(p), _ptr(c), _ptr(out[0]), _ptr(out[1]),
-        _ptr(g), _ptr(partials), R, C, ctypes.byref(st),
+        _ptr(g), _ptr(partials), capacity, _ptr(counter), R, C,
+        ctypes.byref(_stencil_struct(offsets, values)),
     ), dev)
     return x, out[0], out[1], g

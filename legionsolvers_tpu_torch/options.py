@@ -26,6 +26,14 @@ INDEX_DTYPES = (torch.int32, torch.int64)
 # Maximum problem dimensionality for stencil generators.
 MAX_DIM = 3
 
+# Name of the mesh axis over which vectors and matrices are block-partitioned
+# (the JAX package's; the multi-device port will name its axis so too).
+SHARD_AXIS = "shard"
+
+# Host-side validation (here: of the options' dtypes), on unless
+# LEGIONSOLVERS_CHECK_BOUNDS=0, as in the JAX package.
+CHECK_BOUNDS = bool(int(os.environ.get("LEGIONSOLVERS_CHECK_BOUNDS", "1")))
+
 
 @dataclasses.dataclass(frozen=True)
 class SolverOptions:
@@ -49,13 +57,19 @@ class SolverOptions:
     )
 
     def __post_init__(self) -> None:
-        if self.entry_dtype not in ENTRY_DTYPES:
-            raise ValueError(f"unsupported entry dtype {self.entry_dtype}")
-        if self.index_dtype not in INDEX_DTYPES:
-            raise ValueError(f"unsupported index dtype {self.index_dtype}")
+        if CHECK_BOUNDS:
+            if self.entry_dtype not in ENTRY_DTYPES:
+                raise ValueError(f"unsupported entry dtype {self.entry_dtype}")
+            if self.index_dtype not in INDEX_DTYPES:
+                raise ValueError(f"unsupported index dtype {self.index_dtype}")
 
 
 DEFAULT_OPTIONS = SolverOptions()
+
+
+def round_up(x: int, m: int) -> int:
+    """Round ``x`` up to the next multiple of ``m``."""
+    return -(-x // m) * m
 
 
 def resolve_device(device=None) -> torch.device:

@@ -63,6 +63,13 @@ class RowPartitionedMatrix:
         self.g_ell_vals = torch.as_tensor(
             g_vals, dtype=options.entry_dtype, device=self.device)
 
+    @property
+    def num_pieces(self) -> int:
+        return self.domain_partition.num_pieces
+
+    def nnz(self) -> int:
+        return self.matrix.n_kernel
+
     # device buffers, carried by SquarePlanner.dump_state/load_state
     def device_state(self):
         return {"g_ell_cols": self.g_ell_cols, "g_ell_vals": self.g_ell_vals}
@@ -80,3 +87,22 @@ class RowPartitionedMatrix:
 
     def matvec_add(self, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return y + self.matvec(x)
+
+    def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A^T @ x over padded vectors (x over the range space, y over
+        the domain space, its padding 0): the COO transpose product of the
+        matrix's nonzeros, as the JAX package's unsharded path computes
+        it."""
+        from ..ops.spmv import rmatvec_coo
+
+        m = self.matrix
+        idx = dict(dtype=torch.int64, device=x.device)
+        y = rmatvec_coo(
+            torch.as_tensor(m.rows, **idx), torch.as_tensor(m.cols, **idx),
+            torch.as_tensor(np.asarray(m.vals), dtype=x.dtype,
+                            device=x.device),
+            x[: m.n_range], m.n_domain)
+        out = torch.zeros(self.domain_partition.padded_size, dtype=y.dtype,
+                          device=y.device)
+        out[: m.n_domain] = y
+        return out

@@ -308,6 +308,14 @@ class CrossBasisOperator:
     def matvec_add(self, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return y + self.matvec(x)
 
+    def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A^T @ x: x over the range space, y over the domain space,
+        in the solver bases or, outside them, in the natural order."""
+        if self.in_basis:
+            return self.base.rmatvec(x)
+        py = self.base.rmatvec(self._gather(x, self.rng_perm_dev))
+        return self._gather(py, self.dom_iperm_dev)
+
 
 def cross_basis_operator(matrix, dom_partition, rng_partition, dom_basis,
                          rng_basis, mesh, options,

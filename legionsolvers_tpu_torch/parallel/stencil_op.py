@@ -39,7 +39,13 @@ import torch.nn.functional as F
 
 from ..core.partition import BlockPartition
 from ..options import DEFAULT_OPTIONS, SolverOptions, resolve_device
-from ..problems.stencil import Stencil, _strides, linear_offset
+from ..problems.stencil import (
+    Stencil,
+    _strides,
+    calculate_stencil_size,
+    create_coo_stencil_matrix,
+    linear_offset,
+)
 
 
 class StencilOperator:
@@ -72,6 +78,24 @@ class StencilOperator:
         self.band_hi = max(0, max(self.lin_offsets, default=0))
         self._view = self._plan_pallas_view() if use_pallas else None
         self._diag_cache = {}
+
+    # -- interface parity with the explicit operators ---------------------
+    @property
+    def n_domain(self) -> int:
+        return self.n
+
+    @property
+    def n_range(self) -> int:
+        return self.n
+
+    def nnz(self) -> int:
+        return calculate_stencil_size(self.shape, self.offsets)
+
+    def to_coo(self):
+        """The explicit COO form (for parity and tests; O(nnz) host
+        memory)."""
+        return create_coo_stencil_matrix(self.shape, self.offsets,
+                                         options=self.options)
 
     @property
     def uses_pallas(self) -> bool:

@@ -101,6 +101,11 @@ def create_csr_stencil_matrix(
     return CSRMatrix(indptr, cols, vals, n, n, name=name, options=options)
 
 
+# The reference distinguishes N-D-indexed CSR from linearized (1-D-indexed)
+# CSR; this build always linearizes, so the two names are one function.
+create_linearized_csr_stencil_matrix = create_csr_stencil_matrix
+
+
 def laplacian_stencil(dim: int) -> Stencil:
     """The benchmark stencils (reference: BenchmarkStencil.cpp:24-137):
     ``dim`` in {1, 2, 3} gives the 3/5/7-point negative Laplacian;

@@ -97,6 +97,14 @@ def cg_schedule(solver) -> str:
     return "fused_jnp" if fusable else "classic"
 
 
+def cg_bytes_per_unknown(schedule: str, itemsize: int = 4) -> float:
+    return CG_PASSES[schedule] * itemsize
+
+
+def bicgstab_bytes_per_unknown(itemsize: int = 4, fused: bool = True) -> float:
+    return (24 if fused else 25) * itemsize
+
+
 def gmres_passes(m: int) -> int:
     """Vector passes per GMRES(m) cycle of the MGS transcription."""
     passes = 9  # residual: matvec(2) + xpay(3) + dot(1) + scal(3)
@@ -122,6 +130,10 @@ def gmres_cgs2_passes(m: int) -> int:
         passes += 2 + 4 * (j + 1) + 4 + 2
     passes += m + 2
     return passes
+
+
+def gmres_bytes_per_cycle_per_unknown(m: int, itemsize: int = 4) -> float:
+    return gmres_passes(m) * itemsize
 
 
 def solver_bytes_per_iteration(solver, n: int) -> tuple:

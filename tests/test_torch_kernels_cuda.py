@@ -11,7 +11,13 @@ random halo planes: elementwise 2e-5 * max|ref|, dots 1e-4 of their
 Cauchy-Schwarz scale sqrt(<a,a><b,b>) (chip_smoke.py's bounds).  The
 explicit-sparse kernels K8, K9 and K10 round every product and sum as their
 plain versions do, so they must match them bit for bit (K8's dot: 1e-5 of
-its Cauchy-Schwarz scale).
+its Cauchy-Schwarz scale).  K1 (step2) is also held at the edges of its
+column strips, row chunks and 16-byte vectors, with the cross and a
+9-point stencil, to chip_smoke.py's phase 3 bounds (elementwise 1e-5 *
+max|ref|, Gram entries 1e-4 of their Cauchy-Schwarz scale), and must
+repeat bit for bit; K10 at the interface's caps.  A 2-D solve(40) on the
+card is held entry by entry against the same schedule driven by the plain
+versions.
 """
 
 import numpy as np
@@ -22,7 +28,8 @@ from legionsolvers_tpu_torch.ops.cuda import bicgstab2d as TB
 from legionsolvers_tpu_torch.ops.cuda import bicgstab3d as TB3
 from legionsolvers_tpu_torch.ops.cuda import stencil2d as T
 from legionsolvers_tpu_torch.ops.cuda import stencil3d as T3
-from torch_stencil_cases import KW, MODES, compare, make_inputs, run_port
+from torch_stencil_cases import (KW, MODES, compare, gram_bounds,
+                                 make_inputs, run_port)
 
 torch.set_num_threads(2)
 
@@ -300,6 +307,119 @@ def test_k10_matches_plain_on_card(geometry, dtype, cuda_device):
         got = TR.blockperm_gather(src, idx, v, **kw)
         assert dict(T.LAUNCHES) == {"blockperm": 1}
         assert torch.equal(got, TR.blockperm_plain(src, idx, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("run", [1, 256])
+def test_k10_caps_match_plain_on_card(run, dtype, cuda_device):
+    """K10 at block_rows 256, src_block_rows 64, w_rows 8: one run of 256
+    rows (the window staged in shared memory, 64 KB in f64) or runs of
+    one row (gathered from global memory), scaled and not."""
+    br, srb, w = TR.MAX_BLOCK_ROWS, TR.MAX_SRC_ROWS, TR.MAX_W_ROWS
+    tab = ((srb - w,) * br if run == br else
+           tuple((7 * dl) % (srb - w + 1) for dl in range(br)))
+    hop = TR.GatherHop(br, srb, tab, w, cuda_device)
+    assert hop.stage == (run == br)
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    src = torch.randn(3 * srb * 1024, generator=g, dtype=dtype,
+                      device=cuda_device)
+    idx = torch.randint(0, w * 1024, (3 * br, 1024), generator=g,
+                        dtype=torch.int32, device=cuda_device)
+    vals = torch.randn(3 * br, 1024, generator=g, dtype=dtype,
+                       device=cuda_device)
+    for v in (None, vals):
+        T.reset_launch_counts()
+        got = TR.gather_hop(hop, src, idx, v)
+        assert dict(T.LAUNCHES) == {"blockperm": 1}
+        assert torch.equal(got, TR.blockperm_plain(src, idx, v,
+                                                   **hop.kwargs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k10_takes_unaligned_views_on_card(dtype, cuda_device):
+    """Views at an odd element offset (not 16-byte aligned) give the plain
+    version's result: the wrapper copies them for the kernel's vectors."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    kw = dict(block_rows=8, src_block_rows=8, w0_table=tuple(range(8)),
+              w_rows=1)
+    src = torch.randn(4 * 8 * 1024 + 1, generator=g, dtype=dtype,
+                      device=cuda_device)[1:]
+    idx = torch.randint(0, 1024, (32 * 1024 + 1,), generator=g,
+                        dtype=torch.int32, device=cuda_device)[1:]
+    vals = torch.randn(32 * 1024 + 1, generator=g, dtype=dtype,
+                       device=cuda_device)[1:]
+    idx, vals = idx.view(32, 1024), vals.view(32, 1024)
+    assert src.data_ptr() % 16 and idx.data_ptr() % 16
+    for v in (None, vals):
+        assert torch.equal(TR.blockperm_gather(src, idx, v, **kw),
+                           TR.blockperm_plain(src, idx, v, **kw))
+
+
+OFFS9 = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (-1, 1),
+         (1, -1), (1, 1))
+VALS9 = (6.0, -1.0, -1.0, -1.0, -1.0, -0.5, -0.5, -0.5, -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stencil", ["cross", "9-point"])
+@pytest.mark.parametrize("shape", [(200, 328), (33, 4097), (4099, 130),
+                                   (1, 5), (96, 132)])
+def test_k1_edges_match_plain_on_card(shape, stencil, cuda_device):
+    """K1 across its strip, row-chunk and vector edges against step2_plain
+    on the same card, and a bit-identical repeat."""
+    offs, vals = (KW["offsets"], KW["values"]) if stencil == "cross" else (
+        OFFS9, VALS9)
+    rng = np.random.default_rng(13)
+    d = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(cuda_device) for k in ("x", "r", "p")}
+    coef = T.cg2_coeffs(T.gram2_plain(d["r"], d["p"], offsets=offs,
+                                      values=vals))[0]
+    T.reset_launch_counts()
+    runs = []
+    for fn in (T.grid2d_cg_step2, T.grid2d_cg_step2, T.step2_plain):
+        c = {k: v.clone() for k, v in d.items()}
+        runs.append([t.cpu() for t in fn(c["x"], c["r"], c["p"], coef,
+                                         offsets=offs, values=vals)])
+    assert dict(T.LAUNCHES) == {"step2": 2}
+    k1, k2, ref = runs
+    assert all(torch.equal(a, b) for a, b in zip(k1, k2))
+    for have, want in zip(k1[:3], ref[:3]):
+        np.testing.assert_allclose(have.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+    bound = gram_bounds(ref[1].numpy(), ref[2].numpy(), offs, vals)
+    np.testing.assert_array_less(
+        np.abs(k1[3].double().numpy() - ref[3].double().numpy()),
+        1e-4 * bound)
+
+
+@pytest.mark.cuda
+def test_sstep_history_on_card(cuda_device):
+    """A 2-D s-step solve(40) on the card (K1 x 20, K2 x 2) against the same
+    schedule driven by the plain versions on the card, entry by entry: each
+    K1 pass returns a fresh Gram vector, whose g[0] the history keeps."""
+    import legionsolvers_tpu_torch as lt
+    from legionsolvers_tpu_torch.entry import build_system
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    hists = []
+    for plain in (False, True):
+        planner = build_system(256, f32, cuda_device)
+        solver = lt.CGSolver(planner)
+        saved = (T.grid2d_cg_step2, T.grid2d_cg_gram2)
+        if plain:
+            T.grid2d_cg_step2, T.grid2d_cg_gram2 = T.step2_plain, T.gram2_plain
+        T.reset_launch_counts()
+        try:
+            hists.append(solver.solve(40).cpu().double().numpy())
+        finally:
+            T.grid2d_cg_step2, T.grid2d_cg_gram2 = saved
+        assert dict(T.LAUNCHES) == ({} if plain else
+                                    {"step2": 20, "gram2": 2})
+    kernel, plain = hists
+    assert len(kernel) == 41 and len(np.unique(kernel)) == 41
+    np.testing.assert_allclose(kernel, plain, rtol=1e-3)
 
 
 def _explicit_coo(name):

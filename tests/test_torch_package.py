@@ -7,6 +7,10 @@
   JAX package's does (the counterparts of test_01/02/03).
 """
 
+import ast
+import dataclasses
+import importlib
+import pathlib
 import subprocess
 import sys
 
@@ -327,3 +331,103 @@ def test_stencil_rmatvec_is_the_transpose(shape):
                                A @ x.reshape(-1), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(op.rmatvec(xt).numpy().reshape(-1),
                                A.T @ x.reshape(-1), rtol=1e-5, atol=1e-5)
+
+
+# Public names of the JAX package the port does not have yet, each with the
+# ROADMAP item that ports it (or why it does not apply to torch).  A name
+# ported later must leave this list.
+DEFERRED = {
+    # ROADMAP item 5, multi-device: the mesh, halo exchange, s-step edge
+    # repair, overlap, sharded host helpers
+    "parallel.mesh": "item 5",
+    "parallel.overlap": "item 5",
+    "parallel.sstep_sharded": "item 5",
+    "core.partition.HaloExchange": "item 5",
+    "core.partition.build_halo_exchange": "item 5",
+    "core.vector.PartitionedVector.sharding": "item 5",
+    "native.bindings.shard_halo_columns": "item 5",
+    "native.bindings.pack_ell_shard": "item 5",
+    # ROADMAP item 1, block systems
+    "parallel.block_fused.block_cg_supported": "item 1",
+    "parallel.block_fused.block_bicgstab_supported": "item 1",
+    "parallel.block_fused.make_block_cg_runner": "item 1",
+    "parallel.block_fused.make_block_bicgstab_runner": "item 1",
+    # ROADMAP item 4, utilities
+    "utils.debug": "item 4",
+    "utils.initialize": "item 4",
+    "utils.io": "item 4",
+    # JAX's pytree protocol (jax.tree_util registration): no torch use
+    "core.vector.PartitionedVector.tree_flatten": "jax only",
+    "core.vector.PartitionedVector.tree_unflatten": "jax only",
+}
+JAX_DIR = pathlib.Path(J.__file__).parent
+
+
+def _public_names(tree):
+    """{name: set of public class-body names or None} of a module's AST:
+    functions, classes (with their methods, assignments and annotated
+    fields) and module-level assignments."""
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            members = None
+            if isinstance(node, ast.ClassDef):
+                members = set()
+                for n in node.body:
+                    if isinstance(n, ast.FunctionDef):
+                        members.add(n.name)
+                    elif isinstance(n, ast.Assign):
+                        members.update(t.id for t in n.targets
+                                       if isinstance(t, ast.Name))
+                    elif isinstance(n, ast.AnnAssign) and isinstance(
+                            n.target, ast.Name):
+                        members.add(n.target.id)
+            out[node.name] = members
+        elif isinstance(node, ast.Assign):
+            out.update((t.id, None) for t in node.targets
+                       if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            out[node.target.id] = None
+    return {k: (None if v is None else {m for m in v
+                                        if not m.startswith("_")})
+            for k, v in out.items() if not k.startswith("_")}
+
+
+def _has_member(cls, name):
+    """An attribute, or a field declared by annotation (dataclass fields
+    and instance attributes a base class announces)."""
+    if hasattr(cls, name):
+        return True
+    if dataclasses.is_dataclass(cls) and name in {
+            f.name for f in dataclasses.fields(cls)}:
+        return True
+    return any(name in getattr(c, "__annotations__", {}) for c in cls.__mro__)
+
+
+def test_public_names_match_jax():
+    """Every public name of every JAX module (read with ast, so no jax is
+    imported for it) exists in the port's module of the same path, except
+    the stated DEFERRED ones, which must still be missing.  The Pallas
+    kernels' modules are the CUDA wrappers' (ops/cuda/) and are held by
+    the kernel tests instead."""
+    missing = set()
+    for f in sorted(JAX_DIR.rglob("*.py")):
+        rel = f.relative_to(JAX_DIR).with_suffix("")
+        if "pallas" in rel.parts:
+            continue
+        mod = ".".join(p for p in rel.parts if p != "__init__")
+        try:
+            m = importlib.import_module(
+                "legionsolvers_tpu_torch" + (f".{mod}" if mod else ""))
+        except ModuleNotFoundError:
+            missing.add(mod)
+            continue
+        for name, members in _public_names(ast.parse(f.read_text())).items():
+            if not hasattr(m, name):
+                missing.add(f"{mod}.{name}")
+            elif members:
+                missing.update(f"{mod}.{name}.{k}" for k in members
+                               if not _has_member(getattr(m, name), k))
+    assert sorted(missing - set(DEFERRED)) == []
+    assert sorted(set(DEFERRED) - missing) == []

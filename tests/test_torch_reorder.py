@@ -300,6 +300,34 @@ def test_cross_space_operator_joins_basis():
     np.testing.assert_array_equal(pl.sol_vectors[0].to_numpy(), x0)
 
 
+@pytest.mark.parametrize("in_basis", [False, True])
+def test_cross_space_rmatvec_is_the_transpose(in_basis):
+    """The cross-basis operator's transpose against scipy's C^T x: in the
+    natural order outside the bases, and permuted by them inside."""
+    n = 4096
+    A = _spd_banded(n, 160, 4, 31)
+    rng = np.random.default_rng(33)
+    k = 3 * n
+    C = (rng.integers(0, n, k), rng.integers(0, n, k), rng.uniform(-1, 1, k))
+    pl = _planner(n, spaces=2)
+    pl.add_row_partitioned_matrix(T.COOMatrix(*A, n, n, options=F64), 0, 0)
+    pl.add_row_partitioned_matrix(T.COOMatrix(*C, n, n, options=F64), 1, 0)
+    op = pl.row_partitioned_matrices[1][0]
+    assert isinstance(op, CrossBasisOperator)
+    x = rng.standard_normal(n)
+    expect = _scipy(*C, n).T @ x
+    if not in_basis:
+        got = op.rmatvec(torch.from_numpy(x)).numpy()
+    else:
+        # the range is space 0 (in its RCM basis), the domain space 1 (none)
+        perm = pl.basis_perms[0]["perm_np"]
+        pl.to_solver_basis()
+        assert op.in_basis
+        got = op.rmatvec(torch.from_numpy(x[perm])).numpy()
+        pl.from_solver_basis()
+    np.testing.assert_allclose(got[:n], expect, rtol=1e-12, atol=1e-12)
+
+
 def test_add_operator_after_basis_raises():
     n = 4096
     pl = _planner(n, _spd_banded(n, 160, 4, 41))

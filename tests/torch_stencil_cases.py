@@ -118,11 +118,12 @@ def gram_np(r, p):
                      (pairs[name] for name in T.GRAM_NAMES)])
 
 
-def gram_bounds(r, p):
+def gram_bounds(r, p, offs=OFFS, vals=VALS):
     """sqrt(<a,a><b,b>) per Gram entry: the scale its rounding error has."""
     r, p = r.astype(np.float64), p.astype(np.float64)
-    Ap, Ar = apply_np(p), apply_np(r)
-    A2p = apply_np(Ap)
+    A = lambda v: apply_np(v, offs, vals)
+    Ap, Ar = A(p), A(r)
+    A2p = A(Ap)
     n2 = {k: (v * v).sum() for k, v in
           {"r": r, "p": p, "Ap": Ap, "Ar": Ar, "A2p": A2p}.items()}
     parts = {"rr": "r r", "pAp": "p Ap", "rAp": "r Ap", "ApAp": "Ap Ap",
