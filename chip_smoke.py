@@ -6,10 +6,11 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
 Two other modes compare trees of the package on one card instead:
 ``--solves [--tree DIR]`` prints, for the package of DIR (default this
 one), 2-D CG's distance from float64 at three sizes, the ms/iter and host
-enqueue ms/iter of the 2-D CG and random-2^20 CG solve(200)s, and the
-host's enqueue time of one K10 call (one JSON line); ``--ab PARENT`` runs
+enqueue ms/iter of the 2-D CG, random-2^20 CG and 3-D CG and BiCGStab
+(7- and 27-point at 256^3) solve(200)s, five runs each, and the host's
+enqueue time of one K10 call (one JSON line); ``--ab PARENT`` runs
 ``--solves`` on PARENT and on this tree, alternating parent, change,
-change, parent, and prints the medians.
+change, parent, and prints the medians and ranges.
 
 Phases (any failure raises, and the exit code is non-zero):
 
@@ -56,9 +57,16 @@ Phases (any failure raises, and the exit code is non-zero):
    exactly 0 near the f32 floor);
 3c. the 3-D kernels: K6a (y, y_dot, pq, update), K6b (xpay_pq) and K7
    (pv, st, update; compensated dots off and on) against their plain
-   versions, 7- and 27-point stencils, at the main-path shape 256^3 and a
-   ragged 37 x 45 x 130, with random halo planes; the bounds of phases 3
-   and 3b;
+   versions, 7- and 27-point stencils (K6a and K7 pv on the reach-1
+   register march, march1) and a reach-2 11-point star (every pass on the
+   generic march3d), at the main-path shape 256^3 and a ragged 37 x 45 x
+   130, with random halo planes; the bounds of phases 3 and 3b.  A
+   torch.profiler trace of one call of each pass shows that the march1
+   passes launch one kernel and no second reduction launch
+   (reduce_partials), and that the march3d passes do launch theirs.  Each
+   march1 kernel's registers, spill bytes and resident blocks per SM
+   (cudaFuncGetAttributes, the occupancy calculator) are printed after
+   the build;
 4c. drive the 3-D CG path, ``entry.build_stencil_system(3 | 4, (256,)*3)``
    -> ``CGSolver``: eager ``step()``s (K6a y_dot), ``solve(200)`` (1 pq +
    200 update + 199 xpay_pq, counted exactly), the same solve again
@@ -77,8 +85,11 @@ Phases (any failure raises, and the exit code is non-zero):
    beat the card's measured copy bandwidth.  ``--profile`` adds a
    ``torch.profiler`` trace of the 2-D BiCGStab solve and of the four 3-D
    solves, last.  The 3-D kernels and the four 3-D solves are timed the
-   same way at 256^3; ``F.conv2d`` and ``F.conv3d`` computing K3's and
-   K6a's y are timed as the library yardstick.  Each kernel's bound is the
+   same way at 256^3, each 3-D kernel logged with its launches per
+   solve(200) and the ms it loses there, launches x (time - bound), and K7
+   pv with compensated dots off, on, on, off (7-, 27-point, reach 2);
+   ``F.conv2d`` and ``F.conv3d`` computing K3's and K6a's y are timed as
+   the library yardstick.  Each kernel's bound is the
    larger of its minimum bytes over the measured copy bandwidth and its
    f32 operations over the card's f32 peak.
 
@@ -216,6 +227,25 @@ BICG3_CSRC = "legionsolvers_tpu_torch/csrc/bicgstab3d.cu"
 BICG3_PALLAS = "legionsolvers_tpu/ops/pallas/bicgstab3d.py"
 BICG3_KERNELS = {"bicg3d_pv": (243, 24), "bicg3d_st": (243, 8),
                  "bicg3d_update": (243, 28)}
+# The passes on the reach-1 register march (march1): each is one launch,
+# its dot folded into its last block; the rest of K6 and K7 keep march3d
+# and a second launch (reduce_partials) for their dots.
+MARCH1_PASSES = ("y3d", "y_dot3d", "pq3d", "update3d", "bicg3d_pv")
+# A reach-2 stencil (the 11-point star with arms of 2 in y and z; |ox| <= 1
+# is the gate's) that phase 3c runs through the generic march3d path
+REACH2 = "reach2"
+REACH2_KW = dict(
+    offsets=((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 0, -1),
+             (0, 1, 0), (0, 0, 1), (0, -2, 0), (0, 0, -2), (0, 2, 0),
+             (0, 0, 2)),
+    values=(7.5, -1.0, -1.0) + (-4.0 / 3.0,) * 4 + (1.0 / 12.0,) * 4)
+# the 3-D solve(200)s of --solves: name -> (solver, -dim)
+SOLVES3 = {"cg3d_7": ("cg", 3), "cg3d_27": ("cg", 4),
+           "bicg3d_7": ("bicg", 3), "bicg3d_27": ("bicg", 4)}
+# launches of each 3-D pass in one solve(200) of the main path's schedule
+SOLVE3_LAUNCHES = {"cg": {"pq3d": 1, "update3d": 200, "xpay_pq3d": 199},
+                   "bicg": {"bicg3d_pv": 200, "bicg3d_st": 200,
+                            "bicg3d_update": 200}}
 NAMES3 = {"y3d": ("y",), "y_dot3d": ("y", "dot"), "pq3d": ("dot",),
           "update3d": ("x", "r", "dot"), "xpay_pq3d": ("p", "dot"),
           "bicg3d_pv": ("p", "v", "rtv"), "bicg3d_st": ("ts", "tt"),
@@ -1226,7 +1256,9 @@ def profile_solve(torch, solver, label, card, wall_ms=None, n_iters=N_ITERS):
 
 def stencil_kw(lt, dim):
     """offsets= and values= of the -dim 3 (7-point) or 4 (27-point)
-    stencil."""
+    stencil, or of REACH2."""
+    if dim == REACH2:
+        return REACH2_KW
     st = lt.laplacian_stencil(dim)
     return dict(offsets=tuple(o for o, _ in st),
                 values=tuple(v for _, v in st))
@@ -1318,16 +1350,17 @@ def dot_operands3(T3, name, d, outs, kw):
 
 def compare_3d_kernels(torch, lt, T3, TB3, device):
     """Phase 3c: K6a (four modes), K6b and K7 (compensated dots off and on)
-    against their plain versions, 7- and 27-point stencils, at 256^3 and a
-    ragged 37 x 45 x 130, with random halo planes.  The bounds of phases 3
-    and 3b.  Returns {(name, dim): max abs error}."""
+    against their plain versions, 7- and 27-point stencils (march1 for K6a
+    and K7 pv) and REACH2 (march3d for all), at 256^3 and a ragged 37 x 45
+    x 130, with random halo planes.  The bounds of phases 3 and 3b.
+    Returns {(name, dim): max abs error}."""
     f64dot = lambda a, b: torch.dot(a.double().reshape(-1),
                                     b.double().reshape(-1)).item()
     nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
     errs = {}
     for shape in (SHAPE3, RAGGED3):
         d = inputs3d(torch, shape, 29, device)
-        for dim in DIMS3:
+        for dim in (*DIMS3, REACH2):
             kw = stencil_kw(lt, dim)
             for name in (*KERNELS3, *BICG3_KERNELS):
                 for comp in ((False, True) if name in BICG3_KERNELS
@@ -1375,6 +1408,82 @@ def compare_3d_kernels(torch, lt, T3, TB3, device):
                            if comp else ")"))
         del d
     return errs
+
+
+def device_kernels(torch, fn):
+    """Names of the CUDA kernels one call of ``fn`` launches, from a
+    torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # a first call makes the wrapper's scratch, outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
+
+
+def check_one_launch_3d(torch, lt, T3, TB3, device):
+    """Phase 3c: the passes of MARCH1_PASSES, with the 7- and 27-point
+    stencils (compensated dots off and on), launch one kernel, a march1
+    kernel, and no reduce_partials; K6b, K7 st and update, and K6a
+    y_dot with REACH2 (march3d) launch theirs, which shows that the trace
+    sees the second launch.  Returns {case: kernel names}."""
+    d = inputs3d(torch, RAGGED3, 31, device)
+    seen, bad = {}, []
+    for dim in (*DIMS3, REACH2):
+        kw = stencil_kw(lt, dim)
+        for name in (*KERNELS3, *BICG3_KERNELS):
+            for comp in ((False, True) if name in BICG3_KERNELS
+                         else (False,)):
+                c = {k: v.clone() for k, v in d.items()}
+                names = device_kernels(
+                    torch, call3d(T3, TB3, name, c, kw, False, comp))
+                case = f"{name} dim {dim} compensated={comp}"
+                seen[case] = names
+                second = any("reduce_partials" in n for n in names)
+                march1 = name in MARCH1_PASSES and dim != REACH2
+                if march1:
+                    ok = (len(names) == 1 and "m1_kernel" in names[0]
+                          and not second)
+                else:
+                    ok = second or name == "y3d"
+                if not ok:
+                    bad.append((case, names))
+    log(f"[check3d] one launch per march1 pass: "
+        + ("yes" if not bad else f"NO: {bad}") + "; e.g. "
+        + "; ".join(f"{k}: {seen[k]}" for k in (
+            "update3d dim 4 compensated=False",
+            "bicg3d_pv dim 3 compensated=True",
+            "xpay_pq3d dim 3 compensated=False")))
+    if bad:
+        raise AssertionError(f"march1 passes with a second launch, or "
+                             f"march3d passes without one: {bad}")
+    return seen
+
+
+def march1_attrs(lib):
+    """{kernel variant: [registers, spill bytes, resident blocks per SM]}
+    of every march1 kernel (cudaFuncGetAttributes and the occupancy
+    calculator on this card)."""
+    import ctypes
+
+    out, res = (ctypes.c_int * 3)(), {}
+    for fn, n, names in (
+            ("ls_stencil3d_m1_attrs", 16,
+             ("y", "y_dot", "pq", "update")),
+            ("ls_bicg3d_pv_m1_attrs", 8, ("pv", "pv compensated"))):
+        for which in range(n):
+            err = getattr(lib, fn)(which, out)
+            if err:
+                raise RuntimeError(f"{fn}({which}): CUDA error {err}")
+            label = (f"{names[which // 4]} "
+                     f"{'star' if which & 2 else 'box'} "
+                     f"{'vec' if which & 1 else 'scalar'}")
+            res[label] = list(out)
+    return res
 
 
 def cg3d_plain(T3):
@@ -1477,8 +1586,7 @@ def cg3d_path(torch, T, lt, device, dim):
         "(history, x max rel): " + ", ".join(
             f"{k} {h:.3g} {xx:.3g}" for k, (h, xx) in env.items()))
 
-    want_after = {"y_dot3d": N_EAGER, "pq3d": 1, "update3d": N_ITERS,
-                  "xpay_pq3d": N_ITERS - 1}
+    want_after = dict(SOLVE3_LAUNCHES["cg"], y_dot3d=N_EAGER)
     want = {k: 2 * v for k, v in want_after.items()}
     want.update(y_dot3d=N_EAGER, y3d=1)
     k_env, t_env = env["kernel"], env["textbook f32"]
@@ -1622,9 +1730,12 @@ def bicg3d_path(torch, T, lt, device, dim):
 def time_3d_kernels(torch, lt, T3, TB3, device, bw, card):
     """Phase 5e.  {(name, dim, compensated): (kernel ms, plain ms)} at
     256^3 over a ring of three input sets (3 x 67 MB per vector against
-    the 50 MB L2), without halo planes, as the main path calls them; and
+    the 50 MB L2), without halo planes, as the main path calls them, each
+    logged with its bound, its launches per solve(200) (SOLVE3_LAUNCHES)
+    and the ms it loses per solve(200), launches x (time - bound); and
     {dim: ms} of F.conv3d computing K6a's y on the same inputs (cuDNN,
     TF32 off), held to the kernel's y."""
+    per_solve = {**SOLVE3_LAUNCHES["cg"], **SOLVE3_LAUNCHES["bicg"]}
     import torch.nn.functional as F
 
     n = SHAPE3[0] * SHAPE3[1] * SHAPE3[2]
@@ -1653,9 +1764,16 @@ def time_3d_kernels(torch, lt, T3, TB3, device, bw, card):
                 sane(f"{name} dim {dim}", times[False], bpe * n, bw)
                 out[name, dim, comp] = (times[False], times[True])
                 gbps = bpe * n / times[False] / 1e6
+                bound = max(bpe * n / bw * 1e3, ops_per_elt(
+                    name, len(kw["offsets"])) * n / F32_PEAK * 1e3)
+                launches = per_solve.get(name, 0)
                 log(f"[time3d] {name:13s} dim {dim} compensated={comp!s:5s} "
-                    f"kernel {times[False]:.4f} ms ({gbps:.1f} GB/s), plain "
-                    f"{times[True]:.4f} ms at 256^3 f32 on {card}")
+                    f"kernel {times[False]:.4f} ms ({gbps:.1f} GB/s, "
+                    f"{100 * bound / times[False]:.1f}% of its "
+                    f"{bound:.4f} ms bound), plain {times[True]:.4f} ms; "
+                    f"{launches} launches per solve({N_ITERS}), "
+                    f"{launches * (times[False] - bound):.1f} ms lost per "
+                    f"solve at 256^3 f32 on {card}")
         w = torch.zeros(1, 1, 3, 3, 3, device=device)
         for (ox, oy, oz), v in zip(kw["offsets"], kw["values"]):
             w[0, 0, 1 + ox, 1 + oy, 1 + oz] = v
@@ -1672,6 +1790,31 @@ def time_3d_kernels(torch, lt, T3, TB3, device, bw, card):
             f"diff from K6a y {err:.3g}) at 256^3 f32 on {card}")
         del ring, conv
     return out, lib
+
+
+def time_pv_turns(torch, lt, T3, TB3, device, card):
+    """Phase 5e.  K7 pv with compensated dots off, on, on, off (CUDA events
+    over a ring of three input sets at 256^3, as in time_3d_kernels), for
+    the 7- and 27-point stencils (march1) and REACH2 (march3d): {dim:
+    [ms per turn]}."""
+    res = {}
+    for dim in (*DIMS3, REACH2):
+        kw = stencil_kw(lt, dim)
+        ring = [inputs3d(torch, SHAPE3, 70 + s, device) for s in range(3)]
+        for d in ring:
+            d["top"] = d["bot"] = None
+        outs = (torch.empty_like(ring[0]["x"]), torch.empty_like(ring[0]["x"]))
+        res[dim] = []
+        for comp in (False, True, True, False):
+            fns = [call3d(T3, TB3, "bicg3d_pv", d, kw, False, comp, out=outs)
+                   for d in ring]
+            k = iter(range(10**9))
+            res[dim].append(event_ms(torch, lambda: fns[next(k) % 3](), 30))
+        log(f"[time3d] bicg3d_pv dim {dim} compensated off, on, on, off: "
+            + ", ".join(f"{t:.4f}" for t in res[dim])
+            + f" ms at 256^3 f32 on {card}")
+        del ring
+    return res
 
 
 def solve_once(torch, solver, n_iters):
@@ -2756,10 +2899,11 @@ def solves(torch, np, T, lt, device, card, reps=5):
     """--solves: for the package this process imports, 2-D CG's distance
     from float64 at N_GRID and ACCURACY_GRIDS (:func:`cg2d_accuracy`);
     ``reps`` timed solve(200)s (:func:`solve_once`, after a warm-up) of the
-    main path's 2-D CG at 4096^2 and of CG on the random 2^20 system; and
-    the host's enqueue time of one K10 call, per hop of one routed matvec
-    (200 calls, no sync between them).  One JSON line."""
-    from legionsolvers_tpu_torch.entry import build_system
+    main path's 2-D CG at 4096^2, of CG on the random 2^20 system and of
+    CG and BiCGStab on the 3-D 7- and 27-point systems at 256^3
+    (SOLVES3); and the host's enqueue time of one K10 call, per hop of one
+    routed matvec (200 calls, no sync between them).  One JSON line."""
+    from legionsolvers_tpu_torch.entry import build_stencil_system, build_system
     from legionsolvers_tpu_torch.ops.cuda import rowperm as RP
 
     out = {"card": card, "tree": os.getcwd(), "accuracy": {
@@ -2767,14 +2911,21 @@ def solves(torch, np, T, lt, device, card, reps=5):
         for n in (N_GRID, *ACCURACY_GRIDS)}}
     rsys = build_explicit(torch, np, lt, "random", device)
     f32 = lt.SolverOptions(entry_dtype=torch.float32)
-    for name, planner in (("cg2d", build_system(N_GRID, f32, device)),
-                          ("random", rsys["planner"])):
-        solver = lt.CGSolver(planner)
+    runs_of = [("cg2d", lambda: lt.CGSolver(build_system(N_GRID, f32,
+                                                         device))),
+               ("random", lambda: lt.CGSolver(rsys["planner"]))]
+    for name, (kind, dim) in SOLVES3.items():
+        solver_cls = lt.CGSolver if kind == "cg" else lt.BiCGStabSolver
+        runs_of.append((name, lambda c=solver_cls, d=dim: c(
+            build_stencil_system(d, SHAPE3, f32, device))))
+    for name, make in runs_of:
+        solver = make()
         runs = [solve_once(torch, solver, N_ITERS)
                 for _ in range(reps + 1)][1:]
         out[name] = {"ms_per_iter": [d / N_ITERS for d, _ in runs],
                      "host_ms_per_iter": [h / N_ITERS for _, h in runs]}
         del solver
+        torch.cuda.empty_cache()
     gop = rsys["planner"].row_partitioned_matrices[0][0].base
     hops = capture_hops(gop, torch.randn(gop.partition.padded_size,
                                          device=device))
@@ -2814,11 +2965,16 @@ def ab_solves(parent, torch):
         runs[label].append(json.loads(proc.stdout.strip().splitlines()[-1]))
     summary = {"card": card_line(), "kind": torch.cuda.get_device_name(0)}
     for label, rs in runs.items():
-        med = lambda f: statistics.median(v for r in rs for v in f(r))
+        pool = lambda f: [v for r in rs for v in f(r)]
+        med = lambda f: statistics.median(pool(f))
         summary[label] = {
             f"{name} {key}": med(lambda r: r[name][key])
-            for name in ("cg2d", "random")
+            for name in ("cg2d", "random", *SOLVES3)
             for key in ("ms_per_iter", "host_ms_per_iter")}
+        summary[label].update({
+            f"{name} ms_per_iter range": [
+                f(pool(lambda r: r[name]["ms_per_iter"])) for f in (min, max)]
+            for name in ("cg2d", "random", *SOLVES3)})
         summary[label]["gather_hop_host_us"] = med(
             lambda r: r["gather_hop_host_us"])
     log(json.dumps(summary))
@@ -2891,11 +3047,15 @@ def main() -> int:
             log(f"[ptxas] {line.strip()}")
     if "--solves" in argv:
         return solves(torch, np, T, lt, device, card)
+    m1_attrs = march1_attrs(build.load_library())
+    log("[march1] registers, spill bytes, resident blocks per SM: "
+        + "; ".join(f"{k} {v}" for k, v in m1_attrs.items()))
 
     errs = compare_kernels(torch, T, device)
     errs["step2"] = max(errs["step2"], compare_step2_edges(torch, T, device))
     errs.update(compare_bicg_kernels(torch, T, TB, device))
     errs3 = compare_3d_kernels(torch, lt, T3, TB3, device)
+    one_launch3 = check_one_launch_3d(torch, lt, T3, TB3, device)
     errs_h = compare_probe_kernels(torch, device)
     mark("phases 3-3h")
     counts, results, solver = main_path(torch, np, T, lt, device)
@@ -2947,6 +3107,7 @@ def main() -> int:
     conv2d_ms = library_2d(torch, T, device, card)
     ktimes3, conv3d_ms = time_3d_kernels(torch, lt, T3, TB3, device, bw,
                                          card)
+    pv_turns = time_pv_turns(torch, lt, T3, TB3, device, card)
     solve3 = time_3d_solves(torch, T3, TB3, solvers3, bw, card)
     ktimes_x, solve_x, extra_x = time_explicit(torch, np, lt, systems,
                                                solvers_x, bw, card, device)
@@ -3041,9 +3202,11 @@ def main() -> int:
               "kernel3d_ms": {f"{m} dim {d} compensated={c}": t
                               for (m, d, c), t in ktimes3.items()},
               "conv3d_ms": conv3d_ms, "conv2d_ms": conv2d_ms,
+              "pv_turns_ms": {str(k): v for k, v in pv_turns.items()},
               "solve3d_ms_per_iter": {f"{k} dim {d} {lab}": t for
                                       (k, d, lab), t in solve3.items()},
-              "paths3d": results3,
+              "paths3d": results3, "march1_attrs": m1_attrs,
+              "kernels3d_launched": one_launch3,
               "explicit": {
                   "systems": {k: {"host_s": v["host_s"], "nnz": v["nnz"],
                                   "geometry": v["geometry"]}

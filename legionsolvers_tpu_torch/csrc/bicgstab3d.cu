@@ -16,24 +16,45 @@
 // against 24 B (pv: reads r, p, v, r~; writes p', v'), 8 B (st: reads r, v)
 // and 28 B (update: reads r, v, x, p, r~; writes x', r') per element.
 //
-// Design: the 2-D passes of bicgstab2d.cu on the 3-D march of common.cuh
-// (see stencil3d.cu): each block owns a 32 x 32 (y, z) tile, marches along x
-// over 16 planes, and forms the pass's operand (p' for pv, s for st and
-// update) as each plane of its window is loaded, so A is applied once to
-// it and s, t never reach device memory.  Halo planes are the combined
-// operand's own.  Dots go to a [blocks, k] scratch and a second launch sums
-// them in a fixed order; under `compensated` the exact f32 products are
-// accumulated in double and rounded to f32 once.  Buffers: pv writes p' and
-// v' to buffers other than p and v, update writes r' to a buffer other than
-// r (neighbouring blocks read p, v and r through their windows); x is
-// updated in place, because x, p and r~ are read only at the thread's own
-// element.
+// Design: the 2-D passes of bicgstab2d.cu on the 3-D marches of common.cuh
+// (see stencil3d.cu).  Each forms the pass's operand (p' for pv, s for st
+// and update) as each plane of its window is loaded, so A is applied once
+// to it and s, t never reach device memory.  Halo planes are the combined
+// operand's own.  Under `compensated` the exact f32 products of the dots
+// are accumulated in double and rounded to f32 once.
+//
+// - pv with a reach-1 stencil (the 7- and 27-point paths) runs on march1,
+//   the register march of K6a: a 16 x 128 (y, z) tile per block of 8
+//   warps, 2 rows x 4 columns per thread, the outputs of three planes in
+//   registers.  r, p and v of the next plane's window are loaded into
+//   registers at the top of a step, while this plane is computed, and
+//   p' = r + beta (p - omega v) is formed and stored into the spare
+//   shared slot after it; r~ of the points being finished is loaded
+//   before the plane's terms are summed.  One __syncthreads() per plane;
+//   terms unrolled at compile time, as for K6a: the 7-point Laplacian in
+//   its stencil order, the 3 x 3 x 3 box plane by plane (x - 1, x, x + 1)
+//   and in (oy, oz) order within a plane; geometry set by (X, Y, Z) alone.  <r~, v'> is folded into the last
+//   block (a device counter, float or, compensated, double partials summed
+//   in block order): one launch, the same bits from run to run.  What
+//   bounds it: bytes, with the window's y halo (2 rows per 16, three
+//   vectors) read again, mostly from L2, and 2 extra planes per 32-plane
+//   chunk.
+// - pv with reach 2..8, st and update run on march3d: a 32 x 32 tile over
+//   16 planes, the terms from shared memory, loads and compute not
+//   overlapped, dots to a [blocks, k] scratch summed in a fixed order by a
+//   second launch.
+//
+// Buffers: pv writes p' and v' to buffers other than p and v, update
+// writes r' to a buffer other than r (neighbouring blocks read p, v and r
+// through their windows); x is updated in place, because x, p and r~ are
+// read only at the thread's own element.
 
 #include "common.cuh"
 
 namespace {
 
-// K7 pv: p' = r + beta (p - omega v) on the window, v' = A p', <r~, v'>.
+// K7 pv on march3d (reach 2..8): p' = r + beta (p - omega v) on the
+// window, v' = A p', <r~, v'>.
 template <bool COMP>
 __global__ void __launch_bounds__(LS_THREADS)
 bicg3d_pv_kernel(const float* __restrict__ r, const float* __restrict__ p,
@@ -58,6 +79,52 @@ bicg3d_pv_kernel(const float* __restrict__ r, const float* __restrict__ p,
             acc[0] += (T)rt[idx] * (T)ax;
           });
   block_partials(acc, partials);
+}
+
+// K7 pv on march1 (reach 1).  partials: one T per block; counter: zero
+// before the launch, zero after it.
+template <bool COMP, bool STAR, bool VEC>
+__global__ void __launch_bounds__(LS_M1_THREADS, LS_M1_MIN_BLOCKS)
+bicg3d_pv_m1_kernel(const float* __restrict__ r, const float* __restrict__ p,
+                    const float* __restrict__ v, const float* __restrict__ rt,
+                    const float* __restrict__ beta_p,
+                    const float* __restrict__ omega_p,
+                    const float* __restrict__ top,
+                    const float* __restrict__ bot, float* __restrict__ p_out,
+                    float* __restrict__ v_out, float* __restrict__ dot,
+                    typename Acc<COMP>::T* __restrict__ partials,
+                    unsigned* __restrict__ counter, M1Geom g, Box27 w) {
+  using T = typename Acc<COMP>::T;
+  __shared__ __align__(16) float win[3 * kM1Slot];
+  const M1Place pl = m1_place(g);
+  const int ncol = m1_ncol(pl, g.Z);
+  M1FormPlane<VEC> plane{r, p, v, top, bot, *beta_p, *omega_p, g, pl};
+  float et[LS_M1_RY][4];  // r~ of the points being finished
+  T acc = 0;
+  auto at = [&](int gx, int k) {
+    return ((size_t)gx * g.Y + pl.gy[k]) * g.Z + pl.gz;
+  };
+  march1<STAR>(
+      win, pl, w, plane,
+      [&](int gx) {
+#pragma unroll
+        for (int k = 0; k < LS_M1_RY; ++k)
+          m1_load4<VEC>(et[k], rt, at(gx, k), pl.gy[k] < g.Y ? ncol : 0);
+      },
+      [&](int gx, const float (&c)[LS_M1_RY][4],
+          const float (&ax)[LS_M1_RY][4]) {
+#pragma unroll
+        for (int k = 0; k < LS_M1_RY; ++k) {
+          if (pl.gy[k] >= g.Y || !ncol) continue;
+          const size_t o = at(gx, k);
+          m1_store4<VEC>(p_out, o, c[k], ncol);
+          m1_store4<VEC>(v_out, o, ax[k], ncol);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j < ncol) acc += (T)et[k][j] * (T)ax[k][j];
+        }
+      });
+  m1_fold<T>(acc, partials, counter, dot);
 }
 
 // K7 st: s = r - alpha v on the window, t = A s; <t, s>, <t, t>.
@@ -114,23 +181,81 @@ bicg3d_update_kernel(const float* __restrict__ r, const float* __restrict__ v,
   block_partials(acc, partials);
 }
 
+template <bool COMP>
+int launch_pv_m1(bool star, bool vec, unsigned blocks, cudaStream_t stream,
+                 const float* r, const float* p, const float* v,
+                 const float* rt, const float* beta, const float* omega,
+                 const float* top, const float* bot, float* p_out,
+                 float* v_out, float* dot, void* partials, unsigned* counter,
+                 const M1Geom& g, const Box27& w) {
+  using T = typename Acc<COMP>::T;
+#define LS_PV_LAUNCH(ST, VE)                                                 \
+  bicg3d_pv_m1_kernel<COMP, ST, VE><<<blocks, LS_M1_THREADS, 0, stream>>>(  \
+      r, p, v, rt, beta, omega, top, bot, p_out, v_out, dot, (T*)partials,  \
+      counter, g, w)
+  if (star) {
+    if (vec) LS_PV_LAUNCH(true, true); else LS_PV_LAUNCH(true, false);
+  } else {
+    if (vec) LS_PV_LAUNCH(false, true); else LS_PV_LAUNCH(false, false);
+  }
+#undef LS_PV_LAUNCH
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// partials: scratch of K doubles per block (only K floats per block are
-// used without `compensated`).  dot: K floats.  Halo planes may be null
-// (zeros).
+// Registers, spill bytes and resident blocks per SM of K7 pv's march1
+// variant `which` = 4 compensated + 2 star + vec.
+int ls_bicg3d_pv_m1_attrs(int which, int* out) {
+  switch (which) {
+#define LS_PV_ATTR(C, ST, VE) \
+  case 4 * C + 2 * ST + VE: return m1_attrs(bicg3d_pv_m1_kernel<C, ST, VE>, out);
+    LS_PV_ATTR(0, 0, 0) LS_PV_ATTR(0, 0, 1) LS_PV_ATTR(0, 1, 0)
+    LS_PV_ATTR(0, 1, 1) LS_PV_ATTR(1, 0, 0) LS_PV_ATTR(1, 0, 1)
+    LS_PV_ATTR(1, 1, 0) LS_PV_ATTR(1, 1, 1)
+#undef LS_PV_ATTR
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// partials: scratch of capacity doubles (K per block; only K floats per
+// block are used without `compensated`).  counter (pv): one unsigned, zero
+// before the first launch (a reach-1 launch leaves it zero); launches on
+// one (partials, counter) pair must be ordered (one stream).  dot: K
+// floats.  Halo planes may be null (zeros).
 int ls_bicg3d_pv(const float* r, const float* p, const float* v,
                  const float* rt, const float* beta, const float* omega,
                  const float* top, const float* bot, float* p_out,
-                 float* v_out, float* dot, void* partials, int X, int Y,
-                 int Z, int compensated, const LsStencil3* st,
-                 void* stream_ptr) {
+                 float* v_out, float* dot, void* partials, int capacity,
+                 unsigned* counter, int X, int Y, int Z, int compensated,
+                 const LsStencil3* st, void* stream_ptr) {
   if (!valid3(st, X, Y, Z)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int h = reach3_yz(*st);
+  if (h <= 1) {
+    M1Geom g;
+    const long long blocks = m1_geometry(X, Y, Z, &g);
+    if (!counter || blocks > capacity) return (int)cudaErrorInvalidValue;
+    Box27 w;
+    const bool star = m1_box(*st, &w);
+    const bool vec = Z % 4 == 0 && m1_aligned(r) && m1_aligned(p) &&
+                     m1_aligned(v) && m1_aligned(rt) && m1_aligned(top) &&
+                     m1_aligned(bot) && m1_aligned(p_out) &&
+                     m1_aligned(v_out);
+    const unsigned nb = (unsigned)blocks;
+    if (compensated)
+      return launch_pv_m1<true>(star, vec, nb, stream, r, p, v, rt, beta,
+                                omega, top, bot, p_out, v_out, dot, partials,
+                                counter, g, w);
+    return launch_pv_m1<false>(star, vec, nb, stream, r, p, v, rt, beta,
+                               omega, top, bot, p_out, v_out, dot, partials,
+                               counter, g, w);
+  }
   const dim3 grid = march_grid(X, Y, Z), block(LS_THREADS_X, LS_THREADS_Y);
-  const int h = reach3_yz(*st), nblocks = grid.x * grid.y * grid.z;
+  const int nblocks = grid.x * grid.y * grid.z;
+  if (nblocks > capacity) return (int)cudaErrorInvalidValue;
   if (compensated) {
     bicg3d_pv_kernel<true><<<grid, block, 0, stream>>>(
         r, p, v, rt, beta, omega, top, bot, p_out, v_out, (double*)partials,

@@ -19,7 +19,11 @@ and update, as in the JAX passes.  ``compensated`` sums the dots from exact
 f32 products in float64 and rounds once.
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
-launches its kernel or raises.  Every CUDA launch adds one to
+launches its kernel or raises.  pv with a reach-1 stencil runs the
+register march of K6a (``march1`` in ``csrc/common.cuh``, its dot folded
+into the last block, scratch from :func:`~.stencil3d.march_scratch`);
+pv with reach 2..8, st and update run ``march3d`` and a second launch.
+Every CUDA launch adds one to
 :data:`~.stencil2d.LAUNCHES` under ``bicg3d_pv``, ``bicg3d_st`` or
 ``bicg3d_update``.  Buffers as in ``bicgstab2d.py``: p' and v' go to
 ``out`` (a pair) and r' to ``out`` (one buffer), fresh buffers when
@@ -42,6 +46,7 @@ from .stencil3d import (
     blocks3d,
     check_planes,
     check_volume,
+    march_scratch,
     supports3d,
 )
 
@@ -125,11 +130,12 @@ def bicg3d_pv(r, p, v, rt, beta, omega, pn_top=None, pn_bot=None, *,
         out = (torch.empty_like(p), torch.empty_like(v))
     b, om = _dev_scalars(beta, 1, dev), _dev_scalars(omega, 1, dev)
     dot = torch.empty(1, dtype=torch.float32, device=dev)
+    partials, capacity, counter = march_scratch(dev, X, Y, Z)
     st = _stencil3_struct(offsets, values)
     _launch("bicg3d_pv", "ls_bicg3d_pv", (
         _ptr(r), _ptr(p), _ptr(v), _ptr(rt), _ptr(b), _ptr(om),
         _ptr(pn_top), _ptr(pn_bot), _ptr(out[0]), _ptr(out[1]), _ptr(dot),
-        _ptr(_scratch(X, Y, Z, 1, dev)), X, Y, Z, int(compensated),
+        _ptr(partials), capacity, _ptr(counter), X, Y, Z, int(compensated),
         ctypes.byref(st),
     ), dev)
     return out[0], out[1], dot[0]

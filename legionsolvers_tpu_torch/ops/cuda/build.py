@@ -120,7 +120,7 @@ def load_library() -> ctypes.CDLL:
     from .rowperm import PIECE_ROWS
     from .stencil2d import MAX_TERMS, STEP2_COLS, STEP2_MIN_ROWS, TILE
     from .stencil2d import STEP2_WARPS
-    from .stencil3d import CHUNK_X, _Stencil3
+    from .stencil3d import CHUNK_X, _Stencil3, march1_geometry
     from .vpu_probe import C as VPU_C, TR as VPU_TR
 
     lib = ctypes.CDLL(str(build()))
@@ -132,9 +132,12 @@ def load_library() -> ctypes.CDLL:
         "ls_bicg_pv": [_P] * 10 + [_I, _I, _I, _P, _P],
         "ls_bicg_st": [_P] * 5 + [_I, _I, _I, _P, _P],
         "ls_bicg_update": [_P] * 10 + [_I, _I, _I, _P, _P],
-        "ls_stencil3d": [_I] + [_P] * 9 + [_I] * 3 + [_P, _P],
+        "ls_stencil3d": [_I] + [_P] * 9 + [_I, _P] + [_I] * 3 + [_P, _P],
         "ls_xpay_pq3d": [_P] * 8 + [_I] * 3 + [_P, _P],
-        "ls_bicg3d_pv": [_P] * 12 + [_I] * 4 + [_P, _P],
+        "ls_bicg3d_pv": [_P] * 12 + [_I, _P] + [_I] * 4 + [_P, _P],
+        "ls_stencil3d_m1_attrs": [_I, _P],
+        "ls_bicg3d_pv_m1_attrs": [_I, _P],
+        "ls_march1_blocks": [_I] * 3,
         "ls_bicg3d_st": [_P] * 7 + [_I] * 4 + [_P, _P],
         "ls_bicg3d_update": [_P] * 12 + [_I] * 4 + [_P, _P],
         "ls_dia2d": [_I] + [_P] * 5 + [_I] + [_P] * 3 + [_I, _I, _P],
@@ -169,6 +172,10 @@ def load_library() -> ctypes.CDLL:
             or lib.ls_stencil3_size() != ctypes.sizeof(_Stencil3)):
         raise RuntimeError("csrc/common.cuh and ops/cuda/stencil3d.py "
                            "disagree on LS_CHUNK_X or the LsStencil3 layout")
+    for shape in ((256, 256, 256), (37, 45, 130), (1, 1, 1), (999, 17, 5)):
+        if lib.ls_march1_blocks(*shape) != march1_geometry(*shape)[2]:
+            raise RuntimeError("csrc/common.cuh and ops/cuda/stencil3d.py "
+                               f"disagree on march1's blocks at {shape}")
     if (lib.ls_dia_max_terms() != MAX_DIA_TERMS
             or lib.ls_dia_elems() != DIA_ELEMS):
         raise RuntimeError("csrc/dia2d.cu and ops/cuda/dia2d.py disagree on "

@@ -15,7 +15,12 @@ grid3d_cg_xpay_pq      p = r + b p_old, <p, A p>           xpay_pq3d_plain
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches its kernel (built at first use, see ``build.py``) or raises; it
-never falls back.  Every CUDA launch adds one to
+never falls back.  K6a has two marches (``csrc/common.cuh``): reach-1
+stencils (the 7- and 27-point ones) run the register march ``march1``,
+whose launch geometry :func:`march1_geometry` mirrors and whose dot is
+folded into its last block; stencils of reach 2..8 run ``march3d`` with a
+second launch summing its partial dots.  Both take their scratch from
+:func:`march_scratch`.  Every CUDA launch adds one to
 :data:`~.stencil2d.LAUNCHES` under the pass's name with a ``3d`` suffix
 (``y3d``, ``y_dot3d``, ``pq3d``, ``update3d``, ``xpay_pq3d``).
 
@@ -48,11 +53,16 @@ from .stencil2d import (
     _launch,
     _on_cuda,
     _ptr,
+    _raw_stream,
     _check_grid,
     mode_outputs,
 )
 
-CHUNK_X = 16  # x-planes one block marches over (csrc: LS_CHUNK_X)
+CHUNK_X = 16  # x-planes one march3d block marches over (csrc: LS_CHUNK_X)
+M1_TY = 16  # march1: tile rows (csrc: LS_M1_TY)
+M1_TZ = 128  # march1: tile columns (LS_M1_TZ)
+M1_MIN_CHUNK = 8  # march1: x chunks no more than X / 8 (LS_M1_MIN_CHUNK)
+M1_TARGET_BLOCKS = 264  # march1: blocks a launch aims at (LS_M1_TARGET_BLOCKS)
 
 
 # ===========================================================================
@@ -140,8 +150,46 @@ def _stencil3_struct(offsets, values) -> _Stencil3:
 
 
 def blocks3d(X: int, Y: int, Z: int) -> int:
-    """Blocks of a 3-D launch: (y, z) tiles times x chunks."""
+    """Blocks of a march3d launch: (y, z) tiles times x chunks."""
     return -(-Z // TILE) * -(-Y // TILE) * -(-X // CHUNK_X)
+
+
+def march1_geometry(X: int, Y: int, Z: int):
+    """(tiles, planes per chunk, blocks) of a march1 launch, as
+    ``m1_geometry`` in csrc/common.cuh computes them: M1_TY x M1_TZ (y, z)
+    tiles, and x chunks aiming at M1_TARGET_BLOCKS blocks, no more of them
+    than chunks of M1_MIN_CHUNK planes would need.  A function of the
+    shape alone."""
+    tiles = -(-Z // M1_TZ) * -(-Y // M1_TY)
+    chunks = max(1, min(M1_TARGET_BLOCKS // tiles, -(-X // M1_MIN_CHUNK)))
+    chunk = -(-X // chunks)
+    return tiles, chunk, tiles * -(-X // chunk)
+
+
+def march_scratch_size(X: int, Y: int, Z: int) -> int:
+    """float64 entries of :func:`march_scratch`'s partials: one per block
+    of the larger of the two marches' launches."""
+    return max(blocks3d(X, Y, Z), march1_geometry(X, Y, Z)[2])
+
+
+_MARCH_SCRATCH = {}
+
+
+def march_scratch(device, X: int, Y: int, Z: int):
+    """(partials, capacity, counter) of K6a's and K7 pv's launches on an
+    [X, Y, Z] volume: float64 partial dots with room for either march's
+    blocks (march3d writes floats, or doubles under ``compensated``), and
+    march1's last-block counter (zero between launches).  Made once per
+    (device, stream, X, Y, Z): launches on one stream are ordered, so
+    they can share them."""
+    key = (device, _raw_stream(device), X, Y, Z)
+    scratch = _MARCH_SCRATCH.get(key)
+    if scratch is None:
+        capacity = march_scratch_size(X, Y, Z)
+        scratch = (torch.empty(capacity, dtype=torch.float64, device=device),
+                   capacity, torch.zeros(1, dtype=torch.int32, device=device))
+        _MARCH_SCRATCH[key] = scratch
+    return scratch
 
 
 def check_volume(name, t, shape=None):
@@ -185,13 +233,12 @@ def _stencil3d_call(x, halo_top, halo_bot, extra=(), *, offsets, values,
         xv, rv, alpha = extra
         alpha = _dev_scalars(alpha, 1, dev)
     dot = torch.empty(1, dtype=torch.float32, device=dev)
-    partials = torch.empty(blocks3d(X, Y, Z), dtype=torch.float32,
-                           device=dev)
+    partials, capacity, counter = march_scratch(dev, X, Y, Z)
     st = _stencil3_struct(offsets, values)
     _launch(mode + "3d", "ls_stencil3d", (
         _MODES[mode], _ptr(x), _ptr(halo_top), _ptr(halo_bot), _ptr(y),
         _ptr(xv), _ptr(rv), _ptr(alpha), _ptr(dot), _ptr(partials),
-        X, Y, Z, ctypes.byref(st),
+        capacity, _ptr(counter), X, Y, Z, ctypes.byref(st),
     ), dev)
     if mode == "y":
         return (y,)

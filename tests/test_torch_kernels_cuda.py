@@ -6,9 +6,13 @@ tests/test_torch_kernels_cuda.py`` (tests/conftest.py imports jax).
 Tolerances are those of ``torch_stencil_cases.py``; the BiCGStab passes
 use test_torch_bicgstab2d.py's (elementwise 2e-5 * max|ref|, dots rtol
 2e-4), and their compensated dots must match the plain versions' float64
-sums to 4e-7.  The 3-D passes (K6, K7) run at a ragged (37, 45, 130) with
-random halo planes: elementwise 2e-5 * max|ref|, dots 1e-4 of their
-Cauchy-Schwarz scale sqrt(<a,a><b,b>) (chip_smoke.py's bounds).  The
+sums to 4e-7.  The 3-D passes (K6, K7) run at a ragged (37, 45, 130) and at
+the edges of the reach-1 register march's tiles, chunks and 16-byte
+vectors, with random halo planes, for the 7-point, 27-point, a ten-term
+box and a reach-2 stencil: elementwise 2e-5 * max|ref|, dots 1e-4 of their
+Cauchy-Schwarz scale sqrt(<a,a><b,b>) (chip_smoke.py's bounds); the passes
+that fold their dot into the last block repeat bit for bit, also with two
+shapes alternating on one stream.  The
 explicit-sparse kernels K8, K9 and K10 round every product and sum as their
 plain versions do, so they must match them bit for bit (K8's dot: 1e-5 of
 its Cauchy-Schwarz scale).  K1 (step2) is also held at the edges of its
@@ -110,22 +114,46 @@ def test_bicgstab_kernel_matches_plain_on_card(kernel, shape, compensated,
 # ---------------------------------------------------------------------------
 
 SHAPE3 = (37, 45, 130)
+# The reach-1 register march (march1: 16 x 128 (y, z) tiles, x chunks of
+# at least 8 planes, 16-byte vectors where Z % 4 == 0) at its edges: Z % 4
+# in {1, 2, 3} (scalar loads), a second z tile holding one vector, X shorter
+# than one chunk and X = 1, Y and Z below one tile.
+SHAPES3 = [SHAPE3, (40, 50, 260), (6, 20, 129), (1, 9, 131), (20, 15, 60)]
+# Stencils: the 7-point star (-dim 3) and 27-point box (-dim 4) of the
+# solves; ten terms of the box with random weights (the box path with zero
+# weights); the 11-point star with arms of 2 in y and z (reach 2: march3d).
+STENCILS3 = [3, 4, "box10", "reach2"]
 
 
 def _kw3(dim):
     import legionsolvers_tpu_torch as lt
 
+    if dim == "box10":
+        rng = np.random.default_rng(10)
+        box = [(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+               for c in (-1, 0, 1)]
+        pick = rng.choice(len(box), 10, replace=False)
+        return dict(offsets=tuple(box[k] for k in pick),
+                    values=tuple(float(v) for v in rng.uniform(-1, 1, 10)))
+    if dim == "reach2":
+        offs = [(0, 0, 0), (-1, 0, 0), (1, 0, 0)]
+        vals = [7.5, -1.0, -1.0]
+        for k in (1, 2):
+            for o in (-k, k):
+                offs += [(0, o, 0), (0, 0, o)]
+                vals += [-4.0 / 3.0 if k == 1 else 1.0 / 12.0] * 2
+        return dict(offsets=tuple(offs), values=tuple(vals))
     stencil = lt.laplacian_stencil(dim)
     return dict(offsets=tuple(o for o, _ in stencil),
                 values=tuple(v for _, v in stencil))
 
 
-def _state3d(seed):
+def _state3d(seed, shape=SHAPE3):
     rng = np.random.default_rng(seed)
-    d = {k: rng.standard_normal(SHAPE3).astype(np.float32)
+    d = {k: rng.standard_normal(shape).astype(np.float32)
          for k in ("x", "r", "p", "v", "rt")}
     for k in ("top", "bot"):
-        d[k] = rng.standard_normal(SHAPE3[1:]).astype(np.float32)
+        d[k] = rng.standard_normal(shape[1:]).astype(np.float32)
     return d
 
 
@@ -197,12 +225,14 @@ def _norm_bound(d, *arrays):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim", [3, 4])
+@pytest.mark.parametrize("shape", SHAPES3)
+@pytest.mark.parametrize("dim", STENCILS3)
 @pytest.mark.parametrize("mode", ["y", "y_dot", "pq", "update", "xpay_pq"])
-def test_stencil3d_kernel_matches_plain_on_card(mode, dim, cuda_device):
+def test_stencil3d_kernel_matches_plain_on_card(mode, dim, shape,
+                                                cuda_device):
     """K6a (four modes) and K6b against their plain versions on the card,
-    at a ragged shape with random halo planes."""
-    d = _state3d(13)
+    at ragged shapes and march1's edges, with random halo planes."""
+    d = _state3d(13, shape)
     T.reset_launch_counts()
     got = _stencil3d(mode, d, cuda_device, dim)
     assert dict(T.LAUNCHES) == {f"{mode}3d": 1}
@@ -212,19 +242,87 @@ def test_stencil3d_kernel_matches_plain_on_card(mode, dim, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES3)
 @pytest.mark.parametrize("compensated", [False, True])
-@pytest.mark.parametrize("dim", [3, 4])
+@pytest.mark.parametrize("dim", STENCILS3)
 @pytest.mark.parametrize("kernel", ["pv", "st", "update"])
 def test_bicgstab3d_kernel_matches_plain_on_card(kernel, dim, compensated,
-                                                 cuda_device):
-    """K7 against its plain versions on the card, with halo planes."""
-    d = _state3d(17)
+                                                 shape, cuda_device):
+    """K7 against its plain versions on the card, with halo planes, at
+    ragged shapes and march1's edges; compensated pv's dot within 4e-7 of
+    the float64 sum of its f32 operands."""
+    d = _state3d(17, shape)
     T.reset_launch_counts()
     got = _bicg3d(kernel, d, cuda_device, dim, compensated)
     assert dict(T.LAUNCHES) == {f"bicg3d_{kernel}": 1}
     ref = _bicg3d(kernel, d, cuda_device, dim, compensated, plain=True)
     arrays = [v for v in ref.values() if v.ndim]
     _compare3d(got, ref, 26.0 * _norm_bound(d, *arrays))
+    if compensated and kernel == "pv":
+        exact = (d["rt"].astype(np.float64) * got["v"]).sum()
+        assert abs(got["rtv"] - exact) <= 4e-7 * abs(exact)
+
+
+def _march1_passes(device, shape, dim, seed):
+    """Closures for the passes that take the march scratch (K6a's modes
+    with a dot, K7 pv with f32 and compensated dots) on fixed inputs; each
+    returns its outputs as one flat float32 tensor."""
+    t, kw = _tensors(_state3d(seed, shape), device), _kw3(dim)
+    h = (t["top"], t["bot"])
+    outs = (torch.empty_like(t["p"]), torch.empty_like(t["v"]))
+
+    def update():
+        x, r = t["x"].clone(), t["r"].clone()
+        return T3.grid3d_cg_update(t["p"], x, r, 0.3, *h, **kw)
+
+    def pv(comp):
+        return lambda: TB3.bicg3d_pv(t["r"], t["p"], t["v"], t["rt"], 0.37,
+                                     0.41, *h, compensated=comp, out=outs,
+                                     **kw)
+
+    fns = {"y_dot": lambda: T3.grid3d_stencil_matvec(t["x"], *h,
+                                                     with_dot=True, **kw),
+           "pq": lambda: (T3.grid3d_cg_pq(t["p"], *h, **kw),),
+           "update": update, "pv": pv(False), "pv_comp": pv(True)}
+    flat = lambda res: torch.cat([a.reshape(-1).clone() for a in res])
+    return {k: (lambda f=f: flat(f())) for k, f in fns.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [3, 4])
+def test_march1_repeats_bit_for_bit_on_card(dim, cuda_device):
+    """Launches in a row on one stream, and two shapes alternating, give
+    the same bits: the last block's counter is back at zero after each
+    launch, and the geometry (so the dots' sum order) depends on the shape
+    alone."""
+    a = _march1_passes(cuda_device, (64, 64, 256), dim, 3)
+    b = _march1_passes(cuda_device, SHAPE3, dim, 4)
+    for name in a:
+        first = [a[name](), a[name](), b[name](), a[name](), b[name]()]
+        torch.cuda.synchronize()
+        for i, j in ((0, 1), (0, 3), (2, 4)):
+            assert torch.equal(first[i].view(torch.int32),
+                               first[j].view(torch.int32)), (name, i, j)
+
+
+@pytest.mark.cuda
+def test_march1_geometry_and_residency_on_card(cuda_device):
+    """The library's march1 block counts equal the Python mirror's, and
+    every march1 variant fits two blocks per SM (its launch bounds)."""
+    import ctypes
+
+    from legionsolvers_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    for shape in [(256, 256, 256), (512, 512, 512), *SHAPES3, (1, 1, 1)]:
+        assert lib.ls_march1_blocks(*shape) == \
+            T3.march1_geometry(*shape)[2], shape
+    out = (ctypes.c_int * 3)()
+    for fn, n in (("ls_stencil3d_m1_attrs", 16),
+                  ("ls_bicg3d_pv_m1_attrs", 8)):
+        for which in range(n):
+            assert getattr(lib, fn)(which, out) == 0, (fn, which)
+            assert out[2] >= 2, (fn, which, list(out))
 
 
 # ---------------------------------------------------------------------------

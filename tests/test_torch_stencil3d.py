@@ -214,6 +214,51 @@ def test_wrappers_refuse(bad):
         call()
 
 
+@pytest.mark.parametrize("shape,want", [
+    ((256, 256, 256), (32, 32, 256)),  # 2 x 16 tiles, 8 chunks of 32
+    ((37, 45, 130), (6, 8, 30)),       # 2 x 3 tiles, 5 chunks of 8
+    ((1, 1, 1), (1, 1, 1)),
+])
+def test_march1_geometry(shape, want, monkeypatch):
+    """(tiles, planes per chunk, blocks) of the reach-1 register march, from
+    the shape alone: no property of a card is read."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("march1's geometry read a device property")
+
+    for name in ("get_device_properties", "device_count",
+                 "get_device_name", "is_available"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    assert T3.march1_geometry(*shape) == want
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((256, 256, 256), 1024),  # march3d's 8 x 8 tiles x 16 chunks
+    ((37, 45, 130), 30),
+    ((1, 1, 1), 1),
+])
+def test_march_scratch_size(shape, want):
+    """The partials scratch holds the larger launch of the two marches."""
+    assert T3.march_scratch_size(*shape) == want
+    assert want >= T3.march1_geometry(*shape)[2]
+    assert want >= T3.blocks3d(*shape)
+
+
+def test_march1_chunks_cover_the_volume():
+    """Over many shapes: the chunks cover [0, X) with no empty chunk, are
+    no more than chunks of M1_MIN_CHUNK planes would need, and the launch
+    aims at M1_TARGET_BLOCKS (more only where the tiles alone are more)."""
+    rng = np.random.default_rng(0)
+    shapes = [tuple(int(v) for v in rng.integers(1, 700, 3))
+              for _ in range(300)] + [(1, 1, 5000), (5000, 1, 1), (8, 8, 8)]
+    for X, Y, Z in shapes:
+        tiles, chunk, blocks = T3.march1_geometry(X, Y, Z)
+        assert tiles == -(-Y // T3.M1_TY) * -(-Z // T3.M1_TZ)
+        n = blocks // tiles
+        assert blocks == tiles * n and (n - 1) * chunk < X <= n * chunk
+        assert n <= -(-X // T3.M1_MIN_CHUNK)
+        assert blocks <= max(T3.M1_TARGET_BLOCKS, tiles)
+
+
 def test_xpay_writes_out_and_keeps_p_old():
     kw = stencil_kw(4)
     d = make_inputs((4, 8, 16), seed=8)
