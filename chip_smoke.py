@@ -7,8 +7,9 @@ Two other modes compare trees of the package on one card instead:
 ``--solves [--tree DIR]`` prints, for the package of DIR (default this
 one), 2-D CG's distance from float64 at three sizes, the ms/iter and host
 enqueue ms/iter of the 2-D CG, random-2^20 CG and 3-D CG and BiCGStab
-(7- and 27-point at 256^3) solve(200)s, five runs each, and the host's
-enqueue time of one K10 call (one JSON line); ``--ab PARENT`` runs
+(7- and 27-point at 256^3) solve(200)s, five runs each, the host's
+enqueue time of one K10 call, and the times of K6b and K7 st (compensated
+dots off and on) at 256^3 (one JSON line); ``--ab PARENT`` runs
 ``--solves`` on PARENT and on this tree, alternating parent, change,
 change, parent, and prints the medians and ranges.
 
@@ -57,10 +58,11 @@ Phases (any failure raises, and the exit code is non-zero):
    exactly 0 near the f32 floor);
 3c. the 3-D kernels: K6a (y, y_dot, pq, update), K6b (xpay_pq) and K7
    (pv, st, update; compensated dots off and on) against their plain
-   versions, 7- and 27-point stencils (K6a and K7 pv on the reach-1
-   register march, march1) and a reach-2 11-point star (every pass on the
-   generic march3d), at the main-path shape 256^3 and a ragged 37 x 45 x
-   130, with random halo planes; the bounds of phases 3 and 3b.  A
+   versions, 7- and 27-point stencils (K6a, K6b, K7 pv and st on the
+   reach-1 register march, march1) and a reach-2 11-point star (every
+   pass on the generic march3d), at the main-path shape 256^3 and a
+   ragged 37 x 45 x 130, with random halo planes; the bounds of phases 3
+   and 3b.  A
    torch.profiler trace of one call of each pass shows that the march1
    passes launch one kernel and no second reduction launch
    (reduce_partials), and that the march3d passes do launch theirs.  Each
@@ -156,7 +158,8 @@ and the roofline probes):
    at 4096^2 non-increasing within GMRES_SLACK and ||b - Ax||^2 through
    ``planner.matvec`` within 1e-3 of its last entry; f64 GMRES and PCG at
    256^2 on the card against the CPU (rtol 1e-8);
-5h. K12 (against ``torch.add(x, 1.0, out=y)``) and K11 at 256 trips with
+5h. K12 against ``torch.add(x, 1.0, out=y)`` in turns (K12, add, add,
+   K12; medians and ranges of 12 such rings) and K11 at 256 trips with
    CUDA events, K11's three rates from the marginal time of its long and
    short chains, the triads, the measured K1 compute ceiling (resident
    only if its apparent rate is over 1.5x the stream's) and each CLI run's
@@ -228,9 +231,14 @@ BICG3_PALLAS = "legionsolvers_tpu/ops/pallas/bicgstab3d.py"
 BICG3_KERNELS = {"bicg3d_pv": (243, 24), "bicg3d_st": (243, 8),
                  "bicg3d_update": (243, 28)}
 # The passes on the reach-1 register march (march1): each is one launch,
-# its dot folded into its last block; the rest of K6 and K7 keep march3d
-# and a second launch (reduce_partials) for their dots.
-MARCH1_PASSES = ("y3d", "y_dot3d", "pq3d", "update3d", "bicg3d_pv")
+# its dots folded into its last block; K7 update keeps march3d and a
+# second launch (reduce_partials) for its dots.
+MARCH1_PASSES = ("y3d", "y_dot3d", "pq3d", "update3d", "xpay_pq3d",
+                 "bicg3d_pv", "bicg3d_st")
+# each march1 pass's label in march1_attrs
+M1_ATTR_NAMES = {"y3d": "y", "y_dot3d": "y_dot", "pq3d": "pq",
+                 "update3d": "update", "xpay_pq3d": "xpay_pq",
+                 "bicg3d_pv": "pv", "bicg3d_st": "st"}
 # A reach-2 stencil (the 11-point star with arms of 2 in y and z; |ox| <= 1
 # is the gate's) that phase 3c runs through the generic march3d path
 REACH2 = "reach2"
@@ -1410,27 +1418,42 @@ def compare_3d_kernels(torch, lt, T3, TB3, device):
     return errs
 
 
+TRACE_TAKES = 4  # traces of one call before device_kernels gives up
+
+
 def device_kernels(torch, fn):
     """Names of the CUDA kernels one call of ``fn`` launches, from a
-    torch.profiler trace."""
+    torch.profiler trace.  The trace ends with torch's spin kernel on the
+    same stream: a trace that lacks it lost device events (the tracer has
+    returned no device event at all for some short traces), so it is
+    taken again, at most TRACE_TAKES times, and never read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # a first call makes the wrapper's scratch, outside the trace
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA})
+    for _ in range(TRACE_TAKES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+        sentinel = {n for n in names if "spin_kernel" in n}
+        if sentinel:
+            return sorted(names - sentinel)
+        log(f"[check3d] a trace lost its device events "
+            f"(saw {sorted(names)}); taking it again")
+    raise AssertionError(f"{TRACE_TAKES} traces of one call lost their "
+                         "device events")
 
 
 def check_one_launch_3d(torch, lt, T3, TB3, device):
     """Phase 3c: the passes of MARCH1_PASSES, with the 7- and 27-point
     stencils (compensated dots off and on), launch one kernel, a march1
-    kernel, and no reduce_partials; K6b, K7 st and update, and K6a
-    y_dot with REACH2 (march3d) launch theirs, which shows that the trace
-    sees the second launch.  Returns {case: kernel names}."""
+    kernel, and no reduce_partials; K7 update, and every pass with a dot
+    on REACH2 (march3d), launch theirs, which shows that the trace sees
+    the second launch.  Returns {case: kernel names}."""
     d = inputs3d(torch, RAGGED3, 31, device)
     seen, bad = {}, []
     for dim in (*DIMS3, REACH2):
@@ -1455,9 +1478,9 @@ def check_one_launch_3d(torch, lt, T3, TB3, device):
     log(f"[check3d] one launch per march1 pass: "
         + ("yes" if not bad else f"NO: {bad}") + "; e.g. "
         + "; ".join(f"{k}: {seen[k]}" for k in (
-            "update3d dim 4 compensated=False",
-            "bicg3d_pv dim 3 compensated=True",
-            "xpay_pq3d dim 3 compensated=False")))
+            "xpay_pq3d dim 4 compensated=False",
+            "bicg3d_st dim 3 compensated=True",
+            "bicg3d_update dim 3 compensated=False")))
     if bad:
         raise AssertionError(f"march1 passes with a second launch, or "
                              f"march3d passes without one: {bad}")
@@ -1474,7 +1497,9 @@ def march1_attrs(lib):
     for fn, n, names in (
             ("ls_stencil3d_m1_attrs", 16,
              ("y", "y_dot", "pq", "update")),
-            ("ls_bicg3d_pv_m1_attrs", 8, ("pv", "pv compensated"))):
+            ("ls_xpay_pq3d_m1_attrs", 4, ("xpay_pq",)),
+            ("ls_bicg3d_pv_m1_attrs", 8, ("pv", "pv compensated")),
+            ("ls_bicg3d_st_m1_attrs", 8, ("st", "st compensated"))):
         for which in range(n):
             err = getattr(lib, fn)(which, out)
             if err:
@@ -1732,14 +1757,16 @@ def time_3d_kernels(torch, lt, T3, TB3, device, bw, card):
     256^3 over a ring of three input sets (3 x 67 MB per vector against
     the 50 MB L2), without halo planes, as the main path calls them, each
     logged with its bound, its launches per solve(200) (SOLVE3_LAUNCHES)
-    and the ms it loses per solve(200), launches x (time - bound); and
-    {dim: ms} of F.conv3d computing K6a's y on the same inputs (cuDNN,
-    TF32 off), held to the kernel's y."""
+    and the ms it loses per solve(200), launches x (time - bound); {dim:
+    ms} of F.conv3d computing K6a's y on the same inputs (cuDNN, TF32
+    off), held to the kernel's y; and {(name, dim, compensated): ms} of
+    the kernels in CUDA graphs (:func:`graph_ms`: device time alone, for
+    passes near the host's enqueue time of their wrappers)."""
     per_solve = {**SOLVE3_LAUNCHES["cg"], **SOLVE3_LAUNCHES["bicg"]}
     import torch.nn.functional as F
 
     n = SHAPE3[0] * SHAPE3[1] * SHAPE3[2]
-    out, lib = {}, {}
+    out, lib, graphs = {}, {}, {}
     for dim in DIMS3:
         kw = stencil_kw(lt, dim)
         ring = [inputs3d(torch, SHAPE3, 50 + s, device) for s in range(3)]
@@ -1761,8 +1788,12 @@ def time_3d_kernels(torch, lt, T3, TB3, device, bw, card):
                     k = iter(range(10**9))
                     times[plain] = event_ms(
                         torch, lambda: fns[next(k) % 3](), 6 if plain else 30)
+                    if not plain:
+                        g_ms = graph_ms(torch, fns, 30)
                 sane(f"{name} dim {dim}", times[False], bpe * n, bw)
+                sane(f"{name} dim {dim} (graph)", g_ms, bpe * n, bw)
                 out[name, dim, comp] = (times[False], times[True])
+                graphs[name, dim, comp] = g_ms
                 gbps = bpe * n / times[False] / 1e6
                 bound = max(bpe * n / bw * 1e3, ops_per_elt(
                     name, len(kw["offsets"])) * n / F32_PEAK * 1e3)
@@ -1770,7 +1801,8 @@ def time_3d_kernels(torch, lt, T3, TB3, device, bw, card):
                 log(f"[time3d] {name:13s} dim {dim} compensated={comp!s:5s} "
                     f"kernel {times[False]:.4f} ms ({gbps:.1f} GB/s, "
                     f"{100 * bound / times[False]:.1f}% of its "
-                    f"{bound:.4f} ms bound), plain {times[True]:.4f} ms; "
+                    f"{bound:.4f} ms bound; in CUDA graphs {g_ms:.4f} ms, "
+                    f"{100 * bound / g_ms:.1f}%), plain {times[True]:.4f} ms; "
                     f"{launches} launches per solve({N_ITERS}), "
                     f"{launches * (times[False] - bound):.1f} ms lost per "
                     f"solve at 256^3 f32 on {card}")
@@ -1789,7 +1821,7 @@ def time_3d_kernels(torch, lt, T3, TB3, device, bw, card):
         log(f"[time3d] F.conv3d y dim {dim}: {lib[dim]:.4f} ms (max abs "
             f"diff from K6a y {err:.3g}) at 256^3 f32 on {card}")
         del ring, conv
-    return out, lib
+    return out, lib, graphs
 
 
 def time_pv_turns(torch, lt, T3, TB3, device, card):
@@ -2594,6 +2626,7 @@ K12_PALLAS = "scripts/probe_roofline.py:83"
 K11_REPS = (1, 2, 16)
 K11_ROW_REPS = 256   # loop trips per launch in the kernels line's K11 rows
 K12_SHAPES = ((16384, 4096), RAGGED)
+K12_RINGS = 12  # phase 5h: rings of K12, torch.add, torch.add, K12
 CLI_2D = ["-dim", "2", "-nx", "4096", "-ny", "4096"]
 CLI_3D = ["-dim", "3", "-nx", "256", "-ny", "256", "-nz", "256"]
 CLI_RUNS = {
@@ -2784,24 +2817,36 @@ def cli_checks(torch, np, lt, device):
 
 def time_probes(torch, device, card):
     """Phase 5h, first part.  K12 at 16384 x 4096 (kernel, plain and
-    ``torch.add(x, 1.0, out=y)``), and K11's three kinds at K11_ROW_REPS
-    trips (kernel and plain), CUDA events.  Returns ({row: (ms, plain ms,
-    library ms)}, K12's bytes/s)."""
+    ``torch.add(x, 1.0, out=y)``, kernel and add in turns), and K11's three
+    kinds at K11_ROW_REPS trips (kernel and plain), CUDA events.  Returns
+    ({row: (ms, plain ms, library ms)}, K12's bytes/s, {"k12" | "add":
+    ms of each turn})."""
     from legionsolvers_tpu_torch.ops.cuda import copy_probe as K12
     from legionsolvers_tpu_torch.ops.cuda import vpu_probe as K11
+
+    import statistics
 
     g = torch.Generator(device=device).manual_seed(72)
     x = torch.rand(K12_SHAPES[0], generator=g, device=device)
     y = torch.empty_like(x)
+    # K12 and torch.add in turns, K12, add, add, K12, over K12_RINGS rings
+    fns = {"k12": lambda: K12.copy_probe(x, out=y),
+           "add": lambda: torch.add(x, 1.0, out=y)}
+    turns = {"k12": [], "add": []}
+    for _ in range(K12_RINGS):
+        for name in ("k12", "add", "add", "k12"):
+            turns[name].append(event_ms(torch, fns[name], 20))
+    med = {k: statistics.median(v) for k, v in turns.items()}
     out = {"copy_probe": (
-        event_ms(torch, lambda: K12.copy_probe(x, out=y), 20),
-        event_ms(torch, lambda: K12.copy_plain(x, out=y), 20),
-        event_ms(torch, lambda: torch.add(x, 1.0, out=y), 20))}
+        med["k12"], event_ms(torch, lambda: K12.copy_plain(x, out=y), 20),
+        med["add"])}
     k12_bw = 8 * x.numel() / (out["copy_probe"][0] * 1e-3)
-    log(f"[time] K12 copy_probe {out['copy_probe'][0]:.4f} ms "
-        f"({k12_bw / 1e9:.1f} GB/s), plain {out['copy_probe'][1]:.4f}, "
-        f"torch.add {out['copy_probe'][2]:.4f} ms at {K12_SHAPES[0]} on "
-        f"{card}")
+    span = lambda v: f"{min(v):.4f}-{max(v):.4f}"
+    log(f"[time] K12 copy_probe median {med['k12']:.4f} ms (range "
+        f"{span(turns['k12'])}; {k12_bw / 1e9:.1f} GB/s), torch.add median "
+        f"{med['add']:.4f} ms (range {span(turns['add'])}), in turns over "
+        f"{K12_RINGS} rings; plain {out['copy_probe'][1]:.4f} ms at "
+        f"{K12_SHAPES[0]} on {card}")
     del x, y
     t = torch.randn(K11.TR, K11.C, generator=g, device=device)
     for kind in K11.KINDS:
@@ -2812,7 +2857,7 @@ def time_probes(torch, device, card):
         log(f"[time] K11 {kind} at {K11_ROW_REPS} trips: kernel "
             f"{out[f'chain_{kind}'][0]:.4f} ms, plain "
             f"{out[f'chain_{kind}'][1]:.4f} ms on {card}")
-    return out, k12_bw
+    return out, k12_bw, turns
 
 
 def time_rates(torch, device, card):
@@ -2895,14 +2940,46 @@ def profile_cli(torch, lt, label, argv, card):
 
 # -- --solves and --ab: two trees of the package on the same card ------------
 
+# the 3-D passes --solves times at 256^3: name -> compensated settings
+AB_PASSES3 = {"xpay_pq3d": (False,), "bicg3d_st": (False, True)}
+
+
+def time_ab_passes(torch, lt, device):
+    """--solves: {"<pass> dim <d> compensated=<c>": {"events": ms,
+    "graph": ms}} of AB_PASSES3 at 256^3, timed as :func:`time_3d_kernels`
+    times them (CUDA events, and CUDA graphs, over a ring of three input
+    sets, no halo planes)."""
+    from legionsolvers_tpu_torch.ops.cuda import bicgstab3d as TB3
+    from legionsolvers_tpu_torch.ops.cuda import stencil3d as T3
+
+    res = {}
+    for dim in DIMS3:
+        kw = stencil_kw(lt, dim)
+        ring = [inputs3d(torch, SHAPE3, 50 + s, device) for s in range(3)]
+        for d in ring:
+            d["top"] = d["bot"] = None
+            d["o1"] = torch.empty_like(d["x"])
+        for name, comps in AB_PASSES3.items():
+            for comp in comps:
+                fns = [call3d(T3, TB3, name, d, kw, False, comp, out=d["o1"])
+                       for d in ring]
+                k = iter(range(10**9))
+                res[f"{name} dim {dim} compensated={comp}"] = {
+                    "events": event_ms(torch, lambda: fns[next(k) % 3](), 30),
+                    "graph": graph_ms(torch, fns, 30)}
+        del ring
+    return res
+
+
 def solves(torch, np, T, lt, device, card, reps=5):
     """--solves: for the package this process imports, 2-D CG's distance
     from float64 at N_GRID and ACCURACY_GRIDS (:func:`cg2d_accuracy`);
     ``reps`` timed solve(200)s (:func:`solve_once`, after a warm-up) of the
     main path's 2-D CG at 4096^2, of CG on the random 2^20 system and of
     CG and BiCGStab on the 3-D 7- and 27-point systems at 256^3
-    (SOLVES3); and the host's enqueue time of one K10 call, per hop of one
-    routed matvec (200 calls, no sync between them).  One JSON line."""
+    (SOLVES3); the host's enqueue time of one K10 call, per hop of one
+    routed matvec (200 calls, no sync between them); and the times of
+    AB_PASSES3 (:func:`time_ab_passes`).  One JSON line."""
     from legionsolvers_tpu_torch.entry import build_stencil_system, build_system
     from legionsolvers_tpu_torch.ops.cuda import rowperm as RP
 
@@ -2938,6 +3015,7 @@ def solves(torch, np, T, lt, device, card, reps=5):
         out["gather_hop_host_us"].append(
             (time.perf_counter() - t0) / 200 * 1e6)
         torch.cuda.synchronize()
+    out["kernels3d_ms"] = time_ab_passes(torch, lt, device)
     log(json.dumps(out))
     return 0
 
@@ -2977,6 +3055,12 @@ def ab_solves(parent, torch):
             for name in ("cg2d", "random", *SOLVES3)})
         summary[label]["gather_hop_host_us"] = med(
             lambda r: r["gather_hop_host_us"])
+        # each pass's [median, min, max] ms with events and in graphs
+        summary[label]["kernels3d_ms"] = {
+            f"{k} {how}": [med(lambda r: [r["kernels3d_ms"][k][how]]),
+                           *(f(pool(lambda r: [r["kernels3d_ms"][k][how]]))
+                             for f in (min, max))]
+            for k in rs[0]["kernels3d_ms"] for how in ("events", "graph")}
     log(json.dumps(summary))
     return 0
 
@@ -2985,14 +3069,15 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
                nflops, bw, library_ms=None):
     """One entry of the kernels line: bound_ms is the larger of the bytes
     over the measured copy bandwidth and the f32 operations over the card's
-    f32 peak."""
+    f32 peak; pct_of_bound is bound_ms over ms."""
     t_bytes = nbytes / bw * 1e3
     t_ops = nflops / F32_PEAK * 1e3
+    bound = max(t_bytes, t_ops)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "pct_of_bound": 100 * bound / ms}
 
 
 def main() -> int:
@@ -3094,7 +3179,7 @@ def main() -> int:
     cli_checked = cli_checks(torch, np, lt, device)
     mark("phase 4h")
     bw_copy = copy_bandwidth(torch, device)
-    ptimes, k12_bw = time_probes(torch, device, card)
+    ptimes, k12_bw, k12_turns = time_probes(torch, device, card)
     # K12 may stream faster than copy_: every bound takes the faster one
     bw = max(bw_copy, k12_bw)
     log(f"[time] copy bandwidth {bw_copy / 1e9:.1f} GB/s (copy_), "
@@ -3105,8 +3190,8 @@ def main() -> int:
     bsolve_ms = time_bicg_solve(torch, TB, bsolver, bw, card)
     solve_ms = time_solve(torch, T, solver, bw, card)
     conv2d_ms = library_2d(torch, T, device, card)
-    ktimes3, conv3d_ms = time_3d_kernels(torch, lt, T3, TB3, device, bw,
-                                         card)
+    ktimes3, conv3d_ms, gtimes3 = time_3d_kernels(torch, lt, T3, TB3,
+                                                  device, bw, card)
     pv_turns = time_pv_turns(torch, lt, T3, TB3, device, card)
     solve3 = time_3d_solves(torch, T3, TB3, solvers3, bw, card)
     ktimes_x, solve_x, extra_x = time_explicit(torch, np, lt, systems,
@@ -3160,17 +3245,26 @@ def main() -> int:
         for m, (line, bpe) in BICG_KERNELS.items()]
     for dim in DIMS3:
         pts, terms = {3: (7, 7), 4: (27, 27)}[dim]
-        kernels += [kernel_row(
+        rows3 = [kernel_row(
             f"{KERNELS3[m][0]} [{m}] {pts}-point", CSRC3,
             f"{PALLAS3}:{KERNELS3[m][1]}", launches[m, dim], errs3[m, dim],
             *ktimes3[m, dim, False], KERNELS3[m][2] * n3,
             ops_per_elt(m, terms) * n3, bw,
             conv3d_ms[dim] if m == "y3d" else None) for m in KERNELS3]
-        kernels += [kernel_row(
+        rows3 += [kernel_row(
             f"{m} {pts}-point", BICG3_CSRC, f"{BICG3_PALLAS}:{line}",
             launches[m, dim], errs3[m, dim], *ktimes3[m, dim, False],
             bpe * n3, ops_per_elt(m, terms) * n3, bw)
             for m, (line, bpe) in BICG3_KERNELS.items()]
+        # device time alone, and the main path's march1 variant's registers
+        # (vector loads: Z % 4 == 0)
+        for m, row in zip((*KERNELS3, *BICG3_KERNELS), rows3):
+            row["graph_ms"] = gtimes3[m, dim, False]
+            if m in MARCH1_PASSES:
+                regs, spill, _ = m1_attrs[
+                    f"{M1_ATTR_NAMES[m]} {'star' if dim == 3 else 'box'} vec"]
+                row.update(registers=regs, spill_bytes=spill)
+        kernels += rows3
     for m, (row, source, replaces) in KERNELS_X.items():
         ms, plain_ms, nbytes, nflops, lib_ms = ktimes_x[m]
         kernels.append(kernel_row(f"{row} [{m}]", source, replaces,
@@ -3193,6 +3287,7 @@ def main() -> int:
         ptimes["copy_probe"][2]))
     report = {"card": card, "kind": kind, "build_s": build_s,
               "copy_GBps": bw_copy / 1e9, "k12_GBps": k12_bw / 1e9,
+              "k12_turns_ms": k12_turns,
               "bound_GBps": bw / 1e9, "kernels": kernels,
               "bicg_kernel_ms": {m: {str(c): t for c, t in v.items()}
                                  for m, v in btimes.items()},
@@ -3201,6 +3296,8 @@ def main() -> int:
               "bicgstab_path": bresults,
               "kernel3d_ms": {f"{m} dim {d} compensated={c}": t
                               for (m, d, c), t in ktimes3.items()},
+              "kernel3d_graph_ms": {f"{m} dim {d} compensated={c}": t
+                                    for (m, d, c), t in gtimes3.items()},
               "conv3d_ms": conv3d_ms, "conv2d_ms": conv2d_ms,
               "pv_turns_ms": {str(k): v for k, v in pv_turns.items()},
               "solve3d_ms_per_iter": {f"{k} dim {d} {lab}": t for

@@ -23,24 +23,28 @@
 // operand's own.  Under `compensated` the exact f32 products of the dots
 // are accumulated in double and rounded to f32 once.
 //
-// - pv with a reach-1 stencil (the 7- and 27-point paths) runs on march1,
-//   the register march of K6a: a 16 x 128 (y, z) tile per block of 8
-//   warps, 2 rows x 4 columns per thread, the outputs of three planes in
-//   registers.  r, p and v of the next plane's window are loaded into
-//   registers at the top of a step, while this plane is computed, and
-//   p' = r + beta (p - omega v) is formed and stored into the spare
-//   shared slot after it; r~ of the points being finished is loaded
+// - pv and st with a reach-1 stencil (the 7- and 27-point paths) run on
+//   march1, the register march of K6a: a 16 x 128 (y, z) tile per block
+//   of 8 warps, 2 rows x 4 columns per thread, the outputs of three planes
+//   in registers.  The vectors of the next plane's window (r, p and v for
+//   pv; r and v for st) are loaded into registers at the top of a step,
+//   while this plane is computed, and the operand (p' = r + beta (p -
+//   omega v), or s = r - alpha v) is formed and stored into the spare
+//   shared slot after it; pv's r~ of the points being finished is loaded
 //   before the plane's terms are summed.  One __syncthreads() per plane;
 //   terms unrolled at compile time, as for K6a: the 7-point Laplacian in
 //   its stencil order, the 3 x 3 x 3 box plane by plane (x - 1, x, x + 1)
-//   and in (oy, oz) order within a plane; geometry set by (X, Y, Z) alone.  <r~, v'> is folded into the last
-//   block (a device counter, float or, compensated, double partials summed
-//   in block order): one launch, the same bits from run to run.  What
-//   bounds it: bytes, with the window's y halo (2 rows per 16, three
-//   vectors) read again, mostly from L2, and 2 extra planes per 32-plane
-//   chunk.
-// - pv with reach 2..8, st and update run on march3d: a 32 x 32 tile over
-//   16 planes, the terms from shared memory, loads and compute not
+//   and in (oy, oz) order within a plane; geometry set by (X, Y, Z) alone.
+//   The dots (pv's <r~, v'>; st's <t, s> and <t, t>) are folded into the
+//   last block (a device counter, float or, compensated, double partials
+//   summed in block order; st sums in double in both modes): one launch,
+//   the same bits from run to run.
+//   What bounds them: bytes, with the window's y halo (2 rows per 16, of
+//   each vector) read again, mostly from L2, and 2 extra planes per
+//   32-plane chunk; st, which stores nothing, moves 8 B per element and
+//   has one plane's loads in flight per block to cover their latency.
+// - pv and st with reach 2..8, and update, run on march3d: a 32 x 32 tile
+//   over 16 planes, the terms from shared memory, loads and compute not
 //   overlapped, dots to a [blocks, k] scratch summed in a fixed order by a
 //   second launch.
 //
@@ -81,6 +85,23 @@ bicg3d_pv_kernel(const float* __restrict__ r, const float* __restrict__ p,
   block_partials(acc, partials);
 }
 
+// pv's operand p' = r + beta (p - omega v), and st's s = r - alpha v.
+struct PvForm {
+  static constexpr int NV = 3;  // r, p, v
+  float beta, omega;
+  __device__ __forceinline__ float operator()(const float (&x)[3]) const {
+    return x[0] + beta * (x[1] - omega * x[2]);
+  }
+};
+
+struct StForm {
+  static constexpr int NV = 2;  // r, v
+  float alpha;
+  __device__ __forceinline__ float operator()(const float (&x)[2]) const {
+    return x[0] - alpha * x[1];
+  }
+};
+
 // K7 pv on march1 (reach 1).  partials: one T per block; counter: zero
 // before the launch, zero after it.
 template <bool COMP, bool STAR, bool VEC>
@@ -98,7 +119,8 @@ bicg3d_pv_m1_kernel(const float* __restrict__ r, const float* __restrict__ p,
   __shared__ __align__(16) float win[3 * kM1Slot];
   const M1Place pl = m1_place(g);
   const int ncol = m1_ncol(pl, g.Z);
-  M1FormPlane<VEC> plane{r, p, v, top, bot, *beta_p, *omega_p, g, pl};
+  M1FormPlane<PvForm, VEC> plane{{r, p, v}, top, bot,
+                                 PvForm{*beta_p, *omega_p}, g, pl};
   float et[LS_M1_RY][4];  // r~ of the points being finished
   T acc = 0;
   auto at = [&](int gx, int k) {
@@ -127,7 +149,8 @@ bicg3d_pv_m1_kernel(const float* __restrict__ r, const float* __restrict__ p,
   m1_fold<T>(acc, partials, counter, dot);
 }
 
-// K7 st: s = r - alpha v on the window, t = A s; <t, s>, <t, t>.
+// K7 st on march3d (reach 2..8): s = r - alpha v on the window, t = A s;
+// <t, s>, <t, t>.
 template <bool COMP>
 __global__ void __launch_bounds__(LS_THREADS)
 bicg3d_st_kernel(const float* __restrict__ r, const float* __restrict__ v,
@@ -148,6 +171,49 @@ bicg3d_st_kernel(const float* __restrict__ r, const float* __restrict__ v,
             acc[1] += (T)ax * (T)ax;
           });
   block_partials(acc, partials);
+}
+
+// K7 st on march1 (reach 1): nothing stored; <t, s> and <t, t> folded into
+// the last block.  Both modes sum in double (partials: two doubles per
+// block; counter as for pv): with `compensated` the exact products, else
+// the products rounded to f32, as K1 sums its Gram.  A thread here sums
+// 256 products of a 32-plane chunk; an f32 running sum that long strayed
+// further from float64 than the reductions of textbook f32 BiCGStab do,
+// and on the 7-point system, where f32 BiCGStab amplifies a dot's rounding
+// ~1e3-fold per iteration, left float64 one iteration earlier than they.
+template <bool COMP, bool STAR, bool VEC>
+__global__ void __launch_bounds__(LS_M1_THREADS, LS_M1_MIN_BLOCKS)
+bicg3d_st_m1_kernel(const float* __restrict__ r, const float* __restrict__ v,
+                    const float* __restrict__ alpha_p,
+                    const float* __restrict__ top,
+                    const float* __restrict__ bot, float* __restrict__ dot,
+                    double* __restrict__ partials,
+                    unsigned* __restrict__ counter, M1Geom g, Box27 w) {
+  __shared__ __align__(16) float win[3 * kM1Slot];
+  const M1Place pl = m1_place(g);
+  const int ncol = m1_ncol(pl, g.Z);
+  M1FormPlane<StForm, VEC> plane{{r, v}, top, bot, StForm{*alpha_p}, g, pl};
+  double acc[2] = {0, 0};
+  // the product in f32 (rounded alone) or exact in double
+  auto mul = [](float a, float b) {
+    return COMP ? (double)a * (double)b : (double)__fmul_rn(a, b);
+  };
+  march1<STAR>(
+      win, pl, w, plane, [](int) {},
+      [&](int, const float (&c)[LS_M1_RY][4],
+          const float (&ax)[LS_M1_RY][4]) {
+#pragma unroll
+        for (int k = 0; k < LS_M1_RY; ++k) {
+          if (pl.gy[k] >= g.Y) continue;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j < ncol) {
+              acc[0] += mul(ax[k][j], c[k][j]);
+              acc[1] += mul(ax[k][j], ax[k][j]);
+            }
+        }
+      });
+  m1_fold<double, 2>(acc, partials, counter, dot);
 }
 
 // K7 update: s and t = A s as in st; x += alpha p + omega s (in place);
@@ -202,12 +268,30 @@ int launch_pv_m1(bool star, bool vec, unsigned blocks, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
+template <bool COMP>
+int launch_st_m1(bool star, bool vec, unsigned blocks, cudaStream_t stream,
+                 const float* r, const float* v, const float* alpha,
+                 const float* top, const float* bot, float* dot,
+                 void* partials, unsigned* counter, const M1Geom& g,
+                 const Box27& w) {
+#define LS_ST_LAUNCH(ST, VE)                                                \
+  bicg3d_st_m1_kernel<COMP, ST, VE><<<blocks, LS_M1_THREADS, 0, stream>>>( \
+      r, v, alpha, top, bot, dot, (double*)partials, counter, g, w)
+  if (star) {
+    if (vec) LS_ST_LAUNCH(true, true); else LS_ST_LAUNCH(true, false);
+  } else {
+    if (vec) LS_ST_LAUNCH(false, true); else LS_ST_LAUNCH(false, false);
+  }
+#undef LS_ST_LAUNCH
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Registers, spill bytes and resident blocks per SM of K7 pv's march1
-// variant `which` = 4 compensated + 2 star + vec.
+// Registers, spill bytes and resident blocks per SM of K7 pv's and st's
+// march1 variant `which` = 4 compensated + 2 star + vec.
 int ls_bicg3d_pv_m1_attrs(int which, int* out) {
   switch (which) {
 #define LS_PV_ATTR(C, ST, VE) \
@@ -220,11 +304,23 @@ int ls_bicg3d_pv_m1_attrs(int which, int* out) {
   }
 }
 
-// partials: scratch of capacity doubles (K per block; only K floats per
-// block are used without `compensated`).  counter (pv): one unsigned, zero
-// before the first launch (a reach-1 launch leaves it zero); launches on
-// one (partials, counter) pair must be ordered (one stream).  dot: K
-// floats.  Halo planes may be null (zeros).
+int ls_bicg3d_st_m1_attrs(int which, int* out) {
+  switch (which) {
+#define LS_ST_ATTR(C, ST, VE) \
+  case 4 * C + 2 * ST + VE: return m1_attrs(bicg3d_st_m1_kernel<C, ST, VE>, out);
+    LS_ST_ATTR(0, 0, 0) LS_ST_ATTR(0, 0, 1) LS_ST_ATTR(0, 1, 0)
+    LS_ST_ATTR(0, 1, 1) LS_ST_ATTR(1, 0, 0) LS_ST_ATTR(1, 0, 1)
+    LS_ST_ATTR(1, 1, 0) LS_ST_ATTR(1, 1, 1)
+#undef LS_ST_ATTR
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// partials: scratch of 2 * capacity doubles (the K <= 2 dots of each of up
+// to capacity blocks; floats without `compensated`, but for st on march1).  counter (pv, st):
+// one unsigned, zero before the first launch (a reach-1 launch leaves it
+// zero); launches on one (partials, counter) pair must be ordered (one
+// stream).  dot: K floats.  Halo planes may be null (zeros).
 int ls_bicg3d_pv(const float* r, const float* p, const float* v,
                  const float* rt, const float* beta, const float* omega,
                  const float* top, const float* bot, float* p_out,
@@ -270,12 +366,30 @@ int ls_bicg3d_pv(const float* r, const float* p, const float* v,
 
 int ls_bicg3d_st(const float* r, const float* v, const float* alpha,
                  const float* top, const float* bot, float* dot,
-                 void* partials, int X, int Y, int Z, int compensated,
-                 const LsStencil3* st, void* stream_ptr) {
+                 void* partials, int capacity, unsigned* counter, int X,
+                 int Y, int Z, int compensated, const LsStencil3* st,
+                 void* stream_ptr) {
   if (!valid3(st, X, Y, Z)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int h = reach3_yz(*st);
+  if (h <= 1) {
+    M1Geom g;
+    const long long blocks = m1_geometry(X, Y, Z, &g);
+    if (!counter || blocks > capacity) return (int)cudaErrorInvalidValue;
+    Box27 w;
+    const bool star = m1_box(*st, &w);
+    const bool vec = Z % 4 == 0 && m1_aligned(r) && m1_aligned(v) &&
+                     m1_aligned(top) && m1_aligned(bot);
+    const unsigned nb = (unsigned)blocks;
+    if (compensated)
+      return launch_st_m1<true>(star, vec, nb, stream, r, v, alpha, top, bot,
+                                dot, partials, counter, g, w);
+    return launch_st_m1<false>(star, vec, nb, stream, r, v, alpha, top, bot,
+                               dot, partials, counter, g, w);
+  }
   const dim3 grid = march_grid(X, Y, Z), block(LS_THREADS_X, LS_THREADS_Y);
-  const int h = reach3_yz(*st), nblocks = grid.x * grid.y * grid.z;
+  const int nblocks = grid.x * grid.y * grid.z;
+  if (nblocks > capacity) return (int)cudaErrorInvalidValue;
   if (compensated) {
     bicg3d_st_kernel<true><<<grid, block, 0, stream>>>(
         r, v, alpha, top, bot, (double*)partials, X, Y, Z, *st, h);

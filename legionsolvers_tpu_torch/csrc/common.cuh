@@ -523,22 +523,23 @@ struct M1CopyPlane {
   }
 };
 
-// Plane loader of BiCGStab's p' = r + beta (p - omega v): r, p and v loaded
-// into registers, combined and stored into the slot after the plane in
-// hand is computed (zero outside the volume).  The halo planes are p''s
-// own.
-template <bool VEC>
+// Plane loader of a pass's operand, which Form's call forms from Form::NV
+// vectors (src, in the order the call takes them): pv's p' = r + beta (p -
+// omega v) from three, K6b's p = r + beta p_old and st's s = r - alpha v
+// from two.  The vectors are loaded into registers, and the operand is
+// formed and stored into the slot after the plane in hand is computed
+// (zero outside the volume).  The halo planes are the operand's own.
+template <typename Form, bool VEC>
 struct M1FormPlane {
+  static constexpr int NV = Form::NV;
   static constexpr int N = VEC ? 4 * kM1VecPer + 1 : kM1ElemPer;
-  const float* r;
-  const float* p;
-  const float* v;
+  const float* src[NV];
   const float* top;
   const float* bot;
-  float beta, omega;
+  Form form_;
   const M1Geom& g;
   const M1Place& pl;
-  float a[3][N];
+  float a[NV][N];
   bool halo;
 
   __device__ __forceinline__ void issue(int gx, float* dst) {
@@ -547,14 +548,15 @@ struct M1FormPlane {
     const float* h = gx < 0 ? top : bot;
     int d, gy, gz;
 #pragma unroll
-    for (int i = 0; i < N; ++i) a[0][i] = a[1][i] = a[2][i] = 0.f;
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int k = 0; k < NV; ++k) a[k][i] = 0.f;
     auto get = [&](int i, size_t o) {
       if (halo) {
         a[0][i] = h ? __ldg(h + o) : 0.f;
       } else {
-        a[0][i] = __ldg(r + base + o);
-        a[1][i] = __ldg(p + base + o);
-        a[2][i] = __ldg(v + base + o);
+#pragma unroll
+        for (int k = 0; k < NV; ++k) a[k][i] = __ldg(src[k] + base + o);
       }
     };
     if (VEC) {
@@ -570,11 +572,10 @@ struct M1FormPlane {
               a[0][4 * i + 2] = t.z; a[0][4 * i + 3] = t.w;
             }
           } else {
-            const float* srcs[3] = {r, p, v};
 #pragma unroll
-            for (int s = 0; s < 3; ++s) {
+            for (int s = 0; s < NV; ++s) {
               const float4 t =
-                  __ldg(reinterpret_cast<const float4*>(srcs[s] + base + o));
+                  __ldg(reinterpret_cast<const float4*>(src[s] + base + o));
               a[s][4 * i] = t.x; a[s][4 * i + 1] = t.y;
               a[s][4 * i + 2] = t.z; a[s][4 * i + 3] = t.w;
             }
@@ -596,7 +597,10 @@ struct M1FormPlane {
   }
 
   __device__ __forceinline__ float form(int s) const {
-    return halo ? a[0][s] : a[0][s] + beta * (a[1][s] - omega * a[2][s]);
+    float x[NV];
+#pragma unroll
+    for (int k = 0; k < NV; ++k) x[k] = a[k][s];
+    return halo ? a[0][s] : form_(x);
   }
 
   __device__ __forceinline__ void finish(float* dst) {
@@ -812,42 +816,65 @@ __device__ __forceinline__ void m1_store4(float* __restrict__ a, size_t o,
   }
 }
 
-// The dot of the pass: the block's sum (warp shuffles, then warps in index
-// order) to partials[block]; the last block to finish (a device counter)
-// sums all partials in block order, writes *out rounded to float once and
-// resets the counter to zero.  T is float, or double for compensated dots.
-template <typename T>
-__device__ __forceinline__ void m1_fold(T v, T* __restrict__ partials,
+// The K dots of the pass: each the block's sum (warp shuffles, then warps
+// in index order) to partials[block * K + k]; the last block to finish (a
+// device counter) sums each over all blocks in block order, writes out[k]
+// rounded to float once and resets the counter to zero.  T is float, or
+// double (compensated dots, K7 st).
+template <typename T, int K>
+__device__ __forceinline__ void m1_fold(T (&v)[K], T* __restrict__ partials,
                                         unsigned* __restrict__ counter,
                                         float* __restrict__ out) {
-  __shared__ T red[LS_M1_WARPS];
+  __shared__ T red[K][LS_M1_WARPS];
   __shared__ bool last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if (lane == 0) red[warp] = v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    T s = v[k];
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+    if (lane == 0) red[k][warp] = s;
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
-    T s = 0;
-    for (int k = 0; k < LS_M1_WARPS; ++k) s += red[k];
-    partials[blockIdx.x] = s;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      T s = 0;
+      for (int w = 0; w < LS_M1_WARPS; ++w) s += red[k][w];
+      partials[(size_t)blockIdx.x * K + k] = s;
+    }
     __threadfence();
     last = atomicAdd(counter, 1u) == gridDim.x - 1;
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
-  T acc = 0;
-  for (int b = threadIdx.x; b < (int)gridDim.x; b += LS_M1_THREADS)
-    acc += __ldcg(partials + b);
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-  if (lane == 0) red[warp] = acc;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    T acc = 0;
+    for (int b = threadIdx.x; b < (int)gridDim.x; b += LS_M1_THREADS)
+      acc += __ldcg(partials + (size_t)b * K + k);
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+    if (lane == 0) red[k][warp] = acc;
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
-    T s = 0;
-    for (int k = 0; k < LS_M1_WARPS; ++k) s += red[k];
-    *out = (float)s;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      T s = 0;
+      for (int w = 0; w < LS_M1_WARPS; ++w) s += red[k][w];
+      out[k] = (float)s;
+    }
     *counter = 0u;
   }
+}
+
+// One dot.
+template <typename T>
+__device__ __forceinline__ void m1_fold(T v, T* __restrict__ partials,
+                                        unsigned* __restrict__ counter,
+                                        float* __restrict__ out) {
+  T a[1] = {v};
+  m1_fold<T, 1>(a, partials, counter, out);
 }
 
 // cudaFuncGetAttributes and the occupancy calculator for one kernel:

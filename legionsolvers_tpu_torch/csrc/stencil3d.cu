@@ -17,7 +17,7 @@
 //
 // Design.  The Pallas kernels stream whole [Y, Z] planes through a rotating
 // 4-slot VMEM buffer on a sequential grid and carry the dot in SMEM.  Here
-// K6a has two marches along x (common.cuh):
+// K6a and K6b have two marches along x (common.cuh):
 //
 // - Reach 1 (the 7- and 27-point stencils, all the repo's 3-D paths run):
 //   march1, a register march.  A block of 8 warps owns a 16 x 128 (y, z)
@@ -27,7 +27,10 @@
 //   shared-memory slots; the next plane is copied into the third slot with
 //   cp.async (zero-filled outside the volume) while this one is computed,
 //   and update's x and r of the points being finished are loaded before
-//   the plane's terms are summed.  One __syncthreads() per plane.  The
+//   the plane's terms are summed.  K6b loads r and p_old of the next
+//   plane's window into registers instead, and forms p = r + beta p_old
+//   into the spare slot after this plane is computed; its emit stores p at
+//   the thread's points.  One __syncthreads() per plane.  The
 //   terms are unrolled at compile time, their weights kernel parameters:
 //   the 3 x 3 x 3 box (zero weights for absent terms) carries the partial
 //   outputs of planes x - 1, x, x + 1 in registers and sums a point's
@@ -45,9 +48,9 @@
 //   same bits from run to run.  What bounds it: bytes, with the window's
 //   y halo (2 rows per 16) read again, mostly from L2, and 2 extra planes
 //   per 32-plane chunk.
-// - Reach 2..8 (and K6b, which keeps it for now): march3d, each block a
-//   32 x 32 tile over 16 planes, three rotating shared slots sized for
-//   reach 8, the terms read from shared memory in stencil order, loads
+// - Reach 2..8: march3d, each block a 32 x 32 tile over 16 planes, three
+//   rotating shared slots sized for reach 8, the terms read from shared
+//   memory in stencil order, loads
 //   and compute not overlapped, and partial dots summed by a second launch
 //   (reduce_partials).
 //
@@ -153,8 +156,9 @@ stencil3d_m1_kernel(const float* __restrict__ x, const float* __restrict__ top,
   if (MODE != 0) m1_fold(acc, partials, counter, dot);
 }
 
-// K6b: p = r + beta p_old (written to p_out) and <p, A p>; the halo planes
-// are p's own (the caller combines r's and p_old's).
+// K6b on march3d (reach 2..8): p = r + beta p_old (written to p_out) and
+// <p, A p>; the halo planes are p's own (the caller combines r's and
+// p_old's).
 __global__ void __launch_bounds__(LS_THREADS)
 xpay_pq3d_kernel(const float* __restrict__ r, const float* __restrict__ p_old,
                  const float* __restrict__ beta_p,
@@ -173,6 +177,50 @@ xpay_pq3d_kernel(const float* __restrict__ r, const float* __restrict__ p_old,
             acc[0] += c * ax;
           });
   block_partials(acc, partials);
+}
+
+// K6b's operand: p = r + beta p_old.
+struct XpayForm {
+  static constexpr int NV = 2;  // r, p_old
+  float beta;
+  __device__ __forceinline__ float operator()(const float (&x)[2]) const {
+    return x[0] + beta * x[1];
+  }
+};
+
+// K6b on march1 (reach 1): p formed while the window is loaded, stored at
+// the thread's points, <p, A p> folded into the last block.  partials: one
+// float per block; counter: zero before the launch, zero after it.
+template <bool STAR, bool VEC>
+__global__ void __launch_bounds__(LS_M1_THREADS, LS_M1_MIN_BLOCKS)
+xpay_pq3d_m1_kernel(const float* __restrict__ r,
+                    const float* __restrict__ p_old,
+                    const float* __restrict__ beta_p,
+                    const float* __restrict__ top,
+                    const float* __restrict__ bot, float* __restrict__ p_out,
+                    float* __restrict__ dot, float* __restrict__ partials,
+                    unsigned* __restrict__ counter, M1Geom g, Box27 w) {
+  __shared__ __align__(16) float win[3 * kM1Slot];
+  const M1Place pl = m1_place(g);
+  const int ncol = m1_ncol(pl, g.Z);
+  M1FormPlane<XpayForm, VEC> plane{{r, p_old}, top, bot, XpayForm{*beta_p},
+                                   g, pl};
+  float acc = 0.f;
+  march1<STAR>(
+      win, pl, w, plane, [](int) {},
+      [&](int gx, const float (&c)[LS_M1_RY][4],
+          const float (&ax)[LS_M1_RY][4]) {
+#pragma unroll
+        for (int k = 0; k < LS_M1_RY; ++k) {
+          if (pl.gy[k] >= g.Y || !ncol) continue;
+          m1_store4<VEC>(p_out, ((size_t)gx * g.Y + pl.gy[k]) * g.Z + pl.gz,
+                         c[k], ncol);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j < ncol) acc += c[k][j] * ax[k][j];
+        }
+      });
+  m1_fold(acc, partials, counter, dot);
 }
 
 template <int MODE>
@@ -207,7 +255,7 @@ int ls_march1_blocks(int X, int Y, int Z) {
 }
 
 // Registers, spill bytes and resident blocks per SM of K6a's march1
-// variant `which` = 4 mode + 2 star + vec.
+// variant `which` = 4 mode + 2 star + vec, and of K6b's, 2 star + vec.
 int ls_stencil3d_m1_attrs(int which, int* out) {
   switch (which) {
 #define LS_M1_ATTR(M, ST, VE) \
@@ -221,11 +269,22 @@ int ls_stencil3d_m1_attrs(int which, int* out) {
   }
 }
 
+int ls_xpay_pq3d_m1_attrs(int which, int* out) {
+  switch (which) {
+    case 0: return m1_attrs(xpay_pq3d_m1_kernel<false, false>, out);
+    case 1: return m1_attrs(xpay_pq3d_m1_kernel<false, true>, out);
+    case 2: return m1_attrs(xpay_pq3d_m1_kernel<true, false>, out);
+    case 3: return m1_attrs(xpay_pq3d_m1_kernel<true, true>, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // mode: 0 y, 1 y_dot, 2 pq, 3 update.  Pointers unused by a mode may be
-// null; halo planes may be null (zeros).  partials: capacity doubles of
-// scratch; counter: one unsigned, zero before the first launch (a reach-1
-// launch leaves it zero).  Launches on one (partials, counter) pair must
-// be ordered (one stream).
+// null; halo planes may be null (zeros).  partials: scratch of 2 *
+// capacity doubles (two dots for each of up to capacity blocks); counter:
+// one unsigned, zero before the first launch (a reach-1 launch leaves it
+// zero).  Launches on one (partials, counter) pair must be ordered (one
+// stream).
 int ls_stencil3d(int mode, const float* x, const float* top, const float* bot,
                  float* y, float* xv, float* rv, const float* alpha,
                  float* dot, float* partials, int capacity, unsigned* counter,
@@ -271,17 +330,42 @@ int ls_stencil3d(int mode, const float* x, const float* top, const float* bot,
   return finish(partials, grid.x * grid.y * grid.z, 1, dot, stream);
 }
 
+// K6b: p = r + beta p_old to p_out, <p, A p> to dot; scratch as for
+// ls_stencil3d.
 int ls_xpay_pq3d(const float* r, const float* p_old, const float* beta,
                  const float* top, const float* bot, float* p_out, float* dot,
-                 float* partials, int X, int Y, int Z, const LsStencil3* st,
-                 void* stream_ptr) {
+                 float* partials, int capacity, unsigned* counter, int X,
+                 int Y, int Z, const LsStencil3* st, void* stream_ptr) {
   if (!valid3(st, X, Y, Z)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int h = reach3_yz(*st);
+  if (h <= 1) {
+    M1Geom g;
+    const long long blocks = m1_geometry(X, Y, Z, &g);
+    if (!counter || blocks > capacity) return (int)cudaErrorInvalidValue;
+    Box27 w;
+    const bool star = m1_box(*st, &w);
+    const bool vec = Z % 4 == 0 && m1_aligned(r) && m1_aligned(p_old) &&
+                     m1_aligned(top) && m1_aligned(bot) && m1_aligned(p_out);
+    const unsigned nb = (unsigned)blocks;
+#define LS_XP_LAUNCH(ST, VE)                                                \
+  xpay_pq3d_m1_kernel<ST, VE><<<nb, LS_M1_THREADS, 0, stream>>>(            \
+      r, p_old, beta, top, bot, p_out, dot, partials, counter, g, w)
+    if (star) {
+      if (vec) LS_XP_LAUNCH(true, true); else LS_XP_LAUNCH(true, false);
+    } else {
+      if (vec) LS_XP_LAUNCH(false, true); else LS_XP_LAUNCH(false, false);
+    }
+#undef LS_XP_LAUNCH
+    return (int)cudaGetLastError();
+  }
   const dim3 grid = march_grid(X, Y, Z), block(LS_THREADS_X, LS_THREADS_Y);
+  const int nblocks = grid.x * grid.y * grid.z;
+  if (nblocks > capacity) return (int)cudaErrorInvalidValue;
   xpay_pq3d_kernel<<<grid, block, 0, stream>>>(r, p_old, beta, top, bot,
                                                p_out, partials, X, Y, Z, *st,
-                                               reach3_yz(*st));
-  return finish(partials, grid.x * grid.y * grid.z, 1, dot, stream);
+                                               h);
+  return finish(partials, nblocks, 1, dot, stream);
 }
 
 }  // extern "C"

@@ -19,11 +19,11 @@ and update, as in the JAX passes.  ``compensated`` sums the dots from exact
 f32 products in float64 and rounds once.
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
-launches its kernel or raises.  pv with a reach-1 stencil runs the
-register march of K6a (``march1`` in ``csrc/common.cuh``, its dot folded
-into the last block, scratch from :func:`~.stencil3d.march_scratch`);
-pv with reach 2..8, st and update run ``march3d`` and a second launch.
-Every CUDA launch adds one to
+launches its kernel or raises.  pv and st with a reach-1 stencil run the
+register march of K6a (``march1`` in ``csrc/common.cuh``, their dots
+folded into the last block); pv and st with reach 2..8, and update, run
+``march3d`` and a second launch.  All take their scratch from
+:func:`~.stencil3d.march_scratch`.  Every CUDA launch adds one to
 :data:`~.stencil2d.LAUNCHES` under ``bicg3d_pv``, ``bicg3d_st`` or
 ``bicg3d_update``.  Buffers as in ``bicgstab2d.py``: p' and v' go to
 ``out`` (a pair) and r' to ``out`` (one buffer), fresh buffers when
@@ -43,7 +43,6 @@ from .stencil2d import _check_distinct, _dev_scalars, _launch, _on_cuda, _ptr
 from .stencil3d import (
     _stencil3_struct,
     apply_planes_plain,
-    blocks3d,
     check_planes,
     check_volume,
     march_scratch,
@@ -102,13 +101,6 @@ def _check(r, offsets, planes, **vols):
     return X, Y, Z
 
 
-def _scratch(X, Y, Z, k, device):
-    """Per-block partial dots: k doubles per block (the float path uses the
-    first half of the bytes)."""
-    return torch.empty(k * blocks3d(X, Y, Z), dtype=torch.float64,
-                       device=device)
-
-
 def bicg3d_pv(r, p, v, rt, beta, omega, pn_top=None, pn_bot=None, *,
               offsets, values, compensated: bool = False,
               out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
@@ -152,10 +144,11 @@ def bicg3d_st(r, v, alpha, s_top=None, s_bot=None, *, offsets, values,
     dev = r.device
     al = _dev_scalars(alpha, 1, dev)
     dot = torch.empty(2, dtype=torch.float32, device=dev)
+    partials, capacity, counter = march_scratch(dev, X, Y, Z)
     st = _stencil3_struct(offsets, values)
     _launch("bicg3d_st", "ls_bicg3d_st", (
         _ptr(r), _ptr(v), _ptr(al), _ptr(s_top), _ptr(s_bot), _ptr(dot),
-        _ptr(_scratch(X, Y, Z, 2, dev)), X, Y, Z, int(compensated),
+        _ptr(partials), capacity, _ptr(counter), X, Y, Z, int(compensated),
         ctypes.byref(st),
     ), dev)
     return dot[0], dot[1]
@@ -184,11 +177,11 @@ def bicg3d_update(r, v, x, p, rt, alpha, omega, s_top=None, s_bot=None, *,
         out = torch.empty_like(r)
     al, om = _dev_scalars(alpha, 1, dev), _dev_scalars(omega, 1, dev)
     dot = torch.empty(2, dtype=torch.float32, device=dev)
+    partials = march_scratch(dev, X, Y, Z)[0]
     st = _stencil3_struct(offsets, values)
     _launch("bicg3d_update", "ls_bicg3d_update", (
         _ptr(r), _ptr(v), _ptr(x), _ptr(p), _ptr(rt), _ptr(al), _ptr(om),
-        _ptr(s_top), _ptr(s_bot), _ptr(out), _ptr(dot),
-        _ptr(_scratch(X, Y, Z, 2, dev)), X, Y, Z, int(compensated),
-        ctypes.byref(st),
+        _ptr(s_top), _ptr(s_bot), _ptr(out), _ptr(dot), _ptr(partials), X,
+        Y, Z, int(compensated), ctypes.byref(st),
     ), dev)
     return x, out, dot[0], dot[1]

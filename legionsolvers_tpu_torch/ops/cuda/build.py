@@ -133,12 +133,14 @@ def load_library() -> ctypes.CDLL:
         "ls_bicg_st": [_P] * 5 + [_I, _I, _I, _P, _P],
         "ls_bicg_update": [_P] * 10 + [_I, _I, _I, _P, _P],
         "ls_stencil3d": [_I] + [_P] * 9 + [_I, _P] + [_I] * 3 + [_P, _P],
-        "ls_xpay_pq3d": [_P] * 8 + [_I] * 3 + [_P, _P],
+        "ls_xpay_pq3d": [_P] * 8 + [_I, _P] + [_I] * 3 + [_P, _P],
         "ls_bicg3d_pv": [_P] * 12 + [_I, _P] + [_I] * 4 + [_P, _P],
         "ls_stencil3d_m1_attrs": [_I, _P],
         "ls_bicg3d_pv_m1_attrs": [_I, _P],
+        "ls_xpay_pq3d_m1_attrs": [_I, _P],
+        "ls_bicg3d_st_m1_attrs": [_I, _P],
         "ls_march1_blocks": [_I] * 3,
-        "ls_bicg3d_st": [_P] * 7 + [_I] * 4 + [_P, _P],
+        "ls_bicg3d_st": [_P] * 7 + [_I, _P] + [_I] * 4 + [_P, _P],
         "ls_bicg3d_update": [_P] * 12 + [_I] * 4 + [_P, _P],
         "ls_dia2d": [_I] + [_P] * 5 + [_I] + [_P] * 3 + [_I, _I, _P],
         "ls_winell": [_I] + [_P] * 5 + [_I] * 3 + [_P],

@@ -15,12 +15,12 @@ grid3d_cg_xpay_pq      p = r + b p_old, <p, A p>           xpay_pq3d_plain
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches its kernel (built at first use, see ``build.py``) or raises; it
-never falls back.  K6a has two marches (``csrc/common.cuh``): reach-1
-stencils (the 7- and 27-point ones) run the register march ``march1``,
-whose launch geometry :func:`march1_geometry` mirrors and whose dot is
-folded into its last block; stencils of reach 2..8 run ``march3d`` with a
-second launch summing its partial dots.  Both take their scratch from
-:func:`march_scratch`.  Every CUDA launch adds one to
+never falls back.  K6a and K6b have two marches (``csrc/common.cuh``):
+reach-1 stencils (the 7- and 27-point ones) run the register march
+``march1``, whose launch geometry :func:`march1_geometry` mirrors and whose
+dot is folded into its last block; stencils of reach 2..8 run ``march3d``
+with a second launch summing its partial dots.  Both take their scratch
+from :func:`march_scratch`.  Every CUDA launch adds one to
 :data:`~.stencil2d.LAUNCHES` under the pass's name with a ``3d`` suffix
 (``y3d``, ``y_dot3d``, ``pq3d``, ``update3d``, ``xpay_pq3d``).
 
@@ -140,12 +140,21 @@ class _Stencil3(ctypes.Structure):
     ]
 
 
+_STRUCTS3 = {}
+
+
 def _stencil3_struct(offsets, values) -> _Stencil3:
-    st = _Stencil3()
-    st.n = len(offsets)
-    for k, ((ox, oy, oz), v) in enumerate(zip(offsets, values)):
-        st.ox[k], st.oy[k], st.oz[k] = int(ox), int(oy), int(oz)
-        st.v[k] = float(v)
+    """The kernels' stencil argument, made once per (offsets, values) and
+    shared by every call with them (the kernels only read it)."""
+    key = (tuple(map(tuple, offsets)), tuple(values))
+    st = _STRUCTS3.get(key)
+    if st is None:
+        st = _Stencil3()
+        st.n = len(offsets)
+        for k, ((ox, oy, oz), v) in enumerate(zip(offsets, values)):
+            st.ox[k], st.oy[k], st.oz[k] = int(ox), int(oy), int(oz)
+            st.v[k] = float(v)
+        _STRUCTS3[key] = st
     return st
 
 
@@ -167,27 +176,37 @@ def march1_geometry(X: int, Y: int, Z: int):
 
 
 def march_scratch_size(X: int, Y: int, Z: int) -> int:
-    """float64 entries of :func:`march_scratch`'s partials: one per block
-    of the larger of the two marches' launches."""
+    """Blocks of the larger of the two marches' launches on an [X, Y, Z]
+    volume: the capacity :func:`march_scratch` passes to the kernels."""
     return max(blocks3d(X, Y, Z), march1_geometry(X, Y, Z)[2])
+
+
+DOTS_PER_BLOCK = 2  # the most partial dots a 3-D pass keeps per block (K7)
+
+
+def march_scratch_entries(X: int, Y: int, Z: int) -> int:
+    """float64 entries of :func:`march_scratch`'s partials: DOTS_PER_BLOCK
+    per block of the larger march."""
+    return DOTS_PER_BLOCK * march_scratch_size(X, Y, Z)
 
 
 _MARCH_SCRATCH = {}
 
 
 def march_scratch(device, X: int, Y: int, Z: int):
-    """(partials, capacity, counter) of K6a's and K7 pv's launches on an
-    [X, Y, Z] volume: float64 partial dots with room for either march's
-    blocks (march3d writes floats, or doubles under ``compensated``), and
-    march1's last-block counter (zero between launches).  Made once per
-    (device, stream, X, Y, Z): launches on one stream are ordered, so
-    they can share them."""
+    """(partials, capacity, counter) of the 3-D passes' launches on an
+    [X, Y, Z] volume: float64 partial dots with room for two per block of
+    either march (K7 st and update keep two; floats, or doubles under
+    ``compensated`` and for march1's st), and march1's last-block
+    counter (zero between launches).  Made once per (device, stream, X, Y,
+    Z): launches on one stream are ordered, so they can share them."""
     key = (device, _raw_stream(device), X, Y, Z)
     scratch = _MARCH_SCRATCH.get(key)
     if scratch is None:
-        capacity = march_scratch_size(X, Y, Z)
-        scratch = (torch.empty(capacity, dtype=torch.float64, device=device),
-                   capacity, torch.zeros(1, dtype=torch.int32, device=device))
+        scratch = (torch.empty(march_scratch_entries(X, Y, Z),
+                               dtype=torch.float64, device=device),
+                   march_scratch_size(X, Y, Z),
+                   torch.zeros(1, dtype=torch.int32, device=device))
         _MARCH_SCRATCH[key] = scratch
     return scratch
 
@@ -295,11 +314,11 @@ def grid3d_cg_xpay_pq(r, p_old, beta, pn_top=None, pn_bot=None, *, offsets,
     p = torch.empty_like(r) if out is None else out
     b = _dev_scalars(beta, 1, dev)
     dot = torch.empty(1, dtype=torch.float32, device=dev)
-    partials = torch.empty(blocks3d(X, Y, Z), dtype=torch.float32,
-                           device=dev)
+    partials, capacity, counter = march_scratch(dev, X, Y, Z)
     st = _stencil3_struct(offsets, values)
     _launch("xpay_pq3d", "ls_xpay_pq3d", (
         _ptr(r), _ptr(p_old), _ptr(b), _ptr(pn_top), _ptr(pn_bot), _ptr(p),
-        _ptr(dot), _ptr(partials), X, Y, Z, ctypes.byref(st),
+        _ptr(dot), _ptr(partials), capacity, _ptr(counter), X, Y, Z,
+        ctypes.byref(st),
     ), dev)
     return p, dot[0]

@@ -10,9 +10,12 @@ sums to 4e-7.  The 3-D passes (K6, K7) run at a ragged (37, 45, 130) and at
 the edges of the reach-1 register march's tiles, chunks and 16-byte
 vectors, with random halo planes, for the 7-point, 27-point, a ten-term
 box and a reach-2 stencil: elementwise 2e-5 * max|ref|, dots 1e-4 of their
-Cauchy-Schwarz scale sqrt(<a,a><b,b>) (chip_smoke.py's bounds); the passes
-that fold their dot into the last block repeat bit for bit, also with two
-shapes alternating on one stream.  The
+Cauchy-Schwarz scale sqrt(<a,a><b,b>) (chip_smoke.py's bounds); compensated
+K7 pv and st dots within 4e-7 of the float64 sum of their f32 operands; the
+passes that fold their dots into the last block repeat bit for bit, also
+with two shapes alternating on one stream.  Two tests need no card: the
+shared 3-D scratch's room, and the K6b and K7 st wrappers running their
+plain versions on CPU tensors.  The
 explicit-sparse kernels K8, K9 and K10 round every product and sum as their
 plain versions do, so they must match them bit for bit (K8's dot: 1e-5 of
 its Cauchy-Schwarz scale).  K1 (step2) is also held at the edges of its
@@ -249,8 +252,9 @@ def test_stencil3d_kernel_matches_plain_on_card(mode, dim, shape,
 def test_bicgstab3d_kernel_matches_plain_on_card(kernel, dim, compensated,
                                                  shape, cuda_device):
     """K7 against its plain versions on the card, with halo planes, at
-    ragged shapes and march1's edges; compensated pv's dot within 4e-7 of
-    the float64 sum of its f32 operands."""
+    ragged shapes and march1's edges; compensated pv's and st's dots within
+    4e-7 of the float64 sum of their f32 operands (st's s = r - alpha v and
+    t = A s formed in f32 by the plain version on the card)."""
     d = _state3d(17, shape)
     T.reset_launch_counts()
     got = _bicg3d(kernel, d, cuda_device, dim, compensated)
@@ -261,12 +265,21 @@ def test_bicgstab3d_kernel_matches_plain_on_card(kernel, dim, compensated,
     if compensated and kernel == "pv":
         exact = (d["rt"].astype(np.float64) * got["v"]).sum()
         assert abs(got["rtv"] - exact) <= 4e-7 * abs(exact)
+    if compensated and kernel == "st":
+        t, kw = _tensors(d, cuda_device), _kw3(dim)
+        s = t["r"] - torch.tensor(0.83, device=cuda_device) * t["v"]
+        tv = T3.apply_planes_plain(s, kw["offsets"], kw["values"], t["top"],
+                                   t["bot"])
+        s, tv = s.double().cpu().numpy(), tv.double().cpu().numpy()
+        for key, exact in (("ts", (tv * s).sum()), ("tt", (tv * tv).sum())):
+            assert abs(got[key] - exact) <= 4e-7 * abs(exact), key
 
 
 def _march1_passes(device, shape, dim, seed):
-    """Closures for the passes that take the march scratch (K6a's modes
-    with a dot, K7 pv with f32 and compensated dots) on fixed inputs; each
-    returns its outputs as one flat float32 tensor."""
+    """Closures for the passes that fold their dots into march1's last
+    block (K6a's modes with a dot, K6b, K7 pv and st with f32 and
+    compensated dots) on fixed inputs; each returns its outputs as one
+    flat float32 tensor."""
     t, kw = _tensors(_state3d(seed, shape), device), _kw3(dim)
     h = (t["top"], t["bot"])
     outs = (torch.empty_like(t["p"]), torch.empty_like(t["v"]))
@@ -280,10 +293,18 @@ def _march1_passes(device, shape, dim, seed):
                                      0.41, *h, compensated=comp, out=outs,
                                      **kw)
 
+    def st(comp):
+        return lambda: TB3.bicg3d_st(t["r"], t["v"], 0.83, *h,
+                                     compensated=comp, **kw)
+
     fns = {"y_dot": lambda: T3.grid3d_stencil_matvec(t["x"], *h,
                                                      with_dot=True, **kw),
            "pq": lambda: (T3.grid3d_cg_pq(t["p"], *h, **kw),),
-           "update": update, "pv": pv(False), "pv_comp": pv(True)}
+           "update": update,
+           "xpay_pq": lambda: T3.grid3d_cg_xpay_pq(t["r"], t["p"], 0.37, *h,
+                                                   out=outs[0], **kw),
+           "pv": pv(False), "pv_comp": pv(True),
+           "st": st(False), "st_comp": st(True)}
     flat = lambda res: torch.cat([a.reshape(-1).clone() for a in res])
     return {k: (lambda f=f: flat(f())) for k, f in fns.items()}
 
@@ -319,10 +340,40 @@ def test_march1_geometry_and_residency_on_card(cuda_device):
             T3.march1_geometry(*shape)[2], shape
     out = (ctypes.c_int * 3)()
     for fn, n in (("ls_stencil3d_m1_attrs", 16),
-                  ("ls_bicg3d_pv_m1_attrs", 8)):
+                  ("ls_xpay_pq3d_m1_attrs", 4),
+                  ("ls_bicg3d_pv_m1_attrs", 8),
+                  ("ls_bicg3d_st_m1_attrs", 8)):
         for which in range(n):
             assert getattr(lib, fn)(which, out) == 0, (fn, which)
             assert out[2] >= 2, (fn, which, list(out))
+
+
+@pytest.mark.parametrize("shape", [(256, 256, 256), SHAPE3, (1, 1, 1)])
+def test_march_scratch_has_room_for_two_dots(shape):
+    """The shared 3-D scratch holds two partial dots (K7 st's and update's)
+    for every block of either march's launch (no card needed)."""
+    capacity = T3.march_scratch_size(*shape)
+    entries = T3.march_scratch_entries(*shape)
+    for blocks in (T3.blocks3d(*shape), T3.march1_geometry(*shape)[2]):
+        assert blocks <= capacity and 2 * blocks <= entries
+
+
+@pytest.mark.parametrize("dim", STENCILS3)
+def test_xpay_pq_and_st_run_plain_on_cpu(dim):
+    """On CPU tensors the K6b and K7 st wrappers return their plain
+    versions' results exactly and launch nothing (no card needed)."""
+    d = _state3d(19, (6, 20, 129))
+    T.reset_launch_counts()
+    pairs = [(_stencil3d("xpay_pq", d, "cpu", dim),
+              _stencil3d("xpay_pq", d, "cpu", dim, plain=True))]
+    pairs += [(_bicg3d("st", d, "cpu", dim, comp),
+               _bicg3d("st", d, "cpu", dim, comp, plain=True))
+              for comp in (False, True)]
+    for got, want in pairs:
+        assert got.keys() == want.keys()
+        for key in want:
+            assert np.array_equal(got[key], want[key]), key
+    assert sum(T.LAUNCHES.values()) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -259,6 +259,30 @@ def test_march1_chunks_cover_the_volume():
         assert blocks <= max(T3.M1_TARGET_BLOCKS, tiles)
 
 
+def test_stencil3_struct_is_cached():
+    """The kernels' stencil argument is made once per (offsets, values): a
+    repeat call returns the same struct, equal field by field to a fresh
+    one; the same offsets with other values get another struct."""
+    kw = stencil_kw(4)
+    offs, vals = kw["offsets"], kw["values"]
+    cached = T3._stencil3_struct(offs, vals)
+    assert T3._stencil3_struct(offs, vals) is cached
+    assert T3._stencil3_struct([list(o) for o in offs], list(vals)) is cached
+    T3._STRUCTS3.clear()
+    fresh = T3._stencil3_struct(offs, vals)
+    assert fresh is not cached
+    for name, _ in T3._Stencil3._fields_:
+        a, b = getattr(cached, name), getattr(fresh, name)
+        assert (a == b) if name == "n" else list(a) == list(b), name
+    assert cached.n == 27 and list(cached.v[:27]) == [np.float32(v)
+                                                      for v in vals]
+    assert [(cached.ox[k], cached.oy[k], cached.oz[k])
+            for k in range(27)] == [tuple(o) for o in offs]
+    other = T3._stencil3_struct(offs, tuple(2.0 * v for v in vals))
+    assert other is not fresh and list(other.ox) == list(fresh.ox)
+    assert list(other.v) != list(fresh.v)
+
+
 def test_xpay_writes_out_and_keeps_p_old():
     kw = stencil_kw(4)
     d = make_inputs((4, 8, 16), seed=8)
