@@ -8,10 +8,13 @@ Two other modes compare trees of the package on one card instead:
 one), 2-D CG's distance from float64 at three sizes, the ms/iter and host
 enqueue ms/iter of the 2-D CG, random-2^20 CG and 3-D CG and BiCGStab
 (7- and 27-point at 256^3) solve(200)s, five runs each, the host's
-enqueue time of one K10 call, and the times of K6b and K7 st (compensated
-dots off and on) at 256^3 (one JSON line); ``--ab PARENT`` runs
+enqueue time of one K10 call, the times of K6b and K7 st and update
+(compensated dots off and on) at 256^3, and K12 and ``torch.add`` in
+turns (one JSON line); ``--ab PARENT`` runs
 ``--solves`` on PARENT and on this tree, alternating parent, change,
-change, parent, and prints the medians and ranges.
+change, parent, and prints the medians and ranges.  ``--breakdown [--tree
+DIR]`` runs phase 4d's f32 BiCGStab on the 7-point system at 256^3 from
+several right-hand sides (:func:`breakdown`).
 
 Phases (any failure raises, and the exit code is non-zero):
 
@@ -58,9 +61,9 @@ Phases (any failure raises, and the exit code is non-zero):
    exactly 0 near the f32 floor);
 3c. the 3-D kernels: K6a (y, y_dot, pq, update), K6b (xpay_pq) and K7
    (pv, st, update; compensated dots off and on) against their plain
-   versions, 7- and 27-point stencils (K6a, K6b, K7 pv and st on the
-   reach-1 register march, march1) and a reach-2 11-point star (every
-   pass on the generic march3d), at the main-path shape 256^3 and a
+   versions, 7- and 27-point stencils (every pass on the reach-1
+   register march, march1) and a reach-2 11-point star (every pass on
+   the generic march3d), at the main-path shape 256^3 and a
    ragged 37 x 45 x 130, with random halo planes; the bounds of phases 3
    and 3b.  A
    torch.profiler trace of one call of each pass shows that the march1
@@ -143,7 +146,9 @@ and the roofline probes):
 3h. K11 (``chain_probe``: fma, roll, row at reps 1, 2 and 16) on the
    probe's [256, 1024] tile: roll and row bit for bit, fma within
    ``fma_rtol`` (one rounding per step where the plain version rounds
-   twice); K12 (``copy_probe``) bit for bit at 16384 x 4096 and 200 x 328;
+   twice); K12 (``copy_probe``) bit for bit at 16384 x 4096, 200 x 328
+   and n = 1000003 (n % 4 != 0: the scalar rest), and on an offset view
+   (unaligned: the scalar kernel alone);
 4h. ``benchmark.main`` at full width with the triad bandwidth measured once
    and passed as ``bw``: ``-dim 2`` at 4096^2 with CG, BiCGStab and PCG at
    ``-it 200`` and GMRES(10) at ``-it 20``, ``-dim 3`` at 256^3 with GMRES
@@ -160,8 +165,9 @@ and the roofline probes):
    256^2 on the card against the CPU (rtol 1e-8);
 5h. K12 against ``torch.add(x, 1.0, out=y)`` in turns (K12, add, add,
    K12; medians and ranges of 12 such rings) and K11 at 256 trips with
-   CUDA events, K11's three rates from the marginal time of its long and
-   short chains, the triads, the measured K1 compute ceiling (resident
+   CUDA events (roll's and row's bound: their steps at the shared-memory
+   rate, 128 B per SM per clock at ``clocks.max.sm``, over 8 B per step),
+   K11's three rates from the marginal time of its long and short chains, the triads, the measured K1 compute ceiling (resident
    only if its apparent rate is over 1.5x the stream's) and each CLI run's
    ms/iter, Gnnz/s and binding roofline.  Every bound uses the faster of
    ``copy_`` and K12.  ``--profile`` adds the idle share of each CLI run's
@@ -230,15 +236,18 @@ BICG3_CSRC = "legionsolvers_tpu_torch/csrc/bicgstab3d.cu"
 BICG3_PALLAS = "legionsolvers_tpu/ops/pallas/bicgstab3d.py"
 BICG3_KERNELS = {"bicg3d_pv": (243, 24), "bicg3d_st": (243, 8),
                  "bicg3d_update": (243, 28)}
-# The passes on the reach-1 register march (march1): each is one launch,
-# its dots folded into its last block; K7 update keeps march3d and a
-# second launch (reduce_partials) for its dots.
+# The passes on the reach-1 register march (march1), every 3-D pass: each
+# is one launch, its dots folded into its last block; with REACH2 each
+# runs march3d and a second launch (reduce_partials) for its dots, and so
+# does K7 update with compensated dots (csrc/bicgstab3d.cu says why).
 MARCH1_PASSES = ("y3d", "y_dot3d", "pq3d", "update3d", "xpay_pq3d",
-                 "bicg3d_pv", "bicg3d_st")
+                 "bicg3d_pv", "bicg3d_st", "bicg3d_update")
+MARCH3D_COMPENSATED = ("bicg3d_update",)
 # each march1 pass's label in march1_attrs
 M1_ATTR_NAMES = {"y3d": "y", "y_dot3d": "y_dot", "pq3d": "pq",
                  "update3d": "update", "xpay_pq3d": "xpay_pq",
-                 "bicg3d_pv": "pv", "bicg3d_st": "st"}
+                 "bicg3d_pv": "pv", "bicg3d_st": "st",
+                 "bicg3d_update": "bicg_update"}
 # A reach-2 stencil (the 11-point star with arms of 2 in y and z; |ox| <= 1
 # is the gate's) that phase 3c runs through the generic march3d path
 REACH2 = "reach2"
@@ -290,6 +299,15 @@ def ops_per_elt(name, n_terms):
 
 def log(*a):
     print(*a, flush=True)
+
+
+def max_sm_clock_hz():
+    """The card's maximum SM clock (``nvidia-smi``'s clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def card_line():
@@ -811,14 +829,15 @@ def main_path(torch, np, T, lt, device):
 
 
 def textbook_bicgstab(torch, shape, iters, dtype, device, dot_dtype=None,
-                      matvec=lap5):
+                      matvec=lap5, rhs=None):
     """Textbook BiCGStab on ``matvec`` (default the 5-point Laplacian) over
-    a grid of ``shape``, b = 1, x0 = 0, r~ = b, in torch on ``device``; the
-    dots summed in ``dot_dtype`` (default ``dtype``).  Returns (history,
-    x), both float64."""
+    a grid of ``shape``, b = ``rhs`` (default 1), x0 = 0, r~ = b, in torch
+    on ``device``; the dots summed in ``dot_dtype`` (default ``dtype``).
+    Returns (history, x), both float64."""
     dd = dot_dtype or dtype
     dot = lambda a, b: torch.sum(a.to(dd) * b.to(dd)).to(dtype)
-    b = torch.ones(shape, dtype=dtype, device=device)
+    b = (torch.ones(shape, dtype=dtype, device=device) if rhs is None
+         else rhs.reshape(shape).to(dtype))
     x, r, rt = b * 0, b * 1, b * 1
     p, v = b * 0, b * 0
     rho, alpha, omega = (torch.tensor(c, dtype=dtype, device=device)
@@ -840,13 +859,13 @@ def textbook_bicgstab(torch, shape, iters, dtype, device, dot_dtype=None,
     return torch.stack(hist).double(), x.double()
 
 
-def solution_quality(torch, hist, x, h64, x64, matvec=lap5):
+def solution_quality(torch, hist, x, h64, x64, matvec=lap5, rhs=1.0):
     """(history max rel dev from float64, x max rel dev, true residual
-    ||b - A x||^2 in float64)."""
+    ||b - A x||^2 in float64, b = ``rhs``)."""
     x = x.double().reshape(x64.shape)
     return (((hist.double() - h64) / h64).abs().max().item(),
             ((x - x64).abs().max() / x64.abs().max()).item(),
-            torch.sum((1.0 - matvec(x)) ** 2).item())
+            torch.sum((rhs - matvec(x)) ** 2).item())
 
 
 def agree_window(hist, h64, rtol=1e-3):
@@ -1358,8 +1377,8 @@ def dot_operands3(T3, name, d, outs, kw):
 
 def compare_3d_kernels(torch, lt, T3, TB3, device):
     """Phase 3c: K6a (four modes), K6b and K7 (compensated dots off and on)
-    against their plain versions, 7- and 27-point stencils (march1 for K6a
-    and K7 pv) and REACH2 (march3d for all), at 256^3 and a ragged 37 x 45
+    against their plain versions, 7- and 27-point stencils (march1 for
+    all) and REACH2 (march3d for all), at 256^3 and a ragged 37 x 45
     x 130, with random halo planes.  The bounds of phases 3 and 3b.
     Returns {(name, dim): max abs error}."""
     f64dot = lambda a, b: torch.dot(a.double().reshape(-1),
@@ -1450,10 +1469,12 @@ def device_kernels(torch, fn):
 
 def check_one_launch_3d(torch, lt, T3, TB3, device):
     """Phase 3c: the passes of MARCH1_PASSES, with the 7- and 27-point
-    stencils (compensated dots off and on), launch one kernel, a march1
-    kernel, and no reduce_partials; K7 update, and every pass with a dot
-    on REACH2 (march3d), launch theirs, which shows that the trace sees
-    the second launch.  Returns {case: kernel names}."""
+    stencils (compensated dots off and on, but off alone for those of
+    MARCH3D_COMPENSATED), launch one kernel, a march1 kernel, and no
+    reduce_partials; every pass with a dot on REACH2 (march3d), and those
+    of MARCH3D_COMPENSATED with compensated dots, launch their second,
+    which shows that the trace sees the second launch.  Returns {case:
+    kernel names}."""
     d = inputs3d(torch, RAGGED3, 31, device)
     seen, bad = {}, []
     for dim in (*DIMS3, REACH2):
@@ -1467,7 +1488,8 @@ def check_one_launch_3d(torch, lt, T3, TB3, device):
                 case = f"{name} dim {dim} compensated={comp}"
                 seen[case] = names
                 second = any("reduce_partials" in n for n in names)
-                march1 = name in MARCH1_PASSES and dim != REACH2
+                march1 = (name in MARCH1_PASSES and dim != REACH2
+                          and not (comp and name in MARCH3D_COMPENSATED))
                 if march1:
                     ok = (len(names) == 1 and "m1_kernel" in names[0]
                           and not second)
@@ -1480,7 +1502,8 @@ def check_one_launch_3d(torch, lt, T3, TB3, device):
         + "; ".join(f"{k}: {seen[k]}" for k in (
             "xpay_pq3d dim 4 compensated=False",
             "bicg3d_st dim 3 compensated=True",
-            "bicg3d_update dim 3 compensated=False")))
+            "bicg3d_update dim 3 compensated=False",
+            "bicg3d_update dim 3 compensated=True")))
     if bad:
         raise AssertionError(f"march1 passes with a second launch, or "
                              f"march3d passes without one: {bad}")
@@ -1499,7 +1522,8 @@ def march1_attrs(lib):
              ("y", "y_dot", "pq", "update")),
             ("ls_xpay_pq3d_m1_attrs", 4, ("xpay_pq",)),
             ("ls_bicg3d_pv_m1_attrs", 8, ("pv", "pv compensated")),
-            ("ls_bicg3d_st_m1_attrs", 8, ("st", "st compensated"))):
+            ("ls_bicg3d_st_m1_attrs", 8, ("st", "st compensated")),
+            ("ls_bicg3d_update_m1_attrs", 4, ("bicg_update",))):
         for which in range(n):
             err = getattr(lib, fn)(which, out)
             if err:
@@ -2626,7 +2650,12 @@ K12_PALLAS = "scripts/probe_roofline.py:83"
 K11_REPS = (1, 2, 16)
 K11_ROW_REPS = 256   # loop trips per launch in the kernels line's K11 rows
 K12_SHAPES = ((16384, 4096), RAGGED)
+K12_RAGGED = (1000003,)  # n % 4 == 3: a vector body and the scalar rest
 K12_RINGS = 12  # phase 5h: rings of K12, torch.add, torch.add, K12
+K12_SOLVES_RINGS = 4  # --solves: rings of K12, add, add, K12
+# shared-memory bytes an SM moves per clock (Hopper), K11 roll and row's
+# ceiling: each chain step moves 8 B through shared memory
+SMEM_B_PER_CLOCK = 128
 CLI_2D = ["-dim", "2", "-nx", "4096", "-ny", "4096"]
 CLI_3D = ["-dim", "3", "-nx", "256", "-ny", "256", "-nz", "256"]
 CLI_RUNS = {
@@ -2667,13 +2696,20 @@ def compare_probe_kernels(torch, device):
                                      f"its plain version by {err:g}")
             errs[f"chain_{kind}"] = max(errs[f"chain_{kind}"], err)
     errs["copy_probe"] = 0.0
-    for shape in K12_SHAPES:
+    for shape in (*K12_SHAPES, K12_RAGGED):
         a = torch.randn(shape, generator=g, device=device)
         if not same_bits(K12.copy_probe(a), K12.copy_plain(a)):
             raise AssertionError(f"K12 at {shape}: not bit for bit")
+    # an offset view: unaligned, so the scalar kernel alone
+    flat = torch.randn(K12_RAGGED[0] + 1, generator=g, device=device)
+    view, o = flat[1:], torch.empty(K12_RAGGED, device=device)
+    if K12.copy_split(view.data_ptr(), o.data_ptr(), view.numel()):
+        raise AssertionError("K12: an offset view took the vector body")
+    if not same_bits(K12.copy_probe(view, out=o), K12.copy_plain(view)):
+        raise AssertionError("K12 on an offset view: not bit for bit")
     torch.cuda.synchronize()
     log(f"[probe] K11 vs plain max abs err {errs}; K12 bit for bit at "
-        f"{K12_SHAPES}")
+        f"{(*K12_SHAPES, K12_RAGGED)} and on an offset view")
     return errs
 
 
@@ -2815,12 +2851,27 @@ def cli_checks(torch, np, lt, device):
             "gmres_gap": gap, "f64_card_vs_cpu": devs}
 
 
+def k12_turns(torch, x, y, rings):
+    """CUDA-event ms of K12 ("k12") and ``torch.add(x, 1.0, out=y)``
+    ("add") in turns: each ring runs k12, add, add, k12.  {name: [ms per
+    turn]}."""
+    from legionsolvers_tpu_torch.ops.cuda import copy_probe as K12
+
+    fns = {"k12": lambda: K12.copy_probe(x, out=y),
+           "add": lambda: torch.add(x, 1.0, out=y)}
+    turns = {name: [] for name in fns}
+    for _ in range(rings):
+        for name in ("k12", "add", "add", "k12"):
+            turns[name].append(event_ms(torch, fns[name], 20))
+    return turns
+
+
 def time_probes(torch, device, card):
     """Phase 5h, first part.  K12 at 16384 x 4096 (kernel, plain and
-    ``torch.add(x, 1.0, out=y)``, kernel and add in turns), and K11's three
-    kinds at K11_ROW_REPS trips (kernel and plain), CUDA events.  Returns
-    ({row: (ms, plain ms, library ms)}, K12's bytes/s, {"k12" | "add":
-    ms of each turn})."""
+    ``torch.add(x, 1.0, out=y)``; the kernel and add in turns,
+    :func:`k12_turns`), and K11's three kinds at K11_ROW_REPS trips
+    (kernel and plain), CUDA events.  Returns ({row: (ms, plain ms,
+    library ms)}, K12's bytes/s, {"k12" | "add": ms of each turn})."""
     from legionsolvers_tpu_torch.ops.cuda import copy_probe as K12
     from legionsolvers_tpu_torch.ops.cuda import vpu_probe as K11
 
@@ -2829,13 +2880,7 @@ def time_probes(torch, device, card):
     g = torch.Generator(device=device).manual_seed(72)
     x = torch.rand(K12_SHAPES[0], generator=g, device=device)
     y = torch.empty_like(x)
-    # K12 and torch.add in turns, K12, add, add, K12, over K12_RINGS rings
-    fns = {"k12": lambda: K12.copy_probe(x, out=y),
-           "add": lambda: torch.add(x, 1.0, out=y)}
-    turns = {"k12": [], "add": []}
-    for _ in range(K12_RINGS):
-        for name in ("k12", "add", "add", "k12"):
-            turns[name].append(event_ms(torch, fns[name], 20))
+    turns = k12_turns(torch, x, y, K12_RINGS)
     med = {k: statistics.median(v) for k, v in turns.items()}
     out = {"copy_probe": (
         med["k12"], event_ms(torch, lambda: K12.copy_plain(x, out=y), 20),
@@ -2941,7 +2986,8 @@ def profile_cli(torch, lt, label, argv, card):
 # -- --solves and --ab: two trees of the package on the same card ------------
 
 # the 3-D passes --solves times at 256^3: name -> compensated settings
-AB_PASSES3 = {"xpay_pq3d": (False,), "bicg3d_st": (False, True)}
+AB_PASSES3 = {"xpay_pq3d": (False,), "bicg3d_st": (False, True),
+              "bicg3d_update": (False, True)}
 
 
 def time_ab_passes(torch, lt, device):
@@ -2978,8 +3024,10 @@ def solves(torch, np, T, lt, device, card, reps=5):
     main path's 2-D CG at 4096^2, of CG on the random 2^20 system and of
     CG and BiCGStab on the 3-D 7- and 27-point systems at 256^3
     (SOLVES3); the host's enqueue time of one K10 call, per hop of one
-    routed matvec (200 calls, no sync between them); and the times of
-    AB_PASSES3 (:func:`time_ab_passes`).  One JSON line."""
+    routed matvec (200 calls, no sync between them); the times of
+    AB_PASSES3 (:func:`time_ab_passes`); and K12 and ``torch.add`` at
+    16384 x 4096 in turns over K12_SOLVES_RINGS rings (:func:`k12_turns`).
+    One JSON line."""
     from legionsolvers_tpu_torch.entry import build_stencil_system, build_system
     from legionsolvers_tpu_torch.ops.cuda import rowperm as RP
 
@@ -3016,6 +3064,10 @@ def solves(torch, np, T, lt, device, card, reps=5):
             (time.perf_counter() - t0) / 200 * 1e6)
         torch.cuda.synchronize()
     out["kernels3d_ms"] = time_ab_passes(torch, lt, device)
+    x = torch.rand(K12_SHAPES[0], device=device)
+    out["k12_turns_ms"] = k12_turns(torch, x, torch.empty_like(x),
+                                    K12_SOLVES_RINGS)
+    del x
     log(json.dumps(out))
     return 0
 
@@ -3061,17 +3113,104 @@ def ab_solves(parent, torch):
                            *(f(pool(lambda r: [r["kernels3d_ms"][k][how]]))
                              for f in (min, max))]
             for k in rs[0]["kernels3d_ms"] for how in ("events", "graph")}
+        # K12 and torch.add: [median, min, max] ms over the turns
+        summary[label]["k12_turns_ms"] = {
+            k: [med(lambda r: r["k12_turns_ms"][k]),
+                *(f(pool(lambda r: r["k12_turns_ms"][k])) for f in (min, max))]
+            for k in ("k12", "add")}
     log(json.dumps(summary))
     return 0
 
 
+# --breakdown: right-hand sides b = 1 (phase 4d's) and b = 1 + eps z, z
+# standard normal from seeds 1 .. BREAKDOWN_RHS - 1; f32 histories over
+# BREAKDOWN_ITERS iterations, to see breakdowns past phase 4d's N_ITERS
+BREAKDOWN_RHS = 16
+BREAKDOWN_EPS = 0.01
+BREAKDOWN_ITERS = 300
+
+
+def breakdown(torch, lt, device, card):
+    """--breakdown: for the package this process imports, phase 4d's f32
+    BiCGStab on the 7-point system at SHAPE3 from BREAKDOWN_RHS right-hand
+    sides.  For each: the first non-finite history entry over
+    BREAKDOWN_ITERS iterations of the port's solve (f32 dots) and of
+    textbook f32; phase 4d's window (leading entries within 1e-3 of
+    float64 BiCGStab) of both, and of the compensated solve and textbook
+    f32 with float64 dots; and phase 4d's end check of the compensated
+    solve after N_ITERS (||b - Ax||^2 within twice textbook f32's with
+    float64 dots, x error within twice its or BICG3_X_FLOOR).  Per
+    right-hand side one log line; last, one JSON line."""
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+
+    dim = 3
+    solvers = {comp: lt.BiCGStabSolver(build_stencil_system(
+        dim, SHAPE3, lt.SolverOptions(entry_dtype=torch.float32,
+                                      compensated_dots=comp), device))
+               for comp in (False, True)}
+    A = stencil_matvec(torch, lt, dim)
+    finite = lambda h: bool(torch.isfinite(h).all())
+    first_bad = lambda h: (None if finite(h)
+                           else int((~torch.isfinite(h)).nonzero()[0]))
+    rows = []
+    for k in range(BREAKDOWN_RHS):
+        b = torch.ones(SHAPE3, device=device)
+        if k:
+            g = torch.Generator(device=device).manual_seed(k)
+            b += BREAKDOWN_EPS * torch.randn(SHAPE3, generator=g,
+                                             device=device)
+        runs = {}
+        for comp, solver in solvers.items():
+            planner = solver.planner
+            planner.rhs_vectors[0].data.copy_(
+                b.reshape(planner.rhs_vectors[0].data.shape))
+            restart(solver)
+            runs[comp] = (solver.solve(BREAKDOWN_ITERS if not comp
+                                       else N_ITERS),
+                          planner.sol_vectors[0].data.clone())
+        hist, (hist_c, x_c) = runs[False][0], runs[True]
+        b64 = b.double()
+        h64, x64 = textbook_bicgstab(torch, SHAPE3, N_ITERS, torch.float64,
+                                     device, matvec=A, rhs=b64)
+        h32, _ = textbook_bicgstab(torch, SHAPE3, BREAKDOWN_ITERS,
+                                   torch.float32, device, matvec=A, rhs=b)
+        hd, xd = textbook_bicgstab(torch, SHAPE3, N_ITERS, torch.float32,
+                                   device, dot_dtype=torch.float64,
+                                   matvec=A, rhs=b)
+        kq = solution_quality(torch, hist_c, x_c, h64, x64, A, b64)
+        tq = solution_quality(torch, hd, xd, h64, x64, A, b64)
+        head = N_ITERS + 1
+        row = {"rhs": "1" if not k else f"1 + {BREAKDOWN_EPS} z, seed {k}",
+               "first_nonfinite": {"kernel": first_bad(hist),
+                                   "textbook f32": first_bad(h32)},
+               "window": {"kernel": agree_window(hist[:head], h64),
+                          "textbook f32": agree_window(h32[:head], h64),
+                          "kernel compensated": agree_window(hist_c, h64),
+                          "textbook f32 (f64 dots)": agree_window(hd, h64)},
+               "compensated_end": {
+                   "x_err": kq[1], "x_err_textbook": tq[1],
+                   "rr": kq[2], "rr_textbook": tq[2],
+                   "pass": kq[2] <= 2 * tq[2]
+                   and kq[1] <= max(2 * tq[1], BICG3_X_FLOOR)}}
+        rows.append(row)
+        log(f"[breakdown] b = {row['rhs']}: first non-finite "
+            f"{row['first_nonfinite']}; window {row['window']}; "
+            f"compensated end {row['compensated_end']}")
+        del h64, x64, h32, hd, xd, b64
+        torch.cuda.empty_cache()
+    log(json.dumps({"card": card, "tree": os.getcwd(), "dim": dim,
+                    "iters": BREAKDOWN_ITERS, "rows": rows}))
+    return 0
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
-               nflops, bw, library_ms=None):
+               nflops, bw, library_ms=None, op_rate=F32_PEAK):
     """One entry of the kernels line: bound_ms is the larger of the bytes
-    over the measured copy bandwidth and the f32 operations over the card's
-    f32 peak; pct_of_bound is bound_ms over ms."""
+    over the measured copy bandwidth and the operations over their peak
+    rate (``op_rate``: the card's f32 peak, or K11 roll's and row's
+    shared-memory steps per second); pct_of_bound is bound_ms over ms."""
     t_bytes = nbytes / bw * 1e3
-    t_ops = nflops / F32_PEAK * 1e3
+    t_ops = nflops / op_rate * 1e3
     bound = max(t_bytes, t_ops)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -3132,6 +3271,8 @@ def main() -> int:
             log(f"[ptxas] {line.strip()}")
     if "--solves" in argv:
         return solves(torch, np, T, lt, device, card)
+    if "--breakdown" in argv:
+        return breakdown(torch, lt, device, card)
     m1_attrs = march1_attrs(build.load_library())
     log("[march1] registers, spill bytes, resident blocks per SM: "
         + "; ".join(f"{k} {v}" for k, v in m1_attrs.items()))
@@ -3179,7 +3320,7 @@ def main() -> int:
     cli_checked = cli_checks(torch, np, lt, device)
     mark("phase 4h")
     bw_copy = copy_bandwidth(torch, device)
-    ptimes, k12_bw, k12_turns = time_probes(torch, device, card)
+    ptimes, k12_bw, k12_ms = time_probes(torch, device, card)
     # K12 may stream faster than copy_: every bound takes the faster one
     bw = max(bw_copy, k12_bw)
     log(f"[time] copy bandwidth {bw_copy / 1e9:.1f} GB/s (copy_), "
@@ -3273,13 +3414,22 @@ def main() -> int:
     # K10 and torch.take also in CUDA graphs (device time alone)
     kernels[-1]["graph_ms"], kernels[-1]["library_graph_ms"] = \
         extra_x["K10_graph_ms"]
-    n_tile = 256 * 1024
+    # K11: fma's bound is its flops at the f32 peak; roll's and row's their
+    # chain steps at the shared-memory rate, every SM's SMEM_B_PER_CLOCK at
+    # the maximum SM clock over 8 B per step
+    n_tile, clock = 256 * 1024, max_sm_clock_hz()
+    steps = 64 * K11_ROW_REPS * n_tile
+    step_rate = (torch.cuda.get_device_properties(0).multi_processor_count
+                 * SMEM_B_PER_CLOCK / 8 * clock)
+    log(f"[time] K11 roll/row ceiling {step_rate:.4g} steps/s "
+        f"(clocks.max.sm {clock / 1e6:.0f} MHz) on {card}")
     for k11 in ("fma", "roll", "row"):
         m = f"chain_{k11}"
         kernels.append(kernel_row(
             f"chain_probe [{k11}] ({K11_ROW_REPS} trips)", K11_CSRC,
             K11_PALLAS, launches[m], errs_h[m], *ptimes[m][:2], 8 * n_tile,
-            2 * 64 * K11_ROW_REPS * n_tile, bw))
+            *((2 * steps, bw) if k11 == "fma" else
+              (steps, bw, None, step_rate))))
     n12 = K12_SHAPES[0][0] * K12_SHAPES[0][1]
     kernels.append(kernel_row(
         "copy_probe", K12_CSRC, K12_PALLAS, launches["copy_probe"],
@@ -3287,7 +3437,7 @@ def main() -> int:
         ptimes["copy_probe"][2]))
     report = {"card": card, "kind": kind, "build_s": build_s,
               "copy_GBps": bw_copy / 1e9, "k12_GBps": k12_bw / 1e9,
-              "k12_turns_ms": k12_turns,
+              "k12_turns_ms": k12_ms,
               "bound_GBps": bw / 1e9, "kernels": kernels,
               "bicg_kernel_ms": {m: {str(c): t for c, t in v.items()}
                                  for m, v in btimes.items()},

@@ -877,17 +877,35 @@ __device__ __forceinline__ void m1_fold(T v, T* __restrict__ partials,
   m1_fold<T, 1>(a, partials, counter, out);
 }
 
-// cudaFuncGetAttributes and the occupancy calculator for one kernel:
-// out = {registers, local (spill) bytes, resident blocks per SM}.
+// Let `kernel` take `bytes` of dynamic shared memory (above 48 KB needs
+// the attribute), once per device and kernel: `done` is the caller's mask
+// of devices already set.
 template <typename K>
-int m1_attrs(K kernel, int* out) {
+int dyn_smem_ready(K kernel, int bytes, unsigned& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (done & bit) return (int)cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done |= bit;
+  return (int)err;
+}
+
+// cudaFuncGetAttributes and the occupancy calculator for one kernel
+// launched with `smem` bytes of dynamic shared memory: out = {registers,
+// local (spill) bytes, resident blocks per SM}.
+template <typename K>
+int m1_attrs(K kernel, int* out, size_t smem = 0) {
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[2], kernel, LS_M1_THREADS, 0);
+      &out[2], kernel, LS_M1_THREADS, smem);
 }
 
 }  // namespace

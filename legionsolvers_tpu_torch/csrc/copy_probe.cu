@@ -12,17 +12,21 @@
 // fits the 50 MB L2, so the time is device memory's.
 //
 // Design.  The TPU kernel streams 512-row tiles through VMEM with
-// double-buffered DMA; on the card each thread keeps four 16-byte float4
-// loads in flight before it stores them (a block covers 16 KB, consecutive
-// threads on consecutive 16 B, no grid-stride loop).  Pointers that are
-// not 16-byte aligned, and the last n % 4 elements, take a scalar kernel,
-// one element per thread.  The add is rounded as the plain version rounds
-// it: bit for bit.  A TMA version is later work.
+// double-buffered DMA.  Here the body (the first `body` elements, both
+// pointers 16-byte aligned, body % 4 == 0) takes a float4 kernel: each
+// thread keeps eight 16-byte loads in flight, with streaming (evict-first)
+// loads and stores, __ldcs / __stcs, before it stores them (a block covers
+// 32 KB, consecutive threads on consecutive 16 B, no grid-stride loop).
+// On an H100 this ran level with torch.add in turns; four loads in flight
+// without the hints, and a persistent ring on the bulk-copy (TMA) engine,
+// ran no faster (PERF.md §6).  The rest (an unaligned pointer, the last
+// n % 4 elements) takes a scalar kernel, one element per thread.  The add
+// is rounded as the plain version rounds it: bit for bit.
 
 #include "common.cuh"
 
 #define LS_COPY_THREADS 256
-#define LS_COPY_VECS 4          // float4 loads in flight per thread
+#define LS_COPY_VECS 8          // float4 loads in flight per thread
 
 namespace {
 
@@ -43,12 +47,12 @@ copy_probe_vec_kernel(const float4* __restrict__ x, float4* __restrict__ out,
 #pragma unroll
   for (int k = 0; k < LS_COPY_VECS; ++k) {
     const long long i = base + (long long)k * LS_COPY_THREADS;
-    if (i < n4) v[k] = x[i];
+    if (i < n4) v[k] = __ldcs(x + i);
   }
 #pragma unroll
   for (int k = 0; k < LS_COPY_VECS; ++k) {
     const long long i = base + (long long)k * LS_COPY_THREADS;
-    if (i < n4) out[i] = add_one(v[k]);
+    if (i < n4) __stcs(out + i, add_one(v[k]));
   }
 }
 
@@ -64,30 +68,30 @@ copy_probe_scalar_kernel(const float* __restrict__ x, float* __restrict__ out,
 
 extern "C" {
 
-// x, out: n floats each, distinct buffers.
-int ls_copy_probe(const float* x, float* out, long long n, void* stream_ptr) {
-  if (n < 0) return (int)cudaErrorInvalidValue;
-  if (n == 0) return (int)cudaSuccess;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
+// x, out: n floats each, distinct buffers.  The body [0, body) (both
+// pointers 16-byte aligned and body % 4 == 0, or body == 0) takes the
+// float4 kernel, [body, n) the scalar one.
+int ls_copy_probe(const float* x, float* out, long long body, long long n,
+                  void* stream_ptr) {
   const bool aligned = ((unsigned long long)x % 16 == 0) &&
                        ((unsigned long long)out % 16 == 0);
-  long long done = 0;
-  if (aligned && n >= 4) {
-    const long long n4 = n / 4;
-    const long long per_block = LS_COPY_THREADS * LS_COPY_VECS;
+  if (n < 0 || body < 0 || body > n || body % 4 || (body && !aligned))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (body) {
+    const long long n4 = body / 4, per_block = LS_COPY_THREADS * LS_COPY_VECS;
     const long long blocks = (n4 + per_block - 1) / per_block;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     copy_probe_vec_kernel<<<(unsigned)blocks, LS_COPY_THREADS, 0, stream>>>(
         (const float4*)x, (float4*)out, n4);
     const int err = (int)cudaGetLastError();
     if (err) return err;
-    done = n4 * 4;
   }
-  if (done < n) {
-    const long long blocks = (n - done + LS_COPY_THREADS - 1) / LS_COPY_THREADS;
+  if (body < n) {
+    const long long blocks = (n - body + LS_COPY_THREADS - 1) / LS_COPY_THREADS;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     copy_probe_scalar_kernel<<<(unsigned)blocks, LS_COPY_THREADS, 0, stream>>>(
-        x, out, done, n);
+        x, out, body, n);
   }
   return (int)cudaGetLastError();
 }

@@ -19,10 +19,12 @@ and update, as in the JAX passes.  ``compensated`` sums the dots from exact
 f32 products in float64 and rounds once.
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
-launches its kernel or raises.  pv and st with a reach-1 stencil run the
-register march of K6a (``march1`` in ``csrc/common.cuh``, their dots
-folded into the last block); pv and st with reach 2..8, and update, run
-``march3d`` and a second launch.  All take their scratch from
+launches its kernel or raises.  With a reach-1 stencil each pass runs the
+register march of K6a (``march1`` in ``csrc/common.cuh``, its dots folded
+into the last block: one launch), but for update with ``compensated``
+dots; with reach 2..8, and that case, it runs ``march3d`` and a second
+launch (``ls_bicg3d_update`` says why).  All take their scratch
+(partials, capacity, the last block's counter) from
 :func:`~.stencil3d.march_scratch`.  Every CUDA launch adds one to
 :data:`~.stencil2d.LAUNCHES` under ``bicg3d_pv``, ``bicg3d_st`` or
 ``bicg3d_update``.  Buffers as in ``bicgstab2d.py``: p' and v' go to
@@ -177,11 +179,12 @@ def bicg3d_update(r, v, x, p, rt, alpha, omega, s_top=None, s_bot=None, *,
         out = torch.empty_like(r)
     al, om = _dev_scalars(alpha, 1, dev), _dev_scalars(omega, 1, dev)
     dot = torch.empty(2, dtype=torch.float32, device=dev)
-    partials = march_scratch(dev, X, Y, Z)[0]
+    partials, capacity, counter = march_scratch(dev, X, Y, Z)
     st = _stencil3_struct(offsets, values)
     _launch("bicg3d_update", "ls_bicg3d_update", (
         _ptr(r), _ptr(v), _ptr(x), _ptr(p), _ptr(rt), _ptr(al), _ptr(om),
-        _ptr(s_top), _ptr(s_bot), _ptr(out), _ptr(dot), _ptr(partials), X,
-        Y, Z, int(compensated), ctypes.byref(st),
+        _ptr(s_top), _ptr(s_bot), _ptr(out), _ptr(dot), _ptr(partials),
+        capacity, _ptr(counter), X, Y, Z, int(compensated),
+        ctypes.byref(st),
     ), dev)
     return x, out, dot[0], dot[1]

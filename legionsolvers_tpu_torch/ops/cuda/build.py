@@ -139,14 +139,15 @@ def load_library() -> ctypes.CDLL:
         "ls_bicg3d_pv_m1_attrs": [_I, _P],
         "ls_xpay_pq3d_m1_attrs": [_I, _P],
         "ls_bicg3d_st_m1_attrs": [_I, _P],
+        "ls_bicg3d_update_m1_attrs": [_I, _P],
         "ls_march1_blocks": [_I] * 3,
         "ls_bicg3d_st": [_P] * 7 + [_I, _P] + [_I] * 4 + [_P, _P],
-        "ls_bicg3d_update": [_P] * 12 + [_I] * 4 + [_P, _P],
+        "ls_bicg3d_update": [_P] * 12 + [_I, _P] + [_I] * 4 + [_P, _P],
         "ls_dia2d": [_I] + [_P] * 5 + [_I] + [_P] * 3 + [_I, _I, _P],
         "ls_winell": [_I] + [_P] * 5 + [_I] * 3 + [_P],
         "ls_blockperm": [_I] + [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_P],
         "ls_vpu_chain": [_I, _P, _P, _I, _I, _L, _P],
-        "ls_copy_probe": [_P, _P, _L, _P],
+        "ls_copy_probe": [_P, _P, _L, _L, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -4,9 +4,11 @@ Port of ``pallas_copy_bw``'s kernel in ``scripts/probe_roofline.py``: o =
 x + 1.0 over a float32 array, 8 B per element.  :func:`copy_probe`
 launches the hand-written CUDA kernel of ``csrc/copy_probe.cu`` on CUDA
 tensors and runs :func:`copy_plain` on CPU tensors; it never falls back.
-Every CUDA launch adds one to :data:`~.stencil2d.LAUNCHES` under
-``copy_probe``.  The kernel rounds the add as the plain version does: the
-two match bit for bit.
+The array is split by :func:`copy_split`: a body of whole 16-byte vectors
+when both pointers are 16-byte aligned, which takes a float4 kernel, and
+the rest, which takes a scalar kernel.  Every CUDA launch adds one to
+:data:`~.stencil2d.LAUNCHES` under ``copy_probe``.  The kernels round the
+add as the plain version does: the two match bit for bit.
 """
 
 from __future__ import annotations
@@ -16,6 +18,15 @@ from typing import Optional
 import torch
 
 from .stencil2d import _launch, _on_cuda, _ptr
+
+
+def copy_split(x_addr: int, out_addr: int, n: int) -> int:
+    """End of the body: the elements [0, body) go to the float4 kernel,
+    [body, n) to the scalar one.  body is n rounded down to whole
+    16-byte vectors when both addresses are 16-byte aligned, else 0."""
+    if x_addr % 16 or out_addr % 16:
+        return 0
+    return n - n % 4
 
 
 def copy_plain(x: torch.Tensor, out: Optional[torch.Tensor] = None):
@@ -40,6 +51,8 @@ def copy_probe(x: torch.Tensor, out: Optional[torch.Tensor] = None):
         raise ValueError("out must not share storage with x")
     if not _on_cuda(x, out):
         return copy_plain(x, out)
-    _launch("copy_probe", "ls_copy_probe", (_ptr(x), _ptr(out), x.numel()),
+    n = x.numel()
+    body = copy_split(x.data_ptr(), out.data_ptr(), n)
+    _launch("copy_probe", "ls_copy_probe", (_ptr(x), _ptr(out), body, n),
             x.device)
     return out

@@ -197,8 +197,8 @@ def march_scratch(device, X: int, Y: int, Z: int):
     """(partials, capacity, counter) of the 3-D passes' launches on an
     [X, Y, Z] volume: float64 partial dots with room for two per block of
     either march (K7 st and update keep two; floats, or doubles under
-    ``compensated`` and for march1's st), and march1's last-block
-    counter (zero between launches).  Made once per (device, stream, X, Y,
+    ``compensated`` and for march1's st and update), and march1's
+    last-block counter (zero between launches).  Made once per (device, stream, X, Y,
     Z): launches on one stream are ordered, so they can share them."""
     key = (device, _raw_stream(device), X, Y, Z)
     scratch = _MARCH_SCRATCH.get(key)

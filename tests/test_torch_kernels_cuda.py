@@ -11,11 +11,13 @@ the edges of the reach-1 register march's tiles, chunks and 16-byte
 vectors, with random halo planes, for the 7-point, 27-point, a ten-term
 box and a reach-2 stencil: elementwise 2e-5 * max|ref|, dots 1e-4 of their
 Cauchy-Schwarz scale sqrt(<a,a><b,b>) (chip_smoke.py's bounds); compensated
-K7 pv and st dots within 4e-7 of the float64 sum of their f32 operands; the
-passes that fold their dots into the last block repeat bit for bit, also
-with two shapes alternating on one stream.  Two tests need no card: the
-shared 3-D scratch's room, and the K6b and K7 st wrappers running their
-plain versions on CPU tensors.  The
+K7 dots (pv, st, update) within 4e-7 of the float64 sum of their f32
+operands; the passes that fold their dots into the last block repeat bit
+for bit, also with two shapes alternating on one stream.  Some tests need
+no card: the shared 3-D scratch's room, and the K6b and K7 st and update
+wrappers running their plain versions on CPU tensors.  K12 must match
+its plain version bit for bit, also on an offset view, which takes the
+scalar kernel.  The
 explicit-sparse kernels K8, K9 and K10 round every product and sum as their
 plain versions do, so they must match them bit for bit (K8's dot: 1e-5 of
 its Cauchy-Schwarz scale).  K1 (step2) is also held at the edges of its
@@ -273,13 +275,17 @@ def test_bicgstab3d_kernel_matches_plain_on_card(kernel, dim, compensated,
         s, tv = s.double().cpu().numpy(), tv.double().cpu().numpy()
         for key, exact in (("ts", (tv * s).sum()), ("tt", (tv * tv).sum())):
             assert abs(got[key] - exact) <= 4e-7 * abs(exact), key
+    if compensated and kernel == "update":
+        rn, rt = got["r"], d["rt"].astype(np.float64)
+        for key, exact in (("rr", (rn * rn).sum()), ("rtr", (rt * rn).sum())):
+            assert abs(got[key] - exact) <= 4e-7 * abs(exact), key
 
 
 def _march1_passes(device, shape, dim, seed):
     """Closures for the passes that fold their dots into march1's last
     block (K6a's modes with a dot, K6b, K7 pv and st with f32 and
-    compensated dots) on fixed inputs; each returns its outputs as one
-    flat float32 tensor."""
+    compensated dots, K7 update with f32 dots) on fixed inputs; each
+    returns its outputs as one flat float32 tensor."""
     t, kw = _tensors(_state3d(seed, shape), device), _kw3(dim)
     h = (t["top"], t["bot"])
     outs = (torch.empty_like(t["p"]), torch.empty_like(t["v"]))
@@ -297,6 +303,11 @@ def _march1_passes(device, shape, dim, seed):
         return lambda: TB3.bicg3d_st(t["r"], t["v"], 0.83, *h,
                                      compensated=comp, **kw)
 
+    def bicg_update():
+        x = t["x"].clone()
+        return TB3.bicg3d_update(t["r"], t["v"], x, t["p"], t["rt"], 0.83,
+                                 0.41, *h, out=outs[1], **kw)
+
     fns = {"y_dot": lambda: T3.grid3d_stencil_matvec(t["x"], *h,
                                                      with_dot=True, **kw),
            "pq": lambda: (T3.grid3d_cg_pq(t["p"], *h, **kw),),
@@ -304,7 +315,8 @@ def _march1_passes(device, shape, dim, seed):
            "xpay_pq": lambda: T3.grid3d_cg_xpay_pq(t["r"], t["p"], 0.37, *h,
                                                    out=outs[0], **kw),
            "pv": pv(False), "pv_comp": pv(True),
-           "st": st(False), "st_comp": st(True)}
+           "st": st(False), "st_comp": st(True),
+           "bicg_update": bicg_update}
     flat = lambda res: torch.cat([a.reshape(-1).clone() for a in res])
     return {k: (lambda f=f: flat(f())) for k, f in fns.items()}
 
@@ -342,7 +354,8 @@ def test_march1_geometry_and_residency_on_card(cuda_device):
     for fn, n in (("ls_stencil3d_m1_attrs", 16),
                   ("ls_xpay_pq3d_m1_attrs", 4),
                   ("ls_bicg3d_pv_m1_attrs", 8),
-                  ("ls_bicg3d_st_m1_attrs", 8)):
+                  ("ls_bicg3d_st_m1_attrs", 8),
+                  ("ls_bicg3d_update_m1_attrs", 4)):
         for which in range(n):
             assert getattr(lib, fn)(which, out) == 0, (fn, which)
             assert out[2] >= 2, (fn, which, list(out))
@@ -374,6 +387,55 @@ def test_xpay_pq_and_st_run_plain_on_cpu(dim):
         for key in want:
             assert np.array_equal(got[key], want[key]), key
     assert sum(T.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("shape", [(512, 512, 512), (999, 17, 5),
+                                   (6, 20, 129), (1, 9, 131)])
+def test_march_scratch_covers_update_on_march1(shape):
+    """K7 update's march1 launch (two partial dots per block, the
+    last-block counter) fits the shared scratch's capacity and entries at
+    shapes with many, few and single-plane chunks (no card needed)."""
+    tiles, chunk, blocks = T3.march1_geometry(*shape)
+    assert blocks == tiles * -(-shape[0] // chunk)
+    assert blocks <= T3.march_scratch_size(*shape)
+    assert 2 * blocks <= T3.march_scratch_entries(*shape)
+
+
+@pytest.mark.parametrize("dim", STENCILS3)
+def test_update_runs_plain_on_cpu(dim):
+    """On CPU tensors the K7 update wrapper returns its plain version's
+    results exactly (x updated in place) and launches nothing (no card
+    needed)."""
+    d = _state3d(23, (6, 20, 129))
+    T.reset_launch_counts()
+    for comp in (False, True):
+        got = _bicg3d("update", d, "cpu", dim, comp)
+        want = _bicg3d("update", d, "cpu", dim, comp, plain=True)
+        assert got.keys() == want.keys()
+        for key in want:
+            assert np.array_equal(got[key], want[key]), key
+    assert sum(T.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16384, 4096), (200, 328), (1000003,)])
+def test_k12_matches_plain_on_card(shape, cuda_device):
+    """K12's float4 body, with the scalar rest where n % 4 != 0, bit for
+    bit with the plain version; an offset view (unaligned) takes the scalar
+    kernel alone and matches too."""
+    from legionsolvers_tpu_torch.ops.cuda import copy_probe as K12
+
+    g = torch.Generator(cuda_device).manual_seed(13)
+    x = torch.randn(shape, generator=g, device=cuda_device)
+    T.reset_launch_counts()
+    assert torch.equal(K12.copy_probe(x), K12.copy_plain(x))
+    flat = torch.randn(x.numel() + 1, generator=g, device=cuda_device)
+    view, out = flat[1:], torch.empty(x.numel(), device=cuda_device)
+    assert K12.copy_split(view.data_ptr(), out.data_ptr(), view.numel()) == 0
+    assert torch.equal(K12.copy_probe(view, out=out),
+                       K12.copy_plain(view))
+    torch.cuda.synchronize()
+    assert dict(T.LAUNCHES) == {"copy_probe": 2}
 
 
 # ---------------------------------------------------------------------------

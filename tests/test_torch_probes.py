@@ -103,6 +103,39 @@ def test_copy_probe_checks_its_inputs():
         K12.copy_probe(x.double())
 
 
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 4096, 16384 * 4096 + 3])
+@pytest.mark.parametrize("x_off,out_off", [(0, 0), (4, 0), (0, 8), (12, 12)])
+def test_copy_split_covers_once(n, x_off, out_off):
+    """The body [0, body) and the scalar rest [body, n) cover [0, n) once;
+    the body is whole 16-byte vectors, and empty unless both addresses are
+    16-byte aligned."""
+    body = K12.copy_split(1 << 20 | x_off, 1 << 24 | out_off, n)
+    assert 0 <= body <= n and body % 4 == 0
+    if n <= 4096:
+        covered = np.zeros(n, np.int64)
+        for lo, hi in ((0, body), (body, n)):
+            covered[lo:hi] += 1
+        assert (covered == 1).all()
+    if x_off or out_off:
+        assert body == 0
+    else:
+        assert n - body < 4
+
+
+@pytest.mark.parametrize("n,offset", [(33 * 7, 0), (1001, 0), (1001, 1)])
+def test_copy_probe_runs_plain_on_cpu(n, offset):
+    """On CPU tensors, also an offset view, the wrapper runs the plain
+    version and launches nothing."""
+    from legionsolvers_tpu_torch.ops.cuda import stencil2d as T
+
+    flat = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        n + offset).astype(np.float32))
+    x = flat[offset:]
+    T.reset_launch_counts()
+    assert torch.equal(K12.copy_probe(x), x + 1.0)
+    assert sum(T.LAUNCHES.values()) == 0
+
+
 def test_rates_window_is_the_cards():
     """A healthy H100 reading passes where the JAX package's TPU window
     refuses it; readings above the data sheet's f32 peak or shared-memory
