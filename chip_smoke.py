@@ -6,15 +6,19 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
 Two other modes compare trees of the package on one card instead:
 ``--solves [--tree DIR]`` prints, for the package of DIR (default this
 one), 2-D CG's distance from float64 at three sizes, the ms/iter and host
-enqueue ms/iter of the 2-D CG, random-2^20 CG and 3-D CG and BiCGStab
-(7- and 27-point at 256^3) solve(200)s, five runs each, the host's
-enqueue time of one K10 call, the times of K6b and K7 st and update
-(compensated dots off and on) at 256^3, and K12 and ``torch.add`` in
-turns (one JSON line); ``--ab PARENT`` runs
+enqueue ms/iter of the 2-D CG, 2-D BiCGStab (f32 and compensated dots),
+random-2^20 CG and 3-D CG and BiCGStab (7- and 27-point at 256^3)
+solve(200)s, five runs each, the host's enqueue time of one K10 call, the
+times of K5b (compensated dots off and on) and K2 at 4096^2 and of K6b
+and K7 st and update (compensated dots off and on) at 256^3, and K12 and
+``torch.add`` in turns (one JSON line); ``--ab PARENT`` runs
 ``--solves`` on PARENT and on this tree, alternating parent, change,
-change, parent, and prints the medians and ranges.  ``--breakdown [--tree
-DIR]`` runs phase 4d's f32 BiCGStab on the 7-point system at 256^3 from
-several right-hand sides (:func:`breakdown`).
+change, parent, and prints the medians and ranges.  ``--breakdown [--dim
+2|3] [--tree DIR]`` runs phase 4d's f32 BiCGStab on the 7-point system at
+256^3 (dim 3, the default) or phase 4b's on the 5-point system at 4096^2
+(dim 2) from several right-hand sides (:func:`breakdown`).  ``--passes
+[--tree DIR]`` prints the times of K5b and K2 at 4096^2 that ``--solves``
+takes (:func:`time_ab_passes_2d`) and nothing else.
 
 Phases (any failure raises, and the exit code is non-zero):
 
@@ -31,7 +35,15 @@ Phases (any failure raises, and the exit code is non-zero):
    operands.  K1 (step2) also runs at 33 x 4097, 4099 x 130 and 1 x 5 (the
    edges of its 120-column strips, its row chunks and its 16-byte
    vectors), with the cross and a 9-point reach-1 stencil, to the same
-   bounds, and a repeat on the same inputs must match bit for bit;
+   bounds, and a repeat on the same inputs must match bit for bit.  K5b
+   (bicg_st, compensated dots off and on) and K2 (gram2), the passes on
+   K1's column-strip march, at 200 x 328, 33 x 4097, 4099 x 130, 1 x 5
+   and 96 x 132 with the cross and the 9-point stencil (and K5b with a
+   reach-2 cross, which runs the tile kernel), to the same bounds and bit
+   for bit on a repeat; a torch.profiler trace shows that the strip passes
+   launch one kernel and no reduce_partials, and that reach-2 K5b
+   launches its second.  The strip kernels' registers, spill bytes and
+   resident blocks per SM are printed after the build;
 4. drive the CG path, ``entry.build_system(4096)`` -> ``CGSolver``: a
    few eager ``step()``s (K3 y_dot), ``solve(200)`` (K1 x100, K2 x7),
    ``solve(201)`` (adds one K3 update), a two-pass ``solve(8)`` under
@@ -173,8 +185,9 @@ and the roofline probes):
    ``copy_`` and K12.  ``--profile`` adds the idle share of each CLI run's
    solve.
 
-The line before the last is one JSON object describing every kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Details also go to
+The line before the last is one JSON object describing every kernel
+(``ms_lost``: launches x (ms - bound_ms) over the main path's launches);
+the last line is ``{"ok": true, "device": {...}}``.  Details also go to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -490,6 +503,131 @@ def compare_step2_edges(torch, T, device):
                 "for bit")
             del d, runs, k1, k2, ref
     return worst_all
+
+
+# K5b (bicg_st) and K2 (gram2) on the column-strip march, at K1's edge
+# shapes, with the cross, the 9-point stencil and (K5b) a reach-2 cross
+# with arms of 2, which runs the tile kernel and its second launch
+STRIP_SHAPES = (RAGGED, (33, 4097), (4099, 130), (1, 5), (96, 132))
+OFFS_R2 = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1), (-2, 0), (2, 0),
+           (0, -2), (0, 2))
+VALS_R2 = (5.0, -1.0, -1.0, -1.0, -1.0, -0.25, -0.25, -0.25, -0.25)
+STRIP_STENCILS = {"cross": (OFFS, VALS), "9-point": (OFFS9, VALS9),
+                  "reach2": (OFFS_R2, VALS_R2)}
+
+
+def compare_strip_edges(torch, T, TB, device):
+    """Phase 3, K5b (compensated dots off and on) and K2 at STRIP_SHAPES
+    with STRIP_STENCILS (K2: reach 1 only) against their plain versions to
+    phase 3's bounds (each dot to 1e-4 of its Cauchy-Schwarz scale), and a
+    repeat of the kernel on the same inputs, bit for bit.  Returns
+    {pass name: max abs error}."""
+    nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
+    errs = {"bicg_st": 0.0, "gram2": 0.0}
+    for sname, (offs, vals) in STRIP_STENCILS.items():
+        kw = dict(offsets=offs, values=vals)
+        for shape in STRIP_SHAPES:
+            g = torch.Generator(device=device).manual_seed(41)
+            r, v = (torch.randn(shape, generator=g, device=device)
+                    for _ in range(2))
+            s = r - torch.tensor(0.83, device=device) * v
+            t = T.apply_plain(s, offs, vals)
+            scale = torch.tensor([nrm(t) * nrm(s), nrm(t) ** 2],
+                                 dtype=torch.float64)
+            worst = 0.0
+            for comp in (False, True):
+                k1, k2, ref = (torch.stack(fn(r, v, 0.83, compensated=comp,
+                                              **kw)).double().cpu()
+                               for fn in (TB.bicg_st, TB.bicg_st,
+                                          TB.bicg_st_plain))
+                err = (k1 - ref).abs()
+                if not torch.equal(k1, k2):
+                    raise AssertionError(f"bicg_st {shape} {sname} "
+                                         f"compensated={comp}: a repeat is "
+                                         "not bit-identical")
+                if not bool((err <= 1e-4 * scale).all()):
+                    raise AssertionError(
+                        f"bicg_st {shape} {sname} compensated={comp}: kernel "
+                        f"disagrees with its plain version ({err.max():g})")
+                worst = max(worst, err.max().item())
+            errs["bicg_st"] = max(errs["bicg_st"], worst)
+            done = "bicg_st"
+            if sname != "reach2":
+                g1, g2, gref = (fn(r, v, **kw).double().cpu() for fn in (
+                    T.grid2d_cg_gram2, T.grid2d_cg_gram2, T.gram2_plain))
+                gerr = (g1 - gref).abs()
+                if not torch.equal(g1, g2):
+                    raise AssertionError(f"gram2 {shape} {sname}: a repeat "
+                                         "is not bit-identical")
+                if not bool((gerr <= 1e-4 * gram_scales(torch, T, r, v, kw))
+                            .all()):
+                    raise AssertionError(
+                        f"gram2 {shape} {sname}: kernel disagrees with its "
+                        f"plain version ({gerr.max():g})")
+                errs["gram2"] = max(errs["gram2"], gerr.max().item())
+                worst = max(worst, gerr.max().item())
+                done += ", gram2"
+            log(f"[check] {done} {shape} {sname}: kernel == plain (max abs "
+                f"err {worst:.3g}); repeat bit for bit")
+    return errs
+
+
+def check_one_launch_2d(torch, T, TB, device):
+    """Phase 3: K5b with the reach-1 stencils (compensated dots off and on)
+    and K2 launch one kernel, their strip kernel, and no reduce_partials;
+    K5b with the reach-2 stencil launches the tile kernel and its second
+    launch, which shows that the trace sees a second launch.  Returns
+    {case: kernel names}."""
+    g = torch.Generator(device=device).manual_seed(37)
+    r, v = (torch.randn(RAGGED, generator=g, device=device)
+            for _ in range(2))
+    alpha = torch.tensor(0.83, device=device)  # as the solver passes it
+    seen, bad = {}, []
+    for sname, (offs, vals) in STRIP_STENCILS.items():
+        kw = dict(offsets=offs, values=vals)
+        cases = {f"bicg_st {sname} compensated={c}":
+                 lambda c=c, kw=kw: TB.bicg_st(r, v, alpha, compensated=c,
+                                               **kw)
+                 for c in (False, True)}
+        if sname != "reach2":
+            cases[f"gram2 {sname}"] = lambda kw=kw: T.grid2d_cg_gram2(r, v,
+                                                                      **kw)
+        for case, fn in cases.items():
+            names = seen[case] = device_kernels(torch, fn)
+            second = any("reduce_partials" in n for n in names)
+            ok = (second if sname == "reach2" else
+                  len(names) == 1 and "strip_kernel" in names[0])
+            if not ok:
+                bad.append((case, names))
+    log("[check2d] one launch per strip pass: "
+        + ("yes" if not bad else f"NO: {bad}") + "; e.g. "
+        + "; ".join(f"{k}: {seen[k]}" for k in (
+            "bicg_st cross compensated=False", "gram2 cross",
+            "bicg_st reach2 compensated=True")))
+    if bad:
+        raise AssertionError(f"strip passes with a second launch, or the "
+                             f"reach-2 pass without one: {bad}")
+    return seen
+
+
+def strip_attrs(lib):
+    """{kernel variant: [registers, spill bytes, resident blocks per SM]}
+    of K5b's and K2's strip kernels (cudaFuncGetAttributes and the
+    occupancy calculator on this card)."""
+    import ctypes
+
+    out, res = (ctypes.c_int * 3)(), {}
+    for fn, n, name in (("ls_bicg_st_strip_attrs", 8, "bicg_st"),
+                        ("ls_gram2_attrs", 4, "gram2")):
+        for which in range(n):
+            err = getattr(lib, fn)(which, out)
+            if err:
+                raise RuntimeError(f"{fn}({which}): CUDA error {err}")
+            label = (f"{name}{' compensated' if which & 4 else ''} "
+                     f"{'cross' if which & 2 else 'stencil'} "
+                     f"{'vec' if which & 1 else 'scalar'}")
+            res[label] = list(out)
+    return res
 
 
 def bicg_inputs(torch, shape, seed, device):
@@ -1443,9 +1581,11 @@ TRACE_TAKES = 4  # traces of one call before device_kernels gives up
 def device_kernels(torch, fn):
     """Names of the CUDA kernels one call of ``fn`` launches, from a
     torch.profiler trace.  The trace ends with torch's spin kernel on the
-    same stream: a trace that lacks it lost device events (the tracer has
-    returned no device event at all for some short traces), so it is
-    taken again, at most TRACE_TAKES times, and never read."""
+    same stream: a trace that lacks it, or holds it alone (every call
+    traced here launches a kernel), lost device events (the tracer has
+    returned no device event at all for some short traces, and the spin
+    kernel alone for one), so it is taken again, at most TRACE_TAKES
+    times, and never read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1459,7 +1599,7 @@ def device_kernels(torch, fn):
         names = {e.key for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA}
         sentinel = {n for n in names if "spin_kernel" in n}
-        if sentinel:
+        if sentinel and names - sentinel:
             return sorted(names - sentinel)
         log(f"[check3d] a trace lost its device events "
             f"(saw {sorted(names)}); taking it again")
@@ -3017,18 +3157,47 @@ def time_ab_passes(torch, lt, device):
     return res
 
 
+def time_ab_passes_2d(torch, T, TB, device):
+    """--solves and --passes: {"bicg_st compensated=<c>" | "gram2": {"events": ms,
+    "graph": ms}}, K5b and K2 with the cross at N_GRID^2, timed as
+    :func:`time_ab_passes` times the 3-D passes (CUDA events, and CUDA
+    graphs, over a ring of three input sets)."""
+    g = torch.Generator(device=device).manual_seed(53)
+    ring = [[torch.randn(N_GRID, N_GRID, generator=g, device=device)
+             for _ in range(2)] for _ in range(3)]
+    alpha = torch.tensor(0.83, device=device)
+    cases = {f"bicg_st compensated={c}": [
+        lambda a=a, b=b, c=c: TB.bicg_st(a, b, alpha, compensated=c, **KW)
+        for a, b in ring] for c in (False, True)}
+    cases["gram2"] = [lambda a=a, b=b: T.grid2d_cg_gram2(a, b, **KW)
+                      for a, b in ring]
+    res = {}
+    for name, fns in cases.items():
+        k = iter(range(10**9))
+        res[name] = {"events": event_ms(torch, lambda: fns[next(k) % 3](), 30),
+                     "graph": graph_ms(torch, fns, 30)}
+    return res
+
+
+# the solve(200)s of --solves, besides SOLVES3
+SOLVES2 = ("cg2d", "bicg2d", "bicg2d_comp", "random")
+
+
 def solves(torch, np, T, lt, device, card, reps=5):
     """--solves: for the package this process imports, 2-D CG's distance
     from float64 at N_GRID and ACCURACY_GRIDS (:func:`cg2d_accuracy`);
     ``reps`` timed solve(200)s (:func:`solve_once`, after a warm-up) of the
-    main path's 2-D CG at 4096^2, of CG on the random 2^20 system and of
-    CG and BiCGStab on the 3-D 7- and 27-point systems at 256^3
-    (SOLVES3); the host's enqueue time of one K10 call, per hop of one
-    routed matvec (200 calls, no sync between them); the times of
-    AB_PASSES3 (:func:`time_ab_passes`); and K12 and ``torch.add`` at
-    16384 x 4096 in turns over K12_SOLVES_RINGS rings (:func:`k12_turns`).
-    One JSON line."""
+    main path's 2-D CG at 4096^2, of 2-D BiCGStab at 4096^2 with f32 and
+    with compensated dots, of CG on the random 2^20 system and of CG and
+    BiCGStab on the 3-D 7- and 27-point systems at 256^3 (SOLVES3); the
+    host's enqueue time of one K10 call, per hop of one routed matvec (200
+    calls, no sync between them); the times of K5b and K2 at 4096^2
+    (:func:`time_ab_passes_2d`) and of AB_PASSES3
+    (:func:`time_ab_passes`); and K12 and ``torch.add`` at 16384 x 4096
+    in turns over K12_SOLVES_RINGS rings (:func:`k12_turns`).  One JSON
+    line."""
     from legionsolvers_tpu_torch.entry import build_stencil_system, build_system
+    from legionsolvers_tpu_torch.ops.cuda import bicgstab2d as TB
     from legionsolvers_tpu_torch.ops.cuda import rowperm as RP
 
     out = {"card": card, "tree": os.getcwd(), "accuracy": {
@@ -3036,8 +3205,13 @@ def solves(torch, np, T, lt, device, card, reps=5):
         for n in (N_GRID, *ACCURACY_GRIDS)}}
     rsys = build_explicit(torch, np, lt, "random", device)
     f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    comp = lt.SolverOptions(entry_dtype=torch.float32, compensated_dots=True)
     runs_of = [("cg2d", lambda: lt.CGSolver(build_system(N_GRID, f32,
                                                          device))),
+               ("bicg2d", lambda: lt.BiCGStabSolver(build_system(
+                   N_GRID, f32, device))),
+               ("bicg2d_comp", lambda: lt.BiCGStabSolver(build_system(
+                   N_GRID, comp, device))),
                ("random", lambda: lt.CGSolver(rsys["planner"]))]
     for name, (kind, dim) in SOLVES3.items():
         solver_cls = lt.CGSolver if kind == "cg" else lt.BiCGStabSolver
@@ -3063,6 +3237,7 @@ def solves(torch, np, T, lt, device, card, reps=5):
         out["gather_hop_host_us"].append(
             (time.perf_counter() - t0) / 200 * 1e6)
         torch.cuda.synchronize()
+    out["kernels2d_ms"] = time_ab_passes_2d(torch, T, TB, device)
     out["kernels3d_ms"] = time_ab_passes(torch, lt, device)
     x = torch.rand(K12_SHAPES[0], device=device)
     out["k12_turns_ms"] = k12_turns(torch, x, torch.empty_like(x),
@@ -3097,22 +3272,25 @@ def ab_solves(parent, torch):
     for label, rs in runs.items():
         pool = lambda f: [v for r in rs for v in f(r)]
         med = lambda f: statistics.median(pool(f))
-        summary[label] = {
+        # 2-D CG's distance from float64 (the same in every run of a tree)
+        summary[label] = {"accuracy": rs[0]["accuracy"]}
+        summary[label].update({
             f"{name} {key}": med(lambda r: r[name][key])
-            for name in ("cg2d", "random", *SOLVES3)
-            for key in ("ms_per_iter", "host_ms_per_iter")}
+            for name in (*SOLVES2, *SOLVES3)
+            for key in ("ms_per_iter", "host_ms_per_iter")})
         summary[label].update({
             f"{name} ms_per_iter range": [
                 f(pool(lambda r: r[name]["ms_per_iter"])) for f in (min, max)]
-            for name in ("cg2d", "random", *SOLVES3)})
+            for name in (*SOLVES2, *SOLVES3)})
         summary[label]["gather_hop_host_us"] = med(
             lambda r: r["gather_hop_host_us"])
         # each pass's [median, min, max] ms with events and in graphs
-        summary[label]["kernels3d_ms"] = {
-            f"{k} {how}": [med(lambda r: [r["kernels3d_ms"][k][how]]),
-                           *(f(pool(lambda r: [r["kernels3d_ms"][k][how]]))
-                             for f in (min, max))]
-            for k in rs[0]["kernels3d_ms"] for how in ("events", "graph")}
+        for field in ("kernels2d_ms", "kernels3d_ms"):
+            summary[label][field] = {
+                f"{k} {how}": [med(lambda r: [r[field][k][how]]),
+                               *(f(pool(lambda r: [r[field][k][how]]))
+                                 for f in (min, max))]
+                for k in rs[0][field] for how in ("events", "graph")}
         # K12 and torch.add: [median, min, max] ms over the turns
         summary[label]["k12_turns_ms"] = {
             k: [med(lambda r: r["k12_turns_ms"][k]),
@@ -3122,42 +3300,48 @@ def ab_solves(parent, torch):
     return 0
 
 
-# --breakdown: right-hand sides b = 1 (phase 4d's) and b = 1 + eps z, z
-# standard normal from seeds 1 .. BREAKDOWN_RHS - 1; f32 histories over
-# BREAKDOWN_ITERS iterations, to see breakdowns past phase 4d's N_ITERS
+# --breakdown: right-hand sides b = 1 (phase 4d's or 4b's) and b = 1 + eps
+# z, z standard normal from seeds 1 .. BREAKDOWN_RHS - 1; f32 histories
+# over BREAKDOWN_ITERS iterations, to see breakdowns past N_ITERS
 BREAKDOWN_RHS = 16
 BREAKDOWN_EPS = 0.01
 BREAKDOWN_ITERS = 300
 
 
-def breakdown(torch, lt, device, card):
-    """--breakdown: for the package this process imports, phase 4d's f32
-    BiCGStab on the 7-point system at SHAPE3 from BREAKDOWN_RHS right-hand
-    sides.  For each: the first non-finite history entry over
-    BREAKDOWN_ITERS iterations of the port's solve (f32 dots) and of
-    textbook f32; phase 4d's window (leading entries within 1e-3 of
-    float64 BiCGStab) of both, and of the compensated solve and textbook
-    f32 with float64 dots; and phase 4d's end check of the compensated
-    solve after N_ITERS (||b - Ax||^2 within twice textbook f32's with
-    float64 dots, x error within twice its or BICG3_X_FLOOR).  Per
-    right-hand side one log line; last, one JSON line."""
-    from legionsolvers_tpu_torch.entry import build_stencil_system
+def breakdown(torch, lt, device, card, dim=3):
+    """--breakdown [--dim 2|3]: for the package this process imports, f32
+    BiCGStab from BREAKDOWN_RHS right-hand sides on phase 4d's system (dim
+    3: the 7-point stencil at SHAPE3) or phase 4b's (dim 2: the 5-point
+    Laplacian at N_GRID^2).  For each: the first non-finite history entry
+    over BREAKDOWN_ITERS iterations of the port's solve (f32 dots) and of
+    textbook f32; the window (leading entries within 1e-3 of float64
+    BiCGStab) of both, and of the compensated solve and textbook f32 with
+    float64 dots; and the phase's end check after N_ITERS.  Dim 3, phase
+    4d's of the compensated solve: ||b - Ax||^2 within twice textbook
+    f32's with float64 dots, x error within twice its or BICG3_X_FLOOR.
+    Dim 2, phase 4b's of the f32 solve: ||b - Ax||^2 and x error within
+    twice textbook f32's.  Per right-hand side one log line; last, one
+    JSON line."""
+    from legionsolvers_tpu_torch.entry import build_stencil_system, build_system
 
-    dim = 3
-    solvers = {comp: lt.BiCGStabSolver(build_stencil_system(
-        dim, SHAPE3, lt.SolverOptions(entry_dtype=torch.float32,
-                                      compensated_dots=comp), device))
-               for comp in (False, True)}
-    A = stencil_matvec(torch, lt, dim)
+    two = dim == 2
+    shape = (N_GRID, N_GRID) if two else SHAPE3
+    opts = lambda comp: lt.SolverOptions(entry_dtype=torch.float32,
+                                         compensated_dots=comp)
+    build = ((lambda comp: build_system(N_GRID, opts(comp), device)) if two
+             else (lambda comp: build_stencil_system(3, SHAPE3, opts(comp),
+                                                     device)))
+    solvers = {comp: lt.BiCGStabSolver(build(comp)) for comp in (False, True)}
+    A = lap5 if two else stencil_matvec(torch, lt, 3)
     finite = lambda h: bool(torch.isfinite(h).all())
     first_bad = lambda h: (None if finite(h)
                            else int((~torch.isfinite(h)).nonzero()[0]))
     rows = []
     for k in range(BREAKDOWN_RHS):
-        b = torch.ones(SHAPE3, device=device)
+        b = torch.ones(shape, device=device)
         if k:
             g = torch.Generator(device=device).manual_seed(k)
-            b += BREAKDOWN_EPS * torch.randn(SHAPE3, generator=g,
+            b += BREAKDOWN_EPS * torch.randn(shape, generator=g,
                                              device=device)
         runs = {}
         for comp, solver in solvers.items():
@@ -3170,15 +3354,13 @@ def breakdown(torch, lt, device, card):
                           planner.sol_vectors[0].data.clone())
         hist, (hist_c, x_c) = runs[False][0], runs[True]
         b64 = b.double()
-        h64, x64 = textbook_bicgstab(torch, SHAPE3, N_ITERS, torch.float64,
+        h64, x64 = textbook_bicgstab(torch, shape, N_ITERS, torch.float64,
                                      device, matvec=A, rhs=b64)
-        h32, _ = textbook_bicgstab(torch, SHAPE3, BREAKDOWN_ITERS,
+        h32, _ = textbook_bicgstab(torch, shape, BREAKDOWN_ITERS,
                                    torch.float32, device, matvec=A, rhs=b)
-        hd, xd = textbook_bicgstab(torch, SHAPE3, N_ITERS, torch.float32,
+        hd, xd = textbook_bicgstab(torch, shape, N_ITERS, torch.float32,
                                    device, dot_dtype=torch.float64,
                                    matvec=A, rhs=b)
-        kq = solution_quality(torch, hist_c, x_c, h64, x64, A, b64)
-        tq = solution_quality(torch, hd, xd, h64, x64, A, b64)
         head = N_ITERS + 1
         row = {"rhs": "1" if not k else f"1 + {BREAKDOWN_EPS} z, seed {k}",
                "first_nonfinite": {"kernel": first_bad(hist),
@@ -3186,16 +3368,35 @@ def breakdown(torch, lt, device, card):
                "window": {"kernel": agree_window(hist[:head], h64),
                           "textbook f32": agree_window(h32[:head], h64),
                           "kernel compensated": agree_window(hist_c, h64),
-                          "textbook f32 (f64 dots)": agree_window(hd, h64)},
-               "compensated_end": {
-                   "x_err": kq[1], "x_err_textbook": tq[1],
-                   "rr": kq[2], "rr_textbook": tq[2],
-                   "pass": kq[2] <= 2 * tq[2]
-                   and kq[1] <= max(2 * tq[1], BICG3_X_FLOOR)}}
+                          "textbook f32 (f64 dots)": agree_window(hd, h64)}}
+        if two:
+            solver = solvers[False]
+            restart(solver)
+            h200 = solver.solve(N_ITERS)
+            x200 = solver.planner.sol_vectors[0].data.clone()
+            h32s, x32s = textbook_bicgstab(torch, shape, N_ITERS,
+                                           torch.float32, device, matvec=A,
+                                           rhs=b)
+            kq = solution_quality(torch, h200, x200, h64, x64, A, b64)
+            tq = solution_quality(torch, h32s, x32s, h64, x64, A, b64)
+            row["f32_end"] = {"x_err": kq[1], "x_err_textbook": tq[1],
+                              "rr": kq[2], "rr_textbook": tq[2],
+                              "pass": kq[2] <= 2 * tq[2]
+                              and kq[1] <= 2 * tq[1]}
+            del h32s, x32s, x200
+        else:
+            kq = solution_quality(torch, hist_c, x_c, h64, x64, A, b64)
+            tq = solution_quality(torch, hd, xd, h64, x64, A, b64)
+            row["compensated_end"] = {
+                "x_err": kq[1], "x_err_textbook": tq[1],
+                "rr": kq[2], "rr_textbook": tq[2],
+                "pass": kq[2] <= 2 * tq[2]
+                and kq[1] <= max(2 * tq[1], BICG3_X_FLOOR)}
         rows.append(row)
+        end = row.get("f32_end", row.get("compensated_end"))
         log(f"[breakdown] b = {row['rhs']}: first non-finite "
             f"{row['first_nonfinite']}; window {row['window']}; "
-            f"compensated end {row['compensated_end']}")
+            f"{'f32' if two else 'compensated'} end {end}")
         del h64, x64, h32, hd, xd, b64
         torch.cuda.empty_cache()
     log(json.dumps({"card": card, "tree": os.getcwd(), "dim": dim,
@@ -3208,7 +3409,9 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
     """One entry of the kernels line: bound_ms is the larger of the bytes
     over the measured copy bandwidth and the operations over their peak
     rate (``op_rate``: the card's f32 peak, or K11 roll's and row's
-    shared-memory steps per second); pct_of_bound is bound_ms over ms."""
+    shared-memory steps per second); pct_of_bound is bound_ms over ms;
+    ms_lost is launches x (ms - bound_ms), over the main path's
+    launches."""
     t_bytes = nbytes / bw * 1e3
     t_ops = nflops / op_rate * 1e3
     bound = max(t_bytes, t_ops)
@@ -3216,7 +3419,8 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, "pct_of_bound": 100 * bound / ms}
+            "library_ms": library_ms, "pct_of_bound": 100 * bound / ms,
+            "ms_lost": launches * (ms - bound)}
 
 
 def main() -> int:
@@ -3271,15 +3475,28 @@ def main() -> int:
             log(f"[ptxas] {line.strip()}")
     if "--solves" in argv:
         return solves(torch, np, T, lt, device, card)
+    if "--passes" in argv:
+        from legionsolvers_tpu_torch.ops.cuda import bicgstab2d as TB
+
+        log(json.dumps({"card": card, "tree": os.getcwd(), "kernels2d_ms":
+                         time_ab_passes_2d(torch, T, TB, device)}))
+        return 0
     if "--breakdown" in argv:
-        return breakdown(torch, lt, device, card)
+        dim = int(argv[argv.index("--dim") + 1]) if "--dim" in argv else 3
+        return breakdown(torch, lt, device, card, dim)
     m1_attrs = march1_attrs(build.load_library())
     log("[march1] registers, spill bytes, resident blocks per SM: "
         + "; ".join(f"{k} {v}" for k, v in m1_attrs.items()))
+    s_attrs = strip_attrs(build.load_library())
+    log("[strip2d] registers, spill bytes, resident blocks per SM: "
+        + "; ".join(f"{k} {v}" for k, v in s_attrs.items()))
 
     errs = compare_kernels(torch, T, device)
     errs["step2"] = max(errs["step2"], compare_step2_edges(torch, T, device))
     errs.update(compare_bicg_kernels(torch, T, TB, device))
+    for m, e in compare_strip_edges(torch, T, TB, device).items():
+        errs[m] = max(errs[m], e)
+    one_launch2 = check_one_launch_2d(torch, T, TB, device)
     errs3 = compare_3d_kernels(torch, lt, T3, TB3, device)
     one_launch3 = check_one_launch_3d(torch, lt, T3, TB3, device)
     errs_h = compare_probe_kernels(torch, device)
@@ -3384,6 +3601,13 @@ def main() -> int:
         btimes[m][False][0], btimes[m][False][1], bpe * n2,
         ops_per_elt(m, len(OFFS)) * n2, bw)
         for m, (line, bpe) in BICG_KERNELS.items()]
+    # the strip kernels' registers (the main path's variant: the cross,
+    # vector loads, f32 dots)
+    for row in kernels:
+        m = row["name"].split(" ")[-1].strip("[]")
+        if m in ("bicg_st", "gram2"):
+            regs, spill, _ = s_attrs[f"{m} cross vec"]
+            row.update(registers=regs, spill_bytes=spill)
     for dim in DIMS3:
         pts, terms = {3: (7, 7), 4: (27, 27)}[dim]
         rows3 = [kernel_row(
@@ -3453,6 +3677,7 @@ def main() -> int:
               "solve3d_ms_per_iter": {f"{k} dim {d} {lab}": t for
                                       (k, d, lab), t in solve3.items()},
               "paths3d": results3, "march1_attrs": m1_attrs,
+              "strip_attrs": s_attrs, "kernels2d_launched": one_launch2,
               "kernels3d_launched": one_launch3,
               "explicit": {
                   "systems": {k: {"host_s": v["host_s"], "nnz": v["nnz"],

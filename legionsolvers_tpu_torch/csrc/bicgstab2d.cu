@@ -31,12 +31,17 @@
 // the result is rounded to f32 once (the card's native f64 in place of the
 // TPU's two-float pairs).
 //
+// K5b with a reach-1 stencil (the 5-point cross, any 3x3 stencil) runs on
+// the column-strip register march of K1 instead (march2d.cuh; see
+// bicg_st_strip_kernel): one launch, its two dots folded into the last
+// block.  Reach 2..8 keeps the tile kernel and its second launch.
+//
 // Buffers: no kernel writes a buffer that another block reads through a
 // halo.  pv writes p' and v' to buffers other than p and v, update writes
 // r' to a buffer other than r; x is updated in place, because x, p and r~
 // are read only at each thread's own element.
 
-#include "common.cuh"
+#include "march2d.cuh"
 
 namespace {
 
@@ -119,6 +124,80 @@ bicg_st_kernel(const float* __restrict__ r, const float* __restrict__ v,
   block_partials(acc, partials);
 }
 
+// K5b on the strip march (reach 1): s = r - alpha v formed in registers
+// as each row arrives (zero outside the grid), t = A s at the row before
+// it from s rows q-2..q, <t, s> and <t, t> accumulated per thread;
+// nothing is stored.  A warp owns a 128-column strip (120 output columns,
+// one halo lane per side) and a row chunk; LS_ST_DEPTH rows of r and v
+// are in flight per warp (a register ring), and the chunks aim at
+// LS_ST_TARGET_WARPS warps, LS_ST_MIN_BLOCKS blocks resident per SM: K5b
+// moves 8 B per element and does ~16 flops on them, so what bounds it is
+// bytes, and what holds it back is the bytes in flight, which residency
+// gave and a deeper ring did not (PERF.md section 6).  Halo columns (8 of
+// 128) and two rows per chunk are read again, mostly from L2.  Sum
+// order: with `compensated`, the exact products in double; without it,
+// the products rounded to f32 (__fmul_rn) and summed in double.  Both
+// are summed in double across threads and blocks (strip_fold) and
+// rounded to f32 once.  A thread sums a whole chunk's products, too long
+// a run for an f32 sum; of the orders chip_smoke.py --breakdown --dim 2
+// compared, this one alone passed phase 4b at b = 1 (PERF.md section 6).
+template <int DEPTH, int MINB, bool COMP, bool CROSS, bool VEC>
+__global__ void __launch_bounds__(LS_STEP2_THREADS, MINB)
+bicg_st_strip_kernel(const float* __restrict__ r, const float* __restrict__ v,
+                     const float* __restrict__ alpha_p,
+                     float* __restrict__ dot, double* __restrict__ partials,
+                     unsigned* __restrict__ counter, int R, int C,
+                     StripGeom geo, Step2Stencil st) {
+  const int unit = blockIdx.x * LS_STEP2_WARPS + (threadIdx.x >> 5);
+  double acc[2] = {0.0, 0.0};
+  if (unit < geo.units) {  // warp-uniform
+    const StripPlace pl = strip_place(unit, geo, R, C);
+    const float alpha = *alpha_p;
+    // the product in f32 (rounded alone) or exact in double
+    auto mul = [](float a, float b) {
+      return COMP ? (double)a * (double)b : (double)__fmul_rn(a, b);
+    };
+    const Row4 z = {{0.f, 0.f, 0.f, 0.f}};
+    Row4 S2 = z, S1 = z;  // s rows q-2, q-1
+    const float* const src[2] = {r, v};
+    strip_rows<DEPTH, 2, VEC>(
+        src, pl.a - 1, pl.b, R, C, pl, [&](int q, const Row4 (&row)[2]) {
+          Row4 S0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) S0.v[j] = row[0].v[j] - alpha * row[1].v[j];
+          mask4(S0, q >= 0 && q < R, pl.cin);
+          const int i = q - 1;
+          if (i >= pl.a && i < pl.b) {
+            const Row4 t = apply4<CROSS>(S2, S1, S0, st);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (pl.own[j]) {
+                acc[0] += mul(t.v[j], S1.v[j]);
+                acc[1] += mul(t.v[j], t.v[j]);
+              }
+          }
+          S2 = S1;
+          S1 = S0;
+        });
+  }
+  strip_fold<2>(acc, partials, counter, dot);
+}
+
+#define LS_ST_DEPTH 2  // rows of r and v in flight per warp
+
+template <bool COMP, bool CROSS, bool VEC>
+int launch_st_strip(const float* r, const float* v, const float* alpha,
+                    float* dot, double* partials, int capacity,
+                    unsigned* counter, int R, int C, const Step2Stencil& st,
+                    cudaStream_t stream) {
+  const StripGeom geo = strip_geometry(R, C, LS_ST_TARGET_WARPS);
+  if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
+  bicg_st_strip_kernel<LS_ST_DEPTH, LS_ST_MIN_BLOCKS, COMP, CROSS, VEC>
+      <<<(unsigned)geo.blocks, LS_STEP2_THREADS, 0, stream>>>(
+          r, v, alpha, dot, partials, counter, R, C, geo, st);
+  return (int)cudaGetLastError();
+}
+
 // K5c: s and t = A s as in st; x += alpha p + omega s (in place);
 // r' = s - omega t (to r_out); <r', r'>, <r~, r'>.
 template <bool COMP>
@@ -198,6 +277,53 @@ int ls_bicg_st(const float* r, const float* v, const float* alpha, float* dot,
   bicg_st_kernel<false><<<grid, block, 0, stream>>>(
       r, v, alpha, (float*)partials, R, C, *st, h);
   return finish((const float*)partials, nblocks, 2, dot, stream);
+}
+
+// K5b with a reach-1 stencil, on the strip march.  partials: capacity
+// blocks x 2 doubles; counter: one unsigned, zero before the first launch
+// (the kernel leaves it zero).  Launches on one (partials, counter) pair
+// must be ordered (one stream).  dot: 2 floats.
+int ls_bicg_st_strip(const float* r, const float* v, const float* alpha,
+                     float* dot, double* partials, int capacity,
+                     unsigned* counter, int R, int C, int compensated,
+                     const LsStencil* st, void* stream_ptr) {
+  if (!valid(st, R, C, 1) || !counter) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const Step2Stencil s2 = step2_stencil(*st);
+  const bool vec = C % 4 == 0 && aligned16(r) && aligned16(v);
+  const bool cross = is_cross(*st);
+#define LS_ST_LAUNCH(CO, CR, VE)                                          \
+  launch_st_strip<CO, CR, VE>(r, v, alpha, dot, partials, capacity,       \
+                              counter, R, C, s2, stream)
+  if (compensated) {
+    if (cross)
+      return vec ? LS_ST_LAUNCH(true, true, true)
+                 : LS_ST_LAUNCH(true, true, false);
+    return vec ? LS_ST_LAUNCH(true, false, true)
+               : LS_ST_LAUNCH(true, false, false);
+  }
+  if (cross)
+    return vec ? LS_ST_LAUNCH(false, true, true)
+               : LS_ST_LAUNCH(false, true, false);
+  return vec ? LS_ST_LAUNCH(false, false, true)
+             : LS_ST_LAUNCH(false, false, false);
+#undef LS_ST_LAUNCH
+}
+
+// Registers, spill bytes and resident blocks per SM of K5b's strip
+// variant `which` = 4 compensated + 2 cross + vec.
+int ls_bicg_st_strip_attrs(int which, int* out) {
+  switch (which) {
+#define LS_ST_ATTR(CO, CR, VE)                                              \
+  case 4 * CO + 2 * CR + VE:                                                \
+    return strip_attrs(bicg_st_strip_kernel<LS_ST_DEPTH, LS_ST_MIN_BLOCKS, \
+                                            CO, CR, VE>, out);
+    LS_ST_ATTR(0, 0, 0) LS_ST_ATTR(0, 0, 1) LS_ST_ATTR(0, 1, 0)
+    LS_ST_ATTR(0, 1, 1) LS_ST_ATTR(1, 0, 0) LS_ST_ATTR(1, 0, 1)
+    LS_ST_ATTR(1, 1, 0) LS_ST_ATTR(1, 1, 1)
+#undef LS_ST_ATTR
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int ls_bicg_update(const float* r, const float* v, float* x, const float* p,

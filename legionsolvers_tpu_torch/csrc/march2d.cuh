@@ -1,0 +1,342 @@
+// The 2-D column-strip register march, shared by the reach-1 passes of
+// stencil2d.cu (K1 step2, K2 gram2) and bicgstab2d.cu (K5b st).
+//
+// A warp owns a strip of 128 columns (four per lane, read as 16-byte
+// vectors where the width and the pointers allow) and marches down a chunk
+// of rows [a, b).  Its 120 middle columns (lanes 1..30) are its output; the
+// lanes at the strip's edges hold 4 halo columns per side, enough for the
+// four chained applications of K1.  A stencil application at a row takes
+// its vertical neighbours from rows held in registers and its horizontal
+// ones from the neighbouring lanes (one shuffle per side per row).
+//
+// Geometry depends on (R, C) alone: the strips are fixed (LS_STEP2_COLS
+// output columns), and the row chunks aim at a fixed number of warps (one
+// wave of a pass's resident blocks on each of an H100 SXM's 132 SMs; a
+// constant, not the card's count), no shorter than LS_STEP2_MIN_ROWS.  So
+// the sum order of every dot, and with it its bits, is the same on every
+// card.  A block's dots are summed in a fixed order and folded into the
+// last block to finish (a device counter): one launch, no second
+// reduction.  Each pass's resident blocks per SM (its launch bounds) and
+// rows in flight were chosen on the card (PERF.md section 6): K1 3 (its
+// 168 registers), K2 4, K5b 8 (<= 64 registers).
+
+#pragma once
+
+#include "common.cuh"
+
+#define LS_STEP2_WARPS 4
+#define LS_STEP2_THREADS (32 * LS_STEP2_WARPS)
+#define LS_STEP2_COLS 120    // output columns of one warp's strip
+#define LS_STEP2_MIN_ROWS 16  // shortest row chunk
+#define LS_STEP2_MIN_BLOCKS 3  // K1's resident blocks per SM
+#define LS_GRAM2_MIN_BLOCKS 4  // K2's
+#define LS_ST_MIN_BLOCKS 8     // K5b's
+// Warps a pass's launch aims at: one wave of its resident blocks on each
+// of an H100 SXM's 132 SMs.
+#define LS_STRIP_TARGET(MIN_BLOCKS) (132 * (MIN_BLOCKS) * LS_STEP2_WARPS)
+#define LS_STEP2_TARGET_WARPS LS_STRIP_TARGET(LS_STEP2_MIN_BLOCKS)
+#define LS_GRAM2_TARGET_WARPS LS_STRIP_TARGET(LS_GRAM2_MIN_BLOCKS)
+#define LS_ST_TARGET_WARPS LS_STRIP_TARGET(LS_ST_MIN_BLOCKS)
+
+namespace {
+
+// The stencil of a strip pass: term k reads slot[k] = 3 (dy + 1) + (dx + 1)
+// of the 3x3 box with coefficient v[k].
+struct Step2Stencil {
+  int n;
+  int slot[LS_MAX_TERMS];
+  float v[LS_MAX_TERMS];
+};
+
+// Four consecutive columns of one row, held by one lane.
+struct Row4 {
+  float v[4];
+};
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// A row's four columns with the neighbouring lanes' edge columns beside
+// them: e[0] from lane l - 1, e[5] from lane l + 1.
+__device__ __forceinline__ void row_ext(const Row4& a, float (&e)[6]) {
+  e[0] = __shfl_up_sync(kFull, a.v[3], 1);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) e[j + 1] = a.v[j];
+  e[5] = __shfl_down_sync(kFull, a.v[0], 1);
+}
+
+// A applied at the middle row (up, mid, dn = rows i - 1, i, i + 1) for the
+// lane's four columns; the columns beside them come from lanes l - 1 and
+// l + 1 (a lane at a strip edge reads its own: those columns are halo).
+// The 5-point cross (the Laplacian, in its stencil order) has its offsets
+// fixed at compile time; any other reach-1 stencil runs its terms, in
+// stencil order, through a warp-uniform switch over the 3x3 box.
+template <bool CROSS>
+__device__ __forceinline__ Row4 apply4(const Row4& up, const Row4& mid,
+                                       const Row4& dn,
+                                       const Step2Stencil& st) {
+  Row4 o;
+  if (CROSS) {  // (0,0), (-1,0), (1,0), (0,-1), (0,1)
+    const float l = __shfl_up_sync(kFull, mid.v[3], 1);
+    const float r = __shfl_down_sync(kFull, mid.v[0], 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float left = j ? mid.v[j - 1] : l;
+      const float right = j < 3 ? mid.v[j + 1] : r;
+      float acc = 0.f;
+      acc += st.v[0] * mid.v[j];
+      acc += st.v[1] * up.v[j];
+      acc += st.v[2] * dn.v[j];
+      acc += st.v[3] * left;
+      acc += st.v[4] * right;
+      o.v[j] = acc;
+    }
+    return o;
+  }
+  float e[3][6];
+  row_ext(up, e[0]);
+  row_ext(mid, e[1]);
+  row_ext(dn, e[2]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) o.v[j] = 0.f;
+  for (int k = 0; k < st.n; ++k) {
+    const float c = st.v[k];
+    switch (st.slot[k]) {
+#define LS_TERM(S, I, D)                                        \
+  case S:                                                       \
+    for (int j = 0; j < 4; ++j) o.v[j] += c * e[I][j + D];      \
+    break;
+      LS_TERM(0, 0, 0) LS_TERM(1, 0, 1) LS_TERM(2, 0, 2)
+      LS_TERM(3, 1, 0) LS_TERM(4, 1, 1) LS_TERM(5, 1, 2)
+      LS_TERM(6, 2, 0) LS_TERM(7, 2, 1) LS_TERM(8, 2, 2)
+#undef LS_TERM
+    }
+  }
+  return o;
+}
+
+__device__ __forceinline__ void mask4(Row4& a, bool row_in,
+                                      const bool (&cin)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a.v[j] = row_in && cin[j] ? a.v[j] : 0.f;
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store4(float* __restrict__ dst, long long o,
+                                       const Row4& a, const bool (&own)[4]) {
+  if (VEC) {
+    if (own[0])
+      *reinterpret_cast<float4*>(dst + o) =
+          make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (own[j]) dst[o + j] = a.v[j];
+  }
+}
+
+// The 10 Gram terms (GRAM_NAMES order) of one element, each product exact
+// in double and accumulated in double.
+__device__ __forceinline__ void gram_terms_f64(double (&g)[10], float rb,
+                                               float pb, float Apb, float A2pb,
+                                               float Arb) {
+  const double r = rb, p = pb, ap = Apb, a2p = A2pb, ar = Arb;
+  g[0] = fma(r, r, g[0]);    g[1] = fma(p, ap, g[1]);
+  g[2] = fma(r, ap, g[2]);   g[3] = fma(ap, ap, g[3]);
+  g[4] = fma(r, ar, g[4]);   g[5] = fma(ap, ar, g[5]);
+  g[6] = fma(ap, a2p, g[6]); g[7] = fma(ar, ar, g[7]);
+  g[8] = fma(ar, a2p, g[8]); g[9] = fma(a2p, a2p, g[9]);
+}
+
+// Sum of v[k] over the block's threads into dst[k], in a fixed order: warp
+// shuffles, then warps in index order.
+template <int K>
+__device__ __forceinline__ void step2_block_sum(
+    double (&v)[K], double (&red)[LS_STEP2_WARPS][K],
+    double* __restrict__ dst) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    double s = v[k];
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(kFull, s, o);
+    if (lane == 0) red[warp][k] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < K) {
+    double s = 0.0;
+    for (int w = 0; w < LS_STEP2_WARPS; ++w) s += red[w][threadIdx.x];
+    dst[threadIdx.x] = s;
+  }
+}
+
+// The K sums of the pass: each block's to partials[block * K + k]
+// (step2_block_sum); the last block to finish (a device counter) sums
+// them over all blocks (each thread a strided run of blocks, then
+// step2_block_sum), writes out[k] rounded to float once and resets the
+// counter to zero.  Every thread of the block calls it.
+template <int K>
+__device__ __forceinline__ void strip_fold(double (&v)[K],
+                                           double* __restrict__ partials,
+                                           unsigned* __restrict__ counter,
+                                           float* __restrict__ out) {
+  __shared__ double red[LS_STEP2_WARPS][K];
+  __shared__ double total[K];
+  __shared__ bool last;
+  step2_block_sum(v, red, partials + (size_t)blockIdx.x * K);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  double acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.0;
+  for (int blk = threadIdx.x; blk < (int)gridDim.x; blk += LS_STEP2_THREADS) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      acc[k] += __ldcg(partials + (size_t)blk * K + k);
+  }
+  __syncthreads();  // red is reused
+  step2_block_sum(acc, red, total);
+  if (threadIdx.x < K) out[threadIdx.x] = (float)total[threadIdx.x];
+  if (threadIdx.x == 0) *counter = 0u;
+}
+
+// The strips and row chunks of a launch on an [R, C] grid whose chunks aim
+// at target_warps warps.
+struct StripGeom {
+  int strips;      // 128-column strips (LS_STEP2_COLS output columns each)
+  int chunk_rows;  // rows of a chunk (the last may be shorter)
+  int units;       // strips x chunks: one warp each
+  int blocks;      // blocks of LS_STEP2_WARPS warps
+};
+
+StripGeom strip_geometry(int R, int C, long long target_warps) {
+  const int strips = (C + LS_STEP2_COLS - 1) / LS_STEP2_COLS;
+  long long chunks = target_warps / strips;
+  const long long max_chunks = (R + LS_STEP2_MIN_ROWS - 1) / LS_STEP2_MIN_ROWS;
+  if (chunks > max_chunks) chunks = max_chunks;
+  if (chunks < 1) chunks = 1;
+  const int chunk_rows = (int)((R + chunks - 1) / chunks);
+  chunks = (R + chunk_rows - 1) / chunk_rows;
+  const long long units = strips * chunks;
+  return StripGeom{strips, chunk_rows, (int)units,
+                   (int)((units + LS_STEP2_WARPS - 1) / LS_STEP2_WARPS)};
+}
+
+// A warp's place: its first column c0 (lane 0's; lane l holds c0 + 4l ..
+// c0 + 4l + 3), its rows [a, b), and which of the lane's columns lie
+// inside the grid (cin) and are its output (own: lanes 1..30).
+struct StripPlace {
+  int c0, a, b;
+  bool cin[4], own[4];
+};
+
+__device__ __forceinline__ StripPlace strip_place(int unit,
+                                                  const StripGeom& g, int R,
+                                                  int C) {
+  const int lane = threadIdx.x & 31;
+  const int strip = unit % g.strips, chunk = unit / g.strips;
+  StripPlace p;
+  p.c0 = strip * LS_STEP2_COLS - 4 + 4 * lane;
+  p.a = chunk * g.chunk_rows;
+  p.b = min(p.a + g.chunk_rows, R);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    p.cin[j] = p.c0 + j >= 0 && p.c0 + j < C;
+    p.own[j] = p.cin[j] && lane >= 1 && lane <= 30;
+  }
+  return p;
+}
+
+// Row q of NV vectors at the lane's four columns, zero outside the grid
+// and past row `last` (no load issued there).
+template <bool VEC, int NV>
+__device__ __forceinline__ void strip_load(Row4 (&dst)[NV],
+                                           const float* const (&src)[NV],
+                                           int q, int last, int R, int C,
+                                           const StripPlace& p) {
+#pragma unroll
+  for (int n = 0; n < NV; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dst[n].v[j] = 0.f;
+  if (q < 0 || q >= R || q > last) return;
+  const long long o = (long long)q * C + p.c0;
+  if (VEC) {
+    if (!p.cin[0]) return;
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(src[n] + o));
+      dst[n] = Row4{{t.x, t.y, t.z, t.w}};
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (p.cin[j])
+#pragma unroll
+        for (int n = 0; n < NV; ++n) dst[n].v[j] = __ldg(src[n] + o + j);
+  }
+}
+
+// The march over rows q0 .. q1 of NV vectors with DEPTH rows in flight: a
+// register ring holds rows q + 1 .. q + DEPTH, loading, while row q is
+// consumed.  step(q, rows) runs once per row, in order; the ring's slots
+// are named at compile time (the loop over a turn of the ring is
+// unrolled), so the ring stays in registers.
+template <int DEPTH, int NV, bool VEC, typename Step>
+__device__ __forceinline__ void strip_rows(const float* const (&src)[NV],
+                                           int q0, int q1, int R, int C,
+                                           const StripPlace& p, Step step) {
+  Row4 ring[DEPTH][NV];
+#pragma unroll
+  for (int k = 0; k < DEPTH; ++k)
+    strip_load<VEC, NV>(ring[k], src, q0 + k, q1, R, C, p);
+  for (int q = q0; q <= q1; q += DEPTH) {
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) {
+      if (q + u <= q1) {
+        Row4 cur[NV];
+#pragma unroll
+        for (int n = 0; n < NV; ++n) cur[n] = ring[u][n];
+        strip_load<VEC, NV>(ring[u], src, q + u + DEPTH, q1, R, C, p);
+        step(q + u, cur);
+      }
+    }
+  }
+}
+
+bool is_cross(const LsStencil& st) {
+  const int dy[5] = {0, -1, 1, 0, 0}, dx[5] = {0, 0, 0, -1, 1};
+  if (st.n != 5) return false;
+  for (int k = 0; k < 5; ++k)
+    if (st.dy[k] != dy[k] || st.dx[k] != dx[k]) return false;
+  return true;
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// A reach-1 stencil as the strip passes take it.
+Step2Stencil step2_stencil(const LsStencil& st) {
+  Step2Stencil s2;
+  s2.n = st.n;
+  for (int k = 0; k < st.n; ++k) {
+    s2.slot[k] = 3 * (st.dy[k] + 1) + st.dx[k] + 1;
+    s2.v[k] = st.v[k];
+  }
+  return s2;
+}
+
+// cudaFuncGetAttributes and the occupancy calculator for one strip kernel:
+// out = {registers, local (spill) bytes, resident blocks per SM}.
+template <typename K>
+int strip_attrs(K kernel, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], kernel, LS_STEP2_THREADS, 0);
+}
+
+}  // namespace

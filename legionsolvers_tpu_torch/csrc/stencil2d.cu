@@ -17,26 +17,23 @@
 // two CG iterations; K2 8 B; K3 8 B (y, y_dot), 4 B (pq) or 20 B (update);
 // K4 12 B.
 //
-// Design of K2-K4.  The Pallas kernels stream whole rows through a
+// Design of K3 and K4.  The Pallas kernels stream whole rows through a
 // sequential grid and carry sums in SMEM from one grid step to the next.
 // CUDA blocks run in no order, so each block owns one TILE x TILE output
 // tile instead:
 //   * the block loads its inputs plus a halo into shared memory once, so
 //     every input byte crosses HBM about once (halo re-reads cost
-//     (TILE + 2h)^2 / TILE^2 - 1: 13% for h = 1, 27% for K2's h = 2);
-//   * every intermediate of K2's chained applications (A p, A^2 p, A r)
-//     lives in shared memory on a shrinking extension of the tile and is
-//     zeroed outside the grid, which reproduces the JAX mask() chain, so
-//     chained applications are true matrix powers;
+//     (TILE + 2h)^2 / TILE^2 - 1: 13% for h = 1);
 //   * each block writes its partial dot products to a [blocks, k] scratch
 //     and a second launch sums them in a fixed order: results are
 //     deterministic, with no atomics;
 //   * no kernel writes a buffer that another block reads with a halo: the
 //     new r and p of K1 and the p of K4 go to separate buffers.
-// K1, the main path's pass, marches down column strips in registers
-// instead (see its note below) and folds its Gram sum into its last block.
+// K1 and K2, the s-step passes, march down column strips in registers
+// instead (march2d.cuh, and their notes below) and fold their Gram sums
+// into their last block.
 
-#include "common.cuh"
+#include "march2d.cuh"
 
 namespace {
 
@@ -117,56 +114,68 @@ xpay_pq_kernel(const float* __restrict__ r, const float* __restrict__ p_old,
 }
 
 // ---------------------------------------------------------------------------
-// K2 / K1 share the s-step layout: the tile plus an extension of e on each
-// side is an array of width LS_TILE + 2e; local (i, j) of an extension-e
-// array is global (r0 - e + i, c0 - e + j).  Stencil reach is 1, so one
-// application shrinks the extension by one.
+// K2: the Gram vector (GRAM_NAMES order) of (r, p): A p, A^2 p, A r.
+//
+// K1's strip march (march2d.cuh) reduced to K2's chain of two.  Each step
+// takes one new row q of p and r from a ring of LS_GRAM2_DEPTH rows in
+// flight and advances two stages, each reading rows the earlier one left
+// in registers:
+//   S1 at q-1: Ap (zeroed outside the grid), Ar   (p, r rows q-2..q)
+//   S2 at q-2: A^2 p, the Gram terms              (Ap rows q-3..q-1)
+// Ap is zeroed outside the grid, which reproduces the JAX mask() chain,
+// so A^2 p is the true matrix power.  The strip's halo lane per side (4
+// columns) covers the chain's depth of 2.  The terms are exact products
+// of the f32 values accumulated in double and rounded to f32 once, as
+// K1's Gram (the JAX kernel sums in f32: this computes the same function
+// more exactly); each block's sums are folded into the last block
+// (strip_fold): one launch.  It shares K1's scratch, which has room for
+// the largest strip launch on the grid.  What bounds it: bytes, 8 B per
+// element (reads r, p), with 8 of every 128 columns and 4 rows per row
+// chunk read again (about 13% at 4096^2, mostly from L2); its double Gram
+// (5 conversions and 10 fma per element) is its other cost.  One row in
+// flight and 4 resident blocks per SM measured best (PERF.md section 6).
 // ---------------------------------------------------------------------------
-constexpr int W2 = LS_TILE + 4, W1 = LS_TILE + 2;
-
-// Dirichlet load: zero outside the grid (zero-halo pass).
-__device__ void load_ext(float* dst, int W, int e, const float* __restrict__ a,
-                         int R, int C, int r0, int c0) {
-  for (int k = tid(); k < W * W; k += LS_THREADS) {
-    const int gr = r0 - e + k / W, gc = c0 - e + k % W;
-    dst[k] = in_grid(gr, gc, R, C) ? a[(size_t)gr * C + gc] : 0.f;
+#define LS_GRAM2_DEPTH 1  // rows in flight per warp (more were slower)
+template <int DEPTH, int MINB, bool CROSS, bool VEC>
+__global__ void __launch_bounds__(LS_STEP2_THREADS, MINB)
+gram2_strip_kernel(const float* __restrict__ r, const float* __restrict__ p,
+                   float* __restrict__ g_out, double* __restrict__ partials,
+                   unsigned* __restrict__ counter, int R, int C,
+                   StripGeom geo, Step2Stencil st) {
+  const int unit = blockIdx.x * LS_STEP2_WARPS + (threadIdx.x >> 5);
+  double g[10] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  if (unit < geo.units) {  // warp-uniform
+    const StripPlace pl = strip_place(unit, geo, R, C);
+    // windows, named by row relative to the step's new row q
+    const Row4 z = {{0.f, 0.f, 0.f, 0.f}};
+    Row4 P2 = z, P1 = z, R2 = z, R1 = z;  // p, r rows q-2, q-1
+    Row4 AP3 = z, AP2 = z, AR2 = z;       // Ap rows q-3, q-2; Ar row q-2
+    const float* const src[2] = {p, r};
+    strip_rows<DEPTH, 2, VEC>(
+        src, pl.a - 2, pl.b + 1, R, C, pl,
+        [&](int q, const Row4 (&row)[2]) {
+          const Row4& P0 = row[0];
+          const Row4& R0 = row[1];
+          // S1 at row q - 1
+          const int i1 = q - 1;
+          Row4 AP1 = apply4<CROSS>(P2, P1, P0, st);
+          mask4(AP1, i1 >= 0 && i1 < R, pl.cin);
+          const Row4 AR1 = apply4<CROSS>(R2, R1, R0, st);
+          // S2 at row q - 2
+          const int i2 = q - 2;
+          if (i2 >= pl.a && i2 < pl.b) {
+            const Row4 A2 = apply4<CROSS>(AP3, AP2, AP1, st);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (pl.own[j])
+                gram_terms_f64(g, R2.v[j], P2.v[j], AP2.v[j], A2.v[j],
+                               AR2.v[j]);
+          }
+          P2 = P1; P1 = P0; R2 = R1; R1 = R0;
+          AP3 = AP2; AP2 = AP1; AR2 = AR1;
+        });
   }
-}
-
-// The 10 Gram terms (GRAM_NAMES order) of one element.
-__device__ __forceinline__ void gram_terms(float (&g)[10], float rb, float pb,
-                                           float Apb, float A2pb, float Arb) {
-  g[0] += rb * rb;    g[1] += pb * Apb;   g[2] += rb * Apb;
-  g[3] += Apb * Apb;  g[4] += rb * Arb;   g[5] += Apb * Arb;
-  g[6] += Apb * A2pb; g[7] += Arb * Arb;  g[8] += Arb * A2pb;
-  g[9] += A2pb * A2pb;
-}
-
-__global__ void __launch_bounds__(LS_THREADS)
-gram2_kernel(const float* __restrict__ r, const float* __restrict__ p,
-             float* __restrict__ partials, int R, int C, LsStencil st) {
-  __shared__ float p2[W2 * W2], r1[W1 * W1], Ap1[W1 * W1];
-  __shared__ SharedStencil s;
-  stage_stencil(s, st);
-  const int r0 = blockIdx.y * LS_TILE, c0 = blockIdx.x * LS_TILE;
-  load_ext(p2, W2, 2, p, R, C, r0, c0);
-  load_ext(r1, W1, 1, r, R, C, r0, c0);
-  __syncthreads();
-  for (int k = tid(); k < W1 * W1; k += LS_THREADS) {
-    const int i = k / W1, j = k % W1;
-    Ap1[k] = in_grid(r0 - 1 + i, c0 - 1 + j, R, C)
-                 ? apply_at(p2, W2, i + 1, j + 1, s) : 0.f;
-  }
-  __syncthreads();
-  float g[10] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  const int j = threadIdx.x;
-  for (int i = threadIdx.y; i < LS_TILE; i += LS_THREADS_Y) {
-    if (r0 + i >= R || c0 + j >= C) continue;
-    gram_terms(g, r1[(i + 1) * W1 + j + 1], p2[(i + 2) * W2 + j + 2],
-               Ap1[(i + 1) * W1 + j + 1], apply_at(Ap1, W1, i + 1, j + 1, s),
-               apply_at(r1, W1, i + 1, j + 1, s));
-  }
-  block_partials(g, partials);
+  strip_fold<10>(g, partials, counter, g_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -174,7 +183,7 @@ gram2_kernel(const float* __restrict__ r, const float* __restrict__ p,
 //     p'' = r'' + c3 r - c4 Ap + c5 p; Gram of (r'', p'').
 //
 // A vertical march in registers (the 2-D form of the TPU kernel's
-// whole-row window and of march3d).  A warp owns a strip of 128 columns
+// whole-row window and of march3d; march2d.cuh).  A warp owns a strip of 128 columns
 // (four per lane, read as 16-byte vectors) and marches down a chunk of
 // rows [a, b).  The chained applications shrink the strip by one column
 // per side each, so its 120 middle columns (lanes 1..30) are the warp's
@@ -202,141 +211,6 @@ gram2_kernel(const float* __restrict__ r, const float* __restrict__ p,
 // all partials in block order and resets the counter: deterministic, with
 // no second launch.
 // ---------------------------------------------------------------------------
-#define LS_STEP2_WARPS 4
-#define LS_STEP2_THREADS (32 * LS_STEP2_WARPS)
-#define LS_STEP2_COLS 120    // output columns of one warp's strip
-#define LS_STEP2_MIN_ROWS 16  // shortest row chunk
-#define LS_STEP2_MIN_BLOCKS 3  // resident blocks per SM: <= 168 registers
-// Warps one launch aims at: one wave of LS_STEP2_MIN_BLOCKS blocks on each
-// of an H100 SXM's 132 SMs.  A constant, not the card's count, so that the
-// row chunks, and with them the Gram's summation order, depend on (R, C)
-// alone: every card gives the same bits.
-#define LS_STEP2_TARGET_WARPS (132 * LS_STEP2_MIN_BLOCKS * LS_STEP2_WARPS)
-
-// The stencil of K1: term k reads slot[k] = 3 (dy + 1) + (dx + 1) of the
-// 3x3 box with coefficient v[k].
-struct Step2Stencil {
-  int n;
-  int slot[LS_MAX_TERMS];
-  float v[LS_MAX_TERMS];
-};
-
-// Four consecutive columns of one row, held by one lane.
-struct Row4 {
-  float v[4];
-};
-
-constexpr unsigned kFull = 0xffffffffu;
-
-// A row's four columns with the neighbouring lanes' edge columns beside
-// them: e[0] from lane l - 1, e[5] from lane l + 1.
-__device__ __forceinline__ void row_ext(const Row4& a, float (&e)[6]) {
-  e[0] = __shfl_up_sync(kFull, a.v[3], 1);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) e[j + 1] = a.v[j];
-  e[5] = __shfl_down_sync(kFull, a.v[0], 1);
-}
-
-// A applied at the middle row (up, mid, dn = rows i - 1, i, i + 1) for the
-// lane's four columns; the columns beside them come from lanes l - 1 and
-// l + 1 (a lane at a strip edge reads its own: those columns are halo).
-template <bool CROSS>
-__device__ __forceinline__ Row4 apply4(const Row4& up, const Row4& mid,
-                                       const Row4& dn,
-                                       const Step2Stencil& st) {
-  Row4 o;
-  if (CROSS) {  // (0,0), (-1,0), (1,0), (0,-1), (0,1)
-    const float l = __shfl_up_sync(kFull, mid.v[3], 1);
-    const float r = __shfl_down_sync(kFull, mid.v[0], 1);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float left = j ? mid.v[j - 1] : l;
-      const float right = j < 3 ? mid.v[j + 1] : r;
-      float acc = 0.f;
-      acc += st.v[0] * mid.v[j];
-      acc += st.v[1] * up.v[j];
-      acc += st.v[2] * dn.v[j];
-      acc += st.v[3] * left;
-      acc += st.v[4] * right;
-      o.v[j] = acc;
-    }
-    return o;
-  }
-  float e[3][6];
-  row_ext(up, e[0]);
-  row_ext(mid, e[1]);
-  row_ext(dn, e[2]);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) o.v[j] = 0.f;
-  for (int k = 0; k < st.n; ++k) {
-    const float c = st.v[k];
-    switch (st.slot[k]) {
-#define LS_TERM(S, I, D)                                        \
-  case S:                                                       \
-    for (int j = 0; j < 4; ++j) o.v[j] += c * e[I][j + D];      \
-    break;
-      LS_TERM(0, 0, 0) LS_TERM(1, 0, 1) LS_TERM(2, 0, 2)
-      LS_TERM(3, 1, 0) LS_TERM(4, 1, 1) LS_TERM(5, 1, 2)
-      LS_TERM(6, 2, 0) LS_TERM(7, 2, 1) LS_TERM(8, 2, 2)
-#undef LS_TERM
-    }
-  }
-  return o;
-}
-
-__device__ __forceinline__ void mask4(Row4& a, bool row_in,
-                                      const bool (&cin)[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) a.v[j] = row_in && cin[j] ? a.v[j] : 0.f;
-}
-
-template <bool VEC>
-__device__ __forceinline__ void store4(float* __restrict__ dst, long long o,
-                                       const Row4& a, const bool (&own)[4]) {
-  if (VEC) {
-    if (own[0])
-      *reinterpret_cast<float4*>(dst + o) =
-          make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (own[j]) dst[o + j] = a.v[j];
-  }
-}
-
-// The 10 Gram terms (GRAM_NAMES order) of one element, each product exact
-// in double and accumulated in double.
-__device__ __forceinline__ void gram_terms_f64(double (&g)[10], float rb,
-                                               float pb, float Apb, float A2pb,
-                                               float Arb) {
-  const double r = rb, p = pb, ap = Apb, a2p = A2pb, ar = Arb;
-  g[0] = fma(r, r, g[0]);    g[1] = fma(p, ap, g[1]);
-  g[2] = fma(r, ap, g[2]);   g[3] = fma(ap, ap, g[3]);
-  g[4] = fma(r, ar, g[4]);   g[5] = fma(ap, ar, g[5]);
-  g[6] = fma(ap, a2p, g[6]); g[7] = fma(ar, ar, g[7]);
-  g[8] = fma(ar, a2p, g[8]); g[9] = fma(a2p, a2p, g[9]);
-}
-
-// Sum of v[k] over the block's threads into dst[k], in a fixed order: warp
-// shuffles, then warps in index order.
-__device__ __forceinline__ void step2_block_sum(
-    double (&v)[10], double (&red)[LS_STEP2_WARPS][10],
-    double* __restrict__ dst) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < 10; ++k) {
-    double s = v[k];
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(kFull, s, o);
-    if (lane == 0) red[warp][k] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < 10) {
-    double s = 0.0;
-    for (int w = 0; w < LS_STEP2_WARPS; ++w) s += red[w][threadIdx.x];
-    dst[threadIdx.x] = s;
-  }
-}
-
 template <bool CROSS, bool VEC>
 __global__ void __launch_bounds__(LS_STEP2_THREADS, LS_STEP2_MIN_BLOCKS)
 step2_kernel(float* __restrict__ x, const float* __restrict__ r,
@@ -345,9 +219,6 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
              float* __restrict__ g_out, double* __restrict__ partials,
              unsigned* __restrict__ counter, int R, int C, int strips,
              int chunk_rows, int units, Step2Stencil st) {
-  __shared__ double red[LS_STEP2_WARPS][10];
-  __shared__ double total[10];
-  __shared__ bool last;
   const int lane = threadIdx.x & 31;
   const int unit = blockIdx.x * LS_STEP2_WARPS + (threadIdx.x >> 5);
   double g[10] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
@@ -457,53 +328,32 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
     }
   }
   // Gram partials of this block, then the last block sums them all
-  step2_block_sum(g, red, partials + (size_t)blockIdx.x * 10);
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  double acc[10] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  for (int blk = threadIdx.x; blk < (int)gridDim.x; blk += LS_STEP2_THREADS) {
-#pragma unroll
-    for (int k = 0; k < 10; ++k)
-      acc[k] += __ldcg(partials + (size_t)blk * 10 + k);
-  }
-  __syncthreads();  // red is reused
-  step2_block_sum(acc, red, total);
-  if (threadIdx.x < 10) g_out[threadIdx.x] = (float)total[threadIdx.x];
-  if (threadIdx.x == 0) *counter = 0u;
+  strip_fold<10>(g, partials, counter, g_out);
 }
-
-bool is_cross(const LsStencil& st) {
-  const int dy[5] = {0, -1, 1, 0, 0}, dx[5] = {0, 0, 0, -1, 1};
-  if (st.n != 5) return false;
-  for (int k = 0; k < 5; ++k)
-    if (st.dy[k] != dy[k] || st.dx[k] != dx[k]) return false;
-  return true;
-}
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <bool CROSS, bool VEC>
 int launch_step2(float* x, const float* r, const float* p, const float* coef,
                  float* r_out, float* p_out, float* g, double* partials,
                  int capacity, unsigned* counter, int R, int C,
                  const Step2Stencil& st, cudaStream_t stream) {
-  const int strips = (C + LS_STEP2_COLS - 1) / LS_STEP2_COLS;
-  long long chunks = LS_STEP2_TARGET_WARPS / strips;
-  const long long max_chunks = (R + LS_STEP2_MIN_ROWS - 1) / LS_STEP2_MIN_ROWS;
-  if (chunks > max_chunks) chunks = max_chunks;
-  if (chunks < 1) chunks = 1;
-  const int chunk_rows = (int)((R + chunks - 1) / chunks);
-  chunks = (R + chunk_rows - 1) / chunk_rows;
-  const long long units = strips * chunks;
-  const long long blocks = (units + LS_STEP2_WARPS - 1) / LS_STEP2_WARPS;
-  if (blocks > capacity) return (int)cudaErrorInvalidValue;
-  step2_kernel<CROSS, VEC><<<(unsigned)blocks, LS_STEP2_THREADS, 0, stream>>>(
-      x, r, p, coef, r_out, p_out, g, partials, counter, R, C, strips,
-      chunk_rows, (int)units, st);
+  const StripGeom geo = strip_geometry(R, C, LS_STEP2_TARGET_WARPS);
+  if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
+  step2_kernel<CROSS, VEC><<<(unsigned)geo.blocks, LS_STEP2_THREADS, 0,
+                             stream>>>(
+      x, r, p, coef, r_out, p_out, g, partials, counter, R, C, geo.strips,
+      geo.chunk_rows, geo.units, st);
+  return (int)cudaGetLastError();
+}
+
+template <bool CROSS, bool VEC>
+int launch_gram2(const float* r, const float* p, float* g, double* partials,
+                 int capacity, unsigned* counter, int R, int C,
+                 const Step2Stencil& st, cudaStream_t stream) {
+  const StripGeom geo = strip_geometry(R, C, LS_GRAM2_TARGET_WARPS);
+  if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
+  gram2_strip_kernel<LS_GRAM2_DEPTH, LS_GRAM2_MIN_BLOCKS, CROSS, VEC>
+      <<<(unsigned)geo.blocks, LS_STEP2_THREADS, 0, stream>>>(
+          r, p, g, partials, counter, R, C, geo, st);
   return (int)cudaGetLastError();
 }
 
@@ -555,30 +405,33 @@ int ls_xpay_pq(const float* r, const float* p_old, const float* beta,
   return finish(partials, grid.x * grid.y, 1, dot, stream);
 }
 
-int ls_gram2(const float* r, const float* p, float* g, float* partials,
-             int R, int C, const LsStencil* st, void* stream_ptr) {
-  if (!valid(st, R, C, 1)) return (int)cudaErrorInvalidValue;
+// K2 and K1 share their scratch.  partials: capacity blocks x 10
+// doubles; counter: one unsigned, zero before the first launch (the
+// kernels leave it zero).  Launches on one (partials, counter) pair must
+// be ordered (one stream).
+int ls_gram2(const float* r, const float* p, float* g, double* partials,
+             int capacity, unsigned* counter, int R, int C,
+             const LsStencil* st, void* stream_ptr) {
+  if (!valid(st, R, C, 1) || !counter) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const dim3 grid = tile_grid(R, C), block(LS_THREADS_X, LS_THREADS_Y);
-  gram2_kernel<<<grid, block, 0, stream>>>(r, p, partials, R, C, *st);
-  return finish(partials, grid.x * grid.y, 10, g, stream);
+  const Step2Stencil s2 = step2_stencil(*st);
+  const bool vec = C % 4 == 0 && aligned16(r) && aligned16(p);
+#define LS_GRAM2_LAUNCH(CR, VE) \
+  launch_gram2<CR, VE>(r, p, g, partials, capacity, counter, R, C, s2, stream)
+  if (is_cross(*st))
+    return vec ? LS_GRAM2_LAUNCH(true, true) : LS_GRAM2_LAUNCH(true, false);
+  return vec ? LS_GRAM2_LAUNCH(false, true) : LS_GRAM2_LAUNCH(false, false);
+#undef LS_GRAM2_LAUNCH
 }
 
-// K1.  partials: capacity blocks x 10 doubles; counter: one unsigned,
-// zero before the first launch (the kernel leaves it zero).  Launches on
-// one (partials, counter) pair must be ordered (one stream).
+// K1.
 int ls_step2(float* x, const float* r, const float* p, const float* coef,
              float* r_out, float* p_out, float* g, double* partials,
              int capacity, unsigned* counter, int R, int C,
              const LsStencil* st, void* stream_ptr) {
   if (!valid(st, R, C, 1) || !counter) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  Step2Stencil s2;
-  s2.n = st->n;
-  for (int k = 0; k < st->n; ++k) {
-    s2.slot[k] = 3 * (st->dy[k] + 1) + st->dx[k] + 1;
-    s2.v[k] = st->v[k];
-  }
+  const Step2Stencil s2 = step2_stencil(*st);
   const bool vec = C % 4 == 0 && aligned16(x) && aligned16(r) &&
                    aligned16(p) && aligned16(r_out) && aligned16(p_out);
   const bool cross = is_cross(*st);
@@ -594,5 +447,32 @@ int ls_step2(float* x, const float* r, const float* p, const float* coef,
 int ls_step2_cols() { return LS_STEP2_COLS; }
 int ls_step2_min_rows() { return LS_STEP2_MIN_ROWS; }
 int ls_step2_warps() { return LS_STEP2_WARPS; }
+
+// Blocks of a strip launch on an [R, C] grid whose row chunks aim at
+// target_warps warps, and the warps each strip pass aims at (which: 0 K1,
+// 1 K2, 2 K5b); ops/cuda/stencil2d.py mirrors both.
+int ls_strip_blocks(int R, int C, int target_warps) {
+  return strip_geometry(R, C, target_warps).blocks;
+}
+
+int ls_strip_target_warps(int which) {
+  const int t[3] = {LS_STEP2_TARGET_WARPS, LS_GRAM2_TARGET_WARPS,
+                    LS_ST_TARGET_WARPS};
+  return which >= 0 && which < 3 ? t[which] : -1;
+}
+
+// Registers, spill bytes and resident blocks per SM of K2's variant
+// `which` = 2 cross + vec.
+int ls_gram2_attrs(int which, int* out) {
+  switch (which) {
+#define LS_G2_ATTR(CR, VE)      \
+  case 2 * CR + VE:             \
+    return strip_attrs(                                                    \
+        gram2_strip_kernel<LS_GRAM2_DEPTH, LS_GRAM2_MIN_BLOCKS, CR, VE>, out);
+    LS_G2_ATTR(0, 0) LS_G2_ATTR(0, 1) LS_G2_ATTR(1, 0) LS_G2_ATTR(1, 1)
+#undef LS_G2_ATTR
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 }  // extern "C"

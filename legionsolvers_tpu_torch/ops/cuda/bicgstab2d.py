@@ -17,7 +17,11 @@ bicg_update  x' = x + alpha p + omega s, r' = s - omega t:    bicg_update_plain
 They move 24, 8 and 28 bytes per element: 60 B per unknown per iteration.
 Each pass applies A once, to an operand that is zero outside the grid; s
 and t never reach device memory.  ``compensated`` sums the dots from exact
-f32 products in float64 and rounds once (see ``ops/ddsum.py``).
+f32 products in float64 and rounds once (see ``ops/ddsum.py``).  With a
+reach-1 stencil ``bicg_st`` runs on K1's column-strip march (one launch,
+its dots summed in float64 and folded into the last block, the scratch
+of :func:`~.stencil2d._step2_scratch`); with reach 2..8 it runs the tile
+kernel and a second launch, as the other two passes do.
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches its kernel or raises; it never falls back.  Every CUDA launch adds
@@ -41,6 +45,7 @@ import torch
 
 from ..ddsum import dd_dot
 from .stencil2d import (
+    STEP2_REACH,
     _blocks,
     _check_distinct,
     _check_grid,
@@ -49,6 +54,8 @@ from .stencil2d import (
     _launch,
     _on_cuda,
     _ptr,
+    _reach,
+    _step2_scratch,
     _stencil_struct,
     apply_plain,
     supports,
@@ -182,12 +189,21 @@ def bicg_st(r, v, alpha, *, offsets, values, compensated: bool = False):
                              compensated=compensated)
     dev = r.device
     al = _dev_scalars(alpha, 1, dev)
+    # dot is fresh per pass: the runner keeps earlier passes' values
     dot = torch.empty(2, dtype=torch.float32, device=dev)
     st = _stencil_struct(offsets, values)
-    _launch("bicg_st", "ls_bicg_st", (
-        _ptr(r), _ptr(v), _ptr(al), _ptr(dot), _ptr(_scratch(R, C, 2, dev)),
-        R, C, int(compensated), ctypes.byref(st),
-    ), dev)
+    if _reach(offsets) <= STEP2_REACH:
+        partials, capacity, counter = _step2_scratch(dev, R, C)
+        _launch("bicg_st", "ls_bicg_st_strip", (
+            _ptr(r), _ptr(v), _ptr(al), _ptr(dot), _ptr(partials), capacity,
+            _ptr(counter), R, C, int(compensated), ctypes.byref(st),
+        ), dev)
+    else:
+        _launch("bicg_st", "ls_bicg_st", (
+            _ptr(r), _ptr(v), _ptr(al), _ptr(dot),
+            _ptr(_scratch(R, C, 2, dev)), R, C, int(compensated),
+            ctypes.byref(st),
+        ), dev)
     return dot[0], dot[1]
 
 

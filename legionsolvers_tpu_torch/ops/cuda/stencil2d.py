@@ -50,9 +50,16 @@ MAX_TERMS = 32     # stencil terms a kernel accepts (csrc: LS_MAX_TERMS)
 HALO_ROWS = 8      # rows in a halo block
 STENCIL_REACH = 8  # K3/K4 gate: |dy|, |dx| <= 8
 STEP2_REACH = 1    # K1/K2 gate: four chained applications inside a 4-halo
-STEP2_COLS = 120   # K1: output columns of one warp's strip (LS_STEP2_COLS)
-STEP2_MIN_ROWS = 16  # K1: shortest row chunk (LS_STEP2_MIN_ROWS)
-STEP2_WARPS = 4    # K1: warps per block (LS_STEP2_WARPS)
+STEP2_COLS = 120   # strip passes: output columns of a warp's strip
+STEP2_MIN_ROWS = 16  # strip passes: shortest row chunk
+STEP2_WARPS = 4    # strip passes: warps per block
+# The strip passes' row chunks aim at one wave of their resident blocks on
+# each of an H100 SXM's 132 SMs (csrc/march2d.cuh): K1 3 blocks per SM,
+# K2 4, K5b 8
+STEP2_TARGET_WARPS = 132 * 3 * STEP2_WARPS
+GRAM2_TARGET_WARPS = 132 * 4 * STEP2_WARPS
+ST_TARGET_WARPS = 132 * 8 * STEP2_WARPS
+STEP2_GRAM = 10    # doubles of a block's partial sums in the strip scratch
 
 #: CUDA launches per pass name since the last :func:`reset_launch_counts`.
 LAUNCHES = collections.Counter()
@@ -340,20 +347,41 @@ def _blocks(R, C) -> int:
     return -(-R // TILE) * -(-C // TILE)
 
 
+def strip_geometry(R: int, C: int, target_warps: int):
+    """(strips, rows per chunk, warps, blocks) of a strip launch on an [R, C]
+    grid whose row chunks aim at ``target_warps`` warps, as
+    ``strip_geometry`` in csrc/march2d.cuh computes them: 120-column
+    strips, and no more row chunks than chunks of STEP2_MIN_ROWS rows
+    would need.  A function of the shape alone."""
+    strips = -(-C // STEP2_COLS)
+    chunks = max(1, min(target_warps // strips, -(-R // STEP2_MIN_ROWS)))
+    chunk_rows = -(-R // chunks)
+    units = strips * -(-R // chunk_rows)
+    return strips, chunk_rows, units, -(-units // STEP2_WARPS)
+
+
+def strip_capacity(R: int, C: int) -> int:
+    """Blocks of the largest strip launch on an [R, C] grid, whatever its
+    target: one warp per strip and row chunk of STEP2_MIN_ROWS rows."""
+    units = -(-C // STEP2_COLS) * -(-R // STEP2_MIN_ROWS)
+    return -(-units // STEP2_WARPS)
+
+
 _STEP2_SCRATCH = {}
 
 
 def _step2_scratch(device, R: int, C: int):
-    """K1's Gram partials (float64, room for the most blocks it can launch
-    on an [R, C] grid) and its last-block counter (zero between launches),
-    made once per (device, stream, R, C): launches on one stream are
-    ordered, so they can share them."""
+    """(partials, capacity, counter) of the strip passes' launches on an
+    [R, C] grid (K1, K2 and K5b, whatever their targets): STEP2_GRAM
+    float64 partial sums for each of :func:`strip_capacity` blocks (K1 and
+    K2 keep ten per block, K5b two) and the last-block counter (zero
+    between launches), made once per (device, stream, R, C): launches on
+    one stream are ordered, so they can share them."""
     key = (device, _raw_stream(device), R, C)
     scratch = _STEP2_SCRATCH.get(key)
     if scratch is None:
-        units = -(-C // STEP2_COLS) * -(-R // STEP2_MIN_ROWS)
-        capacity = -(-units // STEP2_WARPS)
-        scratch = (torch.empty(10 * capacity, dtype=torch.float64,
+        capacity = strip_capacity(R, C)
+        scratch = (torch.empty(STEP2_GRAM * capacity, dtype=torch.float64,
                                device=device), capacity,
                    torch.zeros(1, dtype=torch.int32, device=device))
         _STEP2_SCRATCH[key] = scratch
@@ -499,12 +527,12 @@ def grid2d_cg_gram2(r, p, *, offsets, values):
     if not _on_cuda(r, p):
         return gram2_plain(r, p, offsets=offsets, values=values)
     dev = r.device
+    # g is fresh per pass, as step2's
     g = torch.empty(10, dtype=torch.float32, device=dev)
-    partials = torch.empty(10 * _blocks(R, C), dtype=torch.float32,
-                           device=dev)
-    st = _stencil_struct(offsets, values)
+    partials, capacity, counter = _step2_scratch(dev, R, C)
     _launch("gram2", "ls_gram2", (
-        _ptr(r), _ptr(p), _ptr(g), _ptr(partials), R, C, ctypes.byref(st),
+        _ptr(r), _ptr(p), _ptr(g), _ptr(partials), capacity, _ptr(counter),
+        R, C, ctypes.byref(_stencil_struct(offsets, values)),
     ), dev)
     return g
 

@@ -24,9 +24,12 @@ its Cauchy-Schwarz scale).  K1 (step2) is also held at the edges of its
 column strips, row chunks and 16-byte vectors, with the cross and a
 9-point stencil, to chip_smoke.py's phase 3 bounds (elementwise 1e-5 *
 max|ref|, Gram entries 1e-4 of their Cauchy-Schwarz scale), and must
-repeat bit for bit; K10 at the interface's caps.  A 2-D solve(40) on the
-card is held entry by entry against the same schedule driven by the plain
-versions.
+repeat bit for bit; K10 at the interface's caps.  K5b (bicg_st, both dot
+modes, with a reach-2 stencil too) and K2 (gram2) are held at the same
+edges to the same bounds, and must repeat bit for bit; the strip scratch's
+room and the K5b and K2 wrappers on CPU tensors need no card.  A 2-D
+solve(40) on the card is held entry by entry against the same schedule
+driven by the plain versions.
 """
 
 import numpy as np
@@ -632,6 +635,136 @@ def test_sstep_history_on_card(cuda_device):
     assert len(kernel) == 41 and len(np.unique(kernel)) == 41
     np.testing.assert_allclose(kernel, plain, rtol=1e-3)
 
+
+
+# K5b (bicg_st) and K2 (gram2) on the column-strip march: K1's edge shapes
+# (strips of 120 output columns, row chunks, 16-byte vectors where C % 4
+# == 0), the cross, the 9-point stencil (the switch path) and, for K5b, a
+# reach-2 stencil (the tile kernel and its second launch)
+STRIP_SHAPES = [(200, 328), (33, 4097), (4099, 130), (1, 5), (96, 132)]
+OFFS_R2 = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1), (-2, 0), (2, 0),
+           (0, -2), (0, 2))
+VALS_R2 = (5.0, -1.0, -1.0, -1.0, -1.0, -0.25, -0.25, -0.25, -0.25)
+STENCILS2 = {"cross": (KW["offsets"], KW["values"]), "9-point": (OFFS9, VALS9),
+             "reach2": (OFFS_R2, VALS_R2)}
+
+
+def _st_case(shape, stencil, compensated, device, seed=17):
+    """K5b twice and its plain version on the same inputs: (the two kernel
+    runs, the plain run, the dots' Cauchy-Schwarz scales), float64."""
+    offs, vals = STENCILS2[stencil]
+    rng = np.random.default_rng(seed)
+    r, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(device) for _ in range(2))
+    kw = dict(offsets=offs, values=vals, compensated=compensated)
+    runs = [torch.stack(fn(r, v, 0.83, **kw)).double().cpu()
+            for fn in (TB.bicg_st, TB.bicg_st, TB.bicg_st_plain)]
+    s = r - torch.tensor(0.83, device=device) * v
+    t = T.apply_plain(s, offs, vals)
+    nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
+    return runs, torch.tensor([nrm(t) * nrm(s), nrm(t) ** 2],
+                              dtype=torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("stencil", list(STENCILS2))
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+def test_k5b_edges_match_plain_on_card(shape, stencil, compensated,
+                                       cuda_device):
+    """K5b across the strip march's edges (reach 1) and on the tile kernel
+    (reach 2) against bicg_st_plain on the same card, to chip_smoke.py's
+    phase 3 bound (1e-4 of each dot's Cauchy-Schwarz scale), and a repeat
+    bit for bit."""
+    T.reset_launch_counts()
+    (k1, k2, ref), scale = _st_case(shape, stencil, compensated, cuda_device)
+    assert dict(T.LAUNCHES) == {"bicg_st": 2}
+    assert torch.equal(k1, k2)
+    assert bool(((k1 - ref).abs() <= 1e-4 * scale).all()), (k1, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stencil", ["cross", "9-point"])
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+def test_k2_edges_match_plain_on_card(shape, stencil, cuda_device):
+    """K2 across the strip march's edges against gram2_plain on the same
+    card (Gram entries to 1e-4 of their Cauchy-Schwarz scale), and a
+    repeat bit for bit."""
+    offs, vals = STENCILS2[stencil]
+    rng = np.random.default_rng(19)
+    r, p = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    rt, pt = (torch.from_numpy(a).to(cuda_device) for a in (r, p))
+    T.reset_launch_counts()
+    g1, g2, ref = (fn(rt, pt, offsets=offs, values=vals).double().cpu()
+                   for fn in (T.grid2d_cg_gram2, T.grid2d_cg_gram2,
+                              T.gram2_plain))
+    assert dict(T.LAUNCHES) == {"gram2": 2}
+    assert torch.equal(g1, g2)
+    np.testing.assert_array_less(np.abs((g1 - ref).numpy()),
+                                 1e-4 * gram_bounds(r, p, offs, vals))
+
+
+@pytest.mark.cuda
+def test_strip_geometry_and_residency_on_card(cuda_device):
+    """The library's strip block counts equal the Python mirror's, and every
+    K5b and K2 strip variant fits its launch bounds' resident blocks."""
+    import ctypes
+
+    from legionsolvers_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    for shape in [(4096, 4096), *STRIP_SHAPES]:
+        for target in (T.STEP2_TARGET_WARPS, T.GRAM2_TARGET_WARPS,
+                       T.ST_TARGET_WARPS):
+            assert lib.ls_strip_blocks(*shape, target) == \
+                T.strip_geometry(*shape, target)[3], (shape, target)
+    out = (ctypes.c_int * 3)()
+    for fn, n, target in (("ls_gram2_attrs", 4, T.GRAM2_TARGET_WARPS),
+                          ("ls_bicg_st_strip_attrs", 8, T.ST_TARGET_WARPS)):
+        blocks = target // (132 * T.STEP2_WARPS)
+        for which in range(n):
+            assert getattr(lib, fn)(which, out) == 0, (fn, which)
+            assert out[2] >= blocks, (fn, which, list(out))
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096), *STRIP_SHAPES])
+def test_strip_scratch_covers_k2_and_k5b(shape):
+    """The strip scratch holds K1's and K2's 10 and K5b's 2 partial sums
+    for every block of their launches, whose strips and row chunks cover
+    the grid (no card needed)."""
+    R, C = shape
+    capacity = T.strip_capacity(R, C)
+    for target, per_block in ((T.STEP2_TARGET_WARPS, 10),
+                              (T.GRAM2_TARGET_WARPS, 10),
+                              (T.ST_TARGET_WARPS, 2)):
+        strips, rows, units, blocks = T.strip_geometry(R, C, target)
+        assert strips * T.STEP2_COLS >= C and units % strips == 0
+        assert (units // strips) * rows >= R > (units // strips - 1) * rows
+        assert units <= blocks * T.STEP2_WARPS < units + T.STEP2_WARPS
+        assert blocks <= capacity
+        assert per_block * blocks <= T.STEP2_GRAM * capacity
+
+
+@pytest.mark.parametrize("stencil", list(STENCILS2))
+def test_k5b_and_k2_run_plain_on_cpu(stencil):
+    """On CPU tensors the K5b (both dot modes) and K2 wrappers return their
+    plain versions' results exactly and launch nothing (no card needed;
+    K2 takes reach-1 stencils only)."""
+    T.reset_launch_counts()
+    for comp in (False, True):
+        (k1, _, ref), _ = _st_case((96, 132), stencil, comp, "cpu")
+        assert torch.equal(k1, ref)
+    offs, vals = STENCILS2[stencil]
+    rng = np.random.default_rng(23)
+    r, p = (torch.from_numpy(rng.standard_normal((33, 130)).astype(
+        np.float32)) for _ in range(2))
+    if stencil == "reach2":
+        with pytest.raises(ValueError):
+            T.grid2d_cg_gram2(r, p, offsets=offs, values=vals)
+    else:
+        assert torch.equal(T.grid2d_cg_gram2(r, p, offsets=offs, values=vals),
+                           T.gram2_plain(r, p, offsets=offs, values=vals))
+    assert sum(T.LAUNCHES.values()) == 0
 
 def _explicit_coo(name):
     """Small forms of chip_smoke.py's scrambled Laplacian and random SPD
