@@ -6,19 +6,21 @@ Run from the repository root:  python3 chip_smoke.py [--profile]
 Two other modes compare trees of the package on one card instead:
 ``--solves [--tree DIR]`` prints, for the package of DIR (default this
 one), 2-D CG's distance from float64 at three sizes, the ms/iter and host
-enqueue ms/iter of the 2-D CG, 2-D BiCGStab (f32 and compensated dots),
-random-2^20 CG and 3-D CG and BiCGStab (7- and 27-point at 256^3)
-solve(200)s, five runs each, the host's enqueue time of one K10 call, the
-times of K5b (compensated dots off and on) and K2 at 4096^2 and of K6b
-and K7 st and update (compensated dots off and on) at 256^3, and K12 and
-``torch.add`` in turns (one JSON line); ``--ab PARENT`` runs
-``--solves`` on PARENT and on this tree, alternating parent, change,
-change, parent, and prints the medians and ranges.  ``--breakdown [--dim
-2|3] [--tree DIR]`` runs phase 4d's f32 BiCGStab on the 7-point system at
-256^3 (dim 3, the default) or phase 4b's on the 5-point system at 4096^2
-(dim 2) from several right-hand sides (:func:`breakdown`).  ``--passes
-[--tree DIR]`` prints the times of K5b and K2 at 4096^2 that ``--solves``
-takes (:func:`time_ab_passes_2d`) and nothing else.
+enqueue ms/iter of the 2-D CG (s-step and two-pass), 2-D PCG(Jacobi), 2-D
+BiCGStab (f32 and compensated dots), random-2^20 CG and 3-D CG and
+BiCGStab (7- and 27-point at 256^3) solve(200)s, five runs each, the
+host's enqueue time of one K10 call, the times of K3 (four modes), K4, K5b
+(compensated dots off and on) and K2 at 4096^2 and of K6b and K7 st and
+update (compensated dots off and on) at 256^3, and K12 and ``torch.add``
+in turns (one JSON line); ``--ab PARENT`` runs ``--solves`` on PARENT and
+on this tree, alternating parent, change, change, parent, and prints the
+medians and ranges.  ``--breakdown [--dim 2|3] [--size N] [--tree DIR]``
+runs phase 4d's f32 BiCGStab on the 7-point system at 256^3 (dim 3, the
+default) or phase 4b's on the 5-point system at 4096^2 (dim 2; N^2 with
+``--size``) from several right-hand sides (:func:`breakdown`).
+``--passes [--tree DIR]`` prints the times of K3, K4, K5b and K2 at
+4096^2 that ``--solves`` takes (:func:`time_ab_passes_2d`) and nothing
+else.
 
 Phases (any failure raises, and the exit code is non-zero):
 
@@ -46,9 +48,13 @@ Phases (any failure raises, and the exit code is non-zero):
    resident blocks per SM are printed after the build;
 4. drive the CG path, ``entry.build_system(4096)`` -> ``CGSolver``: a
    few eager ``step()``s (K3 y_dot), ``solve(200)`` (K1 x100, K2 x7),
-   ``solve(201)`` (adds one K3 update), a two-pass ``solve(8)`` under
-   LEGIONSOLVERS_NO_SSTEP (K3 pq/update, K4) and a residual check through
-   ``planner.matvec`` (K3 y), with the launch counters checked exactly;
+   ``solve(201)`` (adds one K3 update), a two-pass ``solve(200)`` under
+   LEGIONSOLVERS_NO_SSTEP (K3 pq x1, update x200, K4 x199) and a residual
+   check through ``planner.matvec`` (K3 y), with the launch counters
+   checked exactly; the two-pass solve again from the same state
+   (bit-identical history and x, the same launches), its history and x
+   held to float64 CG like the s-step solve's, and ||b - Ax||^2 to its
+   last history entry within twice textbook f32 CG's gap, or 1e-3;
    then hold the solve against the same schedule driven by the plain
    versions on the card (rtol 1e-3 while textbook f32 CG stays within
    5e-4 of float64 CG), against float64 CG over all 200 (no worse than
@@ -99,16 +105,18 @@ Phases (any failure raises, and the exit code is non-zero):
 5. time each kernel and the whole solve(200) of both solvers (and the host's
    enqueue time of the solve) against their plain versions with CUDA events, after a warm-up, over a ring of input
    sets so that L2 does not serve repeats, refusing any time that would
-   beat the card's measured copy bandwidth.  ``--profile`` adds a
-   ``torch.profiler`` trace of the 2-D BiCGStab solve and of the four 3-D
-   solves, last.  The 3-D kernels and the four 3-D solves are timed the
-   same way at 256^3, each 3-D kernel logged with its launches per
-   solve(200) and the ms it loses there, launches x (time - bound), and K7
-   pv with compensated dots off, on, on, off (7-, 27-point, reach 2);
-   ``F.conv2d`` and ``F.conv3d`` computing K3's and K6a's y are timed as
-   the library yardstick.  Each kernel's bound is the
-   larger of its minimum bytes over the measured copy bandwidth and its
-   f32 operations over the card's f32 peak.
+   beat the card's measured copy bandwidth; each K3 and K4 row is logged
+   with its launches per solve(200) on the two-pass CG, PCG and GMRES
+   paths and the ms it loses there, launches x (time - bound).
+   ``--profile`` adds a ``torch.profiler`` trace of the 2-D BiCGStab solve
+   and of the four 3-D solves, last.  The 3-D kernels and the four 3-D solves
+   are timed the same way at 256^3, each 3-D kernel logged with its launches
+   per solve(200) and the ms it loses there, launches x (time - bound), and
+   K7 pv with compensated dots off, on, on, off (7-, 27-point, reach 2);
+   ``F.conv2d`` and ``F.conv3d`` computing K3's and K6a's y are timed as the
+   library yardstick.  Each kernel's bound is the larger of its minimum bytes
+   over the measured copy bandwidth and its f32 operations over the card's
+   f32 peak.
 
 The explicit-sparse path (the planner's upgrades of explicit matrices):
 
@@ -191,6 +199,7 @@ the last line is ``{"ok": true, "device": {...}}``.  Details also go to
 ``chiprun_out/chip_smoke.json``.
 """
 
+import contextlib
 import json
 import os
 import pathlib
@@ -349,38 +358,50 @@ def make_inputs(torch, T, shape, seed, device):
     return d
 
 
-def run_mode(T, mode, d, plain):
+def one_pass_call(T, mode, d, plain, kw=KW):
+    """A closure running one K3 mode or K4 on ``d`` in place (update writes
+    d's x and r), with d's halo blocks (None: zeros): the wrapper (kernel
+    on CUDA tensors) or the plain version.  It returns the pass's outputs:
+    (y,), (y, dot), (dot,), (x, r, dot) or (p, dot)."""
+    if mode in ("y", "y_dot", "pq"):
+        src = d["p"] if mode == "pq" else d["x"]
+        top, bot = (d["pt"], d["pb"]) if mode == "pq" else (d["rt"], d["rb"])
+        if plain:
+            return lambda: T.stencil_plain(mode, src, top, bot, **kw)
+        if mode == "pq":
+            return lambda: (T.grid2d_cg_pq(src, top, bot, **kw),)
+        if mode == "y":
+            return lambda: (T.grid2d_stencil_matvec(src, top, bot, **kw),)
+        return lambda: T.grid2d_stencil_matvec(src, top, bot, with_dot=True,
+                                               **kw)
+    if mode == "update":
+        if plain:
+            return lambda: T.stencil_plain(
+                "update", d["p"], d["pt"], d["pb"],
+                (d["x"], d["r"], d["alpha"]), **kw)
+        return lambda: T.grid2d_cg_update(d["p"], d["x"], d["r"], d["alpha"],
+                                          d["pt"], d["pb"], **kw)
+    fn = T.xpay_pq_plain if plain else T.grid2d_cg_xpay_pq
+    return lambda: fn(d["r"], d["p"], d["beta"], d["rt"], d["rb"], d["pt"],
+                      d["pb"], **kw)
+
+
+ONE_PASS_NAMES = {"y": ("y",), "y_dot": ("y", "dot"), "pq": ("dot",),
+                  "update": ("x", "r", "dot"), "xpay_pq": ("p", "dot")}
+
+
+def run_mode(T, mode, d, plain, kw=KW):
     """One pass on fresh copies of ``d``: the wrapper (kernel on CUDA
     tensors) or the plain version.  Returns {output name: tensor}."""
-    c = {k: v.clone() for k, v in d.items()}
-    if mode in ("y", "y_dot", "pq"):
-        src = c["p"] if mode == "pq" else c["x"]
-        top, bot = (c["pt"], c["pb"]) if mode == "pq" else (c["rt"], c["rb"])
-        if plain:
-            out = T.stencil_plain(mode, src, top, bot, **KW)
-        elif mode == "pq":
-            out = (T.grid2d_cg_pq(src, top, bot, **KW),)
-        else:
-            out = T.grid2d_stencil_matvec(src, top, bot,
-                                          with_dot=mode == "y_dot", **KW)
-            out = out if mode == "y_dot" else (out,)
-        names = {"y": ("y",), "y_dot": ("y", "dot"), "pq": ("dot",)}[mode]
-        return dict(zip(names, out))
-    if mode == "update":
-        args = (c["p"], c["x"], c["r"], c["alpha"], c["pt"], c["pb"])
-        out = (T.stencil_plain("update", args[0], args[4], args[5],
-                               (args[1], args[2], args[3]), **KW)
-               if plain else T.grid2d_cg_update(*args, **KW))
-        return dict(zip(("x", "r", "dot"), out))
-    if mode == "xpay_pq":
-        args = (c["r"], c["p"], c["beta"], c["rt"], c["rb"], c["pt"], c["pb"])
-        fn = T.xpay_pq_plain if plain else T.grid2d_cg_xpay_pq
-        return dict(zip(("p", "dot"), fn(*args, **KW)))
+    c = {k: None if v is None else v.clone() for k, v in d.items()}
+    if mode in ONE_PASS_NAMES:
+        return dict(zip(ONE_PASS_NAMES[mode],
+                        one_pass_call(T, mode, c, plain, kw)()))
     if mode == "gram2":
         fn = T.gram2_plain if plain else T.grid2d_cg_gram2
-        return {"gram": fn(c["r"], c["p"], **KW)}
+        return {"gram": fn(c["r"], c["p"], **kw)}
     fn = T.step2_plain if plain else T.grid2d_cg_step2
-    out = fn(c["x"], c["r"], c["p"], c["coef"], **KW)
+    out = fn(c["x"], c["r"], c["p"], c["coef"], **kw)
     return dict(zip(("x", "r", "p", "gram"), out))
 
 
@@ -572,59 +593,144 @@ def compare_strip_edges(torch, T, TB, device):
     return errs
 
 
+def one_pass_inputs(torch, shape, halos, device, seed=43):
+    """x, r, p on ``shape``, random [8, C] halo blocks (None without
+    ``halos``), alpha and beta, for K3 and K4."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    d = {k: torch.randn(shape, generator=g, device=device)
+         for k in ("x", "r", "p")}
+    for k in ("rt", "rb", "pt", "pb"):
+        d[k] = (torch.randn(8, shape[1], generator=g, device=device)
+                if halos else None)
+    d["alpha"] = torch.tensor(0.3, device=device)
+    d["beta"] = torch.tensor(0.2, device=device)
+    return d
+
+
+def compare_one_pass_edges(torch, T, device):
+    """Phase 3, K3 (four modes) and K4 at STRIP_SHAPES with STRIP_STENCILS
+    (reach 1: the strip kernels; reach 2: the tile kernels), without and
+    with random halo blocks, against their plain versions to phase 3's
+    bounds (elementwise 1e-5 * max|ref|, each dot 1e-4 of its
+    Cauchy-Schwarz scale), and a repeat of the kernel on the same inputs,
+    bit for bit.  Returns {pass name: max abs error}."""
+    nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
+    errs = dict.fromkeys(ONE_PASS_NAMES, 0.0)
+    for sname, (offs, vals) in STRIP_STENCILS.items():
+        kw = dict(offsets=offs, values=vals)
+        A = lambda v, top, bot: T.apply_plain(v, offs, vals, top, bot)
+        for shape in STRIP_SHAPES:
+            for halos in (False, True):
+                d = one_pass_inputs(torch, shape, halos, device)
+                comb = lambda a, b: None if a is None else a + d["beta"] * b
+                worst = 0.0
+                for mode in ONE_PASS_NAMES:
+                    k1, k2, ref = (run_mode(T, mode, d, plain, kw)
+                                   for plain in (False, False, True))
+                    torch.cuda.synchronize()
+                    case = (f"{mode} {shape} {sname} halos="
+                            f"{'random' if halos else 'null'}")
+                    if not all(torch.equal(k1[k], k2[k]) for k in k1):
+                        raise AssertionError(f"{case}: a repeat is not "
+                                             "bit-identical")
+                    for key, want in ref.items():
+                        err = (k1[key].double() - want.double()).abs().max()
+                        if key != "dot":
+                            bound = 1e-5 * want.abs().max().item()
+                        elif mode == "y_dot":
+                            bound = 1e-4 * nrm(d["x"]) * nrm(ref["y"])
+                        elif mode == "pq":
+                            bound = 1e-4 * nrm(d["p"]) * nrm(
+                                A(d["p"], d["pt"], d["pb"]))
+                        elif mode == "update":
+                            bound = 1e-4 * nrm(ref["r"]) ** 2
+                        else:
+                            bound = 1e-4 * nrm(ref["p"]) * nrm(A(
+                                ref["p"], comb(d["rt"], d["pt"]),
+                                comb(d["rb"], d["pb"])))
+                        if not err.item() <= bound:
+                            raise AssertionError(
+                                f"{case} {key}: kernel disagrees with its "
+                                f"plain version ({err.item():g})")
+                        errs[mode] = max(errs[mode], err.item())
+                        worst = max(worst, err.item())
+                log(f"[check] K3, K4 {shape} {sname} halos="
+                    f"{'random' if halos else 'null'}: kernel == plain (max "
+                    f"abs err {worst:.3g}); repeat bit for bit")
+                del d
+    return errs
+
+
 def check_one_launch_2d(torch, T, TB, device):
-    """Phase 3: K5b with the reach-1 stencils (compensated dots off and on)
-    and K2 launch one kernel, their strip kernel, and no reduce_partials;
-    K5b with the reach-2 stencil launches the tile kernel and its second
-    launch, which shows that the trace sees a second launch.  Returns
-    {case: kernel names}."""
+    """Phase 3: K5b with the reach-1 stencils (compensated dots off and on),
+    K2, K3 (four modes) and K4 launch one kernel, their strip kernel, and
+    no reduce_partials; K5b, K3 and K4 with the reach-2 stencil launch the
+    tile kernel and its second launch (K3 y, which has no dot, the tile
+    kernel alone), which shows that the trace sees a second launch.
+    Returns {case: kernel names}."""
     g = torch.Generator(device=device).manual_seed(37)
     r, v = (torch.randn(RAGGED, generator=g, device=device)
             for _ in range(2))
     alpha = torch.tensor(0.83, device=device)  # as the solver passes it
-    seen, bad = {}, []
+    d = one_pass_inputs(torch, RAGGED, True, device, seed=47)
+    d["alpha"] = d["alpha"] * 1e-3  # update runs in place, once per trace
+    cases = {}
     for sname, (offs, vals) in STRIP_STENCILS.items():
         kw = dict(offsets=offs, values=vals)
-        cases = {f"bicg_st {sname} compensated={c}":
-                 lambda c=c, kw=kw: TB.bicg_st(r, v, alpha, compensated=c,
-                                               **kw)
-                 for c in (False, True)}
+        for c in (False, True):
+            cases[f"bicg_st {sname} compensated={c}"] = (
+                lambda c=c, kw=kw: TB.bicg_st(r, v, alpha, compensated=c,
+                                              **kw))
         if sname != "reach2":
             cases[f"gram2 {sname}"] = lambda kw=kw: T.grid2d_cg_gram2(r, v,
                                                                       **kw)
-        for case, fn in cases.items():
-            names = seen[case] = device_kernels(torch, fn)
-            second = any("reduce_partials" in n for n in names)
-            ok = (second if sname == "reach2" else
-                  len(names) == 1 and "strip_kernel" in names[0])
-            if not ok:
-                bad.append((case, names))
+        for mode in ONE_PASS_NAMES:
+            cases[f"{mode} {sname}"] = one_pass_call(T, mode, d, False, kw)
+    seen, bad = {}, []
+    for case, names in zip(cases, device_kernels(torch,
+                                                 list(cases.values()))):
+        seen[case] = names
+        second = any("reduce_partials" in n for n in names)
+        if "reach2" not in case:
+            ok = len(names) == 1 and "strip_kernel" in names[0]
+        elif case == "y reach2":
+            ok = len(names) == 1 and "strip_kernel" not in names[0]
+        else:
+            ok = second
+        if not ok:
+            bad.append((case, names))
     log("[check2d] one launch per strip pass: "
         + ("yes" if not bad else f"NO: {bad}") + "; e.g. "
         + "; ".join(f"{k}: {seen[k]}" for k in (
             "bicg_st cross compensated=False", "gram2 cross",
+            "update 9-point", "xpay_pq cross", "pq reach2",
             "bicg_st reach2 compensated=True")))
     if bad:
-        raise AssertionError(f"strip passes with a second launch, or the "
-                             f"reach-2 pass without one: {bad}")
+        raise AssertionError(f"strip passes with a second launch, or "
+                             f"reach-2 passes without one: {bad}")
     return seen
 
 
 def strip_attrs(lib):
     """{kernel variant: [registers, spill bytes, resident blocks per SM]}
-    of K5b's and K2's strip kernels (cudaFuncGetAttributes and the
-    occupancy calculator on this card)."""
+    of K5b's, K2's, K3's and K4's strip kernels (cudaFuncGetAttributes and
+    the occupancy calculator on this card)."""
     import ctypes
 
+    def k5b(which):
+        return f"bicg_st{' compensated' if which & 4 else ''}"
+
+    k3 = lambda which: ("y", "y_dot", "pq", "update")[which >> 2]
     out, res = (ctypes.c_int * 3)(), {}
-    for fn, n, name in (("ls_bicg_st_strip_attrs", 8, "bicg_st"),
-                        ("ls_gram2_attrs", 4, "gram2")):
+    for fn, n, name in (("ls_bicg_st_strip_attrs", 8, k5b),
+                        ("ls_gram2_attrs", 4, lambda _: "gram2"),
+                        ("ls_stencil2d_strip_attrs", 16, k3),
+                        ("ls_xpay_pq_strip_attrs", 4, lambda _: "xpay_pq")):
         for which in range(n):
             err = getattr(lib, fn)(which, out)
             if err:
                 raise RuntimeError(f"{fn}({which}): CUDA error {err}")
-            label = (f"{name}{' compensated' if which & 4 else ''} "
-                     f"{'cross' if which & 2 else 'stencil'} "
+            label = (f"{name(which)} {'cross' if which & 2 else 'stencil'} "
                      f"{'vec' if which & 1 else 'scalar'}")
             res[label] = list(out)
     return res
@@ -749,6 +855,24 @@ class plain_driven:
         self.solver._solve_cache.clear()
 
 
+class env_route:
+    """Within the block, the environment switch ``name`` is set (e.g.
+    LEGIONSOLVERS_NO_SSTEP: the two-pass CG schedule), and ``solver``'s
+    cached runners, built under the other route, are dropped on the way
+    in and out."""
+
+    def __init__(self, solver, name):
+        self.solver, self.name = solver, name
+
+    def __enter__(self):
+        os.environ[self.name] = "1"
+        self.solver._solve_cache.clear()
+
+    def __exit__(self, *exc):
+        del os.environ[self.name]
+        self.solver._solve_cache.clear()
+
+
 def cg_plain(T):
     """The plain versions of the CG path's wrappers, by wrapper name."""
     return {
@@ -862,16 +986,23 @@ def main_path(torch, np, T, lt, device):
     restart(solver)
     hist201 = solver.solve(201)
     after201 = dict(T.LAUNCHES)
-    os.environ["LEGIONSOLVERS_NO_SSTEP"] = "1"
-    try:
+    # the two-pass schedule (K3 pq, then K4 xpay_pq + K3 update per
+    # iteration), the same solve(200) again from the same state
+    with env_route(solver, "LEGIONSOLVERS_NO_SSTEP"):
         restart(solver)
-        hist_two_pass = solver.solve(8)
-    finally:
-        del os.environ["LEGIONSOLVERS_NO_SSTEP"]
-    planner.matvec(solver.Q, solver.SOL)  # A x of the two-pass solve
-    torch.cuda.synchronize()
-    counts = dict(T.LAUNCHES)
-    T.reset_launch_counts()
+        hist_two_pass = solver.solve(N_ITERS)
+        x_two_pass = planner.sol_vectors[0].data.clone()
+        planner.matvec(solver.Q, solver.SOL)  # A x of the two-pass solve
+        torch.cuda.synchronize()
+        counts = dict(T.LAUNCHES)
+        T.reset_launch_counts()
+        restart(solver)
+        hist_again = solver.solve(N_ITERS)
+        torch.cuda.synchronize()
+        again = dict(T.LAUNCHES)
+        T.reset_launch_counts()
+        same = (torch.equal(hist_again, hist_two_pass)
+                and torch.equal(planner.sol_vectors[0].data, x_two_pass))
 
     want200 = {"y_dot": N_EAGER, "step2": 100, "gram2": 7}
     if after200 != want200:
@@ -879,25 +1010,32 @@ def main_path(torch, np, T, lt, device):
     want201 = {"y_dot": N_EAGER, "step2": 200, "gram2": 14, "update": 1}
     if after201 != want201:
         raise AssertionError(f"launches after solve(201): {after201}")
-    want = dict(want201, update=1 + 8, pq=1, xpay_pq=7, y=1)
+    want_two = {"pq": 1, "update": N_ITERS, "xpay_pq": N_ITERS - 1}
+    want = dict(want201, update=1 + N_ITERS, pq=1, xpay_pq=N_ITERS - 1, y=1)
     if counts != want:
         raise AssertionError(f"main-path launches {counts} != {want}")
+    if again != want_two:
+        raise AssertionError(f"two-pass solve(200) launches {again} != "
+                             f"{want_two}")
     log(f"[main] launches: {counts}")
+    if not same:
+        raise AssertionError("the two-pass solve(200) from the same state "
+                             "is not bit-identical")
 
     for name, h in (("eager", eager_hist), ("solve(200)", hist200),
                     ("solve(201)", hist201), ("two-pass", hist_two_pass)):
         if not bool(torch.isfinite(h).all()):
             raise AssertionError(f"{name} history is not finite")
-    # ||b - A x||^2 against the two-pass recurrence's last residual
+    # ||b - A x||^2 against the two-pass recurrence's last residual (checked
+    # against textbook f32 CG's own gap below)
     b = planner.rhs_vectors[0].data
     res = torch.sum((b - planner.workspace_vectors[1][0].data).double() ** 2)
     rel = abs(res.item() - hist_two_pass[-1].item()) / hist_two_pass[-1].item()
-    if rel > 1e-3:
-        raise AssertionError(f"||b - Ax||^2 off the history by {rel:g}")
     if not bool((b == 1.0).all()):
         raise AssertionError("the solve overwrote b")
     log(f"[main] solve(200) residual^2 {hist200[0].item():.6g} -> "
-        f"{hist200[-1].item():.6g}; ||b-Ax||^2 check rel {rel:.2g}")
+        f"{hist200[-1].item():.6g}; two-pass solve(200) repeats bit for "
+        f"bit; its ||b-Ax||^2 off its history by {rel:.3g}")
 
     # the same schedule driven by the plain versions on the card.  f32 CG
     # on this system (kappa ~ 7e6) leaves exact arithmetic by ~3e-3 within
@@ -935,6 +1073,22 @@ def main_path(torch, np, T, lt, device):
             and env["kernel"][1] <= 2 * env["textbook f32"][1]):
         raise AssertionError("kernel-driven solve(200) is less accurate "
                              f"than twice textbook f32 CG: {env}")
+    # the two-pass solve(200) to the same rule, and its ||b - Ax||^2 to its
+    # history within twice textbook f32 CG's gap (or 1e-3, as phase 4c)
+    two = (rel_dev(hist_two_pass, h64).max().item(), xrel(x_two_pass))
+    rr32 = torch.sum((1.0 - lap5(x32)) ** 2).item()
+    gap32 = abs(rr32 - h32[-1].item()) / h32[-1].item()
+    log(f"[main] two-pass solve(200) against float64 CG (history, x): "
+        f"{two[0]:.3g} {two[1]:.3g}; ||b-Ax||^2 gap {rel:.3g} (textbook "
+        f"f32 {gap32:.3g})")
+    if not (two[0] <= 2 * env["textbook f32"][0]
+            and two[1] <= 2 * env["textbook f32"][1]):
+        raise AssertionError("two-pass solve(200) is less accurate than "
+                             f"twice textbook f32 CG: {two}, {env}")
+    if rel > max(2 * gap32, CG3_GAP_FLOOR):
+        raise AssertionError(f"two-pass ||b - Ax||^2 off its history by "
+                             f"{rel:g}, textbook f32 CG by {gap32:g}")
+    env["two-pass"] = two
     # the same bound at other sizes: 2048^2 on the 16-byte path, 3001^2
     # (odd width) on the scalar one
     env_n = {}
@@ -962,7 +1116,8 @@ def main_path(torch, np, T, lt, device):
     results = {"hist200_last": hist200[-1].item(),
                "kernel_vs_plain": (window, dev), "vs_f64_200": env,
                "vs_f64_200_other_sizes": env_n,
-               "vs_f64_small": (dev50, xdev50), "residual_check": rel}
+               "vs_f64_small": (dev50, xdev50), "residual_check": rel,
+               "residual_check_textbook_f32": gap32}
     return counts, results, solver
 
 
@@ -1253,10 +1408,20 @@ def sane(label, ms, nbytes, bw):
     return ms
 
 
+# launches of K3's modes and K4 per solve(200) of the paths that run them
+# (GMRES(10): one residual and ten Arnoldi matvecs per cycle, 20 cycles)
+PATH_LAUNCHES_2D = {"two-pass CG": {"pq": 1, "update": N_ITERS,
+                                    "xpay_pq": N_ITERS - 1},
+                    "PCG": {"y_dot": N_ITERS},
+                    "GMRES(10)": {"y": 11 * N_ITERS // 10}}
+
+
 def time_kernels(torch, T, device, bw, card):
-    """Phase 5a.  {mode: (kernel ms, plain ms)} at the main-path shape; a
-    ring of three input sets (3 x 64 MB per vector) keeps the 50 MB L2
-    from serving repeated launches."""
+    """Phase 5a.  {mode: (kernel ms, plain ms, kernel ms in CUDA graphs)}
+    at the main-path shape; a ring of three input sets (3 x 64 MB per
+    vector) keeps the 50 MB L2 from serving repeated launches.  The graph
+    time is the device's alone: the shortest passes take less time on the
+    card than their wrappers' host work, which the events see."""
     n = N_GRID * N_GRID
     out = {}
     for mode, (_, _, bpe) in KERNELS.items():
@@ -1268,11 +1433,15 @@ def time_kernels(torch, T, device, bw, card):
             k = iter(range(10**9))
             times[plain] = event_ms(
                 torch, lambda: fns[next(k) % 3](), 6 if plain else 30)
+        graph = graph_ms(torch, [kernel_call(T, mode, d, False)
+                                 for d in ring], 30)
         sane(mode, times[False], bpe * n, bw)
-        out[mode] = (times[False], times[True])
+        sane(f"{mode} (graphs)", graph, bpe * n, bw)
+        out[mode] = (times[False], times[True], graph)
         log(f"[time] {mode:8s} kernel {times[False]:.4f} ms "
-            f"({bpe * n / times[False] / 1e6:.1f} GB/s), plain "
-            f"{times[True]:.4f} ms at {N_GRID}^2 f32 on {card}")
+            f"({bpe * n / times[False] / 1e6:.1f} GB/s; CUDA graphs "
+            f"{graph:.4f}), plain {times[True]:.4f} ms at {N_GRID}^2 f32 "
+            f"on {card}")
         del ring
     return out
 
@@ -1575,36 +1744,48 @@ def compare_3d_kernels(torch, lt, T3, TB3, device):
     return errs
 
 
-TRACE_TAKES = 4  # traces of one call before device_kernels gives up
+TRACE_TAKES = 4  # traces of a batch before device_kernels gives up
 
 
-def device_kernels(torch, fn):
-    """Names of the CUDA kernels one call of ``fn`` launches, from a
-    torch.profiler trace.  The trace ends with torch's spin kernel on the
-    same stream: a trace that lacks it, or holds it alone (every call
-    traced here launches a kernel), lost device events (the tracer has
-    returned no device event at all for some short traces, and the spin
-    kernel alone for one), so it is taken again, at most TRACE_TAKES
-    times, and never read."""
+def device_kernels(torch, fns):
+    """For each call in ``fns``, the names of the CUDA kernels it
+    launches, from one torch.profiler trace of them all: the calls run in
+    order on one stream, each followed by torch's spin kernel, and the
+    device kernels, in start order, are split at the spin kernels.  One
+    trace per batch, not per call: a trace has at times come back with
+    no device event at all, or with the spin kernel alone, and four
+    traces in a row of one call once did, after some fifty traces in one
+    process.  A trace whose spin kernels do not number one per call, or
+    in which a call launched nothing (every call traced here launches a
+    kernel), lost device events, so it is taken again, at most
+    TRACE_TAKES times, and never read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()  # a first call makes the wrapper's scratch, outside the trace
+    for fn in fns:  # a first call makes the wrappers' scratch
+        fn()
     torch.cuda.synchronize()
     for _ in range(TRACE_TAKES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda._sleep(1)
+            for fn in fns:
+                fn()
+                torch.cuda._sleep(1)
             torch.cuda.synchronize()
-        names = {e.key for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA}
-        sentinel = {n for n in names if "spin_kernel" in n}
-        if sentinel and names - sentinel:
-            return sorted(names - sentinel)
-        log(f"[check3d] a trace lost its device events "
-            f"(saw {sorted(names)}); taking it again")
-    raise AssertionError(f"{TRACE_TAKES} traces of one call lost their "
-                         "device events")
+        kernels = sorted((e.time_range.start, e.name) for e in prof.events()
+                         if e.device_type == DeviceType.CUDA)
+        calls, names = [], set()
+        for _, name in kernels:
+            if "spin_kernel" in name:
+                calls.append(sorted(names))
+                names = set()
+            else:
+                names.add(name)
+        if len(calls) == len(fns) and not names and all(calls):
+            return calls
+        log(f"[check] a trace of {len(fns)} calls lost device events (saw "
+            f"{len(calls)} spin kernels); taking it again")
+    raise AssertionError(f"{TRACE_TAKES} traces of {len(fns)} calls lost "
+                         "their device events")
 
 
 def check_one_launch_3d(torch, lt, T3, TB3, device):
@@ -1616,27 +1797,28 @@ def check_one_launch_3d(torch, lt, T3, TB3, device):
     which shows that the trace sees the second launch.  Returns {case:
     kernel names}."""
     d = inputs3d(torch, RAGGED3, 31, device)
-    seen, bad = {}, []
+    seen, bad, calls = {}, [], {}
     for dim in (*DIMS3, REACH2):
         kw = stencil_kw(lt, dim)
         for name in (*KERNELS3, *BICG3_KERNELS):
             for comp in ((False, True) if name in BICG3_KERNELS
                          else (False,)):
                 c = {k: v.clone() for k, v in d.items()}
-                names = device_kernels(
-                    torch, call3d(T3, TB3, name, c, kw, False, comp))
-                case = f"{name} dim {dim} compensated={comp}"
-                seen[case] = names
-                second = any("reduce_partials" in n for n in names)
-                march1 = (name in MARCH1_PASSES and dim != REACH2
-                          and not (comp and name in MARCH3D_COMPENSATED))
-                if march1:
-                    ok = (len(names) == 1 and "m1_kernel" in names[0]
-                          and not second)
-                else:
-                    ok = second or name == "y3d"
-                if not ok:
-                    bad.append((case, names))
+                calls[name, dim, comp] = call3d(T3, TB3, name, c, kw, False,
+                                                comp)
+    for (name, dim, comp), names in zip(
+            calls, device_kernels(torch, list(calls.values()))):
+        case = f"{name} dim {dim} compensated={comp}"
+        seen[case] = names
+        second = any("reduce_partials" in n for n in names)
+        march1 = (name in MARCH1_PASSES and dim != REACH2
+                  and not (comp and name in MARCH3D_COMPENSATED))
+        if march1:
+            ok = len(names) == 1 and "m1_kernel" in names[0] and not second
+        else:
+            ok = second or name == "y3d"
+        if not ok:
+            bad.append((case, names))
     log(f"[check3d] one launch per march1 pass: "
         + ("yes" if not bad else f"NO: {bad}") + "; e.g. "
         + "; ".join(f"{k}: {seen[k]}" for k in (
@@ -3158,10 +3340,12 @@ def time_ab_passes(torch, lt, device):
 
 
 def time_ab_passes_2d(torch, T, TB, device):
-    """--solves and --passes: {"bicg_st compensated=<c>" | "gram2": {"events": ms,
-    "graph": ms}}, K5b and K2 with the cross at N_GRID^2, timed as
+    """--solves and --passes: {"<K3 mode>" | "xpay_pq" | "bicg_st
+    compensated=<c>" | "gram2": {"events": ms, "graph": ms}}, K3, K4, K5b
+    and K2 with the cross at N_GRID^2, no halo blocks, timed as
     :func:`time_ab_passes` times the 3-D passes (CUDA events, and CUDA
-    graphs, over a ring of three input sets)."""
+    graphs, over a ring of three input sets; K3 update in place with a
+    tiny alpha and K4 into a spare buffer, as phase 5a calls them)."""
     g = torch.Generator(device=device).manual_seed(53)
     ring = [[torch.randn(N_GRID, N_GRID, generator=g, device=device)
              for _ in range(2)] for _ in range(3)]
@@ -3171,6 +3355,10 @@ def time_ab_passes_2d(torch, T, TB, device):
         for a, b in ring] for c in (False, True)}
     cases["gram2"] = [lambda a=a, b=b: T.grid2d_cg_gram2(a, b, **KW)
                       for a, b in ring]
+    ring1 = [make_inputs(torch, T, (N_GRID, N_GRID), 60 + s, device)
+             for s in range(3)]
+    for mode in ONE_PASS_NAMES:
+        cases[mode] = [kernel_call(T, mode, d, False) for d in ring1]
     res = {}
     for name, fns in cases.items():
         k = iter(range(10**9))
@@ -3180,22 +3368,28 @@ def time_ab_passes_2d(torch, T, TB, device):
 
 
 # the solve(200)s of --solves, besides SOLVES3
-SOLVES2 = ("cg2d", "bicg2d", "bicg2d_comp", "random")
+SOLVES2 = ("cg2d", "cg2d_two_pass", "pcg2d", "bicg2d", "bicg2d_comp",
+           "random")
+
+
+def pcg_solver(lt, planner):
+    """PCG with the Jacobi preconditioner, as the CLI's ``-solver 4``."""
+    return lt.PCGSolver(planner, lt.JacobiPreconditioner(planner))
 
 
 def solves(torch, np, T, lt, device, card, reps=5):
     """--solves: for the package this process imports, 2-D CG's distance
     from float64 at N_GRID and ACCURACY_GRIDS (:func:`cg2d_accuracy`);
     ``reps`` timed solve(200)s (:func:`solve_once`, after a warm-up) of the
-    main path's 2-D CG at 4096^2, of 2-D BiCGStab at 4096^2 with f32 and
-    with compensated dots, of CG on the random 2^20 system and of CG and
-    BiCGStab on the 3-D 7- and 27-point systems at 256^3 (SOLVES3); the
-    host's enqueue time of one K10 call, per hop of one routed matvec (200
-    calls, no sync between them); the times of K5b and K2 at 4096^2
-    (:func:`time_ab_passes_2d`) and of AB_PASSES3
-    (:func:`time_ab_passes`); and K12 and ``torch.add`` at 16384 x 4096
-    in turns over K12_SOLVES_RINGS rings (:func:`k12_turns`).  One JSON
-    line."""
+    main path's 2-D CG at 4096^2 (s-step, and two-pass under
+    LEGIONSOLVERS_NO_SSTEP), of 2-D PCG(Jacobi) and of 2-D BiCGStab at
+    4096^2 with f32 and with compensated dots, of CG on the random 2^20
+    system and of CG and BiCGStab on the 3-D 7- and 27-point systems at
+    256^3 (SOLVES3); the host's enqueue time of one K10 call, per hop of one
+    routed matvec (200 calls, no sync between them); the times of K3, K4,
+    K5b and K2 at 4096^2 (:func:`time_ab_passes_2d`) and of AB_PASSES3
+    (:func:`time_ab_passes`); and K12 and ``torch.add`` at 16384 x 4096 in
+    turns over K12_SOLVES_RINGS rings (:func:`k12_turns`).  One JSON line."""
     from legionsolvers_tpu_torch.entry import build_stencil_system, build_system
     from legionsolvers_tpu_torch.ops.cuda import bicgstab2d as TB
     from legionsolvers_tpu_torch.ops.cuda import rowperm as RP
@@ -3208,6 +3402,10 @@ def solves(torch, np, T, lt, device, card, reps=5):
     comp = lt.SolverOptions(entry_dtype=torch.float32, compensated_dots=True)
     runs_of = [("cg2d", lambda: lt.CGSolver(build_system(N_GRID, f32,
                                                          device))),
+               ("cg2d_two_pass", lambda: lt.CGSolver(build_system(
+                   N_GRID, f32, device))),
+               ("pcg2d", lambda: pcg_solver(lt, build_system(N_GRID, f32,
+                                                             device))),
                ("bicg2d", lambda: lt.BiCGStabSolver(build_system(
                    N_GRID, f32, device))),
                ("bicg2d_comp", lambda: lt.BiCGStabSolver(build_system(
@@ -3219,8 +3417,11 @@ def solves(torch, np, T, lt, device, card, reps=5):
             build_stencil_system(d, SHAPE3, f32, device))))
     for name, make in runs_of:
         solver = make()
-        runs = [solve_once(torch, solver, N_ITERS)
-                for _ in range(reps + 1)][1:]
+        route = (env_route(solver, "LEGIONSOLVERS_NO_SSTEP")
+                 if name == "cg2d_two_pass" else contextlib.nullcontext())
+        with route:
+            runs = [solve_once(torch, solver, N_ITERS)
+                    for _ in range(reps + 1)][1:]
         out[name] = {"ms_per_iter": [d / N_ITERS for d, _ in runs],
                      "host_ms_per_iter": [h / N_ITERS for _, h in runs]}
         del solver
@@ -3308,27 +3509,42 @@ BREAKDOWN_EPS = 0.01
 BREAKDOWN_ITERS = 300
 
 
-def breakdown(torch, lt, device, card, dim=3):
-    """--breakdown [--dim 2|3]: for the package this process imports, f32
-    BiCGStab from BREAKDOWN_RHS right-hand sides on phase 4d's system (dim
-    3: the 7-point stencil at SHAPE3) or phase 4b's (dim 2: the 5-point
-    Laplacian at N_GRID^2).  For each: the first non-finite history entry
-    over BREAKDOWN_ITERS iterations of the port's solve (f32 dots) and of
-    textbook f32; the window (leading entries within 1e-3 of float64
-    BiCGStab) of both, and of the compensated solve and textbook f32 with
-    float64 dots; and the phase's end check after N_ITERS.  Dim 3, phase
-    4d's of the compensated solve: ||b - Ax||^2 within twice textbook
-    f32's with float64 dots, x error within twice its or BICG3_X_FLOOR.
-    Dim 2, phase 4b's of the f32 solve: ||b - Ax||^2 and x error within
-    twice textbook f32's.  Per right-hand side one log line; last, one
-    JSON line."""
+# the f32 routes --breakdown --dim 2 also runs: the fused runner driven by
+# the plain versions, by the plain versions but for one K5 kernel, and the
+# eager step() transcription
+BREAKDOWN_ROUTES2 = ("plain-driven fused", "K5a kernel alone",
+                     "K5b kernel alone", "K5c kernel alone", "eager step()")
+
+
+def breakdown(torch, lt, device, card, dim=3, n=N_GRID):
+    """--breakdown [--dim 2|3] [--size n]: for the package this process
+    imports, f32 BiCGStab from BREAKDOWN_RHS right-hand sides on phase
+    4d's system (dim 3: the 7-point stencil at SHAPE3) or phase 4b's (dim
+    2: the 5-point Laplacian at n^2, N_GRID^2 by default; z drawn on the
+    card as phase 4b's at N_GRID, with numpy's default_rng(seed) at other
+    sizes, so that a CPU run can draw the same).  For each: the first
+    non-finite history entry over BREAKDOWN_ITERS iterations of the port's
+    solve (f32 dots) and of textbook f32, and with dim 2 of the
+    BREAKDOWN_ROUTES2 too (the same fused schedule and its dots, each pass
+    a kernel or its plain version, and the step() loop); the window (leading entries within 1e-3 of
+    float64 BiCGStab) of the port's solve and of textbook f32, and of the
+    compensated solve and textbook f32 with float64 dots; and the phase's
+    end check after N_ITERS.  Dim 3, phase 4d's of the compensated solve:
+    ||b - Ax||^2 within twice textbook f32's with float64 dots, x error
+    within twice its or BICG3_X_FLOOR.  Dim 2, phase 4b's of the f32
+    solve: ||b - Ax||^2 and x error within twice textbook f32's.  Per
+    right-hand side one log line; last, one JSON line with, for each
+    route, the right-hand sides that turned non-finite by N_ITERS and by
+    BREAKDOWN_ITERS."""
+    import numpy as np
     from legionsolvers_tpu_torch.entry import build_stencil_system, build_system
+    from legionsolvers_tpu_torch.ops.cuda import bicgstab2d as TB
 
     two = dim == 2
-    shape = (N_GRID, N_GRID) if two else SHAPE3
+    shape = (n, n) if two else SHAPE3
     opts = lambda comp: lt.SolverOptions(entry_dtype=torch.float32,
                                          compensated_dots=comp)
-    build = ((lambda comp: build_system(N_GRID, opts(comp), device)) if two
+    build = ((lambda comp: build_system(n, opts(comp), device)) if two
              else (lambda comp: build_stencil_system(3, SHAPE3, opts(comp),
                                                      device)))
     solvers = {comp: lt.BiCGStabSolver(build(comp)) for comp in (False, True)}
@@ -3336,13 +3552,29 @@ def breakdown(torch, lt, device, card, dim=3):
     finite = lambda h: bool(torch.isfinite(h).all())
     first_bad = lambda h: (None if finite(h)
                            else int((~torch.isfinite(h)).nonzero()[0]))
+    but = lambda name: {k: f for k, f in bicg_plain(TB).items()
+                        if k != name}
+    routes = {"plain-driven fused": lambda slv: plain_driven(
+                  TB, slv, bicg_plain(TB)),
+              "K5a kernel alone": lambda slv: plain_driven(
+                  TB, slv, but("bicg_pv")),
+              "K5b kernel alone": lambda slv: plain_driven(
+                  TB, slv, but("bicg_st")),
+              "K5c kernel alone": lambda slv: plain_driven(
+                  TB, slv, but("bicg_update")),
+              "eager step()": lambda slv: env_route(
+                  slv, "LEGIONSOLVERS_NO_FUSED_BICGSTAB")}
     rows = []
     for k in range(BREAKDOWN_RHS):
         b = torch.ones(shape, device=device)
-        if k:
+        if k and (not two or n == N_GRID):
             g = torch.Generator(device=device).manual_seed(k)
             b += BREAKDOWN_EPS * torch.randn(shape, generator=g,
                                              device=device)
+        elif k:
+            z = np.random.default_rng(k).standard_normal(shape)
+            b += BREAKDOWN_EPS * torch.from_numpy(z.astype(np.float32)).to(
+                device)
         runs = {}
         for comp, solver in solvers.items():
             planner = solver.planner
@@ -3371,6 +3603,11 @@ def breakdown(torch, lt, device, card, dim=3):
                           "textbook f32 (f64 dots)": agree_window(hd, h64)}}
         if two:
             solver = solvers[False]
+            for route in BREAKDOWN_ROUTES2:
+                with routes[route](solver):
+                    restart(solver)
+                    row["first_nonfinite"][route] = first_bad(
+                        solver.solve(BREAKDOWN_ITERS))
             restart(solver)
             h200 = solver.solve(N_ITERS)
             x200 = solver.planner.sol_vectors[0].data.clone()
@@ -3399,8 +3636,14 @@ def breakdown(torch, lt, device, card, dim=3):
             f"{'f32' if two else 'compensated'} end {end}")
         del h64, x64, h32, hd, xd, b64
         torch.cuda.empty_cache()
+    nonfinite = {route: {str(by): sum(
+        r["first_nonfinite"][route] is not None
+        and r["first_nonfinite"][route] <= by for r in rows)
+        for by in (N_ITERS, BREAKDOWN_ITERS)} for route in rows[0][
+            "first_nonfinite"]}
     log(json.dumps({"card": card, "tree": os.getcwd(), "dim": dim,
-                    "iters": BREAKDOWN_ITERS, "rows": rows}))
+                    "shape": list(shape), "iters": BREAKDOWN_ITERS,
+                    "nonfinite_by": nonfinite, "rows": rows}))
     return 0
 
 
@@ -3476,14 +3719,14 @@ def main() -> int:
     if "--solves" in argv:
         return solves(torch, np, T, lt, device, card)
     if "--passes" in argv:
-        from legionsolvers_tpu_torch.ops.cuda import bicgstab2d as TB
-
         log(json.dumps({"card": card, "tree": os.getcwd(), "kernels2d_ms":
                          time_ab_passes_2d(torch, T, TB, device)}))
         return 0
     if "--breakdown" in argv:
         dim = int(argv[argv.index("--dim") + 1]) if "--dim" in argv else 3
-        return breakdown(torch, lt, device, card, dim)
+        n = (int(argv[argv.index("--size") + 1]) if "--size" in argv
+             else N_GRID)
+        return breakdown(torch, lt, device, card, dim, n)
     m1_attrs = march1_attrs(build.load_library())
     log("[march1] registers, spill bytes, resident blocks per SM: "
         + "; ".join(f"{k} {v}" for k, v in m1_attrs.items()))
@@ -3495,6 +3738,8 @@ def main() -> int:
     errs["step2"] = max(errs["step2"], compare_step2_edges(torch, T, device))
     errs.update(compare_bicg_kernels(torch, T, TB, device))
     for m, e in compare_strip_edges(torch, T, TB, device).items():
+        errs[m] = max(errs[m], e)
+    for m, e in compare_one_pass_edges(torch, T, device).items():
         errs[m] = max(errs[m], e)
     one_launch2 = check_one_launch_2d(torch, T, TB, device)
     errs3 = compare_3d_kernels(torch, lt, T3, TB3, device)
@@ -3596,6 +3841,8 @@ def main() -> int:
         launches[m], errs[m], ktimes[m][0], ktimes[m][1],
         KERNELS[m][2] * n2, ops_per_elt(m, len(OFFS)) * n2, bw,
         conv2d_ms if m == "y" else None) for m in KERNELS]
+    for m, row in zip(KERNELS, kernels):
+        row["graph_ms"] = ktimes[m][2]
     kernels += [kernel_row(
         m, BICG_CSRC, f"{BICG_PALLAS}:{line}", launches[m], errs[m],
         btimes[m][False][0], btimes[m][False][1], bpe * n2,
@@ -3605,9 +3852,20 @@ def main() -> int:
     # vector loads, f32 dots)
     for row in kernels:
         m = row["name"].split(" ")[-1].strip("[]")
-        if m in ("bicg_st", "gram2"):
+        if m in ("bicg_st", "gram2", *ONE_PASS_NAMES):
             regs, spill, _ = s_attrs[f"{m} cross vec"]
             row.update(registers=regs, spill_bytes=spill)
+        if m in ONE_PASS_NAMES:
+            per = {path: n[m] for path, n in PATH_LAUNCHES_2D.items()
+                   if m in n}
+            lost = row["ms"] - row["bound_ms"]
+            log(f"[time] {m:8s} {row['ms']:.4f} ms (CUDA graphs "
+                f"{row['graph_ms']:.4f}), bound {row['bound_ms']:.4f} "
+                f"({row['pct_of_bound']:.1f}%; graphs "
+                f"{100 * row['bound_ms'] / row['graph_ms']:.1f}%), "
+                f"{row['registers']} registers; per solve(200): "
+                + ", ".join(f"{path} {k} launches, {k * lost:.2f} ms lost"
+                            for path, k in per.items()) + f" on {card}")
     for dim in DIMS3:
         pts, terms = {3: (7, 7), 4: (27, 27)}[dim]
         rows3 = [kernel_row(

@@ -13,8 +13,8 @@ kernel already beat is discarded, never printed as over 100%.
 
 Runs on the card unless ``--device`` names another.  What the JAX CLI
 does and the port cannot yet do raises ``NotImplementedError``: ``--block``
-(block systems, ROADMAP item 9), ``-vp`` > 1 (sharding, item 10),
-``--consume-rhs`` (the 3-live-vector CG schedule, item 3) and ``--dtype
+(block systems, ROADMAP item 1), ``-vp`` > 1 (sharding, item 5),
+``--consume-rhs`` (the 3-live-vector CG schedule, item 6) and ``--dtype
 bfloat16`` (no bf16 oracle, fault F2).  ``-dim 1`` runs the linearized
 torch path: the 1-D kernel view is not ported (item 3).
 
@@ -87,16 +87,16 @@ def make_parser():
 def _refuse_unported(args) -> None:
     if args.block:
         raise NotImplementedError(
-            "--block: block systems are not ported (ROADMAP item 9)")
+            "--block: block systems are not ported (ROADMAP item 1)")
     if args.vp > 1:
         raise NotImplementedError(
-            f"-vp {args.vp}: sharding is not ported (ROADMAP item 10)")
+            f"-vp {args.vp}: sharding is not ported (ROADMAP item 5)")
     consume = args.consume_rhs or (args.solver == 1 and bool(
         os.environ.get("LEGIONSOLVERS_CONSUME_RHS")))
     if consume:
         raise NotImplementedError(
             "--consume-rhs: the 3-live-vector CG schedule is not ported "
-            "(ROADMAP item 3: the port holds 5 live CG vectors)")
+            "(ROADMAP item 6: the port holds 5 live CG vectors)")
     if args.dtype == "bfloat16":
         raise NotImplementedError(
             "--dtype bfloat16: no bf16 oracle exists (ROADMAP fault F2)")

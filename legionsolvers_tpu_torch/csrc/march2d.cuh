@@ -1,5 +1,6 @@
 // The 2-D column-strip register march, shared by the reach-1 passes of
-// stencil2d.cu (K1 step2, K2 gram2) and bicgstab2d.cu (K5b st).
+// stencil2d.cu (K1 step2, K2 gram2, K3 in its four modes, K4 xpay_pq) and
+// bicgstab2d.cu (K5b st).
 //
 // A warp owns a strip of 128 columns (four per lane, read as 16-byte
 // vectors where the width and the pointers allow) and marches down a chunk
@@ -7,7 +8,10 @@
 // lanes at the strip's edges hold 4 halo columns per side, enough for the
 // four chained applications of K1.  A stencil application at a row takes
 // its vertical neighbours from rows held in registers and its horizontal
-// ones from the neighbouring lanes (one shuffle per side per row).
+// ones from the neighbouring lanes (one shuffle per side per row).  The
+// one-pass kernels (K3, K4) also take the grid's reach-1 halo rows from
+// the caller's [LS_HALO_ROWS, C] blocks (halo_row), as the tile kernels
+// do.
 //
 // Geometry depends on (R, C) alone: the strips are fixed (LS_STEP2_COLS
 // output columns), and the row chunks aim at a fixed number of warps (one
@@ -18,7 +22,7 @@
 // last block to finish (a device counter): one launch, no second
 // reduction.  Each pass's resident blocks per SM (its launch bounds) and
 // rows in flight were chosen on the card (PERF.md section 6): K1 3 (its
-// 168 registers), K2 4, K5b 8 (<= 64 registers).
+// 168 registers), K2 4, K5b, K3 and K4 8 (<= 64 registers).
 
 #pragma once
 
@@ -31,12 +35,16 @@
 #define LS_STEP2_MIN_BLOCKS 3  // K1's resident blocks per SM
 #define LS_GRAM2_MIN_BLOCKS 4  // K2's
 #define LS_ST_MIN_BLOCKS 8     // K5b's
+#define LS_STENCIL_MIN_BLOCKS 8  // K3's
+#define LS_XPAY_MIN_BLOCKS 8     // K4's
 // Warps a pass's launch aims at: one wave of its resident blocks on each
 // of an H100 SXM's 132 SMs.
 #define LS_STRIP_TARGET(MIN_BLOCKS) (132 * (MIN_BLOCKS) * LS_STEP2_WARPS)
 #define LS_STEP2_TARGET_WARPS LS_STRIP_TARGET(LS_STEP2_MIN_BLOCKS)
 #define LS_GRAM2_TARGET_WARPS LS_STRIP_TARGET(LS_GRAM2_MIN_BLOCKS)
 #define LS_ST_TARGET_WARPS LS_STRIP_TARGET(LS_ST_MIN_BLOCKS)
+#define LS_STENCIL_TARGET_WARPS LS_STRIP_TARGET(LS_STENCIL_MIN_BLOCKS)
+#define LS_XPAY_TARGET_WARPS LS_STRIP_TARGET(LS_XPAY_MIN_BLOCKS)
 
 namespace {
 
@@ -249,6 +257,30 @@ __device__ __forceinline__ StripPlace strip_place(int unit,
   return p;
 }
 
+// The lane's four columns of one row (row: the row's first element, or
+// null for a row of zeros) where mask[j], zero elsewhere.  VEC: one
+// 16-byte load; C % 4 == 0 there, so a lane's four columns are all inside
+// the grid or all outside, and mask[0] stands for the four.  NC: through
+// the read-only cache (inputs the kernel never writes).
+template <bool VEC, bool NC>
+__device__ __forceinline__ Row4 strip_load4(const float* __restrict__ row,
+                                            int c0, const bool (&mask)[4]) {
+  Row4 o = {{0.f, 0.f, 0.f, 0.f}};
+  if (!row) return o;
+  if (VEC) {
+    if (mask[0]) {
+      const float4* a = reinterpret_cast<const float4*>(row + c0);
+      const float4 t = NC ? __ldg(a) : *a;
+      o = Row4{{t.x, t.y, t.z, t.w}};
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (mask[j]) o.v[j] = NC ? __ldg(row + c0 + j) : row[c0 + j];
+  }
+  return o;
+}
+
 // Row q of NV vectors at the lane's four columns, zero outside the grid
 // and past row `last` (no load issued there).
 template <bool VEC, int NV>
@@ -278,11 +310,49 @@ __device__ __forceinline__ void strip_load(Row4 (&dst)[NV],
   }
 }
 
-// The march over rows q0 .. q1 of NV vectors with DEPTH rows in flight: a
-// register ring holds rows q + 1 .. q + DEPTH, loading, while row q is
-// consumed.  step(q, rows) runs once per row, in order; the ring's slots
-// are named at compile time (the loop over a turn of the ring is
-// unrolled), so the ring stays in registers.
+// The first element of row q of a one-pass kernel's operand v ([R, C]),
+// or null for a row of zeros: rows -1 and R, the reach-1 halo, are the
+// last row of the [LS_HALO_ROWS, C] block top and the first row of bot
+// (zeros where the block is null), as load_halo reads them; rows further
+// out are zero.
+__device__ __forceinline__ const float* halo_row(const float* v,
+                                                 const float* top,
+                                                 const float* bot, int q,
+                                                 int R, int C) {
+  if (q >= 0 && q < R) return v + (long long)q * C;
+  if (q == -1 && top) return top + (long long)(LS_HALO_ROWS - 1) * C;
+  if (q == R) return bot;
+  return nullptr;
+}
+
+// The march over rows q0 .. q1 with DEPTH rows in flight: a register ring
+// holds rows q + 1 .. q + DEPTH, loading, while row q is consumed.
+// load(rows, q) fills the NV Row4 of row q; step(q, rows) runs once per
+// row, in order.  The ring's slots are named at compile time (the loop
+// over a turn of the ring is unrolled), so the ring stays in registers.
+template <int DEPTH, int NV, typename Load, typename Step>
+__device__ __forceinline__ void strip_ring(int q0, int q1, Load load,
+                                           Step step) {
+  Row4 ring[DEPTH][NV];
+#pragma unroll
+  for (int k = 0; k < DEPTH; ++k) load(ring[k], q0 + k);
+  for (int q = q0; q <= q1; q += DEPTH) {
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) {
+      if (q + u <= q1) {
+        Row4 cur[NV];
+#pragma unroll
+        for (int n = 0; n < NV; ++n) cur[n] = ring[u][n];
+        load(ring[u], q + u + DEPTH);
+        step(q + u, cur);
+      }
+    }
+  }
+}
+
+// strip_ring over rows of NV vectors, zero outside the grid (strip_load),
+// written out: K2 and K5b ran 5% slower on the card with their rows
+// loaded through strip_ring and strip_load4 (PERF.md section 6).
 template <int DEPTH, int NV, bool VEC, typename Step>
 __device__ __forceinline__ void strip_rows(const float* const (&src)[NV],
                                            int q0, int q1, int R, int C,

@@ -7,7 +7,9 @@
 // (legionsolvers_tpu_torch/ops/cuda/build.py).
 //
 //   ls_stencil2d  K3  replaces _stencil_call (modes y, y_dot, pq, update)
+//                     (stencil_strip_kernel; reach 2..8 stencil_kernel)
 //   ls_xpay_pq    K4  replaces grid2d_cg_xpay_pq
+//                     (xpay_pq_strip_kernel; reach 2..8 xpay_pq_kernel)
 //   ls_gram2      K2  replaces _sstep_call mode gram2
 //   ls_step2      K1  replaces _sstep_call mode step2
 //
@@ -17,21 +19,25 @@
 // two CG iterations; K2 8 B; K3 8 B (y, y_dot), 4 B (pq) or 20 B (update);
 // K4 12 B.
 //
-// Design of K3 and K4.  The Pallas kernels stream whole rows through a
-// sequential grid and carry sums in SMEM from one grid step to the next.
-// CUDA blocks run in no order, so each block owns one TILE x TILE output
-// tile instead:
-//   * the block loads its inputs plus a halo into shared memory once, so
-//     every input byte crosses HBM about once (halo re-reads cost
-//     (TILE + 2h)^2 / TILE^2 - 1: 13% for h = 1);
-//   * each block writes its partial dot products to a [blocks, k] scratch
-//     and a second launch sums them in a fixed order: results are
-//     deterministic, with no atomics;
-//   * no kernel writes a buffer that another block reads with a halo: the
-//     new r and p of K1 and the p of K4 go to separate buffers.
-// K1 and K2, the s-step passes, march down column strips in registers
-// instead (march2d.cuh, and their notes below) and fold their Gram sums
-// into their last block.
+// Design.  The Pallas kernels stream whole rows through a sequential grid
+// and carry sums in SMEM from one grid step to the next.  CUDA blocks run
+// in no order.  With a reach-1 stencil (the 5-point cross, any 3x3
+// stencil) every pass runs the column-strip register march of
+// march2d.cuh instead: a warp marches down a 128-column strip of a row
+// chunk with the rows it needs in registers, and each dot is summed in
+// double and folded into the last block to finish (one launch).  K3 and
+// K4 there take their reach-1 halo rows from the caller's halo blocks
+// (halo_row), so they serve every call the tile kernels serve.  With a
+// reach of 2..8, K3 and K4 keep the tile design of the first port:
+//   * each block owns one TILE x TILE output tile and loads its inputs
+//     plus a halo into shared memory once (halo re-reads cost
+//     (TILE + 2h)^2 / TILE^2 - 1);
+//   * each block writes its partial dot to a [blocks] scratch and a
+//     second launch (reduce_partials) sums them in a fixed order;
+// No kernel writes a buffer that another block (or another lane) reads
+// through a halo: the new r and p of K1 and the p of K4 go to separate
+// buffers, and K3 update writes x and r only at the elements it reads
+// them (see stencil_strip_kernel).
 
 #include "march2d.cuh"
 
@@ -79,6 +85,101 @@ stencil_kernel(const float* __restrict__ x, const float* __restrict__ top,
   if (MODE != 0) block_partials(acc, partials);
 }
 
+// K3 on the strip march (reach 1).  A warp owns a 128-column strip (120
+// output columns, one halo lane per side) and a row chunk [a, b); it
+// reads x at rows a - 1 .. b, the two outside rows from the halo blocks
+// (halo_row), and applies A at the row before the one that arrived, from
+// x rows q - 2 .. q held in registers.  stencil_depth(MODE) rows are in
+// flight per warp (a register ring); update also reads xv and rv there,
+// at the lane's own output columns of the chunk's rows only, and keeps
+// one row in flight: two rows of its three vectors spilled at 64
+// registers and ran at the tile kernel's speed (PERF.md section 6).
+//
+// In place: update writes xv and rv at exactly the elements the lane
+// read them (its own columns, rows [a, b)); the halo lanes and the rows
+// outside the chunk write nothing, and x (= p) is a separate buffer, so
+// no lane reads an element another lane writes.
+//
+// What bounds it: bytes, 8 B per element (y, y_dot: reads x, writes y),
+// 4 B (pq) or 20 B (update: reads p, x, r; writes x, r), at ~10 flops;
+// what holds it back is the bytes in flight, which residency gives, as
+// for K5b (8 blocks per SM, <= 64 registers).  Halo columns (8 of 128)
+// and two rows per chunk are read again, mostly from L2.  Dots: the f32
+// products (__fmul_rn), summed in double per thread, across threads and
+// blocks (strip_fold), rounded to f32 once: K5b's and K6b's order.
+#define LS_STENCIL_DEPTH 2  // rows of x in flight per warp: y, y_dot, pq
+#define LS_UPDATE_DEPTH 1   // rows of p, x and r in flight per warp: update
+constexpr int stencil_depth(int mode) {
+  return mode == 3 ? LS_UPDATE_DEPTH : LS_STENCIL_DEPTH;
+}
+template <int MODE, int DEPTH, int MINB, bool CROSS, bool VEC>
+__global__ void __launch_bounds__(LS_STEP2_THREADS, MINB)
+stencil_strip_kernel(const float* __restrict__ x,
+                     const float* __restrict__ top,
+                     const float* __restrict__ bot, float* __restrict__ y,
+                     float* __restrict__ xv, float* __restrict__ rv,
+                     const float* __restrict__ alpha_p,
+                     float* __restrict__ dot, double* __restrict__ partials,
+                     unsigned* __restrict__ counter, int R, int C,
+                     StripGeom geo, Step2Stencil st) {
+  constexpr int NV = MODE == 3 ? 3 : 1;  // x; and xv, rv for update
+  const int unit = blockIdx.x * LS_STEP2_WARPS + (threadIdx.x >> 5);
+  double acc[1] = {0.0};
+  if (unit < geo.units) {  // warp-uniform
+    const StripPlace pl = strip_place(unit, geo, R, C);
+    const float alpha = MODE == 3 ? *alpha_p : 0.f;
+    const Row4 z = {{0.f, 0.f, 0.f, 0.f}};
+    Row4 X2 = z, X1 = z;    // x rows q-2, q-1
+    Row4 XV1 = z, RV1 = z;  // xv, rv row q-1 (update)
+    strip_ring<DEPTH, NV>(
+        pl.a - 1, pl.b,
+        [&](Row4 (&dst)[NV], int q) {
+          if (q > pl.b) return;  // past the chunk: never consumed
+          dst[0] = strip_load4<VEC, true>(halo_row(x, top, bot, q, R, C),
+                                          pl.c0, pl.cin);
+          if constexpr (MODE == 3) {
+            const bool mine = q >= pl.a && q < pl.b;
+            const long long o = (long long)q * C;
+            dst[1] = strip_load4<VEC, false>(mine ? xv + o : nullptr, pl.c0,
+                                             pl.own);
+            dst[2] = strip_load4<VEC, false>(mine ? rv + o : nullptr, pl.c0,
+                                             pl.own);
+          }
+        },
+        [&](int q, const Row4 (&row)[NV]) {
+          const int i = q - 1;
+          if (i >= pl.a) {  // i < b: the march ends at q = b
+            const Row4 ax = apply4<CROSS>(X2, X1, row[0], st);
+            const long long o = (long long)i * C + pl.c0;
+            if (MODE == 0 || MODE == 1) store4<VEC>(y, o, ax, pl.own);
+            if (MODE == 1 || MODE == 2) {
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (pl.own[j]) acc[0] += (double)__fmul_rn(X1.v[j], ax.v[j]);
+            }
+            if (MODE == 3) {
+              Row4 xn, rn;
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                xn.v[j] = XV1.v[j] + alpha * X1.v[j];
+                rn.v[j] = RV1.v[j] - alpha * ax.v[j];
+                if (pl.own[j]) acc[0] += (double)__fmul_rn(rn.v[j], rn.v[j]);
+              }
+              store4<VEC>(xv, o, xn, pl.own);
+              store4<VEC>(rv, o, rn, pl.own);
+            }
+          }
+          X2 = X1;
+          X1 = row[0];
+          if constexpr (MODE == 3) {
+            XV1 = row[1];
+            RV1 = row[2];
+          }
+        });
+  }
+  if (MODE != 0) strip_fold<1>(acc, partials, counter, dot);
+}
+
 // ---------------------------------------------------------------------------
 // K4: p = r + beta p_old (written to p_out) and <p, A p>; p's halo is
 // r_halo + beta p_old_halo.
@@ -111,6 +212,63 @@ xpay_pq_kernel(const float* __restrict__ r, const float* __restrict__ p_old,
     acc[0] += pc * apply_at(w, W, i + h, j + h, s);
   }
   block_partials(acc, partials);
+}
+
+// K4 on the strip march (reach 1): p = r + beta p_old formed in registers
+// as each row of r and p_old arrives (rows -1 and R from their halo
+// blocks, as K3 reads x; zero where both are null), A p at the row before
+// it from p rows q - 2 .. q; p stored at the lane's output columns,
+// <p, A p> summed as K3's dots and folded into the last block.
+// LS_XPAY_DEPTH rows of r and p_old in flight per warp.  What bounds it:
+// bytes, 12 B per element (reads r, p_old; writes p); what holds it back
+// is the bytes in flight, as for K3.
+#define LS_XPAY_DEPTH 2  // rows of r and p_old in flight per warp
+template <int DEPTH, int MINB, bool CROSS, bool VEC>
+__global__ void __launch_bounds__(LS_STEP2_THREADS, MINB)
+xpay_pq_strip_kernel(const float* __restrict__ r,
+                     const float* __restrict__ p_old,
+                     const float* __restrict__ beta_p,
+                     const float* __restrict__ rt,
+                     const float* __restrict__ rb,
+                     const float* __restrict__ pt,
+                     const float* __restrict__ pb, float* __restrict__ p_out,
+                     float* __restrict__ dot, double* __restrict__ partials,
+                     unsigned* __restrict__ counter, int R, int C,
+                     StripGeom geo, Step2Stencil st) {
+  const int unit = blockIdx.x * LS_STEP2_WARPS + (threadIdx.x >> 5);
+  double acc[1] = {0.0};
+  if (unit < geo.units) {  // warp-uniform
+    const StripPlace pl = strip_place(unit, geo, R, C);
+    const float beta = *beta_p;
+    const Row4 z = {{0.f, 0.f, 0.f, 0.f}};
+    Row4 P2 = z, P1 = z;  // p rows q-2, q-1
+    strip_ring<DEPTH, 2>(
+        pl.a - 1, pl.b,
+        [&](Row4 (&dst)[2], int q) {
+          if (q > pl.b) return;  // past the chunk: never consumed
+          dst[0] = strip_load4<VEC, true>(halo_row(r, rt, rb, q, R, C),
+                                          pl.c0, pl.cin);
+          dst[1] = strip_load4<VEC, true>(halo_row(p_old, pt, pb, q, R, C),
+                                          pl.c0, pl.cin);
+        },
+        [&](int q, const Row4 (&row)[2]) {
+          Row4 P0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            P0.v[j] = row[0].v[j] + beta * row[1].v[j];
+          const int i = q - 1;
+          if (i >= pl.a) {  // i < b: the march ends at q = b
+            const Row4 ap = apply4<CROSS>(P2, P1, P0, st);
+            store4<VEC>(p_out, (long long)i * C + pl.c0, P1, pl.own);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (pl.own[j]) acc[0] += (double)__fmul_rn(P1.v[j], ap.v[j]);
+          }
+          P2 = P1;
+          P1 = P0;
+        });
+  }
+  strip_fold<1>(acc, partials, counter, dot);
 }
 
 // ---------------------------------------------------------------------------
@@ -357,6 +515,54 @@ int launch_gram2(const float* r, const float* p, float* g, double* partials,
   return (int)cudaGetLastError();
 }
 
+template <int MODE, bool CROSS, bool VEC>
+int launch_stencil_strip(const float* x, const float* top, const float* bot,
+                         float* y, float* xv, float* rv, const float* alpha,
+                         float* dot, double* partials, int capacity,
+                         unsigned* counter, int R, int C,
+                         const Step2Stencil& st, cudaStream_t stream) {
+  const StripGeom geo = strip_geometry(R, C, LS_STENCIL_TARGET_WARPS);
+  if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
+  stencil_strip_kernel<MODE, stencil_depth(MODE), LS_STENCIL_MIN_BLOCKS,
+                       CROSS, VEC><<<(unsigned)geo.blocks, LS_STEP2_THREADS,
+                                     0, stream>>>(
+      x, top, bot, y, xv, rv, alpha, dot, partials, counter, R, C, geo, st);
+  return (int)cudaGetLastError();
+}
+
+// K3 on the strip march in `mode`, with the cross or another reach-1
+// stencil, 16-byte or scalar loads.
+template <int MODE>
+int stencil_strip(bool cross, bool vec, const float* x, const float* top,
+                  const float* bot, float* y, float* xv, float* rv,
+                  const float* alpha, float* dot, double* partials,
+                  int capacity, unsigned* counter, int R, int C,
+                  const Step2Stencil& st, cudaStream_t stream) {
+#define LS_K3_LAUNCH(CR, VE)                                                 \
+  launch_stencil_strip<MODE, CR, VE>(x, top, bot, y, xv, rv, alpha, dot,    \
+                                     partials, capacity, counter, R, C, st, \
+                                     stream)
+  if (cross) return vec ? LS_K3_LAUNCH(true, true) : LS_K3_LAUNCH(true, false);
+  return vec ? LS_K3_LAUNCH(false, true) : LS_K3_LAUNCH(false, false);
+#undef LS_K3_LAUNCH
+}
+
+template <bool CROSS, bool VEC>
+int launch_xpay_pq_strip(const float* r, const float* p_old,
+                         const float* beta, const float* rt, const float* rb,
+                         const float* pt, const float* pb, float* p_out,
+                         float* dot, double* partials, int capacity,
+                         unsigned* counter, int R, int C,
+                         const Step2Stencil& st, cudaStream_t stream) {
+  const StripGeom geo = strip_geometry(R, C, LS_XPAY_TARGET_WARPS);
+  if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
+  xpay_pq_strip_kernel<LS_XPAY_DEPTH, LS_XPAY_MIN_BLOCKS, CROSS, VEC>
+      <<<(unsigned)geo.blocks, LS_STEP2_THREADS, 0, stream>>>(
+          r, p_old, beta, rt, rb, pt, pb, p_out, dot, partials, counter, R,
+          C, geo, st);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -367,48 +573,91 @@ const char* ls_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// mode: 0 y, 1 y_dot, 2 pq, 3 update.  Pointers unused by a mode may be
-// null; halo pointers may be null (zeros).  partials: one float per tile.
+// K3.  mode: 0 y, 1 y_dot, 2 pq, 3 update.  Pointers unused by a mode may
+// be null; halo pointers may be null (zeros).  A reach-1 stencil runs the
+// strip kernel: partials is the strip scratch (capacity blocks x at least
+// one double) and counter its last-block counter (zero before the first
+// launch; the kernel leaves it zero; launches on one pair must be ordered,
+// one stream).  Reach 2..8 runs the tile kernel and reduce_partials:
+// partials holds one float per tile, and capacity and counter are unused.
 int ls_stencil2d(int mode, const float* x, const float* top, const float* bot,
                  float* y, float* xv, float* rv, const float* alpha,
-                 float* dot, float* partials, int R, int C,
-                 const LsStencil* st, void* stream_ptr) {
-  if (!valid(st, R, C, LS_MAX_REACH)) return (int)cudaErrorInvalidValue;
+                 float* dot, void* partials, int capacity, unsigned* counter,
+                 int R, int C, const LsStencil* st, void* stream_ptr) {
+  if (!valid(st, R, C, LS_MAX_REACH) || mode < 0 || mode > 3)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const dim3 grid = tile_grid(R, C), block(LS_THREADS_X, LS_THREADS_Y);
   const int h = reach_of(*st);
+  if (h <= 1) {
+    if (!counter) return (int)cudaErrorInvalidValue;
+    const Step2Stencil s2 = step2_stencil(*st);
+    const bool vec = C % 4 == 0 && aligned16(x) && aligned16(top) &&
+                     aligned16(bot) && aligned16(y) && aligned16(xv) &&
+                     aligned16(rv);
+    const bool cross = is_cross(*st);
+    double* part = (double*)partials;
+#define LS_K3_MODE(M)                                                     \
+  stencil_strip<M>(cross, vec, x, top, bot, y, xv, rv, alpha, dot, part, \
+                   capacity, counter, R, C, s2, stream)
+    switch (mode) {
+      case 0: return LS_K3_MODE(0);
+      case 1: return LS_K3_MODE(1);
+      case 2: return LS_K3_MODE(2);
+      default: return LS_K3_MODE(3);
+    }
+#undef LS_K3_MODE
+  }
+  const dim3 grid = tile_grid(R, C), block(LS_THREADS_X, LS_THREADS_Y);
+  float* part = (float*)partials;
   switch (mode) {
     case 0: stencil_kernel<0><<<grid, block, 0, stream>>>(
-                x, top, bot, y, xv, rv, alpha, partials, R, C, *st, h);
+                x, top, bot, y, xv, rv, alpha, part, R, C, *st, h);
             return (int)cudaGetLastError();
     case 1: stencil_kernel<1><<<grid, block, 0, stream>>>(
-                x, top, bot, y, xv, rv, alpha, partials, R, C, *st, h); break;
+                x, top, bot, y, xv, rv, alpha, part, R, C, *st, h); break;
     case 2: stencil_kernel<2><<<grid, block, 0, stream>>>(
-                x, top, bot, y, xv, rv, alpha, partials, R, C, *st, h); break;
-    case 3: stencil_kernel<3><<<grid, block, 0, stream>>>(
-                x, top, bot, y, xv, rv, alpha, partials, R, C, *st, h); break;
-    default: return (int)cudaErrorInvalidValue;
+                x, top, bot, y, xv, rv, alpha, part, R, C, *st, h); break;
+    default: stencil_kernel<3><<<grid, block, 0, stream>>>(
+                 x, top, bot, y, xv, rv, alpha, part, R, C, *st, h);
   }
-  return finish(partials, grid.x * grid.y, 1, dot, stream);
+  return finish(part, grid.x * grid.y, 1, dot, stream);
 }
 
+// K4.  Scratch and routes as ls_stencil2d's.
 int ls_xpay_pq(const float* r, const float* p_old, const float* beta,
                const float* rt, const float* rb, const float* pt,
-               const float* pb, float* p_out, float* dot, float* partials,
-               int R, int C, const LsStencil* st, void* stream_ptr) {
+               const float* pb, float* p_out, float* dot, void* partials,
+               int capacity, unsigned* counter, int R, int C,
+               const LsStencil* st, void* stream_ptr) {
   if (!valid(st, R, C, LS_MAX_REACH)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int h = reach_of(*st);
+  if (h <= 1) {
+    if (!counter) return (int)cudaErrorInvalidValue;
+    const Step2Stencil s2 = step2_stencil(*st);
+    const bool vec = C % 4 == 0 && aligned16(r) && aligned16(p_old) &&
+                     aligned16(rt) && aligned16(rb) && aligned16(pt) &&
+                     aligned16(pb) && aligned16(p_out);
+    double* part = (double*)partials;
+#define LS_K4_LAUNCH(CR, VE)                                                \
+  launch_xpay_pq_strip<CR, VE>(r, p_old, beta, rt, rb, pt, pb, p_out, dot, \
+                               part, capacity, counter, R, C, s2, stream)
+    if (is_cross(*st))
+      return vec ? LS_K4_LAUNCH(true, true) : LS_K4_LAUNCH(true, false);
+    return vec ? LS_K4_LAUNCH(false, true) : LS_K4_LAUNCH(false, false);
+#undef LS_K4_LAUNCH
+  }
   const dim3 grid = tile_grid(R, C), block(LS_THREADS_X, LS_THREADS_Y);
+  float* part = (float*)partials;
   xpay_pq_kernel<<<grid, block, 0, stream>>>(r, p_old, beta, rt, rb, pt, pb,
-                                             p_out, partials, R, C, *st,
-                                             reach_of(*st));
-  return finish(partials, grid.x * grid.y, 1, dot, stream);
+                                             p_out, part, R, C, *st, h);
+  return finish(part, grid.x * grid.y, 1, dot, stream);
 }
 
-// K2 and K1 share their scratch.  partials: capacity blocks x 10
-// doubles; counter: one unsigned, zero before the first launch (the
-// kernels leave it zero).  Launches on one (partials, counter) pair must
-// be ordered (one stream).
+// K2 and K1 share their scratch (with K3, K4 and K5b).  partials:
+// capacity blocks x 10 doubles; counter: one unsigned, zero before the
+// first launch (the kernels leave it zero).  Launches on one (partials,
+// counter) pair must be ordered (one stream).
 int ls_gram2(const float* r, const float* p, float* g, double* partials,
              int capacity, unsigned* counter, int R, int C,
              const LsStencil* st, void* stream_ptr) {
@@ -450,15 +699,16 @@ int ls_step2_warps() { return LS_STEP2_WARPS; }
 
 // Blocks of a strip launch on an [R, C] grid whose row chunks aim at
 // target_warps warps, and the warps each strip pass aims at (which: 0 K1,
-// 1 K2, 2 K5b); ops/cuda/stencil2d.py mirrors both.
+// 1 K2, 2 K5b, 3 K3, 4 K4); ops/cuda/stencil2d.py mirrors both.
 int ls_strip_blocks(int R, int C, int target_warps) {
   return strip_geometry(R, C, target_warps).blocks;
 }
 
 int ls_strip_target_warps(int which) {
-  const int t[3] = {LS_STEP2_TARGET_WARPS, LS_GRAM2_TARGET_WARPS,
-                    LS_ST_TARGET_WARPS};
-  return which >= 0 && which < 3 ? t[which] : -1;
+  const int t[5] = {LS_STEP2_TARGET_WARPS, LS_GRAM2_TARGET_WARPS,
+                    LS_ST_TARGET_WARPS, LS_STENCIL_TARGET_WARPS,
+                    LS_XPAY_TARGET_WARPS};
+  return which >= 0 && which < 5 ? t[which] : -1;
 }
 
 // Registers, spill bytes and resident blocks per SM of K2's variant
@@ -471,6 +721,38 @@ int ls_gram2_attrs(int which, int* out) {
         gram2_strip_kernel<LS_GRAM2_DEPTH, LS_GRAM2_MIN_BLOCKS, CR, VE>, out);
     LS_G2_ATTR(0, 0) LS_G2_ATTR(0, 1) LS_G2_ATTR(1, 0) LS_G2_ATTR(1, 1)
 #undef LS_G2_ATTR
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The same of K3's strip variant `which` = 4 mode + 2 cross + vec.
+int ls_stencil2d_strip_attrs(int which, int* out) {
+  switch (which) {
+#define LS_K3_ATTR(M, CR, VE)                                          \
+  case 4 * M + 2 * CR + VE:                                            \
+    return strip_attrs(stencil_strip_kernel<M, stencil_depth(M),       \
+                                            LS_STENCIL_MIN_BLOCKS, CR, \
+                                            VE>, out);
+#define LS_K3_ATTRS(M)                      \
+  LS_K3_ATTR(M, 0, 0) LS_K3_ATTR(M, 0, 1) \
+  LS_K3_ATTR(M, 1, 0) LS_K3_ATTR(M, 1, 1)
+    LS_K3_ATTRS(0) LS_K3_ATTRS(1) LS_K3_ATTRS(2) LS_K3_ATTRS(3)
+#undef LS_K3_ATTRS
+#undef LS_K3_ATTR
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The same of K4's strip variant `which` = 2 cross + vec.
+int ls_xpay_pq_strip_attrs(int which, int* out) {
+  switch (which) {
+#define LS_K4_ATTR(CR, VE)                                               \
+  case 2 * CR + VE:                                                      \
+    return strip_attrs(                                                  \
+        xpay_pq_strip_kernel<LS_XPAY_DEPTH, LS_XPAY_MIN_BLOCKS, CR, VE>, \
+        out);
+    LS_K4_ATTR(0, 0) LS_K4_ATTR(0, 1) LS_K4_ATTR(1, 0) LS_K4_ATTR(1, 1)
+#undef LS_K4_ATTR
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -118,16 +118,15 @@ def load_library() -> ctypes.CDLL:
     ``c_void_p``, so that none is cut to 32 bits)."""
     from .dia2d import DIA_ELEMS, MAX_DIA_TERMS
     from .rowperm import PIECE_ROWS
-    from .stencil2d import (GRAM2_TARGET_WARPS, MAX_TERMS, ST_TARGET_WARPS,
-                            STEP2_COLS, STEP2_MIN_ROWS, STEP2_TARGET_WARPS,
-                            STEP2_WARPS, TILE, strip_geometry)
+    from .stencil2d import (MAX_TERMS, STEP2_COLS, STEP2_MIN_ROWS,
+                            STEP2_WARPS, STRIP_TARGETS, TILE, strip_geometry)
     from .stencil3d import CHUNK_X, _Stencil3, march1_geometry
     from .vpu_probe import C as VPU_C, TR as VPU_TR
 
     lib = ctypes.CDLL(str(build()))
     sigs = {
-        "ls_stencil2d": [_I] + [_P] * 9 + [_I, _I, _P, _P],
-        "ls_xpay_pq": [_P] * 10 + [_I, _I, _P, _P],
+        "ls_stencil2d": [_I] + [_P] * 9 + [_I, _P, _I, _I, _P, _P],
+        "ls_xpay_pq": [_P] * 10 + [_I, _P, _I, _I, _P, _P],
         "ls_gram2": [_P] * 4 + [_I, _P, _I, _I, _P, _P],
         "ls_step2": [_P] * 8 + [_I, _P, _I, _I, _P, _P],
         "ls_bicg_pv": [_P] * 10 + [_I, _I, _I, _P, _P],
@@ -137,6 +136,8 @@ def load_library() -> ctypes.CDLL:
         "ls_strip_target_warps": [_I],
         "ls_gram2_attrs": [_I, _P],
         "ls_bicg_st_strip_attrs": [_I, _P],
+        "ls_stencil2d_strip_attrs": [_I, _P],
+        "ls_xpay_pq_strip_attrs": [_I, _P],
         "ls_bicg_update": [_P] * 10 + [_I, _I, _I, _P, _P],
         "ls_stencil3d": [_I] + [_P] * 9 + [_I, _P] + [_I] * 3 + [_P, _P],
         "ls_xpay_pq3d": [_P] * 8 + [_I, _P] + [_I] * 3 + [_P, _P],
@@ -174,8 +175,9 @@ def load_library() -> ctypes.CDLL:
         raise RuntimeError("csrc/stencil2d.cu and ops/cuda/stencil2d.py "
                            "disagree on LS_TILE, LS_MAX_TERMS or K1's "
                            "strip geometry")
-    targets = (STEP2_TARGET_WARPS, GRAM2_TARGET_WARPS, ST_TARGET_WARPS)
-    if [lib.ls_strip_target_warps(k) for k in range(3)] != list(targets):
+    targets = STRIP_TARGETS
+    if ([lib.ls_strip_target_warps(k) for k in range(len(targets))]
+            != list(targets)):
         raise RuntimeError("csrc/march2d.cuh and ops/cuda/stencil2d.py "
                            "disagree on the strip passes' target warps")
     for shape in ((4096, 4096), (200, 328), (33, 4097), (4099, 130), (1, 5)):

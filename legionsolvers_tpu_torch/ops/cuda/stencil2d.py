@@ -18,7 +18,10 @@ grid2d_cg_step2        two CG iterations + next Gram       step2_plain
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches its kernel (built from the repo's sources at first use, see
 ``build.py``) or raises; it never falls back.  Every CUDA launch adds one
-to :data:`LAUNCHES` under the pass's name.
+to :data:`LAUNCHES` under the pass's name.  With a reach-1 stencil every
+pass runs the column-strip register march (``csrc/march2d.cuh``), its dots
+folded into its last block (one launch); K3 and K4 with a reach of 2..8
+run tile kernels and a second launch that sums their dots.
 
 Semantics follow the JAX kernels.  ``x`` is the grid ``[R, C]`` (f32);
 stencil offsets are ``(dy, dx)`` pairs.  Columns outside ``[0, C)`` read as
@@ -45,20 +48,26 @@ import torch.nn.functional as F
 GRAM_NAMES = ("rr", "pAp", "rAp", "ApAp", "rAr",
               "ApAr", "ApA2p", "ArAr", "ArA2p", "A2pA2p")
 
-TILE = 32          # output tile edge of K2-K4 (csrc: LS_TILE)
+TILE = 32          # output tile edge of K3, K4 at reach >= 2 (csrc: LS_TILE)
 MAX_TERMS = 32     # stencil terms a kernel accepts (csrc: LS_MAX_TERMS)
 HALO_ROWS = 8      # rows in a halo block
 STENCIL_REACH = 8  # K3/K4 gate: |dy|, |dx| <= 8
-STEP2_REACH = 1    # K1/K2 gate: four chained applications inside a 4-halo
+STEP2_REACH = 1    # K1/K2 gate, and the strip route of K3, K4 and K5b
 STEP2_COLS = 120   # strip passes: output columns of a warp's strip
 STEP2_MIN_ROWS = 16  # strip passes: shortest row chunk
 STEP2_WARPS = 4    # strip passes: warps per block
 # The strip passes' row chunks aim at one wave of their resident blocks on
 # each of an H100 SXM's 132 SMs (csrc/march2d.cuh): K1 3 blocks per SM,
-# K2 4, K5b 8
+# K2 4, K5b, K3 and K4 8
 STEP2_TARGET_WARPS = 132 * 3 * STEP2_WARPS
 GRAM2_TARGET_WARPS = 132 * 4 * STEP2_WARPS
 ST_TARGET_WARPS = 132 * 8 * STEP2_WARPS
+STENCIL_TARGET_WARPS = 132 * 8 * STEP2_WARPS
+XPAY_TARGET_WARPS = 132 * 8 * STEP2_WARPS
+# every strip pass's target, in ls_strip_target_warps order (K1, K2, K5b,
+# K3, K4)
+STRIP_TARGETS = (STEP2_TARGET_WARPS, GRAM2_TARGET_WARPS, ST_TARGET_WARPS,
+                 STENCIL_TARGET_WARPS, XPAY_TARGET_WARPS)
 STEP2_GRAM = 10    # doubles of a block's partial sums in the strip scratch
 
 #: CUDA launches per pass name since the last :func:`reset_launch_counts`.
@@ -372,11 +381,12 @@ _STEP2_SCRATCH = {}
 
 def _step2_scratch(device, R: int, C: int):
     """(partials, capacity, counter) of the strip passes' launches on an
-    [R, C] grid (K1, K2 and K5b, whatever their targets): STEP2_GRAM
-    float64 partial sums for each of :func:`strip_capacity` blocks (K1 and
-    K2 keep ten per block, K5b two) and the last-block counter (zero
-    between launches), made once per (device, stream, R, C): launches on
-    one stream are ordered, so they can share them."""
+    [R, C] grid (K1, K2, K3, K4 and K5b, whatever their targets):
+    STEP2_GRAM float64 partial sums for each of :func:`strip_capacity`
+    blocks (K1 and K2 keep ten per block, K5b two, K3 and K4 one) and the
+    last-block counter (zero between launches), made once per (device,
+    stream, R, C): launches on one stream are ordered, so they can share
+    them."""
     key = (device, _raw_stream(device), R, C)
     scratch = _STEP2_SCRATCH.get(key)
     if scratch is None:
@@ -386,6 +396,16 @@ def _step2_scratch(device, R: int, C: int):
                    torch.zeros(1, dtype=torch.int32, device=device))
         _STEP2_SCRATCH[key] = scratch
     return scratch
+
+
+def _one_pass_scratch(device, R: int, C: int, offsets):
+    """(partials, capacity, counter) of a K3 or K4 launch: the strip
+    scratch for a reach-1 stencil; one float per tile, for the second
+    launch that sums the tile kernel's dot, otherwise."""
+    if _reach(offsets) <= STEP2_REACH:
+        return _step2_scratch(device, R, C)
+    return (torch.empty(_blocks(R, C), dtype=torch.float32, device=device),
+            0, None)
 
 
 def _raw_stream(device) -> int:
@@ -438,12 +458,12 @@ def _stencil_call(x, halo_top, halo_bot, extra=(), *, offsets, values,
         xv, rv, alpha = extra
         alpha = _dev_scalars(alpha, 1, dev)
     dot = torch.empty(1, dtype=torch.float32, device=dev)
-    partials = torch.empty(_blocks(R, C), dtype=torch.float32, device=dev)
+    partials, capacity, counter = _one_pass_scratch(dev, R, C, offsets)
     st = _stencil_struct(offsets, values)
     _launch(mode, "ls_stencil2d", (
         _MODES[mode], _ptr(x), _ptr(halo_top), _ptr(halo_bot), _ptr(y),
         _ptr(xv), _ptr(rv), _ptr(alpha), _ptr(dot), _ptr(partials),
-        R, C, ctypes.byref(st),
+        capacity, _ptr(counter), R, C, ctypes.byref(st),
     ), dev)
     if mode == "y":
         return (y,)
@@ -502,12 +522,12 @@ def grid2d_cg_xpay_pq(r, p_old, beta, r_top=None, r_bot=None, p_top=None,
     p = torch.empty_like(r) if out is None else out
     b = _dev_scalars(beta, 1, dev)
     dot = torch.empty(1, dtype=torch.float32, device=dev)
-    partials = torch.empty(_blocks(R, C), dtype=torch.float32, device=dev)
+    partials, capacity, counter = _one_pass_scratch(dev, R, C, offsets)
     st = _stencil_struct(offsets, values)
     _launch("xpay_pq", "ls_xpay_pq", (
         _ptr(r), _ptr(p_old), _ptr(b), _ptr(r_top), _ptr(r_bot),
         _ptr(p_top), _ptr(p_bot), _ptr(p), _ptr(dot), _ptr(partials),
-        R, C, ctypes.byref(st),
+        capacity, _ptr(counter), R, C, ctypes.byref(st),
     ), dev)
     return p, dot[0]
 

@@ -119,7 +119,7 @@ def test_unported_flags_raise(flags):
 
 def test_consume_rhs_env_raises(monkeypatch):
     monkeypatch.setenv("LEGIONSOLVERS_CONSUME_RHS", "1")
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         TB.main(["-dim", "2", "-nx", "16", "-ny", "16", "-it", "4",
                  "--device", "cpu"])
 

@@ -26,10 +26,12 @@ column strips, row chunks and 16-byte vectors, with the cross and a
 max|ref|, Gram entries 1e-4 of their Cauchy-Schwarz scale), and must
 repeat bit for bit; K10 at the interface's caps.  K5b (bicg_st, both dot
 modes, with a reach-2 stencil too) and K2 (gram2) are held at the same
-edges to the same bounds, and must repeat bit for bit; the strip scratch's
-room and the K5b and K2 wrappers on CPU tensors need no card.  A 2-D
-solve(40) on the card is held entry by entry against the same schedule
-driven by the plain versions.
+edges to the same bounds, and must repeat bit for bit, and so must K3 (its
+four modes) and K4 (xpay_pq), with null and random halo blocks; the strip
+scratch's room and the K5b, K2, K3 and K4 wrappers on CPU tensors need no
+card.  A 2-D s-step solve(40) and a two-pass solve(40) on the card are held
+entry by entry against the same schedules driven by the plain versions, the
+two-pass one also to a bit-identical repeat.
 """
 
 import numpy as np
@@ -704,23 +706,159 @@ def test_k2_edges_match_plain_on_card(shape, stencil, cuda_device):
                                  1e-4 * gram_bounds(r, p, offs, vals))
 
 
+ONE_PASS = ["y", "y_dot", "pq", "update", "xpay_pq"]
+
+
+def _one_pass(mode, d, kw, plain=False):
+    """K3 ``mode`` or K4 on ``d`` (update writes d's x and r): the wrapper,
+    or with ``plain`` its plain version; {output name: tensor}."""
+    if mode in ("y", "y_dot", "pq"):
+        src = d["p"] if mode == "pq" else d["x"]
+        top, bot = (d["pt"], d["pb"]) if mode == "pq" else (d["rt"], d["rb"])
+        if plain:
+            out = T.stencil_plain(mode, src, top, bot, **kw)
+        elif mode == "pq":
+            out = (T.grid2d_cg_pq(src, top, bot, **kw),)
+        elif mode == "y":
+            out = (T.grid2d_stencil_matvec(src, top, bot, **kw),)
+        else:
+            out = T.grid2d_stencil_matvec(src, top, bot, with_dot=True, **kw)
+        return dict(zip({"y": ("y",), "y_dot": ("y", "dot"),
+                         "pq": ("dot",)}[mode], out))
+    if mode == "update":
+        out = (T.stencil_plain("update", d["p"], d["pt"], d["pb"],
+                               (d["x"], d["r"], d["alpha"]), **kw) if plain
+               else T.grid2d_cg_update(d["p"], d["x"], d["r"], d["alpha"],
+                                       d["pt"], d["pb"], **kw))
+        return dict(zip(("x", "r", "dot"), out))
+    fn = T.xpay_pq_plain if plain else T.grid2d_cg_xpay_pq
+    return dict(zip(("p", "dot"), fn(d["r"], d["p"], d["beta"], d["rt"],
+                                     d["rb"], d["pt"], d["pb"], **kw)))
+
+
+def _one_pass_state(shape, halos, device, seed=31):
+    rng = np.random.default_rng(seed)
+    d = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(device) for k in ("x", "r", "p")}
+    for k in ("rt", "rb", "pt", "pb"):
+        d[k] = (torch.from_numpy(rng.standard_normal((8, shape[1])).astype(
+            np.float32)).to(device) if halos == "random" else None)
+    d["alpha"] = torch.tensor(0.3, device=device)
+    d["beta"] = torch.tensor(0.2, device=device)
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halos", ["null", "random"])
+@pytest.mark.parametrize("stencil", list(STENCILS2))
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+@pytest.mark.parametrize("mode", ONE_PASS)
+def test_k3_k4_edges_match_plain_on_card(mode, shape, stencil, halos,
+                                         cuda_device):
+    """K3 (four modes) and K4 across the strip march's edges (reach 1) and
+    on the tile kernels (reach 2), with null and random halo blocks,
+    against their plain versions on the same card to chip_smoke.py's phase
+    3 bounds (elementwise 1e-5 * max|ref|, the dot 1e-4 of its
+    Cauchy-Schwarz scale), one launch each, and a repeat bit for bit."""
+    offs, vals = STENCILS2[stencil]
+    kw = dict(offsets=offs, values=vals)
+    d = _one_pass_state(shape, halos, cuda_device)
+    T.reset_launch_counts()
+    runs = []
+    for plain in (False, False, True):
+        c = {k: None if v is None else v.clone() for k, v in d.items()}
+        runs.append({k: v.double().cpu()
+                     for k, v in _one_pass(mode, c, kw, plain).items()})
+    assert dict(T.LAUNCHES) == {mode: 2}
+    k1, k2, ref = runs
+    assert all(torch.equal(k1[k], k2[k]) for k in k1)
+    nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
+    for key, want in ref.items():
+        err = (k1[key] - want).abs().max().item()
+        if key != "dot":
+            assert err <= 1e-5 * want.abs().max().item(), (key, err)
+            continue
+        if mode == "update":
+            scale = nrm(ref["r"]) ** 2
+        else:
+            a = ref["p"] if mode == "xpay_pq" else d["p" if mode == "pq"
+                                                      else "x"]
+            top, bot = ((d["pt"], d["pb"]) if mode == "pq" else
+                        (d["rt"], d["rb"]))
+            if mode == "xpay_pq" and top is not None:
+                top, bot = (top + 0.2 * d["pt"], bot + 0.2 * d["pb"])
+            scale = nrm(a) * nrm(T.apply_plain(a.float().to(cuda_device),
+                                               offs, vals, top, bot))
+        assert err <= 1e-4 * scale, (key, err, scale)
+
+
+@pytest.mark.cuda
+def test_two_pass_history_on_card(cuda_device):
+    """A 2-D two-pass CG solve(40) on the card (LEGIONSOLVERS_NO_SSTEP: K3
+    pq x1, K4 x39, K3 update x40) against the same schedule driven by the
+    plain versions on the card, entry by entry, and the same solve again
+    from the same state, bit for bit."""
+    import os
+
+    import legionsolvers_tpu_torch as lt
+    from legionsolvers_tpu_torch.entry import build_system
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    names = ("grid2d_cg_pq", "grid2d_cg_update", "grid2d_cg_xpay_pq")
+    plain = {
+        "grid2d_cg_pq": lambda p, top=None, bot=None, **kw:
+            T.stencil_plain("pq", p, top, bot, **kw)[0],
+        "grid2d_cg_update": lambda p, x, r, alpha, top=None, bot=None,
+        **kw: T.stencil_plain("update", p, top, bot, (x, r, alpha), **kw),
+        "grid2d_cg_xpay_pq": T.xpay_pq_plain}
+    hists = []
+    os.environ["LEGIONSOLVERS_NO_SSTEP"] = "1"
+    saved = {k: getattr(T, k) for k in names}
+    try:
+        for run in ("kernel", "kernel", "plain"):
+            planner = build_system(256, f32, cuda_device)
+            if run == "plain":
+                for k in names:
+                    setattr(T, k, plain[k])
+            T.reset_launch_counts()
+            hists.append(lt.CGSolver(planner).solve(40).cpu())
+            assert dict(T.LAUNCHES) == ({} if run == "plain" else
+                                        {"pq": 1, "update": 40,
+                                         "xpay_pq": 39})
+    finally:
+        del os.environ["LEGIONSOLVERS_NO_SSTEP"]
+        for k, fn in saved.items():
+            setattr(T, k, fn)
+    kernel, again, ref = hists
+    assert torch.equal(kernel, again)
+    assert len(kernel) == 41 and len(np.unique(kernel.numpy())) == 41
+    np.testing.assert_allclose(kernel.double().numpy(),
+                               ref.double().numpy(), rtol=1e-3)
+
+
 @pytest.mark.cuda
 def test_strip_geometry_and_residency_on_card(cuda_device):
-    """The library's strip block counts equal the Python mirror's, and every
-    K5b and K2 strip variant fits its launch bounds' resident blocks."""
+    """The library's strip block counts and target warps equal the Python
+    mirror's, and every K2, K5b, K3 and K4 strip variant fits its launch
+    bounds' resident blocks."""
     import ctypes
 
     from legionsolvers_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
+    assert [lib.ls_strip_target_warps(k) for k in range(5)] == \
+        list(T.STRIP_TARGETS)
     for shape in [(4096, 4096), *STRIP_SHAPES]:
-        for target in (T.STEP2_TARGET_WARPS, T.GRAM2_TARGET_WARPS,
-                       T.ST_TARGET_WARPS):
+        for target in T.STRIP_TARGETS:
             assert lib.ls_strip_blocks(*shape, target) == \
                 T.strip_geometry(*shape, target)[3], (shape, target)
     out = (ctypes.c_int * 3)()
     for fn, n, target in (("ls_gram2_attrs", 4, T.GRAM2_TARGET_WARPS),
-                          ("ls_bicg_st_strip_attrs", 8, T.ST_TARGET_WARPS)):
+                          ("ls_bicg_st_strip_attrs", 8, T.ST_TARGET_WARPS),
+                          ("ls_stencil2d_strip_attrs", 16,
+                           T.STENCIL_TARGET_WARPS),
+                          ("ls_xpay_pq_strip_attrs", 4,
+                           T.XPAY_TARGET_WARPS)):
         blocks = target // (132 * T.STEP2_WARPS)
         for which in range(n):
             assert getattr(lib, fn)(which, out) == 0, (fn, which)
@@ -729,20 +867,40 @@ def test_strip_geometry_and_residency_on_card(cuda_device):
 
 @pytest.mark.parametrize("shape", [(4096, 4096), *STRIP_SHAPES])
 def test_strip_scratch_covers_k2_and_k5b(shape):
-    """The strip scratch holds K1's and K2's 10 and K5b's 2 partial sums
-    for every block of their launches, whose strips and row chunks cover
-    the grid (no card needed)."""
+    """The strip scratch holds K1's and K2's 10, K5b's 2 and K3's and K4's
+    one partial sums for every block of their launches, whose strips and
+    row chunks cover the grid (no card needed)."""
     R, C = shape
     capacity = T.strip_capacity(R, C)
     for target, per_block in ((T.STEP2_TARGET_WARPS, 10),
                               (T.GRAM2_TARGET_WARPS, 10),
-                              (T.ST_TARGET_WARPS, 2)):
+                              (T.ST_TARGET_WARPS, 2),
+                              (T.STENCIL_TARGET_WARPS, 1),
+                              (T.XPAY_TARGET_WARPS, 1)):
         strips, rows, units, blocks = T.strip_geometry(R, C, target)
         assert strips * T.STEP2_COLS >= C and units % strips == 0
         assert (units // strips) * rows >= R > (units // strips - 1) * rows
         assert units <= blocks * T.STEP2_WARPS < units + T.STEP2_WARPS
         assert blocks <= capacity
         assert per_block * blocks <= T.STEP2_GRAM * capacity
+
+
+@pytest.mark.parametrize("halos", ["null", "random"])
+@pytest.mark.parametrize("stencil", list(STENCILS2))
+def test_k3_k4_run_plain_on_cpu(stencil, halos):
+    """On CPU tensors the K3 and K4 wrappers return their plain versions'
+    results exactly, with null and random halo blocks, and launch nothing
+    (no card needed)."""
+    offs, vals = STENCILS2[stencil]
+    kw = dict(offsets=offs, values=vals)
+    d = _one_pass_state((33, 130), halos, "cpu")
+    T.reset_launch_counts()
+    for mode in ONE_PASS:
+        got, ref = ({k: v.clone() for k, v in _one_pass(
+            mode, {k: None if v is None else v.clone() for k, v in d.items()},
+            kw, plain).items()} for plain in (False, True))
+        assert all(torch.equal(got[k], ref[k]) for k in ref), mode
+    assert sum(T.LAUNCHES.values()) == 0
 
 
 @pytest.mark.parametrize("stencil", list(STENCILS2))

@@ -6,8 +6,15 @@ JAX counterpart in ``legionsolvers_tpu/ops/pallas/stencil2d.py``, run in
 interpret mode as ``tests/test_20_sstep.py`` runs it, on the same numpy
 inputs, and against a dense float64 numpy oracle.  Inputs and tolerances
 are those of ``torch_stencil_cases.py``.  The CUDA kernels themselves are
-held against the plain versions in ``test_torch_kernels_cuda.py``.
+held against the plain versions in ``test_torch_kernels_cuda.py``.  The
+K3 and K4 wrappers' plain routes are also held against the JAX kernels with
+the 9-point stencil and with null and random halo blocks, and the Python
+mirror of the strip passes' target warps against ``csrc/march2d.cuh``.
 """
+
+import pathlib
+import re
+
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +28,7 @@ from torch_stencil_cases import (
     MODES,
     OFFS,
     SHAPES,
+    VALS,
     apply_np,
     compare,
     make_inputs,
@@ -130,3 +138,78 @@ def test_ragged_shape_plain_matches_dense_oracle():
     for mode in MODES:
         got = {k: np.asarray(v) for k, v in run_port(mode, d).items()}
         compare(got, run_oracle(mode, d), d, mode)
+
+
+OFFS9 = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (-1, 1),
+         (1, -1), (1, 1))
+VALS9 = (6.0, -1.0, -1.0, -1.0, -1.0, -0.5, -0.5, -0.5, -0.5)
+STENCILS = {"cross": (OFFS, VALS), "9-point": (OFFS9, VALS9)}
+ONE_PASS = ["y", "y_dot", "pq", "update", "xpay_pq"]
+
+
+def _one_pass(mode, d, kw, halos, jax):
+    """K3 ``mode`` or K4 on ``d``: the port's wrapper on CPU tensors with
+    halo blocks None when ``halos`` is "null", or the JAX kernel in
+    interpret mode with zero blocks there."""
+    if jax:
+        a = {k: jnp.asarray(v) for k, v in d.items()}
+        mod, kw = J, dict(kw, interpret=True)
+    else:
+        a = {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+        mod = T
+        if halos == "null":
+            a.update(rt=None, rb=None, pt=None, pb=None)
+    if mode in ("y", "y_dot"):
+        out = mod.grid2d_stencil_matvec(a["x"], a["rt"], a["rb"],
+                                        with_dot=mode == "y_dot", **kw)
+        return dict(zip(("y", "dot"), out if mode == "y_dot" else (out,)))
+    if mode == "pq":
+        return {"dot": mod.grid2d_cg_pq(a["p"], a["pt"], a["pb"], **kw)}
+    if mode == "update":
+        out = mod.grid2d_cg_update(a["p"], a["x"], a["r"], a["alpha"],
+                                   a["pt"], a["pb"], **kw)
+        return dict(zip(("x", "r", "dot"), out))
+    out = mod.grid2d_cg_xpay_pq(a["r"], a["p"], a["beta"], a["rt"], a["rb"],
+                                a["pt"], a["pb"], **kw)
+    return dict(zip(("p", "dot"), out))
+
+
+@pytest.mark.parametrize("halos", ["null", "random"])
+@pytest.mark.parametrize("stencil", list(STENCILS))
+@pytest.mark.parametrize("mode", ONE_PASS)
+def test_one_pass_halo_routes_match_jax(mode, stencil, halos):
+    """The K3 modes and K4 on CPU tensors (their plain routes) against the
+    JAX kernels in interpret mode, with the cross and the 9-point stencil
+    (the strip kernels' two stencil paths) and with null (None; zero
+    blocks for JAX) and random [8, C] halo blocks."""
+    offs, vals = STENCILS[stencil]
+    kw = dict(offsets=offs, values=vals)
+    d = make_inputs((32, 128), seed=50 + ONE_PASS.index(mode),
+                    halos=halos == "random")
+    got = {k: np.asarray(v) for k, v in
+           _one_pass(mode, d, kw, halos, jax=False).items()}
+    compare(got, _one_pass(mode, d, kw, halos, jax=True), d, mode)
+
+
+def _csrc_define(name):
+    text = (pathlib.Path(T.__file__).resolve().parents[2] / "csrc"
+            / "march2d.cuh").read_text()
+    return int(re.search(rf"#define {name} (\d+)", text).group(1))
+
+
+@pytest.mark.parametrize("k, min_blocks", [
+    (0, "LS_STEP2_MIN_BLOCKS"), (1, "LS_GRAM2_MIN_BLOCKS"),
+    (2, "LS_ST_MIN_BLOCKS"), (3, "LS_STENCIL_MIN_BLOCKS"),
+    (4, "LS_XPAY_MIN_BLOCKS")])
+def test_strip_targets_mirror_csrc(k, min_blocks):
+    """Each strip pass's target warps in Python (STRIP_TARGETS, in
+    ls_strip_target_warps order: K1, K2, K5b, K3, K4) is one wave of the
+    resident blocks its csrc launch bounds name on 132 SMs, and
+    strip_geometry under it covers a 4096^2 grid in one warp per strip
+    and row chunk, within one wave."""
+    target = 132 * _csrc_define(min_blocks) * _csrc_define("LS_STEP2_WARPS")
+    assert T.STRIP_TARGETS[k] == target
+    strips, rows, units, blocks = T.strip_geometry(4096, 4096, target)
+    assert strips == -(-4096 // T.STEP2_COLS) and units % strips == 0
+    assert (units // strips) * rows >= 4096 > (units // strips - 1) * rows
+    assert units <= target and blocks == -(-units // T.STEP2_WARPS)
