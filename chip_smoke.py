@@ -20,6 +20,7 @@ default) or phase 4b's on the 5-point system at 4096^2 (dim 2; N^2 with
 ``--size``) from several right-hand sides (:func:`breakdown`).
 ``--passes [--tree DIR]`` prints the times of K3, K4, K5b and K2 at
 4096^2 that ``--solves`` takes (:func:`time_ab_passes_2d`) and nothing
+else.  ``--blocks`` runs phases 4i and 5i (block systems) and nothing
 else.
 
 Phases (any failure raises, and the exit code is non-zero):
@@ -118,6 +119,22 @@ Phases (any failure raises, and the exit code is non-zero):
    over the measured copy bandwidth and its f32 operations over the card's
    f32 peak.
 
+4i. block systems (``parallel/block_fused.py``): ``entry.
+   build_stencil_system(..., num_spaces=2)``, the same operator on two
+   spaces, -> s-step CG, two-pass CG (LEGIONSOLVERS_NO_SSTEP) and BiCGStab
+   at 4096^2 and CG and BiCGStab on the 7-point system at 256^3, each
+   solve(200) beside the single-space solve(200) of the same system.
+   Identical spaces (b = 1): launches exactly twice one space's (K1 2 x
+   100 and K2 2 x 7, K5 2 x 200 each, ...), one ``cg2_coeffs`` per pass
+   and not per space, no plain version called (every ``*_plain`` of the
+   kernel modules counts its calls), the history exactly twice one
+   space's and every space's x bit for bit one space's, and a repeat bit
+   for bit.  Distinct spaces (b1 = 1 + 0.01 z) at 4096^2: CG's history
+   and x no further from float64 block CG than twice textbook f32 block
+   CG (phase 4's rule); BiCGStab's eager step()s against the solve (rtol
+   1e-6 over the first N_AGREE entries) and ||b - Ax||^2 over both spaces
+   against its last history entry (5e-2), as phase 4b;
+
 The explicit-sparse path (the planner's upgrades of explicit matrices):
 
 4e-g. build three systems through ``entry.build_explicit_system`` (host
@@ -193,14 +210,19 @@ and the roofline probes):
    ``copy_`` and K12.  ``--profile`` adds the idle share of each CLI run's
    solve.
 
+5i. the five block solve(200)s of phase 4i and their single-space
+   solves: ms/iter with CUDA events and host enqueue ms/iter
+   (:func:`solve_ms`), and each block solve's idle share, 1 - its device
+   time (a torch.profiler trace, taken after the timings) over its wall.
+
 The line before the last is one JSON object describing every kernel
 (``ms_lost``: launches x (ms - bound_ms) over the main path's launches);
 the last line is ``{"ok": true, "device": {...}}``.  Details also go to
 ``chiprun_out/chip_smoke.json``.
 """
 
-import contextlib
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -857,20 +879,24 @@ class plain_driven:
 
 class env_route:
     """Within the block, the environment switch ``name`` is set (e.g.
-    LEGIONSOLVERS_NO_SSTEP: the two-pass CG schedule), and ``solver``'s
-    cached runners, built under the other route, are dropped on the way
-    in and out."""
+    LEGIONSOLVERS_NO_SSTEP: the two-pass CG schedule; None: nothing), and
+    the ``solvers``' cached runners, built under the other route, are
+    dropped on the way in and out."""
 
-    def __init__(self, solver, name):
-        self.solver, self.name = solver, name
+    def __init__(self, name, *solvers):
+        self.name, self.solvers = name, solvers
 
     def __enter__(self):
-        os.environ[self.name] = "1"
-        self.solver._solve_cache.clear()
+        if self.name:
+            os.environ[self.name] = "1"
+        for s in self.solvers:
+            s._solve_cache.clear()
 
     def __exit__(self, *exc):
-        del os.environ[self.name]
-        self.solver._solve_cache.clear()
+        if self.name:
+            del os.environ[self.name]
+        for s in self.solvers:
+            s._solve_cache.clear()
 
 
 def cg_plain(T):
@@ -988,7 +1014,7 @@ def main_path(torch, np, T, lt, device):
     after201 = dict(T.LAUNCHES)
     # the two-pass schedule (K3 pq, then K4 xpay_pq + K3 update per
     # iteration), the same solve(200) again from the same state
-    with env_route(solver, "LEGIONSOLVERS_NO_SSTEP"):
+    with env_route("LEGIONSOLVERS_NO_SSTEP", solver):
         restart(solver)
         hist_two_pass = solver.solve(N_ITERS)
         x_two_pass = planner.sol_vectors[0].data.clone()
@@ -3417,9 +3443,8 @@ def solves(torch, np, T, lt, device, card, reps=5):
             build_stencil_system(d, SHAPE3, f32, device))))
     for name, make in runs_of:
         solver = make()
-        route = (env_route(solver, "LEGIONSOLVERS_NO_SSTEP")
-                 if name == "cg2d_two_pass" else contextlib.nullcontext())
-        with route:
+        route = "LEGIONSOLVERS_NO_SSTEP" if name == "cg2d_two_pass" else None
+        with env_route(route, solver):
             runs = [solve_once(torch, solver, N_ITERS)
                     for _ in range(reps + 1)][1:]
         out[name] = {"ms_per_iter": [d / N_ITERS for d, _ in runs],
@@ -3501,6 +3526,301 @@ def ab_solves(parent, torch):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 4i: block systems (parallel/block_fused.py), 5i: their times
+# ---------------------------------------------------------------------------
+
+# name -> (-dim, grid, solver, environment switch or None): each block
+# solve(200) beside the single-space solve(200) of the same system
+BLOCK_RUNS = {
+    "s-step CG 2-D": (2, (N_GRID, N_GRID), "CGSolver", None),
+    "two-pass CG 2-D": (2, (N_GRID, N_GRID), "CGSolver",
+                        "LEGIONSOLVERS_NO_SSTEP"),
+    "BiCGStab 2-D": (2, (N_GRID, N_GRID), "BiCGStabSolver", None),
+    "CG 3-D": (3, SHAPE3, "CGSolver", None),
+    "BiCGStab 3-D": (3, SHAPE3, "BiCGStabSolver", None),
+}
+BLOCK_SPACES = 2
+# launches of one single-space solve(200) of each run (the block solve
+# launches each BLOCK_SPACES times as often)
+BLOCK_SINGLE_LAUNCHES = {
+    "s-step CG 2-D": {"step2": N_ITERS // 2, "gram2": 7},
+    "two-pass CG 2-D": {"pq": 1, "update": N_ITERS, "xpay_pq": N_ITERS - 1},
+    "BiCGStab 2-D": {m: N_ITERS for m in BICG_KERNELS},
+    "CG 3-D": SOLVE3_LAUNCHES["cg"],
+    "BiCGStab 3-D": SOLVE3_LAUNCHES["bicg"],
+}
+# the distinct-space runs: b0 = 1, b1 = 1 + BLOCK_EPS z, z standard normal
+# from torch's generator seeded with BLOCK_SEED on the card
+BLOCK_EPS = 0.01
+BLOCK_SEED = 1
+# bytes one single-space solve(200) of each run must move, per unknown: the
+# s-step passes (24 B per two iterations) and 7 Gram passes (8 B); pq (4)
+# and update (20), then 199 x (xpay_pq 12 + update 20); BiCGStab 60 B per
+# iteration and the two bootstrap dots (16 B)
+BLOCK_BYTES = {"s-step CG 2-D": 24 * 100 + 8 * 7,
+               "two-pass CG 2-D": 24 + 32 * (N_ITERS - 1),
+               "BiCGStab 2-D": 60 * N_ITERS + 16,
+               "CG 3-D": 24 + 32 * (N_ITERS - 1),
+               "BiCGStab 3-D": 60 * N_ITERS + 16}
+
+
+class counted_calls:
+    """Within the block, each function ``name`` of ``module`` for the
+    (module, name) pairs given counts its calls in ``self.calls``, and the
+    ``solvers``' cached runners (which hold the functions they were built
+    with) are dropped on the way in and out.  A plain version run on the
+    card launches none of our kernels, so the launch counters cannot see
+    it; this can."""
+
+    def __init__(self, pairs, *solvers):
+        self.pairs, self.solvers = list(pairs), solvers
+        self.calls = {}
+
+    def __enter__(self):
+        self.saved = [(m, k, getattr(m, k)) for m, k in self.pairs]
+        for m, k, fn in self.saved:
+            setattr(m, k, self._counted(k, fn))
+        for s in self.solvers:
+            s._solve_cache.clear()
+        return self
+
+    def _counted(self, k, fn):
+        def run(*a, **kw):
+            self.calls[k] = self.calls.get(k, 0) + 1
+            return fn(*a, **kw)
+        return run
+
+    def __exit__(self, *exc):
+        for m, k, fn in self.saved:
+            setattr(m, k, fn)
+        for s in self.solvers:
+            s._solve_cache.clear()
+
+
+def plain_names(*modules):
+    """(module, name) of every plain version in the kernel modules."""
+    return [(m, k) for m in modules for k in dir(m)
+            if k.endswith("_plain") and callable(getattr(m, k))]
+
+
+def block_classic_cg(torch, rhs, iters, dtype, matvec):
+    """Textbook CG on diag(A, .., A), one right-hand side per space, x0 =
+    0, every dot the sum of the per-space dots, in ``dtype``: (history,
+    [x per space]), float64."""
+    bs = [b.to(dtype) for b in rhs]
+    xs, rs, ps = [b * 0 for b in bs], [b * 1 for b in bs], [b * 1 for b in bs]
+    dot = lambda a, c: sum((u * v).sum() for u, v in zip(a, c))
+    rr = dot(rs, rs)
+    hist = [rr]
+    for _ in range(iters):
+        qs = [matvec(p) for p in ps]
+        a = rr / dot(ps, qs)
+        for x, r, p, q in zip(xs, rs, ps, qs):
+            x += a * p
+            r -= a * q
+        rr_new = dot(rs, rs)
+        hist.append(rr_new)
+        ps = [r + (rr_new / rr) * p for r, p in zip(rs, ps)]
+        rr = rr_new
+    return torch.stack(hist).double(), [x.double() for x in xs]
+
+
+def block_state(solver):
+    """Every space's x, cloned."""
+    planner = solver.planner
+    return [planner.get_vector(solver.SOL, s).data.clone()
+            for s in range(planner.num_spaces)]
+
+
+def block_run(torch, T, solver, modules):
+    """One solve(200) from x0 = 0: (history, [x per space], launches,
+    calls of a plain version, calls of ``cg2_coeffs``)."""
+    with counted_calls(plain_names(*modules), solver) as plain, \
+            counted_calls([(T, "cg2_coeffs")], solver) as coeffs:
+        restart(solver)
+        torch.cuda.synchronize()
+        T.reset_launch_counts()
+        hist = solver.solve(N_ITERS)
+        torch.cuda.synchronize()
+        counts = dict(T.LAUNCHES)
+        T.reset_launch_counts()
+    return (hist, block_state(solver), counts, sum(plain.calls.values()),
+            coeffs.calls.get("cg2_coeffs", 0))
+
+
+def block_path(torch, T, TB, T3, TB3, lt, device):
+    """Phase 4i: every run of BLOCK_RUNS through ``entry.
+    build_stencil_system(..., num_spaces=2)`` and the same system on one
+    space.  Identical spaces (b = 1 in both): each space's x bit for bit
+    the single-space x, the history exactly twice, the launches exactly
+    twice, one ``cg2_coeffs`` per pass (not per space), no plain version
+    called, and a repeat bit for bit.  Distinct spaces (b1 = 1 + 0.01 z) on
+    the 2-D runs: CG's history and x no further from float64 block CG than
+    twice textbook f32 block CG (phase 4's rule); BiCGStab against its
+    eager step()s (rtol 1e-6 over the first N_AGREE entries) and ||b -
+    Ax||^2 against the last history entry (5e-2), as phase 4b holds the
+    single space.  Returns (launches by kernel name, with the 3-D ones
+    keyed (name, 3), results, {run: (block solver, single solver)}, failed
+    checks)."""
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    modules = (T, TB, T3, TB3)
+    launches, results, solvers, checks = {}, {}, {}, {}
+    for name, (dim, grid, cls_name, env) in BLOCK_RUNS.items():
+        cls = getattr(lt, cls_name)
+        block = cls(build_stencil_system(dim, grid, f32, device,
+                                         num_spaces=BLOCK_SPACES))
+        single = cls(build_stencil_system(dim, grid, f32, device))
+        solvers[name] = (block, single)
+        with env_route(env, block, single):
+            h1, (x1,), c1, p1, k1 = block_run(torch, T, single, modules)
+            h2, xs, c2, p2, k2 = block_run(torch, T, block, modules)
+            h3, xs3, c3, _, _ = block_run(torch, T, block, modules)
+        want = BLOCK_SINGLE_LAUNCHES[name]
+        twice = {m: BLOCK_SPACES * c for m, c in want.items()}
+        res = {"launches single": c1, "launches block": c2,
+               "cg2_coeffs single": k1, "cg2_coeffs block": k2,
+               "plain calls": p1 + p2,
+               "hist_last": (h1[-1].item(), h2[-1].item())}
+        chk = {
+            "launches exactly twice the single space's": c1 == want
+            and c2 == twice and c3 == twice,
+            "no plain version called": p1 + p2 == 0,
+            "history exactly twice the single space's":
+                same_bits(h2, 2 * h1),
+            "every space's x bit for bit the single space's":
+                all(same_bits(x, x1) for x in xs),
+            "a repeat bit for bit": same_bits(h3, h2)
+            and all(same_bits(a, b) for a, b in zip(xs3, xs)),
+        }
+        if "s-step" in name:
+            chk["one cg2_coeffs per pass, as one space"] = k1 == k2 == \
+                N_ITERS // 2
+        if dim == 2:
+            with env_route(env, block):
+                res.update(block_distinct(torch, lt, block, cls_name, chk))
+        for k, ok in chk.items():
+            checks[f"{name}: {k}"] = ok
+        res["checks"] = chk
+        results[name] = res
+        key = (lambda m: (m, 3)) if dim == 3 else (lambda m: m)
+        for m, c in c2.items():
+            launches[key(m)] = launches.get(key(m), 0) + c
+        log(f"[block] {name}: launches single {c1}, block {c2}; cg2_coeffs "
+            f"{k1} / {k2}; checks " + "; ".join(
+                f"{k} {ok}" for k, ok in chk.items()))
+    failed = [k for k, ok in checks.items() if not ok]
+    log(f"[block] checks: {len(checks) - len(failed)} of {len(checks)} hold"
+        + (f"; FAILED: {failed}" if failed else ""))
+    return launches, results, solvers, failed
+
+
+def block_distinct(torch, lt, solver, cls_name, chk):
+    """The distinct-space checks of :func:`block_path` on the 2-D block
+    ``solver`` (its rhs of space 1 is set to 1 + BLOCK_EPS z and back to
+    1 after).  Adds its checks to ``chk``; returns its numbers."""
+    planner = solver.planner
+    rhs1 = planner.rhs_vectors[1].data
+    g = torch.Generator(device=rhs1.device).manual_seed(BLOCK_SEED)
+    rhs1.add_(BLOCK_EPS * torch.randn(rhs1.shape, generator=g,
+                                      device=rhs1.device))
+    rhs = [planner.rhs_vectors[s].data for s in range(BLOCK_SPACES)]
+    res = {}
+    try:
+        if cls_name == "CGSolver":
+            restart(solver)
+            hist = solver.solve(N_ITERS)
+            xs = block_state(solver)
+            h64, x64 = block_classic_cg(torch, rhs, N_ITERS, torch.float64,
+                                        lap5)
+            h32, x32 = block_classic_cg(torch, rhs, N_ITERS, torch.float32,
+                                        lap5)
+            xd = lambda xv: max(x_rel(a, b) for a, b in zip(xv, x64))
+            env = {"textbook f32": (max_rel(h32, h64), xd(x32)),
+                   "kernel": (max_rel(hist, h64), xd(xs))}
+            res["distinct vs float64 block CG (history, x)"] = env
+            chk["distinct spaces: history and x within twice textbook f32 "
+                "block CG's distance from float64"] = (
+                env["kernel"][0] <= 2 * env["textbook f32"][0]
+                and env["kernel"][1] <= 2 * env["textbook f32"][1])
+            log(f"[block] distinct spaces against float64 block CG "
+                f"(history, x): " + ", ".join(
+                    f"{k} {h:.3g} {x:.3g}" for k, (h, x) in env.items()))
+        else:
+            restart(solver)
+            eager = [solver.residual_norm_squared().value]
+            for _ in range(N_AGREE - 1):
+                solver.step()
+                eager.append(solver.residual_norm_squared().value)
+            eager = torch.stack(eager)
+            restart(solver)
+            hist = solver.solve(N_ITERS)
+            planner.matvec(solver.U, solver.SOL)
+            true_rr = sum(torch.sum((b - planner.get_vector(solver.U, s)
+                                     .data).double() ** 2).item()
+                          for s, b in enumerate(rhs))
+            gap = abs(true_rr - hist[-1].item()) / hist[-1].item()
+            dev = rel_dev(eager, hist[:N_AGREE]).max().item()
+            res.update({"distinct eager vs fused": dev,
+                        "distinct eager": eager.tolist(),
+                        "distinct fused": hist[:N_AGREE].tolist(),
+                        "distinct ||b-Ax||^2": true_rr,
+                        "distinct history last": hist[-1].item(),
+                        "distinct gap": gap})
+            chk["distinct spaces: eager step() vs fused solve, first "
+                "entries, rtol 1e-6"] = dev <= 1e-6
+            chk["distinct spaces: ||b - Ax||^2 vs history[-1], rel "
+                "5e-2"] = gap <= 5e-2
+            log(f"[block] distinct spaces: eager vs fused rel dev "
+                f"{dev:.3g} (eager {eager.tolist()}, fused "
+                f"{hist[:N_AGREE].tolist()}); ||b-Ax||^2 {true_rr:.8g} vs "
+                f"history "
+                f"{hist[-1].item():.8g} (rel {gap:.3g})")
+    finally:
+        rhs1.fill_(1.0)
+    return res
+
+
+def time_block_solves(torch, solvers, bw, card):
+    """Phase 5i.  For each block run, ms/iter and host enqueue ms/iter of
+    the block solve(200) and of the single-space one (:func:`solve_ms`),
+    and the block solve's idle share, 1 - device time over the wall, the
+    device time from a torch.profiler trace (:func:`profile_solve`, run
+    after all the timings).  {run: {...}}."""
+    out = {}
+    for name, (block, single) in solvers.items():
+        dim, grid, _, env = BLOCK_RUNS[name]
+        nbytes = BLOCK_BYTES[name] * math.prod(grid)
+        with env_route(env, block, single):
+            ms2, host2 = solve_ms(torch, block, N_ITERS)
+            ms1, host1 = solve_ms(torch, single, N_ITERS)
+        sane(f"block {name} solve", ms2, BLOCK_SPACES * nbytes, bw)
+        sane(f"{name} solve", ms1, nbytes, bw)
+        out[name] = {"block ms/iter": ms2 / N_ITERS,
+                     "single ms/iter": ms1 / N_ITERS,
+                     "block host ms/iter": host2 / N_ITERS,
+                     "single host ms/iter": host1 / N_ITERS}
+    for name, (block, _) in solvers.items():
+        row = out[name]
+        with env_route(BLOCK_RUNS[name][3], block):
+            dev = profile_solve(torch, block,
+                                "block_" + name.replace(" ", "_"), card,
+                                row["block ms/iter"] * N_ITERS)
+        row["block device ms/iter"] = dev / N_ITERS
+        row["block idle"] = 1 - row["block device ms/iter"] \
+            / row["block ms/iter"]
+        log(f"[time] block {name} solve({N_ITERS}): {row['block ms/iter']:.4f}"
+            f" ms/iter (twice one space: "
+            f"{2 * row['single ms/iter']:.4f}); host enqueue "
+            f"{row['block host ms/iter']:.4f} (one space "
+            f"{row['single host ms/iter']:.4f}); device "
+            f"{row['block device ms/iter']:.4f}, idle "
+            f"{100 * row['block idle']:.1f}% on {card}")
+    return out
+
+
 # --breakdown: right-hand sides b = 1 (phase 4d's or 4b's) and b = 1 + eps
 # z, z standard normal from seeds 1 .. BREAKDOWN_RHS - 1; f32 histories
 # over BREAKDOWN_ITERS iterations, to see breakdowns past N_ITERS
@@ -3563,7 +3883,7 @@ def breakdown(torch, lt, device, card, dim=3, n=N_GRID):
               "K5c kernel alone": lambda slv: plain_driven(
                   TB, slv, but("bicg_update")),
               "eager step()": lambda slv: env_route(
-                  slv, "LEGIONSOLVERS_NO_FUSED_BICGSTAB")}
+                  "LEGIONSOLVERS_NO_FUSED_BICGSTAB", slv)}
     rows = []
     for k in range(BREAKDOWN_RHS):
         b = torch.ones(shape, device=device)
@@ -3722,6 +4042,15 @@ def main() -> int:
         log(json.dumps({"card": card, "tree": os.getcwd(), "kernels2d_ms":
                          time_ab_passes_2d(torch, T, TB, device)}))
         return 0
+    if "--blocks" in argv:
+        blk_launches, blk_results, blk_solvers, failed = block_path(
+            torch, T, TB, T3, TB3, lt, device)
+        times = time_block_solves(torch, blk_solvers,
+                                  copy_bandwidth(torch, device), card)
+        log(json.dumps({"card": card, "launches": {
+            str(k): v for k, v in blk_launches.items()},
+            "paths": blk_results, "times": times}, default=str))
+        return 1 if failed else 0
     if "--breakdown" in argv:
         dim = int(argv[argv.index("--dim") + 1]) if "--dim" in argv else 3
         n = (int(argv[argv.index("--size") + 1]) if "--size" in argv
@@ -3757,6 +4086,10 @@ def main() -> int:
             results3[f"{kind3} dim {dim}"] = r
             failed += f
     mark("phases 4-4d")
+    blk_launches, blk_results, blk_solvers, f = block_path(
+        torch, T, TB, T3, TB3, lt, device)
+    failed += f
+    mark("phase 4i")
     systems = {name: build_explicit(torch, np, lt, name, device)
                for name in EXPLICIT}
     errs_x = compare_explicit_kernels(torch, np, lt, T, systems, device)
@@ -3803,6 +4136,8 @@ def main() -> int:
     rates = time_rates(torch, device, card)
     cli_report = report_cli(torch, cli_results, probes, device, bw, card)
     mark("phase 5h")
+    block_times = time_block_solves(torch, blk_solvers, bw, card)
+    mark("phase 5i")
     if "--profile" in sys.argv[1:]:  # last: tracing slows later launches
         profile_solve(torch, bsolver, "bicgstab_2d", card)
         for (kind3, dim), slv in solvers3.items():
@@ -3831,6 +4166,9 @@ def main() -> int:
                    + counts_x["bicgstab", "random"].get("blockperm", 0)))
     launches.update({m: counts_h.get(m, 0) for m in (
         "chain_fma", "chain_roll", "chain_row", "copy_probe")})
+    # the block path's launches (phase 4i), K1-K7 per space
+    for m, c in blk_launches.items():
+        launches[m] = launches.get(m, 0) + c
     missing = [m for m, c in launches.items() if not c]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "
@@ -3946,6 +4284,7 @@ def main() -> int:
                   "kernel_ms": {k: v[:2] + v[4:] for k, v in
                                 ktimes_x.items()},
                   **extra_x},
+              "block": {"paths": blk_results, "times": block_times},
               "cli": {"stream_GBps": cli_bw / 1e9, "runs": cli_results,
                       "checks": cli_checked, "probes": probes,
                       "k11_rates_events": rates, **cli_report}}

@@ -8,10 +8,11 @@ COO/CSR/ELL operators, the planner (with compensated dots and the DIA, RCM
 and routed-gather upgrades of explicit matrices), the matrix-free stencil
 operator, the DIA, windowed-ELL and general-sparsity operators, whose
 passes are hand-written CUDA kernels for Hopper (``ops/cuda/``,
-``csrc/``), the systems of ``entry.py`` and the benchmark CLI
-(``benchmark.py``) with its timing, traffic and op-rate roofline
-(``utils/``).  Not ported yet: block systems and sharding.  The package imports torch, numpy and
-scipy, never jax.
+``csrc/``), block-diagonal multi-space systems on the same kernels
+(``parallel/block_fused.py``), the systems of ``entry.py`` and the
+benchmark CLI (``benchmark.py``) with its timing, traffic and op-rate
+roofline (``utils/``).  Not ported yet: sharding.  The package imports
+torch, numpy and scipy, never jax.
 """
 
 from .options import DEFAULT_OPTIONS, SolverOptions, resolve_device

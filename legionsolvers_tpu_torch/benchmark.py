@@ -11,9 +11,11 @@ measured in place, or for the s-step CG schedule the compute model fed
 with the card's K11 rates when that is larger.  A compute estimate the
 kernel already beat is discarded, never printed as over 100%.
 
-Runs on the card unless ``--device`` names another.  What the JAX CLI
-does and the port cannot yet do raises ``NotImplementedError``: ``--block``
-(block systems, ROADMAP item 1), ``-vp`` > 1 (sharding, item 5),
+Runs on the card unless ``--device`` names another.  ``--block`` solves
+the reference's 2-space block system (the same operator registered on
+each space) on the per-space kernel passes of
+``parallel/block_fused.py``.  What the JAX CLI does and the port cannot
+yet do raises ``NotImplementedError``: ``-vp`` > 1 (sharding, item 5),
 ``--consume-rhs`` (the 3-live-vector CG schedule, item 6) and ``--dtype
 bfloat16`` (no bf16 oracle, fault F2).  ``-dim 1`` runs the linearized
 torch path: the 1-D kernel view is not ported (item 3).
@@ -42,7 +44,9 @@ DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 def build_planner(args, options, device):
     """(planner, unknowns, nnz) of the one-piece system b = 1, x0 = 0 on
-    ``-dim``'s Laplacian, as ``entry.build_stencil_system`` builds it."""
+    ``-dim``'s Laplacian, as ``entry.build_stencil_system`` builds it; with
+    ``--block`` the operator is registered on each of two spaces, and the
+    unknowns and nnz count both."""
     from .entry import build_stencil_system
     from .problems.stencil import (
         calculate_stencil_size,
@@ -52,9 +56,11 @@ def build_planner(args, options, device):
 
     nd = stencil_grid_ndim(args.dim)
     shape = tuple([args.nx, args.ny, args.nz][:nd])
-    planner = build_stencil_system(args.dim, shape, options, device)
+    num_spaces = 2 if args.block else 1
+    planner = build_stencil_system(args.dim, shape, options, device,
+                                   num_spaces)
     nnz = calculate_stencil_size(shape, laplacian_stencil(args.dim))
-    return planner, int(np.prod(shape)), nnz
+    return planner, int(np.prod(shape)) * num_spaces, nnz * num_spaces
 
 
 def make_parser():
@@ -71,7 +77,7 @@ def make_parser():
     p.add_argument("-it", type=int, default=200, help="timed iterations")
     p.add_argument("-restart", type=int, default=10, help="GMRES restart")
     p.add_argument("--block", action="store_true",
-                   help="2-space block system (not ported)")
+                   help="2-space block system")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64", "bfloat16"])
     p.add_argument("--bw", type=float, default=None,
@@ -85,9 +91,6 @@ def make_parser():
 
 
 def _refuse_unported(args) -> None:
-    if args.block:
-        raise NotImplementedError(
-            "--block: block systems are not ported (ROADMAP item 1)")
     if args.vp > 1:
         raise NotImplementedError(
             f"-vp {args.vp}: sharding is not ported (ROADMAP item 5)")

@@ -1,10 +1,12 @@
 """Entry points of the port's main paths.
 
 :func:`build_stencil_system` mirrors ``legionsolvers_tpu.benchmark
-.build_planner`` with one piece and no block system: the benchmark's
-``-dim`` selector (1: 1-D 3-point, 2: 2-D 5-point, 3: 3-D 7-point, 4: 3-D
-27-point negative Laplacian) on the given grid, b = 1 and x0 = 0, with the
-vectors in their grid layout whenever the operator's kernel view is active.
+.build_planner`` with one piece: the benchmark's ``-dim`` selector (1: 1-D
+3-point, 2: 2-D 5-point, 3: 3-D 7-point, 4: 3-D 27-point negative
+Laplacian) on the given grid, b = 1 and x0 = 0, with the vectors in their
+grid layout whenever the operator's kernel view is active; with
+``num_spaces`` > 1 the block system of ``--block``, the same operator
+registered once per space (reference: BenchmarkStencil.cpp:201-207).
 :func:`build_system` is its 2-D square case, as
 ``__graft_entry__._build_system`` builds it for one device.
 :func:`build_explicit_system` is the explicit-matrix counterpart of
@@ -30,7 +32,7 @@ from .problems.stencil import laplacian_stencil, stencil_grid_ndim
 
 def build_stencil_system(dim: int, shape: Sequence[int],
                          options: SolverOptions = DEFAULT_OPTIONS,
-                         device=None) -> SquarePlanner:
+                         device=None, num_spaces: int = 1) -> SquarePlanner:
     shape = tuple(int(s) for s in shape)
     if len(shape) != stencil_grid_ndim(dim):
         raise ValueError(f"-dim {dim} needs a {stencil_grid_ndim(dim)}-D "
@@ -40,15 +42,18 @@ def build_stencil_system(dim: int, shape: Sequence[int],
     op = StencilOperator(shape, laplacian_stencil(dim), partition=part,
                          options=options, device=device)
     gs = shape if op.uses_pallas else None
-    rhs = PartitionedVector("rhs", part, options=options, grid_shape=gs,
-                            device=device)
-    rhs.constant_fill(1.0)
-    sol = PartitionedVector("sol", part, options=options, grid_shape=gs,
-                            device=device, lazy=True)
     planner = SquarePlanner(options=options, device=device)
-    planner.add_sol_vector(sol)
-    planner.add_rhs_vector(rhs)
-    planner.add_operator(op, 0, 0)
+    for i in range(num_spaces):
+        sol = PartitionedVector(f"sol{i}", part, options=options,
+                                grid_shape=gs, device=device, lazy=True)
+        planner.add_sol_vector(sol)
+    for i in range(num_spaces):
+        rhs = PartitionedVector(f"rhs{i}", part, options=options,
+                                grid_shape=gs, device=device)
+        rhs.constant_fill(1.0)
+        planner.add_rhs_vector(rhs)
+    for i in range(num_spaces):
+        planner.add_operator(op, i, i)
     return planner
 
 

@@ -6,7 +6,8 @@ R_TILDE=4, U=5, V=6), same rho/alpha/omega recurrences carried as deferred
 scalars, two matvecs per ``step()``.  :meth:`BiCGStabSolver.solve` hands the
 whole loop to the operator's fused runner where one exists (the three
 hand-written CUDA passes of ``ops/cuda/bicgstab2d.py`` or ``bicgstab3d.py``
-on a card) and loops over ``step()`` otherwise.  No step reads a scalar
+on a card), on a block-diagonal multi-space system to the block runner of
+``parallel/block_fused.py``, and loops over ``step()`` otherwise.  No step reads a scalar
 back to the host.
 
 Numerics: at large n the f32 trajectory depends on the order in which the
@@ -84,20 +85,28 @@ class BiCGStabSolver:
         return self.planner.dot(self.R, self.R)
 
     def _make_fused_runner(self, num_iterations: int):
-        """The operator's fused whole-loop runner for a single-space system
-        whose one operator supports it, else None.  ``r~`` is passed as the
-        RHS data itself (R_TILDE is always a copy of b in this solver).
-        Multi-space block systems take the step() loop until the block
-        runners of ``parallel/block_fused.py`` are ported."""
-        from ..parallel.block_fused import diagonal_block_ops
+        """The fused whole-loop runner, else None: for a single-space system
+        its one operator's where it supports one, for a block-diagonal
+        multi-space system the per-space phases of
+        ``parallel/block_fused.py``.  ``r~`` is passed as the RHS data
+        itself (R_TILDE is always a copy of b in this solver)."""
+        from ..parallel.block_fused import (
+            block_bicgstab_supported,
+            diagonal_block_ops,
+            make_block_bicgstab_runner,
+        )
 
         ops = diagonal_block_ops(self.planner)
-        if ops is None or self.planner.num_spaces != 1:
+        if ops is None:
             return None
-        op = ops[0]
-        if not getattr(op, "supports_fused_bicgstab", False):
+        if self.planner.num_spaces == 1:
+            op = ops[0]
+            if not getattr(op, "supports_fused_bicgstab", False):
+                return None
+            return op.make_fused_bicgstab_runner(num_iterations)
+        if not block_bicgstab_supported(ops) or num_iterations < 1:
             return None
-        return op.make_fused_bicgstab_runner(num_iterations)
+        return make_block_bicgstab_runner(ops, num_iterations)
 
     def solve(self, num_iterations: int) -> torch.Tensor:
         """Run ``num_iterations`` iterations and return the ||r||^2 history
@@ -120,14 +129,26 @@ class BiCGStabSolver:
                     num_iterations)
             frun = self._solve_cache[num_iterations]
             if frun is not None:
-                x, r, p, v = (planner.get_vector(i, 0)
-                              for i in (self.SOL, self.R, self.P, self.V))
-                rhs = planner.get_vector(self.RHS, 0)
-                _unshare_for_inplace((x, r, p, v), rhs)
-                (x.data, r.data, p.data, v.data, rho, alpha, omega,
-                 history) = frun(x.data, r.data, p.data, v.data, rhs.data,
-                                 self.rho[-1].value, self.alpha[-1].value,
-                                 self.omega[-1].value)
+                nsp = planner.num_spaces
+                xs, rs, ps, vs, rts = (
+                    [planner.get_vector(i, s) for s in range(nsp)]
+                    for i in (self.SOL, self.R, self.P, self.V, self.RHS))
+                _unshare_for_inplace((*xs, *rs, *ps, *vs), *rts)
+                scalars = (self.rho[-1].value, self.alpha[-1].value,
+                           self.omega[-1].value)
+                data = lambda vecs: tuple(v.data for v in vecs)
+                if nsp == 1:
+                    (xd, rd, pd, vd, rho, alpha, omega, history) = frun(
+                        xs[0].data, rs[0].data, ps[0].data, vs[0].data,
+                        rts[0].data, *scalars)
+                    xd, rd, pd, vd = (xd,), (rd,), (pd,), (vd,)
+                else:
+                    (xd, rd, pd, vd, rho, alpha, omega, history) = frun(
+                        data(xs), data(rs), data(ps), data(vs), data(rts),
+                        *scalars)
+                for s in range(nsp):
+                    xs[s].data, rs[s].data = xd[s], rd[s]
+                    ps[s].data, vs[s].data = pd[s], vd[s]
                 dtype = planner.options.entry_dtype
                 self.rho = [Scalar(rho.to(dtype))]
                 self.alpha = [Scalar(alpha.to(dtype))]

@@ -5,7 +5,9 @@ same vector indices (SOL=0, RHS=1, P=2, Q=3, R=4), same future-ratio
 coefficient passing, same residual-norm-squared history.  ``step()`` is
 eager torch; :meth:`solve` hands the whole loop to the operator's fused
 runner where one exists (the hand-written CUDA passes of
-``ops/cuda/stencil2d.py`` or ``stencil3d.py`` on a card) and loops over
+``ops/cuda/stencil2d.py`` or ``stencil3d.py`` on a card), on a
+block-diagonal multi-space system to the block runner of
+``parallel/block_fused.py`` (the same passes per space), and loops over
 ``step()`` otherwise.
 No step reads a scalar back to the host.
 """
@@ -75,20 +77,29 @@ class CGSolver:
         planner.xpay(self.P, r_norm2_new, r_norm2_old, self.R)
 
     def _make_fused_runner(self, num_iterations: int):
-        """The operator's fused whole-loop runner for a single-space system
-        (s-step or two-pass on the 2-D view, two-pass on the 3-D view, or
-        the torch recompute runner), else None.
-        Multi-space block systems take the eager path until
-        ``parallel/block_fused.py``'s phase runners are ported."""
-        from ..parallel.block_fused import diagonal_block_ops
+        """The fused whole-loop runner, else None.  Single space: the
+        operator's own (s-step or two-pass on the 2-D view, two-pass on the
+        3-D view, or the torch recompute runner).  Block-diagonal
+        multi-space systems (the reference's benchmark stress
+        configuration, BenchmarkStencil.cpp:201-207): per-space fused
+        phases with cross-space scalar sums (``parallel/block_fused.py``)."""
+        from ..parallel.block_fused import (
+            block_cg_supported,
+            diagonal_block_ops,
+            make_block_cg_runner,
+        )
 
         ops = diagonal_block_ops(self.planner)
-        if ops is None or self.planner.num_spaces != 1:
+        if ops is None:
             return None
-        op = ops[0]
-        if not getattr(op, "supports_fused_cg", False):
+        if self.planner.num_spaces == 1:
+            op = ops[0]
+            if not getattr(op, "supports_fused_cg", False):
+                return None
+            return op.make_fused_cg_runner(num_iterations)
+        if not block_cg_supported(ops) or num_iterations < 1:
             return None
-        return op.make_fused_cg_runner(num_iterations)
+        return make_block_cg_runner(ops, num_iterations)
 
     def solve(self, num_iterations: int) -> torch.Tensor:
         """Run ``num_iterations`` iterations and return the residual²
@@ -113,15 +124,23 @@ class CGSolver:
                 )
             frun = self._solve_cache[fkey]
             if frun is not None:
-                x, r, p = (planner.get_vector(i, 0)
-                           for i in (self.SOL, self.R, self.P))
+                nsp = planner.num_spaces
+                xs, rs, ps = ([planner.get_vector(i, s) for s in range(nsp)]
+                              for i in (self.SOL, self.R, self.P))
                 _unshare_for_inplace(
-                    (x, r, p), planner.get_vector(self.RHS, 0)
-                )
+                    (*xs, *rs, *ps),
+                    *(planner.get_vector(self.RHS, s) for s in range(nsp)))
                 rr0 = self.residual_norm_squared[-1].value
-                x.data, r.data, p.data, history = frun(
-                    x.data, r.data, p.data, rr0
-                )
+                data = lambda vs: tuple(v.data for v in vs)
+                if nsp == 1:
+                    xd, rd, pd, history = frun(xs[0].data, rs[0].data,
+                                               ps[0].data, rr0)
+                    xd, rd, pd = (xd,), (rd,), (pd,)
+                else:
+                    xd, rd, pd, history = frun(data(xs), data(rs), data(ps),
+                                               rr0)
+                for s in range(nsp):
+                    xs[s].data, rs[s].data, ps[s].data = xd[s], rd[s], pd[s]
                 self.residual_norm_squared = ScalarHistory(history)
                 return history
 

@@ -82,16 +82,24 @@ def _op_cg_kind(op) -> str:
 
 def cg_schedule(solver) -> str:
     """Which CG schedule ``solver.solve()`` runs, by the capability
-    questions ``CGSolver._make_fused_runner`` asks.  Block systems are not
-    ported (the benchmark refuses them): a multi-space planner takes the
-    ``step()`` path."""
-    from ..parallel.block_fused import diagonal_block_ops
+    questions ``CGSolver._make_fused_runner`` asks.  Block-diagonal
+    multi-space systems (``parallel/block_fused.py``) run the per-space
+    schedule with the same traffic per unknown, so they report the same
+    label."""
+    from ..parallel.block_fused import block_cg_supported, diagonal_block_ops
 
     planner = solver.planner
     ops = diagonal_block_ops(planner)
-    if (ops is not None and planner.num_spaces == 1
-            and all(getattr(op, "supports_fused_cg", False) for op in ops)):
-        return _op_cg_kind(ops[0])
+    if ops is not None and all(getattr(op, "supports_fused_cg", False)
+                               for op in ops):
+        if planner.num_spaces == 1 or block_cg_supported(ops):
+            kinds = {_op_cg_kind(op) for op in ops}
+            if len(kinds) > 1:
+                # mixed per-space schedules: the s-step needs every space
+                # eligible, so the block runner runs the two-pass family;
+                # charge its most expensive member
+                kinds.discard("fused2d_x2")
+            return max(kinds, key=lambda k: CG_PASSES[k])
     fusable = all(getattr(op, "supports_matvec_dot", False)
                   for op, _, _ in planner.row_partitioned_matrices)
     return "fused_jnp" if fusable else "classic"
@@ -139,7 +147,10 @@ def gmres_bytes_per_cycle_per_unknown(m: int, itemsize: int = 4) -> float:
 def solver_bytes_per_iteration(solver, n: int) -> tuple:
     """(bytes per iteration for the whole system, schedule label) for CG,
     BiCGStab, GMRES (per cycle) and PCG.  ``n``: total unknowns."""
-    from ..parallel.block_fused import diagonal_block_ops
+    from ..parallel.block_fused import (
+        block_bicgstab_supported,
+        diagonal_block_ops,
+    )
 
     planner = solver.planner
     itemsize = planner.options.entry_dtype.itemsize
@@ -159,10 +170,14 @@ def solver_bytes_per_iteration(solver, n: int) -> tuple:
         label = sched if extra == 0 else f"{sched}+{extra}"
         return passes * itemsize * n, label
     if name == "BiCGStabSolver":
+        # the three fused passes, 15 passes per unknown; block systems run
+        # them per space when every space's operator supports them
         dops = diagonal_block_ops(planner)
-        if (dops is not None and planner.num_spaces == 1
+        if (dops is not None
                 and all(getattr(op, "supports_fused_bicgstab", False)
-                        for op in dops)):
+                        for op in dops)
+                and (planner.num_spaces == 1
+                     or block_bicgstab_supported(dops))):
             kind = getattr(dops[0], "_view", None) or {}
             label = ("bicgstab_fused3d" if kind.get("kind") == "3d"
                      else "bicgstab_fused2d")

@@ -7,7 +7,8 @@ JAX package's.
 unknown must be equal, and the final residual² within rtol 1e-9 (the two
 packages run one recurrence and differ only in the order of their sums).
 Every function of the port's ``utils/roofline.py`` is held equal to the
-JAX one on the same inputs.  The flags the port cannot honour yet raise
+JAX one on the same inputs, and ``--block`` runs the 2-space block system
+in both.  The flags the port cannot honour yet raise
 ``NotImplementedError``, and the marginal timer raises where the JAX one
 floors a non-positive difference (fault F1).
 """
@@ -108,13 +109,41 @@ def test_dim1_runs_the_linearized_path(capsys):
     assert "ROADMAP item 3" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags", [["--block"], ["-vp", "4"],
-                                   ["--consume-rhs"],
+@pytest.mark.parametrize("flags", [["-vp", "4"], ["--consume-rhs"],
                                    ["--dtype", "bfloat16"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TB.main(["-dim", "2", "-nx", "16", "-ny", "16", "-it", "4",
                  "--device", "cpu", *flags])
+
+
+def test_benchmark_block_smoke(capsys):
+    """``--block`` (the reference's 2-space stress system) runs end to end
+    on the CPU in float64, as test_16's smoke test runs the JAX CLI."""
+    out = TB.main(["-dim", "1", "-nx", "256", "-it", "10", "--block",
+                   "--dtype", "float64", "--device", "cpu"])
+    assert "ms per iteration" in capsys.readouterr().out
+    assert (out["n"], out["nnz"]) == (2 * 256, 2 * (3 * 256 - 2))
+    assert out["schedule"] == "fused_jnp" and out["final_residual2"] > 0
+
+
+@pytest.mark.parametrize("solver,schedule", [(1, "fused2d_x2"),
+                                             (2, "bicgstab_fused2d")])
+def test_cli_block_matches_jax(solver, schedule):
+    """``-dim 2 --block`` in f32: both CLIs report the block schedule's
+    label, its bytes per unknown and both spaces' unknowns and nnz; the
+    final residual^2 within rtol 2e-3 (CG: test_27's block tolerance) or
+    0.05 (BiCGStab, over 10 iterations)."""
+    flags = ["-dim", "2", "-nx", "32", "-ny", "256", "-solver",
+             str(solver), "-it", "10", "--block"]
+    ours = TB.main(flags + ["--device", "cpu"])
+    ref = JB.main(flags)
+    assert ours["schedule"] == schedule
+    for k in ("n", "nnz", "schedule", "bytes_per_unknown"):
+        assert ours[k] == ref[k], k
+    np.testing.assert_allclose(ours["final_residual2"],
+                               ref["final_residual2"],
+                               rtol=2e-3 if solver == 1 else 0.05)
 
 
 def test_consume_rhs_env_raises(monkeypatch):

@@ -14,7 +14,9 @@
 * a JAX trajectory continued in the port (``bicgstab_solver_from_state``);
 * float64 on the 1-D ELL path: test_06's asymmetric recurrence against its
   numpy transcription and JAX to rtol 1e-7, and the SPD solve;
-* compensated dots against plain ones (test_25's 5e-3) and against JAX.
+* compensated dots against plain ones (test_25's 5e-3) and against JAX;
+* fault P5 against the reference: JAX's own fused f32 solve breaks down
+  on one of ``chip_smoke.py --breakdown --dim 2 --size 512``'s draws.
 """
 
 import numpy as np
@@ -321,3 +323,30 @@ def test_bicgstab_eager_matches_loop():
     T.BiCGStabSolver(p2).solve(5)
     np.testing.assert_allclose(p1.sol_vectors[0].to_numpy(),
                                p2.sol_vectors[0].to_numpy(), rtol=1e-13)
+
+
+def test_reference_breaks_down_too():
+    """Fault P5 against the reference: JAX's own fused f32 BiCGStab (Pallas
+    in interpret mode) on the 5-point system at 512^2 with ``chip_smoke.py
+    --breakdown --dim 2 --size 512``'s draw 1, b = 1 + 0.01 z with z =
+    ``default_rng(1).standard_normal((512, 512))``, turns non-finite
+    within 200 iterations (at 102), as the port's kernel path does on some
+    draws: f32 BiCGStab breaks down on this system in both packages."""
+    shape = (512, 512)
+    F = J.SolverOptions(entry_dtype=jnp.float32)
+    part = J.BlockPartition(shape[0] * shape[1], 1)
+    z = np.random.default_rng(1).standard_normal(shape)
+    b = (torch.ones(shape)
+         + 0.01 * torch.from_numpy(z.astype(np.float32))).numpy()
+    planner = J.SquarePlanner(mesh=None, options=F)
+    planner.add_sol_vector(J.PartitionedVector(
+        "sol", part, options=F, grid_shape=shape).zero_fill())
+    planner.add_rhs_vector(J.PartitionedVector.from_array(
+        "rhs", b, part, options=F, grid_shape=shape))
+    planner.add_operator(J.StencilOperator(
+        shape, J.laplacian_stencil(2), partition=part, mesh=None,
+        options=F), 0, 0)
+    solver = J.BiCGStabSolver(planner)
+    assert solver._make_fused_runner(200) is not None
+    hist = np.asarray(solver.solve(200))
+    assert not np.isfinite(hist).all()

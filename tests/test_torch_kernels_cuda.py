@@ -31,7 +31,9 @@ four modes) and K4 (xpay_pq), with null and random halo blocks; the strip
 scratch's room and the K5b, K2, K3 and K4 wrappers on CPU tensors need no
 card.  A 2-D s-step solve(40) and a two-pass solve(40) on the card are held
 entry by entry against the same schedules driven by the plain versions, the
-two-pass one also to a bit-identical repeat.
+two-pass one also to a bit-identical repeat.  The block runners on two
+identical spaces launch every kernel twice as often as one space and give
+exactly twice its history and its x in every space.
 """
 
 import numpy as np
@@ -1089,3 +1091,38 @@ def test_benchmark_cli_on_card(cuda_device):
     assert out["schedule"].startswith("fused2d_x2")
     assert 0 < out["pct_roofline"] <= 100
     assert T.LAUNCHES["step2"] >= 20 * benchmark.RUNS[40]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,solver,env", [
+    (2, "CGSolver", None), (2, "CGSolver", "LEGIONSOLVERS_NO_SSTEP"),
+    (2, "BiCGStabSolver", None), (3, "CGSolver", None),
+    (3, "BiCGStabSolver", None)])
+def test_block_solve_doubles_one_space_on_card(dim, solver, env,
+                                               monkeypatch, cuda_device):
+    """The block runners on the card (``parallel/block_fused.py``): two
+    identical spaces of a 2-D (200, 328) or 3-D (37, 45, 130) Laplacian,
+    b = 1, solve(40).  Each kernel launches exactly twice as often as in
+    the single-space solve(40), the history is exactly twice the single
+    space's and each space's x is the single-space x, bit for bit."""
+    import legionsolvers_tpu_torch as lt
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+
+    if env:
+        monkeypatch.setenv(env, "1")
+    grid = (200, 328) if dim == 2 else (37, 45, 130)
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    runs = []
+    for spaces in (1, 2):
+        planner = build_stencil_system(dim, grid, f32, cuda_device,
+                                       num_spaces=spaces)
+        T.reset_launch_counts()
+        hist = getattr(lt, solver)(planner).solve(40)
+        torch.cuda.synchronize()
+        runs.append((dict(T.LAUNCHES), hist,
+                     [v.data for v in planner.sol_vectors]))
+    (c1, h1, (x1,)), (c2, h2, xs) = runs
+    assert c1 and c2 == {k: 2 * v for k, v in c1.items()}
+    assert torch.equal(h2, 2 * h1)
+    for x in xs:
+        assert torch.equal(x, x1)

@@ -347,11 +347,6 @@ DEFERRED = {
     "core.vector.PartitionedVector.sharding": "item 5",
     "native.bindings.shard_halo_columns": "item 5",
     "native.bindings.pack_ell_shard": "item 5",
-    # ROADMAP item 1, block systems
-    "parallel.block_fused.block_cg_supported": "item 1",
-    "parallel.block_fused.block_bicgstab_supported": "item 1",
-    "parallel.block_fused.make_block_cg_runner": "item 1",
-    "parallel.block_fused.make_block_bicgstab_runner": "item 1",
     # ROADMAP item 4, utilities
     "utils.debug": "item 4",
     "utils.initialize": "item 4",
