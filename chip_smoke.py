@@ -21,7 +21,7 @@ default) or phase 4b's on the 5-point system at 4096^2 (dim 2; N^2 with
 ``--passes [--tree DIR]`` prints the times of K3, K4, K5b and K2 at
 4096^2 that ``--solves`` takes (:func:`time_ab_passes_2d`) and nothing
 else.  ``--blocks`` runs phases 4i and 5i (block systems) and nothing
-else.
+else, ``--pieces`` phases 4j and 5j (pieces on one card).
 
 Phases (any failure raises, and the exit code is non-zero):
 
@@ -215,8 +215,33 @@ and the roofline probes):
    (:func:`solve_ms`), and each block solve's idle share, 1 - its device
    time (a torch.profiler trace, taken after the timings) over its wall.
 
+Pieces on one card (``parallel/mesh.py``, ``overlap.py``,
+``sstep_sharded.py``; ``make_mesh(S, devices=[card] * S)``):
+
+4j. the 2-D system at 4096^2 through ``entry.build_system(..., mesh=)``:
+   the matvec on 4 and 8 pieces against one piece (4 eps max|x| sum|v|);
+   the s-step solve(200) on 4 pieces (K1 400, K2 28) and 8 (K1 800, K2
+   56) and the two-pass one on 4 (K3 pq 4, K4 796, K3 update 800), each
+   with ``cg2_coeffs`` as often as on one piece (100), no plain version
+   called, history and x within twice textbook f32 CG's distance from
+   float64 CG, a repeat bit for bit and its distance from the one-piece
+   solve; then the matvec and each solve again with every K1-K4 call held
+   to its plain version on copies of the same inputs (phase 3's bounds,
+   :class:`shadowed`), and each solve driven by the plain versions (its
+   twin: no kernel launched; its distance from float64, one piece's
+   twin's and the kernels' solve's distance from it reported); the
+   CLI's ``-dim 2 -solver 1 -vp 4``;
+5j. those solves' ms/iter and host enqueue ms/iter beside one piece's in
+   the same process, the torch glue operations per pass counted on the
+   host, the host enqueue of one K1, K4 and K3 update wrapper call (on a
+   piece and on the whole grid) and the host µs per glue operation they
+   imply, and (after every other timing) each one's idle share from a
+   profiler trace.  ``--pieces`` runs 4j and 5j alone (~2 min with the
+   build).
+
 The line before the last is one JSON object describing every kernel
-(``ms_lost``: launches x (ms - bound_ms) over the main path's launches);
+(``ms_lost``: launches x (ms - bound_ms) over the main path's launches,
+a launch on one of S pieces counted as 1/S of a whole-grid launch);
 the last line is ``{"ok": true, "device": {...}}``.  Details also go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -903,9 +928,9 @@ def cg_plain(T):
     """The plain versions of the CG path's wrappers, by wrapper name."""
     return {
         "grid2d_stencil_matvec": lambda x, top=None, bot=None, *,
-        with_dot=False, **kw: (
-            T.stencil_plain("y_dot", x, top, bot, **kw) if with_dot
-            else T.stencil_plain("y", x, top, bot, **kw)[0]),
+        with_dot=False, out=None, **kw: (
+            T.stencil_plain("y_dot", x, top, bot, out=out, **kw) if with_dot
+            else T.stencil_plain("y", x, top, bot, out=out, **kw)[0]),
         "grid2d_cg_pq": lambda p, top=None, bot=None, **kw:
             T.stencil_plain("pq", p, top, bot, **kw)[0],
         "grid2d_cg_update": lambda p, x, r, alpha, top=None, bot=None,
@@ -3667,7 +3692,12 @@ def block_path(torch, T, TB, T3, TB3, lt, device):
 
     f32 = lt.SolverOptions(entry_dtype=torch.float32)
     modules = (T, TB, T3, TB3)
-    launches, results, solvers, checks = {}, {}, {}, {}
+    launches, grid, results, solvers, checks = {}, {}, {}, {}, {}
+
+    def add(counts, S):
+        for m, n in counts.items():
+            launches[m] = launches.get(m, 0) + n
+            grid[m] = grid.get(m, 0.0) + n / S
     for name, (dim, grid, cls_name, env) in BLOCK_RUNS.items():
         cls = getattr(lt, cls_name)
         block = cls(build_stencil_system(dim, grid, f32, device,
@@ -3821,6 +3851,476 @@ def time_block_solves(torch, solvers, bw, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4j: pieces on one card (parallel/mesh.py, overlap.py,
+# sstep_sharded.py), 5j: their times
+# ---------------------------------------------------------------------------
+
+# name -> (pieces, environment switch or None): each solve(200) of the 2-D
+# system at 4096^2 on a mesh of that many shards, all on the card
+PIECE_RUNS = {
+    "s-step CG, 4 pieces": (4, None),
+    "s-step CG, 8 pieces": (8, None),
+    "two-pass CG, 4 pieces": (4, "LEGIONSOLVERS_NO_SSTEP"),
+}
+# launches of one solve(200) on one piece (each kernel runs once per piece)
+PIECE_ONE_LAUNCHES = {
+    None: {"step2": N_ITERS // 2, "gram2": 7},
+    "LEGIONSOLVERS_NO_SSTEP": {"pq": 1, "update": N_ITERS,
+                               "xpay_pq": N_ITERS - 1},
+}
+PIECE_SEED = 3
+PIECE_CLI = ["-dim", "2", "-nx", str(N_GRID), "-ny", str(N_GRID),
+             "-solver", "1", "-it", str(N_ITERS), "-vp", "4"]
+
+
+class glue_ops:
+    """Within the block, counts the torch operations that run on tensors
+    of ``device_type`` and launch work there (views and allocations
+    excluded): the glue between our kernels, whose ctypes launches torch
+    never sees.  A host-side count, exact where a profiler trace may drop
+    events."""
+
+    NO_LAUNCH = {"empty", "empty_like", "empty_strided", "new_empty",
+                 "new_empty_strided", "detach", "alias", "lift_fresh",
+                 "_local_scalar_dense", "is_nonzero", "equal"}
+
+    def __init__(self, device_type="cuda"):
+        self.device_type = device_type
+
+    def __enter__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                name = func.overloadpacket.__name__
+                if not (func.is_view or name in glue_ops.NO_LAUNCH):
+                    flat = [a for a in (*args, *(kwargs or {}).values(),
+                                        out) if isinstance(a, torch.Tensor)]
+                    flat += [t for a in (*args, out) if isinstance(
+                        a, (list, tuple)) for t in a
+                        if isinstance(t, torch.Tensor)]
+                    if any(t.device.type == counter.device_type
+                           for t in flat):
+                        counter.ops[name] = counter.ops.get(name, 0) + 1
+                return out
+
+        self.ops = {}
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+    @property
+    def total(self):
+        return sum(self.ops.values())
+
+
+# the 2-D CG path's wrappers and the launch each counts (the matvec: y or
+# y_dot)
+SHADOW_LAUNCH = {"grid2d_stencil_matvec": None, "grid2d_cg_pq": "pq",
+                 "grid2d_cg_update": "update", "grid2d_cg_xpay_pq": "xpay_pq",
+                 "grid2d_cg_gram2": "gram2", "grid2d_cg_step2": "step2"}
+
+
+class shadowed:
+    """Within the block, every call of a 2-D CG wrapper of ``T`` (K1-K4)
+    also runs the wrapper's plain version on copies of its inputs, taken
+    before the kernel writes, and holds the kernel's outputs to it at
+    phase 3's bounds: each array elementwise to 1e-5 of the plain
+    version's max |value|, each dot to 1e-4 of sqrt(<a,a><b,b>) of its
+    operands.  ``calls``: {launch name: calls held}; ``worst``: {launch
+    name: max abs error}; ``share``: {launch name: the largest error as a
+    share of its bound}; ``bad``: the calls out of bounds.  The
+    ``solver``'s cached runners are dropped on the way in and out."""
+
+    def __init__(self, T, solver=None):
+        self.T, self.solver = T, solver
+        self.calls, self.worst, self.share, self.bad = {}, {}, {}, []
+
+    def __enter__(self):
+        plain = cg_plain(self.T)
+        self.saved = {k: getattr(self.T, k) for k in SHADOW_LAUNCH}
+        for k in SHADOW_LAUNCH:
+            setattr(self.T, k, self._wrap(k, self.saved[k], plain[k]))
+        if self.solver is not None:
+            self.solver._solve_cache.clear()
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(self.T, k, fn)
+        if self.solver is not None:
+            self.solver._solve_cache.clear()
+
+    def _wrap(self, name, kernel, plain):
+        import torch
+
+        copy = lambda a: a.clone() if isinstance(a, torch.Tensor) else a
+
+        def run(*args, **kw):
+            cargs = [copy(a) for a in args]
+            ckw = {k: copy(v) for k, v in kw.items() if k != "out"}
+            got = kernel(*args, **kw)
+            self._check(name, got, plain(*cargs, **ckw), cargs, ckw)
+            return got
+        return run
+
+    def _check(self, name, got, ref, args, kw):
+        import torch
+
+        T = self.T
+        nrm = lambda v: torch.linalg.vector_norm(v.double()).item()
+        A = lambda v, top=None, bot=None: T.apply_plain(
+            v, kw["offsets"], kw["values"], top, bot)
+        arg = lambda i, key: args[i] if len(args) > i else kw.get(key)
+        mode = SHADOW_LAUNCH[name]
+        if mode is None:
+            mode = "y_dot" if kw.get("with_dot") else "y"
+            got, ref = (got, ref) if mode == "y_dot" else ((got,), (ref,))
+            keys = ("y", "dot")
+            scale = lambda r: nrm(args[0]) * nrm(r["y"])
+        elif mode == "pq":
+            got, ref, keys = (got,), (ref,), ("dot",)
+            scale = lambda r: nrm(args[0]) * nrm(A(
+                args[0], arg(1, "halo_top"), arg(2, "halo_bot")))
+        elif mode == "update":
+            keys = ("x", "r", "dot")
+            scale = lambda r: nrm(r["r"]) ** 2
+        elif mode == "xpay_pq":
+            keys = ("p", "dot")
+            comb = lambda rh, ph: (None if rh is None and ph is None else
+                                   (0 if rh is None else rh) + args[2]
+                                   * (0 if ph is None else ph))
+            scale = lambda r: nrm(r["p"]) * nrm(A(
+                r["p"], comb(arg(3, "r_top"), arg(5, "p_top")),
+                comb(arg(4, "r_bot"), arg(6, "p_bot"))))
+        elif mode == "gram2":
+            got, ref, keys = (got,), (ref,), ("gram",)
+            scale = lambda r: gram_scales(torch, T, args[0], args[1], kw)
+        else:
+            keys = ("x", "r", "p", "gram")
+            scale = lambda r: gram_scales(torch, T, r["r"], r["p"], kw)
+        got, ref = dict(zip(keys, got)), dict(zip(keys, ref))
+        worst = share = 0.0
+        for key, want in ref.items():
+            # on the card: only scalars come back to the host
+            err = (got[key].double() - want.double()).abs()
+            if key in ("dot", "gram"):
+                bound = 1e-4 * torch.as_tensor(
+                    scale(ref), dtype=torch.float64).to(err.device)
+            else:
+                bound = 1e-5 * want.abs().max().double()
+            ok = bool((err <= bound).all())
+            ratio = torch.where(err == 0, torch.zeros_like(err), err / bound)
+            worst = max(worst, err.max().item())
+            share = max(share, ratio.max().item())
+            if not ok:
+                self.bad.append((mode, key, err.max().item()))
+        self.calls[mode] = self.calls.get(mode, 0) + 1
+        self.worst[mode] = max(self.worst.get(mode, 0.0), worst)
+        self.share[mode] = max(self.share.get(mode, 0.0), share)
+
+
+def pieces_path(torch, np, T, TB, T3, TB3, lt, device):
+    """Phase 4j: the 2-D 5-point Laplacian at 4096^2, f32, b = 1, x0 = 0,
+    through ``entry.build_system(..., mesh=make_mesh(S, devices=[card] *
+    S))``.  The matvec at S = 4 and 8 against one piece on one random x,
+    within 4 eps max|x| sum|v_k| (one K3 ``y`` per piece).  Each run of
+    PIECE_RUNS: solve(200) with its launches exactly S times one piece's,
+    ``cg2_coeffs`` as often as on one piece (one per pass), no plain
+    version called, the history and x within twice textbook f32 CG's
+    distance from float64 CG (phase 4's rule), a repeat bit for bit, and
+    the distance from the one-piece solve reported.  Then the CLI's
+    ``-dim 2 -solver 1 -vp 4`` (its launches exactly 4x one piece's per
+    solve plus the compute ceiling's).  The matvec and each solve are also
+    run under :class:`shadowed`, every launch held to its plain version on
+    the same inputs, and each solve driven by the plain versions (its
+    twin).  Returns (launches by kernel name, the same in whole-grid
+    launches (a launch on one of S pieces counts 1/S), results, {run:
+    (solver, one-piece solver)}, failed checks); the CLI's launches stay in
+    the results."""
+    from legionsolvers_tpu_torch import benchmark
+    from legionsolvers_tpu_torch.entry import build_system
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    modules = (T, TB, T3, TB3)
+    mesh = lambda S: make_mesh(S, devices=[device] * S)
+    launches, grid, results, solvers, checks = {}, {}, {}, {}, {}
+
+    def add(counts, S):
+        for m, n in counts.items():
+            launches[m] = launches.get(m, 0) + n
+            grid[m] = grid.get(m, 0.0) + n / S
+
+    # the matvec on pieces against one piece
+    one = build_system(N_GRID, f32, device)
+    gen = torch.Generator(device).manual_seed(PIECE_SEED)
+    x = torch.rand((N_GRID, N_GRID), generator=gen, device=device)
+    y1 = one.row_partitioned_matrices[0][0].matvec(x)
+    bound = 4 * torch.finfo(torch.float32).eps * x.abs().max().item() * sum(
+        abs(v) for v in VALS)
+    for S in (4, 8):
+        op = build_system(N_GRID, f32, mesh=mesh(S)).row_partitioned_matrices[
+            0][0]
+        torch.cuda.synchronize()
+        T.reset_launch_counts()
+        yS = op.matvec(x)
+        torch.cuda.synchronize()
+        got = dict(T.LAUNCHES)
+        T.reset_launch_counts()
+        err = (yS - y1).abs().max().item()
+        checks[f"matvec on {S} pieces within {bound:.3g} of one piece"] = (
+            err <= bound and got == {"y": S})
+        add(got, S)
+        with shadowed(T) as sh:
+            op.matvec(x)
+        torch.cuda.synchronize()
+        T.reset_launch_counts()
+        checks[f"matvec on {S} pieces: each K3 y equals its plain version "
+               "on the same inputs"] = not sh.bad and sh.calls == {"y": S}
+        results[f"matvec {S} pieces"] = {
+            "max_abs_err": err, "bound": bound, "launches": got,
+            "kernel vs plain": sh.worst, "share of bound": sh.share,
+            "out of bounds": sh.bad}
+        log(f"[pieces] matvec on {S} pieces: max |y_S - y_1| {err:.3g} "
+            f"(bound {bound:.3g}); launches {got}; each launch against its "
+            f"plain version: max abs err {sh.worst}, share of bound "
+            f"{sh.share}, out of bounds {sh.bad}")
+        del op, yS
+    del x, y1
+
+    h64, x64 = classic_cg(torch, (N_GRID, N_GRID), N_ITERS, torch.float64,
+                          device)
+    h32, x32 = classic_cg(torch, (N_GRID, N_GRID), N_ITERS, torch.float32,
+                          device)
+    textbook = (max_rel(h32, h64), x_rel(x32, x64))
+    del x32
+    single = lt.CGSolver(one)
+    one_twin = {}
+    for name, (S, env) in PIECE_RUNS.items():
+        solver = lt.CGSolver(build_system(N_GRID, f32, mesh=mesh(S)))
+        solvers[name] = (solver, single)
+        with env_route(env, solver, single):
+            h1, (x1,), c1, p1, k1 = block_run(torch, T, single, modules)
+            h, (xs,), c, p, k = block_run(torch, T, solver, modules)
+            h2, (xs2,), c2, _, _ = block_run(torch, T, solver, modules)
+        with env_route(env, solver), shadowed(T, solver) as sh:
+            restart(solver)
+            solver.solve(N_ITERS)
+            torch.cuda.synchronize()
+        T.reset_launch_counts()
+        with env_route(env, solver), plain_driven(T, solver, cg_plain(T)):
+            hp, (xp,), cp, _, _ = block_run(torch, T, solver, modules)
+        if env not in one_twin:
+            with env_route(env, single), plain_driven(T, single,
+                                                      cg_plain(T)):
+                ho, (xo,), _, _, _ = block_run(torch, T, single, modules)
+            one_twin[env] = (max_rel(ho, h64), x_rel(xo, x64))
+            del xo
+        want = {m: S * n for m, n in PIECE_ONE_LAUNCHES[env].items()}
+        env_f64 = (max_rel(h, h64), x_rel(xs, x64))
+        twin_f64 = (max_rel(hp, h64), x_rel(xp, x64))
+        res = {"launches": c, "launches one piece": c1,
+               "cg2_coeffs": k, "cg2_coeffs one piece": k1,
+               "plain calls": p + p1, "vs_f64": env_f64,
+               "vs_f64 textbook f32": textbook,
+               "vs one piece": (max_rel(h, h1), x_rel(xs, x1)),
+               "kernel vs plain per launch": sh.worst,
+               "share of bound per launch": sh.share,
+               "out of bounds": sh.bad, "twin vs_f64": twin_f64,
+               "one-piece twin vs_f64": one_twin[env],
+               "vs plain-driven twin": (max_rel(h, hp), x_rel(xs, xp)),
+               "hist_last": (h[-1].item(), h1[-1].item())}
+        chk = {
+            f"launches exactly {want}": c == want == c2
+            and c1 == PIECE_ONE_LAUNCHES[env],
+            "cg2_coeffs as often as one piece": k == k1,
+            "no plain version called": p + p1 == 0,
+            "history and x within twice textbook f32's distance from "
+            "float64": bool(torch.isfinite(h).all())
+            and env_f64[0] <= 2 * textbook[0]
+            and env_f64[1] <= 2 * textbook[1],
+            "a repeat bit for bit": same_bits(h2, h) and same_bits(xs2, xs),
+            "every launch equals its plain version on the same inputs "
+            "(phase 3's bounds)": not sh.bad and sh.calls == want,
+            "the plain-driven twin launches no kernel": cp == {}
+            and bool(torch.isfinite(hp).all()),
+        }
+        for kk, ok in chk.items():
+            checks[f"{name}: {kk}"] = ok
+        res["checks"] = chk
+        results[name] = res
+        add(c, S)
+        log(f"[pieces] {name}: launches {c} (one piece {c1}); cg2_coeffs "
+            f"{k} / {k1}; against float64 CG (history, x) "
+            f"{env_f64[0]:.3g} {env_f64[1]:.3g} (textbook f32 "
+            f"{textbook[0]:.3g} {textbook[1]:.3g}; plain-driven twin "
+            f"{twin_f64[0]:.3g} {twin_f64[1]:.3g}; one piece's twin "
+            f"{one_twin[env][0]:.3g} {one_twin[env][1]:.3g}); against one "
+            f"piece "
+            f"{res['vs one piece'][0]:.3g} {res['vs one piece'][1]:.3g}; "
+            f"against the twin {res['vs plain-driven twin'][0]:.3g} "
+            f"{res['vs plain-driven twin'][1]:.3g}; each launch against its "
+            f"plain version: max abs err {sh.worst}, share of bound "
+            f"{sh.share}; checks "
+            + "; ".join(f"{kk} {ok}" for kk, ok in chk.items()))
+        del xs, xs2, x1, xp
+
+    # the CLI on 4 pieces
+    T.reset_launch_counts()
+    out = benchmark.main(PIECE_CLI, bw=copy_bandwidth(torch, device))
+    torch.cuda.synchronize()
+    got = {m: n for m, n in T.LAUNCHES.items() if not m.startswith("chain_")}
+    T.reset_launch_counts()
+    runs = benchmark.RUNS
+    solves = {kk: n for kk, n in runs.items() if isinstance(kk, int)}
+    want = {"step2": 4 * sum(n * (kk // 2) for kk, n in solves.items())
+            + runs["step2_ceiling"],
+            "gram2": 4 * sum(n * max(1, -(-(kk // 2) // 16))
+                             for kk, n in solves.items())}
+    checks["the CLI's -vp 4: report, schedule and launches"] = (
+        out["pieces"] == 4 and out["schedule"] == "fused2d_x2"
+        and math.isfinite(out["final_residual2"]) and got == want)
+    results["cli -vp 4"] = {k: out[k] for k in (
+        "ms_per_iter", "gnnz_per_s", "pct_roofline", "final_residual2",
+        "schedule")}
+    results["cli -vp 4"]["launches"] = got
+    log(f"[pieces] CLI -vp 4: {results['cli -vp 4']}; launches {got} "
+        f"(expected {want})")
+    failed = [kk for kk, ok in checks.items() if not ok]
+    log(f"[pieces] checks: {len(checks) - len(failed)} of {len(checks)} "
+        "hold" + (f"; FAILED: {failed}" if failed else ""))
+    return launches, grid, results, solvers, failed
+
+
+def time_piece_solves(torch, solvers, bw, card):
+    """Phase 5j, the timings: for each run of PIECE_RUNS, ms/iter (CUDA
+    events, the better of two solve(200)s after a warm-up) and host enqueue
+    ms/iter of the solve on pieces and of the one-piece solve in the same
+    process, and the torch glue operations per pass (a K1 pass of two
+    iterations, or one two-pass iteration) counted on the host
+    (:class:`glue_ops`).  {run: {...}}."""
+    out = {}
+    nbytes = {None: (24 * (N_ITERS // 2) + 8 * 7) * N_GRID * N_GRID,
+              "LEGIONSOLVERS_NO_SSTEP": (24 + 32 * (N_ITERS - 1))
+              * N_GRID * N_GRID}
+    for name, (solver, single) in solvers.items():
+        S, env = PIECE_RUNS[name]
+        row = {}
+        with env_route(env, solver, single):
+            for label, slv in (("pieces", solver), ("one piece", single)):
+                ms, host = solve_ms(torch, slv, N_ITERS)
+                sane(f"{name} {label} solve", ms, nbytes[env], bw)
+                restart(slv)
+                torch.cuda.synchronize()
+                with glue_ops() as glue:
+                    slv.solve(N_ITERS)
+                torch.cuda.synchronize()
+                per = N_ITERS // 2 if env is None else N_ITERS
+                row[label] = {"ms/iter": ms / N_ITERS,
+                              "host ms/iter": host / N_ITERS,
+                              "glue ops per pass": glue.total / per,
+                              "glue ops by name": glue.ops}
+        out[name] = row
+        log(f"[time] {name} solve({N_ITERS}): "
+            + "; ".join(f"{lab} {r['ms/iter']:.4f} ms/iter, host enqueue "
+                        f"{r['host ms/iter']:.4f}, "
+                        f"{r['glue ops per pass']:.2f} torch glue ops per "
+                        f"pass" for lab, r in row.items()) + f" on {card}")
+    return out
+
+
+def wrapper_host_us(torch, T, device, card, reps=200, rounds=3):
+    """Phase 5j: the host's enqueue time, in µs, of one call of each
+    wrapper that the solves on pieces call per piece (K1, K4, K3 update),
+    on one piece of 4 (1024 x 4096 rows) and on the whole 4096^2 grid:
+    ``reps`` calls back to back on the host clock until the last returns
+    (the card runs behind; its queue does not fill), the least of
+    ``rounds`` such runs.  {wrapper: {"piece": µs, "whole": µs}}."""
+    out = {}
+    gen = torch.Generator(device).manual_seed(PIECE_SEED)
+    for label, rows in (("piece", N_GRID // 4), ("whole", N_GRID)):
+        x, r, p, o1, o2 = (torch.rand((rows, N_GRID), generator=gen,
+                                      device=device) for _ in range(5))
+        coef = T.cg2_coeffs(T.grid2d_cg_gram2(r, p, **KW))[0]
+        beta = torch.tensor(0.5, device=device)
+        alpha = torch.tensor(1e-3, device=device)
+        fns = {"step2": lambda: T.grid2d_cg_step2(x, r, p, coef,
+                                                  out=(o1, o2), **KW),
+               "xpay_pq": lambda: T.grid2d_cg_xpay_pq(r, p, beta, out=o1,
+                                                      **KW),
+               "update": lambda: T.grid2d_cg_update(p, x, r, alpha, **KW)}
+        for name, fn in fns.items():
+            fn()
+            best = math.inf
+            for _ in range(rounds):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                best = min(best, (time.perf_counter() - t0) / reps * 1e6)
+            torch.cuda.synchronize()
+            out.setdefault(name, {})[label] = best
+        del x, r, p, o1, o2
+    log("[time] host enqueue per wrapper call, µs (one piece of 4; whole "
+        "4096^2): " + "; ".join(f"{k} {v['piece']:.1f}, {v['whole']:.1f}"
+                                for k, v in out.items()) + f" on {card}")
+    return out
+
+
+def glue_host_us(times, wrappers):
+    """The host µs per torch glue operation that the enqueue times imply:
+    (host µs per pass - the wrapper calls' µs) / glue operations per pass,
+    for each solve on pieces and on one piece."""
+    calls = {None: ("step2",), "LEGIONSOLVERS_NO_SSTEP": ("xpay_pq",
+                                                          "update")}
+    per_pass = {None: 2, "LEGIONSOLVERS_NO_SSTEP": 1}
+    for name, row in times.items():
+        S, env = PIECE_RUNS[name]
+        for label, pieces in (("pieces", S), ("one piece", 1)):
+            r = row[label]
+            host_us = r["host ms/iter"] * per_pass[env] * 1e3
+            key = "piece" if pieces > 1 else "whole"
+            wrap_us = pieces * sum(wrappers[c][key] for c in calls[env])
+            r["host µs per glue op"] = ((host_us - wrap_us)
+                                        / r["glue ops per pass"])
+    log("[time] implied host µs per torch glue operation: " + "; ".join(
+        f"{name}: pieces {row['pieces']['host µs per glue op']:.2f}, one "
+        f"piece {row['one piece']['host µs per glue op']:.2f}"
+        for name, row in times.items()))
+    return times
+
+
+def profile_piece_solves(torch, solvers, times, card):
+    """Phase 5j, the traces (after every timing: the tracer slows later
+    launches): each solve's idle share, 1 - profiler device time over the
+    unprofiled wall of :func:`time_piece_solves`, on pieces and on one
+    piece."""
+    for name, (solver, single) in solvers.items():
+        env = PIECE_RUNS[name][1]
+        for label, slv in (("pieces", solver), ("one piece", single)):
+            row = times[name][label]
+            with env_route(env, slv):
+                dev = profile_solve(
+                    torch, slv, "pieces_" + name.replace(" ", "_").replace(
+                        ",", "") + ("" if label == "pieces" else "_one"),
+                    card, row["ms/iter"] * N_ITERS)
+            row["device ms/iter"] = dev / N_ITERS
+            row["idle"] = 1 - row["device ms/iter"] / row["ms/iter"]
+        log(f"[time] {name}: idle " + "; ".join(
+            f"{lab} {100 * r['idle']:.1f}% (device {r['device ms/iter']:.4f}"
+            f" ms/iter)" for lab, r in times[name].items()) + f" on {card}")
+    return times
+
+
 # --breakdown: right-hand sides b = 1 (phase 4d's or 4b's) and b = 1 + eps
 # z, z standard normal from seeds 1 .. BREAKDOWN_RHS - 1; f32 histories
 # over BREAKDOWN_ITERS iterations, to see breakdowns past N_ITERS
@@ -3968,22 +4468,29 @@ def breakdown(torch, lt, device, card, dim=3, n=N_GRID):
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
-               nflops, bw, library_ms=None, op_rate=F32_PEAK):
+               nflops, bw, library_ms=None, op_rate=F32_PEAK,
+               grid_launches=None):
     """One entry of the kernels line: bound_ms is the larger of the bytes
     over the measured copy bandwidth and the operations over their peak
     rate (``op_rate``: the card's f32 peak, or K11 roll's and row's
     shared-memory steps per second); pct_of_bound is bound_ms over ms;
-    ms_lost is launches x (ms - bound_ms), over the main path's
-    launches."""
+    ms_lost is launches x (ms - bound_ms), over the main path's launches
+    in whole-grid launches (``grid_launches``, where launches on pieces
+    count 1/S each; default ``launches``)."""
     t_bytes = nbytes / bw * 1e3
     t_ops = nflops / op_rate * 1e3
     bound = max(t_bytes, t_ops)
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, "pct_of_bound": 100 * bound / ms,
-            "ms_lost": launches * (ms - bound)}
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": library_ms, "pct_of_bound": 100 * bound / ms}
+    if grid_launches is None:
+        grid_launches = launches
+    else:
+        row["whole_grid_launches"] = grid_launches
+    row["ms_lost"] = grid_launches * (ms - bound)
+    return row
 
 
 def main() -> int:
@@ -4051,6 +4558,18 @@ def main() -> int:
             str(k): v for k, v in blk_launches.items()},
             "paths": blk_results, "times": times}, default=str))
         return 1 if failed else 0
+    if "--pieces" in argv:
+        pc_launches, _, pc_results, pc_solvers, failed = pieces_path(
+            torch, np, T, TB, T3, TB3, lt, device)
+        times = time_piece_solves(torch, pc_solvers,
+                                  copy_bandwidth(torch, device), card)
+        wrappers = wrapper_host_us(torch, T, device, card)
+        glue_host_us(times, wrappers)
+        profile_piece_solves(torch, pc_solvers, times, card)
+        log(json.dumps({"card": card, "launches": pc_launches,
+                        "paths": pc_results, "times": times,
+                        "wrapper host us": wrappers}, default=str))
+        return 1 if failed else 0
     if "--breakdown" in argv:
         dim = int(argv[argv.index("--dim") + 1]) if "--dim" in argv else 3
         n = (int(argv[argv.index("--size") + 1]) if "--size" in argv
@@ -4090,6 +4609,10 @@ def main() -> int:
         torch, T, TB, T3, TB3, lt, device)
     failed += f
     mark("phase 4i")
+    pc_launches, pc_grid, pc_results, pc_solvers, f = pieces_path(
+        torch, np, T, TB, T3, TB3, lt, device)
+    failed += f
+    mark("phase 4j")
     systems = {name: build_explicit(torch, np, lt, name, device)
                for name in EXPLICIT}
     errs_x = compare_explicit_kernels(torch, np, lt, T, systems, device)
@@ -4136,8 +4659,13 @@ def main() -> int:
     rates = time_rates(torch, device, card)
     cli_report = report_cli(torch, cli_results, probes, device, bw, card)
     mark("phase 5h")
+    piece_times = time_piece_solves(torch, pc_solvers, bw, card)
+    piece_wrappers = wrapper_host_us(torch, T, device, card)
+    glue_host_us(piece_times, piece_wrappers)
     block_times = time_block_solves(torch, blk_solvers, bw, card)
     mark("phase 5i")
+    profile_piece_solves(torch, pc_solvers, piece_times, card)
+    mark("phase 5j")
     if "--profile" in sys.argv[1:]:  # last: tracing slows later launches
         profile_solve(torch, bsolver, "bicgstab_2d", card)
         for (kind3, dim), slv in solvers3.items():
@@ -4166,9 +4694,16 @@ def main() -> int:
                    + counts_x["bicgstab", "random"].get("blockperm", 0)))
     launches.update({m: counts_h.get(m, 0) for m in (
         "chain_fma", "chain_roll", "chain_row", "copy_probe")})
-    # the block path's launches (phase 4i), K1-K7 per space
+    # the block path's launches (phase 4i), K1-K7 per space, and the
+    # pieces' (phase 4j), K1-K4 per piece; ms_lost takes a launch on one of
+    # S pieces as 1/S of a whole-grid launch
+    grid_launches = dict(launches)
     for m, c in blk_launches.items():
         launches[m] = launches.get(m, 0) + c
+        grid_launches[m] = grid_launches.get(m, 0) + c
+    for m, c in pc_launches.items():
+        launches[m] = launches.get(m, 0) + c
+        grid_launches[m] = grid_launches.get(m, 0) + pc_grid[m]
     missing = [m for m, c in launches.items() if not c]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "
@@ -4178,7 +4713,8 @@ def main() -> int:
         f"{KERNELS[m][0]} [{m}]", CSRC, f"{PALLAS}:{KERNELS[m][1]}",
         launches[m], errs[m], ktimes[m][0], ktimes[m][1],
         KERNELS[m][2] * n2, ops_per_elt(m, len(OFFS)) * n2, bw,
-        conv2d_ms if m == "y" else None) for m in KERNELS]
+        conv2d_ms if m == "y" else None, grid_launches=grid_launches[m])
+        for m in KERNELS]
     for m, row in zip(KERNELS, kernels):
         row["graph_ms"] = ktimes[m][2]
     kernels += [kernel_row(
@@ -4285,6 +4821,8 @@ def main() -> int:
                                 ktimes_x.items()},
                   **extra_x},
               "block": {"paths": blk_results, "times": block_times},
+              "pieces": {"paths": pc_results, "times": piece_times,
+                         "wrapper_host_us": piece_wrappers},
               "cli": {"stream_GBps": cli_bw / 1e9, "runs": cli_results,
                       "checks": cli_checked, "probes": probes,
                       "k11_rates_events": rates, **cli_report}}

@@ -11,8 +11,12 @@ passes are hand-written CUDA kernels for Hopper (``ops/cuda/``,
 ``csrc/``), block-diagonal multi-space systems on the same kernels
 (``parallel/block_fused.py``), the systems of ``entry.py`` and the
 benchmark CLI (``benchmark.py``) with its timing, traffic and op-rate
-roofline (``utils/``).  Not ported yet: sharding.  The package imports
-torch, numpy and scipy, never jax.
+roofline (``utils/``), and pieces: a mesh of shards on one device
+(``parallel/mesh.py``) on which the 2-D stencil CG runs its kernels per
+piece with the JAX package's edge fix-ups (``parallel/overlap.py``,
+``parallel/sstep_sharded.py``).  Not ported yet: meshes over several
+devices, and the other solvers, 3-D stencils and explicit matrices on
+pieces.  The package imports torch, numpy and scipy, never jax.
 """
 
 from .options import DEFAULT_OPTIONS, SolverOptions, resolve_device
@@ -28,6 +32,7 @@ from .core.matrix import (
 from .parallel.dia_op import DiaOperator
 from .parallel.distmatrix import RowPartitionedMatrix
 from .parallel.genspmv import GeneralSpmvOperator
+from .parallel.mesh import make_mesh, num_shards, single_device_mesh
 from .parallel.reorder import ReorderedOperator
 from .parallel.stencil_op import StencilOperator
 from .parallel.winell_op import SlicedWinEllOperator, WinEllOperator

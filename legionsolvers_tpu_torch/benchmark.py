@@ -14,11 +14,16 @@ kernel already beat is discarded, never printed as over 100%.
 Runs on the card unless ``--device`` names another.  ``--block`` solves
 the reference's 2-space block system (the same operator registered on
 each space) on the per-space kernel passes of
-``parallel/block_fused.py``.  What the JAX CLI does and the port cannot
-yet do raises ``NotImplementedError``: ``-vp`` > 1 (sharding, item 5),
-``--consume-rhs`` (the 3-live-vector CG schedule, item 6) and ``--dtype
-bfloat16`` (no bf16 oracle, fault F2).  ``-dim 1`` runs the linearized
-torch path: the 1-D kernel view is not ported (item 3).
+``parallel/block_fused.py``.  ``-vp N`` (N > 1) partitions the system into
+N pieces on a mesh of N shards on the one device
+(``make_mesh(N, devices=[device] * N)``), for CG on ``-dim 1`` and ``-dim
+2``.  What the JAX CLI does and the port cannot yet do raises
+``NotImplementedError`` and names the ROADMAP item that ports it: ``-vp``
+> 1 with ``-dim 3``/``4`` (item 5b), with BiCGStab, GMRES or PCG (item
+5c) or with ``--block`` (item 5f), ``--consume-rhs`` (the 3-live-vector
+CG schedule, item 6) and ``--dtype bfloat16`` (no bf16 oracle, fault F2).
+``-dim 1`` runs the linearized torch path: the 1-D kernel view is not
+ported (item 3).
 
 Usage:  python -m legionsolvers_tpu_torch.benchmark -dim 2 -nx 4096 -ny 4096 -it 200
 """
@@ -42,11 +47,12 @@ NAMES = {1: "CG", 2: "BiCGStab", 3: "GMRES({restart})", 4: "PCG(Jacobi)"}
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
-def build_planner(args, options, device):
-    """(planner, unknowns, nnz) of the one-piece system b = 1, x0 = 0 on
-    ``-dim``'s Laplacian, as ``entry.build_stencil_system`` builds it; with
-    ``--block`` the operator is registered on each of two spaces, and the
-    unknowns and nnz count both."""
+def build_planner(args, options, device, mesh=None):
+    """(planner, unknowns, nnz) of the system b = 1, x0 = 0 on ``-dim``'s
+    Laplacian in ``-vp`` pieces on ``mesh``, as
+    ``entry.build_stencil_system`` builds it; with ``--block`` the operator
+    is registered on each of two spaces, and the unknowns and nnz count
+    both."""
     from .entry import build_stencil_system
     from .problems.stencil import (
         calculate_stencil_size,
@@ -58,7 +64,7 @@ def build_planner(args, options, device):
     shape = tuple([args.nx, args.ny, args.nz][:nd])
     num_spaces = 2 if args.block else 1
     planner = build_stencil_system(args.dim, shape, options, device,
-                                   num_spaces)
+                                   num_spaces, pieces=args.vp, mesh=mesh)
     nnz = calculate_stencil_size(shape, laplacian_stencil(args.dim))
     return planner, int(np.prod(shape)) * num_spaces, nnz * num_spaces
 
@@ -92,8 +98,19 @@ def make_parser():
 
 def _refuse_unported(args) -> None:
     if args.vp > 1:
-        raise NotImplementedError(
-            f"-vp {args.vp}: sharding is not ported (ROADMAP item 5)")
+        if args.dim > 2:
+            raise NotImplementedError(
+                f"-vp {args.vp} -dim {args.dim}: 3-D stencils on pieces are "
+                "not ported (ROADMAP item 5b)")
+        if args.solver != 1:
+            raise NotImplementedError(
+                f"-vp {args.vp} -solver {args.solver}: only CG runs on "
+                "pieces; the other solvers' sharded paths are ROADMAP item "
+                "5c")
+        if args.block:
+            raise NotImplementedError(
+                f"-vp {args.vp} --block: the multi-piece block phases are "
+                "not ported (ROADMAP item 5f)")
     consume = args.consume_rhs or (args.solver == 1 and bool(
         os.environ.get("LEGIONSOLVERS_CONSUME_RHS")))
     if consume:
@@ -183,6 +200,7 @@ def main(argv=None, bw=None):
     JAX package's ``main`` (and prints its lines).  ``bw``: stream
     bandwidth in bytes/s measured beforehand (skips the probe)."""
     from .options import SolverOptions, resolve_device
+    from .parallel.mesh import make_mesh
     from .utils.roofline import solver_bytes_per_iteration
     from .utils.timing import measure_stream_bandwidth
 
@@ -197,7 +215,9 @@ def main(argv=None, bw=None):
               "kernel view is not ported (ROADMAP item 3)", file=sys.stderr)
 
     options = SolverOptions(entry_dtype=DTYPES[args.dtype])
-    planner, n, nnz = build_planner(args, options, device)
+    mesh = (make_mesh(args.vp, devices=[device] * args.vp) if args.vp > 1
+            else None)
+    planner, n, nnz = build_planner(args, options, device, mesh)
     solver = make_solver(args, planner)
     bytes_per_iter, schedule = solver_bytes_per_iteration(solver, n)
     print(f"[bench] schedule: {schedule} "

@@ -1,4 +1,4 @@
-"""Single-device block-partitioned vectors.
+"""Block-partitioned vectors.
 
 Port of ``legionsolvers_tpu/core/vector.py`` (reference:
 PartitionedVector.hpp:13-134).  A :class:`PartitionedVector` owns one padded
@@ -7,7 +7,11 @@ layout (``grid_shape``, for stencil problems).  BLAS-1 methods rebind
 ``data`` to a new tensor, as the JAX methods do; in-place updates happen
 only inside the fused CG runners, on buffers the solver owns.
 
-Sharding is not ported yet: a non-``None`` ``mesh`` raises.
+On a mesh (``parallel/mesh.py``) the tensor stays one padded tensor on the
+mesh's one device: piece ``s`` is the row block ``[s * B, (s + 1) * B)``
+(in grid layout rows ``[s * Br, (s + 1) * Br)``), a contiguous view.  A
+mesh over several distinct devices raises NotImplementedError (ROADMAP §1
+item 5g).
 """
 
 from __future__ import annotations
@@ -17,8 +21,9 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..options import DEFAULT_OPTIONS, SolverOptions, resolve_device
+from ..options import DEFAULT_OPTIONS, SHARD_AXIS, SolverOptions
 from ..ops import blas1
+from ..parallel.mesh import NamedSharding, resolve_mesh
 from .partition import BlockPartition
 from .scalar import Scalar, alpha_from_scalars
 
@@ -53,15 +58,10 @@ class PartitionedVector:
         """``grid_shape``: optional N-D layout, which requires an unpadded
         partition whose size it covers exactly.  ``lazy``: materialize the
         zero buffer on first read instead of now."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded vectors are not ported to the torch package yet"
-            )
         self.name = name
         self.partition = partition
-        self.mesh = None
+        self.mesh, self.device = resolve_mesh(mesh, partition, device)
         self.options = options
-        self.device = resolve_device(device)
         if grid_shape is not None:
             grid_shape = tuple(int(d) for d in grid_shape)
             if int(np.prod(grid_shape)) != partition.padded_size:
@@ -109,10 +109,20 @@ class PartitionedVector:
     def n(self) -> int:
         return self.partition.n
 
+    @property
+    def sharding(self) -> Optional[NamedSharding]:
+        """The block partition of axis 0 over the mesh's shard axis, or
+        None without a mesh."""
+        if self.mesh is None:
+            return None
+        ndim = len(self.grid_shape) if self.grid_shape is not None else 1
+        return NamedSharding(self.mesh, (SHARD_AXIS,) + (None,) * (ndim - 1))
+
     def like(self, name: str) -> "PartitionedVector":
-        """Fresh zero vector over the same partition, layout and device."""
+        """Fresh zero vector over the same partition, mesh, layout and
+        device."""
         return PartitionedVector(
-            name, self.partition, options=self.options,
+            name, self.partition, mesh=self.mesh, options=self.options,
             grid_shape=self.grid_shape, device=self.device,
         )
 
@@ -127,7 +137,8 @@ class PartitionedVector:
         grid_shape: Optional[tuple] = None,
         device=None,
     ) -> "PartitionedVector":
-        """Build from a host array of length ``n`` (pads with zeros)."""
+        """Build from a host array of length ``n`` (pads with zeros), on
+        ``mesh``'s device when a mesh is given."""
         values = np.asarray(values).reshape(-1)
         if values.shape != (partition.n,):
             raise ValueError(
@@ -195,9 +206,9 @@ class PartitionedVector:
         arrays are immutable, so its copy may share them; torch tensors are
         updated in place, so this one clones)."""
         return PartitionedVector(
-            name or self.name, self.partition, data=self.data.clone(),
-            options=self.options, grid_shape=self.grid_shape,
-            device=self.device,
+            name or self.name, self.partition, mesh=self.mesh,
+            data=self.data.clone(), options=self.options,
+            grid_shape=self.grid_shape, device=self.device,
         )
 
     # -- BLAS-1 (reference: PartitionedVector.cpp:196-358) ------------------

@@ -1,14 +1,17 @@
 """Entry points of the port's main paths.
 
 :func:`build_stencil_system` mirrors ``legionsolvers_tpu.benchmark
-.build_planner`` with one piece: the benchmark's ``-dim`` selector (1: 1-D
-3-point, 2: 2-D 5-point, 3: 3-D 7-point, 4: 3-D 27-point negative
-Laplacian) on the given grid, b = 1 and x0 = 0, with the vectors in their
-grid layout whenever the operator's kernel view is active; with
-``num_spaces`` > 1 the block system of ``--block``, the same operator
-registered once per space (reference: BenchmarkStencil.cpp:201-207).
-:func:`build_system` is its 2-D square case, as
-``__graft_entry__._build_system`` builds it for one device.
+.build_planner``: the benchmark's ``-dim`` selector (1: 1-D 3-point, 2:
+2-D 5-point, 3: 3-D 7-point, 4: 3-D 27-point negative Laplacian) on the
+given grid, b = 1 and x0 = 0, with the vectors in their grid layout
+whenever the operator's kernel view is active; with ``num_spaces`` > 1 the
+block system of ``--block``, the same operator registered once per space
+(reference: BenchmarkStencil.cpp:201-207).  ``pieces`` and ``mesh``
+partition the system as the JAX CLI's ``-vp`` does: a mesh from
+``parallel/mesh.make_mesh`` (all of its shards on one device) runs the
+operator on its pieces.  :func:`build_system` is its 2-D square case, as
+``__graft_entry__._build_system(n_grid, mesh, pieces, options)`` builds
+it.
 :func:`build_explicit_system` is the explicit-matrix counterpart of
 ``scripts/bench_explicit.py``: one piece, flat vectors, b = 1, x0 = 0,
 the planner choosing the operator (DIA, a reordered windowed ELL or the
@@ -18,13 +21,14 @@ another device.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
 from .core.partition import BlockPartition
 from .core.vector import PartitionedVector
 from .options import DEFAULT_OPTIONS, SolverOptions, resolve_device
+from .parallel.mesh import num_shards, resolve_mesh
 from .parallel.stencil_op import StencilOperator
 from .planner import SquarePlanner
 from .problems.stencil import laplacian_stencil, stencil_grid_ndim
@@ -32,23 +36,29 @@ from .problems.stencil import laplacian_stencil, stencil_grid_ndim
 
 def build_stencil_system(dim: int, shape: Sequence[int],
                          options: SolverOptions = DEFAULT_OPTIONS,
-                         device=None, num_spaces: int = 1) -> SquarePlanner:
+                         device=None, num_spaces: int = 1,
+                         pieces: Optional[int] = None,
+                         mesh=None) -> SquarePlanner:
+    """``pieces`` defaults to the mesh's shard count (1 without a mesh);
+    the device to the mesh's (the card without a mesh)."""
     shape = tuple(int(s) for s in shape)
     if len(shape) != stencil_grid_ndim(dim):
         raise ValueError(f"-dim {dim} needs a {stencil_grid_ndim(dim)}-D "
                          f"grid, got {shape}")
-    device = resolve_device(device)
-    part = BlockPartition(int(np.prod(shape)), 1)
+    if pieces is None:
+        pieces = num_shards(mesh) if mesh is not None else 1
+    part = BlockPartition(int(np.prod(shape)), pieces)
+    mesh, device = resolve_mesh(mesh, part, device)
     op = StencilOperator(shape, laplacian_stencil(dim), partition=part,
-                         options=options, device=device)
+                         mesh=mesh, options=options, device=device)
     gs = shape if op.uses_pallas else None
-    planner = SquarePlanner(options=options, device=device)
+    planner = SquarePlanner(mesh=mesh, options=options, device=device)
     for i in range(num_spaces):
-        sol = PartitionedVector(f"sol{i}", part, options=options,
+        sol = PartitionedVector(f"sol{i}", part, mesh=mesh, options=options,
                                 grid_shape=gs, device=device, lazy=True)
         planner.add_sol_vector(sol)
     for i in range(num_spaces):
-        rhs = PartitionedVector(f"rhs{i}", part, options=options,
+        rhs = PartitionedVector(f"rhs{i}", part, mesh=mesh, options=options,
                                 grid_shape=gs, device=device)
         rhs.constant_fill(1.0)
         planner.add_rhs_vector(rhs)
@@ -58,8 +68,10 @@ def build_stencil_system(dim: int, shape: Sequence[int],
 
 
 def build_system(n_grid: int, options: SolverOptions = DEFAULT_OPTIONS,
-                 device=None) -> SquarePlanner:
-    return build_stencil_system(2, (n_grid, n_grid), options, device)
+                 device=None, pieces: Optional[int] = None,
+                 mesh=None) -> SquarePlanner:
+    return build_stencil_system(2, (n_grid, n_grid), options, device,
+                                pieces=pieces, mesh=mesh)
 
 
 def build_explicit_system(matrix, options: SolverOptions = DEFAULT_OPTIONS,

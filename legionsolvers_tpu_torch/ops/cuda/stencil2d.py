@@ -144,12 +144,16 @@ def _dot(a, b):
     return torch.sum(a * b, dtype=torch.float32)
 
 
-def stencil_plain(mode, x, halo_top, halo_bot, extra=(), *, offsets, values):
+def stencil_plain(mode, x, halo_top, halo_bot, extra=(), *, offsets, values,
+                  out=None):
     """The one-pass modes of K3 (see :func:`_stencil_call` for ``extra``).
     Returns ``(y,)``, ``(y, dot)``, ``(dot,)`` or ``(x', r', rr)``; the
-    update mode writes x' and r' into the given x and r."""
-    return mode_outputs(mode, x, apply_plain(x, offsets, values, halo_top,
-                                             halo_bot), extra)
+    update mode writes x' and r' into the given x and r, the y modes y
+    into ``out`` where given."""
+    y = apply_plain(x, offsets, values, halo_top, halo_bot)
+    if out is not None:
+        y = out.copy_(y)
+    return mode_outputs(mode, x, y, extra)
 
 
 def mode_outputs(mode, x, y, extra=()):
@@ -432,9 +436,11 @@ def _launch(name: str, fn: str, args, device) -> None:
 # ===========================================================================
 
 def _stencil_call(x, halo_top, halo_bot, extra=(), *, offsets, values,
-                  mode: str = "y"):
+                  mode: str = "y", out=None):
     """Shared driver of the K3 modes.  ``extra`` is () except for mode
-    ``update``, where it is (xv, rv, alpha) and x is the search direction p."""
+    ``update``, where it is (xv, rv, alpha) and x is the search direction p.
+    ``out``: where the y modes write y (a fresh buffer when ``None``; it may
+    not share storage with x)."""
     R, C = x.shape
     if not supports(R, C, offsets):
         raise ValueError(f"unsupported stencil geometry R={R} C={C}")
@@ -442,6 +448,12 @@ def _stencil_call(x, halo_top, halo_bot, extra=(), *, offsets, values,
     _check_halo("halo_top", halo_top, C)
     _check_halo("halo_bot", halo_bot, C)
     tensors = [x, halo_top, halo_bot]
+    if out is not None:
+        if mode not in ("y", "y_dot"):
+            raise ValueError(f"mode {mode!r} writes no y")
+        _check_grid("out", out, (R, C))
+        _check_distinct(("x", x), ("out", out))
+        tensors.append(out)
     if mode == "update":
         xv, rv, _ = extra
         _check_grid("xv", xv, (R, C))
@@ -450,9 +462,11 @@ def _stencil_call(x, halo_top, halo_bot, extra=(), *, offsets, values,
         tensors += [xv, rv]
     if not _on_cuda(*tensors):
         return stencil_plain(mode, x, halo_top, halo_bot, extra,
-                             offsets=offsets, values=values)
+                             offsets=offsets, values=values, out=out)
     dev = x.device
-    y = torch.empty_like(x) if mode in ("y", "y_dot") else None
+    y = None
+    if mode in ("y", "y_dot"):
+        y = torch.empty_like(x) if out is None else out
     xv = rv = alpha = None
     if mode == "update":
         xv, rv, alpha = extra
@@ -475,11 +489,13 @@ def _stencil_call(x, halo_top, halo_bot, extra=(), *, offsets, values,
 
 
 def grid2d_stencil_matvec(x, halo_top=None, halo_bot=None, *, offsets,
-                          values, with_dot: bool = False):
-    """y = A @ x (and optionally <x, y>) for the stencil {(dy, dx): v}."""
-    out = _stencil_call(x, halo_top, halo_bot, offsets=offsets,
-                        values=values, mode="y_dot" if with_dot else "y")
-    return out if with_dot else out[0]
+                          values, with_dot: bool = False, out=None):
+    """y = A @ x (and optionally <x, y>) for the stencil {(dy, dx): v}, y
+    written to ``out`` (a fresh buffer when ``None``)."""
+    res = _stencil_call(x, halo_top, halo_bot, offsets=offsets,
+                        values=values, mode="y_dot" if with_dot else "y",
+                        out=out)
+    return res if with_dot else res[0]
 
 
 def grid2d_cg_pq(p, halo_top=None, halo_bot=None, *, offsets, values):

@@ -27,7 +27,7 @@ INDEX_DTYPES = (torch.int32, torch.int64)
 MAX_DIM = 3
 
 # Name of the mesh axis over which vectors and matrices are block-partitioned
-# (the JAX package's; the multi-device port will name its axis so too).
+# (the JAX package's; ``parallel/mesh.Mesh`` names its one axis so).
 SHARD_AXIS = "shard"
 
 # Host-side validation (here: of the options' dtypes), on unless

@@ -38,10 +38,13 @@ history, everything else the kernels' float32.  A compensated dot
 a float64 sum; the cross-space sum of such dots is taken in float64 and
 rounded once, so the block sum adds no float32 rounding per space.
 
-Sharded spaces are not ported (ROADMAP item 5): on one piece every halo
-is the grid's zero boundary, so the JAX package's sharded edge fix-ups
-have nothing to do, and a multi-piece system raises NotImplementedError
-where they would run (:func:`_wrap`).
+Spaces of several pieces are not ported (ROADMAP §1 item 5f): on one
+piece every halo is the grid's zero boundary, so the JAX package's sharded
+edge fix-ups have nothing to do, and a multi-piece system raises
+NotImplementedError where they would run (:func:`_wrap`).  Reductions
+are summed over the spaces in space order by ``mesh.ordered_sum``, which
+the sharded runners of ``parallel/stencil_op.py`` use for their sums in
+piece order.
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ from __future__ import annotations
 import os
 
 import torch
+
+from .mesh import ordered_sum
 
 # ======================================================================
 # per-space phase builders
@@ -354,23 +359,14 @@ def _scalar_dtype(arrs):
     return torch.float32
 
 
-def _sum(parts, dtype, wide: bool = False):
-    """The cross-space sum of per-space reductions, in space order, in
-    ``dtype``; ``wide``: in float64, rounded to ``dtype`` once."""
-    acc = torch.float64 if wide else dtype
-    total = parts[0].to(acc)
-    for p in parts[1:]:
-        total = total + p.to(acc)
-    return total.to(dtype)
-
-
 def _wrap(ops, local_run):
     """The runner over per-space tuples: on one piece the loop itself.
-    Sharded spaces would need the JAX package's edge fix-ups and a mesh
-    (ROADMAP item 5)."""
+    Spaces of several pieces would run the JAX package's edge fix-ups in
+    every phase (ROADMAP §1 item 5f)."""
     if any(op.partition.num_pieces != 1 for op in ops):
         raise NotImplementedError(
-            "sharded block systems are not ported (ROADMAP item 5)")
+            "block systems whose spaces have several pieces: the "
+            "multi-piece block phases are not ported (ROADMAP §1 item 5f)")
     return local_run
 
 
@@ -421,11 +417,11 @@ def make_block_cg_runner(ops, num_iterations: int):
                 xs[s], rs[s], rr_s = phases[s].update(ps[s], xs[s], rs[s],
                                                       alpha, ctxs[s])
                 parts.append(rr_s)
-            return _sum(parts, sdt)
+            return ordered_sum(parts, sdt)
 
         # iteration 0 with the incoming p
         pqs, ctxs = zip(*(phases[s].prologue(ps[s]) for s in spaces))
-        rr_new = update_all(rr / _sum(pqs, sdt), ctxs)
+        rr_new = update_all(rr / ordered_sum(pqs, sdt), ctxs)
         hist.append(rr_new)
         for _ in range(1, num_iterations):
             rr_prev, rr = rr, rr_new
@@ -435,7 +431,7 @@ def make_block_cg_runner(ops, num_iterations: int):
                 ps[s], pq_s, ctx = phases[s].xpay_pq(rs[s], ps[s], beta)
                 pqs.append(pq_s)
                 ctxs.append(ctx)
-            rr_new = update_all(rr / _sum(pqs, sdt), ctxs)
+            rr_new = update_all(rr / ordered_sum(pqs, sdt), ctxs)
             hist.append(rr_new)
         return (_grid_out(phases, xs, refs), _grid_out(phases, rs, refs),
                 _grid_out(phases, ps, refs), torch.stack(hist))
@@ -465,7 +461,8 @@ def _make_block_step2_runner(ops, num_iterations: int):
         hist = [torch.as_tensor(rr0).to(device=xs[0].device, dtype=f32)]
 
         def gram_all():
-            return _sum([phases[s].gram(rs[s], ps[s]) for s in spaces], f32)
+            return ordered_sum([phases[s].gram(rs[s], ps[s])
+                                for s in spaces], f32)
 
         def passes(g, count):
             for _ in range(count):
@@ -475,7 +472,7 @@ def _make_block_step2_runner(ops, num_iterations: int):
                     xs[s], rs[s], ps[s], g_s = phases[s].step2(
                         xs[s], rs[s], ps[s], coef)
                     parts.append(g_s)
-                g = _sum(parts, f32)
+                g = ordered_sum(parts, f32)
                 hist.extend((rr1, g[0]))
             return g
 
@@ -496,7 +493,7 @@ def _make_block_step2_runner(ops, num_iterations: int):
                 xs[s], rs[s], rr_s = phases[s].odd_update(ps[s], xs[s],
                                                           rs[s], alpha)
                 parts.append(rr_s)
-            rr_new = _sum(parts, f32)
+            rr_new = ordered_sum(parts, f32)
             hist.append(rr_new)
             bb = rr_new / g[0]
             for s in spaces:
@@ -527,7 +524,7 @@ def make_block_bicgstab_runner(ops, num_iterations: int):
         for ph, r, p, v in zip(phases, rs, ps, vs):
             ph.start(r, p, v)
         sdt = _scalar_dtype(xs)
-        total = lambda parts: _sum(parts, sdt, wide)
+        total = lambda parts: ordered_sum(parts, sdt, wide)
         rho, alpha, omega = (
             torch.as_tensor(a).to(device=xs[0].device, dtype=sdt)
             for a in (rho, alpha, omega))

@@ -7,12 +7,16 @@ side set, ``2 + k`` the k-th workspace set, each set holding one vector per
 registered space, so the solvers are near-transcriptions of the reference.
 
 Every vector and operator must live on the planner's ``device``; the
-registration methods check it.  An explicit square matrix on a one-piece
-space is upgraded as in the JAX package: few well-filled diagonals become a
+registration methods check it.  On a mesh (``parallel/mesh.py``) the
+device is the mesh's, every space has the mesh's piece count, and the
+stencil operators run on the pieces; explicit matrices on a mesh of
+several pieces raise NotImplementedError (ROADMAP §1 items 5d and 5e).
+An explicit square matrix on a one-piece space is upgraded as in the JAX
+package: few well-filled diagonals become a
 :class:`~.parallel.dia_op.DiaOperator` (kernel K8); otherwise
 ``parallel/reorder.py`` tries an RCM basis (DIA or windowed ELL, K9) and
 then the routed gather in a degree-sorted basis (K10).  Everything else,
-multi-piece partitions included, becomes the ELL
+multi-piece partitions without a mesh included, becomes the ELL
 :class:`~.parallel.distmatrix.RowPartitionedMatrix`.  A space that adopts a
 reordered basis keeps it: later operators on it are expressed in it, and
 solvers enter the basis for the duration of ``solve()``.
@@ -32,8 +36,9 @@ from .core.scalar import Scalar
 from .core.vector import PartitionedVector
 from .ops import blas1
 from .ops.ddsum import dd_dot
-from .options import DEFAULT_OPTIONS, SolverOptions, resolve_device
+from .options import DEFAULT_OPTIONS, SolverOptions
 from .parallel.distmatrix import RowPartitionedMatrix
+from .parallel.mesh import num_shards, ordered_sum, resolve_mesh
 
 SOL = 0
 RHS = 1
@@ -44,13 +49,8 @@ class SquarePlanner:
         self, mesh=None, options: SolverOptions = DEFAULT_OPTIONS,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded planners are not ported to the torch package yet"
-            )
-        self.mesh = None
+        self.mesh, self.device = resolve_mesh(mesh, None, device)
         self.options = options
-        self.device = resolve_device(device)
         self.canonical_partitions: List[BlockPartition] = []
         self.canonical_grid_shapes: List[Optional[tuple]] = []
         self.sol_vectors: List[PartitionedVector] = []
@@ -95,6 +95,9 @@ class SquarePlanner:
     # -- registration (reference: SquarePlanner.hpp:99-188) ----------------
     def _register_canonical(self, idx: int, v: PartitionedVector) -> None:
         self._check_device(f"vector {v.name!r}", v.device)
+        if (self.mesh is not None
+                and v.partition.num_pieces != num_shards(self.mesh)):
+            raise ValueError("mesh size must equal partition piece count")
         if len(self.canonical_partitions) > idx:
             if self.canonical_partitions[idx] != v.partition:
                 raise ValueError("vector partition disagrees with canonical")
@@ -138,6 +141,7 @@ class SquarePlanner:
                 PartitionedVector(
                     f"workspace_{j}_{i}",
                     self.canonical_partitions[i],
+                    mesh=self.mesh,
                     options=self.options,
                     grid_shape=self.canonical_grid_shapes[i],
                     lazy=True,
@@ -168,6 +172,12 @@ class SquarePlanner:
 
         if domain_index >= self.num_spaces or range_index >= self.num_spaces:
             raise ValueError("space index out of range")
+        if self.mesh is not None and num_shards(self.mesh) > 1:
+            raise NotImplementedError(
+                f"an explicit matrix on a mesh of {num_shards(self.mesh)} "
+                "pieces: its halo exchange (the sharded "
+                "RowPartitionedMatrix, ROADMAP §1 item 5d; the DIA halo, "
+                "item 5e) is not ported")
         dp = self.canonical_partitions[domain_index]
         rp = self.canonical_partitions[range_index]
         dist = None
@@ -276,7 +286,17 @@ class SquarePlanner:
         Under ``options.compensated_dots`` each dot is :func:`dd_dot`."""
         if self.options.compensated_dots:
             dtype = self.options.entry_dtype
-            d = lambda a, b: dd_dot(a, b).to(dtype)
+            S = num_shards(self.mesh) if self.mesh is not None else 1
+            if S > 1:
+                # one compensated dot per piece, the partials summed in
+                # piece order (the JAX package's psum of per-shard dd_dot)
+                def d(a, b):
+                    a2, b2 = (t.reshape(S, -1).to(torch.float32).double()
+                              for t in (a, b))
+                    parts = torch.sum(a2 * b2, dim=1).to(torch.float32)
+                    return ordered_sum(parts, dtype)
+            else:
+                d = lambda a, b: dd_dot(a, b).to(dtype)
         else:
             d = blas1.dot
         parts = [

@@ -5,7 +5,8 @@ same vector indices (SOL=0, RHS=1, P=2, Q=3, R=4), same future-ratio
 coefficient passing, same residual-norm-squared history.  ``step()`` is
 eager torch; :meth:`solve` hands the whole loop to the operator's fused
 runner where one exists (the hand-written CUDA passes of
-``ops/cuda/stencil2d.py`` or ``stencil3d.py`` on a card), on a
+``ops/cuda/stencil2d.py`` or ``stencil3d.py`` on a card; on the pieces
+of a mesh the sharded runners of ``parallel/stencil_op.py``), on a
 block-diagonal multi-space system to the block runner of
 ``parallel/block_fused.py`` (the same passes per space), and loops over
 ``step()`` otherwise.

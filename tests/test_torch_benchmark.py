@@ -109,7 +109,8 @@ def test_dim1_runs_the_linearized_path(capsys):
     assert "ROADMAP item 3" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags", [["-vp", "4"], ["--consume-rhs"],
+@pytest.mark.parametrize("flags", [["-vp", "4", "-solver", "2"],
+                                   ["--consume-rhs"],
                                    ["--dtype", "bfloat16"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -144,6 +145,22 @@ def test_cli_block_matches_jax(solver, schedule):
     np.testing.assert_allclose(ours["final_residual2"],
                                ref["final_residual2"],
                                rtol=2e-3 if solver == 1 else 0.05)
+
+
+def test_cli_pieces_match_jax():
+    """``-dim 2 -solver 1 -vp 4`` in f32: the port's CG on 4 pieces of one
+    device against the JAX CLI on its 4-shard mesh: the same schedule
+    (the sharded s-step), bytes per unknown, unknowns, nnz and pieces;
+    the final residual^2 within rtol 1e-3 (test_20's sharded tolerance)."""
+    flags = ["-dim", "2", "-nx", "64", "-ny", "128", "-solver", "1", "-it",
+             "10", "-vp", "4"]
+    ours = TB.main(flags + ["--device", "cpu"])
+    ref = JB.main(flags)
+    assert ours["schedule"] == "fused2d_x2" and ours["pieces"] == 4
+    for k in ("n", "nnz", "pieces", "schedule", "bytes_per_unknown"):
+        assert ours[k] == ref[k], k
+    np.testing.assert_allclose(ours["final_residual2"],
+                               ref["final_residual2"], rtol=1e-3)
 
 
 def test_consume_rhs_env_raises(monkeypatch):

@@ -33,7 +33,13 @@ card.  A 2-D s-step solve(40) and a two-pass solve(40) on the card are held
 entry by entry against the same schedules driven by the plain versions, the
 two-pass one also to a bit-identical repeat.  The block runners on two
 identical spaces launch every kernel twice as often as one space and give
-exactly twice its history and its x in every space.
+exactly twice its history and its x in every space.  Pieces: K1 and K2 on
+row-block views of a grid (non-zero storage offsets, as the pieces of a
+mesh are) against their plain versions on the same views (K1's phase 3
+bounds), leaving the rows outside the view alone; and a 4-piece s-step
+solve(40) on the card against the same 4-piece runner driven by the plain
+versions, entry by entry to rtol 1e-3 (phase 4's kernel-against-plain
+bound) and x to 1e-3 of max|x|.
 """
 
 import numpy as np
@@ -1126,3 +1132,127 @@ def test_block_solve_doubles_one_space_on_card(dim, solver, env,
     assert torch.equal(h2, 2 * h1)
     for x in xs:
         assert torch.equal(x, x1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 328), (33, 4097)])
+def test_k1_k2_on_row_block_views_on_card(shape, cuda_device):
+    """K1 and K2 on pieces 1 and 3 of a 4-piece grid (contiguous row-block
+    views at non-zero storage offsets) against their plain versions on the
+    same views; the other pieces' rows are not touched."""
+    Br, C = shape
+    rng = np.random.default_rng(23)
+    full = {k: torch.from_numpy(rng.standard_normal((4 * Br, C)).astype(
+        np.float32)).to(cuda_device) for k in ("x", "r", "p")}
+    for s in (1, 3):
+        d = {k: v.clone() for k, v in full.items()}
+        view = {k: v.view(4, Br, C)[s] for k, v in d.items()}
+        assert view["x"].storage_offset() == s * Br * C
+        coef = T.cg2_coeffs(T.gram2_plain(view["r"], view["p"], **KW))[0]
+        outs = [torch.full_like(d["r"], float("nan")) for _ in range(2)]
+        out_view = tuple(o.view(4, Br, C)[s] for o in outs)
+        T.reset_launch_counts()
+        g2 = T.grid2d_cg_gram2(view["r"], view["p"], **KW)
+        got = T.grid2d_cg_step2(view["x"], view["r"], view["p"], coef,
+                                out=out_view, **KW)
+        assert dict(T.LAUNCHES) == {"gram2": 1, "step2": 1}
+        ref_in = {k: v.view(4, Br, C)[s].clone() for k, v in full.items()}
+        ref = T.step2_plain(ref_in["x"], ref_in["r"], ref_in["p"], coef,
+                            **KW)
+        for have, want in zip(got[:3], ref[:3]):
+            np.testing.assert_allclose(have.cpu().numpy(),
+                                       want.cpu().numpy(), rtol=0,
+                                       atol=1e-5 * want.abs().max().item())
+        bound = gram_bounds(ref[1].cpu().numpy(), ref[2].cpu().numpy())
+        np.testing.assert_array_less(
+            np.abs(got[3].double().cpu().numpy()
+                   - ref[3].double().cpu().numpy()), 1e-4 * bound)
+        g_ref = T.gram2_plain(ref_in["r"], ref_in["p"], **KW)
+        bound = gram_bounds(ref_in["r"].cpu().numpy(),
+                            ref_in["p"].cpu().numpy())
+        np.testing.assert_array_less(
+            np.abs(g2.double().cpu().numpy()
+                   - g_ref.double().cpu().numpy()), 1e-4 * bound)
+        for k in (k for k in range(4) if k != s):
+            assert torch.equal(d["x"].view(4, Br, C)[k],
+                               full["x"].view(4, Br, C)[k])
+            assert all(o.view(4, Br, C)[k].isnan().all() for o in outs)
+
+
+@pytest.mark.cuda
+def test_sharded_sstep_solve_on_card(cuda_device):
+    """The 4-piece s-step runner on the card (256^2, solve(40): K1 4 x 20,
+    K2 4 x 2) against the same 4-piece runner driven by the plain
+    versions on the card: history entry by entry to rtol 1e-3, x to 1e-3
+    of max|x|."""
+    import legionsolvers_tpu_torch as lt
+    from legionsolvers_tpu_torch.entry import build_system
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    runs = []
+    for plain in (False, True):
+        mesh = make_mesh(4, devices=[cuda_device] * 4)
+        planner = build_system(256, f32, mesh=mesh)
+        solver = lt.CGSolver(planner)
+        saved = (T.grid2d_cg_step2, T.grid2d_cg_gram2)
+        if plain:
+            T.grid2d_cg_step2, T.grid2d_cg_gram2 = T.step2_plain, T.gram2_plain
+        T.reset_launch_counts()
+        try:
+            hist = solver.solve(40).cpu().double().numpy()
+        finally:
+            T.grid2d_cg_step2, T.grid2d_cg_gram2 = saved
+        assert dict(T.LAUNCHES) == ({} if plain else
+                                    {"step2": 80, "gram2": 8})
+        runs.append((hist, planner.sol_vectors[0].to_numpy()))
+    (hk, xk), (hp, xp) = runs
+    assert len(hk) == 41 and np.isfinite(hk).all()
+    np.testing.assert_allclose(hk, hp, rtol=1e-3)
+    np.testing.assert_allclose(xk, xp, rtol=0, atol=1e-3 * np.abs(xp).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env,iters,launches", [
+    (None, 9, {"step2": 16, "gram2": 4, "update": 4}),
+    ("LEGIONSOLVERS_NO_SSTEP", 20, {"pq": 4, "update": 80, "xpay_pq": 76}),
+])
+def test_sharded_solves_match_plain_on_card(cuda_device, monkeypatch, env,
+                                            iters, launches):
+    """The 4-piece s-step runner with its odd tail (K3 update per piece on
+    p's exchanged halos) and the 4-piece two-pass runner (zero-halo K4 and
+    its dot fix-up, K3 update on halo blocks) on the card, 256^2, against
+    the same runners driven by the plain versions on the card: history
+    entry by entry to rtol 1e-3, x to 1e-3 of max|x|."""
+    import legionsolvers_tpu_torch as lt
+    from legionsolvers_tpu_torch.entry import build_system
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    if env:
+        monkeypatch.setenv(env, "1")
+    plain = {
+        "grid2d_cg_step2": T.step2_plain,
+        "grid2d_cg_gram2": T.gram2_plain,
+        "grid2d_cg_xpay_pq": T.xpay_pq_plain,
+        "grid2d_cg_pq": lambda p, top=None, bot=None, **kw:
+            T.stencil_plain("pq", p, top, bot, **kw)[0],
+        "grid2d_cg_update": lambda p, x, r, alpha, top=None, bot=None, **kw:
+            T.stencil_plain("update", p, top, bot, (x, r, alpha), **kw),
+    }
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    runs = []
+    for use_plain in (False, True):
+        planner = build_system(256, f32, mesh=make_mesh(
+            4, devices=[cuda_device] * 4))
+        with monkeypatch.context() as m:
+            if use_plain:
+                for name, fn in plain.items():
+                    m.setattr(T, name, fn)
+            T.reset_launch_counts()
+            hist = lt.CGSolver(planner).solve(iters).cpu().double().numpy()
+        assert dict(T.LAUNCHES) == ({} if use_plain else launches)
+        runs.append((hist, planner.sol_vectors[0].to_numpy()))
+    (hk, xk), (hp, xp) = runs
+    assert len(hk) == iters + 1 and np.isfinite(hk).all()
+    np.testing.assert_allclose(hk, hp, rtol=1e-3)
+    np.testing.assert_allclose(xk, xp, rtol=0, atol=1e-3 * np.abs(xp).max())

@@ -190,15 +190,19 @@ def test_options(monkeypatch):
 
 @pytest.mark.parametrize("what", ["vector", "operator", "planner"])
 def test_mesh_not_ported(what):
-    part = T.BlockPartition(64, 4)
+    """A mesh whose shards span two distinct devices (several cards or
+    processes) is not ported: vectors, operators and planners refuse it."""
+    from legionsolvers_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh((torch.device("cpu"), torch.device("meta")))
+    part = T.BlockPartition(64, 2)
     make = {
-        "vector": lambda: T.PartitionedVector("v", part, mesh=object(),
-                                              device=DEV),
+        "vector": lambda: T.PartitionedVector("v", part, mesh=mesh),
         "operator": lambda: T.StencilOperator((8, 8), T.laplacian_stencil(2),
-                                              mesh=object(), device=DEV),
-        "planner": lambda: T.SquarePlanner(mesh=object(), device=DEV),
+                                              mesh=mesh),
+        "planner": lambda: T.SquarePlanner(mesh=mesh),
     }[what]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 5g"):
         make()
 
 
@@ -337,16 +341,14 @@ def test_stencil_rmatvec_is_the_transpose(shape):
 # ROADMAP item that ports it (or why it does not apply to torch).  A name
 # ported later must leave this list.
 DEFERRED = {
-    # ROADMAP item 5, multi-device: the mesh, halo exchange, s-step edge
-    # repair, overlap, sharded host helpers
-    "parallel.mesh": "item 5",
-    "parallel.overlap": "item 5",
-    "parallel.sstep_sharded": "item 5",
-    "core.partition.HaloExchange": "item 5",
-    "core.partition.build_halo_exchange": "item 5",
-    "core.vector.PartitionedVector.sharding": "item 5",
-    "native.bindings.shard_halo_columns": "item 5",
-    "native.bindings.pack_ell_shard": "item 5",
+    # ROADMAP item 5d, the sharded RowPartitionedMatrix: halo exchange
+    # schedules and the sharded host helpers
+    "core.partition.HaloExchange": "item 5d",
+    "core.partition.build_halo_exchange": "item 5d",
+    "native.bindings.shard_halo_columns": "item 5d",
+    "native.bindings.pack_ell_shard": "item 5d",
+    # ROADMAP item 5g, several cards and processes
+    "parallel.mesh.initialize_distributed": "item 5g",
     # ROADMAP item 4, utilities
     "utils.debug": "item 4",
     "utils.initialize": "item 4",
