@@ -894,12 +894,12 @@ class plain_driven:
         self.saved = {k: getattr(self.module, k) for k in self.plain}
         for k, fn in self.plain.items():
             setattr(self.module, k, fn)
-        self.solver._solve_cache.clear()
+        drop_runners(self.solver)
 
     def __exit__(self, *exc):
         for k, fn in self.saved.items():
             setattr(self.module, k, fn)
-        self.solver._solve_cache.clear()
+        drop_runners(self.solver)
 
 
 class env_route:
@@ -914,14 +914,12 @@ class env_route:
     def __enter__(self):
         if self.name:
             os.environ[self.name] = "1"
-        for s in self.solvers:
-            s._solve_cache.clear()
+        drop_runners(*self.solvers)
 
     def __exit__(self, *exc):
         if self.name:
             del os.environ[self.name]
-        for s in self.solvers:
-            s._solve_cache.clear()
+        drop_runners(*self.solvers)
 
 
 def cg_plain(T):
@@ -948,6 +946,12 @@ def bicg_plain(TB):
 def restart(solver):
     solver.planner.zero_fill(solver.SOL)
     solver.reset()
+
+
+def drop_runners(*solvers):
+    """Drop the solvers' cached runners (GMRES and PCG keep none)."""
+    for s in solvers:
+        getattr(s, "_solve_cache", {}).clear()
 
 
 def lap5(v):
@@ -3606,8 +3610,7 @@ class counted_calls:
         self.saved = [(m, k, getattr(m, k)) for m, k in self.pairs]
         for m, k, fn in self.saved:
             setattr(m, k, self._counted(k, fn))
-        for s in self.solvers:
-            s._solve_cache.clear()
+        drop_runners(*self.solvers)
         return self
 
     def _counted(self, k, fn):
@@ -3619,8 +3622,7 @@ class counted_calls:
     def __exit__(self, *exc):
         for m, k, fn in self.saved:
             setattr(m, k, fn)
-        for s in self.solvers:
-            s._solve_cache.clear()
+        drop_runners(*self.solvers)
 
 
 def plain_names(*modules):
@@ -3922,44 +3924,73 @@ class glue_ops:
         return sum(self.ops.values())
 
 
-# the 2-D CG path's wrappers and the launch each counts (the matvec: y or
-# y_dot)
+# the wrappers that the solves on pieces call, by module, and the launch
+# each counts (the matvecs: y or y_dot, y3d or y_dot3d)
 SHADOW_LAUNCH = {"grid2d_stencil_matvec": None, "grid2d_cg_pq": "pq",
                  "grid2d_cg_update": "update", "grid2d_cg_xpay_pq": "xpay_pq",
                  "grid2d_cg_gram2": "gram2", "grid2d_cg_step2": "step2"}
+SHADOW_BICG = {"bicg_pv": "bicg_pv", "bicg_st": "bicg_st",
+               "bicg_update": "bicg_update"}
+SHADOW_3D = {"grid3d_stencil_matvec": None, "grid3d_cg_pq": "pq3d",
+             "grid3d_cg_update": "update3d", "grid3d_cg_xpay_pq": "xpay_pq3d"}
+
+
+def finite_max(t):
+    """max |t| over its finite entries (0 where there is none), 0-dim."""
+    import torch
+
+    a = t.abs()
+    return torch.where(torch.isfinite(a), a, torch.zeros_like(a)).max()
+
+
+def matvec3d_plain(T3):
+    return lambda x, top=None, bot=None, *, with_dot=False, out=None, **kw: (
+        T3.stencil3d_plain("y_dot", x, top, bot, out=out, **kw) if with_dot
+        else T3.stencil3d_plain("y", x, top, bot, out=out, **kw)[0])
 
 
 class shadowed:
-    """Within the block, every call of a 2-D CG wrapper of ``T`` (K1-K4)
-    also runs the wrapper's plain version on copies of its inputs, taken
-    before the kernel writes, and holds the kernel's outputs to it at
-    phase 3's bounds: each array elementwise to 1e-5 of the plain
+    """Within the block, every call of a wrapper that the solves on pieces
+    call (K1-K4 of ``T``; K5a-c of ``TB`` and K6a, K6b of ``T3`` where
+    given) also runs the wrapper's plain version on copies of its inputs,
+    taken before the kernel writes, and holds the kernel's outputs to it
+    at phase 3's bounds: each array elementwise to 1e-5 of the plain
     version's max |value|, each dot to 1e-4 of sqrt(<a,a><b,b>) of its
     operands.  ``calls``: {launch name: calls held}; ``worst``: {launch
     name: max abs error}; ``share``: {launch name: the largest error as a
     share of its bound}; ``bad``: the calls out of bounds.  The
     ``solver``'s cached runners are dropped on the way in and out."""
 
-    def __init__(self, T, solver=None):
-        self.T, self.solver = T, solver
+    def __init__(self, T, solver=None, TB=None, T3=None):
+        self.T, self.solver, self.TB, self.T3 = T, solver, TB, T3
         self.calls, self.worst, self.share, self.bad = {}, {}, {}, []
 
     def __enter__(self):
         plain = cg_plain(self.T)
-        self.saved = {k: getattr(self.T, k) for k in SHADOW_LAUNCH}
-        for k in SHADOW_LAUNCH:
-            setattr(self.T, k, self._wrap(k, self.saved[k], plain[k]))
+        table = [(self.T, k, mode, plain[k])
+                 for k, mode in SHADOW_LAUNCH.items()]
+        if self.TB is not None:
+            table += [(self.TB, k, mode, getattr(self.TB, k + "_plain"))
+                      for k, mode in SHADOW_BICG.items()]
+        if self.T3 is not None:
+            plain3 = dict(cg3d_plain(self.T3),
+                          grid3d_stencil_matvec=matvec3d_plain(self.T3))
+            table += [(self.T3, k, mode, plain3[k])
+                      for k, mode in SHADOW_3D.items()]
+        self.saved = [(m, k, getattr(m, k)) for m, k, _, _ in table]
+        for m, k, mode, fn in table:
+            setattr(m, k, self._wrap(k, mode, getattr(m, k), fn))
         if self.solver is not None:
-            self.solver._solve_cache.clear()
+            drop_runners(self.solver)
         return self
 
     def __exit__(self, *exc):
-        for k, fn in self.saved.items():
-            setattr(self.T, k, fn)
+        for m, k, fn in self.saved:
+            setattr(m, k, fn)
         if self.solver is not None:
-            self.solver._solve_cache.clear()
+            drop_runners(self.solver)
 
-    def _wrap(self, name, kernel, plain):
+    def _wrap(self, name, mode, kernel, plain):
         import torch
 
         copy = lambda a: a.clone() if isinstance(a, torch.Tensor) else a
@@ -3968,56 +3999,108 @@ class shadowed:
             cargs = [copy(a) for a in args]
             ckw = {k: copy(v) for k, v in kw.items() if k != "out"}
             got = kernel(*args, **kw)
-            self._check(name, got, plain(*cargs, **ckw), cargs, ckw)
+            self._check(name, mode, got, plain(*cargs, **ckw), cargs, ckw)
             return got
         return run
 
-    def _check(self, name, got, ref, args, kw):
+    def _spec(self, name, mode, got, ref, args, kw):
+        """(launch name, got, ref, keys, {dot key: its operands' scale},
+        {array key: the magnitude of the terms it sums})."""
         import torch
 
-        T = self.T
         nrm = lambda v: torch.linalg.vector_norm(v.double()).item()
+        T, T3 = self.T, self.T3
+        arg = lambda i, key: args[i] if len(args) > i else kw.get(key)
         A = lambda v, top=None, bot=None: T.apply_plain(
             v, kw["offsets"], kw["values"], top, bot)
-        arg = lambda i, key: args[i] if len(args) > i else kw.get(key)
-        mode = SHADOW_LAUNCH[name]
-        if mode is None:
-            mode = "y_dot" if kw.get("with_dot") else "y"
-            got, ref = (got, ref) if mode == "y_dot" else ((got,), (ref,))
+        A3 = lambda v, top=None, bot=None: T3.apply_planes_plain(
+            v, kw["offsets"], kw["values"], top, bot)
+        if mode is None:  # a matvec, 2-D or 3-D
+            mode = ("y_dot" if kw.get("with_dot") else "y") + (
+                "3d" if name.startswith("grid3d") else "")
+            if not kw.get("with_dot"):
+                got, ref = (got,), (ref,)
             keys = ("y", "dot")
-            scale = lambda r: nrm(args[0]) * nrm(r["y"])
-        elif mode == "pq":
-            got, ref, keys = (got,), (ref,), ("dot",)
-            scale = lambda r: nrm(args[0]) * nrm(A(
-                args[0], arg(1, "halo_top"), arg(2, "halo_bot")))
-        elif mode == "update":
-            keys = ("x", "r", "dot")
-            scale = lambda r: nrm(r["r"]) ** 2
-        elif mode == "xpay_pq":
-            keys = ("p", "dot")
+            return mode, got, ref, keys, {
+                "dot": lambda r: nrm(args[0]) * nrm(r["y"])}, {}
+        if mode in ("pq", "pq3d"):
+            ap = A if mode == "pq" else A3
+            return mode, (got,), (ref,), ("dot",), {
+                "dot": lambda r: nrm(args[0]) * nrm(ap(
+                    args[0], arg(1, "halo_top"), arg(2, "halo_bot")))}, {}
+        if mode in ("update", "update3d"):
+            return mode, got, ref, ("x", "r", "dot"), {
+                "dot": lambda r: nrm(r["r"]) ** 2}, {}
+        if mode == "xpay_pq":
             comb = lambda rh, ph: (None if rh is None and ph is None else
                                    (0 if rh is None else rh) + args[2]
                                    * (0 if ph is None else ph))
-            scale = lambda r: nrm(r["p"]) * nrm(A(
-                r["p"], comb(arg(3, "r_top"), arg(5, "p_top")),
-                comb(arg(4, "r_bot"), arg(6, "p_bot"))))
-        elif mode == "gram2":
-            got, ref, keys = (got,), (ref,), ("gram",)
-            scale = lambda r: gram_scales(torch, T, args[0], args[1], kw)
-        else:
-            keys = ("x", "r", "p", "gram")
-            scale = lambda r: gram_scales(torch, T, r["r"], r["p"], kw)
+            return mode, got, ref, ("p", "dot"), {
+                "dot": lambda r: nrm(r["p"]) * nrm(A(
+                    r["p"], comb(arg(3, "r_top"), arg(5, "p_top")),
+                    comb(arg(4, "r_bot"), arg(6, "p_bot"))))}, {}
+        if mode == "xpay_pq3d":
+            return mode, got, ref, ("p", "dot"), {
+                "dot": lambda r: nrm(r["p"]) * nrm(A3(
+                    r["p"], arg(3, "pn_top"), arg(4, "pn_bot")))}, {}
+        if mode == "gram2":
+            return mode, (got,), (ref,), ("gram",), {
+                "gram": lambda r: gram_scales(torch, T, args[0], args[1],
+                                              kw)}, {}
+        if mode == "step2":
+            return mode, got, ref, ("x", "r", "p", "gram"), {
+                "gram": lambda r: gram_scales(torch, T, r["r"], r["p"],
+                                              kw)}, {}
+        # the BiCGStab passes' arrays: near a breakdown their terms cancel,
+        # so a value may be far smaller than the terms both versions round;
+        # each array is held to the magnitude of its terms (no smaller
+        # than its own max |value|)
+        mag = lambda t: finite_max(t)
+        co = lambda c: torch.as_tensor(c).to(args[0]).abs()
+        stencil = sum(abs(v) for v in kw["values"])
+        if mode == "bicg_pv":
+            r_, p_, v_, _, b_, o_ = args[:6]
+            sp = mag(r_) + co(b_) * (mag(p_) + co(o_) * mag(v_))
+            return mode, got, ref, ("p", "v", "rtv"), {
+                "rtv": lambda r: nrm(args[3]) * nrm(r["v"])}, {
+                "p": sp, "v": stencil * sp}
+        if mode == "bicg_st":
+            r_, v_, al = args[:3]
+            s_ = r_ - torch.as_tensor(al).to(r_) * v_
+            t_ = A(s_)
+            return mode, got, ref, ("ts", "tt"), {
+                "ts": lambda r: nrm(t_) * nrm(s_),
+                "tt": lambda r: nrm(t_) ** 2}, {}
+        r_, v_, x_, p_, _, al, om = args[:7]
+        ss = mag(r_) + co(al) * mag(v_)
+        return mode, got, ref, ("x", "r", "rr", "rtr"), {
+            "rr": lambda r: nrm(r["r"]) ** 2,
+            "rtr": lambda r: nrm(args[4]) * nrm(r["r"])}, {
+            "x": mag(x_) + co(al) * mag(p_) + co(om) * ss,
+            "r": ss * (1 + co(om) * stencil)}
+
+    def _check(self, name, mode, got, ref, args, kw):
+        import torch
+
+        mode, got, ref, keys, scales, terms = self._spec(name, mode, got,
+                                                         ref, args, kw)
         got, ref = dict(zip(keys, got)), dict(zip(keys, ref))
         worst = share = 0.0
         for key, want in ref.items():
             # on the card: only scalars come back to the host
-            err = (got[key].double() - want.double()).abs()
-            if key in ("dot", "gram"):
+            have = got[key].double()
+            err = (have - want.double()).abs()
+            if key in scales:
                 bound = 1e-4 * torch.as_tensor(
-                    scale(ref), dtype=torch.float64).to(err.device)
+                    scales[key](ref), dtype=torch.float64).to(err.device)
             else:
-                bound = 1e-5 * want.abs().max().double()
-            ok = bool((err <= bound).all())
+                bound = 1e-5 * torch.maximum(
+                    finite_max(want), torch.as_tensor(
+                        terms.get(key, 0.0)).to(err.device)).double()
+            # a NaN or infinity both versions give at one place agrees
+            same = (have == want.double()) | (have.isnan() & want.isnan())
+            err = torch.where(same, torch.zeros_like(err), err)
+            ok = bool((same | (err <= bound)).all())
             ratio = torch.where(err == 0, torch.zeros_like(err), err / bound)
             worst = max(worst, err.max().item())
             share = max(share, ratio.max().item())
@@ -4321,6 +4404,555 @@ def profile_piece_solves(torch, solvers, times, card):
     return times
 
 
+# phase 4j, the solves on pieces beyond 2-D CG: 3-D stencils on pieces
+# (K6 with the neighbours' halo planes), the fused 2-D BiCGStab on pieces
+# (K5a-c zero-halo with its edge fix-ups), BiCGStab step() on 3-D pieces,
+# GMRES and PCG on 2-D pieces, block systems on pieces and the CLI's -vp
+PIECES = 4
+PIECE3_LAUNCHES = {"pq3d": PIECES, "update3d": PIECES * N_ITERS,
+                   "xpay_pq3d": PIECES * (N_ITERS - 1)}
+PIECE_BICG_LAUNCHES = {m: PIECES * N_ITERS for m in BICG_KERNELS}
+BICG3_STEP_ITERS = 50
+TRACE_OPS = 6000  # glue operations a 5j idle trace aims at
+GMRES_CYCLES = 3
+GMRES_RESTART = 10
+PIECE_GMRES_RTOL = 2e-4   # tests/test_torch_sharded_solvers.py's bounds
+PIECE_PCG_ENTRIES = 31  # entries reported beside the CPU test's 30 iterations
+PIECE_BICG_RTOL = 1e-5
+# block systems on pieces: name -> (-dim, grid, solver, environment switch)
+PIECE_BLOCK_RUNS = {
+    "block s-step CG 2-D": (2, (N_GRID, N_GRID), "CGSolver", None),
+    "block two-pass CG 2-D": (2, (N_GRID, N_GRID), "CGSolver",
+                              "LEGIONSOLVERS_NO_SSTEP"),
+    "block BiCGStab 2-D": (2, (N_GRID, N_GRID), "BiCGStabSolver", None),
+    "block CG 3-D": (3, SHAPE3, "CGSolver", None),
+}
+PIECE_CLI_RUNS = {
+    "-dim 3 -solver 1": ["-dim", "3", "-nx", "256", "-ny", "256", "-nz",
+                         "256", "-solver", "1", "-it", str(N_ITERS)],
+    "-dim 2 -solver 2": ["-dim", "2", "-solver", "2", "-it", str(N_ITERS)],
+    "-dim 2 -solver 3": ["-dim", "2", "-solver", "3", "-restart", "10",
+                         "-it", "20"],
+    "-dim 2 -solver 4": ["-dim", "2", "-solver", "4", "-it", str(N_ITERS)],
+    "-dim 2 --block": ["-dim", "2", "-solver", "1", "--block", "-it",
+                       str(N_ITERS)],
+}
+
+
+def piece_cli_expected(label, runs):
+    """Exact launches of one CLI run on PIECES pieces, from its solves
+    (``benchmark.RUNS``): one piece's (:func:`cli_expected`) times the
+    pieces (and the spaces of ``--block``), K1's compute ceiling once."""
+    solves = {k: c for k, c in runs.items() if isinstance(k, int)}
+    total = lambda f: sum(c * f(k) for k, c in solves.items())
+    if label == "-dim 3 -solver 1":
+        return {"pq3d": PIECES * total(lambda k: 1),
+                "update3d": PIECES * total(lambda k: k),
+                "xpay_pq3d": PIECES * total(lambda k: k - 1)}
+    if label == "-dim 2 -solver 2":
+        return {m: PIECES * total(lambda k: k) for m in BICG_KERNELS}
+    if label == "-dim 2 -solver 3":
+        return {"y": PIECES * total(lambda k: 11 * k + 1)}
+    if label == "-dim 2 -solver 4":
+        return {"y_dot": PIECES * total(lambda k: k)}
+    return {"step2": 2 * PIECES * total(lambda k: k // 2)
+            + runs["step2_ceiling"],
+            "gram2": 2 * PIECES * total(lambda k: max(1, -(-(k // 2) // 16)))}
+
+
+def counted_solve(torch, T, solver, iters):
+    """(history, x, launches) of one solve(iters) from x0 = 0."""
+    restart(solver)
+    torch.cuda.synchronize()
+    T.reset_launch_counts()
+    hist = solver.solve(iters)
+    torch.cuda.synchronize()
+    counts = dict(T.LAUNCHES)
+    T.reset_launch_counts()
+    return hist, solver.planner.sol_vectors[0].data.clone(), counts
+
+
+def finite_upto(h):
+    """The number of leading finite entries of a history."""
+    import torch
+
+    bad = (~torch.isfinite(h)).nonzero()
+    return int(bad[0]) if len(bad) else len(h)
+
+
+def pieces_solvers_path(torch, np, T, TB, T3, TB3, lt, device):
+    """Phase 4j, the solves on pieces that the 2-D CG of
+    :func:`pieces_path` does not cover, each through ``entry``'s builders
+    on ``make_mesh(S, devices=[card] * S)`` and each also run under
+    :class:`shadowed` (every launch held to its plain version on copies of
+    its inputs):
+
+    * the 3-D matvec, 7- and 27-point, at 4 and 8 pieces of 256^3 against
+      one piece (4 eps max|x| sum|v|; whether y is bit for bit);
+    * 3-D two-pass CG solve(200) on 4 pieces, 7- and 27-point: launches
+      exactly (K6a pq 4, K6b 796, K6a update 800), the history and x within
+      phase 4c's envelope against float64 CG, a repeat bit for bit;
+    * the fused 2-D BiCGStab solve(200) on 4 pieces at 4096^2 with f32
+      and with compensated dots, and at 256^2 with compensated dots: K5a-c
+      800 each, no plain version, the first two iterations within 1e-5 of
+      one piece, ||b - Ax||^2 through the sharded matvec within 5e-2 of
+      the history, a repeat bit for bit; with compensated dots, as phase
+      4b, one iteration from the pieces' state at CONTINUE_AT kernel-driven
+      against plain-driven (1e-2), held where the state is well
+      conditioned: the plain-driven iteration from the state moved by one
+      ulp moves by less than 1e-3.  A history that turns non-finite (P5)
+      is reported: its continuation is not held and its residual is
+      checked after GAP_ITERS;
+    * 3-D BiCGStab step() on 4 pieces (BICG3_STEP_ITERS iterations,
+      7-point, compensated dots, as phase 4d): one piece's step()s through
+      two iterations (EAGER3_RTOL), ||b - Ax||^2 after GAP_ITERS within
+      BICG3_GAP, launches 4 x one piece's;
+    * GMRES(10) for 3 cycles and PCG(Jacobi) solve(200) on 4 pieces of the
+      2-D 4096^2 system: one piece's history within 2e-4 (GMRES, the CPU
+      test's bound) and within twice textbook f32 CG's distance from
+      float64 CG (PCG: two f32 codes of one recurrence, as phase 4 holds
+      f32 CG), launches 4 x one piece's;
+    * block systems of 2 spaces on 4 pieces (PIECE_BLOCK_RUNS): launches
+      exactly twice one space's on the same pieces, the history exactly
+      2x, every space's x bit for bit one space's;
+    * the CLI's ``-vp 4`` for PIECE_CLI_RUNS: exits, reports 4 pieces, a
+      share of its roofline in (0, 100] and its exact launches.
+
+    Returns (launches by kernel (3-D ones keyed (name, dim)), the same in
+    whole-grid launches, results, {run: (solver on pieces, one-piece
+    solver (a block's: one space on the same pieces), environment switch
+    of each, iterations, bytes or None)}, failed checks)."""
+    from legionsolvers_tpu_torch import benchmark
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    f32c = lt.SolverOptions(entry_dtype=torch.float32, compensated_dots=True)
+    modules = (T, TB, T3, TB3)
+    mesh = lambda S: make_mesh(S, devices=[device] * S)
+    launches, grid, results, solvers, checks = {}, {}, {}, {}, {}
+    eps = torch.finfo(torch.float32).eps
+    n2, n3 = N_GRID * N_GRID, math.prod(SHAPE3)
+
+    def add(counts, S, dim=None):
+        for m, c in counts.items():
+            key = (m, dim) if dim and m.endswith("3d") else m
+            launches[key] = launches.get(key, 0) + c
+            grid[key] = grid.get(key, 0.0) + c / S
+
+    def record(name, chk, res):
+        for k, ok in chk.items():
+            checks[f"{name}: {k}"] = ok
+        res["checks"] = chk
+        results[name] = res
+        log(f"[pieces] {name}: " + "; ".join(
+            f"{k} {v}" for k, v in res.items() if k != "checks")
+            + "; checks " + "; ".join(f"{k} {ok}" for k, ok in chk.items()))
+
+    def shadow_run(solver, iters, **mods):
+        with shadowed(T, solver, **mods) as sh:
+            restart(solver)
+            solver.solve(iters)
+            torch.cuda.synchronize()
+        T.reset_launch_counts()
+        return sh
+
+    def shadow_res(sh):
+        return {"kernel vs plain per launch": sh.worst,
+                "share of bound per launch": sh.share,
+                "out of bounds": sh.bad}
+
+    # -- the 3-D matvec on 4 and 8 pieces against one piece ---------------
+    gen = torch.Generator(device).manual_seed(PIECE_SEED)
+    x = torch.rand(SHAPE3, generator=gen, device=device)
+    for dim in DIMS3:
+        pts = 7 if dim == 3 else 27
+        vals = [v for _, v in lt.laplacian_stencil(dim)]
+        bound = 4 * eps * x.abs().max().item() * sum(abs(v) for v in vals)
+        y1 = build_stencil_system(dim, SHAPE3, f32, device) \
+            .row_partitioned_matrices[0][0].matvec(x)
+        for S in (PIECES, 2 * PIECES):
+            op = build_stencil_system(dim, SHAPE3, f32, mesh=mesh(
+                S)).row_partitioned_matrices[0][0]
+            torch.cuda.synchronize()
+            T.reset_launch_counts()
+            yS = op.matvec(x)
+            torch.cuda.synchronize()
+            got = dict(T.LAUNCHES)
+            T.reset_launch_counts()
+            err = (yS - y1).abs().max().item()
+            bits = same_bits(yS, y1)
+            with shadowed(T, T3=T3) as sh:
+                op.matvec(x)
+            torch.cuda.synchronize()
+            T.reset_launch_counts()
+            add(got, S, dim)
+            record(f"3-D matvec {pts}-point on {S} pieces", {
+                f"within {bound:.3g} of one piece": err <= bound,
+                f"launches exactly {{'y3d': {S}}}": got == {"y3d": S},
+                "each K6a y equals its plain version on the same inputs":
+                    not sh.bad and sh.calls == {"y3d": S},
+            }, {"max_abs_err": err, "bound": bound, "bit for bit": bits,
+                "launches": got, **shadow_res(sh)})
+            del op, yS
+        del y1
+    del x
+
+    # -- 3-D two-pass CG on 4 pieces ----------------------------------------
+    for dim in DIMS3:
+        pts = 7 if dim == 3 else 27
+        name = f"3-D CG {pts}-point, {PIECES} pieces"
+        solver = lt.CGSolver(build_stencil_system(dim, SHAPE3, f32,
+                                                  mesh=mesh(PIECES)))
+        single = lt.CGSolver(build_stencil_system(dim, SHAPE3, f32, device))
+        solvers[name] = (solver, single, None, None, N_ITERS,
+                         (24 + 32 * (N_ITERS - 1)) * n3)
+        h1, (x1,), c1, p1, _ = block_run(torch, T, single, modules)
+        h, (xs,), c, p, _ = block_run(torch, T, solver, modules)
+        h2, (xs2,), c2, _, _ = block_run(torch, T, solver, modules)
+        sh = shadow_run(solver, N_ITERS, T3=T3)
+        A = stencil_matvec(torch, lt, dim)
+        h64, x64 = classic_cg(torch, SHAPE3, N_ITERS, torch.float64, device,
+                              A)
+        h32, x32 = classic_cg(torch, SHAPE3, N_ITERS, torch.float32, device,
+                              A)
+        env = {"textbook f32": (max_rel(h32, h64), x_rel(x32, x64)),
+               "pieces": (max_rel(h, h64), x_rel(xs, x64)),
+               "one piece": (max_rel(h1, h64), x_rel(x1, x64))}
+        k_env, t_env = env["pieces"], env["textbook f32"]
+        add(c, PIECES, dim)
+        record(name, {
+            f"launches exactly {PIECE3_LAUNCHES}": c == c2 == PIECE3_LAUNCHES
+            and c1 == SOLVE3_LAUNCHES["cg"],
+            "no plain version called": p + p1 == 0,
+            "history and x within twice textbook f32 CG's distance from "
+            f"float64 CG (floor {CG3_F64_FLOOR})":
+                bool(torch.isfinite(h).all())
+                and k_env[0] <= max(2 * t_env[0], CG3_F64_FLOOR)
+                and k_env[1] <= max(2 * t_env[1], CG3_F64_FLOOR),
+            "a repeat bit for bit": same_bits(h2, h) and same_bits(xs2, xs),
+            "every launch equals its plain version on the same inputs":
+                not sh.bad and sh.calls == PIECE3_LAUNCHES,
+        }, {"launches": c, "launches one piece": c1, "vs float64": env,
+            "vs one piece": (max_rel(h, h1), x_rel(xs, x1)),
+            **shadow_res(sh)})
+        del xs, xs2, x1, x32, x64
+
+    # -- the fused 2-D BiCGStab on 4 pieces ---------------------------------
+    for n, opts, label in ((N_GRID, f32, "f32 dots"),
+                           (N_GRID, f32c, "compensated dots"),
+                           (SMALL_GRID, f32c, "compensated dots")):
+        name = f"2-D BiCGStab {n}^2 {label}, {PIECES} pieces"
+        planner = build_stencil_system(2, (n, n), opts, mesh=mesh(PIECES))
+        op = planner.row_partitioned_matrices[0][0]
+        if not op.supports_fused_bicgstab:
+            raise AssertionError(f"{name}: no fused BiCGStab on pieces")
+        solver = lt.BiCGStabSolver(planner)
+        single = lt.BiCGStabSolver(build_stencil_system(2, (n, n), opts,
+                                                        device))
+        solvers[name] = (solver, single, None, None, N_ITERS,
+                         (60 * N_ITERS + 16) * n * n)
+        h1, (x1,), c1, p1, _ = block_run(torch, T, single, modules)
+        h, (xs,), c, p, _ = block_run(torch, T, solver, modules)
+        h2, (xs2,), c2, _, _ = block_run(torch, T, solver, modules)
+        sh = shadow_run(solver, N_ITERS, TB=TB)
+        fin = finite_upto(h)
+        cont = []
+        for k in (CONTINUE_AT if opts.compensated_dots else ()):
+            restart(solver)
+            if k:
+                solver.solve(k)
+            snap = snapshot(solver)
+            if not all(bool(torch.isfinite(v).all())
+                       for v in snap[0].values()):
+                cont.append((k, None, None, None, None))
+                continue
+            outs = []
+            for plain in (False, True):
+                restore(solver, snap)
+                if plain:
+                    with plain_driven(TB, solver, bicg_plain(TB)):
+                        hk = solver.solve(1)
+                else:
+                    hk = solver.solve(1)
+                outs.append((hk[1], planner.sol_vectors[0].data.clone(),
+                             planner.get_vector(solver.R, 0).data.clone()))
+            # the state's condition: the plain-driven iteration again from
+            # the state with every vector moved by one f32 ulp (signs from
+            # a seeded generator)
+            restore(solver, snap)
+            g = torch.Generator(device).manual_seed(k)
+            for i in (solver.SOL, solver.R, solver.P, solver.V):
+                d = planner.get_vector(i, 0).data
+                d.mul_(1 + eps * torch.randint(0, 2, d.shape, generator=g,
+                                               device=device) * 2 - eps)
+            with plain_driven(TB, solver, bicg_plain(TB)):
+                hq = solver.solve(1)
+            outs.append((hq[1], planner.sol_vectors[0].data.clone(),
+                         planner.get_vector(solver.R, 0).data.clone()))
+            (hk, xk, rk), (hp, xp, rp), (hq, xq, rq) = outs
+            vec = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+            cont.append((k, max_rel(hk, hp), vec(xk, xp), vec(rk, rp),
+                         max(max_rel(hq, hp), vec(xq, xp), vec(rq, rp))))
+        T.reset_launch_counts()
+        gap_iters = N_ITERS if fin == len(h) else GAP_ITERS
+        restart(solver)
+        hg = solver.solve(gap_iters)
+        planner.matvec(solver.U, solver.SOL)
+        torch.cuda.synchronize()
+        T.reset_launch_counts()
+        b = planner.rhs_vectors[0].data
+        true_rr = torch.sum((b - planner.get_vector(solver.U, 0).data)
+                            .double() ** 2).item()
+        gap = abs(true_rr - hg[-1].item()) / hg[-1].item()
+        first = max_rel(h[:3], h1[:3])
+        chk = {
+            f"launches exactly {PIECE_BICG_LAUNCHES}":
+                c == c2 == PIECE_BICG_LAUNCHES
+                and c1 == {m: N_ITERS for m in BICG_KERNELS},
+            "no plain version called": p + p1 == 0,
+            f"the first two iterations within {PIECE_BICG_RTOL} of one "
+            "piece": first <= PIECE_BICG_RTOL,
+        }
+        if cont and fin == len(h):
+            # as phase 4b, with compensated dots, at the states where one
+            # iteration is well conditioned (a one-ulp move of the state
+            # moves it by less than 1e-3); the ill-conditioned states of
+            # this chaotic recurrence (P5) and a draw that turns non-finite
+            # are reported, not held
+            held = [c_ for c_ in cont if c_[4] < 1e-3]
+            chk["one iteration from the pieces' well-conditioned states "
+                f"({[c_[0] for c_ in held]}), kernel vs plain, 1e-2"] = (
+                bool(held) and max(max(c_[1:4]) for c_ in held) <= 1e-2)
+        add(c, PIECES)
+        record(name, {
+            **chk,
+            f"||b - Ax||^2 vs history after {gap_iters}, rel 5e-2":
+                gap <= 5e-2,
+            "a repeat bit for bit": same_bits(h2, h) and same_bits(xs2, xs),
+            "every launch equals its plain version on the same inputs":
+                not sh.bad and sh.calls == PIECE_BICG_LAUNCHES,
+        }, {"launches": c, "first entries vs one piece": first,
+            "finite entries (pieces, one piece)": (fin, finite_upto(h1)),
+            "continuation (k, history, x, r; a one-ulp move)": cont,
+            "||b-Ax||^2": true_rr, "history": hg[-1].item(), "gap": gap,
+            "vs one piece (history, x)": (max_rel(h, h1), x_rel(xs, x1)),
+            **shadow_res(sh)})
+        del xs, xs2, x1
+
+    # -- BiCGStab step() on 3-D pieces --------------------------------------
+    name = f"3-D BiCGStab step() 7-point compensated, {PIECES} pieces"
+    planner = build_stencil_system(3, SHAPE3, f32c, mesh=mesh(PIECES))
+    solver = lt.BiCGStabSolver(planner)
+    if solver._make_fused_runner(BICG3_STEP_ITERS) is not None:
+        raise AssertionError("3-D pieces took a fused BiCGStab runner")
+    single = lt.BiCGStabSolver(build_stencil_system(3, SHAPE3, f32c, device))
+    solvers[name] = (solver, single, None, "LEGIONSOLVERS_NO_FUSED_BICGSTAB",
+                     BICG3_STEP_ITERS, None)
+    restart(single)
+    eager = [single.residual_norm_squared().value]
+    for _ in range(2):
+        single.step()
+        eager.append(single.residual_norm_squared().value)
+    eager = torch.stack(eager)
+    with env_route("LEGIONSOLVERS_NO_FUSED_BICGSTAB", single):
+        _, _, c1 = counted_solve(torch, T, single, BICG3_STEP_ITERS)
+    h, _, c = counted_solve(torch, T, solver, BICG3_STEP_ITERS)
+    sh = shadow_run(solver, BICG3_STEP_ITERS, T3=T3)
+    restart(solver)
+    hg = solver.solve(GAP_ITERS)
+    planner.matvec(solver.U, solver.SOL)
+    torch.cuda.synchronize()
+    T.reset_launch_counts()
+    true_rr = torch.sum((planner.rhs_vectors[0].data - planner.get_vector(
+        solver.U, 0).data).double() ** 2).item()
+    gap = abs(true_rr - hg[-1].item()) / hg[-1].item()
+    dev = rel_dev(h[:3], eager)
+    one = {"y3d": BICG3_STEP_ITERS, "y_dot3d": BICG3_STEP_ITERS}
+    want = {m: PIECES * k for m, k in one.items()}
+    add(c, PIECES, 3)
+    record(name, {
+        f"launches exactly {want}": c == want and c1 == one,
+        f"one piece's step()s through two iterations, rtol {EAGER3_RTOL}":
+            eager_ok(dev),
+        f"||b - Ax||^2 vs history after {GAP_ITERS}, rel {BICG3_GAP}":
+            gap <= BICG3_GAP,
+        "history finite": bool(torch.isfinite(h).all()),
+        "every launch equals its plain version on the same inputs":
+            not sh.bad and sh.calls == want,
+    }, {"launches": c, "vs one piece's step()s": dev.tolist(),
+        "||b-Ax||^2": true_rr, "gap": gap, **shadow_res(sh)})
+
+    # -- GMRES and PCG on 2-D pieces ----------------------------------------
+    for kind in ("GMRES(10)", "PCG(Jacobi)"):
+        name = f"2-D {kind}, {PIECES} pieces"
+        made = []
+        for m in (mesh(PIECES), None):
+            planner = build_stencil_system(2, (N_GRID, N_GRID), f32, device
+                                           if m is None else None, mesh=m)
+            made.append(lt.GMRESSolver(planner, GMRES_RESTART)
+                        if kind.startswith("GMRES") else
+                        pcg_solver(lt, planner))
+        solver, single = made
+        iters = GMRES_CYCLES if kind.startswith("GMRES") else N_ITERS
+        solvers[name] = (solver, single, None, None, iters, None)
+        (h1, x1, c1), (h, xs, c), (h2, xs2, _) = (
+            counted_solve(torch, T, slv, iters)
+            for slv in (single, solver, solver))
+        sh = shadow_run(solver, iters)
+        if kind.startswith("GMRES"):
+            one = {"y": 11 * iters + 1}
+            held = max_rel(h, h1) <= PIECE_GMRES_RTOL
+            rule = f"history within {PIECE_GMRES_RTOL} of one piece"
+        else:
+            # two f32 codes of one recurrence, sums in other orders: held
+            # to each other within twice textbook f32 CG's distance from
+            # float64 CG (phase 4's envelope)
+            one = {"y_dot": iters}
+            h64, _ = classic_cg(torch, (N_GRID, N_GRID), N_ITERS,
+                                torch.float64, device)
+            h32, _ = classic_cg(torch, (N_GRID, N_GRID), N_ITERS,
+                                torch.float32, device)
+            envelope = 2 * max_rel(h32, h64)
+            held = max_rel(h, h1) <= envelope
+            rule = (f"history within twice textbook f32 CG's distance from "
+                    f"float64 ({envelope:.3g}) of one piece's")
+        want = {m: PIECES * k for m, k in one.items()}
+        add(c, PIECES)
+        record(name, {
+            f"launches exactly {want}": c == want and c1 == one,
+            rule: held,
+            "history finite": bool(torch.isfinite(h).all()),
+            "a repeat bit for bit": same_bits(h2, h) and same_bits(xs2, xs),
+            "every launch equals its plain version on the same inputs":
+                not sh.bad and sh.calls == want,
+        }, {"launches": c, "vs one piece (history, x)": (max_rel(h, h1),
+                                                         x_rel(xs, x1)),
+            f"first {PIECE_PCG_ENTRIES} entries vs one piece":
+                max_rel(h[:PIECE_PCG_ENTRIES], h1[:PIECE_PCG_ENTRIES]),
+            **shadow_res(sh)})
+        del xs, xs2, x1
+
+    # -- block systems on 4 pieces ------------------------------------------
+    for name, (dim, shape, cls_name, env) in PIECE_BLOCK_RUNS.items():
+        cls = getattr(lt, cls_name)
+        block = cls(build_stencil_system(dim, shape, f32, num_spaces=2,
+                                         mesh=mesh(PIECES)))
+        single = cls(build_stencil_system(dim, shape, f32, mesh=mesh(PIECES)))
+        with env_route(env, block, single):
+            h1, (x1,), c1, p1, k1 = block_run(torch, T, single, modules)
+            h, xs, c, p, k = block_run(torch, T, block, modules)
+            h2, xs2, c2, _, _ = block_run(torch, T, block, modules)
+            sh = shadow_run(block, N_ITERS, TB=TB, T3=T3)
+        twice = {m: 2 * n for m, n in c1.items()}
+        add(c, PIECES, dim)
+        solvers[f"{name}, {PIECES} pieces"] = (block, single, env, env,
+                                               N_ITERS, None)
+        record(f"{name}, {PIECES} pieces", {
+            "launches exactly twice one space's on the same pieces":
+                bool(c1) and c == c2 == twice,
+            "no plain version called": p + p1 == 0,
+            "history exactly twice one space's": same_bits(h, 2 * h1),
+            "every space's x bit for bit one space's":
+                all(same_bits(xx, x1) for xx in xs),
+            "a repeat bit for bit": same_bits(h2, h)
+            and all(same_bits(a, b) for a, b in zip(xs2, xs)),
+            "every launch equals its plain version on the same inputs":
+                not sh.bad and sh.calls == twice,
+        }, {"launches": c, "launches one space": c1,
+            "cg2_coeffs (block, one space)": (k, k1), **shadow_res(sh)})
+        del xs, xs2, x1
+
+    # -- the CLI's -vp 4 ------------------------------------------------------
+    bw = copy_bandwidth(torch, device)
+    for label, argv in PIECE_CLI_RUNS.items():
+        T.reset_launch_counts()
+        out = benchmark.main(argv + ["-vp", str(PIECES)], bw=bw)
+        torch.cuda.synchronize()
+        got = {m: n for m, n in T.LAUNCHES.items()
+               if not m.startswith("chain_")}
+        T.reset_launch_counts()
+        want = piece_cli_expected(label, benchmark.RUNS)
+        pct = out["pct_roofline"]
+        add(got, PIECES, 3 if label.startswith("-dim 3") else None)
+        record(f"CLI -vp {PIECES} {label}", {
+            "reports the pieces and a share of its roofline in (0, 100]":
+                out["pieces"] == PIECES and pct is not None
+                and 0 < pct <= 100 and math.isfinite(out["final_residual2"]),
+            "launches exactly as its solves": got == want,
+        }, {k: out[k] for k in ("ms_per_iter", "gnnz_per_s", "pct_roofline",
+                                "schedule", "final_residual2")})
+    failed = [k for k, ok in checks.items() if not ok]
+    log(f"[pieces] solvers on pieces, checks: {len(checks) - len(failed)} "
+        f"of {len(checks)} hold" + (f"; FAILED: {failed}" if failed else ""))
+    return launches, grid, results, solvers, failed
+
+
+def time_piece_solvers(torch, solvers, bw, card):
+    """Phase 5j for :func:`pieces_solvers_path`'s solves: ms/iter (CUDA
+    events, the better of two solves after a warm-up) and host enqueue
+    ms/iter on pieces and on one piece (a block's: one space on the same
+    pieces) in the same process, and torch glue operations per iteration
+    counted on the host (:class:`glue_ops`); the idle share follows after
+    every timing (:func:`profile_piece_solvers`).  GMRES's iterations are
+    its cycles.  {run: {"pieces": {...}, "one piece": {...}}}."""
+    out = {}
+    for name, (solver, single, env, env1, iters, nbytes) in solvers.items():
+        row = {}
+        for label, slv, e in (("pieces", solver, env),
+                              ("one piece", single, env1)):
+            with env_route(e, slv):
+                ms, host = solve_ms(torch, slv, iters)
+                if nbytes is not None:
+                    sane(f"{name} {label} solve", ms, nbytes, bw)
+                restart(slv)
+                torch.cuda.synchronize()
+                with glue_ops() as glue:
+                    slv.solve(iters)
+                torch.cuda.synchronize()
+            row[label] = {"ms/iter": ms / iters, "host ms/iter": host / iters,
+                          "glue ops per iteration": glue.total / iters,
+                          "glue ops by name": glue.ops}
+        out[name] = row
+        log(f"[time] {name} solve({iters}): " + "; ".join(
+            f"{lab} {r['ms/iter']:.4f} ms/iter, host enqueue "
+            f"{r['host ms/iter']:.4f}, {r['glue ops per iteration']:.2f} "
+            f"torch glue ops per iteration" for lab, r in row.items())
+            + f" on {card}")
+    return out
+
+
+def profile_piece_solvers(torch, solvers, times, card):
+    """The idle share of each solve of :func:`time_piece_solvers`, 1 -
+    profiler device time per iteration over the unprofiled wall's, after
+    every timing.  A trace of the whole solve costs the tracer's host time
+    per glue operation, so a solve of many glue operations per iteration
+    is traced over fewer iterations (about TRACE_OPS operations, at least
+    a tenth of the timed iterations); a short trace of a device-bound
+    solve would read low (the first kernels of a trace go missing), and
+    those keep their whole length."""
+    for name, (solver, single, env, env1, iters, _) in solvers.items():
+        for label, slv, e in (("pieces", solver, env),
+                              ("one piece", single, env1)):
+            row = times[name][label]
+            n = min(iters, max(1, iters // 10, round(
+                TRACE_OPS / max(row["glue ops per iteration"], 1))))
+            row["traced iterations"] = n
+            with env_route(e, slv):
+                dev = profile_solve(
+                    torch, slv, "pieces_" + "".join(
+                        ch if ch.isalnum() else "_" for ch in name)
+                    + ("" if label == "pieces" else "_one"), card,
+                    row["ms/iter"] * n, n)
+            row["device ms/iter"] = dev / n
+            row["idle"] = 1 - row["device ms/iter"] / row["ms/iter"]
+        log(f"[time] {name}: idle " + "; ".join(
+            f"{lab} {100 * r['idle']:.1f}% (device {r['device ms/iter']:.4f}"
+            f" ms/iter over {r['traced iterations']} traced)"
+            for lab, r in times[name].items()) + f" on {card}")
+    return times
+
+
 # --breakdown: right-hand sides b = 1 (phase 4d's or 4b's) and b = 1 + eps
 # z, z standard normal from seeds 1 .. BREAKDOWN_RHS - 1; f32 histories
 # over BREAKDOWN_ITERS iterations, to see breakdowns past N_ITERS
@@ -4561,14 +5193,21 @@ def main() -> int:
     if "--pieces" in argv:
         pc_launches, _, pc_results, pc_solvers, failed = pieces_path(
             torch, np, T, TB, T3, TB3, lt, device)
-        times = time_piece_solves(torch, pc_solvers,
-                                  copy_bandwidth(torch, device), card)
+        ps_launches, _, ps_results, ps_solvers, f = pieces_solvers_path(
+            torch, np, T, TB, T3, TB3, lt, device)
+        failed += f
+        bw = copy_bandwidth(torch, device)
+        times = time_piece_solves(torch, pc_solvers, bw, card)
         wrappers = wrapper_host_us(torch, T, device, card)
         glue_host_us(times, wrappers)
+        ps_times = time_piece_solvers(torch, ps_solvers, bw, card)
         profile_piece_solves(torch, pc_solvers, times, card)
-        log(json.dumps({"card": card, "launches": pc_launches,
-                        "paths": pc_results, "times": times,
-                        "wrapper host us": wrappers}, default=str))
+        profile_piece_solvers(torch, ps_solvers, ps_times, card)
+        log(json.dumps({"card": card, "launches": {
+            str(k): v for k, v in {**pc_launches, **ps_launches}.items()},
+            "paths": {**pc_results, **ps_results},
+            "times": {**times, **ps_times}, "wrapper host us": wrappers},
+            default=str))
         return 1 if failed else 0
     if "--breakdown" in argv:
         dim = int(argv[argv.index("--dim") + 1]) if "--dim" in argv else 3
@@ -4610,6 +5249,9 @@ def main() -> int:
     failed += f
     mark("phase 4i")
     pc_launches, pc_grid, pc_results, pc_solvers, f = pieces_path(
+        torch, np, T, TB, T3, TB3, lt, device)
+    failed += f
+    ps_launches, ps_grid, ps_results, ps_solvers, f = pieces_solvers_path(
         torch, np, T, TB, T3, TB3, lt, device)
     failed += f
     mark("phase 4j")
@@ -4662,9 +5304,11 @@ def main() -> int:
     piece_times = time_piece_solves(torch, pc_solvers, bw, card)
     piece_wrappers = wrapper_host_us(torch, T, device, card)
     glue_host_us(piece_times, piece_wrappers)
+    solver_times = time_piece_solvers(torch, ps_solvers, bw, card)
     block_times = time_block_solves(torch, blk_solvers, bw, card)
     mark("phase 5i")
     profile_piece_solves(torch, pc_solvers, piece_times, card)
+    profile_piece_solvers(torch, ps_solvers, solver_times, card)
     mark("phase 5j")
     if "--profile" in sys.argv[1:]:  # last: tracing slows later launches
         profile_solve(torch, bsolver, "bicgstab_2d", card)
@@ -4701,9 +5345,12 @@ def main() -> int:
     for m, c in blk_launches.items():
         launches[m] = launches.get(m, 0) + c
         grid_launches[m] = grid_launches.get(m, 0) + c
-    for m, c in pc_launches.items():
-        launches[m] = launches.get(m, 0) + c
-        grid_launches[m] = grid_launches.get(m, 0) + pc_grid[m]
+    on_pieces = {}
+    for counts, grids in ((pc_launches, pc_grid), (ps_launches, ps_grid)):
+        for m, c in counts.items():
+            launches[m] = launches.get(m, 0) + c
+            grid_launches[m] = grid_launches.get(m, 0) + grids[m]
+            on_pieces[m] = on_pieces.get(m, 0) + c
     missing = [m for m, c in launches.items() if not c]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "
@@ -4791,6 +5438,11 @@ def main() -> int:
         "copy_probe", K12_CSRC, K12_PALLAS, launches["copy_probe"],
         errs_h["copy_probe"], *ptimes["copy_probe"][:2], 8 * n12, n12, bw,
         ptimes["copy_probe"][2]))
+    # the launches on pieces (phase 4j) within each row's launches
+    keys = ([*KERNELS, *BICG_KERNELS]
+            + [(m, d) for d in DIMS3 for m in (*KERNELS3, *BICG3_KERNELS)])
+    for row, key in zip(kernels, keys):
+        row["pieces_launches"] = on_pieces.get(key, 0)
     report = {"card": card, "kind": kind, "build_s": build_s,
               "copy_GBps": bw_copy / 1e9, "k12_GBps": k12_bw / 1e9,
               "k12_turns_ms": k12_ms,
@@ -4822,7 +5474,9 @@ def main() -> int:
                   **extra_x},
               "block": {"paths": blk_results, "times": block_times},
               "pieces": {"paths": pc_results, "times": piece_times,
-                         "wrapper_host_us": piece_wrappers},
+                         "wrapper_host_us": piece_wrappers,
+                         "solvers": {"paths": ps_results,
+                                     "times": solver_times}},
               "cli": {"stream_GBps": cli_bw / 1e9, "runs": cli_results,
                       "checks": cli_checked, "probes": probes,
                       "k11_rates_events": rates, **cli_report}}

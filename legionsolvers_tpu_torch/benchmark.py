@@ -16,14 +16,15 @@ the reference's 2-space block system (the same operator registered on
 each space) on the per-space kernel passes of
 ``parallel/block_fused.py``.  ``-vp N`` (N > 1) partitions the system into
 N pieces on a mesh of N shards on the one device
-(``make_mesh(N, devices=[device] * N)``), for CG on ``-dim 1`` and ``-dim
-2``.  What the JAX CLI does and the port cannot yet do raises
-``NotImplementedError`` and names the ROADMAP item that ports it: ``-vp``
-> 1 with ``-dim 3``/``4`` (item 5b), with BiCGStab, GMRES or PCG (item
-5c) or with ``--block`` (item 5f), ``--consume-rhs`` (the 3-live-vector
-CG schedule, item 6) and ``--dtype bfloat16`` (no bf16 oracle, fault F2).
-``-dim 1`` runs the linearized torch path: the 1-D kernel view is not
-ported (item 3).
+(``make_mesh(N, devices=[device] * N)``), for every ``-dim``, ``-solver``
+and ``--block``: each kernel pass runs once per piece, and the report
+names the pieces and the schedule.  The roofline counts the same bytes as
+on one piece: the halo copies and edge fix-ups between the pieces are
+glue, not minimum traffic.  What the JAX CLI does and the port cannot yet
+do raises ``NotImplementedError`` and names the ROADMAP item or fault:
+``--consume-rhs`` (the 3-live-vector CG schedule, item 6) and ``--dtype
+bfloat16`` (no bf16 oracle, fault F2).  ``-dim 1`` runs the linearized
+torch path: the 1-D kernel view is not ported (item 3).
 
 Usage:  python -m legionsolvers_tpu_torch.benchmark -dim 2 -nx 4096 -ny 4096 -it 200
 """
@@ -97,20 +98,6 @@ def make_parser():
 
 
 def _refuse_unported(args) -> None:
-    if args.vp > 1:
-        if args.dim > 2:
-            raise NotImplementedError(
-                f"-vp {args.vp} -dim {args.dim}: 3-D stencils on pieces are "
-                "not ported (ROADMAP item 5b)")
-        if args.solver != 1:
-            raise NotImplementedError(
-                f"-vp {args.vp} -solver {args.solver}: only CG runs on "
-                "pieces; the other solvers' sharded paths are ROADMAP item "
-                "5c")
-        if args.block:
-            raise NotImplementedError(
-                f"-vp {args.vp} --block: the multi-piece block phases are "
-                "not ported (ROADMAP item 5f)")
     consume = args.consume_rhs or (args.solver == 1 and bool(
         os.environ.get("LEGIONSOLVERS_CONSUME_RHS")))
     if consume:

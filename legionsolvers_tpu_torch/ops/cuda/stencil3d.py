@@ -106,11 +106,14 @@ def apply_planes_plain(v, offsets, values, halo_top=None, halo_bot=None):
 
 
 def stencil3d_plain(mode, x, halo_top, halo_bot, extra=(), *, offsets,
-                    values):
+                    values, out=None):
     """The one-pass modes of K6a (``extra`` as in :func:`_stencil3d_call`).
     Returns ``(y,)``, ``(y, dot)``, ``(dot,)`` or ``(x', r', rr)``; the
-    update mode writes x' and r' into the given x and r."""
+    update mode writes x' and r' into the given x and r, the y modes y
+    into ``out`` where given."""
     y = apply_planes_plain(x, offsets, values, halo_top, halo_bot)
+    if out is not None:
+        y = out.copy_(y)
     return mode_outputs(mode, x, y, extra)
 
 
@@ -229,13 +232,21 @@ def check_planes(X, Y, Z, offsets, **planes):
 # ===========================================================================
 
 def _stencil3d_call(x, halo_top, halo_bot, extra=(), *, offsets, values,
-                    mode: str = "y"):
+                    mode: str = "y", out=None):
     """Shared body of the K6a modes.  ``extra`` is () except for mode
-    ``update``, where it is (xv, rv, alpha) and x is the search direction p."""
+    ``update``, where it is (xv, rv, alpha) and x is the search direction p.
+    ``out``: where the y modes write y (a fresh buffer when ``None``; it may
+    not share storage with x)."""
     check_volume("x", x)
     X, Y, Z = x.shape
     check_planes(X, Y, Z, offsets, halo_top=halo_top, halo_bot=halo_bot)
     tensors = [x, halo_top, halo_bot]
+    if out is not None:
+        if mode not in ("y", "y_dot"):
+            raise ValueError(f"mode {mode!r} writes no y")
+        check_volume("out", out, (X, Y, Z))
+        _check_distinct(("x", x), ("out", out))
+        tensors.append(out)
     if mode == "update":
         xv, rv, _ = extra
         check_volume("xv", xv, (X, Y, Z))
@@ -244,9 +255,11 @@ def _stencil3d_call(x, halo_top, halo_bot, extra=(), *, offsets, values,
         tensors += [xv, rv]
     if not _on_cuda(*tensors):
         return stencil3d_plain(mode, x, halo_top, halo_bot, extra,
-                               offsets=offsets, values=values)
+                               offsets=offsets, values=values, out=out)
     dev = x.device
-    y = torch.empty_like(x) if mode in ("y", "y_dot") else None
+    y = None
+    if mode in ("y", "y_dot"):
+        y = torch.empty_like(x) if out is None else out
     xv = rv = alpha = None
     if mode == "update":
         xv, rv, alpha = extra
@@ -269,12 +282,14 @@ def _stencil3d_call(x, halo_top, halo_bot, extra=(), *, offsets, values,
 
 
 def grid3d_stencil_matvec(x, halo_top=None, halo_bot=None, *, offsets,
-                          values, with_dot: bool = False):
+                          values, with_dot: bool = False, out=None):
     """y = A @ x (and optionally <x, y>) for the 3-D stencil
-    {(ox, oy, oz): v} over the [X, Y, Z] volume."""
-    out = _stencil3d_call(x, halo_top, halo_bot, offsets=offsets,
-                          values=values, mode="y_dot" if with_dot else "y")
-    return out if with_dot else out[0]
+    {(ox, oy, oz): v} over the [X, Y, Z] volume, y written to ``out`` (a
+    fresh buffer when ``None``)."""
+    res = _stencil3d_call(x, halo_top, halo_bot, offsets=offsets,
+                          values=values, mode="y_dot" if with_dot else "y",
+                          out=out)
+    return res if with_dot else res[0]
 
 
 def grid3d_cg_pq(p, halo_top=None, halo_bot=None, *, offsets, values):

@@ -1,8 +1,8 @@
 """Fused multi-space (block-system) solver schedules.
 
-Port of ``legionsolvers_tpu/parallel/block_fused.py`` for one piece per
-space.  The reference's benchmark default stress configuration registers
-the same matrix once per space over two sol/rhs spaces (reference:
+Port of ``legionsolvers_tpu/parallel/block_fused.py``.  The reference's
+benchmark default stress configuration registers the same matrix once per
+space over two sol/rhs spaces (reference:
 BenchmarkStencil.cpp:201-207): a block-diagonal system.  A Krylov
 iteration on diag(A_0 .. A_{S-1}) is the SAME per-space kernel passes with
 the scalar reductions summed across spaces, because every dot of a block
@@ -38,13 +38,16 @@ history, everything else the kernels' float32.  A compensated dot
 a float64 sum; the cross-space sum of such dots is taken in float64 and
 rounded once, so the block sum adds no float32 rounding per space.
 
-Spaces of several pieces are not ported (ROADMAP §1 item 5f): on one
-piece every halo is the grid's zero boundary, so the JAX package's sharded
-edge fix-ups have nothing to do, and a multi-piece system raises
-NotImplementedError where they would run (:func:`_wrap`).  Reductions
-are summed over the spaces in space order by ``mesh.ordered_sum``, which
-the sharded runners of ``parallel/stencil_op.py`` use for their sums in
-piece order.
+Spaces of several pieces (on a mesh, every space with the same piece
+count) run each phase with the multi-piece steps of their operator
+(``StencilOperator._*_pieces``): the zero-halo 2-D passes with their edge
+fix-ups (``parallel/overlap.py``, ``parallel/sstep_sharded.py``), the 3-D
+passes on their neighbours' halo planes, and the torch phases' dots per
+piece.  Sums: a phase returns its space's reduction summed over the
+space's pieces in piece order, and the runner adds the spaces' totals in
+space order (``mesh.ordered_sum``), as the JAX package's phases ``psum``
+over the pieces before its runner adds the spaces.  Several pieces without
+a mesh raise ValueError (:func:`_wrap`).
 """
 
 from __future__ import annotations
@@ -77,40 +80,60 @@ def _flat(a):
 def _cg_jnp_phases(op):
     """Fallback CG phases from the operator's matvec (the classic schedule,
     q stored), in the arithmetic order of ``_make_jnp_cg_runner`` so that
-    float64 golden trajectories survive."""
+    float64 golden trajectories survive; on pieces the dots per piece,
+    summed in piece order."""
     ph = _Phases()
     _io(ph, _flat)
     ph.start = lambda x, r, p: None
+    dot = op._piece_dot
 
     def prologue(p):
         q = op.matvec(p)
-        return torch.sum(p * q), q
+        return dot(p, q), q
 
     def xpay_pq(r, p, beta):
         p = r + beta.to(p.dtype) * p
         q = op.matvec(p)
-        return p, torch.sum(p * q), q
+        return p, dot(p, q), q
 
     def update(p, x, r, alpha, q):
         a = alpha.to(p.dtype)
         x = x + a * p
         r = r - a * q
-        return x, r, torch.sum(r * r)
+        return x, r, dot(r, r)
 
     ph.prologue, ph.xpay_pq, ph.update = prologue, xpay_pq, update
     return ph
 
 
-def _two_pass_phases(op, cg_pq, cg_update, cg_xpay_pq):
+def _two_pass_phases(op, cg_pq, cg_update, cg_xpay_pq, pieces):
     """Two-pass CG phases on the given pass wrappers (2-D or 3-D, which
     take the same arguments), as ``StencilOperator._two_pass_cg_runner``
-    drives them: x and r in place, p alternating with one spare."""
+    drives them: x and r in place, p alternating with one spare.  On
+    several pieces the operator's per-piece steps ``pieces`` = (pq,
+    xpay_pq, update), as its ``_sharded_two_pass_cg_runner`` drives them;
+    their halo blocks or planes are the phases' context."""
     kw = op._kw()
     ph = _Phases()
     _io(ph, op._grid)
 
     def start(x, r, p):
         ph.spare = torch.empty_like(p)
+
+    if op._sharded:
+        pq_pieces, xpay_pq_pieces, update_pieces = pieces
+
+        def xpay_pq(r, p, beta):
+            pn, pq, halos = xpay_pq_pieces(r, p, beta, ph.spare)
+            ph.spare = p
+            return pn, pq, halos
+
+        def update(p, x, r, alpha, halos):
+            return x, r, update_pieces(p, x, r, alpha, halos)
+
+        ph.start, ph.prologue, ph.xpay_pq, ph.update = (start, pq_pieces,
+                                                        xpay_pq, update)
+        return ph
 
     def prologue(p):
         return cg_pq(p, **kw), None
@@ -129,7 +152,8 @@ def _two_pass_phases(op, cg_pq, cg_update, cg_xpay_pq):
 
 
 def _cg_2d_phases(op):
-    """Two-pass phases on the 2-D view: K3 ``pq``, K4, K3 ``update``."""
+    """Two-pass phases on the 2-D view: K3 ``pq``, K4, K3 ``update``
+    (on pieces zero-halo, with their edge fix-ups)."""
     from ..ops.cuda.stencil2d import (
         grid2d_cg_pq,
         grid2d_cg_update,
@@ -137,11 +161,14 @@ def _cg_2d_phases(op):
     )
 
     return _two_pass_phases(op, grid2d_cg_pq, grid2d_cg_update,
-                            grid2d_cg_xpay_pq)
+                            grid2d_cg_xpay_pq, (op._pq_pieces,
+                                                op._xpay_pq_pieces,
+                                                op._update_pieces))
 
 
 def _cg_3d_phases(op):
-    """Two-pass phases on the 3-D view: K6a ``pq``, K6b, K6a ``update``."""
+    """Two-pass phases on the 3-D view: K6a ``pq``, K6b, K6a ``update``
+    (on pieces with their neighbours' halo planes)."""
     from ..ops.cuda.stencil3d import (
         grid3d_cg_pq,
         grid3d_cg_update,
@@ -149,13 +176,17 @@ def _cg_3d_phases(op):
     )
 
     return _two_pass_phases(op, grid3d_cg_pq, grid3d_cg_update,
-                            grid3d_cg_xpay_pq)
+                            grid3d_cg_xpay_pq, (op._pq3d_pieces,
+                                                op._xpay_pq3d_pieces,
+                                                op._update3d_pieces))
 
 
 def _cg_step2_phases(op):
     """s-step CG phases (mirrors ``_make_step2_cg_runner``): the K2 Gram
     bootstrap and refresh, the K1 pass with r and p ping-ponging with one
-    pair of spares, and the odd trailing iteration's K3 ``update``."""
+    pair of spares, and the odd trailing iteration's K3 ``update``; on
+    pieces the operator's zero-halo steps with their strip fix-ups
+    (``_gram2_pieces``, ``_step2_pieces``, ``_odd_update_pieces``)."""
     from ..ops.cuda.stencil2d import (
         grid2d_cg_gram2,
         grid2d_cg_step2,
@@ -169,16 +200,26 @@ def _cg_step2_phases(op):
     def start(x, r, p):
         ph.spare = (torch.empty_like(r), torch.empty_like(p))
 
+    sharded = op._sharded
+
     def gram(r, p):
+        if sharded:
+            return op._gram2_pieces(r, p)
         return grid2d_cg_gram2(r, p, **kw)
 
     def step2(x, r, p, coef):
-        _, rn, pn, g = grid2d_cg_step2(x, r, p, coef, out=ph.spare, **kw)
+        if sharded:
+            _, rn, pn, g = op._step2_pieces(x, r, p, coef, ph.spare)
+        else:
+            _, rn, pn, g = grid2d_cg_step2(x, r, p, coef, out=ph.spare,
+                                           **kw)
         ph.spare = (r, p)
         return x, rn, pn, g
 
     def odd_update(p, x, r, alpha):
         """One plain CG update from the current p: (x, r, <r, r>)."""
+        if sharded:
+            return x, r, op._odd_update_pieces(p, x, r, alpha)
         return grid2d_cg_update(p, x, r, alpha, **kw)
 
     ph.start, ph.gram, ph.step2, ph.odd_update = start, gram, step2, \
@@ -189,24 +230,26 @@ def _cg_step2_phases(op):
 def _bicg_jnp_phases(op):
     """Fallback BiCGStab phases from the operator's matvec (s and t
     stored; the classic schedule, any geometry and dtype), dots summed in
-    the entry dtype."""
+    the entry dtype (on pieces per piece, in piece order)."""
     ph = _Phases()
     _io(ph, _flat)
     ph.start = lambda r, p, v: None
     ph.compensated = False
 
+    dot = op._piece_dot
+
     def boot(r, rt):
-        return torch.sum(r * r), torch.sum(rt * r)
+        return dot(r, r), dot(rt, r)
 
     def pv(r, p, v, rt, beta, omega):
         p = r + beta.to(p.dtype) * (p - omega.to(p.dtype) * v)
         v = op.matvec(p)
-        return p, v, torch.sum(rt * v)
+        return p, v, dot(rt, v)
 
     def st(r, v, alpha):
         s = r - alpha.to(r.dtype) * v
         t = op.matvec(s)
-        return torch.sum(t * s), torch.sum(t * t), (s, t)
+        return dot(t, s), dot(t, t), (s, t)
 
     def update(r, v, x, p, rt, alpha, omega, ctx):
         s, t = ctx
@@ -214,7 +257,7 @@ def _bicg_jnp_phases(op):
         w = omega.to(x.dtype)
         x = x + a * p + w * s
         r = s - w * t
-        return x, r, torch.sum(r * r), torch.sum(rt * r)
+        return x, r, dot(r, r), dot(rt, r)
 
     ph.boot, ph.pv, ph.st, ph.update = boot, pv, st, update
     return ph
@@ -223,11 +266,15 @@ def _bicg_jnp_phases(op):
 def _bicg_fused_phases(op, pv, st, update):
     """Three-pass BiCGStab phases on the given pass wrappers (2-D or 3-D),
     as ``StencilOperator._bicgstab_runner`` drives them: x in place, p, v
-    and r alternating with spares."""
+    and r alternating with spares.  On several pieces (2-D only) the
+    operator's zero-halo steps with their edge fix-ups, as its
+    ``_sharded_bicgstab_runner`` drives them; the pv step's derived halo
+    rows and p' are kept for the st step."""
     from ..ops.cuda.bicgstab2d import _pdot
 
     comp = bool(op.options.compensated_dots)
     kw = dict(op._kw(), compensated=comp)
+    sharded = op._sharded
     ph = _Phases()
     _io(ph, op._grid)
     ph.compensated = comp
@@ -237,21 +284,34 @@ def _bicg_fused_phases(op, pv, st, update):
                                               for a in (r, p, v))
 
     def boot(r, rt):
+        if sharded:
+            return op._bicg_boot_pieces(r, rt)
         return _pdot(r, r, comp), _pdot(rt, r, comp)
 
     def pv_(r, p, v, rt, beta, omega):
-        pn, vn, rtv = pv(r, p, v, rt, beta, omega,
-                         out=(ph.spare_p, ph.spare_v), **kw)
+        out = (ph.spare_p, ph.spare_v)
+        if sharded:
+            pn, vn, rtv, ph.pv_ctx = op._bicg_pv_pieces(r, p, v, rt, beta,
+                                                        omega, out)
+            ph.pn = pn
+        else:
+            pn, vn, rtv = pv(r, p, v, rt, beta, omega, out=out, **kw)
         ph.spare_p, ph.spare_v = p, v
         return pn, vn, rtv
 
     def st_(r, v, alpha):
+        if sharded:
+            return op._bicg_st_pieces(r, v, ph.pn, alpha, ph.pv_ctx)
         ts, tt = st(r, v, alpha, **kw)
         return ts, tt, None
 
     def update_(r, v, x, p, rt, alpha, omega, ctx):
-        _, rn, rr, rtr = update(r, v, x, p, rt, alpha, omega,
-                                out=ph.spare_r, **kw)
+        if sharded:
+            _, rn, rr, rtr = op._bicg_update_pieces(r, v, x, p, rt, alpha,
+                                                    omega, ctx, ph.spare_r)
+        else:
+            _, rn, rr, rtr = update(r, v, x, p, rt, alpha, omega,
+                                    out=ph.spare_r, **kw)
         ph.spare_r = r
         return x, rn, rr, rtr
 
@@ -360,13 +420,13 @@ def _scalar_dtype(arrs):
 
 
 def _wrap(ops, local_run):
-    """The runner over per-space tuples: on one piece the loop itself.
-    Spaces of several pieces would run the JAX package's edge fix-ups in
-    every phase (ROADMAP §1 item 5f)."""
-    if any(op.partition.num_pieces != 1 for op in ops):
-        raise NotImplementedError(
-            "block systems whose spaces have several pieces: the "
-            "multi-piece block phases are not ported (ROADMAP §1 item 5f)")
+    """The runner over per-space tuples: the loop itself.  Every phase of
+    a space of several pieces runs its operator's per-piece steps, which
+    need a mesh (several pieces without one raise ValueError, as the
+    single-space fused runners do)."""
+    if any(op.partition.num_pieces > 1 and op.mesh is None for op in ops):
+        raise ValueError("a block runner over spaces of several pieces "
+                         "needs a mesh")
     return local_run
 
 

@@ -6,9 +6,9 @@ when the operator is built:
 
 * **kernel view** (``_view``, f32, unpadded blocks): 2-D grids (kind
   ``2d``, each piece an ``[Br, C]`` row block; kernels of
-  ``ops/cuda/stencil2d.py`` and ``bicgstab2d.py``) and 3-D grids on one
-  piece (kind ``3d``, the ``[X, Y, Z]`` volume, kernels of
-  ``ops/cuda/stencil3d.py`` and ``bicgstab3d.py``).  Every pass is a
+  ``ops/cuda/stencil2d.py`` and ``bicgstab2d.py``) and 3-D grids (kind
+  ``3d``, each piece an ``[Br, Y, Z]`` block of whole x-planes; kernels
+  of ``ops/cuda/stencil3d.py`` and ``bicgstab3d.py``).  Every pass is a
   hand-written CUDA kernel (its plain PyTorch version on CPU tensors).
   The names ``_plan_pallas_view``/``_pallas_local``/``uses_pallas`` are
   kept from the JAX package for parity.
@@ -20,24 +20,27 @@ The fused runners drive the whole loop.  CG (``make_fused_cg_runner``):
 the s-step schedule (one K1 pass per two iterations, 2-D), the two-pass
 schedule (K4 + K3 ``update`` in 2-D, K6b + K6a ``update`` in 3-D) and the
 torch recompute runner.  BiCGStab (``make_fused_bicgstab_runner``): the
-three K5 (2-D) or K7 (3-D) passes per iteration.  Scalars stay on the
-device throughout; no runner reads one back to the host.
+three K5 (2-D) or K7 (3-D, one piece) passes per iteration.  Scalars stay
+on the device throughout; no runner reads one back to the host.
 
 Pieces (``parallel/mesh.py``): on a mesh of S shards, which all live on one
 device, a vector is one tensor and piece s its row block.  Each kernel
-pass runs once per piece with ZERO halo blocks; the halo rows are copied
-out of the neighbouring pieces into fresh blocks before the first piece's
-pass, and the terms the passes left out at the piece edges are patched
-afterwards (``parallel/overlap.py`` for the matvec and the two-pass CG,
-``parallel/sstep_sharded.py`` for the s-step CG).  Dots are summed over
-the pieces in piece order.  The linearized path reads its band from the
-neighbouring pieces.  A sharded operator runs these paths or raises; it
-never falls back to one piece.
+pass runs once per piece.  2-D passes run with ZERO halo blocks: the halo
+rows are copied out of the neighbouring pieces into fresh blocks before the
+first piece's pass, and the terms the passes left out at the piece edges
+are patched afterwards (``parallel/overlap.py`` for the matvec, the
+two-pass CG and the BiCGStab passes, ``parallel/sstep_sharded.py`` for the
+s-step CG).  3-D passes take their neighbours' edge x-planes as halo
+planes, copied out before the first piece's pass, and need no fix-up, as
+in the JAX package.  Dots are summed over the pieces in piece order.  The
+per-piece steps are methods (``_*_pieces``) that the runners here and the
+block phases of ``parallel/block_fused.py`` share.  The linearized path
+reads its band from the neighbouring pieces.  A sharded operator runs
+these paths or raises; it never falls back to one piece.  The fused 3-D
+BiCGStab runner is one piece only, as in the JAX package: on 3-D pieces
+BiCGStab runs ``step()`` over the sharded matvec.
 
-Not ported yet: 3-D stencils on a mesh of several pieces (ROADMAP §1
-item 5b: ``_exchange_planes3d`` keeps the JAX package's name and gives
-zero planes on one piece), the fused BiCGStab runners of sharded
-operators (item 5c) and the 1-D flat-offset view (item 3).
+Not ported yet: the 1-D flat-offset view (ROADMAP §1 item 3).
 """
 
 from __future__ import annotations
@@ -93,12 +96,6 @@ class StencilOperator:
         self._wide_band = (partition.num_pieces > 1 and max(
             self.band_lo, self.band_hi) > partition.block_size)
         self._view = self._plan_pallas_view() if use_pallas else None
-        if (self._sharded and self._view is not None
-                and self._view["kind"] == "3d"):
-            raise NotImplementedError(
-                f"a 3-D stencil on a mesh of {partition.num_pieces} pieces: "
-                "the sharded 3-D kernel path is not ported (ROADMAP §1 item "
-                "5b)")
         self._diag_cache = {}
 
     # -- interface parity with the explicit operators ---------------------
@@ -191,10 +188,10 @@ class StencilOperator:
         return a.reshape(rows, v["C"])
 
     def _pieces(self, g: torch.Tensor) -> torch.Tensor:
-        """The ``[S, Br, C]`` view of a 2-D grid of all pieces: piece s is
-        ``[s]``, a contiguous ``[Br, C]`` view."""
-        v = self._view
-        return g.view(self.partition.num_pieces, v["Br"], v["C"])
+        """The ``[S, Br, ...]`` view of a grid of all pieces (``[S * Br, C]``
+        or ``[S * Br, Y, Z]``): piece s is ``[s]``, a contiguous view."""
+        return g.view(self.partition.num_pieces, self._view["Br"],
+                      *g.shape[1:])
 
     def _rows_reach(self):
         """(rows above, rows below) a piece that its stencil reads."""
@@ -220,51 +217,130 @@ class StencilOperator:
         piece order."""
         return ordered_sum(parts, torch.float32)
 
-    def _update_pieces(self, x3, r3, p3, alpha, top, bot):
-        """K3 ``update`` on every piece of the ``[S, Br, C]`` stacks x3, r3
-        (updated in place) and p3, each piece reading p's halo rows from
-        its ``[8, C]`` blocks of ``top`` and ``bot``; <r', r'> summed in
-        piece order."""
+    def _piece_dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """<a, b> in the entry dtype: on pieces each piece's sum, the sums
+        added in piece order (the JAX package's psum of per-shard sums);
+        on one piece one sum."""
+        if not self._sharded:
+            return torch.sum(a * b)
+        S = self.partition.num_pieces
+        parts = torch.sum(a.reshape(S, -1) * b.reshape(S, -1), dim=1)
+        return ordered_sum(parts, a.dtype)
+
+    def _edge_flags(self, device):
+        """([S, 1, 1] is-first-piece, [S, 1, 1] is-last-piece) bool masks,
+        made once per device."""
+        key = ("edge flags", device)
+        flags = self._diag_cache.get(key)
+        if flags is None:
+            first = (torch.arange(self.partition.num_pieces, device=device)
+                     == 0).view(-1, 1, 1)
+            flags = (first, first.flip(0))
+            self._diag_cache[key] = flags
+        return flags
+
+    # -- 2-D passes on pieces: zero-halo kernels plus edge fix-ups ---------
+    def _pq_pieces(self, p):
+        """(<p, A p>, p's halo blocks): a zero-halo K3 ``pq`` per piece, its
+        edge terms (``overlap.dot_fixup``) from p's exchanged halo rows,
+        summed in piece order; the two-pass prologue."""
+        from ..ops.cuda.stencil2d import grid2d_cg_pq
+        from .overlap import dot_fixup
+
+        kw = self._kw()
+        (top,), (bot,) = self._exchange(p)
+        p3 = self._pieces(p)
+        pq = torch.stack([grid2d_cg_pq(p3[s], **kw)
+                          for s in range(self.partition.num_pieces)])
+        pq = self._psum(pq + dot_fixup(p3, kw["offsets"], top, bot,
+                                       self._coeff))
+        return pq, (top, bot)
+
+    def _xpay_pq_pieces(self, r, p, beta, out):
+        """(p' = r + beta p written to ``out``, <p', A p'>, p''s halo
+        blocks): the halo rows of r and p exchanged first; a zero-halo K4
+        per piece, its <p', A p'> patched from p''s halo rows r_halo + beta
+        p_halo; summed in piece order."""
+        from ..ops.cuda.stencil2d import grid2d_cg_xpay_pq
+        from .overlap import dot_fixup
+
+        kw = self._kw()
+        (r_top, p_top), (r_bot, p_bot) = self._exchange(r, p)
+        r3, p3, o3 = (self._pieces(a) for a in (r, p, out))
+        pq = torch.stack([
+            grid2d_cg_xpay_pq(r3[s], p3[s], beta, out=o3[s], **kw)[1]
+            for s in range(self.partition.num_pieces)])
+        b = beta.to(p.dtype)
+        top = r_top + b * p_top
+        bot = r_bot + b * p_bot
+        pq = self._psum(pq + dot_fixup(o3, kw["offsets"], top, bot,
+                                       self._coeff))
+        return out, pq, (top, bot)
+
+    def _update_pieces(self, p, x, r, alpha, halos):
+        """K3 ``update`` on every piece: x and r updated in place, each
+        piece reading p's halo rows from its ``[8, C]`` blocks of ``halos``
+        = (top, bot); <r', r'> summed in piece order."""
         from ..ops.cuda.stencil2d import grid2d_cg_update
 
         kw = self._kw()
+        top, bot = halos
+        p3, x3, r3 = (self._pieces(a) for a in (p, x, r))
         return self._psum(torch.stack([
             grid2d_cg_update(p3[s], x3[s], r3[s], alpha, top[s], bot[s],
                              **kw)[2]
             for s in range(self.partition.num_pieces)]))
 
-    def _exchange_planes3d(self, g: torch.Tensor):
-        """([Y, Z] top, [Y, Z] bot) x-halo planes of the local [X, Y, Z]
-        block.  On one piece the volume's neighbours are the grid's
-        boundary, so both are zero planes, passed as ``None``; the
-        exchange between 3-D pieces is ROADMAP §1 item 5b."""
-        return None, None
+    def _gram2_pieces(self, r, p):
+        """The Gram vector of (r, p): a zero-halo K2 per piece, repaired
+        from 4-row halos of r and p (``sstep_sharded.gram2_fixup``),
+        summed in piece order."""
+        from ..ops.cuda.stencil2d import grid2d_cg_gram2
+        from .sstep_sharded import exchange_halo4, gram2_fixup
 
-    def _pallas_local_3d(self, x: torch.Tensor, *, with_dot: bool = False):
-        from ..ops.cuda.stencil3d import grid3d_stencil_matvec
+        kw = self._kw()
+        S = self.partition.num_pieces
+        halos = exchange_halo4(r, p, S)
+        r3, p3 = self._pieces(r), self._pieces(p)
+        g = torch.stack([grid2d_cg_gram2(r3[s], p3[s], **kw)
+                         for s in range(S)])
+        return self._psum(gram2_fixup(g, r, p, halos, kw["offsets"],
+                                      kw["values"], S))
 
-        g = self._grid(x)
-        top, bot = self._exchange_planes3d(g)
-        out = grid3d_stencil_matvec(g, top, bot, with_dot=with_dot,
-                                    **self._kw())
-        if with_dot:
-            y, dot = out
-            return y.reshape(x.shape), dot
-        return out.reshape(x.shape)
+    def _step2_pieces(self, x, r, p, coef, spare):
+        """One s-step pass on every piece: x'' over x, r'' and p'' into the
+        pair ``spare``; a zero-halo K1 per piece after the 4-row halos of r
+        and p (and x's edge strips, which K1 overwrites) are taken, the
+        edges and Grams repaired (``sstep_sharded.step2_fixup``), the Grams
+        summed in piece order.  Returns (x, r'', p'', gram)."""
+        from ..ops.cuda.stencil2d import grid2d_cg_step2
+        from .sstep_sharded import STRIP, exchange_halo4, step2_fixup
 
-    def _pallas_local(self, x: torch.Tensor, *, with_dot: bool = False):
-        from ..ops.cuda.stencil2d import grid2d_stencil_matvec
+        kw = self._kw()
+        S = self.partition.num_pieces
+        Br = self._view["Br"]
+        halos = exchange_halo4(r, p, S)
+        x3, r3, p3 = (self._pieces(a) for a in (x, r, p))
+        # r and p are not written by the passes (r'' and p'' go to the
+        # spares), x is: its strips are copied first
+        saves = (x3[:, :STRIP].clone(), r3[:, :STRIP], p3[:, :STRIP],
+                 x3[:, Br - STRIP:].clone(), r3[:, Br - STRIP:],
+                 p3[:, Br - STRIP:])
+        sr3, sp3 = self._pieces(spare[0]), self._pieces(spare[1])
+        g = torch.stack([
+            grid2d_cg_step2(x3[s], r3[s], p3[s], coef,
+                            out=(sr3[s], sp3[s]), **kw)[3]
+            for s in range(S)])
+        x, rn, pn, g = step2_fixup((x, spare[0], spare[1], g), saves, halos,
+                                   coef, kw["offsets"], kw["values"], S)
+        return x, rn, pn, self._psum(g)
 
-        if self._view["kind"] == "3d":
-            return self._pallas_local_3d(x, with_dot=with_dot)
-        if self._sharded:
-            return self._pallas_sharded(x, with_dot=with_dot)
-        out = grid2d_stencil_matvec(self._grid(x), with_dot=with_dot,
-                                    **self._kw())
-        if with_dot:
-            y, dot = out
-            return y.reshape(x.shape), dot
-        return out.reshape(x.shape)
+    def _odd_update_pieces(self, p, x, r, alpha):
+        """One CG update of x and r (in place) with the current p, on p's
+        exchanged halo rows: the s-step schedule's odd trailing iteration.
+        Returns <r', r'>."""
+        (top,), (bot,) = self._exchange(p)
+        return self._update_pieces(p, x, r, alpha, (top, bot))
 
     def _pallas_sharded(self, x: torch.Tensor, *, with_dot: bool = False):
         """The matvec on S pieces: a zero-halo K3 pass per piece into its
@@ -289,6 +365,132 @@ class StencilOperator:
         if with_dot:
             return y.reshape(x.shape), self._psum(dots)
         return y.reshape(x.shape)
+
+    # -- 3-D passes on pieces: real halo planes, no fix-up -----------------
+    def _planes3d(self, *grids):
+        """(tops, bots): per 3-D grid of all pieces (``[S * Br, Y, Z]``),
+        its ``[S, Y, Z]`` x-halo planes: piece s's top plane is the last
+        x-plane of piece s - 1, its bottom plane the first x-plane of piece
+        s + 1, zeros at the grid's ends.  The planes of all grids are cut
+        from one fresh tensor per side (two torch launches per side for any
+        number of grids and pieces), so they are copies taken before any
+        pass writes; piece s's plane ``[s]`` is a contiguous ``[Y, Z]``
+        tensor.  A side the stencil does not read (no ``ox < 0``, or no
+        ``ox > 0``) and every side of one piece is ``None``: zero planes."""
+        S = self.partition.num_pieces
+        offs3 = self._view["offs3"]
+        vols = [self._pieces(g) for g in grids]
+
+        def side(top):
+            need = any((o[0] < 0) if top else (o[0] > 0) for o in offs3)
+            if S == 1 or not need:
+                return (None,) * len(grids)
+            edge = torch.stack([v[:-1, -1] if top else v[1:, 0]
+                                for v in vols], 1)
+            pad = (0, 0, 0, 0, 0, 0, 1, 0) if top else (0, 0, 0, 0, 0, 0, 0,
+                                                       1)
+            return F.pad(edge, pad).unbind(1)
+
+        return side(True), side(False)
+
+    def _exchange_planes3d(self, g: torch.Tensor):
+        """([S, Y, Z] top, [S, Y, Z] bot) x-halo planes of the 3-D grid
+        ``g`` of all pieces (:meth:`_planes3d`): the neighbours' edge
+        planes, zeros at the grid's ends, ``None`` where the stencil does
+        not read them and on one piece, whose neighbours are the grid's
+        boundary."""
+        (top,), (bot,) = self._planes3d(g)
+        return top, bot
+
+    @staticmethod
+    def _plane(planes, s):
+        """Piece s's ``[Y, Z]`` plane of ``[S, Y, Z]`` planes (None stays
+        None)."""
+        return None if planes is None else planes[s]
+
+    def _pq3d_pieces(self, p):
+        """(<p, A p>, p's planes): K6a ``pq`` per piece on p's halo planes,
+        summed in piece order."""
+        from ..ops.cuda.stencil3d import grid3d_cg_pq
+
+        kw, pl = self._kw(), self._plane
+        top, bot = self._exchange_planes3d(p)
+        p3 = self._pieces(p)
+        pq = torch.stack([grid3d_cg_pq(p3[s], pl(top, s), pl(bot, s), **kw)
+                          for s in range(self.partition.num_pieces)])
+        return self._psum(pq), (top, bot)
+
+    def _xpay_pq3d_pieces(self, r, p, beta, out):
+        """(p' = r + beta p written to ``out``, <p', A p'>, p''s planes):
+        the planes of r and p exchanged first, p''s planes r_plane + beta
+        p_plane; K6b per piece on them; summed in piece order."""
+        from ..ops.cuda.stencil3d import grid3d_cg_xpay_pq
+
+        kw, pl = self._kw(), self._plane
+        (r_top, p_top), (r_bot, p_bot) = self._planes3d(r, p)
+        b = beta.to(p.dtype)
+        top = None if r_top is None else r_top + b * p_top
+        bot = None if r_bot is None else r_bot + b * p_bot
+        r3, p3, o3 = (self._pieces(a) for a in (r, p, out))
+        pq = torch.stack([
+            grid3d_cg_xpay_pq(r3[s], p3[s], beta, pl(top, s), pl(bot, s),
+                              out=o3[s], **kw)[1]
+            for s in range(self.partition.num_pieces)])
+        return out, self._psum(pq), (top, bot)
+
+    def _update3d_pieces(self, p, x, r, alpha, planes):
+        """K6a ``update`` per piece on p's ``planes`` = (top, bot): x and r
+        updated in place, <r', r'> summed in piece order."""
+        from ..ops.cuda.stencil3d import grid3d_cg_update
+
+        kw, pl = self._kw(), self._plane
+        top, bot = planes
+        p3, x3, r3 = (self._pieces(a) for a in (p, x, r))
+        return self._psum(torch.stack([
+            grid3d_cg_update(p3[s], x3[s], r3[s], alpha, pl(top, s),
+                             pl(bot, s), **kw)[2]
+            for s in range(self.partition.num_pieces)]))
+
+    def _pallas_local_3d(self, x: torch.Tensor, *, with_dot: bool = False):
+        """The 3-D matvec: on one piece one K6a pass with zero planes; on S
+        pieces K6a per piece into its planes of y, each with its
+        neighbours' edge planes (the same terms in the same order per
+        element as on one piece), the dots summed in piece order."""
+        from ..ops.cuda.stencil3d import grid3d_stencil_matvec
+
+        g = self._grid(x)
+        kw = self._kw()
+        if not self._sharded:
+            out = grid3d_stencil_matvec(g, with_dot=with_dot, **kw)
+            if with_dot:
+                y, dot = out
+                return y.reshape(x.shape), dot
+            return out.reshape(x.shape)
+        top, bot = self._exchange_planes3d(g)
+        y = torch.empty_like(g)
+        g3, y3 = self._pieces(g), self._pieces(y)
+        pl = self._plane
+        outs = [grid3d_stencil_matvec(g3[s], pl(top, s), pl(bot, s),
+                                      with_dot=with_dot, out=y3[s], **kw)
+                for s in range(self.partition.num_pieces)]
+        if with_dot:
+            return y.reshape(x.shape), self._psum(
+                torch.stack([d for _, d in outs]))
+        return y.reshape(x.shape)
+
+    def _pallas_local(self, x: torch.Tensor, *, with_dot: bool = False):
+        from ..ops.cuda.stencil2d import grid2d_stencil_matvec
+
+        if self._view["kind"] == "3d":
+            return self._pallas_local_3d(x, with_dot=with_dot)
+        if self._sharded:
+            return self._pallas_sharded(x, with_dot=with_dot)
+        out = grid2d_stencil_matvec(self._grid(x), with_dot=with_dot,
+                                    **self._kw())
+        if with_dot:
+            y, dot = out
+            return y.reshape(x.shape), dot
+        return out.reshape(x.shape)
 
     # ======================================================================
     # linearized path: shifted 1-D slices + integer boundary masks
@@ -400,11 +602,7 @@ class StencilOperator:
         if self._view is not None:
             return self._pallas_local(x, with_dot=True)
         y = self.matvec(x)
-        if self._sharded:
-            S = self.partition.num_pieces
-            parts = torch.sum(x.view(S, -1) * y.view(S, -1), dim=1)
-            return y, ordered_sum(parts, x.dtype)
-        return y, torch.sum(x * y)
+        return y, self._piece_dot(x, y)
 
     def matvec_add(self, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return y + self.matvec(x)
@@ -472,57 +670,27 @@ class StencilOperator:
             grid2d_cg_step2,
             grid2d_cg_update,
         )
-        from .sstep_sharded import (
-            STRIP,
-            exchange_halo4,
-            gram2_fixup,
-            step2_fixup,
-        )
 
         kw = self._kw()
-        offs, vals = kw["offsets"], kw["values"]
         K, odd = divmod(num_iterations, 2)
         refresh = int(os.environ.get("LEGIONSOLVERS_SSTEP_REFRESH", "16"))
-        S = self.partition.num_pieces
-        sharded = S > 1
-        Br = self._view["Br"]
-        pieces = self._pieces
+        sharded = self.partition.num_pieces > 1
 
         def gram(r, p):
             if not sharded:
                 return grid2d_cg_gram2(r, p, **kw)
-            halos = exchange_halo4(r, p, S)
-            r3, p3 = pieces(r), pieces(p)
-            g = torch.stack([grid2d_cg_gram2(r3[s], p3[s], **kw)
-                             for s in range(S)])
-            return self._psum(gram2_fixup(g, r, p, halos, offs, vals, S))
+            return self._gram2_pieces(r, p)
 
         def step2(x, r, p, coef, spare):
             if not sharded:
                 return grid2d_cg_step2(x, r, p, coef, out=spare, **kw)
-            halos = exchange_halo4(r, p, S)
-            x3, r3, p3 = pieces(x), pieces(r), pieces(p)
-            # r and p are not written by the passes (r'' and p'' go to the
-            # spares), x is: its strips are copied first
-            saves = (x3[:, :STRIP].clone(), r3[:, :STRIP], p3[:, :STRIP],
-                     x3[:, Br - STRIP:].clone(), r3[:, Br - STRIP:],
-                     p3[:, Br - STRIP:])
-            sr3, sp3 = pieces(spare[0]), pieces(spare[1])
-            g = torch.stack([
-                grid2d_cg_step2(x3[s], r3[s], p3[s], coef,
-                                out=(sr3[s], sp3[s]), **kw)[3]
-                for s in range(S)])
-            x, rn, pn, g = step2_fixup((x, spare[0], spare[1], g), saves,
-                                       halos, coef, offs, vals, S)
-            return x, rn, pn, self._psum(g)
+            return self._step2_pieces(x, r, p, coef, spare)
 
         def odd_update(x, r, p, alpha):
             """One CG update of x and r with the current p; <r', r'>."""
             if not sharded:
                 return grid2d_cg_update(p, x, r, alpha, **kw)[2]
-            (top,), (bot,) = self._exchange(p)
-            return self._update_pieces(pieces(x), pieces(r), pieces(p),
-                                       alpha, top, bot)
+            return self._odd_update_pieces(p, x, r, alpha)
 
         def run(x, r, p, rr0):
             shape = x.shape
@@ -601,14 +769,20 @@ class StencilOperator:
         """Fused CG over the 3-D kernels: a K6a ``pq`` + ``update``
         prologue on the incoming p, then per iteration K6b ``xpay_pq`` (p =
         r + beta p formed while loading, 12 B/elt) + K6a ``update`` (20
-        B/elt), 32 B/unknown.  On one device p's halo planes are zero
-        (``None``).  Same contract as the 2-D runners."""
+        B/elt), 32 B/unknown.  On one piece p's halo planes are zero
+        (``None``); on S pieces every pass runs once per piece with its
+        neighbours' planes (:meth:`_sharded_two_pass_cg_runner`).  Same
+        contract as the 2-D runners."""
         from ..ops.cuda.stencil3d import (
             grid3d_cg_pq,
             grid3d_cg_update,
             grid3d_cg_xpay_pq,
         )
 
+        if self._sharded:
+            return self._sharded_two_pass_cg_runner(
+                num_iterations, self._pq3d_pieces, self._xpay_pq3d_pieces,
+                self._update3d_pieces)
         return self._two_pass_cg_runner(num_iterations, grid3d_cg_pq,
                                         grid3d_cg_update, grid3d_cg_xpay_pq)
 
@@ -640,51 +814,40 @@ class StencilOperator:
 
         return run
 
-    def _sharded_two_pass_cg_runner(self, num_iterations: int):
-        """The two-pass schedule on S pieces.  Per iteration the halo rows
-        of r and p are exchanged first; K4 runs per piece with zero halos
-        and its <p, A p> is patched from p's halo rows r_halo + beta
-        p_halo (``overlap.dot_fixup``); K3 ``update`` runs per piece with
-        those halo rows.  The prologue is a zero-halo K3 ``pq`` per piece
-        with the same fix-up.  Dots are summed in piece order.  Buffers as
-        in :meth:`_two_pass_cg_runner`."""
-        from ..ops.cuda.stencil2d import grid2d_cg_pq, grid2d_cg_xpay_pq
-        from .overlap import dot_fixup
-
-        kw = self._kw()
-        offs = kw["offsets"]
-        S = self.partition.num_pieces
-        pieces = self._pieces
-        update_all = self._update_pieces
+    def _sharded_two_pass_cg_runner(self, num_iterations: int,
+                                    pq_pieces=None, xpay_pq_pieces=None,
+                                    update_pieces=None):
+        """The two-pass schedule on S pieces, on the per-piece steps given
+        (default: the 2-D ones).  2-D: per iteration the halo rows of r
+        and p are exchanged first; K4 runs per piece with zero halos and
+        its <p, A p> is patched from p's halo rows r_halo + beta p_halo
+        (``overlap.dot_fixup``); K3 ``update`` runs per piece with those
+        halo rows; the prologue is a zero-halo K3 ``pq`` per piece with the
+        same fix-up.  3-D: the x-planes of r and p are exchanged first and
+        K6b and K6a ``update`` run per piece on p's planes r_plane + beta
+        p_plane; the prologue is K6a ``pq`` and ``update`` on p's planes.
+        Every plane and halo row is copied out before the iteration's first
+        launch: ``update`` writes x and r in place, K4 and K6b write p'
+        into the spare.  Dots are summed in piece order.  Buffers as in
+        :meth:`_two_pass_cg_runner`."""
+        pq_pieces = pq_pieces or self._pq_pieces
+        xpay_pq_pieces = xpay_pq_pieces or self._xpay_pq_pieces
+        update_pieces = update_pieces or self._update_pieces
 
         def run(x, r, p, rr0):
             shape = x.shape
             x, r, p = self._grid(x), self._grid(r), self._grid(p)
-            x3, r3, p3 = pieces(x), pieces(r), pieces(p)
             rr = torch.as_tensor(rr0, dtype=torch.float32, device=x.device)
             hist = [rr]
-            (p_top,), (p_bot,) = self._exchange(p)
-            pq = torch.stack([grid2d_cg_pq(p3[s], **kw) for s in range(S)])
-            pq = self._psum(pq + dot_fixup(p3, offs, p_top, p_bot,
-                                           self._coeff))
-            rr_new = update_all(x3, r3, p3, rr / pq, p_top, p_bot)
+            pq, halos = pq_pieces(p)
+            rr_new = update_pieces(p, x, r, rr / pq, halos)
             hist.append(rr_new)
             spare = torch.empty_like(p)
             for _ in range(1, num_iterations):
                 rr_prev, rr = rr, rr_new
-                beta = rr / rr_prev
-                (r_top, p_top), (r_bot, p_bot) = self._exchange(r, p)
-                sp3 = pieces(spare)
-                pq = torch.stack([
-                    grid2d_cg_xpay_pq(r3[s], p3[s], beta, out=sp3[s],
-                                      **kw)[1] for s in range(S)])
-                spare, p, p3 = p, spare, sp3
-                b = beta.to(p.dtype)
-                top = r_top + b * p_top
-                bot = r_bot + b * p_bot
-                pq = self._psum(pq + dot_fixup(p3, offs, top, bot,
-                                               self._coeff))
-                rr_new = update_all(x3, r3, p3, rr / pq, top, bot)
+                pn, pq, halos = xpay_pq_pieces(r, p, rr / rr_prev, spare)
+                spare, p = p, pn
+                rr_new = update_pieces(p, x, r, rr / pq, halos)
                 hist.append(rr_new)
             return (x.reshape(shape), r.reshape(shape), p.reshape(shape),
                     torch.stack(hist))
@@ -699,16 +862,8 @@ class StencilOperator:
         (reference: CGSolver.hpp:46-55).  On a mesh the matvec reads each
         piece's band from its neighbours and the dots are summed in piece
         order.  Name kept from the JAX package."""
-        S = self.partition.num_pieces
-        if self._sharded:
-            matvec = self._linear_pieces
-
-            def dot(a, b):
-                parts = torch.sum(a.view(S, -1) * b.view(S, -1), dim=1)
-                return ordered_sum(parts, a.dtype)
-        else:
-            matvec = self._linear_local
-            dot = lambda a, b: torch.sum(a * b)
+        matvec = self._linear_pieces if self._sharded else self._linear_local
+        dot = self._piece_dot
 
         def run(x, r, p, rr0):
             shape = x.shape
@@ -737,8 +892,10 @@ class StencilOperator:
         """Whether :meth:`make_fused_bicgstab_runner` is available: the
         kernel view within the K5 (2-D) or K7 (3-D) gate, not disabled by
         LEGIONSOLVERS_NO_FUSED_BICGSTAB; pieces on a mesh with blocks of at
-        least 16 rows, as in the JAX package (whose sharded runner the
-        port does not have yet: building it raises)."""
+        least 16 rows, as in the JAX package (zero-halo passes whose edge
+        terms are repaired, :meth:`_sharded_bicgstab_runner`); never on
+        3-D pieces, whose fused runner the JAX package has for one piece
+        only."""
         from ..ops.cuda.bicgstab2d import bicgstab_supported
         from ..ops.cuda.bicgstab3d import supports3d_bicgstab
 
@@ -781,10 +938,7 @@ class StencilOperator:
         if not self.supports_fused_bicgstab:
             return None
         if self._sharded:
-            raise NotImplementedError(
-                "the fused BiCGStab runner on a mesh of "
-                f"{self.partition.num_pieces} pieces (its edge fix-ups) is "
-                "not ported (ROADMAP §1 item 5c)")
+            return self._sharded_bicgstab_runner(num_iterations)
         if self._view["kind"] == "3d":
             return self._make_bicgstab3d_runner(num_iterations)
         from ..ops.cuda.bicgstab2d import bicg_pv, bicg_st, bicg_update
@@ -805,7 +959,7 @@ class StencilOperator:
         wrappers (2-D or 3-D, which take the same arguments)."""
         from ..ops.cuda.bicgstab2d import _pdot
 
-        kw = dict(self._kw(), compensated=bool(self.options.compensated_dots))
+        kw = self._bicg_kw()
         dot = lambda a, b: _pdot(a, b, kw["compensated"])
 
         def run(x, r, p, v, rt, rho, alpha, omega):
@@ -829,6 +983,219 @@ class StencilOperator:
                 omega = ts / tt
                 _, rn, rr, rtr = update(r, v, x, p, rt, alpha, omega,
                                         out=spare_r, **kw)
+                spare_r, r = r, rn
+                hist.append(rr)
+                rho = rho_new
+            x, r, p, v = (a.reshape(shape) for a in (x, r, p, v))
+            return x, r, p, v, rho, alpha, omega, torch.stack(hist)
+
+        return run
+
+    # -- 2-D BiCGStab passes on pieces: zero-halo kernels plus fix-ups -----
+    def _bicg_kw(self):
+        return dict(self._kw(),
+                    compensated=bool(self.options.compensated_dots))
+
+    def _bicg_boot_pieces(self, r, rt):
+        """(<r, r>, <r~, r>) on pieces: one dot per piece (compensated: one
+        rounding of a float64 sum per piece), summed in piece order."""
+        S = self.partition.num_pieces
+        if self.options.compensated_dots:
+            def d(a, b):
+                a2, b2 = (t.reshape(S, -1).to(torch.float32).double()
+                          for t in (a, b))
+                return torch.sum(a2 * b2, dim=1).to(torch.float32)
+        else:
+            def d(a, b):
+                return torch.sum(a.reshape(S, -1) * b.reshape(S, -1), dim=1,
+                                 dtype=torch.float32)
+        return self._psum(d(r, r)), self._psum(d(rt, r))
+
+    @staticmethod
+    def _edge_sum(*terms):
+        """Per piece, the f32 sum of the ``[S, rows, C]`` edge terms given
+        (None: a side the stencil does not read), one term after the
+        other; 0.0 where there is none."""
+        f = None
+        for t in terms:
+            if t is not None:
+                t = torch.sum(t, dim=(-2, -1), dtype=torch.float32)
+                f = t if f is None else f + t
+        return 0.0 if f is None else f
+
+    def _pad8(self, top, bot):
+        """``[S, 8, C]`` halo blocks in the kernels' and ``overlap.py``'s
+        contract, the top rows last and the bottom rows first, from the
+        ``[S, rlo, C]`` and ``[S, rhi, C]`` rows (None where the stencil
+        reads no row on that side)."""
+        rlo, rhi = self._rows_reach()
+        return (F.pad(top, (0, 0, 8 - rlo, 0)) if rlo else None,
+                F.pad(bot, (0, 0, 0, 8 - rhi)) if rhi else None)
+
+    def _bicg_pv_pieces(self, r, p, v, rt, beta, omega, out):
+        """The pv pass on S pieces.  ONE exchange per iteration: the rows
+        of r, p and v at depth 2 rlo above and 2 rhi below every piece,
+        copied out before any launch.  K5a runs per piece with zero halos,
+        p' and v' into the pair ``out``; p' on the halo rows follows
+        elementwise (r + beta (p - omega v)) and v' = A p' is repaired at
+        the piece edges from it (``overlap.edge_missing``), in place in
+        ``out[1]``, the buffer the st pass reads; <r~, v'> per piece plus
+        its edge terms, summed in piece order.  Returns (p', v', <r~, v'>,
+        ctx for :meth:`_bicg_st_pieces`)."""
+        from ..ops.cuda.bicgstab2d import bicg_pv
+        from .overlap import edge_missing, exchange_halos
+
+        S = self.partition.num_pieces
+        Br = self._view["Br"]
+        rlo, rhi = self._rows_reach()
+        kw = self._bicg_kw()
+        depth = max(2 * rlo, 2 * rhi, 1)
+        tops, bots = exchange_halos((r, p, v), S, 2 * rlo, 2 * rhi, depth)
+        r_t, p_t, v_t = (a[:, depth - 2 * rlo:] for a in tops)
+        r_b, p_b, v_b = (a[:, :2 * rhi] for a in bots)
+        r3, p3, v3, rt3 = (self._pieces(a) for a in (r, p, v, rt))
+        pn, vn = out
+        pn3, vn3 = self._pieces(pn), self._pieces(vn)
+        rtv0 = torch.stack([
+            bicg_pv(r3[s], p3[s], v3[s], rt3[s], beta, omega,
+                    out=(pn3[s], vn3[s]), **kw)[2] for s in range(S)])
+        bb, om = beta.to(r.dtype), omega.to(r.dtype)
+        pn2_t = r_t + bb * (p_t - om * v_t) if rlo else r_t
+        pn2_b = r_b + bb * (p_b - om * v_b) if rhi else r_b
+        mv_t, mv_b = edge_missing(
+            kw["offsets"], *self._pad8(pn2_t[:, rlo:], pn2_b[:, :rhi]), Br,
+            self._coeff)
+        if mv_t is not None:
+            vn3[:, :rlo] += mv_t
+        if mv_b is not None:
+            vn3[:, Br - rhi:] += mv_b
+        rtv = self._psum(rtv0 + self._edge_sum(
+            None if mv_t is None else rt3[:, :rlo] * mv_t,
+            None if mv_b is None else rt3[:, Br - rhi:] * mv_b))
+        return pn, vn, rtv, (r_t, r_b, pn2_t, pn2_b)
+
+    def _bicg_st_pieces(self, r, v, p, alpha, ctx):
+        """The st pass on S pieces (v and p the pv pass's repaired v' and
+        p'): K5b per piece with zero halos.  s = r - alpha v' on the halo
+        rows is DERIVED, not exchanged: v' there is A p' on the derived p'
+        rows beside the piece's own first (last) rows, zero beyond the
+        grid's ends.  The edge terms of t = A s that K5b left out (miss)
+        and t's zero-halo edge rows t0 (recomputed from the piece's edge
+        strips of s) give <t, s> + sum(s miss) and <t, t> + sum(2 t0 miss
+        + miss^2) per piece, summed in piece order.  Returns (<t, s>, <t,
+        t>, ctx for :meth:`_bicg_update_pieces`)."""
+        from ..ops.cuda.bicgstab2d import bicg_st
+        from .overlap import edge_missing
+        from .sstep_sharded import _apply
+
+        r_t, r_b, pn2_t, pn2_b = ctx
+        S = self.partition.num_pieces
+        Br = self._view["Br"]
+        rlo, rhi = self._rows_reach()
+        kw = self._bicg_kw()
+        offs, vals = kw["offsets"], kw["values"]
+        first, last = self._edge_flags(r.device)
+        al = alpha.to(r.dtype)
+        r3, v3, p3 = (self._pieces(a) for a in (r, v, p))
+        s_t = s_b = s_loc_t = s_loc_b = t0t = t0b = None
+        ctx_rows = rlo + rhi
+        if rlo:
+            # A at rows [-rlo, 0) reads rows [-2 rlo, rhi)
+            v2_t = _apply(torch.cat([pn2_t, p3[:, :rhi]], 1), offs,
+                          vals)[:, rlo: 2 * rlo]
+            s_t = r_t[:, rlo:] - al * torch.where(first, 0.0, v2_t)
+            s_loc_t = r3[:, :rlo + ctx_rows] - al * v3[:, :rlo + ctx_rows]
+            t0t = _apply(F.pad(s_loc_t, (0, 0, rlo, 0)), offs,
+                         vals)[:, rlo: 2 * rlo]
+        if rhi:
+            # A at rows [Br, Br + rhi) reads rows [Br - rlo, Br + 2 rhi)
+            v2_b = _apply(torch.cat([p3[:, Br - rlo:], pn2_b], 1), offs,
+                          vals)[:, rlo: rlo + rhi]
+            s_b = r_b[:, :rhi] - al * torch.where(last, 0.0, v2_b)
+            s_loc_b = (r3[:, Br - rhi - ctx_rows:]
+                       - al * v3[:, Br - rhi - ctx_rows:])
+            t0b = _apply(F.pad(s_loc_b, (0, 0, 0, rhi)), offs,
+                         vals)[:, -2 * rhi: -rhi]
+        outs = [bicg_st(r3[s], v3[s], alpha, **kw) for s in range(S)]
+        ts0 = torch.stack([o[0] for o in outs])
+        tt0 = torch.stack([o[1] for o in outs])
+        mt_t, mt_b = edge_missing(offs, *self._pad8(s_t, s_b), Br,
+                                  self._coeff)
+        ts = self._psum(ts0 + self._edge_sum(
+            None if mt_t is None else s_loc_t[:, :rlo] * mt_t,
+            None if mt_b is None else s_loc_b[:, -rhi:] * mt_b))
+        tt = self._psum(tt0 + self._edge_sum(
+            None if mt_t is None else 2.0 * t0t * mt_t + mt_t * mt_t,
+            None if mt_b is None else 2.0 * t0b * mt_b + mt_b * mt_b))
+        return ts, tt, (mt_t, mt_b, t0t, t0b, s_loc_t, s_loc_b)
+
+    def _bicg_update_pieces(self, r, v, x, p, rt, alpha, omega, ctx, out):
+        """The update pass on S pieces: K5c per piece with zero halos, x'
+        into x and r' into ``out``; r' = s - omega t is repaired at the
+        piece edges by -omega miss (in place in ``out``, the buffer the
+        next iteration reads), and <r', r'> and <r~, r'> by their edge
+        terms from the kernel's edge values s - omega t0; both summed in
+        piece order.  Returns (x, r', <r', r'>, <r~, r'>)."""
+        from ..ops.cuda.bicgstab2d import bicg_update
+
+        mt_t, mt_b, t0t, t0b, s_loc_t, s_loc_b = ctx
+        S = self.partition.num_pieces
+        Br = self._view["Br"]
+        rlo, rhi = self._rows_reach()
+        kw = self._bicg_kw()
+        om = omega.to(r.dtype)
+        r3, v3, x3, p3, rt3, o3 = (self._pieces(a)
+                                   for a in (r, v, x, p, rt, out))
+        outs = [bicg_update(r3[s], v3[s], x3[s], p3[s], rt3[s], alpha, omega,
+                            out=o3[s], **kw) for s in range(S)]
+        rr0 = torch.stack([o[2] for o in outs])
+        rtr0 = torch.stack([o[3] for o in outs])
+        drr, drtr = [], []
+        if mt_t is not None:
+            d = -om * mt_t
+            r0e = s_loc_t[:, :rlo] - om * t0t
+            o3[:, :rlo] += d
+            drr.append(2.0 * r0e * d + d * d)
+            drtr.append(rt3[:, :rlo] * d)
+        if mt_b is not None:
+            d = -om * mt_b
+            r0e = s_loc_b[:, -rhi:] - om * t0b
+            o3[:, Br - rhi:] += d
+            drr.append(2.0 * r0e * d + d * d)
+            drtr.append(rt3[:, Br - rhi:] * d)
+        rr = self._psum(rr0 + self._edge_sum(*drr))
+        rtr = self._psum(rtr0 + self._edge_sum(*drtr))
+        return x, out, rr, rtr
+
+    def _sharded_bicgstab_runner(self, num_iterations: int):
+        """The fused BiCGStab loop on S pieces of the 2-D view: per
+        iteration :meth:`_bicg_pv_pieces` (the one exchange),
+        :meth:`_bicg_st_pieces` and :meth:`_bicg_update_pieces`, each a
+        zero-halo K5 pass per piece plus its edge fix-ups; every dot summed
+        in piece order.  Contract and buffers as in
+        :meth:`make_fused_bicgstab_runner`."""
+
+        def run(x, r, p, v, rt, rho, alpha, omega):
+            shape = x.shape
+            x, r, p, v, rt = (self._grid(a) for a in (x, r, p, v, rt))
+            rho, alpha, omega = (
+                torch.as_tensor(a).to(device=x.device, dtype=torch.float32)
+                for a in (rho, alpha, omega))
+            rr0, rtr = self._bicg_boot_pieces(r, rt)
+            hist = [rr0]
+            spare_r, spare_p, spare_v = (torch.empty_like(a)
+                                         for a in (r, p, v))
+            for _ in range(num_iterations):
+                rho_new = rtr
+                beta = (rho_new / rho) * (alpha / omega)
+                pn, vn, rtv, ctx = self._bicg_pv_pieces(
+                    r, p, v, rt, beta, omega, (spare_p, spare_v))
+                spare_p, spare_v, p, v = p, v, pn, vn
+                alpha = rho_new / rtv
+                ts, tt, ctx = self._bicg_st_pieces(r, v, p, alpha, ctx)
+                omega = ts / tt
+                _, rn, rr, rtr = self._bicg_update_pieces(
+                    r, v, x, p, rt, alpha, omega, ctx, spare_r)
                 spare_r, r = r, rn
                 hist.append(rr)
                 rho = rho_new

@@ -8,7 +8,8 @@ unknown must be equal, and the final residual² within rtol 1e-9 (the two
 packages run one recurrence and differ only in the order of their sums).
 Every function of the port's ``utils/roofline.py`` is held equal to the
 JAX one on the same inputs, and ``--block`` runs the 2-space block system
-in both.  The flags the port cannot honour yet raise
+in both, and ``-vp 4`` runs every ``-dim``, ``-solver`` and ``--block``
+on pieces.  The flags the port cannot honour yet raise
 ``NotImplementedError``, and the marginal timer raises where the JAX one
 floors a non-positive difference (fault F1).
 """
@@ -109,8 +110,7 @@ def test_dim1_runs_the_linearized_path(capsys):
     assert "ROADMAP item 3" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags", [["-vp", "4", "-solver", "2"],
-                                   ["--consume-rhs"],
+@pytest.mark.parametrize("flags", [["--consume-rhs"],
                                    ["--dtype", "bfloat16"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -161,6 +161,44 @@ def test_cli_pieces_match_jax():
         assert ours[k] == ref[k], k
     np.testing.assert_allclose(ours["final_residual2"],
                                ref["final_residual2"], rtol=1e-3)
+
+
+PIECE_FLAGS = {
+    # case: (flags after the 2-D base, schedule on 4 pieces)
+    "-dim 3": (["-dim", "3", "-nx", "8", "-ny", "8", "-nz", "128"],
+               "fused3d_xp"),
+    "-solver 2": (["-solver", "2"], "bicgstab_fused2d"),
+    "-solver 3": (["-solver", "3"], "gmres4_cgs2"),
+    "-solver 4": (["-solver", "4"], "pcg_jacobi"),
+    "--block": (["--block"], "fused2d_x2"),
+}
+
+
+@pytest.mark.parametrize("case", list(PIECE_FLAGS))
+def test_cli_pieces_every_solver(case, mesh4):
+    """``-vp 4`` in f32 on the CPU for ``-dim 3``, ``-solver 2``, ``3``,
+    ``4`` and ``--block`` (each a refusal before the sharded paths were
+    ported): the report names 4 pieces and the schedule the solve runs,
+    the same schedule and bytes per unknown as the JAX CLI's planner on
+    its 4-shard mesh, and a finite final residual^2."""
+    import math
+
+    flags, schedule = PIECE_FLAGS[case]
+    base = ["-dim", "2", "-nx", "64", "-ny", "128", "-it", "4", "-restart",
+            "4", "-vp", "4"]
+    ours = TB.main(base + flags + ["--device", "cpu"])
+    assert ours["pieces"] == 4 and ours["schedule"] == schedule
+    assert math.isfinite(ours["final_residual2"])
+    args = TB.make_parser().parse_args(base + flags)
+    pj, n, nnz = JB.build_planner(args, mesh4, J.SolverOptions(
+        entry_dtype=jnp.float32))
+    sj = {1: lambda: J.CGSolver(pj), 2: lambda: J.BiCGStabSolver(pj),
+          3: lambda: J.GMRESSolver(pj, 4),
+          4: lambda: JPCG(pj, JJacobi(pj))}[args.solver]()
+    bj, sched_j = JR.solver_bytes_per_iteration(sj, n)
+    assert (ours["n"], ours["nnz"]) == (n, nnz)
+    assert (ours["schedule"], ours["bytes_per_unknown"]) == (sched_j,
+                                                             bj / n)
 
 
 def test_consume_rhs_env_raises(monkeypatch):

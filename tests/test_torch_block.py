@@ -8,8 +8,9 @@ made with numpy from a seed, go through both packages: JAX runs its block
 runners on Pallas kernels in interpret mode, the port its block runners on
 the plain versions its wrappers take on CPU tensors.  These mirror the
 one-piece cases of ``tests/test_16_block_system.py`` and
-``tests/test_27_block_fused.py`` (the sharded ones wait for ROADMAP item
-5).  Each test's docstring states its tolerance.
+``tests/test_27_block_fused.py`` (their sharded cases are in
+``tests/test_torch_sharded_blocks.py``).  Each test's docstring states its
+tolerance.
 """
 
 import os
@@ -361,15 +362,17 @@ def test_supported_gates_match_jax(kinds, env, monkeypatch):
 
 
 def test_sharded_spaces_raise():
-    """Spaces of more than one piece would need the sharded edge fix-ups
-    (ROADMAP item 5): the block runners refuse them."""
+    """Spaces of more than one piece without a mesh: not supported (as in
+    JAX), and the block runners refuse them, as the single-space fused
+    runners refuse several pieces without a mesh."""
     F = opts(T, "f64")
     op = T.StencilOperator((64,), T.laplacian_stencil(1),
                            partition=T.BlockPartition(64, 4), options=F,
                            device=DEV)
     assert not TBF.block_cg_supported([op, op])
+    assert not TBF.block_bicgstab_supported([op, op])
     for make in (TBF.make_block_cg_runner, TBF.make_block_bicgstab_runner):
-        with pytest.raises(NotImplementedError, match="item 5"):
+        with pytest.raises(ValueError, match="needs a mesh"):
             make([op, op], 4)
 
 

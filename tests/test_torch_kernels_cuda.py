@@ -39,7 +39,14 @@ mesh are) against their plain versions on the same views (K1's phase 3
 bounds), leaving the rows outside the view alone; and a 4-piece s-step
 solve(40) on the card against the same 4-piece runner driven by the plain
 versions, entry by entry to rtol 1e-3 (phase 4's kernel-against-plain
-bound) and x to 1e-3 of max|x|.
+bound) and x to 1e-3 of max|x|.  3-D pieces: K6a and K6b on each piece of
+a 4-piece volume with the halo planes that the operator copies out of the
+neighbours, against their plain versions (the 3-D bounds above), and the
+4-piece 3-D CG solve(20) against the same runner driven by the plain
+versions (rtol 1e-3, x 1e-3 of max|x|).  The fused 2-D BiCGStab on 4
+pieces, f32 and compensated dots, one and two iterations against the
+plain-driven runner and two against one piece (rtol 1e-4, x 1e-4 of
+max|x|), K5a-c launched once per piece per iteration.
 """
 
 import numpy as np
@@ -1256,3 +1263,156 @@ def test_sharded_solves_match_plain_on_card(cuda_device, monkeypatch, env,
     assert len(hk) == iters + 1 and np.isfinite(hk).all()
     np.testing.assert_allclose(hk, hp, rtol=1e-3)
     np.testing.assert_allclose(xk, xp, rtol=0, atol=1e-3 * np.abs(xp).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [3, 4])
+def test_k6_on_pieces_with_exchanged_planes_on_card(dim, cuda_device):
+    """K6a (y, pq, update) and K6b on each piece of a 4-piece (36, 45, 130)
+    volume (9 x-planes per piece), every piece with the halo planes that
+    ``StencilOperator._exchange_planes3d`` copies out of its neighbours,
+    against the plain versions on the same inputs (phase 3's bounds:
+    elementwise 2e-5 * max|ref|, dots 1e-4 of their Cauchy-Schwarz
+    scale); one launch per call."""
+    import legionsolvers_tpu_torch as lt
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    S, shape = 4, (36, 45, 130)
+    kw = _kw3(dim)
+    op = lt.StencilOperator(
+        shape, lt.laplacian_stencil(dim),
+        partition=lt.BlockPartition(int(np.prod(shape)), S),
+        mesh=make_mesh(S, devices=[cuda_device] * S),
+        options=lt.SolverOptions(entry_dtype=torch.float32))
+    assert op._view["kind"] == "3d" and op._view["Br"] == 9
+    rng = np.random.default_rng(29)
+    full = {k: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device) for k in ("x", "r", "p")}
+    tops, bots = op._planes3d(full["r"], full["p"])
+    for s in range(S):
+        planes = {"r": (tops[0][s], bots[0][s]), "p": (tops[1][s],
+                                                      bots[1][s])}
+        piece = {k: v.view(S, 9, 45, 130)[s] for k, v in full.items()}
+        if s == 0:
+            assert not planes["p"][0].any()
+        else:
+            assert torch.equal(planes["p"][0],
+                               full["p"].view(S, 9, 45, 130)[s - 1, -1])
+        d = {k: v.cpu().numpy() for k, v in piece.items()}
+        bound = _norm_bound({**d, "v": d["x"], "rt": d["x"]})
+        for mode in ("y", "pq", "update", "xpay_pq"):
+            t = {k: v.clone() for k, v in piece.items()}
+            ref_in = {k: v.clone() for k, v in piece.items()}
+            T.reset_launch_counts()
+            if mode == "xpay_pq":
+                pt = planes["r"][0] + 0.37 * planes["p"][0]
+                pb = planes["r"][1] + 0.37 * planes["p"][1]
+                got = T3.grid3d_cg_xpay_pq(t["r"], t["p"], 0.37, pt, pb,
+                                           **kw)
+                ref = T3.xpay_pq3d_plain(ref_in["r"], ref_in["p"], 0.37, pt,
+                                         pb, **kw)
+                names = ("p", "dot")
+            else:
+                h = planes["p"]
+                if mode == "y":
+                    got = (T3.grid3d_stencil_matvec(t["p"], *h, **kw),)
+                elif mode == "pq":
+                    got = (T3.grid3d_cg_pq(t["p"], *h, **kw),)
+                else:
+                    got = T3.grid3d_cg_update(t["p"], t["x"], t["r"], 0.3,
+                                              *h, **kw)
+                extra = ((ref_in["x"], ref_in["r"], 0.3) if mode == "update"
+                         else ())
+                ref = T3.stencil3d_plain(mode, ref_in["p"], *h, extra, **kw)
+                names = {"y": ("y",), "pq": ("dot",),
+                         "update": ("x", "r", "dot")}[mode]
+            assert dict(T.LAUNCHES) == {f"{mode}3d": 1}
+            np_ = lambda out: {k: v.double().cpu().numpy()
+                               for k, v in zip(names, out)}
+            _compare3d(np_(got), np_(ref), bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [3, 4])
+def test_sharded_3d_cg_matches_plain_on_card(dim, cuda_device, monkeypatch):
+    """The 4-piece 3-D two-pass runner on the card at (32, 40, 132),
+    solve(20): launches K6a pq 4, K6b 76, K6a update 80; against the same
+    runner driven by the plain versions, history entry by entry to rtol
+    1e-3 and x to 1e-3 of max|x| (phase 4's kernel-against-plain bound)."""
+    import legionsolvers_tpu_torch as lt
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    plain = {
+        "grid3d_cg_xpay_pq": T3.xpay_pq3d_plain,
+        "grid3d_cg_pq": lambda p, top=None, bot=None, **kw:
+            T3.stencil3d_plain("pq", p, top, bot, **kw)[0],
+        "grid3d_cg_update": lambda p, x, r, alpha, top=None, bot=None, **kw:
+            T3.stencil3d_plain("update", p, top, bot, (x, r, alpha), **kw),
+    }
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    runs = []
+    for use_plain in (False, True):
+        planner = build_stencil_system(dim, (32, 40, 132), f32, mesh=make_mesh(
+            4, devices=[cuda_device] * 4))
+        with monkeypatch.context() as m:
+            if use_plain:
+                for name, fn in plain.items():
+                    m.setattr(T3, name, fn)
+            T.reset_launch_counts()
+            hist = lt.CGSolver(planner).solve(20).cpu().double().numpy()
+        assert dict(T.LAUNCHES) == ({} if use_plain else
+                                    {"pq3d": 4, "xpay_pq3d": 76,
+                                     "update3d": 80})
+        runs.append((hist, planner.sol_vectors[0].to_numpy()))
+    (hk, xk), (hp, xp) = runs
+    assert len(hk) == 21 and np.isfinite(hk).all()
+    np.testing.assert_allclose(hk, hp, rtol=1e-3)
+    np.testing.assert_allclose(xk, xp, rtol=0, atol=1e-3 * np.abs(xp).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compensated", [False, True])
+def test_sharded_bicgstab_iteration_on_card(compensated, cuda_device,
+                                            monkeypatch):
+    """The fused 2-D BiCGStab runner on 4 pieces of 256^2 (64 rows each),
+    one iteration and then two, on the card: K5a, K5b and K5c once per
+    piece per iteration, with zero halos and the runner's edge fix-ups;
+    against the same runner driven by the plain versions on the card,
+    history entry by entry to rtol 1e-4 and x to 1e-4 of max|x|; and the
+    two-iteration history against one piece's to rtol 1e-4."""
+    import legionsolvers_tpu_torch as lt
+    from legionsolvers_tpu_torch.entry import build_system
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    F = lt.SolverOptions(entry_dtype=torch.float32,
+                         compensated_dots=compensated)
+    plain = {"bicg_pv": TB.bicg_pv_plain, "bicg_st": TB.bicg_st_plain,
+             "bicg_update": TB.bicg_update_plain}
+    rhs = torch.from_numpy(np.random.default_rng(31).random(
+        (256, 256)).astype(np.float32)).to(cuda_device)
+
+    def run(pieces, iters, use_plain):
+        mesh = (make_mesh(pieces, devices=[cuda_device] * pieces)
+                if pieces > 1 else None)
+        planner = build_system(256, F, cuda_device, mesh=mesh)
+        planner.rhs_vectors[0].data = rhs.clone()
+        with monkeypatch.context() as m:
+            if use_plain:
+                for name, fn in plain.items():
+                    m.setattr(TB, name, fn)
+            T.reset_launch_counts()
+            hist = lt.BiCGStabSolver(planner).solve(iters)
+            hist = hist.cpu().double().numpy()
+        want = {} if use_plain else {k: pieces * iters for k in plain}
+        assert dict(T.LAUNCHES) == want
+        return hist, planner.sol_vectors[0].to_numpy()
+
+    for iters in (1, 2):
+        (hk, xk), (hp, xp) = run(4, iters, False), run(4, iters, True)
+        assert np.isfinite(hk).all()
+        np.testing.assert_allclose(hk, hp, rtol=1e-4)
+        np.testing.assert_allclose(xk, xp, rtol=0,
+                                   atol=1e-4 * np.abs(xp).max())
+    h1, _ = run(1, 2, False)
+    np.testing.assert_allclose(hk, h1, rtol=1e-4)

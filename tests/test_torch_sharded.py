@@ -547,7 +547,7 @@ def test_mesh_api():
 def test_mesh_errors():
     """Piece mismatch (ValueError), more shards than devices (ValueError),
     shards on two distinct devices (NotImplementedError naming ROADMAP
-    item 5g); the pieces' unported paths name their ROADMAP items."""
+    item 5g); explicit matrices on pieces name item 5d."""
     mesh2 = make_mesh(2, devices=[DEV] * 2)
     part4 = T.BlockPartition(64, 4)
     with pytest.raises(ValueError, match="piece count"):
@@ -565,19 +565,10 @@ def test_mesh_errors():
     with pytest.raises(ValueError, match="mesh's device"):
         T.PartitionedVector("v", T.BlockPartition(64, 2), mesh=mesh2,
                             device="meta")
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        T.StencilOperator((8, 8, 128), T.laplacian_stencil(3),
-                          mesh=mesh2, options=F32T)
     planner, op = build(T, (64, 128), 4)
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        T.BiCGStabSolver(planner).solve(2)
     with pytest.raises(NotImplementedError, match="item 5d"):
         planner.add_row_partitioned_matrix(
             T.coo_negative_laplacian_1d(64 * 128), 0, 0)
-    from legionsolvers_tpu_torch.parallel import block_fused as TBF
-
-    with pytest.raises(NotImplementedError, match="item 5f"):
-        TBF.make_block_cg_runner([op, op], 4)
 
 
 def test_compensated_dots_on_pieces():
