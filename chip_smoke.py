@@ -21,7 +21,9 @@ default) or phase 4b's on the 5-point system at 4096^2 (dim 2; N^2 with
 ``--passes [--tree DIR]`` prints the times of K3, K4, K5b and K2 at
 4096^2 that ``--solves`` takes (:func:`time_ab_passes_2d`) and nothing
 else.  ``--blocks`` runs phases 4i and 5i (block systems) and nothing
-else, ``--pieces`` phases 4j and 5j (pieces on one card).
+else, ``--pieces`` phases 4j and 5j (pieces on one card),
+``--explicit-pieces`` phases 4k and 5k (explicit matrices on pieces; it
+builds the one-piece DIA and scrambled systems of 4e-f too, to compare).
 
 Phases (any failure raises, and the exit code is non-zero):
 
@@ -238,6 +240,33 @@ Pieces on one card (``parallel/mesh.py``, ``overlap.py``,
    imply, and (after every other timing) each one's idle share from a
    profiler trace.  ``--pieces`` runs 4j and 5j alone (~2 min with the
    build).
+
+Explicit matrices on pieces of the card (``parallel/distmatrix.py``'s halo
+exchange and K9 per piece, ``parallel/dia_op.py``'s zero-halo K8 per piece
+with its edge fix-ups; ``entry.build_explicit_system(..., mesh=make_mesh(4,
+devices=[card] * 4))``):
+
+4k. (i) test_05's float64 golden, COO and CSR at n = 100 on 4 pieces,
+   through the DIA upgrade and the sharded ELL (``prefer_dia=False``),
+   exactly; (ii) the 2-D 5-point Laplacian at 4096^2 as COO, a
+   ``DiaOperator`` on pieces (C 4096, Br 1024, D 5): CG solve(200) with
+   K8 (dot) exactly 4 x 200 launches, then PCG(Jacobi) on the same
+   system, the same count; (iii) the same matrix with ``prefer_dia=False``,
+   the sharded ``RowPartitionedMatrix`` with its windowed plan (``_win``:
+   KR 40, L 5, Rt 8), K9 exactly 4 x 200; (iv) the scrambled 2048^2
+   system, an RCM basis over the sharded ELL with its windowed plan (KR
+   24; what JAX picks on a 4-device mesh), K9 4 x 200; (v) the random SPD
+   system at n = 2^20, the sharded gather-ELL (no windowed plan, no
+   kernel), its finite entries and ||b - Ax||^2 after 4 iterations.  Each
+   build's host seconds and operator chain; for (ii)-(iv) no plain
+   version called, a repeat bit for bit, every K8 / K9 call held to its
+   plain version on copies of its inputs (:class:`shadowed_sparse`, phase
+   3's bounds), history and x within twice textbook f32 CG's distance
+   from float64 CG, and the distance from the one-piece solve of 4e-g;
+5k. those solves' ms/iter and host enqueue ms/iter beside the one-piece
+   solve of the same matrix in the same process, the torch glue
+   operations per iteration counted on the host, and each one's idle
+   share from a profiler trace taken after the timings.
 
 The line before the last is one JSON object describing every kernel
 (``ms_lost``: launches x (ms - bound_ms) over the main path's launches,
@@ -4953,6 +4982,404 @@ def profile_piece_solvers(torch, solvers, times, card):
     return times
 
 
+# phases 4k and 5k: explicit matrices on pieces of the card
+# (entry.build_explicit_system(..., mesh=make_mesh(4, devices=[card] * 4)))
+GOLDEN = [100, 4900, 4704, 4512, 4324, 4140, 3960, 3784, 3612, 3444, 3280]
+# system and route of each build: (explicit_coo's name, prefer_dia)
+XP_BUILDS = {"DIA 4096^2": ("dia", True),
+             "sharded ELL 4096^2": ("dia", False),
+             "scrambled 2048^2": ("scrambled", True),
+             "random 2^20": ("random", True)}
+# what the planner must pick on 4 pieces (JAX's choice on a 4-device mesh,
+# found on the CPU): the operator chain, and the plan's geometry
+XP_CHAIN = {"DIA 4096^2": ["DiaOperator"],
+            "sharded ELL 4096^2": ["RowPartitionedMatrix"],
+            "scrambled 2048^2": ["ReorderedOperator", "RowPartitionedMatrix"],
+            "random 2^20": ["RowPartitionedMatrix"]}
+XP_GEOMETRY = {"DIA 4096^2": {"C": N_GRID, "Br": N_GRID // PIECES, "D": 5},
+               "sharded ELL 4096^2": {"win": True, "KR": 40, "L": 5, "Rt": 8},
+               "scrambled 2048^2": {"win": True, "KR": 24, "L": 5, "Rt": 8},
+               "random 2^20": {"win": False}}
+# the solves: run -> (build, solver, the kernel each iteration launches once
+# per piece, or None)
+XP_RUNS = {"DIA 4096^2 CG": ("DIA 4096^2", "cg", "dia2d_dot"),
+           "DIA 4096^2 PCG": ("DIA 4096^2", "pcg", "dia2d_dot"),
+           "sharded ELL 4096^2 CG": ("sharded ELL 4096^2", "cg", "winell"),
+           "scrambled 2048^2 CG": ("scrambled 2048^2", "cg", "winell"),
+           "random 2^20 CG": ("random 2^20", "cg", None)}
+XP_GAP_AT = 4  # the random system's ||b - Ax||^2 check (phase 4g's)
+
+
+class shadowed_sparse:
+    """Within the block, every K8 and K9 call (``dia2d_matvec``,
+    ``winell_spmv``) also runs its plain version on the same inputs (a
+    copy of the vector, taken before the kernel writes; the operator's
+    coefficient tables, which no launch writes, as they are) and holds the
+    kernel's outputs to it at phase 3's bounds: arrays elementwise to 1e-5
+    of the plain version's max |value|, K8's dot to 1e-4 of
+    sqrt(<x,x><y,y>).  ``calls``: {launch name: calls held}; ``worst``,
+    ``share``, ``bad`` as :class:`shadowed`; ``exact``: every array bit for
+    bit the plain version's."""
+
+    def __init__(self):
+        self.calls, self.worst, self.share, self.bad = {}, {}, {}, []
+        self.exact = True
+
+    def __enter__(self):
+        from legionsolvers_tpu_torch.ops.cuda import dia2d as TD
+        from legionsolvers_tpu_torch.ops.cuda import winell as TW
+
+        self.saved = [(TD, "dia2d_matvec", TD.dia2d_matvec),
+                      (TW, "winell_spmv", TW.winell_spmv)]
+        TD.dia2d_matvec = self._wrap(TD.dia2d_matvec, TD.dia2d_plain)
+        TW.winell_spmv = self._wrap(TW.winell_spmv, TW.winell_plain)
+        return self
+
+    def __exit__(self, *exc):
+        for m, k, fn in self.saved:
+            setattr(m, k, fn)
+
+    def _wrap(self, kernel, plain):
+        import torch
+
+        def run(*args, **kw):
+            cargs = [args[0].clone(), *args[1:]]
+            ckw = {k: v for k, v in kw.items() if k != "out"}
+            got = kernel(*args, **kw)
+            ref = plain(*cargs, **ckw)
+            if kernel is self.saved[0][2]:
+                name = "dia2d_dot" if kw.get("with_dot") else "dia2d"
+            else:
+                name = "winell"
+            self._check(name, got, ref, cargs[0])
+            return got
+        return run
+
+    def _check(self, name, got, ref, x):
+        import torch
+
+        if name != "dia2d_dot":
+            got, ref = (got,), (ref,)
+        worst = share = 0.0
+        for i, (g, r) in enumerate(zip(got, ref)):
+            err = (g.double() - r.double()).abs().max()
+            if i == 0:
+                bound = 1e-5 * finite_max(r).double()
+                self.exact &= bool(torch.equal(g, r))
+            else:
+                bound = 1e-4 * (torch.linalg.vector_norm(x.double())
+                                * torch.linalg.vector_norm(ref[0].double()))
+            err, bound = err.item(), bound.item()
+            worst = max(worst, err)
+            share = max(share, err / bound if bound else float(err > 0))
+            if err > bound:
+                self.bad.append((name, i, err))
+        self.calls[name] = self.calls.get(name, 0) + 1
+        self.worst[name] = max(self.worst.get(name, 0.0), worst)
+        self.share[name] = max(self.share.get(name, 0.0), share)
+
+
+def xp_geometry(op):
+    """The geometry XP_GEOMETRY asserts of an operator on pieces."""
+    base = getattr(op, "base", op)
+    if type(base).__name__ == "DiaOperator":
+        v = base._view
+        return {"C": v["C"], "Br": v["Br"], "D": len(v["offs"])}
+    w = base._win
+    geo = {"win": w is not None, "offsets": base.halo.offsets,
+           "halo_total": base.halo.halo_total, "L": base.row_length}
+    if w is not None:
+        geo.update(KR=w["KR"], L=int(w["cols"].shape[2]),
+                   Rt=int(w["cols"].shape[3]))
+    return geo
+
+
+def build_explicit_pieces(torch, np, lt, name, device, mesh, source=None):
+    """Phase 4k, one build: the system of XP_BUILDS through
+    ``build_explicit_system(..., mesh=)``, its host seconds, and its
+    operator chain and geometry checked against XP_CHAIN, XP_GEOMETRY.
+    ``source``: a build of the same matrix (:func:`build_explicit`'s or
+    this one's) whose COO arrays are taken as they are."""
+    from legionsolvers_tpu_torch.entry import build_explicit_system
+
+    system, prefer = XP_BUILDS[name]
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    t0 = time.perf_counter()
+    if source is not None:
+        rows, cols, vals, n = source["coo"]
+        pr = source["pr"]
+    else:
+        rows, cols, vals, n, pr = explicit_coo(np, lt, system)
+    A = lt.COOMatrix(rows, cols, vals, n, n, options=f32)
+    t1 = time.perf_counter()
+    planner = build_explicit_system(A, f32, prefer_dia=prefer, mesh=mesh)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    op = planner.row_partitioned_matrices[0][0]
+    geo = xp_geometry(op)
+    ok = (chain(op) == XP_CHAIN[name] and getattr(op, "base", op).mesh is mesh
+          and all(geo.get(k) == v for k, v in XP_GEOMETRY[name].items()))
+    log(f"[explicit pieces] {name}: n {n}, nnz {A.n_kernel}; matrix "
+        f"{t1 - t0:.1f} s, planner on {PIECES} pieces {t2 - t1:.1f} s on the "
+        f"host; {chain(op)} {geo}")
+    if not ok:
+        raise AssertionError(f"{name} on {PIECES} pieces: the planner picked "
+                             f"{chain(op)} {geo}")
+    return {"planner": planner, "coo": (rows, cols, vals, n), "pr": pr,
+            "host_s": (t1 - t0, t2 - t1), "geometry": geo,
+            "nnz": A.n_kernel}
+
+
+def xp_solver(lt, planner, kind):
+    """A CG or PCG(Jacobi) solver on ``planner``; PCG takes the planner's
+    workspace over (a CG solver on it keeps working: its vectors are the
+    first three of PCG's four, and every restart derives them anew)."""
+    if kind == "cg":
+        return lt.CGSolver(planner)
+    planner.workspace_vectors = []
+    return lt.PCGSolver(planner, lt.JacobiPreconditioner(planner))
+
+
+def explicit_pieces_path(torch, np, T, lt, device, one_piece):
+    """Phase 4k.  (i) test_05's float64 golden on 4 pieces of the card:
+    COO and CSR, n = 100, through the DIA upgrade and the sharded ELL
+    (``prefer_dia=False``), exactly.  (ii)-(v) the builds of XP_BUILDS and
+    the solves of XP_RUNS: solve(200) with its kernel launched exactly 4 x
+    200 times (none for the random system, whose sharded ELL has no
+    windowed plan) and no plain version called, a repeat bit for bit, the
+    solve again with every K8 / K9 call held to its plain version
+    (:class:`shadowed_sparse`), the history and x against float64 CG
+    within twice textbook f32 CG's distance (over the finite entries for
+    the random system, and ||b - Ax||^2 after XP_GAP_AT iterations within
+    twice textbook f32's gap), and the distance from the one-piece solve of
+    the same matrix (``one_piece``: {system: (its :func:`build_explicit`,
+    its CG solver)}, whose COO arrays the builds here reuse) reported.
+    Returns (launches, whole-grid launches, results, {run: (solver,
+    one-piece solver or None, iterations, bytes or None)}, builds, failed
+    checks)."""
+    from legionsolvers_tpu_torch.entry import build_explicit_system
+    from legionsolvers_tpu_torch.ops.cuda import dia2d as TD
+    from legionsolvers_tpu_torch.ops.cuda import winell as TW
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(PIECES, devices=[device] * PIECES)
+    checks, results, launches, grid, solvers = {}, {}, {}, {}, {}
+    t_run = time.perf_counter()
+    elapsed = lambda what: log(f"[elapsed] phase 4k, {what}: "
+                               f"{time.perf_counter() - t_run:.1f} s")
+
+    f64 = lt.SolverOptions(entry_dtype=torch.float64)
+    for fmt, gen in (("COO", lt.coo_negative_laplacian_1d),
+                     ("CSR", lt.csr_negative_laplacian_1d)):
+        for route, prefer in (("DIA", True), ("sharded ELL", False)):
+            pl = build_explicit_system(gen(100, options=f64), f64,
+                                       prefer_dia=prefer, mesh=mesh)
+            op = pl.row_partitioned_matrices[0][0]
+            T.reset_launch_counts()
+            hist = lt.CGSolver(pl).solve(10).tolist()
+            want = ["DiaOperator"] if prefer else ["RowPartitionedMatrix"]
+            checks[f"(i) {fmt} through {route} on {PIECES} pieces: the "
+                   "golden exactly"] = (hist == GOLDEN and chain(op) == want
+                                        and op.mesh is mesh)
+            results[f"golden {fmt} {route}"] = hist
+    T.reset_launch_counts()
+    log(f"[explicit pieces] (i) golden on {PIECES} pieces: "
+        + "; ".join(f"{k} {v == GOLDEN}" for k, v in results.items()))
+
+    elapsed("the golden")
+    builds = {}
+    for name, (system, _) in XP_BUILDS.items():
+        src = next((b for b in builds.values()
+                    if XP_BUILDS[b["name"]][0] == system),
+                   one_piece.get(system, (None,))[0])
+        builds[name] = build_explicit_pieces(torch, np, lt, name, device,
+                                             mesh, src)
+        builds[name]["name"] = name
+    elapsed("the builds")
+    singles = {k: v[1] for k, v in one_piece.items()}
+    refs = {system: v[0]["refs"] for system, v in one_piece.items()
+            if "refs" in v[0]}
+    for name, b in builds.items():
+        system = XP_BUILDS[name][0]
+        if system not in refs:
+            refs[system] = explicit_refs(torch, np, b, system, device)
+    plain = plain_names(TD, TW)
+    for run, (bname, kind, counter) in XP_RUNS.items():
+        b = builds[bname]
+        system = XP_BUILDS[bname][0]
+        solver = xp_solver(lt, b["planner"], kind)
+        single = singles.get(system) if kind == "cg" else None
+        ref, true_rr = refs[system]
+        want = {counter: PIECES * N_ITERS} if counter else {}
+        with counted_calls(plain, solver) as pc:
+            restart(solver)
+            torch.cuda.synchronize()
+            T.reset_launch_counts()
+            h = solver.solve(N_ITERS)
+            torch.cuda.synchronize()
+            c = dict(T.LAUNCHES)
+            x = b["planner"].sol_vectors[0].data.clone()
+            restart(solver)
+            T.reset_launch_counts()
+            h2 = solver.solve(N_ITERS)
+            torch.cuda.synchronize()
+            c2 = dict(T.LAUNCHES)
+            repeat = same_bits(h, h2) and same_bits(
+                x, b["planner"].sol_vectors[0].data)
+        T.reset_launch_counts()
+        with shadowed_sparse() as sh:
+            restart(solver)
+            solver.solve(N_ITERS)
+            torch.cuda.synchronize()
+        T.reset_launch_counts()
+        h64, x64, h32, x32 = (ref[k] for k in ("h64", "x64", "h32", "x32"))
+        win = finite_window(torch, h.double(), h64, h32)
+        dev_k = max_rel(h[:win], h64[:win])
+        dev_t = max_rel(h32[:win], h64[:win])
+        finite_x = bool(torch.isfinite(x).all())
+        xk = x_rel(x[: x64.numel()], x64) if finite_x else float("nan")
+        xt = (x_rel(x32, x64) if bool(torch.isfinite(x32).all())
+              else float("nan"))
+        one = None
+        if single is not None:
+            restart(single)
+            h1 = single.solve(N_ITERS)
+            x1 = single.planner.sol_vectors[0].data
+            w1 = finite_window(torch, h.double(), h1.double())
+            one = (max_rel(h[:w1], h1[:w1]),
+                   x_rel(x, x1) if finite_x else float("nan"))
+        res = {"launches": c, "repeat launches": c2,
+               "plain calls": sum(pc.calls.values()),
+               "vs_f64": (dev_k, xk), "vs_f64 textbook f32": (dev_t, xt),
+               "finite window": win, "vs one piece": one,
+               "kernel vs plain per launch": sh.worst,
+               "share of bound per launch": sh.share,
+               "bit for bit the plain version": sh.exact,
+               "out of bounds": sh.bad,
+               "hist_first_last": (h[0].item(), h[-1].item())}
+        chk = {
+            f"launches exactly {want}": c == want == c2,
+            "no plain version called": res["plain calls"] == 0,
+            "a repeat bit for bit": repeat,
+            "every K8 / K9 launch within phase 3's bounds of its plain "
+            "version on the same inputs": not sh.bad and sh.calls == want,
+            "b intact": bool((b["planner"].rhs_vectors[0].data[
+                : b["coo"][3]] == 1.0).all()),
+        }
+        if counter is not None:
+            chk["history and x within twice textbook f32's distance from "
+                "float64"] = (win == N_ITERS + 1 and finite_x
+                              and dev_k <= max(2 * dev_t, X_F64_FLOOR)
+                              and xk <= max(2 * xt, X_F64_FLOOR))
+        else:
+            # f32 CG on the random system sinks into denormals (phase 4g):
+            # the finite entries, and ||b - Ax||^2 after a few iterations
+            restart(solver)
+            hg = solver.solve(XP_GAP_AT)
+            b["planner"].matvec(solver.Q, solver.SOL)
+            bb = b["planner"].rhs_vectors[0].data
+            rr = torch.sum((bb - b["planner"].get_vector(solver.Q, 0).data)
+                           .double() ** 2).item()
+            gap = abs(rr - hg[-1].item()) / hg[-1].item()
+            T.reset_launch_counts()
+            res["gap"] = gap
+            chk["the finite entries within twice textbook f32's distance "
+                "from float64, as long"] = (
+                win >= finite_window(torch, h32, h64)
+                and dev_k <= max(2 * dev_t, X_F64_FLOOR))
+            chk[f"||b - Ax||^2 vs history after {XP_GAP_AT} within "
+                f"{X_GAP_FLOOR}"] = gap <= X_GAP_FLOOR
+            res["agree"] = (agree_window(h32, h64), agree_window(h, h64))
+            chk["within 1e-3 of float64 as long as textbook f32"] = (
+                res["agree"][1] >= res["agree"][0])
+        for k, ok in chk.items():
+            checks[f"{run}: {k}"] = ok
+        res["checks"] = chk
+        results[run] = res
+        for m, k in c.items():
+            launches[m] = launches.get(m, 0) + k
+            grid[m] = grid.get(m, 0.0) + k / PIECES
+        nbytes = None
+        if counter is not None:
+            nbytes = XP_BYTES[counter](b) * N_ITERS
+        solvers[run] = (solver, single, N_ITERS, nbytes)
+        log(f"[explicit pieces] {run}: launches {c}; against float64 CG "
+            f"(history, x) {dev_k:.3g} {xk:.3g} over {win} entries "
+            f"(textbook f32 {dev_t:.3g} {xt:.3g}); against one piece "
+            f"{one}; each launch against its plain version: max abs err "
+            f"{sh.worst}, share of bound {sh.share}, bit for bit "
+            f"{sh.exact}; checks "
+            + "; ".join(f"{k} {ok}" for k, ok in chk.items()))
+        elapsed(run)
+        del x
+    del refs
+    failed = [k for k, ok in checks.items() if not ok]
+    log(f"[explicit pieces] checks: {len(checks) - len(failed)} of "
+        f"{len(checks)} hold" + (f"; FAILED: {failed}" if failed else ""))
+    return launches, grid, results, solvers, builds, failed
+
+
+# minimum bytes of one iteration's matvec on pieces (the kernel's inputs and
+# outputs; the halo copies and fix-ups are glue), plus CG's 48 B per unknown
+XP_BYTES = {
+    "dia2d_dot": lambda b: (2 + 5 + 12) * 4 * b["coo"][3],
+    "winell": lambda b: (8 * b["geometry"]["L"] + 4 + 4 + 48) * b["coo"][3],
+}
+
+
+def time_explicit_pieces(torch, solvers, bw, card):
+    """Phase 5k: for each run of XP_RUNS, ms/iter (CUDA events, the better
+    of two solve(200)s after a warm-up) and host enqueue ms/iter on 4
+    pieces and of the one-piece solve of the same matrix in the same
+    process, the torch glue operations per iteration counted on the host
+    (:class:`glue_ops`), and after every timing each one's idle share from
+    a profiler trace (``TRACE_OPS`` glue operations, at least a tenth of
+    the iterations).  {run: {"pieces": {...}, "one piece": {...}}}."""
+    out = {}
+    for name, (solver, single, iters, nbytes) in solvers.items():
+        row = {}
+        for label, slv in (("pieces", solver), ("one piece", single)):
+            if slv is None:
+                continue
+            ms, host = solve_ms(torch, slv, iters)
+            if nbytes is not None and label == "pieces":
+                sane(f"{name} {label} solve", ms, nbytes, bw)
+            restart(slv)
+            torch.cuda.synchronize()
+            with glue_ops() as glue:
+                slv.solve(iters)
+            torch.cuda.synchronize()
+            row[label] = {"ms/iter": ms / iters, "host ms/iter": host / iters,
+                          "glue ops per iteration": glue.total / iters,
+                          "glue ops by name": glue.ops}
+        out[name] = row
+        log(f"[time] {name} solve({iters}): " + "; ".join(
+            f"{lab} {r['ms/iter']:.4f} ms/iter, host enqueue "
+            f"{r['host ms/iter']:.4f}, {r['glue ops per iteration']:.2f} "
+            f"torch glue ops per iteration" for lab, r in row.items())
+            + f" on {card}")
+    for name, (solver, single, iters, _) in solvers.items():
+        for label, slv in (("pieces", solver), ("one piece", single)):
+            if slv is None:
+                continue
+            row = out[name][label]
+            n = min(iters, max(1, iters // 10, round(
+                TRACE_OPS / max(row["glue ops per iteration"], 1))))
+            row["traced iterations"] = n
+            dev = profile_solve(
+                torch, slv, "xpieces_" + "".join(
+                    ch if ch.isalnum() else "_" for ch in name)
+                + ("" if label == "pieces" else "_one"), card,
+                row["ms/iter"] * n, n)
+            row["device ms/iter"] = dev / n
+            row["idle"] = 1 - row["device ms/iter"] / row["ms/iter"]
+        log(f"[time] {name}: idle " + "; ".join(
+            f"{lab} {100 * r['idle']:.1f}% (device {r['device ms/iter']:.4f}"
+            f" ms/iter over {r['traced iterations']} traced)"
+            for lab, r in out[name].items()) + f" on {card}")
+    return out
+
+
 # --breakdown: right-hand sides b = 1 (phase 4d's or 4b's) and b = 1 + eps
 # z, z standard normal from seeds 1 .. BREAKDOWN_RHS - 1; f32 histories
 # over BREAKDOWN_ITERS iterations, to see breakdowns past N_ITERS
@@ -5209,6 +5636,20 @@ def main() -> int:
             "times": {**times, **ps_times}, "wrapper host us": wrappers},
             default=str))
         return 1 if failed else 0
+    if "--explicit-pieces" in argv:
+        one_piece = {}
+        for name in ("dia", "scrambled"):
+            sysd = build_explicit(torch, np, lt, name, device)
+            one_piece[name] = (sysd, lt.CGSolver(sysd["planner"]))
+        xp_launches, _, xp_results, xp_solvers, xp_builds, failed = \
+            explicit_pieces_path(torch, np, T, lt, device, one_piece)
+        xp_times = time_explicit_pieces(torch, xp_solvers,
+                                        copy_bandwidth(torch, device), card)
+        log(json.dumps({"card": card, "launches": xp_launches,
+                        "paths": xp_results, "times": xp_times,
+                        "host_s": {k: v["host_s"] for k, v in
+                                   xp_builds.items()}}, default=str))
+        return 1 if failed else 0
     if "--breakdown" in argv:
         dim = int(argv[argv.index("--dim") + 1]) if "--dim" in argv else 3
         n = (int(argv[argv.index("--size") + 1]) if "--size" in argv
@@ -5261,20 +5702,29 @@ def main() -> int:
     compare_blockperm_caps(torch, device)
     counts_x, results_x, solvers_x = {}, {}, {}
     runs = [("cg", name, systems[name]) for name in EXPLICIT]
-    # BiCGStab on a system of its own, built by the entry point again
-    runs.append(("bicgstab", "random",
-                 build_explicit(torch, np, lt, "random", device)))
+    # BiCGStab on the random system as the entry point built it; it takes
+    # the planner's workspace over (the CG solver on it keeps working: its
+    # vectors are among BiCGStab's, and every restart derives them anew)
+    runs.append(("bicgstab", "random", systems["random"]))
     for kind_x, name, sysd in runs:
         refs, true_rr = explicit_refs(torch, np, sysd, name, device, kind_x)
+        if kind_x == "bicgstab":
+            sysd["planner"].workspace_vectors = []
         c, r, slv, f = explicit_path(torch, T, lt, name, sysd, refs, true_rr,
                                      device, kind_x)
         counts_x[kind_x, name] = c
         results_x[f"{kind_x} {name}"] = r
         if kind_x == "cg":
             solvers_x[name] = slv
+            sysd["refs"] = (refs, true_rr)  # phase 4k's references too
         failed += f
         del refs
     mark("phases 3e, 4e-g")
+    xp_launches, xp_grid, xp_results, xp_solvers, xp_builds, f = \
+        explicit_pieces_path(torch, np, T, lt, device, {
+            k: (systems[k], solvers_x[k]) for k in EXPLICIT})
+    failed += f
+    mark("phase 4k")
     counts_h, cli_results, probes, cli_bw = cli_path(torch, np, T, lt,
                                                      device, card)
     cli_checked = cli_checks(torch, np, lt, device)
@@ -5310,6 +5760,8 @@ def main() -> int:
     profile_piece_solves(torch, pc_solvers, piece_times, card)
     profile_piece_solvers(torch, ps_solvers, solver_times, card)
     mark("phase 5j")
+    xp_times = time_explicit_pieces(torch, xp_solvers, bw, card)
+    mark("phase 5k")
     if "--profile" in sys.argv[1:]:  # last: tracing slows later launches
         profile_solve(torch, bsolver, "bicgstab_2d", card)
         for (kind3, dim), slv in solvers3.items():
@@ -5346,7 +5798,8 @@ def main() -> int:
         launches[m] = launches.get(m, 0) + c
         grid_launches[m] = grid_launches.get(m, 0) + c
     on_pieces = {}
-    for counts, grids in ((pc_launches, pc_grid), (ps_launches, ps_grid)):
+    for counts, grids in ((pc_launches, pc_grid), (ps_launches, ps_grid),
+                          (xp_launches, xp_grid)):
         for m, c in counts.items():
             launches[m] = launches.get(m, 0) + c
             grid_launches[m] = grid_launches.get(m, 0) + grids[m]
@@ -5413,7 +5866,10 @@ def main() -> int:
         ms, plain_ms, nbytes, nflops, lib_ms = ktimes_x[m]
         kernels.append(kernel_row(f"{row} [{m}]", source, replaces,
                                   launches[m], errs_x[m], ms, plain_ms,
-                                  nbytes, nflops, bw, lib_ms))
+                                  nbytes, nflops, bw, lib_ms,
+                                  grid_launches=grid_launches[m]))
+        # the launches on pieces (phase 4k) within the row's launches
+        kernels[-1]["pieces_launches"] = on_pieces.get(m, 0)
     # K10 and torch.take also in CUDA graphs (device time alone)
     kernels[-1]["graph_ms"], kernels[-1]["library_graph_ms"] = \
         extra_x["K10_graph_ms"]
@@ -5476,7 +5932,13 @@ def main() -> int:
               "pieces": {"paths": pc_results, "times": piece_times,
                          "wrapper_host_us": piece_wrappers,
                          "solvers": {"paths": ps_results,
-                                     "times": solver_times}},
+                                     "times": solver_times},
+                         "explicit": {
+                             "paths": xp_results, "times": xp_times,
+                             "systems": {k: {"host_s": v["host_s"],
+                                             "nnz": v["nnz"],
+                                             "geometry": v["geometry"]}
+                                         for k, v in xp_builds.items()}}},
               "cli": {"stream_GBps": cli_bw / 1e9, "runs": cli_results,
                       "checks": cli_checked, "probes": probes,
                       "k11_rates_events": rates, **cli_report}}

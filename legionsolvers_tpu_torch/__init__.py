@@ -12,11 +12,13 @@ passes are hand-written CUDA kernels for Hopper (``ops/cuda/``,
 (``parallel/block_fused.py``), the systems of ``entry.py`` and the
 benchmark CLI (``benchmark.py``) with its timing, traffic and op-rate
 roofline (``utils/``), and pieces: a mesh of shards on one device
-(``parallel/mesh.py``) on which the 2-D stencil CG runs its kernels per
-piece with the JAX package's edge fix-ups (``parallel/overlap.py``,
-``parallel/sstep_sharded.py``).  Not ported yet: meshes over several
-devices, and the other solvers, 3-D stencils and explicit matrices on
-pieces.  The package imports torch, numpy and scipy, never jax.
+(``parallel/mesh.py``) on which every solver runs its kernels per piece,
+on 2-D and 3-D stencils with the JAX package's edge fix-ups and halo
+planes (``parallel/overlap.py``, ``parallel/sstep_sharded.py``) and on
+explicit matrices with the halo-exchange schedule of the sharded
+``RowPartitionedMatrix`` and the DIA halo (``parallel/distmatrix.py``,
+``parallel/dia_op.py``).  Not ported yet: meshes over several devices.
+The package imports torch, numpy and scipy, never jax.
 """
 
 from .options import DEFAULT_OPTIONS, SolverOptions, resolve_device

@@ -9,6 +9,10 @@
 //   ls_dia2d  K8  y[r, c] = sum_k diags[k, r, c] * x[r + dy_k, c + dx_k],
 //                 optionally <x, y> (an f32 sum)
 //
+// diags[k] starts diag_stride elements after diags[k - 1] (R * C for one
+// [D, R, C] tensor; more for one piece's rows of a [D, S * R, C] tensor),
+// so that each piece of a mesh runs on its rows of the shared coefficients.
+//
 // x is the [R, C] view of a flat vector; rows outside [0, R) come from the
 // [8, C] halo blocks (real rows last in the top block, first in the bottom
 // one; null = zeros) and columns outside [0, C) read 0, so a coefficient
@@ -40,7 +44,8 @@ template <bool DOT>
 __global__ void __launch_bounds__(LS_THREADS)
 dia2d_kernel(const float* __restrict__ x, const float* __restrict__ top,
              const float* __restrict__ bot, const float* __restrict__ diags,
-             const int* __restrict__ offs, int D, float* __restrict__ y,
+             long long ds, const int* __restrict__ offs, int D,
+             float* __restrict__ y,
              float* __restrict__ partials, int R, int C) {
   __shared__ int so[2 * LS_DIA_MAX_TERMS];  // dy_0..dy_{D-1}, dx_0..dx_{D-1}
   for (int k = tid(); k < 2 * D; k += LS_THREADS) so[k] = offs[k];
@@ -55,7 +60,7 @@ dia2d_kernel(const float* __restrict__ x, const float* __restrict__ top,
     const int r = (int)(e / C), c = (int)(e % C);
     float acc = 0.f;
     for (int k = 0; k < D; ++k) {
-      const float t = mul_rn(diags[(size_t)k * n + e],
+      const float t = mul_rn(diags[(size_t)k * ds + e],
                              load_halo(x, top, bot, R, C, r + so[k],
                                        c + so[D + k]));
       acc = k ? add_rn(acc, t) : t;
@@ -76,14 +81,16 @@ extern "C" {
 int ls_dia_max_terms() { return LS_DIA_MAX_TERMS; }
 int ls_dia_elems() { return LS_DIA_ELEMS; }
 
+// diag_stride: elements from one diagonal to the next, >= R * C.
 // offs: 2 * D ints on the device (dy then dx), |dy| <= 8, |dx| < C.
 // partials: one float per block of LS_THREADS * LS_DIA_ELEMS elements; dot
 // one float.  Both are unused without `with_dot`.
 int ls_dia2d(int with_dot, const float* x, const float* top, const float* bot,
-             const float* diags, const int* offs, int D, float* y, float* dot,
-             float* partials, int R, int C, void* stream_ptr) {
+             const float* diags, long long diag_stride, const int* offs,
+             int D, float* y, float* dot, float* partials, int R, int C,
+             void* stream_ptr) {
   if (R < 1 || C < 1 || D < 1 || D > LS_DIA_MAX_TERMS ||
-      (long long)R * C >= (1LL << 31))
+      (long long)R * C >= (1LL << 31) || diag_stride < (long long)R * C)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const long long per_block = (long long)LS_THREADS * LS_DIA_ELEMS;
@@ -91,11 +98,11 @@ int ls_dia2d(int with_dot, const float* x, const float* top, const float* bot,
   const dim3 block(LS_THREADS_X, LS_THREADS_Y);
   if (!with_dot) {
     dia2d_kernel<false><<<nblocks, block, 0, stream>>>(
-        x, top, bot, diags, offs, D, y, partials, R, C);
+        x, top, bot, diags, diag_stride, offs, D, y, partials, R, C);
     return (int)cudaGetLastError();
   }
   dia2d_kernel<true><<<nblocks, block, 0, stream>>>(
-      x, top, bot, diags, offs, D, y, partials, R, C);
+      x, top, bot, diags, diag_stride, offs, D, y, partials, R, C);
   return finish(partials, nblocks, 1, dot, stream);
 }
 

@@ -13,9 +13,11 @@ operator on its pieces.  :func:`build_system` is its 2-D square case, as
 ``__graft_entry__._build_system(n_grid, mesh, pieces, options)`` builds
 it.
 :func:`build_explicit_system` is the explicit-matrix counterpart of
-``scripts/bench_explicit.py``: one piece, flat vectors, b = 1, x0 = 0,
-the planner choosing the operator (DIA, a reordered windowed ELL or the
-routed gather, else ELL).  All run on the card unless the caller asks for
+``scripts/bench_explicit.py``: flat vectors, b = 1, x0 = 0, the planner
+choosing the operator (DIA, a reordered windowed ELL or the routed gather,
+else ELL), in ``pieces`` pieces on ``mesh`` as ``build_stencil_system``
+takes them (on pieces: DIA on pieces, a reordered or plain sharded ELL
+with its halo exchange).  All run on the card unless the caller asks for
 another device.
 """
 
@@ -27,7 +29,7 @@ import numpy as np
 
 from .core.partition import BlockPartition
 from .core.vector import PartitionedVector
-from .options import DEFAULT_OPTIONS, SolverOptions, resolve_device
+from .options import DEFAULT_OPTIONS, SolverOptions
 from .parallel.mesh import num_shards, resolve_mesh
 from .parallel.stencil_op import StencilOperator
 from .planner import SquarePlanner
@@ -75,19 +77,25 @@ def build_system(n_grid: int, options: SolverOptions = DEFAULT_OPTIONS,
 
 
 def build_explicit_system(matrix, options: SolverOptions = DEFAULT_OPTIONS,
-                          device=None, prefer_dia: bool = True
-                          ) -> SquarePlanner:
-    """A one-piece system ``matrix`` x = 1 with x0 = 0, the square explicit
-    ``matrix`` registered through ``add_row_partitioned_matrix``."""
+                          device=None, prefer_dia: bool = True,
+                          pieces: Optional[int] = None,
+                          mesh=None) -> SquarePlanner:
+    """The system ``matrix`` x = 1 with x0 = 0, the square explicit
+    ``matrix`` registered through ``add_row_partitioned_matrix``.
+    ``pieces`` defaults to the mesh's shard count (1 without a mesh); the
+    device to the mesh's (the card without a mesh)."""
     if matrix.n_domain != matrix.n_range:
         raise ValueError("an explicit system needs a square matrix")
-    device = resolve_device(device)
-    part = BlockPartition(int(matrix.n_range), 1)
-    rhs = PartitionedVector("rhs", part, options=options, device=device)
+    if pieces is None:
+        pieces = num_shards(mesh) if mesh is not None else 1
+    part = BlockPartition(int(matrix.n_range), pieces)
+    mesh, device = resolve_mesh(mesh, part, device)
+    rhs = PartitionedVector("rhs", part, mesh=mesh, options=options,
+                            device=device)
     rhs.constant_fill(1.0)
-    sol = PartitionedVector("sol", part, options=options, device=device,
-                            lazy=True)
-    planner = SquarePlanner(options=options, device=device)
+    sol = PartitionedVector("sol", part, mesh=mesh, options=options,
+                            device=device, lazy=True)
+    planner = SquarePlanner(mesh=mesh, options=options, device=device)
     planner.add_sol_vector(sol)
     planner.add_rhs_vector(rhs)
     planner.add_row_partitioned_matrix(matrix, 0, 0, prefer_dia=prefer_dia)

@@ -1,9 +1,11 @@
-"""Host helpers: stencil sizes, CSR row pointers, DIA extraction and RCM
-ordering.
+"""Host helpers: stencil sizes, CSR row pointers, DIA extraction, RCM
+ordering and the per-piece halo and ELL packing of a row-partitioned
+matrix.
 
 Port of the numpy/scipy paths of ``legionsolvers_tpu/native/bindings.py``
 (``stencil_size``, ``stencil_fill_coo``, ``build_indptr``,
-``dia_unique_offsets``, ``dia_accumulate``, ``rcm_permutation``).  The JAX
+``dia_unique_offsets``, ``dia_accumulate``, ``rcm_permutation``,
+``shard_halo_columns``, ``pack_ell_shard``).  The JAX
 package prefers a C++ library and falls back to these; the port has no
 C++ host code, so :func:`available` is False and
 :func:`stencil_fill_coo` leaves the work to the numpy generator of
@@ -98,3 +100,36 @@ def rcm_permutation(n, rows, cols):
     return np.asarray(
         reverse_cuthill_mckee(a + a.T, symmetric_mode=True), np.int64
     )
+
+
+def shard_halo_columns(cols_global, d0, B_d):
+    """Sorted distinct columns outside the block ``[d0, d0 + B_d)``: the
+    halo one piece reads (the ghost image of its nonzeros, reference:
+    COOMatrix.cpp:98-118)."""
+    c = np.ascontiguousarray(cols_global, np.int64)
+    return np.unique(c[(c < d0) | (c >= d0 + B_d)])
+
+
+def pack_ell_shard(rows_local, cols_global, vals, B_r, B_d, d0, halo_global,
+                   L, dump):
+    """ELL-pack one piece's nonzeros: (ell_cols int32 [B_r, L], ell_vals
+    float64 [B_r, L]).  ``rows_local`` is sorted (stably) and the nonzeros
+    of a row keep their order in the slots.  Columns are remapped into the
+    piece's extended buffer: ``c - d0`` inside its block ``[d0, d0 +
+    B_d)``, ``B_d`` + the position in the sorted ``halo_global`` outside;
+    padded slots hold (``dump``, 0)."""
+    rows_local = np.ascontiguousarray(rows_local, np.int64)
+    c = np.ascontiguousarray(cols_global, np.int64)
+    halo_global = np.ascontiguousarray(halo_global, np.int64)
+    local = (c >= d0) & (c < d0 + B_d)
+    lc = np.empty(len(c), np.int64)
+    lc[local] = c[local] - d0
+    lc[~local] = B_d + np.searchsorted(halo_global, c[~local])
+    starts = np.concatenate([[0], np.cumsum(np.bincount(rows_local,
+                                                       minlength=B_r))])
+    slot = np.arange(len(rows_local)) - starts[rows_local]
+    ell_cols = np.full((B_r, L), dump, np.int32)
+    ell_vals = np.zeros((B_r, L), np.float64)
+    ell_cols[rows_local, slot] = lc
+    ell_vals[rows_local, slot] = np.asarray(vals, np.float64)
+    return ell_cols, ell_vals

@@ -150,7 +150,7 @@ def load_library() -> ctypes.CDLL:
         "ls_march1_blocks": [_I] * 3,
         "ls_bicg3d_st": [_P] * 7 + [_I, _P] + [_I] * 4 + [_P, _P],
         "ls_bicg3d_update": [_P] * 12 + [_I, _P] + [_I] * 4 + [_P, _P],
-        "ls_dia2d": [_I] + [_P] * 5 + [_I] + [_P] * 3 + [_I, _I, _P],
+        "ls_dia2d": [_I] + [_P] * 4 + [_L, _P, _I] + [_P] * 3 + [_I, _I, _P],
         "ls_winell": [_I] + [_P] * 5 + [_I] * 3 + [_P],
         "ls_blockperm": [_I] + [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_P],
         "ls_vpu_chain": [_I, _P, _P, _I, _I, _L, _P],

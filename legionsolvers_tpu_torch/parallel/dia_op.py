@@ -1,5 +1,5 @@
 """Explicit-DIA operator: the fast path for explicit matrices with few
-diagonals, single device.
+diagonals, on one piece or on the pieces of a mesh.
 
 Port of ``legionsolvers_tpu/parallel/dia_op.py`` (reference:
 CSRMatrixTasks.cu:14-156, COOMatrixTasks.cu:12-146, which run cuSPARSE
@@ -10,10 +10,20 @@ are rewritten onto an [R, C] view and run on kernel K8
 (``ops/cuda/dia2d.py``), (2 + D) * 4 B per element; f64 runs a linearized
 torch path of shifted slices, as the JAX package routes it.
 
-One piece only: ``SquarePlanner.add_row_partitioned_matrix`` upgrades
-square single-piece matrices with few, well-filled diagonals here, and
-multi-piece partitions without a mesh stay on the ELL operator, as in the
-JAX package.  A mesh raises.
+``SquarePlanner.add_row_partitioned_matrix`` upgrades square matrices with
+few, well-filled diagonals here when they have one piece or a mesh, as in
+the JAX package; several pieces without a mesh stay on the ELL operator.
+
+Pieces (``parallel/mesh.py``): on a mesh of S shards, all on one device, a
+vector is one tensor and piece s its block of B rows.  The view then has
+``Br = B / C`` rows per piece, and K8 runs once per piece with ZERO halo
+blocks; the neighbours' edge rows are copied out before the first launch
+and the terms the passes left out at the piece edges, with their share of
+<x, A x>, are added afterwards with the per-row coefficients
+(``parallel/overlap.py``), as the JAX package's overlapped matvec does.
+The linearized path reads each piece's band from its neighbours (a ring)
+or, for a band wider than a block, gathers it from the whole vector.
+Per-piece dots are summed in piece order.
 """
 
 from __future__ import annotations
@@ -22,9 +32,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.partition import BlockPartition
-from ..options import DEFAULT_OPTIONS, SolverOptions, resolve_device
+from ..options import DEFAULT_OPTIONS, SolverOptions
+from .mesh import ordered_sum, resolve_mesh
 
 # The gate of the JAX package: at most MAX_DIAGONALS distinct diagonals,
 # and nnz / (D * padded_size) >= MIN_DIA_FILL (a 16x storage bloat cap).
@@ -88,18 +100,14 @@ class DiaOperator:
         options: SolverOptions = DEFAULT_OPTIONS,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded operators are not ported to the torch package yet")
         if matrix.n_domain != matrix.n_range:
             raise ValueError("DiaOperator requires a square matrix")
-        if partition.num_pieces > 1:
+        if partition.num_pieces > 1 and mesh is None:
             raise ValueError("multi-piece DiaOperator requires a mesh")
         self.matrix = matrix
         self.partition = partition
-        self.mesh = None
+        self.mesh, self.device = resolve_mesh(mesh, partition, device)
         self.options = options
-        self.device = resolve_device(device)
         extracted = dia_extract(matrix, partition.padded_size,
                                 numpy_dtype(options.entry_dtype))
         if extracted is None:
@@ -109,24 +117,35 @@ class DiaOperator:
         self.flat_offsets, flat_coefs = extracted
         self.band_lo = max(0, -int(self.flat_offsets.min(initial=0)))
         self.band_hi = max(0, int(self.flat_offsets.max(initial=0)))
-        # f32 runs on K8; f64 (and a matrix of zeros) on the linearized path
+        S = partition.num_pieces
+        # a band wider than a block reaches past the neighbouring pieces:
+        # the linearized path then gathers its window from the whole vector
+        self._wide_band = S > 1 and max(self.band_lo, self.band_hi) > (
+            partition.block_size)
+        # f32 runs on K8; f64, a band wider than a block and a matrix of
+        # zeros on the linearized path
         self._view = None
-        if options.entry_dtype == torch.float32:
+        if options.entry_dtype == torch.float32 and not self._wide_band:
             self._view = self._plan_view(flat_coefs)
             if self._view is None and flat_coefs.any():
                 raise ValueError("no K8 view fits this f32 DIA matrix")
         if self._view is None:
             self.flat_coefs = torch.as_tensor(flat_coefs, device=self.device)
         self._transpose_op = None
+        self._cache = {}
 
     def _plan_view(self, flat_coefs: np.ndarray):
         """The flat diagonals rewritten onto a [rows, C] view for K8: a
         shift s = q C + rr becomes (q, rr) on the columns where c + rr
         stays in the row and (q + 1, rr - C) on the others, each term
         keeping its coefficients only there.  JAX's width order and its
-        B % C == 0, B // C >= 8 rule; the card's gate (``supports_dia``)
-        instead of the VMEM budget.  Where none of JAX's widths fits, one
-        row of width B: K8 takes any width, and every term then has dy 0."""
+        B % C == 0, B // C >= 8 rule at the block size B of one piece; the
+        card's gate (``supports_dia``) instead of the VMEM budget.  Where
+        none of JAX's widths fits, one row of width B per piece: K8 takes
+        any width, and every term then has |dy| <= 1.  The coefficients
+        are ``[D, S * Br, C]``, as in the JAX package; piece s's are the
+        rows ``[s * Br, (s + 1) * Br)`` of each diagonal, which K8 reads
+        with the diagonals' stride."""
         from ..ops.cuda.dia2d import supports_dia
 
         B = self.partition.block_size
@@ -153,7 +172,7 @@ class DiaOperator:
             Br = B // C
             if not supports_dia(Br, C, offs, len(offs)):
                 continue
-            diags = np.stack(coefs).reshape(len(offs), Br, C)
+            diags = np.stack(coefs).reshape(len(offs), N // C, C)
             return {
                 "C": C,
                 "Br": Br,
@@ -171,7 +190,11 @@ class DiaOperator:
 
     @property
     def supports_matvec_dot(self) -> bool:
-        return True
+        return self.partition.num_pieces == 1 or self.mesh is not None
+
+    @property
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.partition.num_pieces > 1
 
     @property
     def n_domain(self) -> int:
@@ -186,29 +209,88 @@ class DiaOperator:
 
     # ------------------------------------------------------------------
     def _kernel_local(self, x, with_dot: bool):
+        """K8 on the view: one launch on one piece; on S pieces one
+        zero-halo launch per piece into its rows of y, then the edge terms
+        it left out (and their share of <x, A x>) from the neighbours'
+        edge rows, copied out before the first launch."""
         from ..ops.cuda.dia2d import dia2d_matvec
+        from .overlap import (
+            apply_edge_fixup,
+            dot_fixup,
+            edge_missing,
+            exchange_halos,
+        )
 
         v = self._view
-        out = dia2d_matvec(x.reshape(v["Br"], v["C"]), None, None,
-                           v["diags"], offsets=v["offs"], with_dot=with_dot)
+        S, Br, C, offs = self.partition.num_pieces, v["Br"], v["C"], v["offs"]
+        diags = v["diags"]
+        if S == 1:
+            out = dia2d_matvec(x.reshape(Br, C), None, None, diags,
+                               offsets=offs, with_dot=with_dot)
+            if with_dot:
+                return out[0].reshape(-1), out[1]
+            return out.reshape(-1)
+        xg = x.reshape(S * Br, C)
+        rlo = max(0, -min(dy for dy, _ in offs))
+        rhi = max(0, max(dy for dy, _ in offs))
+        if rlo or rhi:
+            (top,), (bot,) = exchange_halos([xg], S, rlo, rhi)
+        x3 = xg.view(S, Br, C)
+        y3 = torch.empty_like(x3)
+        outs = [dia2d_matvec(x3[s], None, None,
+                             diags[:, s * Br: (s + 1) * Br], offsets=offs,
+                             with_dot=with_dot, out=y3[s]) for s in range(S)]
+        if rlo or rhi:
+            # the omitted edge terms, once for y and the dot
+            miss = edge_missing(offs, top, bot, Br,
+                                lambda k, sl: diags[k].view(S, Br, C)[:, sl])
         if with_dot:
-            return out[0].reshape(-1), out[1]
-        return out.reshape(-1)
+            dots = torch.stack([d for _, d in outs])
+            if rlo or rhi:
+                dots = dots + dot_fixup(x3, offs, top, bot, None, miss)
+        if rlo or rhi:
+            apply_edge_fixup(y3, offs, top, bot, None, miss)
+        y = y3.reshape(-1)
+        if with_dot:
+            return y, ordered_sum(dots, torch.float32)
+        return y
+
+    def _windows(self, x: torch.Tensor) -> torch.Tensor:
+        """``[S, lo + B + hi]``: each piece's block of the flat vector with
+        its band: zeros on one piece, else from the neighbouring pieces or,
+        for a band wider than a block, the whole vector
+        (``overlap.piece_windows``)."""
+        from .overlap import piece_windows
+
+        S, B = self.partition.num_pieces, self.partition.block_size
+        if not self._wide_band:
+            lo, hi = min(self.band_lo, B), min(self.band_hi, B)
+            if not self._sharded:
+                return F.pad(x.reshape(S, B), (lo, hi))
+        else:
+            lo, hi = self.band_lo, self.band_hi
+        return piece_windows(x.reshape(-1), S, lo, hi, self._wide_band,
+                             self._cache)
 
     def _linear_local(self, x, with_dot: bool):
-        """Shifted slices of the zero-extended vector weighted by the
-        coefficient rows (zeros encode the boundaries), summed in offset
-        order; the dot in the entry dtype."""
-        B = self.partition.block_size
-        lo, hi = min(self.band_lo, B), min(self.band_hi, B)
-        x = x.reshape(-1)
-        x_ext = torch.cat([x.new_zeros(lo), x, x.new_zeros(hi)])
-        y = x.new_zeros(B)
+        """Shifted slices of each piece's window (:meth:`_windows`)
+        weighted by the coefficient rows (zeros encode the boundaries),
+        summed in offset order; the dot in the entry dtype, per piece, the
+        pieces' sums added in piece order."""
+        S, B = self.partition.num_pieces, self.partition.block_size
+        lo = self.band_lo if self._wide_band else min(self.band_lo, B)
+        x_ext = self._windows(x)
+        y = x.new_zeros(S, B)
         for k, s in enumerate(self.flat_offsets):
-            y = y + self.flat_coefs[k] * x_ext[lo + int(s): lo + int(s) + B]
-        if with_dot:
-            return y, torch.sum(x * y)
-        return y
+            y = y + self.flat_coefs[k].view(S, B) * x_ext[
+                :, lo + int(s): lo + int(s) + B]
+        y = y.reshape(-1)
+        if not with_dot:
+            return y
+        if not self._sharded:
+            return y, torch.sum(x.reshape(-1) * y)
+        parts = torch.sum((x.reshape(-1) * y).view(S, B), dim=1)
+        return y, ordered_sum(parts, y.dtype)
 
     def _apply(self, x, with_dot: bool):
         if self._view is not None:
@@ -245,7 +327,7 @@ class DiaOperator:
         if self._transpose_op is None:
             self._transpose_op = DiaOperator(
                 _Swapped(self.matrix), partition=self.partition,
-                options=self.options, device=self.device)
+                mesh=self.mesh, options=self.options, device=self.device)
         return self._transpose_op
 
     def rmatvec(self, x: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,8 @@ devices=[card] * S)``).  A vector on such a mesh is one padded tensor on
 that device, piece ``s`` its row block ``[s * B, (s + 1) * B)``; the
 operators run their kernels once per piece and exchange halo rows by
 copying the neighbours' edge rows (``parallel/stencil_op.py``,
-``parallel/sstep_sharded.py``).
+``parallel/sstep_sharded.py``, ``parallel/dia_op.py``), or, for an
+explicit matrix, its static halo schedule (``parallel/distmatrix.py``).
 
 Not ported yet (ROADMAP §1, item 5g): shards on more than one distinct
 device (torch.distributed over several cards or processes) and

@@ -62,6 +62,35 @@ def exchange_halos(grids, S: int, rows_top: int, rows_bot: int,
     return side(rows_top, True), side(rows_bot, False)
 
 
+def piece_windows(x: torch.Tensor, S: int, lo: int, hi: int, wide: bool,
+                  cache: dict) -> torch.Tensor:
+    """``[S, lo + B + hi]``: each piece's block of the flat vector ``x``
+    (``S`` pieces of ``B``) with the ``lo`` entries before it and the
+    ``hi`` after it, for the linearized paths on pieces.  From the
+    neighbouring pieces (piece 0's tail from the last piece's end, as the
+    JAX package's ring of ppermutes delivers it; such entries meet zero
+    coefficients), or, where the band is wider than a block (``wide``),
+    gathered from the whole vector modulo its size (JAX's all_gather),
+    the index kept in ``cache`` per device."""
+    B = x.numel() // S
+    if not wide:
+        x2 = x.view(S, B)
+        parts = [x2]
+        if lo:
+            parts.insert(0, torch.roll(x2[:, B - lo:], 1, 0))
+        if hi:
+            parts.append(torch.roll(x2[:, :hi], -1, 0))
+        return torch.cat(parts, 1) if len(parts) > 1 else x2
+    key = ("window", x.device)
+    idx = cache.get(key)
+    if idx is None:
+        idx = (torch.arange(B + lo + hi, device=x.device)
+               + (torch.arange(S, device=x.device) * B - lo)[:, None]
+               ) % (S * B)
+        cache[key] = idx
+    return x[idx]
+
+
 def edge_missing(offsets, top, bot, Br: int, coeff):
     """The contributions a zero-halo stencil pass omitted at the block
     edges.  ``coeff(k, row_slice)`` is the multiplier of offset ``k`` on
@@ -90,11 +119,14 @@ def edge_missing(offsets, top, bot, Br: int, coeff):
     return miss_top, miss_bot
 
 
-def apply_edge_fixup(y: torch.Tensor, offsets, top, bot, coeff):
+def apply_edge_fixup(y: torch.Tensor, offsets, top, bot, coeff,
+                     missing=None):
     """y (a zero-halo pass's output, ``[..., Br, C]``) plus the omitted
-    edge terms, added in place."""
+    edge terms, added in place.  ``missing``: :func:`edge_missing`'s
+    result when the caller has it already."""
     Br = y.shape[-2]
-    miss_top, miss_bot = edge_missing(offsets, top, bot, Br, coeff)
+    miss_top, miss_bot = missing or edge_missing(offsets, top, bot, Br,
+                                                 coeff)
     if miss_top is not None:
         y[..., : miss_top.shape[-2], :] += miss_top
     if miss_bot is not None:
@@ -102,12 +134,14 @@ def apply_edge_fixup(y: torch.Tensor, offsets, top, bot, coeff):
     return y
 
 
-def dot_fixup(x: torch.Tensor, offsets, top, bot, coeff) -> torch.Tensor:
+def dot_fixup(x: torch.Tensor, offsets, top, bot, coeff,
+              missing=None) -> torch.Tensor:
     """Correction to a fused <x, A x> of a zero-halo pass: the sum over
     the edge rows of x * (the omitted A x terms), in f32; one per piece
-    for a stack."""
+    for a stack.  ``missing`` as for :func:`apply_edge_fixup`."""
     Br = x.shape[-2]
-    miss_top, miss_bot = edge_missing(offsets, top, bot, Br, coeff)
+    miss_top, miss_bot = missing or edge_missing(offsets, top, bot, Br,
+                                                 coeff)
     fix = torch.zeros(x.shape[:-2], dtype=torch.float32, device=x.device)
     if miss_top is not None:
         k = miss_top.shape[-2]

@@ -14,9 +14,11 @@ planner permutes the space's vectors once when a solve enters the basis
 
 :class:`ReorderedOperator` wraps an operator built on the permuted matrix:
 inside the basis its matvec is the base operator's, with no extra work;
-outside (eager ``step()``s) it permutes on every call.  Single device:
-branches that need a mesh return None, as they do for a JAX planner
-without a mesh.
+outside (eager ``step()``s) it permutes on every call.  On the pieces of a
+mesh (``parallel/mesh.py``) the permuted matrix becomes a DIA operator on
+pieces or the sharded windowed ELL of ``parallel/distmatrix.py``; the
+windowed-ELL, sliced and routed-gather operators are one piece only, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from ..options import resolve_device
+from .mesh import resolve_mesh
 
 
 class _PermutedMatrix:
@@ -156,16 +159,15 @@ def try_reordered_operator(
     space shares its basis); ``force=True`` (with ``perm``) never returns
     None: without a fast kernel in that basis the permuted matrix goes to
     the ELL ``RowPartitionedMatrix``.  Matrices below n = 1024 stay
-    unpermuted.  LEGIONSOLVERS_NO_SLICED_ELL and LEGIONSOLVERS_NO_GENSPMV
-    turn off those two operators."""
+    unpermuted.  On pieces (``mesh``): DIA on pieces, else the sharded
+    ``RowPartitionedMatrix`` of the permuted matrix, kept when its windowed
+    plan exists or under ``force``.  LEGIONSOLVERS_NO_SLICED_ELL and
+    LEGIONSOLVERS_NO_GENSPMV turn off those two operators."""
     from .dia_op import DiaOperator, dia_offsets, numpy_dtype
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded operators are not ported to the torch package yet")
-    device = resolve_device(device)
+    mesh, device = resolve_mesh(mesh, partition, device)
     if not force:
-        if partition.num_pieces > 1:
+        if partition.num_pieces > 1 and mesh is None:
             return None
         if matrix.n_domain != matrix.n_range:
             return None
@@ -182,9 +184,10 @@ def try_reordered_operator(
     one_piece = partition.num_pieces == 1
 
     base = None
-    if one_piece and dia_offsets(pm, partition.padded_size) is not None:
-        base = DiaOperator(pm, partition=partition, options=options,
-                           device=device)
+    if ((one_piece or mesh is not None)
+            and dia_offsets(pm, partition.padded_size) is not None):
+        base = DiaOperator(pm, partition=partition, mesh=mesh,
+                           options=options, device=device)
     if base is None and one_piece:
         from .winell_op import (
             SlicedWinEllOperator,
@@ -233,12 +236,22 @@ def try_reordered_operator(
                                            device=device)
             except ValueError:
                 pass
+    if base is None and not one_piece:
+        from .distmatrix import RowPartitionedMatrix
+
+        rpm = RowPartitionedMatrix(
+            pm, domain_partition=partition, range_partition=partition,
+            mesh=mesh, options=options, device=device)
+        # the basis pays only with the windowed plan (the unpermuted
+        # gather-ELL is as fast), unless the basis exists already
+        if rpm._win is not None or force:
+            base = rpm
     if base is None and force:
         from .distmatrix import RowPartitionedMatrix
 
         base = RowPartitionedMatrix(
             pm, domain_partition=partition, range_partition=partition,
-            options=options, device=device)
+            mesh=mesh, options=options, device=device)
     if base is None:
         return None
     return ReorderedOperator(base, perm, iperm, partition, options,

@@ -525,30 +525,12 @@ class StencilOperator:
 
     def _piece_windows(self, x: torch.Tensor) -> torch.Tensor:
         """``[S, lo + B + hi]``: each piece's block of the flat vector with
-        the ``lo`` entries before it and the ``hi`` after it, from the
-        neighbouring pieces (piece 0's tail from the last piece's end, as
-        the JAX package's ring of ppermutes delivers it); where the band is
-        wider than a block, gathered from the whole vector modulo its
-        padded size (JAX's all_gather).  Wrapped entries meet zero
-        diagonal values."""
-        S, B = self.partition.num_pieces, self.partition.block_size
-        lo, hi = self.band_lo, self.band_hi
-        if not self._wide_band:
-            x2 = x.view(S, B)
-            parts = [x2]
-            if lo:
-                parts.insert(0, torch.roll(x2[:, B - lo:], 1, 0))
-            if hi:
-                parts.append(torch.roll(x2[:, :hi], -1, 0))
-            return torch.cat(parts, 1) if len(parts) > 1 else x2
-        key = ("window", x.device)
-        idx = self._diag_cache.get(key)
-        if idx is None:
-            N = self.partition.padded_size
-            idx = (torch.arange(B + lo + hi, device=x.device)
-                   + (torch.arange(S, device=x.device) * B - lo)[:, None]) % N
-            self._diag_cache[key] = idx
-        return x[idx]
+        its band from the neighbouring pieces
+        (``overlap.piece_windows``)."""
+        from .overlap import piece_windows
+
+        return piece_windows(x, self.partition.num_pieces, self.band_lo,
+                             self.band_hi, self._wide_band, self._diag_cache)
 
     def _linear_pieces(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x over the flat padded vector of several pieces, piece by

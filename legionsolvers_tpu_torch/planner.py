@@ -9,15 +9,15 @@ registered space, so the solvers are near-transcriptions of the reference.
 Every vector and operator must live on the planner's ``device``; the
 registration methods check it.  On a mesh (``parallel/mesh.py``) the
 device is the mesh's, every space has the mesh's piece count, and the
-stencil operators run on the pieces; explicit matrices on a mesh of
-several pieces raise NotImplementedError (ROADMAP §1 items 5d and 5e).
-An explicit square matrix on a one-piece space is upgraded as in the JAX
-package: few well-filled diagonals become a
-:class:`~.parallel.dia_op.DiaOperator` (kernel K8); otherwise
-``parallel/reorder.py`` tries an RCM basis (DIA or windowed ELL, K9) and
-then the routed gather in a degree-sorted basis (K10).  Everything else,
-multi-piece partitions without a mesh included, becomes the ELL
-:class:`~.parallel.distmatrix.RowPartitionedMatrix`.  A space that adopts a
+operators run on the pieces.  An explicit square matrix on a one-piece
+space or on a mesh is upgraded as in the JAX package: few well-filled
+diagonals become a :class:`~.parallel.dia_op.DiaOperator` (kernel K8);
+otherwise ``parallel/reorder.py`` tries an RCM basis (DIA or windowed ELL,
+K9; on one piece then the routed gather in a degree-sorted basis, K10).
+Everything else, multi-piece partitions without a mesh included, becomes
+the ELL :class:`~.parallel.distmatrix.RowPartitionedMatrix`, which on a
+mesh exchanges its halos between the pieces and runs K9 per piece where
+its windowed plan exists.  A space that adopts a
 reordered basis keeps it: later operators on it are expressed in it, and
 solvers enter the basis for the duration of ``solve()``.
 """
@@ -172,12 +172,6 @@ class SquarePlanner:
 
         if domain_index >= self.num_spaces or range_index >= self.num_spaces:
             raise ValueError("space index out of range")
-        if self.mesh is not None and num_shards(self.mesh) > 1:
-            raise NotImplementedError(
-                f"an explicit matrix on a mesh of {num_shards(self.mesh)} "
-                "pieces: its halo exchange (the sharded "
-                "RowPartitionedMatrix, ROADMAP §1 item 5d; the DIA halo, "
-                "item 5e) is not ported")
         dp = self.canonical_partitions[domain_index]
         rp = self.canonical_partitions[range_index]
         dist = None
@@ -189,28 +183,28 @@ class SquarePlanner:
         if same_space and rng_basis is not None:
             dist = try_reordered_operator(
                 matrix, rp, self.options, perm=rng_basis["perm_np"],
-                force=True, device=self.device)
+                mesh=self.mesh, force=True, device=self.device)
         elif not same_space and (dom_basis is not None
                                  or rng_basis is not None):
             dist = cross_basis_operator(
-                matrix, dp, rp, dom_basis, rng_basis, None, self.options,
-                device=self.device)
-        one_piece_flat = (
+                matrix, dp, rp, dom_basis, rng_basis, self.mesh,
+                self.options, device=self.device)
+        square_flat = (
             matrix.n_domain == matrix.n_range and dp == rp
-            and dp.num_pieces == 1
+            and (dp.num_pieces == 1 or self.mesh is not None)
             and self.canonical_grid_shapes[domain_index] is None)
-        if (dist is None and prefer_dia and one_piece_flat
+        if (dist is None and prefer_dia and square_flat
                 and not bool(int(os.environ.get("LEGIONSOLVERS_NO_DIA", "0")))
                 and dia_offsets(matrix, rp.padded_size) is not None):
-            dist = DiaOperator(matrix, partition=rp, options=self.options,
-                               device=self.device)
-        if (dist is None and prefer_dia and same_space and one_piece_flat
+            dist = DiaOperator(matrix, partition=rp, mesh=self.mesh,
+                               options=self.options, device=self.device)
+        if (dist is None and prefer_dia and same_space and square_flat
                 and not bool(int(os.environ.get("LEGIONSOLVERS_NO_RCM", "0")))
                 # a fresh basis only on a space no other operator touches
                 and not any(range_index in (d, r)
                             for _, d, r in self.row_partitioned_matrices)):
             dist = try_reordered_operator(matrix, rp, self.options,
-                                          device=self.device)
+                                          mesh=self.mesh, device=self.device)
             if dist is not None:
                 self.basis_perms[range_index] = {
                     "perm_np": dist.perm_np,
@@ -221,7 +215,7 @@ class SquarePlanner:
         if dist is None:
             dist = RowPartitionedMatrix(
                 matrix, domain_partition=dp, range_partition=rp,
-                options=self.options, device=self.device)
+                mesh=self.mesh, options=self.options, device=self.device)
         self.row_partitioned_matrices.append((dist, domain_index, range_index))
 
     def add_operator(self, op, domain_index: int, range_index: int) -> None:

@@ -9,7 +9,7 @@ re-derive everything else).  The functions build the port's planner and solver h
 so both packages continue the same computation.  For an explicit system
 whose JAX planner adopted a reordered basis, :func:`explicit_cg_system`
 takes that basis (``basis_perms[0]["perm_np"]``) too, so that both
-packages compute in it.  Nothing here imports jax.
+packages compute in it, on one piece or on the pieces of a mesh.  Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from ..core.partition import BlockPartition
 from ..core.scalar import Scalar
 from ..core.vector import PartitionedVector
 from ..options import DEFAULT_OPTIONS, SolverOptions
+from ..parallel.mesh import num_shards
 from ..parallel.stencil_op import StencilOperator
 from ..planner import SquarePlanner
 from ..solvers.bicgstab import BiCGStabSolver
@@ -111,11 +112,11 @@ def gmres_solver_from_state(planner: SquarePlanner, state: Mapping,
 
 
 def _planner(op_or_matrix, partition, grid_shape, options, device,
-             prefer_dia: bool = True, perm=None):
-    planner = SquarePlanner(options=options, device=device)
+             prefer_dia: bool = True, perm=None, mesh=None):
+    planner = SquarePlanner(mesh=mesh, options=options, device=device)
     for name, add in (("sol", planner.add_sol_vector),
                       ("rhs", planner.add_rhs_vector)):
-        add(PartitionedVector(name, partition, options=options,
+        add(PartitionedVector(name, partition, mesh=mesh, options=options,
                               grid_shape=grid_shape, device=device))
     if perm is not None:
         planner.adopt_basis(0, perm)
@@ -157,14 +158,20 @@ def coo_cg_system(rows, cols, vals, n: int, state: Mapping,
 def explicit_cg_system(rows, cols, vals, n: int, state: Mapping,
                        rr_history: Sequence[float], *,
                        options: SolverOptions = DEFAULT_OPTIONS, device=None,
-                       prefer_dia: bool = True, perm=None):
-    """(planner, solver) for a one-piece explicit system, as
+                       prefer_dia: bool = True, perm=None,
+                       pieces: Optional[int] = None, mesh=None):
+    """(planner, solver) for an explicit system, as
     ``entry.build_explicit_system`` builds it, in the state ``state`` (the
     vectors in the original basis, as ``dump_state()`` gives them between
-    solves).  ``perm``: the JAX planner's basis, adopted through the
-    forced path of ``try_reordered_operator``; without it the port's
+    solves).  ``pieces`` and ``mesh``: the JAX system's piece count and the
+    port's mesh of as many shards (``make_mesh(S, devices=[dev] * S)``);
+    ``pieces`` defaults to the mesh's shard count, else 1.  ``perm``: the
+    JAX planner's basis, adopted through the forced path of
+    ``try_reordered_operator`` (on pieces too); without it the port's
     planner chooses its own operator."""
     A = COOMatrix(rows, cols, vals, n, n, options=options)
-    planner = _planner(A, BlockPartition(n, 1), None, options, device,
-                       prefer_dia=prefer_dia, perm=perm)
+    if pieces is None:
+        pieces = num_shards(mesh) if mesh is not None else 1
+    planner = _planner(A, BlockPartition(n, pieces), None, options, device,
+                       prefer_dia=prefer_dia, perm=perm, mesh=mesh)
     return planner, cg_solver_from_state(planner, state, rr_history)

@@ -53,7 +53,9 @@ def _sstep_refresh_passes() -> float:
 def operator_matvec_passes(op) -> int:
     """Vector-length passes one y = A x costs: read x + write y = 2 for
     matrix-free stencils; + D coefficient streams for the DIA operator; +
-    2L index/value streams for the ELL layout."""
+    2L index/value streams for the ELL layout.  An operator on pieces
+    costs what it costs on one piece: its halo copies and edge fix-ups
+    are glue, not minimum traffic."""
     if hasattr(op, "_view") and type(op).__name__ == "DiaOperator":
         v = op._view
         d = len(v["offs"]) if v is not None else len(op.flat_offsets)

@@ -1416,3 +1416,111 @@ def test_sharded_bicgstab_iteration_on_card(compensated, cuda_device,
                                    atol=1e-4 * np.abs(xp).max())
     h1, _ = run(1, 2, False)
     np.testing.assert_allclose(hk, h1, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dot", [False, True])
+def test_k8_zero_halo_per_piece_with_fixup_on_card(with_dot, cuda_device):
+    """An f32 DIA operator on 4 pieces of a (64, 512) grid with random
+    asymmetric coefficients: each piece's K8 launch (zero halos, its rows
+    of the shared [D, S * Br, C] diagonals read with their stride) against
+    the plain version on the same inputs, bit for bit, its dot to 1e-5 of
+    its Cauchy-Schwarz scale; then the operator's matvec (zero-halo
+    launches plus the edge fix-up) against the same operator built on the
+    CPU, y bit for bit (elementwise torch ops round alike on both
+    devices), <x, A x> to 1e-5 of its scale; one launch per piece."""
+    import legionsolvers_tpu_torch as lt
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    S, shape = 4, (64, 512)
+    n = shape[0] * shape[1]
+    rng = np.random.default_rng(41)
+    a = lt.create_coo_stencil_matrix(shape, [((0, 0), 4.0), ((-1, 0), -1.0),
+                                             ((1, 0), -1.5), ((0, -1), -0.5),
+                                             ((0, 1), -1.0)])
+    vals = np.asarray(a.vals) * rng.uniform(0.5, 1.5, len(a.vals))
+    F = lt.SolverOptions(entry_dtype=torch.float32)
+    A = lt.COOMatrix(a.rows, a.cols, vals, n, n, options=F)
+    part = lt.BlockPartition(n, S)
+    ops = {d: lt.DiaOperator(A, part, mesh=make_mesh(S, devices=[d] * S),
+                             options=F, device=d)
+           for d in (cuda_device, "cpu")}
+    op = ops[cuda_device]
+    v = op._view
+    Br, C = v["Br"], v["C"]
+    assert Br * S * C == n and Br >= 8
+    xh = rng.standard_normal(n).astype(np.float32)
+    x = torch.from_numpy(xh).to(cuda_device)
+    x3 = x.view(S, Br, C)
+    for s in range(S):
+        d = v["diags"][:, s * Br: (s + 1) * Br]
+        assert not d.is_contiguous()
+        T.reset_launch_counts()
+        got = TD.dia2d_matvec(x3[s], None, None, d, offsets=v["offs"],
+                              with_dot=with_dot)
+        assert dict(T.LAUNCHES) == {"dia2d_dot" if with_dot else "dia2d": 1}
+        want = TD.dia2d_plain(x3[s], None, None, d, offsets=v["offs"],
+                              with_dot=with_dot)
+        if with_dot:
+            (got, gd), (want, wd) = got, want
+            assert abs(gd.item() - wd.item()) <= 1e-5 * (
+                x3[s].double().norm() * want.double().norm()).item()
+        assert torch.equal(got, want)
+    T.reset_launch_counts()
+    out = op.matvec_dot(x) if with_dot else op.matvec(x)
+    assert dict(T.LAUNCHES) == {"dia2d_dot" if with_dot else "dia2d": S}
+    ref = (ops["cpu"].matvec_dot(torch.from_numpy(xh)) if with_dot
+           else ops["cpu"].matvec(torch.from_numpy(xh)))
+    if with_dot:
+        (out, od), (ref, rd) = out, ref
+        assert abs(od.item() - rd.item()) <= 1e-5 * float(
+            np.linalg.norm(xh) * ref.double().norm())
+    assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k9_on_piece_ext2_plans_on_card(dtype, cuda_device):
+    """The sharded RowPartitionedMatrix on 4 pieces of a random banded
+    matrix (n = 64K + 5, band 300): K9 on each piece's banded-ordered
+    extended buffer (Rt = 8, the shared L and KR) against the plain
+    version, bit for bit; the matvec (the halo exchange, then one K9 per
+    piece) bit for bit the same operator's on the CPU, four launches."""
+    import legionsolvers_tpu_torch as lt
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    S, n, bw = 4, 64 * 1024 + 5, 300
+    rng = np.random.default_rng(43)
+    rows = rng.integers(0, n, 6 * n)
+    cols = rows + rng.integers(-bw, bw + 1, 6 * n)
+    keep = (cols >= 0) & (cols < n)
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.uniform(-1, 1, len(rows))
+    F = lt.SolverOptions(entry_dtype=dtype)
+    A = lt.COOMatrix(rows, cols, vals, n, n, options=F)
+    part = lt.BlockPartition(n, S)
+    ops = {d: lt.RowPartitionedMatrix(A, part, part,
+                                      mesh=make_mesh(S, devices=[d] * S),
+                                      options=F, device=d)
+           for d in (cuda_device, "cpu")}
+    op = ops[cuda_device]
+    w = op._win
+    assert w is not None and w["cols"].shape[3] == 8
+    xh = np.zeros(part.padded_size)
+    xh[:n] = rng.standard_normal(n)
+    x = torch.as_tensor(xh, dtype=dtype, device=cuda_device)
+    x2 = x.view(S, -1)
+    ext = x2.new_zeros(S, max(w["N"], w["ext2"]))
+    ext[:, w["n_lo_u"]: w["n_lo_u"] + part.block_size] = x2
+    op._exchange(x2, ext, w["recv_pos2"])
+    for s in range(S):
+        args = (ext[s].view(-1, 128), w["wstart"][s], w["cols"][s],
+                w["vals"][s])
+        T.reset_launch_counts()
+        got = TW.winell_spmv(*args, window_rows=w["KR"])
+        assert dict(T.LAUNCHES) == {"winell": 1}
+        assert torch.equal(got, TW.winell_plain(*args, window_rows=w["KR"]))
+    T.reset_launch_counts()
+    y = op.matvec(x)
+    assert dict(T.LAUNCHES) == {"winell": S}
+    assert torch.equal(y.cpu(), ops["cpu"].matvec(x.cpu()))

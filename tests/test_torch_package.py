@@ -341,12 +341,6 @@ def test_stencil_rmatvec_is_the_transpose(shape):
 # ROADMAP item that ports it (or why it does not apply to torch).  A name
 # ported later must leave this list.
 DEFERRED = {
-    # ROADMAP item 5d, the sharded RowPartitionedMatrix: halo exchange
-    # schedules and the sharded host helpers
-    "core.partition.HaloExchange": "item 5d",
-    "core.partition.build_halo_exchange": "item 5d",
-    "native.bindings.shard_halo_columns": "item 5d",
-    "native.bindings.pack_ell_shard": "item 5d",
     # ROADMAP item 5g, several cards and processes
     "parallel.mesh.initialize_distributed": "item 5g",
     # ROADMAP item 4, utilities

@@ -547,7 +547,8 @@ def test_mesh_api():
 def test_mesh_errors():
     """Piece mismatch (ValueError), more shards than devices (ValueError),
     shards on two distinct devices (NotImplementedError naming ROADMAP
-    item 5g); explicit matrices on pieces name item 5d."""
+    item 5g); an explicit matrix on pieces is registered on the pieces
+    (a DIA operator on the mesh)."""
     mesh2 = make_mesh(2, devices=[DEV] * 2)
     part4 = T.BlockPartition(64, 4)
     with pytest.raises(ValueError, match="piece count"):
@@ -565,10 +566,11 @@ def test_mesh_errors():
     with pytest.raises(ValueError, match="mesh's device"):
         T.PartitionedVector("v", T.BlockPartition(64, 2), mesh=mesh2,
                             device="meta")
-    planner, op = build(T, (64, 128), 4)
-    with pytest.raises(NotImplementedError, match="item 5d"):
-        planner.add_row_partitioned_matrix(
-            T.coo_negative_laplacian_1d(64 * 128), 0, 0)
+    planner, op = build(T, (64, 128), 4, grid=False)
+    planner.add_row_partitioned_matrix(
+        T.coo_negative_laplacian_1d(64 * 128), 0, 0)
+    dia = planner.row_partitioned_matrices[-1][0]
+    assert isinstance(dia, T.DiaOperator) and dia.mesh is planner.mesh
 
 
 def test_compensated_dots_on_pieces():
