@@ -23,7 +23,8 @@ default) or phase 4b's on the 5-point system at 4096^2 (dim 2; N^2 with
 else.  ``--blocks`` runs phases 4i and 5i (block systems) and nothing
 else, ``--pieces`` phases 4j and 5j (pieces on one card),
 ``--explicit-pieces`` phases 4k and 5k (explicit matrices on pieces; it
-builds the one-piece DIA and scrambled systems of 4e-f too, to compare).
+builds the one-piece DIA and scrambled systems of 4e-f too, to compare),
+``--flat1d`` phases 4l and 5l (the 1-D kernel view at 2^24 unknowns).
 
 Phases (any failure raises, and the exit code is non-zero):
 
@@ -150,7 +151,7 @@ The explicit-sparse path (the planner's upgrades of explicit matrices):
 3e. K8 (with and without the dot) at 4096^2 with D = 5 and at a ragged
    200 x 328 with random coefficients and halos, K9 on the scrambled
    system's plan, one ``SlicedWinEllOperator`` matvec on a graded band (n =
-   4.2M, bandwidth 512, degrees 3..27), and K10 on the six hop geometries
+   2^20, bandwidth 512, degrees 3..27), and K10 on the six hop geometries
    of the 2^20 plan in f32 and f64, each against its plain version: the
    kernels round every product and sum as the plain versions do, so the
    outputs must match bit for bit (K8's dot: phase 3's bound); and K10 at
@@ -267,6 +268,34 @@ devices=[card] * 4))``):
    solve of the same matrix in the same process, the torch glue
    operations per iteration counted on the host, and each one's idle
    share from a profiler trace taken after the timings.
+
+The 1-D kernel view (``-dim 1``: ``parallel/stencil_op.py`` views a 1-D
+grid as ``[n // C, C]`` and the kernels run its row-wrap terms, |dx| = C -
+1, as the 1-D stencil over the flat index, ``stencil2d.route``):
+
+4l. every route against its plain version on the decomposed offsets, at
+   full width ([4096, 4096], random halo blocks) and at (8, 128), (37,
+   1000), (3, 1000) and (203, 4096) with null and random halo blocks: K3's
+   four modes, K4, K2, K1 and K5b on the strip march with WRAP, K5a and
+   K5c on the tile kernels' wide terms (compensated dots off and on), and
+   the tile kernels' wide terms of K3, K4 and K5 with (0, +-37), (1, -(C -
+   1)) and (-8, 100); phase 3's bounds and repeats bit for bit.  Then
+   ``entry.build_stencil_system(1, (2^24,))`` on one piece and on 4 pieces
+   (Br 1024): s-step CG (K1 100, K2 7), two-pass CG (K3 pq 1, update 200,
+   K4 199), fused BiCGStab (K5a-c 200 each), PCG (K3 y_dot 200) and
+   GMRES(10) x 20 (K3 y 221) on one piece, two-pass CG and the fused
+   BiCGStab on 4 pieces (four times those), each solve's launches counted
+   exactly, no plain version called, the operator on the flat view, a
+   repeat bit for bit; the CG histories and x within twice textbook f32
+   CG's distance from float64 CG on the 1-D system (the s-step's with
+   phase 4c's floor, X_F64_FLOOR: ROADMAP queue 3, P8; also at
+   FLAT_ACC_SIZES, beside the plain versions' readings), BiCGStab within
+   FLAT_BICG_RTOL of float64 BiCGStab over the entries where textbook f32
+   stays within a tenth of it, GMRES non-increasing;
+5l. each route's time at [4096, 4096] with CUDA events and in CUDA graphs
+   beside its plain version, the tile kernels' wide terms at 4096^2, and
+   each 4l solve's ms/iter, host enqueue and idle share (a torch.profiler
+   trace).  ``--flat1d`` runs 4l and 5l alone.
 
 The line before the last is one JSON object describing every kernel
 (``ms_lost``: launches x (ms - bound_ms) over the main path's launches,
@@ -821,10 +850,10 @@ def bicg_inputs(torch, shape, seed, device):
     return d
 
 
-def bicg_call(TB, name, d, compensated, plain, out=None):
+def bicg_call(TB, name, d, compensated, plain, out=None, kw=KW):
     """A closure running one K5 pass on ``d`` in place (x of update) with
     outputs to ``out``: the wrapper or its plain version."""
-    kw = dict(KW, compensated=compensated)
+    kw = dict(kw, compensated=compensated)
     fn = getattr(TB, name + "_plain" if plain else name)
     if name == "bicg_pv":
         return lambda: fn(d["r"], d["p"], d["v"], d["rt"], d["beta"],
@@ -835,15 +864,16 @@ def bicg_call(TB, name, d, compensated, plain, out=None):
                       d["omega"], out=out, **kw)
 
 
-def run_bicg(TB, name, d, compensated, plain):
+def run_bicg(TB, name, d, compensated, plain, kw=KW):
     """One K5 pass on fresh copies of ``d``: {output name: tensor}."""
     c = {k: v.clone() for k, v in d.items()}
     names = {"bicg_pv": ("p", "v", "rtv"), "bicg_st": ("ts", "tt"),
              "bicg_update": ("x", "r", "rr", "rtr")}[name]
-    return dict(zip(names, bicg_call(TB, name, c, compensated, plain)()))
+    return dict(zip(names, bicg_call(TB, name, c, compensated, plain,
+                                      kw=kw)()))
 
 
-def bicg_operands(T, name, d, outs):
+def bicg_operands(T, name, d, outs, kw=KW):
     """The f32 operand pair of each dot of a K5 pass: v' or r' from
     ``outs``, s = r - alpha v and t = A s formed by the plain version."""
     if name == "bicg_pv":
@@ -851,7 +881,7 @@ def bicg_operands(T, name, d, outs):
     if name == "bicg_update":
         return {"rr": (outs["r"], outs["r"]), "rtr": (d["rt"], outs["r"])}
     s = d["r"] - d["alpha"] * d["v"]
-    t = T.apply_plain(s, OFFS, VALS)
+    t = T.apply_plain(s, kw["offsets"], kw["values"])
     return {"ts": (t, s), "tt": (t, t)}
 
 
@@ -1437,18 +1467,26 @@ def bicgstab_path(torch, T, TB, lt, device):
 # phase 5: timing
 # ---------------------------------------------------------------------------
 
+EVENT_WINDOWS = []  # the last event_ms call's mean ms in each third
+
+
 def event_ms(torch, fn, reps):
-    """Mean ms of ``fn`` over ``reps`` calls, CUDA events, after warm-up."""
+    """Mean ms of ``fn`` over ``reps`` calls, CUDA events, after warm-up.
+    An event at each third of the calls leaves the mean of each third in
+    EVENT_WINDOWS, so that a stall of the host shows as one slow third."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    cuts = sorted({0, reps // 3, 2 * reps // 3, reps})
+    events = [torch.cuda.Event(enable_timing=True) for _ in cuts]
+    events[0].record()
+    for i in range(1, len(cuts)):
+        for _ in range(cuts[i] - cuts[i - 1]):
+            fn()
+        events[i].record()
+    events[-1].synchronize()
+    EVENT_WINDOWS[:] = [events[i - 1].elapsed_time(events[i])
+                        / (cuts[i] - cuts[i - 1]) for i in range(1, len(cuts))]
+    return events[0].elapsed_time(events[-1]) / reps
 
 
 def graph_ms(torch, fns, reps):
@@ -1517,49 +1555,52 @@ def time_kernels(torch, T, device, bw, card):
             k = iter(range(10**9))
             times[plain] = event_ms(
                 torch, lambda: fns[next(k) % 3](), 6 if plain else 30)
+            if not plain:
+                thirds = list(EVENT_WINDOWS)
         graph = graph_ms(torch, [kernel_call(T, mode, d, False)
                                  for d in ring], 30)
         sane(mode, times[False], bpe * n, bw)
         sane(f"{mode} (graphs)", graph, bpe * n, bw)
         out[mode] = (times[False], times[True], graph)
         log(f"[time] {mode:8s} kernel {times[False]:.4f} ms "
-            f"({bpe * n / times[False] / 1e6:.1f} GB/s; CUDA graphs "
+            f"({bpe * n / times[False] / 1e6:.1f} GB/s; by thirds "
+            f"{', '.join(f'{t:.4f}' for t in thirds)}; CUDA graphs "
             f"{graph:.4f}), plain {times[True]:.4f} ms at {N_GRID}^2 f32 "
             f"on {card}")
         del ring
     return out
 
 
-def kernel_call(T, mode, d, plain):
+def kernel_call(T, mode, d, plain, kw=KW):
     """A closure running one pass on ``d`` in place (no copies), so that
     the timing sees the pass alone.  The in-place passes (update, step2)
     keep their inputs bounded: update with a tiny alpha, step2 writing
     back into its own output pair."""
     if mode in ("y", "y_dot"):
         if plain:
-            return lambda: T.stencil_plain(mode, d["x"], None, None, **KW)
+            return lambda: T.stencil_plain(mode, d["x"], None, None, **kw)
         return lambda: T.grid2d_stencil_matvec(d["x"], with_dot=mode == "y_dot",
-                                               **KW)
+                                               **kw)
     if mode == "pq":
         if plain:
-            return lambda: T.stencil_plain("pq", d["p"], None, None, **KW)
-        return lambda: T.grid2d_cg_pq(d["p"], **KW)
+            return lambda: T.stencil_plain("pq", d["p"], None, None, **kw)
+        return lambda: T.grid2d_cg_pq(d["p"], **kw)
     if mode == "update":
         a = d["alpha"] * 1e-6
         if plain:
             return lambda: T.stencil_plain("update", d["p"], None, None,
-                                           (d["x"], d["r"], a), **KW)
-        return lambda: T.grid2d_cg_update(d["p"], d["x"], d["r"], a, **KW)
+                                           (d["x"], d["r"], a), **kw)
+        return lambda: T.grid2d_cg_update(d["p"], d["x"], d["r"], a, **kw)
     if mode == "xpay_pq":
         out = d["x"]
         fn = T.xpay_pq_plain if plain else T.grid2d_cg_xpay_pq
-        return lambda: fn(d["r"], d["p"], d["beta"], out=out, **KW)
+        return lambda: fn(d["r"], d["p"], d["beta"], out=out, **kw)
     if mode == "gram2":
         fn = T.gram2_plain if plain else T.grid2d_cg_gram2
-        return lambda: fn(d["r"], d["p"], **KW)
+        return lambda: fn(d["r"], d["p"], **kw)
     spare = (d["rt"].new_empty(d["r"].shape), d["pt"].new_empty(d["p"].shape))
     fn = T.step2_plain if plain else T.grid2d_cg_step2
-    return lambda: fn(d["x"], d["r"], d["p"], d["coef"], out=spare, **KW)
+    return lambda: fn(d["x"], d["r"], d["p"], d["coef"], out=spare, **kw)
 
 
 def time_solve(torch, T, solver, bw, card):
@@ -5526,6 +5567,497 @@ def breakdown(torch, lt, device, card, dim=3, n=N_GRID):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 4l: the 1-D kernel view (-dim 1): the flat route of the strip march
+# (WRAP), the tile kernels' wide column shifts, the 1-D solves at 2^24
+# ---------------------------------------------------------------------------
+
+N_FLAT = 1 << 24  # -dim 1's unknowns: the view [4096, 4096], 64 MiB a vector
+FLAT_C = 4096
+FLAT_GRID = (N_FLAT // FLAT_C, FLAT_C)
+LAP1 = ((0, -1, 1), (2.0, -1.0, -1.0))  # the 1-D Laplacian's flat shifts
+# C = 128, C = 1000 (scalar loads) with ragged rows, and rows of 4096
+FLAT_EDGES = ((8, 128), (37, 1000), (3, 1000), (203, 4096))
+FLAT_PIECES = 4
+# name -> (solver, environment switch, pieces, solve length, launches):
+# GMRES(10) solves 20 cycles (one residual and ten Arnoldi matvecs each,
+# and the residual of the last x)
+FLAT_RUNS = {
+    "s-step CG": ("cg", None, 1, N_ITERS, {"step2": 100, "gram2": 7}),
+    "two-pass CG": ("cg", "LEGIONSOLVERS_NO_SSTEP", 1, N_ITERS,
+                    {"pq": 1, "update": N_ITERS, "xpay_pq": N_ITERS - 1}),
+    "BiCGStab": ("bicg", None, 1, N_ITERS,
+                 {m: N_ITERS for m in BICG_KERNELS}),
+    "PCG": ("pcg", None, 1, N_ITERS, {"y_dot": N_ITERS}),
+    "GMRES(10)": ("gmres", None, 1, N_ITERS // 10,
+                  {"y": 11 * N_ITERS // 10 + 1}),
+    "two-pass CG 4 pieces": ("cg", None, FLAT_PIECES, N_ITERS, {
+        "pq": FLAT_PIECES, "update": FLAT_PIECES * N_ITERS,
+        "xpay_pq": FLAT_PIECES * (N_ITERS - 1)}),
+    "BiCGStab 4 pieces": ("bicg", None, FLAT_PIECES, N_ITERS,
+                          {m: FLAT_PIECES * N_ITERS for m in BICG_KERNELS}),
+}
+
+
+def flat_kw(T, C):
+    """The 1-D Laplacian on an [R, C] view, as ``decompose_flat_offsets``
+    rewrites it (the row-wrap terms (-1, C - 1) and (1, -(C - 1)))."""
+    offs, vals = T.decompose_flat_offsets(*LAP1, C)
+    return dict(offsets=offs, values=vals)
+
+
+def wide_kw(C):
+    """The cross with column shifts past the tile's 8: (0, +-37), (1, -(C -
+    1)) and one 8 rows up, (-8, 100): the tile kernels' wide terms."""
+    return dict(offsets=OFFS + ((0, 37), (0, -37), (1, -(C - 1)), (-8, 100)),
+                values=VALS + (-0.25, -0.25, -0.5, -0.125))
+
+
+def lap3(v):
+    """The 1-D 3-point negative Laplacian with zero boundary (torch)."""
+    out = 2.0 * v
+    out[1:] -= v[:-1]
+    out[:-1] -= v[1:]
+    return out
+
+
+def flat_inputs(torch, T, shape, seed, device, halos, kw):
+    """x, r, p on ``shape``, random [8, C] halo blocks (None without
+    ``halos``), alpha, beta and K1's coefficients, for ``kw``."""
+    d = one_pass_inputs(torch, shape, halos, device, seed)
+    d["coef"] = T.cg2_coeffs(T.gram2_plain(d["r"], d["p"], **kw))[0]
+    return d
+
+
+def one_pass_bound(torch, T, mode, d, ref, kw):
+    """1e-4 of the Cauchy-Schwarz scale of a one-pass mode's dot."""
+    nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
+    A = lambda v, top, bot: T.apply_plain(v, kw["offsets"], kw["values"],
+                                          top, bot)
+    comb = lambda a, b: None if a is None else a + d["beta"] * b
+    if mode == "y_dot":
+        return 1e-4 * nrm(d["x"]) * nrm(ref["y"])
+    if mode == "pq":
+        return 1e-4 * nrm(d["p"]) * nrm(A(d["p"], d["pt"], d["pb"]))
+    if mode == "update":
+        return 1e-4 * nrm(ref["r"]) ** 2
+    return 1e-4 * nrm(ref["p"]) * nrm(A(ref["p"], comb(d["rt"], d["pt"]),
+                                        comb(d["rb"], d["pb"])))
+
+
+def compare_flat_kernels(torch, T, TB, device):
+    """Phase 4l, the kernels: every route of the 1-D view against its
+    plain version on the decomposed offsets, at full width ([4096, 4096],
+    random halo blocks) and at FLAT_EDGES (halo blocks null and random):
+    K3's four modes, K4, K2, K1 and K5a-c (compensated dots off and on);
+    and the tile kernels' wide terms (:func:`wide_kw`) of K3, K4 and K5 at
+    FLAT_EDGES.  Phase 3's bounds (elementwise 1e-5 * max|ref|, dots 1e-4
+    of their Cauchy-Schwarz scale), and a repeat on the same inputs bit
+    for bit.  Returns ({pass: max abs error} of the flat route, the same
+    of the wide terms)."""
+    nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
+    errs = {"flat": {}, "wide": {}}
+    cases = [(FLAT_GRID, "flat", True)] + [
+        (shape, st, halos) for shape in FLAT_EDGES
+        for st in ("flat", "wide") for halos in (False, True)]
+    for shape, st, halos in cases:
+        kw = flat_kw(T, shape[1]) if st == "flat" else wide_kw(shape[1])
+        route = T.route(kw["offsets"], kw["values"], shape[1])[0]
+        if route != ("flat" if st == "flat" else "tile"):
+            raise AssertionError(f"{st} {shape} takes the {route} route")
+        d = flat_inputs(torch, T, shape, 53, device, halos, kw)
+        worst, case = 0.0, f"{shape} {st} halos={halos}"
+        modes = list(ONE_PASS_NAMES) + (["gram2", "step2"] if st == "flat"
+                                        else [])
+        for mode in modes:
+            k1, k2, ref = (run_mode(T, mode, d, plain, kw)
+                           for plain in (False, False, True))
+            torch.cuda.synchronize()
+            if not all(torch.equal(k1[k], k2[k]) for k in k1):
+                raise AssertionError(f"{mode} {case}: a repeat is not "
+                                     "bit-identical")
+            for key, want in ref.items():
+                err = (k1[key].double() - want.double()).abs()
+                if key == "gram":
+                    r, p = ((ref["r"], ref["p"]) if mode == "step2"
+                            else (d["r"], d["p"]))
+                    ok = bool((err.cpu() <= 1e-4 * gram_scales(
+                        torch, T, r, p, kw)).all())
+                elif key == "dot":
+                    ok = err.item() <= one_pass_bound(torch, T, mode, d,
+                                                      ref, kw)
+                else:
+                    ok = err.max().item() <= 1e-5 * want.abs().max().item()
+                if not ok:
+                    raise AssertionError(
+                        f"{mode} {case} {key}: kernel disagrees with its "
+                        f"plain version ({err.max().item():g})")
+                e = errs[st]
+                e[mode] = max(e.get(mode, 0.0), err.max().item())
+                worst = max(worst, err.max().item())
+        b = bicg_inputs(torch, shape, 59, device)
+        for comp in (False, True):
+            for name in BICG_KERNELS:
+                k1, k2, ref = (run_bicg(TB, name, b, comp, plain, kw)
+                               for plain in (False, False, True))
+                torch.cuda.synchronize()
+                if not all(torch.equal(k1[k], k2[k]) for k in k1):
+                    raise AssertionError(f"{name} {case} compensated={comp}: "
+                                         "a repeat is not bit-identical")
+                ops = bicg_operands(T, name, b, ref, kw)
+                for key, want in ref.items():
+                    err = (k1[key].double() - want.double()).abs().max()
+                    if want.dim():
+                        ok = err.item() <= 1e-5 * want.abs().max().item()
+                    else:
+                        a, c = ops[key]
+                        ok = err.item() <= 1e-4 * nrm(a) * nrm(c)
+                    if not ok:
+                        raise AssertionError(
+                            f"{name} {case} compensated={comp} {key}: kernel "
+                            f"disagrees with its plain version ({err:g})")
+                    e = errs[st]
+                    e[name] = max(e.get(name, 0.0), err.item())
+                    worst = max(worst, err.item())
+        log(f"[flat1d] {case} ({route} route): K3, K4"
+            + (", K2, K1" if st == "flat" else "") + ", K5 (compensated "
+            f"off, on) == plain (max abs err {worst:.3g}); repeats bit for "
+            "bit")
+        del d, b
+    return errs["flat"], errs["wide"]
+
+
+# f32 BiCGStab on the 1-D Laplacian amplifies a rounding difference 3-5
+# fold per iteration from the fifth on (textbook f32 against float64 on the
+# CPU, dots in f32 and in float64: the two f32 codes stay within 3x of each
+# other's distance from float64 per entry, and leave 1e-3 of float64 after
+# 13-14 iterations at n = 2^20 and 2^22; one went non-finite at iteration
+# 117).  So the kernel path is held within FLAT_BICG_RTOL of float64 over
+# the entries where textbook f32 stays within a tenth of that.
+FLAT_BICG_RTOL = 1e-3
+# The s-step schedule's distance from float64 on the 1-D Laplacian turns on
+# how each dot is rounded, in the kernels and in the plain versions alike:
+# at 2^24 its Gram entries reach n^2 / 2, where the interior's share (about
+# n) is 2 / n of the sum, f32's epsilon (ROADMAP queue 3, P8).  Its history
+# and x are held at phase 4c's rule, twice textbook f32 CG's distance with
+# the floor X_F64_FLOOR, at 2^24 and at FLAT_ACC_SIZES; at each size the
+# same schedule driven by the plain versions is logged beside the
+# kernels', with f32 dots (JAX's) and with dots summed in float64 and
+# rounded once (as K1/K2 sum them).
+FLAT_ACC_SIZES = (1 << 20, 1 << 22)
+
+
+def dot_f64(a, b):
+    """A plain dot as K1/K2 sum theirs: f32 products in float64, rounded
+    once."""
+    return (a.double() * b.double()).sum().float()
+
+
+def sstep_twins(torch, T, solver, iters, dist):
+    """The s-step schedule of ``solver`` driven by the plain versions,
+    with f32 dots and with :func:`dot_f64`: {label: dist(history, x)}."""
+    x = solver.planner.sol_vectors[0]
+    out = {}
+    for label, dot in (("plain f32 dots", T._dot),
+                       ("plain float64 dots", dot_f64)):
+        saved, T._dot = T._dot, dot
+        try:
+            with plain_driven(T, solver, cg_plain(T)):
+                restart(solver)
+                out[label] = dist(solver.solve(iters), x.data)
+        finally:
+            T._dot = saved
+    return out
+
+
+def sstep_accuracy_1d(torch, T, lt, device, n):
+    """Distance from float64 CG of f32 solve(200)s of the 1-D Laplacian at
+    n: textbook f32 CG, and the s-step schedule driven by the kernels and
+    by the plain versions (:func:`sstep_twins`).  {label: (max relative
+    deviation of the history, max |x - x64| / max |x64|)}."""
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+
+    planner = build_stencil_system(
+        1, (n,), lt.SolverOptions(entry_dtype=torch.float32), device)
+    if not planner.row_partitioned_matrices[0][0].step2_eligible:
+        raise AssertionError(f"the 1-D operator at {n} is off the s-step "
+                             "schedule")
+    solver = lt.CGSolver(planner)
+    h64, x64 = classic_cg(torch, (n,), N_ITERS, torch.float64, device,
+                          matvec=lap3)
+    h32, x32 = classic_cg(torch, (n,), N_ITERS, torch.float32, device,
+                          matvec=lap3)
+    dist = lambda h, x: (rel_dev(h, h64).max().item(),
+                         x_rel(x.reshape(-1), x64))
+    env = {"textbook f32": dist(h32, x32),
+           "kernel": dist(solver.solve(N_ITERS), planner.sol_vectors[0].data)}
+    env.update(sstep_twins(torch, T, solver, N_ITERS, dist))
+    return env
+
+
+def flat_solver(lt, planner, kind):
+    if kind == "cg":
+        return lt.CGSolver(planner)
+    if kind == "bicg":
+        return lt.BiCGStabSolver(planner)
+    if kind == "pcg":
+        return lt.PCGSolver(planner, lt.JacobiPreconditioner(planner))
+    return lt.GMRESSolver(planner, 10)
+
+
+def flat1d_path(torch, np, T, TB, lt, device):
+    """Phase 4l, the solves: ``entry.build_stencil_system(1, (2^24,))`` on
+    one piece and on 4 pieces of the card, each FLAT_RUNS solve from x0 =
+    0 with its launches counted exactly (counts set to 0 just before it,
+    read just after) and no plain version called; the operator on the 1-D
+    view (C 4096; Br 4096, or 1024 on 4 pieces), the s-step schedule on one
+    piece only, the fused BiCGStab on both.  The CG histories (s-step,
+    two-pass, two-pass on 4 pieces, and PCG, which is CG here: the diagonal
+    is constant) within twice textbook f32 CG's distance from float64 CG
+    on the same 1-D system, and x too (the s-step's with the floor
+    X_F64_FLOOR, and at FLAT_ACC_SIZES too: FLAT_ACC_SIZES' note);
+    BiCGStab within FLAT_BICG_RTOL of float64 BiCGStab over the window
+    where textbook f32 stays within a tenth of that; GMRES(10)
+    non-increasing within GMRES_SLACK; every solve repeated from the same
+    state, bit for bit.  Returns (launches by pass, whole-grid launches by
+    pass, results, {run: solver}, failed)."""
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    h64, x64 = classic_cg(torch, (N_FLAT,), N_ITERS, torch.float64, device,
+                          matvec=lap3)
+    h32, x32 = classic_cg(torch, (N_FLAT,), N_ITERS, torch.float32, device,
+                          matvec=lap3)
+    b64, bx64 = textbook_bicgstab(torch, (N_FLAT,), N_ITERS, torch.float64,
+                                  device, matvec=lap3)
+    b32, bx32 = textbook_bicgstab(torch, (N_FLAT,), N_ITERS, torch.float32,
+                                  device, matvec=lap3)
+    dist = lambda h, x, hr, xr: (rel_dev(h, hr).max().item(),
+                                 x_rel(x.reshape(-1), xr))
+    text_cg = dist(h32, x32, h64, x64)
+    win32 = agree_window(b32, b64, FLAT_BICG_RTOL / 10)
+    text_bi = (rel_dev(b32[:win32], b64[:win32]).max().item(),
+               finite_window(torch, b32, b64))
+    del x32, bx32
+    launches, grid_launches, results, solvers, failed = {}, {}, {}, {}, []
+    for name, (kind, env, pieces, iters, want) in FLAT_RUNS.items():
+        mesh = (make_mesh(pieces, devices=[device] * pieces) if pieces > 1
+                else None)
+        planner = build_stencil_system(1, (N_FLAT,), f32, device, mesh=mesh)
+        op = planner.row_partitioned_matrices[0][0]
+        v = op._view
+        solver = flat_solver(lt, planner, kind)
+        with env_route(env, solver), counted_calls(
+                plain_names(T, TB), solver) as plain:
+            view_ok = (op.uses_pallas and v["flat"] and v["C"] == FLAT_C
+                       and v["Br"] * pieces * FLAT_C == N_FLAT
+                       and op.step2_eligible == (pieces == 1 and env is None)
+                       and op.supports_fused_bicgstab)
+            hist, x, counts = counted_solve(torch, T, solver, iters)
+            hist2, x2, _ = counted_solve(torch, T, solver, iters)
+        solvers[name] = solver
+        checks = {"on the 1-D view (no linearized runner)": view_ok,
+                  f"launches {want}": counts == want,
+                  "no plain version called": not plain.calls,
+                  "a repeat from the same state is bit-identical":
+                      same_bits(hist, hist2) and same_bits(x, x2)}
+        del x2
+        if kind != "bicg":
+            checks["finite history"] = bool(torch.isfinite(hist).all())
+        res = {"launches": counts, "plain_calls": dict(plain.calls),
+               "hist_first_last": (hist[0].item(), hist[-1].item())}
+        if kind in ("cg", "pcg"):
+            got = dist(hist, x, h64, x64)
+            res["vs_f64"] = {"kernel": got, "textbook f32": text_cg}
+            if name == "s-step CG":  # at f32's edge: see FLAT_ACC_SIZES
+                res["vs_f64"].update(sstep_twins(
+                    torch, T, solver, iters,
+                    lambda h, x: dist(h, x, h64, x64)))
+                floor = X_F64_FLOOR
+            else:
+                floor = 0.0
+            rule = (f" (floor {floor})" if floor else "")
+            checks["history within twice textbook f32 CG's distance from "
+                   "float64" + rule] = got[0] <= max(2 * text_cg[0], floor)
+            checks["x within twice textbook f32 CG's distance from float64"
+                   + rule] = got[1] <= max(2 * text_cg[1], floor)
+        elif kind == "bicg":
+            # (max rel dev over the window, leading finite entries)
+            dev_k = rel_dev(hist[:win32], b64[:win32])
+            res.update(window=win32,
+                       agree=agree_window(hist, b64, FLAT_BICG_RTOL),
+                       vs_f64={"kernel": (dev_k.max().item(), finite_window(
+                           torch, hist.double(), b64)),
+                           "textbook f32": text_bi})
+            checks[f"within {FLAT_BICG_RTOL} of float64 over the {win32} "
+                   "entries where textbook f32 is within a tenth of it"] = \
+                bool((dev_k <= FLAT_BICG_RTOL).all()) and win32 >= 2
+        else:
+            h = hist.double()
+            rise = (h[1:] / h[:-1]).max().item()
+            res["largest_rise"] = rise - 1
+            checks[f"non-increasing within {GMRES_SLACK}"] = \
+                rise <= 1 + GMRES_SLACK
+        bad = [k for k, ok in checks.items() if not ok]
+        failed += [f"flat1d {name}: {k}" for k in bad]
+        res["checks"] = checks
+        results[name] = res
+        for m, c in counts.items():
+            launches[m] = launches.get(m, 0) + c
+            grid_launches[m] = grid_launches.get(m, 0) + c / pieces
+        log(f"[flat1d] {name} solve({iters}) at n = {N_FLAT} (view "
+            f"{list(FLAT_GRID)}, {pieces} piece{'s' if pieces > 1 else ''}): "
+            f"launches {counts}; residual^2 {hist[0].item():.6g} -> "
+            f"{hist[-1].item():.6g}; "
+            + ", ".join(f"{k} {a:.3g} {b:.3g}" for k, (a, b) in
+                        res.get("vs_f64", {}).items())
+            + (f"; checks FAILED: {bad}" if bad else "; checks hold"))
+        del x
+    for n in FLAT_ACC_SIZES:
+        env = sstep_accuracy_1d(torch, T, lt, device, n)
+        k_env, t_env = env["kernel"], env["textbook f32"]
+        ok = (k_env[0] <= max(2 * t_env[0], X_F64_FLOOR)
+              and k_env[1] <= max(2 * t_env[1], X_F64_FLOOR))
+        rule = ("history and x within twice textbook f32 CG's distance "
+                f"from float64 (floor {X_F64_FLOOR})")
+        if not ok:
+            failed.append(f"flat1d s-step CG at n = {n}: {rule}")
+        results[f"s-step CG at {n}"] = {"vs_f64": env, "checks": {rule: ok}}
+        log(f"[flat1d] s-step CG solve({N_ITERS}) at n = {n}, against "
+            "float64 CG (history, x max rel): " + ", ".join(
+                f"{k} {h:.3g} {xx:.3g}" for k, (h, xx) in env.items())
+            + ("; checks hold" if ok else "; checks FAILED"))
+    return launches, grid_launches, results, solvers, failed
+
+
+def time_flat1d(torch, T, TB, device, bw, card, solvers):
+    """Phase 5l.  Each 1-D route at full width ([4096, 4096]) with CUDA
+    events over a ring of three input sets, beside its plain version and
+    in CUDA graphs; the tile kernels' wide terms (:func:`wide_kw`) of K3,
+    K4 and K5 at 4096^2 the same way; each FLAT_RUNS solve's ms/iter and
+    host enqueue ms/iter (:func:`solve_ms`) and its idle share, 1 - its
+    device time (a torch.profiler trace) over its wall.  Returns
+    ({pass: (ms, plain ms, graph ms)} of the flat route, the same of the
+    wide terms, {run: times})."""
+    n = N_FLAT
+    out = {}
+    for st, kw in (("flat", flat_kw(T, FLAT_C)), ("wide", wide_kw(FLAT_C))):
+        ring = [flat_inputs(torch, T, FLAT_GRID, s, device, True, kw)
+                for s in range(3)]
+        modes = [m for m in KERNELS if st == "flat" or m in ONE_PASS_NAMES]
+        for mode in modes:
+            fns = {plain: [kernel_call(T, mode, d, plain, kw) for d in ring]
+                   for plain in (False, True)}
+            k = iter(range(10**9))
+            ms = event_ms(torch, lambda: fns[False][next(k) % 3](), 30)
+            plain_ms = event_ms(torch, lambda: fns[True][next(k) % 3](), 6)
+            g = graph_ms(torch, fns[False], 30)
+            sane(f"{mode} {st}", ms, KERNELS[mode][2] * n, bw)
+            out[mode, st] = (ms, plain_ms, g)
+        del ring
+        bring = [bicg_inputs(torch, FLAT_GRID, 40 + s, device)
+                 for s in range(3)]
+        for d in bring:
+            d["alpha"] = d["alpha"] * 1e-3
+            d["p_out"], d["v_out"], d["r_out"] = (torch.empty_like(d["r"])
+                                                  for _ in range(3))
+        for name, (_, bpe) in BICG_KERNELS.items():
+            fns = {plain: [bicg_call(TB, name, d, False, plain, out=(
+                d["p_out"], d["v_out"]) if name == "bicg_pv" else d["r_out"],
+                kw=kw) for d in bring] for plain in (False, True)}
+            k = iter(range(10**9))
+            ms = event_ms(torch, lambda: fns[False][next(k) % 3](), 30)
+            plain_ms = event_ms(torch, lambda: fns[True][next(k) % 3](), 6)
+            g = graph_ms(torch, fns[False], 30)
+            sane(f"{name} {st}", ms, bpe * n, bw)
+            out[name, st] = (ms, plain_ms, g)
+        del bring
+        for m in [*modes, *BICG_KERNELS]:
+            ms, plain_ms, g = out[m, st]
+            log(f"[time] {st} {m:11s} kernel {ms:.4f} ms (CUDA graphs "
+                f"{g:.4f}), plain {plain_ms:.4f} ms at [{FLAT_C}, {FLAT_C}]"
+                f" f32 on {card}")
+    solves = {}
+    for name, solver in solvers.items():
+        kind, env, pieces, iters, _ = FLAT_RUNS[name]
+        # the solves on pieces are host-bound (some 30-150 glue ops per
+        # iteration): a tenth of them is traced, as 5j traces such solves
+        n = iters if pieces == 1 else iters // 10
+        with env_route(env, solver):
+            ms, host = solve_ms(torch, solver, iters)
+            dev = profile_solve(torch, solver, "flat1d_" + name.replace(
+                " ", "_").replace("(", "").replace(")", ""), card,
+                ms * n / iters, n_iters=n)
+        solves[name] = {"ms/iter": ms / iters, "host ms/iter": host / iters,
+                        "device ms/iter": dev / n,
+                        "idle": 1 - dev / n / (ms / iters)}
+        r = solves[name]
+        per = "cycle" if kind == "gmres" else "iteration"
+        log(f"[time] 1-D {name} solve({iters}) at n = {N_FLAT}: "
+            f"{r['ms/iter']:.4f} ms per {per} (host enqueue "
+            f"{r['host ms/iter']:.4f}, device {r['device ms/iter']:.4f} over "
+            f"{n} traced, idle {100 * r['idle']:.1f}%) on {card}")
+    return ({m: v for (m, st), v in out.items() if st == "flat"},
+            {m: v for (m, st), v in out.items() if st == "wide"}, solves)
+
+
+def library_1d(torch, T, device, card):
+    """F.conv1d computing K3's y on the 1-D view (cuDNN, TF32 off): the
+    3-point Laplacian of a 2^24 vector, held to the kernel's flat route;
+    ms over a ring of three inputs."""
+    import torch.nn.functional as F
+
+    w = torch.zeros(1, 1, 3, device=device)
+    for d, v in zip(*LAP1):
+        w[0, 0, 1 + d] = v
+    g = torch.Generator(device=device).manual_seed(62)
+    ring = [torch.randn(FLAT_GRID, generator=g, device=device)
+            for _ in range(3)]
+    y_ker = T.grid2d_stencil_matvec(ring[0], **flat_kw(T, FLAT_C))
+    y_lib = F.conv1d(ring[0].reshape(1, 1, -1), w, padding=1)
+    err = (y_lib.reshape(FLAT_GRID) - y_ker).abs().max().item()
+    if err > 1e-5 * y_ker.abs().max().item():
+        raise AssertionError(f"F.conv1d disagrees with K3 y: {err:g}")
+    k = iter(range(10**9))
+    ms = event_ms(torch, lambda: F.conv1d(
+        ring[next(k) % 3].reshape(1, 1, -1), w, padding=1), 30)
+    log(f"[time] F.conv1d y: {ms:.4f} ms (max abs diff from K3 y on the "
+        f"1-D view {err:.3g}) at n = {N_FLAT} f32 on {card}")
+    return ms
+
+
+def flat1d_rows(T, launches, grid_launches, errs, times, bw, conv1d_ms):
+    """The kernels line's rows of the 1-D view's routes: launches from
+    phase 4l's solves, times from phase 5l at [4096, 4096]; K3 y's
+    library_ms is ``conv1d_ms`` (:func:`library_1d`), the other passes
+    have no one library call."""
+    rows = []
+    for m in (*KERNELS, *BICG_KERNELS):
+        if m in KERNELS:
+            wrapper, line, bpe = KERNELS[m]
+            source, replaces = CSRC, f"{PALLAS}:{line}"
+            name = f"{wrapper} [{m}] 1-D view"
+        else:
+            line, bpe = BICG_KERNELS[m]
+            source, replaces = BICG_CSRC, f"{BICG_PALLAS}:{line}"
+            name = f"{m} 1-D view"
+        # K5a and K5c have no strip kernel: the tile kernels' wide terms
+        route = "tile" if m in ("bicg_pv", "bicg_update") else "flat"
+        ms, plain_ms, g = times[m]
+        row = kernel_row(name, source, replaces, launches.get(m, 0), errs[m],
+                         ms, plain_ms, bpe * N_FLAT,
+                         ops_per_elt(m, len(LAP1[0])) * N_FLAT, bw,
+                         conv1d_ms if m == "y" else None,
+                         grid_launches=grid_launches.get(m, 0))
+        row.update(graph_ms=g, kernel_route=route)
+        rows.append(row)
+        log(f"[time] 1-D view {m:11s} ({route} route) {ms:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ({row['pct_of_bound']:.1f}%), "
+            f"launches {row['launches']} at [{FLAT_C}, {FLAT_C}]")
+    return rows
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
                nflops, bw, library_ms=None, op_rate=F32_PEAK,
                grid_launches=None):
@@ -5650,6 +6182,24 @@ def main() -> int:
                         "host_s": {k: v["host_s"] for k, v in
                                    xp_builds.items()}}, default=str))
         return 1 if failed else 0
+    if "--flat1d" in argv:
+        errs_f, errs_w = compare_flat_kernels(torch, T, TB, device)
+        fl_launches, fl_grid, fl_results, fl_solvers, failed = flat1d_path(
+            torch, np, T, TB, lt, device)
+        mark("phase 4l")
+        bw = copy_bandwidth(torch, device)
+        ftimes, wtimes, fsolves = time_flat1d(torch, T, TB, device, bw, card,
+                                              fl_solvers)
+        mark("phase 5l")
+        conv1d_ms = library_1d(torch, T, device, card)
+        rows = flat1d_rows(T, fl_launches, fl_grid, errs_f, ftimes, bw,
+                           conv1d_ms)
+        log(json.dumps({"card": card, "flat1d": {
+            "paths": fl_results, "solves": fsolves, "wide_errs": errs_w,
+            "wide_ms": wtimes, "kernels": rows}}, default=str))
+        if failed:
+            raise AssertionError(f"checks failed: {failed}")
+        return 0
     if "--breakdown" in argv:
         dim = int(argv[argv.index("--dim") + 1]) if "--dim" in argv else 3
         n = (int(argv[argv.index("--size") + 1]) if "--size" in argv
@@ -5692,12 +6242,14 @@ def main() -> int:
     pc_launches, pc_grid, pc_results, pc_solvers, f = pieces_path(
         torch, np, T, TB, T3, TB3, lt, device)
     failed += f
+    mark("phase 4j, 2-D CG on pieces")
     ps_launches, ps_grid, ps_results, ps_solvers, f = pieces_solvers_path(
         torch, np, T, TB, T3, TB3, lt, device)
     failed += f
     mark("phase 4j")
     systems = {name: build_explicit(torch, np, lt, name, device)
                for name in EXPLICIT}
+    mark("phase 4e-g, the builds")
     errs_x = compare_explicit_kernels(torch, np, lt, T, systems, device)
     compare_blockperm_caps(torch, device)
     counts_x, results_x, solvers_x = {}, {}, {}
@@ -5725,6 +6277,11 @@ def main() -> int:
             k: (systems[k], solvers_x[k]) for k in EXPLICIT})
     failed += f
     mark("phase 4k")
+    errs_f, errs_w = compare_flat_kernels(torch, T, TB, device)
+    fl_launches, fl_grid, fl_results, fl_solvers, f = flat1d_path(
+        torch, np, T, TB, lt, device)
+    failed += f
+    mark("phase 4l")
     counts_h, cli_results, probes, cli_bw = cli_path(torch, np, T, lt,
                                                      device, card)
     cli_checked = cli_checks(torch, np, lt, device)
@@ -5754,7 +6311,9 @@ def main() -> int:
     piece_times = time_piece_solves(torch, pc_solvers, bw, card)
     piece_wrappers = wrapper_host_us(torch, T, device, card)
     glue_host_us(piece_times, piece_wrappers)
+    mark("phase 5j, 2-D CG on pieces")
     solver_times = time_piece_solvers(torch, ps_solvers, bw, card)
+    mark("phase 5j, the solvers on pieces")
     block_times = time_block_solves(torch, blk_solvers, bw, card)
     mark("phase 5i")
     profile_piece_solves(torch, pc_solvers, piece_times, card)
@@ -5762,6 +6321,10 @@ def main() -> int:
     mark("phase 5j")
     xp_times = time_explicit_pieces(torch, xp_solvers, bw, card)
     mark("phase 5k")
+    ftimes, wtimes, fsolves = time_flat1d(torch, T, TB, device, bw, card,
+                                          fl_solvers)
+    conv1d_ms = library_1d(torch, T, device, card)
+    mark("phase 5l")
     if "--profile" in sys.argv[1:]:  # last: tracing slows later launches
         profile_solve(torch, bsolver, "bicgstab_2d", card)
         for (kind3, dim), slv in solvers3.items():
@@ -5899,6 +6462,18 @@ def main() -> int:
             + [(m, d) for d in DIMS3 for m in (*KERNELS3, *BICG3_KERNELS)])
     for row, key in zip(kernels, keys):
         row["pieces_launches"] = on_pieces.get(key, 0)
+    # the 1-D view's routes (phase 4l): their launches on one piece and on
+    # pieces, times at [4096, 4096] (phase 5l)
+    flat_rows = flat1d_rows(T, fl_launches, fl_grid, errs_f, ftimes, bw,
+                            conv1d_ms)
+    for row, m in zip(flat_rows, (*KERNELS, *BICG_KERNELS)):
+        row["pieces_launches"] = sum(
+            fl_results[name]["launches"].get(m, 0)
+            for name, run in FLAT_RUNS.items() if run[2] > 1)
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']} never launched on the 1-D "
+                                 "path")
+    kernels += flat_rows
     report = {"card": card, "kind": kind, "build_s": build_s,
               "copy_GBps": bw_copy / 1e9, "k12_GBps": k12_bw / 1e9,
               "k12_turns_ms": k12_ms,
@@ -5913,6 +6488,7 @@ def main() -> int:
               "kernel3d_graph_ms": {f"{m} dim {d} compensated={c}": t
                                     for (m, d, c), t in gtimes3.items()},
               "conv3d_ms": conv3d_ms, "conv2d_ms": conv2d_ms,
+              "conv1d_ms": conv1d_ms,
               "pv_turns_ms": {str(k): v for k, v in pv_turns.items()},
               "solve3d_ms_per_iter": {f"{k} dim {d} {lab}": t for
                                       (k, d, lab), t in solve3.items()},
@@ -5939,6 +6515,9 @@ def main() -> int:
                                              "nnz": v["nnz"],
                                              "geometry": v["geometry"]}
                                          for k, v in xp_builds.items()}}},
+              "flat1d": {"paths": fl_results, "solves": fsolves,
+                         "kernel_ms": {k: v for k, v in ftimes.items()},
+                         "wide_errs": errs_w, "wide_ms": wtimes},
               "cli": {"stream_GBps": cli_bw / 1e9, "runs": cli_results,
                       "checks": cli_checked, "probes": probes,
                       "k11_rates_events": rates, **cli_report}}

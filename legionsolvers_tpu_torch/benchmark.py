@@ -23,8 +23,12 @@ on one piece: the halo copies and edge fix-ups between the pieces are
 glue, not minimum traffic.  What the JAX CLI does and the port cannot yet
 do raises ``NotImplementedError`` and names the ROADMAP item or fault:
 ``--consume-rhs`` (the 3-live-vector CG schedule, item 6) and ``--dtype
-bfloat16`` (no bf16 oracle, fault F2).  ``-dim 1`` runs the linearized
-torch path: the 1-D kernel view is not ported (item 3).
+bfloat16`` (no bf16 oracle, fault F2).  ``-dim 1`` runs the 1-D kernel
+view where the grid has one (``-nx`` a multiple of some C in 4096 ..
+128 with at least 8 rows of C per piece; vectors laid out as ``[n // C,
+C]``), on the kernels JAX picks: the s-step K1/K2 for CG on one piece,
+two-pass K3/K4 on pieces, K5 for BiCGStab; smaller grids run the
+linearized torch path.
 
 Usage:  python -m legionsolvers_tpu_torch.benchmark -dim 2 -nx 4096 -ny 4096 -it 200
 """
@@ -163,7 +167,7 @@ def _compute_roofline(planner, n, ms, sol_ms, bw, device):
           f"{comp_ms:.6f} ms/iter; stream {sol_ms:.6f} ms/iter",
           file=sys.stderr)
     per_elt, apparent, passes = measure_step2_compute_ceiling(
-        view["offs"], view["vals"], device=device)
+        view["offs"], view["vals"], C=view["C"], device=device)
     RUNS["step2_ceiling"] += passes
     if apparent > 1.5 * bw:
         print(f"[bench] measured step2 compute ceiling: "
@@ -197,9 +201,6 @@ def main(argv=None, bw=None):
     _refuse_unported(args)
     device = resolve_device(args.device)
     RUNS.clear()
-    if args.dim == 1:
-        print("[bench] note: -dim 1 runs the linearized torch path; the 1-D "
-              "kernel view is not ported (ROADMAP item 3)", file=sys.stderr)
 
     options = SolverOptions(entry_dtype=DTYPES[args.dtype])
     mesh = (make_mesh(args.vp, devices=[device] * args.vp) if args.vp > 1

@@ -31,10 +31,15 @@
 // the result is rounded to f32 once (the card's native f64 in place of the
 // TPU's two-float pairs).
 //
-// K5b with a reach-1 stencil (the 5-point cross, any 3x3 stencil) runs on
-// the column-strip register march of K1 instead (march2d.cuh; see
-// bicg_st_strip_kernel): one launch, its two dots folded into the last
-// block.  Reach 2..8 keeps the tile kernel and its second launch.
+// Terms with |dx| > 8 (up to C - 1, as the 1-D kernel view's row-wrap
+// terms) are read beside the tile from device memory, their operand formed
+// there (apply_tile), by the lanes whose column lands in the grid.
+//
+// K5b with a reach-1 stencil (the 5-point cross, any 3x3 stencil), or on
+// the 1-D kernel view with WRAP (march2d.cuh), runs on the column-strip
+// register march of K1 instead (see bicg_st_strip_kernel): one launch, its
+// two dots folded into the last block.  Other stencils keep the tile
+// kernel and its second launch.
 //
 // Buffers: no kernel writes a buffer that another block reads through a
 // halo.  pv writes p' and v' to buffers other than p and v, update writes
@@ -45,19 +50,37 @@
 
 namespace {
 
-// Fill w[(i, j)], 0 <= i, j < W, with f(global row, global column) for
-// points inside the grid and zero outside.  Threads walk rows and columns
-// directly, so neighbouring threads read neighbouring addresses.
+// f(flat index) at (gr, gc) inside the grid, zero outside: the operand of
+// a pass's one stencil application.
+template <typename F>
+__device__ __forceinline__ float operand_at(int gr, int gc, int R, int C,
+                                            F f) {
+  return in_grid(gr, gc, R, C) ? f((size_t)gr * C + gc) : 0.f;
+}
+
+// Fill w[(i, j)], 0 <= i, j < W, with the operand (operand_at).  Threads
+// walk rows and columns directly, so neighbouring threads read
+// neighbouring addresses.
 template <typename F>
 __device__ __forceinline__ void load_window(float* w, int W, int h, int r0,
                                             int c0, int R, int C, F f) {
   for (int i = threadIdx.y; i < W; i += LS_THREADS_Y) {
     const int gr = r0 - h + i;
-    for (int j = threadIdx.x; j < W; j += LS_THREADS_X) {
-      const int gc = c0 - h + j;
-      w[i * W + j] = in_grid(gr, gc, R, C) ? f((size_t)gr * C + gc) : 0.f;
-    }
+    for (int j = threadIdx.x; j < W; j += LS_THREADS_X)
+      w[i * W + j] = operand_at(gr, c0 - h + j, R, C, f);
   }
+}
+
+// A applied at (gr, gc) from the window, its terms with |dx| > 8 from the
+// operand beside it (apply_at_wide).
+template <typename F>
+__device__ __forceinline__ float apply_tile(const float* w, int W, int h,
+                                            int i, int j, int gr, int gc,
+                                            int R, int C,
+                                            const SharedStencil& s, F f) {
+  return apply_at_wide(w, W, i + h, j + h, s, [&](int dy, int dx) {
+    return operand_at(gr + dy, gc + dx, R, C, f);
+  });
 }
 
 // K5a: p' = r + beta (p - omega v) on the window, v' = A p', <r~, v'>.
@@ -77,9 +100,10 @@ bicg_pv_kernel(const float* __restrict__ r, const float* __restrict__ p,
   const float beta = *beta_p, omega = *omega_p;
   const int W = LS_TILE + 2 * h;
   const int r0 = blockIdx.y * LS_TILE, c0 = blockIdx.x * LS_TILE;
-  load_window(w, W, h, r0, c0, R, C, [&](size_t idx) {
+  auto pn = [&](size_t idx) {
     return r[idx] + beta * (p[idx] - omega * v[idx]);
-  });
+  };
+  load_window(w, W, h, r0, c0, R, C, pn);
   __syncthreads();
   T acc[1] = {0};
   const int j = threadIdx.x, gc = c0 + j;
@@ -87,7 +111,7 @@ bicg_pv_kernel(const float* __restrict__ r, const float* __restrict__ p,
     const int gr = r0 + i;
     if (gr >= R || gc >= C) continue;
     const size_t idx = (size_t)gr * C + gc;
-    const float vn = apply_at(w, W, i + h, j + h, s);
+    const float vn = apply_tile(w, W, h, i, j, gr, gc, R, C, s, pn);
     p_out[idx] = w[(i + h) * W + j + h];
     v_out[idx] = vn;
     acc[0] += (T)rt[idx] * (T)vn;
@@ -109,14 +133,14 @@ bicg_st_kernel(const float* __restrict__ r, const float* __restrict__ v,
   const float alpha = *alpha_p;
   const int W = LS_TILE + 2 * h;
   const int r0 = blockIdx.y * LS_TILE, c0 = blockIdx.x * LS_TILE;
-  load_window(w, W, h, r0, c0, R, C,
-              [&](size_t idx) { return r[idx] - alpha * v[idx]; });
+  auto sv = [&](size_t idx) { return r[idx] - alpha * v[idx]; };
+  load_window(w, W, h, r0, c0, R, C, sv);
   __syncthreads();
   T acc[2] = {0, 0};
   const int j = threadIdx.x, gc = c0 + j;
   for (int i = threadIdx.y; i < LS_TILE; i += LS_THREADS_Y) {
     if (r0 + i >= R || gc >= C) continue;
-    const float t = apply_at(w, W, i + h, j + h, s);
+    const float t = apply_tile(w, W, h, i, j, r0 + i, gc, R, C, s, sv);
     const float sc = w[(i + h) * W + j + h];
     acc[0] += (T)t * (T)sc;
     acc[1] += (T)t * (T)t;
@@ -141,7 +165,7 @@ bicg_st_kernel(const float* __restrict__ r, const float* __restrict__ v,
 // rounded to f32 once.  A thread sums a whole chunk's products, too long
 // a run for an f32 sum; of the orders chip_smoke.py --breakdown --dim 2
 // compared, this one alone passed phase 4b at b = 1 (PERF.md section 6).
-template <int DEPTH, int MINB, bool COMP, bool CROSS, bool VEC>
+template <int DEPTH, int MINB, bool COMP, bool CROSS, bool VEC, bool WRAP>
 __global__ void __launch_bounds__(LS_STEP2_THREADS, MINB)
 bicg_st_strip_kernel(const float* __restrict__ r, const float* __restrict__ v,
                      const float* __restrict__ alpha_p,
@@ -160,12 +184,12 @@ bicg_st_strip_kernel(const float* __restrict__ r, const float* __restrict__ v,
     const Row4 z = {{0.f, 0.f, 0.f, 0.f}};
     Row4 S2 = z, S1 = z;  // s rows q-2, q-1
     const float* const src[2] = {r, v};
-    strip_rows<DEPTH, 2, VEC>(
+    strip_rows<DEPTH, 2, VEC, WRAP>(
         src, pl.a - 1, pl.b, R, C, pl, [&](int q, const Row4 (&row)[2]) {
           Row4 S0;
 #pragma unroll
           for (int j = 0; j < 4; ++j) S0.v[j] = row[0].v[j] - alpha * row[1].v[j];
-          mask4(S0, q >= 0 && q < R, pl.cin);
+          strip_mask<WRAP>(S0, q, R, C, pl.c0, pl.cin);
           const int i = q - 1;
           if (i >= pl.a && i < pl.b) {
             const Row4 t = apply4<CROSS>(S2, S1, S0, st);
@@ -185,14 +209,14 @@ bicg_st_strip_kernel(const float* __restrict__ r, const float* __restrict__ v,
 
 #define LS_ST_DEPTH 2  // rows of r and v in flight per warp
 
-template <bool COMP, bool CROSS, bool VEC>
+template <bool COMP, bool CROSS, bool VEC, bool WRAP>
 int launch_st_strip(const float* r, const float* v, const float* alpha,
                     float* dot, double* partials, int capacity,
                     unsigned* counter, int R, int C, const Step2Stencil& st,
                     cudaStream_t stream) {
   const StripGeom geo = strip_geometry(R, C, LS_ST_TARGET_WARPS);
   if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
-  bicg_st_strip_kernel<LS_ST_DEPTH, LS_ST_MIN_BLOCKS, COMP, CROSS, VEC>
+  bicg_st_strip_kernel<LS_ST_DEPTH, LS_ST_MIN_BLOCKS, COMP, CROSS, VEC, WRAP>
       <<<(unsigned)geo.blocks, LS_STEP2_THREADS, 0, stream>>>(
           r, v, alpha, dot, partials, counter, R, C, geo, st);
   return (int)cudaGetLastError();
@@ -217,8 +241,8 @@ bicg_update_kernel(const float* __restrict__ r, const float* __restrict__ v,
   const float alpha = *alpha_p, omega = *omega_p;
   const int W = LS_TILE + 2 * h;
   const int r0 = blockIdx.y * LS_TILE, c0 = blockIdx.x * LS_TILE;
-  load_window(w, W, h, r0, c0, R, C,
-              [&](size_t idx) { return r[idx] - alpha * v[idx]; });
+  auto sv = [&](size_t idx) { return r[idx] - alpha * v[idx]; };
+  load_window(w, W, h, r0, c0, R, C, sv);
   __syncthreads();
   T acc[2] = {0, 0};
   const int j = threadIdx.x, gc = c0 + j;
@@ -226,7 +250,7 @@ bicg_update_kernel(const float* __restrict__ r, const float* __restrict__ v,
     const int gr = r0 + i;
     if (gr >= R || gc >= C) continue;
     const size_t idx = (size_t)gr * C + gc;
-    const float t = apply_at(w, W, i + h, j + h, s);
+    const float t = apply_tile(w, W, h, i, j, gr, gc, R, C, s, sv);
     const float sc = w[(i + h) * W + j + h];
     x[idx] = x[idx] + alpha * p[idx] + omega * sc;
     const float rn = sc - omega * t;
@@ -248,10 +272,10 @@ int ls_bicg_pv(const float* r, const float* p, const float* v,
                float* p_out, float* v_out, float* dot, void* partials, int R,
                int C, int compensated, const LsStencil* st,
                void* stream_ptr) {
-  if (!valid(st, R, C, LS_MAX_REACH)) return (int)cudaErrorInvalidValue;
+  if (!valid2d(st, R, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const dim3 grid = tile_grid(R, C), block(LS_THREADS_X, LS_THREADS_Y);
-  const int h = reach_of(*st), nblocks = grid.x * grid.y;
+  const int h = tile_reach(*st), nblocks = grid.x * grid.y;
   if (compensated) {
     bicg_pv_kernel<true><<<grid, block, 0, stream>>>(
         r, p, v, rt, beta, omega, p_out, v_out, (double*)partials, R, C, *st, h);
@@ -265,10 +289,10 @@ int ls_bicg_pv(const float* r, const float* p, const float* v,
 int ls_bicg_st(const float* r, const float* v, const float* alpha, float* dot,
                void* partials, int R, int C, int compensated,
                const LsStencil* st, void* stream_ptr) {
-  if (!valid(st, R, C, LS_MAX_REACH)) return (int)cudaErrorInvalidValue;
+  if (!valid2d(st, R, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const dim3 grid = tile_grid(R, C), block(LS_THREADS_X, LS_THREADS_Y);
-  const int h = reach_of(*st), nblocks = grid.x * grid.y;
+  const int h = tile_reach(*st), nblocks = grid.x * grid.y;
   if (compensated) {
     bicg_st_kernel<true><<<grid, block, 0, stream>>>(
         r, v, alpha, (double*)partials, R, C, *st, h);
@@ -279,35 +303,30 @@ int ls_bicg_st(const float* r, const float* v, const float* alpha, float* dot,
   return finish((const float*)partials, nblocks, 2, dot, stream);
 }
 
-// K5b with a reach-1 stencil, on the strip march.  partials: capacity
+// K5b with a reach-1 stencil, or with `wrap` the reach-1 1-D stencil of
+// the flat view (march2d.cuh), on the strip march.  partials: capacity
 // blocks x 2 doubles; counter: one unsigned, zero before the first launch
 // (the kernel leaves it zero).  Launches on one (partials, counter) pair
 // must be ordered (one stream).  dot: 2 floats.
 int ls_bicg_st_strip(const float* r, const float* v, const float* alpha,
                      float* dot, double* partials, int capacity,
                      unsigned* counter, int R, int C, int compensated,
-                     const LsStencil* st, void* stream_ptr) {
+                     const LsStencil* st, int wrap, void* stream_ptr) {
   if (!valid(st, R, C, 1) || !counter) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const Step2Stencil s2 = step2_stencil(*st);
   const bool vec = C % 4 == 0 && aligned16(r) && aligned16(v);
   const bool cross = is_cross(*st);
-#define LS_ST_LAUNCH(CO, CR, VE)                                          \
-  launch_st_strip<CO, CR, VE>(r, v, alpha, dot, partials, capacity,       \
-                              counter, R, C, s2, stream)
-  if (compensated) {
-    if (cross)
-      return vec ? LS_ST_LAUNCH(true, true, true)
-                 : LS_ST_LAUNCH(true, true, false);
-    return vec ? LS_ST_LAUNCH(true, false, true)
-               : LS_ST_LAUNCH(true, false, false);
-  }
-  if (cross)
-    return vec ? LS_ST_LAUNCH(false, true, true)
-               : LS_ST_LAUNCH(false, true, false);
-  return vec ? LS_ST_LAUNCH(false, false, true)
-             : LS_ST_LAUNCH(false, false, false);
-#undef LS_ST_LAUNCH
+#define LS_ST_COMP(CR, VE, WR)                                            \
+  launch_st_strip<true, CR, VE, WR>(r, v, alpha, dot, partials, capacity, \
+                                    counter, R, C, s2, stream)
+#define LS_ST_F32(CR, VE, WR)                                              \
+  launch_st_strip<false, CR, VE, WR>(r, v, alpha, dot, partials, capacity, \
+                                     counter, R, C, s2, stream)
+  if (compensated) return LS_STRIP_VARIANT(LS_ST_COMP, cross, vec, wrap);
+  return LS_STRIP_VARIANT(LS_ST_F32, cross, vec, wrap);
+#undef LS_ST_COMP
+#undef LS_ST_F32
 }
 
 // Registers, spill bytes and resident blocks per SM of K5b's strip
@@ -317,7 +336,7 @@ int ls_bicg_st_strip_attrs(int which, int* out) {
 #define LS_ST_ATTR(CO, CR, VE)                                              \
   case 4 * CO + 2 * CR + VE:                                                \
     return strip_attrs(bicg_st_strip_kernel<LS_ST_DEPTH, LS_ST_MIN_BLOCKS, \
-                                            CO, CR, VE>, out);
+                                            CO, CR, VE, false>, out);
     LS_ST_ATTR(0, 0, 0) LS_ST_ATTR(0, 0, 1) LS_ST_ATTR(0, 1, 0)
     LS_ST_ATTR(0, 1, 1) LS_ST_ATTR(1, 0, 0) LS_ST_ATTR(1, 0, 1)
     LS_ST_ATTR(1, 1, 0) LS_ST_ATTR(1, 1, 1)
@@ -330,10 +349,10 @@ int ls_bicg_update(const float* r, const float* v, float* x, const float* p,
                    const float* rt, const float* alpha, const float* omega,
                    float* r_out, float* dot, void* partials, int R, int C,
                    int compensated, const LsStencil* st, void* stream_ptr) {
-  if (!valid(st, R, C, LS_MAX_REACH)) return (int)cudaErrorInvalidValue;
+  if (!valid2d(st, R, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const dim3 grid = tile_grid(R, C), block(LS_THREADS_X, LS_THREADS_Y);
-  const int h = reach_of(*st), nblocks = grid.x * grid.y;
+  const int h = tile_reach(*st), nblocks = grid.x * grid.y;
   if (compensated) {
     bicg_update_kernel<true><<<grid, block, 0, stream>>>(
         r, v, x, p, rt, alpha, omega, r_out, (double*)partials, R, C, *st, h);

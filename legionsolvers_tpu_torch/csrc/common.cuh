@@ -70,11 +70,23 @@ __device__ void stage_stencil(SharedStencil& s, const LsStencil& st) {
   }
 }
 
-// Sum of v_k * a[(i + dy_k) * W + (j + dx_k)], terms in stencil order.
-__device__ __forceinline__ float apply_at(const float* a, int W, int i, int j,
-                                          const SharedStencil& s) {
+// Sum of v_k * a[(i + dy_k) * W + (j + dx_k)] over the terms with |dx_k|
+// <= LS_MAX_REACH (the window), and of v_k * wide(dy_k, dx_k) over the
+// others (the 2-D one-pass kernels' terms up to |dx| < C, such as the
+// row-wrap terms of the 1-D kernel view), which wide reads beside the
+// window, testing the column before it loads.  Terms in stencil order.
+template <typename Wide>
+__device__ __forceinline__ float apply_at_wide(const float* a, int W, int i,
+                                               int j, const SharedStencil& s,
+                                               Wide wide) {
   float acc = 0.f;
-  for (int k = 0; k < s.n; ++k) acc += s.v[k] * a[(i + s.dy[k]) * W + (j + s.dx[k])];
+  for (int k = 0; k < s.n; ++k) {
+    const int dy = s.dy[k], dx = s.dx[k];
+    const float t = dx > LS_MAX_REACH || dx < -LS_MAX_REACH
+                        ? wide(dy, dx)
+                        : a[(i + dy) * W + (j + dx)];
+    acc += s.v[k] * t;
+  }
   return acc;
 }
 
@@ -162,6 +174,31 @@ int reach_of(const LsStencil& st) {
 bool valid(const LsStencil* st, int R, int C, int max_reach) {
   return st && st->n >= 1 && st->n <= LS_MAX_TERMS && R >= 1 && C >= 1 &&
          reach_of(*st) <= max_reach;
+}
+
+// The 2-D one-pass kernels' gate: |dy| <= LS_MAX_REACH (the halo blocks'
+// rows), |dx| < C.
+bool valid2d(const LsStencil* st, int R, int C) {
+  if (!st || st->n < 1 || st->n > LS_MAX_TERMS || R < 1 || C < 1)
+    return false;
+  for (int k = 0; k < st->n; ++k)
+    if (st->dy[k] > LS_MAX_REACH || st->dy[k] < -LS_MAX_REACH ||
+        st->dx[k] >= C || st->dx[k] <= -C)
+      return false;
+  return true;
+}
+
+// The reach of a 2-D tile kernel's window: every |dy|, and |dx| of the
+// terms that apply_at_wide reads from it (|dx| <= LS_MAX_REACH).
+int tile_reach(const LsStencil& st) {
+  int h = 0;
+  for (int k = 0; k < st.n; ++k) {
+    const int a = st.dy[k] < 0 ? -st.dy[k] : st.dy[k];
+    const int b = st.dx[k] < 0 ? -st.dx[k] : st.dx[k];
+    h = a > h ? a : h;
+    if (b <= LS_MAX_REACH) h = b > h ? b : h;
+  }
+  return h;
 }
 
 dim3 tile_grid(int R, int C) {

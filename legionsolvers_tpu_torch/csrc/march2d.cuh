@@ -13,6 +13,18 @@
 // the caller's [LS_HALO_ROWS, C] blocks (halo_row), as the tile kernels
 // do.
 //
+// WRAP (the 1-D kernel view: a 1-D stencil over the row-major flat index
+// of the [R, C] grid, ops/cuda/stencil2d.flat_stencil): a lane's column c
+// of row q is the flat element f = q C + c, whatever c, so a column left
+// of the grid is the end of row q - 1 and one right of it the start of
+// row q + 1 (flat_load4).  The stencil passed is the 1-D one, (0, s) with
+// |s| <= 1, and a strip's 4 halo columns hold the flat neighbours of its
+// edge columns, which is all that four chained applications of a reach-1
+// 1-D stencil read.  Masks test the flat index against [0, R C)
+// (strip_mask): the zero-halo passes (K1, K2, K5b) read zero outside it,
+// the one-pass ones (K3, K4) the halo blocks, which extend the flat
+// vector by 8 C elements on either side.
+//
 // Geometry depends on (R, C) alone: the strips are fixed (LS_STEP2_COLS
 // output columns), and the row chunks aim at a fixed number of warps (one
 // wave of a pass's resident blocks on each of an H100 SXM's 132 SMs; a
@@ -126,6 +138,21 @@ __device__ __forceinline__ void mask4(Row4& a, bool row_in,
                                       const bool (&cin)[4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) a.v[j] = row_in && cin[j] ? a.v[j] : 0.f;
+}
+
+// Zero the lane's columns (c0 .. c0 + 3) of row q outside the grid: where
+// q leaves [0, R) or the column [0, C), or with WRAP where the flat index
+// q C + c leaves [0, R C).
+template <bool WRAP>
+__device__ __forceinline__ void strip_mask(Row4& a, int q, int R, int C,
+                                           int c0, const bool (&cin)[4]) {
+  if (!WRAP) {
+    mask4(a, q >= 0 && q < R, cin);
+    return;
+  }
+  const long long f = (long long)q * C + c0, n = (long long)R * C;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a.v[j] = f + j >= 0 && f + j < n ? a.v[j] : 0.f;
 }
 
 template <bool VEC>
@@ -281,9 +308,43 @@ __device__ __forceinline__ Row4 strip_load4(const float* __restrict__ row,
   return o;
 }
 
+// WRAP: the flat elements q C + c0 .. q C + c0 + 3 of v ([R, C]), extended
+// by the [LS_HALO_ROWS, C] blocks top (the 8 C elements before v) and bot
+// (the 8 C after it), zero where a block is null and further out.  VEC:
+// one 16-byte load; C % 4 == 0 there, so the four lie in one of those
+// ranges.  NC: through the read-only cache.
+template <bool VEC, bool NC>
+__device__ __forceinline__ Row4 flat_load4(const float* __restrict__ v,
+                                           const float* __restrict__ top,
+                                           const float* __restrict__ bot,
+                                           int q, int R, int C, int c0) {
+  const long long n = (long long)R * C, h = (long long)LS_HALO_ROWS * C;
+  const long long f0 = (long long)q * C + c0;
+  auto at = [&](long long f) -> const float* {
+    if (f >= 0 && f < n) return v + f;
+    if (f < 0 && f >= -h && top) return top + (h + f);
+    if (f >= n && f < n + h && bot) return bot + (f - n);
+    return nullptr;
+  };
+  Row4 o = {{0.f, 0.f, 0.f, 0.f}};
+  if (VEC) {
+    if (const float* a = at(f0)) {
+      const float4* a4 = reinterpret_cast<const float4*>(a);
+      const float4 t = NC ? __ldg(a4) : *a4;
+      o = Row4{{t.x, t.y, t.z, t.w}};
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (const float* a = at(f0 + j)) o.v[j] = NC ? __ldg(a) : *a;
+  }
+  return o;
+}
+
 // Row q of NV vectors at the lane's four columns, zero outside the grid
-// and past row `last` (no load issued there).
-template <bool VEC, int NV>
+// (with WRAP: outside the flat range, flat_load4) and past row `last` (no
+// load issued there).
+template <bool VEC, int NV, bool WRAP>
 __device__ __forceinline__ void strip_load(Row4 (&dst)[NV],
                                            const float* const (&src)[NV],
                                            int q, int last, int R, int C,
@@ -292,6 +353,13 @@ __device__ __forceinline__ void strip_load(Row4 (&dst)[NV],
   for (int n = 0; n < NV; ++n)
 #pragma unroll
     for (int j = 0; j < 4; ++j) dst[n].v[j] = 0.f;
+  if (WRAP) {
+    if (q > last) return;
+#pragma unroll
+    for (int n = 0; n < NV; ++n)
+      dst[n] = flat_load4<VEC, true>(src[n], nullptr, nullptr, q, R, C, p.c0);
+    return;
+  }
   if (q < 0 || q >= R || q > last) return;
   const long long o = (long long)q * C + p.c0;
   if (VEC) {
@@ -325,6 +393,19 @@ __device__ __forceinline__ const float* halo_row(const float* v,
   return nullptr;
 }
 
+// Row q of a one-pass kernel's operand v at the lane's four columns: rows
+// -1 and R from the halo blocks (halo_row), zero outside the grid; with
+// WRAP the flat elements of v and its halo blocks (flat_load4).
+template <bool WRAP, bool VEC>
+__device__ __forceinline__ Row4 operand_row4(const float* __restrict__ v,
+                                             const float* __restrict__ top,
+                                             const float* __restrict__ bot,
+                                             int q, int R, int C,
+                                             const StripPlace& p) {
+  if (WRAP) return flat_load4<VEC, true>(v, top, bot, q, R, C, p.c0);
+  return strip_load4<VEC, true>(halo_row(v, top, bot, q, R, C), p.c0, p.cin);
+}
+
 // The march over rows q0 .. q1 with DEPTH rows in flight: a register ring
 // holds rows q + 1 .. q + DEPTH, loading, while row q is consumed.
 // load(rows, q) fills the NV Row4 of row q; step(q, rows) runs once per
@@ -353,14 +434,14 @@ __device__ __forceinline__ void strip_ring(int q0, int q1, Load load,
 // strip_ring over rows of NV vectors, zero outside the grid (strip_load),
 // written out: K2 and K5b ran 5% slower on the card with their rows
 // loaded through strip_ring and strip_load4 (PERF.md section 6).
-template <int DEPTH, int NV, bool VEC, typename Step>
+template <int DEPTH, int NV, bool VEC, bool WRAP, typename Step>
 __device__ __forceinline__ void strip_rows(const float* const (&src)[NV],
                                            int q0, int q1, int R, int C,
                                            const StripPlace& p, Step step) {
   Row4 ring[DEPTH][NV];
 #pragma unroll
   for (int k = 0; k < DEPTH; ++k)
-    strip_load<VEC, NV>(ring[k], src, q0 + k, q1, R, C, p);
+    strip_load<VEC, NV, WRAP>(ring[k], src, q0 + k, q1, R, C, p);
   for (int q = q0; q <= q1; q += DEPTH) {
 #pragma unroll
     for (int u = 0; u < DEPTH; ++u) {
@@ -368,12 +449,20 @@ __device__ __forceinline__ void strip_rows(const float* const (&src)[NV],
         Row4 cur[NV];
 #pragma unroll
         for (int n = 0; n < NV; ++n) cur[n] = ring[u][n];
-        strip_load<VEC, NV>(ring[u], src, q + u + DEPTH, q1, R, C, p);
+        strip_load<VEC, NV, WRAP>(ring[u], src, q + u + DEPTH, q1, R, C, p);
         step(q + u, cur);
       }
     }
   }
 }
+
+// A strip launch's variant, L(CROSS, VEC, WRAP): the cross (its offsets
+// fixed at compile time), another reach-1 stencil, or with WRAP the 1-D
+// stencil of the flat view; 16-byte or scalar loads.
+#define LS_STRIP_VARIANT(L, cross, vec, wrap)                          \
+  ((wrap)    ? ((vec) ? L(false, true, true) : L(false, false, true)) \
+   : (cross) ? ((vec) ? L(true, true, false) : L(true, false, false)) \
+             : ((vec) ? L(false, true, false) : L(false, false, false)))
 
 bool is_cross(const LsStencil& st) {
   const int dy[5] = {0, -1, 1, 0, 0}, dx[5] = {0, 0, 0, -1, 1};

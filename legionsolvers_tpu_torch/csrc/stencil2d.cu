@@ -7,9 +7,9 @@
 // (legionsolvers_tpu_torch/ops/cuda/build.py).
 //
 //   ls_stencil2d  K3  replaces _stencil_call (modes y, y_dot, pq, update)
-//                     (stencil_strip_kernel; reach 2..8 stencil_kernel)
+//                     (stencil_strip_kernel; other stencils stencil_kernel)
 //   ls_xpay_pq    K4  replaces grid2d_cg_xpay_pq
-//                     (xpay_pq_strip_kernel; reach 2..8 xpay_pq_kernel)
+//                     (xpay_pq_strip_kernel; other stencils xpay_pq_kernel)
 //   ls_gram2      K2  replaces _sstep_call mode gram2
 //   ls_step2      K1  replaces _sstep_call mode step2
 //
@@ -27,8 +27,15 @@
 // chunk with the rows it needs in registers, and each dot is summed in
 // double and folded into the last block to finish (one launch).  K3 and
 // K4 there take their reach-1 halo rows from the caller's halo blocks
-// (halo_row), so they serve every call the tile kernels serve.  With a
-// reach of 2..8, K3 and K4 keep the tile design of the first port:
+// (halo_row), so they serve every call the tile kernels serve.  The 1-D
+// kernel view (a 1-D grid viewed as [n / C, C], its shifts rewritten into
+// (dy, dx) terms with row-wrap terms of |dx| = C - 1) runs every strip
+// pass with WRAP on the 1-D stencil (march2d.cuh): each element is
+// addressed by its flat index, so the wrap terms cost no extra read.  Any
+// other stencil (|dy| <= 8, |dx| < C) runs K3 and K4 on the tile design of
+// the first port, its terms with |dx| > 8 read from device memory beside
+// the tile (apply_at_wide: only the lanes whose column lands in the grid
+// load):
 //   * each block owns one TILE x TILE output tile and loads its inputs
 //     plus a halo into shared memory once (halo re-reads cost
 //     (TILE + 2h)^2 / TILE^2 - 1);
@@ -72,7 +79,9 @@ stencil_kernel(const float* __restrict__ x, const float* __restrict__ top,
     if (gr >= R || gc >= C) continue;
     const size_t idx = (size_t)gr * C + gc;
     const float xc = w[(i + h) * W + j + h];
-    const float ax = apply_at(w, W, i + h, j + h, s);
+    const float ax = apply_at_wide(w, W, i + h, j + h, s, [&](int dy, int dx) {
+      return load_halo(x, top, bot, R, C, gr + dy, gc + dx);
+    });
     if (MODE == 0 || MODE == 1) y[idx] = ax;
     if (MODE == 1 || MODE == 2) acc[0] += xc * ax;
     if (MODE == 3) {
@@ -112,7 +121,7 @@ stencil_kernel(const float* __restrict__ x, const float* __restrict__ top,
 constexpr int stencil_depth(int mode) {
   return mode == 3 ? LS_UPDATE_DEPTH : LS_STENCIL_DEPTH;
 }
-template <int MODE, int DEPTH, int MINB, bool CROSS, bool VEC>
+template <int MODE, int DEPTH, int MINB, bool CROSS, bool VEC, bool WRAP>
 __global__ void __launch_bounds__(LS_STEP2_THREADS, MINB)
 stencil_strip_kernel(const float* __restrict__ x,
                      const float* __restrict__ top,
@@ -135,8 +144,7 @@ stencil_strip_kernel(const float* __restrict__ x,
         pl.a - 1, pl.b,
         [&](Row4 (&dst)[NV], int q) {
           if (q > pl.b) return;  // past the chunk: never consumed
-          dst[0] = strip_load4<VEC, true>(halo_row(x, top, bot, q, R, C),
-                                          pl.c0, pl.cin);
+          dst[0] = operand_row4<WRAP, VEC>(x, top, bot, q, R, C, pl);
           if constexpr (MODE == 3) {
             const bool mine = q >= pl.a && q < pl.b;
             const long long o = (long long)q * C;
@@ -209,7 +217,10 @@ xpay_pq_kernel(const float* __restrict__ r, const float* __restrict__ p_old,
     if (gr >= R || gc >= C) continue;
     const float pc = w[(i + h) * W + j + h];
     p_out[(size_t)gr * C + gc] = pc;
-    acc[0] += pc * apply_at(w, W, i + h, j + h, s);
+    acc[0] += pc * apply_at_wide(w, W, i + h, j + h, s, [&](int dy, int dx) {
+      return load_halo(r, rt, rb, R, C, gr + dy, gc + dx) +
+             beta * load_halo(p_old, pt, pb, R, C, gr + dy, gc + dx);
+    });
   }
   block_partials(acc, partials);
 }
@@ -223,7 +234,7 @@ xpay_pq_kernel(const float* __restrict__ r, const float* __restrict__ p_old,
 // bytes, 12 B per element (reads r, p_old; writes p); what holds it back
 // is the bytes in flight, as for K3.
 #define LS_XPAY_DEPTH 2  // rows of r and p_old in flight per warp
-template <int DEPTH, int MINB, bool CROSS, bool VEC>
+template <int DEPTH, int MINB, bool CROSS, bool VEC, bool WRAP>
 __global__ void __launch_bounds__(LS_STEP2_THREADS, MINB)
 xpay_pq_strip_kernel(const float* __restrict__ r,
                      const float* __restrict__ p_old,
@@ -246,10 +257,8 @@ xpay_pq_strip_kernel(const float* __restrict__ r,
         pl.a - 1, pl.b,
         [&](Row4 (&dst)[2], int q) {
           if (q > pl.b) return;  // past the chunk: never consumed
-          dst[0] = strip_load4<VEC, true>(halo_row(r, rt, rb, q, R, C),
-                                          pl.c0, pl.cin);
-          dst[1] = strip_load4<VEC, true>(halo_row(p_old, pt, pb, q, R, C),
-                                          pl.c0, pl.cin);
+          dst[0] = operand_row4<WRAP, VEC>(r, rt, rb, q, R, C, pl);
+          dst[1] = operand_row4<WRAP, VEC>(p_old, pt, pb, q, R, C, pl);
         },
         [&](int q, const Row4 (&row)[2]) {
           Row4 P0;
@@ -294,7 +303,7 @@ xpay_pq_strip_kernel(const float* __restrict__ r,
 // flight and 4 resident blocks per SM measured best (PERF.md section 6).
 // ---------------------------------------------------------------------------
 #define LS_GRAM2_DEPTH 1  // rows in flight per warp (more were slower)
-template <int DEPTH, int MINB, bool CROSS, bool VEC>
+template <int DEPTH, int MINB, bool CROSS, bool VEC, bool WRAP>
 __global__ void __launch_bounds__(LS_STEP2_THREADS, MINB)
 gram2_strip_kernel(const float* __restrict__ r, const float* __restrict__ p,
                    float* __restrict__ g_out, double* __restrict__ partials,
@@ -309,7 +318,7 @@ gram2_strip_kernel(const float* __restrict__ r, const float* __restrict__ p,
     Row4 P2 = z, P1 = z, R2 = z, R1 = z;  // p, r rows q-2, q-1
     Row4 AP3 = z, AP2 = z, AR2 = z;       // Ap rows q-3, q-2; Ar row q-2
     const float* const src[2] = {p, r};
-    strip_rows<DEPTH, 2, VEC>(
+    strip_rows<DEPTH, 2, VEC, WRAP>(
         src, pl.a - 2, pl.b + 1, R, C, pl,
         [&](int q, const Row4 (&row)[2]) {
           const Row4& P0 = row[0];
@@ -317,7 +326,7 @@ gram2_strip_kernel(const float* __restrict__ r, const float* __restrict__ p,
           // S1 at row q - 1
           const int i1 = q - 1;
           Row4 AP1 = apply4<CROSS>(P2, P1, P0, st);
-          mask4(AP1, i1 >= 0 && i1 < R, pl.cin);
+          strip_mask<WRAP>(AP1, i1, R, C, pl.c0, pl.cin);
           const Row4 AR1 = apply4<CROSS>(R2, R1, R0, st);
           // S2 at row q - 2
           const int i2 = q - 2;
@@ -369,7 +378,7 @@ gram2_strip_kernel(const float* __restrict__ r, const float* __restrict__ p,
 // all partials in block order and resets the counter: deterministic, with
 // no second launch.
 // ---------------------------------------------------------------------------
-template <bool CROSS, bool VEC>
+template <bool CROSS, bool VEC, bool WRAP>
 __global__ void __launch_bounds__(LS_STEP2_THREADS, LS_STEP2_MIN_BLOCKS)
 step2_kernel(float* __restrict__ x, const float* __restrict__ r,
              const float* __restrict__ p, const float* __restrict__ coef,
@@ -393,13 +402,21 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
       cin[j] = c0 + j >= 0 && c0 + j < C;
       own[j] = cin[j] && lane >= 1 && lane <= 30;
     }
-    // row q of p, r (zero outside the grid) and of x (rows [a, b) only)
+    // row q of p, r (zero outside the grid; with WRAP their flat elements,
+    // zero outside [0, R C)) and of x (own columns of rows [a, b) only)
     auto load_row = [&](int q, Row4& P, Row4& Rv, Row4& X) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) P.v[j] = Rv.v[j] = X.v[j] = 0.f;
+      const bool xrow = q >= a && q < b;
+      if (WRAP) {
+        P = flat_load4<VEC, true>(p, nullptr, nullptr, q, R, C, c0);
+        Rv = flat_load4<VEC, true>(r, nullptr, nullptr, q, R, C, c0);
+        if (xrow)
+          X = strip_load4<VEC, false>(x + (long long)q * C, c0, own);
+        return;
+      }
       if (q < 0 || q >= R) return;
       const long long o = (long long)q * C + c0;
-      const bool xrow = q >= a && q < b;
       if (VEC) {
         if (!cin[0]) return;
         const float4 pv = __ldg(reinterpret_cast<const float4*>(p + o));
@@ -434,14 +451,13 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
       load_row(q + 1, Pn, Rn, Xn);
       // S1 at row q - 1
       const int i1 = q - 1;
-      const bool in1 = i1 >= 0 && i1 < R;
       Row4 AP1 = apply4<CROSS>(P2, P1, P0, st);
-      mask4(AP1, in1, cin);
+      strip_mask<WRAP>(AP1, i1, R, C, c0, cin);
       Row4 U1;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         U1.v[j] = k0 * P1.v[j] + k1 * R1.v[j] - k2 * AP1.v[j];
-      mask4(U1, in1, cin);
+      strip_mask<WRAP>(U1, i1, R, C, c0, cin);
       if (i1 >= a && i1 < b) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) X1.v[j] = X1.v[j] + U1.v[j];
@@ -449,7 +465,6 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
       }
       // S2 at row q - 2
       const int i2 = q - 2;
-      const bool in2 = i2 >= 0 && i2 < R;
       const Row4 AU = apply4<CROSS>(U3, U2, U1, st);
       Row4 RN2, PN2;
 #pragma unroll
@@ -457,8 +472,8 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
         RN2.v[j] = R2.v[j] - AU.v[j];
         PN2.v[j] = RN2.v[j] + k3 * R2.v[j] - k4 * AP2.v[j] + k5 * P2.v[j];
       }
-      mask4(RN2, in2, cin);
-      mask4(PN2, in2, cin);
+      strip_mask<WRAP>(RN2, i2, R, C, c0, cin);
+      strip_mask<WRAP>(PN2, i2, R, C, c0, cin);
       if (i2 >= a && i2 < b) {
         store4<VEC>(r_out, (long long)i2 * C + c0, RN2, own);
         store4<VEC>(p_out, (long long)i2 * C + c0, PN2, own);
@@ -466,7 +481,7 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
       // S3 at row q - 3
       const int i3 = q - 3;
       Row4 APN3 = apply4<CROSS>(PN4, PN3, PN2, st);
-      mask4(APN3, i3 >= 0 && i3 < R, cin);
+      strip_mask<WRAP>(APN3, i3, R, C, c0, cin);
       // S4 at row q - 4
       const int i4 = q - 4;
       if (i4 >= a && i4 < b) {
@@ -489,33 +504,33 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
   strip_fold<10>(g, partials, counter, g_out);
 }
 
-template <bool CROSS, bool VEC>
+template <bool CROSS, bool VEC, bool WRAP>
 int launch_step2(float* x, const float* r, const float* p, const float* coef,
                  float* r_out, float* p_out, float* g, double* partials,
                  int capacity, unsigned* counter, int R, int C,
                  const Step2Stencil& st, cudaStream_t stream) {
   const StripGeom geo = strip_geometry(R, C, LS_STEP2_TARGET_WARPS);
   if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
-  step2_kernel<CROSS, VEC><<<(unsigned)geo.blocks, LS_STEP2_THREADS, 0,
-                             stream>>>(
+  step2_kernel<CROSS, VEC, WRAP><<<(unsigned)geo.blocks, LS_STEP2_THREADS,
+                                   0, stream>>>(
       x, r, p, coef, r_out, p_out, g, partials, counter, R, C, geo.strips,
       geo.chunk_rows, geo.units, st);
   return (int)cudaGetLastError();
 }
 
-template <bool CROSS, bool VEC>
+template <bool CROSS, bool VEC, bool WRAP>
 int launch_gram2(const float* r, const float* p, float* g, double* partials,
                  int capacity, unsigned* counter, int R, int C,
                  const Step2Stencil& st, cudaStream_t stream) {
   const StripGeom geo = strip_geometry(R, C, LS_GRAM2_TARGET_WARPS);
   if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
-  gram2_strip_kernel<LS_GRAM2_DEPTH, LS_GRAM2_MIN_BLOCKS, CROSS, VEC>
+  gram2_strip_kernel<LS_GRAM2_DEPTH, LS_GRAM2_MIN_BLOCKS, CROSS, VEC, WRAP>
       <<<(unsigned)geo.blocks, LS_STEP2_THREADS, 0, stream>>>(
           r, p, g, partials, counter, R, C, geo, st);
   return (int)cudaGetLastError();
 }
 
-template <int MODE, bool CROSS, bool VEC>
+template <int MODE, bool CROSS, bool VEC, bool WRAP>
 int launch_stencil_strip(const float* x, const float* top, const float* bot,
                          float* y, float* xv, float* rv, const float* alpha,
                          float* dot, double* partials, int capacity,
@@ -524,30 +539,28 @@ int launch_stencil_strip(const float* x, const float* top, const float* bot,
   const StripGeom geo = strip_geometry(R, C, LS_STENCIL_TARGET_WARPS);
   if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
   stencil_strip_kernel<MODE, stencil_depth(MODE), LS_STENCIL_MIN_BLOCKS,
-                       CROSS, VEC><<<(unsigned)geo.blocks, LS_STEP2_THREADS,
-                                     0, stream>>>(
+                       CROSS, VEC, WRAP><<<(unsigned)geo.blocks,
+                                           LS_STEP2_THREADS, 0, stream>>>(
       x, top, bot, y, xv, rv, alpha, dot, partials, counter, R, C, geo, st);
   return (int)cudaGetLastError();
 }
 
-// K3 on the strip march in `mode`, with the cross or another reach-1
-// stencil, 16-byte or scalar loads.
+// K3 on the strip march in `mode`, in the variant of LS_STRIP_VARIANT.
 template <int MODE>
-int stencil_strip(bool cross, bool vec, const float* x, const float* top,
-                  const float* bot, float* y, float* xv, float* rv,
-                  const float* alpha, float* dot, double* partials,
-                  int capacity, unsigned* counter, int R, int C,
-                  const Step2Stencil& st, cudaStream_t stream) {
-#define LS_K3_LAUNCH(CR, VE)                                                 \
-  launch_stencil_strip<MODE, CR, VE>(x, top, bot, y, xv, rv, alpha, dot,    \
-                                     partials, capacity, counter, R, C, st, \
-                                     stream)
-  if (cross) return vec ? LS_K3_LAUNCH(true, true) : LS_K3_LAUNCH(true, false);
-  return vec ? LS_K3_LAUNCH(false, true) : LS_K3_LAUNCH(false, false);
+int stencil_strip(bool cross, bool vec, bool wrap, const float* x,
+                  const float* top, const float* bot, float* y, float* xv,
+                  float* rv, const float* alpha, float* dot,
+                  double* partials, int capacity, unsigned* counter, int R,
+                  int C, const Step2Stencil& st, cudaStream_t stream) {
+#define LS_K3_LAUNCH(CR, VE, WR)                                           \
+  launch_stencil_strip<MODE, CR, VE, WR>(x, top, bot, y, xv, rv, alpha,   \
+                                         dot, partials, capacity, counter, \
+                                         R, C, st, stream)
+  return LS_STRIP_VARIANT(LS_K3_LAUNCH, cross, vec, wrap);
 #undef LS_K3_LAUNCH
 }
 
-template <bool CROSS, bool VEC>
+template <bool CROSS, bool VEC, bool WRAP>
 int launch_xpay_pq_strip(const float* r, const float* p_old,
                          const float* beta, const float* rt, const float* rb,
                          const float* pt, const float* pb, float* p_out,
@@ -556,7 +569,7 @@ int launch_xpay_pq_strip(const float* r, const float* p_old,
                          const Step2Stencil& st, cudaStream_t stream) {
   const StripGeom geo = strip_geometry(R, C, LS_XPAY_TARGET_WARPS);
   if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
-  xpay_pq_strip_kernel<LS_XPAY_DEPTH, LS_XPAY_MIN_BLOCKS, CROSS, VEC>
+  xpay_pq_strip_kernel<LS_XPAY_DEPTH, LS_XPAY_MIN_BLOCKS, CROSS, VEC, WRAP>
       <<<(unsigned)geo.blocks, LS_STEP2_THREADS, 0, stream>>>(
           r, p_old, beta, rt, rb, pt, pb, p_out, dot, partials, counter, R,
           C, geo, st);
@@ -574,21 +587,24 @@ const char* ls_error_string(int err) {
 }
 
 // K3.  mode: 0 y, 1 y_dot, 2 pq, 3 update.  Pointers unused by a mode may
-// be null; halo pointers may be null (zeros).  A reach-1 stencil runs the
+// be null; halo pointers may be null (zeros).  A reach-1 stencil, or with
+// `wrap` the reach-1 1-D stencil of the flat view (march2d.cuh), runs the
 // strip kernel: partials is the strip scratch (capacity blocks x at least
 // one double) and counter its last-block counter (zero before the first
 // launch; the kernel leaves it zero; launches on one pair must be ordered,
-// one stream).  Reach 2..8 runs the tile kernel and reduce_partials:
-// partials holds one float per tile, and capacity and counter are unused.
+// one stream).  Any other stencil (|dy| <= 8, |dx| < C) runs the tile
+// kernel and reduce_partials: partials holds one float per tile, and
+// capacity and counter are unused.
 int ls_stencil2d(int mode, const float* x, const float* top, const float* bot,
                  float* y, float* xv, float* rv, const float* alpha,
                  float* dot, void* partials, int capacity, unsigned* counter,
-                 int R, int C, const LsStencil* st, void* stream_ptr) {
-  if (!valid(st, R, C, LS_MAX_REACH) || mode < 0 || mode > 3)
+                 int R, int C, const LsStencil* st, int wrap,
+                 void* stream_ptr) {
+  if (!valid2d(st, R, C) || mode < 0 || mode > 3 ||
+      (wrap && reach_of(*st) > 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int h = reach_of(*st);
-  if (h <= 1) {
+  if (wrap || reach_of(*st) <= 1) {
     if (!counter) return (int)cudaErrorInvalidValue;
     const Step2Stencil s2 = step2_stencil(*st);
     const bool vec = C % 4 == 0 && aligned16(x) && aligned16(top) &&
@@ -596,9 +612,9 @@ int ls_stencil2d(int mode, const float* x, const float* top, const float* bot,
                      aligned16(rv);
     const bool cross = is_cross(*st);
     double* part = (double*)partials;
-#define LS_K3_MODE(M)                                                     \
-  stencil_strip<M>(cross, vec, x, top, bot, y, xv, rv, alpha, dot, part, \
-                   capacity, counter, R, C, s2, stream)
+#define LS_K3_MODE(M)                                                   \
+  stencil_strip<M>(cross, vec, wrap, x, top, bot, y, xv, rv, alpha, dot, \
+                   part, capacity, counter, R, C, s2, stream)
     switch (mode) {
       case 0: return LS_K3_MODE(0);
       case 1: return LS_K3_MODE(1);
@@ -607,6 +623,7 @@ int ls_stencil2d(int mode, const float* x, const float* top, const float* bot,
     }
 #undef LS_K3_MODE
   }
+  const int h = tile_reach(*st);
   const dim3 grid = tile_grid(R, C), block(LS_THREADS_X, LS_THREADS_Y);
   float* part = (float*)partials;
   switch (mode) {
@@ -628,25 +645,25 @@ int ls_xpay_pq(const float* r, const float* p_old, const float* beta,
                const float* rt, const float* rb, const float* pt,
                const float* pb, float* p_out, float* dot, void* partials,
                int capacity, unsigned* counter, int R, int C,
-               const LsStencil* st, void* stream_ptr) {
-  if (!valid(st, R, C, LS_MAX_REACH)) return (int)cudaErrorInvalidValue;
+               const LsStencil* st, int wrap, void* stream_ptr) {
+  if (!valid2d(st, R, C) || (wrap && reach_of(*st) > 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int h = reach_of(*st);
-  if (h <= 1) {
+  if (wrap || reach_of(*st) <= 1) {
     if (!counter) return (int)cudaErrorInvalidValue;
     const Step2Stencil s2 = step2_stencil(*st);
     const bool vec = C % 4 == 0 && aligned16(r) && aligned16(p_old) &&
                      aligned16(rt) && aligned16(rb) && aligned16(pt) &&
                      aligned16(pb) && aligned16(p_out);
     double* part = (double*)partials;
-#define LS_K4_LAUNCH(CR, VE)                                                \
-  launch_xpay_pq_strip<CR, VE>(r, p_old, beta, rt, rb, pt, pb, p_out, dot, \
-                               part, capacity, counter, R, C, s2, stream)
-    if (is_cross(*st))
-      return vec ? LS_K4_LAUNCH(true, true) : LS_K4_LAUNCH(true, false);
-    return vec ? LS_K4_LAUNCH(false, true) : LS_K4_LAUNCH(false, false);
+#define LS_K4_LAUNCH(CR, VE, WR)                                          \
+  launch_xpay_pq_strip<CR, VE, WR>(r, p_old, beta, rt, rb, pt, pb, p_out, \
+                                   dot, part, capacity, counter, R, C, s2, \
+                                   stream)
+    return LS_STRIP_VARIANT(LS_K4_LAUNCH, is_cross(*st), vec, wrap);
 #undef LS_K4_LAUNCH
   }
+  const int h = tile_reach(*st);
   const dim3 grid = tile_grid(R, C), block(LS_THREADS_X, LS_THREADS_Y);
   float* part = (float*)partials;
   xpay_pq_kernel<<<grid, block, 0, stream>>>(r, p_old, beta, rt, rb, pt, pb,
@@ -657,19 +674,19 @@ int ls_xpay_pq(const float* r, const float* p_old, const float* beta,
 // K2 and K1 share their scratch (with K3, K4 and K5b).  partials:
 // capacity blocks x 10 doubles; counter: one unsigned, zero before the
 // first launch (the kernels leave it zero).  Launches on one (partials,
-// counter) pair must be ordered (one stream).
+// counter) pair must be ordered (one stream).  A reach-1 stencil; with
+// `wrap` the reach-1 1-D stencil of the flat view (march2d.cuh).
 int ls_gram2(const float* r, const float* p, float* g, double* partials,
              int capacity, unsigned* counter, int R, int C,
-             const LsStencil* st, void* stream_ptr) {
+             const LsStencil* st, int wrap, void* stream_ptr) {
   if (!valid(st, R, C, 1) || !counter) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const Step2Stencil s2 = step2_stencil(*st);
   const bool vec = C % 4 == 0 && aligned16(r) && aligned16(p);
-#define LS_GRAM2_LAUNCH(CR, VE) \
-  launch_gram2<CR, VE>(r, p, g, partials, capacity, counter, R, C, s2, stream)
-  if (is_cross(*st))
-    return vec ? LS_GRAM2_LAUNCH(true, true) : LS_GRAM2_LAUNCH(true, false);
-  return vec ? LS_GRAM2_LAUNCH(false, true) : LS_GRAM2_LAUNCH(false, false);
+#define LS_GRAM2_LAUNCH(CR, VE, WR)                                      \
+  launch_gram2<CR, VE, WR>(r, p, g, partials, capacity, counter, R, C, s2, \
+                           stream)
+  return LS_STRIP_VARIANT(LS_GRAM2_LAUNCH, is_cross(*st), vec, wrap);
 #undef LS_GRAM2_LAUNCH
 }
 
@@ -677,19 +694,16 @@ int ls_gram2(const float* r, const float* p, float* g, double* partials,
 int ls_step2(float* x, const float* r, const float* p, const float* coef,
              float* r_out, float* p_out, float* g, double* partials,
              int capacity, unsigned* counter, int R, int C,
-             const LsStencil* st, void* stream_ptr) {
+             const LsStencil* st, int wrap, void* stream_ptr) {
   if (!valid(st, R, C, 1) || !counter) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const Step2Stencil s2 = step2_stencil(*st);
   const bool vec = C % 4 == 0 && aligned16(x) && aligned16(r) &&
                    aligned16(p) && aligned16(r_out) && aligned16(p_out);
-  const bool cross = is_cross(*st);
-#define LS_STEP2_LAUNCH(CR, VE)                                              \
-  launch_step2<CR, VE>(x, r, p, coef, r_out, p_out, g, partials, capacity, \
-                       counter, R, C, s2, stream)
-  if (cross)
-    return vec ? LS_STEP2_LAUNCH(true, true) : LS_STEP2_LAUNCH(true, false);
-  return vec ? LS_STEP2_LAUNCH(false, true) : LS_STEP2_LAUNCH(false, false);
+#define LS_STEP2_LAUNCH(CR, VE, WR)                                       \
+  launch_step2<CR, VE, WR>(x, r, p, coef, r_out, p_out, g, partials,      \
+                           capacity, counter, R, C, s2, stream)
+  return LS_STRIP_VARIANT(LS_STEP2_LAUNCH, is_cross(*st), vec, wrap);
 #undef LS_STEP2_LAUNCH
 }
 
@@ -718,7 +732,8 @@ int ls_gram2_attrs(int which, int* out) {
 #define LS_G2_ATTR(CR, VE)      \
   case 2 * CR + VE:             \
     return strip_attrs(                                                    \
-        gram2_strip_kernel<LS_GRAM2_DEPTH, LS_GRAM2_MIN_BLOCKS, CR, VE>, out);
+        gram2_strip_kernel<LS_GRAM2_DEPTH, LS_GRAM2_MIN_BLOCKS, CR, VE,   \
+                           false>, out);
     LS_G2_ATTR(0, 0) LS_G2_ATTR(0, 1) LS_G2_ATTR(1, 0) LS_G2_ATTR(1, 1)
 #undef LS_G2_ATTR
     default: return (int)cudaErrorInvalidValue;
@@ -732,7 +747,7 @@ int ls_stencil2d_strip_attrs(int which, int* out) {
   case 4 * M + 2 * CR + VE:                                            \
     return strip_attrs(stencil_strip_kernel<M, stencil_depth(M),       \
                                             LS_STENCIL_MIN_BLOCKS, CR, \
-                                            VE>, out);
+                                            VE, false>, out);
 #define LS_K3_ATTRS(M)                      \
   LS_K3_ATTR(M, 0, 0) LS_K3_ATTR(M, 0, 1) \
   LS_K3_ATTR(M, 1, 0) LS_K3_ATTR(M, 1, 1)
@@ -749,8 +764,8 @@ int ls_xpay_pq_strip_attrs(int which, int* out) {
 #define LS_K4_ATTR(CR, VE)                                               \
   case 2 * CR + VE:                                                      \
     return strip_attrs(                                                  \
-        xpay_pq_strip_kernel<LS_XPAY_DEPTH, LS_XPAY_MIN_BLOCKS, CR, VE>, \
-        out);
+        xpay_pq_strip_kernel<LS_XPAY_DEPTH, LS_XPAY_MIN_BLOCKS, CR, VE, \
+                             false>, out);
     LS_K4_ATTR(0, 0) LS_K4_ATTR(0, 1) LS_K4_ATTR(1, 0) LS_K4_ATTR(1, 1)
 #undef LS_K4_ATTR
     default: return (int)cudaErrorInvalidValue;

@@ -4,7 +4,8 @@
 .build_planner``: the benchmark's ``-dim`` selector (1: 1-D 3-point, 2:
 2-D 5-point, 3: 3-D 7-point, 4: 3-D 27-point negative Laplacian) on the
 given grid, b = 1 and x0 = 0, with the vectors in their grid layout
-whenever the operator's kernel view is active; with ``num_spaces`` > 1 the
+whenever the operator's kernel view is active (1-D vectors in the
+``[n // C, C]`` layout of the view, as the JAX CLI lays them); with ``num_spaces`` > 1 the
 block system of ``--block``, the same operator registered once per space
 (reference: BenchmarkStencil.cpp:201-207).  ``pieces`` and ``mesh``
 partition the system as the JAX CLI's ``-vp`` does: a mesh from
@@ -54,6 +55,9 @@ def build_stencil_system(dim: int, shape: Sequence[int],
     op = StencilOperator(shape, laplacian_stencil(dim), partition=part,
                          mesh=mesh, options=options, device=device)
     gs = shape if op.uses_pallas else None
+    if gs is not None and len(shape) == 1:
+        # 1-D vectors in the layout of the operator's [n // C, C] view
+        gs = (shape[0] // op._view["C"], op._view["C"])
     planner = SquarePlanner(mesh=mesh, options=options, device=device)
     for i in range(num_spaces):
         sol = PartitionedVector(f"sol{i}", part, mesh=mesh, options=options,

@@ -18,10 +18,13 @@ They move 24, 8 and 28 bytes per element: 60 B per unknown per iteration.
 Each pass applies A once, to an operand that is zero outside the grid; s
 and t never reach device memory.  ``compensated`` sums the dots from exact
 f32 products in float64 and rounds once (see ``ops/ddsum.py``).  With a
-reach-1 stencil ``bicg_st`` runs on K1's column-strip march (one launch,
-its dots summed in float64 and folded into the last block, the scratch
-of :func:`~.stencil2d._step2_scratch`); with reach 2..8 it runs the tile
-kernel and a second launch, as the other two passes do.
+reach-1 stencil, or the flat decomposition of one (the 1-D kernel view,
+run with WRAP on the 1-D stencil), ``bicg_st`` runs on K1's column-strip
+march (one launch, its dots summed in float64 and folded into the last
+block, the scratch of :func:`~.stencil2d._step2_scratch`); with any other
+stencil it runs the tile kernel and a second launch, as the other two
+passes do, whose terms with |dx| > 8 read device memory beside the tile
+(``stencil2d.route``).
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches its kernel or raises; it never falls back.  Every CUDA launch adds
@@ -45,7 +48,6 @@ import torch
 
 from ..ddsum import dd_dot
 from .stencil2d import (
-    STEP2_REACH,
     _blocks,
     _check_distinct,
     _check_grid,
@@ -54,18 +56,18 @@ from .stencil2d import (
     _launch,
     _on_cuda,
     _ptr,
-    _reach,
     _step2_scratch,
     _stencil_struct,
     apply_plain,
+    route,
     supports,
 )
 
 
 def bicgstab_supported(R: int, C: int, offsets, itemsize: int = 4) -> bool:
     """Whether the K5 kernels take this geometry: f32, any R, C >= 1, at
-    most 32 terms of reach <= 8 (the tile's halo).  The TPU's lane and
-    row-tile gates do not apply."""
+    most 32 terms with |dy| <= 8 and |dx| < C (``stencil2d.supports``, as
+    JAX's gate).  The TPU's lane and row-tile gates do not apply."""
     return itemsize == 4 and supports(R, C, offsets)
 
 
@@ -191,12 +193,13 @@ def bicg_st(r, v, alpha, *, offsets, values, compensated: bool = False):
     al = _dev_scalars(alpha, 1, dev)
     # dot is fresh per pass: the runner keeps earlier passes' values
     dot = torch.empty(2, dtype=torch.float32, device=dev)
-    st = _stencil_struct(offsets, values)
-    if _reach(offsets) <= STEP2_REACH:
+    kind, k_offs, k_vals, wrap = route(offsets, values, C)
+    st = _stencil_struct(k_offs, k_vals)
+    if kind != "tile":
         partials, capacity, counter = _step2_scratch(dev, R, C)
         _launch("bicg_st", "ls_bicg_st_strip", (
             _ptr(r), _ptr(v), _ptr(al), _ptr(dot), _ptr(partials), capacity,
-            _ptr(counter), R, C, int(compensated), ctypes.byref(st),
+            _ptr(counter), R, C, int(compensated), ctypes.byref(st), wrap,
         ), dev)
     else:
         _launch("bicg_st", "ls_bicg_st", (

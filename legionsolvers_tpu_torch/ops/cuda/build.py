@@ -125,13 +125,13 @@ def load_library() -> ctypes.CDLL:
 
     lib = ctypes.CDLL(str(build()))
     sigs = {
-        "ls_stencil2d": [_I] + [_P] * 9 + [_I, _P, _I, _I, _P, _P],
-        "ls_xpay_pq": [_P] * 10 + [_I, _P, _I, _I, _P, _P],
-        "ls_gram2": [_P] * 4 + [_I, _P, _I, _I, _P, _P],
-        "ls_step2": [_P] * 8 + [_I, _P, _I, _I, _P, _P],
+        "ls_stencil2d": [_I] + [_P] * 9 + [_I, _P, _I, _I, _P, _I, _P],
+        "ls_xpay_pq": [_P] * 10 + [_I, _P, _I, _I, _P, _I, _P],
+        "ls_gram2": [_P] * 4 + [_I, _P, _I, _I, _P, _I, _P],
+        "ls_step2": [_P] * 8 + [_I, _P, _I, _I, _P, _I, _P],
         "ls_bicg_pv": [_P] * 10 + [_I, _I, _I, _P, _P],
         "ls_bicg_st": [_P] * 5 + [_I, _I, _I, _P, _P],
-        "ls_bicg_st_strip": [_P] * 5 + [_I, _P, _I, _I, _I, _P, _P],
+        "ls_bicg_st_strip": [_P] * 5 + [_I, _P, _I, _I, _I, _P, _I, _P],
         "ls_strip_blocks": [_I] * 3,
         "ls_strip_target_warps": [_I],
         "ls_gram2_attrs": [_I, _P],

@@ -18,16 +18,21 @@ grid2d_cg_step2        two CG iterations + next Gram       step2_plain
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches its kernel (built from the repo's sources at first use, see
 ``build.py``) or raises; it never falls back.  Every CUDA launch adds one
-to :data:`LAUNCHES` under the pass's name.  With a reach-1 stencil every
-pass runs the column-strip register march (``csrc/march2d.cuh``), its dots
-folded into its last block (one launch); K3 and K4 with a reach of 2..8
-run tile kernels and a second launch that sums their dots.
+to :data:`LAUNCHES` under the pass's name.  :func:`route` picks the
+kernel: with a reach-1 stencil every pass runs the column-strip register
+march (``csrc/march2d.cuh``), its dots folded into its last block (one
+launch); with the flat decomposition of a reach-1 1-D stencil (the 1-D
+kernel view, :func:`decompose_flat_offsets`) the same march runs the 1-D
+stencil with its WRAP flag, every element addressed by its flat index;
+K3 and K4 with any other stencil (|dy| <= 8, |dx| < C) run tile kernels,
+whose terms with |dx| > 8 read device memory beside the tile, and a
+second launch that sums their dots.
 
 Semantics follow the JAX kernels.  ``x`` is the grid ``[R, C]`` (f32);
-stencil offsets are ``(dy, dx)`` pairs.  Columns outside ``[0, C)`` read as
-zero.  Rows outside ``[0, R)`` come from the optional ``[8, C]`` halo blocks
-of the one-pass modes (real rows last in the top block, first in the
-bottom block; ``None`` means zeros).  ``gram2``/``step2`` are zero-halo
+stencil offsets are ``(dy, dx)`` pairs, |dy| <= 8 and |dx| < C.  Columns
+outside ``[0, C)`` read as zero.  Rows outside ``[0, R)`` come from the
+optional ``[8, C]`` halo blocks of the one-pass modes (real rows last in
+the top block, first in the bottom block; ``None`` means zeros).  ``gram2``/``step2`` are zero-halo
 Dirichlet passes whose chained stencil applications are the true matrix
 powers.  Buffers differ from the JAX aliasing contract: ``update`` writes
 x and r in place, ``step2`` writes x in place, and the new r/p of
@@ -51,7 +56,7 @@ GRAM_NAMES = ("rr", "pAp", "rAp", "ApAp", "rAr",
 TILE = 32          # output tile edge of K3, K4 at reach >= 2 (csrc: LS_TILE)
 MAX_TERMS = 32     # stencil terms a kernel accepts (csrc: LS_MAX_TERMS)
 HALO_ROWS = 8      # rows in a halo block
-STENCIL_REACH = 8  # K3/K4 gate: |dy|, |dx| <= 8
+STENCIL_REACH = 8  # 3-D gate: |oy|, |oz| <= 8; tile halo of K3/K4/K5
 STEP2_REACH = 1    # K1/K2 gate, and the strip route of K3, K4 and K5b
 STEP2_COLS = 120   # strip passes: output columns of a warp's strip
 STEP2_MIN_ROWS = 16  # strip passes: shortest row chunk
@@ -86,17 +91,78 @@ def _reach(offsets) -> int:
     return max(max(abs(dy), abs(dx)) for dy, dx in offsets)
 
 
+def row_reach(offsets) -> int:
+    return max(abs(dy) for dy, _ in offsets)
+
+
+def col_reach(offsets) -> int:
+    return max(abs(dx) for _, dx in offsets)
+
+
 def supports(R: int, C: int, offsets) -> bool:
-    """Whether the one-pass kernels (K3, K4) take this geometry."""
+    """Whether the one-pass kernels (K3, K4, and K5 through
+    ``bicgstab_supported``) take this geometry: |dy| <= 8 (the halo
+    blocks' rows) and any |dx| < C, as the JAX gate; terms with |dx| > 8
+    read device memory beside the tile (:func:`route`)."""
     return (R >= 1 and C >= 1 and 1 <= len(offsets) <= MAX_TERMS
-            and _reach(offsets) <= STENCIL_REACH)
+            and row_reach(offsets) <= HALO_ROWS and col_reach(offsets) < C)
 
 
-def step2_supported(R: int, C: int, offsets) -> bool:
-    """Whether the s-step kernels (K1, K2) take this geometry: reach 1, so
-    that four chained applications fit the tile's 4-element halo."""
-    return (R >= 1 and C >= 1 and 1 <= len(offsets) <= MAX_TERMS
-            and _reach(offsets) <= STEP2_REACH)
+def step2_supported(R: int, C: int, offsets, values=None) -> bool:
+    """Whether the s-step kernels (K1, K2) take this geometry: a reach-1
+    stencil, so that four chained applications fit the strip's 4-column
+    halo, or the flat decomposition of a reach-1 1-D stencil
+    (:func:`flat_stencil`, which needs ``values``), whose chained
+    applications stay reach 1 over the flat index.  JAX also takes other
+    stencils with |dy| <= 1 and 1 < |dx| < C (ROADMAP queue 2, "B
+    (general)")."""
+    if not (R >= 1 and C >= 1 and 1 <= len(offsets) <= MAX_TERMS):
+        return False
+    return (_reach(offsets) <= STEP2_REACH
+            or (values is not None
+                and flat_stencil(offsets, values, C) is not None))
+
+
+_FLAT = {}
+
+
+def flat_stencil(offsets, values, C: int):
+    """The reach-1 1-D stencil ``((0, s), ...)`` with values, s in {-1, 0,
+    1} in its own order, whose :func:`decompose_flat_offsets` over ``C``
+    columns is exactly (``offsets``, ``values``) and has a term of |dx| >
+    1; None otherwise.  Applied with the strip kernels' WRAP flag (a
+    column outside [0, C) reads the flat neighbour) it computes the same
+    sums: the decomposition's other terms are masked to +0.0."""
+    key = (tuple(map(tuple, offsets)), tuple(values), C)
+    if key not in _FLAT:
+        flat, fvals, k = [], [], 0
+        while k < len(offsets):
+            (dy, dx), v = offsets[k], float(values[k])
+            flat.append(dy * C + dx)
+            fvals.append(v)
+            # a shift off the row's grid is the pair (q, r), (q + 1, r - C)
+            k += 1 if dx == 0 else 2
+        found = None
+        if (_reach(offsets) > STEP2_REACH and all(abs(f) <= 1 for f in flat)
+                and decompose_flat_offsets(flat, fvals, C)
+                == (key[0], tuple(map(float, values)))):
+            found = (tuple((0, f) for f in flat), tuple(fvals))
+        _FLAT[key] = found
+    return _FLAT[key]
+
+
+def route(offsets, values, C: int):
+    """(kernel route, offsets, values, wrap) of a 2-D pass: ``strip`` for a
+    reach-1 stencil (the column-strip march), ``flat`` for the flat
+    decomposition of a reach-1 1-D stencil (the strip march with WRAP, on
+    the 1-D stencil), ``tile`` otherwise (the 32 x 32 tile kernels, terms
+    with |dx| > 8 read from device memory beside the tile)."""
+    if _reach(offsets) <= STEP2_REACH:
+        return "strip", offsets, values, 0
+    flat = flat_stencil(offsets, values, C)
+    if flat is not None:
+        return ("flat", *flat, 1)
+    return "tile", offsets, values, 0
 
 
 def decompose_flat_offsets(flat_offsets, values, C: int):
@@ -124,18 +190,18 @@ def decompose_flat_offsets(flat_offsets, values, C: int):
 # ===========================================================================
 
 def apply_plain(v, offsets, values, halo_top=None, halo_bot=None):
-    """A v for the stencil: zero columns outside the grid, rows outside
-    from the halo blocks (zeros when ``None``).  Terms are summed in
-    offset order, as the kernels do."""
+    """A v for the stencil (|dy| <= 8, any |dx| < C): zero columns outside
+    the grid, rows outside from the halo blocks (zeros when ``None``).
+    Terms are summed in offset order, as the kernels do."""
     R, C = v.shape
-    P = HALO_ROWS
+    P, Q = HALO_ROWS, col_reach(offsets)
     z = v.new_zeros(P, C)
     ext = torch.cat([z if halo_top is None else halo_top, v,
                      z if halo_bot is None else halo_bot])
-    ext = F.pad(ext, (P, P))
+    ext = F.pad(ext, (Q, Q))
     acc = None
     for (dy, dx), w in zip(offsets, values):
-        term = w * ext[P + dy: P + dy + R, P + dx: P + dx + C]
+        term = w * ext[P + dy: P + dy + R, Q + dx: Q + dx + C]
         acc = term if acc is None else acc + term
     return acc
 
@@ -402,11 +468,12 @@ def _step2_scratch(device, R: int, C: int):
     return scratch
 
 
-def _one_pass_scratch(device, R: int, C: int, offsets):
-    """(partials, capacity, counter) of a K3 or K4 launch: the strip
-    scratch for a reach-1 stencil; one float per tile, for the second
-    launch that sums the tile kernel's dot, otherwise."""
-    if _reach(offsets) <= STEP2_REACH:
+def _one_pass_scratch(device, R: int, C: int, kind: str):
+    """(partials, capacity, counter) of a K3 or K4 launch on the route
+    ``kind`` (:func:`route`): the strip scratch for the strip march; one
+    float per tile, for the second launch that sums the tile kernel's dot,
+    otherwise."""
+    if kind != "tile":
         return _step2_scratch(device, R, C)
     return (torch.empty(_blocks(R, C), dtype=torch.float32, device=device),
             0, None)
@@ -472,12 +539,13 @@ def _stencil_call(x, halo_top, halo_bot, extra=(), *, offsets, values,
         xv, rv, alpha = extra
         alpha = _dev_scalars(alpha, 1, dev)
     dot = torch.empty(1, dtype=torch.float32, device=dev)
-    partials, capacity, counter = _one_pass_scratch(dev, R, C, offsets)
-    st = _stencil_struct(offsets, values)
+    kind, k_offs, k_vals, wrap = route(offsets, values, C)
+    partials, capacity, counter = _one_pass_scratch(dev, R, C, kind)
+    st = _stencil_struct(k_offs, k_vals)
     _launch(mode, "ls_stencil2d", (
         _MODES[mode], _ptr(x), _ptr(halo_top), _ptr(halo_bot), _ptr(y),
         _ptr(xv), _ptr(rv), _ptr(alpha), _ptr(dot), _ptr(partials),
-        capacity, _ptr(counter), R, C, ctypes.byref(st),
+        capacity, _ptr(counter), R, C, ctypes.byref(st), wrap,
     ), dev)
     if mode == "y":
         return (y,)
@@ -538,12 +606,13 @@ def grid2d_cg_xpay_pq(r, p_old, beta, r_top=None, r_bot=None, p_top=None,
     p = torch.empty_like(r) if out is None else out
     b = _dev_scalars(beta, 1, dev)
     dot = torch.empty(1, dtype=torch.float32, device=dev)
-    partials, capacity, counter = _one_pass_scratch(dev, R, C, offsets)
-    st = _stencil_struct(offsets, values)
+    kind, k_offs, k_vals, wrap = route(offsets, values, C)
+    partials, capacity, counter = _one_pass_scratch(dev, R, C, kind)
+    st = _stencil_struct(k_offs, k_vals)
     _launch("xpay_pq", "ls_xpay_pq", (
         _ptr(r), _ptr(p_old), _ptr(b), _ptr(r_top), _ptr(r_bot),
         _ptr(p_top), _ptr(p_bot), _ptr(p), _ptr(dot), _ptr(partials),
-        capacity, _ptr(counter), R, C, ctypes.byref(st),
+        capacity, _ptr(counter), R, C, ctypes.byref(st), wrap,
     ), dev)
     return p, dot[0]
 
@@ -556,8 +625,9 @@ def grid2d_cg_gram2(r, p, *, offsets, values):
     """Gram vector (ordered :data:`GRAM_NAMES`) of (r, p): the s-step
     bootstrap and drift-refresh pass."""
     R, C = r.shape
-    if not step2_supported(R, C, offsets):
-        raise ValueError("s-step kernels require stencil reach <= 1")
+    if not step2_supported(R, C, offsets, values):
+        raise ValueError("s-step kernels require a reach-1 stencil or the "
+                         "flat decomposition of one")
     _check_grid("r", r)
     _check_grid("p", p, (R, C))
     if not _on_cuda(r, p):
@@ -566,9 +636,10 @@ def grid2d_cg_gram2(r, p, *, offsets, values):
     # g is fresh per pass, as step2's
     g = torch.empty(10, dtype=torch.float32, device=dev)
     partials, capacity, counter = _step2_scratch(dev, R, C)
+    _, k_offs, k_vals, wrap = route(offsets, values, C)
     _launch("gram2", "ls_gram2", (
         _ptr(r), _ptr(p), _ptr(g), _ptr(partials), capacity, _ptr(counter),
-        R, C, ctypes.byref(_stencil_struct(offsets, values)),
+        R, C, ctypes.byref(_stencil_struct(k_offs, k_vals)), wrap,
     ), dev)
     return g
 
@@ -580,8 +651,9 @@ def grid2d_cg_step2(x, r, p, coef, *, offsets, values,
     x is updated in place; r'' and p'' go to ``out`` (fresh buffers when
     ``None``), which may not share storage with x, r or p."""
     R, C = r.shape
-    if not step2_supported(R, C, offsets):
-        raise ValueError("s-step kernels require stencil reach <= 1")
+    if not step2_supported(R, C, offsets, values):
+        raise ValueError("s-step kernels require a reach-1 stencil or the "
+                         "flat decomposition of one")
     _check_grid("x", x, (R, C))
     _check_grid("r", r)
     _check_grid("p", p, (R, C))
@@ -600,9 +672,10 @@ def grid2d_cg_step2(x, r, p, coef, *, offsets, values,
     # history holds g[0])
     g = torch.empty(10, dtype=torch.float32, device=dev)
     partials, capacity, counter = _step2_scratch(dev, R, C)
+    _, k_offs, k_vals, wrap = route(offsets, values, C)
     _launch("step2", "ls_step2", (
         _ptr(x), _ptr(r), _ptr(p), _ptr(c), _ptr(out[0]), _ptr(out[1]),
         _ptr(g), _ptr(partials), capacity, _ptr(counter), R, C,
-        ctypes.byref(_stencil_struct(offsets, values)),
+        ctypes.byref(_stencil_struct(k_offs, k_vals)), wrap,
     ), dev)
     return x, out[0], out[1], g

@@ -50,12 +50,13 @@ def _apply(v: torch.Tensor, offs, vals) -> torch.Tensor:
     """One stencil application on ``[..., E, C]`` slabs: out[r, c] = sum_k
     vals[k] * v[r + dy_k, c + dx_k], zero outside the slab's rows and
     outside [0, C), terms summed in offset order."""
-    reach = max(max(abs(dy), abs(dx)) for dy, dx in offs)
+    ry = max(abs(dy) for dy, _ in offs)
+    rx = max(abs(dx) for _, dx in offs)  # up to C - 1 on the 1-D view
     E, C = v.shape[-2:]
-    ext = F.pad(v, (reach, reach, reach, reach))
+    ext = F.pad(v, (rx, rx, ry, ry))
     acc = None
     for (dy, dx), w in zip(offs, vals):
-        sh = ext[..., reach + dy: reach + dy + E, reach + dx: reach + dx + C]
+        sh = ext[..., ry + dy: ry + dy + E, rx + dx: rx + dx + C]
         if acc is None:
             acc = sh if w == 1.0 else (-sh if w == -1.0 else w * sh)
         elif w == 1.0:

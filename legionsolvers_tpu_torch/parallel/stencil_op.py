@@ -6,9 +6,13 @@ when the operator is built:
 
 * **kernel view** (``_view``, f32, unpadded blocks): 2-D grids (kind
   ``2d``, each piece an ``[Br, C]`` row block; kernels of
-  ``ops/cuda/stencil2d.py`` and ``bicgstab2d.py``) and 3-D grids (kind
-  ``3d``, each piece an ``[Br, Y, Z]`` block of whole x-planes; kernels
-  of ``ops/cuda/stencil3d.py`` and ``bicgstab3d.py``).  Every pass is a
+  ``ops/cuda/stencil2d.py`` and ``bicgstab2d.py``), 1-D grids viewed as
+  ``[n // C, C]`` (kind ``2d`` with ``flat``: the 1-D shifts rewritten as
+  (dy, dx) terms by ``decompose_flat_offsets``, whose row-wrap terms have
+  |dx| = C - 1; the kernels run them as the 1-D stencil over the flat
+  index, ``stencil2d.route``) and 3-D grids (kind ``3d``, each piece an
+  ``[Br, Y, Z]`` block of whole x-planes; kernels of
+  ``ops/cuda/stencil3d.py`` and ``bicgstab3d.py``).  Every pass is a
   hand-written CUDA kernel (its plain PyTorch version on CPU tensors).
   The names ``_plan_pallas_view``/``_pallas_local``/``uses_pallas`` are
   kept from the JAX package for parity.
@@ -39,8 +43,6 @@ reads its band from the neighbouring pieces.  A sharded operator runs
 these paths or raises; it never falls back to one piece.  The fused 3-D
 BiCGStab runner is one piece only, as in the JAX package: on 3-D pieces
 BiCGStab runs ``step()`` over the sharded matvec.
-
-Not ported yet: the 1-D flat-offset view (ROADMAP §1 item 3).
 """
 
 from __future__ import annotations
@@ -137,12 +139,17 @@ class StencilOperator:
     # ======================================================================
     def _plan_pallas_view(self):
         """The grid view the kernels run on, or None.  Requires unpadded
-        blocks that are whole rows of the grid (2-D: ``[Br, C]``; 3-D:
-        whole x-planes), f32 and a stencil within the kernels' gate: K3/K4
-        for 2-D grids, K6 for 3-D ones.  On several pieces each piece's
-        halo rows must come from one neighbour (``Br`` >= the stencil's
-        row reach)."""
-        from ..ops.cuda.stencil2d import supports
+        blocks that are whole rows of the grid (2-D: ``[Br, C]``; 1-D: the
+        first C of 4096, 2048, ..., 128 that divides the block into at
+        least 8 rows, as in the JAX package; 3-D: whole x-planes), f32 and
+        a stencil within the kernels' gate: K3/K4 for 2-D grids and 1-D
+        views, K6 for 3-D ones.  On several pieces each piece's halo rows
+        must come from one neighbour (``Br`` >= the stencil's row reach).
+        JAX's TPU gates (C % 128, row tiles that fit VMEM) are not
+        Hopper's, so the port also views some 2-D grids, and 1-D blocks
+        whose row count is not a multiple of 8, that JAX runs
+        linearized."""
+        from ..ops.cuda.stencil2d import decompose_flat_offsets
         from ..ops.cuda.stencil3d import supports3d
 
         if self.partition.padded_size != self.n:
@@ -155,14 +162,16 @@ class StencilOperator:
             C = self.shape[1]
             if B % C:
                 return None
-            Br = B // C
             offs = tuple((o[0], o[1]) for o, _ in self.offsets)
-            reach = max(abs(dy) for dy, _ in offs)
-            if self.partition.num_pieces > 1 and Br < reach:
-                return None
-            if supports(Br, C, offs):
-                return {"kind": "2d", "C": C, "Br": Br, "offs": offs,
-                        "vals": vals}
+            return self._view2d(B // C, C, offs, vals)
+        elif len(self.shape) == 1:
+            for C in (4096, 2048, 1024, 512, 256, 128):
+                if B % C == 0 and B // C >= 8:
+                    offs, dvals = decompose_flat_offsets(self.lin_offsets,
+                                                         vals, C)
+                    view = self._view2d(B // C, C, offs, dvals)
+                    if view is not None:
+                        return dict(view, flat=True)
         elif len(self.shape) == 3:
             _, Y, Z = self.shape
             if B % (Y * Z):
@@ -171,7 +180,21 @@ class StencilOperator:
             if supports3d(B // (Y * Z), Y, Z, offs3):
                 return {"kind": "3d", "Y": Y, "Z": Z, "Br": B // (Y * Z),
                         "offs3": offs3, "vals": vals}
-        return None  # the 1-D flat view is not ported
+        return None
+
+    def _view2d(self, Br, C, offs, vals):
+        """The ``2d`` view of ``[Br, C]`` pieces, or None outside the
+        kernels' gate or where a piece's halo rows would come from more
+        than one neighbour."""
+        from ..ops.cuda.stencil2d import supports
+
+        reach = max(abs(dy) for dy, _ in offs)
+        if self.partition.num_pieces > 1 and Br < reach:
+            return None
+        if supports(Br, C, offs):
+            return {"kind": "2d", "C": C, "Br": Br, "offs": offs,
+                    "vals": vals, "flat": False}
+        return None
 
     def _kw(self):
         v = self._view
@@ -603,12 +626,14 @@ class StencilOperator:
     @property
     def step2_eligible(self) -> bool:
         """Whether the s-step schedule (two iterations per K1 pass) applies:
-        2-D kernel view, stencil reach 1, not disabled by
-        LEGIONSOLVERS_NO_SSTEP.  Pieces qualify on a mesh with blocks of at
-        least 2 * STRIP rows, so that the two edge strips of a piece do not
-        overlap; the passes stay zero-halo and ``parallel/sstep_sharded.py``
-        repairs their edges.  (The JAX package's condition on the lane
-        offsets of flat 1-D views holds here: reach 1 has |dx| <= 1.)"""
+        2-D kernel view within K1's gate (``stencil2d.step2_supported``: a
+        reach-1 stencil, or the 1-D view of a reach-1 1-D stencil), not
+        disabled by LEGIONSOLVERS_NO_SSTEP.  Pieces qualify on a mesh with
+        blocks of at least 2 * STRIP rows, so that the two edge strips of a
+        piece do not overlap; the passes stay zero-halo and
+        ``parallel/sstep_sharded.py`` repairs their edges.  A 1-D view on
+        pieces does not qualify: as in the JAX package, whose edge fix-ups
+        do not model the row-wrap terms, it runs the two-pass schedule."""
         from ..ops.cuda.stencil2d import step2_supported
         from .sstep_sharded import STRIP
 
@@ -618,9 +643,9 @@ class StencilOperator:
         if v is None or v["kind"] == "3d":
             return False
         if self.partition.num_pieces > 1:
-            if self.mesh is None or v["Br"] < 2 * STRIP:
+            if self.mesh is None or v["Br"] < 2 * STRIP or v["flat"]:
                 return False
-        return step2_supported(v["Br"], v["C"], v["offs"])
+        return step2_supported(v["Br"], v["C"], v["offs"], v["vals"])
 
     def _make_step2_cg_runner(self, num_iterations: int):
         """s-step fused CG: one K1 pass per TWO iterations, both

@@ -94,10 +94,12 @@ def measure_stream_bandwidth(n: int = 1 << 26, dtype=torch.float32,
     return 3 * x.element_size() * n / per_iter
 
 
-def measure_step2_compute_ceiling(offsets, values, device=None):
+def measure_step2_compute_ceiling(offsets, values, C=4096, device=None):
     """The s-step pass's compute ceiling, measured: the same kernel (K1,
-    ``grid2d_cg_step2``) on a 256 x 4096 problem whose three 4 MB vectors
-    stay in the card's 50 MB L2, so device memory is out of the loop.
+    ``grid2d_cg_step2``) on a 2^20 / C x C problem (256 x 4096 by default;
+    ``C`` the view's width, which a 1-D view's offsets depend on) whose
+    three 4 MB vectors stay in the card's 50 MB L2, so device memory is
+    out of the loop.
 
     Returns (seconds per element per pass, apparent bytes/s at the pass's
     24 B/elt, K1 passes launched).  Callers treat the ceiling as
@@ -106,7 +108,7 @@ def measure_step2_compute_ceiling(offsets, values, device=None):
     from ..ops.cuda.stencil2d import grid2d_cg_step2
 
     device = resolve_device(device)
-    R, C = 256, 4096
+    R = (1 << 20) // C
     g = torch.Generator(device).manual_seed(0)
     x, r, p = (torch.randn(R, C, generator=g, dtype=torch.float32,
                            device=device) for _ in range(3))

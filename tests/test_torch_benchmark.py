@@ -102,12 +102,25 @@ def test_f32_schedules_match_jax(dim, solver):
 
 
 def test_dim1_runs_the_linearized_path(capsys):
-    """-dim 1 in f32: the JAX package's 1-D kernel view is not ported, so
-    the port runs the torch recompute runner and says so."""
-    out = TB.main(["-dim", "1", "-nx", "256", "-it", "10", "--device",
-                   "cpu"])
-    assert out["schedule"] == "fused_jnp"
-    assert "ROADMAP item 3" in capsys.readouterr().err
+    """-dim 1 in f32 at -nx 256, too short for the 1-D kernel view (256 //
+    128 < 8 rows): both CLIs run the torch recompute runner, and the port
+    no longer prints a note that the view is not ported."""
+    argv = ["-dim", "1", "-nx", "256", "-it", "10"]
+    out = TB.main(argv + ["--device", "cpu"])
+    assert out["schedule"] == "fused_jnp" == JB.main(argv)["schedule"]
+    assert "ROADMAP item 3" not in capsys.readouterr().err
+
+
+def test_dim1_runs_the_kernel_view():
+    """-dim 1 in f32 at -nx 8192: both CLIs view the grid as [8, 1024] and
+    report the s-step schedule with the same bytes and a residual^2 within
+    test_14's rtol 1e-4."""
+    argv = ["-dim", "1", "-nx", "8192", "-it", "10"]
+    ours, ref = TB.main(argv + ["--device", "cpu"]), JB.main(argv)
+    assert ours["schedule"] == ref["schedule"] == "fused2d_x2"
+    assert ours["bytes_per_unknown"] == ref["bytes_per_unknown"]
+    np.testing.assert_allclose(ours["final_residual2"],
+                               ref["final_residual2"], rtol=1e-4)
 
 
 @pytest.mark.parametrize("flags", [["--consume-rhs"],

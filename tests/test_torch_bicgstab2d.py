@@ -197,8 +197,9 @@ def test_launch_counts_stay_zero_on_cpu():
     (4096, 100, OFFS, True),       # JAX refuses: C % 128 != 0
     (33, 7, OFFS, True),           # JAX refuses: R not a multiple of 8
     (64, 128, OFFS + ((9, 0),), False),
-    (64, 128, OFFS + ((0, -9),), False),
+    (64, 128, OFFS + ((0, -128),), False),  # |dx| = C
     (64, 128, tuple((0, k - 16) for k in range(33)), False),
+    (64, 128, OFFS + ((0, -9),), True),     # any |dx| < C, as JAX
 ])
 def test_bicgstab_supported(R, C, offs, want):
     assert TB.bicgstab_supported(R, C, offs) is want

@@ -776,8 +776,14 @@ def test_k3_k4_edges_match_plain_on_card(mode, shape, stencil, halos,
     3 bounds (elementwise 1e-5 * max|ref|, the dot 1e-4 of its
     Cauchy-Schwarz scale), one launch each, and a repeat bit for bit."""
     offs, vals = STENCILS2[stencil]
+    _check_one_pass(mode, _one_pass_state(shape, halos, cuda_device), offs,
+                    vals, cuda_device)
+
+
+def _check_one_pass(mode, d, offs, vals, device):
+    """K3 ``mode`` or K4 twice and its plain version on copies of ``d``:
+    one launch each, a repeat bit for bit, and phase 3's bounds."""
     kw = dict(offsets=offs, values=vals)
-    d = _one_pass_state(shape, halos, cuda_device)
     T.reset_launch_counts()
     runs = []
     for plain in (False, False, True):
@@ -802,7 +808,7 @@ def test_k3_k4_edges_match_plain_on_card(mode, shape, stencil, halos,
                         (d["rt"], d["rb"]))
             if mode == "xpay_pq" and top is not None:
                 top, bot = (top + 0.2 * d["pt"], bot + 0.2 * d["pb"])
-            scale = nrm(a) * nrm(T.apply_plain(a.float().to(cuda_device),
+            scale = nrm(a) * nrm(T.apply_plain(a.float().to(device),
                                                offs, vals, top, bot))
         assert err <= 1e-4 * scale, (key, err, scale)
 
@@ -1524,3 +1530,130 @@ def test_k9_on_piece_ext2_plans_on_card(dtype, cuda_device):
     y = op.matvec(x)
     assert dict(T.LAUNCHES) == {"winell": S}
     assert torch.equal(y.cpu(), ops["cpu"].matvec(x.cpu()))
+
+
+# ---------------------------------------------------------------------------
+# The 1-D kernel view (the strip march with WRAP on the 1-D stencil) and
+# the tile kernels' wide column shifts, against the plain versions on the
+# decomposed offsets: widths C = 128 and 1000 (scalar loads), ragged rows,
+# C = 4096 with rows past one chunk
+# ---------------------------------------------------------------------------
+
+FLAT_SHAPES = [(8, 128), (37, 1000), (203, 4096), (3, 1000)]
+
+
+def _flat1d(C):
+    return T.decompose_flat_offsets((0, -1, 1), (2.0, -1.0, -1.0), C)
+
+
+def _wide2d(C):
+    """Column shifts past the tile's 8: (0, +-37), (1, -(C - 1)) and a
+    term 8 rows up (from the top halo block) at column shift 100."""
+    return ((KW["offsets"] + ((0, 37), (0, -37), (1, -(C - 1)), (-8, 100))),
+            KW["values"] + (-0.25, -0.25, -0.5, -0.125))
+
+
+WIDE = {"flat": _flat1d, "wide": _wide2d}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halos", ["null", "random"])
+@pytest.mark.parametrize("stencil", list(WIDE))
+@pytest.mark.parametrize("shape", FLAT_SHAPES)
+@pytest.mark.parametrize("mode", ONE_PASS)
+def test_k3_k4_wide_match_plain_on_card(mode, shape, stencil, halos,
+                                        cuda_device):
+    """K3 (four modes) and K4 on the flat route and with wide terms on the
+    tile kernels, with null and random halo blocks (rows past the grid
+    and, on the flat route, the flat elements before and after it):
+    phase 3's bounds, one launch, a repeat bit for bit."""
+    offs, vals = WIDE[stencil](shape[1])
+    assert T.route(offs, vals, shape[1])[0] == ("flat" if stencil == "flat"
+                                                else "tile")
+    _check_one_pass(mode, _one_pass_state(shape, halos, cuda_device), offs,
+                    vals, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLAT_SHAPES)
+def test_k1_k2_flat_match_plain_on_card(shape, cuda_device):
+    """K1 and K2 on the flat route against step2_plain and gram2_plain on
+    the decomposed offsets (phase 3's bounds), repeats bit for bit."""
+    offs, vals = _flat1d(shape[1])
+    rng = np.random.default_rng(29)
+    d = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(cuda_device) for k in ("x", "r", "p")}
+    kw = dict(offsets=offs, values=vals)
+    coef = T.cg2_coeffs(T.gram2_plain(d["r"], d["p"], **kw))[0]
+    T.reset_launch_counts()
+    runs = []
+    for fn in (T.grid2d_cg_step2, T.grid2d_cg_step2, T.step2_plain):
+        c = {k: v.clone() for k, v in d.items()}
+        runs.append([t.cpu() for t in fn(c["x"], c["r"], c["p"], coef,
+                                         **kw)])
+    g1, g2, gref = (fn(d["r"], d["p"], **kw).double().cpu() for fn in (
+        T.grid2d_cg_gram2, T.grid2d_cg_gram2, T.gram2_plain))
+    assert dict(T.LAUNCHES) == {"step2": 2, "gram2": 2}
+    k1, k2, ref = runs
+    assert all(torch.equal(a, b) for a, b in zip(k1, k2))
+    assert torch.equal(g1, g2)
+    for have, want in zip(k1[:3], ref[:3]):
+        np.testing.assert_allclose(have.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+    bound = gram_bounds(ref[1].numpy(), ref[2].numpy(), offs, vals)
+    np.testing.assert_array_less(
+        np.abs(k1[3].double().numpy() - ref[3].double().numpy()),
+        1e-4 * bound)
+    bound = gram_bounds(d["r"].cpu().numpy(), d["p"].cpu().numpy(), offs,
+                        vals)
+    np.testing.assert_array_less(np.abs((g1 - gref).numpy()), 1e-4 * bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("stencil", list(WIDE))
+@pytest.mark.parametrize("shape", FLAT_SHAPES)
+@pytest.mark.parametrize("kernel", ["pv", "st", "update"])
+def test_k5_wide_match_plain_on_card(kernel, shape, stencil, compensated,
+                                     cuda_device):
+    """K5a-c on the 1-D view (K5b on the flat route, K5a and K5c on the
+    tile kernels' wide terms) and with wide 2-D terms, against their plain
+    versions: elementwise 1e-5 * max|ref|, dots 1e-4 of their
+    Cauchy-Schwarz scale, one launch, a repeat bit for bit."""
+    offs, vals = WIDE[stencil](shape[1])
+    rng = np.random.default_rng(9)
+    d = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(cuda_device)
+         for k in ("x", "r", "p", "v", "rt")}
+    kw = dict(offsets=offs, values=vals, compensated=compensated)
+
+    def run(fn):
+        c = {k: v.clone() for k, v in d.items()}
+        if kernel == "pv":
+            return fn(c["r"], c["p"], c["v"], c["rt"], 0.37, 0.41, **kw)
+        if kernel == "st":
+            return fn(c["r"], c["v"], 0.83, **kw)
+        return fn(c["r"], c["v"], c["x"], c["p"], c["rt"], 0.83, 0.41, **kw)
+
+    T.reset_launch_counts()
+    k1, k2 = (run(getattr(TB, f"bicg_{kernel}")) for _ in range(2))
+    ref = run(getattr(TB, f"bicg_{kernel}_plain"))
+    assert dict(T.LAUNCHES) == {f"bicg_{kernel}": 2}
+    nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
+    for a, b, want in zip(k1, k2, ref):
+        assert torch.equal(a, b)
+        err = (a.double() - want.double()).abs().max().item()
+        if want.dim():
+            assert err <= 1e-5 * want.abs().max().item(), err
+    # the dots against the Cauchy-Schwarz scales of their operands
+    s = d["r"] - 0.83 * d["v"]
+    t = T.apply_plain(s, offs, vals)
+    if kernel == "pv":
+        scales = [nrm(d["rt"]) * nrm(ref[1])]
+    elif kernel == "st":
+        scales = [nrm(t) * nrm(s), nrm(t) ** 2]
+    else:
+        scales = [nrm(ref[1]) ** 2, nrm(d["rt"]) * nrm(ref[1])]
+    dots = [(a, b) for a, b in zip(k1, ref) if not b.dim()]
+    for (a, want), scale in zip(dots, scales):
+        assert abs(a.item() - want.item()) <= 1e-4 * scale

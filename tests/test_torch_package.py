@@ -319,15 +319,16 @@ def test_csr_to_ell_matches_jax():
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("shape", [(6, 10), (60,), (4, 6, 10)])
+@pytest.mark.parametrize("shape", [(6, 10), (60,), (4, 6, 10), (1024,)])
 def test_stencil_rmatvec_is_the_transpose(shape):
     """A non-symmetric stencil: rmatvec == dense A^T x, on the kernel view
-    (2-D and 3-D, f32) and on the linearized path (1-D)."""
+    (2-D and 3-D, f32, and the 1-D view of n = 1024 as [8, 128]) and on
+    the linearized path (n = 60, too short for a view, as in JAX)."""
     stencil = [((0,) * len(shape), 3.0), ((1,) + (0,) * (len(shape) - 1),
                                           -2.0), ((0,) * (len(shape) - 1)
                                                   + (-1,), 0.5)]
     op = T.StencilOperator(shape, stencil, device=DEV)
-    assert op.uses_pallas == (len(shape) >= 2)
+    assert op.uses_pallas == (shape != (60,))
     A = T.create_coo_stencil_matrix(shape, stencil).to_dense()
     x = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
     xt = torch.from_numpy(x if len(shape) == 2 else x.reshape(-1))

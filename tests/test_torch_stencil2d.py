@@ -129,7 +129,16 @@ def test_gates():
     assert not T.step2_supported(64, 128, OFFS + ((2, 0),))
     assert T.supports(64, 128, OFFS + ((8, -8),))
     assert not T.supports(64, 128, OFFS + ((9, 0),))
-    assert not T.supports(64, 128, OFFS + ((0, -9),))
+    # any |dx| < C, as JAX's gate (terms past 8 read beside the tile)
+    assert T.supports(64, 128, OFFS + ((0, -9),))
+    assert T.supports(64, 128, OFFS + ((0, -127),))
+    assert not T.supports(64, 128, OFFS + ((0, -128),))
+    # K1/K2: reach 1, or the flat decomposition of a reach-1 1-D stencil
+    flat = T.decompose_flat_offsets((0, -1, 1), (2.0, -1.0, -1.0), 128)
+    assert T.step2_supported(64, 128, *flat)
+    assert not T.step2_supported(64, 128, flat[0])
+    assert not T.step2_supported(64, 128, OFFS + ((0, -9),),
+                                 VALS + (-0.5,))
 
 
 def test_ragged_shape_plain_matches_dense_oracle():
