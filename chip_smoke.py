@@ -24,7 +24,9 @@ else.  ``--blocks`` runs phases 4i and 5i (block systems) and nothing
 else, ``--pieces`` phases 4j and 5j (pieces on one card),
 ``--explicit-pieces`` phases 4k and 5k (explicit matrices on pieces; it
 builds the one-piece DIA and scrambled systems of 4e-f too, to compare),
-``--flat1d`` phases 4l and 5l (the 1-D kernel view at 2^24 unknowns).
+``--flat1d`` phases 4l and 5l (the 1-D kernel view at 2^24 unknowns),
+``--wide3d`` phases 4m and 5m (wide z shifts on the 3-D kernels at 256^3)
+and K1's nop mode (its check and its time).
 
 Phases (any failure raises, and the exit code is non-zero):
 
@@ -209,7 +211,9 @@ and the roofline probes):
    rate, 128 B per SM per clock at ``clocks.max.sm``, over 8 B per step),
    K11's three rates from the marginal time of its long and short chains, the triads, the measured K1 compute ceiling (resident
    only if its apparent rate is over 1.5x the stream's) and each CLI run's
-   ms/iter, Gnnz/s and binding roofline.  Every bound uses the faster of
+   ms/iter, Gnnz/s and binding roofline; K1's nop mode (step2's loads and
+   stores, a trivial body; no solve calls it) beside K1 step2 at 4096^2,
+   CUDA events and graphs: K1's memory floor with step2's access pattern.  Every bound uses the faster of
    ``copy_`` and K12.  ``--profile`` adds the idle share of each CLI run's
    solve.
 
@@ -296,6 +300,36 @@ grid as ``[n // C, C]`` and the kernels run its row-wrap terms, |dx| = C -
    beside its plain version, the tile kernels' wide terms at 4096^2, and
    each 4l solve's ms/iter, host enqueue and idle share (a torch.profiler
    trace).  ``--flat1d`` runs 4l and 5l alone.
+
+Wide z shifts on the 3-D kernels (kernel item C: S_wide, the 7-point
+cross with center 8.5 plus (0, 0, +-12), (0, +-3, +-100) and (+-1, 0,
++-128), whose terms past |oz| = 8 march3d reads beside its window), and
+K1's nop mode (item D):
+
+4m. K6a's four modes, K6b and K7 (compensated dots off and on) with S_wide
+   against their plain versions at 256^3 and at (37, 45, 130), (1, 5,
+   301), (20, 7, 129) (|oz| = Z - 1) and (17, 9, 256), random halo planes,
+   phase 3c's bounds, repeats bit for bit; K1 nop against its plain
+   version at 4096^2, 200 x 328, 33 x 4097 and 1 x 5 (x'', r'', p'' bit
+   for bit).  Then ``entry.build_stencil_system(3, (256,)*3,
+   stencil=S_wide)``: two-pass CG (K6a pq 1, update 200, K6b 199), the
+   fused BiCGStab with f32 and compensated dots (K7 200 each), PCG (K6a
+   y_dot 200) and GMRES(10) x 3 (K6a y 34) on one piece, CG (four times
+   one piece's) and BiCGStab step() (K6a y and y_dot 4 x 20) on 4 pieces,
+   each with its launches counted exactly, no plain version called, the
+   operator on the 3-D view and a repeat bit for bit; CG and PCG within
+   twice textbook f32 CG's (PCG's) distance from float64 CG over the
+   entries where it stays within 1e-3 (f32 CG on S_wide falls past f32's
+   accuracy within ~120 iterations), BiCGStab within FLAT_BICG_RTOL of
+   float64 BiCGStab where textbook f32 stays within a tenth of it, GMRES
+   non-increasing;
+5m. each wide-z pass at 256^3 with CUDA events and in CUDA graphs beside
+   its plain version, ``F.conv3d`` over S_wide's dense (3, 7, 257) box
+   computing K6a's y, and each 4m solve's ms/iter, host enqueue and idle
+   share.  ``--wide3d`` runs 4m, 5m and the nop timing alone.
+
+To make room for 4m and 5m, phase 5j's and 5k's idle traces cover about
+TRACE_OPS (2000) glue operations each, a third of what they did.
 
 The line before the last is one JSON object describing every kernel
 (``ms_lost``: launches x (ms - bound_ms) over the main path's launches,
@@ -1724,22 +1758,8 @@ def stencil_kw(lt, dim):
 
 
 def stencil_matvec(torch, lt, dim):
-    """y = A v for the -dim ``dim`` stencil by shifted slices of a
-    zero-padded copy of v: the references' own matvec, any dtype."""
-    import torch.nn.functional as F
-
-    terms = lt.laplacian_stencil(dim)
-
-    def A(v):
-        X, Y, Z = v.shape
-        e = F.pad(v, (1, 1, 1, 1, 1, 1))
-        out = torch.zeros_like(v)
-        for (ox, oy, oz), w in terms:
-            out += w * e[1 + ox: 1 + ox + X, 1 + oy: 1 + oy + Y,
-                         1 + oz: 1 + oz + Z]
-        return out
-
-    return A
+    """y = A v for the -dim ``dim`` stencil (:func:`terms_matvec`)."""
+    return terms_matvec(torch, lt.laplacian_stencil(dim))
 
 
 def inputs3d(torch, shape, seed, device):
@@ -4454,23 +4474,32 @@ def glue_host_us(times, wrappers):
 
 def profile_piece_solves(torch, solvers, times, card):
     """Phase 5j, the traces (after every timing: the tracer slows later
-    launches): each solve's idle share, 1 - profiler device time over the
-    unprofiled wall of :func:`time_piece_solves`, on pieces and on one
-    piece."""
+    launches): each solve's idle share, 1 - profiler device time per
+    iteration over the unprofiled wall's of :func:`time_piece_solves`, on
+    pieces and on one piece, each traced over about TRACE_OPS glue
+    operations (at least a tenth of the timed iterations; an even count
+    on the s-step schedule), as :func:`profile_piece_solvers` traces."""
     for name, (solver, single) in solvers.items():
         env = PIECE_RUNS[name][1]
         for label, slv in (("pieces", solver), ("one piece", single)):
             row = times[name][label]
+            per_iter = row["glue ops per pass"] / (2 if env is None else 1)
+            n = min(N_ITERS, max(1, N_ITERS // 10, round(
+                TRACE_OPS / max(per_iter, 1))))
+            if env is None:
+                n += n % 2
+            row["traced iterations"] = n
             with env_route(env, slv):
                 dev = profile_solve(
                     torch, slv, "pieces_" + name.replace(" ", "_").replace(
                         ",", "") + ("" if label == "pieces" else "_one"),
-                    card, row["ms/iter"] * N_ITERS)
-            row["device ms/iter"] = dev / N_ITERS
+                    card, row["ms/iter"] * n, n)
+            row["device ms/iter"] = dev / n
             row["idle"] = 1 - row["device ms/iter"] / row["ms/iter"]
         log(f"[time] {name}: idle " + "; ".join(
             f"{lab} {100 * r['idle']:.1f}% (device {r['device ms/iter']:.4f}"
-            f" ms/iter)" for lab, r in times[name].items()) + f" on {card}")
+            f" ms/iter over {r['traced iterations']} traced)"
+            for lab, r in times[name].items()) + f" on {card}")
     return times
 
 
@@ -4483,7 +4512,7 @@ PIECE3_LAUNCHES = {"pq3d": PIECES, "update3d": PIECES * N_ITERS,
                    "xpay_pq3d": PIECES * (N_ITERS - 1)}
 PIECE_BICG_LAUNCHES = {m: PIECES * N_ITERS for m in BICG_KERNELS}
 BICG3_STEP_ITERS = 50
-TRACE_OPS = 6000  # glue operations a 5j idle trace aims at
+TRACE_OPS = 2000  # glue operations a 5j or 5k idle trace aims at
 GMRES_CYCLES = 3
 GMRES_RESTART = 10
 PIECE_GMRES_RTOL = 2e-4   # tests/test_torch_sharded_solvers.py's bounds
@@ -6058,6 +6087,489 @@ def flat1d_rows(T, launches, grid_launches, errs, times, bw, conv1d_ms):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 4m: wide z shifts on march3d (kernel item C) and K1's nop mode
+# (item D); phase 5m: their times
+# ---------------------------------------------------------------------------
+
+# S_wide: the 7-point cross (center 8.5), (0, 0, +-12) just past the
+# window's 8, (0, +-3, +-100) wide in z and off-row in y, and (+-1, 0,
+# +-128), a neighbour plane at |oz| = 128 (JAX's PADZ); symmetric and
+# diagonally dominant (8.5 = 6 + 1 + 1 + 0.5)
+WIDE3 = (((0, 0, 0), 8.5), ((-1, 0, 0), -1.0), ((1, 0, 0), -1.0),
+         ((0, -1, 0), -1.0), ((0, 1, 0), -1.0), ((0, 0, -1), -1.0),
+         ((0, 0, 1), -1.0), ((0, 0, -12), -0.5), ((0, 0, 12), -0.5),
+         ((0, 3, 100), -0.25), ((0, -3, -100), -0.25),
+         ((0, 3, -100), -0.25), ((0, -3, 100), -0.25),
+         ((1, 0, 128), -0.25), ((-1, 0, -128), -0.25))
+WIDE3_KW = dict(offsets=tuple(o for o, _ in WIDE3),
+                values=tuple(v for _, v in WIDE3))
+# Z not a multiple of 128 (and Z % 4 != 0), X = 1 with Y < 8, |oz| = Z - 1
+# (Z = 129), a 16-plane chunk and one more
+WIDE3_EDGES = ((37, 45, 130), (1, 5, 301), (20, 7, 129), (17, 9, 256))
+WIDE3_PASSES = (*KERNELS3, *BICG3_KERNELS)
+WIDE3_PIECES = 4
+WIDE3_STEP_ITERS = 20  # BiCGStab step() on pieces
+# name -> (solver, pieces, compensated dots, solve length, launches);
+# GMRES(10) solves GMRES_CYCLES cycles (a residual and ten Arnoldi
+# matvecs each, and the residual of the last x)
+WIDE3_RUNS = {
+    "two-pass CG": ("cg", 1, False, N_ITERS, SOLVE3_LAUNCHES["cg"]),
+    "BiCGStab": ("bicg", 1, False, N_ITERS, SOLVE3_LAUNCHES["bicg"]),
+    "BiCGStab compensated": ("bicg", 1, True, N_ITERS,
+                             SOLVE3_LAUNCHES["bicg"]),
+    "PCG": ("pcg", 1, False, N_ITERS, {"y_dot3d": N_ITERS}),
+    "GMRES(10)": ("gmres", 1, False, GMRES_CYCLES,
+                  {"y3d": 11 * GMRES_CYCLES + 1}),
+    "CG 4 pieces": ("cg", WIDE3_PIECES, False, N_ITERS, {
+        m: WIDE3_PIECES * c for m, c in SOLVE3_LAUNCHES["cg"].items()}),
+    "BiCGStab step() 4 pieces": ("bicg", WIDE3_PIECES, False,
+                                 WIDE3_STEP_ITERS, {
+                                     "y3d": WIDE3_PIECES * WIDE3_STEP_ITERS,
+                                     "y_dot3d": WIDE3_PIECES
+                                     * WIDE3_STEP_ITERS}),
+}
+# f32 CG on S_wide reaches f32's floor within ~40 iterations (float64 CG
+# goes on falling, by 1e-70 at 200), so the CG solves are held to twice
+# textbook f32 CG's distance from float64 (floor CG3_F64_FLOOR, phase 4c's
+# rule) over the entries where textbook f32 stays within WIDE3_CG_WINDOW
+# of float64, and x over the whole solve; BiCGStab within FLAT_BICG_RTOL
+# over the entries where textbook f32 stays within a tenth of that
+WIDE3_CG_WINDOW = 1e-3
+NOP_SHAPES = ((N_GRID, N_GRID), RAGGED, (33, 4097), (1, 5))
+
+
+def terms_matvec(torch, terms):
+    """y = A v for the 3-D stencil ``terms`` by shifted slices of a copy
+    of v zero-padded by each axis' reach: the references' own matvec, any
+    dtype."""
+    import torch.nn.functional as F
+
+    h = [max(abs(o[a]) for o, _ in terms) for a in range(3)]
+
+    def A(v):
+        X, Y, Z = v.shape
+        e = F.pad(v, (h[2], h[2], h[1], h[1], h[0], h[0]))
+        out = torch.zeros_like(v)
+        for (ox, oy, oz), w in terms:
+            out += w * e[h[0] + ox: h[0] + ox + X, h[1] + oy: h[1] + oy + Y,
+                         h[2] + oz: h[2] + oz + Z]
+        return out
+
+    return A
+
+
+def textbook_pcg(torch, shape, iters, dtype, device, matvec, diag):
+    """Textbook PCG on ``matvec`` with the Jacobi preconditioner of the
+    constant diagonal ``diag`` (z = r times 1 / diag rounded to ``dtype``),
+    b = 1, x0 = 0, in ``dtype`` on ``device``: (history of <r, r>, x),
+    both float64."""
+    inv = torch.tensor(1.0 / diag, dtype=dtype, device=device)
+    b = torch.ones(shape, dtype=dtype, device=device)
+    x, r = b * 0, b * 1
+    z = r * inv
+    p, rz = z * 1, (r * z).sum()
+    hist = [(r * r).sum()]
+    for _ in range(iters):
+        q = matvec(p)
+        a = rz / (p * q).sum()
+        x += a * p
+        r -= a * q
+        z = r * inv
+        rz_new = (r * z).sum()
+        hist.append((r * r).sum())
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+    return torch.stack(hist).double(), x.double()
+
+
+def compare_wide3d_kernels(torch, T3, TB3, device):
+    """Phase 4m, the kernels: K6a's four modes, K6b and K7 pv, st and
+    update (compensated dots off and on) with S_wide against their plain
+    versions at 256^3 and WIDE3_EDGES, random halo planes: phase 3c's
+    bounds (elementwise 1e-5 * max|ref|, dots 1e-4 of their Cauchy-Schwarz
+    scale) and a repeat on the same inputs bit for bit.  Returns {pass:
+    max abs error} (K7: the larger of both dot modes)."""
+    nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
+    errs = {}
+    for shape in (SHAPE3, *WIDE3_EDGES):
+        if not T3.supports3d(*shape, WIDE3_KW["offsets"]):
+            raise AssertionError(f"S_wide off the kernels' gate at {shape}")
+        d = inputs3d(torch, shape, 61, device)
+        worst = 0.0
+        for name in WIDE3_PASSES:
+            for comp in ((False, True) if name in BICG3_KERNELS
+                         else (False,)):
+                outs = []
+                for plain in (False, False, True):
+                    c = {k: v.clone() for k, v in d.items()}
+                    res = call3d(T3, TB3, name, c, WIDE3_KW, plain, comp)()
+                    outs.append(dict(zip(NAMES3[name], res)))
+                got, again, ref = outs
+                torch.cuda.synchronize()
+                case = f"{name} {shape} compensated={comp}"
+                if not all(same_bits(got[k], again[k]) for k in got):
+                    raise AssertionError(f"{case}: a repeat is not "
+                                         "bit-identical")
+                ops = dot_operands3(T3, name, d, ref, WIDE3_KW)
+                for key, want in ref.items():
+                    err = (got[key].double() - want.double()).abs().max()
+                    if want.dim():
+                        ok = err.item() <= 1e-5 * want.abs().max().item()
+                    else:
+                        a, b = ops[key]
+                        ok = err.item() <= 1e-4 * nrm(a) * nrm(b)
+                    if not ok:
+                        raise AssertionError(
+                            f"{case} {key}: kernel disagrees with its plain "
+                            f"version (max abs err {err.item():g})")
+                    errs[name] = max(errs.get(name, 0.0), err.item())
+                    worst = max(worst, err.item())
+        log(f"[wide3d] {shape}: K6a (4 modes), K6b, K7 (compensated off, "
+            f"on) with S_wide == plain (max abs err {worst:.3g}); repeats "
+            "bit for bit")
+        del d
+    return errs
+
+
+def compare_nop(torch, T, device):
+    """Phase 4m: K1's nop mode against its plain version at NOP_SHAPES:
+    x'', r'', p'' bit for bit (one f32 add, or none), g[0] within 1e-5 of
+    its Cauchy-Schwarz scale, g[1..9] zero, a repeat bit for bit.
+    Returns the max abs error of g[0]."""
+    worst = 0.0
+    for shape in NOP_SHAPES:
+        d = one_pass_inputs(torch, shape, False, device, 67)
+        coef = torch.full((6,), 0.25, device=device)
+        runs = []
+        for fn in (T._grid2d_cg_nop, T._grid2d_cg_nop, T.nop_plain):
+            c = {k: d[k].clone() for k in ("x", "r", "p")}
+            runs.append(fn(c["x"], c["r"], c["p"], coef, **KW))
+        torch.cuda.synchronize()
+        k1, k2, ref = runs
+        scale = (torch.linalg.vector_norm(d["r"].double())
+                 * torch.linalg.vector_norm(d["p"].double())).item()
+        err = abs(k1[3][0].item() - ref[3][0].item())
+        ok = (all(same_bits(a, b) for a, b in zip(k1, k2))
+              and all(same_bits(a, b) for a, b in zip(k1[:3], ref[:3]))
+              and err <= 1e-5 * scale and not k1[3][1:].any())
+        if not ok:
+            raise AssertionError(f"K1 nop at {shape} disagrees with its "
+                                 f"plain version (g[0] err {err:g})")
+        worst = max(worst, err)
+    log(f"[nop] K1 nop == plain at {list(NOP_SHAPES)} (x'', r'', p'' bit for "
+        f"bit, g[0] max abs err {worst:.3g}); repeats bit for bit")
+    return worst
+
+
+def wide3d_path(torch, T, T3, TB3, lt, device):
+    """Phase 4m, the solves: ``entry.build_stencil_system(3, (256,)*3,
+    stencil=S_wide)`` on one piece and on 4 pieces of the card, each
+    WIDE3_RUNS solve from x0 = 0 with its launches counted exactly (counts
+    set to 0 just before it, read just after), no plain version called,
+    the operator on the 3-D view (Br 256, or 64 on 4 pieces), a repeat
+    from the same state bit for bit.  CG (one piece, 4 pieces) within
+    twice textbook f32 CG's distance from float64 CG over the entries
+    where textbook f32 stays within WIDE3_CG_WINDOW of it, and x over the
+    solve (floor CG3_F64_FLOOR); PCG (CG in exact arithmetic: the diagonal
+    is constant) the same against textbook f32 PCG; BiCGStab within FLAT_BICG_RTOL of
+    float64 BiCGStab over the entries where textbook f32 stays within a
+    tenth of that; GMRES(10) non-increasing within GMRES_SLACK.  Returns
+    (launches by pass, whole-grid launches by pass, results, {run:
+    solver}, failed)."""
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    A = terms_matvec(torch, WIDE3)
+    h64, x64 = classic_cg(torch, SHAPE3, N_ITERS, torch.float64, device, A)
+    h32, x32 = classic_cg(torch, SHAPE3, N_ITERS, torch.float32, device, A)
+    b64, _ = textbook_bicgstab(torch, SHAPE3, N_ITERS, torch.float64, device,
+                               matvec=A)
+    b32, _ = textbook_bicgstab(torch, SHAPE3, N_ITERS, torch.float32, device,
+                               matvec=A)
+    # PCG's Jacobi scaling by 1 / 8.5 rounds in f32 (the 1-D view's by
+    # 1 / 2 does not), so PCG has its own textbook f32 twin
+    c32, cx32 = textbook_pcg(torch, SHAPE3, N_ITERS, torch.float32, device,
+                             A, WIDE3[0][1])
+    text = {}
+    for kind, (h, xx) in (("cg", (h32, x32)), ("pcg", (c32, cx32))):
+        w = agree_window(h, h64, WIDE3_CG_WINDOW)
+        text[kind] = (w, (rel_dev(h[:w], h64[:w]).max().item(),
+                          x_rel(xx, x64)))
+    wbi = agree_window(b32, b64, FLAT_BICG_RTOL / 10)
+    del x32, cx32
+    launches, grid_launches, results, solvers, failed = {}, {}, {}, {}, []
+    for name, (kind, pieces, comp, iters, want) in WIDE3_RUNS.items():
+        mesh = (make_mesh(pieces, devices=[device] * pieces) if pieces > 1
+                else None)
+        opts = lt.SolverOptions(entry_dtype=torch.float32,
+                                compensated_dots=comp)
+        planner = build_stencil_system(3, SHAPE3, opts, device, mesh=mesh,
+                                       stencil=list(WIDE3))
+        op = planner.row_partitioned_matrices[0][0]
+        v = op._view
+        solver = flat_solver(lt, planner, kind)
+        with counted_calls(plain_names(T3, TB3), solver) as plain:
+            view_ok = (op.uses_pallas and v["kind"] == "3d"
+                       and v["Br"] * pieces == SHAPE3[0]
+                       and op.supports_fused_bicgstab == (pieces == 1))
+            hist, x, counts = counted_solve(torch, T, solver, iters)
+            hist2, x2, _ = counted_solve(torch, T, solver, iters)
+        solvers[name] = solver
+        checks = {"on the 3-D view": view_ok,
+                  f"launches {want}": counts == want,
+                  "no plain version called": not plain.calls,
+                  "a repeat from the same state is bit-identical":
+                      same_bits(hist, hist2) and same_bits(x, x2)}
+        del x2
+        res = {"launches": counts, "plain_calls": dict(plain.calls),
+               "hist_first_last": (hist[0].item(), hist[-1].item())}
+        if kind in ("cg", "pcg"):
+            wcg, text_cg = text[kind]
+            got = (rel_dev(hist[:wcg], h64[:wcg]).max().item(),
+                   x_rel(x, x64))
+            res["vs_f64"] = {"kernel": got, f"textbook f32 {kind}": text_cg}
+            res["window"] = wcg
+            checks["finite history"] = bool(torch.isfinite(hist).all())
+            checks[f"history (first {wcg} entries) and x within twice "
+                   f"textbook f32 {kind.upper()}'s distance from float64 "
+                   f"CG (floor {CG3_F64_FLOOR})"] = (
+                got[0] <= max(2 * text_cg[0], CG3_F64_FLOOR)
+                and got[1] <= max(2 * text_cg[1], CG3_F64_FLOOR)
+                and wcg >= 2)
+        elif kind == "bicg":
+            n = min(wbi, len(hist))
+            dev_k = rel_dev(hist[:n], b64[:n])
+            res.update(window=n, agree=agree_window(hist, b64[:len(hist)],
+                                                    FLAT_BICG_RTOL),
+                       vs_f64={"kernel": dev_k.max().item(), "textbook f32":
+                               rel_dev(b32[:n], b64[:n]).max().item()})
+            checks[f"within {FLAT_BICG_RTOL} of float64 over the {n} "
+                   "entries where textbook f32 is within a tenth of it"] = \
+                bool((dev_k <= FLAT_BICG_RTOL).all()) and n >= 2
+        else:
+            h = hist.double()
+            rise = (h[1:] / h[:-1]).max().item()
+            res["largest_rise"] = rise - 1
+            checks["finite history"] = bool(torch.isfinite(hist).all())
+            checks[f"non-increasing within {GMRES_SLACK}"] = \
+                rise <= 1 + GMRES_SLACK
+        bad = [k for k, ok in checks.items() if not ok]
+        failed += [f"wide3d {name}: {k}" for k in bad]
+        res["checks"] = checks
+        results[name] = res
+        for m, c in counts.items():
+            launches[m] = launches.get(m, 0) + c
+            grid_launches[m] = grid_launches.get(m, 0) + c / pieces
+        log(f"[wide3d] {name} solve({iters}) with S_wide at 256^3 "
+            f"({pieces} piece{'s' if pieces > 1 else ''}): launches "
+            f"{counts}; residual^2 {hist[0].item():.6g} -> "
+            f"{hist[-1].item():.6g}; "
+            + "".join(f"{k} {res[k]}; " for k in ("vs_f64", "window")
+                      if k in res)
+            + (f"checks FAILED: {bad}" if bad else "checks hold"))
+        del x
+    return launches, grid_launches, results, solvers, failed
+
+
+def time_wide3d(torch, T3, TB3, device, bw, card, solvers):
+    """Phase 5m.  Each wide-z pass at 256^3 (S_wide, no halo planes, as the
+    one-piece solves call them) with CUDA events over a ring of three
+    input sets, in CUDA graphs, and beside its plain version (K7 with
+    compensated dots off and on); each WIDE3_RUNS solve's ms/iter, host
+    enqueue and idle share (a torch.profiler trace).  Returns ({(pass,
+    compensated): (ms, plain ms, graph ms)}, {run: times})."""
+    n = SHAPE3[0] * SHAPE3[1] * SHAPE3[2]
+    ring = [inputs3d(torch, SHAPE3, 80 + s, device) for s in range(3)]
+    for d in ring:
+        d["alpha"] = d["alpha"] * 1e-3  # keep the in-place x, r bounded
+        d["top"] = d["bot"] = None
+        d["o1"], d["o2"] = torch.empty_like(d["x"]), torch.empty_like(d["x"])
+    out = {}
+    for name in WIDE3_PASSES:
+        bpe = (KERNELS3[name][2] if name in KERNELS3
+               else BICG3_KERNELS[name][1])
+        for comp in ((False, True) if name in BICG3_KERNELS else (False,)):
+            fns = {plain: [call3d(T3, TB3, name, d, WIDE3_KW, plain, comp,
+                                  out=((d["o1"], d["o2"])
+                                       if name == "bicg3d_pv" else d["o1"]))
+                           for d in ring] for plain in (False, True)}
+            k = iter(range(10**9))
+            ms = event_ms(torch, lambda: fns[False][next(k) % 3](), 30)
+            plain_ms = event_ms(torch, lambda: fns[True][next(k) % 3](), 6)
+            g = graph_ms(torch, fns[False], 30)
+            sane(f"{name} wide", ms, bpe * n, bw)
+            out[name, comp] = (ms, plain_ms, g)
+            log(f"[time] wide z {name:13s} compensated={comp!s:5s} kernel "
+                f"{ms:.4f} ms (CUDA graphs {g:.4f}), plain {plain_ms:.4f} ms "
+                f"at 256^3 f32 on {card}")
+    del ring
+    times = {}
+    for name, solver in solvers.items():
+        kind, pieces, _, iters, _ = WIDE3_RUNS[name]
+        ms, host = solve_ms(torch, solver, iters)
+        label = "wide3d_" + "".join(c if c.isalnum() else "_" for c in name)
+        dev = profile_solve(torch, solver, label, card, ms, n_iters=iters)
+        times[name] = {"ms/iter": ms / iters, "host ms/iter": host / iters,
+                       "device ms/iter": dev / iters,
+                       "idle": 1 - dev / ms}
+        r = times[name]
+        per = "cycle" if kind == "gmres" else "iteration"
+        log(f"[time] wide z {name} solve({iters}) at 256^3: "
+            f"{r['ms/iter']:.4f} ms per {per} (host enqueue "
+            f"{r['host ms/iter']:.4f}, device {r['device ms/iter']:.4f}, "
+            f"idle {100 * r['idle']:.1f}%) on {card}")
+    return out, times
+
+
+def library_wide3d(torch, T3, device, card):
+    """F.conv3d over S_wide's dense (3, 7, 257) box (cuDNN, TF32 off; the
+    smallest box holding its terms, zero weights elsewhere) computing K6a
+    y at 256^3, held to the kernel's y: (ms over a ring of three inputs,
+    None and the reason where cuDNN cannot run it)."""
+    import torch.nn.functional as F
+
+    h = [max(abs(o[a]) for o in WIDE3_KW["offsets"]) for a in range(3)]
+    w = torch.zeros(1, 1, *(2 * r + 1 for r in h), device=device)
+    for (ox, oy, oz), v in WIDE3:
+        w[0, 0, h[0] + ox, h[1] + oy, h[2] + oz] = v
+    g = torch.Generator(device=device).manual_seed(63)
+    ring = [torch.randn(SHAPE3, generator=g, device=device) for _ in range(3)]
+    conv = [lambda x=x: F.conv3d(x[None, None], w, padding=tuple(h))
+            for x in ring]
+    try:
+        y_lib = conv[0]()[0, 0]
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        why = str(e).splitlines()[0]
+        log(f"[time] F.conv3d over S_wide's {tuple(w.shape[2:])} box: does "
+            f"not run ({why}) on {card}")
+        return None, why
+    y_ker = T3.grid3d_stencil_matvec(ring[0], **WIDE3_KW)
+    err = (y_lib - y_ker).abs().max().item()
+    if err > 1e-5 * y_ker.abs().max().item():
+        raise AssertionError(f"F.conv3d disagrees with K6a y: {err:g}")
+    k = iter(range(10**9))
+    ms = event_ms(torch, lambda: conv[next(k) % 3](), 3)
+    log(f"[time] F.conv3d y over S_wide's {tuple(w.shape[2:])} box: "
+        f"{ms:.4f} ms (max abs diff from K6a y {err:.3g}) at 256^3 f32 on "
+        f"{card}")
+    return ms, None
+
+
+def time_nop(torch, T, device, bw, card):
+    """Phase 5h: K1 nop and K1 step2 at 4096^2 with CUDA events over a
+    ring of three input sets and in CUDA graphs, and nop's plain version.
+    Returns {"nop" | "step2": (ms, plain ms, graph ms)}."""
+    n = N_GRID * N_GRID
+    ring = [flat_inputs(torch, T, (N_GRID, N_GRID), 90 + s, device, False,
+                        KW) for s in range(3)]
+    for d in ring:
+        d["ro"], d["po"] = torch.empty_like(d["r"]), torch.empty_like(d["p"])
+    calls = {"nop": (T._grid2d_cg_nop, T.nop_plain),
+             "step2": (T.grid2d_cg_step2, T.step2_plain)}
+    out = {}
+    for m, (fn, plain_fn) in calls.items():
+        fns = [lambda d=d, f=fn: f(d["x"], d["r"], d["p"], d["coef"],
+                                   out=(d["ro"], d["po"]), **KW)
+               for d in ring]
+        pfns = [lambda d=d, f=plain_fn: f(d["x"], d["r"], d["p"], d["coef"],
+                                          out=(d["ro"], d["po"]), **KW)
+                for d in ring]
+        k = iter(range(10**9))
+        ms = event_ms(torch, lambda: fns[next(k) % 3](), 30)
+        plain_ms = event_ms(torch, lambda: pfns[next(k) % 3](), 6)
+        g = graph_ms(torch, fns, 30)
+        sane(f"K1 {m}", ms, 24 * n, bw)
+        out[m] = (ms, plain_ms, g)
+    nop, step2 = out["nop"][2], out["step2"][2]
+    log(f"[time] K1 nop {out['nop'][0]:.4f} ms (CUDA graphs {nop:.4f}), "
+        f"step2 {out['step2'][0]:.4f} ms (graphs {step2:.4f}); bound "
+        f"{24 * n / bw * 1e3:.4f} ms: nop {100 * 24 * n / bw * 1e3 / nop:.1f}"
+        f"% of bound in graphs, {100 * nop / step2:.1f}% of step2's time, at "
+        f"4096^2 f32 on {card}")
+    return out
+
+
+def wide3d_rows(launches, grid_launches, errs, times, bw, conv_ms,
+                conv_why, m3_attrs):
+    """The kernels line's rows of the wide-z route: launches from phase
+    4m's solves (one piece and 4 pieces), times from phase 5m at 256^3
+    (K7: f32 dots; compensated beside them); K6a y's library_ms is the
+    dense-box ``F.conv3d`` (None where it does not run); each row's
+    march3d registers and spill bytes."""
+    n = SHAPE3[0] * SHAPE3[1] * SHAPE3[2]
+    rows = []
+    for m in WIDE3_PASSES:
+        if m in KERNELS3:
+            wrapper, line, bpe = KERNELS3[m]
+            source, replaces = CSRC3, f"{PALLAS3}:{line}"
+            name = f"{wrapper} [{m}] wide z"
+        else:
+            line, bpe = BICG3_KERNELS[m]
+            source, replaces = BICG3_CSRC, f"{BICG3_PALLAS}:{line}"
+            name = f"{m} wide z"
+        ms, plain_ms, g = times[m, False]
+        row = kernel_row(name, source, replaces, launches.get(m, 0),
+                         errs[m], ms, plain_ms, bpe * n,
+                         ops_per_elt(m, len(WIDE3)) * n, bw,
+                         conv_ms if m == "y3d" else None,
+                         grid_launches=grid_launches.get(m, 0))
+        row.update(graph_ms=g, kernel_route="march3d, wide terms")
+        regs, spill, _ = m3_attrs[m]
+        row.update(registers=regs, spill_bytes=spill)
+        if m in BICG3_KERNELS:
+            row["compensated_ms"], _, row["compensated_graph_ms"] = \
+                times[m, True]
+            row["compensated_registers"], row["compensated_spill_bytes"], _ \
+                = m3_attrs[m, True]
+        if m == "y3d" and conv_ms is None:
+            row["library_note"] = f"F.conv3d does not run: {conv_why}"
+        rows.append(row)
+        log(f"[time] wide z {m:13s} {ms:.4f} ms (graphs {g:.4f}), bound "
+            f"{row['bound_ms']:.4f} ({row['pct_of_bound']:.1f}%), "
+            f"{regs} registers, {spill} B spilled, launches "
+            f"{row['launches']} at 256^3")
+    return rows
+
+
+def nop_row(err, times, bw):
+    """The kernels line's row of K1 nop: no solve calls it (as in JAX), so
+    its launches on the main paths are 0; its time from phase 5h."""
+    n = N_GRID * N_GRID
+    ms, plain_ms, g = times["nop"]
+    row = kernel_row("_grid2d_cg_nop [nop]", CSRC,
+                     f"{PALLAS}:{KERNELS['step2'][1]}", 0, err, ms, plain_ms,
+                     24 * n, 2 * n, bw)
+    row.update(graph_ms=g, on_path=False,
+               note="diagnostic mode of K1 (step2's I/O, a trivial body); "
+                    "no solve calls it, in either package")
+    return row
+
+
+def march3d_attrs(lib):
+    """{pass: (registers, spill bytes, resident blocks per SM)} of the
+    march3d kernels the wide-z route runs (K7: f32 dots; (pass, True):
+    compensated)."""
+    import ctypes
+
+    out = {}
+    for which, m in enumerate(KERNELS3):
+        a = (ctypes.c_int * 3)()
+        err = lib.ls_stencil3d_attrs(which, a)
+        if err:
+            raise RuntimeError(f"ls_stencil3d_attrs({which}): error {err}")
+        out[m] = tuple(a)
+    for k, m in enumerate(BICG3_KERNELS):
+        for comp in (False, True):
+            a = (ctypes.c_int * 3)()
+            err = lib.ls_bicg3d_attrs(2 * k + comp, a)
+            if err:
+                raise RuntimeError(f"ls_bicg3d_attrs: error {err}")
+            out[(m, True) if comp else m] = tuple(a)
+    return out
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
                nflops, bw, library_ms=None, op_rate=F32_PEAK,
                grid_launches=None):
@@ -6200,6 +6712,27 @@ def main() -> int:
         if failed:
             raise AssertionError(f"checks failed: {failed}")
         return 0
+    if "--wide3d" in argv:
+        errs_z = compare_wide3d_kernels(torch, T3, TB3, device)
+        nop_err = compare_nop(torch, T, device)
+        wz_launches, wz_grid, wz_results, wz_solvers, failed = wide3d_path(
+            torch, T, T3, TB3, lt, device)
+        mark("phase 4m")
+        bw = copy_bandwidth(torch, device)
+        ztimes, zsolves = time_wide3d(torch, T3, TB3, device, bw, card,
+                                      wz_solvers)
+        conv_ms, conv_why = library_wide3d(torch, T3, device, card)
+        nop_times = time_nop(torch, T, device, bw, card)
+        mark("phase 5m")
+        rows = wide3d_rows(wz_launches, wz_grid, errs_z, ztimes, bw, conv_ms,
+                           conv_why, march3d_attrs(build.load_library()))
+        rows.append(nop_row(nop_err, nop_times, bw))
+        log(json.dumps({"card": card, "wide3d": {
+            "paths": wz_results, "solves": zsolves, "kernels": rows,
+            "nop_ms": nop_times}}, default=str))
+        if failed:
+            raise AssertionError(f"checks failed: {failed}")
+        return 0
     if "--breakdown" in argv:
         dim = int(argv[argv.index("--dim") + 1]) if "--dim" in argv else 3
         n = (int(argv[argv.index("--size") + 1]) if "--size" in argv
@@ -6282,6 +6815,12 @@ def main() -> int:
         torch, np, T, TB, lt, device)
     failed += f
     mark("phase 4l")
+    errs_z = compare_wide3d_kernels(torch, T3, TB3, device)
+    nop_err = compare_nop(torch, T, device)
+    wz_launches, wz_grid, wz_results, wz_solvers, f = wide3d_path(
+        torch, T, T3, TB3, lt, device)
+    failed += f
+    mark("phase 4m")
     counts_h, cli_results, probes, cli_bw = cli_path(torch, np, T, lt,
                                                      device, card)
     cli_checked = cli_checks(torch, np, lt, device)
@@ -6307,6 +6846,7 @@ def main() -> int:
     mark("phase 5 to 5g")
     rates = time_rates(torch, device, card)
     cli_report = report_cli(torch, cli_results, probes, device, bw, card)
+    nop_times = time_nop(torch, T, device, bw, card)
     mark("phase 5h")
     piece_times = time_piece_solves(torch, pc_solvers, bw, card)
     piece_wrappers = wrapper_host_us(torch, T, device, card)
@@ -6325,6 +6865,10 @@ def main() -> int:
                                           fl_solvers)
     conv1d_ms = library_1d(torch, T, device, card)
     mark("phase 5l")
+    ztimes, zsolves = time_wide3d(torch, T3, TB3, device, bw, card,
+                                  wz_solvers)
+    conv_ms, conv_why = library_wide3d(torch, T3, device, card)
+    mark("phase 5m")
     if "--profile" in sys.argv[1:]:  # last: tracing slows later launches
         profile_solve(torch, bsolver, "bicgstab_2d", card)
         for (kind3, dim), slv in solvers3.items():
@@ -6474,6 +7018,20 @@ def main() -> int:
             raise AssertionError(f"{row['name']} never launched on the 1-D "
                                  "path")
     kernels += flat_rows
+    # the wide-z route (phase 4m): launches on one piece and on pieces,
+    # times at 256^3 (phase 5m); K1 nop, which no path runs (phase 5h)
+    wide_rows = wide3d_rows(wz_launches, wz_grid, errs_z, ztimes, bw,
+                            conv_ms, conv_why,
+                            march3d_attrs(build.load_library()))
+    for row, m in zip(wide_rows, WIDE3_PASSES):
+        row["pieces_launches"] = sum(
+            wz_results[name]["launches"].get(m, 0)
+            for name, run in WIDE3_RUNS.items() if run[1] > 1)
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']} never launched on the "
+                                 "wide-z path")
+    kernels += wide_rows
+    kernels.append(nop_row(nop_err, nop_times, bw))
     report = {"card": card, "kind": kind, "build_s": build_s,
               "copy_GBps": bw_copy / 1e9, "k12_GBps": k12_bw / 1e9,
               "k12_turns_ms": k12_ms,
@@ -6518,6 +7076,11 @@ def main() -> int:
               "flat1d": {"paths": fl_results, "solves": fsolves,
                          "kernel_ms": {k: v for k, v in ftimes.items()},
                          "wide_errs": errs_w, "wide_ms": wtimes},
+              "wide3d": {"paths": wz_results, "solves": zsolves,
+                         "kernel_ms": {f"{m} compensated={c}": t
+                                       for (m, c), t in ztimes.items()},
+                         "conv3d_ms": conv_ms, "conv3d_note": conv_why},
+              "nop_ms": nop_times,
               "cli": {"stream_GBps": cli_bw / 1e9, "runs": cli_results,
                       "checks": cli_checked, "probes": probes,
                       "k11_rates_events": rates, **cli_report}}

@@ -46,9 +46,12 @@
 //   each vector) read again, mostly from L2, and 2 extra planes per
 //   32-plane chunk; st, which stores nothing, moves 8 B per element and
 //   has one plane's loads in flight per block to cover their latency.
-// - All three with reach 2..8, and update with compensated dots, run on
-//   march3d: a 32 x 32 tile over 16
-//   planes, the terms from shared memory, loads and compute not
+// - All three with reach 2..8 or a z shift past 8 (up to 128), and update
+//   with compensated dots, run on march3d: a 32 x 32 tile over 16 planes,
+//   the terms from shared memory, the wide ones beside the window
+//   (wide_at, common.cuh), where the pass's operand is formed from device
+//   memory at the shifted point as the window's points are (p' from r, p
+//   and v; s from r and v: the same rounding), loads and compute not
 //   overlapped, dots to a [blocks, k] scratch summed in a fixed order by a
 //   second launch.
 //
@@ -61,8 +64,8 @@
 
 namespace {
 
-// K7 pv on march3d (reach 2..8): p' = r + beta (p - omega v) on the
-// window, v' = A p', <r~, v'>.
+// K7 pv on march3d (reach 2..8, wide z shifts): p' = r + beta (p - omega
+// v) on the window, v' = A p', <r~, v'>.
 template <bool COMP>
 __global__ void __launch_bounds__(LS_THREADS)
 bicg3d_pv_kernel(const float* __restrict__ r, const float* __restrict__ p,
@@ -153,8 +156,8 @@ bicg3d_pv_m1_kernel(const float* __restrict__ r, const float* __restrict__ p,
   m1_fold<T>(acc, partials, counter, dot);
 }
 
-// K7 st on march3d (reach 2..8): s = r - alpha v on the window, t = A s;
-// <t, s>, <t, t>.
+// K7 st on march3d (reach 2..8, wide z shifts): s = r - alpha v on the
+// window, t = A s; <t, s>, <t, t>.
 template <bool COMP>
 __global__ void __launch_bounds__(LS_THREADS)
 bicg3d_st_kernel(const float* __restrict__ r, const float* __restrict__ v,
@@ -220,8 +223,9 @@ bicg3d_st_m1_kernel(const float* __restrict__ r, const float* __restrict__ v,
   m1_fold<double, 2>(acc, partials, counter, dot);
 }
 
-// K7 update on march3d (reach 2..8): s and t = A s as in st; x += alpha p
-// + omega s (in place); r' = s - omega t (to r_out); <r', r'>, <r~, r'>.
+// K7 update on march3d (reach 2..8, wide z shifts): s and t = A s as in
+// st; x += alpha p + omega s (in place); r' = s - omega t (to r_out);
+// <r', r'>, <r~, r'>.
 template <bool COMP>
 __global__ void __launch_bounds__(LS_THREADS)
 bicg3d_update_kernel(const float* __restrict__ r, const float* __restrict__ v,
@@ -475,6 +479,20 @@ int ls_bicg3d_update_m1_attrs(int which, int* out) {
   }
 }
 
+// The same of the march3d kernels: `which` = 2 pass + compensated, pass
+// 0 pv, 1 st, 2 update.
+int ls_bicg3d_attrs(int which, int* out) {
+  switch (which) {
+    case 0: return m1_attrs(bicg3d_pv_kernel<false>, out);
+    case 1: return m1_attrs(bicg3d_pv_kernel<true>, out);
+    case 2: return m1_attrs(bicg3d_st_kernel<false>, out);
+    case 3: return m1_attrs(bicg3d_st_kernel<true>, out);
+    case 4: return m1_attrs(bicg3d_update_kernel<false>, out);
+    case 5: return m1_attrs(bicg3d_update_kernel<true>, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // partials: scratch of 2 * capacity doubles (the K <= 2 dots of each of up
 // to capacity blocks; floats without `compensated`, but for st and update
 // on march1).  counter: one unsigned, zero before the first launch (a
@@ -490,7 +508,7 @@ int ls_bicg3d_pv(const float* r, const float* p, const float* v,
   if (!valid3(st, X, Y, Z)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int h = reach3_yz(*st);
-  if (h <= 1) {
+  if (on_march1(*st)) {
     M1Geom g;
     const long long blocks = m1_geometry(X, Y, Z, &g);
     if (!counter || blocks > capacity) return (int)cudaErrorInvalidValue;
@@ -532,7 +550,7 @@ int ls_bicg3d_st(const float* r, const float* v, const float* alpha,
   if (!valid3(st, X, Y, Z)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int h = reach3_yz(*st);
-  if (h <= 1) {
+  if (on_march1(*st)) {
     M1Geom g;
     const long long blocks = m1_geometry(X, Y, Z, &g);
     if (!counter || blocks > capacity) return (int)cudaErrorInvalidValue;
@@ -575,7 +593,7 @@ int ls_bicg3d_update(const float* r, const float* v, float* x, const float* p,
   if (!valid3(st, X, Y, Z)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int h = reach3_yz(*st);
-  if (h <= 1 && !compensated) {
+  if (on_march1(*st) && !compensated) {
     M1Geom g;
     const long long blocks = m1_geometry(X, Y, Z, &g);
     if (!counter || blocks > capacity) return (int)cudaErrorInvalidValue;

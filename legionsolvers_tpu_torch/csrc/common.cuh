@@ -4,9 +4,9 @@
 // halo window loads, the stencil application from shared memory, the
 // fixed-order reduction of per-block partial dot products, unfused
 // round-to-nearest arithmetic and, for the 3-D kernels, two marches along
-// x: march3d (any reach up to 8, the stencil's terms from shared memory)
-// and march1 (reach 1, a register march with the next plane in flight and
-// the dot folded into the last block).
+// x: march3d (any reach up to 8 from shared memory, and z shifts up to 128
+// read beside the window) and march1 (reach 1, a register march with the
+// next plane in flight and the dot folded into the last block).
 //
 // build.py compiles every csrc/*.cu into one shared library, so everything
 // here has internal linkage (an anonymous namespace): each translation unit
@@ -24,6 +24,9 @@
 #define LS_THREADS_Y 8
 #define LS_THREADS (LS_THREADS_X * LS_THREADS_Y)
 #define LS_MAX_REACH 8
+// The 3-D gate's widest z shift (the TPU kernel's PADZ): terms with
+// LS_MAX_REACH < |oz| <= LS_WIDE_Z are read beside march3d's window.
+#define LS_WIDE_Z 128
 #define LS_REDUCE_THREADS 256
 #define LS_CHUNK_X 16
 
@@ -35,7 +38,8 @@ struct LsStencil {
   float v[LS_MAX_TERMS];
 };
 
-// The 3-D stencil {(ox_k, oy_k, oz_k): v_k}, |ox| <= 1, |oy|, |oz| <= 8.
+// The 3-D stencil {(ox_k, oy_k, oz_k): v_k}, |ox| <= 1, |oy| <= 8,
+// |oz| <= LS_WIDE_Z.
 struct LsStencil3 {
   int n;
   int ox[LS_MAX_TERMS];
@@ -232,23 +236,34 @@ int finish(const T* partials, int nblocks, int K, float* out,
 // 3-D: x is [X, Y, Z], Z contiguous.  A block owns one LS_TILE x LS_TILE
 // (y, z) output tile and marches along x over LS_CHUNK_X planes.  Shared
 // memory holds three planes (x - 1, x, x + 1) of the block's window, the
-// tile plus h = max(|oy|, |oz|) on each side, in three slots that rotate one
-// plane per step: the GPU form of the TPU kernel's rotating plane buffer.
-// Every window point is zero outside [0, Y) x [0, Z); planes -1 and X come
-// from the [Y, Z] halo planes (nullptr = zeros).
+// tile plus h = max(|oy|, |oz|) over the terms with |oz| <= LS_MAX_REACH on
+// each side, in three slots that rotate one plane per step: the GPU form of
+// the TPU kernel's rotating plane buffer.  Every window point is zero
+// outside [0, Y) x [0, Z); planes -1 and X come from the [Y, Z] halo planes
+// (nullptr = zeros).  A term with |oz| > LS_MAX_REACH (a wide term, the
+// TPU kernel's lane shift into its plane's 128-column zero margins) is
+// read beside the window: the operand at (x + ox, y + oy, z + oz), formed
+// from device memory as the window's points are, after y and z are tested
+// against [0, Y) x [0, Z), from the halo planes outside [0, X).
 // ---------------------------------------------------------------------------
 
 // Slot stride: the largest window, (LS_TILE + 2 * LS_MAX_REACH)^2 floats.
 constexpr int kPlaneMax = kWinMax * kWinMax;
 
+__host__ __device__ __forceinline__ bool wide_z(int oz) {
+  return oz > LS_MAX_REACH || oz < -LS_MAX_REACH;
+}
+
 // Terms with their window offsets for each rotation phase: the plane of
 // step x sits in slot (x - x0 + 1) % 3, so in phase ph = (x - x0) % 3 the
 // term (ox, oy, oz) reads slot (ph + 1 + ox) % 3 at oy * W + oz from the
-// thread's point.
+// thread's point.  A wide term (wide[k]) keeps its shifts instead.
 struct SharedStencil3 {
   int n;
   int off[3][LS_MAX_TERMS];
   float v[LS_MAX_TERMS];
+  bool wide[LS_MAX_TERMS];
+  int ox[LS_MAX_TERMS], oy[LS_MAX_TERMS], oz[LS_MAX_TERMS];
 };
 
 __device__ void stage_stencil3(SharedStencil3& s, const LsStencil3& st, int W) {
@@ -256,8 +271,15 @@ __device__ void stage_stencil3(SharedStencil3& s, const LsStencil3& st, int W) {
   for (int e = tid(); e < 3 * st.n; e += LS_THREADS) {
     const int ph = e / st.n, k = e % st.n;
     const int slot = (ph + 1 + st.ox[k] + 3) % 3;
-    s.off[ph][k] = slot * kPlaneMax + st.oy[k] * W + st.oz[k];
-    if (ph == 0) s.v[k] = st.v[k];
+    const bool wide = wide_z(st.oz[k]);
+    s.off[ph][k] = wide ? 0 : slot * kPlaneMax + st.oy[k] * W + st.oz[k];
+    if (ph == 0) {
+      s.v[k] = st.v[k];
+      s.wide[k] = wide;
+      s.ox[k] = st.ox[k];
+      s.oy[k] = st.oy[k];
+      s.oz[k] = st.oz[k];
+    }
   }
 }
 
@@ -289,11 +311,31 @@ __device__ __forceinline__ void load_plane3(float* dst, int W, int h, int gx,
   }
 }
 
+// The operand of a wide term (ox, oy, oz) at the point (x, gy, gz): f at
+// the shifted point inside the volume, the halo planes' value outside [0,
+// X) (nullptr = zero), zero outside [0, Y) x [0, Z), tested before any
+// load.
+template <typename F>
+__device__ __forceinline__ float wide_at(int X, int Y, int Z,
+                                         const float* __restrict__ top,
+                                         const float* __restrict__ bot, F& f,
+                                         int x, int gy, int gz, int ox,
+                                         int oy, int oz) {
+  const int sx = x + ox, sy = gy + oy, sz = gz + oz;
+  if (sy < 0 || sy >= Y || sz < 0 || sz >= Z) return 0.f;
+  const size_t yz = (size_t)sy * Z + sz;
+  if (sx >= 0 && sx < X) return f((size_t)sx * Y * Z + yz);
+  const float* halo = sx < 0 ? top : bot;
+  return halo ? halo[yz] : 0.f;
+}
+
 // The block's march.  f(flat index) gives the operand A is applied to (one
 // vector, or the pass's combination of several, formed as it is loaded);
 // emit(flat index, operand, A operand) runs once for every point of the
-// tile inside the volume, terms summed in stencil order.  The stencil must
-// be staged (stage_stencil3 with W = LS_TILE + 2h) before the call.
+// tile inside the volume, terms summed in stencil order: the window's from
+// shared memory, the wide terms' beside it (wide_at, the same f).  The
+// stencil must be staged (stage_stencil3 with W = LS_TILE + 2h) before the
+// call.
 template <typename F, typename E>
 __device__ void march3d(float* win, const SharedStencil3& s, int h, int X,
                         int Y, int Z, const float* __restrict__ top,
@@ -316,16 +358,24 @@ __device__ void march3d(float* win, const SharedStencil3& s, int h, int X,
       if (gy >= Y || gz >= Z) continue;
       const int at = (i + h) * W + j + h;
       float ax = 0.f;
-      for (int k = 0; k < s.n; ++k) ax += s.v[k] * win[s.off[ph][k] + at];
+      for (int k = 0; k < s.n; ++k) {
+        const float t = s.wide[k] ? wide_at(X, Y, Z, top, bot, f, x, gy, gz,
+                                            s.ox[k], s.oy[k], s.oz[k])
+                                  : win[s.off[ph][k] + at];
+        ax += s.v[k] * t;
+      }
       emit(((size_t)x * Y + gy) * Z + gz, center[at], ax);
     }
     __syncthreads();
   }
 }
 
+// The reach of march3d's window: max(|oy|, |oz|) over the terms it reads
+// from the window (|oz| <= LS_MAX_REACH).
 int reach3_yz(const LsStencil3& st) {
   int h = 0;
   for (int k = 0; k < st.n; ++k) {
+    if (wide_z(st.oz[k])) continue;
     const int a = st.oy[k] < 0 ? -st.oy[k] : st.oy[k];
     const int b = st.oz[k] < 0 ? -st.oz[k] : st.oz[k];
     h = a > h ? a : h;
@@ -334,12 +384,26 @@ int reach3_yz(const LsStencil3& st) {
   return h;
 }
 
+// Whether the stencil runs on march1: reach 1 and no wide term.
+bool on_march1(const LsStencil3& st) {
+  for (int k = 0; k < st.n; ++k)
+    if (wide_z(st.oz[k])) return false;
+  return reach3_yz(st) <= 1;
+}
+
+// The 3-D kernels' gate: |ox| <= 1, |oy| <= LS_MAX_REACH, |oz| <=
+// LS_WIDE_Z and |oz| < Z.
 bool valid3(const LsStencil3* st, int X, int Y, int Z) {
   if (!st || st->n < 1 || st->n > LS_MAX_TERMS || X < 1 || Y < 1 || Z < 1)
     return false;
-  for (int k = 0; k < st->n; ++k)
-    if (st->ox[k] < -1 || st->ox[k] > 1) return false;
-  return reach3_yz(*st) <= LS_MAX_REACH;
+  for (int k = 0; k < st->n; ++k) {
+    const int oy = st->oy[k] < 0 ? -st->oy[k] : st->oy[k];
+    const int oz = st->oz[k] < 0 ? -st->oz[k] : st->oz[k];
+    if (st->ox[k] < -1 || st->ox[k] > 1 || oy > LS_MAX_REACH ||
+        oz > LS_WIDE_Z || oz >= Z)
+      return false;
+  }
+  return true;
 }
 
 dim3 march_grid(int X, int Y, int Z) {

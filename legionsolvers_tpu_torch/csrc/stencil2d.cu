@@ -12,6 +12,8 @@
 //                     (xpay_pq_strip_kernel; other stencils xpay_pq_kernel)
 //   ls_gram2      K2  replaces _sstep_call mode gram2
 //   ls_step2      K1  replaces _sstep_call mode step2
+//   ls_step2_nop  K1  replaces _sstep_call mode nop (a diagnostic: step2's
+//                     loads and stores, a trivial body)
 //
 // What bounds them: bytes.  A 2-D stencil does ~2 flops per term per
 // element, far below the card's ~20 flops per byte of HBM bandwidth.  K1
@@ -377,8 +379,14 @@ gram2_strip_kernel(const float* __restrict__ r, const float* __restrict__ p,
 // its Gram partials and the last block to finish (a device counter) sums
 // all partials in block order and resets the counter: deterministic, with
 // no second launch.
+//
+// NOP (the TPU kernel's diagnostic mode nop): the same geometry, loads
+// (window rows a - 4 .. b + 4 of p and r, x at the lane's own columns) and
+// stores, and a trivial body: x'' = x + r, r'' = r, p'' = p, g[0] = sum of
+// r p (exact products summed in double, as the Gram above), g[1..9] = 0.
+// Its time is K1's memory floor with step2's access pattern.
 // ---------------------------------------------------------------------------
-template <bool CROSS, bool VEC, bool WRAP>
+template <bool CROSS, bool VEC, bool WRAP, bool NOP = false>
 __global__ void __launch_bounds__(LS_STEP2_THREADS, LS_STEP2_MIN_BLOCKS)
 step2_kernel(float* __restrict__ x, const float* __restrict__ r,
              const float* __restrict__ p, const float* __restrict__ coef,
@@ -449,6 +457,23 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
     for (int q = a - 4; q < b + 4; ++q) {
       const Row4 P0 = Pn, R0 = Rn, X0 = Xn;
       load_row(q + 1, Pn, Rn, Xn);
+      if (NOP) {  // row q - 1: x'' = x + r, r'' = r, p'' = p
+        const int i = q - 1;
+        if (i >= a && i < b) {
+          const long long o = (long long)i * C + c0;
+          Row4 XN;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            XN.v[j] = X1.v[j] + R1.v[j];
+            if (own[j]) g[0] = fma((double)R1.v[j], (double)P1.v[j], g[0]);
+          }
+          store4<VEC>(x, o, XN, own);
+          store4<VEC>(r_out, o, R1, own);
+          store4<VEC>(p_out, o, P1, own);
+        }
+        P1 = P0; R1 = R0; X1 = X0;
+        continue;
+      }
       // S1 at row q - 1
       const int i1 = q - 1;
       Row4 AP1 = apply4<CROSS>(P2, P1, P0, st);
@@ -513,6 +538,20 @@ int launch_step2(float* x, const float* r, const float* p, const float* coef,
   if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
   step2_kernel<CROSS, VEC, WRAP><<<(unsigned)geo.blocks, LS_STEP2_THREADS,
                                    0, stream>>>(
+      x, r, p, coef, r_out, p_out, g, partials, counter, R, C, geo.strips,
+      geo.chunk_rows, geo.units, st);
+  return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int launch_nop(float* x, const float* r, const float* p, const float* coef,
+               float* r_out, float* p_out, float* g, double* partials,
+               int capacity, unsigned* counter, int R, int C,
+               const Step2Stencil& st, cudaStream_t stream) {
+  const StripGeom geo = strip_geometry(R, C, LS_STEP2_TARGET_WARPS);
+  if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
+  step2_kernel<false, VEC, false, true><<<(unsigned)geo.blocks,
+                                          LS_STEP2_THREADS, 0, stream>>>(
       x, r, p, coef, r_out, p_out, g, partials, counter, R, C, geo.strips,
       geo.chunk_rows, geo.units, st);
   return (int)cudaGetLastError();
@@ -705,6 +744,23 @@ int ls_step2(float* x, const float* r, const float* p, const float* coef,
                            capacity, counter, R, C, s2, stream)
   return LS_STRIP_VARIANT(LS_STEP2_LAUNCH, is_cross(*st), vec, wrap);
 #undef LS_STEP2_LAUNCH
+}
+
+// K1 in mode nop: step2's operands, scratch and geometry (any reach-1
+// stencil; its terms are not applied).
+int ls_step2_nop(float* x, const float* r, const float* p, const float* coef,
+                 float* r_out, float* p_out, float* g, double* partials,
+                 int capacity, unsigned* counter, int R, int C,
+                 const LsStencil* st, void* stream_ptr) {
+  if (!valid(st, R, C, 1) || !counter) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const Step2Stencil s2 = step2_stencil(*st);
+  if (C % 4 == 0 && aligned16(x) && aligned16(r) && aligned16(p) &&
+      aligned16(r_out) && aligned16(p_out))
+    return launch_nop<true>(x, r, p, coef, r_out, p_out, g, partials,
+                            capacity, counter, R, C, s2, stream);
+  return launch_nop<false>(x, r, p, coef, r_out, p_out, g, partials,
+                           capacity, counter, R, C, s2, stream);
 }
 
 int ls_step2_cols() { return LS_STEP2_COLS; }

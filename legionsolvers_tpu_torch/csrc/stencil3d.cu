@@ -48,10 +48,13 @@
 //   same bits from run to run.  What bounds it: bytes, with the window's
 //   y halo (2 rows per 16) read again, mostly from L2, and 2 extra planes
 //   per 32-plane chunk.
-// - Reach 2..8: march3d, each block a 32 x 32 tile over 16 planes, three
-//   rotating shared slots sized for reach 8, the terms read from shared
-//   memory in stencil order, loads
-//   and compute not overlapped, and partial dots summed by a second launch
+// - Reach 2..8, or any z shift past 8 (up to 128, the TPU kernel's
+//   PADZ): march3d, each block a 32 x 32 tile over 16 planes, three
+//   rotating shared slots sized for reach 8, the terms read in stencil
+//   order from shared memory (|oz| <= 8) or beside the window from device
+//   memory (wide_at: the operand at the shifted point, zero outside the
+//   volume's y and z, the halo planes outside its x), loads and compute
+//   not overlapped, and partial dots summed by a second launch
 //   (reduce_partials).
 //
 // Both read each input byte from HBM about once.  K6b forms p = r + beta
@@ -67,9 +70,9 @@
 
 namespace {
 
-// K6a on march3d (reach 2..8): y = A x (mode 0), y and <x, A x> (1),
-// <x, A x> (2), update (3): xv += alpha x; rv -= alpha A x; <rv', rv'>
-// (x is p here)
+// K6a on march3d (reach 2..8, wide z shifts): y = A x (mode 0), y and
+// <x, A x> (1), <x, A x> (2), update (3): xv += alpha x; rv -= alpha A x;
+// <rv', rv'> (x is p here)
 template <int MODE>
 __global__ void __launch_bounds__(LS_THREADS)
 stencil3d_kernel(const float* __restrict__ x, const float* __restrict__ top,
@@ -156,9 +159,9 @@ stencil3d_m1_kernel(const float* __restrict__ x, const float* __restrict__ top,
   if (MODE != 0) m1_fold(acc, partials, counter, dot);
 }
 
-// K6b on march3d (reach 2..8): p = r + beta p_old (written to p_out) and
-// <p, A p>; the halo planes are p's own (the caller combines r's and
-// p_old's).
+// K6b on march3d (reach 2..8, wide z shifts): p = r + beta p_old (written
+// to p_out) and <p, A p>; the halo planes are p's own (the caller combines
+// r's and p_old's).
 __global__ void __launch_bounds__(LS_THREADS)
 xpay_pq3d_kernel(const float* __restrict__ r, const float* __restrict__ p_old,
                  const float* __restrict__ beta_p,
@@ -247,6 +250,8 @@ extern "C" {
 
 int ls_chunk_x() { return LS_CHUNK_X; }
 int ls_stencil3_size() { return (int)sizeof(LsStencil3); }
+int ls_max_reach() { return LS_MAX_REACH; }
+int ls_wide_z() { return LS_WIDE_Z; }
 
 // Blocks of the reach-1 march on an [X, Y, Z] volume.
 int ls_march1_blocks(int X, int Y, int Z) {
@@ -279,6 +284,19 @@ int ls_xpay_pq3d_m1_attrs(int which, int* out) {
   }
 }
 
+// Registers, spill bytes and resident blocks per SM of K6a's march3d
+// kernel in mode `which` (0..3), and of K6b's (4).
+int ls_stencil3d_attrs(int which, int* out) {
+  switch (which) {
+    case 0: return m1_attrs(stencil3d_kernel<0>, out);
+    case 1: return m1_attrs(stencil3d_kernel<1>, out);
+    case 2: return m1_attrs(stencil3d_kernel<2>, out);
+    case 3: return m1_attrs(stencil3d_kernel<3>, out);
+    case 4: return m1_attrs(xpay_pq3d_kernel, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // mode: 0 y, 1 y_dot, 2 pq, 3 update.  Pointers unused by a mode may be
 // null; halo planes may be null (zeros).  partials: scratch of 2 *
 // capacity doubles (two dots for each of up to capacity blocks); counter:
@@ -294,7 +312,7 @@ int ls_stencil3d(int mode, const float* x, const float* top, const float* bot,
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int h = reach3_yz(*st);
-  if (h <= 1) {
+  if (on_march1(*st)) {
     M1Geom g;
     const long long blocks = m1_geometry(X, Y, Z, &g);
     if (!counter || blocks > capacity) return (int)cudaErrorInvalidValue;
@@ -339,7 +357,7 @@ int ls_xpay_pq3d(const float* r, const float* p_old, const float* beta,
   if (!valid3(st, X, Y, Z)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int h = reach3_yz(*st);
-  if (h <= 1) {
+  if (on_march1(*st)) {
     M1Geom g;
     const long long blocks = m1_geometry(X, Y, Z, &g);
     if (!counter || blocks > capacity) return (int)cudaErrorInvalidValue;

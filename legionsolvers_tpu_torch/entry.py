@@ -12,7 +12,9 @@ partition the system as the JAX CLI's ``-vp`` does: a mesh from
 ``parallel/mesh.make_mesh`` (all of its shards on one device) runs the
 operator on its pieces.  :func:`build_system` is its 2-D square case, as
 ``__graft_entry__._build_system(n_grid, mesh, pieces, options)`` builds
-it.
+it.  ``stencil`` replaces the ``-dim`` stencil by any stencil over the
+same grid (a list of (offset, value) pairs, as ``laplacian_stencil``
+returns), with everything else as the CLI builds it.
 :func:`build_explicit_system` is the explicit-matrix counterpart of
 ``scripts/bench_explicit.py``: flat vectors, b = 1, x0 = 0, the planner
 choosing the operator (DIA, a reordered windowed ELL or the routed gather,
@@ -41,9 +43,10 @@ def build_stencil_system(dim: int, shape: Sequence[int],
                          options: SolverOptions = DEFAULT_OPTIONS,
                          device=None, num_spaces: int = 1,
                          pieces: Optional[int] = None,
-                         mesh=None) -> SquarePlanner:
+                         mesh=None, stencil=None) -> SquarePlanner:
     """``pieces`` defaults to the mesh's shard count (1 without a mesh);
-    the device to the mesh's (the card without a mesh)."""
+    the device to the mesh's (the card without a mesh); ``stencil`` to
+    ``laplacian_stencil(dim)``."""
     shape = tuple(int(s) for s in shape)
     if len(shape) != stencil_grid_ndim(dim):
         raise ValueError(f"-dim {dim} needs a {stencil_grid_ndim(dim)}-D "
@@ -52,8 +55,10 @@ def build_stencil_system(dim: int, shape: Sequence[int],
         pieces = num_shards(mesh) if mesh is not None else 1
     part = BlockPartition(int(np.prod(shape)), pieces)
     mesh, device = resolve_mesh(mesh, part, device)
-    op = StencilOperator(shape, laplacian_stencil(dim), partition=part,
-                         mesh=mesh, options=options, device=device)
+    if stencil is None:
+        stencil = laplacian_stencil(dim)
+    op = StencilOperator(shape, stencil, partition=part, mesh=mesh,
+                         options=options, device=device)
     gs = shape if op.uses_pallas else None
     if gs is not None and len(shape) == 1:
         # 1-D vectors in the layout of the operator's [n // C, C] view

@@ -22,8 +22,10 @@ A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches its kernel or raises.  With a reach-1 stencil each pass runs the
 register march of K6a (``march1`` in ``csrc/common.cuh``, its dots folded
 into the last block: one launch), but for update with ``compensated``
-dots; with reach 2..8, and that case, it runs ``march3d`` and a second
-launch (``ls_bicg3d_update`` says why).  All take their scratch
+dots; with reach 2..8 or a z shift past 8 (up to 128, read beside the
+window from the pass's operand formed at the shifted point), and that
+case, it runs ``march3d`` and a second launch (``ls_bicg3d_update`` says
+why).  All take their scratch
 (partials, capacity, the last block's counter) from
 :func:`~.stencil3d.march_scratch`.  Every CUDA launch adds one to
 :data:`~.stencil2d.LAUNCHES` under ``bicg3d_pv``, ``bicg3d_st`` or

@@ -118,8 +118,9 @@ def load_library() -> ctypes.CDLL:
     ``c_void_p``, so that none is cut to 32 bits)."""
     from .dia2d import DIA_ELEMS, MAX_DIA_TERMS
     from .rowperm import PIECE_ROWS
-    from .stencil2d import (MAX_TERMS, STEP2_COLS, STEP2_MIN_ROWS,
-                            STEP2_WARPS, STRIP_TARGETS, TILE, strip_geometry)
+    from .stencil2d import (MAX_TERMS, STENCIL_REACH, STEP2_COLS,
+                            STEP2_MIN_ROWS, STEP2_WARPS, STRIP_TARGETS, TILE,
+                            WIDE_Z_REACH, strip_geometry)
     from .stencil3d import CHUNK_X, _Stencil3, march1_geometry
     from .vpu_probe import C as VPU_C, TR as VPU_TR
 
@@ -129,6 +130,7 @@ def load_library() -> ctypes.CDLL:
         "ls_xpay_pq": [_P] * 10 + [_I, _P, _I, _I, _P, _I, _P],
         "ls_gram2": [_P] * 4 + [_I, _P, _I, _I, _P, _I, _P],
         "ls_step2": [_P] * 8 + [_I, _P, _I, _I, _P, _I, _P],
+        "ls_step2_nop": [_P] * 8 + [_I, _P, _I, _I, _P, _P],
         "ls_bicg_pv": [_P] * 10 + [_I, _I, _I, _P, _P],
         "ls_bicg_st": [_P] * 5 + [_I, _I, _I, _P, _P],
         "ls_bicg_st_strip": [_P] * 5 + [_I, _P, _I, _I, _I, _P, _I, _P],
@@ -143,6 +145,8 @@ def load_library() -> ctypes.CDLL:
         "ls_xpay_pq3d": [_P] * 8 + [_I, _P] + [_I] * 3 + [_P, _P],
         "ls_bicg3d_pv": [_P] * 12 + [_I, _P] + [_I] * 4 + [_P, _P],
         "ls_stencil3d_m1_attrs": [_I, _P],
+        "ls_stencil3d_attrs": [_I, _P],
+        "ls_bicg3d_attrs": [_I, _P],
         "ls_bicg3d_pv_m1_attrs": [_I, _P],
         "ls_xpay_pq3d_m1_attrs": [_I, _P],
         "ls_bicg3d_st_m1_attrs": [_I, _P],
@@ -161,6 +165,7 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     for name in ("ls_tile", "ls_max_terms", "ls_chunk_x", "ls_stencil3_size",
+                 "ls_max_reach", "ls_wide_z",
                  "ls_dia_max_terms", "ls_dia_elems", "ls_vpu_tile_rows",
                  "ls_vpu_tile_cols", "ls_step2_cols", "ls_step2_min_rows",
                  "ls_step2_warps", "ls_blockperm_piece_rows"):
@@ -191,9 +196,12 @@ def load_library() -> ctypes.CDLL:
         raise RuntimeError("csrc/rowperm.cu and ops/cuda/rowperm.py "
                            "disagree on LS_BLOCKPERM_PIECE_ROWS")
     if (lib.ls_chunk_x() != CHUNK_X
-            or lib.ls_stencil3_size() != ctypes.sizeof(_Stencil3)):
+            or lib.ls_stencil3_size() != ctypes.sizeof(_Stencil3)
+            or lib.ls_max_reach() != STENCIL_REACH
+            or lib.ls_wide_z() != WIDE_Z_REACH):
         raise RuntimeError("csrc/common.cuh and ops/cuda/stencil3d.py "
-                           "disagree on LS_CHUNK_X or the LsStencil3 layout")
+                           "disagree on LS_CHUNK_X, the LsStencil3 layout, "
+                           "LS_MAX_REACH or LS_WIDE_Z")
     for shape in ((256, 256, 256), (37, 45, 130), (1, 1, 1), (999, 17, 5)):
         if lib.ls_march1_blocks(*shape) != march1_geometry(*shape)[2]:
             raise RuntimeError("csrc/common.cuh and ops/cuda/stencil3d.py "

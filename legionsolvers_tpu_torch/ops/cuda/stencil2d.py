@@ -13,6 +13,7 @@ grid2d_cg_update       x += a p, r -= a A p, <r', r'>      stencil_plain
 grid2d_cg_xpay_pq      p = r + b p_old, <p, A p>           xpay_pq_plain
 grid2d_cg_gram2        Gram vector of (r, p)               gram2_plain
 grid2d_cg_step2        two CG iterations + next Gram       step2_plain
+_grid2d_cg_nop         K1's I/O, trivial body (diagnostic)  nop_plain
 =====================  ==================================  =================
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
@@ -56,7 +57,10 @@ GRAM_NAMES = ("rr", "pAp", "rAp", "ApAp", "rAr",
 TILE = 32          # output tile edge of K3, K4 at reach >= 2 (csrc: LS_TILE)
 MAX_TERMS = 32     # stencil terms a kernel accepts (csrc: LS_MAX_TERMS)
 HALO_ROWS = 8      # rows in a halo block
-STENCIL_REACH = 8  # 3-D gate: |oy|, |oz| <= 8; tile halo of K3/K4/K5
+STENCIL_REACH = 8  # 3-D gate: |oy| <= 8, march3d's window |oz| <= 8; tile
+                   # halo of K3/K4/K5 (csrc: LS_MAX_REACH)
+WIDE_Z_REACH = 128  # 3-D gate: |oz| <= 128, the TPU kernel's PADZ; terms
+                    # past STENCIL_REACH read beside the window (LS_WIDE_Z)
 STEP2_REACH = 1    # K1/K2 gate, and the strip route of K3, K4 and K5b
 STEP2_COLS = 120   # strip passes: output columns of a warp's strip
 STEP2_MIN_ROWS = 16  # strip passes: shortest row chunk
@@ -286,6 +290,19 @@ def step2_plain(x, r, p, coef, *, offsets, values, out=None):
     if out is not None:
         rn, pn = out[0].copy_(rn), out[1].copy_(pn)
     return x, rn, pn, gram2_plain(rn, pn, offsets=offsets, values=values)
+
+
+def nop_plain(x, r, p, coef, *, offsets, values, out=None):
+    """K1 in mode nop: x'' = x + r (in place), r'' = r, p'' = p, and
+    g[0] = <r, p>, g[1..9] = 0.  ``coef``, ``offsets`` and ``values`` are
+    step2's operands, unused."""
+    x.add_(r)
+    rn, pn = r.clone(), p.clone()
+    if out is not None:
+        rn, pn = out[0].copy_(r), out[1].copy_(p)
+    g = torch.zeros(10, dtype=torch.float32, device=x.device)
+    g[0] = _dot(r, p)
+    return x, rn, pn, g
 
 
 def cg2_coeffs(g: torch.Tensor):
@@ -677,5 +694,39 @@ def grid2d_cg_step2(x, r, p, coef, *, offsets, values,
         _ptr(x), _ptr(r), _ptr(p), _ptr(c), _ptr(out[0]), _ptr(out[1]),
         _ptr(g), _ptr(partials), capacity, _ptr(counter), R, C,
         ctypes.byref(_stencil_struct(k_offs, k_vals)), wrap,
+    ), dev)
+    return x, out[0], out[1], g
+
+
+def _grid2d_cg_nop(x, r, p, coef, *, offsets, values,
+                   out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """K1 in the JAX kernel's diagnostic mode ``nop``: step2's operands,
+    buffers, loads and stores with a trivial body (:func:`nop_plain`).  No
+    solve calls it; its time is K1's memory floor with step2's access
+    pattern.  Takes the reach-1 stencils K1 takes (not their flat
+    decompositions)."""
+    R, C = r.shape
+    if not step2_supported(R, C, offsets):
+        raise ValueError("K1 nop requires a reach-1 stencil")
+    _check_grid("x", x, (R, C))
+    _check_grid("r", r)
+    _check_grid("p", p, (R, C))
+    if out is None:
+        out = (torch.empty_like(r), torch.empty_like(p))
+    _check_grid("r_out", out[0], (R, C))
+    _check_grid("p_out", out[1], (R, C))
+    _check_distinct(("x", x), ("r", r), ("p", p), ("r_out", out[0]),
+                    ("p_out", out[1]))
+    if not _on_cuda(x, r, p, out[0], out[1]):
+        return nop_plain(x, r, p, coef, offsets=offsets, values=values,
+                         out=out)
+    dev = r.device
+    c = _dev_scalars(coef, 6, dev)
+    g = torch.empty(10, dtype=torch.float32, device=dev)
+    partials, capacity, counter = _step2_scratch(dev, R, C)
+    _launch("nop", "ls_step2_nop", (
+        _ptr(x), _ptr(r), _ptr(p), _ptr(c), _ptr(out[0]), _ptr(out[1]),
+        _ptr(g), _ptr(partials), capacity, _ptr(counter), R, C,
+        ctypes.byref(_stencil_struct(offsets, values)),
     ), dev)
     return x, out[0], out[1], g

@@ -18,8 +18,10 @@ launches its kernel (built at first use, see ``build.py``) or raises; it
 never falls back.  K6a and K6b have two marches (``csrc/common.cuh``):
 reach-1 stencils (the 7- and 27-point ones) run the register march
 ``march1``, whose launch geometry :func:`march1_geometry` mirrors and whose
-dot is folded into its last block; stencils of reach 2..8 run ``march3d``
-with a second launch summing its partial dots.  Both take their scratch
+dot is folded into its last block; stencils of reach 2..8, and any stencil
+with a z shift past 8 (up to 128, JAX's ``PADZ``: a wide term, read beside
+march3d's window), run ``march3d`` with a second launch summing its partial
+dots.  Both take their scratch
 from :func:`march_scratch`.  Every CUDA launch adds one to
 :data:`~.stencil2d.LAUNCHES` under the pass's name with a ``3d`` suffix
 (``y3d``, ``y_dot3d``, ``pq3d``, ``update3d``, ``xpay_pq3d``).
@@ -46,6 +48,7 @@ from .stencil2d import (
     MAX_TERMS,
     STENCIL_REACH,
     TILE,
+    WIDE_Z_REACH,
     _MODES,
     _check_distinct,
     _dev_scalars,
@@ -71,11 +74,14 @@ M1_TARGET_BLOCKS = 264  # march1: blocks a launch aims at (LS_M1_TARGET_BLOCKS)
 
 def supports3d(X: int, Y: int, Z: int, offsets) -> bool:
     """Whether the K6 kernels take this geometry: any X, Y, Z >= 1, at most
-    32 terms with |ox| <= 1 and |oy|, |oz| <= 8.  The TPU's Z % 128 and
-    VMEM-budget gates do not apply."""
+    32 terms with |ox| <= 1, |oy| <= 8 and |oz| <= 128 (JAX's ``PADY`` and
+    ``PADZ``), and |oz| < Z, as the 2-D gate takes |dx| < C (a term with
+    |oz| >= Z reads only zeros; JAX takes |oz| = Z = 128).  The TPU's
+    Z % 128 and VMEM-budget gates do not apply."""
     return (X >= 1 and Y >= 1 and Z >= 1 and 1 <= len(offsets) <= MAX_TERMS
             and all(abs(ox) <= 1 and abs(oy) <= STENCIL_REACH
-                    and abs(oz) <= STENCIL_REACH for ox, oy, oz in offsets))
+                    and abs(oz) <= WIDE_Z_REACH and abs(oz) < Z
+                    for ox, oy, oz in offsets))
 
 
 def supports3d_xpay_pq(X: int, Y: int, Z: int, offsets) -> bool:
@@ -90,17 +96,19 @@ def supports3d_xpay_pq(X: int, Y: int, Z: int, offsets) -> bool:
 def apply_planes_plain(v, offsets, values, halo_top=None, halo_bot=None):
     """A v for the 3-D stencil: zero outside [0, Y) x [0, Z), planes -1
     and X from the halo planes (zeros when ``None``).  Terms are summed in
-    offset order, as the kernels do."""
+    offset order, as the kernels do.  y is padded by the y reach and z by
+    the z reach, each alone."""
     X, Y, Z = v.shape
-    h = max(max(abs(oy), abs(oz)) for _, oy, oz in offsets)
+    hy = max(abs(oy) for _, oy, _ in offsets)
+    hz = max(abs(oz) for _, _, oz in offsets)
     z = v.new_zeros(1, Y, Z)
     ext = torch.cat([z if halo_top is None else halo_top[None], v,
                      z if halo_bot is None else halo_bot[None]])
-    ext = F.pad(ext, (h, h, h, h))
+    ext = F.pad(ext, (hz, hz, hy, hy))
     acc = None
     for (ox, oy, oz), w in zip(offsets, values):
-        term = w * ext[1 + ox: 1 + ox + X, h + oy: h + oy + Y,
-                       h + oz: h + oz + Z]
+        term = w * ext[1 + ox: 1 + ox + X, hy + oy: hy + oy + Y,
+                       hz + oz: hz + oz + Z]
         acc = term if acc is None else acc + term
     return acc
 

@@ -12,7 +12,8 @@ when the operator is built:
   |dx| = C - 1; the kernels run them as the 1-D stencil over the flat
   index, ``stencil2d.route``) and 3-D grids (kind ``3d``, each piece an
   ``[Br, Y, Z]`` block of whole x-planes; kernels of
-  ``ops/cuda/stencil3d.py`` and ``bicgstab3d.py``).  Every pass is a
+  ``ops/cuda/stencil3d.py`` and ``bicgstab3d.py``, z shifts up to 128 as
+  in JAX).  Every pass is a
   hand-written CUDA kernel (its plain PyTorch version on CPU tensors).
   The names ``_plan_pallas_view``/``_pallas_local``/``uses_pallas`` are
   kept from the JAX package for parity.

@@ -219,12 +219,15 @@ def _op(shape, dtype=torch.float32, stencil=None):
 
 
 def test_supports_fused_bicgstab(monkeypatch):
-    """2-D and 3-D kernel views have a fused runner (K5, K7); the 1-D
-    linearized path and a 3-D stencil beyond the kernels' reach do not."""
-    far = T.laplacian_stencil(3) + [((0, 0, 9), -0.5)]
+    """2-D and 3-D kernel views have a fused runner (K5, K7), also with a
+    z shift past 8 (read beside the window); the 1-D linearized path and a
+    3-D stencil beyond the kernels' reach (|oy| > 8) do not."""
+    wide = T.laplacian_stencil(3) + [((0, 0, 9), -0.5)]
+    far = T.laplacian_stencil(3) + [((0, 9, 0), -0.5)]
     assert _op((32, 128)).supports_fused_bicgstab
     assert _op((30, 100)).supports_fused_bicgstab
     assert _op((4, 8, 16)).supports_fused_bicgstab
+    assert _op((4, 8, 16), stencil=wide).supports_fused_bicgstab
     assert not _op((32, 128), torch.float64).supports_fused_bicgstab
     assert not _op((64,)).supports_fused_bicgstab
     assert not _op((4, 8, 16), stencil=far).supports_fused_bicgstab

@@ -46,7 +46,14 @@ neighbours, against their plain versions (the 3-D bounds above), and the
 versions (rtol 1e-3, x 1e-3 of max|x|).  The fused 2-D BiCGStab on 4
 pieces, f32 and compensated dots, one and two iterations against the
 plain-driven runner and two against one piece (rtol 1e-4, x 1e-4 of
-max|x|), K5a-c launched once per piece per iteration.
+max|x|), K5a-c launched once per piece per iteration.  Wide z shifts
+(``-k "wide3d or march3d or nop"``): K6a's four modes, K6b and K7 with
+the wide-z stencil (|oz| up to 128, read beside march3d's window) at Z
+not a multiple of 128, X = 1, Y < 8 and |oz| = Z - 1, against their plain
+versions (the 3-D bounds above) and bit for bit on a repeat; its CG
+solve(20) on 1 and 4 pieces with exact launches against the plain-driven
+runner (rtol 1e-3); every march3d kernel's registers; K1's nop mode bit
+for bit its plain version (g[0] within 1e-5 of its Cauchy-Schwarz scale).
 """
 
 import numpy as np
@@ -148,6 +155,17 @@ SHAPES3 = [SHAPE3, (40, 50, 260), (6, 20, 129), (1, 9, 131), (20, 15, 60)]
 # solves; ten terms of the box with random weights (the box path with zero
 # weights); the 11-point star with arms of 2 in y and z (reach 2: march3d).
 STENCILS3 = [3, 4, "box10", "reach2"]
+# The wide-z stencil (march3d's wide terms, read beside the window): the
+# 7-point cross with center 8.5, (0, 0, +-12) with -0.5, (0, +-3, +-100)
+# and (+-1, 0, +-128) with -0.25.
+WIDE3 = [((0, 0, 0), 8.5), ((-1, 0, 0), -1.0), ((1, 0, 0), -1.0),
+         ((0, -1, 0), -1.0), ((0, 1, 0), -1.0), ((0, 0, -1), -1.0),
+         ((0, 0, 1), -1.0), ((0, 0, -12), -0.5), ((0, 0, 12), -0.5),
+         ((0, 3, 100), -0.25), ((0, -3, -100), -0.25), ((0, 3, -100), -0.25),
+         ((0, -3, 100), -0.25), ((1, 0, 128), -0.25), ((-1, 0, -128), -0.25)]
+# Its edges: Z not a multiple of 128 (and Z % 4 != 0), X = 1 and Y < 8,
+# |oz| = Z - 1 (Z = 129), a whole march3d chunk and a bit.
+WIDE3_SHAPES = [(37, 45, 130), (1, 5, 301), (20, 7, 129), (17, 9, 256)]
 
 
 def _kw3(dim):
@@ -160,6 +178,9 @@ def _kw3(dim):
         pick = rng.choice(len(box), 10, replace=False)
         return dict(offsets=tuple(box[k] for k in pick),
                     values=tuple(float(v) for v in rng.uniform(-1, 1, 10)))
+    if dim == "wide":
+        return dict(offsets=tuple(o for o, _ in WIDE3),
+                    values=tuple(v for _, v in WIDE3))
     if dim == "reach2":
         offs = [(0, 0, 0), (-1, 0, 0), (1, 0, 0)]
         vals = [7.5, -1.0, -1.0]
@@ -1657,3 +1678,132 @@ def test_k5_wide_match_plain_on_card(kernel, shape, stencil, compensated,
     dots = [(a, b) for a, b in zip(k1, ref) if not b.dim()]
     for (a, want), scale in zip(dots, scales):
         assert abs(a.item() - want.item()) <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# Wide z shifts on march3d (K6a, K6b, K7) and K1's nop mode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WIDE3_SHAPES)
+@pytest.mark.parametrize("mode", ["y", "y_dot", "pq", "update", "xpay_pq"])
+def test_wide3d_k6_matches_plain_on_card(mode, shape, cuda_device):
+    """K6a (four modes) and K6b with |oz| up to 128 against their plain
+    versions (the bounds above), with random halo planes, one launch, a
+    repeat bit for bit."""
+    d = _state3d(23, shape)
+    T.reset_launch_counts()
+    got, again = (_stencil3d(mode, d, cuda_device, "wide") for _ in range(2))
+    assert dict(T.LAUNCHES) == {f"{mode}3d": 2}
+    assert all(np.array_equal(got[k], again[k]) for k in got)
+    ref = _stencil3d(mode, d, cuda_device, "wide", plain=True)
+    arrays = [v for v in ref.values() if v.ndim]
+    _compare3d(got, ref, _norm_bound(d, *arrays))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WIDE3_SHAPES)
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("kernel", ["pv", "st", "update"])
+def test_wide3d_k7_matches_plain_on_card(kernel, compensated, shape,
+                                         cuda_device):
+    """K7 pv, st and update with |oz| up to 128: the wide terms read the
+    pass's combined operand at the shifted point; the bounds above, one
+    launch, a repeat bit for bit."""
+    d = _state3d(29, shape)
+    T.reset_launch_counts()
+    got, again = (_bicg3d(kernel, d, cuda_device, "wide", compensated)
+                  for _ in range(2))
+    assert dict(T.LAUNCHES) == {f"bicg3d_{kernel}": 2}
+    assert all(np.array_equal(got[k], again[k]) for k in got)
+    ref = _bicg3d(kernel, d, cuda_device, "wide", compensated, plain=True)
+    arrays = [v for v in ref.values() if v.ndim]
+    _compare3d(got, ref, 26.0 * _norm_bound(d, *arrays))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pieces", [1, 4])
+def test_wide3d_cg_matches_plain_on_card(pieces, cuda_device, monkeypatch):
+    """The wide-z system at (32, 24, 256) through ``entry.
+    build_stencil_system(stencil=)``, CG solve(20) on 1 and 4 pieces:
+    launches K6a pq, K6b and K6a update exactly (times the pieces), and
+    the history and x against the same runner driven by the plain
+    versions (rtol 1e-3, x 1e-3 of max|x|)."""
+    import legionsolvers_tpu_torch as lt
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    plain = {
+        "grid3d_cg_xpay_pq": T3.xpay_pq3d_plain,
+        "grid3d_cg_pq": lambda p, top=None, bot=None, **kw:
+            T3.stencil3d_plain("pq", p, top, bot, **kw)[0],
+        "grid3d_cg_update": lambda p, x, r, alpha, top=None, bot=None, **kw:
+            T3.stencil3d_plain("update", p, top, bot, (x, r, alpha), **kw),
+    }
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    mesh = (make_mesh(pieces, devices=[cuda_device] * pieces) if pieces > 1
+            else None)
+    runs = []
+    for use_plain in (False, True):
+        planner = build_stencil_system(3, (32, 24, 256), f32, cuda_device,
+                                       mesh=mesh, stencil=WIDE3)
+        assert planner.row_partitioned_matrices[0][0]._view["kind"] == "3d"
+        with monkeypatch.context() as m:
+            if use_plain:
+                for name, fn in plain.items():
+                    m.setattr(T3, name, fn)
+            T.reset_launch_counts()
+            hist = lt.CGSolver(planner).solve(20).cpu().double().numpy()
+        assert dict(T.LAUNCHES) == ({} if use_plain else {
+            "pq3d": pieces, "xpay_pq3d": 19 * pieces,
+            "update3d": 20 * pieces})
+        runs.append((hist, planner.sol_vectors[0].to_numpy()))
+    (hk, xk), (hp, xp) = runs
+    assert len(hk) == 21 and np.isfinite(hk).all()
+    np.testing.assert_allclose(hk, hp, rtol=1e-3)
+    np.testing.assert_allclose(xk, xp, rtol=0, atol=1e-3 * np.abs(xp).max())
+
+
+@pytest.mark.cuda
+def test_march3d_attrs_on_card(cuda_device):
+    """Every march3d kernel (K6a's four modes, K6b, K7 pv, st and update,
+    f32 and compensated dots) reports its registers and fits one block
+    per SM."""
+    import ctypes
+
+    from legionsolvers_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    for fn, n in (("ls_stencil3d_attrs", 5), ("ls_bicg3d_attrs", 6)):
+        for which in range(n):
+            out = (ctypes.c_int * 3)()
+            assert getattr(lib, fn)(which, out) == 0, (fn, which)
+            assert 0 < out[0] <= 255 and out[2] >= 1, (fn, which, list(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4096, 4096), (200, 328), (33, 4097),
+                                   (1, 5)])
+def test_k1_nop_matches_plain_on_card(shape, cuda_device):
+    """K1 in mode nop against its plain version: x'', r'', p'' bit for bit,
+    g[0] within 1e-5 of its Cauchy-Schwarz scale, g[1..9] zero; a repeat
+    bit for bit."""
+    rng = np.random.default_rng(31)
+    d = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(cuda_device) for k in ("x", "r", "p")}
+    coef = torch.full((6,), 0.25, device=cuda_device)
+    T.reset_launch_counts()
+    runs = []
+    for fn in (T._grid2d_cg_nop, T._grid2d_cg_nop, T.nop_plain):
+        c = {k: v.clone() for k, v in d.items()}
+        runs.append([t.cpu() for t in fn(c["x"], c["r"], c["p"], coef,
+                                         **KW)])
+    assert dict(T.LAUNCHES) == {"nop": 2}
+    k1, k2, ref = runs
+    assert all(torch.equal(a, b) for a, b in zip(k1, k2))
+    for have, want in zip(k1[:3], ref[:3]):
+        assert torch.equal(have, want)
+    scale = (torch.linalg.vector_norm(d["r"].double())
+             * torch.linalg.vector_norm(d["p"].double())).item()
+    assert abs(k1[3][0].item() - ref[3][0].item()) <= 1e-5 * scale
+    assert not k1[3][1:].any()
