@@ -26,7 +26,9 @@ else, ``--pieces`` phases 4j and 5j (pieces on one card),
 builds the one-piece DIA and scrambled systems of 4e-f too, to compare),
 ``--flat1d`` phases 4l and 5l (the 1-D kernel view at 2^24 unknowns),
 ``--wide3d`` phases 4m and 5m (wide z shifts on the 3-D kernels at 256^3)
-and K1's nop mode (its check and its time).
+and K1's nop mode (its check and its time), ``--wide2d`` phases 4n and 5n
+(K1 and K2 on their general route, 2-D stencils with wide column shifts,
+at 4096^2).
 
 Phases (any failure raises, and the exit code is non-zero):
 
@@ -327,6 +329,29 @@ K1's nop mode (item D):
    its plain version, ``F.conv3d`` over S_wide's dense (3, 7, 257) box
    computing K6a's y, and each 4m solve's ms/iter, host enqueue and idle
    share.  ``--wide3d`` runs 4m, 5m and the nop timing alone.
+
+"B (general)", the s-step passes K1 and K2 on their general route
+(``csrc/sstep_general.cu``) for 2-D stencils with |dy| <= 1 and any |dx|
+< C that are neither reach 1 nor a flat decomposition: S2_gen (the cross
+with 7.0 at the centre, (0, +-2), (0, +-37), (+-1, +-100)) and S2_4x
+(-d_xx to fourth order plus -d_yy to second):
+
+4n. K1 and K2 against step2_plain and gram2_plain at 4096^2 with both and
+   at 16 x 128 with ``wide(128)``, 4096^2 with (+-1, -+4095), 5 x 130 and
+   1 x 101 (S2_4x), 33 x 4097 (S2_gen) and 7 x 130 with no (0, 0) term;
+   phase 3's bounds, repeats bit for bit.  Then
+   ``entry.build_stencil_system(2, (4096, 4096), stencil=...)``: CG
+   solve(200) with S2_gen on one piece and on 4 pieces, with S2_4x on one
+   piece and as a 2-space block, each launching exactly K1 100 and K2 7
+   per piece and space and nothing of the two-pass schedule, no plain
+   version called, a repeat bit for bit, every launch of a third run held
+   to its plain version (:class:`shadowed`), and history and x within
+   twice textbook f32 CG's distance from float64 CG (floor 1e-4);
+5n. both kernels at 4096^2 (S2_gen, S2_4x) with CUDA events and in CUDA
+   graphs beside their plain versions, and each 4n solve's ms/iter, host
+   enqueue and idle share on the s-step schedule and under
+   LEGIONSOLVERS_NO_SSTEP (the two-pass schedule the port ran for these
+   stencils before).  ``--wide2d`` runs 4n and 5n alone.
 
 To make room for 4m and 5m, phase 5j's and 5k's idle traces cover about
 TRACE_OPS (2000) glue operations each, a third of what they did.
@@ -6140,20 +6165,20 @@ NOP_SHAPES = ((N_GRID, N_GRID), RAGGED, (33, 4097), (1, 5))
 
 
 def terms_matvec(torch, terms):
-    """y = A v for the 3-D stencil ``terms`` by shifted slices of a copy
-    of v zero-padded by each axis' reach: the references' own matvec, any
-    dtype."""
+    """y = A v for the stencil ``terms`` ({offset: value}, 2-D or 3-D) by
+    shifted slices of a copy of v zero-padded by each axis' reach: the
+    references' own matvec, any dtype."""
     import torch.nn.functional as F
 
-    h = [max(abs(o[a]) for o, _ in terms) for a in range(3)]
+    h = [max(abs(o[a]) for o, _ in terms) for a in range(len(terms[0][0]))]
+    pad = [p for r in reversed(h) for p in (r, r)]
 
     def A(v):
-        X, Y, Z = v.shape
-        e = F.pad(v, (h[2], h[2], h[1], h[1], h[0], h[0]))
+        e = F.pad(v, pad)
         out = torch.zeros_like(v)
-        for (ox, oy, oz), w in terms:
-            out += w * e[h[0] + ox: h[0] + ox + X, h[1] + oy: h[1] + oy + Y,
-                         h[2] + oz: h[2] + oz + Z]
+        for off, w in terms:
+            out += w * e[tuple(slice(r + o, r + o + n)
+                               for r, o, n in zip(h, off, v.shape))]
         return out
 
     return A
@@ -6570,6 +6595,311 @@ def march3d_attrs(lib):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4n: "B (general)", K1 and K2 on the general route
+# (csrc/sstep_general.cu); phase 5n: their times and the s-step solves'
+# ---------------------------------------------------------------------------
+
+GEN_CSRC = "legionsolvers_tpu_torch/csrc/sstep_general.cu"
+# S2_gen: the 5-point cross with 7.0 at the centre, (0, +-2) and (0, +-37)
+# with -0.5, (+-1, +-100) with -0.25: symmetric, weakly diagonally dominant
+# (as ill-conditioned as the Laplacian), |dx| up to 100, within the 120
+# that the s-step takes on pieces; S2_4x: -d_xx to fourth order plus -d_yy
+# to second order, whose symbol (c - 1)(c - 7) / 3 + 2 - 2 cos ty (c = cos
+# tx) is >= 0
+S2_GEN = (((0, 0), 7.0), ((-1, 0), -1.0), ((1, 0), -1.0), ((0, -1), -1.0),
+          ((0, 1), -1.0), ((0, 2), -0.5), ((0, -2), -0.5), ((0, 37), -0.5),
+          ((0, -37), -0.5), ((1, 100), -0.25), ((-1, -100), -0.25),
+          ((1, -100), -0.25), ((-1, 100), -0.25))
+S2_4X = (((0, 0), 4.5), ((-1, 0), -1.0), ((1, 0), -1.0),
+         ((0, -1), -16 / 12), ((0, 1), -16 / 12), ((0, -2), 1 / 12),
+         ((0, 2), 1 / 12))
+GEN_STENCILS = {"S2_gen": S2_GEN, "S2_4x": S2_4X}
+GEN_SSTEP = ("step2", "gram2")
+# K2 passes of an s-step solve(200): the bootstrap and one refresh every
+# 16 passes (LEGIONSOLVERS_SSTEP_REFRESH's default) of its 100
+GEN_GRAMS = 7
+GEN_PIECES = 4
+# name -> (stencil, pieces, spaces, launches of one solve(N_ITERS))
+GEN_RUNS = {
+    "S2_gen one piece": ("S2_gen", 1, 1, {"step2": N_ITERS // 2,
+                                          "gram2": GEN_GRAMS}),
+    "S2_gen 4 pieces": ("S2_gen", GEN_PIECES, 1, {
+        "step2": GEN_PIECES * N_ITERS // 2, "gram2": GEN_PIECES * GEN_GRAMS}),
+    "S2_4x one piece": ("S2_4x", 1, 1, {"step2": N_ITERS // 2,
+                                        "gram2": GEN_GRAMS}),
+    "S2_4x 2-space block": ("S2_4x", 1, 2, {"step2": N_ITERS,
+                                            "gram2": 2 * GEN_GRAMS}),
+}
+GEN_F64_FLOOR = 1e-4  # phase 4l's floor of the s-step's distance from f64
+
+
+def terms_kw(terms):
+    return dict(offsets=tuple(o for o, _ in terms),
+                values=tuple(v for _, v in terms))
+
+
+def gen_kw(name, C):
+    """The stencil ``name`` of phase 4n at width C: S2_gen, S2_4x, the
+    tile kernels' ``wide(C)`` of the CPU tests (its (1, -(C - 1)) spans
+    the gate's width), the cross with (+-1, -+(C - 1)), and a stencil with
+    no (0, 0) term."""
+    if name in GEN_STENCILS:
+        return terms_kw(GEN_STENCILS[name])
+    if name == "wide(C)":
+        return dict(offsets=OFFS + ((0, 37), (0, -37), (-1, 100),
+                                    (1, -(C - 1))),
+                    values=(5.0,) + (-1.0,) * 4 + (-0.25, -0.25, -0.5, -0.5))
+    if name == "(+-1, -+(C - 1))":
+        return dict(offsets=OFFS + ((1, -(C - 1)), (-1, C - 1)),
+                    values=(5.0,) + (-1.0,) * 6)
+    return dict(offsets=((0, 3), (1, -(C - 1)), (-1, C - 1), (0, -3)),
+                values=(1.0, -0.25, -0.25, 1.0))
+
+
+# (R, C, stencil): C = 128 with (1, -127); |dx| = C - 1 at 4096; rows under
+# 8 and C not a multiple of 4 or of 128; a ragged row count at C = 4097; no
+# (0, 0) term
+GEN_EDGES = ((16, 128, "wide(C)"), (N_GRID, N_GRID, "(+-1, -+(C - 1))"),
+             (5, 130, "S2_4x"), (1, 101, "S2_4x"), (33, 4097, "S2_gen"),
+             (7, 130, "no centre"))
+
+
+def compare_general_kernels(torch, T, device):
+    """Phase 4n, the kernels: K1 and K2 on the general route against
+    step2_plain and gram2_plain at 4096^2 with S2_gen and S2_4x and at
+    GEN_EDGES: phase 3's bounds (elementwise 1e-5 * max|ref|, Gram entries
+    1e-4 of their Cauchy-Schwarz scale) and a repeat on the same inputs
+    bit for bit.  Returns {pass: max abs error}."""
+    errs = {}
+    cases = ([(N_GRID, N_GRID, name) for name in GEN_STENCILS]
+             + list(GEN_EDGES))
+    for R, C, name in cases:
+        kw = gen_kw(name, C)
+        route = T.route(kw["offsets"], kw["values"], C, sstep=True)[0]
+        if route != "general":
+            raise AssertionError(f"{name} at {(R, C)} takes the {route} "
+                                 "route")
+        d = flat_inputs(torch, T, (R, C), 71, device, False, kw)
+        worst = 0.0
+        for mode in ("gram2", "step2"):
+            k1, k2, ref = (run_mode(T, mode, d, plain, kw)
+                           for plain in (False, False, True))
+            torch.cuda.synchronize()
+            case = f"{mode} {name} at {(R, C)}"
+            if not all(torch.equal(k1[k], k2[k]) for k in k1):
+                raise AssertionError(f"{case}: a repeat is not "
+                                     "bit-identical")
+            for key, want in ref.items():
+                err = (k1[key].double() - want.double()).abs()
+                if key == "gram":
+                    r, p = ((ref["r"], ref["p"]) if mode == "step2"
+                            else (d["r"], d["p"]))
+                    ok = bool((err.cpu() <= 1e-4 * gram_scales(
+                        torch, T, r, p, kw)).all())
+                else:
+                    ok = err.max().item() <= 1e-5 * want.abs().max().item()
+                if not ok:
+                    raise AssertionError(
+                        f"{case} {key}: kernel disagrees with its plain "
+                        f"version ({err.max().item():g})")
+                errs[mode] = max(errs.get(mode, 0.0), err.max().item())
+                worst = max(worst, err.max().item())
+        log(f"[general] K2, K1 with {name} at {[R, C]} (general route) == "
+            f"plain (max abs err {worst:.3g}); repeats bit for bit")
+        del d
+    return errs
+
+
+def general_path(torch, np, T, TB, lt, device):
+    """Phase 4n, the solves: ``entry.build_stencil_system(2, (4096,
+    4096), stencil=...)`` with S2_gen on one piece and on 4 pieces of the
+    card, with S2_4x on one piece and as a 2-space block (b = 1 in both),
+    each CG solve(200) from x0 = 0 on the s-step schedule with its
+    launches counted exactly (counts set to 0 just before it, read just
+    after: K1 and K2 on the general route and nothing of the two-pass
+    schedule), no plain version called, a repeat from the same state bit
+    for bit, every launch of a third run held to its plain version
+    (:class:`shadowed`), and the history and x within twice textbook f32
+    CG's distance from float64 CG on the same system (floor
+    GEN_F64_FLOOR, phase 4l's; the block's history against twice one
+    space's, its x in both spaces).  Returns (launches by pass,
+    whole-grid launches by pass, results, {run: solver}, failed)."""
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    shape = (N_GRID, N_GRID)
+    dist = lambda h, x, hr, xr: (rel_dev(h, hr).max().item(), x_rel(x, xr))
+    refs = {}
+    for name, terms in GEN_STENCILS.items():
+        A = terms_matvec(torch, terms)
+        h64, x64 = classic_cg(torch, shape, N_ITERS, torch.float64, device, A)
+        h32, x32 = classic_cg(torch, shape, N_ITERS, torch.float32, device, A)
+        refs[name] = (h64, x64, dist(h32, x32, h64, x64))
+        del x32
+    launches, grid_launches, results, solvers, failed = {}, {}, {}, {}, []
+    for name, (st, pieces, spaces, want) in GEN_RUNS.items():
+        mesh = (make_mesh(pieces, devices=[device] * pieces) if pieces > 1
+                else None)
+        planner = build_stencil_system(2, shape, f32, device,
+                                       num_spaces=spaces, mesh=mesh,
+                                       stencil=list(GEN_STENCILS[st]))
+        op = planner.row_partitioned_matrices[0][0]
+        v = op._view
+        solver = lt.CGSolver(planner)
+        with counted_calls(plain_names(T, TB), solver) as plain:
+            view_ok = (op.uses_pallas and v["kind"] == "2d"
+                       and v["Br"] * pieces == N_GRID and op.step2_eligible
+                       and T.route(v["offs"], v["vals"], v["C"],
+                                   sstep=True)[0] == "general")
+            hist, x, counts = counted_solve(torch, T, solver, N_ITERS)
+            xs = [x] + [planner.sol_vectors[s].data.clone()
+                        for s in range(1, spaces)]
+            hist2, x2, _ = counted_solve(torch, T, solver, N_ITERS)
+        solvers[name] = solver
+        with shadowed(T, solver) as sh:
+            restart(solver)
+            solver.solve(N_ITERS)
+            torch.cuda.synchronize()
+        T.reset_launch_counts()
+        h64, x64, text = refs[st]
+        got = (rel_dev(hist, spaces * h64).max().item(),
+               max(x_rel(xx, x64) for xx in xs))
+        rule = f"(floor {GEN_F64_FLOOR})"
+        checks = {
+            "the s-step on the general route": view_ok,
+            f"launches {want}": counts == want,
+            "no plain version called": not plain.calls,
+            "a repeat from the same state is bit-identical":
+                same_bits(hist, hist2) and same_bits(x, x2),
+            "every launch within its plain version's bounds":
+                not sh.bad and sh.calls == want,
+            "finite history": bool(torch.isfinite(hist).all()),
+            f"history within twice textbook f32 CG's distance from float64 "
+            f"{rule}": got[0] <= max(2 * text[0], GEN_F64_FLOOR),
+            f"x within twice textbook f32 CG's distance from float64 {rule}":
+                got[1] <= max(2 * text[1], GEN_F64_FLOOR)}
+        del x2, xs
+        bad = [k for k, ok in checks.items() if not ok]
+        failed += [f"general {name}: {k}" for k in bad]
+        results[name] = {
+            "launches": counts, "plain_calls": dict(plain.calls),
+            "hist_first_last": (hist[0].item(), hist[-1].item()),
+            "vs_f64": {"kernel": got, "textbook f32": text},
+            "kernel vs plain per launch": sh.worst,
+            "share of bound per launch": sh.share, "checks": checks}
+        for m, c in counts.items():
+            launches[m] = launches.get(m, 0) + c
+            grid_launches[m] = grid_launches.get(m, 0) + c / pieces
+        log(f"[general] {name} solve({N_ITERS}) at 4096^2: launches {counts};"
+            f" residual^2 {hist[0].item():.6g} -> {hist[-1].item():.6g}; "
+            f"vs float64 (history, x): kernel {got[0]:.3g} {got[1]:.3g}, "
+            f"textbook f32 {text[0]:.3g} {text[1]:.3g}; per launch vs plain "
+            f"{sh.share}; " + (f"checks FAILED: {bad}" if bad
+                               else "checks hold"))
+        del x
+    return launches, grid_launches, results, solvers, failed
+
+
+def general_attrs(lib):
+    """{pass: (registers, spill bytes, resident blocks per SM)} of the
+    general route's kernels."""
+    import ctypes
+
+    out = {}
+    for which, m in enumerate(GEN_SSTEP):
+        a = (ctypes.c_int * 3)()
+        err = lib.ls_sstep_general_attrs(which, a)
+        if err:
+            raise RuntimeError(f"ls_sstep_general_attrs({which}): error "
+                               f"{err}")
+        out[m] = tuple(a)
+    return out
+
+
+def time_general(torch, T, device, bw, card, solvers):
+    """Phase 5n.  K1 and K2 on the general route at 4096^2 with S2_gen and
+    S2_4x: CUDA events over a ring of three input sets, CUDA graphs, and
+    the plain versions; each GEN_RUNS solve's ms/iter, host enqueue and
+    idle share (a torch.profiler trace; a tenth of the solve on pieces,
+    as 5j) on the s-step schedule and under LEGIONSOLVERS_NO_SSTEP (the
+    two-pass schedule: K3 pq, then K4 and K3 update on the tile kernels).
+    Returns ({(pass, stencil): (ms, plain ms, graph ms)}, {run: {schedule:
+    times}})."""
+    n = N_GRID * N_GRID
+    out = {}
+    for st in GEN_STENCILS:
+        kw = gen_kw(st, N_GRID)
+        # (the halo blocks are unused: kernel_call sizes step2's outputs
+        # by them)
+        ring = [flat_inputs(torch, T, (N_GRID, N_GRID), 90 + s, device,
+                            True, kw) for s in range(3)]
+        for m in GEN_SSTEP:
+            fns = {plain: [kernel_call(T, m, d, plain, kw) for d in ring]
+                   for plain in (False, True)}
+            k = iter(range(10**9))
+            ms = event_ms(torch, lambda: fns[False][next(k) % 3](), 30)
+            plain_ms = event_ms(torch, lambda: fns[True][next(k) % 3](), 6)
+            g = graph_ms(torch, fns[False], 30)
+            sane(f"{m} general", ms, KERNELS[m][2] * n, bw)
+            out[m, st] = (ms, plain_ms, g)
+            log(f"[time] general {m} with {st}: kernel {ms:.4f} ms (CUDA "
+                f"graphs {g:.4f}), bound {KERNELS[m][2] * n / bw * 1e3:.4f}"
+                f", plain {plain_ms:.4f} ms at 4096^2 f32 on {card}")
+        del ring
+    solves = {}
+    for name, solver in solvers.items():
+        st, pieces, spaces, _ = GEN_RUNS[name]
+        n_tr = N_ITERS if pieces == 1 else N_ITERS // 10
+        solves[name] = {}
+        for sched, env in (("s-step", None),
+                           ("two-pass", "LEGIONSOLVERS_NO_SSTEP")):
+            with env_route(env, solver):
+                ms, host = solve_ms(torch, solver, N_ITERS)
+                label = "general_" + "".join(
+                    c if c.isalnum() else "_" for c in f"{name} {sched}")
+                dev = profile_solve(torch, solver, label, card,
+                                    ms * n_tr / N_ITERS, n_iters=n_tr)
+            r = {"ms/iter": ms / N_ITERS, "host ms/iter": host / N_ITERS,
+                 "device ms/iter": dev / n_tr,
+                 "idle": 1 - dev / n_tr / (ms / N_ITERS)}
+            solves[name][sched] = r
+            log(f"[time] general {name} {sched} solve({N_ITERS}) at 4096^2: "
+                f"{r['ms/iter']:.4f} ms/iter (host enqueue "
+                f"{r['host ms/iter']:.4f}, device {r['device ms/iter']:.4f} "
+                f"over {n_tr} traced, idle {100 * r['idle']:.1f}%) on {card}")
+    return out, solves
+
+
+def general_rows(launches, grid_launches, errs, times, bw, attrs):
+    """The kernels line's rows of the general route: launches from phase
+    4n's solves (one piece, 4 pieces, the block), times from phase 5n at
+    4096^2 with S2_gen (S2_4x's beside them), registers and spill bytes;
+    no one PyTorch call computes an s-step pass."""
+    n = N_GRID * N_GRID
+    rows = []
+    for m in GEN_SSTEP:
+        wrapper, line, bpe = KERNELS[m]
+        ms, plain_ms, g = times[m, "S2_gen"]
+        row = kernel_row(f"{wrapper} [{m}] general route", GEN_CSRC,
+                         f"{PALLAS}:{line}", launches.get(m, 0), errs[m], ms,
+                         plain_ms, bpe * n,
+                         ops_per_elt(m, len(S2_GEN)) * n, bw,
+                         grid_launches=grid_launches.get(m, 0))
+        regs, spill, per_sm = attrs[m]
+        row.update(graph_ms=g, kernel_route="general", stencil="S2_gen",
+                   registers=regs, spill_bytes=spill, blocks_per_sm=per_sm)
+        row["S2_4x_ms"], row["S2_4x_plain_ms"], row["S2_4x_graph_ms"] = \
+            times[m, "S2_4x"]
+        rows.append(row)
+        log(f"[time] general {m:5s} {ms:.4f} ms (graphs {g:.4f}), bound "
+            f"{row['bound_ms']:.4f} ({row['pct_of_bound']:.1f}%), {regs} "
+            f"registers, {spill} B spilled, {per_sm} blocks per SM, launches "
+            f"{row['launches']} at 4096^2")
+    return rows
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
                nflops, bw, library_ms=None, op_rate=F32_PEAK,
                grid_launches=None):
@@ -6733,6 +7063,23 @@ def main() -> int:
         if failed:
             raise AssertionError(f"checks failed: {failed}")
         return 0
+    if "--wide2d" in argv:
+        errs_g = compare_general_kernels(torch, T, device)
+        gn_launches, gn_grid, gn_results, gn_solvers, failed = general_path(
+            torch, np, T, TB, lt, device)
+        mark("phase 4n")
+        bw = copy_bandwidth(torch, device)
+        gtimes, gsolves = time_general(torch, T, device, bw, card,
+                                       gn_solvers)
+        mark("phase 5n")
+        rows = general_rows(gn_launches, gn_grid, errs_g, gtimes, bw,
+                            general_attrs(build.load_library()))
+        log(json.dumps({"card": card, "wide2d": {
+            "paths": gn_results, "solves": gsolves, "kernels": rows}},
+            default=str))
+        if failed:
+            raise AssertionError(f"checks failed: {failed}")
+        return 0
     if "--breakdown" in argv:
         dim = int(argv[argv.index("--dim") + 1]) if "--dim" in argv else 3
         n = (int(argv[argv.index("--size") + 1]) if "--size" in argv
@@ -6821,6 +7168,11 @@ def main() -> int:
         torch, T, T3, TB3, lt, device)
     failed += f
     mark("phase 4m")
+    errs_g = compare_general_kernels(torch, T, device)
+    gn_launches, gn_grid, gn_results, gn_solvers, f = general_path(
+        torch, np, T, TB, lt, device)
+    failed += f
+    mark("phase 4n")
     counts_h, cli_results, probes, cli_bw = cli_path(torch, np, T, lt,
                                                      device, card)
     cli_checked = cli_checks(torch, np, lt, device)
@@ -6869,6 +7221,8 @@ def main() -> int:
                                   wz_solvers)
     conv_ms, conv_why = library_wide3d(torch, T3, device, card)
     mark("phase 5m")
+    gtimes, gsolves = time_general(torch, T, device, bw, card, gn_solvers)
+    mark("phase 5n")
     if "--profile" in sys.argv[1:]:  # last: tracing slows later launches
         profile_solve(torch, bsolver, "bicgstab_2d", card)
         for (kind3, dim), slv in solvers3.items():
@@ -7032,6 +7386,18 @@ def main() -> int:
                                  "wide-z path")
     kernels += wide_rows
     kernels.append(nop_row(nop_err, nop_times, bw))
+    # the general route of K1 and K2 (phase 4n): launches on one piece, on
+    # pieces and in the block, times at 4096^2 (phase 5n)
+    gen_rows = general_rows(gn_launches, gn_grid, errs_g, gtimes, bw,
+                            general_attrs(build.load_library()))
+    for row, m in zip(gen_rows, GEN_SSTEP):
+        row["pieces_launches"] = sum(
+            gn_results[name]["launches"].get(m, 0)
+            for name, run in GEN_RUNS.items() if run[1] > 1)
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']} never launched on the "
+                                 "general route's path")
+    kernels += gen_rows
     report = {"card": card, "kind": kind, "build_s": build_s,
               "copy_GBps": bw_copy / 1e9, "k12_GBps": k12_bw / 1e9,
               "k12_turns_ms": k12_ms,
@@ -7081,6 +7447,9 @@ def main() -> int:
                                        for (m, c), t in ztimes.items()},
                          "conv3d_ms": conv_ms, "conv3d_note": conv_why},
               "nop_ms": nop_times,
+              "general": {"paths": gn_results, "solves": gsolves,
+                          "kernel_ms": {f"{m} {st}": t
+                                        for (m, st), t in gtimes.items()}},
               "cli": {"stream_GBps": cli_bw / 1e9, "runs": cli_results,
                       "checks": cli_checked, "probes": probes,
                       "k11_rates_events": rates, **cli_report}}

@@ -118,9 +118,10 @@ def load_library() -> ctypes.CDLL:
     ``c_void_p``, so that none is cut to 32 bits)."""
     from .dia2d import DIA_ELEMS, MAX_DIA_TERMS
     from .rowperm import PIECE_ROWS
-    from .stencil2d import (MAX_TERMS, STENCIL_REACH, STEP2_COLS,
-                            STEP2_MIN_ROWS, STEP2_WARPS, STRIP_TARGETS, TILE,
-                            WIDE_Z_REACH, strip_geometry)
+    from .stencil2d import (GEN_UNIT_ELEMS, MAX_TERMS, STENCIL_REACH,
+                            STEP2_COLS, STEP2_MIN_ROWS, STEP2_WARPS,
+                            STRIP_TARGETS, TILE, WIDE_Z_REACH, general_units,
+                            strip_geometry)
     from .stencil3d import CHUNK_X, _Stencil3, march1_geometry
     from .vpu_probe import C as VPU_C, TR as VPU_TR
 
@@ -131,6 +132,10 @@ def load_library() -> ctypes.CDLL:
         "ls_gram2": [_P] * 4 + [_I, _P, _I, _I, _P, _I, _P],
         "ls_step2": [_P] * 8 + [_I, _P, _I, _I, _P, _I, _P],
         "ls_step2_nop": [_P] * 8 + [_I, _P, _I, _I, _P, _P],
+        "ls_step2_general": [_P] * 9 + [_I, _P, _I, _I, _P, _P],
+        "ls_gram2_general": [_P] * 5 + [_I, _P, _I, _I, _P, _P],
+        "ls_sstep_general_units": [_I, _I],
+        "ls_sstep_general_attrs": [_I, _P],
         "ls_bicg_pv": [_P] * 10 + [_I, _I, _I, _P, _P],
         "ls_bicg_st": [_P] * 5 + [_I, _I, _I, _P, _P],
         "ls_bicg_st_strip": [_P] * 5 + [_I, _P, _I, _I, _I, _P, _I, _P],
@@ -168,7 +173,8 @@ def load_library() -> ctypes.CDLL:
                  "ls_max_reach", "ls_wide_z",
                  "ls_dia_max_terms", "ls_dia_elems", "ls_vpu_tile_rows",
                  "ls_vpu_tile_cols", "ls_step2_cols", "ls_step2_min_rows",
-                 "ls_step2_warps", "ls_blockperm_piece_rows"):
+                 "ls_step2_warps", "ls_blockperm_piece_rows",
+                 "ls_sstep_general_unit_elems"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     lib.ls_error_string.argtypes = [ctypes.c_int]
@@ -192,6 +198,12 @@ def load_library() -> ctypes.CDLL:
                 raise RuntimeError(
                     "csrc/march2d.cuh and ops/cuda/stencil2d.py disagree "
                     f"on the strip blocks at {shape}, {target} warps")
+    if lib.ls_sstep_general_unit_elems() != GEN_UNIT_ELEMS or any(
+            lib.ls_sstep_general_units(*shape) != general_units(*shape)
+            for shape in ((4096, 4096), (1024, 4096), (16, 128), (33, 4097),
+                          (1, 5), (5000, 1))):
+        raise RuntimeError("csrc/sstep_general.cu and ops/cuda/stencil2d.py "
+                           "disagree on the general route's units")
     if lib.ls_blockperm_piece_rows() != PIECE_ROWS:
         raise RuntimeError("csrc/rowperm.cu and ops/cuda/rowperm.py "
                            "disagree on LS_BLOCKPERM_PIECE_ROWS")

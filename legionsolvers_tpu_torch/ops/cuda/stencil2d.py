@@ -27,7 +27,10 @@ kernel view, :func:`decompose_flat_offsets`) the same march runs the 1-D
 stencil with its WRAP flag, every element addressed by its flat index;
 K3 and K4 with any other stencil (|dy| <= 8, |dx| < C) run tile kernels,
 whose terms with |dx| > 8 read device memory beside the tile, and a
-second launch that sums their dots.
+second launch that sums their dots; K1 and K2 with any other stencil
+(|dy| <= 1, |dx| < C) run the general route (``csrc/sstep_general.cu``):
+one cooperative launch of stages over the whole grid, separated by a
+grid-wide barrier, the intermediates in a workspace.
 
 Semantics follow the JAX kernels.  ``x`` is the grid ``[R, C]`` (f32);
 stencil offsets are ``(dy, dx)`` pairs, |dy| <= 8 and |dx| < C.  Columns
@@ -61,7 +64,7 @@ STENCIL_REACH = 8  # 3-D gate: |oy| <= 8, march3d's window |oz| <= 8; tile
                    # halo of K3/K4/K5 (csrc: LS_MAX_REACH)
 WIDE_Z_REACH = 128  # 3-D gate: |oz| <= 128, the TPU kernel's PADZ; terms
                     # past STENCIL_REACH read beside the window (LS_WIDE_Z)
-STEP2_REACH = 1    # K1/K2 gate, and the strip route of K3, K4 and K5b
+STEP2_REACH = 1    # K1/K2 gate's |dy|; the strip route's reach (K1-K5b)
 STEP2_COLS = 120   # strip passes: output columns of a warp's strip
 STEP2_MIN_ROWS = 16  # strip passes: shortest row chunk
 STEP2_WARPS = 4    # strip passes: warps per block
@@ -78,6 +81,8 @@ XPAY_TARGET_WARPS = 132 * 8 * STEP2_WARPS
 STRIP_TARGETS = (STEP2_TARGET_WARPS, GRAM2_TARGET_WARPS, ST_TARGET_WARPS,
                  STENCIL_TARGET_WARPS, XPAY_TARGET_WARPS)
 STEP2_GRAM = 10    # doubles of a block's partial sums in the strip scratch
+GEN_UNIT_ELEMS = 8192  # general route: elements of a unit of whole rows
+                       # (csrc/sstep_general.cu: LS_GEN_UNIT_ELEMS)
 
 #: CUDA launches per pass name since the last :func:`reset_launch_counts`.
 LAUNCHES = collections.Counter()
@@ -112,19 +117,15 @@ def supports(R: int, C: int, offsets) -> bool:
             and row_reach(offsets) <= HALO_ROWS and col_reach(offsets) < C)
 
 
-def step2_supported(R: int, C: int, offsets, values=None) -> bool:
-    """Whether the s-step kernels (K1, K2) take this geometry: a reach-1
-    stencil, so that four chained applications fit the strip's 4-column
-    halo, or the flat decomposition of a reach-1 1-D stencil
-    (:func:`flat_stencil`, which needs ``values``), whose chained
-    applications stay reach 1 over the flat index.  JAX also takes other
-    stencils with |dy| <= 1 and 1 < |dx| < C (ROADMAP queue 2, "B
-    (general)")."""
-    if not (R >= 1 and C >= 1 and 1 <= len(offsets) <= MAX_TERMS):
-        return False
-    return (_reach(offsets) <= STEP2_REACH
-            or (values is not None
-                and flat_stencil(offsets, values, C) is not None))
+def step2_supported(R: int, C: int, offsets) -> bool:
+    """Whether the s-step kernels (K1, K2) take this geometry: 1 to
+    MAX_TERMS terms, |dy| <= 1 and |dx| < C, as JAX's gate.  A reach-1
+    stencil runs the strip march, the flat decomposition of a reach-1 1-D
+    stencil the strip march with WRAP, any other the general route
+    (:func:`route`).  JAX's gate also asks C % 128 == 0 and its VMEM
+    budget: TPU layout gates, which the port does not carry over."""
+    return (R >= 1 and C >= 1 and 1 <= len(offsets) <= MAX_TERMS
+            and row_reach(offsets) <= STEP2_REACH and col_reach(offsets) < C)
 
 
 _FLAT = {}
@@ -155,18 +156,20 @@ def flat_stencil(offsets, values, C: int):
     return _FLAT[key]
 
 
-def route(offsets, values, C: int):
+def route(offsets, values, C: int, sstep: bool = False):
     """(kernel route, offsets, values, wrap) of a 2-D pass: ``strip`` for a
     reach-1 stencil (the column-strip march), ``flat`` for the flat
     decomposition of a reach-1 1-D stencil (the strip march with WRAP, on
-    the 1-D stencil), ``tile`` otherwise (the 32 x 32 tile kernels, terms
-    with |dx| > 8 read from device memory beside the tile)."""
+    the 1-D stencil), otherwise ``tile`` for the one-pass kernels (the 32 x
+    32 tile kernels, terms with |dx| > 8 read from device memory beside
+    the tile) and ``general`` for the s-step passes K1 and K2 (``sstep``;
+    csrc/sstep_general.cu)."""
     if _reach(offsets) <= STEP2_REACH:
         return "strip", offsets, values, 0
     flat = flat_stencil(offsets, values, C)
     if flat is not None:
         return ("flat", *flat, 1)
-    return "tile", offsets, values, 0
+    return ("general" if sstep else "tile"), offsets, values, 0
 
 
 def decompose_flat_offsets(flat_offsets, values, C: int):
@@ -485,6 +488,38 @@ def _step2_scratch(device, R: int, C: int):
     return scratch
 
 
+def general_units(R: int, C: int) -> int:
+    """Units of a general-route launch on an [R, C] grid, as
+    ``gen_geometry`` in csrc/sstep_general.cu computes them: runs of whole
+    rows of GEN_UNIT_ELEMS elements (at least one row).  A function of the
+    shape alone, and so is the Gram's sum order."""
+    rows = min(R, max(1, GEN_UNIT_ELEMS // C))
+    return -(-R // rows)
+
+
+_GEN_SCRATCH = {}
+
+
+def _general_scratch(device, R: int, C: int):
+    """(workspace, partials, units, sync) of the general route's K1 and K2
+    launches on an [R, C] grid: two [R, C] f32 planes (K1's u, and its A p
+    then A p''; K2's A p), ten float64 partial sums per unit, and three
+    counters (the grid barrier's arrivals and generation, the last-block
+    counter; zero before the first launch, ready for the next after each),
+    made once per (device, stream, R, C): launches on one stream are
+    ordered, so they can share them."""
+    key = (device, _raw_stream(device), R, C)
+    scratch = _GEN_SCRATCH.get(key)
+    if scratch is None:
+        units = general_units(R, C)
+        scratch = (torch.empty(2 * R * C, dtype=torch.float32, device=device),
+                   torch.empty(STEP2_GRAM * units, dtype=torch.float64,
+                               device=device), units,
+                   torch.zeros(3, dtype=torch.int32, device=device))
+        _GEN_SCRATCH[key] = scratch
+    return scratch
+
+
 def _one_pass_scratch(device, R: int, C: int, kind: str):
     """(partials, capacity, counter) of a K3 or K4 launch on the route
     ``kind`` (:func:`route`): the strip scratch for the strip march; one
@@ -638,13 +673,17 @@ def grid2d_cg_xpay_pq(r, p_old, beta, r_top=None, r_bot=None, p_top=None,
 # K2 / K1: s-step passes
 # ===========================================================================
 
+def _check_sstep(R, C, offsets):
+    if not step2_supported(R, C, offsets):
+        raise ValueError("s-step kernels require 1 to MAX_TERMS terms with "
+                         f"|dy| <= 1 and |dx| < C = {C}")
+
+
 def grid2d_cg_gram2(r, p, *, offsets, values):
     """Gram vector (ordered :data:`GRAM_NAMES`) of (r, p): the s-step
     bootstrap and drift-refresh pass."""
     R, C = r.shape
-    if not step2_supported(R, C, offsets, values):
-        raise ValueError("s-step kernels require a reach-1 stencil or the "
-                         "flat decomposition of one")
+    _check_sstep(R, C, offsets)
     _check_grid("r", r)
     _check_grid("p", p, (R, C))
     if not _on_cuda(r, p):
@@ -652,11 +691,19 @@ def grid2d_cg_gram2(r, p, *, offsets, values):
     dev = r.device
     # g is fresh per pass, as step2's
     g = torch.empty(10, dtype=torch.float32, device=dev)
+    kind, k_offs, k_vals, wrap = route(offsets, values, C, sstep=True)
+    st = ctypes.byref(_stencil_struct(k_offs, k_vals))
+    if kind == "general":
+        ws, partials, units, sync = _general_scratch(dev, R, C)
+        _launch("gram2", "ls_gram2_general", (
+            _ptr(r), _ptr(p), _ptr(g), _ptr(ws), _ptr(partials), units,
+            _ptr(sync), R, C, st,
+        ), dev)
+        return g
     partials, capacity, counter = _step2_scratch(dev, R, C)
-    _, k_offs, k_vals, wrap = route(offsets, values, C)
     _launch("gram2", "ls_gram2", (
         _ptr(r), _ptr(p), _ptr(g), _ptr(partials), capacity, _ptr(counter),
-        R, C, ctypes.byref(_stencil_struct(k_offs, k_vals)), wrap,
+        R, C, st, wrap,
     ), dev)
     return g
 
@@ -668,9 +715,7 @@ def grid2d_cg_step2(x, r, p, coef, *, offsets, values,
     x is updated in place; r'' and p'' go to ``out`` (fresh buffers when
     ``None``), which may not share storage with x, r or p."""
     R, C = r.shape
-    if not step2_supported(R, C, offsets, values):
-        raise ValueError("s-step kernels require a reach-1 stencil or the "
-                         "flat decomposition of one")
+    _check_sstep(R, C, offsets)
     _check_grid("x", x, (R, C))
     _check_grid("r", r)
     _check_grid("p", p, (R, C))
@@ -688,12 +733,19 @@ def grid2d_cg_step2(x, r, p, coef, *, offsets, values,
     # g is fresh per pass: callers keep earlier passes' g (the runner's
     # history holds g[0])
     g = torch.empty(10, dtype=torch.float32, device=dev)
+    kind, k_offs, k_vals, wrap = route(offsets, values, C, sstep=True)
+    st = ctypes.byref(_stencil_struct(k_offs, k_vals))
+    if kind == "general":
+        ws, partials, units, sync = _general_scratch(dev, R, C)
+        _launch("step2", "ls_step2_general", (
+            _ptr(x), _ptr(r), _ptr(p), _ptr(c), _ptr(out[0]), _ptr(out[1]),
+            _ptr(g), _ptr(ws), _ptr(partials), units, _ptr(sync), R, C, st,
+        ), dev)
+        return x, out[0], out[1], g
     partials, capacity, counter = _step2_scratch(dev, R, C)
-    _, k_offs, k_vals, wrap = route(offsets, values, C)
     _launch("step2", "ls_step2", (
         _ptr(x), _ptr(r), _ptr(p), _ptr(c), _ptr(out[0]), _ptr(out[1]),
-        _ptr(g), _ptr(partials), capacity, _ptr(counter), R, C,
-        ctypes.byref(_stencil_struct(k_offs, k_vals)), wrap,
+        _ptr(g), _ptr(partials), capacity, _ptr(counter), R, C, st, wrap,
     ), dev)
     return x, out[0], out[1], g
 
@@ -703,10 +755,11 @@ def _grid2d_cg_nop(x, r, p, coef, *, offsets, values,
     """K1 in the JAX kernel's diagnostic mode ``nop``: step2's operands,
     buffers, loads and stores with a trivial body (:func:`nop_plain`).  No
     solve calls it; its time is K1's memory floor with step2's access
-    pattern.  Takes the reach-1 stencils K1 takes (not their flat
-    decompositions)."""
+    pattern.  Takes the reach-1 stencils of K1's strip route (not the
+    flat decompositions or the general route's stencils)."""
     R, C = r.shape
-    if not step2_supported(R, C, offsets):
+    if not (step2_supported(R, C, offsets)
+            and _reach(offsets) <= STEP2_REACH):
         raise ValueError("K1 nop requires a reach-1 stencil")
     _check_grid("x", x, (R, C))
     _check_grid("r", r)

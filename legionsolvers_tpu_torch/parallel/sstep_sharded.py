@@ -40,6 +40,10 @@ from .overlap import exchange_halos
 
 HALO = 4        # pre-exchanged rows per edge (= max application depth)
 STRIP = 8       # local rows entering each edge strip
+# the widest |dx| of a stencil whose s-step passes run on pieces: the JAX
+# package's limit (its PADC - 8, ``parallel/stencil_op.py``
+# ``step2_eligible``), kept so that both packages run the same schedule
+MAX_DX = 120
 EXT = HALO + STRIP
 
 # the order of the stacked strips of one piece in a fix-up's batch

@@ -627,16 +627,18 @@ class StencilOperator:
     @property
     def step2_eligible(self) -> bool:
         """Whether the s-step schedule (two iterations per K1 pass) applies:
-        2-D kernel view within K1's gate (``stencil2d.step2_supported``: a
-        reach-1 stencil, or the 1-D view of a reach-1 1-D stencil), not
-        disabled by LEGIONSOLVERS_NO_SSTEP.  Pieces qualify on a mesh with
-        blocks of at least 2 * STRIP rows, so that the two edge strips of a
-        piece do not overlap; the passes stay zero-halo and
+        2-D kernel view within K1's gate (``stencil2d.step2_supported``:
+        |dy| <= 1 and |dx| < C; the strip march for a reach-1 stencil or
+        the 1-D view of a reach-1 1-D stencil, the general route for any
+        other), not disabled by LEGIONSOLVERS_NO_SSTEP.  Pieces qualify on
+        a mesh with blocks of at least 2 * STRIP rows, so that the two edge
+        strips of a piece do not overlap, and with no |dx| past MAX_DX, as
+        in the JAX package; the passes stay zero-halo and
         ``parallel/sstep_sharded.py`` repairs their edges.  A 1-D view on
         pieces does not qualify: as in the JAX package, whose edge fix-ups
         do not model the row-wrap terms, it runs the two-pass schedule."""
         from ..ops.cuda.stencil2d import step2_supported
-        from .sstep_sharded import STRIP
+        from .sstep_sharded import MAX_DX, STRIP
 
         if os.environ.get("LEGIONSOLVERS_NO_SSTEP"):
             return False
@@ -644,9 +646,10 @@ class StencilOperator:
         if v is None or v["kind"] == "3d":
             return False
         if self.partition.num_pieces > 1:
-            if self.mesh is None or v["Br"] < 2 * STRIP or v["flat"]:
+            if (self.mesh is None or v["Br"] < 2 * STRIP or v["flat"]
+                    or any(abs(dx) > MAX_DX for _, dx in v["offs"])):
                 return False
-        return step2_supported(v["Br"], v["C"], v["offs"], v["vals"])
+        return step2_supported(v["Br"], v["C"], v["offs"])
 
     def _make_step2_cg_runner(self, num_iterations: int):
         """s-step fused CG: one K1 pass per TWO iterations, both

@@ -167,35 +167,32 @@ def test_apply_plain_takes_the_row_wrap_terms():
 @pytest.mark.parametrize("stencil", SSTEP)
 @pytest.mark.parametrize("mode", ["gram2", "step2"])
 def test_sstep_plain_matches_jax(mode, stencil):
-    """K2 and K1: the wrappers on the flat views, the plain versions on a
-    general wide stencil (which the port's K1/K2 gate refuses: ROADMAP
-    queue 2, "B (general)")."""
+    """K2 and K1: the wrappers on the flat views and on a general wide
+    stencil, which the port's K1/K2 gate takes as JAX's does (the flat
+    route, and the general route: ROADMAP queue 2, "B (general)")."""
     shape, (offs, vals) = STENCILS[stencil]
     kw = dict(offsets=offs, values=vals)
     d = inputs(shape, seed=11, halos=False)
     t = {k: torch.from_numpy(d[k].copy()) for k in ("x", "r", "p")}
     a = {k: jnp.asarray(d[k]) for k in ("x", "r", "p")}
     is_flat = stencil.startswith("flat")
-    assert TS.step2_supported(*shape, offs, vals) is is_flat
+    assert TS.step2_supported(*shape, offs)
+    assert TS.route(offs, vals, shape[1], sstep=True)[0] == (
+        "flat" if is_flat else "general")
     if mode == "gram2":
-        fn = TS.grid2d_cg_gram2 if is_flat else TS.gram2_plain
-        got = {"gram": fn(t["r"], t["p"], **kw)}
+        got = {"gram": TS.grid2d_cg_gram2(t["r"], t["p"], **kw)}
         ref = {"gram": JS.grid2d_cg_gram2(a["r"], a["p"], interpret=True,
                                           **kw)}
         close(got, ref, gram_bounds(d["r"], d["p"], offs, vals))
         return
     coef = TS.cg2_coeffs(TS.gram2_plain(t["r"], t["p"], **kw))[0]
-    fn = TS.grid2d_cg_step2 if is_flat else TS.step2_plain
-    xo, ro, po, go = fn(t["x"], t["r"], t["p"], coef, **kw)
+    xo, ro, po, go = TS.grid2d_cg_step2(t["x"], t["r"], t["p"], coef, **kw)
     x, r, p, g = JS.grid2d_cg_step2(a["x"], a["r"], a["p"],
                                     jnp.asarray(coef.numpy()),
                                     interpret=True, **kw)
     close({"x": xo, "r": ro, "p": po}, {"x": x, "r": r, "p": p})
     close({"gram": go}, {"gram": g},
           gram_bounds(np.asarray(r), np.asarray(p), offs, vals))
-    if not is_flat:
-        with pytest.raises(ValueError, match="reach-1"):
-            TS.grid2d_cg_step2(t["x"], t["r"], t["p"], coef, **kw)
 
 
 BICG = {"pv": ("p", "v", "rtv"), "st": ("ts", "tt"),

@@ -1807,3 +1807,128 @@ def test_k1_nop_matches_plain_on_card(shape, cuda_device):
              * torch.linalg.vector_norm(d["p"].double())).item()
     assert abs(k1[3][0].item() - ref[3][0].item()) <= 1e-5 * scale
     assert not k1[3][1:].any()
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 on the general route ("B (general)"): |dy| <= 1, any |dx| < C
+# ---------------------------------------------------------------------------
+
+_S2_GEN = (KW["offsets"] + ((0, 2), (0, -2), (0, 37), (0, -37), (1, 100),
+                            (-1, -100), (1, -100), (-1, 100)),
+           (7.0, -1.0, -1.0, -1.0, -1.0, -0.5, -0.5, -0.5, -0.5, -0.25,
+            -0.25, -0.25, -0.25))
+_S2_4X = (((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1), (0, -2), (0, 2)),
+          (4.5, -1.0, -1.0, -16 / 12, -16 / 12, 1 / 12, 1 / 12))
+GENERAL = {
+    "S2_gen": lambda C: _S2_GEN,
+    "S2_4x": lambda C: _S2_4X,
+    "wide(C)": lambda C: (KW["offsets"] + ((0, 37), (0, -37), (-1, 100),
+                                           (1, -(C - 1))),
+                          (5.0, -1.0, -1.0, -1.0, -1.0, -0.25, -0.25, -0.5,
+                           -0.5)),
+    "(+-1, -+(C - 1)), no centre": lambda C: (
+        ((0, 3), (1, -(C - 1)), (-1, C - 1), (0, -3)),
+        (1.0, -0.25, -0.25, 1.0)),
+}
+# rows under 8, C not a multiple of 4 or 128, |dx| = C - 1 at 4096
+GENERAL_SHAPES = [(16, 128), (5, 130), (1, 101), (33, 4097), (64, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GENERAL_SHAPES)
+@pytest.mark.parametrize("stencil", list(GENERAL))
+def test_k1_k2_general_match_plain_on_card(stencil, shape, cuda_device):
+    """K1 and K2 on the general route against step2_plain and gram2_plain
+    (chip_smoke.py's phase 3 bounds: arrays 1e-5 * max|ref|, Gram entries
+    1e-4 of their Cauchy-Schwarz scale), one launch each, x updated in
+    place, repeats bit for bit."""
+    offs, vals = GENERAL[stencil](shape[1])
+    if max(abs(dx) for _, dx in offs) >= shape[1]:
+        pytest.skip("|dx| >= C: off the gate at this width")
+    assert T.route(offs, vals, shape[1], sstep=True)[0] == "general"
+    kw = dict(offsets=offs, values=vals)
+    rng = np.random.default_rng(37)
+    d = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(cuda_device) for k in ("x", "r", "p")}
+    coef = T.cg2_coeffs(T.gram2_plain(d["r"], d["p"], **kw))[0]
+    T.reset_launch_counts()
+    runs = []
+    for fn in (T.grid2d_cg_step2, T.grid2d_cg_step2, T.step2_plain):
+        c = {k: v.clone() for k, v in d.items()}
+        res = fn(c["x"], c["r"], c["p"], coef, **kw)
+        assert res[0] is c["x"]
+        runs.append([t.cpu() for t in res])
+    g1, g2, gref = (fn(d["r"], d["p"], **kw).double().cpu() for fn in (
+        T.grid2d_cg_gram2, T.grid2d_cg_gram2, T.gram2_plain))
+    assert dict(T.LAUNCHES) == {"step2": 2, "gram2": 2}
+    k1, k2, ref = runs
+    assert all(torch.equal(a, b) for a, b in zip(k1, k2))
+    assert torch.equal(g1, g2)
+    for have, want in zip(k1[:3], ref[:3]):
+        np.testing.assert_allclose(have.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+    bound = gram_bounds(ref[1].numpy(), ref[2].numpy(), offs, vals)
+    np.testing.assert_array_less(
+        np.abs(k1[3].double().numpy() - ref[3].double().numpy()),
+        1e-4 * bound)
+    bound = gram_bounds(d["r"].cpu().numpy(), d["p"].cpu().numpy(), offs,
+                        vals)
+    np.testing.assert_array_less(np.abs((g1 - gref).numpy()), 1e-4 * bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pieces,spaces", [(1, 1), (4, 1), (1, 2)])
+def test_general_sstep_solve_matches_plain_on_card(pieces, spaces,
+                                                   cuda_device, monkeypatch):
+    """s-step CG solve(41) with S2_gen at (256, 512) through
+    ``entry.build_stencil_system(stencil=)`` on one piece, 4 pieces and a
+    2-space block: K2 2 and K1 20 per piece and space, K3 update once
+    (the odd tail), and the history and x against the same runner driven
+    by the plain versions (rtol 1e-3, x 1e-3 of max|x|)."""
+    import legionsolvers_tpu_torch as lt
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    mesh = (make_mesh(pieces, devices=[cuda_device] * pieces) if pieces > 1
+            else None)
+    k = pieces * spaces
+    runs = []
+    for use_plain in (False, True):
+        planner = build_stencil_system(2, (256, 512), f32, cuda_device,
+                                       num_spaces=spaces, mesh=mesh,
+                                       stencil=list(zip(*_S2_GEN)))
+        assert planner.row_partitioned_matrices[0][0].step2_eligible
+        with monkeypatch.context() as m:
+            if use_plain:
+                m.setattr(T, "grid2d_cg_step2", T.step2_plain)
+                m.setattr(T, "grid2d_cg_gram2", T.gram2_plain)
+            T.reset_launch_counts()
+            hist = lt.CGSolver(planner).solve(41).cpu().double().numpy()
+        assert dict(T.LAUNCHES) == ({"update": k} if use_plain else {
+            "step2": 20 * k, "gram2": 2 * k, "update": k})
+        runs.append((hist, [planner.sol_vectors[s].to_numpy()
+                            for s in range(spaces)]))
+    (hk, xk), (hp, xp) = runs
+    assert len(hk) == 42 and np.isfinite(hk).all()
+    np.testing.assert_allclose(hk, hp, rtol=1e-3)
+    for a, b in zip(xk, xp):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-3 * np.abs(b).max())
+
+
+@pytest.mark.cuda
+def test_general_attrs_on_card(cuda_device):
+    """The general route's kernels report their registers and hold at
+    least one block per SM (a cooperative launch needs every block
+    resident); the library's units match ``general_units``."""
+    import ctypes
+
+    from legionsolvers_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    for which in (0, 1):
+        out = (ctypes.c_int * 3)()
+        assert lib.ls_sstep_general_attrs(which, out) == 0
+        assert 0 < out[0] <= 255 and out[2] >= 1, list(out)
+    for shape in ((4096, 4096), (1024, 4096), (5, 130), (1, 101)):
+        assert lib.ls_sstep_general_units(*shape) == T.general_units(*shape)

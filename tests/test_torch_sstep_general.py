@@ -1,0 +1,282 @@
+"""The s-step passes K1 (step2) and K2 (gram2) on the general route ("B
+(general)": 2-D stencils with |dy| <= 1 and any |dx| < C that are neither
+reach 1 nor a flat 1-D decomposition), the port against the JAX package on
+the CPU.
+
+Stencils, both symmetric and positive definite under Dirichlet truncation:
+
+* S2_GEN, 13 terms: the 5-point cross with 7.0 at the centre, (0, +-2)
+  and (0, +-37) with -0.5, (+-1, +-100) with -0.25 (weakly diagonally
+  dominant, as ill-conditioned as the Laplacian);
+* S2_4X, -d_xx to fourth order plus -d_yy to second order: (0, 0) 4.5,
+  (+-1, 0) -1, (0, +-1) -16/12, (0, +-2) 1/12;
+* ``wide(C)`` of ``test_torch_flat1d.py``, whose (1, -(C - 1)) spans the
+  whole width of JAX's gate.
+
+The same numpy inputs go through JAX's ``grid2d_cg_step2`` and
+``grid2d_cg_gram2`` in interpret mode and through the port's wrappers,
+which run their plain versions on CPU tensors (``test_torch_flat1d.py``'s
+tolerances: arrays atol 1e-4 * max|ref|, Gram entries 1e-4 of their
+Cauchy-Schwarz scale).  CG solves run JAX's s-step runner and the port's
+on (64, 256) at ``test_20_sstep.py``'s tolerances (history rtol 5e-4, x
+within 2e-3 of max|x|): one piece at 40 and 41 iterations and at 40 with
+LEGIONSOLVERS_SSTEP_REFRESH=2, 4 pieces (JAX's ``mesh4``, blocks of 16
+rows) and a 2-space block at 41 iterations, where the port's solve(40)
+must give the first 41 entries of its solve(41) bit for bit.
+
+Where the gates differ: JAX's also asks C % 128 == 0 and a VMEM budget
+(which refuses R = 13, R = 1 or C = 8), TPU layout gates that Hopper does
+not have, so the port takes those shapes; the port asks at most 32 terms
+(its kernels' stencil argument, as every 2-D kernel's), JAX does not.
+"""
+
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import legionsolvers_tpu as J
+import legionsolvers_tpu_torch as T
+from legionsolvers_tpu.ops.pallas import stencil2d as JS
+from legionsolvers_tpu_torch.ops.cuda import stencil2d as TS
+from legionsolvers_tpu_torch.parallel.sstep_sharded import MAX_DX
+from tests.test_torch_flat1d import close, wide
+from tests.test_torch_sharded_solvers import env, hist_of, sol, system
+from torch_stencil_cases import gram_bounds
+
+torch.set_num_threads(2)
+
+CROSS = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
+S2_GEN = list(zip(
+    CROSS + ((0, 2), (0, -2), (0, 37), (0, -37), (1, 100), (-1, -100),
+             (1, -100), (-1, 100)),
+    (7.0, -1.0, -1.0, -1.0, -1.0, -0.5, -0.5, -0.5, -0.5, -0.25, -0.25,
+     -0.25, -0.25)))
+S2_4X = list(zip(
+    ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1), (0, -2), (0, 2)),
+    (4.5, -1.0, -1.0, -16 / 12, -16 / 12, 1 / 12, 1 / 12)))
+
+
+def wide_terms(C):
+    return list(zip(*wide(C)))
+
+
+STENCILS = {"S2_GEN": lambda C: S2_GEN, "S2_4X": lambda C: S2_4X,
+            "wide": wide_terms}
+SHAPE = (64, 256)
+
+
+def kw_of(terms):
+    return dict(offsets=tuple(o for o, _ in terms),
+                values=tuple(v for _, v in terms))
+
+
+def offs(name, C):
+    return kw_of(STENCILS[name](C))["offsets"]
+
+
+# -- the gates ---------------------------------------------------------------
+
+def pair(dx):
+    """The cross with (0, +-dx), a symmetric term pair."""
+    return CROSS + ((0, dx), (0, -dx))
+
+
+# (R, C, offsets, JAX takes it, the port takes it)
+GATES = {
+    "S2_GEN 4096^2": (4096, 4096, offs("S2_GEN", 4096), True, True),
+    "S2_GEN 1024 x 4096 (a piece)": (1024, 4096, offs("S2_GEN", 4096), True,
+                                     True),
+    "S2_GEN (64, 256)": (64, 256, offs("S2_GEN", 256), True, True),
+    "S2_GEN (16, 128)": (16, 128, offs("S2_GEN", 128), True, True),
+    "S2_4X 4096^2": (4096, 4096, offs("S2_4X", 4096), True, True),
+    "S2_4X (16, 128)": (16, 128, offs("S2_4X", 128), True, True),
+    "wide(128) (16, 128)": (16, 128, offs("wide", 128), True, True),
+    "wide(4096) 4096^2": (4096, 4096, offs("wide", 4096), True, True),
+    "|dx| = C - 1 = 4095": (4096, 4096, CROSS + ((1, -4095), (-1, 4095)),
+                            True, True),
+    # C % 128 and the VMEM budget are the TPU's, not Hopper's
+    "S2_GEN C = 200": (64, 200, offs("S2_GEN", 200), False, True),
+    "S2_GEN R = 13": (13, 256, offs("S2_GEN", 256), False, True),
+    "S2_GEN R = 1": (1, 128, offs("S2_GEN", 128), False, True),
+    "S2_4X (5, 8)": (5, 8, offs("S2_4X", 8), False, True),
+    "|dy| = 2": (64, 256, CROSS + ((2, 0), (-2, 0)), False, False),
+    "|dy| = 2 wide": (64, 256, CROSS + ((2, 100),), False, False),
+    "|dx| = C": (64, 128, CROSS + ((0, 128),), False, False),
+    # the kernels' stencil argument holds 32 terms
+    "33 terms": (64, 256, tuple((0, k - 16) for k in range(33)), True,
+                 False),
+}
+
+
+@pytest.mark.parametrize("case", list(GATES))
+def test_gates_of_both_packages(case):
+    """JAX's ``step2_supported`` and the port's on the table above; the
+    port routes what it takes past reach 1 and off the flat view to the
+    general route."""
+    R, C, o, jax_takes, port_takes = GATES[case]
+    assert JS.step2_supported(R, C, o) is jax_takes
+    assert TS.step2_supported(R, C, o) is port_takes
+    if port_takes and TS._reach(o) > 1:
+        vals = (1.0,) * len(o)
+        assert TS.route(o, vals, C, sstep=True)[0] == "general"
+        assert TS.route(o, vals, C)[0] == "tile"
+
+
+# (stencil terms, pieces, JAX and the port run the s-step)
+ELIGIBLE = {
+    "S2_GEN": (S2_GEN, 1, True),
+    "S2_GEN 4 pieces": (S2_GEN, 4, True),
+    "S2_4X": (S2_4X, 1, True),
+    "S2_4X 4 pieces": (S2_4X, 4, True),
+    "wide(256)": (wide_terms(256), 1, True),
+    # JAX's edge fix-ups on pieces take |dx| <= PADC - 8 = 120
+    "wide(256) 4 pieces": (wide_terms(256), 4, False),
+    "|dx| = 120 4 pieces": (list(zip(pair(120), (5.0,) + (-1.0,) * 6)), 4,
+                            True),
+    "|dx| = 121 4 pieces": (list(zip(pair(121), (5.0,) + (-1.0,) * 6)), 4,
+                            False),
+    "|dx| = 121": (list(zip(pair(121), (5.0,) + (-1.0,) * 6)), 1, True),
+}
+
+
+@pytest.mark.parametrize("case", list(ELIGIBLE))
+def test_step2_eligible_matches_jax(case, mesh4):
+    """``StencilOperator.step2_eligible`` of both packages at (64, 256)
+    on one piece and on 4 (blocks of 16 rows): the port runs the s-step
+    where JAX does, on pieces up to |dx| = MAX_DX."""
+    terms, pieces, want = ELIGIBLE[case]
+    assert MAX_DX == JS.PADC - 8
+    n = SHAPE[0] * SHAPE[1]
+    opj = J.StencilOperator(SHAPE, terms, partition=J.BlockPartition(
+        n, pieces), mesh=mesh4 if pieces == 4 else None,
+        options=J.SolverOptions(entry_dtype=jnp.float32))
+    _, opt = system(T, SHAPE, pieces, stencil=terms)
+    assert opj.uses_pallas and opt.uses_pallas
+    assert opt._view["offs"] == opj._view["offs"]
+    assert opj.step2_eligible is want
+    assert opt.step2_eligible is want
+
+
+# -- the wrappers against JAX's interpret-mode kernels ------------------------
+
+KERNEL_CASES = {"S2_GEN (16, 128)": ("S2_GEN", (16, 128)),
+                "S2_GEN (64, 256)": ("S2_GEN", (64, 256)),
+                "S2_4X (16, 128)": ("S2_4X", (16, 128)),
+                "S2_4X (64, 256)": ("S2_4X", (64, 256)),
+                "wide(128) (16, 128)": ("wide", (16, 128))}
+
+
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+@pytest.mark.parametrize("mode", ["gram2", "step2"])
+def test_kernels_match_jax(mode, case):
+    """K2 and K1 through the port's wrappers (the general route's plain
+    versions on CPU tensors; nothing launches) against JAX's kernels."""
+    name, shape = KERNEL_CASES[case]
+    kw = kw_of(STENCILS[name](shape[1]))
+    assert TS.route(kw["offsets"], kw["values"], shape[1],
+                    sstep=True)[0] == "general"
+    rng = np.random.default_rng(41 + len(mode))
+    d = {k: rng.standard_normal(shape).astype(np.float32)
+         for k in ("x", "r", "p")}
+    t = {k: torch.from_numpy(v.copy()) for k, v in d.items()}
+    a = {k: jnp.asarray(v) for k, v in d.items()}
+    TS.reset_launch_counts()
+    if mode == "gram2":
+        got = {"gram": TS.grid2d_cg_gram2(t["r"], t["p"], **kw)}
+        ref = {"gram": JS.grid2d_cg_gram2(a["r"], a["p"], interpret=True,
+                                          **kw)}
+        close(got, ref, gram_bounds(d["r"], d["p"], kw["offsets"],
+                                    kw["values"]))
+    else:
+        coef = TS.cg2_coeffs(TS.gram2_plain(t["r"], t["p"], **kw))[0]
+        xo, ro, po, go = TS.grid2d_cg_step2(t["x"], t["r"], t["p"], coef,
+                                            **kw)
+        assert xo is t["x"]  # in place
+        x, r, p, g = JS.grid2d_cg_step2(a["x"], a["r"], a["p"],
+                                        jnp.asarray(coef.numpy()),
+                                        interpret=True, **kw)
+        close({"x": xo, "r": ro, "p": po}, {"x": x, "r": r, "p": p})
+        close({"gram": go}, {"gram": g},
+              gram_bounds(np.asarray(r), np.asarray(p), kw["offsets"],
+                          kw["values"]))
+    assert not TS.LAUNCHES
+
+
+@pytest.mark.parametrize("bad", ["|dy| = 2", "|dx| = C", "nop"])
+def test_wrappers_refuse(bad):
+    """Outside the gate the wrappers raise, on the CPU as on the card; K1's
+    nop mode keeps the strip route's reach-1 stencils."""
+    x, r, p = (torch.zeros(16, 128) for _ in range(3))
+    coef = torch.zeros(6)
+    kw = {"|dy| = 2": dict(offsets=CROSS + ((2, 0),), values=(1.0,) * 6),
+          "|dx| = C": dict(offsets=CROSS + ((0, 128),), values=(1.0,) * 6),
+          "nop": kw_of(S2_GEN)}[bad]
+    with pytest.raises(ValueError):
+        if bad == "nop":
+            TS._grid2d_cg_nop(x, r, p, coef, **kw)
+        else:
+            TS.grid2d_cg_step2(x, r, p, coef, **kw)
+    if bad != "nop":
+        with pytest.raises(ValueError):
+            TS.grid2d_cg_gram2(r, p, **kw)
+
+
+def test_general_units_mirror_csrc():
+    """``general_units`` mirrors ``gen_geometry`` of
+    csrc/sstep_general.cu (also checked when the library loads): units of
+    whole rows, LS_GEN_UNIT_ELEMS elements, at least one row."""
+    src = (TS.__file__.rsplit("ops", 1)[0] + "csrc/sstep_general.cu")
+    with open(src) as f:
+        elems = re.search(r"#define LS_GEN_UNIT_ELEMS (\d+)", f.read())
+    assert int(elems.group(1)) == TS.GEN_UNIT_ELEMS
+    assert TS.general_units(4096, 4096) == 2048
+    assert TS.general_units(1024, 4096) == 512
+    assert TS.general_units(16, 128) == 1
+    assert TS.general_units(33, 4097) == 33
+    assert TS.general_units(1, 5) == 1
+
+
+# -- CG solves ---------------------------------------------------------------
+
+# (stencil, pieces, spaces, iterations, environment)
+SOLVES = {
+    "one piece 40": (S2_GEN, 1, 1, 40, {}),
+    "one piece 41": (S2_GEN, 1, 1, 41, {}),
+    "one piece 40 refresh 2": (S2_GEN, 1, 1, 40,
+                               {"LEGIONSOLVERS_SSTEP_REFRESH": "2"}),
+    "4 pieces 41": (S2_GEN, 4, 1, 41, {}),
+    "2-space block 41": (S2_4X, 1, 2, 41, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(SOLVES))
+def test_sstep_solve_matches_jax(case, mesh4):
+    """CG on the s-step schedule in both packages (the port's K1/K2 on the
+    general route, their plain versions here): history rtol 5e-4 and x
+    within 2e-3 of max|x| in every space.  At 41 iterations the port's
+    solve(40) must give the first 41 entries of its solve(41) bit for
+    bit (the same passes, without the odd tail)."""
+    terms, pieces, spaces, iters, flags = SOLVES[case]
+    with env(**flags):
+        pj, opj = system(J, SHAPE, pieces, stencil=terms, num_spaces=spaces)
+        pt, opt = system(T, SHAPE, pieces, stencil=terms, num_spaces=spaces)
+        assert opj.step2_eligible and opt.step2_eligible
+        assert TS.route(opt._view["offs"], opt._view["vals"], SHAPE[1],
+                        sstep=True)[0] == "general"
+        hj = hist_of(J.CGSolver(pj).solve(iters))
+        st = T.CGSolver(pt)
+        ht = hist_of(st.solve(iters))
+        assert len(ht) == len(hj) == iters + 1
+        np.testing.assert_allclose(ht, hj, rtol=5e-4)
+        for space in range(spaces):
+            xj = sol(pj, space)
+            np.testing.assert_allclose(sol(pt, space), xj, rtol=0,
+                                       atol=2e-3 * np.abs(xj).max())
+        if iters % 2:
+            pt.zero_fill(st.SOL)
+            st.reset()
+            np.testing.assert_array_equal(hist_of(st.solve(iters - 1)),
+                                          ht[:iters])

@@ -133,12 +133,20 @@ def test_gates():
     assert T.supports(64, 128, OFFS + ((0, -9),))
     assert T.supports(64, 128, OFFS + ((0, -127),))
     assert not T.supports(64, 128, OFFS + ((0, -128),))
-    # K1/K2: reach 1, or the flat decomposition of a reach-1 1-D stencil
+    # K1/K2: |dy| <= 1 and any |dx| < C, as JAX's gate: the flat
+    # decomposition of a reach-1 1-D stencil runs the strip march with
+    # WRAP, any other stencil past reach 1 the general route
     flat = T.decompose_flat_offsets((0, -1, 1), (2.0, -1.0, -1.0), 128)
-    assert T.step2_supported(64, 128, *flat)
-    assert not T.step2_supported(64, 128, flat[0])
-    assert not T.step2_supported(64, 128, OFFS + ((0, -9),),
-                                 VALS + (-0.5,))
+    assert T.step2_supported(64, 128, flat[0])
+    assert T.route(*flat, 128, sstep=True)[0] == "flat"
+    assert T.step2_supported(64, 128, OFFS + ((0, -9),))
+    wide9 = (OFFS + ((0, -9),), VALS + (-0.5,))
+    assert T.route(*wide9, 128, sstep=True)[0] == "general"
+    assert T.route(*wide9, 128)[0] == "tile"
+    assert T.step2_supported(64, 128, OFFS + ((1, -127),))
+    assert not T.step2_supported(64, 128, OFFS + ((-2, 5),))
+    assert not T.step2_supported(64, 128, OFFS + ((0, 128),))
+    assert not T.step2_supported(64, 128, OFFS + ((1, -128),))
 
 
 def test_ragged_shape_plain_matches_dense_oracle():
