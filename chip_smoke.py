@@ -305,8 +305,9 @@ grid as ``[n // C, C]`` and the kernels run its row-wrap terms, |dx| = C -
 
 Wide z shifts on the 3-D kernels (kernel item C: S_wide, the 7-point
 cross with center 8.5 plus (0, 0, +-12), (0, +-3, +-100) and (+-1, 0,
-+-128), whose terms past |oz| = 8 march3d reads beside its window), and
-K1's nop mode (item D):
++-128), whose terms past |oz| = 8 march3d reads beside its window; K6b
+runs the window march, whose window holds them), and K1's nop mode (item
+D):
 
 4m. K6a's four modes, K6b and K7 (compensated dots off and on) with S_wide
    against their plain versions at 256^3 and at (37, 45, 130), (1, 5,
@@ -324,7 +325,8 @@ K1's nop mode (item D):
    entries where it stays within 1e-3 (f32 CG on S_wide falls past f32's
    accuracy within ~120 iterations), BiCGStab within FLAT_BICG_RTOL of
    float64 BiCGStab where textbook f32 stays within a tenth of it, GMRES
-   non-increasing;
+   non-increasing; K6b's window march's registers, spill bytes, shared
+   memory and blocks per SM with S_wide at 256^3 (``[window3d]``);
 5m. each wide-z pass at 256^3 with CUDA events and in CUDA graphs beside
    its plain version, ``F.conv3d`` over S_wide's dense (3, 7, 257) box
    computing K6a's y, and each 4m solve's ms/iter, host enqueue and idle
@@ -333,25 +335,34 @@ K1's nop mode (item D):
 "B (general)", the s-step passes K1 and K2 on their general route
 (``csrc/sstep_general.cu``) for 2-D stencils with |dy| <= 1 and any |dx|
 < C that are neither reach 1 nor a flat decomposition: S2_gen (the cross
-with 7.0 at the centre, (0, +-2), (0, +-37), (+-1, +-100)) and S2_4x
-(-d_xx to fourth order plus -d_yy to second):
+with 7.0 at the centre, (0, +-2), (0, +-37), (+-1, +-100)), S2_4x (-d_xx
+to fourth order plus -d_yy to second) and S2_far (S2_gen with (+-1,
++-200) for (+-1, +-100)).  K1 runs the band march (route ``general``)
+where its gate takes the stencil, the cooperative kernel
+(``general_coop``: S2_far at 4096 columns) where it does not; K2 runs
+the cooperative kernel:
 
-4n. K1 and K2 against step2_plain and gram2_plain at 4096^2 with both and
-   at 16 x 128 with ``wide(128)``, 4096^2 with (+-1, -+4095), 5 x 130 and
-   1 x 101 (S2_4x), 33 x 4097 (S2_gen) and 7 x 130 with no (0, 0) term;
-   phase 3's bounds, repeats bit for bit.  Then
+4n. K1 and K2 against step2_plain and gram2_plain at 4096^2 with S2_gen
+   and S2_4x and at 16 x 128 with ``wide(128)``, 4096^2 with (+-1,
+   -+4095) (the cooperative K1), 5 x 130 and 1 x 101 (S2_4x), 33 x 4097
+   (S2_gen) and 7 x 130 with no (0, 0) term; phase 3's bounds, repeats
+   bit for bit, each shape on the route its gate gives; the band march's
+   registers, spill bytes, shared memory and blocks per SM with S2_gen
+   and S2_4x at 4096 columns (``[band]``).  Then
    ``entry.build_stencil_system(2, (4096, 4096), stencil=...)``: CG
    solve(200) with S2_gen on one piece and on 4 pieces, with S2_4x on one
-   piece and as a 2-space block, each launching exactly K1 100 and K2 7
-   per piece and space and nothing of the two-pass schedule, no plain
-   version called, a repeat bit for bit, every launch of a third run held
-   to its plain version (:class:`shadowed`), and history and x within
-   twice textbook f32 CG's distance from float64 CG (floor 1e-4);
-5n. both kernels at 4096^2 (S2_gen, S2_4x) with CUDA events and in CUDA
-   graphs beside their plain versions, and each 4n solve's ms/iter, host
-   enqueue and idle share on the s-step schedule and under
-   LEGIONSOLVERS_NO_SSTEP (the two-pass schedule the port ran for these
-   stencils before).  ``--wide2d`` runs 4n and 5n alone.
+   piece and as a 2-space block, and with S2_far on one piece, each
+   launching exactly K1 100 and K2 7 per piece and space and nothing of
+   the two-pass schedule, no plain version called, a repeat bit for bit,
+   every launch of a third run held to its plain version
+   (:class:`shadowed`), and history and x within twice textbook f32 CG's
+   distance from float64 CG (floor 1e-4);
+5n. K1 on the band march with S2_gen and S2_4x, K1 on the cooperative
+   kernel with S2_far and K2 with S2_gen and S2_4x at 4096^2 with CUDA
+   events and in CUDA graphs beside their plain versions, and the
+   S2_gen and S2_4x solves' ms/iter, host enqueue and idle share on the
+   s-step schedule and under LEGIONSOLVERS_NO_SSTEP (the two-pass
+   schedule).  ``--wide2d`` runs 4n and 5n alone.
 
 To make room for 4m and 5m, phase 5j's and 5k's idle traces cover about
 TRACE_OPS (2000) glue operations each, a third of what they did.
@@ -424,8 +435,9 @@ BICG3_KERNELS = {"bicg3d_pv": (243, 24), "bicg3d_st": (243, 8),
                  "bicg3d_update": (243, 28)}
 # The passes on the reach-1 register march (march1), every 3-D pass: each
 # is one launch, its dots folded into its last block; with REACH2 each
-# runs march3d and a second launch (reduce_partials) for its dots, and so
-# does K7 update with compensated dots (csrc/bicgstab3d.cu says why).
+# but K6b (the window march, one launch) runs march3d and a second launch
+# (reduce_partials) for its dots, and so does K7 update with compensated
+# dots (csrc/bicgstab3d.cu says why).
 MARCH1_PASSES = ("y3d", "y_dot3d", "pq3d", "update3d", "xpay_pq3d",
                  "bicg3d_pv", "bicg3d_st", "bicg3d_update")
 MARCH3D_COMPENSATED = ("bicg3d_update",)
@@ -1962,10 +1974,11 @@ def check_one_launch_3d(torch, lt, T3, TB3, device):
     """Phase 3c: the passes of MARCH1_PASSES, with the 7- and 27-point
     stencils (compensated dots off and on, but off alone for those of
     MARCH3D_COMPENSATED), launch one kernel, a march1 kernel, and no
-    reduce_partials; every pass with a dot on REACH2 (march3d), and those
-    of MARCH3D_COMPENSATED with compensated dots, launch their second,
-    which shows that the trace sees the second launch.  Returns {case:
-    kernel names}."""
+    reduce_partials; K6b on REACH2 one kernel, the window march's; every
+    other pass with a dot on REACH2 (march3d), and those of
+    MARCH3D_COMPENSATED with compensated dots, launch their second, which
+    shows that the trace sees the second launch.  Returns {case: kernel
+    names}."""
     d = inputs3d(torch, RAGGED3, 31, device)
     seen, bad, calls = {}, [], {}
     for dim in (*DIMS3, REACH2):
@@ -1985,6 +1998,8 @@ def check_one_launch_3d(torch, lt, T3, TB3, device):
                   and not (comp and name in MARCH3D_COMPENSATED))
         if march1:
             ok = len(names) == 1 and "m1_kernel" in names[0] and not second
+        elif name == "xpay_pq3d":  # the window march: one launch
+            ok = len(names) == 1 and "win_kernel" in names[0] and not second
         else:
             ok = second or name == "y3d"
         if not ok:
@@ -6217,6 +6232,8 @@ def compare_wide3d_kernels(torch, T3, TB3, device):
     max abs error} (K7: the larger of both dot modes)."""
     nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
     errs = {}
+    if T3.xpay_pq3d_route(WIDE3_KW["offsets"]) != "window":
+        raise AssertionError("K6b with S_wide is off the window march")
     for shape in (SHAPE3, *WIDE3_EDGES):
         if not T3.supports3d(*shape, WIDE3_KW["offsets"]):
             raise AssertionError(f"S_wide off the kernels' gate at {shape}")
@@ -6522,7 +6539,8 @@ def wide3d_rows(launches, grid_launches, errs, times, bw, conv_ms,
     4m's solves (one piece and 4 pieces), times from phase 5m at 256^3
     (K7: f32 dots; compensated beside them); K6a y's library_ms is the
     dense-box ``F.conv3d`` (None where it does not run); each row's
-    march3d registers and spill bytes."""
+    registers and spill bytes (march3d's, K6b's window march's with its
+    shared memory and blocks per SM)."""
     n = SHAPE3[0] * SHAPE3[1] * SHAPE3[2]
     rows = []
     for m in WIDE3_PASSES:
@@ -6540,9 +6558,12 @@ def wide3d_rows(launches, grid_launches, errs, times, bw, conv_ms,
                          ops_per_elt(m, len(WIDE3)) * n, bw,
                          conv_ms if m == "y3d" else None,
                          grid_launches=grid_launches.get(m, 0))
-        row.update(graph_ms=g, kernel_route="march3d, wide terms")
-        regs, spill, _ = m3_attrs[m]
-        row.update(registers=regs, spill_bytes=spill)
+        regs, spill, per_sm = m3_attrs[m][:3]
+        row.update(graph_ms=g, kernel_route="march3d, wide terms",
+                   registers=regs, spill_bytes=spill)
+        if m == "xpay_pq3d":
+            row.update(kernel_route="window march", blocks_per_sm=per_sm,
+                       shared_memory_bytes=m3_attrs[m][3])
         if m in BICG3_KERNELS:
             row["compensated_ms"], _, row["compensated_graph_ms"] = \
                 times[m, True]
@@ -6572,14 +6593,27 @@ def nop_row(err, times, bw):
     return row
 
 
-def march3d_attrs(lib):
+def march3d_attrs(lib, T3):
     """{pass: (registers, spill bytes, resident blocks per SM)} of the
-    march3d kernels the wide-z route runs (K7: f32 dots; (pass, True):
-    compensated)."""
+    kernels the wide-z route runs: march3d's (K7: f32 dots; (pass, True):
+    compensated), and K6b's window march with S_wide at 256^3 (registers,
+    spill bytes, blocks per SM, dynamic shared memory bytes, blocks),
+    logged as ``[window3d]``."""
     import ctypes
 
     out = {}
     for which, m in enumerate(KERNELS3):
+        if m == "xpay_pq3d":
+            a = (ctypes.c_int * 5)()
+            err = lib.ls_xpay_pq3d_win_attrs(*SHAPE3, ctypes.byref(
+                T3._stencil3_struct(**WIDE3_KW)), a)
+            if err:
+                raise RuntimeError(f"ls_xpay_pq3d_win_attrs: error {err}")
+            out[m] = tuple(a)
+            log(f"[window3d] K6b window march with S_wide at 256^3: {a[0]} "
+                f"registers, {a[1]} B spilled, {a[3]} B of shared memory, "
+                f"{a[2]} blocks per SM, {a[4]} blocks")
+            continue
         a = (ctypes.c_int * 3)()
         err = lib.ls_stencil3d_attrs(which, a)
         if err:
@@ -6614,8 +6648,18 @@ S2_GEN = (((0, 0), 7.0), ((-1, 0), -1.0), ((1, 0), -1.0), ((0, -1), -1.0),
 S2_4X = (((0, 0), 4.5), ((-1, 0), -1.0), ((1, 0), -1.0),
          ((0, -1), -16 / 12), ((0, 1), -16 / 12), ((0, -2), 1 / 12),
          ((0, 2), 1 / 12))
-GEN_STENCILS = {"S2_gen": S2_GEN, "S2_4x": S2_4X}
+# S2_far: S2_gen with its (+-1, +-100) terms at (+-1, +-200), whose |dx|
+# = 200 is past K1's band-march gate at 4096 columns (160) and past the
+# s-step's on pieces (120): the cooperative K1's solve, on one piece
+S2_FAR = tuple(((dy, 2 * dx if abs(dx) == 100 else dx), v)
+               for (dy, dx), v in S2_GEN)
+GEN_STENCILS = {"S2_gen": S2_GEN, "S2_4x": S2_4X, "S2_far": S2_FAR}
 GEN_SSTEP = ("step2", "gram2")
+# the kernels line's rows of the general route: (pass, K1 or K2's route,
+# the stencil timed at 4096^2, the other timed beside it)
+GEN_ROWS = (("step2", "general", "S2_gen", "S2_4x"),
+            ("step2", "general_coop", "S2_far", None),
+            ("gram2", "general_coop", "S2_gen", "S2_4x"))
 # K2 passes of an s-step solve(200): the bootstrap and one refresh every
 # 16 passes (LEGIONSOLVERS_SSTEP_REFRESH's default) of its 100
 GEN_GRAMS = 7
@@ -6630,7 +6674,11 @@ GEN_RUNS = {
                                         "gram2": GEN_GRAMS}),
     "S2_4x 2-space block": ("S2_4x", 1, 2, {"step2": N_ITERS,
                                             "gram2": 2 * GEN_GRAMS}),
+    "S2_far one piece": ("S2_far", 1, 1, {"step2": N_ITERS // 2,
+                                          "gram2": GEN_GRAMS}),
 }
+GEN_TIMED_RUNS = ("S2_gen one piece", "S2_gen 4 pieces", "S2_4x one piece",
+                  "S2_4x 2-space block")  # 5n's solve times
 GEN_F64_FLOOR = 1e-4  # phase 4l's floor of the s-step's distance from f64
 
 
@@ -6665,21 +6713,30 @@ GEN_EDGES = ((16, 128, "wide(C)"), (N_GRID, N_GRID, "(+-1, -+(C - 1))"),
              (7, 130, "no centre"))
 
 
+# the one shape of 4n's kernel cases past the band march's gate (K1 on
+# the cooperative kernel)
+GEN_COOP_CASES = ((N_GRID, N_GRID, "(+-1, -+(C - 1))"),)
+
+
 def compare_general_kernels(torch, T, device):
     """Phase 4n, the kernels: K1 and K2 on the general route against
     step2_plain and gram2_plain at 4096^2 with S2_gen and S2_4x and at
-    GEN_EDGES: phase 3's bounds (elementwise 1e-5 * max|ref|, Gram entries
-    1e-4 of their Cauchy-Schwarz scale) and a repeat on the same inputs
-    bit for bit.  Returns {pass: max abs error}."""
+    GEN_EDGES, each on the route its gate gives (K1's band march, or the
+    cooperative kernel for GEN_COOP_CASES): phase 3's bounds (elementwise
+    1e-5 * max|ref|, Gram entries 1e-4 of their Cauchy-Schwarz scale) and
+    a repeat on the same inputs bit for bit.  Returns {(pass, K1's
+    route): max abs error}."""
     errs = {}
-    cases = ([(N_GRID, N_GRID, name) for name in GEN_STENCILS]
+    cases = ([(N_GRID, N_GRID, name) for name in ("S2_gen", "S2_4x")]
              + list(GEN_EDGES))
     for R, C, name in cases:
         kw = gen_kw(name, C)
         route = T.route(kw["offsets"], kw["values"], C, sstep=True)[0]
-        if route != "general":
+        want = ("general_coop" if (R, C, name) in GEN_COOP_CASES
+                else "general")
+        if route != want:
             raise AssertionError(f"{name} at {(R, C)} takes the {route} "
-                                 "route")
+                                 f"route, not {want}")
         d = flat_inputs(torch, T, (R, C), 71, device, False, kw)
         worst = 0.0
         for mode in ("gram2", "step2"):
@@ -6703,19 +6760,30 @@ def compare_general_kernels(torch, T, device):
                     raise AssertionError(
                         f"{case} {key}: kernel disagrees with its plain "
                         f"version ({err.max().item():g})")
-                errs[mode] = max(errs.get(mode, 0.0), err.max().item())
+                key_r = (mode, route if mode == "step2" else "general_coop")
+                errs[key_r] = max(errs.get(key_r, 0.0), err.max().item())
                 worst = max(worst, err.max().item())
-        log(f"[general] K2, K1 with {name} at {[R, C]} (general route) == "
-            f"plain (max abs err {worst:.3g}); repeats bit for bit")
+        log(f"[general] K2, K1 with {name} at {[R, C]} (K1's route "
+            f"{route}) == plain (max abs err {worst:.3g}); repeats bit for "
+            "bit")
         del d
     return errs
+
+
+def gen_route(name):
+    """K1's route for 4n's stencil ``name`` at 4096 columns."""
+    kw = gen_kw(name, N_GRID)
+    from legionsolvers_tpu_torch.ops.cuda.stencil2d import route
+
+    return route(kw["offsets"], kw["values"], N_GRID, sstep=True)[0]
 
 
 def general_path(torch, np, T, TB, lt, device):
     """Phase 4n, the solves: ``entry.build_stencil_system(2, (4096,
     4096), stencil=...)`` with S2_gen on one piece and on 4 pieces of the
     card, with S2_4x on one piece and as a 2-space block (b = 1 in both),
-    each CG solve(200) from x0 = 0 on the s-step schedule with its
+    with S2_far on one piece (K1 on the cooperative kernel), each CG
+    solve(200) from x0 = 0 on the s-step schedule with its
     launches counted exactly (counts set to 0 just before it, read just
     after: K1 and K2 on the general route and nothing of the two-pass
     schedule), no plain version called, a repeat from the same state bit
@@ -6752,7 +6820,7 @@ def general_path(torch, np, T, TB, lt, device):
             view_ok = (op.uses_pallas and v["kind"] == "2d"
                        and v["Br"] * pieces == N_GRID and op.step2_eligible
                        and T.route(v["offs"], v["vals"], v["C"],
-                                   sstep=True)[0] == "general")
+                                   sstep=True)[0] == gen_route(st))
             hist, x, counts = counted_solve(torch, T, solver, N_ITERS)
             xs = [x] + [planner.sol_vectors[s].data.clone()
                         for s in range(1, spaces)]
@@ -6802,9 +6870,12 @@ def general_path(torch, np, T, TB, lt, device):
     return launches, grid_launches, results, solvers, failed
 
 
-def general_attrs(lib):
-    """{pass: (registers, spill bytes, resident blocks per SM)} of the
-    general route's kernels."""
+def general_attrs(torch, lib, T):
+    """{(pass, route): attributes} of the general route's kernels: the
+    cooperative ones' (registers, spill bytes, resident blocks per SM),
+    and K1's band march's with S2_gen and S2_4x at 4096 columns
+    (registers, spill bytes, blocks per SM, dynamic shared memory bytes;
+    ("step2", "general", stencil)), logged as ``[band]``."""
     import ctypes
 
     out = {}
@@ -6814,42 +6885,65 @@ def general_attrs(lib):
         if err:
             raise RuntimeError(f"ls_sstep_general_attrs({which}): error "
                                f"{err}")
-        out[m] = tuple(a)
+        out[m, "general_coop"] = tuple(a)
+    for st in ("S2_gen", "S2_4x"):
+        kw = gen_kw(st, N_GRID)
+        a = (ctypes.c_int * 4)()
+        err = lib.ls_step2_band_attrs(
+            N_GRID, ctypes.byref(T._stencil_struct(kw["offsets"],
+                                                   kw["values"])), a)
+        if err:
+            raise RuntimeError(f"ls_step2_band_attrs({st}): error {err}")
+        out["step2", "general", st] = tuple(a)
+        log(f"[band] K1 band march with {st} at {N_GRID} columns: {a[0]} "
+            f"registers, {a[1]} B spilled, {a[3]} B of shared memory "
+            f"(stride {T.band_stride(N_GRID, kw['offsets'])} floats), "
+            f"{a[2]} blocks per SM; geometry "
+            f"{T.band_geometry(N_GRID, N_GRID)} (strips, columns, rows, "
+            "bands)")
     return out
 
 
 def time_general(torch, T, device, bw, card, solvers):
-    """Phase 5n.  K1 and K2 on the general route at 4096^2 with S2_gen and
-    S2_4x: CUDA events over a ring of three input sets, CUDA graphs, and
-    the plain versions; each GEN_RUNS solve's ms/iter, host enqueue and
-    idle share (a torch.profiler trace; a tenth of the solve on pieces,
-    as 5j) on the s-step schedule and under LEGIONSOLVERS_NO_SSTEP (the
-    two-pass schedule: K3 pq, then K4 and K3 update on the tile kernels).
-    Returns ({(pass, stencil): (ms, plain ms, graph ms)}, {run: {schedule:
-    times}})."""
+    """Phase 5n.  Each GEN_ROWS kernel at 4096^2 with its stencils (K1 on
+    the band march with S2_gen and S2_4x, on the cooperative kernel with
+    S2_far; K2 with S2_gen and S2_4x): CUDA events over a ring of three
+    input sets, CUDA graphs, and the plain versions; each GEN_TIMED_RUNS
+    solve's ms/iter, host enqueue and idle share (a torch.profiler trace;
+    a tenth of the solve on pieces, as 5j) on the s-step schedule and
+    under LEGIONSOLVERS_NO_SSTEP (the two-pass schedule: K3 pq, then K4
+    and K3 update on the tile kernels).  Returns ({(pass, route,
+    stencil): (ms, plain ms, graph ms)}, {run: {schedule: times}})."""
     n = N_GRID * N_GRID
     out = {}
-    for st in GEN_STENCILS:
-        kw = gen_kw(st, N_GRID)
-        # (the halo blocks are unused: kernel_call sizes step2's outputs
-        # by them)
-        ring = [flat_inputs(torch, T, (N_GRID, N_GRID), 90 + s, device,
-                            True, kw) for s in range(3)]
-        for m in GEN_SSTEP:
+    for m, kind, *sts in GEN_ROWS:
+        for st in sts:
+            if st is None:
+                continue
+            kw = gen_kw(st, N_GRID)
+            if T.route(kw["offsets"], kw["values"], N_GRID,
+                       sstep=True)[0] != (kind if m == "step2"
+                                          else gen_route(st)):
+                raise AssertionError(f"{st} is off {m}'s {kind} route")
+            # (the halo blocks are unused: kernel_call sizes step2's
+            # outputs by them)
+            ring = [flat_inputs(torch, T, (N_GRID, N_GRID), 90 + s, device,
+                                True, kw) for s in range(3)]
             fns = {plain: [kernel_call(T, m, d, plain, kw) for d in ring]
                    for plain in (False, True)}
             k = iter(range(10**9))
             ms = event_ms(torch, lambda: fns[False][next(k) % 3](), 30)
             plain_ms = event_ms(torch, lambda: fns[True][next(k) % 3](), 6)
             g = graph_ms(torch, fns[False], 30)
-            sane(f"{m} general", ms, KERNELS[m][2] * n, bw)
-            out[m, st] = (ms, plain_ms, g)
-            log(f"[time] general {m} with {st}: kernel {ms:.4f} ms (CUDA "
+            sane(f"{m} {kind}", ms, KERNELS[m][2] * n, bw)
+            out[m, kind, st] = (ms, plain_ms, g)
+            log(f"[time] {kind} {m} with {st}: kernel {ms:.4f} ms (CUDA "
                 f"graphs {g:.4f}), bound {KERNELS[m][2] * n / bw * 1e3:.4f}"
                 f", plain {plain_ms:.4f} ms at 4096^2 f32 on {card}")
-        del ring
+            del ring, fns
     solves = {}
-    for name, solver in solvers.items():
+    for name in GEN_TIMED_RUNS:
+        solver = solvers[name]
         st, pieces, spaces, _ = GEN_RUNS[name]
         n_tr = N_ITERS if pieces == 1 else N_ITERS // 10
         solves[name] = {}
@@ -6872,31 +6966,52 @@ def time_general(torch, T, device, bw, card, solvers):
     return out, solves
 
 
-def general_rows(launches, grid_launches, errs, times, bw, attrs):
-    """The kernels line's rows of the general route: launches from phase
-    4n's solves (one piece, 4 pieces, the block), times from phase 5n at
-    4096^2 with S2_gen (S2_4x's beside them), registers and spill bytes;
-    no one PyTorch call computes an s-step pass."""
+def general_rows(results, errs, times, bw, attrs):
+    """The kernels line's rows of the general route (GEN_ROWS): launches
+    from phase 4n's solves on the row's route (one piece, 4 pieces, the
+    block; launches on pieces also in ``pieces_launches``), times from
+    phase 5n at 4096^2 (the second stencil's beside them), registers and
+    spill bytes (the band march's with S2_gen, and its shared memory and
+    blocks per SM); no one PyTorch call computes an s-step pass."""
     n = N_GRID * N_GRID
     rows = []
-    for m in GEN_SSTEP:
+    for m, kind, st, other in GEN_ROWS:
+        launches = grid = on_pieces = 0
+        for name, (rst, pieces, _, _) in GEN_RUNS.items():
+            if m == "step2" and gen_route(rst) != kind:
+                continue
+            c = results[name]["launches"].get(m, 0)
+            launches += c
+            grid += c / pieces
+            on_pieces += c if pieces > 1 else 0
         wrapper, line, bpe = KERNELS[m]
-        ms, plain_ms, g = times[m, "S2_gen"]
-        row = kernel_row(f"{wrapper} [{m}] general route", GEN_CSRC,
-                         f"{PALLAS}:{line}", launches.get(m, 0), errs[m], ms,
+        ms, plain_ms, g = times[m, kind, st]
+        label = ("band march" if kind == "general"
+                 else "general route, cooperative")
+        row = kernel_row(f"{wrapper} [{m}] {label}", GEN_CSRC,
+                         f"{PALLAS}:{line}", launches, errs[m, kind], ms,
                          plain_ms, bpe * n,
-                         ops_per_elt(m, len(S2_GEN)) * n, bw,
-                         grid_launches=grid_launches.get(m, 0))
-        regs, spill, per_sm = attrs[m]
-        row.update(graph_ms=g, kernel_route="general", stencil="S2_gen",
-                   registers=regs, spill_bytes=spill, blocks_per_sm=per_sm)
-        row["S2_4x_ms"], row["S2_4x_plain_ms"], row["S2_4x_graph_ms"] = \
-            times[m, "S2_4x"]
+                         ops_per_elt(m, len(GEN_STENCILS[st])) * n, bw,
+                         grid_launches=grid)
+        row.update(graph_ms=g, kernel_route=kind, stencil=st,
+                   pieces_launches=on_pieces)
+        if m == "step2" and kind == "general":
+            regs, spill, per_sm, smem = attrs[m, kind, st]
+            row.update(shared_memory_bytes=smem)
+        else:
+            regs, spill, per_sm = attrs[m, "general_coop"]
+        row.update(registers=regs, spill_bytes=spill, blocks_per_sm=per_sm)
+        if other is not None:
+            (row[f"{other}_ms"], row[f"{other}_plain_ms"],
+             row[f"{other}_graph_ms"]) = times[m, kind, other]
         rows.append(row)
-        log(f"[time] general {m:5s} {ms:.4f} ms (graphs {g:.4f}), bound "
-            f"{row['bound_ms']:.4f} ({row['pct_of_bound']:.1f}%), {regs} "
-            f"registers, {spill} B spilled, {per_sm} blocks per SM, launches "
-            f"{row['launches']} at 4096^2")
+        log(f"[time] {kind} {m:5s} with {st} {ms:.4f} ms (graphs {g:.4f}), "
+            f"bound {row['bound_ms']:.4f} ({row['pct_of_bound']:.1f}%), "
+            f"{regs} registers, {spill} B spilled, {per_sm} blocks per SM, "
+            f"launches {row['launches']} at 4096^2")
+        if not launches:
+            raise AssertionError(f"{row['name']} never launched on the "
+                                 "general route's path")
     return rows
 
 
@@ -7043,6 +7158,7 @@ def main() -> int:
             raise AssertionError(f"checks failed: {failed}")
         return 0
     if "--wide3d" in argv:
+        m3_attrs = march3d_attrs(build.load_library(), T3)
         errs_z = compare_wide3d_kernels(torch, T3, TB3, device)
         nop_err = compare_nop(torch, T, device)
         wz_launches, wz_grid, wz_results, wz_solvers, failed = wide3d_path(
@@ -7055,7 +7171,7 @@ def main() -> int:
         nop_times = time_nop(torch, T, device, bw, card)
         mark("phase 5m")
         rows = wide3d_rows(wz_launches, wz_grid, errs_z, ztimes, bw, conv_ms,
-                           conv_why, march3d_attrs(build.load_library()))
+                           conv_why, m3_attrs)
         rows.append(nop_row(nop_err, nop_times, bw))
         log(json.dumps({"card": card, "wide3d": {
             "paths": wz_results, "solves": zsolves, "kernels": rows,
@@ -7064,6 +7180,7 @@ def main() -> int:
             raise AssertionError(f"checks failed: {failed}")
         return 0
     if "--wide2d" in argv:
+        gattrs = general_attrs(torch, build.load_library(), T)
         errs_g = compare_general_kernels(torch, T, device)
         gn_launches, gn_grid, gn_results, gn_solvers, failed = general_path(
             torch, np, T, TB, lt, device)
@@ -7072,8 +7189,7 @@ def main() -> int:
         gtimes, gsolves = time_general(torch, T, device, bw, card,
                                        gn_solvers)
         mark("phase 5n")
-        rows = general_rows(gn_launches, gn_grid, errs_g, gtimes, bw,
-                            general_attrs(build.load_library()))
+        rows = general_rows(gn_results, errs_g, gtimes, bw, gattrs)
         log(json.dumps({"card": card, "wide2d": {
             "paths": gn_results, "solves": gsolves, "kernels": rows}},
             default=str))
@@ -7162,12 +7278,14 @@ def main() -> int:
         torch, np, T, TB, lt, device)
     failed += f
     mark("phase 4l")
+    m3_attrs = march3d_attrs(build.load_library(), T3)
     errs_z = compare_wide3d_kernels(torch, T3, TB3, device)
     nop_err = compare_nop(torch, T, device)
     wz_launches, wz_grid, wz_results, wz_solvers, f = wide3d_path(
         torch, T, T3, TB3, lt, device)
     failed += f
     mark("phase 4m")
+    gattrs = general_attrs(torch, build.load_library(), T)
     errs_g = compare_general_kernels(torch, T, device)
     gn_launches, gn_grid, gn_results, gn_solvers, f = general_path(
         torch, np, T, TB, lt, device)
@@ -7375,8 +7493,7 @@ def main() -> int:
     # the wide-z route (phase 4m): launches on one piece and on pieces,
     # times at 256^3 (phase 5m); K1 nop, which no path runs (phase 5h)
     wide_rows = wide3d_rows(wz_launches, wz_grid, errs_z, ztimes, bw,
-                            conv_ms, conv_why,
-                            march3d_attrs(build.load_library()))
+                            conv_ms, conv_why, m3_attrs)
     for row, m in zip(wide_rows, WIDE3_PASSES):
         row["pieces_launches"] = sum(
             wz_results[name]["launches"].get(m, 0)
@@ -7388,16 +7505,7 @@ def main() -> int:
     kernels.append(nop_row(nop_err, nop_times, bw))
     # the general route of K1 and K2 (phase 4n): launches on one piece, on
     # pieces and in the block, times at 4096^2 (phase 5n)
-    gen_rows = general_rows(gn_launches, gn_grid, errs_g, gtimes, bw,
-                            general_attrs(build.load_library()))
-    for row, m in zip(gen_rows, GEN_SSTEP):
-        row["pieces_launches"] = sum(
-            gn_results[name]["launches"].get(m, 0)
-            for name, run in GEN_RUNS.items() if run[1] > 1)
-        if not row["launches"]:
-            raise AssertionError(f"{row['name']} never launched on the "
-                                 "general route's path")
-    kernels += gen_rows
+    kernels += general_rows(gn_results, errs_g, gtimes, bw, gattrs)
     report = {"card": card, "kind": kind, "build_s": build_s,
               "copy_GBps": bw_copy / 1e9, "k12_GBps": k12_bw / 1e9,
               "k12_turns_ms": k12_ms,
@@ -7448,8 +7556,10 @@ def main() -> int:
                          "conv3d_ms": conv_ms, "conv3d_note": conv_why},
               "nop_ms": nop_times,
               "general": {"paths": gn_results, "solves": gsolves,
-                          "kernel_ms": {f"{m} {st}": t
-                                        for (m, st), t in gtimes.items()}},
+                          "kernel_ms": {f"{m} {kind} {st}": t for
+                                        (m, kind, st), t in gtimes.items()},
+                          "attrs": {" ".join(k): v
+                                    for k, v in gattrs.items()}},
               "cli": {"stream_GBps": cli_bw / 1e9, "runs": cli_results,
                       "checks": cli_checked, "probes": probes,
                       "k11_rates_events": rates, **cli_report}}

@@ -978,6 +978,221 @@ __device__ __forceinline__ void m1_fold(T v, T* __restrict__ partials,
   m1_fold<T, 1>(a, partials, counter, out);
 }
 
+// ---------------------------------------------------------------------------
+// 3-D, any stencil of the gate off march1 (reach 2..8 in y and z, z shifts
+// up to LS_WIDE_Z): the window march.  A block of LS_W3_WARPS warps owns an
+// LS_W3_TY x LS_W3_TZ (y, z) tile (lane l of warp w: rows w and w + 8,
+// columns l + 32 c, c < 8) and a chunk of x planes.  Its window holds every
+// point a term reads: rows y0 - hy .. y0 + TY + hy - 1 (hy the widest |oy|,
+// zero outside [0, Y)) and columns [z0 - hz, z0 + TZ + hz) inside [0, Z)
+// (hz the widest |oz|, wide terms included: at Z = 256 the whole z line).
+// Three x planes of it (x - 1, x, x + 1; |ox| <= 1) sit in a ring of
+// dynamic shared-memory slots, the operand formed from the pass's vectors
+// once, as a plane is staged (Form, as march1's M1FormPlane: K6b's p = r +
+// beta p_old), the halo planes at x = -1 and X taken as they are.  Every
+// term of a point is read from shared memory, a term whose column leaves
+// [0, Z) reading zero, and summed in stencil order with one fma each; the
+// thread's points march along x and emit(x, gy, z, operand, A operand)
+// runs once per point inside the volume.  Two __syncthreads() a plane:
+// after its points are computed, and after plane x + 2 is staged into the
+// slot of plane x - 1 (each lane loads LS_W3_BATCH points of every vector
+// before it forms and stores them).
+//
+// Geometry depends on (X, Y, Z) alone: the x chunks aim at a fixed
+// LS_W3_TARGET_BLOCKS (three per SM of an H100 SXM), no shorter than
+// LS_W3_MIN_CHUNK planes, so a dot folded with m1_fold (the block is
+// march1's 256 threads) has the same bits on every card.
+// ---------------------------------------------------------------------------
+#define LS_W3_WARPS LS_M1_WARPS
+#define LS_W3_THREADS LS_M1_THREADS
+#define LS_W3_TY 16    // tile rows: two per warp
+#define LS_W3_TZ 256   // tile columns: eight per lane
+#define LS_W3_MIN_BLOCKS 3
+#define LS_W3_MIN_CHUNK 4
+#define LS_W3_TARGET_BLOCKS (132 * LS_W3_MIN_BLOCKS)
+#define LS_W3_BATCH 8  // window points a lane loads before it forms them
+
+// The largest window's three slots: rows TY + 2 LS_MAX_REACH, columns TZ +
+// 2 LS_WIDE_Z.
+constexpr int kW3SmemMax = 3 * (LS_W3_TY + 2 * LS_MAX_REACH) *
+                           (LS_W3_TZ + 2 * LS_WIDE_Z) * (int)sizeof(float);
+
+struct W3Geom {
+  int X, Y, Z;
+  int tiles_z, tiles, chunk;  // (y, z) tiles along z and in all; x planes
+  int hy, hz;                 // widest |oy| and |oz| of the stencil
+  int rows, stride;           // window rows, floats of a window row
+};
+
+// Blocks of the window march on an [X, Y, Z] volume with the stencil st
+// (*g filled in).
+long long w3_geometry(int X, int Y, int Z, const LsStencil3& st, W3Geom* g) {
+  const long long tz = (Z + LS_W3_TZ - 1) / LS_W3_TZ;
+  const long long tiles = tz * ((Y + LS_W3_TY - 1) / LS_W3_TY);
+  long long chunks = LS_W3_TARGET_BLOCKS / tiles;
+  const long long max_chunks = (X + LS_W3_MIN_CHUNK - 1) / LS_W3_MIN_CHUNK;
+  if (chunks > max_chunks) chunks = max_chunks;
+  if (chunks < 1) chunks = 1;
+  const int len = (int)((X + chunks - 1) / chunks);
+  chunks = (X + len - 1) / len;
+  int hy = 0, hz = 0;
+  for (int k = 0; k < st.n; ++k) {
+    const int a = st.oy[k] < 0 ? -st.oy[k] : st.oy[k];
+    const int b = st.oz[k] < 0 ? -st.oz[k] : st.oz[k];
+    hy = a > hy ? a : hy;
+    hz = b > hz ? b : hz;
+  }
+  const int wz = LS_W3_TZ + 2 * hz;
+  *g = W3Geom{X, Y, Z, (int)tz, (int)tiles, len, hy, hz, LS_W3_TY + 2 * hy,
+              Z < wz ? Z : wz};
+  return tiles * chunks;
+}
+
+size_t w3_smem(const W3Geom& g) {
+  return (size_t)3 * g.rows * g.stride * sizeof(float);
+}
+
+// The stencil's terms, staged in shared memory.
+struct W3Terms {
+  int n;
+  int ox[LS_MAX_TERMS], oy[LS_MAX_TERMS], oz[LS_MAX_TERMS];
+  float v[LS_MAX_TERMS];
+};
+
+__device__ __forceinline__ void w3_stage_terms(W3Terms& s,
+                                               const LsStencil3& st) {
+  if (threadIdx.x == 0) s.n = st.n;
+  for (int k = threadIdx.x; k < st.n; k += LS_W3_THREADS) {
+    s.ox[k] = st.ox[k];
+    s.oy[k] = st.oy[k];
+    s.oz[k] = st.oz[k];
+    s.v[k] = st.v[k];
+  }
+}
+
+// The block's planes [x0, x1), its tile's corner and its window's first
+// column and width.
+struct W3Place {
+  int x0, x1, y0, z0, wlo, width;
+};
+
+__device__ __forceinline__ W3Place w3_place(const W3Geom& g) {
+  W3Place p;
+  const int tile = blockIdx.x % g.tiles, chunk = blockIdx.x / g.tiles;
+  p.z0 = (tile % g.tiles_z) * LS_W3_TZ;
+  p.y0 = (tile / g.tiles_z) * LS_W3_TY;
+  p.x0 = chunk * g.chunk;
+  p.x1 = min(p.x0 + g.chunk, g.X);
+  p.wlo = max(0, p.z0 - g.hz);
+  p.width = min(g.Z, p.z0 + LS_W3_TZ + g.hz) - p.wlo;
+  return p;
+}
+
+// Stage plane gx of the operand into `slot`: Form's combination of the
+// NV vectors src inside the volume, the halo planes' values at gx = -1
+// (top) and gx = X (bot; nullptr = zeros), zero outside [0, Y).
+template <typename Form>
+__device__ __forceinline__ void w3_stage(float* slot, int gx,
+                                         const W3Geom& g, const W3Place& pl,
+                                         const float* const* src,
+                                         const float* __restrict__ top,
+                                         const float* __restrict__ bot,
+                                         const Form& form) {
+  constexpr int NV = Form::NV;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool inner = gx >= 0 && gx < g.X;
+  const float* halo = gx < 0 ? top : bot;
+  const size_t base = inner ? (size_t)gx * g.Y * g.Z : 0;
+  for (int i = warp; i < g.rows; i += LS_W3_WARPS) {
+    const int gy = pl.y0 - g.hy + i;
+    const bool yin = gy >= 0 && gy < g.Y && (inner || halo);
+    float* drow = slot + i * g.stride;
+    const size_t o = base + (size_t)(yin ? gy : 0) * g.Z + pl.wlo;
+    for (int cb = 0; cb < pl.width; cb += 32 * LS_W3_BATCH) {
+      float v[NV][LS_W3_BATCH];
+#pragma unroll
+      for (int b = 0; b < LS_W3_BATCH; ++b) {
+        const int j = cb + lane + 32 * b;
+#pragma unroll
+        for (int k = 0; k < NV; ++k) v[k][b] = 0.f;
+        if (yin && j < pl.width) {
+          if (inner) {
+#pragma unroll
+            for (int k = 0; k < NV; ++k) v[k][b] = __ldg(src[k] + o + j);
+          } else {
+            v[0][b] = __ldg(halo + o + j);
+          }
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < LS_W3_BATCH; ++b) {
+        const int j = cb + lane + 32 * b;
+        if (j < pl.width) {
+          float x[NV];
+#pragma unroll
+          for (int k = 0; k < NV; ++k) x[k] = v[k][b];
+          drow[j] = !yin ? 0.f : (inner ? form(x) : v[0][b]);
+        }
+      }
+    }
+  }
+}
+
+// The block's march over planes x0 .. x1 - 1 (staging x0 - 1 .. x1); win:
+// three slots of g.rows x g.stride floats; s: the staged terms.
+template <typename Form, typename Emit>
+__device__ __forceinline__ void march_win(float* win, const W3Terms& s,
+                                          const W3Geom& g, const W3Place& pl,
+                                          const float* const* src,
+                                          const float* __restrict__ top,
+                                          const float* __restrict__ bot,
+                                          const Form& form, Emit emit) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ps = g.rows * g.stride;
+  for (int k = 0; k < 3; ++k)
+    if (pl.x0 - 1 + k <= pl.x1)
+      w3_stage(win + k * ps, pl.x0 - 1 + k, g, pl, src, top, bot, form);
+  __syncthreads();
+  for (int x = pl.x0; x < pl.x1; ++x) {
+    const int ph = (x - pl.x0) % 3;
+    float* prv = win + ph * ps;
+    const float* cur = win + (ph == 2 ? 0 : ph + 1) * ps;
+    const float* nxt = win + (ph == 0 ? 2 : ph - 1) * ps;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int ty = warp + LS_W3_WARPS * rr, gy = pl.y0 + ty;
+      float ax[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) ax[c] = 0.f;
+      for (int k = 0; k < s.n; ++k) {
+        const float* pk = s.ox[k] < 0 ? prv : (s.ox[k] > 0 ? nxt : cur);
+        const int oz = s.oz[k];
+        const float* row =
+            pk + (ty + g.hy + s.oy[k]) * g.stride + oz - pl.wlo;
+        const float w = s.v[k];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int z = pl.z0 + lane + 32 * c;
+          const float t = (unsigned)(z + oz) < (unsigned)g.Z ? row[z] : 0.f;
+          ax[c] = __fmaf_rn(w, t, ax[c]);
+        }
+      }
+      if (gy < g.Y) {
+        const float* crow = cur + (ty + g.hy) * g.stride - pl.wlo;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int z = pl.z0 + lane + 32 * c;
+          if (z < g.Z) emit(x, gy, z, crow[z], ax[c]);
+        }
+      }
+    }
+    __syncthreads();
+    if (x + 2 <= pl.x1)
+      w3_stage(prv, x + 2, g, pl, src, top, bot, form);
+    __syncthreads();
+  }
+}
+
 // Let `kernel` take `bytes` of dynamic shared memory (above 48 KB needs
 // the attribute), once per device and kernel: `done` is the caller's mask
 // of devices already set.

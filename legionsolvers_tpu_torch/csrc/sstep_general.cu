@@ -3,24 +3,90 @@
 // neither reach 1 (the strip march of march2d.cuh) nor the flat
 // decomposition of a reach-1 1-D stencil (the strip march with WRAP).
 //
-//   ls_step2_general  K1  replaces _sstep_call mode step2
+//   ls_step2_band     K1  replaces _sstep_call mode step2
 //                         (legionsolvers_tpu/ops/pallas/stencil2d.py:746)
-//   ls_gram2_general  K2  replaces _sstep_call mode gram2 (same function)
+//                         on the band march (route "general")
+//   ls_step2_general  K1  the same, cooperative (route "general_coop":
+//                         the stencils past the band march's gate)
+//   ls_gram2_general  K2  replaces _sstep_call mode gram2 (same function),
+//                         cooperative (both routes)
 //
-// Python wrappers, plain versions and the route live in
-// legionsolvers_tpu_torch/ops/cuda/stencil2d.py (route "general").
+// Python wrappers, plain versions and the routes live in
+// legionsolvers_tpu_torch/ops/cuda/stencil2d.py.
 //
 // Why the strip march cannot take these stencils: K1 chains four
 // applications (A p; A u with u = c0 p + c1 r - c2 A p; A p''; A^2 p'' and
 // A r'' for the Gram), so an output column depends on inputs 4 Qx columns
 // away, Qx the widest |dx| (100 for a stencil with (1, 100)), and a
-// warp's strip holds 4 halo columns.  Reading the wide terms from device
-// memory beside the strip does not work either: the intermediates (u,
-// r'', p'', A p'') of a column that another block owns are in no buffer.
+// warp's strip holds 4 halo columns.
 //
-// Design: one cooperative launch whose stages run over the whole grid,
-// separated by a grid-wide barrier (grid_sync; cudaLaunchCooperativeKernel
-// guarantees that every block is resident, or refuses the launch):
+// K1: the band march (step2_band_kernel), a march down a band of rows
+// that keeps every intermediate on chip.  As |dy| <= 1, one application
+// of A at a row reads three rows of its operand, so each block holds p,
+// r, A p, u, r'', p'' and A p'' in shared-memory rings of rows (4, 4, 2,
+// 3, 5, 4 and 3 rows), each stage some rows behind the stage it reads:
+// at step s the block copies row s of p and r in with cp.async (zero
+// outside the grid), and computes
+//   phase A  S1 row s - 2: A p, u = c0 p + c1 r - c2 A p; x += u  (in place)
+//            S3 row s - 5: A p''
+//   phase B  S2 row s - 3: r'' = r - A u, p'' = r'' + c3 r - c4 A p + c5 p
+//            S4 row s - 6: A^2 p'', A r'' and the Gram of (r'', p'')
+// with a __syncthreads() after each phase.  A stage reads only rows that
+// an earlier phase wrote, and the rings are deep enough that no slot is
+// written in the phase that reads its old row; so two barriers a row and
+// no grid barrier.  Device memory sees p, r and x read once and x, r'',
+// p'' written once (24 B per element), plus the band's 4-row halo at each
+// end, read again (mostly from L2), whose intermediates the band computes
+// again (rows outside the grid are zero, as the JAX kernel's masks give).
+//
+// Columns: a block owns a strip of at most LS_BAND_COLS output columns
+// [c0, c1) and holds the window [c0 - 4 Q, c1 + 4 Q) of it (Q the widest
+// |dx|, clipped to [-Q, C + Q)); stage S_k computes only the columns the
+// next stage reads, [c0 - (4 - k) Q, c1 + (4 - k) Q) inside the grid, so
+// the strips' halo columns cost 12 Q extra column-applications per row
+// against 5 (c1 - c0) (S2_gen at 4096 columns: 1.23x).  The other design,
+// a row split over the blocks of a thread-block cluster with the terms
+// past a block's slice read through distributed shared memory, needs a
+// cluster barrier per row and remote loads with several times a local
+// load's latency for every term near a slice edge; the halo columns cost
+// less than that for every |dx| the s-step takes on pieces (120), so the
+// band march holds whole strips (chosen by this count; the cluster design
+// was not built).  Columns outside the grid are zero in the
+// rings (zeroed once, never written).  Every term is a shared-memory load
+// at a fixed offset from one of three ring rows (the loops over the terms
+// unrolled, dy, dx and v read from the kernel parameter), summed in
+// stencil order with one fma each, as the cooperative kernel sums them.
+//
+// Geometry depends on (R, C) alone: strips of at most LS_BAND_COLS
+// columns, bands of rows aiming at LS_BAND_TARGET units (strips x bands;
+// two per SM of an H100 SXM, a constant), no shorter than
+// LS_BAND_MIN_ROWS.  Each unit's Gram is summed in double (exact f32
+// products), its threads in a fixed order, into the unit's partials; the
+// last block to finish (a device counter) sums the units in unit order and
+// rounds once, so the bits depend on the shape alone, and a repeat gives
+// the same bits.  The gate (band_stride): the 25 ring rows of the widest
+// window, min(w + 8 Q, C + 2 Q) floats (w the strip width), and the
+// slack fit in LS_BAND_SMEM_MAX bytes of shared memory; at 4096 columns
+// that is Q <= 146.  A stencil past it (|dx| = C - 1 at C = 4096, S2_gen
+// with |dx| = 200) keeps the cooperative kernel below.
+//
+// What bounds K1 now: instruction issue (by its SASS; no counter profiler
+// runs on the card).  Each term of each application is a shared-memory
+// load and an fma per column, plus the term's row pointer (65
+// term-applications per element with S2_gen's 13 terms, 1.23x for the
+// halo columns), with one 512-thread block per SM (S2_gen's rings take
+// 187 KB).  Device memory is not what holds it: the kernel with every
+// global load taken out ran as fast (PERF.md section 6).  The shared-memory loads' floor,
+// one 128-byte load per SM per clock, is about 0.18 ms at 4096^2; the
+// 24 B per element of device memory 0.133 ms.  What the design does about
+// issue: the terms go in batches of 4 (padded with zero weights, so no
+// term is tested), a thread's columns of a stage share each term's row
+// pointer, and no load is predicated (slack at the end of the rings).
+//
+// K1 past the gate, and K2: one cooperative launch whose stages run over
+// the whole grid, separated by a grid-wide barrier (grid_sync;
+// cudaLaunchCooperativeKernel guarantees that every block is resident, or
+// refuses the launch):
 //   K1  S1  A p, u = c0 p + c1 r - c2 A p -> workspace; x += u  (in place)
 //       S2  r'' = r - A u, p'' = r'' + c3 r - c4 A p + c5 p -> r_out, p_out
 //       S3  A p'' -> workspace (over A p)
@@ -48,16 +114,14 @@
 // So the bits of the Gram depend on (R, C) alone, not on the number of
 // blocks the card holds.
 //
-// What bounds it: bytes.  The bound is K1's and K2's I/O, 24 and 8 B per
-// element; this design moves about 68 (K1: S1 reads p, r, x and writes x,
-// u, A p; S2 reads u, A p, p, r and writes r'', p''; S3 reads p'' and
-// writes A p''; S4 reads A p'', r'', p'') and 20 (K2), the stencil's
-// neighbours mostly from L1 and L2.  A simple kernel that is right: what
-// holds it back is the loads through L1, one per stencil term and
-// application (65 per element for K1 with 13 terms, 39 for K2); staging
-// each unit's rows in shared memory ran slower (K1's registers; PERF.md
-// section 6).  A march that keeps the intermediates on chip is later
-// work.
+// What bounds the cooperative kernels: the loads through L1, one per
+// stencil term and application (65 per element for K1 with 13 terms, 39
+// for K2), at about 0.1 warp loads per cycle per SM (latency), and the
+// workspace: K1 moves about 68 B per element against its 24 (S1 reads p,
+// r, x and writes x, u, A p; S2 reads u, A p, p, r and writes r'', p'';
+// S3 reads p'' and writes A p''; S4 reads A p'', r'', p''), K2 20 against
+// 8.  K2 keeps this design (PERF.md section 6); its band march is the next
+// redesign (ROADMAP queue 2).
 
 #include "march2d.cuh"
 
@@ -65,6 +129,19 @@
 #define LS_GEN_UNIT_ELEMS 8192  // elements of a unit of whole rows
 #define LS_GEN_MIN_BLOCKS 4     // resident blocks per SM the launch asks for
 #define LS_GEN_BATCH 8          // stencil terms loaded before they are summed
+#define LS_BAND_THREADS 512
+#define LS_BAND_WARPS (LS_BAND_THREADS / 32)
+#define LS_BAND_COLS 1024       // output columns of a strip, at most
+#define LS_BAND_MIN_ROWS 16     // shortest band
+#define LS_BAND_TARGET 264      // units (strips x bands) a launch aims at
+#define LS_BAND_RING_ROWS 25    // p 4, r 4, A p 2, u 3, r'' 5, p'' 4, A p'' 3
+#define LS_BAND_SMEM_MAX (225 * 1024)  // dynamic shared memory, at most
+#define LS_BAND_BATCH 4         // stencil terms loaded before they are summed
+// floats of a ring row, at most: the rings plus one row and a block's
+// width of slack (band_apply reads past a stage's columns) fit
+// LS_BAND_SMEM_MAX
+#define LS_BAND_MAX_STRIDE \
+  ((LS_BAND_SMEM_MAX / 4 - LS_BAND_THREADS) / (LS_BAND_RING_ROWS + 1))
 
 namespace {
 
@@ -331,6 +408,351 @@ int gen_attrs(K kernel, int* out) {
       &out[2], kernel, LS_GEN_THREADS, 0);
 }
 
+
+// ---------------------------------------------------------------------------
+// K1 on the band march
+// ---------------------------------------------------------------------------
+
+// The strips and bands of a band-march launch on an [R, C] grid.
+struct BandGeom {
+  int strips, strip_cols, band_rows, bands;
+};
+
+BandGeom band_geometry(int R, int C) {
+  const int strips = (C + LS_BAND_COLS - 1) / LS_BAND_COLS;
+  const int w = (C + strips - 1) / strips;
+  int per = LS_BAND_TARGET / strips;
+  if (per < 1) per = 1;
+  int rows = (R + per - 1) / per;
+  if (rows < LS_BAND_MIN_ROWS) rows = LS_BAND_MIN_ROWS;
+  if (rows > R) rows = R;
+  return BandGeom{strips, w, rows, (R + rows - 1) / rows};
+}
+
+int widest_dx(const LsStencil& st) {
+  int q = 0;
+  for (int k = 0; k < st.n; ++k) {
+    const int a = st.dx[k] < 0 ? -st.dx[k] : st.dx[k];
+    q = a > q ? a : q;
+  }
+  return q;
+}
+
+// Floats of a ring row: the widest window, min(w + 8 Q, C + 2 Q), rounded
+// up to 4; 0 when it is past LS_BAND_MAX_STRIDE (the gate).
+int band_stride(int C, int Q) {
+  const BandGeom g = band_geometry(1, C);
+  long long wid = (long long)g.strip_cols + 8LL * Q;
+  const long long whole = (long long)C + 2LL * Q;
+  if (whole < wid) wid = whole;
+  wid = (wid + 3) / 4 * 4;
+  return wid <= LS_BAND_MAX_STRIDE ? (int)wid : 0;
+}
+
+struct BandArgs {
+  int R, C, Q, strips, strip_cols, band_rows, stride;
+};
+
+// Dynamic shared memory of a launch: the rings, then the slack that
+// band_apply's loads past a stage's columns may reach (a block's width
+// plus Q <= stride floats).
+size_t band_smem(int stride) {
+  return ((size_t)LS_BAND_RING_ROWS * stride + LS_BAND_THREADS + stride) *
+         sizeof(float);
+}
+
+// A thread's columns of a stage: j0 + m LS_BAND_THREADS for m < the count
+// of those below hi (at most LS_BAND_PER: a ring row holds at most
+// LS_BAND_MAX_STRIDE floats).
+#define LS_BAND_PER \
+  ((LS_BAND_MAX_STRIDE + LS_BAND_THREADS - 1) / LS_BAND_THREADS)
+
+__device__ __forceinline__ int band_count(int j0, int hi) {
+  return j0 < hi ? (hi - j0 + LS_BAND_THREADS - 1) / LS_BAND_THREADS : 0;
+}
+
+// (A a) at the thread's first M columns j0 + m LS_BAND_THREADS of a row,
+// from the ring rows holding rows i - 1, i and i + 1 of a.  The stencil
+// comes padded to a multiple of LS_BAND_BATCH terms with zero weights at
+// (0, 0) (band_args), so the terms go in whole batches (the loops
+// unrolled: dy, dx and v are read from the kernel parameter at fixed
+// offsets, and no term is tested): one row pointer per term, every load
+// of the batch (one per term and column) issued before the batch's fmas,
+// so a column's terms are summed in stencil order, one fma each from zero
+// (a padded term adds v t = 0).  Columns outside the grid read the rings'
+// zeros.  A column past the thread's last (M is the block's most) is
+// loaded and summed too, from the rows after it or the slack at the end
+// of the rings, and never used: no load is predicated.
+template <int M>
+__device__ __forceinline__ void band_apply_m(const float* up,
+                                             const float* mid,
+                                             const float* dn, int j0,
+                                             const LsStencil& st,
+                                             float (&acc)[LS_BAND_PER]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) acc[m] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < LS_MAX_TERMS; k0 += LS_BAND_BATCH) {
+    if (k0 >= st.n) break;
+    float t[LS_BAND_BATCH][M];
+#pragma unroll
+    for (int u = 0; u < LS_BAND_BATCH; ++u) {
+      const int k = k0 + u;
+      const float* row =
+          (st.dy[k] < 0 ? up : (st.dy[k] > 0 ? dn : mid)) + j0 + st.dx[k];
+#pragma unroll
+      for (int m = 0; m < M; ++m) t[u][m] = row[m * LS_BAND_THREADS];
+    }
+#pragma unroll
+    for (int u = 0; u < LS_BAND_BATCH; ++u) {
+      const float v = st.v[k0 + u];
+#pragma unroll
+      for (int m = 0; m < M; ++m) acc[m] = __fmaf_rn(v, t[u][m], acc[m]);
+    }
+  }
+}
+
+// band_apply_m with M the block's most columns per thread in the stage
+// (mx, the same in every thread: the loops stay unrolled).
+__device__ __forceinline__ void band_apply(const float* up, const float* mid,
+                                           const float* dn, int j0, int mx,
+                                           const LsStencil& st,
+                                           float (&acc)[LS_BAND_PER]) {
+  switch (mx) {
+    case 1: band_apply_m<1>(up, mid, dn, j0, st, acc); break;
+    case 2: band_apply_m<2>(up, mid, dn, j0, st, acc); break;
+    case 3: band_apply_m<3>(up, mid, dn, j0, st, acc); break;
+    case 4: band_apply_m<4>(up, mid, dn, j0, st, acc); break;
+    default: band_apply_m<LS_BAND_PER>(up, mid, dn, j0, st, acc);
+  }
+}
+
+// Ring row of grid row i in a ring of n rows at `base` (rows >= -60).
+__device__ __forceinline__ float* band_row(float* base, int n, int i, int S) {
+  return base + ((i + 60) % n) * S;
+}
+
+// K1, one unit (a strip of a band) per block; the dynamic shared memory
+// holds the LS_BAND_RING_ROWS ring rows of `stride` floats and the slack
+// (band_smem).  partials: ten doubles per unit; counter: zero before the
+// launch, zero after it.
+__global__ void __launch_bounds__(LS_BAND_THREADS, 1)
+step2_band_kernel(float* __restrict__ x, const float* __restrict__ r,
+                  const float* __restrict__ p,
+                  const float* __restrict__ coef, float* __restrict__ r_out,
+                  float* __restrict__ p_out, float* __restrict__ g_out,
+                  double* __restrict__ partials,
+                  unsigned* __restrict__ counter, BandArgs a,
+                  const __grid_constant__ LsStencil st) {
+  extern __shared__ __align__(16) float ring[];
+  __shared__ double red[LS_BAND_WARPS][10];
+  __shared__ bool last;
+  const int S = a.stride, R = a.R, C = a.C, Q = a.Q;
+  const int strip = blockIdx.x % a.strips, band = blockIdx.x / a.strips;
+  const int c0 = strip * a.strip_cols, c1 = min(c0 + a.strip_cols, C);
+  const int r0 = band * a.band_rows, r1 = min(r0 + a.band_rows, R);
+  // the window's first column, and each stage's columns in window terms:
+  // [lo[k], hi[k]) for the loads (k = 0) and S_k, inside the grid; the
+  // thread's first column j0[k] and its count nv[k]
+  const int wl = max(c0 - 4 * Q, -Q);
+  int lo[5], hi[5], j0[5], nv[5], mx[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    lo[k] = max(0, c0 - (4 - k) * Q) - wl;
+    hi[k] = min(C, c1 + (4 - k) * Q) - wl;
+    j0[k] = lo[k] + threadIdx.x;
+    nv[k] = band_count(j0[k], hi[k]);
+    mx[k] = band_count(lo[k], hi[k]);
+  }
+  float* P = ring;
+  float* RR = P + 4 * S;
+  float* AP = RR + 4 * S;
+  float* U = AP + 2 * S;
+  float* RN = U + 3 * S;
+  float* PN = RN + 5 * S;
+  float* APN = PN + 4 * S;
+  for (int k = threadIdx.x; k < LS_BAND_RING_ROWS * S; k += LS_BAND_THREADS)
+    ring[k] = 0.f;
+  const float k0 = coef[0], k1 = coef[1], k2 = coef[2];
+  const float k3 = coef[3], k4 = coef[4], k5 = coef[5];
+  double g[10] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  __syncthreads();
+  for (int s = r0 - 4; s <= r1 + 5; ++s) {
+    if (s <= r1 + 3) {  // row s of p and r, zero outside the grid
+      float* dp = band_row(P, 4, s, S);
+      float* dr = band_row(RR, 4, s, S);
+      const bool in = s >= 0 && s < R;
+      const long long base = (long long)(in ? s : 0) * C + wl;
+      for (int j = j0[0]; j < hi[0]; j += LS_BAND_THREADS) {
+        cp_async4_zfill(dp + j, in ? p + base + j : p, in);
+        cp_async4_zfill(dr + j, in ? r + base + j : r, in);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+    float acc[LS_BAND_PER], acc2[LS_BAND_PER];
+    // phase A.  S1 at row s - 2: A p, u, x += u
+    int i = s - 2;
+    if (i >= r0 - 3 && i <= r1 + 2) {
+      float* du = band_row(U, 3, i, S);
+      float* dap = band_row(AP, 2, i, S);
+      if (i >= 0 && i < R) {
+        const bool mine = i >= r0 && i < r1;
+        float* xr = x + (long long)i * C + wl;
+        float xv[LS_BAND_PER];  // x at the thread's columns of the strip
+#pragma unroll
+        for (int m = 0; m < LS_BAND_PER; ++m) {
+          const int j = j0[1] + m * LS_BAND_THREADS;
+          xv[m] = mine && m < nv[1] && j >= lo[4] && j < hi[4] ? xr[j] : 0.f;
+        }
+        const float* p0 = band_row(P, 4, i, S);
+        const float* rv = band_row(RR, 4, i, S);
+        band_apply(band_row(P, 4, i - 1, S), p0, band_row(P, 4, i + 1, S),
+                   j0[1], mx[1], st, acc);
+#pragma unroll
+        for (int m = 0; m < LS_BAND_PER; ++m) {
+          const int j = j0[1] + m * LS_BAND_THREADS;
+          if (m >= nv[1]) break;
+          const float ap = acc[m];
+          const float uv = k0 * p0[j] + k1 * rv[j] - k2 * ap;
+          dap[j] = ap;
+          du[j] = uv;
+          if (mine && j >= lo[4] && j < hi[4]) xr[j] = xv[m] + uv;
+        }
+      } else {
+        for (int j = j0[1]; j < hi[1]; j += LS_BAND_THREADS) du[j] = 0.f;
+      }
+    }
+    // S3 at row s - 5: A p''
+    i = s - 5;
+    if (i >= r0 - 1 && i <= r1) {
+      float* d = band_row(APN, 3, i, S);
+      if (i >= 0 && i < R) {
+        band_apply(band_row(PN, 4, i - 1, S), band_row(PN, 4, i, S),
+                   band_row(PN, 4, i + 1, S), j0[3], mx[3], st, acc);
+#pragma unroll
+        for (int m = 0; m < LS_BAND_PER; ++m)
+          if (m < nv[3]) d[j0[3] + m * LS_BAND_THREADS] = acc[m];
+      } else {
+        for (int j = j0[3]; j < hi[3]; j += LS_BAND_THREADS) d[j] = 0.f;
+      }
+    }
+    __syncthreads();
+    // phase B.  S2 at row s - 3: r'' = r - A u, p''
+    i = s - 3;
+    if (i >= r0 - 2 && i <= r1 + 1) {
+      float* drn = band_row(RN, 5, i, S);
+      float* dpn = band_row(PN, 4, i, S);
+      if (i >= 0 && i < R) {
+        const float* rv = band_row(RR, 4, i, S);
+        const float* pv = band_row(P, 4, i, S);
+        const float* apv = band_row(AP, 2, i, S);
+        const bool mine = i >= r0 && i < r1;
+        const long long o = (long long)i * C + wl;
+        band_apply(band_row(U, 3, i - 1, S), band_row(U, 3, i, S),
+                   band_row(U, 3, i + 1, S), j0[2], mx[2], st, acc);
+#pragma unroll
+        for (int m = 0; m < LS_BAND_PER; ++m) {
+          const int j = j0[2] + m * LS_BAND_THREADS;
+          if (m >= nv[2]) break;
+          const float rvj = rv[j];
+          const float rn = rvj - acc[m];
+          const float pn = rn + k3 * rvj - k4 * apv[j] + k5 * pv[j];
+          drn[j] = rn;
+          dpn[j] = pn;
+          if (mine && j >= lo[4] && j < hi[4]) {
+            r_out[o + j] = rn;
+            p_out[o + j] = pn;
+          }
+        }
+      } else {
+        for (int j = j0[2]; j < hi[2]; j += LS_BAND_THREADS) {
+          drn[j] = 0.f;
+          dpn[j] = 0.f;
+        }
+      }
+    }
+    // S4 at row s - 6: A^2 p'', A r'', the Gram of (r'', p'')
+    i = s - 6;
+    if (i >= r0 && i < r1) {
+      const float* a0 = band_row(APN, 3, i, S);
+      const float* rn = band_row(RN, 5, i, S);
+      const float* pn = band_row(PN, 4, i, S);
+      band_apply(band_row(APN, 3, i - 1, S), a0, band_row(APN, 3, i + 1, S),
+                 j0[4], mx[4], st, acc);
+      band_apply(band_row(RN, 5, i - 1, S), rn, band_row(RN, 5, i + 1, S),
+                 j0[4], mx[4], st, acc2);
+#pragma unroll
+      for (int m = 0; m < LS_BAND_PER; ++m) {
+        const int j = j0[4] + m * LS_BAND_THREADS;
+        if (m >= nv[4]) break;
+        gram_terms_f64(g, rn[j], pn[j], a0[j], acc[m], acc2[m]);
+      }
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+  }
+  // the unit's Gram, then the fold of every unit's in unit order
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    double v = g[k];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+    if (lane == 0) red[warp][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 10) {
+    double v = 0.0;
+    for (int w = 0; w < LS_BAND_WARPS; ++w) v += red[w][threadIdx.x];
+    partials[(size_t)blockIdx.x * 10 + threadIdx.x] = v;
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  double acc[10] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  for (int u = threadIdx.x; u < (int)gridDim.x; u += LS_BAND_THREADS) {
+#pragma unroll
+    for (int k = 0; k < 10; ++k)
+      acc[k] += __ldcg(partials + (size_t)u * 10 + k);
+  }
+  __syncthreads();  // red is reused
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    double v = acc[k];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+    if (lane == 0) red[warp][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 10) {
+    double v = 0.0;
+    for (int w = 0; w < LS_BAND_WARPS; ++w) v += red[w][threadIdx.x];
+    g_out[threadIdx.x] = (float)v;
+  }
+  if (threadIdx.x == 0) *counter = 0u;
+}
+
+// The launch's arguments on an [R, C] grid and the stencil padded to a
+// multiple of LS_GEN_BATCH terms with zero weights at (0, 0) (*pad), or
+// false past the gate.
+bool band_args(const LsStencil& st, int R, int C, BandArgs* a,
+               LsStencil* pad) {
+  const BandGeom g = band_geometry(R, C);
+  const int Q = widest_dx(st);
+  const int stride = band_stride(C, Q);
+  *a = BandArgs{R, C, Q, g.strips, g.strip_cols, g.band_rows, stride};
+  *pad = st;
+  for (; pad->n % LS_BAND_BATCH; ++pad->n) {
+    pad->dy[pad->n] = 0;
+    pad->dx[pad->n] = 0;
+    pad->v[pad->n] = 0.f;
+  }
+  return stride > 0;
+}
+
+unsigned band_smem_done = 0;  // devices whose attribute is set
+
 }  // namespace
 
 extern "C" {
@@ -358,6 +780,65 @@ int ls_step2_general(float* x, const float* r, const float* p,
   return (int)cudaLaunchCooperativeKernel(
       (const void*)step2_general_kernel, dim3(blocks), dim3(LS_GEN_THREADS),
       args, 0, (cudaStream_t)stream_ptr);
+}
+
+// K1 on the band march (the gate: ls_step2_band_stride > 0).  partials:
+// capacity >= units (ls_step2_band_geometry) x 10 doubles; counter: one
+// unsigned, zero before the first launch (each launch leaves it zero).
+int ls_step2_band(float* x, const float* r, const float* p,
+                  const float* coef, float* r_out, float* p_out, float* g,
+                  double* partials, int capacity, unsigned* counter, int R,
+                  int C, const LsStencil* st, void* stream_ptr) {
+  BandArgs a;
+  LsStencil pad;
+  if (!valid_general(st, R, C) || !counter ||
+      !band_args(*st, R, C, &a, &pad))
+    return (int)cudaErrorInvalidValue;
+  const int units = a.strips * ((R + a.band_rows - 1) / a.band_rows);
+  if (units > capacity) return (int)cudaErrorInvalidValue;
+  int err = dyn_smem_ready(step2_band_kernel, LS_BAND_SMEM_MAX,
+                           band_smem_done);
+  if (err) return err;
+  const size_t smem = band_smem(a.stride);
+  step2_band_kernel<<<units, LS_BAND_THREADS, smem,
+                      (cudaStream_t)stream_ptr>>>(
+      x, r, p, coef, r_out, p_out, g, partials, counter, a, pad);
+  return (int)cudaGetLastError();
+}
+
+// out = {strips, strip columns, band rows, bands} of a band-march launch on
+// an [R, C] grid; ops/cuda/stencil2d.py mirrors it.
+int ls_step2_band_geometry(int R, int C, int* out) {
+  if (R < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  const BandGeom g = band_geometry(R, C);
+  out[0] = g.strips;
+  out[1] = g.strip_cols;
+  out[2] = g.band_rows;
+  out[3] = g.bands;
+  return 0;
+}
+
+// Floats of a ring row for C columns and widest |dx| Q; 0 past the gate.
+int ls_step2_band_stride(int C, int Q) { return band_stride(C, Q); }
+
+// out = {registers, spill bytes, resident blocks per SM, dynamic shared
+// memory bytes} of the band march with the stencil st on C columns.
+int ls_step2_band_attrs(int C, const LsStencil* st, int* out) {
+  if (!valid_general(st, 1, C)) return (int)cudaErrorInvalidValue;
+  const int stride = band_stride(C, widest_dx(*st));
+  if (!stride) return (int)cudaErrorInvalidValue;
+  int err = dyn_smem_ready(step2_band_kernel, LS_BAND_SMEM_MAX,
+                           band_smem_done);
+  if (err) return err;
+  cudaFuncAttributes fa;
+  err = (int)cudaFuncGetAttributes(&fa, step2_band_kernel);
+  if (err) return err;
+  const size_t smem = band_smem(stride);
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[3] = (int)smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], step2_band_kernel, LS_BAND_THREADS, smem);
 }
 
 // K2 on the general route.  ws: R C floats; the rest as ls_step2_general.

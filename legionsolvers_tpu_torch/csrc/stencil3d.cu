@@ -7,7 +7,8 @@
 // (build.py).
 //
 //   ls_stencil3d  K6a  replaces _stencil3d_call (modes y, y_dot, pq, update)
-//   ls_xpay_pq3d  K6b  replaces grid3d_cg_xpay_pq
+//   ls_xpay_pq3d  K6b  replaces grid3d_cg_xpay_pq (march1 or the window
+//                      march)
 //
 // What bounds them: bytes.  The 27-point stencil does 54 flops per element
 // against at least 4 B of traffic, 13 flops per byte, below the card's ~20
@@ -49,15 +50,32 @@
 //   y halo (2 rows per 16) read again, mostly from L2, and 2 extra planes
 //   per 32-plane chunk.
 // - Reach 2..8, or any z shift past 8 (up to 128, the TPU kernel's
-//   PADZ): march3d, each block a 32 x 32 tile over 16 planes, three
+//   PADZ), K6a: march3d, each block a 32 x 32 tile over 16 planes, three
 //   rotating shared slots sized for reach 8, the terms read in stencil
 //   order from shared memory (|oz| <= 8) or beside the window from device
 //   memory (wide_at: the operand at the shifted point, zero outside the
 //   volume's y and z, the halo planes outside its x), loads and compute
 //   not overlapped, and partial dots summed by a second launch
 //   (reduce_partials).
+// - The same stencils, K6b: the window march (common.cuh, march_win).
+//   On march3d each of S_wide's 8 wide terms formed r + beta p_old at the
+//   shifted point from L1, L2 or device memory (16 loads a point), which
+//   held every wide-z pass near 0.5 ms at 256^3 whatever its bytes.  Here
+//   the window holds every point a term reads: a 16-row tile plus the
+//   widest |oy| on each side, and the tile's 256 z columns plus the
+//   widest |oz| on each side, inside [0, Z) (at Z = 256 the whole z
+//   line).  p = r + beta p_old is formed once, as a plane is staged into
+//   a ring of three x planes (|ox| <= 1), every term is read from shared
+//   memory, p is stored at the tile's points, and <p, A p> is folded into
+//   the last block (m1_fold; x chunks aiming at a fixed 396 blocks, so
+//   its bits depend on (X, Y, Z) alone): one launch.  What bounds it:
+//   bytes, 12 B per element plus the window's y halo (2 hy rows per 16,
+//   mostly from L2) and 2 planes per x chunk; S_wide's window (22 x 256
+//   floats a plane, 67.6 KB for three) leaves 3 blocks per SM.  Every
+//   stencil of the gate fits (the largest window, 32 x 512 floats, takes
+//   192 KB).
 //
-// Both read each input byte from HBM about once.  K6b forms p = r + beta
+// All three read each input byte from HBM about once.  K6b forms p = r + beta
 // p_old while loading the window and applies A to it once; A p never
 // reaches HBM in pq, update or xpay_pq.  Buffers: update writes x and r in
 // place, because it reads them only at the thread's own element; xpay_pq
@@ -159,29 +177,6 @@ stencil3d_m1_kernel(const float* __restrict__ x, const float* __restrict__ top,
   if (MODE != 0) m1_fold(acc, partials, counter, dot);
 }
 
-// K6b on march3d (reach 2..8, wide z shifts): p = r + beta p_old (written
-// to p_out) and <p, A p>; the halo planes are p's own (the caller combines
-// r's and p_old's).
-__global__ void __launch_bounds__(LS_THREADS)
-xpay_pq3d_kernel(const float* __restrict__ r, const float* __restrict__ p_old,
-                 const float* __restrict__ beta_p,
-                 const float* __restrict__ top, const float* __restrict__ bot,
-                 float* __restrict__ p_out, float* __restrict__ partials,
-                 int X, int Y, int Z, LsStencil3 st, int h) {
-  __shared__ float win[3 * kPlaneMax];
-  __shared__ SharedStencil3 s;
-  stage_stencil3(s, st, LS_TILE + 2 * h);
-  const float beta = *beta_p;
-  float acc[1] = {0.f};
-  march3d(win, s, h, X, Y, Z, top, bot,
-          [&](size_t idx) { return r[idx] + beta * p_old[idx]; },
-          [&](size_t idx, float c, float ax) {
-            p_out[idx] = c;
-            acc[0] += c * ax;
-          });
-  block_partials(acc, partials);
-}
-
 // K6b's operand: p = r + beta p_old.
 struct XpayForm {
   static constexpr int NV = 2;  // r, p_old
@@ -190,6 +185,36 @@ struct XpayForm {
     return x[0] + beta * x[1];
   }
 };
+
+// K6b on the window march (every stencil off march1: reach 2..8, wide z
+// shifts): p = r + beta p_old formed as each plane is staged, stored at
+// the tile's points, <p, A p> folded into the last block.  The halo planes
+// are p's own (the caller combines r's and p_old's).  partials: one float
+// per block; counter: zero before the launch, zero after it.
+__global__ void __launch_bounds__(LS_W3_THREADS, LS_W3_MIN_BLOCKS)
+xpay_pq3d_win_kernel(const float* __restrict__ r,
+                     const float* __restrict__ p_old,
+                     const float* __restrict__ beta_p,
+                     const float* __restrict__ top,
+                     const float* __restrict__ bot, float* __restrict__ p_out,
+                     float* __restrict__ dot, float* __restrict__ partials,
+                     unsigned* __restrict__ counter, W3Geom g,
+                     const __grid_constant__ LsStencil3 st) {
+  extern __shared__ __align__(16) float win[];
+  __shared__ W3Terms s;
+  w3_stage_terms(s, st);
+  const W3Place pl = w3_place(g);
+  const float* src[2] = {r, p_old};
+  float acc = 0.f;
+  march_win(win, s, g, pl, src, top, bot, XpayForm{*beta_p},
+            [&](int x, int gy, int z, float c, float ax) {
+              p_out[((size_t)x * g.Y + gy) * g.Z + z] = c;
+              acc += c * ax;
+            });
+  m1_fold(acc, partials, counter, dot);
+}
+
+unsigned win_smem_done = 0;  // devices whose attribute is set
 
 // K6b on march1 (reach 1): p formed while the window is loaded, stored at
 // the thread's points, <p, A p> folded into the last block.  partials: one
@@ -285,14 +310,19 @@ int ls_xpay_pq3d_m1_attrs(int which, int* out) {
 }
 
 // Registers, spill bytes and resident blocks per SM of K6a's march3d
-// kernel in mode `which` (0..3), and of K6b's (4).
+// kernel in mode `which` (0..3), and of K6b's window march (4), at the
+// largest window's shared memory.
 int ls_stencil3d_attrs(int which, int* out) {
   switch (which) {
     case 0: return m1_attrs(stencil3d_kernel<0>, out);
     case 1: return m1_attrs(stencil3d_kernel<1>, out);
     case 2: return m1_attrs(stencil3d_kernel<2>, out);
     case 3: return m1_attrs(stencil3d_kernel<3>, out);
-    case 4: return m1_attrs(xpay_pq3d_kernel, out);
+    case 4: {
+      const int err = dyn_smem_ready(xpay_pq3d_win_kernel, kW3SmemMax,
+                                     win_smem_done);
+      return err ? err : m1_attrs(xpay_pq3d_win_kernel, out, kW3SmemMax);
+    }
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -348,7 +378,8 @@ int ls_stencil3d(int mode, const float* x, const float* top, const float* bot,
   return finish(partials, grid.x * grid.y * grid.z, 1, dot, stream);
 }
 
-// K6b: p = r + beta p_old to p_out, <p, A p> to dot; scratch as for
+// K6b: p = r + beta p_old to p_out, <p, A p> to dot, one launch (march1
+// for reach-1 stencils, the window march for every other); scratch as for
 // ls_stencil3d.
 int ls_xpay_pq3d(const float* r, const float* p_old, const float* beta,
                  const float* top, const float* bot, float* p_out, float* dot,
@@ -356,7 +387,6 @@ int ls_xpay_pq3d(const float* r, const float* p_old, const float* beta,
                  int Y, int Z, const LsStencil3* st, void* stream_ptr) {
   if (!valid3(st, X, Y, Z)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int h = reach3_yz(*st);
   if (on_march1(*st)) {
     M1Geom g;
     const long long blocks = m1_geometry(X, Y, Z, &g);
@@ -377,13 +407,37 @@ int ls_xpay_pq3d(const float* r, const float* p_old, const float* beta,
 #undef LS_XP_LAUNCH
     return (int)cudaGetLastError();
   }
-  const dim3 grid = march_grid(X, Y, Z), block(LS_THREADS_X, LS_THREADS_Y);
-  const int nblocks = grid.x * grid.y * grid.z;
-  if (nblocks > capacity) return (int)cudaErrorInvalidValue;
-  xpay_pq3d_kernel<<<grid, block, 0, stream>>>(r, p_old, beta, top, bot,
-                                               p_out, partials, X, Y, Z, *st,
-                                               h);
-  return finish(partials, nblocks, 1, dot, stream);
+  W3Geom g;
+  const long long blocks = w3_geometry(X, Y, Z, *st, &g);
+  if (!counter || blocks > capacity) return (int)cudaErrorInvalidValue;
+  const int err = dyn_smem_ready(xpay_pq3d_win_kernel, kW3SmemMax,
+                                 win_smem_done);
+  if (err) return err;
+  xpay_pq3d_win_kernel<<<(unsigned)blocks, LS_W3_THREADS, w3_smem(g),
+                         stream>>>(r, p_old, beta, top, bot, p_out, dot,
+                                   partials, counter, g, *st);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of the window march on an [X, Y, Z] volume (whatever the
+// stencil); ops/cuda/stencil3d.py mirrors it.
+int ls_window3d_blocks(int X, int Y, int Z) {
+  LsStencil3 st;
+  st.n = 0;
+  W3Geom g;
+  return X < 1 || Y < 1 || Z < 1 ? 0 : (int)w3_geometry(X, Y, Z, st, &g);
+}
+
+// out = {registers, spill bytes, resident blocks per SM, dynamic shared
+// memory bytes, blocks} of K6b's window march on [X, Y, Z] with st.
+int ls_xpay_pq3d_win_attrs(int X, int Y, int Z, const LsStencil3* st,
+                           int* out) {
+  if (!valid3(st, X, Y, Z)) return (int)cudaErrorInvalidValue;
+  W3Geom g;
+  out[4] = (int)w3_geometry(X, Y, Z, *st, &g);
+  out[3] = (int)w3_smem(g);
+  int err = dyn_smem_ready(xpay_pq3d_win_kernel, kW3SmemMax, win_smem_done);
+  return err ? err : m1_attrs(xpay_pq3d_win_kernel, out, w3_smem(g));
 }
 
 }  // extern "C"

@@ -120,9 +120,10 @@ def load_library() -> ctypes.CDLL:
     from .rowperm import PIECE_ROWS
     from .stencil2d import (GEN_UNIT_ELEMS, MAX_TERMS, STENCIL_REACH,
                             STEP2_COLS, STEP2_MIN_ROWS, STEP2_WARPS,
-                            STRIP_TARGETS, TILE, WIDE_Z_REACH, general_units,
-                            strip_geometry)
-    from .stencil3d import CHUNK_X, _Stencil3, march1_geometry
+                            STRIP_TARGETS, TILE, WIDE_Z_REACH, band_geometry,
+                            band_stride, general_units, strip_geometry)
+    from .stencil3d import (CHUNK_X, _Stencil3, march1_geometry,
+                            window3d_geometry)
     from .vpu_probe import C as VPU_C, TR as VPU_TR
 
     lib = ctypes.CDLL(str(build()))
@@ -134,6 +135,10 @@ def load_library() -> ctypes.CDLL:
         "ls_step2_nop": [_P] * 8 + [_I, _P, _I, _I, _P, _P],
         "ls_step2_general": [_P] * 9 + [_I, _P, _I, _I, _P, _P],
         "ls_gram2_general": [_P] * 5 + [_I, _P, _I, _I, _P, _P],
+        "ls_step2_band": [_P] * 8 + [_I, _P, _I, _I, _P, _P],
+        "ls_step2_band_geometry": [_I, _I, _P],
+        "ls_step2_band_stride": [_I, _I],
+        "ls_step2_band_attrs": [_I, _P, _P],
         "ls_sstep_general_units": [_I, _I],
         "ls_sstep_general_attrs": [_I, _P],
         "ls_bicg_pv": [_P] * 10 + [_I, _I, _I, _P, _P],
@@ -157,6 +162,8 @@ def load_library() -> ctypes.CDLL:
         "ls_bicg3d_st_m1_attrs": [_I, _P],
         "ls_bicg3d_update_m1_attrs": [_I, _P],
         "ls_march1_blocks": [_I] * 3,
+        "ls_window3d_blocks": [_I] * 3,
+        "ls_xpay_pq3d_win_attrs": [_I] * 3 + [_P, _P],
         "ls_bicg3d_st": [_P] * 7 + [_I, _P] + [_I] * 4 + [_P, _P],
         "ls_bicg3d_update": [_P] * 12 + [_I, _P] + [_I] * 4 + [_P, _P],
         "ls_dia2d": [_I] + [_P] * 4 + [_L, _P, _I] + [_P] * 3 + [_I, _I, _P],
@@ -204,6 +211,20 @@ def load_library() -> ctypes.CDLL:
                           (1, 5), (5000, 1))):
         raise RuntimeError("csrc/sstep_general.cu and ops/cuda/stencil2d.py "
                            "disagree on the general route's units")
+    geo = (ctypes.c_int * 4)()
+    for shape in ((4096, 4096), (1024, 4096), (16, 128), (33, 4097),
+                  (1, 5), (5000, 1), (5, 130)):
+        if (lib.ls_step2_band_geometry(*shape, geo)
+                or tuple(geo) != band_geometry(*shape)):
+            raise RuntimeError("csrc/sstep_general.cu and ops/cuda/"
+                               "stencil2d.py disagree on the band march's "
+                               f"geometry at {shape}")
+    for C, q in ((4096, 100), (4096, 146), (4096, 147), (4096, 4095),
+                 (128, 127), (4097, 100), (130, 129)):
+        if lib.ls_step2_band_stride(C, q) != band_stride(C, ((0, q),)):
+            raise RuntimeError("csrc/sstep_general.cu and ops/cuda/"
+                               "stencil2d.py disagree on the band march's "
+                               f"gate at C {C}, |dx| {q}")
     if lib.ls_blockperm_piece_rows() != PIECE_ROWS:
         raise RuntimeError("csrc/rowperm.cu and ops/cuda/rowperm.py "
                            "disagree on LS_BLOCKPERM_PIECE_ROWS")
@@ -218,6 +239,10 @@ def load_library() -> ctypes.CDLL:
         if lib.ls_march1_blocks(*shape) != march1_geometry(*shape)[2]:
             raise RuntimeError("csrc/common.cuh and ops/cuda/stencil3d.py "
                                f"disagree on march1's blocks at {shape}")
+        if lib.ls_window3d_blocks(*shape) != window3d_geometry(*shape)[2]:
+            raise RuntimeError("csrc/common.cuh and ops/cuda/stencil3d.py "
+                               "disagree on the window march's blocks at "
+                               f"{shape}")
     if (lib.ls_dia_max_terms() != MAX_DIA_TERMS
             or lib.ls_dia_elems() != DIA_ELEMS):
         raise RuntimeError("csrc/dia2d.cu and ops/cuda/dia2d.py disagree on "

@@ -29,8 +29,11 @@ K3 and K4 with any other stencil (|dy| <= 8, |dx| < C) run tile kernels,
 whose terms with |dx| > 8 read device memory beside the tile, and a
 second launch that sums their dots; K1 and K2 with any other stencil
 (|dy| <= 1, |dx| < C) run the general route (``csrc/sstep_general.cu``):
-one cooperative launch of stages over the whole grid, separated by a
-grid-wide barrier, the intermediates in a workspace.
+K1 on the band march, a march down bands of rows with every intermediate
+in shared-memory rings (route ``general``, where :func:`band_stride`
+takes the width and the widest |dx|), else, and K2 always, one
+cooperative launch of stages over the whole grid, separated by a
+grid-wide barrier, the intermediates in a workspace (``general_coop``).
 
 Semantics follow the JAX kernels.  ``x`` is the grid ``[R, C]`` (f32);
 stencil offsets are ``(dy, dx)`` pairs, |dy| <= 8 and |dx| < C.  Columns
@@ -83,6 +86,15 @@ STRIP_TARGETS = (STEP2_TARGET_WARPS, GRAM2_TARGET_WARPS, ST_TARGET_WARPS,
 STEP2_GRAM = 10    # doubles of a block's partial sums in the strip scratch
 GEN_UNIT_ELEMS = 8192  # general route: elements of a unit of whole rows
                        # (csrc/sstep_general.cu: LS_GEN_UNIT_ELEMS)
+# K1's band march (csrc/sstep_general.cu: LS_BAND_*)
+BAND_COLS = 1024       # output columns of a strip, at most
+BAND_MIN_ROWS = 16     # shortest band
+BAND_TARGET = 264      # units (strips x bands) a launch aims at
+BAND_RING_ROWS = 25    # shared-memory ring rows of the seven rings
+BAND_THREADS = 512     # threads of a block
+# floats of a ring row, at most: the rings, one row more and a block's
+# width of slack fit the kernel's 225 KB of shared memory
+BAND_MAX_STRIDE = (225 * 1024 // 4 - BAND_THREADS) // (BAND_RING_ROWS + 1)
 
 #: CUDA launches per pass name since the last :func:`reset_launch_counts`.
 LAUNCHES = collections.Counter()
@@ -162,14 +174,47 @@ def route(offsets, values, C: int, sstep: bool = False):
     decomposition of a reach-1 1-D stencil (the strip march with WRAP, on
     the 1-D stencil), otherwise ``tile`` for the one-pass kernels (the 32 x
     32 tile kernels, terms with |dx| > 8 read from device memory beside
-    the tile) and ``general`` for the s-step passes K1 and K2 (``sstep``;
-    csrc/sstep_general.cu)."""
+    the tile) and, for the s-step passes K1 and K2 (``sstep``;
+    csrc/sstep_general.cu), ``general`` where K1's band march takes the
+    width and the widest |dx| (:func:`band_stride`), ``general_coop`` (the
+    cooperative kernel) where it does not.  K2 runs the cooperative kernel
+    on both."""
     if _reach(offsets) <= STEP2_REACH:
         return "strip", offsets, values, 0
     flat = flat_stencil(offsets, values, C)
     if flat is not None:
         return ("flat", *flat, 1)
-    return ("general" if sstep else "tile"), offsets, values, 0
+    if not sstep:
+        return "tile", offsets, values, 0
+    kind = "general" if band_stride(C, offsets) else "general_coop"
+    return kind, offsets, values, 0
+
+
+def band_geometry(R: int, C: int):
+    """(strips, strip columns, band rows, bands) of a K1 band-march launch
+    on an [R, C] grid, as ``band_geometry`` in csrc/sstep_general.cu
+    computes them: strips of at most BAND_COLS columns, bands aiming at
+    BAND_TARGET units (strips x bands), no shorter than BAND_MIN_ROWS
+    rows.  A function of the shape alone, and so is the Gram's sum
+    order."""
+    strips = -(-C // BAND_COLS)
+    w = -(-C // strips)
+    per = max(1, BAND_TARGET // strips)
+    rows = min(R, max(BAND_MIN_ROWS, -(-R // per)))
+    return strips, w, rows, -(-R // rows)
+
+
+def band_stride(C: int, offsets) -> int:
+    """Floats of a ring row of K1's band march on C columns with this
+    stencil: its widest window, min(w + 8 Q, C + 2 Q) (w the strip width,
+    Q the widest |dx|), rounded up to 4; 0 when it is past
+    BAND_MAX_STRIDE (the rings would not fit the kernel's shared memory),
+    the gate that sends a stencil to the cooperative kernel
+    (``band_stride`` in csrc/sstep_general.cu)."""
+    Q = col_reach(offsets)
+    wid = min(band_geometry(1, C)[1] + 8 * Q, C + 2 * Q)
+    wid = -(-wid // 4) * 4
+    return wid if wid <= BAND_MAX_STRIDE else 0
 
 
 def decompose_flat_offsets(flat_offsets, values, C: int):
@@ -497,6 +542,27 @@ def general_units(R: int, C: int) -> int:
     return -(-R // rows)
 
 
+_BAND_SCRATCH = {}
+
+
+def _band_scratch(device, R: int, C: int):
+    """(partials, units, counter) of K1's band-march launches on an [R, C]
+    grid: ten float64 partial sums per unit (strips x bands) and the
+    last-block counter (zero between launches), made once per (device,
+    stream, R, C): launches on one stream are ordered, so they can share
+    them."""
+    key = (device, _raw_stream(device), R, C)
+    scratch = _BAND_SCRATCH.get(key)
+    if scratch is None:
+        strips, _, _, bands = band_geometry(R, C)
+        units = strips * bands
+        scratch = (torch.empty(STEP2_GRAM * units, dtype=torch.float64,
+                               device=device), units,
+                   torch.zeros(1, dtype=torch.int32, device=device))
+        _BAND_SCRATCH[key] = scratch
+    return scratch
+
+
 _GEN_SCRATCH = {}
 
 
@@ -693,7 +759,7 @@ def grid2d_cg_gram2(r, p, *, offsets, values):
     g = torch.empty(10, dtype=torch.float32, device=dev)
     kind, k_offs, k_vals, wrap = route(offsets, values, C, sstep=True)
     st = ctypes.byref(_stencil_struct(k_offs, k_vals))
-    if kind == "general":
+    if kind in ("general", "general_coop"):
         ws, partials, units, sync = _general_scratch(dev, R, C)
         _launch("gram2", "ls_gram2_general", (
             _ptr(r), _ptr(p), _ptr(g), _ptr(ws), _ptr(partials), units,
@@ -736,6 +802,13 @@ def grid2d_cg_step2(x, r, p, coef, *, offsets, values,
     kind, k_offs, k_vals, wrap = route(offsets, values, C, sstep=True)
     st = ctypes.byref(_stencil_struct(k_offs, k_vals))
     if kind == "general":
+        partials, units, counter = _band_scratch(dev, R, C)
+        _launch("step2", "ls_step2_band", (
+            _ptr(x), _ptr(r), _ptr(p), _ptr(c), _ptr(out[0]), _ptr(out[1]),
+            _ptr(g), _ptr(partials), units, _ptr(counter), R, C, st,
+        ), dev)
+        return x, out[0], out[1], g
+    if kind == "general_coop":
         ws, partials, units, sync = _general_scratch(dev, R, C)
         _launch("step2", "ls_step2_general", (
             _ptr(x), _ptr(r), _ptr(p), _ptr(c), _ptr(out[0]), _ptr(out[1]),

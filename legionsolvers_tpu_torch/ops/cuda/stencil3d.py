@@ -21,8 +21,10 @@ reach-1 stencils (the 7- and 27-point ones) run the register march
 dot is folded into its last block; stencils of reach 2..8, and any stencil
 with a z shift past 8 (up to 128, JAX's ``PADZ``: a wide term, read beside
 march3d's window), run ``march3d`` with a second launch summing its partial
-dots.  Both take their scratch
-from :func:`march_scratch`.  Every CUDA launch adds one to
+dots, except K6b, which runs them on the window march (one launch: a
+window that holds every z shift a term reads, its dot folded into its last
+block; :func:`window3d_geometry`, :func:`xpay_pq3d_route`).  All take
+their scratch from :func:`march_scratch`.  Every CUDA launch adds one to
 :data:`~.stencil2d.LAUNCHES` under the pass's name with a ``3d`` suffix
 (``y3d``, ``y_dot3d``, ``pq3d``, ``update3d``, ``xpay_pq3d``).
 
@@ -66,6 +68,10 @@ M1_TY = 16  # march1: tile rows (csrc: LS_M1_TY)
 M1_TZ = 128  # march1: tile columns (LS_M1_TZ)
 M1_MIN_CHUNK = 8  # march1: x chunks no more than X / 8 (LS_M1_MIN_CHUNK)
 M1_TARGET_BLOCKS = 264  # march1: blocks a launch aims at (LS_M1_TARGET_BLOCKS)
+W3_TY = 16  # window march: tile rows (LS_W3_TY)
+W3_TZ = 256  # window march: tile columns (LS_W3_TZ)
+W3_MIN_CHUNK = 4  # window march: x chunks no more than X / 4
+W3_TARGET_BLOCKS = 396  # window march: blocks a launch aims at
 
 
 # ===========================================================================
@@ -186,10 +192,41 @@ def march1_geometry(X: int, Y: int, Z: int):
     return tiles, chunk, tiles * -(-X // chunk)
 
 
+def window3d_geometry(X: int, Y: int, Z: int):
+    """(tiles, planes per chunk, blocks) of a window-march launch (K6b off
+    march1), as ``w3_geometry`` in csrc/common.cuh computes them: W3_TY x
+    W3_TZ (y, z) tiles, and x chunks aiming at W3_TARGET_BLOCKS blocks, no
+    more of them than chunks of W3_MIN_CHUNK planes would need.  A
+    function of the shape alone."""
+    tiles = -(-Z // W3_TZ) * -(-Y // W3_TY)
+    chunks = max(1, min(W3_TARGET_BLOCKS // tiles, -(-X // W3_MIN_CHUNK)))
+    chunk = -(-X // chunks)
+    return tiles, chunk, tiles * -(-X // chunk)
+
+
+def window3d_smem(Z: int, offsets) -> int:
+    """Shared-memory bytes of the window march's three planes on Z columns
+    with this stencil: (W3_TY + 2 hy) rows of min(Z, W3_TZ + 2 hz) floats,
+    hy and hz the widest |oy| and |oz| (``w3_smem``).  At most 192 KB, so
+    every stencil of the gate fits."""
+    hy = max(abs(oy) for _, oy, _ in offsets)
+    hz = max(abs(oz) for _, _, oz in offsets)
+    return 3 * (W3_TY + 2 * hy) * min(Z, W3_TZ + 2 * hz) * 4
+
+
+def xpay_pq3d_route(offsets) -> str:
+    """K6b's kernel for this stencil: ``march1`` for reach 1 (|oy|, |oz|
+    <= 1), ``window`` (the window march) for every other stencil of the
+    gate (``on_march1`` in csrc/common.cuh)."""
+    reach = max(max(abs(oy), abs(oz)) for _, oy, oz in offsets)
+    return "march1" if reach <= 1 else "window"
+
+
 def march_scratch_size(X: int, Y: int, Z: int) -> int:
-    """Blocks of the larger of the two marches' launches on an [X, Y, Z]
+    """Blocks of the largest of the marches' launches on an [X, Y, Z]
     volume: the capacity :func:`march_scratch` passes to the kernels."""
-    return max(blocks3d(X, Y, Z), march1_geometry(X, Y, Z)[2])
+    return max(blocks3d(X, Y, Z), march1_geometry(X, Y, Z)[2],
+               window3d_geometry(X, Y, Z)[2])
 
 
 DOTS_PER_BLOCK = 2  # the most partial dots a 3-D pass keeps per block (K7)

@@ -1845,7 +1845,10 @@ def test_k1_k2_general_match_plain_on_card(stencil, shape, cuda_device):
     offs, vals = GENERAL[stencil](shape[1])
     if max(abs(dx) for _, dx in offs) >= shape[1]:
         pytest.skip("|dx| >= C: off the gate at this width")
-    assert T.route(offs, vals, shape[1], sstep=True)[0] == "general"
+    # K1's band march, or past its gate (|dx| = 4095) the cooperative
+    # kernel
+    assert T.route(offs, vals, shape[1], sstep=True)[0] == (
+        "general" if T.band_stride(shape[1], offs) else "general_coop")
     kw = dict(offsets=offs, values=vals)
     rng = np.random.default_rng(37)
     d = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
@@ -1920,7 +1923,8 @@ def test_general_sstep_solve_matches_plain_on_card(pieces, spaces,
 def test_general_attrs_on_card(cuda_device):
     """The general route's kernels report their registers and hold at
     least one block per SM (a cooperative launch needs every block
-    resident); the library's units match ``general_units``."""
+    resident; K1's band march at S2_gen's rings); the library's units
+    match ``general_units``."""
     import ctypes
 
     from legionsolvers_tpu_torch.ops.cuda.build import load_library
@@ -1932,3 +1936,11 @@ def test_general_attrs_on_card(cuda_device):
         assert 0 < out[0] <= 255 and out[2] >= 1, list(out)
     for shape in ((4096, 4096), (1024, 4096), (5, 130), (1, 101)):
         assert lib.ls_sstep_general_units(*shape) == T.general_units(*shape)
+    # K1's band march: its registers and a block per SM at S2_gen's rings
+    st = T._stencil_struct(*_S2_GEN)
+    out = (ctypes.c_int * 4)()
+    assert lib.ls_step2_band_attrs(4096, ctypes.byref(st), out) == 0
+    assert 0 < out[0] <= 255 and out[2] >= 1, list(out)
+    # the rings, one more row and a block's width of slack
+    stride = T.band_stride(4096, _S2_GEN[0])
+    assert out[3] == 4 * ((T.BAND_RING_ROWS + 1) * stride + T.BAND_THREADS)

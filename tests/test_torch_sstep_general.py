@@ -111,17 +111,24 @@ GATES = {
 }
 
 
+# the cases of GATES whose widest |dx| at 4096 columns is past K1's band
+# march (its rings would not fit): they keep the cooperative kernel
+COOP = {"wide(4096) 4096^2", "|dx| = C - 1 = 4095"}
+
+
 @pytest.mark.parametrize("case", list(GATES))
 def test_gates_of_both_packages(case):
     """JAX's ``step2_supported`` and the port's on the table above; the
     port routes what it takes past reach 1 and off the flat view to the
-    general route."""
+    general route: K1's band march (``general``), or the cooperative
+    kernel for the cases of COOP (``general_coop``)."""
     R, C, o, jax_takes, port_takes = GATES[case]
     assert JS.step2_supported(R, C, o) is jax_takes
     assert TS.step2_supported(R, C, o) is port_takes
     if port_takes and TS._reach(o) > 1:
         vals = (1.0,) * len(o)
-        assert TS.route(o, vals, C, sstep=True)[0] == "general"
+        assert TS.route(o, vals, C, sstep=True)[0] == (
+            "general_coop" if case in COOP else "general")
         assert TS.route(o, vals, C)[0] == "tile"
 
 
@@ -237,6 +244,89 @@ def test_general_units_mirror_csrc():
     assert TS.general_units(16, 128) == 1
     assert TS.general_units(33, 4097) == 33
     assert TS.general_units(1, 5) == 1
+
+
+# -- K1's band march: the Python mirrors of its geometry and gate ------------
+
+# (R, C): (strips, strip columns, band rows, bands), from
+# ``band_geometry`` of csrc/sstep_general.cu (also checked when the
+# library loads): strips of at most 1024 columns, bands aiming at 264 units
+# and no shorter than 16 rows
+BAND_GEOMETRY = {
+    (4096, 4096): (4, 1024, 63, 66),   # phase 4n's grid: 264 units
+    (1024, 4096): (4, 1024, 16, 64),   # a quarter-height piece
+    (33, 4097): (5, 820, 16, 3),
+    (5, 130): (1, 130, 5, 1),
+    (1, 101): (1, 101, 1, 1),
+    (16, 128): (1, 128, 16, 1),
+    (5000, 1): (1, 1, 19, 264),
+    (64, 256): (1, 256, 16, 4),
+}
+
+
+@pytest.mark.parametrize("shape", list(BAND_GEOMETRY))
+def test_band_geometry_mirrors_csrc(shape):
+    """The band march's strips and bands are a function of the shape alone
+    (so is the Gram's sum order): they cover the grid, strips within 1024
+    columns, bands no shorter than 16 rows unless the grid is."""
+    R, C = shape
+    strips, w, rows, bands = TS.band_geometry(R, C)
+    assert (strips, w, rows, bands) == BAND_GEOMETRY[shape]
+    assert w <= TS.BAND_COLS and strips * w >= C > (strips - 1) * w
+    assert bands * rows >= R > (bands - 1) * rows
+    assert rows >= min(R, TS.BAND_MIN_ROWS)
+
+
+def test_band_constants_mirror_csrc():
+    """BAND_* mirror the LS_BAND_* defines of csrc/sstep_general.cu, and
+    the rings' rows sum to LS_BAND_RING_ROWS."""
+    src = (TS.__file__.rsplit("ops", 1)[0] + "csrc/sstep_general.cu")
+    with open(src) as f:
+        text = f.read()
+    define = lambda n: re.search(rf"#define LS_BAND_{n} (\S+)", text).group(1)
+    assert int(define("COLS")) == TS.BAND_COLS
+    assert int(define("MIN_ROWS")) == TS.BAND_MIN_ROWS
+    assert int(define("TARGET")) == TS.BAND_TARGET
+    assert int(define("RING_ROWS")) == TS.BAND_RING_ROWS == 4 + 4 + 2 + 3 + 5 + 4 + 3
+    assert int(define("THREADS")) == TS.BAND_THREADS
+    assert define("SMEM_MAX") == "(225"
+    assert TS.BAND_MAX_STRIDE == 2195  # (57600 - 512) // 26
+
+
+# (C, stencil, ring-row floats or 0 past the gate)
+BAND_GATE = {
+    "S2_GEN 4096": (4096, S2_GEN, 1824),       # 1024 + 8 * 100
+    "S2_4X 4096": (4096, S2_4X, 1040),         # 1024 + 8 * 2
+    "|dx| = 146 at 4096": (4096, list(zip(pair(146), (5.0,) + (-1.0,) * 6)),
+                           2192),               # the widest that fits
+    "|dx| = 147 at 4096": (4096, list(zip(pair(147), (5.0,) + (-1.0,) * 6)),
+                           0),
+    "S2_GEN with |dx| = 200 at 4096": (
+        4096, [((dy, 2 * dx if abs(dx) == 100 else dx), v)
+               for (dy, dx), v in S2_GEN], 0),  # phase 4n's S2_far
+    "|dx| = 4095 at 4096": (4096, list(zip(CROSS + ((1, -4095), (-1, 4095)),
+                                           (5.0,) + (-1.0,) * 6)), 0),
+    "wide(128) at 128": (128, wide_terms(128), 384),  # 128 + 2 * 127
+    "S2_GEN 4097": (4097, S2_GEN, 1620),       # 820 + 8 * 100
+    "|dx| = 129 at 130": (130, list(zip(pair(129), (5.0,) + (-1.0,) * 6)),
+                          388),
+    "|dx| = 1000 at 1024": (1024, list(zip(pair(1000), (5.0,) + (-1.0,) * 6)),
+                            0),                 # 1024 + 2000 > 2304
+}
+
+
+@pytest.mark.parametrize("case", list(BAND_GATE))
+def test_band_gate_and_route(case):
+    """The gate of K1's band march (``band_stride``: the widest window,
+    min(w + 8 Q, C + 2 Q) rounded up to 4, fits 2195 floats a ring row)
+    and ``route``: ``general`` where it fits, ``general_coop`` (the
+    cooperative kernel) where it does not.  Phase 4n's S2_gen and S2_4x
+    at 4096 columns take the band march."""
+    C, terms, stride = BAND_GATE[case]
+    kw = kw_of(terms)
+    assert TS.band_stride(C, kw["offsets"]) == stride
+    assert TS.route(kw["offsets"], kw["values"], C, sstep=True)[0] == (
+        "general" if stride else "general_coop")
 
 
 # -- CG solves ---------------------------------------------------------------

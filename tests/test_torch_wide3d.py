@@ -189,6 +189,66 @@ def test_apply_planes_plain_pads_each_axis_by_its_reach(monkeypatch):
     assert torch.equal(y, acc)
 
 
+# -- K6b's window march: the Python mirrors of its geometry and route -------
+
+# (X, Y, Z): (tiles, planes per chunk, blocks), from ``w3_geometry`` of
+# csrc/common.cuh (also checked when the library loads): 16 x 256 (y, z)
+# tiles, x chunks aiming at 396 blocks, no more than X / 4 of them
+WINDOW_GEOMETRY = {
+    (256, 256, 256): (16, 11, 384),   # phase 4m's volume
+    (64, 256, 256): (16, 4, 256),     # one of its 4 pieces
+    (37, 45, 130): (3, 4, 30),
+    (1, 5, 301): (2, 1, 2),
+    (20, 7, 129): (1, 4, 5),
+    (17, 9, 256): (1, 4, 5),
+    (4, 8, 256): (1, 4, 1),
+}
+
+
+@pytest.mark.parametrize("shape", list(WINDOW_GEOMETRY))
+def test_window_geometry_mirrors_csrc(shape):
+    """The window march's geometry is a function of the volume alone (so
+    is the sum order of K6b's dot), its chunks cover X, and
+    ``march_scratch`` holds a partial for each of its blocks."""
+    X, Y, Z = shape
+    tiles, chunk, blocks = T3.window3d_geometry(X, Y, Z)
+    assert (tiles, chunk, blocks) == WINDOW_GEOMETRY[shape]
+    assert blocks // tiles * chunk >= X > (blocks // tiles - 1) * chunk
+    assert T3.march_scratch_size(X, Y, Z) >= blocks
+
+
+# (offsets, Z): (K6b's kernel, window bytes or None off the window march)
+WINDOW_ROUTE = {
+    "S_WIDE at Z = 256": (kw_of(S_WIDE)["offsets"], 256, "window",
+                          3 * 22 * 256 * 4),   # phase 4m: 67.6 KB
+    "S_127 at Z = 128": (kw_of(S_127)["offsets"], 128, "window",
+                         3 * 22 * 128 * 4),
+    "S_WIDE at Z = 301": (kw_of(S_WIDE)["offsets"], 301, "window",
+                          3 * 22 * 301 * 4),
+    "|oy| = 8, |oz| = 128 at Z = 4096": (offs((0, 8, -128), (0, 0, 128)),
+                                         4096, "window", 3 * 32 * 512 * 4),
+    "reach 2 at Z = 256": (offs((0, 2, 0), (0, 0, -2)), 256, "window",
+                           3 * 20 * 256 * 4),
+    "7-point": (offs((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),
+                     (0, 0, -1), (0, 0, 1)), 256, "march1", None),
+    "27-point": (tuple((a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                       for c in (-1, 0, 1)), 256, "march1", None),
+}
+
+
+@pytest.mark.parametrize("case", list(WINDOW_ROUTE))
+def test_xpay_pq3d_route_and_window(case):
+    """K6b's dispatch: reach-1 stencils keep march1, every other stencil of
+    the gate (reach 2..8, wide z) takes the window march, whose three
+    planes fit the kernel's 192 KB for the widest window the gate allows
+    (|oy| = 8, |oz| = 128)."""
+    o, Z, route, smem = WINDOW_ROUTE[case]
+    assert T3.supports3d(4, 16, Z, o)
+    assert T3.xpay_pq3d_route(o) == route
+    if smem is not None:
+        assert T3.window3d_smem(Z, o) == smem <= 3 * 32 * 512 * 4
+
+
 # -- the view, the matvec and the solves -------------------------------------
 
 def port_op(shape, stencil, pieces=1):
