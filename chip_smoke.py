@@ -88,12 +88,12 @@ Phases (any failure raises, and the exit code is non-zero):
 3c. the 3-D kernels: K6a (y, y_dot, pq, update), K6b (xpay_pq) and K7
    (pv, st, update; compensated dots off and on) against their plain
    versions, 7- and 27-point stencils (every pass on the reach-1
-   register march, march1) and a reach-2 11-point star (every pass on
-   the generic march3d), at the main-path shape 256^3 and a
-   ragged 37 x 45 x 130, with random halo planes; the bounds of phases 3
-   and 3b.  A
-   torch.profiler trace of one call of each pass shows that the march1
-   passes launch one kernel and no second reduction launch
+   register march, march1) and a reach-2 11-point star (K6a, K6b and K7
+   pv on the window march, K7 st and update on march3d), at the
+   main-path shape 256^3 and a ragged 37 x 45 x 130, with random halo
+   planes; the bounds of phases 3 and 3b.  A torch.profiler trace of one
+   call of each pass shows that the march1 and window-march passes
+   launch one kernel of their march and no second reduction launch
    (reduce_partials), and that the march3d passes do launch theirs.  Each
    march1 kernel's registers, spill bytes and resident blocks per SM
    (cudaFuncGetAttributes, the occupancy calculator) are printed after
@@ -305,9 +305,10 @@ grid as ``[n // C, C]`` and the kernels run its row-wrap terms, |dx| = C -
 
 Wide z shifts on the 3-D kernels (kernel item C: S_wide, the 7-point
 cross with center 8.5 plus (0, 0, +-12), (0, +-3, +-100) and (+-1, 0,
-+-128), whose terms past |oz| = 8 march3d reads beside its window; K6b
-runs the window march, whose window holds them), and K1's nop mode (item
-D):
++-128); K6a's four modes, K6b and K7 pv run the window march, whose
+window holds every z shift a term reads, and K7 st and update march3d,
+which reads the terms past |oz| = 8 beside its window), and K1's nop mode
+(item D):
 
 4m. K6a's four modes, K6b and K7 (compensated dots off and on) with S_wide
    against their plain versions at 256^3 and at (37, 45, 130), (1, 5,
@@ -325,12 +326,12 @@ D):
    entries where it stays within 1e-3 (f32 CG on S_wide falls past f32's
    accuracy within ~120 iterations), BiCGStab within FLAT_BICG_RTOL of
    float64 BiCGStab where textbook f32 stays within a tenth of it, GMRES
-   non-increasing; K6b's window march's registers, spill bytes, shared
-   memory and blocks per SM with S_wide at 256^3 (``[window3d]``);
+   non-increasing; each window-march kernel's registers, spill bytes,
+   shared memory and blocks per SM with S_wide at 256^3 (``[window3d]``);
 5m. each wide-z pass at 256^3 with CUDA events and in CUDA graphs beside
-   its plain version, ``F.conv3d`` over S_wide's dense (3, 7, 257) box
-   computing K6a's y, and each 4m solve's ms/iter, host enqueue and idle
-   share.  ``--wide3d`` runs 4m, 5m and the nop timing alone.
+   its plain version, its bound, share of the bound and ms lost over 4m's
+   launches, ``F.conv3d`` over S_wide's dense (3, 7, 257) box computing
+   K6a's y, and each 4m solve's ms/iter, host enqueue and idle share.  ``--wide3d`` runs 4m, 5m and the nop timing alone.
 
 "B (general)", the s-step passes K1 and K2 on their general route
 (``csrc/sstep_general.cu``) for 2-D stencils with |dy| <= 1 and any |dx|
@@ -434,20 +435,21 @@ BICG3_PALLAS = "legionsolvers_tpu/ops/pallas/bicgstab3d.py"
 BICG3_KERNELS = {"bicg3d_pv": (243, 24), "bicg3d_st": (243, 8),
                  "bicg3d_update": (243, 28)}
 # The passes on the reach-1 register march (march1), every 3-D pass: each
-# is one launch, its dots folded into its last block; with REACH2 each
-# but K6b (the window march, one launch) runs march3d and a second launch
-# (reduce_partials) for its dots, and so does K7 update with compensated
-# dots (csrc/bicgstab3d.cu says why).
+# is one launch, its dots folded into its last block; with REACH2 K6a,
+# K6b and K7 pv run the window march (one launch, likewise) and K7 st and
+# update march3d and a second launch (reduce_partials) for their dots, as
+# K7 update with compensated dots does on every stencil (csrc/bicgstab3d.cu
+# says why): ops/cuda/stencil3d.route3d.
 MARCH1_PASSES = ("y3d", "y_dot3d", "pq3d", "update3d", "xpay_pq3d",
                  "bicg3d_pv", "bicg3d_st", "bicg3d_update")
-MARCH3D_COMPENSATED = ("bicg3d_update",)
 # each march1 pass's label in march1_attrs
 M1_ATTR_NAMES = {"y3d": "y", "y_dot3d": "y_dot", "pq3d": "pq",
                  "update3d": "update", "xpay_pq3d": "xpay_pq",
                  "bicg3d_pv": "pv", "bicg3d_st": "st",
                  "bicg3d_update": "bicg_update"}
 # A reach-2 stencil (the 11-point star with arms of 2 in y and z; |ox| <= 1
-# is the gate's) that phase 3c runs through the generic march3d path
+# is the gate's) that phase 3c runs off march1 (the window march, and
+# march3d for K7 st and update)
 REACH2 = "reach2"
 REACH2_KW = dict(
     offsets=((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 0, -1),
@@ -1867,9 +1869,9 @@ def dot_operands3(T3, name, d, outs, kw):
 def compare_3d_kernels(torch, lt, T3, TB3, device):
     """Phase 3c: K6a (four modes), K6b and K7 (compensated dots off and on)
     against their plain versions, 7- and 27-point stencils (march1 for
-    all) and REACH2 (march3d for all), at 256^3 and a ragged 37 x 45
-    x 130, with random halo planes.  The bounds of phases 3 and 3b.
-    Returns {(name, dim): max abs error}."""
+    all) and REACH2 (the window march; march3d for K7 st and update), at
+    256^3 and a ragged 37 x 45 x 130, with random halo planes.  The bounds
+    of phases 3 and 3b.  Returns {(name, dim): max abs error}."""
     f64dot = lambda a, b: torch.dot(a.double().reshape(-1),
                                     b.double().reshape(-1)).item()
     nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
@@ -1971,14 +1973,14 @@ def device_kernels(torch, fns):
 
 
 def check_one_launch_3d(torch, lt, T3, TB3, device):
-    """Phase 3c: the passes of MARCH1_PASSES, with the 7- and 27-point
-    stencils (compensated dots off and on, but off alone for those of
-    MARCH3D_COMPENSATED), launch one kernel, a march1 kernel, and no
-    reduce_partials; K6b on REACH2 one kernel, the window march's; every
-    other pass with a dot on REACH2 (march3d), and those of
-    MARCH3D_COMPENSATED with compensated dots, launch their second, which
-    shows that the trace sees the second launch.  Returns {case: kernel
-    names}."""
+    """Phase 3c: every 3-D pass with the 7- and 27-point stencils and
+    REACH2 (compensated dots off and on for K7) launches what
+    ``T3.route3d`` says its march launches: one kernel of march1
+    (``m1_kernel``) or of the window march (``win_kernel``; K6a, K6b and
+    K7 pv on REACH2) and no reduce_partials, or march3d's kernel and its
+    second launch (K7 st and update on REACH2, K7 update with compensated
+    dots), which shows that the trace sees a second launch.  Returns
+    {case: kernel names}."""
     d = inputs3d(torch, RAGGED3, 31, device)
     seen, bad, calls = {}, [], {}
     for dim in (*DIMS3, REACH2):
@@ -1994,26 +1996,27 @@ def check_one_launch_3d(torch, lt, T3, TB3, device):
         case = f"{name} dim {dim} compensated={comp}"
         seen[case] = names
         second = any("reduce_partials" in n for n in names)
-        march1 = (name in MARCH1_PASSES and dim != REACH2
-                  and not (comp and name in MARCH3D_COMPENSATED))
-        if march1:
-            ok = len(names) == 1 and "m1_kernel" in names[0] and not second
-        elif name == "xpay_pq3d":  # the window march: one launch
-            ok = len(names) == 1 and "win_kernel" in names[0] and not second
+        route = T3.route3d(name, stencil_kw(lt, dim)["offsets"], comp)
+        if route == "march3d":
+            ok = second
         else:
-            ok = second or name == "y3d"
+            kernel = "m1_kernel" if route == "march1" else "win_kernel"
+            ok = len(names) == 1 and kernel in names[0] and not second
         if not ok:
-            bad.append((case, names))
-    log(f"[check3d] one launch per march1 pass: "
-        + ("yes" if not bad else f"NO: {bad}") + "; e.g. "
+            bad.append((case, route, names))
+    log(f"[check3d] one launch per march1 and window-march pass, two per "
+        f"march3d pass: " + ("yes" if not bad else f"NO: {bad}") + "; e.g. "
         + "; ".join(f"{k}: {seen[k]}" for k in (
             "xpay_pq3d dim 4 compensated=False",
+            f"update3d dim {REACH2} compensated=False",
+            f"bicg3d_pv dim {REACH2} compensated=True",
             "bicg3d_st dim 3 compensated=True",
+            f"bicg3d_st dim {REACH2} compensated=False",
             "bicg3d_update dim 3 compensated=False",
             "bicg3d_update dim 3 compensated=True")))
     if bad:
-        raise AssertionError(f"march1 passes with a second launch, or "
-                             f"march3d passes without one: {bad}")
+        raise AssertionError(f"3-D passes whose launches are not their "
+                             f"march's: {bad}")
     return seen
 
 
@@ -6128,8 +6131,8 @@ def flat1d_rows(T, launches, grid_launches, errs, times, bw, conv1d_ms):
 
 
 # ---------------------------------------------------------------------------
-# phase 4m: wide z shifts on march3d (kernel item C) and K1's nop mode
-# (item D); phase 5m: their times
+# phase 4m: wide z shifts on the 3-D kernels (kernel item C) and K1's nop
+# mode (item D); phase 5m: their times
 # ---------------------------------------------------------------------------
 
 # S_wide: the 7-point cross (center 8.5), (0, 0, +-12) just past the
@@ -6148,6 +6151,9 @@ WIDE3_KW = dict(offsets=tuple(o for o, _ in WIDE3),
 # (Z = 129), a 16-plane chunk and one more
 WIDE3_EDGES = ((37, 45, 130), (1, 5, 301), (20, 7, 129), (17, 9, 256))
 WIDE3_PASSES = (*KERNELS3, *BICG3_KERNELS)
+# the wide-z passes on march3d (the others run the window march), as
+# ops/cuda/stencil3d.route3d gives them
+WIDE3_MARCH3D = ("bicg3d_st", "bicg3d_update")
 WIDE3_PIECES = 4
 WIDE3_STEP_ITERS = 20  # BiCGStab step() on pieces
 # name -> (solver, pieces, compensated dots, solve length, launches);
@@ -6232,8 +6238,10 @@ def compare_wide3d_kernels(torch, T3, TB3, device):
     max abs error} (K7: the larger of both dot modes)."""
     nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
     errs = {}
-    if T3.xpay_pq3d_route(WIDE3_KW["offsets"]) != "window":
-        raise AssertionError("K6b with S_wide is off the window march")
+    for name in WIDE3_PASSES:
+        want = "march3d" if name in WIDE3_MARCH3D else "window"
+        if T3.route3d(name, WIDE3_KW["offsets"]) != want:
+            raise AssertionError(f"{name} with S_wide is off {want}")
     for shape in (SHAPE3, *WIDE3_EDGES):
         if not T3.supports3d(*shape, WIDE3_KW["offsets"]):
             raise AssertionError(f"S_wide off the kernels' gate at {shape}")
@@ -6538,9 +6546,9 @@ def wide3d_rows(launches, grid_launches, errs, times, bw, conv_ms,
     """The kernels line's rows of the wide-z route: launches from phase
     4m's solves (one piece and 4 pieces), times from phase 5m at 256^3
     (K7: f32 dots; compensated beside them); K6a y's library_ms is the
-    dense-box ``F.conv3d`` (None where it does not run); each row's
-    registers and spill bytes (march3d's, K6b's window march's with its
-    shared memory and blocks per SM)."""
+    dense-box ``F.conv3d`` (None where it does not run); each row's march
+    (``kernel_route``), registers and spill bytes, and on the window march
+    its shared memory and blocks per SM (:func:`wide3d_attrs`)."""
     n = SHAPE3[0] * SHAPE3[1] * SHAPE3[2]
     rows = []
     for m in WIDE3_PASSES:
@@ -6559,23 +6567,27 @@ def wide3d_rows(launches, grid_launches, errs, times, bw, conv_ms,
                          conv_ms if m == "y3d" else None,
                          grid_launches=grid_launches.get(m, 0))
         regs, spill, per_sm = m3_attrs[m][:3]
-        row.update(graph_ms=g, kernel_route="march3d, wide terms",
-                   registers=regs, spill_bytes=spill)
-        if m == "xpay_pq3d":
-            row.update(kernel_route="window march", blocks_per_sm=per_sm,
+        window = m not in WIDE3_MARCH3D
+        row.update(graph_ms=g, registers=regs, spill_bytes=spill,
+                   kernel_route="window march" if window
+                   else "march3d, wide terms")
+        if window:
+            row.update(blocks_per_sm=per_sm,
                        shared_memory_bytes=m3_attrs[m][3])
         if m in BICG3_KERNELS:
             row["compensated_ms"], _, row["compensated_graph_ms"] = \
                 times[m, True]
-            row["compensated_registers"], row["compensated_spill_bytes"], _ \
-                = m3_attrs[m, True]
+            row["compensated_registers"], row["compensated_spill_bytes"] = \
+                m3_attrs[m, True][:2]
         if m == "y3d" and conv_ms is None:
             row["library_note"] = f"F.conv3d does not run: {conv_why}"
         rows.append(row)
         log(f"[time] wide z {m:13s} {ms:.4f} ms (graphs {g:.4f}), bound "
             f"{row['bound_ms']:.4f} ({row['pct_of_bound']:.1f}%), "
-            f"{regs} registers, {spill} B spilled, launches "
-            f"{row['launches']} at 256^3")
+            f"{row['kernel_route']}, {regs} registers, {spill} B spilled"
+            + (f", {per_sm} blocks per SM" if window else "")
+            + f", launches {row['launches']}, {row['ms_lost']:.1f} ms lost "
+            "at 256^3")
     return rows
 
 
@@ -6593,38 +6605,36 @@ def nop_row(err, times, bw):
     return row
 
 
-def march3d_attrs(lib, T3):
-    """{pass: (registers, spill bytes, resident blocks per SM)} of the
-    kernels the wide-z route runs: march3d's (K7: f32 dots; (pass, True):
-    compensated), and K6b's window march with S_wide at 256^3 (registers,
-    spill bytes, blocks per SM, dynamic shared memory bytes, blocks),
-    logged as ``[window3d]``."""
+def wide3d_attrs(lib, T3):
+    """{pass: attributes} of the kernels the wide-z route runs, (pass,
+    True) for K7's with compensated dots: the window march's with S_wide
+    at 256^3 (K6a's four modes, K6b, K7 pv: registers, spill bytes, blocks
+    per SM, dynamic shared memory bytes, blocks), logged as
+    ``[window3d]``, and march3d's (K7 st and update: registers, spill
+    bytes, blocks per SM)."""
     import ctypes
 
+    st = ctypes.byref(T3._stencil3_struct(**WIDE3_KW))
     out = {}
-    for which, m in enumerate(KERNELS3):
-        if m == "xpay_pq3d":
-            a = (ctypes.c_int * 5)()
-            err = lib.ls_xpay_pq3d_win_attrs(*SHAPE3, ctypes.byref(
-                T3._stencil3_struct(**WIDE3_KW)), a)
+    for m in WIDE3_PASSES:
+        for comp in ((False, True) if m in BICG3_KERNELS else (False,)):
+            if m in WIDE3_MARCH3D:
+                a = (ctypes.c_int * 3)()
+                which = 2 * list(BICG3_KERNELS).index(m) + comp
+                err = lib.ls_bicg3d_attrs(which, a)
+            else:
+                a = (ctypes.c_int * 5)()
+                err = (lib.ls_bicg3d_pv_win_attrs(int(comp), *SHAPE3, st, a)
+                       if m == "bicg3d_pv" else lib.ls_stencil3d_win_attrs(
+                           list(KERNELS3).index(m), *SHAPE3, st, a))
+                if not err:
+                    log(f"[window3d] {m}{' compensated' if comp else ''} on "
+                        f"the window march with S_wide at 256^3: {a[0]} "
+                        f"registers, {a[1]} B spilled, {a[3]} B of shared "
+                        f"memory, {a[2]} blocks per SM, {a[4]} blocks")
             if err:
-                raise RuntimeError(f"ls_xpay_pq3d_win_attrs: error {err}")
-            out[m] = tuple(a)
-            log(f"[window3d] K6b window march with S_wide at 256^3: {a[0]} "
-                f"registers, {a[1]} B spilled, {a[3]} B of shared memory, "
-                f"{a[2]} blocks per SM, {a[4]} blocks")
-            continue
-        a = (ctypes.c_int * 3)()
-        err = lib.ls_stencil3d_attrs(which, a)
-        if err:
-            raise RuntimeError(f"ls_stencil3d_attrs({which}): error {err}")
-        out[m] = tuple(a)
-    for k, m in enumerate(BICG3_KERNELS):
-        for comp in (False, True):
-            a = (ctypes.c_int * 3)()
-            err = lib.ls_bicg3d_attrs(2 * k + comp, a)
-            if err:
-                raise RuntimeError(f"ls_bicg3d_attrs: error {err}")
+                raise RuntimeError(f"attributes of {m} (compensated={comp}): "
+                                   f"error {err}")
             out[(m, True) if comp else m] = tuple(a)
     return out
 
@@ -7158,7 +7168,7 @@ def main() -> int:
             raise AssertionError(f"checks failed: {failed}")
         return 0
     if "--wide3d" in argv:
-        m3_attrs = march3d_attrs(build.load_library(), T3)
+        m3_attrs = wide3d_attrs(build.load_library(), T3)
         errs_z = compare_wide3d_kernels(torch, T3, TB3, device)
         nop_err = compare_nop(torch, T, device)
         wz_launches, wz_grid, wz_results, wz_solvers, failed = wide3d_path(
@@ -7278,7 +7288,7 @@ def main() -> int:
         torch, np, T, TB, lt, device)
     failed += f
     mark("phase 4l")
-    m3_attrs = march3d_attrs(build.load_library(), T3)
+    m3_attrs = wide3d_attrs(build.load_library(), T3)
     errs_z = compare_wide3d_kernels(torch, T3, TB3, device)
     nop_err = compare_nop(torch, T, device)
     wz_launches, wz_grid, wz_results, wz_solvers, f = wide3d_path(

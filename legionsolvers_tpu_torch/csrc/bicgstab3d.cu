@@ -46,14 +46,21 @@
 //   each vector) read again, mostly from L2, and 2 extra planes per
 //   32-plane chunk; st, which stores nothing, moves 8 B per element and
 //   has one plane's loads in flight per block to cover their latency.
-// - All three with reach 2..8 or a z shift past 8 (up to 128), and update
-//   with compensated dots, run on march3d: a 32 x 32 tile over 16 planes,
-//   the terms from shared memory, the wide ones beside the window
-//   (wide_at, common.cuh), where the pass's operand is formed from device
-//   memory at the shifted point as the window's points are (p' from r, p
-//   and v; s from r and v: the same rounding), loads and compute not
-//   overlapped, dots to a [blocks, k] scratch summed in a fixed order by a
-//   second launch.
+// - pv with reach 2..8 or a z shift past 8 (up to 128): the window march
+//   of K6a and K6b (common.cuh, march_win): a window holding every point a
+//   term reads (at Z = 256 the whole z line), p' formed from r, p and v
+//   once, as a plane is staged into a ring of three x planes, every term
+//   read from shared memory, p' and v' stored at the tile's points, r~ of
+//   them loaded before the terms of each tile row are summed, <r~, v'>
+//   folded into the last block (float or, compensated, double partials;
+//   x chunks aiming at a fixed 396 blocks): one launch.
+// - st and update with reach 2..8 or a z shift past 8, and update with
+//   compensated dots on every stencil, run on march3d: a 32 x 32 tile over
+//   16 planes, the terms from shared memory, the wide ones beside the
+//   window (wide_at, common.cuh), where the pass's operand is formed from
+//   device memory at the shifted point as the window's points are (s from
+//   r and v: the same rounding), loads and compute not overlapped, dots to
+//   a [blocks, k] scratch summed in a fixed order by a second launch.
 //
 // Buffers: pv writes p' and v' to buffers other than p and v, update
 // writes r' to a buffer other than r (neighbouring blocks read p, v and r
@@ -63,34 +70,6 @@
 #include "common.cuh"
 
 namespace {
-
-// K7 pv on march3d (reach 2..8, wide z shifts): p' = r + beta (p - omega
-// v) on the window, v' = A p', <r~, v'>.
-template <bool COMP>
-__global__ void __launch_bounds__(LS_THREADS)
-bicg3d_pv_kernel(const float* __restrict__ r, const float* __restrict__ p,
-                 const float* __restrict__ v, const float* __restrict__ rt,
-                 const float* __restrict__ beta_p,
-                 const float* __restrict__ omega_p,
-                 const float* __restrict__ top, const float* __restrict__ bot,
-                 float* __restrict__ p_out, float* __restrict__ v_out,
-                 typename Acc<COMP>::T* __restrict__ partials, int X, int Y,
-                 int Z, LsStencil3 st, int h) {
-  using T = typename Acc<COMP>::T;
-  __shared__ float win[3 * kPlaneMax];
-  __shared__ SharedStencil3 s;
-  stage_stencil3(s, st, LS_TILE + 2 * h);
-  const float beta = *beta_p, omega = *omega_p;
-  T acc[1] = {0};
-  march3d(win, s, h, X, Y, Z, top, bot,
-          [&](size_t idx) { return r[idx] + beta * (p[idx] - omega * v[idx]); },
-          [&](size_t idx, float c, float ax) {
-            p_out[idx] = c;
-            v_out[idx] = ax;
-            acc[0] += (T)rt[idx] * (T)ax;
-          });
-  block_partials(acc, partials);
-}
 
 // pv's operand p' = r + beta (p - omega v), and st's s = r - alpha v.
 struct PvForm {
@@ -108,6 +87,62 @@ struct StForm {
     return x[0] - alpha * x[1];
   }
 };
+
+// K7 pv on the window march (every stencil off march1: reach 2..8, wide z
+// shifts): p' = r + beta (p - omega v) formed as each plane is staged, p'
+// and v' = A p' stored at the tile's points, r~ of them loaded before the
+// terms of each tile row are summed, <r~, v'> folded into the last block.
+// The halo planes are those of p' (the caller combines them).  partials:
+// one T per block; counter: zero before the launch, zero after it.
+template <bool COMP>
+__global__ void __launch_bounds__(LS_W3_THREADS, LS_W3_MIN_BLOCKS)
+bicg3d_pv_win_kernel(const float* __restrict__ r, const float* __restrict__ p,
+                     const float* __restrict__ v,
+                     const float* __restrict__ rt,
+                     const float* __restrict__ beta_p,
+                     const float* __restrict__ omega_p,
+                     const float* __restrict__ top,
+                     const float* __restrict__ bot,
+                     float* __restrict__ p_out, float* __restrict__ v_out,
+                     float* __restrict__ dot,
+                     typename Acc<COMP>::T* __restrict__ partials,
+                     unsigned* __restrict__ counter, W3Geom g,
+                     const __grid_constant__ LsStencil3 st) {
+  using T = typename Acc<COMP>::T;
+  extern __shared__ __align__(16) float win[];
+  __shared__ W3Terms s;
+  w3_stage_terms(s, st);
+  const W3Place pl = w3_place(g);
+  const float* src[3] = {r, p, v};
+  float et[LS_W3_COLS];  // r~ of the row
+  T acc = 0;
+  auto at = [&](int gx, int gy, int z) {
+    return ((size_t)gx * g.Y + gy) * g.Z + z;
+  };
+  march_win<1>(
+      win, s, g, pl, src, top, bot, PvForm{*beta_p, *omega_p},
+      [&](int gx, int gy) {
+#pragma unroll
+        for (int c = 0; c < LS_W3_COLS; ++c) {
+          const int z = w3_col(pl, c);
+          et[c] = gy < g.Y && z < g.Z ? __ldg(rt + at(gx, gy, z)) : 0.f;
+        }
+      },
+      [&](int gx, int gy, int c, int z, float cv, float ax) {
+        const size_t o = at(gx, gy, z);
+        p_out[o] = cv;
+        v_out[o] = ax;
+        acc += (T)et[c] * (T)ax;
+      });
+  m1_fold<T>(acc, partials, counter, dot);
+}
+
+unsigned pv_win_done[2] = {};  // devices whose attribute is set, by COMP
+
+template <bool COMP>
+int pv_win_attrs(size_t smem, int* out) {
+  return w3_attrs(bicg3d_pv_win_kernel<COMP>, pv_win_done[COMP], smem, out);
+}
 
 // K7 pv on march1 (reach 1).  partials: one T per block; counter: zero
 // before the launch, zero after it.
@@ -434,6 +469,23 @@ int launch_update_m1(bool star, bool vec, unsigned blocks,
   return (int)cudaGetLastError();
 }
 
+template <bool COMP>
+int launch_pv_win(unsigned blocks, size_t smem, cudaStream_t stream,
+                  const float* r, const float* p, const float* v,
+                  const float* rt, const float* beta, const float* omega,
+                  const float* top, const float* bot, float* p_out,
+                  float* v_out, float* dot, void* partials,
+                  unsigned* counter, const W3Geom& g, const LsStencil3& st) {
+  using T = typename Acc<COMP>::T;
+  const int err = dyn_smem_ready(bicg3d_pv_win_kernel<COMP>, kW3SmemMax,
+                                 pv_win_done[COMP]);
+  if (err) return err;
+  bicg3d_pv_win_kernel<COMP><<<blocks, LS_W3_THREADS, smem, stream>>>(
+      r, p, v, rt, beta, omega, top, bot, p_out, v_out, dot, (T*)partials,
+      counter, g, st);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -479,12 +531,13 @@ int ls_bicg3d_update_m1_attrs(int which, int* out) {
   }
 }
 
-// The same of the march3d kernels: `which` = 2 pass + compensated, pass
-// 0 pv, 1 st, 2 update.
+// The same of the kernels K7 runs off march1: `which` = 2 pass +
+// compensated, pass 0 pv (the window march, at the largest window's shared
+// memory), 1 st, 2 update (march3d).
 int ls_bicg3d_attrs(int which, int* out) {
   switch (which) {
-    case 0: return m1_attrs(bicg3d_pv_kernel<false>, out);
-    case 1: return m1_attrs(bicg3d_pv_kernel<true>, out);
+    case 0: return pv_win_attrs<false>(kW3SmemMax, out);
+    case 1: return pv_win_attrs<true>(kW3SmemMax, out);
     case 2: return m1_attrs(bicg3d_st_kernel<false>, out);
     case 3: return m1_attrs(bicg3d_st_kernel<true>, out);
     case 4: return m1_attrs(bicg3d_update_kernel<false>, out);
@@ -493,11 +546,21 @@ int ls_bicg3d_attrs(int which, int* out) {
   }
 }
 
+// out = {registers, spill bytes, resident blocks per SM, dynamic shared
+// memory bytes, blocks} of K7 pv's window march on [X, Y, Z] with st.
+int ls_bicg3d_pv_win_attrs(int compensated, int X, int Y, int Z,
+                           const LsStencil3* st, int* out) {
+  const size_t smem = w3_shape(X, Y, Z, st, out);
+  if (!smem) return (int)cudaErrorInvalidValue;
+  return compensated ? pv_win_attrs<true>(smem, out)
+                     : pv_win_attrs<false>(smem, out);
+}
+
 // partials: scratch of 2 * capacity doubles (the K <= 2 dots of each of up
 // to capacity blocks; floats without `compensated`, but for st and update
-// on march1).  counter: one unsigned, zero before the first launch (a
-// reach-1 launch leaves it zero); launches on one (partials, counter) pair
-// must be ordered (one stream).  dot: K floats.  Halo planes may be null
+// on march1).  counter: one unsigned, zero before the first launch (every
+// launch that folds its dots leaves it zero); launches on one (partials,
+// counter) pair must be ordered (one stream).  dot: K floats.  Halo planes may be null
 // (zeros).
 int ls_bicg3d_pv(const float* r, const float* p, const float* v,
                  const float* rt, const float* beta, const float* omega,
@@ -507,7 +570,6 @@ int ls_bicg3d_pv(const float* r, const float* p, const float* v,
                  const LsStencil3* st, void* stream_ptr) {
   if (!valid3(st, X, Y, Z)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int h = reach3_yz(*st);
   if (on_march1(*st)) {
     M1Geom g;
     const long long blocks = m1_geometry(X, Y, Z, &g);
@@ -527,19 +589,17 @@ int ls_bicg3d_pv(const float* r, const float* p, const float* v,
                                omega, top, bot, p_out, v_out, dot, partials,
                                counter, g, w);
   }
-  const dim3 grid = march_grid(X, Y, Z), block(LS_THREADS_X, LS_THREADS_Y);
-  const int nblocks = grid.x * grid.y * grid.z;
-  if (nblocks > capacity) return (int)cudaErrorInvalidValue;
-  if (compensated) {
-    bicg3d_pv_kernel<true><<<grid, block, 0, stream>>>(
-        r, p, v, rt, beta, omega, top, bot, p_out, v_out, (double*)partials,
-        X, Y, Z, *st, h);
-    return finish((const double*)partials, nblocks, 1, dot, stream);
-  }
-  bicg3d_pv_kernel<false><<<grid, block, 0, stream>>>(
-      r, p, v, rt, beta, omega, top, bot, p_out, v_out, (float*)partials, X,
-      Y, Z, *st, h);
-  return finish((const float*)partials, nblocks, 1, dot, stream);
+  W3Geom g;
+  const long long blocks = w3_geometry(X, Y, Z, *st, &g);
+  if (!counter || blocks > capacity) return (int)cudaErrorInvalidValue;
+  const unsigned nb = (unsigned)blocks;
+  if (compensated)
+    return launch_pv_win<true>(nb, w3_smem(g), stream, r, p, v, rt, beta,
+                               omega, top, bot, p_out, v_out, dot, partials,
+                               counter, g, *st);
+  return launch_pv_win<false>(nb, w3_smem(g), stream, r, p, v, rt, beta,
+                              omega, top, bot, p_out, v_out, dot, partials,
+                              counter, g, *st);
 }
 
 int ls_bicg3d_st(const float* r, const float* v, const float* alpha,

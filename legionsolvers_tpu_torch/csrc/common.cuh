@@ -3,10 +3,13 @@
 // explicit-sparse path): the stencil descriptions, the tile geometry, the
 // halo window loads, the stencil application from shared memory, the
 // fixed-order reduction of per-block partial dot products, unfused
-// round-to-nearest arithmetic and, for the 3-D kernels, two marches along
-// x: march3d (any reach up to 8 from shared memory, and z shifts up to 128
-// read beside the window) and march1 (reach 1, a register march with the
-// next plane in flight and the dot folded into the last block).
+// round-to-nearest arithmetic and, for the 3-D kernels, three marches along
+// x: march1 (reach 1, a register march with the next plane in flight and
+// the dot folded into the last block), the window march (every other
+// stencil of the gate: a window holding every z shift a term reads, the
+// dot folded into the last block) and march3d (K7 st and update off
+// march1: reach up to 8 from shared memory, z shifts up to 128 read beside
+// the window).
 //
 // build.py compiles every csrc/*.cu into one shared library, so everything
 // here has internal linkage (an anonymous namespace): each translation unit
@@ -233,18 +236,20 @@ int finish(const T* partials, int nblocks, int K, float* out,
 }
 
 // ---------------------------------------------------------------------------
-// 3-D: x is [X, Y, Z], Z contiguous.  A block owns one LS_TILE x LS_TILE
-// (y, z) output tile and marches along x over LS_CHUNK_X planes.  Shared
-// memory holds three planes (x - 1, x, x + 1) of the block's window, the
-// tile plus h = max(|oy|, |oz|) over the terms with |oz| <= LS_MAX_REACH on
-// each side, in three slots that rotate one plane per step: the GPU form of
-// the TPU kernel's rotating plane buffer.  Every window point is zero
-// outside [0, Y) x [0, Z); planes -1 and X come from the [Y, Z] halo planes
-// (nullptr = zeros).  A term with |oz| > LS_MAX_REACH (a wide term, the
-// TPU kernel's lane shift into its plane's 128-column zero margins) is
-// read beside the window: the operand at (x + ox, y + oy, z + oz), formed
-// from device memory as the window's points are, after y and z are tested
-// against [0, Y) x [0, Z), from the halo planes outside [0, X).
+// 3-D: x is [X, Y, Z], Z contiguous.  march3d, which K7 st and update run
+// off march1 (and update with compensated dots on every stencil).  A block
+// owns one LS_TILE x LS_TILE (y, z) output tile and marches along x over
+// LS_CHUNK_X planes.  Shared memory holds three planes (x - 1, x, x + 1)
+// of the block's window, the tile plus h = max(|oy|, |oz|) over the terms
+// with |oz| <= LS_MAX_REACH on each side, in three slots that rotate one
+// plane per step: the GPU form of the TPU kernel's rotating plane buffer.
+// Every window point is zero outside [0, Y) x [0, Z); planes -1 and X come
+// from the [Y, Z] halo planes (nullptr = zeros).  A term with |oz| >
+// LS_MAX_REACH (a wide term, the TPU kernel's lane shift into its plane's
+// 128-column zero margins) is read beside the window: the operand at (x +
+// ox, y + oy, z + oz), formed from device memory as the window's points
+// are, after y and z are tested against [0, Y) x [0, Z), from the halo
+// planes outside [0, X).
 // ---------------------------------------------------------------------------
 
 // Slot stride: the largest window, (LS_TILE + 2 * LS_MAX_REACH)^2 floats.
@@ -503,7 +508,9 @@ bool m1_box(const LsStencil3& st, Box27* b) {
   return is_star;
 }
 
-bool m1_aligned(const void* p) { return ((uintptr_t)p & 15) == 0; }
+__host__ __device__ __forceinline__ bool m1_aligned(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
 
 __device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src,
                                                  bool in) {
@@ -517,6 +524,11 @@ __device__ __forceinline__ void cp_async4_zfill(float* dst, const float* src,
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(in ? 4 : 0));
+}
+
+// Start moving the line of p into L2, holding no register.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
 // The thread's place: the block's output planes [x0, x1), the tile's
@@ -988,15 +1000,20 @@ __device__ __forceinline__ void m1_fold(T v, T* __restrict__ partials,
 // (hz the widest |oz|, wide terms included: at Z = 256 the whole z line).
 // Three x planes of it (x - 1, x, x + 1; |ox| <= 1) sit in a ring of
 // dynamic shared-memory slots, the operand formed from the pass's vectors
-// once, as a plane is staged (Form, as march1's M1FormPlane: K6b's p = r +
-// beta p_old), the halo planes at x = -1 and X taken as they are.  Every
+// once, as a plane is staged (Form, as march1's M1FormPlane: K6a's x
+// itself, K6b's p = r + beta p_old, K7 pv's p' = r + beta (p - omega v)),
+// the halo planes at x = -1 and X taken as they are.  Every
 // term of a point is read from shared memory, a term whose column leaves
 // [0, Z) reading zero, and summed in stencil order with one fma each; the
-// thread's points march along x and emit(x, gy, z, operand, A operand)
-// runs once per point inside the volume.  Two __syncthreads() a plane:
-// after its points are computed, and after plane x + 2 is staged into the
-// slot of plane x - 1 (each lane loads LS_W3_BATCH points of every vector
-// before it forms and stores them).
+// thread's points march along x and emit(x, gy, c, z, operand, A operand)
+// runs once per point inside the volume; pre(x, gy) runs before the terms
+// of each of the thread's tile rows are summed, so that the loads the emit
+// needs at its own points (K6a update's x and r, K7 pv's r~) are in flight
+// while they are.  Two __syncthreads() a plane: after its points are
+// computed, and after plane x + 2 is staged into the slot of plane x - 1
+// (each lane loads LS_W3_BATCH points of every vector before it forms and
+// stores them; K6a's identity form copies the plane with cp.async, all of
+// it in flight at once).
 //
 // Geometry depends on (X, Y, Z) alone: the x chunks aim at a fixed
 // LS_W3_TARGET_BLOCKS (three per SM of an H100 SXM), no shorter than
@@ -1011,6 +1028,7 @@ __device__ __forceinline__ void m1_fold(T v, T* __restrict__ partials,
 #define LS_W3_MIN_CHUNK 4
 #define LS_W3_TARGET_BLOCKS (132 * LS_W3_MIN_BLOCKS)
 #define LS_W3_BATCH 8  // window points a lane loads before it forms them
+#define LS_W3_COLS (LS_W3_TZ / 32)  // tile columns of a lane
 
 // The largest window's three slots: rows TY + 2 LS_MAX_REACH, columns TZ +
 // 2 LS_WIDE_Z.
@@ -1088,6 +1106,11 @@ __device__ __forceinline__ W3Place w3_place(const W3Geom& g) {
   return p;
 }
 
+// The thread's column c (< LS_W3_COLS) of its tile: lane l holds l + 32 c.
+__device__ __forceinline__ int w3_col(const W3Place& pl, int c) {
+  return pl.z0 + (threadIdx.x & 31) + 32 * c;
+}
+
 // Stage plane gx of the operand into `slot`: Form's combination of the
 // NV vectors src inside the volume, the halo planes' values at gx = -1
 // (top) and gx = X (bot; nullptr = zeros), zero outside [0, Y).
@@ -1138,17 +1161,63 @@ __device__ __forceinline__ void w3_stage(float* slot, int gx,
   }
 }
 
+// K6a's operand: one vector as it is (its halo planes are its own), which
+// the w3_stage below copies.
+struct IdentityForm {};
+
+// Stage plane gx of src[0] as it is, with cp.async: every point of the
+// plane in flight at once and none held in registers (16-byte copies
+// where the rows, the window and the source are 16-byte aligned),
+// zero-filled outside [0, Y) and where a halo plane is null; returns when
+// the thread's copies are in the slot.
+__device__ __forceinline__ void w3_stage(float* slot, int gx,
+                                         const W3Geom& g, const W3Place& pl,
+                                         const float* const* src,
+                                         const float* __restrict__ top,
+                                         const float* __restrict__ bot,
+                                         const IdentityForm&) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* x = src[0];
+  const float* a = gx < 0 ? top : (gx >= g.X ? bot : x);
+  const size_t base = gx >= 0 && gx < g.X ? (size_t)gx * g.Y * g.Z : 0;
+  const bool vec = ((g.Z | g.stride | pl.wlo | pl.width) & 3) == 0 &&
+                   m1_aligned(x) && m1_aligned(a);
+  for (int i = warp; i < g.rows; i += LS_W3_WARPS) {
+    const int gy = pl.y0 - g.hy + i;
+    const bool yin = a && gy >= 0 && gy < g.Y;
+    const float* srow = yin ? a + base + (size_t)gy * g.Z + pl.wlo : x;
+    float* drow = slot + i * g.stride;
+    if (vec) {
+      for (int j = 4 * lane; j < pl.width; j += 128)
+        cp_async16_zfill(drow + j, yin ? srow + j : srow, yin);
+    } else {
+      for (int j = lane; j < pl.width; j += 32)
+        cp_async4_zfill(drow + j, yin ? srow + j : srow, yin);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // The block's march over planes x0 .. x1 - 1 (staging x0 - 1 .. x1); win:
-// three slots of g.rows x g.stride floats; s: the staged terms.
-template <typename Form, typename Emit>
+// three slots of g.rows x g.stride floats; s: the staged terms.  The
+// thread's two tile rows are summed ROWS at a time (2: each term's
+// metadata, address and column tests serve both rows); pre(x, gy) before
+// the terms of tile row gy (which may lie past Y) are summed; emit(x, gy,
+// c, z, operand, A operand) for its column c (z = w3_col(pl, c)) inside
+// the volume.
+template <int ROWS, typename Form, typename Pre, typename Emit>
 __device__ __forceinline__ void march_win(float* win, const W3Terms& s,
                                           const W3Geom& g, const W3Place& pl,
                                           const float* const* src,
                                           const float* __restrict__ top,
                                           const float* __restrict__ bot,
-                                          const Form& form, Emit emit) {
+                                          const Form& form, Pre pre,
+                                          Emit emit) {
+  static_assert(ROWS == 1 || ROWS == 2, "one or both tile rows a pass");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ps = g.rows * g.stride;
+  const int next_row = LS_W3_WARPS * g.stride;  // tile row ty + 8
   for (int k = 0; k < 3; ++k)
     if (pl.x0 - 1 + k <= pl.x1)
       w3_stage(win + k * ps, pl.x0 - 1 + k, g, pl, src, top, bot, form);
@@ -1159,11 +1228,15 @@ __device__ __forceinline__ void march_win(float* win, const W3Terms& s,
     const float* cur = win + (ph == 2 ? 0 : ph + 1) * ps;
     const float* nxt = win + (ph == 0 ? 2 : ph - 1) * ps;
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int ty = warp + LS_W3_WARPS * rr, gy = pl.y0 + ty;
-      float ax[8];
+    for (int r0 = 0; r0 < 2; r0 += ROWS) {
+      const int ty = warp + LS_W3_WARPS * r0;
+      float ax[ROWS][LS_W3_COLS];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) ax[c] = 0.f;
+      for (int r = 0; r < ROWS; ++r) {
+        pre(x, pl.y0 + ty + LS_W3_WARPS * r);
+#pragma unroll
+        for (int c = 0; c < LS_W3_COLS; ++c) ax[r][c] = 0.f;
+      }
       for (int k = 0; k < s.n; ++k) {
         const float* pk = s.ox[k] < 0 ? prv : (s.ox[k] > 0 ? nxt : cur);
         const int oz = s.oz[k];
@@ -1171,18 +1244,26 @@ __device__ __forceinline__ void march_win(float* win, const W3Terms& s,
             pk + (ty + g.hy + s.oy[k]) * g.stride + oz - pl.wlo;
         const float w = s.v[k];
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
+        for (int c = 0; c < LS_W3_COLS; ++c) {
           const int z = pl.z0 + lane + 32 * c;
-          const float t = (unsigned)(z + oz) < (unsigned)g.Z ? row[z] : 0.f;
-          ax[c] = __fmaf_rn(w, t, ax[c]);
+          const bool in = (unsigned)(z + oz) < (unsigned)g.Z;
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) {
+            const float t = in ? row[r * next_row + z] : 0.f;
+            ax[r][c] = __fmaf_rn(w, t, ax[r][c]);
+          }
         }
       }
-      if (gy < g.Y) {
-        const float* crow = cur + (ty + g.hy) * g.stride - pl.wlo;
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
+      for (int r = 0; r < ROWS; ++r) {
+        const int gy = pl.y0 + ty + LS_W3_WARPS * r;
+        if (gy >= g.Y) continue;
+        const float* crow =
+            cur + (ty + LS_W3_WARPS * r + g.hy) * g.stride - pl.wlo;
+#pragma unroll
+        for (int c = 0; c < LS_W3_COLS; ++c) {
           const int z = pl.z0 + lane + 32 * c;
-          if (z < g.Z) emit(x, gy, z, crow[z], ax[c]);
+          if (z < g.Z) emit(x, gy, c, z, crow[z], ax[r][c]);
         }
       }
     }
@@ -1222,6 +1303,25 @@ int m1_attrs(K kernel, int* out, size_t smem = 0) {
   out[1] = (int)a.localSizeBytes;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &out[2], kernel, LS_M1_THREADS, smem);
+}
+
+// The same of a window-march kernel launched with `smem` bytes (done: the
+// kernel's mask for dyn_smem_ready, which sets its attribute first).
+template <typename K>
+int w3_attrs(K kernel, unsigned& done, size_t smem, int* out) {
+  const int err = dyn_smem_ready(kernel, kW3SmemMax, done);
+  return err ? err : m1_attrs(kernel, out, smem);
+}
+
+// The window march on [X, Y, Z] with st: out[3] = its dynamic shared
+// memory bytes, out[4] = its blocks; returns the former, 0 where the gate
+// refuses the geometry.
+size_t w3_shape(int X, int Y, int Z, const LsStencil3* st, int* out) {
+  if (!valid3(st, X, Y, Z)) return 0;
+  W3Geom g;
+  out[4] = (int)w3_geometry(X, Y, Z, *st, &g);
+  out[3] = (int)w3_smem(g);
+  return w3_smem(g);
 }
 
 }  // namespace

@@ -7,8 +7,10 @@
 // (build.py).
 //
 //   ls_stencil3d  K6a  replaces _stencil3d_call (modes y, y_dot, pq, update)
-//   ls_xpay_pq3d  K6b  replaces grid3d_cg_xpay_pq (march1 or the window
-//                      march)
+//   ls_xpay_pq3d  K6b  replaces grid3d_cg_xpay_pq
+//
+// Both run march1 for reach-1 stencils and the window march for every
+// other stencil of the gate: one launch each.
 //
 // What bounds them: bytes.  The 27-point stencil does 54 flops per element
 // against at least 4 B of traffic, 13 flops per byte, below the card's ~20
@@ -50,32 +52,29 @@
 //   y halo (2 rows per 16) read again, mostly from L2, and 2 extra planes
 //   per 32-plane chunk.
 // - Reach 2..8, or any z shift past 8 (up to 128, the TPU kernel's
-//   PADZ), K6a: march3d, each block a 32 x 32 tile over 16 planes, three
-//   rotating shared slots sized for reach 8, the terms read in stencil
-//   order from shared memory (|oz| <= 8) or beside the window from device
-//   memory (wide_at: the operand at the shifted point, zero outside the
-//   volume's y and z, the halo planes outside its x), loads and compute
-//   not overlapped, and partial dots summed by a second launch
-//   (reduce_partials).
-// - The same stencils, K6b: the window march (common.cuh, march_win).
-//   On march3d each of S_wide's 8 wide terms formed r + beta p_old at the
-//   shifted point from L1, L2 or device memory (16 loads a point), which
-//   held every wide-z pass near 0.5 ms at 256^3 whatever its bytes.  Here
-//   the window holds every point a term reads: a 16-row tile plus the
-//   widest |oy| on each side, and the tile's 256 z columns plus the
-//   widest |oz| on each side, inside [0, Z) (at Z = 256 the whole z
-//   line).  p = r + beta p_old is formed once, as a plane is staged into
-//   a ring of three x planes (|ox| <= 1), every term is read from shared
-//   memory, p is stored at the tile's points, and <p, A p> is folded into
-//   the last block (m1_fold; x chunks aiming at a fixed 396 blocks, so
-//   its bits depend on (X, Y, Z) alone): one launch.  What bounds it:
-//   bytes, 12 B per element plus the window's y halo (2 hy rows per 16,
-//   mostly from L2) and 2 planes per x chunk; S_wide's window (22 x 256
+//   PADZ): the window march (common.cuh, march_win), K6a's four modes and
+//   K6b alike.  On march3d (which K7 st and update still run) each of
+//   S_wide's 8 wide terms forms the operand at the shifted point from L1,
+//   L2 or device memory, which holds a pass near 0.5 ms at 256^3 whatever
+//   its bytes.  Here the window holds every point a term
+//   reads: a 16-row tile plus the widest |oy| on each side, and the tile's
+//   256 z columns plus the widest |oz| on each side, inside [0, Z) (at Z =
+//   256 the whole z line).  The operand (K6a: x itself; K6b: p = r + beta
+//   p_old) is formed once, as a plane is staged into a ring of three x
+//   planes (|ox| <= 1), every term is read from shared memory, and the
+//   dot (y_dot's <x, A x>, pq's, update's <r', r'>, K6b's <p, A p>) is
+//   folded into the last block (m1_fold; x chunks aiming at a fixed 396
+//   blocks, so its bits depend on (X, Y, Z) alone): one launch.  K6a
+//   update loads x and r at the thread's points before the terms of each
+//   tile row are summed (march_win's pre), and writes them in place; K6b
+//   stores p at the tile's points.  What bounds them: bytes, those of the
+//   pass plus the window's y halo (2 hy rows per 16, mostly from L2) and 2
+//   planes per x chunk of the staged operand; S_wide's window (22 x 256
 //   floats a plane, 67.6 KB for three) leaves 3 blocks per SM.  Every
 //   stencil of the gate fits (the largest window, 32 x 512 floats, takes
 //   192 KB).
 //
-// All three read each input byte from HBM about once.  K6b forms p = r + beta
+// Both read each input byte from HBM about once.  K6b forms p = r + beta
 // p_old while loading the window and applies A to it once; A p never
 // reaches HBM in pq, update or xpay_pq.  Buffers: update writes x and r in
 // place, because it reads them only at the thread's own element; xpay_pq
@@ -88,38 +87,10 @@
 
 namespace {
 
-// K6a on march3d (reach 2..8, wide z shifts): y = A x (mode 0), y and
-// <x, A x> (1), <x, A x> (2), update (3): xv += alpha x; rv -= alpha A x;
-// <rv', rv'> (x is p here)
-template <int MODE>
-__global__ void __launch_bounds__(LS_THREADS)
-stencil3d_kernel(const float* __restrict__ x, const float* __restrict__ top,
-                 const float* __restrict__ bot, float* __restrict__ y,
-                 float* __restrict__ xv, float* __restrict__ rv,
-                 const float* __restrict__ alpha_p,
-                 float* __restrict__ partials, int X, int Y, int Z,
-                 LsStencil3 st, int h) {
-  __shared__ float win[3 * kPlaneMax];
-  __shared__ SharedStencil3 s;
-  stage_stencil3(s, st, LS_TILE + 2 * h);
-  const float alpha = MODE == 3 ? *alpha_p : 0.f;
-  float acc[1] = {0.f};
-  march3d(win, s, h, X, Y, Z, top, bot, [&](size_t idx) { return x[idx]; },
-          [&](size_t idx, float c, float ax) {
-            if (MODE == 0 || MODE == 1) y[idx] = ax;
-            if (MODE == 1 || MODE == 2) acc[0] += c * ax;
-            if (MODE == 3) {
-              xv[idx] = xv[idx] + alpha * c;
-              const float rn = rv[idx] - alpha * ax;
-              rv[idx] = rn;
-              acc[0] += rn * rn;
-            }
-          });
-  if (MODE != 0) block_partials(acc, partials);
-}
-
-// K6a on march1 (reach 1), the same four modes.  partials: one float per
-// block; counter: zero before the launch, zero after it.
+// K6a on march1 (reach 1): y = A x (mode 0), y and <x, A x> (1), <x, A x>
+// (2), update (3; x is p here): xv += alpha x; rv -= alpha A x; <rv',
+// rv'>.  partials: one float per block; counter: zero before the launch,
+// zero after it.
 template <int MODE, bool STAR, bool VEC>
 __global__ void __launch_bounds__(LS_M1_THREADS, LS_M1_MIN_BLOCKS)
 stencil3d_m1_kernel(const float* __restrict__ x, const float* __restrict__ top,
@@ -177,6 +148,68 @@ stencil3d_m1_kernel(const float* __restrict__ x, const float* __restrict__ top,
   if (MODE != 0) m1_fold(acc, partials, counter, dot);
 }
 
+unsigned win_smem_done[5] = {};  // devices whose attribute is set, by kernel
+
+// K6a on the window march (every stencil off march1: reach 2..8, wide z
+// shifts), the four modes of stencil3d_m1_kernel: y = A x stored (mode 0),
+// y and <x, A x> (1), <x, A x> (2), update (3, x is p): xv += alpha x, rv
+// -= alpha A x in place, <rv', rv'>; before the terms of each tile row are
+// summed (march_win's pre), rv of the thread's points is loaded and xv's
+// lines are prefetched into L2 (xv in registers as well spilled at the 80
+// registers that 3 blocks per SM leave), xv loaded in the emit.  The dot
+// is folded into the last block.  partials: one float per block; counter:
+// zero before the launch, zero after it.
+template <int MODE>
+__global__ void __launch_bounds__(LS_W3_THREADS, LS_W3_MIN_BLOCKS)
+stencil3d_win_kernel(const float* __restrict__ x,
+                     const float* __restrict__ top,
+                     const float* __restrict__ bot, float* __restrict__ y,
+                     float* __restrict__ xv, float* __restrict__ rv,
+                     const float* __restrict__ alpha_p,
+                     float* __restrict__ dot, float* __restrict__ partials,
+                     unsigned* __restrict__ counter, W3Geom g,
+                     const __grid_constant__ LsStencil3 st) {
+  extern __shared__ __align__(16) float win[];
+  __shared__ W3Terms s;
+  w3_stage_terms(s, st);
+  const W3Place pl = w3_place(g);
+  const float* src[1] = {x};
+  const float alpha = MODE == 3 ? *alpha_p : 0.f;
+  float er[LS_W3_COLS];  // update: rv of the row
+  float acc = 0.f;
+  auto at = [&](int gx, int gy, int z) {
+    return ((size_t)gx * g.Y + gy) * g.Z + z;
+  };
+  // both tile rows a pass (the terms' metadata and column tests serve
+  // both), but for update: its rv of two rows beside twice the sums would
+  // spill
+  constexpr int ROWS = MODE == 3 ? 1 : 2;
+  march_win<ROWS>(
+      win, s, g, pl, src, top, bot, IdentityForm{},
+      [&](int gx, int gy) {
+        if (MODE != 3) return;
+#pragma unroll
+        for (int c = 0; c < LS_W3_COLS; ++c) {
+          const int z = w3_col(pl, c);
+          const bool in = gy < g.Y && z < g.Z;
+          er[c] = in ? rv[at(gx, gy, z)] : 0.f;
+          if (in) prefetch_l2(xv + at(gx, gy, z));
+        }
+      },
+      [&](int gx, int gy, int c, int z, float cv, float ax) {
+        const size_t o = at(gx, gy, z);
+        if (MODE == 0 || MODE == 1) y[o] = ax;
+        if (MODE == 1 || MODE == 2) acc += cv * ax;
+        if (MODE == 3) {
+          xv[o] = xv[o] + alpha * cv;
+          const float rn = er[c] - alpha * ax;
+          rv[o] = rn;
+          acc += rn * rn;
+        }
+      });
+  if (MODE != 0) m1_fold(acc, partials, counter, dot);
+}
+
 // K6b's operand: p = r + beta p_old.
 struct XpayForm {
   static constexpr int NV = 2;  // r, p_old
@@ -206,15 +239,14 @@ xpay_pq3d_win_kernel(const float* __restrict__ r,
   const W3Place pl = w3_place(g);
   const float* src[2] = {r, p_old};
   float acc = 0.f;
-  march_win(win, s, g, pl, src, top, bot, XpayForm{*beta_p},
-            [&](int x, int gy, int z, float c, float ax) {
-              p_out[((size_t)x * g.Y + gy) * g.Z + z] = c;
-              acc += c * ax;
-            });
+  march_win<1>(win, s, g, pl, src, top, bot, XpayForm{*beta_p},
+               [](int, int) {},
+               [&](int x, int gy, int, int z, float c, float ax) {
+                 p_out[((size_t)x * g.Y + gy) * g.Z + z] = c;
+                 acc += c * ax;
+               });
   m1_fold(acc, partials, counter, dot);
 }
-
-unsigned win_smem_done = 0;  // devices whose attribute is set
 
 // K6b on march1 (reach 1): p formed while the window is loaded, stored at
 // the thread's points, <p, A p> folded into the last block.  partials: one
@@ -269,6 +301,35 @@ int launch_m1(bool star, bool vec, unsigned blocks, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
+template <int MODE>
+int launch_win(unsigned blocks, size_t smem, cudaStream_t stream,
+               const float* x, const float* top, const float* bot, float* y,
+               float* xv, float* rv, const float* alpha, float* dot,
+               float* partials, unsigned* counter, const W3Geom& g,
+               const LsStencil3& st) {
+  const int err = dyn_smem_ready(stencil3d_win_kernel<MODE>, kW3SmemMax,
+                                 win_smem_done[MODE]);
+  if (err) return err;
+  stencil3d_win_kernel<MODE><<<blocks, LS_W3_THREADS, smem, stream>>>(
+      x, top, bot, y, xv, rv, alpha, dot, partials, counter, g, st);
+  return (int)cudaGetLastError();
+}
+
+// Registers, spill bytes and resident blocks per SM of the window-march
+// kernel `which` (0..3 K6a's modes, 4 K6b) launched with `smem` bytes.
+int win_attrs(int which, size_t smem, int* out) {
+  switch (which) {
+#define LS_WIN_ATTR(M)                                                      \
+  case M: return w3_attrs(stencil3d_win_kernel<M>, win_smem_done[M], smem, \
+                          out);
+    LS_WIN_ATTR(0) LS_WIN_ATTR(1) LS_WIN_ATTR(2) LS_WIN_ATTR(3)
+#undef LS_WIN_ATTR
+    case 4: return w3_attrs(xpay_pq3d_win_kernel, win_smem_done[4], smem,
+                            out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -309,28 +370,17 @@ int ls_xpay_pq3d_m1_attrs(int which, int* out) {
   }
 }
 
-// Registers, spill bytes and resident blocks per SM of K6a's march3d
-// kernel in mode `which` (0..3), and of K6b's window march (4), at the
+// Registers, spill bytes and resident blocks per SM of the window-march
+// kernel `which` (0..3 K6a's modes y, y_dot, pq, update; 4 K6b) at the
 // largest window's shared memory.
 int ls_stencil3d_attrs(int which, int* out) {
-  switch (which) {
-    case 0: return m1_attrs(stencil3d_kernel<0>, out);
-    case 1: return m1_attrs(stencil3d_kernel<1>, out);
-    case 2: return m1_attrs(stencil3d_kernel<2>, out);
-    case 3: return m1_attrs(stencil3d_kernel<3>, out);
-    case 4: {
-      const int err = dyn_smem_ready(xpay_pq3d_win_kernel, kW3SmemMax,
-                                     win_smem_done);
-      return err ? err : m1_attrs(xpay_pq3d_win_kernel, out, kW3SmemMax);
-    }
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return win_attrs(which, kW3SmemMax, out);
 }
 
 // mode: 0 y, 1 y_dot, 2 pq, 3 update.  Pointers unused by a mode may be
 // null; halo planes may be null (zeros).  partials: scratch of 2 *
 // capacity doubles (two dots for each of up to capacity blocks); counter:
-// one unsigned, zero before the first launch (a reach-1 launch leaves it
+// one unsigned, zero before the first launch (every launch leaves it
 // zero).  Launches on one (partials, counter) pair must be ordered (one
 // stream).
 int ls_stencil3d(int mode, const float* x, const float* top, const float* bot,
@@ -341,7 +391,6 @@ int ls_stencil3d(int mode, const float* x, const float* top, const float* bot,
   if (!valid3(st, X, Y, Z) || mode < 0 || mode > 3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int h = reach3_yz(*st);
   if (on_march1(*st)) {
     M1Geom g;
     const long long blocks = m1_geometry(X, Y, Z, &g);
@@ -361,21 +410,22 @@ int ls_stencil3d(int mode, const float* x, const float* top, const float* bot,
 #undef LS_M1_MODE
     }
   }
-  const dim3 grid = march_grid(X, Y, Z), block(LS_THREADS_X, LS_THREADS_Y);
-  if ((long long)grid.x * grid.y * grid.z > capacity)
-    return (int)cudaErrorInvalidValue;
+  W3Geom g;
+  const long long blocks = w3_geometry(X, Y, Z, *st, &g);
+  if (!counter || blocks > capacity) return (int)cudaErrorInvalidValue;
+  const unsigned nb = (unsigned)blocks;
+  const size_t smem = w3_smem(g);
   switch (mode) {
-    case 0: stencil3d_kernel<0><<<grid, block, 0, stream>>>(
-                x, top, bot, y, xv, rv, alpha, partials, X, Y, Z, *st, h);
-            return (int)cudaGetLastError();
-    case 1: stencil3d_kernel<1><<<grid, block, 0, stream>>>(
-                x, top, bot, y, xv, rv, alpha, partials, X, Y, Z, *st, h); break;
-    case 2: stencil3d_kernel<2><<<grid, block, 0, stream>>>(
-                x, top, bot, y, xv, rv, alpha, partials, X, Y, Z, *st, h); break;
-    default: stencil3d_kernel<3><<<grid, block, 0, stream>>>(
-                x, top, bot, y, xv, rv, alpha, partials, X, Y, Z, *st, h); break;
+#define LS_WIN_MODE(M)                                                       \
+  case M:                                                                    \
+    return launch_win<M>(nb, smem, stream, x, top, bot, y, xv, rv, alpha,    \
+                         dot, partials, counter, g, *st);
+    LS_WIN_MODE(0) LS_WIN_MODE(1) LS_WIN_MODE(2)
+#undef LS_WIN_MODE
+    default:
+      return launch_win<3>(nb, smem, stream, x, top, bot, y, xv, rv, alpha,
+                           dot, partials, counter, g, *st);
   }
-  return finish(partials, grid.x * grid.y * grid.z, 1, dot, stream);
 }
 
 // K6b: p = r + beta p_old to p_out, <p, A p> to dot, one launch (march1
@@ -411,7 +461,7 @@ int ls_xpay_pq3d(const float* r, const float* p_old, const float* beta,
   const long long blocks = w3_geometry(X, Y, Z, *st, &g);
   if (!counter || blocks > capacity) return (int)cudaErrorInvalidValue;
   const int err = dyn_smem_ready(xpay_pq3d_win_kernel, kW3SmemMax,
-                                 win_smem_done);
+                                 win_smem_done[4]);
   if (err) return err;
   xpay_pq3d_win_kernel<<<(unsigned)blocks, LS_W3_THREADS, w3_smem(g),
                          stream>>>(r, p_old, beta, top, bot, p_out, dot,
@@ -429,15 +479,12 @@ int ls_window3d_blocks(int X, int Y, int Z) {
 }
 
 // out = {registers, spill bytes, resident blocks per SM, dynamic shared
-// memory bytes, blocks} of K6b's window march on [X, Y, Z] with st.
-int ls_xpay_pq3d_win_attrs(int X, int Y, int Z, const LsStencil3* st,
-                           int* out) {
-  if (!valid3(st, X, Y, Z)) return (int)cudaErrorInvalidValue;
-  W3Geom g;
-  out[4] = (int)w3_geometry(X, Y, Z, *st, &g);
-  out[3] = (int)w3_smem(g);
-  int err = dyn_smem_ready(xpay_pq3d_win_kernel, kW3SmemMax, win_smem_done);
-  return err ? err : m1_attrs(xpay_pq3d_win_kernel, out, w3_smem(g));
+// memory bytes, blocks} of the window-march kernel `which` (as for
+// ls_stencil3d_attrs) on [X, Y, Z] with st.
+int ls_stencil3d_win_attrs(int which, int X, int Y, int Z,
+                           const LsStencil3* st, int* out) {
+  const size_t smem = w3_shape(X, Y, Z, st, out);
+  return smem ? win_attrs(which, smem, out) : (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

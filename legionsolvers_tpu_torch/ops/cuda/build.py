@@ -163,7 +163,8 @@ def load_library() -> ctypes.CDLL:
         "ls_bicg3d_update_m1_attrs": [_I, _P],
         "ls_march1_blocks": [_I] * 3,
         "ls_window3d_blocks": [_I] * 3,
-        "ls_xpay_pq3d_win_attrs": [_I] * 3 + [_P, _P],
+        "ls_stencil3d_win_attrs": [_I] * 4 + [_P, _P],
+        "ls_bicg3d_pv_win_attrs": [_I] * 4 + [_P, _P],
         "ls_bicg3d_st": [_P] * 7 + [_I, _P] + [_I] * 4 + [_P, _P],
         "ls_bicg3d_update": [_P] * 12 + [_I, _P] + [_I] * 4 + [_P, _P],
         "ls_dia2d": [_I] + [_P] * 4 + [_L, _P, _I] + [_P] * 3 + [_I, _I, _P],

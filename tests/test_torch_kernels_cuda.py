@@ -47,12 +47,15 @@ versions (rtol 1e-3, x 1e-3 of max|x|).  The fused 2-D BiCGStab on 4
 pieces, f32 and compensated dots, one and two iterations against the
 plain-driven runner and two against one piece (rtol 1e-4, x 1e-4 of
 max|x|), K5a-c launched once per piece per iteration.  Wide z shifts
-(``-k "wide3d or march3d or nop"``): K6a's four modes, K6b and K7 with
-the wide-z stencil (|oz| up to 128, read beside march3d's window) at Z
-not a multiple of 128, X = 1, Y < 8 and |oz| = Z - 1, against their plain
-versions (the 3-D bounds above) and bit for bit on a repeat; its CG
-solve(20) on 1 and 4 pieces with exact launches against the plain-driven
-runner (rtol 1e-3); every march3d kernel's registers; K1's nop mode bit
+(``-k "wide3d or window or march3d or nop"``): K6a's four modes, K6b and
+K7 with the wide-z stencil (|oz| up to 128) and the reach-2 star at Z not
+a multiple of 128, X = 1, Y < 8 and |oz| = Z - 1, against their plain
+versions (the 3-D bounds above) and bit for bit on a repeat, K6a, K6b
+and K7 pv one window-march kernel (a profiler trace), K7 st and update
+their march3d kernel and its second launch; its CG solve(20) on 1 and 4
+pieces with exact launches against the plain-driven runner (rtol 1e-3);
+the registers of every kernel off march1, and for the window march's with
+S_wide at 256^3 no spill and at least 2 blocks per SM; K1's nop mode bit
 for bit its plain version (g[0] within 1e-5 of its Cauchy-Schwarz scale).
 """
 
@@ -153,11 +156,13 @@ SHAPE3 = (37, 45, 130)
 SHAPES3 = [SHAPE3, (40, 50, 260), (6, 20, 129), (1, 9, 131), (20, 15, 60)]
 # Stencils: the 7-point star (-dim 3) and 27-point box (-dim 4) of the
 # solves; ten terms of the box with random weights (the box path with zero
-# weights); the 11-point star with arms of 2 in y and z (reach 2: march3d).
+# weights); the 11-point star with arms of 2 in y and z (reach 2: the
+# window march, march3d for K7 st and update).
 STENCILS3 = [3, 4, "box10", "reach2"]
-# The wide-z stencil (march3d's wide terms, read beside the window): the
-# 7-point cross with center 8.5, (0, 0, +-12) with -0.5, (0, +-3, +-100)
-# and (+-1, 0, +-128) with -0.25.
+# The wide-z stencil (the window march holds its z shifts; march3d reads
+# the terms past |oz| = 8 beside its window): the 7-point cross with
+# center 8.5, (0, 0, +-12) with -0.5, (0, +-3, +-100) and (+-1, 0, +-128)
+# with -0.25.
 WIDE3 = [((0, 0, 0), 8.5), ((-1, 0, 0), -1.0), ((1, 0, 0), -1.0),
          ((0, -1, 0), -1.0), ((0, 1, 0), -1.0), ((0, 0, -1), -1.0),
          ((0, 0, 1), -1.0), ((0, 0, -12), -0.5), ((0, 0, 12), -0.5),
@@ -1681,44 +1686,113 @@ def test_k5_wide_match_plain_on_card(kernel, shape, stencil, compensated,
 
 
 # ---------------------------------------------------------------------------
-# Wide z shifts on march3d (K6a, K6b, K7) and K1's nop mode
+# Wide z shifts and reach 2..8 off march1 (K6a, K6b and K7 pv on the window
+# march, K7 st and update on march3d) and K1's nop mode
 # ---------------------------------------------------------------------------
 
+def _call3d(name, t, kw, compensated=False):
+    """A closure running the 3-D pass ``name`` (its LAUNCHES name) once on
+    the device tensors ``t`` with device scalars, so that it copies nothing
+    from the host and a trace of it holds its kernels alone."""
+    a, b, om = (torch.tensor(v, device=t["x"].device)
+                for v in (0.83, 0.37, 0.41))
+    h = (t["top"], t["bot"])
+    k7 = dict(kw, compensated=compensated)
+    return {
+        "y3d": lambda: T3.grid3d_stencil_matvec(t["x"], *h, **kw),
+        "y_dot3d": lambda: T3.grid3d_stencil_matvec(t["x"], *h,
+                                                    with_dot=True, **kw),
+        "pq3d": lambda: T3.grid3d_cg_pq(t["p"], *h, **kw),
+        "update3d": lambda: T3.grid3d_cg_update(t["p"], t["x"], t["r"], a,
+                                                *h, **kw),
+        "xpay_pq3d": lambda: T3.grid3d_cg_xpay_pq(t["r"], t["p"], b, *h,
+                                                  **kw),
+        "bicg3d_pv": lambda: TB3.bicg3d_pv(t["r"], t["p"], t["v"], t["rt"],
+                                           b, om, *h, **k7),
+        "bicg3d_st": lambda: TB3.bicg3d_st(t["r"], t["v"], a, *h, **k7),
+        "bicg3d_update": lambda: TB3.bicg3d_update(
+            t["r"], t["v"], t["x"], t["p"], t["rt"], a, om, *h, **k7),
+    }[name]
+
+
+def _kernels_of(fn, takes=4):
+    """The names of the device kernels one call of ``fn`` launches (no
+    memory copy), from a torch.profiler trace, taken again (at most
+    ``takes`` times) when it comes back with no kernel: a trace has at
+    times lost its device events (chip_smoke.device_kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # a first call makes the wrappers' scratch
+    torch.cuda.synchronize()
+    for _ in range(takes):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith(("Memcpy", "Memset"))]
+        if names:
+            return names
+    raise AssertionError(f"{takes} traces saw no device kernel")
+
+
+def _assert_route3d(name, dim, compensated=False):
+    """The pass launches what ``T3.route3d`` says: one window-march
+    kernel, or march3d's kernel and its second launch (reduce_partials)."""
+    t, kw = _tensors(_state3d(41, (20, 7, 129)), "cuda"), _kw3(dim)
+    route = T3.route3d(name, kw["offsets"], compensated)
+    names = _kernels_of(_call3d(name, t, kw, compensated))
+    if route == "window":
+        assert len(names) == 1 and "win_kernel" in names[0], names
+    else:
+        assert route == "march3d", route
+        assert any("reduce_partials" in n for n in names), names
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dim", ["wide", "reach2"])
 @pytest.mark.parametrize("shape", WIDE3_SHAPES)
 @pytest.mark.parametrize("mode", ["y", "y_dot", "pq", "update", "xpay_pq"])
-def test_wide3d_k6_matches_plain_on_card(mode, shape, cuda_device):
-    """K6a (four modes) and K6b with |oz| up to 128 against their plain
-    versions (the bounds above), with random halo planes, one launch, a
-    repeat bit for bit."""
+def test_wide3d_k6_matches_plain_on_card(mode, shape, dim, cuda_device):
+    """K6a (four modes) and K6b with |oz| up to 128, and with the reach-2
+    star, against their plain versions (the bounds above), with random
+    halo planes, one launch, a repeat bit for bit (the folded dot's sum
+    order depends on the volume alone), and that launch one window-march
+    kernel."""
     d = _state3d(23, shape)
     T.reset_launch_counts()
-    got, again = (_stencil3d(mode, d, cuda_device, "wide") for _ in range(2))
+    got, again = (_stencil3d(mode, d, cuda_device, dim) for _ in range(2))
     assert dict(T.LAUNCHES) == {f"{mode}3d": 2}
     assert all(np.array_equal(got[k], again[k]) for k in got)
-    ref = _stencil3d(mode, d, cuda_device, "wide", plain=True)
+    ref = _stencil3d(mode, d, cuda_device, dim, plain=True)
     arrays = [v for v in ref.values() if v.ndim]
     _compare3d(got, ref, _norm_bound(d, *arrays))
+    _assert_route3d(f"{mode}3d", dim)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dim", ["wide", "reach2"])
 @pytest.mark.parametrize("shape", WIDE3_SHAPES)
 @pytest.mark.parametrize("compensated", [False, True])
 @pytest.mark.parametrize("kernel", ["pv", "st", "update"])
-def test_wide3d_k7_matches_plain_on_card(kernel, compensated, shape,
+def test_wide3d_k7_matches_plain_on_card(kernel, compensated, shape, dim,
                                          cuda_device):
-    """K7 pv, st and update with |oz| up to 128: the wide terms read the
-    pass's combined operand at the shifted point; the bounds above, one
-    launch, a repeat bit for bit."""
+    """K7 pv, st and update with |oz| up to 128, and with the reach-2 star:
+    pv on the window march (one kernel), st and update on march3d (the
+    wide terms read the pass's combined operand at the shifted point; a
+    second launch); the bounds above, one call each, a repeat bit for
+    bit."""
     d = _state3d(29, shape)
     T.reset_launch_counts()
-    got, again = (_bicg3d(kernel, d, cuda_device, "wide", compensated)
+    got, again = (_bicg3d(kernel, d, cuda_device, dim, compensated)
                   for _ in range(2))
     assert dict(T.LAUNCHES) == {f"bicg3d_{kernel}": 2}
     assert all(np.array_equal(got[k], again[k]) for k in got)
-    ref = _bicg3d(kernel, d, cuda_device, "wide", compensated, plain=True)
+    ref = _bicg3d(kernel, d, cuda_device, dim, compensated, plain=True)
     arrays = [v for v in ref.values() if v.ndim]
     _compare3d(got, ref, 26.0 * _norm_bound(d, *arrays))
+    _assert_route3d(f"bicg3d_{kernel}", dim, compensated)
 
 
 @pytest.mark.cuda
@@ -1766,9 +1840,10 @@ def test_wide3d_cg_matches_plain_on_card(pieces, cuda_device, monkeypatch):
 
 @pytest.mark.cuda
 def test_march3d_attrs_on_card(cuda_device):
-    """Every march3d kernel (K6a's four modes, K6b, K7 pv, st and update,
-    f32 and compensated dots) reports its registers and fits one block
-    per SM."""
+    """The kernels that remain on march3d (K7 st and update, f32 and
+    compensated dots) and the window-march kernels at the largest window
+    the gate allows (K6a's four modes, K6b, K7 pv) report their registers
+    and fit one block per SM."""
     import ctypes
 
     from legionsolvers_tpu_torch.ops.cuda.build import load_library
@@ -1779,6 +1854,32 @@ def test_march3d_attrs_on_card(cuda_device):
             out = (ctypes.c_int * 3)()
             assert getattr(lib, fn)(which, out) == 0, (fn, which)
             assert 0 < out[0] <= 255 and out[2] >= 1, (fn, which, list(out))
+
+
+@pytest.mark.cuda
+def test_window3d_attrs_on_card(cuda_device):
+    """Every window-march kernel (K6a's four modes, K6b, K7 pv with f32 and
+    compensated dots) with S_wide at 256^3: no spill, at least 2 blocks
+    per SM, the shared memory of ``window3d_smem`` and the blocks of
+    ``window3d_geometry``."""
+    import ctypes
+
+    from legionsolvers_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    kw = _kw3("wide")
+    st = ctypes.byref(T3._stencil3_struct(**kw))
+    shape = (256, 256, 256)
+    calls = [("ls_stencil3d_win_attrs", w) for w in range(5)]
+    calls += [("ls_bicg3d_pv_win_attrs", c) for c in (0, 1)]
+    for fn, which in calls:
+        out = (ctypes.c_int * 5)()
+        assert getattr(lib, fn)(which, *shape, st, out) == 0, (fn, which)
+        regs, spill, per_sm, smem, blocks = out
+        assert 0 < regs <= 255 and spill == 0 and per_sm >= 2, (
+            fn, which, list(out))
+        assert smem == T3.window3d_smem(256, kw["offsets"]), (fn, smem)
+        assert blocks == T3.window3d_geometry(*shape)[2], (fn, blocks)
 
 
 @pytest.mark.cuda

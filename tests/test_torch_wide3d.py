@@ -29,6 +29,11 @@ max|x|; BiCGStab 3e-3 and 5e-3, stopped after 6 iterations, while JAX's
 f32 history is still within 1e-4 of float64); matvecs atol 1e-5 * max|y|.
 K1 nop: x'', r'', p'' bit for bit (one f32 add, or none), g[0] 1e-5 of its
 Cauchy-Schwarz scale, g[1..9] zero.
+
+No JAX: the Python mirrors of the CUDA dispatch off ``march1`` (the window
+march for K6a, K6b and K7 pv, ``march3d`` for K7 st and update:
+``route3d``), of the window march's geometry and of the shared scratch's
+room.
 """
 
 import numpy as np
@@ -247,6 +252,56 @@ def test_xpay_pq3d_route_and_window(case):
     assert T3.xpay_pq3d_route(o) == route
     if smem is not None:
         assert T3.window3d_smem(Z, o) == smem <= 3 * 32 * 512 * 4
+
+
+# Every 3-D pass by its LAUNCHES name, and the march it runs off march1:
+# K6a's four modes, K6b and K7 pv the window march, K7 st and update
+# march3d (csrc/stencil3d.cu, csrc/bicgstab3d.cu)
+PASSES3D = {"y3d": "window", "y_dot3d": "window", "pq3d": "window",
+            "update3d": "window", "xpay_pq3d": "window",
+            "bicg3d_pv": "window", "bicg3d_st": "march3d",
+            "bicg3d_update": "march3d"}
+
+
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("case", list(WINDOW_ROUTE))
+@pytest.mark.parametrize("name", list(PASSES3D))
+def test_route3d(name, case, compensated):
+    """The mirror of the kernels' dispatch: reach-1 stencils run march1,
+    every other stencil of the gate the window march (K6a, K6b, K7 pv) or
+    march3d (K7 st and update); K7 update with compensated dots runs
+    march3d on every stencil."""
+    o, _, k6b, _ = WINDOW_ROUTE[case]
+    if name == "bicg3d_update" and compensated:
+        want = "march3d"
+    else:
+        want = "march1" if k6b == "march1" else PASSES3D[name]
+    assert T3.route3d(name, o, compensated) == want
+    assert T3.xpay_pq3d_route(o) == k6b
+
+
+def test_route3d_refuses_other_passes():
+    with pytest.raises(ValueError, match="not a 3-D pass"):
+        T3.route3d("bicg_pv", kw_of(S_WIDE)["offsets"])
+
+
+@pytest.mark.parametrize("shape", list(WINDOW_GEOMETRY))
+def test_march_scratch_holds_compensated_pv(shape, monkeypatch):
+    """K7 pv on the window march with compensated dots keeps a double per
+    block, and the shared scratch has room for two: float64 partials, two
+    for each window block (and each block of the other marches), the
+    counter zero."""
+    X, Y, Z = shape
+    blocks = WINDOW_GEOMETRY[shape][2]
+    monkeypatch.setattr(T3, "_raw_stream", lambda device: 0)
+    monkeypatch.setattr(T3, "_MARCH_SCRATCH", {})
+    partials, capacity, counter = T3.march_scratch(torch.device(DEV), X, Y,
+                                                   Z)
+    assert partials.dtype == torch.float64
+    assert capacity >= max(blocks, T3.blocks3d(X, Y, Z),
+                           T3.march1_geometry(X, Y, Z)[2])
+    assert partials.numel() >= 2 * capacity >= 2 * blocks
+    assert counter.numel() == 1 and not counter.any()
 
 
 # -- the view, the matvec and the solves -------------------------------------
