@@ -14,10 +14,11 @@ host's enqueue time of one K10 call, the times of K3 (four modes), K4, K5b
 update (compensated dots off and on) at 256^3, and K12 and ``torch.add``
 in turns (one JSON line); ``--ab PARENT`` runs ``--solves`` on PARENT and
 on this tree, alternating parent, change, change, parent, and prints the
-medians and ranges.  ``--breakdown [--dim 2|3] [--size N] [--tree DIR]``
-runs phase 4d's f32 BiCGStab on the 7-point system at 256^3 (dim 3, the
-default) or phase 4b's on the 5-point system at 4096^2 (dim 2; N^2 with
-``--size``) from several right-hand sides (:func:`breakdown`).
+medians and ranges.  ``--breakdown [--dim 2|3|4] [--size N] [--tree
+DIR]`` runs phase 4d's f32 BiCGStab on the 7-point system at 256^3 (dim 3,
+the default), on the 27-point one (dim 4), or phase 4b's on the 5-point
+system at 4096^2 (dim 2; N^2 with ``--size``) from several right-hand
+sides (:func:`breakdown`).
 ``--passes [--tree DIR]`` prints the times of K3, K4, K5b and K2 at
 4096^2 that ``--solves`` takes (:func:`time_ab_passes_2d`) and nothing
 else.  ``--blocks`` runs phases 4i and 5i (block systems) and nothing
@@ -88,16 +89,16 @@ Phases (any failure raises, and the exit code is non-zero):
 3c. the 3-D kernels: K6a (y, y_dot, pq, update), K6b (xpay_pq) and K7
    (pv, st, update; compensated dots off and on) against their plain
    versions, 7- and 27-point stencils (every pass on the reach-1
-   register march, march1) and a reach-2 11-point star (K6a, K6b and K7
-   pv on the window march, K7 st and update on march3d), at the
-   main-path shape 256^3 and a ragged 37 x 45 x 130, with random halo
-   planes; the bounds of phases 3 and 3b.  A torch.profiler trace of one
-   call of each pass shows that the march1 and window-march passes
-   launch one kernel of their march and no second reduction launch
-   (reduce_partials), and that the march3d passes do launch theirs.  Each
-   march1 kernel's registers, spill bytes and resident blocks per SM
-   (cudaFuncGetAttributes, the occupancy calculator) are printed after
-   the build;
+   register march, march1, but K7 update with compensated dots, on
+   march3d) and a reach-2 11-point star (every pass on the window march),
+   at the main-path shape 256^3 and a ragged 37 x 45 x 130, with random
+   halo planes; the bounds of phases 3 and 3b.  A torch.profiler trace of
+   one call of each pass shows that the march1 and window-march passes
+   launch one kernel of their march (``route3d``) and no second reduction
+   launch (reduce_partials), and that the march3d pass launches it.  Each
+   march1 and window-march kernel's registers, spill bytes and resident
+   blocks per SM (cudaFuncGetAttributes, the occupancy calculator; the
+   window kernels' with S_wide at 256^3) are printed after the build;
 4c. drive the 3-D CG path, ``entry.build_stencil_system(3 | 4, (256,)*3)``
    -> ``CGSolver``: eager ``step()``s (K6a y_dot), ``solve(200)`` (1 pq +
    200 update + 199 xpay_pq, counted exactly), the same solve again
@@ -305,10 +306,8 @@ grid as ``[n // C, C]`` and the kernels run its row-wrap terms, |dx| = C -
 
 Wide z shifts on the 3-D kernels (kernel item C: S_wide, the 7-point
 cross with center 8.5 plus (0, 0, +-12), (0, +-3, +-100) and (+-1, 0,
-+-128); K6a's four modes, K6b and K7 pv run the window march, whose
-window holds every z shift a term reads, and K7 st and update march3d,
-which reads the terms past |oz| = 8 beside its window), and K1's nop mode
-(item D):
++-128); every 3-D pass runs the window march, whose window holds every
+z shift a term reads), and K1's nop mode (item D):
 
 4m. K6a's four modes, K6b and K7 (compensated dots off and on) with S_wide
    against their plain versions at 256^3 and at (37, 45, 130), (1, 5,
@@ -435,11 +434,11 @@ BICG3_PALLAS = "legionsolvers_tpu/ops/pallas/bicgstab3d.py"
 BICG3_KERNELS = {"bicg3d_pv": (243, 24), "bicg3d_st": (243, 8),
                  "bicg3d_update": (243, 28)}
 # The passes on the reach-1 register march (march1), every 3-D pass: each
-# is one launch, its dots folded into its last block; with REACH2 K6a,
-# K6b and K7 pv run the window march (one launch, likewise) and K7 st and
-# update march3d and a second launch (reduce_partials) for their dots, as
-# K7 update with compensated dots does on every stencil (csrc/bicgstab3d.cu
-# says why): ops/cuda/stencil3d.route3d.
+# is one launch, its dots folded into its last block, but K7 update with
+# compensated dots, which runs march3d and a second launch
+# (reduce_partials) for its dots (csrc/bicgstab3d.cu says why); with
+# REACH2 each runs the window march (one launch, likewise):
+# ops/cuda/stencil3d.route3d.
 MARCH1_PASSES = ("y3d", "y_dot3d", "pq3d", "update3d", "xpay_pq3d",
                  "bicg3d_pv", "bicg3d_st", "bicg3d_update")
 # each march1 pass's label in march1_attrs
@@ -448,8 +447,7 @@ M1_ATTR_NAMES = {"y3d": "y", "y_dot3d": "y_dot", "pq3d": "pq",
                  "bicg3d_pv": "pv", "bicg3d_st": "st",
                  "bicg3d_update": "bicg_update"}
 # A reach-2 stencil (the 11-point star with arms of 2 in y and z; |ox| <= 1
-# is the gate's) that phase 3c runs off march1 (the window march, and
-# march3d for K7 st and update)
+# is the gate's) that phase 3c runs off march1 (the window march)
 REACH2 = "reach2"
 REACH2_KW = dict(
     offsets=((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 0, -1),
@@ -1868,10 +1866,11 @@ def dot_operands3(T3, name, d, outs, kw):
 
 def compare_3d_kernels(torch, lt, T3, TB3, device):
     """Phase 3c: K6a (four modes), K6b and K7 (compensated dots off and on)
-    against their plain versions, 7- and 27-point stencils (march1 for
-    all) and REACH2 (the window march; march3d for K7 st and update), at
-    256^3 and a ragged 37 x 45 x 130, with random halo planes.  The bounds
-    of phases 3 and 3b.  Returns {(name, dim): max abs error}."""
+    against their plain versions, 7- and 27-point stencils (march1, but
+    march3d for K7 update with compensated dots) and REACH2 (the window
+    march), at 256^3 and a ragged 37 x 45 x 130, with random halo planes.
+    The bounds of phases 3 and 3b.  Returns {(name, dim): max abs
+    error}."""
     f64dot = lambda a, b: torch.dot(a.double().reshape(-1),
                                     b.double().reshape(-1)).item()
     nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
@@ -1976,10 +1975,10 @@ def check_one_launch_3d(torch, lt, T3, TB3, device):
     """Phase 3c: every 3-D pass with the 7- and 27-point stencils and
     REACH2 (compensated dots off and on for K7) launches what
     ``T3.route3d`` says its march launches: one kernel of march1
-    (``m1_kernel``) or of the window march (``win_kernel``; K6a, K6b and
-    K7 pv on REACH2) and no reduce_partials, or march3d's kernel and its
-    second launch (K7 st and update on REACH2, K7 update with compensated
-    dots), which shows that the trace sees a second launch.  Returns
+    (``m1_kernel``) or of the window march (``win_kernel``: every pass on
+    REACH2) and no reduce_partials, or march3d's kernel and its second
+    launch (K7 update with compensated dots on the 7- and 27-point
+    stencils), which shows that the trace sees a second launch.  Returns
     {case: kernel names}."""
     d = inputs3d(torch, RAGGED3, 31, device)
     seen, bad, calls = {}, [], {}
@@ -2361,8 +2360,8 @@ def time_3d_kernels(torch, lt, T3, TB3, device, bw, card):
 def time_pv_turns(torch, lt, T3, TB3, device, card):
     """Phase 5e.  K7 pv with compensated dots off, on, on, off (CUDA events
     over a ring of three input sets at 256^3, as in time_3d_kernels), for
-    the 7- and 27-point stencils (march1) and REACH2 (march3d): {dim:
-    [ms per turn]}."""
+    the 7- and 27-point stencils (march1) and REACH2 (the window march):
+    {dim: [ms per turn]}."""
     res = {}
     for dim in (*DIMS3, REACH2):
         kw = stencil_kw(lt, dim)
@@ -5509,21 +5508,22 @@ BREAKDOWN_ROUTES2 = ("plain-driven fused", "K5a kernel alone",
 
 
 def breakdown(torch, lt, device, card, dim=3, n=N_GRID):
-    """--breakdown [--dim 2|3] [--size n]: for the package this process
+    """--breakdown [--dim 2|3|4] [--size n]: for the package this process
     imports, f32 BiCGStab from BREAKDOWN_RHS right-hand sides on phase
-    4d's system (dim 3: the 7-point stencil at SHAPE3) or phase 4b's (dim
-    2: the 5-point Laplacian at n^2, N_GRID^2 by default; z drawn on the
-    card as phase 4b's at N_GRID, with numpy's default_rng(seed) at other
-    sizes, so that a CPU run can draw the same).  For each: the first
-    non-finite history entry over BREAKDOWN_ITERS iterations of the port's
-    solve (f32 dots) and of textbook f32, and with dim 2 of the
-    BREAKDOWN_ROUTES2 too (the same fused schedule and its dots, each pass
-    a kernel or its plain version, and the step() loop); the window (leading entries within 1e-3 of
+    4d's systems (dim 3: the 7-point stencil at SHAPE3; dim 4: the
+    27-point one) or phase 4b's (dim 2: the 5-point Laplacian at n^2,
+    N_GRID^2 by default; z drawn on the card as phase 4b's at N_GRID, with
+    numpy's default_rng(seed) at other sizes, so that a CPU run can draw
+    the same).  For each: the first non-finite history entry over
+    BREAKDOWN_ITERS iterations of the port's solve (f32 dots) and of
+    textbook f32, and with dim 2 of the BREAKDOWN_ROUTES2 too (the same
+    fused schedule and its dots, each pass a kernel or its plain version,
+    and the step() loop); the window (leading entries within 1e-3 of
     float64 BiCGStab) of the port's solve and of textbook f32, and of the
     compensated solve and textbook f32 with float64 dots; and the phase's
-    end check after N_ITERS.  Dim 3, phase 4d's of the compensated solve:
-    ||b - Ax||^2 within twice textbook f32's with float64 dots, x error
-    within twice its or BICG3_X_FLOOR.  Dim 2, phase 4b's of the f32
+    end check after N_ITERS.  Dims 3 and 4, phase 4d's of the compensated
+    solve: ||b - Ax||^2 within twice textbook f32's with float64 dots, x
+    error within twice its or BICG3_X_FLOOR.  Dim 2, phase 4b's of the f32
     solve: ||b - Ax||^2 and x error within twice textbook f32's.  Per
     right-hand side one log line; last, one JSON line with, for each
     route, the right-hand sides that turned non-finite by N_ITERS and by
@@ -5537,10 +5537,10 @@ def breakdown(torch, lt, device, card, dim=3, n=N_GRID):
     opts = lambda comp: lt.SolverOptions(entry_dtype=torch.float32,
                                          compensated_dots=comp)
     build = ((lambda comp: build_system(n, opts(comp), device)) if two
-             else (lambda comp: build_stencil_system(3, SHAPE3, opts(comp),
+             else (lambda comp: build_stencil_system(dim, SHAPE3, opts(comp),
                                                      device)))
     solvers = {comp: lt.BiCGStabSolver(build(comp)) for comp in (False, True)}
-    A = lap5 if two else stencil_matvec(torch, lt, 3)
+    A = lap5 if two else stencil_matvec(torch, lt, dim)
     finite = lambda h: bool(torch.isfinite(h).all())
     first_bad = lambda h: (None if finite(h)
                            else int((~torch.isfinite(h)).nonzero()[0]))
@@ -5633,9 +5633,18 @@ def breakdown(torch, lt, device, card, dim=3, n=N_GRID):
         and r["first_nonfinite"][route] <= by for r in rows)
         for by in (N_ITERS, BREAKDOWN_ITERS)} for route in rows[0][
             "first_nonfinite"]}
+    # the right-hand sides on which the compensated solve stays within 1e-3
+    # of float64 as long as textbook f32 with float64 dots does, and meets
+    # the end check (dims 3 and 4)
+    comp = {} if two else {
+        "window_as_long_as_textbook": sum(
+            r["window"]["kernel compensated"]
+            >= r["window"]["textbook f32 (f64 dots)"] for r in rows),
+        "end_check": sum(r["compensated_end"]["pass"] for r in rows)}
     log(json.dumps({"card": card, "tree": os.getcwd(), "dim": dim,
                     "shape": list(shape), "iters": BREAKDOWN_ITERS,
-                    "nonfinite_by": nonfinite, "rows": rows}))
+                    "nonfinite_by": nonfinite, "compensated": comp,
+                    "rows": rows}))
     return 0
 
 
@@ -6148,12 +6157,9 @@ WIDE3 = (((0, 0, 0), 8.5), ((-1, 0, 0), -1.0), ((1, 0, 0), -1.0),
 WIDE3_KW = dict(offsets=tuple(o for o, _ in WIDE3),
                 values=tuple(v for _, v in WIDE3))
 # Z not a multiple of 128 (and Z % 4 != 0), X = 1 with Y < 8, |oz| = Z - 1
-# (Z = 129), a 16-plane chunk and one more
+# (Z = 129), 17 planes (window chunks of 4, 4, 4, 4 and 1)
 WIDE3_EDGES = ((37, 45, 130), (1, 5, 301), (20, 7, 129), (17, 9, 256))
 WIDE3_PASSES = (*KERNELS3, *BICG3_KERNELS)
-# the wide-z passes on march3d (the others run the window march), as
-# ops/cuda/stencil3d.route3d gives them
-WIDE3_MARCH3D = ("bicg3d_st", "bicg3d_update")
 WIDE3_PIECES = 4
 WIDE3_STEP_ITERS = 20  # BiCGStab step() on pieces
 # name -> (solver, pieces, compensated dots, solve length, launches);
@@ -6239,9 +6245,9 @@ def compare_wide3d_kernels(torch, T3, TB3, device):
     nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
     errs = {}
     for name in WIDE3_PASSES:
-        want = "march3d" if name in WIDE3_MARCH3D else "window"
-        if T3.route3d(name, WIDE3_KW["offsets"]) != want:
-            raise AssertionError(f"{name} with S_wide is off {want}")
+        if T3.route3d(name, WIDE3_KW["offsets"]) != "window":
+            raise AssertionError(f"{name} with S_wide is off the window "
+                                 "march")
     for shape in (SHAPE3, *WIDE3_EDGES):
         if not T3.supports3d(*shape, WIDE3_KW["offsets"]):
             raise AssertionError(f"S_wide off the kernels' gate at {shape}")
@@ -6547,8 +6553,8 @@ def wide3d_rows(launches, grid_launches, errs, times, bw, conv_ms,
     4m's solves (one piece and 4 pieces), times from phase 5m at 256^3
     (K7: f32 dots; compensated beside them); K6a y's library_ms is the
     dense-box ``F.conv3d`` (None where it does not run); each row's march
-    (``kernel_route``), registers and spill bytes, and on the window march
-    its shared memory and blocks per SM (:func:`wide3d_attrs`)."""
+    (``kernel_route``), registers, spill bytes, shared memory and blocks
+    per SM (:func:`wide3d_attrs`)."""
     n = SHAPE3[0] * SHAPE3[1] * SHAPE3[2]
     rows = []
     for m in WIDE3_PASSES:
@@ -6566,14 +6572,10 @@ def wide3d_rows(launches, grid_launches, errs, times, bw, conv_ms,
                          ops_per_elt(m, len(WIDE3)) * n, bw,
                          conv_ms if m == "y3d" else None,
                          grid_launches=grid_launches.get(m, 0))
-        regs, spill, per_sm = m3_attrs[m][:3]
-        window = m not in WIDE3_MARCH3D
+        regs, spill, per_sm, smem = m3_attrs[m][:4]
         row.update(graph_ms=g, registers=regs, spill_bytes=spill,
-                   kernel_route="window march" if window
-                   else "march3d, wide terms")
-        if window:
-            row.update(blocks_per_sm=per_sm,
-                       shared_memory_bytes=m3_attrs[m][3])
+                   kernel_route="window march", blocks_per_sm=per_sm,
+                   shared_memory_bytes=smem)
         if m in BICG3_KERNELS:
             row["compensated_ms"], _, row["compensated_graph_ms"] = \
                 times[m, True]
@@ -6584,10 +6586,9 @@ def wide3d_rows(launches, grid_launches, errs, times, bw, conv_ms,
         rows.append(row)
         log(f"[time] wide z {m:13s} {ms:.4f} ms (graphs {g:.4f}), bound "
             f"{row['bound_ms']:.4f} ({row['pct_of_bound']:.1f}%), "
-            f"{row['kernel_route']}, {regs} registers, {spill} B spilled"
-            + (f", {per_sm} blocks per SM" if window else "")
-            + f", launches {row['launches']}, {row['ms_lost']:.1f} ms lost "
-            "at 256^3")
+            f"{row['kernel_route']}, {regs} registers, {spill} B spilled, "
+            f"{per_sm} blocks per SM, launches {row['launches']}, "
+            f"{row['ms_lost']:.1f} ms lost at 256^3")
     return rows
 
 
@@ -6606,32 +6607,29 @@ def nop_row(err, times, bw):
 
 
 def wide3d_attrs(lib, T3):
-    """{pass: attributes} of the kernels the wide-z route runs, (pass,
-    True) for K7's with compensated dots: the window march's with S_wide
-    at 256^3 (K6a's four modes, K6b, K7 pv: registers, spill bytes, blocks
-    per SM, dynamic shared memory bytes, blocks), logged as
-    ``[window3d]``, and march3d's (K7 st and update: registers, spill
-    bytes, blocks per SM)."""
+    """{pass: attributes} of the window-march kernels, the wide-z route's,
+    (pass, True) for K7's with compensated dots, with S_wide at 256^3
+    (K6a's four modes, K6b, K7 pv, st and update: registers, spill bytes,
+    blocks per SM, dynamic shared memory bytes, blocks), each logged as
+    ``[window3d]``."""
     import ctypes
 
     st = ctypes.byref(T3._stencil3_struct(**WIDE3_KW))
     out = {}
     for m in WIDE3_PASSES:
         for comp in ((False, True) if m in BICG3_KERNELS else (False,)):
-            if m in WIDE3_MARCH3D:
-                a = (ctypes.c_int * 3)()
+            a = (ctypes.c_int * 5)()
+            if m in BICG3_KERNELS:
                 which = 2 * list(BICG3_KERNELS).index(m) + comp
-                err = lib.ls_bicg3d_attrs(which, a)
+                err = lib.ls_bicg3d_win_attrs(which, *SHAPE3, st, a)
             else:
-                a = (ctypes.c_int * 5)()
-                err = (lib.ls_bicg3d_pv_win_attrs(int(comp), *SHAPE3, st, a)
-                       if m == "bicg3d_pv" else lib.ls_stencil3d_win_attrs(
-                           list(KERNELS3).index(m), *SHAPE3, st, a))
-                if not err:
-                    log(f"[window3d] {m}{' compensated' if comp else ''} on "
-                        f"the window march with S_wide at 256^3: {a[0]} "
-                        f"registers, {a[1]} B spilled, {a[3]} B of shared "
-                        f"memory, {a[2]} blocks per SM, {a[4]} blocks")
+                which = list(KERNELS3).index(m)
+                err = lib.ls_stencil3d_win_attrs(which, *SHAPE3, st, a)
+            if not err:
+                log(f"[window3d] {m}{' compensated' if comp else ''} on the "
+                    f"window march with S_wide at 256^3: {a[0]} registers, "
+                    f"{a[1]} B spilled, {a[3]} B of shared memory, {a[2]} "
+                    f"blocks per SM, {a[4]} blocks")
             if err:
                 raise RuntimeError(f"attributes of {m} (compensated={comp}): "
                                    f"error {err}")
@@ -7214,6 +7212,7 @@ def main() -> int:
     m1_attrs = march1_attrs(build.load_library())
     log("[march1] registers, spill bytes, resident blocks per SM: "
         + "; ".join(f"{k} {v}" for k, v in m1_attrs.items()))
+    m3_attrs = wide3d_attrs(build.load_library(), T3)
     s_attrs = strip_attrs(build.load_library())
     log("[strip2d] registers, spill bytes, resident blocks per SM: "
         + "; ".join(f"{k} {v}" for k, v in s_attrs.items()))
@@ -7288,7 +7287,6 @@ def main() -> int:
         torch, np, T, TB, lt, device)
     failed += f
     mark("phase 4l")
-    m3_attrs = wide3d_attrs(build.load_library(), T3)
     errs_z = compare_wide3d_kernels(torch, T3, TB3, device)
     nop_err = compare_nop(torch, T, device)
     wz_launches, wz_grid, wz_results, wz_solvers, f = wide3d_path(

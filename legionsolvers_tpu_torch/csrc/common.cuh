@@ -3,13 +3,12 @@
 // explicit-sparse path): the stencil descriptions, the tile geometry, the
 // halo window loads, the stencil application from shared memory, the
 // fixed-order reduction of per-block partial dot products, unfused
-// round-to-nearest arithmetic and, for the 3-D kernels, three marches along
+// round-to-nearest arithmetic and, for the 3-D kernels, two marches along
 // x: march1 (reach 1, a register march with the next plane in flight and
-// the dot folded into the last block), the window march (every other
+// the dot folded into the last block) and the window march (every other
 // stencil of the gate: a window holding every z shift a term reads, the
-// dot folded into the last block) and march3d (K7 st and update off
-// march1: reach up to 8 from shared memory, z shifts up to 128 read beside
-// the window).
+// dots folded into the last block).  bicgstab3d.cu keeps a third, march3d,
+// for K7 update with compensated dots on reach-1 stencils.
 //
 // build.py compiles every csrc/*.cu into one shared library, so everything
 // here has internal linkage (an anonymous namespace): each translation unit
@@ -27,11 +26,10 @@
 #define LS_THREADS_Y 8
 #define LS_THREADS (LS_THREADS_X * LS_THREADS_Y)
 #define LS_MAX_REACH 8
-// The 3-D gate's widest z shift (the TPU kernel's PADZ): terms with
-// LS_MAX_REACH < |oz| <= LS_WIDE_Z are read beside march3d's window.
+// The 3-D gate's widest z shift (the TPU kernel's PADZ), which the window
+// march's window holds.
 #define LS_WIDE_Z 128
 #define LS_REDUCE_THREADS 256
-#define LS_CHUNK_X 16
 
 // The stencil {(dy_k, dx_k): v_k}, passed by value to every kernel.
 struct LsStencil {
@@ -236,164 +234,17 @@ int finish(const T* partials, int nblocks, int K, float* out,
 }
 
 // ---------------------------------------------------------------------------
-// 3-D: x is [X, Y, Z], Z contiguous.  march3d, which K7 st and update run
-// off march1 (and update with compensated dots on every stencil).  A block
-// owns one LS_TILE x LS_TILE (y, z) output tile and marches along x over
-// LS_CHUNK_X planes.  Shared memory holds three planes (x - 1, x, x + 1)
-// of the block's window, the tile plus h = max(|oy|, |oz|) over the terms
-// with |oz| <= LS_MAX_REACH on each side, in three slots that rotate one
-// plane per step: the GPU form of the TPU kernel's rotating plane buffer.
-// Every window point is zero outside [0, Y) x [0, Z); planes -1 and X come
-// from the [Y, Z] halo planes (nullptr = zeros).  A term with |oz| >
-// LS_MAX_REACH (a wide term, the TPU kernel's lane shift into its plane's
-// 128-column zero margins) is read beside the window: the operand at (x +
-// ox, y + oy, z + oz), formed from device memory as the window's points
-// are, after y and z are tested against [0, Y) x [0, Z), from the halo
-// planes outside [0, X).
+// 3-D: x is [X, Y, Z], Z contiguous.  Two marches along x: march1 for
+// reach-1 stencils and the window march for every other stencil of the
+// gate (below).
 // ---------------------------------------------------------------------------
 
-// Slot stride: the largest window, (LS_TILE + 2 * LS_MAX_REACH)^2 floats.
-constexpr int kPlaneMax = kWinMax * kWinMax;
-
-__host__ __device__ __forceinline__ bool wide_z(int oz) {
-  return oz > LS_MAX_REACH || oz < -LS_MAX_REACH;
-}
-
-// Terms with their window offsets for each rotation phase: the plane of
-// step x sits in slot (x - x0 + 1) % 3, so in phase ph = (x - x0) % 3 the
-// term (ox, oy, oz) reads slot (ph + 1 + ox) % 3 at oy * W + oz from the
-// thread's point.  A wide term (wide[k]) keeps its shifts instead.
-struct SharedStencil3 {
-  int n;
-  int off[3][LS_MAX_TERMS];
-  float v[LS_MAX_TERMS];
-  bool wide[LS_MAX_TERMS];
-  int ox[LS_MAX_TERMS], oy[LS_MAX_TERMS], oz[LS_MAX_TERMS];
-};
-
-__device__ void stage_stencil3(SharedStencil3& s, const LsStencil3& st, int W) {
-  if (tid() == 0) s.n = st.n;
-  for (int e = tid(); e < 3 * st.n; e += LS_THREADS) {
-    const int ph = e / st.n, k = e % st.n;
-    const int slot = (ph + 1 + st.ox[k] + 3) % 3;
-    const bool wide = wide_z(st.oz[k]);
-    s.off[ph][k] = wide ? 0 : slot * kPlaneMax + st.oy[k] * W + st.oz[k];
-    if (ph == 0) {
-      s.v[k] = st.v[k];
-      s.wide[k] = wide;
-      s.ox[k] = st.ox[k];
-      s.oy[k] = st.oy[k];
-      s.oz[k] = st.oz[k];
-    }
-  }
-}
-
-// Fill one slot with plane gx of the window: f(flat index) inside the
-// volume, the halo planes at gx = -1 and gx = X, zero outside [0, Y) x
-// [0, Z).  Neighbouring threads read neighbouring addresses.
-template <typename F>
-__device__ __forceinline__ void load_plane3(float* dst, int W, int h, int gx,
-                                            int y0, int z0, int X, int Y,
-                                            int Z, const float* __restrict__ top,
-                                            const float* __restrict__ bot,
-                                            F f) {
-  const bool inner = gx >= 0 && gx < X;
-  const float* halo = gx < 0 ? top : bot;
-  for (int i = threadIdx.y; i < W; i += LS_THREADS_Y) {
-    const int gy = y0 - h + i;
-    for (int j = threadIdx.x; j < W; j += LS_THREADS_X) {
-      const int gz = z0 - h + j;
-      float val = 0.f;
-      if (gy >= 0 && gy < Y && gz >= 0 && gz < Z) {
-        const size_t yz = (size_t)gy * Z + gz;
-        if (inner)
-          val = f((size_t)gx * Y * Z + yz);
-        else if (halo)
-          val = halo[yz];
-      }
-      dst[i * W + j] = val;
-    }
-  }
-}
-
-// The operand of a wide term (ox, oy, oz) at the point (x, gy, gz): f at
-// the shifted point inside the volume, the halo planes' value outside [0,
-// X) (nullptr = zero), zero outside [0, Y) x [0, Z), tested before any
-// load.
-template <typename F>
-__device__ __forceinline__ float wide_at(int X, int Y, int Z,
-                                         const float* __restrict__ top,
-                                         const float* __restrict__ bot, F& f,
-                                         int x, int gy, int gz, int ox,
-                                         int oy, int oz) {
-  const int sx = x + ox, sy = gy + oy, sz = gz + oz;
-  if (sy < 0 || sy >= Y || sz < 0 || sz >= Z) return 0.f;
-  const size_t yz = (size_t)sy * Z + sz;
-  if (sx >= 0 && sx < X) return f((size_t)sx * Y * Z + yz);
-  const float* halo = sx < 0 ? top : bot;
-  return halo ? halo[yz] : 0.f;
-}
-
-// The block's march.  f(flat index) gives the operand A is applied to (one
-// vector, or the pass's combination of several, formed as it is loaded);
-// emit(flat index, operand, A operand) runs once for every point of the
-// tile inside the volume, terms summed in stencil order: the window's from
-// shared memory, the wide terms' beside it (wide_at, the same f).  The
-// stencil must be staged (stage_stencil3 with W = LS_TILE + 2h) before the
-// call.
-template <typename F, typename E>
-__device__ void march3d(float* win, const SharedStencil3& s, int h, int X,
-                        int Y, int Z, const float* __restrict__ top,
-                        const float* __restrict__ bot, F f, E emit) {
-  const int W = LS_TILE + 2 * h;
-  const int z0 = blockIdx.x * LS_TILE, y0 = blockIdx.y * LS_TILE;
-  const int x0 = blockIdx.z * LS_CHUNK_X;
-  const int x1 = x0 + LS_CHUNK_X < X ? x0 + LS_CHUNK_X : X;
-  load_plane3(win, W, h, x0 - 1, y0, z0, X, Y, Z, top, bot, f);
-  load_plane3(win + kPlaneMax, W, h, x0, y0, z0, X, Y, Z, top, bot, f);
-  const int j = threadIdx.x, gz = z0 + j;
-  for (int x = x0; x < x1; ++x) {
-    const int ph = (x - x0) % 3;
-    load_plane3(win + ((ph + 2) % 3) * kPlaneMax, W, h, x + 1, y0, z0, X, Y,
-                Z, top, bot, f);
-    __syncthreads();
-    const float* center = win + ((ph + 1) % 3) * kPlaneMax;
-    for (int i = threadIdx.y; i < LS_TILE; i += LS_THREADS_Y) {
-      const int gy = y0 + i;
-      if (gy >= Y || gz >= Z) continue;
-      const int at = (i + h) * W + j + h;
-      float ax = 0.f;
-      for (int k = 0; k < s.n; ++k) {
-        const float t = s.wide[k] ? wide_at(X, Y, Z, top, bot, f, x, gy, gz,
-                                            s.ox[k], s.oy[k], s.oz[k])
-                                  : win[s.off[ph][k] + at];
-        ax += s.v[k] * t;
-      }
-      emit(((size_t)x * Y + gy) * Z + gz, center[at], ax);
-    }
-    __syncthreads();
-  }
-}
-
-// The reach of march3d's window: max(|oy|, |oz|) over the terms it reads
-// from the window (|oz| <= LS_MAX_REACH).
-int reach3_yz(const LsStencil3& st) {
-  int h = 0;
-  for (int k = 0; k < st.n; ++k) {
-    if (wide_z(st.oz[k])) continue;
-    const int a = st.oy[k] < 0 ? -st.oy[k] : st.oy[k];
-    const int b = st.oz[k] < 0 ? -st.oz[k] : st.oz[k];
-    h = a > h ? a : h;
-    h = b > h ? b : h;
-  }
-  return h;
-}
-
-// Whether the stencil runs on march1: reach 1 and no wide term.
+// Whether the stencil runs on march1: reach 1 (|oy|, |oz| <= 1).
 bool on_march1(const LsStencil3& st) {
   for (int k = 0; k < st.n; ++k)
-    if (wide_z(st.oz[k])) return false;
-  return reach3_yz(st) <= 1;
+    if (st.oy[k] < -1 || st.oy[k] > 1 || st.oz[k] < -1 || st.oz[k] > 1)
+      return false;
+  return true;
 }
 
 // The 3-D kernels' gate: |ox| <= 1, |oy| <= LS_MAX_REACH, |oz| <=
@@ -409,11 +260,6 @@ bool valid3(const LsStencil3* st, int X, int Y, int Z) {
       return false;
   }
   return true;
-}
-
-dim3 march_grid(int X, int Y, int Z) {
-  return dim3((Z + LS_TILE - 1) / LS_TILE, (Y + LS_TILE - 1) / LS_TILE,
-              (X + LS_CHUNK_X - 1) / LS_CHUNK_X);
 }
 
 // ---------------------------------------------------------------------------
@@ -933,7 +779,7 @@ __device__ __forceinline__ void m1_store4(float* __restrict__ a, size_t o,
 // in index order) to partials[block * K + k]; the last block to finish (a
 // device counter) sums each over all blocks in block order, writes out[k]
 // rounded to float once and resets the counter to zero.  T is float, or
-// double (compensated dots, K7 st).
+// double (compensated dots, K7 st and update).
 template <typename T, int K>
 __device__ __forceinline__ void m1_fold(T (&v)[K], T* __restrict__ partials,
                                         unsigned* __restrict__ counter,
@@ -1001,16 +847,17 @@ __device__ __forceinline__ void m1_fold(T v, T* __restrict__ partials,
 // Three x planes of it (x - 1, x, x + 1; |ox| <= 1) sit in a ring of
 // dynamic shared-memory slots, the operand formed from the pass's vectors
 // once, as a plane is staged (Form, as march1's M1FormPlane: K6a's x
-// itself, K6b's p = r + beta p_old, K7 pv's p' = r + beta (p - omega v)),
-// the halo planes at x = -1 and X taken as they are.  Every
-// term of a point is read from shared memory, a term whose column leaves
-// [0, Z) reading zero, and summed in stencil order with one fma each; the
-// thread's points march along x and emit(x, gy, c, z, operand, A operand)
-// runs once per point inside the volume; pre(x, gy) runs before the terms
-// of each of the thread's tile rows are summed, so that the loads the emit
-// needs at its own points (K6a update's x and r, K7 pv's r~) are in flight
-// while they are.  Two __syncthreads() a plane: after its points are
-// computed, and after plane x + 2 is staged into the slot of plane x - 1
+// itself, K6b's p = r + beta p_old, K7 pv's p' = r + beta (p - omega v),
+// K7 st's and update's s = r - alpha v), the halo planes at x = -1 and X
+// taken as they are.  Every term of a point is read from shared memory, a
+// term whose column leaves [0, Z) reading zero, and summed in stencil
+// order with one fma each; the thread's points march along x and emit(x,
+// gy, c, z, operand, A operand) runs once per point inside the volume;
+// pre(x, gy) runs before the terms of each of the thread's tile rows are
+// summed, so that the loads the emit needs at its own points (K6a
+// update's x and r, K7 pv's and update's r~) are in flight while they
+// are.  Two __syncthreads() a plane: after its points are computed, and
+// after plane x + 2 is staged into the slot of plane x - 1
 // (each lane loads LS_W3_BATCH points of every vector before it forms and
 // stores them; K6a's identity form copies the plane with cp.async, all of
 // it in flight at once).

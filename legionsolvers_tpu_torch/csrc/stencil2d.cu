@@ -352,7 +352,7 @@ gram2_strip_kernel(const float* __restrict__ r, const float* __restrict__ p,
 //     p'' = r'' + c3 r - c4 Ap + c5 p; Gram of (r'', p'').
 //
 // A vertical march in registers (the 2-D form of the TPU kernel's
-// whole-row window and of march3d; march2d.cuh).  A warp owns a strip of 128 columns
+// whole-row window and of the 3-D marches; march2d.cuh).  A warp owns a strip of 128 columns
 // (four per lane, read as 16-byte vectors) and marches down a chunk of
 // rows [a, b).  The chained applications shrink the strip by one column
 // per side each, so its 120 middle columns (lanes 1..30) are the warp's

@@ -53,10 +53,11 @@
 //   per 32-plane chunk.
 // - Reach 2..8, or any z shift past 8 (up to 128, the TPU kernel's
 //   PADZ): the window march (common.cuh, march_win), K6a's four modes and
-//   K6b alike.  On march3d (which K7 st and update still run) each of
-//   S_wide's 8 wide terms forms the operand at the shifted point from L1,
-//   L2 or device memory, which holds a pass near 0.5 ms at 256^3 whatever
-//   its bytes.  Here the window holds every point a term
+//   K6b alike (and K7's passes, bicgstab3d.cu).  On march3d, which read
+//   the terms past |oz| = 8 beside a smaller window, each of S_wide's 8
+//   wide terms formed the operand at the shifted point from L1, L2 or
+//   device memory, which held a pass near 0.5 ms at 256^3 whatever its
+//   bytes (PERF.md §6).  Here the window holds every point a term
 //   reads: a 16-row tile plus the widest |oy| on each side, and the tile's
 //   256 z columns plus the widest |oz| on each side, inside [0, Z) (at Z =
 //   256 the whole z line).  The operand (K6a: x itself; K6b: p = r + beta
@@ -334,7 +335,6 @@ int win_attrs(int which, size_t smem, int* out) {
 
 extern "C" {
 
-int ls_chunk_x() { return LS_CHUNK_X; }
 int ls_stencil3_size() { return (int)sizeof(LsStencil3); }
 int ls_max_reach() { return LS_MAX_REACH; }
 int ls_wide_z() { return LS_WIDE_Z; }

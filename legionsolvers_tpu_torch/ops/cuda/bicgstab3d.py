@@ -20,14 +20,12 @@ f32 products in float64 and rounds once.
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches its kernel or raises.  With a reach-1 stencil each pass runs the
-register march of K6a (``march1`` in ``csrc/common.cuh``, its dots folded
-into the last block: one launch), but for update with ``compensated``
-dots.  With reach 2..8 or a z shift past 8 (up to 128), pv runs the window
-march of K6a and K6b (one launch, its window holding every z shift a term
-reads, its dot folded into the last block); st and update, and update
-with ``compensated`` dots on every stencil, run ``march3d`` (terms past
-|oz| = 8 read beside its window, from the pass's operand formed at the
-shifted point) and a second launch (``ls_bicg3d_update`` says why);
+register march of K6a (``march1`` in ``csrc/common.cuh``), but update with
+``compensated`` dots, which runs ``march3d`` (``ls_bicg3d_update`` says
+why) and a second launch summing its partial dots.  With reach 2..8 or a
+z shift past 8 (up to 128), each pass runs the window march of K6a and
+K6b, whose window holds every z shift a term reads.  march1 and the window
+march fold the dots into the last block: one launch.
 :func:`~.stencil3d.route3d` gives each pass's march.  All take their scratch
 (partials, capacity, the last block's counter) from
 :func:`~.stencil3d.march_scratch`.  Every CUDA launch adds one to

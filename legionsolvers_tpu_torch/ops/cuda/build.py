@@ -164,7 +164,7 @@ def load_library() -> ctypes.CDLL:
         "ls_march1_blocks": [_I] * 3,
         "ls_window3d_blocks": [_I] * 3,
         "ls_stencil3d_win_attrs": [_I] * 4 + [_P, _P],
-        "ls_bicg3d_pv_win_attrs": [_I] * 4 + [_P, _P],
+        "ls_bicg3d_win_attrs": [_I] * 4 + [_P, _P],
         "ls_bicg3d_st": [_P] * 7 + [_I, _P] + [_I] * 4 + [_P, _P],
         "ls_bicg3d_update": [_P] * 12 + [_I, _P] + [_I] * 4 + [_P, _P],
         "ls_dia2d": [_I] + [_P] * 4 + [_L, _P, _I] + [_P] * 3 + [_I, _I, _P],
@@ -233,9 +233,9 @@ def load_library() -> ctypes.CDLL:
             or lib.ls_stencil3_size() != ctypes.sizeof(_Stencil3)
             or lib.ls_max_reach() != STENCIL_REACH
             or lib.ls_wide_z() != WIDE_Z_REACH):
-        raise RuntimeError("csrc/common.cuh and ops/cuda/stencil3d.py "
-                           "disagree on LS_CHUNK_X, the LsStencil3 layout, "
-                           "LS_MAX_REACH or LS_WIDE_Z")
+        raise RuntimeError("csrc/bicgstab3d.cu, csrc/common.cuh and "
+                           "ops/cuda/stencil3d.py disagree on LS_CHUNK_X, "
+                           "the LsStencil3 layout, LS_MAX_REACH or LS_WIDE_Z")
     for shape in ((256, 256, 256), (37, 45, 130), (1, 1, 1), (999, 17, 5)):
         if lib.ls_march1_blocks(*shape) != march1_geometry(*shape)[2]:
             raise RuntimeError("csrc/common.cuh and ops/cuda/stencil3d.py "

@@ -63,10 +63,10 @@ GRAM_NAMES = ("rr", "pAp", "rAp", "ApAp", "rAr",
 TILE = 32          # output tile edge of K3, K4 at reach >= 2 (csrc: LS_TILE)
 MAX_TERMS = 32     # stencil terms a kernel accepts (csrc: LS_MAX_TERMS)
 HALO_ROWS = 8      # rows in a halo block
-STENCIL_REACH = 8  # 3-D gate: |oy| <= 8, march3d's window |oz| <= 8; tile
-                   # halo of K3/K4/K5 (csrc: LS_MAX_REACH)
-WIDE_Z_REACH = 128  # 3-D gate: |oz| <= 128, the TPU kernel's PADZ; terms
-                    # past STENCIL_REACH read beside the window (LS_WIDE_Z)
+STENCIL_REACH = 8  # 3-D gate: |oy| <= 8; tile halo of K3/K4/K5 (csrc:
+                   # LS_MAX_REACH)
+WIDE_Z_REACH = 128  # 3-D gate: |oz| <= 128, the TPU kernel's PADZ, which
+                    # the window march's window holds (LS_WIDE_Z)
 STEP2_REACH = 1    # K1/K2 gate's |dy|; the strip route's reach (K1-K5b)
 STEP2_COLS = 120   # strip passes: output columns of a warp's strip
 STEP2_MIN_ROWS = 16  # strip passes: shortest row chunk

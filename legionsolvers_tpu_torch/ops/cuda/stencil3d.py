@@ -22,11 +22,12 @@ geometry :func:`march1_geometry` mirrors; stencils of reach 2..8, and any
 stencil with a z shift past 8 (up to 128, JAX's ``PADZ``), run the window
 march, whose window holds every z shift a term reads
 (:func:`window3d_geometry`, :func:`window3d_smem`).  :func:`route3d` gives
-the march of every 3-D pass, K7's too (whose st and update run
-``march3d`` off march1, with a second launch summing their partial dots).
-All take their scratch from :func:`march_scratch`.  Every CUDA launch adds
-one to :data:`~.stencil2d.LAUNCHES` under the pass's name with a ``3d``
-suffix (``y3d``, ``y_dot3d``, ``pq3d``, ``update3d``, ``xpay_pq3d``).
+the march of every 3-D pass, K7's too (whose update with compensated dots
+runs ``march3d`` on reach-1 stencils, with a second launch summing its
+partial dots).  All take their scratch from :func:`march_scratch`.  Every
+CUDA launch adds one to :data:`~.stencil2d.LAUNCHES` under the pass's name
+with a ``3d`` suffix (``y3d``, ``y_dot3d``, ``pq3d``, ``update3d``,
+``xpay_pq3d``).
 
 Semantics follow the JAX kernels.  ``x`` is the volume ``[X, Y, Z]`` (f32);
 stencil offsets are ``(ox, oy, oz)`` triples.  Points outside ``[0, Y) x
@@ -176,7 +177,8 @@ def _stencil3_struct(offsets, values) -> _Stencil3:
 
 
 def blocks3d(X: int, Y: int, Z: int) -> int:
-    """Blocks of a march3d launch: (y, z) tiles times x chunks."""
+    """Blocks of a march3d launch (K7 update with compensated dots on a
+    reach-1 stencil): (y, z) tiles times x chunks."""
     return -(-Z // TILE) * -(-Y // TILE) * -(-X // CHUNK_X)
 
 
@@ -193,11 +195,11 @@ def march1_geometry(X: int, Y: int, Z: int):
 
 
 def window3d_geometry(X: int, Y: int, Z: int):
-    """(tiles, planes per chunk, blocks) of a window-march launch (K6a,
-    K6b and K7 pv off march1), as ``w3_geometry`` in csrc/common.cuh computes them: W3_TY x
-    W3_TZ (y, z) tiles, and x chunks aiming at W3_TARGET_BLOCKS blocks, no
-    more of them than chunks of W3_MIN_CHUNK planes would need.  A
-    function of the shape alone."""
+    """(tiles, planes per chunk, blocks) of a window-march launch (every
+    3-D pass off march1), as ``w3_geometry`` in csrc/common.cuh computes
+    them: W3_TY x W3_TZ (y, z) tiles, and x chunks aiming at
+    W3_TARGET_BLOCKS blocks, no more of them than chunks of W3_MIN_CHUNK
+    planes would need.  A function of the shape alone."""
     tiles = -(-Z // W3_TZ) * -(-Y // W3_TY)
     chunks = max(1, min(W3_TARGET_BLOCKS // tiles, -(-X // W3_MIN_CHUNK)))
     chunk = -(-X // chunks)
@@ -214,28 +216,28 @@ def window3d_smem(Z: int, offsets) -> int:
     return 3 * (W3_TY + 2 * hy) * min(Z, W3_TZ + 2 * hz) * 4
 
 
-# The 3-D passes by their LAUNCHES names: K6a's four modes, K6b and K7 pv
-# run the window march off march1, K7 st and update march3d.
-WINDOW_PASSES = ("y3d", "y_dot3d", "pq3d", "update3d", "xpay_pq3d",
-                 "bicg3d_pv")
-MARCH3D_PASSES = ("bicg3d_st", "bicg3d_update")
+# The 3-D passes by their LAUNCHES names: K6a's four modes, K6b and K7's
+# three, each on march1 or the window march; and the one that runs
+# march3d, K7 update with compensated dots on a reach-1 stencil.
+PASSES3D = ("y3d", "y_dot3d", "pq3d", "update3d", "xpay_pq3d", "bicg3d_pv",
+            "bicg3d_st", "bicg3d_update")
+MARCH3D_PASSES = ("bicg3d_update",)
 
 
 def route3d(pass_name: str, offsets, compensated: bool = False) -> str:
     """The march the 3-D pass ``pass_name`` (its LAUNCHES name) runs for
     this stencil, as ``ls_stencil3d``, ``ls_xpay_pq3d`` and
-    ``ls_bicg3d_*`` in csrc choose it: ``march1`` for reach 1 (|oy|, |oz|
-    <= 1: ``on_march1``), but K7 update with ``compensated`` dots, which
-    runs ``march3d`` on every stencil; off march1 ``window`` (the window
-    march) for K6a's four modes, K6b and K7 pv, ``march3d`` for K7 st and
-    update."""
-    if pass_name not in WINDOW_PASSES + MARCH3D_PASSES:
+    ``ls_bicg3d_*`` in csrc choose it: for reach 1 (|oy|, |oz| <= 1:
+    ``on_march1``) ``march1``, but ``march3d`` for K7 update with
+    ``compensated`` dots; ``window`` (the window march) for every other
+    stencil."""
+    if pass_name not in PASSES3D:
         raise ValueError(f"not a 3-D pass: {pass_name!r}")
-    if pass_name == "bicg3d_update" and compensated:
+    if max(max(abs(oy), abs(oz)) for _, oy, oz in offsets) > 1:
+        return "window"
+    if pass_name in MARCH3D_PASSES and compensated:
         return "march3d"
-    if max(max(abs(oy), abs(oz)) for _, oy, oz in offsets) <= 1:
-        return "march1"
-    return "window" if pass_name in WINDOW_PASSES else "march3d"
+    return "march1"
 
 
 def xpay_pq3d_route(offsets) -> str:
@@ -265,10 +267,11 @@ _MARCH_SCRATCH = {}
 def march_scratch(device, X: int, Y: int, Z: int):
     """(partials, capacity, counter) of the 3-D passes' launches on an
     [X, Y, Z] volume: float64 partial dots with room for two per block of
-    any march (K7 st and update keep two; floats, or doubles under
-    ``compensated`` and for march1's st and update), and the last-block
-    counter of march1 and the window march (zero between launches).  Made once per (device, stream, X, Y,
-    Z): launches on one stream are ordered, so they can share them."""
+    any march (K7 st and update keep two doubles; the other passes one
+    float, or K7 pv one double under ``compensated``), and the last-block
+    counter of march1 and the window march (zero between launches).  Made
+    once per (device, stream, X, Y, Z): launches on one stream are
+    ordered, so they can share them."""
     key = (device, _raw_stream(device), X, Y, Z)
     scratch = _MARCH_SCRATCH.get(key)
     if scratch is None:

@@ -47,16 +47,15 @@ versions (rtol 1e-3, x 1e-3 of max|x|).  The fused 2-D BiCGStab on 4
 pieces, f32 and compensated dots, one and two iterations against the
 plain-driven runner and two against one piece (rtol 1e-4, x 1e-4 of
 max|x|), K5a-c launched once per piece per iteration.  Wide z shifts
-(``-k "wide3d or window or march3d or nop"``): K6a's four modes, K6b and
-K7 with the wide-z stencil (|oz| up to 128) and the reach-2 star at Z not
-a multiple of 128, X = 1, Y < 8 and |oz| = Z - 1, against their plain
-versions (the 3-D bounds above) and bit for bit on a repeat, K6a, K6b
-and K7 pv one window-march kernel (a profiler trace), K7 st and update
-their march3d kernel and its second launch; its CG solve(20) on 1 and 4
-pieces with exact launches against the plain-driven runner (rtol 1e-3);
-the registers of every kernel off march1, and for the window march's with
-S_wide at 256^3 no spill and at least 2 blocks per SM; K1's nop mode bit
-for bit its plain version (g[0] within 1e-5 of its Cauchy-Schwarz scale).
+(``-k "wide3d or window or nop"``): K6a's four modes, K6b and K7 with the
+wide-z stencil (|oz| up to 128) and the reach-2 star at Z not a multiple
+of 128, X = 1, Y < 8 and |oz| = Z - 1, against their plain versions (the
+3-D bounds above) and bit for bit on a repeat, each pass one window-march
+kernel (a profiler trace); its CG solve(20) on 1 and 4 pieces with exact
+launches against the plain-driven runner (rtol 1e-3); every window-march
+kernel's registers at the largest window the gate allows, and with S_wide
+at 256^3 no spill and at least 2 blocks per SM; K1's nop mode bit for bit
+its plain version (g[0] within 1e-5 of its Cauchy-Schwarz scale).
 """
 
 import numpy as np
@@ -157,19 +156,18 @@ SHAPES3 = [SHAPE3, (40, 50, 260), (6, 20, 129), (1, 9, 131), (20, 15, 60)]
 # Stencils: the 7-point star (-dim 3) and 27-point box (-dim 4) of the
 # solves; ten terms of the box with random weights (the box path with zero
 # weights); the 11-point star with arms of 2 in y and z (reach 2: the
-# window march, march3d for K7 st and update).
+# window march).
 STENCILS3 = [3, 4, "box10", "reach2"]
-# The wide-z stencil (the window march holds its z shifts; march3d reads
-# the terms past |oz| = 8 beside its window): the 7-point cross with
-# center 8.5, (0, 0, +-12) with -0.5, (0, +-3, +-100) and (+-1, 0, +-128)
-# with -0.25.
+# The wide-z stencil (the window march holds its z shifts): the 7-point
+# cross with center 8.5, (0, 0, +-12) with -0.5, (0, +-3, +-100) and
+# (+-1, 0, +-128) with -0.25.
 WIDE3 = [((0, 0, 0), 8.5), ((-1, 0, 0), -1.0), ((1, 0, 0), -1.0),
          ((0, -1, 0), -1.0), ((0, 1, 0), -1.0), ((0, 0, -1), -1.0),
          ((0, 0, 1), -1.0), ((0, 0, -12), -0.5), ((0, 0, 12), -0.5),
          ((0, 3, 100), -0.25), ((0, -3, -100), -0.25), ((0, 3, -100), -0.25),
          ((0, -3, 100), -0.25), ((1, 0, 128), -0.25), ((-1, 0, -128), -0.25)]
 # Its edges: Z not a multiple of 128 (and Z % 4 != 0), X = 1 and Y < 8,
-# |oz| = Z - 1 (Z = 129), a whole march3d chunk and a bit.
+# |oz| = Z - 1 (Z = 129), 17 planes (window chunks of 4, 4, 4, 4 and 1).
 WIDE3_SHAPES = [(37, 45, 130), (1, 5, 301), (20, 7, 129), (17, 9, 256)]
 
 
@@ -410,10 +408,11 @@ def test_march1_geometry_and_residency_on_card(cuda_device):
 @pytest.mark.parametrize("shape", [(256, 256, 256), SHAPE3, (1, 1, 1)])
 def test_march_scratch_has_room_for_two_dots(shape):
     """The shared 3-D scratch holds two partial dots (K7 st's and update's)
-    for every block of either march's launch (no card needed)."""
+    for every block of any march's launch (no card needed)."""
     capacity = T3.march_scratch_size(*shape)
     entries = T3.march_scratch_entries(*shape)
-    for blocks in (T3.blocks3d(*shape), T3.march1_geometry(*shape)[2]):
+    for blocks in (T3.blocks3d(*shape), T3.window3d_geometry(*shape)[2],
+                   T3.march1_geometry(*shape)[2]):
         assert blocks <= capacity and 2 * blocks <= entries
 
 
@@ -1686,8 +1685,8 @@ def test_k5_wide_match_plain_on_card(kernel, shape, stencil, compensated,
 
 
 # ---------------------------------------------------------------------------
-# Wide z shifts and reach 2..8 off march1 (K6a, K6b and K7 pv on the window
-# march, K7 st and update on march3d) and K1's nop mode
+# Wide z shifts and reach 2..8 off march1 (every 3-D pass on the window
+# march) and K1's nop mode
 # ---------------------------------------------------------------------------
 
 def _call3d(name, t, kw, compensated=False):
@@ -1739,15 +1738,12 @@ def _kernels_of(fn, takes=4):
 
 def _assert_route3d(name, dim, compensated=False):
     """The pass launches what ``T3.route3d`` says: one window-march
-    kernel, or march3d's kernel and its second launch (reduce_partials)."""
+    kernel (no second launch, reduce_partials)."""
     t, kw = _tensors(_state3d(41, (20, 7, 129)), "cuda"), _kw3(dim)
     route = T3.route3d(name, kw["offsets"], compensated)
     names = _kernels_of(_call3d(name, t, kw, compensated))
-    if route == "window":
-        assert len(names) == 1 and "win_kernel" in names[0], names
-    else:
-        assert route == "march3d", route
-        assert any("reduce_partials" in n for n in names), names
+    assert route == "window", route
+    assert len(names) == 1 and "win_kernel" in names[0], names
 
 
 @pytest.mark.cuda
@@ -1778,11 +1774,9 @@ def test_wide3d_k6_matches_plain_on_card(mode, shape, dim, cuda_device):
 @pytest.mark.parametrize("kernel", ["pv", "st", "update"])
 def test_wide3d_k7_matches_plain_on_card(kernel, compensated, shape, dim,
                                          cuda_device):
-    """K7 pv, st and update with |oz| up to 128, and with the reach-2 star:
-    pv on the window march (one kernel), st and update on march3d (the
-    wide terms read the pass's combined operand at the shifted point; a
-    second launch); the bounds above, one call each, a repeat bit for
-    bit."""
+    """K7 pv, st and update with |oz| up to 128, and with the reach-2 star,
+    each on the window march (one kernel); the bounds above, one call each,
+    a repeat bit for bit."""
     d = _state3d(29, shape)
     T.reset_launch_counts()
     got, again = (_bicg3d(kernel, d, cuda_device, dim, compensated)
@@ -1838,30 +1832,24 @@ def test_wide3d_cg_matches_plain_on_card(pieces, cuda_device, monkeypatch):
     np.testing.assert_allclose(xk, xp, rtol=0, atol=1e-3 * np.abs(xp).max())
 
 
-@pytest.mark.cuda
-def test_march3d_attrs_on_card(cuda_device):
-    """The kernels that remain on march3d (K7 st and update, f32 and
-    compensated dots) and the window-march kernels at the largest window
-    the gate allows (K6a's four modes, K6b, K7 pv) report their registers
-    and fit one block per SM."""
-    import ctypes
-
-    from legionsolvers_tpu_torch.ops.cuda.build import load_library
-
-    lib = load_library()
-    for fn, n in (("ls_stencil3d_attrs", 5), ("ls_bicg3d_attrs", 6)):
-        for which in range(n):
-            out = (ctypes.c_int * 3)()
-            assert getattr(lib, fn)(which, out) == 0, (fn, which)
-            assert 0 < out[0] <= 255 and out[2] >= 1, (fn, which, list(out))
+# Every window-march kernel: (its *_win_attrs and *_attrs entry, which)
+WINDOW_KERNELS = {
+    **{f"K6a {m}": ("ls_stencil3d", w)
+       for w, m in enumerate(("y", "y_dot", "pq", "update"))},
+    "K6b xpay_pq": ("ls_stencil3d", 4),
+    **{f"K7 {m}{' compensated' if c else ''}": ("ls_bicg3d", 2 * p + c)
+       for p, m in enumerate(("pv", "st", "update")) for c in (0, 1)},
+}
 
 
 @pytest.mark.cuda
-def test_window3d_attrs_on_card(cuda_device):
-    """Every window-march kernel (K6a's four modes, K6b, K7 pv with f32 and
-    compensated dots) with S_wide at 256^3: no spill, at least 2 blocks
-    per SM, the shared memory of ``window3d_smem`` and the blocks of
-    ``window3d_geometry``."""
+@pytest.mark.parametrize("kernel", list(WINDOW_KERNELS))
+def test_window3d_attrs_on_card(kernel, cuda_device):
+    """Each window-march kernel (K6a's four modes, K6b, K7 pv, st and
+    update with f32 and compensated dots) with S_wide at 256^3: no spill,
+    at least 2 blocks per SM, the shared memory of ``window3d_smem`` and
+    the blocks of ``window3d_geometry``; at the largest window the gate
+    allows it reports its registers and fits one block per SM."""
     import ctypes
 
     from legionsolvers_tpu_torch.ops.cuda.build import load_library
@@ -1870,16 +1858,16 @@ def test_window3d_attrs_on_card(cuda_device):
     kw = _kw3("wide")
     st = ctypes.byref(T3._stencil3_struct(**kw))
     shape = (256, 256, 256)
-    calls = [("ls_stencil3d_win_attrs", w) for w in range(5)]
-    calls += [("ls_bicg3d_pv_win_attrs", c) for c in (0, 1)]
-    for fn, which in calls:
-        out = (ctypes.c_int * 5)()
-        assert getattr(lib, fn)(which, *shape, st, out) == 0, (fn, which)
-        regs, spill, per_sm, smem, blocks = out
-        assert 0 < regs <= 255 and spill == 0 and per_sm >= 2, (
-            fn, which, list(out))
-        assert smem == T3.window3d_smem(256, kw["offsets"]), (fn, smem)
-        assert blocks == T3.window3d_geometry(*shape)[2], (fn, blocks)
+    fn, which = WINDOW_KERNELS[kernel]
+    out = (ctypes.c_int * 5)()
+    assert getattr(lib, fn + "_win_attrs")(which, *shape, st, out) == 0
+    regs, spill, per_sm, smem, blocks = out
+    assert 0 < regs <= 255 and spill == 0 and per_sm >= 2, list(out)
+    assert smem == T3.window3d_smem(256, kw["offsets"]), smem
+    assert blocks == T3.window3d_geometry(*shape)[2], blocks
+    big = (ctypes.c_int * 3)()
+    assert getattr(lib, fn + "_attrs")(which, big) == 0
+    assert 0 < big[0] <= 255 and big[2] >= 1, list(big)
 
 
 @pytest.mark.cuda

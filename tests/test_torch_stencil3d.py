@@ -237,9 +237,10 @@ def test_march1_geometry(shape, want, monkeypatch):
     ((1, 1, 1), 1),
 ])
 def test_march_scratch_size(shape, want):
-    """The partials scratch holds the larger launch of the two marches."""
+    """The partials scratch holds the largest launch of the marches."""
     assert T3.march_scratch_size(*shape) == want
     assert want >= T3.march1_geometry(*shape)[2]
+    assert want >= T3.window3d_geometry(*shape)[2]
     assert want >= T3.blocks3d(*shape)
 
 

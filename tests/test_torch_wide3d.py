@@ -31,9 +31,9 @@ K1 nop: x'', r'', p'' bit for bit (one f32 add, or none), g[0] 1e-5 of its
 Cauchy-Schwarz scale, g[1..9] zero.
 
 No JAX: the Python mirrors of the CUDA dispatch off ``march1`` (the window
-march for K6a, K6b and K7 pv, ``march3d`` for K7 st and update:
-``route3d``), of the window march's geometry and of the shared scratch's
-room.
+march for every 3-D pass: ``route3d``, which also sends K7 update with
+compensated dots on reach-1 stencils to ``march3d``), of the window
+march's geometry and of the shared scratch's room.
 """
 
 import numpy as np
@@ -255,27 +255,27 @@ def test_xpay_pq3d_route_and_window(case):
 
 
 # Every 3-D pass by its LAUNCHES name, and the march it runs off march1:
-# K6a's four modes, K6b and K7 pv the window march, K7 st and update
-# march3d (csrc/stencil3d.cu, csrc/bicgstab3d.cu)
+# the window march for each (csrc/stencil3d.cu, csrc/bicgstab3d.cu)
 PASSES3D = {"y3d": "window", "y_dot3d": "window", "pq3d": "window",
             "update3d": "window", "xpay_pq3d": "window",
-            "bicg3d_pv": "window", "bicg3d_st": "march3d",
-            "bicg3d_update": "march3d"}
+            "bicg3d_pv": "window", "bicg3d_st": "window",
+            "bicg3d_update": "window"}
 
 
 @pytest.mark.parametrize("compensated", [False, True])
 @pytest.mark.parametrize("case", list(WINDOW_ROUTE))
 @pytest.mark.parametrize("name", list(PASSES3D))
 def test_route3d(name, case, compensated):
-    """The mirror of the kernels' dispatch: reach-1 stencils run march1,
-    every other stencil of the gate the window march (K6a, K6b, K7 pv) or
-    march3d (K7 st and update); K7 update with compensated dots runs
-    march3d on every stencil."""
+    """The mirror of the kernels' dispatch: reach-1 stencils run march1
+    (but K7 update with compensated dots, march3d), every other stencil of
+    the gate the window march."""
     o, _, k6b, _ = WINDOW_ROUTE[case]
-    if name == "bicg3d_update" and compensated:
+    if k6b != "march1":
+        want = PASSES3D[name]
+    elif name == "bicg3d_update" and compensated:
         want = "march3d"
     else:
-        want = "march1" if k6b == "march1" else PASSES3D[name]
+        want = "march1"
     assert T3.route3d(name, o, compensated) == want
     assert T3.xpay_pq3d_route(o) == k6b
 
@@ -285,14 +285,23 @@ def test_route3d_refuses_other_passes():
         T3.route3d("bicg_pv", kw_of(S_WIDE)["offsets"])
 
 
+# K7's passes on the window march and the doubles each keeps per block
+# with compensated dots: pv one, st and update two
+K7_DOUBLES = {"bicg3d_pv": 1, "bicg3d_st": 2, "bicg3d_update": 2}
+
+
 @pytest.mark.parametrize("shape", list(WINDOW_GEOMETRY))
-def test_march_scratch_holds_compensated_pv(shape, monkeypatch):
-    """K7 pv on the window march with compensated dots keeps a double per
-    block, and the shared scratch has room for two: float64 partials, two
-    for each window block (and each block of the other marches), the
-    counter zero."""
+@pytest.mark.parametrize("name", list(K7_DOUBLES))
+def test_march_scratch_holds_compensated_pv(name, shape, monkeypatch):
+    """Each K7 pass on the window march with compensated dots (and st and
+    update with f32 dots too) keeps its doubles per block, and the shared
+    scratch has room for them: float64 partials, two for each window block
+    (and each block of the other marches), the counter zero."""
     X, Y, Z = shape
     blocks = WINDOW_GEOMETRY[shape][2]
+    for compensated in (False, True):
+        assert T3.route3d(name, kw_of(S_WIDE)["offsets"],
+                          compensated) == "window"
     monkeypatch.setattr(T3, "_raw_stream", lambda device: 0)
     monkeypatch.setattr(T3, "_MARCH_SCRATCH", {})
     partials, capacity, counter = T3.march_scratch(torch.device(DEV), X, Y,
@@ -300,7 +309,7 @@ def test_march_scratch_holds_compensated_pv(shape, monkeypatch):
     assert partials.dtype == torch.float64
     assert capacity >= max(blocks, T3.blocks3d(X, Y, Z),
                            T3.march1_geometry(X, Y, Z)[2])
-    assert partials.numel() >= 2 * capacity >= 2 * blocks
+    assert partials.numel() >= 2 * capacity >= K7_DOUBLES[name] * blocks
     assert counter.numel() == 1 and not counter.any()
 
 
