@@ -19,7 +19,7 @@ DIR]`` runs phase 4d's f32 BiCGStab on the 7-point system at 256^3 (dim 3,
 the default), on the 27-point one (dim 4), or phase 4b's on the 5-point
 system at 4096^2 (dim 2; N^2 with ``--size``) from several right-hand
 sides (:func:`breakdown`).
-``--passes [--tree DIR]`` prints the times of K3, K4, K5b and K2 at
+``--passes [--tree DIR]`` prints the times of K3, K4, K5b, K2 and K1 at
 4096^2 that ``--solves`` takes (:func:`time_ab_passes_2d`) and nothing
 else.  ``--blocks`` runs phases 4i and 5i (block systems) and nothing
 else, ``--pieces`` phases 4j and 5j (pieces on one card),
@@ -283,8 +283,9 @@ grid as ``[n // C, C]`` and the kernels run its row-wrap terms, |dx| = C -
 4l. every route against its plain version on the decomposed offsets, at
    full width ([4096, 4096], random halo blocks) and at (8, 128), (37,
    1000), (3, 1000) and (203, 4096) with null and random halo blocks: K3's
-   four modes, K4, K2, K1 and K5b on the strip march with WRAP, K5a and
-   K5c on the tile kernels' wide terms (compensated dots off and on), and
+   four modes, K4 and K5b on the strip march with WRAP, K2 and K1 on the
+   march along the flat index (``csrc/flat1d.cu``), K5a and K5c on the
+   tile kernels' wide terms (compensated dots off and on), and
    the tile kernels' wide terms of K3, K4 and K5 with (0, +-37), (1, -(C -
    1)) and (-8, 100); phase 3's bounds and repeats bit for bit.  Then
    ``entry.build_stencil_system(1, (2^24,))`` on one piece and on 4 pieces
@@ -296,13 +297,17 @@ grid as ``[n // C, C]`` and the kernels run its row-wrap terms, |dx| = C -
    repeat bit for bit; the CG histories and x within twice textbook f32
    CG's distance from float64 CG on the 1-D system (the s-step's with
    phase 4c's floor, X_F64_FLOOR: ROADMAP queue 3, P8; also at
-   FLAT_ACC_SIZES, beside the plain versions' readings), BiCGStab within
+   FLAT_ACC_SIZES, beside the bound and the plain versions' readings),
+   BiCGStab within
    FLAT_BICG_RTOL of float64 BiCGStab over the entries where textbook f32
    stays within a tenth of it, GMRES non-increasing;
 5l. each route's time at [4096, 4096] with CUDA events and in CUDA graphs
-   beside its plain version, the tile kernels' wide terms at 4096^2, and
-   each 4l solve's ms/iter, host enqueue and idle share (a torch.profiler
-   trace).  ``--flat1d`` runs 4l and 5l alone.
+   beside its plain version and bound; K1's and K2's flat kernels'
+   registers, spill, blocks per SM and shared memory and their ms lost per
+   s-step solve(200); the tile kernels' wide terms at 4096^2 beside the
+   same bound and their ms lost per two-pass CG or BiCGStab solve(200);
+   and each 4l solve's ms/iter, host enqueue and idle share (a
+   torch.profiler trace).  ``--flat1d`` runs 4l and 5l alone.
 
 Wide z shifts on the 3-D kernels (kernel item C: S_wide, the 7-point
 cross with center 8.5 plus (0, 0, +-12), (0, +-3, +-100) and (+-1, 0,
@@ -3528,11 +3533,12 @@ def time_ab_passes(torch, lt, device):
 
 def time_ab_passes_2d(torch, T, TB, device):
     """--solves and --passes: {"<K3 mode>" | "xpay_pq" | "bicg_st
-    compensated=<c>" | "gram2": {"events": ms, "graph": ms}}, K3, K4, K5b
-    and K2 with the cross at N_GRID^2, no halo blocks, timed as
-    :func:`time_ab_passes` times the 3-D passes (CUDA events, and CUDA
-    graphs, over a ring of three input sets; K3 update in place with a
-    tiny alpha and K4 into a spare buffer, as phase 5a calls them)."""
+    compensated=<c>" | "gram2" | "step2": {"events": ms, "graph": ms}},
+    K3, K4, K5b, K2 and K1 with the cross at N_GRID^2, no halo blocks,
+    timed as :func:`time_ab_passes` times the 3-D passes (CUDA events, and
+    CUDA graphs, over a ring of three input sets; K3 update in place with a
+    tiny alpha, K4 into a spare buffer and K1 into a spare pair, as phase
+    5a calls them)."""
     g = torch.Generator(device=device).manual_seed(53)
     ring = [[torch.randn(N_GRID, N_GRID, generator=g, device=device)
              for _ in range(2)] for _ in range(3)]
@@ -3544,7 +3550,7 @@ def time_ab_passes_2d(torch, T, TB, device):
                       for a, b in ring]
     ring1 = [make_inputs(torch, T, (N_GRID, N_GRID), 60 + s, device)
              for s in range(3)]
-    for mode in ONE_PASS_NAMES:
+    for mode in (*ONE_PASS_NAMES, "step2"):
         cases[mode] = [kernel_call(T, mode, d, False) for d in ring1]
     res = {}
     for name, fns in cases.items():
@@ -5956,6 +5962,8 @@ def flat1d_path(torch, np, T, TB, lt, device):
                     torch, T, solver, iters,
                     lambda h, x: dist(h, x, h64, x64)))
                 floor = X_F64_FLOOR
+                res["vs_f64"]["bound"] = tuple(
+                    max(2 * t, floor) for t in text_cg)
             else:
                 floor = 0.0
             rule = (f" (floor {floor})" if floor else "")
@@ -5998,8 +6006,8 @@ def flat1d_path(torch, np, T, TB, lt, device):
     for n in FLAT_ACC_SIZES:
         env = sstep_accuracy_1d(torch, T, lt, device, n)
         k_env, t_env = env["kernel"], env["textbook f32"]
-        ok = (k_env[0] <= max(2 * t_env[0], X_F64_FLOOR)
-              and k_env[1] <= max(2 * t_env[1], X_F64_FLOOR))
+        env["bound"] = tuple(max(2 * t, X_F64_FLOOR) for t in t_env)
+        ok = k_env[0] <= env["bound"][0] and k_env[1] <= env["bound"][1]
         rule = ("history and x within twice textbook f32 CG's distance "
                 f"from float64 (floor {X_F64_FLOOR})")
         if not ok:
@@ -6108,11 +6116,45 @@ def library_1d(torch, T, device, card):
     return ms
 
 
-def flat1d_rows(T, launches, grid_launches, errs, times, bw, conv1d_ms):
+FLAT_CSRC = "legionsolvers_tpu_torch/csrc/flat1d.cu"
+# launches per solve(200) on the 1-D view: the s-step CG's K1 and K2 (the
+# flat march), and a two-pass CG's and a BiCGStab's passes, which the wide
+# stencil (wide_kw) would launch as often
+SSTEP_200 = FLAT_RUNS["s-step CG"][4]
+WIDE_200 = {"pq": 1, "update": N_ITERS, "xpay_pq": N_ITERS - 1,
+            **{m: N_ITERS for m in BICG_KERNELS}}
+
+
+def flat_attrs(lib):
+    """{pass: [registers, spill bytes, resident blocks per SM, static
+    shared memory bytes]} of K1's and K2's flat kernels with 16-byte loads
+    (cudaFuncGetAttributes and the occupancy calculator on this card), or
+    {} for a tree without them (``--tree`` of an older tree)."""
+    import ctypes
+
+    if not hasattr(lib, "ls_flat_attrs"):
+        return {}
+    out, res = (ctypes.c_int * 4)(), {}
+    for m, which in (("step2", 1), ("gram2", 3)):
+        err = lib.ls_flat_attrs(which, out)
+        if err:
+            raise RuntimeError(f"ls_flat_attrs({which}): CUDA error {err}")
+        res[m] = list(out)
+        log(f"[flat1d] {m} flat march (vec): {out[0]} registers, {out[1]} B "
+            f"spilled, {out[2]} blocks per SM, {out[3]} B shared memory")
+    return res
+
+
+def flat1d_rows(T, launches, grid_launches, errs, times, bw, conv1d_ms,
+                attrs=None, wide_times=None):
     """The kernels line's rows of the 1-D view's routes: launches from
     phase 4l's solves, times from phase 5l at [4096, 4096]; K3 y's
     library_ms is ``conv1d_ms`` (:func:`library_1d`), the other passes
-    have no one library call."""
+    have no one library call.  K1 and K2 (the flat march) also get their
+    registers, spill, blocks per SM and shared memory (``attrs``,
+    :func:`flat_attrs`) and their ms lost per s-step solve(200); each pass
+    with the wide stencil (``wide_times``) its bound (the flat row's
+    bytes), % of bound and ms lost over WIDE_200's launches."""
     rows = []
     for m in (*KERNELS, *BICG_KERNELS):
         if m in KERNELS:
@@ -6125,6 +6167,8 @@ def flat1d_rows(T, launches, grid_launches, errs, times, bw, conv1d_ms):
             name = f"{m} 1-D view"
         # K5a and K5c have no strip kernel: the tile kernels' wide terms
         route = "tile" if m in ("bicg_pv", "bicg_update") else "flat"
+        if m in SSTEP_200:
+            source, route = FLAT_CSRC, "flat march"
         ms, plain_ms, g = times[m]
         row = kernel_row(name, source, replaces, launches.get(m, 0), errs[m],
                          ms, plain_ms, bpe * N_FLAT,
@@ -6132,10 +6176,33 @@ def flat1d_rows(T, launches, grid_launches, errs, times, bw, conv1d_ms):
                          conv1d_ms if m == "y" else None,
                          grid_launches=grid_launches.get(m, 0))
         row.update(graph_ms=g, kernel_route=route)
+        extra = ""
+        if m in SSTEP_200:
+            row["ms_lost_per_solve200"] = SSTEP_200[m] * (ms - row["bound_ms"])
+            extra = (f", {row['ms_lost_per_solve200']:.2f} ms lost per s-step"
+                     " solve(200)")
+            if attrs and m in attrs:
+                regs, spill, per_sm, smem = attrs[m]
+                row.update(registers=regs, spill_bytes=spill,
+                           blocks_per_sm=per_sm, shared_memory_bytes=smem)
+                extra += (f", {regs} registers, {spill} B spilled, {per_sm} "
+                          f"blocks per SM, {smem} B shared")
         rows.append(row)
-        log(f"[time] 1-D view {m:11s} ({route} route) {ms:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ({row['pct_of_bound']:.1f}%), "
-            f"launches {row['launches']} at [{FLAT_C}, {FLAT_C}]")
+        log(f"[time] 1-D view {m:11s} ({route} route) {ms:.4f} ms (graphs "
+            f"{g:.4f}), bound {row['bound_ms']:.4f} "
+            f"({row['pct_of_bound']:.1f}%), launches {row['launches']} at "
+            f"[{FLAT_C}, {FLAT_C}]{extra}")
+        if wide_times and m in wide_times:
+            wms, _, wg = wide_times[m]
+            row.update(wide_ms=wms, wide_graph_ms=wg,
+                       wide_pct_of_bound=100 * row["bound_ms"] / wms,
+                       wide_ms_lost_per_solve200=WIDE_200.get(m, 0) * (
+                           wms - row["bound_ms"]))
+            log(f"[time] 1-D view {m:11s} wide terms (tile) {wms:.4f} ms "
+                f"(graphs {wg:.4f}), bound {row['bound_ms']:.4f} "
+                f"({row['wide_pct_of_bound']:.1f}%), "
+                f"{WIDE_200.get(m, 0)} launches per two-pass CG or BiCGStab "
+                f"solve(200): {row['wide_ms_lost_per_solve200']:.2f} ms lost")
     return rows
 
 
@@ -7148,6 +7215,7 @@ def main() -> int:
                                    xp_builds.items()}}, default=str))
         return 1 if failed else 0
     if "--flat1d" in argv:
+        fl_attrs = flat_attrs(build.load_library())
         errs_f, errs_w = compare_flat_kernels(torch, T, TB, device)
         fl_launches, fl_grid, fl_results, fl_solvers, failed = flat1d_path(
             torch, np, T, TB, lt, device)
@@ -7158,7 +7226,7 @@ def main() -> int:
         mark("phase 5l")
         conv1d_ms = library_1d(torch, T, device, card)
         rows = flat1d_rows(T, fl_launches, fl_grid, errs_f, ftimes, bw,
-                           conv1d_ms)
+                           conv1d_ms, fl_attrs, wtimes)
         log(json.dumps({"card": card, "flat1d": {
             "paths": fl_results, "solves": fsolves, "wide_errs": errs_w,
             "wide_ms": wtimes, "kernels": rows}}, default=str))
@@ -7282,6 +7350,7 @@ def main() -> int:
             k: (systems[k], solvers_x[k]) for k in EXPLICIT})
     failed += f
     mark("phase 4k")
+    fl_attrs = flat_attrs(build.load_library())
     errs_f, errs_w = compare_flat_kernels(torch, T, TB, device)
     fl_launches, fl_grid, fl_results, fl_solvers, f = flat1d_path(
         torch, np, T, TB, lt, device)
@@ -7489,7 +7558,7 @@ def main() -> int:
     # the 1-D view's routes (phase 4l): their launches on one piece and on
     # pieces, times at [4096, 4096] (phase 5l)
     flat_rows = flat1d_rows(T, fl_launches, fl_grid, errs_f, ftimes, bw,
-                            conv1d_ms)
+                            conv1d_ms, fl_attrs, wtimes)
     for row, m in zip(flat_rows, (*KERNELS, *BICG_KERNELS)):
         row["pieces_launches"] = sum(
             fl_results[name]["launches"].get(m, 0)

@@ -1,6 +1,7 @@
 // The 2-D column-strip register march, shared by the reach-1 passes of
 // stencil2d.cu (K1 step2, K2 gram2, K3 in its four modes, K4 xpay_pq) and
-// bicgstab2d.cu (K5b st).
+// bicgstab2d.cu (K5b st); flat1d.cu takes its row type, Gram terms, ring
+// and fold for K1 and K2 on the 1-D view's flat route.
 //
 // A warp owns a strip of 128 columns (four per lane, read as 16-byte
 // vectors where the width and the pointers allow) and marches down a chunk
@@ -13,15 +14,16 @@
 // the caller's [LS_HALO_ROWS, C] blocks (halo_row), as the tile kernels
 // do.
 //
-// WRAP (the 1-D kernel view: a 1-D stencil over the row-major flat index
-// of the [R, C] grid, ops/cuda/stencil2d.flat_stencil): a lane's column c
+// WRAP (K3, K4 and K5b on the 1-D kernel view: a 1-D stencil over the
+// row-major flat index of the [R, C] grid, ops/cuda/stencil2d.flat_stencil;
+// K1 and K2 there march along the flat index, flat1d.cu): a lane's column c
 // of row q is the flat element f = q C + c, whatever c, so a column left
 // of the grid is the end of row q - 1 and one right of it the start of
 // row q + 1 (flat_load4).  The stencil passed is the 1-D one, (0, s) with
 // |s| <= 1, and a strip's 4 halo columns hold the flat neighbours of its
-// edge columns, which is all that four chained applications of a reach-1
-// 1-D stencil read.  Masks test the flat index against [0, R C)
-// (strip_mask): the zero-halo passes (K1, K2, K5b) read zero outside it,
+// edge columns, which is all that a reach-1 1-D stencil reads.  Masks test
+// the flat index against [0, R C) (strip_mask): the zero-halo pass (K5b)
+// reads zero outside it,
 // the one-pass ones (K3, K4) the halo blocks, which extend the flat
 // vector by 8 C elements on either side.
 //
@@ -463,6 +465,11 @@ __device__ __forceinline__ void strip_rows(const float* const (&src)[NV],
   ((wrap)    ? ((vec) ? L(false, true, true) : L(false, false, true)) \
    : (cross) ? ((vec) ? L(true, true, false) : L(true, false, false)) \
              : ((vec) ? L(false, true, false) : L(false, false, false)))
+
+// The same for the passes without WRAP, L(CROSS, VEC).
+#define LS_CROSS_VARIANT(L, cross, vec)                    \
+  ((cross) ? ((vec) ? L(true, true) : L(true, false))      \
+           : ((vec) ? L(false, true) : L(false, false)))
 
 bool is_cross(const LsStencil& st) {
   const int dy[5] = {0, -1, 1, 0, 0}, dx[5] = {0, 0, 0, -1, 1};

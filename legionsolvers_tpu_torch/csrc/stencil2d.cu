@@ -10,8 +10,10 @@
 //                     (stencil_strip_kernel; other stencils stencil_kernel)
 //   ls_xpay_pq    K4  replaces grid2d_cg_xpay_pq
 //                     (xpay_pq_strip_kernel; other stencils xpay_pq_kernel)
-//   ls_gram2      K2  replaces _sstep_call mode gram2
-//   ls_step2      K1  replaces _sstep_call mode step2
+//   ls_gram2      K2  replaces _sstep_call mode gram2 (on the 1-D view's
+//                     flat route: ls_flat_gram2, flat1d.cu)
+//   ls_step2      K1  replaces _sstep_call mode step2 (flat route:
+//                     ls_flat_step2, flat1d.cu)
 //   ls_step2_nop  K1  replaces _sstep_call mode nop (a diagnostic: step2's
 //                     loads and stores, a trivial body)
 //
@@ -31,9 +33,10 @@
 // K4 there take their reach-1 halo rows from the caller's halo blocks
 // (halo_row), so they serve every call the tile kernels serve.  The 1-D
 // kernel view (a 1-D grid viewed as [n / C, C], its shifts rewritten into
-// (dy, dx) terms with row-wrap terms of |dx| = C - 1) runs every strip
-// pass with WRAP on the 1-D stencil (march2d.cuh): each element is
-// addressed by its flat index, so the wrap terms cost no extra read.  Any
+// (dy, dx) terms with row-wrap terms of |dx| = C - 1) runs K3, K4 and K5b
+// on the strip march with WRAP on the 1-D stencil (march2d.cuh): each
+// element is addressed by its flat index, so the wrap terms cost no extra
+// read; K1 and K2 there march along the flat index (flat1d.cu).  Any
 // other stencil (|dy| <= 8, |dx| < C) runs K3 and K4 on the tile design of
 // the first port, its terms with |dx| > 8 read from device memory beside
 // the tile (apply_at_wide: only the lanes whose column lands in the grid
@@ -305,7 +308,7 @@ xpay_pq_strip_kernel(const float* __restrict__ r,
 // flight and 4 resident blocks per SM measured best (PERF.md section 6).
 // ---------------------------------------------------------------------------
 #define LS_GRAM2_DEPTH 1  // rows in flight per warp (more were slower)
-template <int DEPTH, int MINB, bool CROSS, bool VEC, bool WRAP>
+template <int DEPTH, int MINB, bool CROSS, bool VEC>
 __global__ void __launch_bounds__(LS_STEP2_THREADS, MINB)
 gram2_strip_kernel(const float* __restrict__ r, const float* __restrict__ p,
                    float* __restrict__ g_out, double* __restrict__ partials,
@@ -320,7 +323,7 @@ gram2_strip_kernel(const float* __restrict__ r, const float* __restrict__ p,
     Row4 P2 = z, P1 = z, R2 = z, R1 = z;  // p, r rows q-2, q-1
     Row4 AP3 = z, AP2 = z, AR2 = z;       // Ap rows q-3, q-2; Ar row q-2
     const float* const src[2] = {p, r};
-    strip_rows<DEPTH, 2, VEC, WRAP>(
+    strip_rows<DEPTH, 2, VEC, false>(
         src, pl.a - 2, pl.b + 1, R, C, pl,
         [&](int q, const Row4 (&row)[2]) {
           const Row4& P0 = row[0];
@@ -328,7 +331,7 @@ gram2_strip_kernel(const float* __restrict__ r, const float* __restrict__ p,
           // S1 at row q - 1
           const int i1 = q - 1;
           Row4 AP1 = apply4<CROSS>(P2, P1, P0, st);
-          strip_mask<WRAP>(AP1, i1, R, C, pl.c0, pl.cin);
+          strip_mask<false>(AP1, i1, R, C, pl.c0, pl.cin);
           const Row4 AR1 = apply4<CROSS>(R2, R1, R0, st);
           // S2 at row q - 2
           const int i2 = q - 2;
@@ -386,7 +389,7 @@ gram2_strip_kernel(const float* __restrict__ r, const float* __restrict__ p,
 // r p (exact products summed in double, as the Gram above), g[1..9] = 0.
 // Its time is K1's memory floor with step2's access pattern.
 // ---------------------------------------------------------------------------
-template <bool CROSS, bool VEC, bool WRAP, bool NOP = false>
+template <bool CROSS, bool VEC, bool NOP = false>
 __global__ void __launch_bounds__(LS_STEP2_THREADS, LS_STEP2_MIN_BLOCKS)
 step2_kernel(float* __restrict__ x, const float* __restrict__ r,
              const float* __restrict__ p, const float* __restrict__ coef,
@@ -410,19 +413,12 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
       cin[j] = c0 + j >= 0 && c0 + j < C;
       own[j] = cin[j] && lane >= 1 && lane <= 30;
     }
-    // row q of p, r (zero outside the grid; with WRAP their flat elements,
-    // zero outside [0, R C)) and of x (own columns of rows [a, b) only)
+    // row q of p, r (zero outside the grid) and of x (own columns of rows
+    // [a, b) only)
     auto load_row = [&](int q, Row4& P, Row4& Rv, Row4& X) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) P.v[j] = Rv.v[j] = X.v[j] = 0.f;
       const bool xrow = q >= a && q < b;
-      if (WRAP) {
-        P = flat_load4<VEC, true>(p, nullptr, nullptr, q, R, C, c0);
-        Rv = flat_load4<VEC, true>(r, nullptr, nullptr, q, R, C, c0);
-        if (xrow)
-          X = strip_load4<VEC, false>(x + (long long)q * C, c0, own);
-        return;
-      }
       if (q < 0 || q >= R) return;
       const long long o = (long long)q * C + c0;
       if (VEC) {
@@ -477,12 +473,12 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
       // S1 at row q - 1
       const int i1 = q - 1;
       Row4 AP1 = apply4<CROSS>(P2, P1, P0, st);
-      strip_mask<WRAP>(AP1, i1, R, C, c0, cin);
+      strip_mask<false>(AP1, i1, R, C, c0, cin);
       Row4 U1;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         U1.v[j] = k0 * P1.v[j] + k1 * R1.v[j] - k2 * AP1.v[j];
-      strip_mask<WRAP>(U1, i1, R, C, c0, cin);
+      strip_mask<false>(U1, i1, R, C, c0, cin);
       if (i1 >= a && i1 < b) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) X1.v[j] = X1.v[j] + U1.v[j];
@@ -497,8 +493,8 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
         RN2.v[j] = R2.v[j] - AU.v[j];
         PN2.v[j] = RN2.v[j] + k3 * R2.v[j] - k4 * AP2.v[j] + k5 * P2.v[j];
       }
-      strip_mask<WRAP>(RN2, i2, R, C, c0, cin);
-      strip_mask<WRAP>(PN2, i2, R, C, c0, cin);
+      strip_mask<false>(RN2, i2, R, C, c0, cin);
+      strip_mask<false>(PN2, i2, R, C, c0, cin);
       if (i2 >= a && i2 < b) {
         store4<VEC>(r_out, (long long)i2 * C + c0, RN2, own);
         store4<VEC>(p_out, (long long)i2 * C + c0, PN2, own);
@@ -506,7 +502,7 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
       // S3 at row q - 3
       const int i3 = q - 3;
       Row4 APN3 = apply4<CROSS>(PN4, PN3, PN2, st);
-      strip_mask<WRAP>(APN3, i3, R, C, c0, cin);
+      strip_mask<false>(APN3, i3, R, C, c0, cin);
       // S4 at row q - 4
       const int i4 = q - 4;
       if (i4 >= a && i4 < b) {
@@ -529,15 +525,15 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
   strip_fold<10>(g, partials, counter, g_out);
 }
 
-template <bool CROSS, bool VEC, bool WRAP>
+template <bool CROSS, bool VEC>
 int launch_step2(float* x, const float* r, const float* p, const float* coef,
                  float* r_out, float* p_out, float* g, double* partials,
                  int capacity, unsigned* counter, int R, int C,
                  const Step2Stencil& st, cudaStream_t stream) {
   const StripGeom geo = strip_geometry(R, C, LS_STEP2_TARGET_WARPS);
   if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
-  step2_kernel<CROSS, VEC, WRAP><<<(unsigned)geo.blocks, LS_STEP2_THREADS,
-                                   0, stream>>>(
+  step2_kernel<CROSS, VEC><<<(unsigned)geo.blocks, LS_STEP2_THREADS, 0,
+                             stream>>>(
       x, r, p, coef, r_out, p_out, g, partials, counter, R, C, geo.strips,
       geo.chunk_rows, geo.units, st);
   return (int)cudaGetLastError();
@@ -550,20 +546,20 @@ int launch_nop(float* x, const float* r, const float* p, const float* coef,
                const Step2Stencil& st, cudaStream_t stream) {
   const StripGeom geo = strip_geometry(R, C, LS_STEP2_TARGET_WARPS);
   if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
-  step2_kernel<false, VEC, false, true><<<(unsigned)geo.blocks,
-                                          LS_STEP2_THREADS, 0, stream>>>(
+  step2_kernel<false, VEC, true><<<(unsigned)geo.blocks, LS_STEP2_THREADS,
+                                   0, stream>>>(
       x, r, p, coef, r_out, p_out, g, partials, counter, R, C, geo.strips,
       geo.chunk_rows, geo.units, st);
   return (int)cudaGetLastError();
 }
 
-template <bool CROSS, bool VEC, bool WRAP>
+template <bool CROSS, bool VEC>
 int launch_gram2(const float* r, const float* p, float* g, double* partials,
                  int capacity, unsigned* counter, int R, int C,
                  const Step2Stencil& st, cudaStream_t stream) {
   const StripGeom geo = strip_geometry(R, C, LS_GRAM2_TARGET_WARPS);
   if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
-  gram2_strip_kernel<LS_GRAM2_DEPTH, LS_GRAM2_MIN_BLOCKS, CROSS, VEC, WRAP>
+  gram2_strip_kernel<LS_GRAM2_DEPTH, LS_GRAM2_MIN_BLOCKS, CROSS, VEC>
       <<<(unsigned)geo.blocks, LS_STEP2_THREADS, 0, stream>>>(
           r, p, g, partials, counter, R, C, geo, st);
   return (int)cudaGetLastError();
@@ -713,19 +709,19 @@ int ls_xpay_pq(const float* r, const float* p_old, const float* beta,
 // K2 and K1 share their scratch (with K3, K4 and K5b).  partials:
 // capacity blocks x 10 doubles; counter: one unsigned, zero before the
 // first launch (the kernels leave it zero).  Launches on one (partials,
-// counter) pair must be ordered (one stream).  A reach-1 stencil; with
-// `wrap` the reach-1 1-D stencil of the flat view (march2d.cuh).
+// counter) pair must be ordered (one stream).  A reach-1 stencil (the 1-D
+// view's flat decompositions take ls_flat_gram2 and ls_flat_step2).
 int ls_gram2(const float* r, const float* p, float* g, double* partials,
              int capacity, unsigned* counter, int R, int C,
-             const LsStencil* st, int wrap, void* stream_ptr) {
+             const LsStencil* st, void* stream_ptr) {
   if (!valid(st, R, C, 1) || !counter) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const Step2Stencil s2 = step2_stencil(*st);
   const bool vec = C % 4 == 0 && aligned16(r) && aligned16(p);
-#define LS_GRAM2_LAUNCH(CR, VE, WR)                                      \
-  launch_gram2<CR, VE, WR>(r, p, g, partials, capacity, counter, R, C, s2, \
-                           stream)
-  return LS_STRIP_VARIANT(LS_GRAM2_LAUNCH, is_cross(*st), vec, wrap);
+#define LS_GRAM2_LAUNCH(CR, VE)                                      \
+  launch_gram2<CR, VE>(r, p, g, partials, capacity, counter, R, C, s2, \
+                       stream)
+  return LS_CROSS_VARIANT(LS_GRAM2_LAUNCH, is_cross(*st), vec);
 #undef LS_GRAM2_LAUNCH
 }
 
@@ -733,16 +729,16 @@ int ls_gram2(const float* r, const float* p, float* g, double* partials,
 int ls_step2(float* x, const float* r, const float* p, const float* coef,
              float* r_out, float* p_out, float* g, double* partials,
              int capacity, unsigned* counter, int R, int C,
-             const LsStencil* st, int wrap, void* stream_ptr) {
+             const LsStencil* st, void* stream_ptr) {
   if (!valid(st, R, C, 1) || !counter) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const Step2Stencil s2 = step2_stencil(*st);
   const bool vec = C % 4 == 0 && aligned16(x) && aligned16(r) &&
                    aligned16(p) && aligned16(r_out) && aligned16(p_out);
-#define LS_STEP2_LAUNCH(CR, VE, WR)                                       \
-  launch_step2<CR, VE, WR>(x, r, p, coef, r_out, p_out, g, partials,      \
-                           capacity, counter, R, C, s2, stream)
-  return LS_STRIP_VARIANT(LS_STEP2_LAUNCH, is_cross(*st), vec, wrap);
+#define LS_STEP2_LAUNCH(CR, VE)                                   \
+  launch_step2<CR, VE>(x, r, p, coef, r_out, p_out, g, partials,  \
+                       capacity, counter, R, C, s2, stream)
+  return LS_CROSS_VARIANT(LS_STEP2_LAUNCH, is_cross(*st), vec);
 #undef LS_STEP2_LAUNCH
 }
 
@@ -788,8 +784,8 @@ int ls_gram2_attrs(int which, int* out) {
 #define LS_G2_ATTR(CR, VE)      \
   case 2 * CR + VE:             \
     return strip_attrs(                                                    \
-        gram2_strip_kernel<LS_GRAM2_DEPTH, LS_GRAM2_MIN_BLOCKS, CR, VE,   \
-                           false>, out);
+        gram2_strip_kernel<LS_GRAM2_DEPTH, LS_GRAM2_MIN_BLOCKS, CR, VE>,  \
+        out);
     LS_G2_ATTR(0, 0) LS_G2_ATTR(0, 1) LS_G2_ATTR(1, 0) LS_G2_ATTR(1, 1)
 #undef LS_G2_ATTR
     default: return (int)cudaErrorInvalidValue;

@@ -118,10 +118,11 @@ def load_library() -> ctypes.CDLL:
     ``c_void_p``, so that none is cut to 32 bits)."""
     from .dia2d import DIA_ELEMS, MAX_DIA_TERMS
     from .rowperm import PIECE_ROWS
-    from .stencil2d import (GEN_UNIT_ELEMS, MAX_TERMS, STENCIL_REACH,
-                            STEP2_COLS, STEP2_MIN_ROWS, STEP2_WARPS,
-                            STRIP_TARGETS, TILE, WIDE_Z_REACH, band_geometry,
-                            band_stride, general_units, strip_geometry)
+    from .stencil2d import (FLAT_SHIFTS, FLAT_TARGETS, GEN_UNIT_ELEMS,
+                            MAX_TERMS, STENCIL_REACH, STEP2_COLS,
+                            STEP2_MIN_ROWS, STEP2_WARPS, STRIP_TARGETS, TILE,
+                            WIDE_Z_REACH, band_geometry, band_stride,
+                            flat_geometry, general_units, strip_geometry)
     from .stencil3d import (CHUNK_X, _Stencil3, march1_geometry,
                             window3d_geometry)
     from .vpu_probe import C as VPU_C, TR as VPU_TR
@@ -130,8 +131,14 @@ def load_library() -> ctypes.CDLL:
     sigs = {
         "ls_stencil2d": [_I] + [_P] * 9 + [_I, _P, _I, _I, _P, _I, _P],
         "ls_xpay_pq": [_P] * 10 + [_I, _P, _I, _I, _P, _I, _P],
-        "ls_gram2": [_P] * 4 + [_I, _P, _I, _I, _P, _I, _P],
-        "ls_step2": [_P] * 8 + [_I, _P, _I, _I, _P, _I, _P],
+        "ls_gram2": [_P] * 4 + [_I, _P, _I, _I, _P, _P],
+        "ls_step2": [_P] * 8 + [_I, _P, _I, _I, _P, _P],
+        "ls_flat_gram2": [_P] * 4 + [_I, _P, _I, _I, _P, _P],
+        "ls_flat_step2": [_P] * 8 + [_I, _P, _I, _I, _P, _P],
+        "ls_flat_shifts": [_P],
+        "ls_flat_geometry": [_I, _I, _I, _P],
+        "ls_flat_target_warps": [_I],
+        "ls_flat_attrs": [_I, _P],
         "ls_step2_nop": [_P] * 8 + [_I, _P, _I, _I, _P, _P],
         "ls_step2_general": [_P] * 9 + [_I, _P, _I, _I, _P, _P],
         "ls_gram2_general": [_P] * 5 + [_I, _P, _I, _I, _P, _P],
@@ -206,6 +213,23 @@ def load_library() -> ctypes.CDLL:
                 raise RuntimeError(
                     "csrc/march2d.cuh and ops/cuda/stencil2d.py disagree "
                     f"on the strip blocks at {shape}, {target} warps")
+    shifts = (ctypes.c_int * 3)()
+    if lib.ls_flat_shifts(shifts) or tuple(shifts) != FLAT_SHIFTS:
+        raise RuntimeError("csrc/flat1d.cu and ops/cuda/stencil2d.py "
+                           "disagree on the flat route's 1-D stencil")
+    if ([lib.ls_flat_target_warps(k) for k in range(len(FLAT_TARGETS))]
+            != list(FLAT_TARGETS)):
+        raise RuntimeError("csrc/flat1d.cu and ops/cuda/stencil2d.py "
+                           "disagree on the flat passes' target warps")
+    fgeo = (ctypes.c_longlong * 4)()
+    for shape in ((4096, 4096), (8, 128), (37, 1000), (3, 1000), (203, 4096),
+                  (1, 5), (4099, 130)):
+        for target in FLAT_TARGETS:
+            if (lib.ls_flat_geometry(*shape, target, fgeo)
+                    or tuple(fgeo) != flat_geometry(*shape, target)):
+                raise RuntimeError(
+                    "csrc/flat1d.cu and ops/cuda/stencil2d.py disagree on "
+                    f"the flat geometry at {shape}, {target} warps")
     if lib.ls_sstep_general_unit_elems() != GEN_UNIT_ELEMS or any(
             lib.ls_sstep_general_units(*shape) != general_units(*shape)
             for shape in ((4096, 4096), (1024, 4096), (16, 128), (33, 4097),

@@ -23,10 +23,13 @@ to :data:`LAUNCHES` under the pass's name.  :func:`route` picks the
 kernel: with a reach-1 stencil every pass runs the column-strip register
 march (``csrc/march2d.cuh``), its dots folded into its last block (one
 launch); with the flat decomposition of a reach-1 1-D stencil (the 1-D
-kernel view, :func:`decompose_flat_offsets`) the same march runs the 1-D
-stencil with its WRAP flag, every element addressed by its flat index;
-K3 and K4 with any other stencil (|dy| <= 8, |dx| < C) run tile kernels,
-whose terms with |dx| > 8 read device memory beside the tile, and a
+kernel view, :func:`decompose_flat_offsets`) K3, K4 and K5b run the same
+march on the 1-D stencil with its WRAP flag, every element addressed by
+its flat index, and K1 and K2 march along the flat index itself
+(``csrc/flat1d.cu``, :func:`flat_geometry`; the 1-D stencil of
+:data:`FLAT_SHIFTS`); K3 and K4 with any other stencil (|dy| <= 8, |dx| <
+C) run tile kernels, whose terms with |dx| > 8 read device memory beside
+the tile, and a
 second launch that sums their dots; K1 and K2 with any other stencil
 (|dy| <= 1, |dx| < C) run the general route (``csrc/sstep_general.cu``):
 K1 on the band march, a march down bands of rows with every intermediate
@@ -95,6 +98,18 @@ BAND_THREADS = 512     # threads of a block
 # floats of a ring row, at most: the rings, one row more and a block's
 # width of slack fit the kernel's 225 KB of shared memory
 BAND_MAX_STRIDE = (225 * 1024 // 4 - BAND_THREADS) // (BAND_RING_ROWS + 1)
+# K1 and K2 on the flat route (csrc/flat1d.cu: LS_FLAT_*): a warp's step is
+# a segment of FLAT_SEG elements, its run at least FLAT_MIN_SEGS segments;
+# runs aim at one wave of the pass's resident blocks on 132 SMs (K1 4 per
+# SM, K2 5)
+FLAT_SEG = 128
+FLAT_MIN_SEGS = 16
+FLAT_STEP2_TARGET_WARPS = 132 * 4 * STEP2_WARPS
+FLAT_GRAM2_TARGET_WARPS = 132 * 5 * STEP2_WARPS
+FLAT_TARGETS = (FLAT_STEP2_TARGET_WARPS, FLAT_GRAM2_TARGET_WARPS)
+# the shifts of the 1-D stencil that flat1d.cu compiles, in stencil order
+# (LS_FLAT_SHIFTS): the 1-D Laplacian's
+FLAT_SHIFTS = (0, -1, 1)
 
 #: CUDA launches per pass name since the last :func:`reset_launch_counts`.
 LAUNCHES = collections.Counter()
@@ -129,15 +144,35 @@ def supports(R: int, C: int, offsets) -> bool:
             and row_reach(offsets) <= HALO_ROWS and col_reach(offsets) < C)
 
 
-def step2_supported(R: int, C: int, offsets) -> bool:
+def step2_supported(R: int, C: int, offsets, values=None) -> bool:
     """Whether the s-step kernels (K1, K2) take this geometry: 1 to
     MAX_TERMS terms, |dy| <= 1 and |dx| < C, as JAX's gate.  A reach-1
     stencil runs the strip march, the flat decomposition of a reach-1 1-D
-    stencil the strip march with WRAP, any other the general route
-    (:func:`route`).  JAX's gate also asks C % 128 == 0 and its VMEM
-    budget: TPU layout gates, which the port does not carry over."""
+    stencil the march along the flat index, any other the general route
+    (:func:`route`).  Given ``values``, a flat decomposition whose 1-D
+    stencil's shifts are not :data:`FLAT_SHIFTS` (the ones compiled) is
+    refused (:func:`flat_refusal`).  JAX's gate also asks C % 128 == 0 and
+    its VMEM budget: TPU layout gates, which the port does not carry
+    over."""
     return (R >= 1 and C >= 1 and 1 <= len(offsets) <= MAX_TERMS
-            and row_reach(offsets) <= STEP2_REACH and col_reach(offsets) < C)
+            and row_reach(offsets) <= STEP2_REACH and col_reach(offsets) < C
+            and (values is None or flat_refusal(offsets, values, C) is None))
+
+
+def flat_refusal(offsets, values, C: int):
+    """Why K1 and K2 refuse this stencil on the flat route: a message
+    when it is the flat decomposition of a 1-D stencil whose shifts are
+    not :data:`FLAT_SHIFTS` in that order (``csrc/flat1d.cu`` fixes them
+    at compile time), None otherwise."""
+    flat = flat_stencil(offsets, values, C)
+    if flat is None:
+        return None
+    shifts = tuple(dx for _, dx in flat[0])
+    if shifts == FLAT_SHIFTS:
+        return None
+    return (f"K1 and K2 on the flat route take the 1-D stencil with shifts "
+            f"{FLAT_SHIFTS} in that order (csrc/flat1d.cu LS_FLAT_SHIFTS); "
+            f"this one has {shifts}")
 
 
 _FLAT = {}
@@ -171,10 +206,11 @@ def flat_stencil(offsets, values, C: int):
 def route(offsets, values, C: int, sstep: bool = False):
     """(kernel route, offsets, values, wrap) of a 2-D pass: ``strip`` for a
     reach-1 stencil (the column-strip march), ``flat`` for the flat
-    decomposition of a reach-1 1-D stencil (the strip march with WRAP, on
-    the 1-D stencil), otherwise ``tile`` for the one-pass kernels (the 32 x
-    32 tile kernels, terms with |dx| > 8 read from device memory beside
-    the tile) and, for the s-step passes K1 and K2 (``sstep``;
+    decomposition of a reach-1 1-D stencil (on the 1-D stencil: the strip
+    march with WRAP for K3, K4 and K5b, the march along the flat index of
+    ``csrc/flat1d.cu`` for K1 and K2), otherwise ``tile`` for the one-pass
+    kernels (the 32 x 32 tile kernels, terms with |dx| > 8 read from
+    device memory beside the tile) and, for the s-step passes K1 and K2 (``sstep``;
     csrc/sstep_general.cu), ``general`` where K1's band march takes the
     width and the widest |dx| (:func:`band_stride`), ``general_coop`` (the
     cooperative kernel) where it does not.  K2 runs the cooperative kernel
@@ -504,6 +540,20 @@ def strip_geometry(R: int, C: int, target_warps: int):
     return strips, chunk_rows, units, -(-units // STEP2_WARPS)
 
 
+def flat_geometry(R: int, C: int, target_warps: int):
+    """(segments, segments per run, runs, blocks) of a flat-route launch
+    (K1 or K2, ``csrc/flat1d.cu``) on an [R, C] view whose runs aim at
+    ``target_warps`` warps, as ``flat_geometry`` there computes them: the
+    n = R C elements in segments of FLAT_SEG, one warp per run of at least
+    FLAT_MIN_SEGS segments (the last run may be shorter), STEP2_WARPS
+    warps a block.  A function of the shape alone, and so is the Gram's
+    sum order."""
+    segs = -(-R * C // FLAT_SEG)
+    run = max(FLAT_MIN_SEGS, -(-segs // target_warps))
+    runs = -(-segs // run)
+    return segs, run, runs, -(-runs // STEP2_WARPS)
+
+
 def strip_capacity(R: int, C: int) -> int:
     """Blocks of the largest strip launch on an [R, C] grid, whatever its
     target: one warp per strip and row chunk of STEP2_MIN_ROWS rows."""
@@ -516,7 +566,9 @@ _STEP2_SCRATCH = {}
 
 def _step2_scratch(device, R: int, C: int):
     """(partials, capacity, counter) of the strip passes' launches on an
-    [R, C] grid (K1, K2, K3, K4 and K5b, whatever their targets):
+    [R, C] grid (K1, K2, K3, K4 and K5b, whatever their targets; also K1's
+    and K2's flat-route launches, whose runs of at least FLAT_MIN_SEGS
+    segments, 2048 elements, are fewer than the strip units of 1920):
     STEP2_GRAM float64 partial sums for each of :func:`strip_capacity`
     blocks (K1 and K2 keep ten per block, K5b two, K3 and K4 one) and the
     last-block counter (zero between launches), made once per (device,
@@ -739,17 +791,20 @@ def grid2d_cg_xpay_pq(r, p_old, beta, r_top=None, r_bot=None, p_top=None,
 # K2 / K1: s-step passes
 # ===========================================================================
 
-def _check_sstep(R, C, offsets):
+def _check_sstep(R, C, offsets, values):
     if not step2_supported(R, C, offsets):
         raise ValueError("s-step kernels require 1 to MAX_TERMS terms with "
                          f"|dy| <= 1 and |dx| < C = {C}")
+    why = flat_refusal(offsets, values, C)
+    if why is not None:
+        raise ValueError(why)
 
 
 def grid2d_cg_gram2(r, p, *, offsets, values):
     """Gram vector (ordered :data:`GRAM_NAMES`) of (r, p): the s-step
     bootstrap and drift-refresh pass."""
     R, C = r.shape
-    _check_sstep(R, C, offsets)
+    _check_sstep(R, C, offsets, values)
     _check_grid("r", r)
     _check_grid("p", p, (R, C))
     if not _on_cuda(r, p):
@@ -757,7 +812,7 @@ def grid2d_cg_gram2(r, p, *, offsets, values):
     dev = r.device
     # g is fresh per pass, as step2's
     g = torch.empty(10, dtype=torch.float32, device=dev)
-    kind, k_offs, k_vals, wrap = route(offsets, values, C, sstep=True)
+    kind, k_offs, k_vals, _ = route(offsets, values, C, sstep=True)
     st = ctypes.byref(_stencil_struct(k_offs, k_vals))
     if kind in ("general", "general_coop"):
         ws, partials, units, sync = _general_scratch(dev, R, C)
@@ -767,9 +822,9 @@ def grid2d_cg_gram2(r, p, *, offsets, values):
         ), dev)
         return g
     partials, capacity, counter = _step2_scratch(dev, R, C)
-    _launch("gram2", "ls_gram2", (
+    _launch("gram2", "ls_flat_gram2" if kind == "flat" else "ls_gram2", (
         _ptr(r), _ptr(p), _ptr(g), _ptr(partials), capacity, _ptr(counter),
-        R, C, st, wrap,
+        R, C, st,
     ), dev)
     return g
 
@@ -781,7 +836,7 @@ def grid2d_cg_step2(x, r, p, coef, *, offsets, values,
     x is updated in place; r'' and p'' go to ``out`` (fresh buffers when
     ``None``), which may not share storage with x, r or p."""
     R, C = r.shape
-    _check_sstep(R, C, offsets)
+    _check_sstep(R, C, offsets, values)
     _check_grid("x", x, (R, C))
     _check_grid("r", r)
     _check_grid("p", p, (R, C))
@@ -799,7 +854,7 @@ def grid2d_cg_step2(x, r, p, coef, *, offsets, values,
     # g is fresh per pass: callers keep earlier passes' g (the runner's
     # history holds g[0])
     g = torch.empty(10, dtype=torch.float32, device=dev)
-    kind, k_offs, k_vals, wrap = route(offsets, values, C, sstep=True)
+    kind, k_offs, k_vals, _ = route(offsets, values, C, sstep=True)
     st = ctypes.byref(_stencil_struct(k_offs, k_vals))
     if kind == "general":
         partials, units, counter = _band_scratch(dev, R, C)
@@ -816,9 +871,9 @@ def grid2d_cg_step2(x, r, p, coef, *, offsets, values,
         ), dev)
         return x, out[0], out[1], g
     partials, capacity, counter = _step2_scratch(dev, R, C)
-    _launch("step2", "ls_step2", (
+    _launch("step2", "ls_flat_step2" if kind == "flat" else "ls_step2", (
         _ptr(x), _ptr(r), _ptr(p), _ptr(c), _ptr(out[0]), _ptr(out[1]),
-        _ptr(g), _ptr(partials), capacity, _ptr(counter), R, C, st, wrap,
+        _ptr(g), _ptr(partials), capacity, _ptr(counter), R, C, st,
     ), dev)
     return x, out[0], out[1], g
 

@@ -628,9 +628,10 @@ class StencilOperator:
     def step2_eligible(self) -> bool:
         """Whether the s-step schedule (two iterations per K1 pass) applies:
         2-D kernel view within K1's gate (``stencil2d.step2_supported``:
-        |dy| <= 1 and |dx| < C; the strip march for a reach-1 stencil or
-        the 1-D view of a reach-1 1-D stencil, the general route for any
-        other), not disabled by LEGIONSOLVERS_NO_SSTEP.  Pieces qualify on
+        |dy| <= 1 and |dx| < C; the strip march for a reach-1 stencil, the
+        march along the flat index for the 1-D view of a 1-D stencil that
+        ``csrc/flat1d.cu`` compiles, the general route for any other), not
+        disabled by LEGIONSOLVERS_NO_SSTEP.  Pieces qualify on
         a mesh with blocks of at least 2 * STRIP rows, so that the two edge
         strips of a piece do not overlap, and with no |dx| past MAX_DX, as
         in the JAX package; the passes stay zero-halo and
@@ -649,7 +650,7 @@ class StencilOperator:
             if (self.mesh is None or v["Br"] < 2 * STRIP or v["flat"]
                     or any(abs(dx) > MAX_DX for _, dx in v["offs"])):
                 return False
-        return step2_supported(v["Br"], v["C"], v["offs"])
+        return step2_supported(v["Br"], v["C"], v["offs"], v["vals"])
 
     def _make_step2_cg_runner(self, num_iterations: int):
         """s-step fused CG: one K1 pass per TWO iterations, both

@@ -46,7 +46,12 @@ neighbours, against their plain versions (the 3-D bounds above), and the
 versions (rtol 1e-3, x 1e-3 of max|x|).  The fused 2-D BiCGStab on 4
 pieces, f32 and compensated dots, one and two iterations against the
 plain-driven runner and two against one piece (rtol 1e-4, x 1e-4 of
-max|x|), K5a-c launched once per piece per iteration.  Wide z shifts
+max|x|), K5a-c launched once per piece per iteration.  The 1-D view
+(``-k "flat or cross_unchanged"``): K1 and K2 on the march along the flat
+index (``csrc/flat1d.cu``) at views whose length falls one float4 past and
+one element short of a run, their registers, spill and residency, and the
+2-D cross's K1 and K2 at 4096^2 (the strip march without its WRAP
+branch) under phase 3's bounds.  Wide z shifts
 (``-k "wide3d or window or nop"``): K6a's four modes, K6b and K7 with the
 wide-z stencil (|oz| up to 128) and the reach-2 star at Z not a multiple
 of 128, X = 1, Y < 8 and |oz| = Z - 1, against their plain versions (the
@@ -1558,10 +1563,10 @@ def test_k9_on_piece_ext2_plans_on_card(dtype, cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# The 1-D kernel view (the strip march with WRAP on the 1-D stencil) and
-# the tile kernels' wide column shifts, against the plain versions on the
-# decomposed offsets: widths C = 128 and 1000 (scalar loads), ragged rows,
-# C = 4096 with rows past one chunk
+# The 1-D kernel view (K3, K4, K5b: the strip march with WRAP on the 1-D
+# stencil; K1, K2: the march along the flat index) and the tile kernels'
+# wide column shifts, against the plain versions on the decomposed offsets:
+# widths C = 128 and 1000, ragged rows, C = 4096 with rows past one chunk
 # ---------------------------------------------------------------------------
 
 FLAT_SHAPES = [(8, 128), (37, 1000), (203, 4096), (3, 1000)]
@@ -1599,12 +1604,20 @@ def test_k3_k4_wide_match_plain_on_card(mode, shape, stencil, halos,
                     vals, cuda_device)
 
 
+# K1 and K2's flat march (csrc/flat1d.cu) also at views whose n = R C
+# lies one float4 past (2052) and one element short of (2047) a run of 16
+# segments, so that a run and the vector end in different places
+FLAT_RUN_SHAPES = FLAT_SHAPES + [(513, 4), (23, 89)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", FLAT_SHAPES)
+@pytest.mark.parametrize("shape", FLAT_RUN_SHAPES)
 def test_k1_k2_flat_match_plain_on_card(shape, cuda_device):
-    """K1 and K2 on the flat route against step2_plain and gram2_plain on
-    the decomposed offsets (phase 3's bounds), repeats bit for bit."""
+    """K1 and K2 on the flat route (the march along the flat index)
+    against step2_plain and gram2_plain on the decomposed offsets (phase
+    3's bounds), repeats bit for bit."""
     offs, vals = _flat1d(shape[1])
+    assert T.route(offs, vals, shape[1], sstep=True)[0] == "flat"
     rng = np.random.default_rng(29)
     d = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
                              ).to(cuda_device) for k in ("x", "r", "p")}
@@ -1625,6 +1638,75 @@ def test_k1_k2_flat_match_plain_on_card(shape, cuda_device):
     for have, want in zip(k1[:3], ref[:3]):
         np.testing.assert_allclose(have.numpy(), want.numpy(), rtol=0,
                                    atol=1e-5 * want.abs().max().item())
+    bound = gram_bounds(ref[1].numpy(), ref[2].numpy(), offs, vals)
+    np.testing.assert_array_less(
+        np.abs(k1[3].double().numpy() - ref[3].double().numpy()),
+        1e-4 * bound)
+    bound = gram_bounds(d["r"].cpu().numpy(), d["p"].cpu().numpy(), offs,
+                        vals)
+    np.testing.assert_array_less(np.abs((g1 - gref).numpy()), 1e-4 * bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1, 2, 3])
+def test_flat_attrs_on_card(which, cuda_device):
+    """Each flat-route kernel (K1 and K2, scalar and 16-byte loads) fits
+    its launch bounds' resident blocks per SM (K1 4, 3 with scalar loads;
+    K2 5) with no spill; the library's flat geometry, targets and 1-D
+    stencil equal the Python mirror's."""
+    import ctypes
+
+    from legionsolvers_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    out = (ctypes.c_int * 4)()
+    assert lib.ls_flat_attrs(which, out) == 0
+    regs, spill, per_sm, smem = out
+    blocks = (3, 4, 5, 5)[which]
+    assert 0 < regs <= 65536 // (128 * blocks), list(out)
+    assert spill == 0 and per_sm >= blocks, list(out)
+    assert 0 < smem <= 1024, smem
+    assert [lib.ls_flat_target_warps(k) for k in range(2)] == \
+        list(T.FLAT_TARGETS)
+    geo = (ctypes.c_longlong * 4)()
+    for shape in FLAT_RUN_SHAPES + [(4096, 4096)]:
+        for target in T.FLAT_TARGETS:
+            assert lib.ls_flat_geometry(*shape, target, geo) == 0
+            assert tuple(geo) == T.flat_geometry(*shape, target), shape
+    shifts = (ctypes.c_int * 3)()
+    assert lib.ls_flat_shifts(shifts) == 0
+    assert tuple(shifts) == T.FLAT_SHIFTS
+
+
+@pytest.mark.cuda
+def test_k1_k2_cross_unchanged_on_card(cuda_device):
+    """The 2-D cross's K1 and K2 at 4096^2 (the main path, on the strip
+    march, which lost its WRAP branch) against step2_plain and gram2_plain
+    under phase 3's bounds, repeats bit for bit, one strip launch each and
+    no flat one."""
+    shape = (4096, 4096)
+    assert T.route(KW["offsets"], KW["values"], 4096, sstep=True)[0] == \
+        "strip"
+    rng = np.random.default_rng(31)
+    d = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(cuda_device) for k in ("x", "r", "p")}
+    coef = T.cg2_coeffs(T.gram2_plain(d["r"], d["p"], **KW))[0]
+    T.reset_launch_counts()
+    runs = []
+    for fn in (T.grid2d_cg_step2, T.grid2d_cg_step2, T.step2_plain):
+        c = {k: v.clone() for k, v in d.items()}
+        runs.append([t.cpu() for t in fn(c["x"], c["r"], c["p"], coef,
+                                         **KW)])
+    g1, g2, gref = (fn(d["r"], d["p"], **KW).double().cpu() for fn in (
+        T.grid2d_cg_gram2, T.grid2d_cg_gram2, T.gram2_plain))
+    assert dict(T.LAUNCHES) == {"step2": 2, "gram2": 2}
+    k1, k2, ref = runs
+    assert all(torch.equal(a, b) for a, b in zip(k1, k2))
+    assert torch.equal(g1, g2)
+    for have, want in zip(k1[:3], ref[:3]):
+        np.testing.assert_allclose(have.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+    offs, vals = KW["offsets"], KW["values"]
     bound = gram_bounds(ref[1].numpy(), ref[2].numpy(), offs, vals)
     np.testing.assert_array_less(
         np.abs(k1[3].double().numpy() - ref[3].double().numpy()),
