@@ -19,17 +19,22 @@ DIR]`` runs phase 4d's f32 BiCGStab on the 7-point system at 256^3 (dim 3,
 the default), on the 27-point one (dim 4), or phase 4b's on the 5-point
 system at 4096^2 (dim 2; N^2 with ``--size``) from several right-hand
 sides (:func:`breakdown`).
+``--band-accuracy [--tree DIR]`` runs the two-pass CG of 4n's S2_gen and
+S2_4x systems from several right-hand sides, with the kernels and driven
+by the plain versions, against float64 CG (:func:`band_accuracy`).
 ``--passes [--tree DIR]`` prints the times of K3, K4, K5b, K2 and K1 at
-4096^2 that ``--solves`` takes (:func:`time_ab_passes_2d`) and nothing
-else.  ``--blocks`` runs phases 4i and 5i (block systems) and nothing
+4096^2 that ``--solves`` takes (:func:`time_ab_passes_2d`), and K3's four
+modes and K4 with the band route's stencils (S2_4x, S2_gen and 4l's
+wide_kw at 4096^2: the band route of this tree, the tile kernels of a tree
+from before it), and nothing else.  ``--blocks`` runs phases 4i and 5i (block systems) and nothing
 else, ``--pieces`` phases 4j and 5j (pieces on one card),
 ``--explicit-pieces`` phases 4k and 5k (explicit matrices on pieces; it
 builds the one-piece DIA and scrambled systems of 4e-f too, to compare),
 ``--flat1d`` phases 4l and 5l (the 1-D kernel view at 2^24 unknowns),
 ``--wide3d`` phases 4m and 5m (wide z shifts on the 3-D kernels at 256^3)
 and K1's nop mode (its check and its time), ``--wide2d`` phases 4n and 5n
-(K1 and K2 on their general route, 2-D stencils with wide column shifts,
-at 4096^2).
+(K1 and K2 on their general route and K3 and K4 on the band route, 2-D
+stencils with wide column shifts, at 4096^2).
 
 Phases (any failure raises, and the exit code is non-zero):
 
@@ -51,8 +56,9 @@ Phases (any failure raises, and the exit code is non-zero):
    K1's column-strip march, at 200 x 328, 33 x 4097, 4099 x 130, 1 x 5
    and 96 x 132 with the cross and the 9-point stencil (and K5b with a
    reach-2 cross, which runs the tile kernel), to the same bounds and bit
-   for bit on a repeat; a torch.profiler trace shows that the strip passes
-   launch one kernel and no reduce_partials, and that reach-2 K5b
+   for bit on a repeat, and so K3 (four modes) and K4 (reach 2: the band
+   route); a torch.profiler trace shows that the strip passes and the band
+   route launch one kernel and no reduce_partials, and that reach-2 K5b
    launches its second.  The strip kernels' registers, spill bytes and
    resident blocks per SM are printed after the build;
 4. drive the CG path, ``entry.build_system(4096)`` -> ``CGSolver``: a
@@ -286,8 +292,9 @@ grid as ``[n // C, C]`` and the kernels run its row-wrap terms, |dx| = C -
    four modes, K4 and K5b on the strip march with WRAP, K2 and K1 on the
    march along the flat index (``csrc/flat1d.cu``), K5a and K5c on the
    tile kernels' wide terms (compensated dots off and on), and
-   the tile kernels' wide terms of K3, K4 and K5 with (0, +-37), (1, -(C -
-   1)) and (-8, 100); phase 3's bounds and repeats bit for bit.  Then
+   the wide terms of K3 and K4 (the band route, ``csrc/band2d.cu``) and K5
+   (the tile kernels) with (0, +-37), (1, -(C - 1)) and (-8, 100); phase
+   3's bounds and repeats bit for bit.  Then
    ``entry.build_stencil_system(1, (2^24,))`` on one piece and on 4 pieces
    (Br 1024): s-step CG (K1 100, K2 7), two-pass CG (K3 pq 1, update 200,
    K4 199), fused BiCGStab (K5a-c 200 each), PCG (K3 y_dot 200) and
@@ -304,8 +311,8 @@ grid as ``[n // C, C]`` and the kernels run its row-wrap terms, |dx| = C -
 5l. each route's time at [4096, 4096] with CUDA events and in CUDA graphs
    beside its plain version and bound; K1's and K2's flat kernels'
    registers, spill, blocks per SM and shared memory and their ms lost per
-   s-step solve(200); the tile kernels' wide terms at 4096^2 beside the
-   same bound and their ms lost per two-pass CG or BiCGStab solve(200);
+   s-step solve(200); the wide terms (K3 and K4 on the band route, K5 on
+   the tile kernels) at 4096^2 beside the same bound and their ms lost per two-pass CG or BiCGStab solve(200);
    and each 4l solve's ms/iter, host enqueue and idle share (a
    torch.profiler trace).  ``--flat1d`` runs 4l and 5l alone.
 
@@ -361,13 +368,31 @@ the cooperative kernel:
    the two-pass schedule, no plain version called, a repeat bit for bit,
    every launch of a third run held to its plain version
    (:class:`shadowed`), and history and x within twice textbook f32 CG's
-   distance from float64 CG (floor 1e-4);
+   distance from float64 CG (floor 1e-4).  The band route of K3 (four
+   modes) and K4 (``csrc/band2d.cu``): against their plain versions with
+   S2_gen, S2_4x and wide_kw at 4096^2 and at BAND_EDGE_SHAPES (C = 128,
+   1000 columns under one strip, 3 rows under wide_kw's ring, 130 columns
+   on scalar loads, a ragged last band, two strips at 5000 columns, a
+   quarter-height piece), null and random halo blocks, and a stencil past
+   its gate (a row span of 17) on the tile kernels: phase 3's bounds and
+   repeats bit for bit; its registers, spill bytes, shared memory and
+   blocks per SM (``[band2d]``); the two-pass CG solve(200) with S2_gen
+   on one piece and on 4 pieces and with S2_4x on one piece, each
+   launching exactly K3 pq 1, update 200 and K4 199 per piece on the band
+   route, PCG (K3 y_dot 200) and GMRES(10) x 3 (K3 y 34) with S2_gen, no
+   plain version called, a repeat bit for bit, the CG history and x within
+   twice textbook f32 CG's distance from float64 CG (PCG's against
+   textbook f32 PCG), GMRES non-increasing, every launch on 4 pieces held
+   to its plain version;
 5n. K1 on the band march with S2_gen and S2_4x, K1 on the cooperative
    kernel with S2_far and K2 with S2_gen and S2_4x at 4096^2 with CUDA
    events and in CUDA graphs beside their plain versions, and the
    S2_gen and S2_4x solves' ms/iter, host enqueue and idle share on the
    s-step schedule and under LEGIONSOLVERS_NO_SSTEP (the two-pass
-   schedule).  ``--wide2d`` runs 4n and 5n alone.
+   schedule, K3 and K4 on the band route); K3's four modes and K4 on the
+   band route with S2_gen, S2_4x and wide_kw at 4096^2 the same way, and
+   ``F.conv2d`` over S2_4x's 3 x 5 and S2_gen's 3 x 201 box computing K3's
+   y.  ``--wide2d`` runs 4n and 5n alone.
 
 To make room for 4m and 5m, phase 5j's and 5k's idle traces cover about
 TRACE_OPS (2000) glue operations each, a third of what they did.
@@ -790,7 +815,7 @@ def one_pass_inputs(torch, shape, halos, device, seed=43):
 
 def compare_one_pass_edges(torch, T, device):
     """Phase 3, K3 (four modes) and K4 at STRIP_SHAPES with STRIP_STENCILS
-    (reach 1: the strip kernels; reach 2: the tile kernels), without and
+    (reach 1: the strip kernels; reach 2: the band route), without and
     with random halo blocks, against their plain versions to phase 3's
     bounds (elementwise 1e-5 * max|ref|, each dot 1e-4 of its
     Cauchy-Schwarz scale), and a repeat of the kernel on the same inputs,
@@ -845,10 +870,10 @@ def compare_one_pass_edges(torch, T, device):
 def check_one_launch_2d(torch, T, TB, device):
     """Phase 3: K5b with the reach-1 stencils (compensated dots off and on),
     K2, K3 (four modes) and K4 launch one kernel, their strip kernel, and
-    no reduce_partials; K5b, K3 and K4 with the reach-2 stencil launch the
-    tile kernel and its second launch (K3 y, which has no dot, the tile
-    kernel alone), which shows that the trace sees a second launch.
-    Returns {case: kernel names}."""
+    no reduce_partials; K3 and K4 with the reach-2 stencil one kernel, the
+    band route's; K5b with it the tile kernel and its second launch, which
+    shows that the trace sees a second launch.  Returns {case: kernel
+    names}."""
     g = torch.Generator(device=device).manual_seed(37)
     r, v = (torch.randn(RAGGED, generator=g, device=device)
             for _ in range(2))
@@ -874,21 +899,21 @@ def check_one_launch_2d(torch, T, TB, device):
         second = any("reduce_partials" in n for n in names)
         if "reach2" not in case:
             ok = len(names) == 1 and "strip_kernel" in names[0]
-        elif case == "y reach2":
-            ok = len(names) == 1 and "strip_kernel" not in names[0]
+        elif not case.startswith("bicg_st"):
+            ok = len(names) == 1 and "band_pass_kernel" in names[0]
         else:
             ok = second
         if not ok:
             bad.append((case, names))
-    log("[check2d] one launch per strip pass: "
+    log("[check2d] one launch per strip and band pass: "
         + ("yes" if not bad else f"NO: {bad}") + "; e.g. "
         + "; ".join(f"{k}: {seen[k]}" for k in (
             "bicg_st cross compensated=False", "gram2 cross",
             "update 9-point", "xpay_pq cross", "pq reach2",
             "bicg_st reach2 compensated=True")))
     if bad:
-        raise AssertionError(f"strip passes with a second launch, or "
-                             f"reach-2 passes without one: {bad}")
+        raise AssertionError(f"strip and band passes with a second launch, "
+                             f"or K5b's reach-2 pass without one: {bad}")
     return seen
 
 
@@ -1099,13 +1124,16 @@ def lap5(v):
     return out
 
 
-def classic_cg(xp, shape, iters, dtype=None, device=None, matvec=lap5):
+def classic_cg(xp, shape, iters, dtype=None, device=None, matvec=lap5,
+               rhs=None):
     """Textbook CG on ``matvec`` (default the 5-point Laplacian) over a
-    grid of ``shape``, b = 1, in numpy (``xp`` = numpy, float64) or torch
-    (``xp`` = torch, ``dtype`` on ``device``): (history, x), both
-    float64."""
+    grid of ``shape``, b = 1 (torch: ``rhs`` where given, rounded to
+    ``dtype``), in numpy (``xp`` = numpy, float64) or torch (``xp`` =
+    torch, ``dtype`` on ``device``): (history, x), both float64."""
     if device is None:
         b = xp.ones(shape)
+    elif rhs is not None:
+        b = rhs.to(dtype)
     else:
         b = xp.ones(shape, dtype=dtype, device=device)
     x, r, p = b * 0, b * 1, b * 1
@@ -2442,28 +2470,40 @@ def time_3d_solves(torch, T3, TB3, solvers, bw, card):
     return res
 
 
-def library_2d(torch, T, device, card):
-    """F.conv2d computing K3's y at 4096^2 (cuDNN, TF32 off), held to the
-    kernel's y: ms over a ring of three inputs."""
+def conv2d_y(torch, T, device, card, terms, seed, what):
+    """F.conv2d (cuDNN, TF32 off) computing K3's y at 4096^2 for the 2-D
+    stencil ``terms`` ({(dy, dx): v} pairs) over its dense box, zero padded
+    (the kernels' zero columns and null halo blocks), held to K3's y: ms
+    over a ring of three inputs."""
     import torch.nn.functional as F
 
-    w = torch.zeros(1, 1, 3, 3, device=device)
-    for (dy, dx), v in zip(OFFS, VALS):
-        w[0, 0, 1 + dy, 1 + dx] = v
-    g = torch.Generator(device=device).manual_seed(61)
+    hy = max(abs(dy) for (dy, _), _ in terms)
+    hx = max(abs(dx) for (_, dx), _ in terms)
+    w = torch.zeros(1, 1, 2 * hy + 1, 2 * hx + 1, device=device)
+    for (dy, dx), v in terms:
+        w[0, 0, hy + dy, hx + dx] = v
+    g = torch.Generator(device=device).manual_seed(seed)
     ring = [torch.randn(N_GRID, N_GRID, generator=g, device=device)
             for _ in range(3)]
-    y_ker = T.grid2d_stencil_matvec(ring[0], **KW)
-    y_lib = F.conv2d(ring[0][None, None], w, padding=1)[0, 0]
+    y_ker = T.grid2d_stencil_matvec(ring[0], **terms_kw(terms))
+    y_lib = F.conv2d(ring[0][None, None], w, padding=(hy, hx))[0, 0]
     err = (y_lib - y_ker).abs().max().item()
     if err > 1e-5 * y_ker.abs().max().item():
-        raise AssertionError(f"F.conv2d disagrees with K3 y: {err:g}")
+        raise AssertionError(f"F.conv2d disagrees with K3 y {what}: {err:g}")
     k = iter(range(10**9))
     ms = event_ms(torch, lambda: F.conv2d(ring[next(k) % 3][None, None], w,
-                                          padding=1), 30)
-    log(f"[time] F.conv2d y: {ms:.4f} ms (max abs diff from K3 y "
-        f"{err:.3g}) at {N_GRID}^2 f32 on {card}")
+                                          padding=(hy, hx)), 30)
+    log(f"[time] F.conv2d y {what} ({2 * hy + 1} x {2 * hx + 1} box): "
+        f"{ms:.4f} ms (max abs diff from K3 y {err:.3g}) at {N_GRID}^2 f32 "
+        f"on {card}")
     return ms
+
+
+def library_2d(torch, T, device, card):
+    """F.conv2d computing K3's y with the cross at 4096^2
+    (:func:`conv2d_y`)."""
+    return conv2d_y(torch, T, device, card, tuple(zip(OFFS, VALS)), 61,
+                    "with the cross")
 
 
 # ---------------------------------------------------------------------------
@@ -3533,8 +3573,9 @@ def time_ab_passes(torch, lt, device):
 
 def time_ab_passes_2d(torch, T, TB, device):
     """--solves and --passes: {"<K3 mode>" | "xpay_pq" | "bicg_st
-    compensated=<c>" | "gram2" | "step2": {"events": ms, "graph": ms}},
-    K3, K4, K5b, K2 and K1 with the cross at N_GRID^2, no halo blocks,
+    compensated=<c>" | "gram2" | "step2" | "<K3 mode or xpay_pq>
+    <stencil>": {"events": ms, "graph": ms}}, K3, K4, K5b, K2 and K1 with
+    the cross and K3 and K4 with BAND_STENCILS at N_GRID^2, no halo blocks,
     timed as :func:`time_ab_passes` times the 3-D passes (CUDA events, and
     CUDA graphs, over a ring of three input sets; K3 update in place with a
     tiny alpha, K4 into a spare buffer and K1 into a spare pair, as phase
@@ -3552,6 +3593,11 @@ def time_ab_passes_2d(torch, T, TB, device):
              for s in range(3)]
     for mode in (*ONE_PASS_NAMES, "step2"):
         cases[mode] = [kernel_call(T, mode, d, False) for d in ring1]
+    for st in BAND_STENCILS:
+        for mode in ONE_PASS_NAMES:
+            cases[f"{mode} {st}"] = [kernel_call(T, mode, d, False,
+                                                 band_kw(st, N_GRID))
+                                     for d in ring1]
     res = {}
     for name, fns in cases.items():
         k = iter(range(10**9))
@@ -5656,7 +5702,8 @@ def breakdown(torch, lt, device, card, dim=3, n=N_GRID):
 
 # ---------------------------------------------------------------------------
 # phase 4l: the 1-D kernel view (-dim 1): the flat route of the strip march
-# (WRAP), the tile kernels' wide column shifts, the 1-D solves at 2^24
+# (WRAP), the wide column shifts (band route, tile kernels), the 1-D solves
+# at 2^24
 # ---------------------------------------------------------------------------
 
 N_FLAT = 1 << 24  # -dim 1's unknowns: the view [4096, 4096], 64 MiB a vector
@@ -5695,7 +5742,8 @@ def flat_kw(T, C):
 
 def wide_kw(C):
     """The cross with column shifts past the tile's 8: (0, +-37), (1, -(C -
-    1)) and one 8 rows up, (-8, 100): the tile kernels' wide terms."""
+    1)) and one 8 rows up, (-8, 100): wide terms, which K3 and K4 read on
+    the band route and K5 beside the tile."""
     return dict(offsets=OFFS + ((0, 37), (0, -37), (1, -(C - 1)), (-8, 100)),
                 values=VALS + (-0.25, -0.25, -0.5, -0.125))
 
@@ -5737,8 +5785,8 @@ def compare_flat_kernels(torch, T, TB, device):
     plain version on the decomposed offsets, at full width ([4096, 4096],
     random halo blocks) and at FLAT_EDGES (halo blocks null and random):
     K3's four modes, K4, K2, K1 and K5a-c (compensated dots off and on);
-    and the tile kernels' wide terms (:func:`wide_kw`) of K3, K4 and K5 at
-    FLAT_EDGES.  Phase 3's bounds (elementwise 1e-5 * max|ref|, dots 1e-4
+    and the wide terms (:func:`wide_kw`) of K3 and K4 (the band route) and
+    K5 (the tile kernels) at FLAT_EDGES.  Phase 3's bounds (elementwise 1e-5 * max|ref|, dots 1e-4
     of their Cauchy-Schwarz scale), and a repeat on the same inputs bit
     for bit.  Returns ({pass: max abs error} of the flat route, the same
     of the wide terms)."""
@@ -5750,8 +5798,12 @@ def compare_flat_kernels(torch, T, TB, device):
     for shape, st, halos in cases:
         kw = flat_kw(T, shape[1]) if st == "flat" else wide_kw(shape[1])
         route = T.route(kw["offsets"], kw["values"], shape[1])[0]
-        if route != ("flat" if st == "flat" else "tile"):
-            raise AssertionError(f"{st} {shape} takes the {route} route")
+        k5_route = T.route(kw["offsets"], kw["values"], shape[1],
+                           bicg=True)[0]
+        if (route, k5_route) != (("flat", "flat") if st == "flat"
+                                 else ("band", "tile")):
+            raise AssertionError(f"{st} {shape} takes the {route} route "
+                                 f"(K5: {k5_route})")
         d = flat_inputs(torch, T, shape, 53, device, halos, kw)
         worst, case = 0.0, f"{shape} {st} halos={halos}"
         modes = list(ONE_PASS_NAMES) + (["gram2", "step2"] if st == "flat"
@@ -5806,7 +5858,7 @@ def compare_flat_kernels(torch, T, TB, device):
                     e = errs[st]
                     e[name] = max(e.get(name, 0.0), err.item())
                     worst = max(worst, err.item())
-        log(f"[flat1d] {case} ({route} route): K3, K4"
+        log(f"[flat1d] {case} ({route} route; K5 {k5_route}): K3, K4"
             + (", K2, K1" if st == "flat" else "") + ", K5 (compensated "
             f"off, on) == plain (max abs err {worst:.3g}); repeats bit for "
             "bit")
@@ -6023,8 +6075,8 @@ def flat1d_path(torch, np, T, TB, lt, device):
 def time_flat1d(torch, T, TB, device, bw, card, solvers):
     """Phase 5l.  Each 1-D route at full width ([4096, 4096]) with CUDA
     events over a ring of three input sets, beside its plain version and
-    in CUDA graphs; the tile kernels' wide terms (:func:`wide_kw`) of K3,
-    K4 and K5 at 4096^2 the same way; each FLAT_RUNS solve's ms/iter and
+    in CUDA graphs; the wide terms (:func:`wide_kw`) of K3 and K4 (the
+    band route) and K5 (the tile kernels) at 4096^2 the same way; each FLAT_RUNS solve's ms/iter and
     host enqueue ms/iter (:func:`solve_ms`) and its idle share, 1 - its
     device time (a torch.profiler trace) over its wall.  Returns
     ({pass: (ms, plain ms, graph ms)} of the flat route, the same of the
@@ -6198,7 +6250,9 @@ def flat1d_rows(T, launches, grid_launches, errs, times, bw, conv1d_ms,
                        wide_pct_of_bound=100 * row["bound_ms"] / wms,
                        wide_ms_lost_per_solve200=WIDE_200.get(m, 0) * (
                            wms - row["bound_ms"]))
-            log(f"[time] 1-D view {m:11s} wide terms (tile) {wms:.4f} ms "
+            wroute = "tile" if m in BICG_KERNELS else "band"
+            row["wide_route"] = wroute
+            log(f"[time] 1-D view {m:11s} wide terms ({wroute}) {wms:.4f} ms "
                 f"(graphs {wg:.4f}), bound {row['bound_ms']:.4f} "
                 f"({row['wide_pct_of_bound']:.1f}%), "
                 f"{WIDE_200.get(m, 0)} launches per two-pass CG or BiCGStab "
@@ -6853,6 +6907,28 @@ def gen_route(name):
     return route(kw["offsets"], kw["values"], N_GRID, sstep=True)[0]
 
 
+_GEN_REFS = {}
+
+
+def gen_refs(torch, device):
+    """{stencil: (float64 CG history, float64 x, textbook f32 CG's
+    (history, x) distance from them)} of GEN_STENCILS at 4096^2, b = 1, x0
+    = 0, solve(N_ITERS); made once (phases 4n's s-step and two-pass
+    solves share them)."""
+    if not _GEN_REFS:
+        shape = (N_GRID, N_GRID)
+        for name, terms in GEN_STENCILS.items():
+            A = terms_matvec(torch, terms)
+            h64, x64 = classic_cg(torch, shape, N_ITERS, torch.float64,
+                                  device, A)
+            h32, x32 = classic_cg(torch, shape, N_ITERS, torch.float32,
+                                  device, A)
+            _GEN_REFS[name] = (h64, x64, (rel_dev(h32, h64).max().item(),
+                                          x_rel(x32, x64)))
+            del x32
+    return _GEN_REFS
+
+
 def general_path(torch, np, T, TB, lt, device):
     """Phase 4n, the solves: ``entry.build_stencil_system(2, (4096,
     4096), stencil=...)`` with S2_gen on one piece and on 4 pieces of the
@@ -6873,14 +6949,7 @@ def general_path(torch, np, T, TB, lt, device):
 
     f32 = lt.SolverOptions(entry_dtype=torch.float32)
     shape = (N_GRID, N_GRID)
-    dist = lambda h, x, hr, xr: (rel_dev(h, hr).max().item(), x_rel(x, xr))
-    refs = {}
-    for name, terms in GEN_STENCILS.items():
-        A = terms_matvec(torch, terms)
-        h64, x64 = classic_cg(torch, shape, N_ITERS, torch.float64, device, A)
-        h32, x32 = classic_cg(torch, shape, N_ITERS, torch.float32, device, A)
-        refs[name] = (h64, x64, dist(h32, x32, h64, x64))
-        del x32
+    refs = gen_refs(torch, device)
     launches, grid_launches, results, solvers, failed = {}, {}, {}, {}, []
     for name, (st, pieces, spaces, want) in GEN_RUNS.items():
         mesh = (make_mesh(pieces, devices=[device] * pieces) if pieces > 1
@@ -7090,6 +7159,411 @@ def general_rows(results, errs, times, bw, attrs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 4n, the band route: K3 (four modes) and K4 for the 2-D stencils off
+# the strip and flat routes (csrc/band2d.cu); phase 5n: their times
+# ---------------------------------------------------------------------------
+
+BAND_CSRC = "legionsolvers_tpu_torch/csrc/band2d.cu"
+# the band route's stencils at 4096^2: 4n's S2_gen (13 terms, |dx| to 100,
+# a padded window) and S2_4x (7 terms), and 4l's wide_kw (9 terms, rows -8
+# .. 1, (1, -4095): the window clipped to the row)
+BAND_STENCILS = ("S2_gen", "S2_4x", "wide_kw")
+# (R, C): a width under one strip and rows shorter than wide_kw's ring of
+# 11 (3 rows); C = 128; C % 4 != 0 (130: scalar loads); a ragged last band
+# (203 rows of 4096, bands of 16); two strips (5000 columns); a
+# quarter-height piece of 4096^2 (64 bands)
+BAND_EDGE_SHAPES = ((8, 128), (37, 1000), (3, 1000), (203, 4096), (33, 130),
+                    (40, 5000), (1024, 4096))
+# a stencil past the gate (a row span of 17: 18 ring rows of 16 KB at
+# 4096 columns), which K3 and K4 run on the tile kernels
+BAND_PAST = ((64, 4096), "deep")
+BAND_PASSES = tuple(ONE_PASS_NAMES)
+TWO_PASS_200 = {"pq": 1, "update": N_ITERS, "xpay_pq": N_ITERS - 1}
+# name -> (stencil, pieces, solver, solve length, launches, environment)
+BAND_RUNS = {
+    "S2_gen two-pass CG": ("S2_gen", 1, "cg", N_ITERS, TWO_PASS_200,
+                           "LEGIONSOLVERS_NO_SSTEP"),
+    "S2_gen two-pass CG 4 pieces": (
+        "S2_gen", GEN_PIECES, "cg", N_ITERS,
+        {m: GEN_PIECES * c for m, c in TWO_PASS_200.items()},
+        "LEGIONSOLVERS_NO_SSTEP"),
+    "S2_4x two-pass CG": ("S2_4x", 1, "cg", N_ITERS, TWO_PASS_200,
+                          "LEGIONSOLVERS_NO_SSTEP"),
+    "S2_gen PCG": ("S2_gen", 1, "pcg", N_ITERS, {"y_dot": N_ITERS}, None),
+    "S2_gen GMRES(10)": ("S2_gen", 1, "gmres", GMRES_CYCLES,
+                         {"y": 11 * GMRES_CYCLES + 1}, None),
+}
+BAND_PCG_WINDOW = 1e-3  # 4m's: PCG held where textbook f32 PCG is within it
+
+
+def band_kw(name, C):
+    """The band route's stencil ``name`` at width C (BAND_STENCILS, and
+    ``deep``: the cross with (-8, 100) and (8, -(C - 1)))."""
+    if name == "wide_kw":
+        return wide_kw(C)
+    if name == "deep":
+        return dict(offsets=OFFS + ((-8, 100 % C), (8, -(C - 1))),
+                    values=VALS + (-0.25, -0.25))
+    return terms_kw(GEN_STENCILS[name])
+
+
+def compare_band_kernels(torch, T, device):
+    """Phase 4n, the band route's kernels: K3's four modes and K4 against
+    their plain versions with BAND_STENCILS at 4096^2 (random halo blocks)
+    and at BAND_EDGE_SHAPES (null and random halo blocks), each on the band
+    route, and BAND_PAST's stencil on the tile kernels: phase 3's bounds
+    (elementwise 1e-5 * max|ref|, each dot 1e-4 of its Cauchy-Schwarz
+    scale) and a repeat on the same inputs bit for bit.  Returns {pass:
+    max abs error} on the band route."""
+    errs = dict.fromkeys(BAND_PASSES, 0.0)
+    cases = [((N_GRID, N_GRID), st, True) for st in BAND_STENCILS]
+    cases += [(shape, st, halos) for shape in BAND_EDGE_SHAPES
+              for st in BAND_STENCILS for halos in (False, True)
+              if st != "S2_gen" or shape[1] > 100]
+    cases += [(BAND_PAST[0], BAND_PAST[1], True)]
+    for shape, st, halos in cases:
+        kw = band_kw(st, shape[1])
+        route = T.route(kw["offsets"], kw["values"], shape[1])[0]
+        want = "tile" if st == BAND_PAST[1] else "band"
+        if route != want:
+            raise AssertionError(f"{st} at {shape} takes the {route} route, "
+                                 f"not {want}")
+        d = one_pass_inputs(torch, shape, halos, device, seed=83)
+        case = f"{st} at {list(shape)} halos={'random' if halos else 'null'}"
+        worst = 0.0
+        for mode in BAND_PASSES:
+            k1, k2, ref = (run_mode(T, mode, d, plain, kw)
+                           for plain in (False, False, True))
+            torch.cuda.synchronize()
+            if not all(torch.equal(k1[k], k2[k]) for k in k1):
+                raise AssertionError(f"{mode} {case}: a repeat is not "
+                                     "bit-identical")
+            for key, r in ref.items():
+                err = (k1[key].double() - r.double()).abs().max().item()
+                bound = (one_pass_bound(torch, T, mode, d, ref, kw)
+                         if key == "dot" else 1e-5 * r.abs().max().item())
+                if not err <= bound:
+                    raise AssertionError(f"{mode} {case} {key}: kernel "
+                                         f"disagrees with its plain version "
+                                         f"({err:g} > {bound:g})")
+                if route == "band":
+                    errs[mode] = max(errs[mode], err)
+                worst = max(worst, err)
+        log(f"[band] K3, K4 with {case} ({route} route) == plain (max abs "
+            f"err {worst:.3g}); repeats bit for bit")
+        del d
+    return errs
+
+
+def band_path(torch, np, T, lt, device):
+    """Phase 4n, the solves on the band route: ``entry.build_stencil_system
+    (2, (4096, 4096), stencil=...)`` with S2_gen on one piece and on 4
+    pieces of the card and with S2_4x on one piece, each CG solve(200) on
+    the two-pass schedule (LEGIONSOLVERS_NO_SSTEP: K3 pq once, then K4 and
+    K3 update), and PCG and GMRES(10) with S2_gen: launches counted exactly
+    (counts set to 0 just before each solve, read just after; K3 and K4 on
+    the band route per the operator's view), no plain version called, a
+    repeat from the same state bit for bit; the two-pass CG's history and
+    x within twice textbook f32 CG's distance from float64 CG (floor
+    GEN_F64_FLOOR, 4n's), PCG the same against textbook f32 PCG over the
+    entries where it stays within BAND_PCG_WINDOW of float64 CG, GMRES(10)
+    non-increasing within GMRES_SLACK; on 4 pieces also every launch held
+    to its plain version (:class:`shadowed`), and the CG history and x
+    within twice the larger of textbook f32 CG's distance from float64 CG
+    and the distance of the same schedule on the same pieces driven by the
+    plain versions (:func:`plain_driven`): the pieces' schedule sums each
+    dot per piece, patched by f32 edge terms, in f32 (``_psum``), and on b
+    = 1 its plain-driven run itself misses twice textbook f32's distance
+    (ROADMAP queue 3, P9).  Returns (launches by pass, whole-grid launches
+    by pass, results, {run: solver}, failed)."""
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    shape = (N_GRID, N_GRID)
+    refs = gen_refs(torch, device)
+    h64g, x64g, _ = refs["S2_gen"]
+    c32, cx32 = textbook_pcg(torch, shape, N_ITERS, torch.float32, device,
+                             terms_matvec(torch, S2_GEN), S2_GEN[0][1])
+    wpcg = agree_window(c32, h64g, BAND_PCG_WINDOW)
+    text_pcg = (rel_dev(c32[:wpcg], h64g[:wpcg]).max().item(),
+                x_rel(cx32, x64g))
+    del cx32
+    launches, grid_launches, results, solvers, failed = {}, {}, {}, {}, []
+    for name, (st, pieces, kind, iters, want, env) in BAND_RUNS.items():
+        mesh = (make_mesh(pieces, devices=[device] * pieces) if pieces > 1
+                else None)
+        planner = build_stencil_system(2, shape, f32, device, mesh=mesh,
+                                       stencil=list(GEN_STENCILS[st]))
+        op = planner.row_partitioned_matrices[0][0]
+        v = op._view
+        solver = flat_solver(lt, planner, kind)
+        with env_route(env, solver), counted_calls(plain_names(T),
+                                                   solver) as plain:
+            view_ok = (op.uses_pallas and v["kind"] == "2d"
+                       and v["Br"] * pieces == N_GRID
+                       and T.route(v["offs"], v["vals"], v["C"])[0]
+                       == "band")
+            hist, x, counts = counted_solve(torch, T, solver, iters)
+            hist2, x2, _ = counted_solve(torch, T, solver, iters)
+        solvers[name] = solver
+        checks = {"K3 and K4 on the band route": view_ok,
+                  f"launches {want}": counts == want,
+                  "no plain version called": not plain.calls,
+                  "a repeat from the same state is bit-identical":
+                      same_bits(hist, hist2) and same_bits(x, x2),
+                  "finite history": bool(torch.isfinite(hist).all())}
+        del x2
+        res = {"launches": counts, "plain_calls": dict(plain.calls),
+               "hist_first_last": (hist[0].item(), hist[-1].item())}
+        rule = f"(floor {GEN_F64_FLOOR})"
+        ref_name = "textbook f32 CG's distance"
+        if pieces > 1:
+            with env_route(env, solver), shadowed(T, solver) as sh:
+                restart(solver)
+                solver.solve(iters)
+                torch.cuda.synchronize()
+            T.reset_launch_counts()
+            res["kernel vs plain per launch"] = sh.worst
+            res["share of bound per launch"] = sh.share
+            checks["every launch within its plain version's bounds"] = (
+                not sh.bad and sh.calls == want)
+            if kind == "cg":
+                h64, x64, _ = refs[st]
+                with env_route(env, solver), plain_driven(T, solver,
+                                                          cg_plain(T)):
+                    hp, xp, _ = counted_solve(torch, T, solver, iters)
+                res["plain-driven vs_f64"] = (rel_dev(hp, h64).max().item(),
+                                              x_rel(xp, x64))
+                ref_name = ("the larger of textbook f32 CG's and the "
+                            "plain-driven schedule's distance")
+                del xp
+        if kind == "cg":
+            h64, x64, text = refs[st]
+            got = (rel_dev(hist, h64).max().item(), x_rel(x, x64))
+            res["vs_f64"] = {"kernel": got, "textbook f32": text}
+            ref = text
+            if "plain-driven vs_f64" in res:
+                ref = tuple(map(max, text, res["plain-driven vs_f64"]))
+            checks[f"history and x within twice {ref_name} from float64 "
+                   f"{rule}"] = (
+                got[0] <= max(2 * ref[0], GEN_F64_FLOOR)
+                and got[1] <= max(2 * ref[1], GEN_F64_FLOOR))
+        elif kind == "pcg":
+            got = (rel_dev(hist[:wpcg], h64g[:wpcg]).max().item(),
+                   x_rel(x, x64g))
+            res["vs_f64"] = {"kernel": got, "textbook f32 pcg": text_pcg}
+            res["window"] = wpcg
+            checks[f"history (first {wpcg} entries) and x within twice "
+                   f"textbook f32 PCG's distance from float64 CG {rule}"] = (
+                got[0] <= max(2 * text_pcg[0], GEN_F64_FLOOR)
+                and got[1] <= max(2 * text_pcg[1], GEN_F64_FLOOR)
+                and wpcg >= 2)
+        else:
+            h = hist.double()
+            rise = (h[1:] / h[:-1]).max().item()
+            res["largest_rise"] = rise - 1
+            checks[f"non-increasing within {GMRES_SLACK}"] = \
+                rise <= 1 + GMRES_SLACK
+        bad = [k for k, ok in checks.items() if not ok]
+        failed += [f"band {name}: {k}" for k in bad]
+        res["checks"] = checks
+        results[name] = res
+        for m, c in counts.items():
+            launches[m] = launches.get(m, 0) + c
+            grid_launches[m] = grid_launches.get(m, 0) + c / pieces
+        log(f"[band] {name} solve({iters}) at 4096^2: launches {counts}; "
+            f"residual^2 {hist[0].item():.6g} -> {hist[-1].item():.6g}; "
+            + "".join(f"{k} {res[k]}; " for k in (
+                "vs_f64", "plain-driven vs_f64", "window", "largest_rise",
+                "share of bound per launch") if k in res)
+            + (f"checks FAILED: {bad}" if bad else "checks hold"))
+        del x
+    return launches, grid_launches, results, solvers, failed
+
+
+BAND_ACC_RHS = 6  # --band-accuracy: b = 1 and five draws b = 1 + 0.01 z
+
+
+def band_accuracy(torch, lt, T, device, card):
+    """--band-accuracy [--tree DIR]: the two-pass CG solve(200)
+    (LEGIONSOLVERS_NO_SSTEP) on 4n's systems at 4096^2, S2_gen on one
+    piece from BAND_ACC_RHS right-hand sides (b = 1, then b = 1 + 0.01 z,
+    z drawn on the card from seeds 1, 2, ...) and on 4 pieces and S2_4x
+    on one piece from b = 1, through the package this process imports
+    (``--tree``: the tile kernels of a tree from before the band route),
+    and the same schedule driven by the plain versions: each run's history
+    and x distance from float64 CG beside textbook f32 CG's on the same
+    b, one log line and one JSON line per run (ROADMAP queue 3, P9)."""
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    shape = (N_GRID, N_GRID)
+    rows = []
+    for st, pieces, n_rhs in (("S2_gen", 1, BAND_ACC_RHS), ("S2_gen", 4, 1),
+                              ("S2_4x", 1, 1)):
+        A = terms_matvec(torch, GEN_STENCILS[st])
+        mesh = (make_mesh(pieces, devices=[device] * pieces) if pieces > 1
+                else None)
+        planner = build_stencil_system(2, shape, f32, device, mesh=mesh,
+                                       stencil=list(GEN_STENCILS[st]))
+        solver = lt.CGSolver(planner)
+        for k in range(n_rhs):
+            b = torch.ones(shape, device=device)
+            if k:
+                g = torch.Generator(device=device).manual_seed(k)
+                b += 0.01 * torch.randn(shape, generator=g, device=device)
+            h64, x64 = classic_cg(torch, shape, N_ITERS, torch.float64,
+                                  device, A, rhs=b)
+            h32, x32 = classic_cg(torch, shape, N_ITERS, torch.float32,
+                                  device, A, rhs=b)
+            text = (rel_dev(h32, h64).max().item(), x_rel(x32, x64))
+            planner.rhs_vectors[0].data.copy_(
+                b.reshape(planner.rhs_vectors[0].data.shape))
+            for route in ("kernels", "plain-driven"):
+                ctx = (plain_driven(T, solver, cg_plain(T))
+                       if route != "kernels" else env_route(None, solver))
+                with env_route("LEGIONSOLVERS_NO_SSTEP", solver), ctx:
+                    hist, x, counts = counted_solve(torch, T, solver,
+                                                    N_ITERS)
+                got = (rel_dev(hist, h64).max().item(), x_rel(x, x64))
+                row = {"stencil": st, "pieces": pieces,
+                       "rhs": "1" if not k else f"1 + 0.01 z, seed {k}",
+                       "route": route, "launches": counts, "vs_f64": got,
+                       "textbook f32 vs_f64": text,
+                       "within twice textbook (floor 1e-4)": all(
+                           a <= max(2 * t, GEN_F64_FLOOR)
+                           for a, t in zip(got, text))}
+                rows.append(row)
+                log(f"[band-accuracy] {st} on {pieces} piece(s), b = "
+                    f"{row['rhs']}, {route}: history {got[0]:.4g}, x "
+                    f"{got[1]:.4g} off float64 CG (textbook f32 {text[0]:.4g}"
+                    f", {text[1]:.4g}); launches {counts} on {card}")
+                log(json.dumps(row))
+                del x
+            del h64, x64, h32, x32
+    return rows
+
+
+def band_attrs(lib, T):
+    """{(pass, stencil): (registers, spill bytes, resident blocks per SM,
+    dynamic shared memory bytes)} of the band route's kernels (their
+    16-byte variant, each stencil's window) with BAND_STENCILS at 4096
+    columns, from ``ls_pass_band_attrs`` (cudaFuncGetAttributes and the
+    occupancy calculator), logged as ``[band2d]``; {} for a tree without
+    the band route (``--tree`` of an older tree)."""
+    import ctypes
+
+    if not hasattr(lib, "ls_pass_band_attrs"):
+        return {}
+    out = {}
+    for st in BAND_STENCILS:
+        kw = band_kw(st, N_GRID)
+        s = T._stencil_struct(kw["offsets"], kw["values"])
+        for which, m in enumerate(BAND_PASSES):
+            a = (ctypes.c_int * 4)()
+            err = lib.ls_pass_band_attrs(which, N_GRID, ctypes.byref(s), a)
+            if err:
+                raise RuntimeError(f"ls_pass_band_attrs({which}, {st}): "
+                                   f"error {err}")
+            out[m, st] = tuple(a)
+        lay = T.pass_layout(N_GRID, kw["offsets"])
+        log(f"[band2d] with {st} at {N_GRID} columns (ring row {lay[0]} "
+            f"floats, {'clipped' if lay[1] else 'padded'}, {lay[2]} rows): "
+            + "; ".join(f"{m} {out[m, st][0]} registers, {out[m, st][1]} B "
+                        f"spilled, {out[m, st][2]} blocks per SM, "
+                        f"{out[m, st][3]} B shared" for m in BAND_PASSES))
+    return out
+
+
+def library_band(torch, T, device, card):
+    """F.conv2d computing K3's y on the band route at 4096^2 over S2_4x's
+    3 x 5 box and S2_gen's 3 x 201 box (:func:`conv2d_y`): {stencil: ms}.
+    wide_kw has none: its box is 10 rows by 4196 columns (dx from -4095 to
+    100), 41,960 weights of which 9 are not zero."""
+    return {st: conv2d_y(torch, T, device, card, GEN_STENCILS[st], 63,
+                         f"with {st} (band route)")
+            for st in ("S2_4x", "S2_gen")}
+
+
+def time_band(torch, T, device, bw, card):
+    """Phase 5n, the band route: K3's four modes and K4 at 4096^2 with
+    BAND_STENCILS (no halo blocks, as the one-piece solves call them):
+    CUDA events over a ring of three input sets, CUDA graphs, and the
+    plain versions.  Returns {(pass, stencil): (ms, plain ms, graph ms)}."""
+    n = N_GRID * N_GRID
+    out = {}
+    for st in BAND_STENCILS:
+        kw = band_kw(st, N_GRID)
+        ring = [make_inputs(torch, T, (N_GRID, N_GRID), 94 + s, device)
+                for s in range(3)]
+        for m in BAND_PASSES:
+            fns = {plain: [kernel_call(T, m, d, plain, kw) for d in ring]
+                   for plain in (False, True)}
+            k = iter(range(10**9))
+            ms = event_ms(torch, lambda: fns[False][next(k) % 3](), 30)
+            plain_ms = event_ms(torch, lambda: fns[True][next(k) % 3](), 6)
+            g = graph_ms(torch, fns[False], 30)
+            sane(f"{m} band {st}", ms, KERNELS[m][2] * n, bw)
+            out[m, st] = (ms, plain_ms, g)
+            log(f"[time] band {m:8s} with {st}: kernel {ms:.4f} ms (CUDA "
+                f"graphs {g:.4f}), bound {KERNELS[m][2] * n / bw * 1e3:.4f}"
+                f", plain {plain_ms:.4f} ms at 4096^2 f32 on {card}")
+            del fns
+        del ring
+    return out
+
+
+def band_rows(results, errs, times, bw, attrs, conv):
+    """The kernels line's rows of the band route, one per K3 mode and K4:
+    launches from phase 4n's band runs (one piece, 4 pieces; launches on
+    pieces also in ``pieces_launches``), times from phase 5n at 4096^2 with
+    S2_gen (the stencil of most runs; S2_4x's and wide_kw's beside them),
+    registers, spill bytes, blocks per SM and shared memory with S2_gen,
+    and K3 y's library time (F.conv2d over S2_gen's box; S2_4x's beside
+    it)."""
+    n = N_GRID * N_GRID
+    rows = []
+    for m in BAND_PASSES:
+        launches = grid = on_pieces = 0
+        for name, (st, pieces, *_) in BAND_RUNS.items():
+            c = results[name]["launches"].get(m, 0)
+            launches += c
+            grid += c / pieces
+            on_pieces += c if pieces > 1 else 0
+        wrapper, line, bpe = KERNELS[m]
+        ms, plain_ms, g = times[m, "S2_gen"]
+        row = kernel_row(f"{wrapper} [{m}] band route", BAND_CSRC,
+                         f"{PALLAS}:{line}", launches, errs[m], ms, plain_ms,
+                         bpe * n, ops_per_elt(m, len(S2_GEN)) * n, bw,
+                         conv["S2_gen"] if m == "y" else None,
+                         grid_launches=grid)
+        row.update(graph_ms=g, kernel_route="band", stencil="S2_gen",
+                   pieces_launches=on_pieces)
+        if attrs:
+            regs, spill, per_sm, smem = attrs[m, "S2_gen"]
+            row.update(registers=regs, spill_bytes=spill,
+                       blocks_per_sm=per_sm, shared_memory_bytes=smem)
+        for other in ("S2_4x", "wide_kw"):
+            o_ms, o_plain, o_g = times[m, other]
+            row.update({f"{other}_ms": o_ms, f"{other}_plain_ms": o_plain,
+                        f"{other}_graph_ms": o_g})
+            if attrs:
+                row[f"{other}_attrs"] = attrs[m, other]
+        if m == "y":
+            row["S2_4x_library_ms"] = conv["S2_4x"]
+        rows.append(row)
+        log(f"[time] band {m:8s} with S2_gen {ms:.4f} ms (graphs {g:.4f}), "
+            f"bound {row['bound_ms']:.4f} ({row['pct_of_bound']:.1f}%), "
+            f"launches {launches}, {row['ms_lost']:.2f} ms lost at 4096^2")
+        if not launches:
+            raise AssertionError(f"{row['name']} never launched on the band "
+                                 "route's path")
+    return rows
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
                nflops, bw, library_ms=None, op_rate=F32_PEAK,
                grid_launches=None):
@@ -7260,17 +7734,28 @@ def main() -> int:
         errs_g = compare_general_kernels(torch, T, device)
         gn_launches, gn_grid, gn_results, gn_solvers, failed = general_path(
             torch, np, T, TB, lt, device)
+        battrs = band_attrs(build.load_library(), T)
+        errs_b = compare_band_kernels(torch, T, device)
+        bd_launches, bd_grid, bd_results, bd_solvers, f = band_path(
+            torch, np, T, lt, device)
+        failed += f
         mark("phase 4n")
         bw = copy_bandwidth(torch, device)
         gtimes, gsolves = time_general(torch, T, device, bw, card,
                                        gn_solvers)
+        band_times = time_band(torch, T, device, bw, card)
+        conv_b = library_band(torch, T, device, card)
         mark("phase 5n")
         rows = general_rows(gn_results, errs_g, gtimes, bw, gattrs)
+        rows += band_rows(bd_results, errs_b, band_times, bw, battrs, conv_b)
         log(json.dumps({"card": card, "wide2d": {
-            "paths": gn_results, "solves": gsolves, "kernels": rows}},
-            default=str))
+            "paths": {**gn_results, **bd_results}, "solves": gsolves,
+            "kernels": rows}}, default=str))
         if failed:
             raise AssertionError(f"checks failed: {failed}")
+        return 0
+    if "--band-accuracy" in argv:
+        band_accuracy(torch, lt, T, device, card)
         return 0
     if "--breakdown" in argv:
         dim = int(argv[argv.index("--dim") + 1]) if "--dim" in argv else 3
@@ -7367,6 +7852,11 @@ def main() -> int:
     gn_launches, gn_grid, gn_results, gn_solvers, f = general_path(
         torch, np, T, TB, lt, device)
     failed += f
+    battrs = band_attrs(build.load_library(), T)
+    errs_b = compare_band_kernels(torch, T, device)
+    bd_launches, bd_grid, bd_results, bd_solvers, f = band_path(
+        torch, np, T, lt, device)
+    failed += f
     mark("phase 4n")
     counts_h, cli_results, probes, cli_bw = cli_path(torch, np, T, lt,
                                                      device, card)
@@ -7417,6 +7907,8 @@ def main() -> int:
     conv_ms, conv_why = library_wide3d(torch, T3, device, card)
     mark("phase 5m")
     gtimes, gsolves = time_general(torch, T, device, bw, card, gn_solvers)
+    band_times = time_band(torch, T, device, bw, card)
+    conv_b = library_band(torch, T, device, card)
     mark("phase 5n")
     if "--profile" in sys.argv[1:]:  # last: tracing slows later launches
         profile_solve(torch, bsolver, "bicgstab_2d", card)
@@ -7583,6 +8075,10 @@ def main() -> int:
     # the general route of K1 and K2 (phase 4n): launches on one piece, on
     # pieces and in the block, times at 4096^2 (phase 5n)
     kernels += general_rows(gn_results, errs_g, gtimes, bw, gattrs)
+    # the band route of K3 and K4 (phase 4n): launches on one piece and on
+    # pieces, times at 4096^2 (phase 5n)
+    kernels += band_rows(bd_results, errs_b, band_times, bw, battrs,
+                         conv_b)
     report = {"card": card, "kind": kind, "build_s": build_s,
               "copy_GBps": bw_copy / 1e9, "k12_GBps": k12_bw / 1e9,
               "k12_turns_ms": k12_ms,
@@ -7632,6 +8128,12 @@ def main() -> int:
                                        for (m, c), t in ztimes.items()},
                          "conv3d_ms": conv_ms, "conv3d_note": conv_why},
               "nop_ms": nop_times,
+              "band": {"paths": bd_results,
+                       "kernel_ms": {f"{m} {st}": t for
+                                     (m, st), t in band_times.items()},
+                       "attrs": {f"{m} {st}": v for
+                                 (m, st), v in battrs.items()},
+                       "conv2d_ms": conv_b},
               "general": {"paths": gn_results, "solves": gsolves,
                           "kernel_ms": {f"{m} {kind} {st}": t for
                                         (m, kind, st), t in gtimes.items()},

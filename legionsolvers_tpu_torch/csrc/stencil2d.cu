@@ -7,9 +7,11 @@
 // (legionsolvers_tpu_torch/ops/cuda/build.py).
 //
 //   ls_stencil2d  K3  replaces _stencil_call (modes y, y_dot, pq, update)
-//                     (stencil_strip_kernel; other stencils stencil_kernel)
+//                     (stencil_strip_kernel; past the band route's gate,
+//                     stencil_kernel; the band route: band2d.cu)
 //   ls_xpay_pq    K4  replaces grid2d_cg_xpay_pq
-//                     (xpay_pq_strip_kernel; other stencils xpay_pq_kernel)
+//                     (xpay_pq_strip_kernel; past the band route's gate,
+//                     xpay_pq_kernel; the band route: band2d.cu)
 //   ls_gram2      K2  replaces _sstep_call mode gram2 (on the 1-D view's
 //                     flat route: ls_flat_gram2, flat1d.cu)
 //   ls_step2      K1  replaces _sstep_call mode step2 (flat route:
@@ -37,10 +39,12 @@
 // on the strip march with WRAP on the 1-D stencil (march2d.cuh): each
 // element is addressed by its flat index, so the wrap terms cost no extra
 // read; K1 and K2 there march along the flat index (flat1d.cu).  Any
-// other stencil (|dy| <= 8, |dx| < C) runs K3 and K4 on the tile design of
-// the first port, its terms with |dx| > 8 read from device memory beside
-// the tile (apply_at_wide: only the lanes whose column lands in the grid
-// load):
+// other stencil (|dy| <= 8, |dx| < C) runs K3 and K4 on the band route
+// (band2d.cu: a march down bands of rows with the operand's rows in a
+// shared-memory ring), or, past its gate (a ring that would not fit
+// shared memory), on the tile design of the first port, its terms with
+// |dx| > 8 read from device memory beside the tile (apply_at_wide: only
+// the lanes whose column lands in the grid load):
 //   * each block owns one TILE x TILE output tile and loads its inputs
 //     plus a halo into shared memory once (halo re-reads cost
 //     (TILE + 2h)^2 / TILE^2 - 1);
@@ -628,8 +632,9 @@ const char* ls_error_string(int err) {
 // one double) and counter its last-block counter (zero before the first
 // launch; the kernel leaves it zero; launches on one pair must be ordered,
 // one stream).  Any other stencil (|dy| <= 8, |dx| < C) runs the tile
-// kernel and reduce_partials: partials holds one float per tile, and
-// capacity and counter are unused.
+// kernel and reduce_partials (the wrappers send the stencils inside the
+// band route's gate to ls_stencil2d_band, band2d.cu): partials holds one
+// float per tile, and capacity and counter are unused.
 int ls_stencil2d(int mode, const float* x, const float* top, const float* bot,
                  float* y, float* xv, float* rv, const float* alpha,
                  float* dot, void* partials, int capacity, unsigned* counter,

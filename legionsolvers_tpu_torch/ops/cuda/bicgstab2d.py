@@ -193,7 +193,7 @@ def bicg_st(r, v, alpha, *, offsets, values, compensated: bool = False):
     al = _dev_scalars(alpha, 1, dev)
     # dot is fresh per pass: the runner keeps earlier passes' values
     dot = torch.empty(2, dtype=torch.float32, device=dev)
-    kind, k_offs, k_vals, wrap = route(offsets, values, C)
+    kind, k_offs, k_vals, wrap = route(offsets, values, C, bicg=True)
     st = _stencil_struct(k_offs, k_vals)
     if kind != "tile":
         partials, capacity, counter = _step2_scratch(dev, R, C)

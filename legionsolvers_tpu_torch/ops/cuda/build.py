@@ -119,10 +119,14 @@ def load_library() -> ctypes.CDLL:
     from .dia2d import DIA_ELEMS, MAX_DIA_TERMS
     from .rowperm import PIECE_ROWS
     from .stencil2d import (FLAT_SHIFTS, FLAT_TARGETS, GEN_UNIT_ELEMS,
-                            MAX_TERMS, STENCIL_REACH, STEP2_COLS,
-                            STEP2_MIN_ROWS, STEP2_WARPS, STRIP_TARGETS, TILE,
-                            WIDE_Z_REACH, band_geometry, band_stride,
-                            flat_geometry, general_units, strip_geometry)
+                            MAX_TERMS, PASS_COLS, PASS_MAX_STRIDE,
+                            PASS_MIN_ROWS, PASS_SLACK, PASS_SMEM_MAX,
+                            PASS_TARGET, PASS_THREADS, STENCIL_REACH,
+                            STEP2_COLS, STEP2_MIN_ROWS, STEP2_WARPS,
+                            STRIP_TARGETS, TILE, WIDE_Z_REACH, _stencil_struct,
+                            band_geometry, band_stride, flat_geometry,
+                            general_units, pass_geometry, pass_layout,
+                            strip_geometry)
     from .stencil3d import (CHUNK_X, _Stencil3, march1_geometry,
                             window3d_geometry)
     from .vpu_probe import C as VPU_C, TR as VPU_TR
@@ -131,6 +135,12 @@ def load_library() -> ctypes.CDLL:
     sigs = {
         "ls_stencil2d": [_I] + [_P] * 9 + [_I, _P, _I, _I, _P, _I, _P],
         "ls_xpay_pq": [_P] * 10 + [_I, _P, _I, _I, _P, _I, _P],
+        "ls_stencil2d_band": [_I] + [_P] * 9 + [_I, _P, _I, _I, _P, _P],
+        "ls_xpay_pq_band": [_P] * 10 + [_I, _P, _I, _I, _P, _P],
+        "ls_pass_band_geometry": [_I, _I, _P],
+        "ls_pass_band_layout": [_I, _P, _P],
+        "ls_pass_band_consts": [_P],
+        "ls_pass_band_attrs": [_I, _I, _P, _P],
         "ls_gram2": [_P] * 4 + [_I, _P, _I, _I, _P, _P],
         "ls_step2": [_P] * 8 + [_I, _P, _I, _I, _P, _P],
         "ls_flat_gram2": [_P] * 4 + [_I, _P, _I, _I, _P, _P],
@@ -250,6 +260,30 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError("csrc/sstep_general.cu and ops/cuda/"
                                "stencil2d.py disagree on the band march's "
                                f"gate at C {C}, |dx| {q}")
+    consts = (ctypes.c_int * 7)()
+    if lib.ls_pass_band_consts(consts) or tuple(consts) != (
+            PASS_THREADS, PASS_COLS, PASS_MIN_ROWS, PASS_TARGET,
+            PASS_MAX_STRIDE, PASS_SLACK, PASS_SMEM_MAX):
+        raise RuntimeError("csrc/band2d.cu and ops/cuda/stencil2d.py "
+                           "disagree on the band route's constants")
+    for shape in ((4096, 4096), (1024, 4096), (8, 128), (37, 1000),
+                  (1, 101), (33, 4097), (20, 5000), (40, 130)):
+        if (lib.ls_pass_band_geometry(*shape, geo)
+                or tuple(geo) != pass_geometry(*shape)):
+            raise RuntimeError("csrc/band2d.cu and ops/cuda/stencil2d.py "
+                               "disagree on the band route's geometry at "
+                               f"{shape}")
+    for C, offs in ((4096, ((0, 0), (1, -4095), (-8, 100))),
+                    (4096, ((0, 0), (-1, 100), (1, -100), (0, 37))),
+                    (4096, ((0, 0), (-8, 0), (8, 0))), (128, ((-1, 127),)),
+                    (5000, ((0, 0), (1, -4999), (-8, 100))),
+                    (130, ((2, 0), (0, -129))), (4100, ((0, 0), (0, 2)))):
+        st = _stencil_struct(offs, (1.0,) * len(offs))
+        if (lib.ls_pass_band_layout(C, ctypes.byref(st), geo)
+                or tuple(geo) != pass_layout(C, offs)):
+            raise RuntimeError("csrc/band2d.cu and ops/cuda/stencil2d.py "
+                               "disagree on the band route's gate at C "
+                               f"{C}, {offs}")
     if lib.ls_blockperm_piece_rows() != PIECE_ROWS:
         raise RuntimeError("csrc/rowperm.cu and ops/cuda/rowperm.py "
                            "disagree on LS_BLOCKPERM_PIECE_ROWS")

@@ -28,9 +28,13 @@ march on the 1-D stencil with its WRAP flag, every element addressed by
 its flat index, and K1 and K2 march along the flat index itself
 (``csrc/flat1d.cu``, :func:`flat_geometry`; the 1-D stencil of
 :data:`FLAT_SHIFTS`); K3 and K4 with any other stencil (|dy| <= 8, |dx| <
-C) run tile kernels, whose terms with |dx| > 8 read device memory beside
-the tile, and a
-second launch that sums their dots; K1 and K2 with any other stencil
+C) run the band march (``csrc/band2d.cu``, route ``band``): a march down
+bands of rows that keeps the operand's rows in a shared-memory ring and
+reads every term from it, its dot folded into its last block, where
+:func:`pass_layout` takes the width and the stencil, else the tile
+kernels, whose terms with |dx| > 8 read device memory beside the tile,
+and a second launch that sums their dots; K5a-c keep the tile kernels
+off the strip and flat routes; K1 and K2 with any other stencil
 (|dy| <= 1, |dx| < C) run the general route (``csrc/sstep_general.cu``):
 K1 on the band march, a march down bands of rows with every intermediate
 in shared-memory rings (route ``general``, where :func:`band_stride`
@@ -63,7 +67,7 @@ import torch.nn.functional as F
 GRAM_NAMES = ("rr", "pAp", "rAp", "ApAp", "rAr",
               "ApAr", "ApA2p", "ArAr", "ArA2p", "A2pA2p")
 
-TILE = 32          # output tile edge of K3, K4 at reach >= 2 (csrc: LS_TILE)
+TILE = 32          # output tile edge of the tile kernels (csrc: LS_TILE)
 MAX_TERMS = 32     # stencil terms a kernel accepts (csrc: LS_MAX_TERMS)
 HALO_ROWS = 8      # rows in a halo block
 STENCIL_REACH = 8  # 3-D gate: |oy| <= 8; tile halo of K3/K4/K5 (csrc:
@@ -98,6 +102,14 @@ BAND_THREADS = 512     # threads of a block
 # floats of a ring row, at most: the rings, one row more and a block's
 # width of slack fit the kernel's 225 KB of shared memory
 BAND_MAX_STRIDE = (225 * 1024 // 4 - BAND_THREADS) // (BAND_RING_ROWS + 1)
+# K3 and K4 on the band route (csrc/band2d.cu: LS_PASS_*)
+PASS_THREADS = 512     # threads of a block
+PASS_COLS = 4096       # output columns of a strip, at most
+PASS_MIN_ROWS = 16     # shortest band
+PASS_TARGET = 132      # units (strips x bands) a launch aims at: one per SM
+PASS_MAX_STRIDE = 6144  # floats of a ring row, at most
+PASS_SLACK = 4 * PASS_THREADS  # floats after the ring
+PASS_SMEM_MAX = 225 * 1024     # dynamic shared memory, at most
 # K1 and K2 on the flat route (csrc/flat1d.cu: LS_FLAT_*): a warp's step is
 # a segment of FLAT_SEG elements, its run at least FLAT_MIN_SEGS segments;
 # runs aim at one wave of the pass's resident blocks on 132 SMs (K1 4 per
@@ -203,27 +215,85 @@ def flat_stencil(offsets, values, C: int):
     return _FLAT[key]
 
 
-def route(offsets, values, C: int, sstep: bool = False):
+def route(offsets, values, C: int, sstep: bool = False, bicg: bool = False):
     """(kernel route, offsets, values, wrap) of a 2-D pass: ``strip`` for a
     reach-1 stencil (the column-strip march), ``flat`` for the flat
     decomposition of a reach-1 1-D stencil (on the 1-D stencil: the strip
     march with WRAP for K3, K4 and K5b, the march along the flat index of
-    ``csrc/flat1d.cu`` for K1 and K2), otherwise ``tile`` for the one-pass
-    kernels (the 32 x 32 tile kernels, terms with |dx| > 8 read from
-    device memory beside the tile) and, for the s-step passes K1 and K2 (``sstep``;
-    csrc/sstep_general.cu), ``general`` where K1's band march takes the
-    width and the widest |dx| (:func:`band_stride`), ``general_coop`` (the
-    cooperative kernel) where it does not.  K2 runs the cooperative kernel
-    on both."""
+    ``csrc/flat1d.cu`` for K1 and K2); otherwise, for K3 and K4, ``band``
+    where the band march's ring fits (:func:`pass_layout`), ``tile`` (the
+    32 x 32 tile kernels, terms with |dx| > 8 read from device memory
+    beside the tile) where it does not; for K5a-c (``bicg``) ``tile``; and
+    for the s-step passes K1 and K2 (``sstep``; csrc/sstep_general.cu),
+    ``general`` where K1's band march takes the width and the widest |dx|
+    (:func:`band_stride`), ``general_coop`` (the cooperative kernel) where
+    it does not.  K2 runs the cooperative kernel on both."""
     if _reach(offsets) <= STEP2_REACH:
         return "strip", offsets, values, 0
     flat = flat_stencil(offsets, values, C)
     if flat is not None:
         return ("flat", *flat, 1)
     if not sstep:
-        return "tile", offsets, values, 0
+        if bicg or not pass_layout(C, offsets)[0]:
+            return "tile", offsets, values, 0
+        return "band", offsets, values, 0
     kind = "general" if band_stride(C, offsets) else "general_coop"
     return kind, offsets, values, 0
+
+
+def pass_geometry(R: int, C: int):
+    """(strips, strip columns, band rows, bands) of a K3 or K4 launch on
+    the band route on an [R, C] grid, as ``pass_geometry`` in
+    csrc/band2d.cu computes them: strips of at most PASS_COLS columns (a
+    multiple of 4 but the last), bands aiming at PASS_TARGET units (strips
+    x bands), no shorter than PASS_MIN_ROWS rows.  A function of the shape
+    alone, and so is the dot's sum order."""
+    strips = -(-C // PASS_COLS)
+    w = -(-C // strips)
+    w = -(-w // 4) * 4  # strips start on 16-byte boundaries
+    strips = -(-C // w)
+    per = max(1, PASS_TARGET // strips)
+    rows = min(R, max(PASS_MIN_ROWS, -(-R // per)))
+    return strips, w, rows, -(-R // rows)
+
+
+_LAYOUT = {}
+
+
+def pass_layout(C: int, offsets):
+    """(ring row floats, clipped, ring rows, dynamic shared memory bytes)
+    of the band route's ring on C columns with this stencil, as
+    ``pass_layout`` in csrc/band2d.cu computes them: the ring holds the
+    stencil's row span (every dy and 0) plus one row, each the strip's
+    window [c0 - Qm, c1 + Qp) (Qm, Qp the widest shift left and right),
+    padded with zeros beside the grid where that fits (clipped 0), clipped
+    to [0, C) where only that fits (clipped 1; its terms leaving the grid
+    masked); the row floats are 0 (the gate: the stencil keeps the tile
+    kernels) where neither fits PASS_MAX_STRIDE floats and PASS_SMEM_MAX
+    bytes with PASS_SLACK floats after the ring.  Made once per (C,
+    offsets): every K3 and K4 call asks for it."""
+    key = (C, tuple(map(tuple, offsets)))
+    if key not in _LAYOUT:
+        _LAYOUT[key] = _pass_layout(C, key[1])
+    return _LAYOUT[key]
+
+
+def _pass_layout(C: int, offsets):
+    lo = min(0, min(dy for dy, _ in offsets))
+    hi = max(0, max(dy for dy, _ in offsets))
+    qm = max(0, max(-dx for _, dx in offsets))
+    qp = max(0, max(dx for _, dx in offsets))
+    w = pass_geometry(1, C)[1]
+    rows = hi - lo + 2
+    for mask in (0, 1):
+        wid = w + qm + qp + 6
+        if mask:
+            wid = min(wid, C)
+        wid = -(-wid // 4) * 4
+        smem = (rows * wid + PASS_SLACK) * 4
+        if wid <= PASS_MAX_STRIDE and smem <= PASS_SMEM_MAX:
+            return wid, mask, rows, smem
+    return 0, 1, rows, 0
 
 
 def band_geometry(R: int, C: int):
@@ -638,11 +708,33 @@ def _general_scratch(device, R: int, C: int):
     return scratch
 
 
+_PASS_SCRATCH = {}
+
+
+def _pass_scratch(device, R: int, C: int):
+    """(partials, units, counter) of K3's and K4's band-route launches on
+    an [R, C] grid: one float64 partial dot per unit (strips x bands of
+    :func:`pass_geometry`) and the last-block counter (zero between
+    launches), made once per (device, stream, R, C): launches on one stream
+    are ordered, so they can share them."""
+    key = (device, _raw_stream(device), R, C)
+    scratch = _PASS_SCRATCH.get(key)
+    if scratch is None:
+        strips, _, _, bands = pass_geometry(R, C)
+        units = strips * bands
+        scratch = (torch.empty(units, dtype=torch.float64, device=device),
+                   units, torch.zeros(1, dtype=torch.int32, device=device))
+        _PASS_SCRATCH[key] = scratch
+    return scratch
+
+
 def _one_pass_scratch(device, R: int, C: int, kind: str):
     """(partials, capacity, counter) of a K3 or K4 launch on the route
-    ``kind`` (:func:`route`): the strip scratch for the strip march; one
-    float per tile, for the second launch that sums the tile kernel's dot,
-    otherwise."""
+    ``kind`` (:func:`route`): the strip scratch for the strip march; the
+    band route's (:func:`_pass_scratch`); one float per tile, for the
+    second launch that sums the tile kernel's dot, otherwise."""
+    if kind == "band":
+        return _pass_scratch(device, R, C)
     if kind != "tile":
         return _step2_scratch(device, R, C)
     return (torch.empty(_blocks(R, C), dtype=torch.float32, device=device),
@@ -712,11 +804,13 @@ def _stencil_call(x, halo_top, halo_bot, extra=(), *, offsets, values,
     kind, k_offs, k_vals, wrap = route(offsets, values, C)
     partials, capacity, counter = _one_pass_scratch(dev, R, C, kind)
     st = _stencil_struct(k_offs, k_vals)
-    _launch(mode, "ls_stencil2d", (
-        _MODES[mode], _ptr(x), _ptr(halo_top), _ptr(halo_bot), _ptr(y),
-        _ptr(xv), _ptr(rv), _ptr(alpha), _ptr(dot), _ptr(partials),
-        capacity, _ptr(counter), R, C, ctypes.byref(st), wrap,
-    ), dev)
+    args = (_MODES[mode], _ptr(x), _ptr(halo_top), _ptr(halo_bot), _ptr(y),
+            _ptr(xv), _ptr(rv), _ptr(alpha), _ptr(dot), _ptr(partials),
+            capacity, _ptr(counter), R, C, ctypes.byref(st))
+    if kind == "band":
+        _launch(mode, "ls_stencil2d_band", args, dev)
+    else:
+        _launch(mode, "ls_stencil2d", (*args, wrap), dev)
     if mode == "y":
         return (y,)
     if mode == "y_dot":
@@ -779,11 +873,13 @@ def grid2d_cg_xpay_pq(r, p_old, beta, r_top=None, r_bot=None, p_top=None,
     kind, k_offs, k_vals, wrap = route(offsets, values, C)
     partials, capacity, counter = _one_pass_scratch(dev, R, C, kind)
     st = _stencil_struct(k_offs, k_vals)
-    _launch("xpay_pq", "ls_xpay_pq", (
-        _ptr(r), _ptr(p_old), _ptr(b), _ptr(r_top), _ptr(r_bot),
-        _ptr(p_top), _ptr(p_bot), _ptr(p), _ptr(dot), _ptr(partials),
-        capacity, _ptr(counter), R, C, ctypes.byref(st), wrap,
-    ), dev)
+    args = (_ptr(r), _ptr(p_old), _ptr(b), _ptr(r_top), _ptr(r_bot),
+            _ptr(p_top), _ptr(p_bot), _ptr(p), _ptr(dot), _ptr(partials),
+            capacity, _ptr(counter), R, C, ctypes.byref(st))
+    if kind == "band":
+        _launch("xpay_pq", "ls_xpay_pq_band", args, dev)
+    else:
+        _launch("xpay_pq", "ls_xpay_pq", (*args, wrap), dev)
     return p, dot[0]
 
 

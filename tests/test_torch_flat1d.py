@@ -233,13 +233,15 @@ def test_bicgstab_plain_matches_jax(kernel, stencil, compensated):
 def test_routes():
     """Which kernel each stencil takes on the card: the strip march for
     reach 1, the strip march with WRAP on the 1-D stencil for a flat
-    decomposition, the tile kernels (wide terms beside the tile) for the
-    rest; the gates take |dy| <= 8 and any |dx| < C."""
+    decomposition, for the rest the band march for K3 and K4 and the tile
+    kernels (wide terms beside the tile) for K5; the gates take |dy| <= 8
+    and any |dx| < C."""
     assert TS.route(*flat(1024), 1024) == ("flat", ((0, 0), (0, -1), (0, 1)),
                                            LAP1[1], 1)
     cross = (((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)), (4.0,) + (-1.0,) * 4)
     assert TS.route(*cross, 128)[0] == "strip"
-    assert TS.route(*wide(128), 128)[0] == "tile"
+    assert TS.route(*wide(128), 128)[0] == "band"
+    assert TS.route(*wide(128), 128, bicg=True)[0] == "tile"
     assert TS.flat_stencil(*flat(128), 256) is None
     assert TS.flat_stencil(flat(128)[0], (2.0, -1.0, -0.5, -1.0, -1.0),
                            128) is None

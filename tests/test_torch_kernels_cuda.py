@@ -60,7 +60,16 @@ kernel (a profiler trace); its CG solve(20) on 1 and 4 pieces with exact
 launches against the plain-driven runner (rtol 1e-3); every window-march
 kernel's registers at the largest window the gate allows, and with S_wide
 at 256^3 no spill and at least 2 blocks per SM; K1's nop mode bit for bit
-its plain version (g[0] within 1e-5 of its Cauchy-Schwarz scale).
+its plain version (g[0] within 1e-5 of its Cauchy-Schwarz scale).  The band route of K3 (four modes) and K4
+(``-k band``): S2_gen, S2_4x, phase 4l's wide stencil and the 1-D view of
+a 5-point 1-D stencil at phase 4l's edge shapes, a grid shorter than the
+ring, widths under one strip, two strips, ragged bands, C % 4 != 0 and
+4096^2, with null and random halo blocks, to phase 3's bounds, one launch
+(one kernel, no reduce_partials, in a profiler trace), a repeat bit for
+bit; a stencil past its gate on the tile kernels; its registers and
+residency and the library's geometry and gate against the Python mirror;
+and the two-pass CG solve(40) with S2_gen on one and 4 pieces against the
+plain-driven runner (rtol 1e-3, x 1e-3 of max|x|).
 """
 
 import numpy as np
@@ -801,7 +810,7 @@ def _one_pass_state(shape, halos, device, seed=31):
 def test_k3_k4_edges_match_plain_on_card(mode, shape, stencil, halos,
                                          cuda_device):
     """K3 (four modes) and K4 across the strip march's edges (reach 1) and
-    on the tile kernels (reach 2), with null and random halo blocks,
+    on the band route (reach 2), with null and random halo blocks,
     against their plain versions on the same card to chip_smoke.py's phase
     3 bounds (elementwise 1e-5 * max|ref|, the dot 1e-4 of its
     Cauchy-Schwarz scale), one launch each, and a repeat bit for bit."""
@@ -1594,12 +1603,14 @@ WIDE = {"flat": _flat1d, "wide": _wide2d}
 def test_k3_k4_wide_match_plain_on_card(mode, shape, stencil, halos,
                                         cuda_device):
     """K3 (four modes) and K4 on the flat route and with wide terms on the
-    tile kernels, with null and random halo blocks (rows past the grid
+    band route, with null and random halo blocks (rows past the grid
     and, on the flat route, the flat elements before and after it):
     phase 3's bounds, one launch, a repeat bit for bit."""
     offs, vals = WIDE[stencil](shape[1])
     assert T.route(offs, vals, shape[1])[0] == ("flat" if stencil == "flat"
-                                                else "tile")
+                                                else "band")
+    assert T.route(offs, vals, shape[1], bicg=True)[0] == (
+        "flat" if stencil == "flat" else "tile")
     _check_one_pass(mode, _one_pass_state(shape, halos, cuda_device), offs,
                     vals, cuda_device)
 
@@ -2115,3 +2126,179 @@ def test_general_attrs_on_card(cuda_device):
     # the rings, one more row and a block's width of slack
     stride = T.band_stride(4096, _S2_GEN[0])
     assert out[3] == 4 * ((T.BAND_RING_ROWS + 1) * stride + T.BAND_THREADS)
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4 on the band route (csrc/band2d.cu)
+# ---------------------------------------------------------------------------
+
+def _flat5(C):
+    """The 1-D view of the 5-point 1-D stencil: row-wrap terms with |dx| =
+    C - 1 and C - 2."""
+    return T.decompose_flat_offsets((0, -1, 1, -2, 2),
+                                    (2.5, -1.0, -1.0, 0.25, 0.25), C)
+
+
+BAND = {"S2_gen": lambda C: _S2_GEN, "S2_4x": lambda C: _S2_4X,
+        "wide": _wide2d, "flat5": _flat5}
+# phase 4l's edges; a grid shorter than the ring (3 rows, wide's 11) and
+# widths under one strip (128, 1000); C % 4 != 0 (130, 4097: scalar
+# loads); two strips (4097, 5000); ragged last bands (203 rows of 16,
+# 1000 rows of 32 at 4096^2's target); the full grid
+BAND_SHAPES = [(8, 128), (37, 1000), (3, 1000), (203, 4096), (3, 4096),
+               (33, 130), (33, 4097), (40, 5000), (1000, 4096),
+               (4096, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halos", ["null", "random"])
+@pytest.mark.parametrize("stencil", list(BAND))
+@pytest.mark.parametrize("shape", BAND_SHAPES)
+@pytest.mark.parametrize("mode", ONE_PASS)
+def test_band_k3_k4_match_plain_on_card(mode, shape, stencil, halos,
+                                        cuda_device):
+    """K3 (four modes) and K4 on the band route against their plain
+    versions: phase 3's bounds, one launch, a repeat bit for bit."""
+    offs, vals = BAND[stencil](shape[1])
+    if max(abs(dx) for _, dx in offs) >= shape[1]:
+        pytest.skip("|dx| >= C: off the gate at this width")
+    if halos == "null" and shape == (4096, 4096):
+        pytest.skip("the full grid runs with random halo blocks")
+    assert T.route(offs, vals, shape[1])[0] == "band"
+    _check_one_pass(mode, _one_pass_state(shape, halos, cuda_device), offs,
+                    vals, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ONE_PASS)
+def test_band_past_the_gate_keeps_the_tile_kernels_on_card(mode,
+                                                           cuda_device):
+    """A row span of 17 at 4096 columns is past the band route's gate: K3
+    and K4 run the tile kernels and still match their plain versions."""
+    offs = KW["offsets"] + ((-8, 100), (8, -4095))
+    vals = KW["values"] + (-0.25, -0.25)
+    assert T.route(offs, vals, 4096)[0] == "tile"
+    _check_one_pass(mode, _one_pass_state((64, 4096), "random",
+                                          cuda_device), offs, vals,
+                    cuda_device)
+
+
+def _kernels_of_each(fns, takes=4):
+    """For each call in ``fns``, the device kernels it launches, from one
+    torch.profiler trace of them all, split at torch's spin kernel run
+    after each call (chip_smoke.device_kernels): one trace per batch, as a
+    trace of a single call has at times lost its device events; a trace
+    that lost some is taken again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:  # a first call makes the wrappers' scratch
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(takes):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                fn()
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        calls, names = [], []
+        for _, name in sorted((e.time_range.start, e.name)
+                              for e in prof.events()
+                              if e.device_type == DeviceType.CUDA):
+            if "spin_kernel" in name:
+                calls.append(names)
+                names = []
+            elif not name.startswith(("Memcpy", "Memset")):
+                names.append(name)
+        if len(calls) == len(fns) and not names and all(calls):
+            return calls
+    raise AssertionError(f"{takes} traces of {len(fns)} calls lost device "
+                         "events")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stencil", ["S2_gen", "wide"])
+def test_band_one_launch_on_card(stencil, cuda_device):
+    """Each band-route pass (K3's four modes, K4) is one kernel, the band
+    march's, and no reduce_partials (one profiler trace of the five)."""
+    offs, vals = BAND[stencil](1000)
+    kw = dict(offsets=offs, values=vals)
+    d = _one_pass_state((96, 1000), "random", cuda_device)
+    d["alpha"] = d["alpha"] * 1e-3
+    calls = _kernels_of_each([lambda m=m: _one_pass(m, d, kw)
+                              for m in ONE_PASS])
+    for mode, names in zip(ONE_PASS, calls):
+        assert len(names) == 1 and "band_pass_kernel" in names[0], (mode,
+                                                                   names)
+
+
+@pytest.mark.cuda
+def test_band_geometry_gate_and_attrs_on_card(cuda_device):
+    """The library's band geometry and ring layout equal the Python
+    mirror's; every pass's kernel fits one block per SM at each stencil's
+    ring, with no spill, within 128 registers."""
+    import ctypes
+
+    from legionsolvers_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    out = (ctypes.c_int * 4)()
+    for shape in BAND_SHAPES + [(1024, 4096), (1, 101)]:
+        assert lib.ls_pass_band_geometry(*shape, out) == 0
+        assert tuple(out) == T.pass_geometry(*shape), shape
+    for name, fn in BAND.items():
+        for C in (1000, 4096, 5000):
+            offs, vals = fn(C)
+            st = T._stencil_struct(offs, vals)
+            assert lib.ls_pass_band_layout(C, ctypes.byref(st), out) == 0
+            assert tuple(out) == T.pass_layout(C, offs), (name, C)
+            for which in range(5):
+                assert lib.ls_pass_band_attrs(which, C, ctypes.byref(st),
+                                              out) == 0
+                assert 0 < out[0] <= 128 and out[1] == 0, (name, C, which,
+                                                          list(out))
+                assert out[2] >= 1 and out[3] == T.pass_layout(C, offs)[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pieces", [1, 4])
+def test_band_two_pass_solve_matches_plain_on_card(pieces, cuda_device,
+                                                   monkeypatch):
+    """Two-pass CG solve(40) (LEGIONSOLVERS_NO_SSTEP) with S2_gen at (256,
+    512) on one piece and 4 pieces: K3 pq 1, update 40 and K4 39 per piece
+    on the band route, and the history and x against the same runner
+    driven by the plain versions (rtol 1e-3, x 1e-3 of max|x|)."""
+    import legionsolvers_tpu_torch as lt
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    mesh = (make_mesh(pieces, devices=[cuda_device] * pieces) if pieces > 1
+            else None)
+    monkeypatch.setenv("LEGIONSOLVERS_NO_SSTEP", "1")
+    assert T.route(*_S2_GEN, 512)[0] == "band"
+    runs = []
+    for use_plain in (False, True):
+        planner = build_stencil_system(2, (256, 512), f32, cuda_device,
+                                       mesh=mesh,
+                                       stencil=list(zip(*_S2_GEN)))
+        with monkeypatch.context() as m:
+            if use_plain:
+                plain = {
+                    "grid2d_cg_pq": lambda p, top=None, bot=None, **kw:
+                        T.stencil_plain("pq", p, top, bot, **kw)[0],
+                    "grid2d_cg_update": lambda p, x, r, a, top=None,
+                        bot=None, **kw: T.stencil_plain(
+                            "update", p, top, bot, (x, r, a), **kw),
+                    "grid2d_cg_xpay_pq": T.xpay_pq_plain}
+                for k, fn in plain.items():
+                    m.setattr(T, k, fn)
+            T.reset_launch_counts()
+            hist = lt.CGSolver(planner).solve(40).cpu().double().numpy()
+        assert dict(T.LAUNCHES) == ({} if use_plain else {
+            "pq": pieces, "update": 40 * pieces, "xpay_pq": 39 * pieces})
+        runs.append((hist, planner.sol_vectors[0].to_numpy()))
+    (hk, xk), (hp, xp) = runs
+    assert len(hk) == 41 and np.isfinite(hk).all()
+    np.testing.assert_allclose(hk, hp, rtol=1e-3)
+    np.testing.assert_allclose(xk, xp, rtol=0, atol=1e-3 * np.abs(xp).max())

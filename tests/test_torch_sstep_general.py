@@ -129,7 +129,8 @@ def test_gates_of_both_packages(case):
         vals = (1.0,) * len(o)
         assert TS.route(o, vals, C, sstep=True)[0] == (
             "general_coop" if case in COOP else "general")
-        assert TS.route(o, vals, C)[0] == "tile"
+        assert TS.route(o, vals, C)[0] == "band"
+        assert TS.route(o, vals, C, bicg=True)[0] == "tile"
 
 
 # (stencil terms, pieces, JAX and the port run the s-step)
