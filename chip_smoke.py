@@ -22,19 +22,23 @@ sides (:func:`breakdown`).
 ``--band-accuracy [--tree DIR]`` runs the two-pass CG of 4n's S2_gen and
 S2_4x systems from several right-hand sides, with the kernels and driven
 by the plain versions, against float64 CG (:func:`band_accuracy`).
+``--bicg-gap [--tree DIR]`` reads the fused BiCGStab's recurrence gap on
+S2_4x and S2_gen from several right-hand sides, with K5a and K5b on
+either kernel (:func:`bicg_gap_draws`).
 ``--passes [--tree DIR]`` prints the times of K3, K4, K5b, K2 and K1 at
 4096^2 that ``--solves`` takes (:func:`time_ab_passes_2d`), and K3's four
-modes and K4 with the band route's stencils (S2_4x, S2_gen and 4l's
-wide_kw at 4096^2: the band route of this tree, the tile kernels of a tree
-from before it), and nothing else.  ``--blocks`` runs phases 4i and 5i (block systems) and nothing
-else, ``--pieces`` phases 4j and 5j (pieces on one card),
+modes, K4, K5a and K5b with the band route's stencils (S2_4x, S2_gen and
+4l's wide_kw at 4096^2: the band route of this tree, the tile kernels of
+a tree from before it) and K5a with the cross and the 1-D view's
+Laplacian, and nothing else.  ``--blocks`` runs phases 4i and 5i (block
+systems) and nothing else, ``--pieces`` phases 4j and 5j (pieces on one card),
 ``--explicit-pieces`` phases 4k and 5k (explicit matrices on pieces; it
 builds the one-piece DIA and scrambled systems of 4e-f too, to compare),
 ``--flat1d`` phases 4l and 5l (the 1-D kernel view at 2^24 unknowns),
 ``--wide3d`` phases 4m and 5m (wide z shifts on the 3-D kernels at 256^3)
 and K1's nop mode (its check and its time), ``--wide2d`` phases 4n and 5n
-(K1 and K2 on their general route and K3 and K4 on the band route, 2-D
-stencils with wide column shifts, at 4096^2).
+(K1 and K2 on their general route and K3, K4, K5a and K5b on the band
+route, 2-D stencils with wide column shifts, at 4096^2).
 
 Phases (any failure raises, and the exit code is non-zero):
 
@@ -55,12 +59,13 @@ Phases (any failure raises, and the exit code is non-zero):
    (bicg_st, compensated dots off and on) and K2 (gram2), the passes on
    K1's column-strip march, at 200 x 328, 33 x 4097, 4099 x 130, 1 x 5
    and 96 x 132 with the cross and the 9-point stencil (and K5b with a
-   reach-2 cross, which runs the tile kernel), to the same bounds and bit
+   reach-2 cross, which runs the band route), to the same bounds and bit
    for bit on a repeat, and so K3 (four modes) and K4 (reach 2: the band
    route); a torch.profiler trace shows that the strip passes and the band
-   route launch one kernel and no reduce_partials, and that reach-2 K5b
-   launches its second.  The strip kernels' registers, spill bytes and
-   resident blocks per SM are printed after the build;
+   route launch one kernel and no reduce_partials, and that reach-1 K5a
+   and reach-2 K5c, on the tile kernels, launch their second.  The strip
+   kernels' registers, spill bytes and resident blocks per SM are printed
+   after the build;
 4. drive the CG path, ``entry.build_system(4096)`` -> ``CGSolver``: a
    few eager ``step()``s (K3 y_dot), ``solve(200)`` (K1 x100, K2 x7),
    ``solve(201)`` (adds one K3 update), a two-pass ``solve(200)`` under
@@ -383,7 +388,17 @@ the cooperative kernel:
    plain version called, a repeat bit for bit, the CG history and x within
    twice textbook f32 CG's distance from float64 CG (PCG's against
    textbook f32 PCG), GMRES non-increasing, every launch on 4 pieces held
-   to its plain version;
+   to its plain version.  K5a and K5b on the band route (and K5c on its
+   tile kernel) against their plain versions at the same shapes,
+   compensated dots off and on (compensated dots also within 4e-7 of the
+   float64 sum of their operands); the fused BiCGStab solve(200) with
+   S2_gen (f32 and compensated dots, and on 4 pieces) and with S2_4x,
+   each launching exactly K5a, K5b and K5c 200 per piece, no plain
+   version called, a repeat bit for bit, within 1e-3 of float64 BiCGStab
+   over the entries where textbook f32 stays within 1e-4 of it and
+   ||b - Ax||^2 after 20 iterations within 1e-3 of the history (on b = 1
+   + z where b = 1 leaves textbook f32 no such entry: S2_4x), every
+   launch on 4 pieces held to its plain version;
 5n. K1 on the band march with S2_gen and S2_4x, K1 on the cooperative
    kernel with S2_far and K2 with S2_gen and S2_4x at 4096^2 with CUDA
    events and in CUDA graphs beside their plain versions, and the
@@ -392,7 +407,11 @@ the cooperative kernel:
    schedule, K3 and K4 on the band route); K3's four modes and K4 on the
    band route with S2_gen, S2_4x and wide_kw at 4096^2 the same way, and
    ``F.conv2d`` over S2_4x's 3 x 5 and S2_gen's 3 x 201 box computing K3's
-   y.  ``--wide2d`` runs 4n and 5n alone.
+   y; K5a and K5b on the band route with those stencils beside their tile
+   kernels and plain versions, K5c on its tile kernel with S2_gen and
+   S2_4x, and the BiCGStab solves' ms/iter, host enqueue and idle share
+   (S2_gen's also with K5a and K5b on the tile kernels).  ``--wide2d``
+   runs 4n and 5n alone.
 
 To make room for 4m and 5m, phase 5j's and 5k's idle traces cover about
 TRACE_OPS (2000) glue operations each, a third of what they did.
@@ -734,7 +753,7 @@ def compare_step2_edges(torch, T, device):
 
 # K5b (bicg_st) and K2 (gram2) on the column-strip march, at K1's edge
 # shapes, with the cross, the 9-point stencil and (K5b) a reach-2 cross
-# with arms of 2, which runs the tile kernel and its second launch
+# with arms of 2, which runs the band route
 STRIP_SHAPES = (RAGGED, (33, 4097), (4099, 130), (1, 5), (96, 132))
 OFFS_R2 = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1), (-2, 0), (2, 0),
            (0, -2), (0, 2))
@@ -870,13 +889,16 @@ def compare_one_pass_edges(torch, T, device):
 def check_one_launch_2d(torch, T, TB, device):
     """Phase 3: K5b with the reach-1 stencils (compensated dots off and on),
     K2, K3 (four modes) and K4 launch one kernel, their strip kernel, and
-    no reduce_partials; K3 and K4 with the reach-2 stencil one kernel, the
-    band route's; K5b with it the tile kernel and its second launch, which
-    shows that the trace sees a second launch.  Returns {case: kernel
+    no reduce_partials; K3, K4, K5a and K5b with the reach-2 stencil one
+    kernel, the band route's; K5a with the reach-1 stencils and K5c with
+    the reach-2 one the tile kernel and its second launch, which shows
+    that the trace sees a second launch.  Returns {case: kernel
     names}."""
     g = torch.Generator(device=device).manual_seed(37)
-    r, v = (torch.randn(RAGGED, generator=g, device=device)
-            for _ in range(2))
+    r, v, rp, rt = (torch.randn(RAGGED, generator=g, device=device)
+                    for _ in range(4))
+    pv_out = (torch.empty_like(r), torch.empty_like(r))
+    x5, r_out = torch.zeros_like(r), torch.empty_like(r)
     alpha = torch.tensor(0.83, device=device)  # as the solver passes it
     d = one_pass_inputs(torch, RAGGED, True, device, seed=47)
     d["alpha"] = d["alpha"] * 1e-3  # update runs in place, once per trace
@@ -887,6 +909,13 @@ def check_one_launch_2d(torch, T, TB, device):
             cases[f"bicg_st {sname} compensated={c}"] = (
                 lambda c=c, kw=kw: TB.bicg_st(r, v, alpha, compensated=c,
                                               **kw))
+            cases[f"bicg_pv {sname} compensated={c}"] = (
+                lambda c=c, kw=kw: TB.bicg_pv(r, v, rp, rt, alpha, alpha,
+                                              compensated=c, out=pv_out,
+                                              **kw))
+        if sname == "reach2":
+            cases["bicg_update reach2"] = lambda kw=kw: TB.bicg_update(
+                r, v, x5, rp, rt, alpha, alpha, out=r_out, **kw)
         if sname != "reach2":
             cases[f"gram2 {sname}"] = lambda kw=kw: T.grid2d_cg_gram2(r, v,
                                                                       **kw)
@@ -897,12 +926,13 @@ def check_one_launch_2d(torch, T, TB, device):
                                                  list(cases.values()))):
         seen[case] = names
         second = any("reduce_partials" in n for n in names)
-        if "reach2" not in case:
-            ok = len(names) == 1 and "strip_kernel" in names[0]
-        elif not case.startswith("bicg_st"):
+        if case.startswith("bicg_update") or (
+                case.startswith("bicg_pv") and "reach2" not in case):
+            ok = second
+        elif "reach2" in case:
             ok = len(names) == 1 and "band_pass_kernel" in names[0]
         else:
-            ok = second
+            ok = len(names) == 1 and "strip_kernel" in names[0]
         if not ok:
             bad.append((case, names))
     log("[check2d] one launch per strip and band pass: "
@@ -910,10 +940,11 @@ def check_one_launch_2d(torch, T, TB, device):
         + "; ".join(f"{k}: {seen[k]}" for k in (
             "bicg_st cross compensated=False", "gram2 cross",
             "update 9-point", "xpay_pq cross", "pq reach2",
-            "bicg_st reach2 compensated=True")))
+            "bicg_pv cross compensated=False",
+            "bicg_st reach2 compensated=True", "bicg_update reach2")))
     if bad:
         raise AssertionError(f"strip and band passes with a second launch, "
-                             f"or K5b's reach-2 pass without one: {bad}")
+                             f"or tile passes without one: {bad}")
     return seen
 
 
@@ -3574,12 +3605,14 @@ def time_ab_passes(torch, lt, device):
 def time_ab_passes_2d(torch, T, TB, device):
     """--solves and --passes: {"<K3 mode>" | "xpay_pq" | "bicg_st
     compensated=<c>" | "gram2" | "step2" | "<K3 mode or xpay_pq>
-    <stencil>": {"events": ms, "graph": ms}}, K3, K4, K5b, K2 and K1 with
-    the cross and K3 and K4 with BAND_STENCILS at N_GRID^2, no halo blocks,
+    <stencil>" | "bicg_pv <stencil>" | "bicg_st <stencil>": {"events": ms,
+    "graph": ms}}, K3, K4, K5b, K2 and K1 with the cross, K3, K4, K5a and
+    K5b with BAND_STENCILS and K5a with the cross and the 1-D view's
+    decomposed Laplacian (``flat``) at N_GRID^2, no halo blocks, f32 dots,
     timed as :func:`time_ab_passes` times the 3-D passes (CUDA events, and
     CUDA graphs, over a ring of three input sets; K3 update in place with a
-    tiny alpha, K4 into a spare buffer and K1 into a spare pair, as phase
-    5a calls them)."""
+    tiny alpha, K4 into a spare buffer, K1 and K5a into a spare pair, as
+    phase 5a calls them)."""
     g = torch.Generator(device=device).manual_seed(53)
     ring = [[torch.randn(N_GRID, N_GRID, generator=g, device=device)
              for _ in range(2)] for _ in range(3)]
@@ -3598,6 +3631,18 @@ def time_ab_passes_2d(torch, T, TB, device):
             cases[f"{mode} {st}"] = [kernel_call(T, mode, d, False,
                                                  band_kw(st, N_GRID))
                                      for d in ring1]
+    ring5 = [bicg_inputs(torch, (N_GRID, N_GRID), 61 + s, device)
+             for s in range(3)]
+    for d in ring5:
+        d["p_out"], d["v_out"] = (torch.empty_like(d["r"]) for _ in range(2))
+    for st, kw in (("cross", KW), ("flat", flat_kw(T, N_GRID)),
+                   *((st, band_kw(st, N_GRID)) for st in BAND_STENCILS)):
+        cases[f"bicg_pv {st}"] = [
+            bicg_call(TB, "bicg_pv", d, False, False, (d["p_out"], d["v_out"]),
+                      kw) for d in ring5]
+        if st in BAND_STENCILS:
+            cases[f"bicg_st {st}"] = [bicg_call(TB, "bicg_st", d, False,
+                                                False, kw=kw) for d in ring5]
     res = {}
     for name, fns in cases.items():
         k = iter(range(10**9))
@@ -5785,11 +5830,11 @@ def compare_flat_kernels(torch, T, TB, device):
     plain version on the decomposed offsets, at full width ([4096, 4096],
     random halo blocks) and at FLAT_EDGES (halo blocks null and random):
     K3's four modes, K4, K2, K1 and K5a-c (compensated dots off and on);
-    and the wide terms (:func:`wide_kw`) of K3 and K4 (the band route) and
-    K5 (the tile kernels) at FLAT_EDGES.  Phase 3's bounds (elementwise 1e-5 * max|ref|, dots 1e-4
-    of their Cauchy-Schwarz scale), and a repeat on the same inputs bit
-    for bit.  Returns ({pass: max abs error} of the flat route, the same
-    of the wide terms)."""
+    and the wide terms (:func:`wide_kw`) of K3, K4, K5a and K5b (the band
+    route) and K5c (the tile kernels) at FLAT_EDGES.  Phase 3's bounds
+    (elementwise 1e-5 * max|ref|, dots 1e-4 of their Cauchy-Schwarz
+    scale), and a repeat on the same inputs bit for bit.  Returns ({pass:
+    max abs error} of the flat route, the same of the wide terms)."""
     nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
     errs = {"flat": {}, "wide": {}}
     cases = [(FLAT_GRID, "flat", True)] + [
@@ -5799,11 +5844,16 @@ def compare_flat_kernels(torch, T, TB, device):
         kw = flat_kw(T, shape[1]) if st == "flat" else wide_kw(shape[1])
         route = T.route(kw["offsets"], kw["values"], shape[1])[0]
         k5_route = T.route(kw["offsets"], kw["values"], shape[1],
-                           bicg=True)[0]
-        if (route, k5_route) != (("flat", "flat") if st == "flat"
-                                 else ("band", "tile")):
+                           bicg="st")[0]
+        k5a_route, k5c_route = (T.route(kw["offsets"], kw["values"],
+                                        shape[1], bicg=k)[0]
+                                for k in ("pv", "update"))
+        if (route, k5a_route, k5_route, k5c_route) != (
+                ("flat", "band", "flat", "tile") if st == "flat"
+                else ("band", "band", "band", "tile")):
             raise AssertionError(f"{st} {shape} takes the {route} route "
-                                 f"(K5: {k5_route})")
+                                 f"(K5a-c: {k5a_route}, {k5_route}, "
+                                 f"{k5c_route})")
         d = flat_inputs(torch, T, shape, 53, device, halos, kw)
         worst, case = 0.0, f"{shape} {st} halos={halos}"
         modes = list(ONE_PASS_NAMES) + (["gram2", "step2"] if st == "flat"
@@ -6215,10 +6265,13 @@ def flat1d_rows(T, launches, grid_launches, errs, times, bw, conv1d_ms,
             name = f"{wrapper} [{m}] 1-D view"
         else:
             line, bpe = BICG_KERNELS[m]
-            source, replaces = BICG_CSRC, f"{BICG_PALLAS}:{line}"
+            replaces = f"{BICG_PALLAS}:{line}"
             name = f"{m} 1-D view"
-        # K5a and K5c have no strip kernel: the tile kernels' wide terms
-        route = "tile" if m in ("bicg_pv", "bicg_update") else "flat"
+        route = "flat"
+        if m in BICG_KERNELS:
+            # K5a and K5c have no strip kernel: the band march and the tile
+            # kernel's wide terms
+            route, source = k5_route(T, m, flat_kw(T, FLAT_C), FLAT_C)
         if m in SSTEP_200:
             source, route = FLAT_CSRC, "flat march"
         ms, plain_ms, g = times[m]
@@ -6250,7 +6303,8 @@ def flat1d_rows(T, launches, grid_launches, errs, times, bw, conv1d_ms,
                        wide_pct_of_bound=100 * row["bound_ms"] / wms,
                        wide_ms_lost_per_solve200=WIDE_200.get(m, 0) * (
                            wms - row["bound_ms"]))
-            wroute = "tile" if m in BICG_KERNELS else "band"
+            wroute = (k5_route(T, m, wide_kw(FLAT_C), FLAT_C)[0]
+                      if m in BICG_KERNELS else "band")
             row["wide_route"] = wroute
             log(f"[time] 1-D view {m:11s} wide terms ({wroute}) {wms:.4f} ms "
                 f"(graphs {wg:.4f}), bound {row['bound_ms']:.4f} "
@@ -7179,21 +7233,38 @@ BAND_EDGE_SHAPES = ((8, 128), (37, 1000), (3, 1000), (203, 4096), (33, 130),
 # 4096 columns), which K3 and K4 run on the tile kernels
 BAND_PAST = ((64, 4096), "deep")
 BAND_PASSES = tuple(ONE_PASS_NAMES)
+# K5a and K5b on the band route; K5c keeps the tile kernel
+BAND_K5 = ("bicg_pv", "bicg_st")
+K5_PASS = {"bicg_pv": "pv", "bicg_st": "st", "bicg_update": "update"}
 TWO_PASS_200 = {"pq": 1, "update": N_ITERS, "xpay_pq": N_ITERS - 1}
-# name -> (stencil, pieces, solver, solve length, launches, environment)
+BICG_200 = {m: N_ITERS for m in BICG_KERNELS}
+# name -> (stencil, pieces, solver, solve length, launches, environment,
+# compensated dots)
 BAND_RUNS = {
     "S2_gen two-pass CG": ("S2_gen", 1, "cg", N_ITERS, TWO_PASS_200,
-                           "LEGIONSOLVERS_NO_SSTEP"),
+                           "LEGIONSOLVERS_NO_SSTEP", False),
     "S2_gen two-pass CG 4 pieces": (
         "S2_gen", GEN_PIECES, "cg", N_ITERS,
         {m: GEN_PIECES * c for m, c in TWO_PASS_200.items()},
-        "LEGIONSOLVERS_NO_SSTEP"),
+        "LEGIONSOLVERS_NO_SSTEP", False),
     "S2_4x two-pass CG": ("S2_4x", 1, "cg", N_ITERS, TWO_PASS_200,
-                          "LEGIONSOLVERS_NO_SSTEP"),
-    "S2_gen PCG": ("S2_gen", 1, "pcg", N_ITERS, {"y_dot": N_ITERS}, None),
+                          "LEGIONSOLVERS_NO_SSTEP", False),
+    "S2_gen PCG": ("S2_gen", 1, "pcg", N_ITERS, {"y_dot": N_ITERS}, None,
+                   False),
     "S2_gen GMRES(10)": ("S2_gen", 1, "gmres", GMRES_CYCLES,
-                         {"y": 11 * GMRES_CYCLES + 1}, None),
+                         {"y": 11 * GMRES_CYCLES + 1}, None, False),
+    "S2_gen BiCGStab": ("S2_gen", 1, "bicg", N_ITERS, BICG_200, None, False),
+    "S2_gen BiCGStab compensated": ("S2_gen", 1, "bicg", N_ITERS, BICG_200,
+                                    None, True),
+    "S2_4x BiCGStab": ("S2_4x", 1, "bicg", N_ITERS, BICG_200, None, False),
+    "S2_gen BiCGStab 4 pieces": (
+        "S2_gen", GEN_PIECES, "bicg", N_ITERS,
+        {m: GEN_PIECES * c for m, c in BICG_200.items()}, None, False),
 }
+# the BiCGStab runs that phase 5n times (one piece, and a tenth of the
+# solve traced on pieces)
+BAND_TIMED_BICG = ("S2_gen BiCGStab", "S2_gen BiCGStab compensated",
+                   "S2_4x BiCGStab", "S2_gen BiCGStab 4 pieces")
 BAND_PCG_WINDOW = 1e-3  # 4m's: PCG held where textbook f32 PCG is within it
 
 
@@ -7206,6 +7277,84 @@ def band_kw(name, C):
         return dict(offsets=OFFS + ((-8, 100 % C), (8, -(C - 1))),
                     values=VALS + (-0.25, -0.25))
     return terms_kw(GEN_STENCILS[name])
+
+
+def k5_route(T, m, kw, C):
+    """(route, source file) of K5 pass ``m`` (a BICG_KERNELS name) with the
+    stencil ``kw`` on C columns: the band march's file where it takes the
+    band route, the tile kernels' otherwise."""
+    kind = T.route(kw["offsets"], kw["values"], C, bicg=K5_PASS[m])[0]
+    return kind, BAND_CSRC if kind == "band" else BICG_CSRC
+
+
+def compare_band_k5(torch, T, TB, device):
+    """Phase 4n, K5a and K5b on the band route and K5c on its tile kernel:
+    against their plain versions with BAND_STENCILS at 4096^2 and at
+    BAND_EDGE_SHAPES, and BAND_PAST's stencil on the tile kernels,
+    compensated dots off and on:
+    phase 3b's bounds (elementwise 1e-5 * max|ref|, each dot 1e-4 of its
+    Cauchy-Schwarz scale; compensated, each dot within 4e-7 of the float64
+    sum of its f32 operands) and a repeat on the same inputs bit for bit.
+    Returns {pass: max abs error} on the band route (K5c: the tile)."""
+    f64dot = lambda a, b: torch.dot(a.double().reshape(-1),
+                                    b.double().reshape(-1)).item()
+    nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
+    errs = dict.fromkeys(BICG_KERNELS, 0.0)
+    cases = [((N_GRID, N_GRID), st) for st in BAND_STENCILS]
+    cases += [(shape, st) for shape in BAND_EDGE_SHAPES
+              for st in BAND_STENCILS if st != "S2_gen" or shape[1] > 100]
+    cases += [BAND_PAST]
+    for shape, st in cases:
+        kw = band_kw(st, shape[1])
+        d = bicg_inputs(torch, shape, 87, device)
+        d["alpha"] = d["alpha"] * 1e-3  # K5c's x in place stays bounded
+        for name in BICG_KERNELS:
+            route = k5_route(T, name, kw, shape[1])[0]
+            want = ("tile" if st == BAND_PAST[1] or name == "bicg_update"
+                    else "band")
+            if route != want:
+                raise AssertionError(f"{name} with {st} at {shape} takes "
+                                     f"the {route} route, not {want}")
+            worst, worst_exact = 0.0, 0.0
+            for comp in (False, True):
+                got, again, ref = (run_bicg(TB, name, d, comp, plain, kw)
+                                   for plain in (False, False, True))
+                torch.cuda.synchronize()
+                case = f"{name} with {st} at {list(shape)} compensated={comp}"
+                if not all(same_bits(got[k], again[k]) for k in got):
+                    raise AssertionError(f"{case}: a repeat is not "
+                                         "bit-identical")
+                ops = bicg_operands(T, name, d, ref, kw)
+                for key, r in ref.items():
+                    err = (got[key].double() - r.double()).abs().max().item()
+                    if r.dim():
+                        bound = 1e-5 * r.abs().max().item()
+                    else:
+                        a, b = ops[key]
+                        bound = 1e-4 * nrm(a) * nrm(b)
+                    if not err <= bound:
+                        raise AssertionError(f"{case} {key}: kernel "
+                                             "disagrees with its plain "
+                                             f"version ({err:g} > {bound:g})")
+                    worst = max(worst, err)
+                if comp:
+                    for key, (a, b) in bicg_operands(T, name, d, got,
+                                                     kw).items():
+                        exact = f64dot(a, b)
+                        rel = abs(got[key].item() - exact) / abs(exact)
+                        worst_exact = max(worst_exact, rel)
+                        if rel > 4e-7:
+                            raise AssertionError(f"{case} {key}: compensated "
+                                                 f"dot {rel:g} off the "
+                                                 "float64 sum")
+            if st != BAND_PAST[1]:
+                errs[name] = max(errs[name], worst)
+            log(f"[band] {name} with {st} at {list(shape)} ({route} route) == "
+                f"plain, f32 and compensated dots (max abs err {worst:.3g}; "
+                f"compensated dots vs float64 sum max rel {worst_exact:.3g})"
+                "; repeats bit for bit")
+        del d
+    return errs
 
 
 def compare_band_kernels(torch, T, device):
@@ -7256,15 +7405,23 @@ def compare_band_kernels(torch, T, device):
     return errs
 
 
-def band_path(torch, np, T, lt, device):
+def band_path(torch, np, T, TB, lt, device):
     """Phase 4n, the solves on the band route: ``entry.build_stencil_system
     (2, (4096, 4096), stencil=...)`` with S2_gen on one piece and on 4
     pieces of the card and with S2_4x on one piece, each CG solve(200) on
     the two-pass schedule (LEGIONSOLVERS_NO_SSTEP: K3 pq once, then K4 and
-    K3 update), and PCG and GMRES(10) with S2_gen: launches counted exactly
-    (counts set to 0 just before each solve, read just after; K3 and K4 on
-    the band route per the operator's view), no plain version called, a
-    repeat from the same state bit for bit; the two-pass CG's history and
+    K3 update), PCG and GMRES(10) with S2_gen, and the fused BiCGStab
+    solve(200) with S2_gen (f32 and compensated dots; 4 pieces) and S2_4x
+    (K5a and K5b on the band route, K5c on the tile kernel): launches
+    counted exactly (counts set to 0 just before each solve, read just
+    after; each pass on its route per the operator's view), no plain
+    version called, a repeat from the same state bit for bit; BiCGStab
+    within FLAT_BICG_RTOL of float64 BiCGStab over the entries where
+    textbook f32 BiCGStab stays within a tenth of it (4l's and 4m's rule),
+    and ||b - Ax||^2 through ``planner.matvec`` after GAP_ITERS within
+    BICG3_GAP of its history (4d's), on b = 1 + z where b = 1 leaves
+    textbook f32 no window (:func:`bicg_accuracy`); the two-pass CG's
+    history and
     x within twice textbook f32 CG's distance from float64 CG (floor
     GEN_F64_FLOOR, 4n's), PCG the same against textbook f32 PCG over the
     entries where it stays within BAND_PCG_WINDOW of float64 CG, GMRES(10)
@@ -7281,9 +7438,11 @@ def band_path(torch, np, T, lt, device):
     from legionsolvers_tpu_torch.parallel.mesh import make_mesh
 
     f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    f32c = lt.SolverOptions(entry_dtype=torch.float32, compensated_dots=True)
     shape = (N_GRID, N_GRID)
     refs = gen_refs(torch, device)
     h64g, x64g, _ = refs["S2_gen"]
+    bicg_refs = {}
     c32, cx32 = textbook_pcg(torch, shape, N_ITERS, torch.float32, device,
                              terms_matvec(torch, S2_GEN), S2_GEN[0][1])
     wpcg = agree_window(c32, h64g, BAND_PCG_WINDOW)
@@ -7291,36 +7450,48 @@ def band_path(torch, np, T, lt, device):
                 x_rel(cx32, x64g))
     del cx32
     launches, grid_launches, results, solvers, failed = {}, {}, {}, {}, []
-    for name, (st, pieces, kind, iters, want, env) in BAND_RUNS.items():
+    for name, (st, pieces, kind, iters, want, env, comp) in \
+            BAND_RUNS.items():
         mesh = (make_mesh(pieces, devices=[device] * pieces) if pieces > 1
                 else None)
-        planner = build_stencil_system(2, shape, f32, device, mesh=mesh,
+        planner = build_stencil_system(2, shape, f32c if comp else f32,
+                                       device, mesh=mesh,
                                        stencil=list(GEN_STENCILS[st]))
         op = planner.row_partitioned_matrices[0][0]
         v = op._view
         solver = flat_solver(lt, planner, kind)
-        with env_route(env, solver), counted_calls(plain_names(T),
+        with env_route(env, solver), counted_calls(plain_names(T, TB),
                                                    solver) as plain:
             view_ok = (op.uses_pallas and v["kind"] == "2d"
-                       and v["Br"] * pieces == N_GRID
-                       and T.route(v["offs"], v["vals"], v["C"])[0]
-                       == "band")
+                       and v["Br"] * pieces == N_GRID)
+            if kind == "bicg":
+                what = "K5a and K5b on the band route, K5c on the tile"
+                view_ok = view_ok and op.supports_fused_bicgstab and all(
+                    k5_route(T, m, dict(offsets=v["offs"], values=v["vals"]),
+                             v["C"])[0] == ("tile" if m == "bicg_update"
+                                            else "band")
+                    for m in BICG_KERNELS)
+            else:
+                what = "K3 and K4 on the band route"
+                view_ok = view_ok and T.route(
+                    v["offs"], v["vals"], v["C"])[0] == "band"
             hist, x, counts = counted_solve(torch, T, solver, iters)
             hist2, x2, _ = counted_solve(torch, T, solver, iters)
         solvers[name] = solver
-        checks = {"K3 and K4 on the band route": view_ok,
+        checks = {what: view_ok,
                   f"launches {want}": counts == want,
                   "no plain version called": not plain.calls,
                   "a repeat from the same state is bit-identical":
-                      same_bits(hist, hist2) and same_bits(x, x2),
-                  "finite history": bool(torch.isfinite(hist).all())}
+                      same_bits(hist, hist2) and same_bits(x, x2)}
+        if kind != "bicg":  # f32 BiCGStab may break down: see below
+            checks["finite history"] = bool(torch.isfinite(hist).all())
         del x2
         res = {"launches": counts, "plain_calls": dict(plain.calls),
                "hist_first_last": (hist[0].item(), hist[-1].item())}
         rule = f"(floor {GEN_F64_FLOOR})"
         ref_name = "textbook f32 CG's distance"
         if pieces > 1:
-            with env_route(env, solver), shadowed(T, solver) as sh:
+            with env_route(env, solver), shadowed(T, solver, TB=TB) as sh:
                 restart(solver)
                 solver.solve(iters)
                 torch.cuda.synchronize()
@@ -7350,6 +7521,18 @@ def band_path(torch, np, T, lt, device):
                    f"{rule}"] = (
                 got[0] <= max(2 * ref[0], GEN_F64_FLOOR)
                 and got[1] <= max(2 * ref[1], GEN_F64_FLOOR))
+        elif kind == "bicg":
+            acc = bicg_accuracy(torch, T, solver, st, hist, bicg_refs, device)
+            res["accuracy"] = acc
+            on = acc[-1]  # the right-hand side the checks read
+            rhs = "" if len(acc) == 1 else f" on b = {on['b']}"
+            checks[f"within {FLAT_BICG_RTOL} of float64 over the "
+                   f"{on['window']} entries where textbook f32 is within a "
+                   f"tenth of it{rhs}"] = (on["kernel vs_f64"]
+                                          <= FLAT_BICG_RTOL
+                                          and on["window"] >= 2)
+            checks[f"||b - Ax||^2 vs history after {GAP_ITERS}, rel "
+                   f"{BICG3_GAP}{rhs}"] = on["gap"] <= BICG3_GAP
         elif kind == "pcg":
             got = (rel_dev(hist[:wpcg], h64g[:wpcg]).max().item(),
                    x_rel(x, x64g))
@@ -7376,11 +7559,153 @@ def band_path(torch, np, T, lt, device):
         log(f"[band] {name} solve({iters}) at 4096^2: launches {counts}; "
             f"residual^2 {hist[0].item():.6g} -> {hist[-1].item():.6g}; "
             + "".join(f"{k} {res[k]}; " for k in (
-                "vs_f64", "plain-driven vs_f64", "window", "largest_rise",
-                "share of bound per launch") if k in res)
+                "vs_f64", "plain-driven vs_f64", "window", "accuracy",
+                "largest_rise", "share of bound per launch") if k in res)
             + (f"checks FAILED: {bad}" if bad else "checks hold"))
         del x
     return launches, grid_launches, results, solvers, failed
+
+
+def bicg_accuracy(torch, T, solver, st, hist, refs, device):
+    """Phase 4n's accuracy readings of a BiCGStab solve(N_ITERS) on b = 1
+    (``hist``): the entries where textbook f32 BiCGStab stays within a
+    tenth of FLAT_BICG_RTOL of float64 BiCGStab (the window), the
+    kernel's largest distance from float64 over them, and
+    :func:`bicg_gap`.  Where b = 1 leaves that window no entry past the
+    first (S2_4x: A 1 = 0 inside the grid, and f32's rounding of its
+    weights leaves float64 at the first iteration, so no f32 code can be
+    held there), the same readings on b = 1 + z (z standard normal from
+    the card's generator seeded with BLOCK_SEED) follow them, and the
+    checks read those: with S2_4x textbook f32 stays within 1e-4 of
+    float64 for 10 entries on b = 1 + z, 4 on b = 1 + 0.1 z and 2 (the
+    second at 9.8e-5) on b = 1 + 0.01 z (torch's CPU draws at 4096^2).
+    ``refs`` caches the textbook histories by (stencil, b).  Returns a
+    list of {b, window, kernel vs_f64, textbook f32 vs_f64,
+    gap, finite entries}, the one the checks read last."""
+    shape = (N_GRID, N_GRID)
+    planner = solver.planner
+    A = terms_matvec(torch, GEN_STENCILS[st])
+    out = []
+    for label in ("1", "1 + z"):
+        b = torch.ones(shape, device=device)
+        if out:
+            g = torch.Generator(device=device).manual_seed(BLOCK_SEED)
+            b += torch.randn(shape, generator=g, device=device)
+            planner.rhs_vectors[0].data.copy_(
+                b.reshape(planner.rhs_vectors[0].data.shape))
+            restart(solver)
+            hist = solver.solve(N_ITERS)
+        if (st, label) not in refs:
+            h64, _ = textbook_bicgstab(torch, shape, N_ITERS, torch.float64,
+                                       device, matvec=A, rhs=b)
+            h32, _ = textbook_bicgstab(torch, shape, N_ITERS, torch.float32,
+                                       device, matvec=A, rhs=b)
+            refs[st, label] = (h64, h32, agree_window(h32, h64,
+                                                      FLAT_BICG_RTOL / 10))
+        h64, h32, win = refs[st, label]
+        n = max(win, 1)  # entry 0 at least
+        out.append({"b": label, "window": win,
+                    "kernel vs_f64": rel_dev(hist[:n], h64[:n]).max().item(),
+                    "textbook f32 vs_f64": rel_dev(h32[:n], h64[:n])
+                    .max().item(),
+                    "gap": bicg_gap(torch, T, solver),
+                    "finite entries": finite_upto(hist),
+                    "textbook f32 finite entries": finite_upto(h32)})
+        if win >= 2:
+            break
+    planner.rhs_vectors[0].data.fill_(1.0)
+    return out
+
+
+def bicg_gap(torch, T, solver):
+    """||b - Ax||^2 through ``planner.matvec`` after a BiCGStab
+    solve(GAP_ITERS) from x0 = 0, against its last history entry
+    (relative; phase 4d's check)."""
+    planner = solver.planner
+    restart(solver)
+    h = solver.solve(GAP_ITERS)
+    planner.matvec(solver.U, solver.SOL)
+    torch.cuda.synchronize()
+    T.reset_launch_counts()
+    true_rr = torch.sum((planner.rhs_vectors[0].data - planner.get_vector(
+        solver.U, 0).data).double() ** 2).item()
+    return abs(true_rr - h[-1].item()) / h[-1].item()
+
+
+class k5_routes:
+    """Within the block, the K5 passes named in ``tile`` (of "pv", "st")
+    take their tile kernels whatever the stencil, and the ``solvers``'
+    cached runners are dropped on the way in and out."""
+
+    def __init__(self, TB, tile, *solvers):
+        self.TB, self.tile, self.solvers = TB, tile, solvers
+
+    def __enter__(self):
+        self.route = route = self.TB.route
+        tile = self.tile
+
+        def routed(offs, vals, C, sstep=False, bicg=None):
+            if bicg in tile:
+                return "tile", offs, vals, 0
+            return route(offs, vals, C, sstep, bicg)
+
+        self.TB.route = routed
+        drop_runners(*self.solvers)
+
+    def __exit__(self, *exc):
+        self.TB.route = self.route
+        drop_runners(*self.solvers)
+
+
+BICG_GAP_DRAWS = 4  # --bicg-gap: b = 1 and three draws b = 1 + 0.01 z
+
+
+def bicg_gap_draws(torch, lt, TB, device, card):
+    """--bicg-gap [--tree DIR]: the fused BiCGStab's recurrence gap,
+    |(||b - Ax||^2 in float64) - history| / history after GAP_ITERS
+    iterations, f32 dots, with S2_4x and S2_gen at 4096^2 on b = 1 and b =
+    1 + 0.01 z (z from the card's generator seeded 1, 2, 3), with K5a and
+    K5b on their routes, each on its tile kernel, both on the tile, and
+    driven by the plain versions: one log line per stencil and b."""
+    from legionsolvers_tpu_torch.entry import build_stencil_system
+
+    shape = (N_GRID, N_GRID)
+    rows = []
+    for st in ("S2_4x", "S2_gen"):
+        A = terms_matvec(torch, GEN_STENCILS[st])
+        planner = build_stencil_system(
+            2, shape, lt.SolverOptions(entry_dtype=torch.float32), device,
+            stencil=list(GEN_STENCILS[st]))
+        solver = lt.BiCGStabSolver(planner)
+        for seed in range(BICG_GAP_DRAWS):
+            b = torch.ones(shape, device=device)
+            if seed:
+                g = torch.Generator(device=device).manual_seed(seed)
+                b += 0.01 * torch.randn(shape, generator=g, device=device)
+            planner.rhs_vectors[0].data.copy_(
+                b.reshape(planner.rhs_vectors[0].data.shape))
+            row = {"stencil": st, "b": f"1 + 0.01 z, seed {seed}" if seed
+                   else "1"}
+            for label, ctx in (
+                    ("routes", k5_routes(TB, (), solver)),
+                    ("K5a tile", k5_routes(TB, ("pv",), solver)),
+                    ("K5b tile", k5_routes(TB, ("st",), solver)),
+                    ("both tile", k5_routes(TB, ("pv", "st"), solver)),
+                    ("plain-driven", plain_driven(TB, solver,
+                                                  bicg_plain(TB)))):
+                with ctx:
+                    restart(solver)
+                    h = solver.solve(GAP_ITERS)
+                    x = planner.sol_vectors[0].data.reshape(shape).double()
+                    true_rr = torch.sum((b.double() - A(x)) ** 2).item()
+                    row[label] = abs(true_rr - h[-1].item()) / h[-1].item()
+            rows.append(row)
+            log(f"[bicg-gap] {st}, b = {row['b']}, after {GAP_ITERS}: "
+                + ", ".join(f"{k} {v:.3g}" for k, v in row.items()
+                            if k not in ("stencil", "b")) + f" on {card}")
+        del planner, solver
+    log(json.dumps({"card": card, "bicg_gap": rows}))
+    return 0
 
 
 BAND_ACC_RHS = 6  # --band-accuracy: b = 1 and five draws b = 1 + 0.01 z
@@ -7459,22 +7784,27 @@ def band_attrs(lib, T):
     if not hasattr(lib, "ls_pass_band_attrs"):
         return {}
     out = {}
+    # ls_pass_band_attrs numbers K3's modes and K4 0..4, K5a 5, K5b 6 (a
+    # tree from before K5 on the band route refuses 5 and 6)
+    passes = list(enumerate(BAND_PASSES)) + [(5, "bicg_pv"), (6, "bicg_st")]
     for st in BAND_STENCILS:
         kw = band_kw(st, N_GRID)
         s = T._stencil_struct(kw["offsets"], kw["values"])
-        for which, m in enumerate(BAND_PASSES):
+        for which, m in passes:
             a = (ctypes.c_int * 4)()
             err = lib.ls_pass_band_attrs(which, N_GRID, ctypes.byref(s), a)
-            if err:
+            if err and which < 5:
                 raise RuntimeError(f"ls_pass_band_attrs({which}, {st}): "
                                    f"error {err}")
-            out[m, st] = tuple(a)
+            if not err:
+                out[m, st] = tuple(a)
         lay = T.pass_layout(N_GRID, kw["offsets"])
         log(f"[band2d] with {st} at {N_GRID} columns (ring row {lay[0]} "
             f"floats, {'clipped' if lay[1] else 'padded'}, {lay[2]} rows): "
             + "; ".join(f"{m} {out[m, st][0]} registers, {out[m, st][1]} B "
                         f"spilled, {out[m, st][2]} blocks per SM, "
-                        f"{out[m, st][3]} B shared" for m in BAND_PASSES))
+                        f"{out[m, st][3]} B shared" for _, m in passes
+                        if (m, st) in out))
     return out
 
 
@@ -7514,6 +7844,147 @@ def time_band(torch, T, device, bw, card):
             del fns
         del ring
     return out
+
+
+def time_band_k5(torch, T, TB, device, bw, card):
+    """Phase 5n, K5 at 4096^2: K5a and K5b on the band route with
+    BAND_STENCILS, their tile kernels on the same inputs (the route before
+    this band march took them), K5c on its tile kernel with S2_gen and
+    S2_4x; f32 dots, CUDA events over a ring of three input sets, CUDA
+    graphs, and the plain versions.  Returns {(pass, stencil): (ms, plain
+    ms, graph ms, tile ms, tile graph ms)} (K5c: the tile is its route, so
+    its last two are None)."""
+    n = N_GRID * N_GRID
+    out = {}
+    ring = [bicg_inputs(torch, (N_GRID, N_GRID), 96 + s, device)
+            for s in range(3)]
+    for d in ring:
+        d["alpha"] = d["alpha"] * 1e-3  # keep update's in-place x bounded
+        d["p_out"], d["v_out"], d["r_out"] = (torch.empty_like(d["r"])
+                                              for _ in range(3))
+    cases = [(m, st) for st in BAND_STENCILS for m in BAND_K5]
+    cases += [("bicg_update", st) for st in ("S2_gen", "S2_4x")]
+    for m, st in cases:
+        kw = band_kw(st, N_GRID)
+        route = k5_route(T, m, kw, N_GRID)[0]
+        if route != ("tile" if m == "bicg_update" else "band"):
+            raise AssertionError(f"{m} with {st} takes the {route} route")
+        outs = lambda d: ((d["p_out"], d["v_out"]) if m == "bicg_pv"
+                          else d["r_out"])
+        fns = {plain: [bicg_call(TB, m, d, False, plain, outs(d), kw)
+                       for d in ring] for plain in (False, True)}
+        k = iter(range(10**9))
+        ms = event_ms(torch, lambda: fns[False][next(k) % 3](), 30)
+        plain_ms = event_ms(torch, lambda: fns[True][next(k) % 3](), 6)
+        g = graph_ms(torch, fns[False], 30)
+        bpe = BICG_KERNELS[m][1]
+        sane(f"{m} {route} {st}", ms, bpe * n, bw)
+        tile = tile_g = None
+        if m in BAND_K5:
+            with k5_routes(TB, ("pv", "st")):
+                tile = event_ms(torch, lambda: fns[False][next(k) % 3](), 30)
+                tile_g = graph_ms(torch, fns[False], 30)
+        out[m, st] = (ms, plain_ms, g, tile, tile_g)
+        log(f"[time] {route} {m:11s} with {st}: kernel {ms:.4f} ms (CUDA "
+            f"graphs {g:.4f}), bound {bpe * n / bw * 1e3:.4f}, plain "
+            f"{plain_ms:.4f} ms"
+            + (f"; tile kernel {tile:.4f} ms (graphs {tile_g:.4f})"
+               if tile else "") + f" at 4096^2 f32 on {card}")
+        del fns
+    del ring
+    return out
+
+
+def time_band_solves(torch, TB, solvers, bw, card):
+    """Phase 5n, the BiCGStab solves on the band route (BAND_TIMED_BICG):
+    ms/iter, host enqueue and idle share (a torch.profiler trace; a tenth
+    of the solve on pieces, as 5j), and the S2_gen one-piece solve again
+    with K5a and K5b on their tile kernels (:class:`k5_routes`).
+    Returns {run: {route: times}}."""
+    n = N_GRID * N_GRID
+    nbytes = (60 * N_ITERS + 16) * n
+    out = {}
+    runs = [(name, "band") for name in BAND_TIMED_BICG]
+    runs.append(("S2_gen BiCGStab", "tile"))
+    for name, route in runs:
+        solver = solvers[name]
+        pieces = BAND_RUNS[name][1]
+        n_tr = N_ITERS if pieces == 1 else N_ITERS // 10
+        ctx = k5_routes(TB, ("pv", "st") if route == "tile" else (), solver)
+        with ctx:
+            ms, host = solve_ms(torch, solver, N_ITERS)
+            label = "band_" + "".join(c if c.isalnum() else "_"
+                                      for c in f"{name} {route}")
+            dev = profile_solve(torch, solver, label, card,
+                                ms * n_tr / N_ITERS, n_iters=n_tr)
+        sane(f"{name} ({route})", ms, nbytes, bw)
+        r = {"ms/iter": ms / N_ITERS, "host ms/iter": host / N_ITERS,
+             "device ms/iter": dev / n_tr,
+             "idle": 1 - dev / n_tr / (ms / N_ITERS)}
+        out.setdefault(name, {})[route] = r
+        log(f"[time] band {name} solve({N_ITERS}), K5a and K5b on the "
+            f"{route} kernels, at 4096^2: {r['ms/iter']:.4f} ms/iter (host "
+            f"enqueue {r['host ms/iter']:.4f}, device "
+            f"{r['device ms/iter']:.4f} over {n_tr} traced, idle "
+            f"{100 * r['idle']:.1f}%) on {card}")
+    return out
+
+
+def band_k5_rows(T, results, errs, times, bw, attrs):
+    """The kernels line's rows of K5 on phase 4n's BiCGStab runs: K5a and
+    K5b on the band route (times with S2_gen, the stencil of most runs;
+    S2_4x's and wide_kw's beside them, and each one's tile kernel's), K5c
+    on its tile kernel (S2_gen; S2_4x beside it); launches from the runs
+    (one piece, 4 pieces), registers, spill bytes, blocks per SM and
+    shared memory of the band kernels with S2_gen.  No one PyTorch call
+    computes a K5 pass."""
+    n = N_GRID * N_GRID
+    rows = []
+    for m in (*BAND_K5, "bicg_update"):
+        launches = grid = on_pieces = 0
+        for name, (st, pieces, *_) in BAND_RUNS.items():
+            c = results[name]["launches"].get(m, 0)
+            launches += c
+            grid += c / pieces
+            on_pieces += c if pieces > 1 else 0
+        line, bpe = BICG_KERNELS[m]
+        route, source = k5_route(T, m, band_kw("S2_gen", N_GRID), N_GRID)
+        ms, plain_ms, g, tile, tile_g = times[m, "S2_gen"]
+        row = kernel_row(f"{m} {route} route", source,
+                         f"{BICG_PALLAS}:{line}", launches, errs.get(m, 0.0),
+                         ms, plain_ms, bpe * n,
+                         ops_per_elt(m, len(S2_GEN)) * n, bw,
+                         grid_launches=grid)
+        row.update(graph_ms=g, kernel_route=route, stencil="S2_gen",
+                   pieces_launches=on_pieces)
+        if tile is not None:
+            row.update(tile_ms=tile, tile_graph_ms=tile_g)
+        if (m, "S2_gen") in attrs:
+            regs, spill, per_sm, smem = attrs[m, "S2_gen"]
+            row.update(registers=regs, spill_bytes=spill,
+                       blocks_per_sm=per_sm, shared_memory_bytes=smem)
+        for other in ("S2_4x", "wide_kw"):
+            if (m, other) not in times:
+                continue
+            o_ms, o_plain, o_g, o_tile, o_tile_g = times[m, other]
+            row.update({f"{other}_ms": o_ms, f"{other}_plain_ms": o_plain,
+                        f"{other}_graph_ms": o_g})
+            if o_tile is not None:
+                row.update({f"{other}_tile_ms": o_tile,
+                            f"{other}_tile_graph_ms": o_tile_g})
+            if (m, other) in attrs:
+                row[f"{other}_attrs"] = attrs[m, other]
+        rows.append(row)
+        log(f"[time] {route} {m:11s} with S2_gen {ms:.4f} ms (graphs "
+            f"{g:.4f}), bound {row['bound_ms']:.4f} "
+            f"({row['pct_of_bound']:.1f}%), launches {launches}, "
+            f"{row['ms_lost']:.2f} ms lost at 4096^2"
+            + (f"; tile kernel {tile:.4f} ms (graphs {tile_g:.4f})"
+               if tile is not None else ""))
+        if not launches:
+            raise AssertionError(f"{row['name']} never launched on phase "
+                                 "4n's BiCGStab runs")
+    return rows
 
 
 def band_rows(results, errs, times, bw, attrs, conv):
@@ -7736,27 +8207,33 @@ def main() -> int:
             torch, np, T, TB, lt, device)
         battrs = band_attrs(build.load_library(), T)
         errs_b = compare_band_kernels(torch, T, device)
+        errs_k5 = compare_band_k5(torch, T, TB, device)
         bd_launches, bd_grid, bd_results, bd_solvers, f = band_path(
-            torch, np, T, lt, device)
+            torch, np, T, TB, lt, device)
         failed += f
         mark("phase 4n")
         bw = copy_bandwidth(torch, device)
         gtimes, gsolves = time_general(torch, T, device, bw, card,
                                        gn_solvers)
         band_times = time_band(torch, T, device, bw, card)
+        k5_times = time_band_k5(torch, T, TB, device, bw, card)
+        k5_solves = time_band_solves(torch, TB, bd_solvers, bw, card)
         conv_b = library_band(torch, T, device, card)
         mark("phase 5n")
         rows = general_rows(gn_results, errs_g, gtimes, bw, gattrs)
         rows += band_rows(bd_results, errs_b, band_times, bw, battrs, conv_b)
+        rows += band_k5_rows(T, bd_results, errs_k5, k5_times, bw, battrs)
         log(json.dumps({"card": card, "wide2d": {
             "paths": {**gn_results, **bd_results}, "solves": gsolves,
-            "kernels": rows}}, default=str))
+            "bicgstab_solves": k5_solves, "kernels": rows}}, default=str))
         if failed:
             raise AssertionError(f"checks failed: {failed}")
         return 0
     if "--band-accuracy" in argv:
         band_accuracy(torch, lt, T, device, card)
         return 0
+    if "--bicg-gap" in argv:
+        return bicg_gap_draws(torch, lt, TB, device, card)
     if "--breakdown" in argv:
         dim = int(argv[argv.index("--dim") + 1]) if "--dim" in argv else 3
         n = (int(argv[argv.index("--size") + 1]) if "--size" in argv
@@ -7854,8 +8331,9 @@ def main() -> int:
     failed += f
     battrs = band_attrs(build.load_library(), T)
     errs_b = compare_band_kernels(torch, T, device)
+    errs_k5 = compare_band_k5(torch, T, TB, device)
     bd_launches, bd_grid, bd_results, bd_solvers, f = band_path(
-        torch, np, T, lt, device)
+        torch, np, T, TB, lt, device)
     failed += f
     mark("phase 4n")
     counts_h, cli_results, probes, cli_bw = cli_path(torch, np, T, lt,
@@ -7908,6 +8386,8 @@ def main() -> int:
     mark("phase 5m")
     gtimes, gsolves = time_general(torch, T, device, bw, card, gn_solvers)
     band_times = time_band(torch, T, device, bw, card)
+    k5_times = time_band_k5(torch, T, TB, device, bw, card)
+    k5_solves = time_band_solves(torch, TB, bd_solvers, bw, card)
     conv_b = library_band(torch, T, device, card)
     mark("phase 5n")
     if "--profile" in sys.argv[1:]:  # last: tracing slows later launches
@@ -7966,10 +8446,12 @@ def main() -> int:
     for m, row in zip(KERNELS, kernels):
         row["graph_ms"] = ktimes[m][2]
     kernels += [kernel_row(
-        m, BICG_CSRC, f"{BICG_PALLAS}:{line}", launches[m], errs[m],
-        btimes[m][False][0], btimes[m][False][1], bpe * n2,
-        ops_per_elt(m, len(OFFS)) * n2, bw)
+        m, k5_route(T, m, KW, N_GRID)[1], f"{BICG_PALLAS}:{line}",
+        launches[m], errs[m], btimes[m][False][0], btimes[m][False][1],
+        bpe * n2, ops_per_elt(m, len(OFFS)) * n2, bw)
         for m, (line, bpe) in BICG_KERNELS.items()]
+    for row, m in zip(kernels[-len(BICG_KERNELS):], BICG_KERNELS):
+        row["kernel_route"] = k5_route(T, m, KW, N_GRID)[0]
     # the strip kernels' registers (the main path's variant: the cross,
     # vector loads, f32 dots)
     for row in kernels:
@@ -8079,6 +8561,9 @@ def main() -> int:
     # pieces, times at 4096^2 (phase 5n)
     kernels += band_rows(bd_results, errs_b, band_times, bw, battrs,
                          conv_b)
+    # K5a and K5b on the band route, K5c on the tile, in phase 4n's
+    # BiCGStab runs (one piece, 4 pieces; times at 4096^2, phase 5n)
+    kernels += band_k5_rows(T, bd_results, errs_k5, k5_times, bw, battrs)
     report = {"card": card, "kind": kind, "build_s": build_s,
               "copy_GBps": bw_copy / 1e9, "k12_GBps": k12_bw / 1e9,
               "k12_turns_ms": k12_ms,
@@ -8131,6 +8616,9 @@ def main() -> int:
               "band": {"paths": bd_results,
                        "kernel_ms": {f"{m} {st}": t for
                                      (m, st), t in band_times.items()},
+                       "k5_kernel_ms": {f"{m} {st}": t for
+                                        (m, st), t in k5_times.items()},
+                       "bicgstab_solves": k5_solves,
                        "attrs": {f"{m} {st}": v for
                                  (m, st), v in battrs.items()},
                        "conv2d_ms": conv_b},

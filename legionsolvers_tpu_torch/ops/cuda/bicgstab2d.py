@@ -17,14 +17,21 @@ bicg_update  x' = x + alpha p + omega s, r' = s - omega t:    bicg_update_plain
 They move 24, 8 and 28 bytes per element: 60 B per unknown per iteration.
 Each pass applies A once, to an operand that is zero outside the grid; s
 and t never reach device memory.  ``compensated`` sums the dots from exact
-f32 products in float64 and rounds once (see ``ops/ddsum.py``).  With a
-reach-1 stencil, or the flat decomposition of one (the 1-D kernel view,
-run with WRAP on the 1-D stencil), ``bicg_st`` runs on K1's column-strip
-march (one launch, its dots summed in float64 and folded into the last
-block, the scratch of :func:`~.stencil2d._step2_scratch`); with any other
-stencil it runs the tile kernel and a second launch, as the other two
-passes do, whose terms with |dx| > 8 read device memory beside the tile
-(``stencil2d.route``).
+f32 products in float64 and rounds once (see ``ops/ddsum.py``).
+``stencil2d.route(..., bicg=pass)`` picks the kernel.  With a reach-1
+stencil, or the flat decomposition of one (the 1-D kernel view, run with
+WRAP on the 1-D stencil), ``bicg_st`` runs on K1's column-strip march (one
+launch, its dots summed in float64 and folded into the last block, the
+scratch of :func:`~.stencil2d._step2_scratch`).  ``bicg_pv`` with any
+stencil past reach 1 whose ring fits (the flat decompositions too), and
+``bicg_st`` with any other, run the band march of ``csrc/band2d.cu``
+(one launch, the operand formed once per
+element as its row arrives and kept in a shared-memory ring, its dots
+folded into the last block, the scratch of
+:func:`~.stencil2d._pass_scratch`).  Past that gate, ``bicg_pv`` with a
+reach-1 stencil and ``bicg_update`` always, they run the tile kernels of
+``csrc/bicgstab2d.cu`` and a second launch that sums their dots; their
+terms with |dx| > 8 read device memory beside the tile.
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches its kernel or raises; it never falls back.  Every CUDA launch adds
@@ -55,6 +62,7 @@ from .stencil2d import (
     _dot,
     _launch,
     _on_cuda,
+    _pass_scratch,
     _ptr,
     _step2_scratch,
     _stencil_struct,
@@ -171,13 +179,18 @@ def bicg_pv(r, p, v, rt, beta, omega, *, offsets, values,
         out = (torch.empty_like(p), torch.empty_like(v))
     b, om = _dev_scalars(beta, 1, dev), _dev_scalars(omega, 1, dev)
     dot = torch.empty(1, dtype=torch.float32, device=dev)
-    st = _stencil_struct(offsets, values)
-    _launch("bicg_pv", "ls_bicg_pv", (
-        _ptr(r), _ptr(p), _ptr(v), _ptr(rt), _ptr(b), _ptr(om),
-        _ptr(out[0]), _ptr(out[1]), _ptr(dot),
-        _ptr(_scratch(R, C, 1, dev)), R, C, int(compensated),
-        ctypes.byref(st),
-    ), dev)
+    st = ctypes.byref(_stencil_struct(offsets, values))
+    vecs = (_ptr(r), _ptr(p), _ptr(v), _ptr(rt), _ptr(b), _ptr(om),
+            _ptr(out[0]), _ptr(out[1]), _ptr(dot))
+    if route(offsets, values, C, bicg="pv")[0] == "band":
+        partials, units, counter = _pass_scratch(dev, R, C)
+        _launch("bicg_pv", "ls_bicg_pv_band", (
+            *vecs, _ptr(partials), units, _ptr(counter), R, C,
+            int(compensated), st), dev)
+    else:
+        _launch("bicg_pv", "ls_bicg_pv", (
+            *vecs, _ptr(_scratch(R, C, 1, dev)), R, C, int(compensated), st,
+        ), dev)
     return out[0], out[1], dot[0]
 
 
@@ -193,20 +206,23 @@ def bicg_st(r, v, alpha, *, offsets, values, compensated: bool = False):
     al = _dev_scalars(alpha, 1, dev)
     # dot is fresh per pass: the runner keeps earlier passes' values
     dot = torch.empty(2, dtype=torch.float32, device=dev)
-    kind, k_offs, k_vals, wrap = route(offsets, values, C, bicg=True)
-    st = _stencil_struct(k_offs, k_vals)
-    if kind != "tile":
-        partials, capacity, counter = _step2_scratch(dev, R, C)
-        _launch("bicg_st", "ls_bicg_st_strip", (
-            _ptr(r), _ptr(v), _ptr(al), _ptr(dot), _ptr(partials), capacity,
-            _ptr(counter), R, C, int(compensated), ctypes.byref(st), wrap,
+    kind, k_offs, k_vals, wrap = route(offsets, values, C, bicg="st")
+    st = ctypes.byref(_stencil_struct(k_offs, k_vals))
+    vecs = (_ptr(r), _ptr(v), _ptr(al), _ptr(dot))
+    if kind == "band":
+        partials, units, counter = _pass_scratch(dev, R, C)
+        _launch("bicg_st", "ls_bicg_st_band", (
+            *vecs, _ptr(partials), units, _ptr(counter), R, C,
+            int(compensated), st), dev)
+    elif kind == "tile":
+        _launch("bicg_st", "ls_bicg_st", (
+            *vecs, _ptr(_scratch(R, C, 2, dev)), R, C, int(compensated), st,
         ), dev)
     else:
-        _launch("bicg_st", "ls_bicg_st", (
-            _ptr(r), _ptr(v), _ptr(al), _ptr(dot),
-            _ptr(_scratch(R, C, 2, dev)), R, C, int(compensated),
-            ctypes.byref(st),
-        ), dev)
+        partials, capacity, counter = _step2_scratch(dev, R, C)
+        _launch("bicg_st", "ls_bicg_st_strip", (
+            *vecs, _ptr(partials), capacity, _ptr(counter), R, C,
+            int(compensated), st, wrap), dev)
     return dot[0], dot[1]
 
 

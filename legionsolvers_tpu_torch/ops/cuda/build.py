@@ -119,7 +119,7 @@ def load_library() -> ctypes.CDLL:
     from .dia2d import DIA_ELEMS, MAX_DIA_TERMS
     from .rowperm import PIECE_ROWS
     from .stencil2d import (FLAT_SHIFTS, FLAT_TARGETS, GEN_UNIT_ELEMS,
-                            MAX_TERMS, PASS_COLS, PASS_MAX_STRIDE,
+                            MAX_TERMS, PASS_COLS, PASS_DOTS, PASS_MAX_STRIDE,
                             PASS_MIN_ROWS, PASS_SLACK, PASS_SMEM_MAX,
                             PASS_TARGET, PASS_THREADS, STENCIL_REACH,
                             STEP2_COLS, STEP2_MIN_ROWS, STEP2_WARPS,
@@ -137,6 +137,8 @@ def load_library() -> ctypes.CDLL:
         "ls_xpay_pq": [_P] * 10 + [_I, _P, _I, _I, _P, _I, _P],
         "ls_stencil2d_band": [_I] + [_P] * 9 + [_I, _P, _I, _I, _P, _P],
         "ls_xpay_pq_band": [_P] * 10 + [_I, _P, _I, _I, _P, _P],
+        "ls_bicg_pv_band": [_P] * 10 + [_I, _P, _I, _I, _I, _P, _P],
+        "ls_bicg_st_band": [_P] * 5 + [_I, _P, _I, _I, _I, _P, _P],
         "ls_pass_band_geometry": [_I, _I, _P],
         "ls_pass_band_layout": [_I, _P, _P],
         "ls_pass_band_consts": [_P],
@@ -260,10 +262,10 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError("csrc/sstep_general.cu and ops/cuda/"
                                "stencil2d.py disagree on the band march's "
                                f"gate at C {C}, |dx| {q}")
-    consts = (ctypes.c_int * 7)()
+    consts = (ctypes.c_int * 8)()
     if lib.ls_pass_band_consts(consts) or tuple(consts) != (
             PASS_THREADS, PASS_COLS, PASS_MIN_ROWS, PASS_TARGET,
-            PASS_MAX_STRIDE, PASS_SLACK, PASS_SMEM_MAX):
+            PASS_MAX_STRIDE, PASS_SLACK, PASS_SMEM_MAX, PASS_DOTS):
         raise RuntimeError("csrc/band2d.cu and ops/cuda/stencil2d.py "
                            "disagree on the band route's constants")
     for shape in ((4096, 4096), (1024, 4096), (8, 128), (37, 1000),

@@ -28,13 +28,14 @@ march on the 1-D stencil with its WRAP flag, every element addressed by
 its flat index, and K1 and K2 march along the flat index itself
 (``csrc/flat1d.cu``, :func:`flat_geometry`; the 1-D stencil of
 :data:`FLAT_SHIFTS`); K3 and K4 with any other stencil (|dy| <= 8, |dx| <
-C) run the band march (``csrc/band2d.cu``, route ``band``): a march down
-bands of rows that keeps the operand's rows in a shared-memory ring and
-reads every term from it, its dot folded into its last block, where
-:func:`pass_layout` takes the width and the stencil, else the tile
-kernels, whose terms with |dx| > 8 read device memory beside the tile,
-and a second launch that sums their dots; K5a-c keep the tile kernels
-off the strip and flat routes; K1 and K2 with any other stencil
+C), and K5b with them, run the band march (``csrc/band2d.cu``, route
+``band``): a march down bands of rows that keeps the operand's rows in a
+shared-memory ring and reads every term from it, its dots folded into its
+last block, where :func:`pass_layout` takes the width and the stencil,
+else the tile kernels, whose terms with |dx| > 8 read device memory beside
+the tile, and a second launch that sums their dots; K5a runs the band
+march also on the flat route's stencils and the tile kernels on reach-1
+ones, K5c always the tile kernels; K1 and K2 with any other stencil
 (|dy| <= 1, |dx| < C) run the general route (``csrc/sstep_general.cu``):
 K1 on the band march, a march down bands of rows with every intermediate
 in shared-memory rings (route ``general``, where :func:`band_stride`
@@ -110,6 +111,7 @@ PASS_TARGET = 132      # units (strips x bands) a launch aims at: one per SM
 PASS_MAX_STRIDE = 6144  # floats of a ring row, at most
 PASS_SLACK = 4 * PASS_THREADS  # floats after the ring
 PASS_SMEM_MAX = 225 * 1024     # dynamic shared memory, at most
+PASS_DOTS = 2          # partial dots of a unit in the scratch (K5b's two)
 # K1 and K2 on the flat route (csrc/flat1d.cu: LS_FLAT_*): a warp's step is
 # a segment of FLAT_SEG elements, its run at least FLAT_MIN_SEGS segments;
 # runs aim at one wave of the pass's resident blocks on 132 SMs (K1 4 per
@@ -215,27 +217,46 @@ def flat_stencil(offsets, values, C: int):
     return _FLAT[key]
 
 
-def route(offsets, values, C: int, sstep: bool = False, bicg: bool = False):
+BICG_PASSES = ("pv", "st", "update")  # K5a, K5b, K5c
+
+
+def route(offsets, values, C: int, sstep: bool = False,
+          bicg: Optional[str] = None):
     """(kernel route, offsets, values, wrap) of a 2-D pass: ``strip`` for a
     reach-1 stencil (the column-strip march), ``flat`` for the flat
     decomposition of a reach-1 1-D stencil (on the 1-D stencil: the strip
     march with WRAP for K3, K4 and K5b, the march along the flat index of
-    ``csrc/flat1d.cu`` for K1 and K2); otherwise, for K3 and K4, ``band``
-    where the band march's ring fits (:func:`pass_layout`), ``tile`` (the
-    32 x 32 tile kernels, terms with |dx| > 8 read from device memory
-    beside the tile) where it does not; for K5a-c (``bicg``) ``tile``; and
-    for the s-step passes K1 and K2 (``sstep``; csrc/sstep_general.cu),
-    ``general`` where K1's band march takes the width and the widest |dx|
+    ``csrc/flat1d.cu`` for K1 and K2); otherwise, for K3, K4 and K5a-b,
+    ``band`` where the band march's ring fits (:func:`pass_layout`),
+    ``tile`` (the 32 x 32 tile kernels, terms with |dx| > 8 read from
+    device memory beside the tile) where it does not; and for the s-step
+    passes K1 and K2 (``sstep``; csrc/sstep_general.cu), ``general`` where
+    K1's band march takes the width and the widest |dx|
     (:func:`band_stride`), ``general_coop`` (the cooperative kernel) where
-    it does not.  K2 runs the cooperative kernel on both."""
+    it does not.  K2 runs the cooperative kernel on both.  ``bicg`` names
+    a BiCGStab pass (:data:`BICG_PASSES`): ``st`` (K5b) routes as K3
+    does; ``pv`` (K5a), which has no strip kernel, takes ``tile`` on
+    reach-1 stencils and ``band`` on the flat route's (on the decomposed
+    offsets); ``update`` (K5c) always ``tile``.  On the cross K5a's band
+    march beat the tile kernel, but phase 4b's f32 BiCGStab end check (one
+    draw of a chaotic recurrence) failed with it; on the 1-D view it beat
+    the tile kernel and phase 4l held (``PERF.md`` §6)."""
+    if bicg is not None and bicg not in BICG_PASSES:
+        raise ValueError(f"bicg must be one of {BICG_PASSES}, not {bicg!r}")
+    tile = ("tile", offsets, values, 0)
+    if bicg == "update":
+        return tile
     if _reach(offsets) <= STEP2_REACH:
-        return "strip", offsets, values, 0
+        return tile if bicg == "pv" else ("strip", offsets, values, 0)
+    if bicg == "pv":
+        return ("band", offsets, values, 0) if pass_layout(
+            C, offsets)[0] else tile
     flat = flat_stencil(offsets, values, C)
     if flat is not None:
         return ("flat", *flat, 1)
     if not sstep:
-        if bicg or not pass_layout(C, offsets)[0]:
-            return "tile", offsets, values, 0
+        if not pass_layout(C, offsets)[0]:
+            return tile
         return "band", offsets, values, 0
     kind = "general" if band_stride(C, offsets) else "general_coop"
     return kind, offsets, values, 0
@@ -712,17 +733,19 @@ _PASS_SCRATCH = {}
 
 
 def _pass_scratch(device, R: int, C: int):
-    """(partials, units, counter) of K3's and K4's band-route launches on
-    an [R, C] grid: one float64 partial dot per unit (strips x bands of
-    :func:`pass_geometry`) and the last-block counter (zero between
-    launches), made once per (device, stream, R, C): launches on one stream
-    are ordered, so they can share them."""
+    """(partials, units, counter) of the band-route launches (K3, K4, K5a,
+    K5b) on an [R, C] grid: PASS_DOTS float64 partial dots per unit
+    (strips x bands of :func:`pass_geometry`; K3, K4 and K5a use one, K5b
+    two) and the last-block counter (zero between launches), made once per
+    (device, stream, R, C): launches on one stream are ordered, so they
+    can share them."""
     key = (device, _raw_stream(device), R, C)
     scratch = _PASS_SCRATCH.get(key)
     if scratch is None:
         strips, _, _, bands = pass_geometry(R, C)
         units = strips * bands
-        scratch = (torch.empty(units, dtype=torch.float64, device=device),
+        scratch = (torch.empty(PASS_DOTS * units, dtype=torch.float64,
+                               device=device),
                    units, torch.zeros(1, dtype=torch.int32, device=device))
         _PASS_SCRATCH[key] = scratch
     return scratch

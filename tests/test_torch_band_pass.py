@@ -1,14 +1,18 @@
-"""K3 (its four modes) and K4 on the band route, against the JAX package.
+"""K3 (its four modes), K4, K5a and K5b on the band route, against the JAX
+package.
 
-The band route (``csrc/band2d.cu``) runs K3 and K4 for every 2-D stencil of
-the one-pass gate that is neither reach 1 (the strip march) nor the flat
-decomposition of a reach-1 1-D stencil (the flat route), where its
-shared-memory ring fits (``stencil2d.pass_layout``); K5a-c keep the tile
-kernels.  No card is needed here:
+The band route (``csrc/band2d.cu``) runs K3, K4, K5a (bicg_pv) and K5b
+(bicg_st) for every 2-D stencil of the one-pass gate that is neither reach
+1 (the strip march) nor the flat decomposition of a reach-1 1-D stencil
+(the flat route), where its shared-memory ring fits
+(``stencil2d.pass_layout``); K5c keeps the tile kernels.  No card is
+needed here:
 
 * the route of S2_gen, S2_4x, phase 4l's ``wide_kw`` and the 1-D view of a
   5-point 1-D stencil (row-wrap terms with |dx| = C - 1, C - 2): ``band``
-  for K3 and K4, ``tile`` for K5, the strip and flat routes unchanged;
+  for K3, K4, K5a and K5b, ``tile`` for K5c, the strip and flat routes
+  unchanged (K5a keeps the tile kernel with reach-1 stencils and takes
+  the band march on the flat route's);
 * the Python mirrors of the launch geometry and of the ring's layout (the
   gate) against a line-for-line transcription of the C formulas and the
   defines read from the source (the library itself is held to the mirror
@@ -17,7 +21,10 @@ kernels.  No card is needed here:
   and scratch sized for its units;
 * a numpy transcription of the band march (each unit's ring of rows, its
   slots, padded or clipped windows and masks) against the plain version,
-  with null and random halo blocks;
+  with null and random halo blocks, and in K5a's and K5b's modes (the
+  operand formed as its row arrives, zero outside the grid; the dots of
+  exact or f32-rounded products summed in float64) against
+  ``bicg_pv_plain`` and ``bicg_st_plain``;
 * the plain K3 modes and K4, which the wrappers run on CPU tensors,
   against JAX's ``_stencil_call`` and ``grid2d_cg_xpay_pq`` in interpret
   mode on these stencils: elementwise atol 1e-4 * max|ref|, dots rtol
@@ -88,15 +95,17 @@ def _define(name):
 @pytest.mark.parametrize("C", [128, 256, 1000, 4096])
 @pytest.mark.parametrize("stencil", list(STENCILS))
 def test_route_sends_k3_k4_to_band_and_k5_to_tile(stencil, C):
-    """K3 and K4 take the band route with the stencils off the strip and
-    flat routes whose ring fits; K5a-c (``bicg``) keep the tile kernels;
-    the s-step passes' route is unchanged; the gate of every pass takes
-    the stencil."""
+    """K3, K4, K5a and K5b take the band route with the stencils off the
+    strip and flat routes whose ring fits; K5c (``bicg="update"``) keeps
+    the tile kernels; the s-step passes' route is unchanged; the gate of
+    every pass takes the stencil."""
     offs, vals = STENCILS[stencil](C)
     assert T.supports(64, C, offs)
     assert T.pass_layout(C, offs)[0] > 0
     assert T.route(offs, vals, C) == ("band", offs, vals, 0)
-    assert T.route(offs, vals, C, bicg=True) == ("tile", offs, vals, 0)
+    for k5 in ("pv", "st"):
+        assert T.route(offs, vals, C, bicg=k5) == ("band", offs, vals, 0)
+    assert T.route(offs, vals, C, bicg="update") == ("tile", offs, vals, 0)
     assert TB.bicgstab_supported(64, C, offs)
     if T.step2_supported(64, C, offs):
         assert T.route(offs, vals, C, sstep=True)[0] in ("general",
@@ -106,24 +115,34 @@ def test_route_sends_k3_k4_to_band_and_k5_to_tile(stencil, C):
 @pytest.mark.parametrize("C", [4, 128, 1000, 4096])
 def test_strip_and_flat_routes_unchanged(C):
     """A reach-1 stencil keeps the strip march and the flat decomposition
-    of the 1-D Laplacian the flat route, for K3, K4 and K5 alike."""
+    of the 1-D Laplacian the flat route, for K3, K4 and K5b alike; K5a
+    runs the tile kernel on the former and the band march on the latter,
+    K5c the tile kernels; a pass name outside BICG_PASSES is refused."""
     nine = (tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)),
             (8.0,) + (-1.0,) * 8)
     for offs, vals in (CROSS, nine):
-        for bicg in (False, True):
+        for bicg in (None, "st"):
             assert T.route(offs, vals, C, bicg=bicg)[0] == "strip"
+        assert T.route(offs, vals, C, bicg="pv") == ("tile", offs, vals, 0)
+        assert T.route(offs, vals, C, bicg="update")[0] == "tile"
     offs, vals = T.decompose_flat_offsets((0, -1, 1), (2.0, -1.0, -1.0), C)
-    for bicg in (False, True):
+    for bicg in (None, "st"):
         assert T.route(offs, vals, C, bicg=bicg)[0] == "flat"
+    assert T.route(offs, vals, C, bicg="pv") == ("band", offs, vals, 0)
+    assert T.route(offs, vals, C, bicg="update")[0] == "tile"
+    with pytest.raises(ValueError):
+        T.route(offs, vals, C, bicg=True)
 
 
 def test_stencils_past_the_gate_keep_the_tile_kernels():
     """A row span of 17 at 4096 columns (18 ring rows of 16 KB) and a
     clipped window wider than PASS_MAX_STRIDE floats are past the gate:
-    K3 and K4 keep the tile kernels there."""
+    K3, K4, K5a and K5b keep the tile kernels there."""
     deep = (CROSS[0] + ((-8, 100), (8, -4095)), CROSS[1] + (-0.25, -0.25))
     assert T.pass_layout(4096, deep[0])[0] == 0
     assert T.route(*deep, 4096)[0] == "tile"
+    for k5 in ("pv", "st", "update"):
+        assert T.route(*deep, 4096, bicg=k5)[0] == "tile"
     assert T.pass_layout(1000, deep[0])[0] > 0  # 18 rows of 2108 floats
     assert T.route(*deep, 1000)[0] == "band"
     wrap = (((0, 0), (0, -6999)), (1.0, 1.0))
@@ -190,6 +209,7 @@ def test_pass_constants_mirror_csrc():
     assert T.PASS_SLACK == 4 * T.PASS_THREADS
     assert "#define LS_PASS_SMEM_MAX (225 * 1024)" in text
     assert T.PASS_SMEM_MAX == 225 * 1024
+    assert T.PASS_DOTS == _define("LS_PASS_DOTS") == 2
     # a thread's output columns and 16-byte loads per row
     assert T.PASS_COLS % T.PASS_THREADS == 0
     assert T.PASS_MAX_STRIDE % (4 * T.PASS_THREADS) == 0
@@ -262,15 +282,16 @@ def test_pass_geometry_depends_on_the_shape_alone(shape):
 @pytest.mark.parametrize("shape", [(4096, 4096), (1024, 4096), (8, 128),
                                    (33, 4097), (20, 5000)])
 def test_pass_scratch_covers_the_units(shape, monkeypatch):
-    """The band route's scratch holds one float64 partial per unit of the
-    launch and a zeroed last-block counter."""
+    """The band route's scratch holds PASS_DOTS float64 partials per unit
+    of the launch (K5b's two dots) and a zeroed last-block counter."""
     monkeypatch.setattr(T, "_raw_stream", lambda device: 0)
     monkeypatch.setattr(T, "_PASS_SCRATCH", {})
     partials, units, counter = T._one_pass_scratch(torch.device("cpu"),
                                                    *shape, "band")
     strips, _, _, bands = T.pass_geometry(*shape)
     assert units == strips * bands == len(_units(*shape))
-    assert partials.dtype == torch.float64 and partials.numel() == units
+    assert partials.dtype == torch.float64
+    assert partials.numel() == T.PASS_DOTS * units
     assert counter.numel() == 1 and int(counter) == 0
     assert T._one_pass_scratch(torch.device("cpu"), *shape,
                                "band")[0] is partials
@@ -284,14 +305,17 @@ def _floor4(c):
     return c // 4 * 4
 
 
-def band_march(x, top, bot, offs, vals):
-    """y = A x by the band march's steps: each unit stores operand row s
-    of its window into ring slot s mod rows (padded with zeros beside the
-    grid, or clipped to [0, C) with its out-of-grid terms masked) and
+def _march(row, R, C, offs, vals, emit, store=None):
+    """The band march's steps on an [R, C] grid whose operand row q is
+    ``row(q)``: each unit stores operand row s of its window into ring
+    slot s mod rows (padded with zeros beside the grid, or clipped to [0,
+    C) with its out-of-grid terms masked; ``store(s, c0, c1, values)`` at
+    the unit's own rows, where K4 and K5a write their operand) and
     computes output row s - hi - 1 from the ring, checking that every term
-    reads the slot of its row, inside the columns the row load covered.
-    Returns (y, how often each element was written)."""
-    R, C = x.shape
+    reads the slot of its row, inside the columns the row load covered;
+    ``emit(unit, i, c0, c1, acc, own)`` takes (A x) at the unit's columns
+    of output row i, summed in float64 in stencil order, and the operand
+    there read from the ring."""
     S, mask, nring, _ = T.pass_layout(C, offs)
     assert S > 0
     lo = min(0, min(dy for dy, _ in offs))
@@ -299,10 +323,7 @@ def band_march(x, top, bot, offs, vals):
     qm = max(0, max(-dx for _, dx in offs))
     qp = max(0, max(dx for _, dx in offs))
     L = hi + 1
-    ext = np.concatenate([top, x, bot])  # rows -8 .. R + 7
-    y = np.zeros((R, C), np.float64)
-    writes = np.zeros((R, C), np.int32)
-    for c0, c1, r0, r1 in _units(R, C):
+    for u, (c0, c1, r0, r1) in enumerate(_units(R, C)):
         wl = _floor4(max(0, c0 - qm)) if mask else _floor4(c0 - qm)
         ls, le = max(0, wl), min(C, -(-(c1 + qp) // 4) * 4)
         assert le - wl <= S
@@ -313,8 +334,10 @@ def band_march(x, top, bot, offs, vals):
         for s in range(r0 + lo, r1 + hi + 1):
             if s <= r1 - 1 + hi:
                 ring[ss] = 0.0
-                ring[ss, ls - wl:le - wl] = ext[8 + s, ls:le]
+                ring[ss, ls - wl:le - wl] = row(s)[ls:le]
                 held[ss] = s
+                if store is not None and r0 <= s < r1:
+                    store(s, c0, c1, ring[ss, c0 - wl:c1 - wl])
             i = s - L
             if r0 <= i < r1:
                 acc = np.zeros(c1 - c0)
@@ -328,10 +351,78 @@ def band_march(x, top, bot, offs, vals):
                         assert (jx - wl >= 0).all() and (jx - wl < S).all()
                     t = ring[slot, np.clip(jx - wl, 0, S - 1)]
                     acc += v * np.where(inside, t, 0.0)
-                y[i, c0:c1] = acc
-                writes[i, c0:c1] += 1
+                own = ring[(ss - L) % nring, c0 - wl:c1 - wl]
+                assert held[(ss - L) % nring] == i
+                emit(u, i, c0, c1, acc, own)
             ss = (ss + 1) % nring
+
+
+def band_march(x, top, bot, offs, vals):
+    """y = A x by the band march's steps (:func:`_march`), the rows
+    outside the grid from the halo blocks.  Returns (y, how often each
+    element was written)."""
+    R, C = x.shape
+    ext = np.concatenate([top, x, bot])  # rows -8 .. R + 7
+    y = np.zeros((R, C), np.float64)
+    writes = np.zeros((R, C), np.int32)
+
+    def emit(u, i, c0, c1, acc, own):
+        y[i, c0:c1] = acc
+        writes[i, c0:c1] += 1
+
+    _march(lambda s: ext[8 + s], R, C, offs, vals, emit)
     return y, writes
+
+
+def band_march_k5(mode, d, offs, vals, compensated):
+    """K5a (``pv``) or K5b (``st``) by the band march's steps: the operand
+    (p' = r + beta (p - omega v), or s = r - alpha v) formed in f32 as its
+    row arrives, zero outside the grid (no halo blocks); A of it rounded
+    to f32 (K5a writes it, v'); p' written at each unit's own rows; each
+    dot's products exact (``compensated``) or rounded to f32, summed in
+    float64 per unit, the units summed in unit order, rounded to f32 once.
+    Returns (p', v', dots, writes of p', writes of v') for ``pv``, (dots,)
+    for ``st``."""
+    R, C = d["r"].shape
+    if mode == "pv":
+        def form(q):
+            return d["r"][q] + d["beta"] * (d["p"][q]
+                                            - d["omega"] * d["v"][q])
+    else:
+        def form(q):
+            return d["r"][q] - d["alpha"] * d["v"][q]
+    zero = np.zeros(C, np.float32)
+    row = lambda q: form(q) if 0 <= q < R else zero
+    nd = 1 if mode == "pv" else 2
+    parts = np.zeros((len(_units(R, C)), nd))
+    pn, vn = np.zeros((R, C), np.float32), np.zeros((R, C), np.float32)
+    pw, vw = np.zeros((R, C), np.int32), np.zeros((R, C), np.int32)
+
+    def prod(a, b):
+        a, b = np.float32(a), np.float32(b)
+        return (a.astype(np.float64) * b if compensated
+                else (a * b).astype(np.float64))
+
+    def store(s, c0, c1, values):
+        pn[s, c0:c1] = values
+        pw[s, c0:c1] += 1
+
+    def emit(u, i, c0, c1, acc, own):
+        t = acc.astype(np.float32)
+        if mode == "pv":
+            vn[i, c0:c1] = t
+            vw[i, c0:c1] += 1
+            parts[u, 0] += prod(d["rt"][i, c0:c1], t).sum()
+        else:
+            parts[u, 0] += prod(t, own).sum()
+            parts[u, 1] += prod(t, t).sum()
+
+    _march(row, R, C, offs, vals, emit, store if mode == "pv" else None)
+    dots = np.zeros(nd)
+    for part in parts:  # unit order
+        dots += part
+    dots = dots.astype(np.float32)
+    return (pn, vn, dots, pw, vw) if mode == "pv" else (dots,)
 
 
 @pytest.mark.parametrize("halos", [False, True])
@@ -358,6 +449,60 @@ def test_band_march_transcription_matches_plain(stencil, shape, halos):
                          torch.from_numpy(top), torch.from_numpy(bot)).numpy()
     np.testing.assert_allclose(y, want, rtol=0, atol=1e-12 * np.abs(want)
                                .max())
+
+
+def _k5_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    d = {k: rng.standard_normal(shape).astype(np.float32)
+         for k in ("r", "p", "v", "rt")}
+    d.update(alpha=np.float32(0.83), beta=np.float32(0.37),
+             omega=np.float32(0.41))
+    return d
+
+
+def _cs(a, b):
+    """The Cauchy-Schwarz scale of <a, b>: sqrt(<a, a> <b, b>)."""
+    a, b = (np.asarray(t, np.float64) for t in (a, b))
+    return float(np.sqrt((a * a).sum() * (b * b).sum()))
+
+
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("mode", ["pv", "st"])
+@pytest.mark.parametrize("shape", [(8, 128), (37, 1000), (3, 130),
+                                   (18, 4096), (5, 4100), (20, 5000)])
+@pytest.mark.parametrize("stencil", ["S2_gen", "S2_4x", "wide_kw"])
+def test_band_march_k5_transcription_matches_plain(stencil, shape, mode,
+                                                   compensated):
+    """K5a's and K5b's modes of the band march against bicg_pv_plain and
+    bicg_st_plain, with exact and f32-rounded dot products: p' bit for
+    bit (formed in f32 in the same order) and written once, v' within
+    1e-6 * max|ref| (A p' summed in another order and rounded once) and
+    written once, every dot within 1e-6 of its Cauchy-Schwarz scale (the
+    plain versions sum in f32, or compensated in float64 pairs)."""
+    R, C = shape
+    offs, vals = STENCILS[stencil](C)
+    if T.route(offs, vals, C, bicg=mode)[0] != "band":
+        pytest.skip(f"{stencil} at {C} columns is off the band route")
+    d = _k5_inputs(shape, seed=R + C)
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()}
+    kw = dict(offsets=offs, values=vals, compensated=compensated)
+    if mode == "pv":
+        pn, vn, dots, pw, vw = band_march_k5(mode, d, offs, vals,
+                                             compensated)
+        rp, rv, rdot = TB.bicg_pv_plain(t["r"], t["p"], t["v"], t["rt"],
+                                        t["beta"], t["omega"], **kw)
+        assert (pw == 1).all() and (vw == 1).all()
+        np.testing.assert_array_equal(pn, rp.numpy())
+        np.testing.assert_allclose(vn, rv.numpy(), rtol=0,
+                                   atol=1e-6 * rv.abs().max().item())
+        assert abs(dots[0] - rdot.item()) <= 1e-6 * _cs(d["rt"], rv)
+    else:
+        (dots,) = band_march_k5(mode, d, offs, vals, compensated)
+        ts, tt = TB.bicg_st_plain(t["r"], t["v"], t["alpha"], **kw)
+        s = t["r"] - t["alpha"] * t["v"]
+        a = T.apply_plain(s, offs, vals)
+        assert abs(dots[0] - ts.item()) <= 1e-6 * _cs(a, s)
+        assert abs(dots[1] - tt.item()) <= 1e-6 * _cs(a, a)
 
 
 def test_clipped_and_padded_layouts_both_occur():

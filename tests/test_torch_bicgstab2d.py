@@ -41,9 +41,9 @@ def make_state(shape, seed=7):
             for k in ("x", "r", "p", "v", "rt")}
 
 
-def run_jax(kernel, st, compensated):
+def run_jax(kernel, st, compensated, stencil=KW):
     a = {k: jnp.asarray(v) for k, v in st.items()}
-    kw = dict(KW, interpret=True, compensated=compensated)
+    kw = dict(stencil, interpret=True, compensated=compensated)
     if kernel == "pv":
         out = JB.bicg_pv(a["r"], a["p"], a["v"], a["rt"], BETA, OMEGA, **kw)
         names = ("p", "v", "rtv")
@@ -57,9 +57,9 @@ def run_jax(kernel, st, compensated):
     return {k: np.asarray(v, np.float64) for k, v in zip(names, out)}
 
 
-def run_port(kernel, st, compensated, device="cpu"):
+def run_port(kernel, st, compensated, device="cpu", stencil=KW):
     t = {k: torch.tensor(v, device=device) for k, v in st.items()}
-    kw = dict(KW, compensated=compensated)
+    kw = dict(stencil, compensated=compensated)
     if kernel == "pv":
         out = TB.bicg_pv(t["r"], t["p"], t["v"], t["rt"], BETA, OMEGA, **kw)
         names = ("p", "v", "rtv")
@@ -110,6 +110,38 @@ def test_plain_matches_jax(kernel, shape, compensated):
     st = make_state(shape)
     assert_close(run_port(kernel, st, compensated),
                  run_jax(kernel, st, compensated))
+
+
+# The band route's stencils (phase 4n's S2_gen and S2_4x, phase 4l's wide
+# stencil at C = 256: (1, -255) and a term 8 rows up), as
+# test_torch_band_pass.py builds them
+WIDE_STENCILS = {
+    "S2_gen": dict(offsets=OFFS + ((0, 2), (0, -2), (0, 37), (0, -37),
+                                   (1, 100), (-1, -100), (1, -100),
+                                   (-1, 100)),
+                   values=(7.0,) + (-1.0,) * 4 + (-0.5,) * 4 + (-0.25,) * 4),
+    "S2_4x": dict(offsets=OFFS + ((0, -2), (0, 2)),
+                  values=(4.5, -1.0, -1.0, -16 / 12, -16 / 12, 1 / 12,
+                          1 / 12)),
+    "wide_kw": dict(offsets=OFFS + ((0, 37), (0, -37), (1, -255),
+                                    (-8, 100)),
+                    values=VALS + (-0.25, -0.25, -0.5, -0.125)),
+}
+
+
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("stencil", list(WIDE_STENCILS))
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_plain_matches_jax_band_stencils(kernel, stencil, compensated):
+    """K5a-c's plain versions against JAX's passes in interpret mode with
+    the stencils that K5a and K5b take on the band route (K5c on the tile
+    kernels), at (32, 256), a shape JAX's gate takes (C % 128 == 0): the
+    tolerances above."""
+    kw = WIDE_STENCILS[stencil]
+    assert JB.bicgstab_supported(32, 256, kw["offsets"])
+    st = make_state((32, 256), seed=17)
+    assert_close(run_port(kernel, st, compensated, stencil=kw),
+                 run_jax(kernel, st, compensated, stencil=kw))
 
 
 @pytest.mark.parametrize("compensated", [False, True])

@@ -107,11 +107,11 @@ def test_kernel_matches_plain_on_card(mode, shape, cuda_device):
 
 
 
-def _bicg(kernel, d, device, compensated, plain=False):
+def _bicg(kernel, d, device, compensated, plain=False, stencil=KW):
     """One K5 pass on copies of ``d`` on ``device``: the wrapper, or with
     ``plain`` its plain version."""
     t = {k: torch.as_tensor(np.array(v), device=device) for k, v in d.items()}
-    kw = dict(KW, compensated=compensated)
+    kw = dict(stencil, compensated=compensated)
     fn = getattr(TB, f"bicg_{kernel}_plain" if plain else f"bicg_{kernel}")
     if kernel == "pv":
         out = fn(t["r"], t["p"], t["v"], t["rt"], 0.37, 0.41, **kw)
@@ -696,7 +696,7 @@ def test_sstep_history_on_card(cuda_device):
 # K5b (bicg_st) and K2 (gram2) on the column-strip march: K1's edge shapes
 # (strips of 120 output columns, row chunks, 16-byte vectors where C % 4
 # == 0), the cross, the 9-point stencil (the switch path) and, for K5b, a
-# reach-2 stencil (the tile kernel and its second launch)
+# reach-2 stencil (the band route)
 STRIP_SHAPES = [(200, 328), (33, 4097), (4099, 130), (1, 5), (96, 132)]
 OFFS_R2 = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1), (-2, 0), (2, 0),
            (0, -2), (0, 2))
@@ -728,7 +728,7 @@ def _st_case(shape, stencil, compensated, device, seed=17):
 @pytest.mark.parametrize("shape", STRIP_SHAPES)
 def test_k5b_edges_match_plain_on_card(shape, stencil, compensated,
                                        cuda_device):
-    """K5b across the strip march's edges (reach 1) and on the tile kernel
+    """K5b across the strip march's edges (reach 1) and on the band route
     (reach 2) against bicg_st_plain on the same card, to chip_smoke.py's
     phase 3 bound (1e-4 of each dot's Cauchy-Schwarz scale), and a repeat
     bit for bit."""
@@ -1609,8 +1609,9 @@ def test_k3_k4_wide_match_plain_on_card(mode, shape, stencil, halos,
     offs, vals = WIDE[stencil](shape[1])
     assert T.route(offs, vals, shape[1])[0] == ("flat" if stencil == "flat"
                                                 else "band")
-    assert T.route(offs, vals, shape[1], bicg=True)[0] == (
-        "flat" if stencil == "flat" else "tile")
+    assert T.route(offs, vals, shape[1], bicg="st")[0] == (
+        "flat" if stencil == "flat" else "band")
+    assert T.route(offs, vals, shape[1], bicg="update")[0] == "tile"
     _check_one_pass(mode, _one_pass_state(shape, halos, cuda_device), offs,
                     vals, cuda_device)
 
@@ -1734,10 +1735,11 @@ def test_k1_k2_cross_unchanged_on_card(cuda_device):
 @pytest.mark.parametrize("kernel", ["pv", "st", "update"])
 def test_k5_wide_match_plain_on_card(kernel, shape, stencil, compensated,
                                      cuda_device):
-    """K5a-c on the 1-D view (K5b on the flat route, K5a and K5c on the
-    tile kernels' wide terms) and with wide 2-D terms, against their plain
-    versions: elementwise 1e-5 * max|ref|, dots 1e-4 of their
-    Cauchy-Schwarz scale, one launch, a repeat bit for bit."""
+    """K5a-c on the 1-D view (K5b on the flat route, K5a on the band
+    route, K5c on the tile kernel's wide terms) and with wide 2-D terms
+    (K5a and K5b on the band route), against their plain versions:
+    elementwise 1e-5 * max|ref|, dots 1e-4 of their Cauchy-Schwarz scale,
+    one launch, a repeat bit for bit."""
     offs, vals = WIDE[stencil](shape[1])
     rng = np.random.default_rng(9)
     d = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
@@ -2235,8 +2237,9 @@ def test_band_one_launch_on_card(stencil, cuda_device):
 @pytest.mark.cuda
 def test_band_geometry_gate_and_attrs_on_card(cuda_device):
     """The library's band geometry and ring layout equal the Python
-    mirror's; every pass's kernel fits one block per SM at each stencil's
-    ring, with no spill, within 128 registers."""
+    mirror's; every pass's kernel (K3's four modes, K4, K5a, K5b) fits one
+    block per SM at each stencil's ring, with no spill, within 128
+    registers."""
     import ctypes
 
     from legionsolvers_tpu_torch.ops.cuda.build import load_library
@@ -2252,7 +2255,7 @@ def test_band_geometry_gate_and_attrs_on_card(cuda_device):
             st = T._stencil_struct(offs, vals)
             assert lib.ls_pass_band_layout(C, ctypes.byref(st), out) == 0
             assert tuple(out) == T.pass_layout(C, offs), (name, C)
-            for which in range(5):
+            for which in range(7):
                 assert lib.ls_pass_band_attrs(which, C, ctypes.byref(st),
                                               out) == 0
                 assert 0 < out[0] <= 128 and out[1] == 0, (name, C, which,
@@ -2302,3 +2305,110 @@ def test_band_two_pass_solve_matches_plain_on_card(pieces, cuda_device,
     assert len(hk) == 41 and np.isfinite(hk).all()
     np.testing.assert_allclose(hk, hp, rtol=1e-3)
     np.testing.assert_allclose(xk, xp, rtol=0, atol=1e-3 * np.abs(xp).max())
+
+
+# ---------------------------------------------------------------------------
+# K5a (bicg_pv) and K5b (bicg_st) on the band route (csrc/band2d.cu)
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's BAND_EDGE_SHAPES
+BAND_K5_SHAPES = [(8, 128), (37, 1000), (3, 1000), (203, 4096), (33, 130),
+                  (40, 5000), (1024, 4096)]
+
+
+def _cs(a, b):
+    """The Cauchy-Schwarz scale of <a, b>: sqrt(<a, a> <b, b>)."""
+    return float(np.sqrt((np.square(a, dtype=np.float64).sum())
+                         * np.square(b, dtype=np.float64).sum()))
+
+
+def _k5_close(kernel, d, got, ref, kw):
+    """K5a's p' and v' within 2e-5 * max|ref|, and each dot of K5a or K5b
+    within 1e-4 of its Cauchy-Schwarz scale (phase 3's dot bound)."""
+    if kernel == "pv":
+        for key in ("p", "v"):
+            np.testing.assert_allclose(got[key], ref[key], rtol=0,
+                                       atol=2e-5 * np.abs(ref[key]).max(),
+                                       err_msg=key)
+        bounds = {"rtv": _cs(d["rt"], ref["v"])}
+    else:
+        s = d["r"] - np.float32(0.83) * d["v"]
+        a = T.apply_plain(torch.from_numpy(s), **kw).numpy()
+        bounds = {"ts": _cs(a, s), "tt": _cs(a, a)}
+    for key, scale in bounds.items():
+        assert abs(got[key] - ref[key]) <= 1e-4 * scale, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("stencil", ["S2_gen", "S2_4x", "wide"])
+@pytest.mark.parametrize("shape", BAND_K5_SHAPES)
+@pytest.mark.parametrize("kernel", ["pv", "st"])
+def test_band_k5_match_plain_on_card(kernel, shape, stencil, compensated,
+                                     cuda_device):
+    """K5a and K5b on the band route against their plain versions: p' and
+    v' within 2e-5 * max|ref|, each dot within 1e-4 of its Cauchy-Schwarz
+    scale (phase 3's dot bound; the kernel sums exact or f32-rounded
+    products in float64, the plain version in f32), compensated <r~, v'>
+    within 4e-7 of the float64 sum of the kernel's own operands; one
+    launch; a repeat bit for bit."""
+    offs, vals = BAND[stencil](shape[1])
+    if max(abs(dx) for _, dx in offs) >= shape[1]:
+        pytest.skip("|dx| >= C: off the gate at this width")
+    assert T.route(offs, vals, shape[1], bicg=kernel)[0] == "band"
+    kw = dict(offsets=offs, values=vals)
+    rng = np.random.default_rng(shape[0] + shape[1])
+    d = {k: rng.standard_normal(shape).astype(np.float32)
+         for k in ("r", "p", "v", "rt")}
+    T.reset_launch_counts()
+    got = _bicg(kernel, d, cuda_device, compensated, stencil=kw)
+    again = _bicg(kernel, d, cuda_device, compensated, stencil=kw)
+    assert dict(T.LAUNCHES) == {f"bicg_{kernel}": 2}
+    for key in got:
+        np.testing.assert_array_equal(got[key], again[key], err_msg=key)
+    ref = _bicg(kernel, d, cuda_device, compensated, plain=True, stencil=kw)
+    _k5_close(kernel, d, got, ref, kw)
+    if compensated and kernel == "pv":
+        exact = (d["rt"].astype(np.float64) * got["v"]).sum()
+        assert abs(got["rtv"] - exact) <= 4e-7 * abs(exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stencil", ["S2_gen", "wide"])
+def test_band_k5_one_launch_on_card(stencil, cuda_device):
+    """K5a and K5b on the band route are one kernel each, the band
+    march's, and no reduce_partials (one profiler trace of both, f32 and
+    compensated dots)."""
+    offs, vals = BAND[stencil](1000)
+    rng = np.random.default_rng(3)
+    t = {k: torch.from_numpy(rng.standard_normal((96, 1000))
+                             .astype(np.float32)).to(cuda_device)
+         for k in ("r", "p", "v", "rt")}
+    out = (torch.empty_like(t["p"]), torch.empty_like(t["v"]))
+    fns = []
+    for comp in (False, True):
+        kw = dict(offsets=offs, values=vals, compensated=comp)
+        fns += [lambda kw=kw: TB.bicg_pv(t["r"], t["p"], t["v"], t["rt"],
+                                         0.37, 0.41, out=out, **kw),
+                lambda kw=kw: TB.bicg_st(t["r"], t["v"], 0.83, **kw)]
+    for names in _kernels_of_each(fns):
+        assert len(names) == 1 and "band_pass_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["pv", "st"])
+def test_band_k5_past_the_gate_keeps_the_tile_kernels_on_card(kernel,
+                                                              cuda_device):
+    """A row span of 17 at 4096 columns is past the band route's gate:
+    K5a and K5b run the tile kernels (and their second launch) and still
+    match their plain versions (the bounds of the band cases above)."""
+    offs = KW["offsets"] + ((-8, 100), (8, -4095))
+    vals = KW["values"] + (-0.25, -0.25)
+    assert T.route(offs, vals, 4096, bicg=kernel)[0] == "tile"
+    kw = dict(offsets=offs, values=vals)
+    rng = np.random.default_rng(4)
+    d = {k: rng.standard_normal((64, 4096)).astype(np.float32)
+         for k in ("r", "p", "v", "rt")}
+    got = _bicg(kernel, d, cuda_device, False, stencil=kw)
+    ref = _bicg(kernel, d, cuda_device, False, plain=True, stencil=kw)
+    _k5_close(kernel, d, got, ref, kw)

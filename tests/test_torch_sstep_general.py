@@ -130,7 +130,9 @@ def test_gates_of_both_packages(case):
         assert TS.route(o, vals, C, sstep=True)[0] == (
             "general_coop" if case in COOP else "general")
         assert TS.route(o, vals, C)[0] == "band"
-        assert TS.route(o, vals, C, bicg=True)[0] == "tile"
+        assert TS.route(o, vals, C, bicg="pv")[0] == "band"
+        assert TS.route(o, vals, C, bicg="st")[0] == "band"
+        assert TS.route(o, vals, C, bicg="update")[0] == "tile"
 
 
 # (stencil terms, pieces, JAX and the port run the s-step)
@@ -371,3 +373,32 @@ def test_sstep_solve_matches_jax(case, mesh4):
             st.reset()
             np.testing.assert_array_equal(hist_of(st.solve(iters - 1)),
                                           ht[:iters])
+
+
+# -- BiCGStab with S2_gen: K5a and K5b on the band route ----------------------
+
+@pytest.mark.parametrize("pieces", [1, 4])
+def test_bicgstab_s2_gen_matches_jax(pieces, mesh4):
+    """The fused BiCGStab runner with S2_gen in both packages, on one piece
+    and on 4 (16-row pieces, the zero-halo passes with their edge
+    fix-ups): the port's K5a and K5b take the band route there and K5c the
+    tile kernels (their plain versions here, JAX's passes in interpret
+    mode).  The history over BICG_ITERS iterations, before the f32
+    recurrences part, rtol 3e-3 (test_23's), and x within 5e-3 of
+    max|x|."""
+    pj, opj = system(J, SHAPE, pieces, stencil=S2_GEN)
+    pt, opt = system(T, SHAPE, pieces, stencil=S2_GEN)
+    assert opj.supports_fused_bicgstab and opt.supports_fused_bicgstab
+    v = opt._view
+    for k5, kind in (("pv", "band"), ("st", "band"), ("update", "tile")):
+        assert TS.route(v["offs"], v["vals"], v["C"], bicg=k5)[0] == kind
+    hj = hist_of(J.BiCGStabSolver(pj).solve(BICG_ITERS))
+    ht = hist_of(T.BiCGStabSolver(pt).solve(BICG_ITERS))
+    assert len(ht) == BICG_ITERS + 1 and np.isfinite(ht).all()
+    np.testing.assert_allclose(ht, hj, rtol=3e-3)
+    xj = sol(pj)
+    np.testing.assert_allclose(sol(pt), xj, rtol=0,
+                               atol=5e-3 * np.abs(xj).max())
+
+
+BICG_ITERS = 8

@@ -143,7 +143,9 @@ def test_gates():
     wide9 = (OFFS + ((0, -9),), VALS + (-0.5,))
     assert T.route(*wide9, 128, sstep=True)[0] == "general"
     assert T.route(*wide9, 128)[0] == "band"
-    assert T.route(*wide9, 128, bicg=True)[0] == "tile"
+    assert T.route(*wide9, 128, bicg="pv")[0] == "band"
+    assert T.route(*wide9, 128, bicg="st")[0] == "band"
+    assert T.route(*wide9, 128, bicg="update")[0] == "tile"
     assert T.step2_supported(64, 128, OFFS + ((1, -127),))
     assert not T.step2_supported(64, 128, OFFS + ((-2, 5),))
     assert not T.step2_supported(64, 128, OFFS + ((0, 128),))
