@@ -23,21 +23,21 @@ sides (:func:`breakdown`).
 S2_4x systems from several right-hand sides, with the kernels and driven
 by the plain versions, against float64 CG (:func:`band_accuracy`).
 ``--bicg-gap [--tree DIR]`` reads the fused BiCGStab's recurrence gap on
-S2_4x and S2_gen from several right-hand sides, with K5a and K5b on
+S2_4x and S2_gen from several right-hand sides, with K5a, K5b and K5c on
 either kernel (:func:`bicg_gap_draws`).
 ``--passes [--tree DIR]`` prints the times of K3, K4, K5b, K2 and K1 at
 4096^2 that ``--solves`` takes (:func:`time_ab_passes_2d`), and K3's four
-modes, K4, K5a and K5b with the band route's stencils (S2_4x, S2_gen and
-4l's wide_kw at 4096^2: the band route of this tree, the tile kernels of
-a tree from before it) and K5a with the cross and the 1-D view's
-Laplacian, and nothing else.  ``--blocks`` runs phases 4i and 5i (block
+modes, K4, K5a, K5b and K5c with the band route's stencils (S2_4x, S2_gen
+and 4l's wide_kw at 4096^2: the band route of this tree, the tile kernels
+of a tree from before it) and K5a and K5c with the cross and the 1-D
+view's Laplacian, and nothing else.  ``--blocks`` runs phases 4i and 5i (block
 systems) and nothing else, ``--pieces`` phases 4j and 5j (pieces on one card),
 ``--explicit-pieces`` phases 4k and 5k (explicit matrices on pieces; it
 builds the one-piece DIA and scrambled systems of 4e-f too, to compare),
 ``--flat1d`` phases 4l and 5l (the 1-D kernel view at 2^24 unknowns),
 ``--wide3d`` phases 4m and 5m (wide z shifts on the 3-D kernels at 256^3)
 and K1's nop mode (its check and its time), ``--wide2d`` phases 4n and 5n
-(K1 and K2 on their general route and K3, K4, K5a and K5b on the band
+(K1 and K2 on their general route and K3, K4 and K5a-c on the band
 route, 2-D stencils with wide column shifts, at 4096^2).
 
 Phases (any failure raises, and the exit code is non-zero):
@@ -62,8 +62,9 @@ Phases (any failure raises, and the exit code is non-zero):
    reach-2 cross, which runs the band route), to the same bounds and bit
    for bit on a repeat, and so K3 (four modes) and K4 (reach 2: the band
    route); a torch.profiler trace shows that the strip passes and the band
-   route launch one kernel and no reduce_partials, and that reach-1 K5a
-   and reach-2 K5c, on the tile kernels, launch their second.  The strip
+   route (K5c with the reach-2 cross too) launch one kernel and no
+   reduce_partials, and that reach-1 K5a, on its tile kernel, launches its
+   second.  The strip
    kernels' registers, spill bytes and resident blocks per SM are printed
    after the build;
 4. drive the CG path, ``entry.build_system(4096)`` -> ``CGSolver``: a
@@ -296,9 +297,9 @@ grid as ``[n // C, C]`` and the kernels run its row-wrap terms, |dx| = C -
    1000), (3, 1000) and (203, 4096) with null and random halo blocks: K3's
    four modes, K4 and K5b on the strip march with WRAP, K2 and K1 on the
    march along the flat index (``csrc/flat1d.cu``), K5a and K5c on the
-   tile kernels' wide terms (compensated dots off and on), and
-   the wide terms of K3 and K4 (the band route, ``csrc/band2d.cu``) and K5
-   (the tile kernels) with (0, +-37), (1, -(C - 1)) and (-8, 100); phase
+   band route (``csrc/band2d.cu``, compensated dots off and on), and the
+   wide terms of K3, K4 and K5a-c (the band route) with (0, +-37), (1,
+   -(C - 1)) and (-8, 100); phase
    3's bounds and repeats bit for bit.  Then
    ``entry.build_stencil_system(1, (2^24,))`` on one piece and on 4 pieces
    (Br 1024): s-step CG (K1 100, K2 7), two-pass CG (K3 pq 1, update 200,
@@ -316,8 +317,9 @@ grid as ``[n // C, C]`` and the kernels run its row-wrap terms, |dx| = C -
 5l. each route's time at [4096, 4096] with CUDA events and in CUDA graphs
    beside its plain version and bound; K1's and K2's flat kernels'
    registers, spill, blocks per SM and shared memory and their ms lost per
-   s-step solve(200); the wide terms (K3 and K4 on the band route, K5 on
-   the tile kernels) at 4096^2 beside the same bound and their ms lost per two-pass CG or BiCGStab solve(200);
+   s-step solve(200); the wide terms (K3, K4 and K5a-c on the band
+   route) at 4096^2 beside the same bound and their ms lost per two-pass
+   CG or BiCGStab solve(200);
    and each 4l solve's ms/iter, host enqueue and idle share (a
    torch.profiler trace).  ``--flat1d`` runs 4l and 5l alone.
 
@@ -388,8 +390,9 @@ the cooperative kernel:
    plain version called, a repeat bit for bit, the CG history and x within
    twice textbook f32 CG's distance from float64 CG (PCG's against
    textbook f32 PCG), GMRES non-increasing, every launch on 4 pieces held
-   to its plain version.  K5a and K5b on the band route (and K5c on its
-   tile kernel) against their plain versions at the same shapes,
+   to its plain version.  K5a, K5b and K5c on the band route (the
+   stencil past the gate on their tile kernels) against their plain
+   versions at the same shapes,
    compensated dots off and on (compensated dots also within 4e-7 of the
    float64 sum of their operands); the fused BiCGStab solve(200) with
    S2_gen (f32 and compensated dots, and on 4 pieces) and with S2_4x,
@@ -407,10 +410,10 @@ the cooperative kernel:
    schedule, K3 and K4 on the band route); K3's four modes and K4 on the
    band route with S2_gen, S2_4x and wide_kw at 4096^2 the same way, and
    ``F.conv2d`` over S2_4x's 3 x 5 and S2_gen's 3 x 201 box computing K3's
-   y; K5a and K5b on the band route with those stencils beside their tile
-   kernels and plain versions, K5c on its tile kernel with S2_gen and
-   S2_4x, and the BiCGStab solves' ms/iter, host enqueue and idle share
-   (S2_gen's also with K5a and K5b on the tile kernels).  ``--wide2d``
+   y; K5a-c on the band route with those stencils beside their tile
+   kernels and plain versions, and the BiCGStab solves' ms/iter, host
+   enqueue and idle share (S2_gen's also with K5c on its tile kernel).
+   ``--wide2d``
    runs 4n and 5n alone.
 
 To make room for 4m and 5m, phase 5j's and 5k's idle traces cover about
@@ -889,11 +892,10 @@ def compare_one_pass_edges(torch, T, device):
 def check_one_launch_2d(torch, T, TB, device):
     """Phase 3: K5b with the reach-1 stencils (compensated dots off and on),
     K2, K3 (four modes) and K4 launch one kernel, their strip kernel, and
-    no reduce_partials; K3, K4, K5a and K5b with the reach-2 stencil one
-    kernel, the band route's; K5a with the reach-1 stencils and K5c with
-    the reach-2 one the tile kernel and its second launch, which shows
-    that the trace sees a second launch.  Returns {case: kernel
-    names}."""
+    no reduce_partials; K3, K4 and K5a-c with the reach-2 stencil one
+    kernel, the band route's; K5a with the reach-1 stencils the tile
+    kernel and its second launch, which shows that the trace sees a
+    second launch.  Returns {case: kernel names}."""
     g = torch.Generator(device=device).manual_seed(37)
     r, v, rp, rt = (torch.randn(RAGGED, generator=g, device=device)
                     for _ in range(4))
@@ -926,8 +928,7 @@ def check_one_launch_2d(torch, T, TB, device):
                                                  list(cases.values()))):
         seen[case] = names
         second = any("reduce_partials" in n for n in names)
-        if case.startswith("bicg_update") or (
-                case.startswith("bicg_pv") and "reach2" not in case):
+        if case.startswith("bicg_pv") and "reach2" not in case:
             ok = second
         elif "reach2" in case:
             ok = len(names) == 1 and "band_pass_kernel" in names[0]
@@ -3605,14 +3606,15 @@ def time_ab_passes(torch, lt, device):
 def time_ab_passes_2d(torch, T, TB, device):
     """--solves and --passes: {"<K3 mode>" | "xpay_pq" | "bicg_st
     compensated=<c>" | "gram2" | "step2" | "<K3 mode or xpay_pq>
-    <stencil>" | "bicg_pv <stencil>" | "bicg_st <stencil>": {"events": ms,
-    "graph": ms}}, K3, K4, K5b, K2 and K1 with the cross, K3, K4, K5a and
-    K5b with BAND_STENCILS and K5a with the cross and the 1-D view's
-    decomposed Laplacian (``flat``) at N_GRID^2, no halo blocks, f32 dots,
-    timed as :func:`time_ab_passes` times the 3-D passes (CUDA events, and
-    CUDA graphs, over a ring of three input sets; K3 update in place with a
-    tiny alpha, K4 into a spare buffer, K1 and K5a into a spare pair, as
-    phase 5a calls them)."""
+    <stencil>" | "bicg_pv <stencil>" | "bicg_st <stencil>" | "bicg_update
+    <stencil>": {"events": ms, "graph": ms}}, K3, K4, K5b, K2 and K1 with
+    the cross, K3, K4 and K5a-c with BAND_STENCILS and K5a and K5c with the
+    cross and the 1-D view's decomposed Laplacian (``flat``) at N_GRID^2,
+    no halo blocks, f32 dots, timed as :func:`time_ab_passes` times the
+    3-D passes (CUDA events, and CUDA graphs, over a ring of three input
+    sets; K3 update and K5c in place with a tiny alpha, K4 and K5c into a
+    spare buffer, K1 and K5a into a spare pair, as phase 5a calls
+    them)."""
     g = torch.Generator(device=device).manual_seed(53)
     ring = [[torch.randn(N_GRID, N_GRID, generator=g, device=device)
              for _ in range(2)] for _ in range(3)]
@@ -3634,12 +3636,17 @@ def time_ab_passes_2d(torch, T, TB, device):
     ring5 = [bicg_inputs(torch, (N_GRID, N_GRID), 61 + s, device)
              for s in range(3)]
     for d in ring5:
-        d["p_out"], d["v_out"] = (torch.empty_like(d["r"]) for _ in range(2))
+        d["alpha"] = d["alpha"] * 1e-3  # K5c's x in place stays bounded
+        d["p_out"], d["v_out"], d["r_out"] = (torch.empty_like(d["r"])
+                                              for _ in range(3))
     for st, kw in (("cross", KW), ("flat", flat_kw(T, N_GRID)),
                    *((st, band_kw(st, N_GRID)) for st in BAND_STENCILS)):
         cases[f"bicg_pv {st}"] = [
             bicg_call(TB, "bicg_pv", d, False, False, (d["p_out"], d["v_out"]),
                       kw) for d in ring5]
+        cases[f"bicg_update {st}"] = [
+            bicg_call(TB, "bicg_update", d, False, False, d["r_out"], kw)
+            for d in ring5]
         if st in BAND_STENCILS:
             cases[f"bicg_st {st}"] = [bicg_call(TB, "bicg_st", d, False,
                                                 False, kw=kw) for d in ring5]
@@ -5747,8 +5754,7 @@ def breakdown(torch, lt, device, card, dim=3, n=N_GRID):
 
 # ---------------------------------------------------------------------------
 # phase 4l: the 1-D kernel view (-dim 1): the flat route of the strip march
-# (WRAP), the wide column shifts (band route, tile kernels), the 1-D solves
-# at 2^24
+# (WRAP), the wide column shifts (band route), the 1-D solves at 2^24
 # ---------------------------------------------------------------------------
 
 N_FLAT = 1 << 24  # -dim 1's unknowns: the view [4096, 4096], 64 MiB a vector
@@ -5787,8 +5793,8 @@ def flat_kw(T, C):
 
 def wide_kw(C):
     """The cross with column shifts past the tile's 8: (0, +-37), (1, -(C -
-    1)) and one 8 rows up, (-8, 100): wide terms, which K3 and K4 read on
-    the band route and K5 beside the tile."""
+    1)) and one 8 rows up, (-8, 100): wide terms, which K3, K4 and K5a-c
+    read on the band route."""
     return dict(offsets=OFFS + ((0, 37), (0, -37), (1, -(C - 1)), (-8, 100)),
                 values=VALS + (-0.25, -0.25, -0.5, -0.125))
 
@@ -5830,8 +5836,8 @@ def compare_flat_kernels(torch, T, TB, device):
     plain version on the decomposed offsets, at full width ([4096, 4096],
     random halo blocks) and at FLAT_EDGES (halo blocks null and random):
     K3's four modes, K4, K2, K1 and K5a-c (compensated dots off and on);
-    and the wide terms (:func:`wide_kw`) of K3, K4, K5a and K5b (the band
-    route) and K5c (the tile kernels) at FLAT_EDGES.  Phase 3's bounds
+    and the wide terms (:func:`wide_kw`) of K3, K4 and K5a-c (the band
+    route) at FLAT_EDGES.  Phase 3's bounds
     (elementwise 1e-5 * max|ref|, dots 1e-4 of their Cauchy-Schwarz
     scale), and a repeat on the same inputs bit for bit.  Returns ({pass:
     max abs error} of the flat route, the same of the wide terms)."""
@@ -5849,8 +5855,8 @@ def compare_flat_kernels(torch, T, TB, device):
                                         shape[1], bicg=k)[0]
                                 for k in ("pv", "update"))
         if (route, k5a_route, k5_route, k5c_route) != (
-                ("flat", "band", "flat", "tile") if st == "flat"
-                else ("band", "band", "band", "tile")):
+                ("flat", "band", "flat", "band") if st == "flat"
+                else ("band", "band", "band", "band")):
             raise AssertionError(f"{st} {shape} takes the {route} route "
                                  f"(K5a-c: {k5a_route}, {k5_route}, "
                                  f"{k5c_route})")
@@ -6125,8 +6131,8 @@ def flat1d_path(torch, np, T, TB, lt, device):
 def time_flat1d(torch, T, TB, device, bw, card, solvers):
     """Phase 5l.  Each 1-D route at full width ([4096, 4096]) with CUDA
     events over a ring of three input sets, beside its plain version and
-    in CUDA graphs; the wide terms (:func:`wide_kw`) of K3 and K4 (the
-    band route) and K5 (the tile kernels) at 4096^2 the same way; each FLAT_RUNS solve's ms/iter and
+    in CUDA graphs; the wide terms (:func:`wide_kw`) of K3, K4 and K5 (the
+    band route) at 4096^2 the same way; each FLAT_RUNS solve's ms/iter and
     host enqueue ms/iter (:func:`solve_ms`) and its idle share, 1 - its
     device time (a torch.profiler trace) over its wall.  Returns
     ({pass: (ms, plain ms, graph ms)} of the flat route, the same of the
@@ -6269,8 +6275,7 @@ def flat1d_rows(T, launches, grid_launches, errs, times, bw, conv1d_ms,
             name = f"{m} 1-D view"
         route = "flat"
         if m in BICG_KERNELS:
-            # K5a and K5c have no strip kernel: the band march and the tile
-            # kernel's wide terms
+            # K5a and K5c have no strip kernel: the band march
             route, source = k5_route(T, m, flat_kw(T, FLAT_C), FLAT_C)
         if m in SSTEP_200:
             source, route = FLAT_CSRC, "flat march"
@@ -7230,11 +7235,9 @@ BAND_STENCILS = ("S2_gen", "S2_4x", "wide_kw")
 BAND_EDGE_SHAPES = ((8, 128), (37, 1000), (3, 1000), (203, 4096), (33, 130),
                     (40, 5000), (1024, 4096))
 # a stencil past the gate (a row span of 17: 18 ring rows of 16 KB at
-# 4096 columns), which K3 and K4 run on the tile kernels
+# 4096 columns), which K3, K4 and K5a-c run on the tile kernels
 BAND_PAST = ((64, 4096), "deep")
 BAND_PASSES = tuple(ONE_PASS_NAMES)
-# K5a and K5b on the band route; K5c keeps the tile kernel
-BAND_K5 = ("bicg_pv", "bicg_st")
 K5_PASS = {"bicg_pv": "pv", "bicg_st": "st", "bicg_update": "update"}
 TWO_PASS_200 = {"pq": 1, "update": N_ITERS, "xpay_pq": N_ITERS - 1}
 BICG_200 = {m: N_ITERS for m in BICG_KERNELS}
@@ -7288,14 +7291,14 @@ def k5_route(T, m, kw, C):
 
 
 def compare_band_k5(torch, T, TB, device):
-    """Phase 4n, K5a and K5b on the band route and K5c on its tile kernel:
-    against their plain versions with BAND_STENCILS at 4096^2 and at
-    BAND_EDGE_SHAPES, and BAND_PAST's stencil on the tile kernels,
+    """Phase 4n, K5a-c on the band route: against their plain versions
+    with BAND_STENCILS at 4096^2 and at BAND_EDGE_SHAPES, and BAND_PAST's
+    stencil on the tile kernels,
     compensated dots off and on:
     phase 3b's bounds (elementwise 1e-5 * max|ref|, each dot 1e-4 of its
     Cauchy-Schwarz scale; compensated, each dot within 4e-7 of the float64
     sum of its f32 operands) and a repeat on the same inputs bit for bit.
-    Returns {pass: max abs error} on the band route (K5c: the tile)."""
+    Returns {pass: max abs error} on the band route."""
     f64dot = lambda a, b: torch.dot(a.double().reshape(-1),
                                     b.double().reshape(-1)).item()
     nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
@@ -7310,8 +7313,7 @@ def compare_band_k5(torch, T, TB, device):
         d["alpha"] = d["alpha"] * 1e-3  # K5c's x in place stays bounded
         for name in BICG_KERNELS:
             route = k5_route(T, name, kw, shape[1])[0]
-            want = ("tile" if st == BAND_PAST[1] or name == "bicg_update"
-                    else "band")
+            want = "tile" if st == BAND_PAST[1] else "band"
             if route != want:
                 raise AssertionError(f"{name} with {st} at {shape} takes "
                                      f"the {route} route, not {want}")
@@ -7412,7 +7414,7 @@ def band_path(torch, np, T, TB, lt, device):
     the two-pass schedule (LEGIONSOLVERS_NO_SSTEP: K3 pq once, then K4 and
     K3 update), PCG and GMRES(10) with S2_gen, and the fused BiCGStab
     solve(200) with S2_gen (f32 and compensated dots; 4 pieces) and S2_4x
-    (K5a and K5b on the band route, K5c on the tile kernel): launches
+    (K5a-c on the band route): launches
     counted exactly (counts set to 0 just before each solve, read just
     after; each pass on its route per the operator's view), no plain
     version called, a repeat from the same state bit for bit; BiCGStab
@@ -7465,12 +7467,10 @@ def band_path(torch, np, T, TB, lt, device):
             view_ok = (op.uses_pallas and v["kind"] == "2d"
                        and v["Br"] * pieces == N_GRID)
             if kind == "bicg":
-                what = "K5a and K5b on the band route, K5c on the tile"
+                what = "K5a-c on the band route"
                 view_ok = view_ok and op.supports_fused_bicgstab and all(
                     k5_route(T, m, dict(offsets=v["offs"], values=v["vals"]),
-                             v["C"])[0] == ("tile" if m == "bicg_update"
-                                            else "band")
-                    for m in BICG_KERNELS)
+                             v["C"])[0] == "band" for m in BICG_KERNELS)
             else:
                 what = "K3 and K4 on the band route"
                 view_ok = view_ok and T.route(
@@ -7633,9 +7633,9 @@ def bicg_gap(torch, T, solver):
 
 
 class k5_routes:
-    """Within the block, the K5 passes named in ``tile`` (of "pv", "st")
-    take their tile kernels whatever the stencil, and the ``solvers``'
-    cached runners are dropped on the way in and out."""
+    """Within the block, the K5 passes named in ``tile`` (of "pv", "st",
+    "update") take their tile kernels whatever the stencil, and the
+    ``solvers``' cached runners are dropped on the way in and out."""
 
     def __init__(self, TB, tile, *solvers):
         self.TB, self.tile, self.solvers = TB, tile, solvers
@@ -7664,9 +7664,10 @@ def bicg_gap_draws(torch, lt, TB, device, card):
     """--bicg-gap [--tree DIR]: the fused BiCGStab's recurrence gap,
     |(||b - Ax||^2 in float64) - history| / history after GAP_ITERS
     iterations, f32 dots, with S2_4x and S2_gen at 4096^2 on b = 1 and b =
-    1 + 0.01 z (z from the card's generator seeded 1, 2, 3), with K5a and
-    K5b on their routes, each on its tile kernel, both on the tile, and
-    driven by the plain versions: one log line per stencil and b."""
+    1 + 0.01 z (z from the card's generator seeded 1, 2, 3), with K5a-c
+    on their routes, K5a, K5b and K5c each on its tile kernel, K5a and K5b
+    both on the tile, and driven by the plain versions: one log line per
+    stencil and b."""
     from legionsolvers_tpu_torch.entry import build_stencil_system
 
     shape = (N_GRID, N_GRID)
@@ -7690,6 +7691,7 @@ def bicg_gap_draws(torch, lt, TB, device, card):
                     ("routes", k5_routes(TB, (), solver)),
                     ("K5a tile", k5_routes(TB, ("pv",), solver)),
                     ("K5b tile", k5_routes(TB, ("st",), solver)),
+                    ("K5c tile", k5_routes(TB, ("update",), solver)),
                     ("both tile", k5_routes(TB, ("pv", "st"), solver)),
                     ("plain-driven", plain_driven(TB, solver,
                                                   bicg_plain(TB)))):
@@ -7784,9 +7786,9 @@ def band_attrs(lib, T):
     if not hasattr(lib, "ls_pass_band_attrs"):
         return {}
     out = {}
-    # ls_pass_band_attrs numbers K3's modes and K4 0..4, K5a 5, K5b 6 (a
-    # tree from before K5 on the band route refuses 5 and 6)
-    passes = list(enumerate(BAND_PASSES)) + [(5, "bicg_pv"), (6, "bicg_st")]
+    # ls_pass_band_attrs numbers K3's modes and K4 0..4, K5a 5, K5b 6, K5c
+    # 7 (a tree from before K5 on the band route refuses 5..7)
+    passes = list(enumerate(BAND_PASSES)) + list(enumerate(BICG_KERNELS, 5))
     for st in BAND_STENCILS:
         kw = band_kw(st, N_GRID)
         s = T._stencil_struct(kw["offsets"], kw["values"])
@@ -7847,13 +7849,11 @@ def time_band(torch, T, device, bw, card):
 
 
 def time_band_k5(torch, T, TB, device, bw, card):
-    """Phase 5n, K5 at 4096^2: K5a and K5b on the band route with
-    BAND_STENCILS, their tile kernels on the same inputs (the route before
-    this band march took them), K5c on its tile kernel with S2_gen and
-    S2_4x; f32 dots, CUDA events over a ring of three input sets, CUDA
-    graphs, and the plain versions.  Returns {(pass, stencil): (ms, plain
-    ms, graph ms, tile ms, tile graph ms)} (K5c: the tile is its route, so
-    its last two are None)."""
+    """Phase 5n, K5 at 4096^2: K5a-c on the band route with BAND_STENCILS,
+    their tile kernels on the same inputs (the route before this band
+    march took them); f32 dots, CUDA events over a ring of three input
+    sets, CUDA graphs, and the plain versions.  Returns {(pass, stencil):
+    (ms, plain ms, graph ms, tile ms, tile graph ms)}."""
     n = N_GRID * N_GRID
     out = {}
     ring = [bicg_inputs(torch, (N_GRID, N_GRID), 96 + s, device)
@@ -7862,12 +7862,11 @@ def time_band_k5(torch, T, TB, device, bw, card):
         d["alpha"] = d["alpha"] * 1e-3  # keep update's in-place x bounded
         d["p_out"], d["v_out"], d["r_out"] = (torch.empty_like(d["r"])
                                               for _ in range(3))
-    cases = [(m, st) for st in BAND_STENCILS for m in BAND_K5]
-    cases += [("bicg_update", st) for st in ("S2_gen", "S2_4x")]
+    cases = [(m, st) for st in BAND_STENCILS for m in BICG_KERNELS]
     for m, st in cases:
         kw = band_kw(st, N_GRID)
         route = k5_route(T, m, kw, N_GRID)[0]
-        if route != ("tile" if m == "bicg_update" else "band"):
+        if route != "band":
             raise AssertionError(f"{m} with {st} takes the {route} route")
         outs = lambda d: ((d["p_out"], d["v_out"]) if m == "bicg_pv"
                           else d["r_out"])
@@ -7879,17 +7878,14 @@ def time_band_k5(torch, T, TB, device, bw, card):
         g = graph_ms(torch, fns[False], 30)
         bpe = BICG_KERNELS[m][1]
         sane(f"{m} {route} {st}", ms, bpe * n, bw)
-        tile = tile_g = None
-        if m in BAND_K5:
-            with k5_routes(TB, ("pv", "st")):
-                tile = event_ms(torch, lambda: fns[False][next(k) % 3](), 30)
-                tile_g = graph_ms(torch, fns[False], 30)
+        with k5_routes(TB, (K5_PASS[m],)):
+            tile = event_ms(torch, lambda: fns[False][next(k) % 3](), 30)
+            tile_g = graph_ms(torch, fns[False], 30)
         out[m, st] = (ms, plain_ms, g, tile, tile_g)
         log(f"[time] {route} {m:11s} with {st}: kernel {ms:.4f} ms (CUDA "
             f"graphs {g:.4f}), bound {bpe * n / bw * 1e3:.4f}, plain "
-            f"{plain_ms:.4f} ms"
-            + (f"; tile kernel {tile:.4f} ms (graphs {tile_g:.4f})"
-               if tile else "") + f" at 4096^2 f32 on {card}")
+            f"{plain_ms:.4f} ms; tile kernel {tile:.4f} ms (graphs "
+            f"{tile_g:.4f}) at 4096^2 f32 on {card}")
         del fns
     del ring
     return out
@@ -7899,7 +7895,7 @@ def time_band_solves(torch, TB, solvers, bw, card):
     """Phase 5n, the BiCGStab solves on the band route (BAND_TIMED_BICG):
     ms/iter, host enqueue and idle share (a torch.profiler trace; a tenth
     of the solve on pieces, as 5j), and the S2_gen one-piece solve again
-    with K5a and K5b on their tile kernels (:class:`k5_routes`).
+    with K5c on its tile kernel (:class:`k5_routes`).
     Returns {run: {route: times}}."""
     n = N_GRID * N_GRID
     nbytes = (60 * N_ITERS + 16) * n
@@ -7910,7 +7906,7 @@ def time_band_solves(torch, TB, solvers, bw, card):
         solver = solvers[name]
         pieces = BAND_RUNS[name][1]
         n_tr = N_ITERS if pieces == 1 else N_ITERS // 10
-        ctx = k5_routes(TB, ("pv", "st") if route == "tile" else (), solver)
+        ctx = k5_routes(TB, ("update",) if route == "tile" else (), solver)
         with ctx:
             ms, host = solve_ms(torch, solver, N_ITERS)
             label = "band_" + "".join(c if c.isalnum() else "_"
@@ -7922,8 +7918,8 @@ def time_band_solves(torch, TB, solvers, bw, card):
              "device ms/iter": dev / n_tr,
              "idle": 1 - dev / n_tr / (ms / N_ITERS)}
         out.setdefault(name, {})[route] = r
-        log(f"[time] band {name} solve({N_ITERS}), K5a and K5b on the "
-            f"{route} kernels, at 4096^2: {r['ms/iter']:.4f} ms/iter (host "
+        log(f"[time] band {name} solve({N_ITERS}), K5c on the {route} "
+            f"kernel, at 4096^2: {r['ms/iter']:.4f} ms/iter (host "
             f"enqueue {r['host ms/iter']:.4f}, device "
             f"{r['device ms/iter']:.4f} over {n_tr} traced, idle "
             f"{100 * r['idle']:.1f}%) on {card}")
@@ -7931,16 +7927,15 @@ def time_band_solves(torch, TB, solvers, bw, card):
 
 
 def band_k5_rows(T, results, errs, times, bw, attrs):
-    """The kernels line's rows of K5 on phase 4n's BiCGStab runs: K5a and
-    K5b on the band route (times with S2_gen, the stencil of most runs;
-    S2_4x's and wide_kw's beside them, and each one's tile kernel's), K5c
-    on its tile kernel (S2_gen; S2_4x beside it); launches from the runs
-    (one piece, 4 pieces), registers, spill bytes, blocks per SM and
-    shared memory of the band kernels with S2_gen.  No one PyTorch call
-    computes a K5 pass."""
+    """The kernels line's rows of K5 on phase 4n's BiCGStab runs: K5a-c on
+    the band route (times with S2_gen, the stencil of most runs; S2_4x's
+    and wide_kw's beside them, and each one's tile kernel's); launches
+    from the runs (one piece, 4 pieces), registers, spill bytes, blocks
+    per SM and shared memory of the band kernels with S2_gen.  No one
+    PyTorch call computes a K5 pass."""
     n = N_GRID * N_GRID
     rows = []
-    for m in (*BAND_K5, "bicg_update"):
+    for m in BICG_KERNELS:
         launches = grid = on_pieces = 0
         for name, (st, pieces, *_) in BAND_RUNS.items():
             c = results[name]["launches"].get(m, 0)
@@ -7956,31 +7951,25 @@ def band_k5_rows(T, results, errs, times, bw, attrs):
                          ops_per_elt(m, len(S2_GEN)) * n, bw,
                          grid_launches=grid)
         row.update(graph_ms=g, kernel_route=route, stencil="S2_gen",
-                   pieces_launches=on_pieces)
-        if tile is not None:
-            row.update(tile_ms=tile, tile_graph_ms=tile_g)
+                   pieces_launches=on_pieces, tile_ms=tile,
+                   tile_graph_ms=tile_g)
         if (m, "S2_gen") in attrs:
             regs, spill, per_sm, smem = attrs[m, "S2_gen"]
             row.update(registers=regs, spill_bytes=spill,
                        blocks_per_sm=per_sm, shared_memory_bytes=smem)
         for other in ("S2_4x", "wide_kw"):
-            if (m, other) not in times:
-                continue
             o_ms, o_plain, o_g, o_tile, o_tile_g = times[m, other]
             row.update({f"{other}_ms": o_ms, f"{other}_plain_ms": o_plain,
-                        f"{other}_graph_ms": o_g})
-            if o_tile is not None:
-                row.update({f"{other}_tile_ms": o_tile,
-                            f"{other}_tile_graph_ms": o_tile_g})
+                        f"{other}_graph_ms": o_g, f"{other}_tile_ms": o_tile,
+                        f"{other}_tile_graph_ms": o_tile_g})
             if (m, other) in attrs:
                 row[f"{other}_attrs"] = attrs[m, other]
         rows.append(row)
         log(f"[time] {route} {m:11s} with S2_gen {ms:.4f} ms (graphs "
             f"{g:.4f}), bound {row['bound_ms']:.4f} "
             f"({row['pct_of_bound']:.1f}%), launches {launches}, "
-            f"{row['ms_lost']:.2f} ms lost at 4096^2"
-            + (f"; tile kernel {tile:.4f} ms (graphs {tile_g:.4f})"
-               if tile is not None else ""))
+            f"{row['ms_lost']:.2f} ms lost at 4096^2; tile kernel "
+            f"{tile:.4f} ms (graphs {tile_g:.4f})")
         if not launches:
             raise AssertionError(f"{row['name']} never launched on phase "
                                  "4n's BiCGStab runs")
@@ -8561,7 +8550,7 @@ def main() -> int:
     # pieces, times at 4096^2 (phase 5n)
     kernels += band_rows(bd_results, errs_b, band_times, bw, battrs,
                          conv_b)
-    # K5a and K5b on the band route, K5c on the tile, in phase 4n's
+    # K5a-c on the band route, in phase 4n's
     # BiCGStab runs (one piece, 4 pieces; times at 4096^2, phase 5n)
     kernels += band_k5_rows(T, bd_results, errs_k5, k5_times, bw, battrs)
     report = {"card": card, "kind": kind, "build_s": build_s,

@@ -1,10 +1,11 @@
-// K3 (modes y, y_dot, pq, update), K4 (xpay_pq), K5a (bicg_pv) and K5b
-// (bicg_st) on the band route, for Hopper (sm_90a): every 2-D stencil of
-// the one-pass gate (|dy| <= 8, |dx| < C) that is neither reach 1 (the
-// strip march of march2d.cuh) nor the flat decomposition of a reach-1 1-D
-// stencil (the strip march with WRAP), where the band march's ring fits
-// (pass_layout below; the stencils past it keep the 32 x 32 tile kernels
-// of stencil2d.cu and bicgstab2d.cu).
+// K3 (modes y, y_dot, pq, update), K4 (xpay_pq), K5a (bicg_pv), K5b
+// (bicg_st) and K5c (bicg_update) on the band route, for Hopper (sm_90a):
+// every 2-D stencil of the one-pass gate (|dy| <= 8, |dx| < C) that is
+// neither reach 1 (the strip march of march2d.cuh) nor the flat
+// decomposition of a reach-1 1-D stencil (the strip march with WRAP; K5a
+// and K5c, which have no strip kernel, take that one here too), where the
+// band march's ring fits (pass_layout below; the stencils past it keep the
+// 32 x 32 tile kernels of stencil2d.cu and bicgstab2d.cu).
 //
 //   ls_stencil2d_band  K3   replaces _stencil_call
 //                           (legionsolvers_tpu/ops/pallas/stencil2d.py:121)
@@ -14,6 +15,10 @@
 //                           p' = r + beta (p - omega v), v' = A p', <r~, v'>
 //   ls_bicg_st_band    K5b  replaces bicg_st (same file, :355):
 //                           s = r - alpha v, t = A s, <t, s>, <t, t>
+//   ls_bicg_update_band
+//                      K5c  replaces bicg_update (same file, :432):
+//                           s and t as K5b's, x' = (x + alpha p) + omega s
+//                           in place, r' = s - omega t, <r', r'>, <r~, r'>
 //
 // Python wrappers, plain versions and the route live in
 // legionsolvers_tpu_torch/ops/cuda/stencil2d.py and bicgstab2d.py.  The
@@ -24,9 +29,9 @@
 // sstep_general.cu, cut to one ring).  A block owns a strip of at most
 // LS_PASS_COLS output columns [c0, c1) and a band of output rows [r0, r1),
 // and marches down the rows of its operand (x for K3; p = r + beta p_old
-// for K4; p' = r + beta (p - omega v) for K5a; s = r - alpha v for K5b;
-// formed once per element as its row arrives), keeping the rows a stencil
-// application reads in a shared-memory ring:
+// for K4; p' = r + beta (p - omega v) for K5a; s = r - alpha v for K5b
+// and K5c; formed once per element as its row arrives), keeping the rows a
+// stencil application reads in a shared-memory ring:
 //   * the ring holds the stencil's row span (every dy, and 0) plus the row
 //     being stored: span + 1 rows, each the window [c0 - Qm, c1 + Qp) of
 //     the strip (Qm, Qp the widest shift left and right), rounded out to
@@ -42,7 +47,11 @@
 //   * each row is loaded LS_PASS_DEPTH rows ahead into registers (16-byte
 //     loads where the width and the pointers allow), then stored into the
 //     ring; update also loads its xv and rv, K5a its r~, at its own
-//     columns of its own rows that far ahead.
+//     columns of its own rows that far ahead; K5c loads its r~ so where
+//     the window is padded, and starts moving its x and p there (and r~
+//     where the window is clipped: its masked terms take the registers
+//     r~ would hold, which then spilled) into L2 (prefetch_l2), to load
+//     them when it writes x' and r'.
 // At step s the block stores operand row s and computes output row
 // i = s - hi - 1 (hi the largest dy) from ring rows i + lo .. i + hi, all
 // stored in earlier steps: one __syncthreads() per row.  Every term, near
@@ -53,16 +62,18 @@
 // thread's output columns are c0 + t + m LS_PASS_THREADS, so consecutive
 // lanes read consecutive words (no bank conflict) and write consecutive
 // words (a warp's store is 128 contiguous bytes); K4's p and K5a's p' are
-// written as they are formed, in 16-byte stores.  K5b stores nothing: its
-// s at the output column is read from the ring.
+// written as they are formed, in 16-byte stores.  K5b stores nothing, and
+// K5c only x' and r': their s at the output column is read from the ring.
 //
-// In place: update reads xv and rv only at the elements it writes, by the
-// thread that writes them; strips and bands do not overlap; the operand's
-// vectors and the written p / p' / v' are separate buffers (the wrappers
-// check it).
+// In place: update reads xv and rv, and K5c x, only at the elements it
+// writes, by the thread that writes them; strips and bands do not overlap;
+// the operand's vectors and the written p / p' / v' / r' are separate
+// buffers (the wrappers check it).  K5c forms x' in the plain version's
+// order, (x + alpha p) + omega s, each product and sum rounded alone
+// (__fmul_rn, __fadd_rn: nothing contracts to an fma).
 //
 // Dots: K3 and K4 sum the exact products of the f32 values in double per
-// thread (K1's band march sums its Gram so).  K5a and K5b keep the
+// thread (K1's band march sums its Gram so).  K5a, K5b and K5c keep the
 // `compensated` flag of the strip K5b (bicgstab2d.cu): with it the exact
 // products, without it each product rounded to f32 (__fmul_rn), summed in
 // double either way.  Then across the block's threads in a fixed order
@@ -74,9 +85,9 @@
 // SXM, a constant), so the bits do too, and a repeat gives the same bits.
 //
 // What bounds them: bytes (K3 y, y_dot 8 B per element, pq 4, update 20,
-// K4 12, K5a 24, K5b 8), plus each band's halo rows read again (span - 1
-// of every band's rows); every term costs a shared-memory load and an fma
-// per column (and a compare where the window is clipped).
+// K4 12, K5a 24, K5b 8, K5c 28), plus each band's halo rows read again
+// (span - 1 of every band's rows); every term costs a shared-memory load
+// and an fma per column (and a compare where the window is clipped).
 
 #include "march2d.cuh"
 
@@ -95,6 +106,7 @@
 #define LS_PASS_BATCH 4       // stencil terms loaded before they are summed
 #define LS_PASS_DOTS 2        // partial dots of a unit, at most (K5b's two)
 #define LS_PV_DEPTH 1         // K5a's rows loaded ahead (r, p and v)
+#define LS_UPDATE_DEPTH 1     // K5c's rows loaded ahead (r and v)
 
 namespace {
 
@@ -257,12 +269,14 @@ __device__ __forceinline__ double pass_prod(float x, float y, int comp) {
 // vectors update writes in place; sc = alpha).  MODE 4: K4 (a0 = r, a1 =
 // p_old, sc = beta; po = p_out).  MODE 5: K5a (a0 = r, a1 = p, a2 = v, sc =
 // beta, sc2 = omega; po = p', y = v', rt = r~).  MODE 6: K5b (a0 = r, a1 =
-// v, sc = alpha; nothing written but the dots).  t0/b0 and t1/b1: the halo
-// blocks of a0 and a1 (K3, K4).  partials: LS_PASS_DOTS doubles per unit;
-// counter: zero before the launch, zero after it.  K5's parameters come
-// after K3's and K4's: in that order ptxas gives K3's and K4's kernels the
-// registers they had before K5 joined them (with K5's in between, K3
-// update's clipped variant spilled 4 bytes).
+// v, sc = alpha; nothing written but the dots).  MODE 7: K5c (a0 = r, a1 =
+// v, a2 = p, xv = x written in place, rt = r~, y = r', sc = alpha, sc2 =
+// omega).  t0/b0 and t1/b1: the halo blocks of a0 and a1 (K3, K4).
+// partials: LS_PASS_DOTS doubles per unit; counter: zero before the
+// launch, zero after it.  K5's parameters come after K3's and K4's: in
+// that order ptxas gives K3's and K4's kernels the registers they had
+// before K5 joined them (with K5's in between, K3 update's clipped variant
+// spilled 4 bytes); K5c reuses them and adds none.
 template <int MODE, bool MASK>
 __global__ void __launch_bounds__(LS_PASS_THREADS, 1)
 band_pass_kernel(const float* __restrict__ a0, const float* __restrict__ a1,
@@ -277,9 +291,12 @@ band_pass_kernel(const float* __restrict__ a0, const float* __restrict__ a1,
                  const __grid_constant__ LsStencil st) {
   // vectors forming the operand; its rows in flight
   constexpr int NA = MODE == 5 ? 3 : MODE >= 4 ? 2 : 1;
-  constexpr int DEPTH = MODE == 5 ? LS_PV_DEPTH : LS_PASS_DEPTH;
-  constexpr int NO = MODE == 3 ? 2 : 1;  // xv, rv (update), r~ (K5a)
-  constexpr int ND = MODE == 6 ? 2 : 1;  // dots
+  constexpr int DEPTH = MODE == 5   ? LS_PV_DEPTH
+                        : MODE == 7 ? LS_UPDATE_DEPTH
+                                    : LS_PASS_DEPTH;
+  constexpr int NO = MODE == 3 ? 2 : 1;  // xv, rv (update), r~ (K5a, K5c)
+  constexpr bool RT_OWN = MODE == 5 || (MODE == 7 && !MASK);  // r~ in o
+  constexpr int ND = MODE >= 6 ? 2 : 1;  // dots
   constexpr int T = LS_PASS_THREADS;
   extern __shared__ __align__(16) float ring[];
   __shared__ double red[ND][LS_PASS_WARPS];
@@ -301,7 +318,7 @@ band_pass_kernel(const float* __restrict__ a0, const float* __restrict__ a1,
   const float* const bot[3] = {b0, b1, nullptr};
   for (int k = t; k < a.rows * S + LS_PASS_SLACK; k += T) ring[k] = 0.f;
   const float sc = MODE >= 3 ? *sc_p : 0.f;
-  const float sc2 = MODE == 5 ? *sc2_p : 0.f;
+  const float sc2 = MODE == 5 || MODE == 7 ? *sc2_p : 0.f;
   double acc[ND];
 #pragma unroll
   for (int k = 0; k < ND; ++k) acc[k] = 0.0;
@@ -312,12 +329,13 @@ band_pass_kernel(const float* __restrict__ a0, const float* __restrict__ a1,
   auto form = [&](float (&b)[NA][LS_PASS_LOADS], int e) {
     if constexpr (MODE == 4) return b[0][e] + sc * b[1][e];
     if constexpr (MODE == 5) return b[0][e] + sc * (b[1][e] - sc2 * b[2][e]);
-    if constexpr (MODE == 6) return b[0][e] - sc * b[1][e];
+    if constexpr (MODE >= 6) return b[0][e] - sc * b[1][e];
     return b[0][e];
   };
 
   // operand row q into b; update: xv and rv of output row q - L into o;
-  // K5a: r~ there
+  // K5a and K5c (RT_OWN): r~ there; K5c: x and p there (and r~ but for
+  // RT_OWN) on their way into L2
   auto fetch = [&](float (&b)[NA][LS_PASS_LOADS], float (&o)[NO][LS_PASS_PER],
                    int q) {
 #pragma unroll
@@ -344,7 +362,7 @@ band_pass_kernel(const float* __restrict__ a0, const float* __restrict__ a1,
         }
       }
     }
-    if constexpr (MODE == 3 || MODE == 5) {
+    if constexpr (MODE == 3 || MODE == 5 || MODE == 7) {
       const int i = q - L;
       const bool mine = i >= r0 && i < r1;
       const long long o0 = (long long)i * C + c0 + t;
@@ -355,7 +373,12 @@ band_pass_kernel(const float* __restrict__ a0, const float* __restrict__ a1,
           o[0][m] = in ? xv[o0 + m * T] : 0.f;
           o[1][m] = in ? rv[o0 + m * T] : 0.f;
         } else {
-          o[0][m] = in ? __ldg(rt + o0 + m * T) : 0.f;
+          if constexpr (RT_OWN) o[0][m] = in ? __ldg(rt + o0 + m * T) : 0.f;
+          if (MODE == 7 && in) {
+            prefetch_l2(xv + o0 + m * T);
+            prefetch_l2(a2 + o0 + m * T);
+            if (!RT_OWN) prefetch_l2(rt + o0 + m * T);
+          }
         }
       }
     }
@@ -363,8 +386,8 @@ band_pass_kernel(const float* __restrict__ a0, const float* __restrict__ a1,
 
   // store operand row s from buf[u] into ring slot ss (K4 and K5a: writing
   // it at the block's own rows and columns), keep update's xv and rv, or
-  // K5a's r~, of output row s - L in cur, and load row s + DEPTH into
-  // buf[u]
+  // K5a's and K5c's r~, of output row s - L in cur, and load row s + DEPTH
+  // into buf[u]
   auto rotate = [&](float (&b)[NA][LS_PASS_LOADS],
                     float (&o)[NO][LS_PASS_PER], int s, int ss,
                     float (&cur)[NO][LS_PASS_PER]) {
@@ -429,6 +452,18 @@ band_pass_kernel(const float* __restrict__ a0, const float* __restrict__ a1,
       const int si = ss - L + (ss < L ? a.rows : 0);
       const float* xr = ring + si * S + jr;
       const long long o0 = (long long)i * C + c0 + t;
+      // K5c: x, p (and r~ but for RT_OWN) at the thread's columns, all
+      // loads issued first
+      float xo[LS_PASS_PER], pp[LS_PASS_PER], ro[LS_PASS_PER];
+      if constexpr (MODE == 7) {
+#pragma unroll
+        for (int m = 0; m < LS_PASS_PER; ++m) {
+          const bool in = m < nv;
+          xo[m] = in ? xv[o0 + m * T] : 0.f;
+          pp[m] = in ? __ldg(a2 + o0 + m * T) : 0.f;
+          ro[m] = RT_OWN ? cur[0][m] : in ? __ldg(rt + o0 + m * T) : 0.f;
+        }
+      }
 #pragma unroll
       for (int m = 0; m < LS_PASS_PER; ++m) {
         if (m >= nv) break;
@@ -447,6 +482,14 @@ band_pass_kernel(const float* __restrict__ a0, const float* __restrict__ a1,
         if constexpr (MODE == 6) {
           acc[0] += pass_prod(ax[m], xc, a.comp);
           acc[1] += pass_prod(ax[m], ax[m], a.comp);
+        }
+        if constexpr (MODE == 7) {
+          xv[idx] = __fadd_rn(__fadd_rn(xo[m], __fmul_rn(sc, pp[m])),
+                              __fmul_rn(sc2, xc));
+          const float rn = xc - sc2 * ax[m];
+          y[idx] = rn;
+          acc[0] += pass_prod(rn, rn, a.comp);
+          acc[1] += pass_prod(ro[m], rn, a.comp);
         }
       }
     }
@@ -537,8 +580,8 @@ int launch_pass(const PassIO& io, const PassArgs& a, const LsStencil& st,
   return (int)cudaGetLastError();
 }
 
-// A pass on the band route (MODE 0..3 K3, 4 K4, 5 K5a, 6 K5b): the gate,
-// the variant (the window padded or clipped; 16-byte loads, a kernel
+// A pass on the band route (MODE 0..3 K3, 4 K4, 5 K5a, 6 K5b, 7 K5c): the
+// gate, the variant (the window padded or clipped; 16-byte loads, a kernel
 // argument, where C % 4 == 0 and the operand's pointers allow), the
 // launch.
 template <int MODE>
@@ -649,6 +692,23 @@ int ls_bicg_st_band(const float* r, const float* v, const float* alpha,
                       (cudaStream_t)stream_ptr);
 }
 
+// K5c on the band route: s = r - alpha v, t = A s; x' = (x + alpha p) +
+// omega s written into x, r' = s - omega t into r_out (not r's storage);
+// <r', r'> and <r~, r'> into dot[0..1].  No halo blocks.  Scratch as
+// ls_stencil2d_band's.
+int ls_bicg_update_band(const float* r, const float* v, float* x,
+                        const float* p, const float* rt, const float* alpha,
+                        const float* omega, float* r_out, float* dot,
+                        double* partials, int capacity, unsigned* counter,
+                        int R, int C, int compensated, const LsStencil* st,
+                        void* stream_ptr) {
+  const PassIO io{r,       v,       p,       nullptr,  nullptr, nullptr,
+                  nullptr, r_out,   nullptr, x,        nullptr, rt,
+                  alpha,   omega,   dot,     partials, counter};
+  return band_pass<7>(io, capacity, R, C, compensated, st,
+                      (cudaStream_t)stream_ptr);
+}
+
 // out = {strips, strip columns, band rows, bands} of a launch on an [R, C]
 // grid; ops/cuda/stencil2d.py mirrors it.
 int ls_pass_band_geometry(int R, int C, int* out) {
@@ -687,8 +747,9 @@ int ls_pass_band_consts(int* out) {
 }
 
 // out = {registers, spill bytes, resident blocks per SM, dynamic shared
-// memory bytes} of pass `which` (0..3 K3's modes, 4 K4, 5 K5a, 6 K5b) on
-// the band route with the stencil st on C columns (the layout's window).
+// memory bytes} of pass `which` (0..3 K3's modes, 4 K4, 5 K5a, 6 K5b, 7
+// K5c) on the band route with the stencil st on C columns (the layout's
+// window).
 int ls_pass_band_attrs(int which, int C, const LsStencil* st, int* out) {
   if (!valid2d(st, 1, C)) return (int)cudaErrorInvalidValue;
   const PassLayout lay = pass_layout(C, *st);
@@ -701,7 +762,7 @@ int ls_pass_band_attrs(int which, int C, const LsStencil* st, int* out) {
                     : pass_attrs<M, false>(smem, out);
   switch (which) {
     LS_PASS_ATTR(0) LS_PASS_ATTR(1) LS_PASS_ATTR(2) LS_PASS_ATTR(3)
-    LS_PASS_ATTR(4) LS_PASS_ATTR(5) LS_PASS_ATTR(6)
+    LS_PASS_ATTR(4) LS_PASS_ATTR(5) LS_PASS_ATTR(6) LS_PASS_ATTR(7)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef LS_PASS_ATTR

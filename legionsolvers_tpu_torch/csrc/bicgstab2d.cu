@@ -38,8 +38,10 @@
 // K5b with a reach-1 stencil (the 5-point cross, any 3x3 stencil), or on
 // the 1-D kernel view with WRAP (march2d.cuh), runs on the column-strip
 // register march of K1 instead (see bicg_st_strip_kernel): one launch, its
-// two dots folded into the last block.  Other stencils keep the tile
-// kernel and its second launch.
+// two dots folded into the last block.  K5a-c with the other stencils
+// whose ring fits run the band march of band2d.cu (K5a and K5c also on
+// the 1-D view).  The tile kernels here keep the stencils past that gate,
+// and K5a and K5c with reach-1 stencils, with their second launch.
 //
 // Buffers: no kernel writes a buffer that another block reads through a
 // halo.  pv writes p' and v' to buffers other than p and v, update writes

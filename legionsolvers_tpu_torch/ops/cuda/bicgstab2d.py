@@ -22,14 +22,14 @@ f32 products in float64 and rounds once (see ``ops/ddsum.py``).
 stencil, or the flat decomposition of one (the 1-D kernel view, run with
 WRAP on the 1-D stencil), ``bicg_st`` runs on K1's column-strip march (one
 launch, its dots summed in float64 and folded into the last block, the
-scratch of :func:`~.stencil2d._step2_scratch`).  ``bicg_pv`` with any
-stencil past reach 1 whose ring fits (the flat decompositions too), and
-``bicg_st`` with any other, run the band march of ``csrc/band2d.cu``
-(one launch, the operand formed once per
-element as its row arrives and kept in a shared-memory ring, its dots
-folded into the last block, the scratch of
-:func:`~.stencil2d._pass_scratch`).  Past that gate, ``bicg_pv`` with a
-reach-1 stencil and ``bicg_update`` always, they run the tile kernels of
+scratch of :func:`~.stencil2d._step2_scratch`).  ``bicg_pv`` and
+``bicg_update`` with any stencil past reach 1 whose ring fits (the flat
+decompositions too), and ``bicg_st`` with any other, run the band march
+of ``csrc/band2d.cu`` (one launch, the operand formed once per element as
+its row arrives and kept in a shared-memory ring, its dots folded into
+the last block, the scratch of
+:func:`~.stencil2d._pass_scratch`).  Past that gate, and ``bicg_pv`` and
+``bicg_update`` with a reach-1 stencil, they run the tile kernels of
 ``csrc/bicgstab2d.cu`` and a second launch that sums their dots; their
 terms with |dx| > 8 read device memory beside the tile.
 
@@ -249,10 +249,16 @@ def bicg_update(r, v, x, p, rt, alpha, omega, *, offsets, values,
         out = torch.empty_like(r)
     al, om = _dev_scalars(alpha, 1, dev), _dev_scalars(omega, 1, dev)
     dot = torch.empty(2, dtype=torch.float32, device=dev)
-    st = _stencil_struct(offsets, values)
-    _launch("bicg_update", "ls_bicg_update", (
-        _ptr(r), _ptr(v), _ptr(x), _ptr(p), _ptr(rt), _ptr(al), _ptr(om),
-        _ptr(out), _ptr(dot), _ptr(_scratch(R, C, 2, dev)), R, C,
-        int(compensated), ctypes.byref(st),
-    ), dev)
+    st = ctypes.byref(_stencil_struct(offsets, values))
+    vecs = (_ptr(r), _ptr(v), _ptr(x), _ptr(p), _ptr(rt), _ptr(al), _ptr(om),
+            _ptr(out), _ptr(dot))
+    if route(offsets, values, C, bicg="update")[0] == "band":
+        partials, units, counter = _pass_scratch(dev, R, C)
+        _launch("bicg_update", "ls_bicg_update_band", (
+            *vecs, _ptr(partials), units, _ptr(counter), R, C,
+            int(compensated), st), dev)
+    else:
+        _launch("bicg_update", "ls_bicg_update", (
+            *vecs, _ptr(_scratch(R, C, 2, dev)), R, C, int(compensated), st,
+        ), dev)
     return x, out, dot[0], dot[1]

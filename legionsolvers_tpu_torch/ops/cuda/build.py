@@ -139,6 +139,7 @@ def load_library() -> ctypes.CDLL:
         "ls_xpay_pq_band": [_P] * 10 + [_I, _P, _I, _I, _P, _P],
         "ls_bicg_pv_band": [_P] * 10 + [_I, _P, _I, _I, _I, _P, _P],
         "ls_bicg_st_band": [_P] * 5 + [_I, _P, _I, _I, _I, _P, _P],
+        "ls_bicg_update_band": [_P] * 10 + [_I, _P, _I, _I, _I, _P, _P],
         "ls_pass_band_geometry": [_I, _I, _P],
         "ls_pass_band_layout": [_I, _P, _P],
         "ls_pass_band_consts": [_P],

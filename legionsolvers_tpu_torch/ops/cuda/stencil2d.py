@@ -28,14 +28,14 @@ march on the 1-D stencil with its WRAP flag, every element addressed by
 its flat index, and K1 and K2 march along the flat index itself
 (``csrc/flat1d.cu``, :func:`flat_geometry`; the 1-D stencil of
 :data:`FLAT_SHIFTS`); K3 and K4 with any other stencil (|dy| <= 8, |dx| <
-C), and K5b with them, run the band march (``csrc/band2d.cu``, route
+C), and K5a-c with them, run the band march (``csrc/band2d.cu``, route
 ``band``): a march down bands of rows that keeps the operand's rows in a
 shared-memory ring and reads every term from it, its dots folded into its
 last block, where :func:`pass_layout` takes the width and the stencil,
 else the tile kernels, whose terms with |dx| > 8 read device memory beside
-the tile, and a second launch that sums their dots; K5a runs the band
-march also on the flat route's stencils and the tile kernels on reach-1
-ones, K5c always the tile kernels; K1 and K2 with any other stencil
+the tile, and a second launch that sums their dots; K5a and K5c run the
+band march also on the flat route's stencils and the tile kernels on
+reach-1 ones; K1 and K2 with any other stencil
 (|dy| <= 1, |dx| < C) run the general route (``csrc/sstep_general.cu``):
 K1 on the band march, a march down bands of rows with every intermediate
 in shared-memory rings (route ``general``, where :func:`band_stride`
@@ -226,7 +226,7 @@ def route(offsets, values, C: int, sstep: bool = False,
     reach-1 stencil (the column-strip march), ``flat`` for the flat
     decomposition of a reach-1 1-D stencil (on the 1-D stencil: the strip
     march with WRAP for K3, K4 and K5b, the march along the flat index of
-    ``csrc/flat1d.cu`` for K1 and K2); otherwise, for K3, K4 and K5a-b,
+    ``csrc/flat1d.cu`` for K1 and K2); otherwise, for K3, K4 and K5a-c,
     ``band`` where the band march's ring fits (:func:`pass_layout`),
     ``tile`` (the 32 x 32 tile kernels, terms with |dx| > 8 read from
     device memory beside the tile) where it does not; and for the s-step
@@ -235,20 +235,19 @@ def route(offsets, values, C: int, sstep: bool = False,
     (:func:`band_stride`), ``general_coop`` (the cooperative kernel) where
     it does not.  K2 runs the cooperative kernel on both.  ``bicg`` names
     a BiCGStab pass (:data:`BICG_PASSES`): ``st`` (K5b) routes as K3
-    does; ``pv`` (K5a), which has no strip kernel, takes ``tile`` on
-    reach-1 stencils and ``band`` on the flat route's (on the decomposed
-    offsets); ``update`` (K5c) always ``tile``.  On the cross K5a's band
-    march beat the tile kernel, but phase 4b's f32 BiCGStab end check (one
-    draw of a chaotic recurrence) failed with it; on the 1-D view it beat
-    the tile kernel and phase 4l held (``PERF.md`` §6)."""
+    does; ``pv`` (K5a) and ``update`` (K5c), which have no strip kernel,
+    take ``tile`` on reach-1 stencils and ``band`` on the flat route's (on
+    the decomposed offsets).  On the cross each one's band march beat its
+    tile kernel, but phase 4b's f32 BiCGStab end check (one draw of a
+    chaotic recurrence) failed with it; on the 1-D view both beat the
+    tile kernels and phase 4l held (``PERF.md`` §6)."""
     if bicg is not None and bicg not in BICG_PASSES:
         raise ValueError(f"bicg must be one of {BICG_PASSES}, not {bicg!r}")
     tile = ("tile", offsets, values, 0)
-    if bicg == "update":
-        return tile
     if _reach(offsets) <= STEP2_REACH:
-        return tile if bicg == "pv" else ("strip", offsets, values, 0)
-    if bicg == "pv":
+        return tile if bicg in ("pv", "update") else ("strip", offsets,
+                                                      values, 0)
+    if bicg in ("pv", "update"):
         return ("band", offsets, values, 0) if pass_layout(
             C, offsets)[0] else tile
     flat = flat_stencil(offsets, values, C)
@@ -733,10 +732,11 @@ _PASS_SCRATCH = {}
 
 
 def _pass_scratch(device, R: int, C: int):
-    """(partials, units, counter) of the band-route launches (K3, K4, K5a,
-    K5b) on an [R, C] grid: PASS_DOTS float64 partial dots per unit
+    """(partials, units, counter) of the band-route launches (K3, K4,
+    K5a-c) on an [R, C] grid: PASS_DOTS float64 partial dots per unit
     (strips x bands of :func:`pass_geometry`; K3, K4 and K5a use one, K5b
-    two) and the last-block counter (zero between launches), made once per
+    and K5c two) and the last-block counter (zero between launches), made
+    once per
     (device, stream, R, C): launches on one stream are ordered, so they
     can share them."""
     key = (device, _raw_stream(device), R, C)

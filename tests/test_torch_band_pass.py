@@ -1,18 +1,17 @@
-"""K3 (its four modes), K4, K5a and K5b on the band route, against the JAX
-package.
+"""K3 (its four modes), K4, K5a, K5b and K5c on the band route, against
+the JAX package.
 
-The band route (``csrc/band2d.cu``) runs K3, K4, K5a (bicg_pv) and K5b
-(bicg_st) for every 2-D stencil of the one-pass gate that is neither reach
-1 (the strip march) nor the flat decomposition of a reach-1 1-D stencil
-(the flat route), where its shared-memory ring fits
-(``stencil2d.pass_layout``); K5c keeps the tile kernels.  No card is
-needed here:
+The band route (``csrc/band2d.cu``) runs K3, K4, K5a (bicg_pv), K5b
+(bicg_st) and K5c (bicg_update) for every 2-D stencil of the one-pass gate
+that is neither reach 1 (the strip march) nor the flat decomposition of a
+reach-1 1-D stencil (the flat route), where its shared-memory ring fits
+(``stencil2d.pass_layout``).  No card is needed here:
 
 * the route of S2_gen, S2_4x, phase 4l's ``wide_kw`` and the 1-D view of a
   5-point 1-D stencil (row-wrap terms with |dx| = C - 1, C - 2): ``band``
-  for K3, K4, K5a and K5b, ``tile`` for K5c, the strip and flat routes
-  unchanged (K5a keeps the tile kernel with reach-1 stencils and takes
-  the band march on the flat route's);
+  for K3, K4 and K5a-c, the strip and flat routes unchanged (K5a and
+  K5c keep the tile kernels with reach-1 stencils and take the band
+  march on the flat route's);
 * the Python mirrors of the launch geometry and of the ring's layout (the
   gate) against a line-for-line transcription of the C formulas and the
   defines read from the source (the library itself is held to the mirror
@@ -24,7 +23,8 @@ needed here:
   with null and random halo blocks, and in K5a's and K5b's modes (the
   operand formed as its row arrives, zero outside the grid; the dots of
   exact or f32-rounded products summed in float64) against
-  ``bicg_pv_plain`` and ``bicg_st_plain``;
+  ``bicg_pv_plain`` and ``bicg_st_plain``, and in K5c's (x' formed in
+  place as (x + alpha p) + omega s) against ``bicg_update_plain``;
 * the plain K3 modes and K4, which the wrappers run on CPU tensors,
   against JAX's ``_stencil_call`` and ``grid2d_cg_xpay_pq`` in interpret
   mode on these stencils: elementwise atol 1e-4 * max|ref|, dots rtol
@@ -95,17 +95,16 @@ def _define(name):
 @pytest.mark.parametrize("C", [128, 256, 1000, 4096])
 @pytest.mark.parametrize("stencil", list(STENCILS))
 def test_route_sends_k3_k4_to_band_and_k5_to_tile(stencil, C):
-    """K3, K4, K5a and K5b take the band route with the stencils off the
-    strip and flat routes whose ring fits; K5c (``bicg="update"``) keeps
-    the tile kernels; the s-step passes' route is unchanged; the gate of
-    every pass takes the stencil."""
+    """K3, K4 and K5a-c take the band route with the stencils off the
+    strip and flat routes whose ring fits (no K5 pass takes the tile
+    kernels there any more); the s-step passes' route is unchanged; the
+    gate of every pass takes the stencil."""
     offs, vals = STENCILS[stencil](C)
     assert T.supports(64, C, offs)
     assert T.pass_layout(C, offs)[0] > 0
     assert T.route(offs, vals, C) == ("band", offs, vals, 0)
-    for k5 in ("pv", "st"):
+    for k5 in T.BICG_PASSES:
         assert T.route(offs, vals, C, bicg=k5) == ("band", offs, vals, 0)
-    assert T.route(offs, vals, C, bicg="update") == ("tile", offs, vals, 0)
     assert TB.bicgstab_supported(64, C, offs)
     if T.step2_supported(64, C, offs):
         assert T.route(offs, vals, C, sstep=True)[0] in ("general",
@@ -116,20 +115,21 @@ def test_route_sends_k3_k4_to_band_and_k5_to_tile(stencil, C):
 def test_strip_and_flat_routes_unchanged(C):
     """A reach-1 stencil keeps the strip march and the flat decomposition
     of the 1-D Laplacian the flat route, for K3, K4 and K5b alike; K5a
-    runs the tile kernel on the former and the band march on the latter,
-    K5c the tile kernels; a pass name outside BICG_PASSES is refused."""
+    and K5c run the tile kernels on the former and the band march on the
+    latter; a pass name outside BICG_PASSES is refused."""
     nine = (tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)),
             (8.0,) + (-1.0,) * 8)
     for offs, vals in (CROSS, nine):
         for bicg in (None, "st"):
             assert T.route(offs, vals, C, bicg=bicg)[0] == "strip"
-        assert T.route(offs, vals, C, bicg="pv") == ("tile", offs, vals, 0)
-        assert T.route(offs, vals, C, bicg="update")[0] == "tile"
+        for bicg in ("pv", "update"):
+            assert T.route(offs, vals, C, bicg=bicg) == ("tile", offs, vals,
+                                                         0)
     offs, vals = T.decompose_flat_offsets((0, -1, 1), (2.0, -1.0, -1.0), C)
     for bicg in (None, "st"):
         assert T.route(offs, vals, C, bicg=bicg)[0] == "flat"
-    assert T.route(offs, vals, C, bicg="pv") == ("band", offs, vals, 0)
-    assert T.route(offs, vals, C, bicg="update")[0] == "tile"
+    for bicg in ("pv", "update"):
+        assert T.route(offs, vals, C, bicg=bicg) == ("band", offs, vals, 0)
     with pytest.raises(ValueError):
         T.route(offs, vals, C, bicg=True)
 
@@ -137,7 +137,7 @@ def test_strip_and_flat_routes_unchanged(C):
 def test_stencils_past_the_gate_keep_the_tile_kernels():
     """A row span of 17 at 4096 columns (18 ring rows of 16 KB) and a
     clipped window wider than PASS_MAX_STRIDE floats are past the gate:
-    K3, K4, K5a and K5b keep the tile kernels there."""
+    K3, K4 and K5a-c keep the tile kernels there."""
     deep = (CROSS[0] + ((-8, 100), (8, -4095)), CROSS[1] + (-0.25, -0.25))
     assert T.pass_layout(4096, deep[0])[0] == 0
     assert T.route(*deep, 4096)[0] == "tile"
@@ -148,6 +148,7 @@ def test_stencils_past_the_gate_keep_the_tile_kernels():
     wrap = (((0, 0), (0, -6999)), (1.0, 1.0))
     assert T.pass_layout(7000, wrap[0])[0] == 0
     assert T.route(*wrap, 7000)[0] == "tile"
+    assert T.route(*wrap, 7000, bicg="update")[0] == "tile"
 
 
 # ---------------------------------------------------------------------------
@@ -375,14 +376,17 @@ def band_march(x, top, bot, offs, vals):
 
 
 def band_march_k5(mode, d, offs, vals, compensated):
-    """K5a (``pv``) or K5b (``st``) by the band march's steps: the operand
-    (p' = r + beta (p - omega v), or s = r - alpha v) formed in f32 as its
-    row arrives, zero outside the grid (no halo blocks); A of it rounded
-    to f32 (K5a writes it, v'); p' written at each unit's own rows; each
+    """K5a (``pv``), K5b (``st``) or K5c (``update``) by the band march's
+    steps: the operand (p' = r + beta (p - omega v), or s = r - alpha v)
+    formed in f32 as its row arrives, zero outside the grid (no halo
+    blocks); A of it rounded to f32 (K5a writes it, v'; K5c forms r' = s -
+    omega t from it and from s read from the ring, and x' = (x + alpha p) +
+    omega s, into a copy of x); p' written at each unit's own rows; each
     dot's products exact (``compensated``) or rounded to f32, summed in
     float64 per unit, the units summed in unit order, rounded to f32 once.
     Returns (p', v', dots, writes of p', writes of v') for ``pv``, (dots,)
-    for ``st``."""
+    for ``st``, (x', r', dots, writes of x', writes of r') for
+    ``update``."""
     R, C = d["r"].shape
     if mode == "pv":
         def form(q):
@@ -394,6 +398,7 @@ def band_march_k5(mode, d, offs, vals, compensated):
     zero = np.zeros(C, np.float32)
     row = lambda q: form(q) if 0 <= q < R else zero
     nd = 1 if mode == "pv" else 2
+    xn = d["x"].copy() if mode == "update" else None
     parts = np.zeros((len(_units(R, C)), nd))
     pn, vn = np.zeros((R, C), np.float32), np.zeros((R, C), np.float32)
     pw, vw = np.zeros((R, C), np.int32), np.zeros((R, C), np.int32)
@@ -413,6 +418,16 @@ def band_march_k5(mode, d, offs, vals, compensated):
             vn[i, c0:c1] = t
             vw[i, c0:c1] += 1
             parts[u, 0] += prod(d["rt"][i, c0:c1], t).sum()
+        elif mode == "update":
+            s = own.astype(np.float32)
+            xn[i, c0:c1] = ((xn[i, c0:c1] + d["alpha"] * d["p"][i, c0:c1])
+                            + d["omega"] * s)
+            pw[i, c0:c1] += 1
+            rn = s - d["omega"] * t
+            vn[i, c0:c1] = rn
+            vw[i, c0:c1] += 1
+            parts[u, 0] += prod(rn, rn).sum()
+            parts[u, 1] += prod(d["rt"][i, c0:c1], rn).sum()
         else:
             parts[u, 0] += prod(t, own).sum()
             parts[u, 1] += prod(t, t).sum()
@@ -422,6 +437,8 @@ def band_march_k5(mode, d, offs, vals, compensated):
     for part in parts:  # unit order
         dots += part
     dots = dots.astype(np.float32)
+    if mode == "update":
+        return xn, vn, dots, pw, vw
     return (pn, vn, dots, pw, vw) if mode == "pv" else (dots,)
 
 
@@ -454,7 +471,7 @@ def test_band_march_transcription_matches_plain(stencil, shape, halos):
 def _k5_inputs(shape, seed):
     rng = np.random.default_rng(seed)
     d = {k: rng.standard_normal(shape).astype(np.float32)
-         for k in ("r", "p", "v", "rt")}
+         for k in ("r", "p", "v", "rt", "x")}
     d.update(alpha=np.float32(0.83), beta=np.float32(0.37),
              omega=np.float32(0.41))
     return d
@@ -467,18 +484,19 @@ def _cs(a, b):
 
 
 @pytest.mark.parametrize("compensated", [False, True])
-@pytest.mark.parametrize("mode", ["pv", "st"])
+@pytest.mark.parametrize("mode", ["pv", "st", "update"])
 @pytest.mark.parametrize("shape", [(8, 128), (37, 1000), (3, 130),
                                    (18, 4096), (5, 4100), (20, 5000)])
 @pytest.mark.parametrize("stencil", ["S2_gen", "S2_4x", "wide_kw"])
 def test_band_march_k5_transcription_matches_plain(stencil, shape, mode,
                                                    compensated):
-    """K5a's and K5b's modes of the band march against bicg_pv_plain and
-    bicg_st_plain, with exact and f32-rounded dot products: p' bit for
-    bit (formed in f32 in the same order) and written once, v' within
-    1e-6 * max|ref| (A p' summed in another order and rounded once) and
-    written once, every dot within 1e-6 of its Cauchy-Schwarz scale (the
-    plain versions sum in f32, or compensated in float64 pairs)."""
+    """K5a's, K5b's and K5c's modes of the band march against
+    bicg_pv_plain, bicg_st_plain and bicg_update_plain, with exact and
+    f32-rounded dot products: p' and x' bit for bit (formed in f32 in the
+    same order) and written once, v' and r' within 1e-6 * max|ref| (A of
+    the operand summed in another order and rounded once) and written
+    once, every dot within 1e-6 of its Cauchy-Schwarz scale (the plain
+    versions sum in f32, or compensated in float64 pairs)."""
     R, C = shape
     offs, vals = STENCILS[stencil](C)
     if T.route(offs, vals, C, bicg=mode)[0] != "band":
@@ -496,6 +514,18 @@ def test_band_march_k5_transcription_matches_plain(stencil, shape, mode,
         np.testing.assert_allclose(vn, rv.numpy(), rtol=0,
                                    atol=1e-6 * rv.abs().max().item())
         assert abs(dots[0] - rdot.item()) <= 1e-6 * _cs(d["rt"], rv)
+    elif mode == "update":
+        xn, rn, dots, xw, rw = band_march_k5(mode, d, offs, vals,
+                                             compensated)
+        rx, rr, rrr, rtr = TB.bicg_update_plain(
+            t["r"], t["v"], t["x"].clone(), t["p"], t["rt"], t["alpha"],
+            t["omega"], **kw)
+        assert (xw == 1).all() and (rw == 1).all()
+        np.testing.assert_array_equal(xn, rx.numpy())
+        np.testing.assert_allclose(rn, rr.numpy(), rtol=0,
+                                   atol=1e-6 * rr.abs().max().item())
+        assert abs(dots[0] - rrr.item()) <= 1e-6 * _cs(rr, rr)
+        assert abs(dots[1] - rtr.item()) <= 1e-6 * _cs(d["rt"], rr)
     else:
         (dots,) = band_march_k5(mode, d, offs, vals, compensated)
         ts, tt = TB.bicg_st_plain(t["r"], t["v"], t["alpha"], **kw)

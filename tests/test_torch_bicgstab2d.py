@@ -134,9 +134,8 @@ WIDE_STENCILS = {
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_plain_matches_jax_band_stencils(kernel, stencil, compensated):
     """K5a-c's plain versions against JAX's passes in interpret mode with
-    the stencils that K5a and K5b take on the band route (K5c on the tile
-    kernels), at (32, 256), a shape JAX's gate takes (C % 128 == 0): the
-    tolerances above."""
+    the stencils that K5a-c take on the band route, at (32, 256), a shape
+    JAX's gate takes (C % 128 == 0): the tolerances above."""
     kw = WIDE_STENCILS[stencil]
     assert JB.bicgstab_supported(32, 256, kw["offsets"])
     st = make_state((32, 256), seed=17)

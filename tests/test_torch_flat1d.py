@@ -233,10 +233,9 @@ def test_bicgstab_plain_matches_jax(kernel, stencil, compensated):
 def test_routes():
     """Which kernel each stencil takes on the card: the strip march for
     reach 1, the strip march with WRAP on the 1-D stencil for a flat
-    decomposition, for the rest the band march for K3, K4, K5a and K5b and
-    the tile kernels (wide terms beside the tile) for K5c; K5a takes the
-    band march on the flat decomposition too; the gates take |dy| <= 8
-    and any |dx| < C."""
+    decomposition, for the rest the band march for K3, K4 and K5a-c;
+    K5a and K5c take the band march on the flat decomposition too; the
+    gates take |dy| <= 8 and any |dx| < C."""
     assert TS.route(*flat(1024), 1024) == ("flat", ((0, 0), (0, -1), (0, 1)),
                                            LAP1[1], 1)
     cross = (((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)), (4.0,) + (-1.0,) * 4)
@@ -244,10 +243,12 @@ def test_routes():
     assert TS.route(*wide(128), 128)[0] == "band"
     assert TS.route(*wide(128), 128, bicg="pv")[0] == "band"
     assert TS.route(*wide(128), 128, bicg="st")[0] == "band"
-    assert TS.route(*wide(128), 128, bicg="update")[0] == "tile"
+    assert TS.route(*wide(128), 128, bicg="update")[0] == "band"
     assert TS.route(*flat(1024), 1024, bicg="st")[0] == "flat"
     assert TS.route(*flat(1024), 1024, bicg="pv") == ("band", *flat(1024),
                                                       0)
+    assert TS.route(*flat(1024), 1024, bicg="update") == (
+        "band", *flat(1024), 0)
     assert TS.flat_stencil(*flat(128), 256) is None
     assert TS.flat_stencil(flat(128)[0], (2.0, -1.0, -0.5, -1.0, -1.0),
                            128) is None

@@ -1611,7 +1611,7 @@ def test_k3_k4_wide_match_plain_on_card(mode, shape, stencil, halos,
                                                 else "band")
     assert T.route(offs, vals, shape[1], bicg="st")[0] == (
         "flat" if stencil == "flat" else "band")
-    assert T.route(offs, vals, shape[1], bicg="update")[0] == "tile"
+    assert T.route(offs, vals, shape[1], bicg="update")[0] == "band"
     _check_one_pass(mode, _one_pass_state(shape, halos, cuda_device), offs,
                     vals, cuda_device)
 
@@ -1735,9 +1735,9 @@ def test_k1_k2_cross_unchanged_on_card(cuda_device):
 @pytest.mark.parametrize("kernel", ["pv", "st", "update"])
 def test_k5_wide_match_plain_on_card(kernel, shape, stencil, compensated,
                                      cuda_device):
-    """K5a-c on the 1-D view (K5b on the flat route, K5a on the band
-    route, K5c on the tile kernel's wide terms) and with wide 2-D terms
-    (K5a and K5b on the band route), against their plain versions:
+    """K5a-c on the 1-D view (K5b on the flat route, K5a and K5c on the
+    band route) and with wide 2-D terms (K5a-c on the band route),
+    against their plain versions:
     elementwise 1e-5 * max|ref|, dots 1e-4 of their Cauchy-Schwarz scale,
     one launch, a repeat bit for bit."""
     offs, vals = WIDE[stencil](shape[1])
@@ -2237,9 +2237,9 @@ def test_band_one_launch_on_card(stencil, cuda_device):
 @pytest.mark.cuda
 def test_band_geometry_gate_and_attrs_on_card(cuda_device):
     """The library's band geometry and ring layout equal the Python
-    mirror's; every pass's kernel (K3's four modes, K4, K5a, K5b) fits one
-    block per SM at each stencil's ring, with no spill, within 128
-    registers."""
+    mirror's; every pass's kernel (K3's four modes, K4, K5a, K5b, K5c)
+    fits one block per SM at each stencil's ring, with no spill, within
+    128 registers."""
     import ctypes
 
     from legionsolvers_tpu_torch.ops.cuda.build import load_library
@@ -2255,7 +2255,7 @@ def test_band_geometry_gate_and_attrs_on_card(cuda_device):
             st = T._stencil_struct(offs, vals)
             assert lib.ls_pass_band_layout(C, ctypes.byref(st), out) == 0
             assert tuple(out) == T.pass_layout(C, offs), (name, C)
-            for which in range(7):
+            for which in range(8):
                 assert lib.ls_pass_band_attrs(which, C, ctypes.byref(st),
                                               out) == 0
                 assert 0 < out[0] <= 128 and out[1] == 0, (name, C, which,
@@ -2308,12 +2308,13 @@ def test_band_two_pass_solve_matches_plain_on_card(pieces, cuda_device,
 
 
 # ---------------------------------------------------------------------------
-# K5a (bicg_pv) and K5b (bicg_st) on the band route (csrc/band2d.cu)
+# K5a (bicg_pv), K5b (bicg_st) and K5c (bicg_update) on the band route
+# (csrc/band2d.cu)
 # ---------------------------------------------------------------------------
 
-# chip_smoke.py's BAND_EDGE_SHAPES
+# chip_smoke.py's BAND_EDGE_SHAPES, and the full grid
 BAND_K5_SHAPES = [(8, 128), (37, 1000), (3, 1000), (203, 4096), (33, 130),
-                  (40, 5000), (1024, 4096)]
+                  (40, 5000), (1024, 4096), (4096, 4096)]
 
 
 def _cs(a, b):
@@ -2323,14 +2324,18 @@ def _cs(a, b):
 
 
 def _k5_close(kernel, d, got, ref, kw):
-    """K5a's p' and v' within 2e-5 * max|ref|, and each dot of K5a or K5b
-    within 1e-4 of its Cauchy-Schwarz scale (phase 3's dot bound)."""
+    """K5a's p' and v', and K5c's x' and r', within 2e-5 * max|ref|, and
+    each dot of K5a, K5b or K5c within 1e-4 of its Cauchy-Schwarz scale
+    (phase 3's dot bound)."""
+    vecs = {"pv": ("p", "v"), "st": (), "update": ("x", "r")}[kernel]
+    for key in vecs:
+        np.testing.assert_allclose(got[key], ref[key], rtol=0,
+                                   atol=2e-5 * np.abs(ref[key]).max(),
+                                   err_msg=key)
     if kernel == "pv":
-        for key in ("p", "v"):
-            np.testing.assert_allclose(got[key], ref[key], rtol=0,
-                                       atol=2e-5 * np.abs(ref[key]).max(),
-                                       err_msg=key)
         bounds = {"rtv": _cs(d["rt"], ref["v"])}
+    elif kernel == "update":
+        bounds = {"rr": _cs(ref["r"], ref["r"]), "rtr": _cs(d["rt"], ref["r"])}
     else:
         s = d["r"] - np.float32(0.83) * d["v"]
         a = T.apply_plain(torch.from_numpy(s), **kw).numpy()
@@ -2343,15 +2348,16 @@ def _k5_close(kernel, d, got, ref, kw):
 @pytest.mark.parametrize("compensated", [False, True])
 @pytest.mark.parametrize("stencil", ["S2_gen", "S2_4x", "wide"])
 @pytest.mark.parametrize("shape", BAND_K5_SHAPES)
-@pytest.mark.parametrize("kernel", ["pv", "st"])
+@pytest.mark.parametrize("kernel", ["pv", "st", "update"])
 def test_band_k5_match_plain_on_card(kernel, shape, stencil, compensated,
                                      cuda_device):
-    """K5a and K5b on the band route against their plain versions: p' and
-    v' within 2e-5 * max|ref|, each dot within 1e-4 of its Cauchy-Schwarz
-    scale (phase 3's dot bound; the kernel sums exact or f32-rounded
-    products in float64, the plain version in f32), compensated <r~, v'>
-    within 4e-7 of the float64 sum of the kernel's own operands; one
-    launch; a repeat bit for bit."""
+    """K5a, K5b and K5c on the band route against their plain versions:
+    p' and v', x' and r' within 2e-5 * max|ref|, each dot within 1e-4 of
+    its Cauchy-Schwarz scale (phase 3's dot bound; the kernel sums exact
+    or f32-rounded products in float64, the plain version in f32),
+    compensated <r~, v'>, <r', r'> and <r~, r'> within 4e-7 of the
+    float64 sums of the kernel's own operands; one launch; a repeat bit
+    for bit."""
     offs, vals = BAND[stencil](shape[1])
     if max(abs(dx) for _, dx in offs) >= shape[1]:
         pytest.skip("|dx| >= C: off the gate at this width")
@@ -2359,7 +2365,7 @@ def test_band_k5_match_plain_on_card(kernel, shape, stencil, compensated,
     kw = dict(offsets=offs, values=vals)
     rng = np.random.default_rng(shape[0] + shape[1])
     d = {k: rng.standard_normal(shape).astype(np.float32)
-         for k in ("r", "p", "v", "rt")}
+         for k in ("r", "p", "v", "rt", "x")}
     T.reset_launch_counts()
     got = _bicg(kernel, d, cuda_device, compensated, stencil=kw)
     again = _bicg(kernel, d, cuda_device, compensated, stencil=kw)
@@ -2368,47 +2374,81 @@ def test_band_k5_match_plain_on_card(kernel, shape, stencil, compensated,
         np.testing.assert_array_equal(got[key], again[key], err_msg=key)
     ref = _bicg(kernel, d, cuda_device, compensated, plain=True, stencil=kw)
     _k5_close(kernel, d, got, ref, kw)
-    if compensated and kernel == "pv":
-        exact = (d["rt"].astype(np.float64) * got["v"]).sum()
-        assert abs(got["rtv"] - exact) <= 4e-7 * abs(exact)
+    if compensated and kernel != "st":
+        rt = d["rt"].astype(np.float64)
+        pairs = ({"rtv": (rt, got["v"])} if kernel == "pv" else
+                 {"rr": (got["r"], got["r"]), "rtr": (rt, got["r"])})
+        for key, (a, b) in pairs.items():
+            exact = (a * b).sum()
+            assert abs(got[key] - exact) <= 4e-7 * abs(exact), key
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("stencil", ["S2_gen", "wide"])
 def test_band_k5_one_launch_on_card(stencil, cuda_device):
-    """K5a and K5b on the band route are one kernel each, the band
-    march's, and no reduce_partials (one profiler trace of both, f32 and
-    compensated dots)."""
+    """K5a, K5b and K5c on the band route are one kernel each, the band
+    march's, and no reduce_partials (one profiler trace of the three, f32
+    and compensated dots)."""
     offs, vals = BAND[stencil](1000)
     rng = np.random.default_rng(3)
     t = {k: torch.from_numpy(rng.standard_normal((96, 1000))
                              .astype(np.float32)).to(cuda_device)
-         for k in ("r", "p", "v", "rt")}
+         for k in ("r", "p", "v", "rt", "x")}
     out = (torch.empty_like(t["p"]), torch.empty_like(t["v"]))
+    r_out = torch.empty_like(t["r"])
     fns = []
     for comp in (False, True):
         kw = dict(offsets=offs, values=vals, compensated=comp)
         fns += [lambda kw=kw: TB.bicg_pv(t["r"], t["p"], t["v"], t["rt"],
                                          0.37, 0.41, out=out, **kw),
-                lambda kw=kw: TB.bicg_st(t["r"], t["v"], 0.83, **kw)]
+                lambda kw=kw: TB.bicg_st(t["r"], t["v"], 0.83, **kw),
+                lambda kw=kw: TB.bicg_update(t["r"], t["v"], t["x"], t["p"],
+                                             t["rt"], 8.3e-4, 0.41,
+                                             out=r_out, **kw)]
     for names in _kernels_of_each(fns):
         assert len(names) == 1 and "band_pass_kernel" in names[0], names
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["pv", "st"])
+@pytest.mark.parametrize("stencil", ["S2_gen", "S2_4x", "wide"])
+def test_band_k5c_x_in_place_r_to_out_on_card(stencil, cuda_device):
+    """K5c on the band route writes x' into the x it was given and r' into
+    ``out``, and returns those two tensors; r, v, p and r~ are left as
+    they were (the bounds of the band cases above)."""
+    offs, vals = BAND[stencil](4096)
+    kw = dict(offsets=offs, values=vals)
+    assert T.route(offs, vals, 4096, bicg="update")[0] == "band"
+    rng = np.random.default_rng(6)
+    d = {k: rng.standard_normal((203, 4096)).astype(np.float32)
+         for k in ("r", "p", "v", "rt", "x")}
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in d.items()}
+    keep = {k: v.clone() for k, v in t.items()}
+    out = torch.full_like(t["r"], float("nan"))
+    x, rn, rr, rtr = TB.bicg_update(t["r"], t["v"], t["x"], t["p"], t["rt"],
+                                    0.83, 0.41, out=out, **kw)
+    assert x is t["x"] and rn is out
+    for k in ("r", "p", "v", "rt"):
+        assert torch.equal(t[k], keep[k]), k
+    got = {"x": x, "r": rn, "rr": rr, "rtr": rtr}
+    got = {k: v.double().cpu().numpy() for k, v in got.items()}
+    ref = _bicg("update", d, cuda_device, False, plain=True, stencil=kw)
+    _k5_close("update", d, got, ref, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["pv", "st", "update"])
 def test_band_k5_past_the_gate_keeps_the_tile_kernels_on_card(kernel,
                                                               cuda_device):
     """A row span of 17 at 4096 columns is past the band route's gate:
-    K5a and K5b run the tile kernels (and their second launch) and still
-    match their plain versions (the bounds of the band cases above)."""
+    K5a-c run the tile kernels (and their second launch) and still match
+    their plain versions (the bounds of the band cases above)."""
     offs = KW["offsets"] + ((-8, 100), (8, -4095))
     vals = KW["values"] + (-0.25, -0.25)
     assert T.route(offs, vals, 4096, bicg=kernel)[0] == "tile"
     kw = dict(offsets=offs, values=vals)
     rng = np.random.default_rng(4)
     d = {k: rng.standard_normal((64, 4096)).astype(np.float32)
-         for k in ("r", "p", "v", "rt")}
+         for k in ("r", "p", "v", "rt", "x")}
     got = _bicg(kernel, d, cuda_device, False, stencil=kw)
     ref = _bicg(kernel, d, cuda_device, False, plain=True, stencil=kw)
     _k5_close(kernel, d, got, ref, kw)

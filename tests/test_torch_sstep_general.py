@@ -132,7 +132,7 @@ def test_gates_of_both_packages(case):
         assert TS.route(o, vals, C)[0] == "band"
         assert TS.route(o, vals, C, bicg="pv")[0] == "band"
         assert TS.route(o, vals, C, bicg="st")[0] == "band"
-        assert TS.route(o, vals, C, bicg="update")[0] == "tile"
+        assert TS.route(o, vals, C, bicg="update")[0] == "band"
 
 
 # (stencil terms, pieces, JAX and the port run the s-step)
@@ -381,17 +381,16 @@ def test_sstep_solve_matches_jax(case, mesh4):
 def test_bicgstab_s2_gen_matches_jax(pieces, mesh4):
     """The fused BiCGStab runner with S2_gen in both packages, on one piece
     and on 4 (16-row pieces, the zero-halo passes with their edge
-    fix-ups): the port's K5a and K5b take the band route there and K5c the
-    tile kernels (their plain versions here, JAX's passes in interpret
-    mode).  The history over BICG_ITERS iterations, before the f32
+    fix-ups): the port's K5a-c take the band route there (their plain
+    versions here, JAX's passes in interpret mode).  The history over BICG_ITERS iterations, before the f32
     recurrences part, rtol 3e-3 (test_23's), and x within 5e-3 of
     max|x|."""
     pj, opj = system(J, SHAPE, pieces, stencil=S2_GEN)
     pt, opt = system(T, SHAPE, pieces, stencil=S2_GEN)
     assert opj.supports_fused_bicgstab and opt.supports_fused_bicgstab
     v = opt._view
-    for k5, kind in (("pv", "band"), ("st", "band"), ("update", "tile")):
-        assert TS.route(v["offs"], v["vals"], v["C"], bicg=k5)[0] == kind
+    for k5 in TS.BICG_PASSES:
+        assert TS.route(v["offs"], v["vals"], v["C"], bicg=k5)[0] == "band"
     hj = hist_of(J.BiCGStabSolver(pj).solve(BICG_ITERS))
     ht = hist_of(T.BiCGStabSolver(pt).solve(BICG_ITERS))
     assert len(ht) == BICG_ITERS + 1 and np.isfinite(ht).all()

@@ -145,7 +145,7 @@ def test_gates():
     assert T.route(*wide9, 128)[0] == "band"
     assert T.route(*wide9, 128, bicg="pv")[0] == "band"
     assert T.route(*wide9, 128, bicg="st")[0] == "band"
-    assert T.route(*wide9, 128, bicg="update")[0] == "tile"
+    assert T.route(*wide9, 128, bicg="update")[0] == "band"
     assert T.step2_supported(64, 128, OFFS + ((1, -127),))
     assert not T.step2_supported(64, 128, OFFS + ((-2, 5),))
     assert not T.step2_supported(64, 128, OFFS + ((0, 128),))
