@@ -29,11 +29,14 @@ either kernel (:func:`bicg_gap_draws`).
 4096^2 that ``--solves`` takes (:func:`time_ab_passes_2d`), and K3's four
 modes, K4, K5a, K5b and K5c with the band route's stencils (S2_4x, S2_gen
 and 4l's wide_kw at 4096^2: the band route of this tree, the tile kernels
-of a tree from before it) and K5a and K5c with the cross and the 1-D
-view's Laplacian, and nothing else.  ``--blocks`` runs phases 4i and 5i (block
-systems) and nothing else, ``--pieces`` phases 4j and 5j (pieces on one card),
-``--explicit-pieces`` phases 4k and 5k (explicit matrices on pieces; it
-builds the one-piece DIA and scrambled systems of 4e-f too, to compare),
+of a tree from before it), K5a-c with the cross and the 1-D view's
+Laplacian (K5b there also compensated and on the band march), K2 on its
+route with S2_gen, S2_4x and S2_far and on its cooperative kernel, and
+the host's enqueue of one K5b call, and nothing else.  ``--blocks`` runs
+phases 4i and 5i (block systems) and nothing else, ``--pieces`` phases 4j
+and 5j (pieces on one card), ``--explicit-pieces`` phases 4k and 5k
+(explicit matrices on pieces; it builds the one-piece DIA and scrambled
+systems of 4e-f too, to compare),
 ``--flat1d`` phases 4l and 5l (the 1-D kernel view at 2^24 unknowns),
 ``--wide3d`` phases 4m and 5m (wide z shifts on the 3-D kernels at 256^3)
 and K1's nop mode (its check and its time), ``--wide2d`` phases 4n and 5n
@@ -252,7 +255,8 @@ Pieces on one card (``parallel/mesh.py``, ``overlap.py``,
    :class:`shadowed`), and each solve driven by the plain versions (its
    twin: no kernel launched; its distance from float64, one piece's
    twin's and the kernels' solve's distance from it reported); the
-   CLI's ``-dim 2 -solver 1 -vp 4``;
+   CLI's ``-dim 2 -solver 1 -vp 4`` (PIECE_CLI_ITERS, half of N_ITERS:
+   host-bound, and its checks do not turn on the length);
 5j. those solves' ms/iter and host enqueue ms/iter beside one piece's in
    the same process, the torch glue operations per pass counted on the
    host, the host enqueue of one K1, K4 and K3 update wrapper call (on a
@@ -295,9 +299,10 @@ grid as ``[n // C, C]`` and the kernels run its row-wrap terms, |dx| = C -
 4l. every route against its plain version on the decomposed offsets, at
    full width ([4096, 4096], random halo blocks) and at (8, 128), (37,
    1000), (3, 1000) and (203, 4096) with null and random halo blocks: K3's
-   four modes, K4 and K5b on the strip march with WRAP, K2 and K1 on the
+   four modes and K4 on the strip march with WRAP, K2, K1 and K5b on the
    march along the flat index (``csrc/flat1d.cu``), K5a and K5c on the
-   band route (``csrc/band2d.cu``, compensated dots off and on), and the
+   band route (``csrc/band2d.cu``; K5 with compensated dots off and on),
+   and the
    wide terms of K3, K4 and K5a-c (the band route) with (0, +-37), (1,
    -(C - 1)) and (-8, 100); phase
    3's bounds and repeats bit for bit.  Then
@@ -315,9 +320,10 @@ grid as ``[n // C, C]`` and the kernels run its row-wrap terms, |dx| = C -
    FLAT_BICG_RTOL of float64 BiCGStab over the entries where textbook f32
    stays within a tenth of it, GMRES non-increasing;
 5l. each route's time at [4096, 4096] with CUDA events and in CUDA graphs
-   beside its plain version and bound; K1's and K2's flat kernels'
-   registers, spill, blocks per SM and shared memory and their ms lost per
-   s-step solve(200); the wide terms (K3, K4 and K5a-c on the band
+   beside its plain version and bound (K5b also on the band march); K1's,
+   K2's and K5b's flat kernels' registers, spill, blocks per SM and shared
+   memory and their ms lost per s-step or BiCGStab solve(200); the wide
+   terms (K3, K4 and K5a-c on the band
    route) at 4096^2 beside the same bound and their ms lost per two-pass
    CG or BiCGStab solve(200);
    and each 4l solve's ms/iter, host enqueue and idle share (a
@@ -355,27 +361,33 @@ z shift a term reads), and K1's nop mode (item D):
 (``csrc/sstep_general.cu``) for 2-D stencils with |dy| <= 1 and any |dx|
 < C that are neither reach 1 nor a flat decomposition: S2_gen (the cross
 with 7.0 at the centre, (0, +-2), (0, +-37), (+-1, +-100)), S2_4x (-d_xx
-to fourth order plus -d_yy to second) and S2_far (S2_gen with (+-1,
-+-200) for (+-1, +-100)).  K1 runs the band march (route ``general``)
-where its gate takes the stencil, the cooperative kernel
-(``general_coop``: S2_far at 4096 columns) where it does not; K2 runs
-the cooperative kernel:
+to fourth order plus -d_yy to second), S2_far (S2_gen with (+-1, +-200)
+for (+-1, +-100)) and S2_past (S2_gen with (+-1, +-1000) for (+-1,
++-100), on 1024 x 5000).  K1 and K2 each run their band march (route
+``general``) where their gate takes the stencil, the cooperative kernel
+(``general_coop``) where it does not: K1 with S2_far and S2_past, K2
+with S2_past:
 
 4n. K1 and K2 against step2_plain and gram2_plain at 4096^2 with S2_gen
    and S2_4x and at 16 x 128 with ``wide(128)``, 4096^2 with (+-1,
-   -+4095) (the cooperative K1), 5 x 130 and 1 x 101 (S2_4x), 33 x 4097
-   (S2_gen) and 7 x 130 with no (0, 0) term; phase 3's bounds, repeats
-   bit for bit, each shape on the route its gate gives; the band march's
-   registers, spill bytes, shared memory and blocks per SM with S2_gen
-   and S2_4x at 4096 columns (``[band]``).  Then
+   -+4095) (the cooperative K1; K2's window clipped to the row) and with
+   S2_far (the cooperative K1), 5 x 130 and 1 x 101 (S2_4x), 33 x 4097
+   (S2_gen), 7 x 130 with no (0, 0) term and 37 x 5000 with S2_past (both
+   cooperative); phase 3's bounds, repeats bit for bit, each shape on the
+   routes its gates give; K2's band march against its cooperative kernel
+   on the same inputs in ulps; the band marches' registers, spill bytes,
+   shared memory and blocks per SM with S2_gen and S2_4x (K2's also
+   S2_far) at 4096 columns (``[band]``).  Then
    ``entry.build_stencil_system(2, (4096, 4096), stencil=...)``: CG
    solve(200) with S2_gen on one piece and on 4 pieces, with S2_4x on one
-   piece and as a 2-space block, and with S2_far on one piece, each
-   launching exactly K1 100 and K2 7 per piece and space and nothing of
-   the two-pass schedule, no plain version called, a repeat bit for bit,
-   every launch of a third run held to its plain version
-   (:class:`shadowed`), and history and x within twice textbook f32 CG's
-   distance from float64 CG (floor 1e-4).  The band route of K3 (four
+   piece and as a 2-space block, with S2_far on one piece, each launching
+   exactly K1 100 and K2 7 per piece and space, and solve(34) with S2_past
+   on one piece of 1024 x 5000 (K1 17, K2 2), nothing of the two-pass
+   schedule, no
+   plain version called, a repeat bit for bit, every launch of a third
+   run held to its plain version (:class:`shadowed`), and history and x
+   within twice textbook f32 CG's distance from float64 CG (floor 1e-4;
+   the history's margin under it logged).  The band route of K3 (four
    modes) and K4 (``csrc/band2d.cu``): against their plain versions with
    S2_gen, S2_4x and wide_kw at 4096^2 and at BAND_EDGE_SHAPES (C = 128,
    1000 columns under one strip, 3 rows under wide_kw's ring, 130 columns
@@ -403,8 +415,10 @@ the cooperative kernel:
    + z where b = 1 leaves textbook f32 no such entry: S2_4x), every
    launch on 4 pieces held to its plain version;
 5n. K1 on the band march with S2_gen and S2_4x, K1 on the cooperative
-   kernel with S2_far and K2 with S2_gen and S2_4x at 4096^2 with CUDA
-   events and in CUDA graphs beside their plain versions, and the
+   kernel with S2_far, K2 on the band march with S2_gen, S2_4x and S2_far
+   at 4096^2, and K2 on the cooperative kernel with S2_past on its grid
+   and (forced there) with S2_gen and S2_far at 4096^2, with CUDA events
+   and in CUDA graphs beside their plain versions, and the
    S2_gen and S2_4x solves' ms/iter, host enqueue and idle share on the
    s-step schedule and under LEGIONSOLVERS_NO_SSTEP (the two-pass
    schedule, K3 and K4 on the band route); K3's four modes and K4 on the
@@ -426,6 +440,7 @@ the last line is ``{"ok": true, "device": {...}}``.  Details also go to
 ``chiprun_out/chip_smoke.json``.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -3607,14 +3622,19 @@ def time_ab_passes_2d(torch, T, TB, device):
     """--solves and --passes: {"<K3 mode>" | "xpay_pq" | "bicg_st
     compensated=<c>" | "gram2" | "step2" | "<K3 mode or xpay_pq>
     <stencil>" | "bicg_pv <stencil>" | "bicg_st <stencil>" | "bicg_update
-    <stencil>": {"events": ms, "graph": ms}}, K3, K4, K5b, K2 and K1 with
-    the cross, K3, K4 and K5a-c with BAND_STENCILS and K5a and K5c with the
-    cross and the 1-D view's decomposed Laplacian (``flat``) at N_GRID^2,
-    no halo blocks, f32 dots, timed as :func:`time_ab_passes` times the
-    3-D passes (CUDA events, and CUDA graphs, over a ring of three input
-    sets; K3 update and K5c in place with a tiny alpha, K4 and K5c into a
-    spare buffer, K1 and K5a into a spare pair, as phase 5a calls
-    them)."""
+    <stencil>" | "gram2 <stencil>" | "gram2 coop <stencil>": {"events":
+    ms, "graph": ms}}, K3, K4, K5b, K2 and K1 with the cross, K3, K4 and
+    K5a-c with BAND_STENCILS and K5a-c with the cross and the 1-D view's
+    decomposed Laplacian (``flat``; K5b also with compensated dots, and
+    forced onto the band march, ``bicg_st flat band``), K2 on its route
+    with S2_gen, S2_4x and S2_far and on its cooperative kernel with
+    S2_gen and S2_far, at N_GRID^2, no halo blocks, f32 dots, timed as
+    :func:`time_ab_passes` times the 3-D passes (CUDA events, and CUDA
+    graphs, over a ring of three input sets; K3 update and K5c in place
+    with a tiny alpha, K4 and K5c into a spare buffer, K1 and K5a into a
+    spare pair, as phase 5a calls them); and "host_us <pass> <stencil>":
+    {"host_us": the host's enqueue of one wrapper call, µs} for K5b with
+    the cross and on the 1-D view."""
     g = torch.Generator(device=device).manual_seed(53)
     ring = [[torch.randn(N_GRID, N_GRID, generator=g, device=device)
              for _ in range(2)] for _ in range(3)]
@@ -3622,6 +3642,7 @@ def time_ab_passes_2d(torch, T, TB, device):
     cases = {f"bicg_st compensated={c}": [
         lambda a=a, b=b, c=c: TB.bicg_st(a, b, alpha, compensated=c, **KW)
         for a, b in ring] for c in (False, True)}
+    forced = {}  # the cases timed with a route forced (forced_routes)
     cases["gram2"] = [lambda a=a, b=b: T.grid2d_cg_gram2(a, b, **KW)
                       for a, b in ring]
     ring1 = [make_inputs(torch, T, (N_GRID, N_GRID), 60 + s, device)
@@ -3647,15 +3668,52 @@ def time_ab_passes_2d(torch, T, TB, device):
         cases[f"bicg_update {st}"] = [
             bicg_call(TB, "bicg_update", d, False, False, d["r_out"], kw)
             for d in ring5]
-        if st in BAND_STENCILS:
+        if st in BAND_STENCILS or st == "flat":
             cases[f"bicg_st {st}"] = [bicg_call(TB, "bicg_st", d, False,
                                                 False, kw=kw) for d in ring5]
+        if st == "flat":
+            cases["bicg_st flat compensated=True"] = [
+                bicg_call(TB, "bicg_st", d, True, False, kw=kw)
+                for d in ring5]
+            cases["bicg_st flat band"] = cases["bicg_st flat"]
+            forced["bicg_st flat band"] = forced_routes(TB, ("st",),
+                                                        kind="band")
+    for st in ("S2_gen", "S2_4x", "S2_far"):
+        kw = gen_kw(st, N_GRID)
+        cases[f"gram2 {st}"] = [
+            lambda d=d, kw=kw: T.grid2d_cg_gram2(d["r"], d["p"], **kw)
+            for d in ring5]
+        if st != "S2_4x":
+            cases[f"gram2 coop {st}"] = cases[f"gram2 {st}"]
+            forced[f"gram2 coop {st}"] = forced_routes(T, ("gram2",),
+                                                   kind="general_coop")
     res = {}
     for name, fns in cases.items():
         k = iter(range(10**9))
-        res[name] = {"events": event_ms(torch, lambda: fns[next(k) % 3](), 30),
-                     "graph": graph_ms(torch, fns, 30)}
+        with forced.get(name, contextlib.nullcontext()):
+            res[name] = {
+                "events": event_ms(torch, lambda: fns[next(k) % 3](), 30),
+                "graph": graph_ms(torch, fns, 30)}
+    for st, kw in (("cross", KW), ("flat", flat_kw(T, N_GRID))):
+        fn = bicg_call(TB, "bicg_st", ring5[0], False, False, kw=kw)
+        res[f"host_us bicg_st {st}"] = {"host_us": host_us(torch, fn)}
     return res
+
+
+def host_us(torch, fn, reps=200, rounds=3):
+    """The host's enqueue of one call of ``fn``, µs: the best of
+    ``rounds`` runs of ``reps`` calls, the device drained before each run
+    and the clock stopped before it is drained again."""
+    fn()
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
+    return best
 
 
 # the solve(200)s of --solves, besides SOLVES3
@@ -4108,8 +4166,12 @@ PIECE_ONE_LAUNCHES = {
                                "xpay_pq": N_ITERS - 1},
 }
 PIECE_SEED = 3
+# the CLI runs of phase 4j (-vp 4) iterate half of N_ITERS: they are
+# host-bound, and their checks (report, schedule, exact launches) do not
+# turn on the length
+PIECE_CLI_ITERS = N_ITERS // 2
 PIECE_CLI = ["-dim", "2", "-nx", str(N_GRID), "-ny", str(N_GRID),
-             "-solver", "1", "-it", str(N_ITERS), "-vp", "4"]
+             "-solver", "1", "-it", str(PIECE_CLI_ITERS), "-vp", "4"]
 
 
 class glue_ops:
@@ -4578,16 +4640,7 @@ def wrapper_host_us(torch, T, device, card, reps=200, rounds=3):
                                                       **KW),
                "update": lambda: T.grid2d_cg_update(p, x, r, alpha, **KW)}
         for name, fn in fns.items():
-            fn()
-            best = math.inf
-            for _ in range(rounds):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(reps):
-                    fn()
-                best = min(best, (time.perf_counter() - t0) / reps * 1e6)
-            torch.cuda.synchronize()
-            out.setdefault(name, {})[label] = best
+            out.setdefault(name, {})[label] = host_us(torch, fn, reps, rounds)
         del x, r, p, o1, o2
     log("[time] host enqueue per wrapper call, µs (one piece of 4; whole "
         "4096^2): " + "; ".join(f"{k} {v['piece']:.1f}, {v['whole']:.1f}"
@@ -4674,13 +4727,15 @@ PIECE_BLOCK_RUNS = {
 }
 PIECE_CLI_RUNS = {
     "-dim 3 -solver 1": ["-dim", "3", "-nx", "256", "-ny", "256", "-nz",
-                         "256", "-solver", "1", "-it", str(N_ITERS)],
-    "-dim 2 -solver 2": ["-dim", "2", "-solver", "2", "-it", str(N_ITERS)],
+                         "256", "-solver", "1", "-it", str(PIECE_CLI_ITERS)],
+    "-dim 2 -solver 2": ["-dim", "2", "-solver", "2", "-it",
+                         str(PIECE_CLI_ITERS)],
     "-dim 2 -solver 3": ["-dim", "2", "-solver", "3", "-restart", "10",
                          "-it", "20"],
-    "-dim 2 -solver 4": ["-dim", "2", "-solver", "4", "-it", str(N_ITERS)],
+    "-dim 2 -solver 4": ["-dim", "2", "-solver", "4", "-it",
+                         str(PIECE_CLI_ITERS)],
     "-dim 2 --block": ["-dim", "2", "-solver", "1", "--block", "-it",
-                       str(N_ITERS)],
+                       str(PIECE_CLI_ITERS)],
 }
 
 
@@ -6169,8 +6224,17 @@ def time_flat1d(torch, T, TB, device, bw, card, solvers):
             g = graph_ms(torch, fns[False], 30)
             sane(f"{name} {st}", ms, bpe * n, bw)
             out[name, st] = (ms, plain_ms, g)
+        if st == "flat":  # K5b on the band march, beside its flat march
+            fns = [bicg_call(TB, "bicg_st", d, False, False, kw=kw)
+                   for d in bring]
+            k = iter(range(10**9))
+            with forced_routes(TB, ("st",), kind="band"):
+                out["bicg_st band", st] = (
+                    event_ms(torch, lambda: fns[next(k) % 3](), 30),
+                    out["bicg_st", st][1], graph_ms(torch, fns, 30))
         del bring
-        for m in [*modes, *BICG_KERNELS]:
+        for m in [*modes, *BICG_KERNELS] + (["bicg_st band"]
+                                            if st == "flat" else []):
             ms, plain_ms, g = out[m, st]
             log(f"[time] {st} {m:11s} kernel {ms:.4f} ms (CUDA graphs "
                 f"{g:.4f}), plain {plain_ms:.4f} ms at [{FLAT_C}, {FLAT_C}]"
@@ -6235,16 +6299,19 @@ WIDE_200 = {"pq": 1, "update": N_ITERS, "xpay_pq": N_ITERS - 1,
 
 def flat_attrs(lib):
     """{pass: [registers, spill bytes, resident blocks per SM, static
-    shared memory bytes]} of K1's and K2's flat kernels with 16-byte loads
-    (cudaFuncGetAttributes and the occupancy calculator on this card), or
-    {} for a tree without them (``--tree`` of an older tree)."""
+    shared memory bytes]} of K1's, K2's and K5b's (f32 dots) flat kernels
+    with 16-byte loads (cudaFuncGetAttributes and the occupancy calculator
+    on this card), or {} for a tree without them (``--tree`` of an older
+    tree)."""
     import ctypes
 
     if not hasattr(lib, "ls_flat_attrs"):
         return {}
     out, res = (ctypes.c_int * 4)(), {}
-    for m, which in (("step2", 1), ("gram2", 3)):
+    for m, which in (("step2", 1), ("gram2", 3), ("bicg_st", 5)):
         err = lib.ls_flat_attrs(which, out)
+        if err and m == "bicg_st" and not hasattr(lib, "ls_flat_bicg_st"):
+            continue  # a tree from before K5b's flat march
         if err:
             raise RuntimeError(f"ls_flat_attrs({which}): CUDA error {err}")
         res[m] = list(out)
@@ -6277,7 +6344,7 @@ def flat1d_rows(T, launches, grid_launches, errs, times, bw, conv1d_ms,
         if m in BICG_KERNELS:
             # K5a and K5c have no strip kernel: the band march
             route, source = k5_route(T, m, flat_kw(T, FLAT_C), FLAT_C)
-        if m in SSTEP_200:
+        if m in SSTEP_200 or route == "flat":
             source, route = FLAT_CSRC, "flat march"
         ms, plain_ms, g = times[m]
         row = kernel_row(name, source, replaces, launches.get(m, 0), errs[m],
@@ -6286,11 +6353,17 @@ def flat1d_rows(T, launches, grid_launches, errs, times, bw, conv1d_ms,
                          conv1d_ms if m == "y" else None,
                          grid_launches=grid_launches.get(m, 0))
         row.update(graph_ms=g, kernel_route=route)
+        if m == "bicg_st" and "bicg_st band" in times:
+            row["band_ms"], _, row["band_graph_ms"] = times["bicg_st band"]
         extra = ""
-        if m in SSTEP_200:
-            row["ms_lost_per_solve200"] = SSTEP_200[m] * (ms - row["bound_ms"])
-            extra = (f", {row['ms_lost_per_solve200']:.2f} ms lost per s-step"
-                     " solve(200)")
+        if route == "flat march":
+            per = SSTEP_200.get(m, N_ITERS)
+            row["ms_lost_per_solve200"] = per * (ms - row["bound_ms"])
+            row["graph_ms_lost_per_solve200"] = per * (g - row["bound_ms"])
+            extra = (f", {row['ms_lost_per_solve200']:.2f} ms lost per "
+                     f"{'s-step CG' if m in SSTEP_200 else 'BiCGStab'} "
+                     f"solve(200) ({row['graph_ms_lost_per_solve200']:.2f} "
+                     "in graphs)")
             if attrs and m in attrs:
                 regs, spill, per_sm, smem = attrs[m]
                 row.update(registers=regs, spill_bytes=spill,
@@ -6841,13 +6914,33 @@ S2_4X = (((0, 0), 4.5), ((-1, 0), -1.0), ((1, 0), -1.0),
 # s-step's on pieces (120): the cooperative K1's solve, on one piece
 S2_FAR = tuple(((dy, 2 * dx if abs(dx) == 100 else dx), v)
                for (dy, dx), v in S2_GEN)
-GEN_STENCILS = {"S2_gen": S2_GEN, "S2_4x": S2_4X, "S2_far": S2_FAR}
+# S2_past: S2_gen with its (+-1, +-100) terms at (+-1, +-1000), on
+# GEN_PAST_GRID's 5000 columns past K2's band gate (a ring row of 1000 + 4
+# x 1000 floats padded, 5000 clipped to the row, both over 4391), so K2
+# runs its cooperative kernel there (and K1, past its own gate, too).  Its
+# far terms leave the grid in 40% of the columns, whose rows then
+# dominate their diagonal: CG converges fast (float64 residual^2 5.12e6 ->
+# 1.58 in 30 iterations, 1e-31 in 200), so its solve runs GEN_ITERS's 34
+# iterations (17 K1 passes, a K2 refresh), not N_ITERS, whose tail would
+# hold f32 to float64 below f32's floor
+GEN_PAST_GRID = (1024, 5000)
+S2_PAST = tuple(((dy, 10 * dx if abs(dx) == 100 else dx), v)
+                for (dy, dx), v in S2_GEN)
+GEN_STENCILS = {"S2_gen": S2_GEN, "S2_4x": S2_4X, "S2_far": S2_FAR,
+                "S2_past": S2_PAST}
+# each stencil's grid in phase 4n's solves and 5n's times, and the length
+# of its solves (N_ITERS but for S2_past)
+GEN_GRIDS = {"S2_past": GEN_PAST_GRID}
+GEN_ITERS = {"S2_past": 34}
 GEN_SSTEP = ("step2", "gram2")
 # the kernels line's rows of the general route: (pass, K1 or K2's route,
-# the stencil timed at 4096^2, the other timed beside it)
-GEN_ROWS = (("step2", "general", "S2_gen", "S2_4x"),
-            ("step2", "general_coop", "S2_far", None),
-            ("gram2", "general_coop", "S2_gen", "S2_4x"))
+# the stencil of the row's times, the others timed beside it; the
+# cooperative K2 with S2_gen and S2_far at 4096^2 forced off the band
+# route it takes there, for the comparison)
+GEN_ROWS = (("step2", "general", "S2_gen", ("S2_4x",)),
+            ("step2", "general_coop", "S2_far", ()),
+            ("gram2", "general", "S2_gen", ("S2_4x", "S2_far")),
+            ("gram2", "general_coop", "S2_past", ("S2_gen", "S2_far")))
 # K2 passes of an s-step solve(200): the bootstrap and one refresh every
 # 16 passes (LEGIONSOLVERS_SSTEP_REFRESH's default) of its 100
 GEN_GRAMS = 7
@@ -6864,6 +6957,7 @@ GEN_RUNS = {
                                             "gram2": 2 * GEN_GRAMS}),
     "S2_far one piece": ("S2_far", 1, 1, {"step2": N_ITERS // 2,
                                           "gram2": GEN_GRAMS}),
+    "S2_past one piece": ("S2_past", 1, 1, {"step2": 17, "gram2": 2}),
 }
 GEN_TIMED_RUNS = ("S2_gen one piece", "S2_gen 4 pieces", "S2_4x one piece",
                   "S2_4x 2-space block")  # 5n's solve times
@@ -6876,10 +6970,10 @@ def terms_kw(terms):
 
 
 def gen_kw(name, C):
-    """The stencil ``name`` of phase 4n at width C: S2_gen, S2_4x, the
-    tile kernels' ``wide(C)`` of the CPU tests (its (1, -(C - 1)) spans
-    the gate's width), the cross with (+-1, -+(C - 1)), and a stencil with
-    no (0, 0) term."""
+    """The stencil ``name`` of phase 4n at width C: S2_gen, S2_4x,
+    S2_far, S2_past (C > 1000), the tile kernels' ``wide(C)`` of the CPU
+    tests (its (1, -(C - 1)) spans the gate's width), the cross with (+-1,
+    -+(C - 1)), and a stencil with no (0, 0) term."""
     if name in GEN_STENCILS:
         return terms_kw(GEN_STENCILS[name])
     if name == "wide(C)":
@@ -6893,38 +6987,62 @@ def gen_kw(name, C):
                 values=(1.0, -0.25, -0.25, 1.0))
 
 
-# (R, C, stencil): C = 128 with (1, -127); |dx| = C - 1 at 4096; rows under
-# 8 and C not a multiple of 4 or of 128; a ragged row count at C = 4097; no
-# (0, 0) term
+# (R, C, stencil): C = 128 with (1, -127); |dx| = C - 1 at 4096 (K2's
+# window clipped to the row); rows under 8 and C not a multiple of 4 or of
+# 128; a ragged row count at C = 4097; no (0, 0) term; S2_far at 4096^2
+# (past K1's band gate, inside K2's); S2_past at 5000 columns (past both)
 GEN_EDGES = ((16, 128, "wide(C)"), (N_GRID, N_GRID, "(+-1, -+(C - 1))"),
              (5, 130, "S2_4x"), (1, 101, "S2_4x"), (33, 4097, "S2_gen"),
-             (7, 130, "no centre"))
+             (7, 130, "no centre"), (N_GRID, N_GRID, "S2_far"),
+             (37, 5000, "S2_past"))
 
 
-# the one shape of 4n's kernel cases past the band march's gate (K1 on
-# the cooperative kernel)
-GEN_COOP_CASES = ((N_GRID, N_GRID, "(+-1, -+(C - 1))"),)
+# 4n's kernel cases past K1's band gate (K1 on the cooperative kernel),
+# and past K2's (K2 on its cooperative kernel)
+GEN_COOP_CASES = ((N_GRID, N_GRID, "(+-1, -+(C - 1))"),
+                  (N_GRID, N_GRID, "S2_far"), (37, 5000, "S2_past"))
+GEN_K2_COOP_CASES = ((37, 5000, "S2_past"),)
+
+
+def ulps_apart(a, b):
+    """Units in the last place between two f32 tensors, entrywise (their
+    bit patterns as ordered integers)."""
+    import torch
+
+    def ordered(t):
+        i = t.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
 
 
 def compare_general_kernels(torch, T, device):
     """Phase 4n, the kernels: K1 and K2 on the general route against
     step2_plain and gram2_plain at 4096^2 with S2_gen and S2_4x and at
-    GEN_EDGES, each on the route its gate gives (K1's band march, or the
-    cooperative kernel for GEN_COOP_CASES): phase 3's bounds (elementwise
-    1e-5 * max|ref|, Gram entries 1e-4 of their Cauchy-Schwarz scale) and
-    a repeat on the same inputs bit for bit.  Returns {(pass, K1's
-    route): max abs error}."""
-    errs = {}
+    GEN_EDGES, each on the route its gate gives (the pass's band march, or
+    its cooperative kernel for GEN_COOP_CASES and GEN_K2_COOP_CASES):
+    phase 3's bounds (elementwise 1e-5 * max|ref|, Gram entries 1e-4 of
+    their Cauchy-Schwarz scale) and a repeat on the same inputs bit for
+    bit; K2's band march also against its cooperative kernel on the same
+    inputs, entry by entry in ulps (the same terms in the same order: only
+    the Gram's double sums run in another order).  Returns ({(pass,
+    route): max abs error}, {case: K2 band against cooperative, the
+    largest distance in ulps and the entries that differ})."""
+    errs, k2_ulps = {}, {}
     cases = ([(N_GRID, N_GRID, name) for name in ("S2_gen", "S2_4x")]
              + list(GEN_EDGES))
     for R, C, name in cases:
         kw = gen_kw(name, C)
         route = T.route(kw["offsets"], kw["values"], C, sstep=True)[0]
+        route2 = T.route(kw["offsets"], kw["values"], C, sstep="gram2")[0]
         want = ("general_coop" if (R, C, name) in GEN_COOP_CASES
                 else "general")
-        if route != want:
+        want2 = ("general_coop" if (R, C, name) in GEN_K2_COOP_CASES
+                 else "general")
+        if (route, route2) != (want, want2):
             raise AssertionError(f"{name} at {(R, C)} takes the {route} "
-                                 f"route, not {want}")
+                                 f"route for K1 and {route2} for K2, not "
+                                 f"{want} and {want2}")
         d = flat_inputs(torch, T, (R, C), 71, device, False, kw)
         worst = 0.0
         for mode in ("gram2", "step2"):
@@ -6948,22 +7066,34 @@ def compare_general_kernels(torch, T, device):
                     raise AssertionError(
                         f"{case} {key}: kernel disagrees with its plain "
                         f"version ({err.max().item():g})")
-                key_r = (mode, route if mode == "step2" else "general_coop")
+                key_r = (mode, route if mode == "step2" else route2)
                 errs[key_r] = max(errs.get(key_r, 0.0), err.max().item())
                 worst = max(worst, err.max().item())
-        log(f"[general] K2, K1 with {name} at {[R, C]} (K1's route "
-            f"{route}) == plain (max abs err {worst:.3g}); repeats bit for "
-            "bit")
+        vs = ""
+        if route2 == "general":
+            band = T.grid2d_cg_gram2(d["r"], d["p"], **kw)
+            with forced_routes(T, ("gram2",), kind="general_coop"):
+                coop = T.grid2d_cg_gram2(d["r"], d["p"], **kw)
+            u = ulps_apart(band, coop)
+            k2_ulps[f"{name} at {(R, C)}"] = (int(u.max()),
+                                              int((u > 0).sum()))
+            vs = (f"; K2 band against cooperative: {int((u > 0).sum())} of "
+                  f"10 entries differ, at most {int(u.max())} ulp")
+        log(f"[general] K2, K1 with {name} at {[R, C]} (routes: K1 "
+            f"{route}, K2 {route2}) == plain (max abs err {worst:.3g}); "
+            f"repeats bit for bit{vs}")
         del d
-    return errs
+    return errs, k2_ulps
 
 
-def gen_route(name):
-    """K1's route for 4n's stencil ``name`` at 4096 columns."""
-    kw = gen_kw(name, N_GRID)
+def gen_route(name, m="step2"):
+    """K1's (``m`` step2) or K2's (gram2) route for 4n's stencil ``name``
+    on its grid (GEN_GRIDS; 4096^2 by default)."""
+    C = GEN_GRIDS.get(name, (N_GRID, N_GRID))[1]
+    kw = gen_kw(name, C)
     from legionsolvers_tpu_torch.ops.cuda.stencil2d import route
 
-    return route(kw["offsets"], kw["values"], N_GRID, sstep=True)[0]
+    return route(kw["offsets"], kw["values"], C, sstep=m)[0]
 
 
 _GEN_REFS = {}
@@ -6971,16 +7101,18 @@ _GEN_REFS = {}
 
 def gen_refs(torch, device):
     """{stencil: (float64 CG history, float64 x, textbook f32 CG's
-    (history, x) distance from them)} of GEN_STENCILS at 4096^2, b = 1, x0
-    = 0, solve(N_ITERS); made once (phases 4n's s-step and two-pass
-    solves share them)."""
+    (history, x) distance from them)} of GEN_STENCILS on their grids
+    (GEN_GRIDS; 4096^2 by default), b = 1, x0 = 0, solve(N_ITERS, or
+    GEN_ITERS's); made once (phases 4n's s-step and two-pass solves share
+    them)."""
     if not _GEN_REFS:
-        shape = (N_GRID, N_GRID)
         for name, terms in GEN_STENCILS.items():
+            shape = GEN_GRIDS.get(name, (N_GRID, N_GRID))
+            iters = GEN_ITERS.get(name, N_ITERS)
             A = terms_matvec(torch, terms)
-            h64, x64 = classic_cg(torch, shape, N_ITERS, torch.float64,
+            h64, x64 = classic_cg(torch, shape, iters, torch.float64,
                                   device, A)
-            h32, x32 = classic_cg(torch, shape, N_ITERS, torch.float32,
+            h32, x32 = classic_cg(torch, shape, iters, torch.float32,
                                   device, A)
             _GEN_REFS[name] = (h64, x64, (rel_dev(h32, h64).max().item(),
                                           x_rel(x32, x64)))
@@ -6992,25 +7124,29 @@ def general_path(torch, np, T, TB, lt, device):
     """Phase 4n, the solves: ``entry.build_stencil_system(2, (4096,
     4096), stencil=...)`` with S2_gen on one piece and on 4 pieces of the
     card, with S2_4x on one piece and as a 2-space block (b = 1 in both),
-    with S2_far on one piece (K1 on the cooperative kernel), each CG
-    solve(200) from x0 = 0 on the s-step schedule with its
-    launches counted exactly (counts set to 0 just before it, read just
-    after: K1 and K2 on the general route and nothing of the two-pass
-    schedule), no plain version called, a repeat from the same state bit
-    for bit, every launch of a third run held to its plain version
-    (:class:`shadowed`), and the history and x within twice textbook f32
-    CG's distance from float64 CG on the same system (floor
+    with S2_far on one piece (K1 on the cooperative kernel, K2 on its band
+    march), and on GEN_PAST_GRID with S2_past (both on their cooperative
+    kernels; solve(34), GEN_ITERS), each CG solve(200) from x0 = 0 on the
+    s-step schedule with
+    its launches counted exactly (counts set to 0 just before it, read
+    just after: K1 and K2 on the general route and nothing of the
+    two-pass schedule), no plain version called, a repeat from the same
+    state bit for bit, every launch of a third run held to its plain
+    version (:class:`shadowed`), and the history and x within twice
+    textbook f32 CG's distance from float64 CG on the same system (floor
     GEN_F64_FLOOR, phase 4l's; the block's history against twice one
-    space's, its x in both spaces).  Returns (launches by pass,
-    whole-grid launches by pass, results, {run: solver}, failed)."""
+    space's, its x in both spaces); each logs the margin of its history
+    under that bound.  Returns (launches by pass, whole-grid launches by
+    pass, results, {run: solver}, failed)."""
     from legionsolvers_tpu_torch.entry import build_stencil_system
     from legionsolvers_tpu_torch.parallel.mesh import make_mesh
 
     f32 = lt.SolverOptions(entry_dtype=torch.float32)
-    shape = (N_GRID, N_GRID)
     refs = gen_refs(torch, device)
     launches, grid_launches, results, solvers, failed = {}, {}, {}, {}, []
     for name, (st, pieces, spaces, want) in GEN_RUNS.items():
+        shape = GEN_GRIDS.get(st, (N_GRID, N_GRID))
+        iters = GEN_ITERS.get(st, N_ITERS)
         mesh = (make_mesh(pieces, devices=[device] * pieces) if pieces > 1
                 else None)
         planner = build_stencil_system(2, shape, f32, device,
@@ -7021,22 +7157,26 @@ def general_path(torch, np, T, TB, lt, device):
         solver = lt.CGSolver(planner)
         with counted_calls(plain_names(T, TB), solver) as plain:
             view_ok = (op.uses_pallas and v["kind"] == "2d"
-                       and v["Br"] * pieces == N_GRID and op.step2_eligible
-                       and T.route(v["offs"], v["vals"], v["C"],
-                                   sstep=True)[0] == gen_route(st))
-            hist, x, counts = counted_solve(torch, T, solver, N_ITERS)
+                       and v["Br"] * pieces == shape[0]
+                       and op.step2_eligible
+                       and all(T.route(v["offs"], v["vals"], v["C"],
+                                       sstep=m)[0] == gen_route(st, m)
+                               for m in GEN_SSTEP))
+            hist, x, counts = counted_solve(torch, T, solver, iters)
             xs = [x] + [planner.sol_vectors[s].data.clone()
                         for s in range(1, spaces)]
-            hist2, x2, _ = counted_solve(torch, T, solver, N_ITERS)
+            hist2, x2, _ = counted_solve(torch, T, solver, iters)
         solvers[name] = solver
         with shadowed(T, solver) as sh:
             restart(solver)
-            solver.solve(N_ITERS)
+            solver.solve(iters)
             torch.cuda.synchronize()
         T.reset_launch_counts()
         h64, x64, text = refs[st]
         got = (rel_dev(hist, spaces * h64).max().item(),
                max(x_rel(xx, x64) for xx in xs))
+        bound = (max(2 * text[0], GEN_F64_FLOOR),
+                 max(2 * text[1], GEN_F64_FLOOR))
         rule = f"(floor {GEN_F64_FLOOR})"
         checks = {
             "the s-step on the general route": view_ok,
@@ -7048,25 +7188,28 @@ def general_path(torch, np, T, TB, lt, device):
                 not sh.bad and sh.calls == want,
             "finite history": bool(torch.isfinite(hist).all()),
             f"history within twice textbook f32 CG's distance from float64 "
-            f"{rule}": got[0] <= max(2 * text[0], GEN_F64_FLOOR),
+            f"{rule}": got[0] <= bound[0],
             f"x within twice textbook f32 CG's distance from float64 {rule}":
-                got[1] <= max(2 * text[1], GEN_F64_FLOOR)}
+                got[1] <= bound[1]}
         del x2, xs
         bad = [k for k, ok in checks.items() if not ok]
         failed += [f"general {name}: {k}" for k in bad]
         results[name] = {
             "launches": counts, "plain_calls": dict(plain.calls),
             "hist_first_last": (hist[0].item(), hist[-1].item()),
-            "vs_f64": {"kernel": got, "textbook f32": text},
+            "vs_f64": {"kernel": got, "textbook f32": text,
+                       "bound": bound},
             "kernel vs plain per launch": sh.worst,
             "share of bound per launch": sh.share, "checks": checks}
         for m, c in counts.items():
             launches[m] = launches.get(m, 0) + c
             grid_launches[m] = grid_launches.get(m, 0) + c / pieces
-        log(f"[general] {name} solve({N_ITERS}) at 4096^2: launches {counts};"
-            f" residual^2 {hist[0].item():.6g} -> {hist[-1].item():.6g}; "
-            f"vs float64 (history, x): kernel {got[0]:.3g} {got[1]:.3g}, "
-            f"textbook f32 {text[0]:.3g} {text[1]:.3g}; per launch vs plain "
+        log(f"[general] {name} solve({iters}) at {list(shape)}: launches "
+            f"{counts}; residual^2 {hist[0].item():.6g} -> "
+            f"{hist[-1].item():.6g}; vs float64 (history, x): kernel "
+            f"{got[0]:.3g} {got[1]:.3g}, textbook f32 {text[0]:.3g} "
+            f"{text[1]:.3g}, bound {bound[0]:.3g} {bound[1]:.3g} (history "
+            f"margin {bound[0] - got[0]:.3g}); per launch vs plain "
             f"{sh.share}; " + (f"checks FAILED: {bad}" if bad
                                else "checks hold"))
         del x
@@ -7076,9 +7219,10 @@ def general_path(torch, np, T, TB, lt, device):
 def general_attrs(torch, lib, T):
     """{(pass, route): attributes} of the general route's kernels: the
     cooperative ones' (registers, spill bytes, resident blocks per SM),
-    and K1's band march's with S2_gen and S2_4x at 4096 columns
-    (registers, spill bytes, blocks per SM, dynamic shared memory bytes;
-    ("step2", "general", stencil)), logged as ``[band]``."""
+    K1's band march's with S2_gen and S2_4x at 4096 columns and K2's with
+    S2_gen, S2_4x and S2_far (registers, spill bytes, blocks per SM,
+    dynamic shared memory bytes; (pass, "general", stencil)), logged as
+    ``[band]``."""
     import ctypes
 
     out = {}
@@ -7104,45 +7248,62 @@ def general_attrs(torch, lib, T):
             f"{a[2]} blocks per SM; geometry "
             f"{T.band_geometry(N_GRID, N_GRID)} (strips, columns, rows, "
             "bands)")
+    for st in ("S2_gen", "S2_4x", "S2_far"):
+        kw = gen_kw(st, N_GRID)
+        a = (ctypes.c_int * 4)()
+        err = lib.ls_gram2_band_attrs(
+            N_GRID, ctypes.byref(T._stencil_struct(kw["offsets"],
+                                                   kw["values"])), a)
+        if err:
+            raise RuntimeError(f"ls_gram2_band_attrs({st}): error {err}")
+        out["gram2", "general", st] = tuple(a)
+        stride, clipped, _ = T.gram2_layout(N_GRID, kw["offsets"])
+        log(f"[band] K2 band march with {st} at {N_GRID} columns: {a[0]} "
+            f"registers, {a[1]} B spilled, {a[3]} B of shared memory "
+            f"(stride {stride} floats, "
+            f"{'clipped' if clipped else 'padded'}), {a[2]} blocks per SM")
     return out
 
 
 def time_general(torch, T, device, bw, card, solvers):
-    """Phase 5n.  Each GEN_ROWS kernel at 4096^2 with its stencils (K1 on
-    the band march with S2_gen and S2_4x, on the cooperative kernel with
-    S2_far; K2 with S2_gen and S2_4x): CUDA events over a ring of three
-    input sets, CUDA graphs, and the plain versions; each GEN_TIMED_RUNS
-    solve's ms/iter, host enqueue and idle share (a torch.profiler trace;
-    a tenth of the solve on pieces, as 5j) on the s-step schedule and
-    under LEGIONSOLVERS_NO_SSTEP (the two-pass schedule: K3 pq, then K4
-    and K3 update on the tile kernels).  Returns ({(pass, route,
-    stencil): (ms, plain ms, graph ms)}, {run: {schedule: times}})."""
-    n = N_GRID * N_GRID
+    """Phase 5n.  Each GEN_ROWS kernel with its stencils on their grids
+    (K1 on the band march with S2_gen and S2_4x, on the cooperative kernel
+    with S2_far; K2 on the band march with S2_gen, S2_4x and S2_far, on
+    the cooperative kernel with S2_past and, forced there at 4096^2, with
+    S2_gen and S2_far): CUDA events over a ring of three input sets, CUDA
+    graphs, and the plain versions; each GEN_TIMED_RUNS solve's ms/iter,
+    host enqueue and idle share (a torch.profiler trace; a tenth of the
+    solve on pieces, as 5j) on the s-step schedule and under
+    LEGIONSOLVERS_NO_SSTEP (the two-pass schedule: K3 pq, then K4 and K3
+    update on the band route).  Returns ({(pass, route, stencil): (ms,
+    plain ms, graph ms)}, {run: {schedule: times}})."""
     out = {}
-    for m, kind, *sts in GEN_ROWS:
-        for st in sts:
-            if st is None:
-                continue
-            kw = gen_kw(st, N_GRID)
-            if T.route(kw["offsets"], kw["values"], N_GRID,
-                       sstep=True)[0] != (kind if m == "step2"
-                                          else gen_route(st)):
+    for m, kind, st0, others in GEN_ROWS:
+        for st in (st0, *others):
+            shape = GEN_GRIDS.get(st, (N_GRID, N_GRID))
+            n = shape[0] * shape[1]
+            kw = gen_kw(st, shape[1])
+            forced = gen_route(st, m) != kind
+            if forced and not (m == "gram2" and kind == "general_coop"):
                 raise AssertionError(f"{st} is off {m}'s {kind} route")
             # (the halo blocks are unused: kernel_call sizes step2's
             # outputs by them)
-            ring = [flat_inputs(torch, T, (N_GRID, N_GRID), 90 + s, device,
-                                True, kw) for s in range(3)]
+            ring = [flat_inputs(torch, T, shape, 90 + s, device, True, kw)
+                    for s in range(3)]
             fns = {plain: [kernel_call(T, m, d, plain, kw) for d in ring]
                    for plain in (False, True)}
             k = iter(range(10**9))
-            ms = event_ms(torch, lambda: fns[False][next(k) % 3](), 30)
+            # K2's cooperative kernel off its route where forced
+            with (forced_routes(T, ("gram2",), kind="general_coop")
+                  if forced else contextlib.nullcontext()):
+                ms = event_ms(torch, lambda: fns[False][next(k) % 3](), 30)
+                g = graph_ms(torch, fns[False], 30)
             plain_ms = event_ms(torch, lambda: fns[True][next(k) % 3](), 6)
-            g = graph_ms(torch, fns[False], 30)
             sane(f"{m} {kind}", ms, KERNELS[m][2] * n, bw)
             out[m, kind, st] = (ms, plain_ms, g)
             log(f"[time] {kind} {m} with {st}: kernel {ms:.4f} ms (CUDA "
                 f"graphs {g:.4f}), bound {KERNELS[m][2] * n / bw * 1e3:.4f}"
-                f", plain {plain_ms:.4f} ms at 4096^2 f32 on {card}")
+                f", plain {plain_ms:.4f} ms at {list(shape)} f32 on {card}")
             del ring, fns
     solves = {}
     for name in GEN_TIMED_RUNS:
@@ -7173,15 +7334,17 @@ def general_rows(results, errs, times, bw, attrs):
     """The kernels line's rows of the general route (GEN_ROWS): launches
     from phase 4n's solves on the row's route (one piece, 4 pieces, the
     block; launches on pieces also in ``pieces_launches``), times from
-    phase 5n at 4096^2 (the second stencil's beside them), registers and
-    spill bytes (the band march's with S2_gen, and its shared memory and
-    blocks per SM); no one PyTorch call computes an s-step pass."""
-    n = N_GRID * N_GRID
+    phase 5n on the row stencil's grid (the other stencils' beside them),
+    registers and spill bytes (a band march's with S2_gen, and its shared
+    memory and blocks per SM); no one PyTorch call computes an s-step
+    pass."""
     rows = []
-    for m, kind, st, other in GEN_ROWS:
+    for m, kind, st, others in GEN_ROWS:
+        shape = GEN_GRIDS.get(st, (N_GRID, N_GRID))
+        n = shape[0] * shape[1]
         launches = grid = on_pieces = 0
         for name, (rst, pieces, _, _) in GEN_RUNS.items():
-            if m == "step2" and gen_route(rst) != kind:
+            if gen_route(rst, m) != kind:
                 continue
             c = results[name]["launches"].get(m, 0)
             launches += c
@@ -7197,21 +7360,21 @@ def general_rows(results, errs, times, bw, attrs):
                          ops_per_elt(m, len(GEN_STENCILS[st])) * n, bw,
                          grid_launches=grid)
         row.update(graph_ms=g, kernel_route=kind, stencil=st,
-                   pieces_launches=on_pieces)
-        if m == "step2" and kind == "general":
+                   pieces_launches=on_pieces, grid=list(shape))
+        if kind == "general":
             regs, spill, per_sm, smem = attrs[m, kind, st]
             row.update(shared_memory_bytes=smem)
         else:
             regs, spill, per_sm = attrs[m, "general_coop"]
         row.update(registers=regs, spill_bytes=spill, blocks_per_sm=per_sm)
-        if other is not None:
+        for other in others:
             (row[f"{other}_ms"], row[f"{other}_plain_ms"],
              row[f"{other}_graph_ms"]) = times[m, kind, other]
         rows.append(row)
         log(f"[time] {kind} {m:5s} with {st} {ms:.4f} ms (graphs {g:.4f}), "
             f"bound {row['bound_ms']:.4f} ({row['pct_of_bound']:.1f}%), "
             f"{regs} registers, {spill} B spilled, {per_sm} blocks per SM, "
-            f"launches {row['launches']} at 4096^2")
+            f"launches {row['launches']} at {list(shape)}")
         if not launches:
             raise AssertionError(f"{row['name']} never launched on the "
                                  "general route's path")
@@ -7285,9 +7448,10 @@ def band_kw(name, C):
 def k5_route(T, m, kw, C):
     """(route, source file) of K5 pass ``m`` (a BICG_KERNELS name) with the
     stencil ``kw`` on C columns: the band march's file where it takes the
-    band route, the tile kernels' otherwise."""
+    band route, the flat march's on the flat route (K5b on the 1-D view),
+    the strip and tile kernels' otherwise."""
     kind = T.route(kw["offsets"], kw["values"], C, bicg=K5_PASS[m])[0]
-    return kind, BAND_CSRC if kind == "band" else BICG_CSRC
+    return kind, {"band": BAND_CSRC, "flat": FLAT_CSRC}.get(kind, BICG_CSRC)
 
 
 def compare_band_k5(torch, T, TB, device):
@@ -7632,28 +7796,30 @@ def bicg_gap(torch, T, solver):
     return abs(true_rr - h[-1].item()) / h[-1].item()
 
 
-class k5_routes:
-    """Within the block, the K5 passes named in ``tile`` (of "pv", "st",
-    "update") take their tile kernels whatever the stencil, and the
+class forced_routes:
+    """Within the block, the passes named in ``passes`` (K5's "pv", "st",
+    "update", K2's "gram2") take the route ``kind`` of ``module``'s
+    ``route`` (the tile kernels by default) whatever the stencil, and the
     ``solvers``' cached runners are dropped on the way in and out."""
 
-    def __init__(self, TB, tile, *solvers):
-        self.TB, self.tile, self.solvers = TB, tile, solvers
+    def __init__(self, module, passes, *solvers, kind="tile"):
+        self.module, self.passes, self.solvers = module, passes, solvers
+        self.kind = kind
 
     def __enter__(self):
-        self.route = route = self.TB.route
-        tile = self.tile
+        self.route = route = self.module.route
+        passes, kind = self.passes, self.kind
 
         def routed(offs, vals, C, sstep=False, bicg=None):
-            if bicg in tile:
-                return "tile", offs, vals, 0
+            if bicg in passes or sstep in passes:
+                return kind, offs, vals, 0
             return route(offs, vals, C, sstep, bicg)
 
-        self.TB.route = routed
+        self.module.route = routed
         drop_runners(*self.solvers)
 
     def __exit__(self, *exc):
-        self.TB.route = self.route
+        self.module.route = self.route
         drop_runners(*self.solvers)
 
 
@@ -7688,11 +7854,11 @@ def bicg_gap_draws(torch, lt, TB, device, card):
             row = {"stencil": st, "b": f"1 + 0.01 z, seed {seed}" if seed
                    else "1"}
             for label, ctx in (
-                    ("routes", k5_routes(TB, (), solver)),
-                    ("K5a tile", k5_routes(TB, ("pv",), solver)),
-                    ("K5b tile", k5_routes(TB, ("st",), solver)),
-                    ("K5c tile", k5_routes(TB, ("update",), solver)),
-                    ("both tile", k5_routes(TB, ("pv", "st"), solver)),
+                    ("routes", forced_routes(TB, (), solver)),
+                    ("K5a tile", forced_routes(TB, ("pv",), solver)),
+                    ("K5b tile", forced_routes(TB, ("st",), solver)),
+                    ("K5c tile", forced_routes(TB, ("update",), solver)),
+                    ("both tile", forced_routes(TB, ("pv", "st"), solver)),
                     ("plain-driven", plain_driven(TB, solver,
                                                   bicg_plain(TB)))):
                 with ctx:
@@ -7878,7 +8044,7 @@ def time_band_k5(torch, T, TB, device, bw, card):
         g = graph_ms(torch, fns[False], 30)
         bpe = BICG_KERNELS[m][1]
         sane(f"{m} {route} {st}", ms, bpe * n, bw)
-        with k5_routes(TB, (K5_PASS[m],)):
+        with forced_routes(TB, (K5_PASS[m],)):
             tile = event_ms(torch, lambda: fns[False][next(k) % 3](), 30)
             tile_g = graph_ms(torch, fns[False], 30)
         out[m, st] = (ms, plain_ms, g, tile, tile_g)
@@ -7895,7 +8061,7 @@ def time_band_solves(torch, TB, solvers, bw, card):
     """Phase 5n, the BiCGStab solves on the band route (BAND_TIMED_BICG):
     ms/iter, host enqueue and idle share (a torch.profiler trace; a tenth
     of the solve on pieces, as 5j), and the S2_gen one-piece solve again
-    with K5c on its tile kernel (:class:`k5_routes`).
+    with K5c on its tile kernel (:class:`forced_routes`).
     Returns {run: {route: times}}."""
     n = N_GRID * N_GRID
     nbytes = (60 * N_ITERS + 16) * n
@@ -7906,7 +8072,8 @@ def time_band_solves(torch, TB, solvers, bw, card):
         solver = solvers[name]
         pieces = BAND_RUNS[name][1]
         n_tr = N_ITERS if pieces == 1 else N_ITERS // 10
-        ctx = k5_routes(TB, ("update",) if route == "tile" else (), solver)
+        ctx = forced_routes(TB, ("update",) if route == "tile" else (),
+                            solver)
         with ctx:
             ms, host = solve_ms(torch, solver, N_ITERS)
             label = "band_" + "".join(c if c.isalnum() else "_"
@@ -8191,7 +8358,7 @@ def main() -> int:
         return 0
     if "--wide2d" in argv:
         gattrs = general_attrs(torch, build.load_library(), T)
-        errs_g = compare_general_kernels(torch, T, device)
+        errs_g, k2_ulps = compare_general_kernels(torch, T, device)
         gn_launches, gn_grid, gn_results, gn_solvers, failed = general_path(
             torch, np, T, TB, lt, device)
         battrs = band_attrs(build.load_library(), T)
@@ -8214,6 +8381,7 @@ def main() -> int:
         rows += band_k5_rows(T, bd_results, errs_k5, k5_times, bw, battrs)
         log(json.dumps({"card": card, "wide2d": {
             "paths": {**gn_results, **bd_results}, "solves": gsolves,
+            "k2_band_vs_coop_ulps": k2_ulps,
             "bicgstab_solves": k5_solves, "kernels": rows}}, default=str))
         if failed:
             raise AssertionError(f"checks failed: {failed}")
@@ -8314,7 +8482,7 @@ def main() -> int:
     failed += f
     mark("phase 4m")
     gattrs = general_attrs(torch, build.load_library(), T)
-    errs_g = compare_general_kernels(torch, T, device)
+    errs_g, k2_ulps = compare_general_kernels(torch, T, device)
     gn_launches, gn_grid, gn_results, gn_solvers, f = general_path(
         torch, np, T, TB, lt, device)
     failed += f
@@ -8612,6 +8780,7 @@ def main() -> int:
                                  (m, st), v in battrs.items()},
                        "conv2d_ms": conv_b},
               "general": {"paths": gn_results, "solves": gsolves,
+                          "k2_band_vs_coop_ulps": k2_ulps,
                           "kernel_ms": {f"{m} {kind} {st}": t for
                                         (m, kind, st), t in gtimes.items()},
                           "attrs": {" ".join(k): v

@@ -35,13 +35,14 @@
 // terms) are read beside the tile from device memory, their operand formed
 // there (apply_tile), by the lanes whose column lands in the grid.
 //
-// K5b with a reach-1 stencil (the 5-point cross, any 3x3 stencil), or on
-// the 1-D kernel view with WRAP (march2d.cuh), runs on the column-strip
-// register march of K1 instead (see bicg_st_strip_kernel): one launch, its
-// two dots folded into the last block.  K5a-c with the other stencils
-// whose ring fits run the band march of band2d.cu (K5a and K5c also on
-// the 1-D view).  The tile kernels here keep the stencils past that gate,
-// and K5a and K5c with reach-1 stencils, with their second launch.
+// K5b with a reach-1 stencil (the 5-point cross, any 3x3 stencil) runs on
+// the column-strip register march of K1 instead (see
+// bicg_st_strip_kernel), and on the 1-D kernel view on the march along the
+// flat index (flat1d.cu): one launch, its two dots folded into the last
+// block.  K5a-c with the other stencils whose ring fits run the band march
+// of band2d.cu (K5a and K5c also on the 1-D view).  The tile kernels here
+// keep the stencils past that gate, and K5a and K5c with reach-1 stencils,
+// with their second launch.
 //
 // Buffers: no kernel writes a buffer that another block reads through a
 // halo.  pv writes p' and v' to buffers other than p and v, update writes
@@ -167,7 +168,7 @@ bicg_st_kernel(const float* __restrict__ r, const float* __restrict__ v,
 // rounded to f32 once.  A thread sums a whole chunk's products, too long
 // a run for an f32 sum; of the orders chip_smoke.py --breakdown --dim 2
 // compared, this one alone passed phase 4b at b = 1 (PERF.md section 6).
-template <int DEPTH, int MINB, bool COMP, bool CROSS, bool VEC, bool WRAP>
+template <int DEPTH, int MINB, bool COMP, bool CROSS, bool VEC>
 __global__ void __launch_bounds__(LS_STEP2_THREADS, MINB)
 bicg_st_strip_kernel(const float* __restrict__ r, const float* __restrict__ v,
                      const float* __restrict__ alpha_p,
@@ -186,12 +187,12 @@ bicg_st_strip_kernel(const float* __restrict__ r, const float* __restrict__ v,
     const Row4 z = {{0.f, 0.f, 0.f, 0.f}};
     Row4 S2 = z, S1 = z;  // s rows q-2, q-1
     const float* const src[2] = {r, v};
-    strip_rows<DEPTH, 2, VEC, WRAP>(
+    strip_rows<DEPTH, 2, VEC>(
         src, pl.a - 1, pl.b, R, C, pl, [&](int q, const Row4 (&row)[2]) {
           Row4 S0;
 #pragma unroll
           for (int j = 0; j < 4; ++j) S0.v[j] = row[0].v[j] - alpha * row[1].v[j];
-          strip_mask<WRAP>(S0, q, R, C, pl.c0, pl.cin);
+          strip_mask(S0, q, R, pl.cin);
           const int i = q - 1;
           if (i >= pl.a && i < pl.b) {
             const Row4 t = apply4<CROSS>(S2, S1, S0, st);
@@ -211,14 +212,14 @@ bicg_st_strip_kernel(const float* __restrict__ r, const float* __restrict__ v,
 
 #define LS_ST_DEPTH 2  // rows of r and v in flight per warp
 
-template <bool COMP, bool CROSS, bool VEC, bool WRAP>
+template <bool COMP, bool CROSS, bool VEC>
 int launch_st_strip(const float* r, const float* v, const float* alpha,
                     float* dot, double* partials, int capacity,
                     unsigned* counter, int R, int C, const Step2Stencil& st,
                     cudaStream_t stream) {
   const StripGeom geo = strip_geometry(R, C, LS_ST_TARGET_WARPS);
   if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
-  bicg_st_strip_kernel<LS_ST_DEPTH, LS_ST_MIN_BLOCKS, COMP, CROSS, VEC, WRAP>
+  bicg_st_strip_kernel<LS_ST_DEPTH, LS_ST_MIN_BLOCKS, COMP, CROSS, VEC>
       <<<(unsigned)geo.blocks, LS_STEP2_THREADS, 0, stream>>>(
           r, v, alpha, dot, partials, counter, R, C, geo, st);
   return (int)cudaGetLastError();
@@ -305,28 +306,27 @@ int ls_bicg_st(const float* r, const float* v, const float* alpha, float* dot,
   return finish((const float*)partials, nblocks, 2, dot, stream);
 }
 
-// K5b with a reach-1 stencil, or with `wrap` the reach-1 1-D stencil of
-// the flat view (march2d.cuh), on the strip march.  partials: capacity
+// K5b with a reach-1 stencil on the strip march.  partials: capacity
 // blocks x 2 doubles; counter: one unsigned, zero before the first launch
 // (the kernel leaves it zero).  Launches on one (partials, counter) pair
 // must be ordered (one stream).  dot: 2 floats.
 int ls_bicg_st_strip(const float* r, const float* v, const float* alpha,
                      float* dot, double* partials, int capacity,
                      unsigned* counter, int R, int C, int compensated,
-                     const LsStencil* st, int wrap, void* stream_ptr) {
+                     const LsStencil* st, void* stream_ptr) {
   if (!valid(st, R, C, 1) || !counter) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const Step2Stencil s2 = step2_stencil(*st);
   const bool vec = C % 4 == 0 && aligned16(r) && aligned16(v);
   const bool cross = is_cross(*st);
-#define LS_ST_COMP(CR, VE, WR)                                            \
-  launch_st_strip<true, CR, VE, WR>(r, v, alpha, dot, partials, capacity, \
-                                    counter, R, C, s2, stream)
-#define LS_ST_F32(CR, VE, WR)                                              \
-  launch_st_strip<false, CR, VE, WR>(r, v, alpha, dot, partials, capacity, \
-                                     counter, R, C, s2, stream)
-  if (compensated) return LS_STRIP_VARIANT(LS_ST_COMP, cross, vec, wrap);
-  return LS_STRIP_VARIANT(LS_ST_F32, cross, vec, wrap);
+#define LS_ST_COMP(CR, VE)                                            \
+  launch_st_strip<true, CR, VE>(r, v, alpha, dot, partials, capacity, \
+                                counter, R, C, s2, stream)
+#define LS_ST_F32(CR, VE)                                              \
+  launch_st_strip<false, CR, VE>(r, v, alpha, dot, partials, capacity, \
+                                 counter, R, C, s2, stream)
+  if (compensated) return LS_CROSS_VARIANT(LS_ST_COMP, cross, vec);
+  return LS_CROSS_VARIANT(LS_ST_F32, cross, vec);
 #undef LS_ST_COMP
 #undef LS_ST_F32
 }
@@ -338,7 +338,7 @@ int ls_bicg_st_strip_attrs(int which, int* out) {
 #define LS_ST_ATTR(CO, CR, VE)                                              \
   case 4 * CO + 2 * CR + VE:                                                \
     return strip_attrs(bicg_st_strip_kernel<LS_ST_DEPTH, LS_ST_MIN_BLOCKS, \
-                                            CO, CR, VE, false>, out);
+                                            CO, CR, VE>, out);
     LS_ST_ATTR(0, 0, 0) LS_ST_ATTR(0, 0, 1) LS_ST_ATTR(0, 1, 0)
     LS_ST_ATTR(0, 1, 1) LS_ST_ATTR(1, 0, 0) LS_ST_ATTR(1, 0, 1)
     LS_ST_ATTR(1, 1, 0) LS_ST_ATTR(1, 1, 1)

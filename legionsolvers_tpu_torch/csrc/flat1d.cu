@@ -1,47 +1,53 @@
-// K1 and K2 on the 1-D kernel view's flat route, for Hopper (sm_90a).
+// K1, K2 and K5b on the 1-D kernel view's flat route, for Hopper (sm_90a).
 //
-// Hand-written CUDA ports of the Pallas TPU kernel _sstep_call, modes step2
+// Hand-written CUDA ports of the Pallas TPU kernels _sstep_call, modes step2
 // (K1) and gram2 (K2) (legionsolvers_tpu/ops/pallas/stencil2d.py:746,
-// pl.pallas_call at :1107), where ops/cuda/stencil2d.route gives "flat": a
-// 1-D grid of n unknowns viewed as [R, C] (parallel/stencil_op.py), its
-// 3-point stencil rewritten into (dy, dx) terms whose row-wrap terms have
-// |dx| = C - 1 (decompose_flat_offsets).  Every pair of those terms reads
-// one flat neighbour f -+ 1 of the element f = q C + c, so these kernels run
-// the 1-D stencil over the flat vector of n = R C elements, zero outside
-// [0, n), and compute what step2_plain and gram2_plain compute on the
-// decomposed offsets.  Wrappers, plain versions and the gate live in
-// ops/cuda/stencil2d.py.
+// pl.pallas_call at :1107), and bicg_st (K5b;
+// legionsolvers_tpu/ops/pallas/bicgstab2d.py:355, pl.pallas_call at :395),
+// where ops/cuda/stencil2d.route gives "flat": a 1-D grid of n unknowns
+// viewed as [R, C] (parallel/stencil_op.py), its 3-point stencil rewritten
+// into (dy, dx) terms whose row-wrap terms have |dx| = C - 1
+// (decompose_flat_offsets).  Every pair of those terms reads one flat
+// neighbour f -+ 1 of the element f = q C + c, so these kernels run the 1-D
+// stencil over the flat vector of n = R C elements, zero outside [0, n),
+// and compute what step2_plain, gram2_plain and bicg_st_plain compute on
+// the decomposed offsets.  Wrappers, plain versions and the gates live in
+// ops/cuda/stencil2d.py and ops/cuda/bicgstab2d.py.
 //
 // What bounds them: bytes.  K1 moves 24 B per element (reads x, r, p;
-// writes x'', r'', p''), K2 8 B (reads r, p); a 1-D stencil does 3 fma per
-// application, and the Gram's 10 exact products in double are the other
-// cost.
+// writes x'', r'', p''), K2 and K5b 8 B (read r, p; r, v); a 1-D stencil
+// does 3 fma per application, and the Gram's 10 exact products in double
+// (K5b: two products) are the other cost.
 //
 // Design: a march along the flat index.  A warp owns a run of consecutive
 // 128-element segments (four elements per lane, one 16-byte load per
-// operand) and takes one segment per step, the next one's loads in flight
+// operand) and takes one segment per step, the next ones' loads in flight
 // (strip_ring).  A stencil application at a segment takes its +-1
 // neighbours from the neighbouring lanes (one shuffle per side) and, at
 // the segment's ends, from the element 3 a lane kept of the segment before
 // and element 0 of the segment after (lanes 31 and 0 read them): each
 // chained stage runs one segment behind the stage it reads.  K1's chain
-// (A p, u, A u, r'', p'', A p'', A^2 p'', A r'') reaches 4 elements and
-// K2's (A p, A^2 p, A r) 2, fewer than a segment holds, so a run reads one
-// segment before it and one after it, and the stages outside the run start
-// from zeros: the error that makes reaches at most 4 elements into those
-// segments and never into the run.  No row halo, no strip halo: 2 of every
-// run's segments are read twice (3% at 2^24).
+// (A p, u, A u, r'', p'', A p'', A^2 p'', A r'') reaches 4 elements, K2's
+// (A p, A^2 p, A r) 2 and K5b's (t = A s) 1, fewer than a segment holds, so
+// a run reads one segment before it and one after it, and the stages
+// outside the run start from zeros: the error that makes reaches at most 4
+// elements into those segments and never into the run.  No row halo, no
+// strip halo: 2 of every run's segments are read twice (3% at 2^24 for K1
+// and K2, 6% for K5b's shorter runs).
 //
 // The stencil is fixed at compile time: the 1-D Laplacian's shifts 0, -1,
 // +1 in that order (LS_FLAT_SHIFTS), one fma per term in that order; the
 // coefficients are kernel parameters.  Any other 1-D stencil is refused at
-// the gate (stencil2d.step2_supported).
+// the gate (stencil2d.step2_supported; K5b's route sends it to the band
+// march).
 // Masks are tested only where a segment leaves [0, n): a warp-uniform
 // branch on one 32-bit compare of the segment's index.  Every
 // intermediate is zero outside [0, n), which reproduces the JAX mask()
 // chain, so the chained applications are true matrix powers.
 //
-// The Gram: exact products of the f32 values summed in double per lane
+// The sums: K1's and K2's Gram from exact products of the f32 values, K5b's
+// <t, s> and <t, t> from products rounded as the strip K5b rounds them
+// (__fmul_rn, or exact with `compensated`), summed in double per lane
 // (gram_terms_f64), across the block in a fixed order and folded into the
 // last block to finish (strip_fold): one launch.  Runs are sized for a
 // fixed number of warps (a wave of the pass's resident blocks on an H100
@@ -51,7 +57,7 @@
 //
 // Buffers: x in place (each lane reads and writes its own elements of its
 // run); r'' and p'' to separate buffers, since neighbouring warps read r
-// and p beside their runs.
+// and p beside their runs.  K5b writes nothing but its two dots.
 
 #include "march2d.cuh"
 
@@ -69,8 +75,13 @@
 #define LS_FLAT_GRAM2_MIN_BLOCKS 5
 #define LS_FLAT_STEP2_DEPTH 1
 #define LS_FLAT_GRAM2_DEPTH 1
+// K5b at 8 blocks (<= 64 registers) with two segments of r and v in
+// flight, as the strip K5b.
+#define LS_FLAT_ST_MIN_BLOCKS 8
+#define LS_FLAT_ST_DEPTH 2
 #define LS_FLAT_STEP2_TARGET_WARPS LS_STRIP_TARGET(LS_FLAT_STEP2_MIN_BLOCKS)
 #define LS_FLAT_GRAM2_TARGET_WARPS LS_STRIP_TARGET(LS_FLAT_GRAM2_MIN_BLOCKS)
+#define LS_FLAT_ST_TARGET_WARPS LS_STRIP_TARGET(LS_FLAT_ST_MIN_BLOCKS)
 // The shifts of the 1-D stencil compiled, in stencil order;
 // ops/cuda/stencil2d.FLAT_SHIFTS mirrors them.
 #define LS_FLAT_SHIFTS {0, -1, 1}
@@ -365,6 +376,60 @@ flat_step2_kernel(float* __restrict__ x, const float* __restrict__ r,
   strip_fold<10>(g, partials, counter, g_out);
 }
 
+// ---------------------------------------------------------------------------
+// K5b: s = r - alpha v, t = A s; <t, s> and <t, t>.  Each step takes
+// segment q of r and v, forms s there (zero outside [0, n)) and applies A
+// at q - 1, over q = a - 1 .. b.  The products as the strip K5b's
+// (bicgstab2d.cu): rounded to f32 (__fmul_rn), or exact with COMP, summed
+// in double.
+// ---------------------------------------------------------------------------
+template <int DEPTH, int MINB, bool COMP, bool VEC>
+__global__ void __launch_bounds__(LS_STEP2_THREADS, MINB)
+flat_bicg_st_kernel(const float* __restrict__ r, const float* __restrict__ v,
+                    const float* __restrict__ alpha_p,
+                    float* __restrict__ dot, double* __restrict__ partials,
+                    unsigned* __restrict__ counter, long long n, FlatGeom geo,
+                    FlatStencil st) {
+  double acc[2] = {0.0, 0.0};
+  int a, b;
+  if (flat_run(geo, a, b)) {
+    const int full = (int)(n / LS_FLAT_SEG);
+    const int e = 4 * (threadIdx.x & 31);
+    const float alpha = *alpha_p;
+    auto mul = [](float x, float y) {
+      return COMP ? (double)x * (double)y : (double)__fmul_rn(x, y);
+    };
+    const Row4 z = {{0.f, 0.f, 0.f, 0.f}};
+    Row4 S2 = z, S1 = z;  // s at segments q-2, q-1
+    strip_ring<DEPTH, 2>(
+        a - 1, b,
+        [&](Row4 (&dst)[2], int q) {
+          dst[0] = flat_seg_load<VEC, true>(r, q, q <= b, full, n);
+          dst[1] = flat_seg_load<VEC, true>(v, q, q <= b, full, n);
+        },
+        [&](int q, const Row4 (&seg)[2]) {
+          Row4 S0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            S0.v[j] = seg[0].v[j] - alpha * seg[1].v[j];
+          const int s1 = q - 1;
+          if (s1 >= a) {  // s1 < b: the march ends at q = b
+            const Row4 t = flat_apply(S1, S2.v[3], S0.v[0], st);
+            const int lim = seg_limit(s1, full, n);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (e + j < lim) {
+                acc[0] += mul(t.v[j], S1.v[j]);
+                acc[1] += mul(t.v[j], t.v[j]);
+              }
+          }
+          S2 = S1;
+          S1 = S0;
+        });
+  }
+  strip_fold<2>(acc, partials, counter, dot);
+}
+
 #define LS_FLAT_STEP2(VEC)                                         \
   flat_step2_kernel<LS_FLAT_STEP2_DEPTH,                         \
                     (VEC) ? LS_FLAT_STEP2_MIN_BLOCKS             \
@@ -372,6 +437,9 @@ flat_step2_kernel(float* __restrict__ x, const float* __restrict__ r,
                     VEC>
 #define LS_FLAT_GRAM2(VEC) \
   flat_gram2_kernel<LS_FLAT_GRAM2_DEPTH, LS_FLAT_GRAM2_MIN_BLOCKS, VEC>
+#define LS_FLAT_ST(COMP, VEC)                                    \
+  flat_bicg_st_kernel<LS_FLAT_ST_DEPTH, LS_FLAT_ST_MIN_BLOCKS, COMP, \
+                      VEC>
 
 // Whether st is the 1-D stencil compiled: three terms of dy 0 and the
 // shifts LS_FLAT_SHIFTS in that order.
@@ -449,6 +517,35 @@ int ls_flat_gram2(const float* r, const float* p, float* g, double* partials,
   return (int)cudaGetLastError();
 }
 
+// K5b on the flat route: r and v hold the n = R C elements of the flat
+// vector; st is the 1-D stencil as ls_flat_step2's; alpha one float;
+// dot: 2 floats.  Scratch as ls_flat_step2's (2 doubles per block).
+int ls_flat_bicg_st(const float* r, const float* v, const float* alpha,
+                    float* dot, double* partials, int capacity,
+                    unsigned* counter, int R, int C, int compensated,
+                    const LsStencil* st, void* stream_ptr) {
+  if (!st || !flat_stencil_ok(*st) || R < 1 || C < 1 || !counter)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)R * C;
+  const FlatGeom geo = flat_geometry(n, LS_FLAT_ST_TARGET_WARPS);
+  if (geo.blocks > capacity) return (int)cudaErrorInvalidValue;
+  const FlatStencil fs = flat_stencil(*st);
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const bool vec = n % 4 == 0 && aligned16(r) && aligned16(v);
+#define LS_FLAT_ST_LAUNCH(CO, VE)                                        \
+  LS_FLAT_ST(CO, VE)<<<geo.blocks, LS_STEP2_THREADS, 0, stream>>>( \
+      r, v, alpha, dot, partials, counter, n, geo, fs)
+  if (compensated) {
+    if (vec) LS_FLAT_ST_LAUNCH(true, true);
+    else LS_FLAT_ST_LAUNCH(true, false);
+  } else {
+    if (vec) LS_FLAT_ST_LAUNCH(false, true);
+    else LS_FLAT_ST_LAUNCH(false, false);
+  }
+#undef LS_FLAT_ST_LAUNCH
+  return (int)cudaGetLastError();
+}
+
 // The shifts of the compiled 1-D stencil, in its order, to out[0..2].
 int ls_flat_shifts(int* out) {
   const int shifts[3] = LS_FLAT_SHIFTS;
@@ -458,7 +555,8 @@ int ls_flat_shifts(int* out) {
 
 // {segments, segments of a run, runs, blocks} of a flat launch on an
 // [R, C] view whose runs aim at target_warps warps, and the warps each flat
-// pass aims at (which: 0 K1, 1 K2); ops/cuda/stencil2d.py mirrors both.
+// pass aims at (which: 0 K1, 1 K2, 2 K5b); ops/cuda/stencil2d.py mirrors
+// both.
 int ls_flat_geometry(int R, int C, int target_warps, long long* out) {
   if (R < 1 || C < 1 || target_warps < 1) return (int)cudaErrorInvalidValue;
   const FlatGeom geo = flat_geometry((long long)R * C, target_warps);
@@ -470,18 +568,24 @@ int ls_flat_geometry(int R, int C, int target_warps, long long* out) {
 }
 
 int ls_flat_target_warps(int which) {
-  const int t[2] = {LS_FLAT_STEP2_TARGET_WARPS, LS_FLAT_GRAM2_TARGET_WARPS};
-  return which >= 0 && which < 2 ? t[which] : -1;
+  const int t[3] = {LS_FLAT_STEP2_TARGET_WARPS, LS_FLAT_GRAM2_TARGET_WARPS,
+                    LS_FLAT_ST_TARGET_WARPS};
+  return which >= 0 && which < 3 ? t[which] : -1;
 }
 
 // Registers, spill bytes, resident blocks per SM and static shared memory
-// of the flat kernel `which` = 2 pass + vec (pass 0 K1, 1 K2): out[0..3].
+// of the flat kernel `which` = 2 pass + vec (pass 0 K1, 1 K2, 2 K5b with
+// f32 dots, 3 K5b compensated): out[0..3].
 int ls_flat_attrs(int which, int* out) {
   switch (which) {
     case 0: return flat_attrs(LS_FLAT_STEP2(false), out);
     case 1: return flat_attrs(LS_FLAT_STEP2(true), out);
     case 2: return flat_attrs(LS_FLAT_GRAM2(false), out);
     case 3: return flat_attrs(LS_FLAT_GRAM2(true), out);
+    case 4: return flat_attrs(LS_FLAT_ST(false, false), out);
+    case 5: return flat_attrs(LS_FLAT_ST(false, true), out);
+    case 6: return flat_attrs(LS_FLAT_ST(true, false), out);
+    case 7: return flat_attrs(LS_FLAT_ST(true, true), out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,18 +14,16 @@
 // the caller's [LS_HALO_ROWS, C] blocks (halo_row), as the tile kernels
 // do.
 //
-// WRAP (K3, K4 and K5b on the 1-D kernel view: a 1-D stencil over the
+// WRAP (K3 and K4 on the 1-D kernel view: a 1-D stencil over the
 // row-major flat index of the [R, C] grid, ops/cuda/stencil2d.flat_stencil;
-// K1 and K2 there march along the flat index, flat1d.cu): a lane's column c
-// of row q is the flat element f = q C + c, whatever c, so a column left
-// of the grid is the end of row q - 1 and one right of it the start of
-// row q + 1 (flat_load4).  The stencil passed is the 1-D one, (0, s) with
-// |s| <= 1, and a strip's 4 halo columns hold the flat neighbours of its
-// edge columns, which is all that a reach-1 1-D stencil reads.  Masks test
-// the flat index against [0, R C) (strip_mask): the zero-halo pass (K5b)
-// reads zero outside it,
-// the one-pass ones (K3, K4) the halo blocks, which extend the flat
-// vector by 8 C elements on either side.
+// K1, K2 and K5b there march along the flat index, flat1d.cu): a lane's
+// column c of row q is the flat element f = q C + c, whatever c, so a
+// column left of the grid is the end of row q - 1 and one right of it the
+// start of row q + 1 (flat_load4).  The stencil passed is the 1-D one,
+// (0, s) with |s| <= 1, and a strip's 4 halo columns hold the flat
+// neighbours of its edge columns, which is all that a reach-1 1-D stencil
+// reads.  The one-pass kernels (K3, K4) read the halo blocks outside
+// [0, R C), which extend the flat vector by 8 C elements on either side.
 //
 // Geometry depends on (R, C) alone: the strips are fixed (LS_STEP2_COLS
 // output columns), and the row chunks aim at a fixed number of warps (one
@@ -142,19 +140,11 @@ __device__ __forceinline__ void mask4(Row4& a, bool row_in,
   for (int j = 0; j < 4; ++j) a.v[j] = row_in && cin[j] ? a.v[j] : 0.f;
 }
 
-// Zero the lane's columns (c0 .. c0 + 3) of row q outside the grid: where
-// q leaves [0, R) or the column [0, C), or with WRAP where the flat index
-// q C + c leaves [0, R C).
-template <bool WRAP>
-__device__ __forceinline__ void strip_mask(Row4& a, int q, int R, int C,
-                                           int c0, const bool (&cin)[4]) {
-  if (!WRAP) {
-    mask4(a, q >= 0 && q < R, cin);
-    return;
-  }
-  const long long f = (long long)q * C + c0, n = (long long)R * C;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) a.v[j] = f + j >= 0 && f + j < n ? a.v[j] : 0.f;
+// Zero the lane's columns of row q outside the grid: where q leaves
+// [0, R) or the column [0, C) (cin).
+__device__ __forceinline__ void strip_mask(Row4& a, int q, int R,
+                                           const bool (&cin)[4]) {
+  mask4(a, q >= 0 && q < R, cin);
 }
 
 template <bool VEC>
@@ -344,9 +334,8 @@ __device__ __forceinline__ Row4 flat_load4(const float* __restrict__ v,
 }
 
 // Row q of NV vectors at the lane's four columns, zero outside the grid
-// (with WRAP: outside the flat range, flat_load4) and past row `last` (no
-// load issued there).
-template <bool VEC, int NV, bool WRAP>
+// and past row `last` (no load issued there).
+template <bool VEC, int NV>
 __device__ __forceinline__ void strip_load(Row4 (&dst)[NV],
                                            const float* const (&src)[NV],
                                            int q, int last, int R, int C,
@@ -355,13 +344,6 @@ __device__ __forceinline__ void strip_load(Row4 (&dst)[NV],
   for (int n = 0; n < NV; ++n)
 #pragma unroll
     for (int j = 0; j < 4; ++j) dst[n].v[j] = 0.f;
-  if (WRAP) {
-    if (q > last) return;
-#pragma unroll
-    for (int n = 0; n < NV; ++n)
-      dst[n] = flat_load4<VEC, true>(src[n], nullptr, nullptr, q, R, C, p.c0);
-    return;
-  }
   if (q < 0 || q >= R || q > last) return;
   const long long o = (long long)q * C + p.c0;
   if (VEC) {
@@ -436,14 +418,14 @@ __device__ __forceinline__ void strip_ring(int q0, int q1, Load load,
 // strip_ring over rows of NV vectors, zero outside the grid (strip_load),
 // written out: K2 and K5b ran 5% slower on the card with their rows
 // loaded through strip_ring and strip_load4 (PERF.md section 6).
-template <int DEPTH, int NV, bool VEC, bool WRAP, typename Step>
+template <int DEPTH, int NV, bool VEC, typename Step>
 __device__ __forceinline__ void strip_rows(const float* const (&src)[NV],
                                            int q0, int q1, int R, int C,
                                            const StripPlace& p, Step step) {
   Row4 ring[DEPTH][NV];
 #pragma unroll
   for (int k = 0; k < DEPTH; ++k)
-    strip_load<VEC, NV, WRAP>(ring[k], src, q0 + k, q1, R, C, p);
+    strip_load<VEC, NV>(ring[k], src, q0 + k, q1, R, C, p);
   for (int q = q0; q <= q1; q += DEPTH) {
 #pragma unroll
     for (int u = 0; u < DEPTH; ++u) {
@@ -451,7 +433,7 @@ __device__ __forceinline__ void strip_rows(const float* const (&src)[NV],
         Row4 cur[NV];
 #pragma unroll
         for (int n = 0; n < NV; ++n) cur[n] = ring[u][n];
-        strip_load<VEC, NV, WRAP>(ring[u], src, q + u + DEPTH, q1, R, C, p);
+        strip_load<VEC, NV>(ring[u], src, q + u + DEPTH, q1, R, C, p);
         step(q + u, cur);
       }
     }

@@ -1,15 +1,18 @@
 // The s-step passes K1 (step2) and K2 (gram2) on the general route, for
 // Hopper (sm_90a): 2-D stencils with |dy| <= 1 and any |dx| < C that are
 // neither reach 1 (the strip march of march2d.cuh) nor the flat
-// decomposition of a reach-1 1-D stencil (the strip march with WRAP).
+// decomposition of a reach-1 1-D stencil (the march along the flat index
+// of flat1d.cu).
 //
 //   ls_step2_band     K1  replaces _sstep_call mode step2
 //                         (legionsolvers_tpu/ops/pallas/stencil2d.py:746)
 //                         on the band march (route "general")
 //   ls_step2_general  K1  the same, cooperative (route "general_coop":
 //                         the stencils past the band march's gate)
-//   ls_gram2_general  K2  replaces _sstep_call mode gram2 (same function),
-//                         cooperative (both routes)
+//   ls_gram2_band     K2  replaces _sstep_call mode gram2 (same function)
+//                         on its band march (route "general")
+//   ls_gram2_general  K2  the same, cooperative (route "general_coop":
+//                         the stencils past K2's band gate)
 //
 // Python wrappers, plain versions and the routes live in
 // legionsolvers_tpu_torch/ops/cuda/stencil2d.py.
@@ -83,10 +86,36 @@
 // term is tested), a thread's columns of a stage share each term's row
 // pointer, and no load is predicated (slack at the end of the rings).
 //
-// K1 past the gate, and K2: one cooperative launch whose stages run over
-// the whole grid, separated by a grid-wide barrier (grid_sync;
-// cudaLaunchCooperativeKernel guarantees that every block is resident, or
-// refuses the launch):
+// K2: the band march too (gram2_band_kernel), with two chained
+// applications, not four: rings of p (4 rows), r (5) and A p (3); at step
+// s the block copies row s of p and r in, and computes
+//   phase A  row s - 2: A p over [c0 - Q, c1 + Q) inside the grid
+//   phase B  row s - 3: A^2 p and A r over the strip's own columns, and
+//            the Gram terms of (r, p, A p, A^2 p, A r) added per thread
+// with one barrier after each phase.  The window is [c0 - 2 Q, c1 + 2 Q)
+// (K1's is 4 Q each side) and the rings 12 rows (K1's 25), so S2_gen's
+// take 76 KB at 4096 columns and two blocks fit an SM.  Where that padded
+// window does not fit, it is clipped to [0, C) and the terms that leave
+// the grid are masked (MASK): at 4096 columns any |dx| < C fits one way or
+// the other; past K2's gate (a ring row wider than LS_G2_MAX_STRIDE floats
+// even clipped: more than 4388 columns with a |dx| that pads the window
+// past it) K2 keeps the cooperative kernel.  Device memory sees r and p
+// read once (8 B per element) plus each band's 4 halo rows; A p, A^2 p and
+// A r are the cooperative kernel's to the bit (the same terms in the same
+// order); the Gram is folded as K1's, its order a function of the shape.
+// What holds it back is not bytes (0.044 ms at 4096^2) nor the shared
+// loads' floor (S2_gen: 41 term-applications per element, about 0.08 ms)
+// against 0.30 ms measured: as for K1, instruction issue and the two
+// barriers a row (no counter profiler runs on the card).  Chosen on the card
+// (PERF.md section 6): K1's 512 threads and strips (two columns a thread
+// in phase B), two blocks per SM (64 registers, no spill; one block with
+// 127 registers ran 10% slower, three spilled 64 B and ran 15% slower),
+// four columns a thread per application in phase A (two: 23% slower).
+//
+// K1 past the gate, and K2 past its own: one cooperative launch whose
+// stages run over the whole grid, separated by a grid-wide barrier
+// (grid_sync; cudaLaunchCooperativeKernel guarantees that every block is
+// resident, or refuses the launch):
 //   K1  S1  A p, u = c0 p + c1 r - c2 A p -> workspace; x += u  (in place)
 //       S2  r'' = r - A u, p'' = r'' + c3 r - c4 A p + c5 p -> r_out, p_out
 //       S3  A p'' -> workspace (over A p)
@@ -120,8 +149,7 @@
 // workspace: K1 moves about 68 B per element against its 24 (S1 reads p,
 // r, x and writes x, u, A p; S2 reads u, A p, p, r and writes r'', p'';
 // S3 reads p'' and writes A p''; S4 reads A p'', r'', p''), K2 20 against
-// 8.  K2 keeps this design (PERF.md section 6); its band march is the next
-// redesign (ROADMAP queue 2).
+// 8.
 
 #include "march2d.cuh"
 
@@ -142,6 +170,17 @@
 // LS_BAND_SMEM_MAX
 #define LS_BAND_MAX_STRIDE \
   ((LS_BAND_SMEM_MAX / 4 - LS_BAND_THREADS) / (LS_BAND_RING_ROWS + 1))
+// K2's band march: its rings' rows (p 4, r 5, A p 3), the resident blocks
+// per SM it is built for, the columns of a thread that one application
+// takes at a time, and its widest ring row (the rings, one row more and a
+// block's width of slack fit LS_BAND_SMEM_MAX)
+#define LS_G2_RING_ROWS 12
+#define LS_G2_MIN_BLOCKS 2
+#define LS_G2_CHUNK 4
+#define LS_G2_MAX_STRIDE \
+  ((LS_BAND_SMEM_MAX / 4 - LS_BAND_THREADS) / (LS_G2_RING_ROWS + 1))
+static_assert(LS_BAND_COLS <= 2 * LS_BAND_THREADS,
+              "K2's phase B takes at most two columns a thread");
 
 namespace {
 
@@ -532,6 +571,58 @@ __device__ __forceinline__ float* band_row(float* base, int n, int i, int S) {
   return base + ((i + 60) % n) * S;
 }
 
+// The unit's Gram g (each thread's) summed over the block in a fixed order
+// (warp shuffles, then warps in index order) into partials[blockIdx.x *
+// 10 + k]; the last block to finish (a device counter) sums every unit's
+// in unit order, writes g_out rounded to f32 once and resets the counter.
+// Every thread of the block calls it.
+__device__ __forceinline__ void band_fold(const double (&g)[10],
+                                          double* __restrict__ partials,
+                                          unsigned* __restrict__ counter,
+                                          float* __restrict__ g_out) {
+  __shared__ double red[LS_BAND_WARPS][10];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    double v = g[k];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+    if (lane == 0) red[warp][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 10) {
+    double v = 0.0;
+    for (int w = 0; w < LS_BAND_WARPS; ++w) v += red[w][threadIdx.x];
+    partials[(size_t)blockIdx.x * 10 + threadIdx.x] = v;
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  double acc[10] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  for (int u = threadIdx.x; u < (int)gridDim.x; u += LS_BAND_THREADS) {
+#pragma unroll
+    for (int k = 0; k < 10; ++k)
+      acc[k] += __ldcg(partials + (size_t)u * 10 + k);
+  }
+  __syncthreads();  // red is reused
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    double v = acc[k];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+    if (lane == 0) red[warp][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 10) {
+    double v = 0.0;
+    for (int w = 0; w < LS_BAND_WARPS; ++w) v += red[w][threadIdx.x];
+    g_out[threadIdx.x] = (float)v;
+  }
+  if (threadIdx.x == 0) *counter = 0u;
+}
+
 // K1, one unit (a strip of a band) per block; the dynamic shared memory
 // holds the LS_BAND_RING_ROWS ring rows of `stride` floats and the slack
 // (band_smem).  partials: ten doubles per unit; counter: zero before the
@@ -545,8 +636,6 @@ step2_band_kernel(float* __restrict__ x, const float* __restrict__ r,
                   unsigned* __restrict__ counter, BandArgs a,
                   const __grid_constant__ LsStencil st) {
   extern __shared__ __align__(16) float ring[];
-  __shared__ double red[LS_BAND_WARPS][10];
-  __shared__ bool last;
   const int S = a.stride, R = a.R, C = a.C, Q = a.Q;
   const int strip = blockIdx.x % a.strips, band = blockIdx.x / a.strips;
   const int c0 = strip * a.strip_cols, c1 = min(c0 + a.strip_cols, C);
@@ -691,64 +780,248 @@ step2_band_kernel(float* __restrict__ x, const float* __restrict__ r,
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
   }
-  // the unit's Gram, then the fold of every unit's in unit order
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < 10; ++k) {
-    double v = g[k];
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-    if (lane == 0) red[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < 10) {
-    double v = 0.0;
-    for (int w = 0; w < LS_BAND_WARPS; ++w) v += red[w][threadIdx.x];
-    partials[(size_t)blockIdx.x * 10 + threadIdx.x] = v;
-    __threadfence();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  double acc[10] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  for (int u = threadIdx.x; u < (int)gridDim.x; u += LS_BAND_THREADS) {
-#pragma unroll
-    for (int k = 0; k < 10; ++k)
-      acc[k] += __ldcg(partials + (size_t)u * 10 + k);
-  }
-  __syncthreads();  // red is reused
-#pragma unroll
-  for (int k = 0; k < 10; ++k) {
-    double v = acc[k];
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-    if (lane == 0) red[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < 10) {
-    double v = 0.0;
-    for (int w = 0; w < LS_BAND_WARPS; ++w) v += red[w][threadIdx.x];
-    g_out[threadIdx.x] = (float)v;
-  }
-  if (threadIdx.x == 0) *counter = 0u;
+  band_fold(g, partials, counter, g_out);
 }
 
-// The launch's arguments on an [R, C] grid and the stencil padded to a
-// multiple of LS_GEN_BATCH terms with zero weights at (0, 0) (*pad), or
-// false past the gate.
+// The stencil padded to a multiple of LS_BAND_BATCH terms with zero
+// weights at (0, 0).
+LsStencil band_pad(const LsStencil& st) {
+  LsStencil pad = st;
+  for (; pad.n % LS_BAND_BATCH; ++pad.n) {
+    pad.dy[pad.n] = 0;
+    pad.dx[pad.n] = 0;
+    pad.v[pad.n] = 0.f;
+  }
+  return pad;
+}
+
+// The launch's arguments on an [R, C] grid and the padded stencil (*pad),
+// or false past the gate.
 bool band_args(const LsStencil& st, int R, int C, BandArgs* a,
                LsStencil* pad) {
   const BandGeom g = band_geometry(R, C);
   const int Q = widest_dx(st);
   const int stride = band_stride(C, Q);
   *a = BandArgs{R, C, Q, g.strips, g.strip_cols, g.band_rows, stride};
-  *pad = st;
-  for (; pad->n % LS_BAND_BATCH; ++pad->n) {
-    pad->dy[pad->n] = 0;
-    pad->dx[pad->n] = 0;
-    pad->v[pad->n] = 0.f;
-  }
+  *pad = band_pad(st);
   return stride > 0;
+}
+
+// ---------------------------------------------------------------------------
+// K2 on the band march
+// ---------------------------------------------------------------------------
+
+// Floats of a ring row of K2's band march on C columns with widest |dx| Q,
+// rounded up to 4: the padded window, min(w + 4 Q, C + 2 Q) (*mask 0),
+// where it fits LS_G2_MAX_STRIDE, else the window clipped to the grid,
+// min(w + 4 Q, C) (*mask 1), where that fits; 0 past the gate.
+int gram2_band_stride(int C, int Q, int* mask) {
+  const BandGeom g = band_geometry(1, C);
+  for (int m = 0; m < 2; ++m) {
+    long long wid = (long long)g.strip_cols + 4LL * Q;
+    const long long edge = m ? (long long)C : (long long)C + 2LL * Q;
+    if (edge < wid) wid = edge;
+    wid = (wid + 3) / 4 * 4;
+    *mask = m;
+    if (wid <= LS_G2_MAX_STRIDE) return (int)wid;
+  }
+  return 0;
+}
+
+// Dynamic shared memory of a K2 launch: the rings, then the slack that
+// g2_apply's loads past a stage's columns may reach (band_smem's).
+size_t gram2_band_smem(int stride) {
+  return ((size_t)LS_G2_RING_ROWS * stride + LS_BAND_THREADS + stride) *
+         sizeof(float);
+}
+
+// (A a) at the thread's M columns j0 + m LS_BAND_THREADS of a row (window
+// terms; gj0 the grid column of j0), from the ring rows holding rows
+// i - 1, i and i + 1 of a: band_apply_m's batches and order.  MASK (the
+// window clipped to the grid): a term whose column leaves [0, C) reads
+// zero, its load not issued.
+template <int M, bool MASK>
+__device__ __forceinline__ void g2_apply_m(const float* up, const float* mid,
+                                           const float* dn, int j0, int gj0,
+                                           int C, const LsStencil& st,
+                                           float (&acc)[LS_G2_CHUNK]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) acc[m] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < LS_MAX_TERMS; k0 += LS_BAND_BATCH) {
+    if (k0 >= st.n) break;
+    float t[LS_BAND_BATCH][M];
+#pragma unroll
+    for (int u = 0; u < LS_BAND_BATCH; ++u) {
+      const int k = k0 + u;
+      const int dx = st.dx[k];
+      const float* row =
+          (st.dy[k] < 0 ? up : (st.dy[k] > 0 ? dn : mid)) + j0 + dx;
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        t[u][m] = 0.f;
+        if (!MASK ||
+            (unsigned)(gj0 + m * LS_BAND_THREADS + dx) < (unsigned)C)
+          t[u][m] = row[m * LS_BAND_THREADS];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < LS_BAND_BATCH; ++u) {
+      const float v = st.v[k0 + u];
+#pragma unroll
+      for (int m = 0; m < M; ++m) acc[m] = __fmaf_rn(v, t[u][m], acc[m]);
+    }
+  }
+}
+
+// g2_apply_m with M = mx (1 .. LS_G2_CHUNK, the same in every thread).
+template <bool MASK>
+__device__ __forceinline__ void g2_apply(const float* up, const float* mid,
+                                         const float* dn, int j0, int gj0,
+                                         int C, int mx, const LsStencil& st,
+                                         float (&acc)[LS_G2_CHUNK]) {
+  switch (mx) {
+    case 1: g2_apply_m<1, MASK>(up, mid, dn, j0, gj0, C, st, acc); break;
+    case 2: g2_apply_m<2, MASK>(up, mid, dn, j0, gj0, C, st, acc); break;
+    case 3: g2_apply_m<3, MASK>(up, mid, dn, j0, gj0, C, st, acc); break;
+    default: g2_apply_m<4, MASK>(up, mid, dn, j0, gj0, C, st, acc);
+  }
+}
+static_assert(LS_G2_CHUNK == 4, "g2_apply's cases");
+
+// K2, one unit (a strip of a band) per block, as step2_band_kernel's; the
+// dynamic shared memory holds the LS_G2_RING_ROWS ring rows of `stride`
+// floats and the slack (gram2_band_smem).  partials: ten doubles per unit;
+// counter: zero before the launch, zero after it.
+template <bool MASK>
+__global__ void __launch_bounds__(LS_BAND_THREADS, LS_G2_MIN_BLOCKS)
+gram2_band_kernel(const float* __restrict__ r, const float* __restrict__ p,
+                  float* __restrict__ g_out, double* __restrict__ partials,
+                  unsigned* __restrict__ counter, BandArgs a,
+                  const __grid_constant__ LsStencil st) {
+  extern __shared__ __align__(16) float ring[];
+  const int S = a.stride, R = a.R, C = a.C, Q = a.Q;
+  const int strip = blockIdx.x % a.strips, band = blockIdx.x / a.strips;
+  const int c0 = strip * a.strip_cols, c1 = min(c0 + a.strip_cols, C);
+  const int r0 = band * a.band_rows, r1 = min(r0 + a.band_rows, R);
+  // the window's first column (padded: at most Q left of the grid;
+  // clipped: inside it), and in window terms the loads' columns [l0, h0),
+  // phase A's [lA, hA) and phase B's [lB, hB), all inside the grid; a
+  // thread's first column of a phase, its count, and the block's most
+  const int wl = max(c0 - 2 * Q, MASK ? 0 : -Q);
+  const int l0 = max(0, c0 - 2 * Q) - wl, h0 = min(C, c1 + 2 * Q) - wl;
+  const int lA = max(0, c0 - Q) - wl, hA = min(C, c1 + Q) - wl;
+  const int lB = c0 - wl, hB = c1 - wl;
+  const int jA = lA + threadIdx.x, nA = band_count(jA, hA);
+  const int mA = band_count(lA, hA);
+  const int jB = lB + threadIdx.x, nB = band_count(jB, hB);
+  const int mB = band_count(lB, hB);
+  float* P = ring;
+  float* RR = P + 4 * S;
+  float* AP = RR + 5 * S;
+  for (int k = threadIdx.x; k < LS_G2_RING_ROWS * S; k += LS_BAND_THREADS)
+    ring[k] = 0.f;
+  double g[10] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  __syncthreads();
+  for (int s = r0 - 2; s <= r1 + 2; ++s) {
+    if (s <= r1 + 1) {  // row s of p and r, zero outside the grid
+      float* dp = band_row(P, 4, s, S);
+      float* dr = band_row(RR, 5, s, S);
+      const bool in = s >= 0 && s < R;
+      const long long base = (long long)(in ? s : 0) * C + wl;
+      for (int j = l0 + threadIdx.x; j < h0; j += LS_BAND_THREADS) {
+        cp_async4_zfill(dp + j, in ? p + base + j : p, in);
+        cp_async4_zfill(dr + j, in ? r + base + j : r, in);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+    // phase A: A p at row s - 2, LS_G2_CHUNK columns of a thread at a time
+    int i = s - 2;
+    if (i >= r0 - 1 && i <= r1) {
+      float* d = band_row(AP, 3, i, S);
+      if (i >= 0 && i < R) {
+        const float* up = band_row(P, 4, i - 1, S);
+        const float* mid = band_row(P, 4, i, S);
+        const float* dn = band_row(P, 4, i + 1, S);
+        for (int m0 = 0; m0 < mA; m0 += LS_G2_CHUNK) {
+          const int j = jA + m0 * LS_BAND_THREADS;
+          float acc[LS_G2_CHUNK];
+          g2_apply<MASK>(up, mid, dn, j, wl + j, C,
+                         min(LS_G2_CHUNK, mA - m0), st, acc);
+#pragma unroll
+          for (int m = 0; m < LS_G2_CHUNK; ++m)
+            if (m0 + m < nA) d[j + m * LS_BAND_THREADS] = acc[m];
+        }
+      } else {
+        for (int j = jA; j < hA; j += LS_BAND_THREADS) d[j] = 0.f;
+      }
+    }
+    __syncthreads();
+    // phase B: A^2 p, A r and the Gram of (r, p) at row s - 3
+    i = s - 3;
+    if (i >= r0 && i < r1) {
+      const float* a0 = band_row(AP, 3, i, S);
+      const float* rv = band_row(RR, 5, i, S);
+      const float* pv = band_row(P, 4, i, S);
+      float a2[LS_G2_CHUNK], ar[LS_G2_CHUNK];
+      g2_apply<MASK>(band_row(AP, 3, i - 1, S), a0, band_row(AP, 3, i + 1, S),
+                     jB, wl + jB, C, mB, st, a2);
+      g2_apply<MASK>(band_row(RR, 5, i - 1, S), rv, band_row(RR, 5, i + 1, S),
+                     jB, wl + jB, C, mB, st, ar);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int j = jB + m * LS_BAND_THREADS;
+        if (m < nB) gram_terms_f64(g, rv[j], pv[j], a0[j], a2[m], ar[m]);
+      }
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+  }
+  band_fold(g, partials, counter, g_out);
+}
+
+// K2's launch arguments on an [R, C] grid, its layout (*mask) and the
+// padded stencil (*pad), or false past K2's gate.
+bool gram2_band_args(const LsStencil& st, int R, int C, BandArgs* a,
+                     int* mask, LsStencil* pad) {
+  const BandGeom g = band_geometry(R, C);
+  const int Q = widest_dx(st);
+  const int stride = gram2_band_stride(C, Q, mask);
+  *a = BandArgs{R, C, Q, g.strips, g.strip_cols, g.band_rows, stride};
+  *pad = band_pad(st);
+  return stride > 0;
+}
+
+unsigned gram2_smem_done[2] = {0, 0};  // per layout: devices set
+
+// K2's band march in the layout MASK: its attribute set once per device,
+// then the launch, or (attrs) out = {registers, spill bytes, resident
+// blocks per SM} at `smem` bytes of dynamic shared memory.
+template <bool MASK>
+int gram2_band_launch(const float* r, const float* p, float* g,
+                      double* partials, unsigned* counter, int units,
+                      size_t smem, const BandArgs& a, const LsStencil& pad,
+                      cudaStream_t stream) {
+  const int err = dyn_smem_ready(gram2_band_kernel<MASK>, LS_BAND_SMEM_MAX,
+                                 gram2_smem_done[MASK]);
+  if (err) return err;
+  gram2_band_kernel<MASK><<<units, LS_BAND_THREADS, smem, stream>>>(
+      r, p, g, partials, counter, a, pad);
+  return (int)cudaGetLastError();
+}
+
+template <bool MASK>
+int gram2_band_attrs(size_t smem, int* out) {
+  int err = dyn_smem_ready(gram2_band_kernel<MASK>, LS_BAND_SMEM_MAX,
+                           gram2_smem_done[MASK]);
+  if (err) return err;
+  cudaFuncAttributes fa;
+  err = (int)cudaFuncGetAttributes(&fa, gram2_band_kernel<MASK>);
+  if (err) return err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], gram2_band_kernel<MASK>, LS_BAND_THREADS, smem);
 }
 
 unsigned band_smem_done = 0;  // devices whose attribute is set
@@ -841,7 +1114,56 @@ int ls_step2_band_attrs(int C, const LsStencil* st, int* out) {
       &out[2], step2_band_kernel, LS_BAND_THREADS, smem);
 }
 
-// K2 on the general route.  ws: R C floats; the rest as ls_step2_general.
+// K2 on its band march (the gate: ls_gram2_band_layout's stride > 0).
+// partials: capacity >= units (ls_step2_band_geometry: K1's strips and
+// bands) x 10 doubles; counter: one unsigned, zero before the first
+// launch (each launch leaves it zero).  K1's and K2's band launches may
+// share them on one stream (launches in order).
+int ls_gram2_band(const float* r, const float* p, float* g, double* partials,
+                  int capacity, unsigned* counter, int R, int C,
+                  const LsStencil* st, void* stream_ptr) {
+  BandArgs a;
+  LsStencil pad;
+  int mask = 0;
+  if (!valid_general(st, R, C) || !counter ||
+      !gram2_band_args(*st, R, C, &a, &mask, &pad))
+    return (int)cudaErrorInvalidValue;
+  const int units = a.strips * ((R + a.band_rows - 1) / a.band_rows);
+  if (units > capacity) return (int)cudaErrorInvalidValue;
+  const size_t smem = gram2_band_smem(a.stride);
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  return mask ? gram2_band_launch<true>(r, p, g, partials, counter, units,
+                                        smem, a, pad, stream)
+              : gram2_band_launch<false>(r, p, g, partials, counter, units,
+                                         smem, a, pad, stream);
+}
+
+// K2's band layout for C columns and widest |dx| Q: out = {ring row
+// floats (0 past the gate), clipped (1) or padded (0), dynamic shared
+// memory bytes (0 past the gate)}; ops/cuda/stencil2d.py mirrors it.
+int ls_gram2_band_layout(int C, int Q, int* out) {
+  if (C < 1 || Q < 0) return (int)cudaErrorInvalidValue;
+  out[0] = gram2_band_stride(C, Q, &out[1]);
+  out[2] = out[0] ? (int)gram2_band_smem(out[0]) : 0;
+  return 0;
+}
+
+// out = {registers, spill bytes, resident blocks per SM, dynamic shared
+// memory bytes} of K2's band march with the stencil st on C columns (the
+// variant its layout takes).
+int ls_gram2_band_attrs(int C, const LsStencil* st, int* out) {
+  if (!valid_general(st, 1, C)) return (int)cudaErrorInvalidValue;
+  int mask = 0;
+  const int stride = gram2_band_stride(C, widest_dx(*st), &mask);
+  if (!stride) return (int)cudaErrorInvalidValue;
+  const size_t smem = gram2_band_smem(stride);
+  out[3] = (int)smem;
+  return mask ? gram2_band_attrs<true>(smem, out)
+              : gram2_band_attrs<false>(smem, out);
+}
+
+// K2 past its band gate (the cooperative kernel).  ws: R C floats; the
+// rest as ls_step2_general.
 int ls_gram2_general(const float* r, const float* p, float* g, float* ws,
                      double* partials, int capacity, unsigned* sync, int R,
                      int C, const LsStencil* st, void* stream_ptr) {

@@ -327,7 +327,7 @@ gram2_strip_kernel(const float* __restrict__ r, const float* __restrict__ p,
     Row4 P2 = z, P1 = z, R2 = z, R1 = z;  // p, r rows q-2, q-1
     Row4 AP3 = z, AP2 = z, AR2 = z;       // Ap rows q-3, q-2; Ar row q-2
     const float* const src[2] = {p, r};
-    strip_rows<DEPTH, 2, VEC, false>(
+    strip_rows<DEPTH, 2, VEC>(
         src, pl.a - 2, pl.b + 1, R, C, pl,
         [&](int q, const Row4 (&row)[2]) {
           const Row4& P0 = row[0];
@@ -335,7 +335,7 @@ gram2_strip_kernel(const float* __restrict__ r, const float* __restrict__ p,
           // S1 at row q - 1
           const int i1 = q - 1;
           Row4 AP1 = apply4<CROSS>(P2, P1, P0, st);
-          strip_mask<false>(AP1, i1, R, C, pl.c0, pl.cin);
+          strip_mask(AP1, i1, R, pl.cin);
           const Row4 AR1 = apply4<CROSS>(R2, R1, R0, st);
           // S2 at row q - 2
           const int i2 = q - 2;
@@ -477,12 +477,12 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
       // S1 at row q - 1
       const int i1 = q - 1;
       Row4 AP1 = apply4<CROSS>(P2, P1, P0, st);
-      strip_mask<false>(AP1, i1, R, C, c0, cin);
+      strip_mask(AP1, i1, R, cin);
       Row4 U1;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         U1.v[j] = k0 * P1.v[j] + k1 * R1.v[j] - k2 * AP1.v[j];
-      strip_mask<false>(U1, i1, R, C, c0, cin);
+      strip_mask(U1, i1, R, cin);
       if (i1 >= a && i1 < b) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) X1.v[j] = X1.v[j] + U1.v[j];
@@ -497,8 +497,8 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
         RN2.v[j] = R2.v[j] - AU.v[j];
         PN2.v[j] = RN2.v[j] + k3 * R2.v[j] - k4 * AP2.v[j] + k5 * P2.v[j];
       }
-      strip_mask<false>(RN2, i2, R, C, c0, cin);
-      strip_mask<false>(PN2, i2, R, C, c0, cin);
+      strip_mask(RN2, i2, R, cin);
+      strip_mask(PN2, i2, R, cin);
       if (i2 >= a && i2 < b) {
         store4<VEC>(r_out, (long long)i2 * C + c0, RN2, own);
         store4<VEC>(p_out, (long long)i2 * C + c0, PN2, own);
@@ -506,7 +506,7 @@ step2_kernel(float* __restrict__ x, const float* __restrict__ r,
       // S3 at row q - 3
       const int i3 = q - 3;
       Row4 APN3 = apply4<CROSS>(PN4, PN3, PN2, st);
-      strip_mask<false>(APN3, i3, R, C, c0, cin);
+      strip_mask(APN3, i3, R, cin);
       // S4 at row q - 4
       const int i4 = q - 4;
       if (i4 >= a && i4 < b) {

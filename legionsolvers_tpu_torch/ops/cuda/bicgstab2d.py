@@ -19,10 +19,11 @@ Each pass applies A once, to an operand that is zero outside the grid; s
 and t never reach device memory.  ``compensated`` sums the dots from exact
 f32 products in float64 and rounds once (see ``ops/ddsum.py``).
 ``stencil2d.route(..., bicg=pass)`` picks the kernel.  With a reach-1
-stencil, or the flat decomposition of one (the 1-D kernel view, run with
-WRAP on the 1-D stencil), ``bicg_st`` runs on K1's column-strip march (one
-launch, its dots summed in float64 and folded into the last block, the
-scratch of :func:`~.stencil2d._step2_scratch`).  ``bicg_pv`` and
+stencil ``bicg_st`` runs on K1's column-strip march, with the flat
+decomposition of the 1-D Laplacian (the 1-D kernel view) on the march
+along the flat index of ``csrc/flat1d.cu`` (one launch each, its dots
+summed in float64 and folded into the last block, the scratch of
+:func:`~.stencil2d._step2_scratch`).  ``bicg_pv`` and
 ``bicg_update`` with any stencil past reach 1 whose ring fits (the flat
 decompositions too), and ``bicg_st`` with any other, run the band march
 of ``csrc/band2d.cu`` (one launch, the operand formed once per element as
@@ -206,7 +207,7 @@ def bicg_st(r, v, alpha, *, offsets, values, compensated: bool = False):
     al = _dev_scalars(alpha, 1, dev)
     # dot is fresh per pass: the runner keeps earlier passes' values
     dot = torch.empty(2, dtype=torch.float32, device=dev)
-    kind, k_offs, k_vals, wrap = route(offsets, values, C, bicg="st")
+    kind, k_offs, k_vals, _ = route(offsets, values, C, bicg="st")
     st = ctypes.byref(_stencil_struct(k_offs, k_vals))
     vecs = (_ptr(r), _ptr(v), _ptr(al), _ptr(dot))
     if kind == "band":
@@ -220,9 +221,10 @@ def bicg_st(r, v, alpha, *, offsets, values, compensated: bool = False):
         ), dev)
     else:
         partials, capacity, counter = _step2_scratch(dev, R, C)
-        _launch("bicg_st", "ls_bicg_st_strip", (
-            *vecs, _ptr(partials), capacity, _ptr(counter), R, C,
-            int(compensated), st, wrap), dev)
+        _launch("bicg_st", "ls_flat_bicg_st" if kind == "flat"
+                else "ls_bicg_st_strip", (
+                    *vecs, _ptr(partials), capacity, _ptr(counter), R, C,
+                    int(compensated), st), dev)
     return dot[0], dot[1]
 
 

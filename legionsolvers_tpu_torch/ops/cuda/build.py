@@ -125,8 +125,8 @@ def load_library() -> ctypes.CDLL:
                             STEP2_COLS, STEP2_MIN_ROWS, STEP2_WARPS,
                             STRIP_TARGETS, TILE, WIDE_Z_REACH, _stencil_struct,
                             band_geometry, band_stride, flat_geometry,
-                            general_units, pass_geometry, pass_layout,
-                            strip_geometry)
+                            general_units, gram2_layout, pass_geometry,
+                            pass_layout, strip_geometry)
     from .stencil3d import (CHUNK_X, _Stencil3, march1_geometry,
                             window3d_geometry)
     from .vpu_probe import C as VPU_C, TR as VPU_TR
@@ -148,6 +148,7 @@ def load_library() -> ctypes.CDLL:
         "ls_step2": [_P] * 8 + [_I, _P, _I, _I, _P, _P],
         "ls_flat_gram2": [_P] * 4 + [_I, _P, _I, _I, _P, _P],
         "ls_flat_step2": [_P] * 8 + [_I, _P, _I, _I, _P, _P],
+        "ls_flat_bicg_st": [_P] * 5 + [_I, _P, _I, _I, _I, _P, _P],
         "ls_flat_shifts": [_P],
         "ls_flat_geometry": [_I, _I, _I, _P],
         "ls_flat_target_warps": [_I],
@@ -155,6 +156,9 @@ def load_library() -> ctypes.CDLL:
         "ls_step2_nop": [_P] * 8 + [_I, _P, _I, _I, _P, _P],
         "ls_step2_general": [_P] * 9 + [_I, _P, _I, _I, _P, _P],
         "ls_gram2_general": [_P] * 5 + [_I, _P, _I, _I, _P, _P],
+        "ls_gram2_band": [_P] * 4 + [_I, _P, _I, _I, _P, _P],
+        "ls_gram2_band_layout": [_I, _I, _P],
+        "ls_gram2_band_attrs": [_I, _P, _P],
         "ls_step2_band": [_P] * 8 + [_I, _P, _I, _I, _P, _P],
         "ls_step2_band_geometry": [_I, _I, _P],
         "ls_step2_band_stride": [_I, _I],
@@ -163,7 +167,7 @@ def load_library() -> ctypes.CDLL:
         "ls_sstep_general_attrs": [_I, _P],
         "ls_bicg_pv": [_P] * 10 + [_I, _I, _I, _P, _P],
         "ls_bicg_st": [_P] * 5 + [_I, _I, _I, _P, _P],
-        "ls_bicg_st_strip": [_P] * 5 + [_I, _P, _I, _I, _I, _P, _I, _P],
+        "ls_bicg_st_strip": [_P] * 5 + [_I, _P, _I, _I, _I, _P, _P],
         "ls_strip_blocks": [_I] * 3,
         "ls_strip_target_warps": [_I],
         "ls_gram2_attrs": [_I, _P],
@@ -263,6 +267,15 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError("csrc/sstep_general.cu and ops/cuda/"
                                "stencil2d.py disagree on the band march's "
                                f"gate at C {C}, |dx| {q}")
+    lay = (ctypes.c_int * 3)()
+    for C, q in ((4096, 100), (4096, 200), (4096, 841), (4096, 842),
+                 (4096, 4095), (128, 127), (4097, 100), (4388, 4387),
+                 (4389, 4388), (5000, 4999), (5000, 841), (130, 129)):
+        if (lib.ls_gram2_band_layout(C, q, lay)
+                or tuple(lay) != gram2_layout(C, ((0, q),))):
+            raise RuntimeError("csrc/sstep_general.cu and ops/cuda/"
+                               "stencil2d.py disagree on K2's band gate at "
+                               f"C {C}, |dx| {q}")
     consts = (ctypes.c_int * 8)()
     if lib.ls_pass_band_consts(consts) or tuple(consts) != (
             PASS_THREADS, PASS_COLS, PASS_MIN_ROWS, PASS_TARGET,

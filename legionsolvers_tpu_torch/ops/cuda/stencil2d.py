@@ -23,9 +23,9 @@ to :data:`LAUNCHES` under the pass's name.  :func:`route` picks the
 kernel: with a reach-1 stencil every pass runs the column-strip register
 march (``csrc/march2d.cuh``), its dots folded into its last block (one
 launch); with the flat decomposition of a reach-1 1-D stencil (the 1-D
-kernel view, :func:`decompose_flat_offsets`) K3, K4 and K5b run the same
+kernel view, :func:`decompose_flat_offsets`) K3 and K4 run the same
 march on the 1-D stencil with its WRAP flag, every element addressed by
-its flat index, and K1 and K2 march along the flat index itself
+its flat index, and K1, K2 and K5b march along the flat index itself
 (``csrc/flat1d.cu``, :func:`flat_geometry`; the 1-D stencil of
 :data:`FLAT_SHIFTS`); K3 and K4 with any other stencil (|dy| <= 8, |dx| <
 C), and K5a-c with them, run the band march (``csrc/band2d.cu``, route
@@ -37,11 +37,12 @@ the tile, and a second launch that sums their dots; K5a and K5c run the
 band march also on the flat route's stencils and the tile kernels on
 reach-1 ones; K1 and K2 with any other stencil
 (|dy| <= 1, |dx| < C) run the general route (``csrc/sstep_general.cu``):
-K1 on the band march, a march down bands of rows with every intermediate
-in shared-memory rings (route ``general``, where :func:`band_stride`
-takes the width and the widest |dx|), else, and K2 always, one
-cooperative launch of stages over the whole grid, separated by a
-grid-wide barrier, the intermediates in a workspace (``general_coop``).
+each on its band march, a march down bands of rows with every intermediate
+in shared-memory rings (route ``general``, where :func:`band_stride`, K1's
+gate, or :func:`gram2_layout`, K2's, takes the width and the widest
+|dx|), else one cooperative launch of stages over the whole grid,
+separated by a grid-wide barrier, the intermediates in a workspace
+(``general_coop``).
 
 Semantics follow the JAX kernels.  ``x`` is the grid ``[R, C]`` (f32);
 stencil offsets are ``(dy, dx)`` pairs, |dy| <= 8 and |dx| < C.  Columns
@@ -103,6 +104,10 @@ BAND_THREADS = 512     # threads of a block
 # floats of a ring row, at most: the rings, one row more and a block's
 # width of slack fit the kernel's 225 KB of shared memory
 BAND_MAX_STRIDE = (225 * 1024 // 4 - BAND_THREADS) // (BAND_RING_ROWS + 1)
+# K2's band march (csrc/sstep_general.cu: LS_G2_*): K1's strips, bands and
+# threads, rings of 12 rows (p 4, r 5, A p 3)
+G2_RING_ROWS = 12
+G2_MAX_STRIDE = (225 * 1024 // 4 - BAND_THREADS) // (G2_RING_ROWS + 1)
 # K3 and K4 on the band route (csrc/band2d.cu: LS_PASS_*)
 PASS_THREADS = 512     # threads of a block
 PASS_COLS = 4096       # output columns of a strip, at most
@@ -112,15 +117,18 @@ PASS_MAX_STRIDE = 6144  # floats of a ring row, at most
 PASS_SLACK = 4 * PASS_THREADS  # floats after the ring
 PASS_SMEM_MAX = 225 * 1024     # dynamic shared memory, at most
 PASS_DOTS = 2          # partial dots of a unit in the scratch (K5b's two)
-# K1 and K2 on the flat route (csrc/flat1d.cu: LS_FLAT_*): a warp's step is
-# a segment of FLAT_SEG elements, its run at least FLAT_MIN_SEGS segments;
-# runs aim at one wave of the pass's resident blocks on 132 SMs (K1 4 per
-# SM, K2 5)
+# K1, K2 and K5b on the flat route (csrc/flat1d.cu: LS_FLAT_*): a warp's
+# step is a segment of FLAT_SEG elements, its run at least FLAT_MIN_SEGS
+# segments; runs aim at one wave of the pass's resident blocks on 132 SMs
+# (K1 4 per SM, K2 5, K5b 8)
 FLAT_SEG = 128
 FLAT_MIN_SEGS = 16
 FLAT_STEP2_TARGET_WARPS = 132 * 4 * STEP2_WARPS
 FLAT_GRAM2_TARGET_WARPS = 132 * 5 * STEP2_WARPS
-FLAT_TARGETS = (FLAT_STEP2_TARGET_WARPS, FLAT_GRAM2_TARGET_WARPS)
+FLAT_ST_TARGET_WARPS = 132 * 8 * STEP2_WARPS
+# every flat pass's target, in ls_flat_target_warps order (K1, K2, K5b)
+FLAT_TARGETS = (FLAT_STEP2_TARGET_WARPS, FLAT_GRAM2_TARGET_WARPS,
+                FLAT_ST_TARGET_WARPS)
 # the shifts of the 1-D stencil that flat1d.cu compiles, in stencil order
 # (LS_FLAT_SHIFTS): the 1-D Laplacian's
 FLAT_SHIFTS = (0, -1, 1)
@@ -220,29 +228,35 @@ def flat_stencil(offsets, values, C: int):
 BICG_PASSES = ("pv", "st", "update")  # K5a, K5b, K5c
 
 
-def route(offsets, values, C: int, sstep: bool = False,
+def route(offsets, values, C: int, sstep=False,
           bicg: Optional[str] = None):
     """(kernel route, offsets, values, wrap) of a 2-D pass: ``strip`` for a
     reach-1 stencil (the column-strip march), ``flat`` for the flat
     decomposition of a reach-1 1-D stencil (on the 1-D stencil: the strip
-    march with WRAP for K3, K4 and K5b, the march along the flat index of
-    ``csrc/flat1d.cu`` for K1 and K2); otherwise, for K3, K4 and K5a-c,
-    ``band`` where the band march's ring fits (:func:`pass_layout`),
+    march with WRAP for K3 and K4, the march along the flat index of
+    ``csrc/flat1d.cu`` for K1, K2 and K5b); otherwise, for K3, K4 and
+    K5a-c, ``band`` where the band march's ring fits (:func:`pass_layout`),
     ``tile`` (the 32 x 32 tile kernels, terms with |dx| > 8 read from
     device memory beside the tile) where it does not; and for the s-step
-    passes K1 and K2 (``sstep``; csrc/sstep_general.cu), ``general`` where
-    K1's band march takes the width and the widest |dx|
-    (:func:`band_stride`), ``general_coop`` (the cooperative kernel) where
-    it does not.  K2 runs the cooperative kernel on both.  ``bicg`` names
-    a BiCGStab pass (:data:`BICG_PASSES`): ``st`` (K5b) routes as K3
-    does; ``pv`` (K5a) and ``update`` (K5c), which have no strip kernel,
-    take ``tile`` on reach-1 stencils and ``band`` on the flat route's (on
-    the decomposed offsets).  On the cross each one's band march beat its
-    tile kernel, but phase 4b's f32 BiCGStab end check (one draw of a
-    chaotic recurrence) failed with it; on the 1-D view both beat the
-    tile kernels and phase 4l held (``PERF.md`` §6)."""
+    passes (``sstep``: True or ``"step2"`` for K1, ``"gram2"`` for K2;
+    csrc/sstep_general.cu), ``general`` where the pass's band march takes
+    the width and the widest |dx| (K1: :func:`band_stride`, K2:
+    :func:`gram2_layout`), ``general_coop`` (the cooperative kernel) where
+    it does not.  ``bicg`` names a BiCGStab pass (:data:`BICG_PASSES`):
+    ``st`` (K5b) routes as K3 does but on the flat route, which it takes
+    only for the 1-D stencil of :data:`FLAT_SHIFTS` (the one
+    ``csrc/flat1d.cu`` compiles; another takes the band or tile route on
+    the decomposed offsets); ``pv`` (K5a) and ``update`` (K5c), which have
+    no strip kernel, take ``tile`` on reach-1 stencils and ``band`` on the
+    flat route's (on the decomposed offsets).  On the cross each one's
+    band march beat its tile kernel, but phase 4b's f32 BiCGStab end check
+    (one draw of a chaotic recurrence) failed with it; on the 1-D view
+    both beat the tile kernels and phase 4l held (``PERF.md`` §6)."""
     if bicg is not None and bicg not in BICG_PASSES:
         raise ValueError(f"bicg must be one of {BICG_PASSES}, not {bicg!r}")
+    if sstep not in (False, True, "step2", "gram2"):
+        raise ValueError(f"sstep must be a bool, 'step2' or 'gram2', not "
+                         f"{sstep!r}")
     tile = ("tile", offsets, values, 0)
     if _reach(offsets) <= STEP2_REACH:
         return tile if bicg in ("pv", "update") else ("strip", offsets,
@@ -251,14 +265,16 @@ def route(offsets, values, C: int, sstep: bool = False,
         return ("band", offsets, values, 0) if pass_layout(
             C, offsets)[0] else tile
     flat = flat_stencil(offsets, values, C)
-    if flat is not None:
+    if flat is not None and not (
+            bicg == "st" and tuple(dx for _, dx in flat[0]) != FLAT_SHIFTS):
         return ("flat", *flat, 1)
     if not sstep:
         if not pass_layout(C, offsets)[0]:
             return tile
         return "band", offsets, values, 0
-    kind = "general" if band_stride(C, offsets) else "general_coop"
-    return kind, offsets, values, 0
+    fits = (gram2_layout(C, offsets)[0] if sstep == "gram2"
+            else band_stride(C, offsets))
+    return ("general" if fits else "general_coop"), offsets, values, 0
 
 
 def pass_geometry(R: int, C: int):
@@ -341,6 +357,26 @@ def band_stride(C: int, offsets) -> int:
     wid = min(band_geometry(1, C)[1] + 8 * Q, C + 2 * Q)
     wid = -(-wid // 4) * 4
     return wid if wid <= BAND_MAX_STRIDE else 0
+
+
+def gram2_layout(C: int, offsets):
+    """(ring row floats, clipped, dynamic shared memory bytes) of K2's
+    band march on C columns with this stencil, as ``gram2_band_stride``
+    and ``gram2_band_smem`` in csrc/sstep_general.cu compute them: the
+    padded window min(w + 4 Q, C + 2 Q) (clipped 0; w the strip width, Q
+    the widest |dx|) where it fits G2_MAX_STRIDE floats, else the window
+    clipped to the grid, min(w + 4 Q, C) (clipped 1: terms leaving the
+    grid masked), rounded up to 4; (0, 1, 0) past both (the gate that sends
+    a stencil to the cooperative kernel: more than 4388 columns with a
+    wide |dx|)."""
+    Q = col_reach(offsets)
+    w = band_geometry(1, C)[1]
+    for clipped, edge in ((0, C + 2 * Q), (1, C)):
+        wid = -(-min(w + 4 * Q, edge) // 4) * 4
+        if wid <= G2_MAX_STRIDE:
+            return wid, clipped, (G2_RING_ROWS * wid + BAND_THREADS
+                                  + wid) * 4
+    return 0, 1, 0
 
 
 def decompose_flat_offsets(flat_offsets, values, C: int):
@@ -688,8 +724,9 @@ _BAND_SCRATCH = {}
 
 
 def _band_scratch(device, R: int, C: int):
-    """(partials, units, counter) of K1's band-march launches on an [R, C]
-    grid: ten float64 partial sums per unit (strips x bands) and the
+    """(partials, units, counter) of K1's and K2's band-march launches on
+    an [R, C] grid: ten float64 partial sums per unit (strips x bands) and
+    the
     last-block counter (zero between launches), made once per (device,
     stream, R, C): launches on one stream are ordered, so they can share
     them."""
@@ -709,7 +746,7 @@ _GEN_SCRATCH = {}
 
 
 def _general_scratch(device, R: int, C: int):
-    """(workspace, partials, units, sync) of the general route's K1 and K2
+    """(workspace, partials, units, sync) of the cooperative K1 and K2
     launches on an [R, C] grid: two [R, C] f32 planes (K1's u, and its A p
     then A p''; K2's A p), ten float64 partial sums per unit, and three
     counters (the grid barrier's arrivals and generation, the last-block
@@ -931,9 +968,16 @@ def grid2d_cg_gram2(r, p, *, offsets, values):
     dev = r.device
     # g is fresh per pass, as step2's
     g = torch.empty(10, dtype=torch.float32, device=dev)
-    kind, k_offs, k_vals, _ = route(offsets, values, C, sstep=True)
+    kind, k_offs, k_vals, _ = route(offsets, values, C, sstep="gram2")
     st = ctypes.byref(_stencil_struct(k_offs, k_vals))
-    if kind in ("general", "general_coop"):
+    if kind == "general":
+        partials, units, counter = _band_scratch(dev, R, C)
+        _launch("gram2", "ls_gram2_band", (
+            _ptr(r), _ptr(p), _ptr(g), _ptr(partials), units, _ptr(counter),
+            R, C, st,
+        ), dev)
+        return g
+    if kind == "general_coop":
         ws, partials, units, sync = _general_scratch(dev, R, C)
         _launch("gram2", "ls_gram2_general", (
             _ptr(r), _ptr(p), _ptr(g), _ptr(ws), _ptr(partials), units,

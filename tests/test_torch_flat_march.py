@@ -1,6 +1,7 @@
-"""K1 and K2 on the 1-D view's flat route: the launch geometry of the march
-along the flat index (``csrc/flat1d.cu``), its Python mirror, the route and
-the gate of the compile-time 1-D stencil.
+"""K1, K2 and K5b on the 1-D view's flat route: the launch geometry of the
+march along the flat index (``csrc/flat1d.cu``), its Python mirror, the
+routes, the entry points the wrappers launch and the gate of the
+compile-time 1-D stencil.
 
 No card is needed: the geometry is checked against a transcription of the
 C formulas and the defines read from the source; the library itself is
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from legionsolvers_tpu_torch.entry import build_stencil_system
+from legionsolvers_tpu_torch.ops.cuda import bicgstab2d as TB
 from legionsolvers_tpu_torch.ops.cuda import stencil2d as T
 from legionsolvers_tpu_torch.options import SolverOptions
 
@@ -84,23 +86,27 @@ def test_flat_geometry_mirrors_csrc(shape, target):
 
 def test_flat_geometry_at_full_width():
     """At [4096, 4096] (2^24, `-dim 1`'s view): 131072 segments; K1's runs
-    of 63 segments, 2081 warps in 521 blocks, and K2's of 50, 2622 warps
-    in 656 blocks; two segments of each run read twice (3.2%, 4%)."""
+    of 63 segments, 2081 warps in 521 blocks, K2's of 50, 2622 warps in
+    656 blocks, and K5b's of 32, 4096 warps in 1024 blocks; two segments
+    of each run read twice (3.2%, 4%, 6.3%)."""
     assert T.flat_geometry(4096, 4096, T.FLAT_STEP2_TARGET_WARPS) == (
         131072, 63, 2081, 521)
     assert T.flat_geometry(4096, 4096, T.FLAT_GRAM2_TARGET_WARPS) == (
         131072, 50, 2622, 656)
+    assert T.flat_geometry(4096, 4096, T.FLAT_ST_TARGET_WARPS) == (
+        131072, 32, 4096, 1024)
 
 
 def test_flat_targets_and_orders_mirror_csrc():
     """FLAT_TARGETS is one wave of each flat kernel's resident blocks on
-    132 SMs (LS_FLAT_*_MIN_BLOCKS), the constants mirror LS_FLAT_SEG and
+    132 SMs (LS_FLAT_*_MIN_BLOCKS: K1, K2, K5b), the constants mirror
+    LS_FLAT_SEG and
     LS_FLAT_MIN_SEGS, and FLAT_SHIFTS the compiled 1-D stencil's shifts
     (LS_FLAT_SHIFTS), in its order."""
     warps = _define("LS_STEP2_WARPS", CSRC.with_name("march2d.cuh"))
     assert T.FLAT_TARGETS == tuple(
         132 * _define(f"LS_FLAT_{k}_MIN_BLOCKS") * warps
-        for k in ("STEP2", "GRAM2"))
+        for k in ("STEP2", "GRAM2", "ST"))
     assert (T.FLAT_SEG, T.FLAT_MIN_SEGS) == (_define("LS_FLAT_SEG"),
                                              _define("LS_FLAT_MIN_SEGS"))
     body = re.search(r"#define LS_FLAT_SHIFTS \{([-\d, ]+)\}",
@@ -111,12 +117,14 @@ def test_flat_targets_and_orders_mirror_csrc():
 @pytest.mark.parametrize("C", [4, 89, 128, 1000, 4096])
 def test_route_sends_the_1d_view_to_flat(C):
     """`route` sends the decomposed 1-D Laplacian to the flat route, for
-    the one-pass kernels and for K1 and K2 (``sstep``) alike, on the 1-D
-    stencil in its order; the gate takes it."""
+    the one-pass kernels, for K1 and K2 (``sstep``) and for K5b alike, on
+    the 1-D stencil in its order; the gate takes it."""
     offs, vals = T.decompose_flat_offsets(*LAP1, C)
-    for sstep in (False, True):
+    for sstep in (False, True, "step2", "gram2"):
         assert T.route(offs, vals, C, sstep=sstep) == (
             "flat", ((0, 0), (0, -1), (0, 1)), LAP1[1], 1)
+    assert T.route(offs, vals, C, bicg="st") == (
+        "flat", ((0, 0), (0, -1), (0, 1)), LAP1[1], 1)
     assert T.flat_refusal(offs, vals, C) is None
     assert T.step2_supported(8, C, offs, vals)
 
@@ -137,6 +145,8 @@ def test_gate_refuses_other_1d_stencils(stencil):
     C = 128
     offs, vals = T.decompose_flat_offsets(*REFUSED[stencil], C)
     assert T.route(offs, vals, C)[0] == "flat"
+    # K5b's flat march compiles the same 1-D stencil: the band march
+    assert T.route(offs, vals, C, bicg="st") == ("band", offs, vals, 0)
     assert T.step2_supported(8, C, offs)  # JAX's geometric gate
     assert not T.step2_supported(8, C, offs, vals)
     assert "LS_FLAT_SHIFTS" in T.flat_refusal(offs, vals, C)
@@ -174,3 +184,54 @@ def test_strip_scratch_covers_the_flat_passes(shape):
         blocks = T.flat_geometry(*shape, target)[3]
         assert blocks <= capacity
         assert 10 * blocks <= T.STEP2_GRAM * capacity
+
+
+def _record_launches(monkeypatch, calls):
+    """Make the K5b wrapper take CPU tensors for CUDA ones and record the
+    entry point it would launch, (pass, entry), in ``calls``, with the
+    scratch from the CPU."""
+    monkeypatch.setattr(TB, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(TB, "_launch", lambda name, fn, args, dev:
+                        calls.append((name, fn)))
+    scratch = lambda dev, R, C: (torch.zeros(2 * R * C, dtype=torch.float64),
+                                 R * C, torch.zeros(1, dtype=torch.int32))
+    monkeypatch.setattr(TB, "_step2_scratch", scratch)
+    monkeypatch.setattr(TB, "_pass_scratch", scratch)
+
+
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("C", [4, 89, 1000, 4096])
+def test_k5b_on_the_1d_view_launches_the_flat_march(C, compensated,
+                                                     monkeypatch):
+    """On a card, ``bicg_st`` on the 1-D view launches the march along the
+    flat index (``ls_flat_bicg_st``), once, in either dot mode; a 1-D
+    stencil it does not compile launches the band march; the cross keeps
+    the strip march (the launches recorded, not run)."""
+    calls = []
+    _record_launches(monkeypatch, calls)
+    r = v = torch.zeros(3, C)
+    offs, vals = T.decompose_flat_offsets(*LAP1, C)
+    TB.bicg_st(r, v, 0.5, offsets=offs, values=vals, compensated=compensated)
+    assert calls == [("bicg_st", "ls_flat_bicg_st")]
+    if C >= 89:
+        offs, vals = T.decompose_flat_offsets(*REFUSED["order"], C)
+        TB.bicg_st(r, v, 0.5, offsets=offs, values=vals,
+                   compensated=compensated)
+        assert calls[-1] == ("bicg_st", "ls_bicg_st_band")
+    cross = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
+    TB.bicg_st(r, v, 0.5, offsets=cross, values=(4.0,) + (-1.0,) * 4,
+               compensated=compensated)
+    assert calls[-1] == ("bicg_st", "ls_bicg_st_strip")
+
+
+def test_flat_k5b_source_and_launch_bounds():
+    """K5b's flat march in csrc/flat1d.cu: 8 blocks per SM (the strip
+    K5b's), two segments in flight, its entry point taking the strip
+    K5b's operands, and the strip K5b (csrc/bicgstab2d.cu) without its
+    WRAP variant."""
+    text = CSRC.read_text()
+    assert _define("LS_FLAT_ST_MIN_BLOCKS") == 8
+    assert _define("LS_FLAT_ST_DEPTH") == 2
+    assert "int ls_flat_bicg_st(const float* r, const float* v," in text
+    strip = CSRC.with_name("bicgstab2d.cu").read_text()
+    assert "WRAP" not in strip and "int wrap" not in strip

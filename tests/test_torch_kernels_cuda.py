@@ -1660,12 +1660,13 @@ def test_k1_k2_flat_match_plain_on_card(shape, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", [0, 1, 2, 3])
+@pytest.mark.parametrize("which", list(range(8)))
 def test_flat_attrs_on_card(which, cuda_device):
-    """Each flat-route kernel (K1 and K2, scalar and 16-byte loads) fits
-    its launch bounds' resident blocks per SM (K1 4, 3 with scalar loads;
-    K2 5) with no spill; the library's flat geometry, targets and 1-D
-    stencil equal the Python mirror's."""
+    """Each flat-route kernel (K1, K2 and K5b with f32 and compensated
+    dots, scalar and 16-byte loads) fits its launch bounds' resident
+    blocks per SM (K1 4, 3 with scalar loads; K2 5; K5b 8) with no spill;
+    the library's flat geometry, targets and 1-D stencil equal the Python
+    mirror's."""
     import ctypes
 
     from legionsolvers_tpu_torch.ops.cuda.build import load_library
@@ -1674,12 +1675,12 @@ def test_flat_attrs_on_card(which, cuda_device):
     out = (ctypes.c_int * 4)()
     assert lib.ls_flat_attrs(which, out) == 0
     regs, spill, per_sm, smem = out
-    blocks = (3, 4, 5, 5)[which]
+    blocks = (3, 4, 5, 5, 8, 8, 8, 8)[which]
     assert 0 < regs <= 65536 // (128 * blocks), list(out)
     assert spill == 0 and per_sm >= blocks, list(out)
     assert 0 < smem <= 1024, smem
-    assert [lib.ls_flat_target_warps(k) for k in range(2)] == \
-        list(T.FLAT_TARGETS)
+    assert [lib.ls_flat_target_warps(k)
+            for k in range(len(T.FLAT_TARGETS))] == list(T.FLAT_TARGETS)
     geo = (ctypes.c_longlong * 4)()
     for shape in FLAT_RUN_SHAPES + [(4096, 4096)]:
         for target in T.FLAT_TARGETS:
@@ -1688,6 +1689,48 @@ def test_flat_attrs_on_card(which, cuda_device):
     shifts = (ctypes.c_int * 3)()
     assert lib.ls_flat_shifts(shifts) == 0
     assert tuple(shifts) == T.FLAT_SHIFTS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("shape", FLAT_RUN_SHAPES + [(1, 5), (7, 33)])
+def test_k5b_flat_match_plain_and_band_on_card(shape, compensated, aligned,
+                                               cuda_device, monkeypatch):
+    """K5b on the 1-D view's flat route (the march along the flat index,
+    ``ls_flat_bicg_st``) against bicg_st_plain on the decomposed offsets
+    (each dot within 1e-4 of its Cauchy-Schwarz scale), one launch, a
+    repeat bit for bit; and against the band march on the same inputs
+    (the route forced), whose t = A s has the same bits: the dots differ
+    only by their double sums' order, so by at most 2 ulp and 1e-9 of the
+    scale.  At views whose n is not a multiple of 128 (or of 4), with 16-
+    byte aligned buffers and with buffers one float past (scalar loads)."""
+    offs, vals = _flat1d(shape[1])
+    assert T.route(offs, vals, shape[1], bicg="st")[0] == "flat"
+    n = shape[0] * shape[1]
+    rng = np.random.default_rng(43)
+    r, v = (torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32)
+                             ).to(cuda_device) for _ in range(2))
+    r, v = ((a[:n] if aligned else a[1:]).view(shape) for a in (r, v))
+    kw = dict(offsets=offs, values=vals, compensated=compensated)
+    T.reset_launch_counts()
+    k1, k2, ref = (torch.stack(fn(r, v, 0.83, **kw)).double().cpu()
+                   for fn in (TB.bicg_st, TB.bicg_st, TB.bicg_st_plain))
+    assert dict(T.LAUNCHES) == {"bicg_st": 2}
+    assert torch.equal(k1, k2)
+    s = r - torch.tensor(0.83, device=cuda_device) * v
+    t = T.apply_plain(s, offs, vals)
+    nrm = lambda a: torch.linalg.vector_norm(a.double()).item()
+    scale = torch.tensor([nrm(t) * nrm(s), nrm(t) ** 2], dtype=torch.float64)
+    assert bool(((k1 - ref).abs() <= 1e-4 * scale).all()), (k1, ref)
+    with monkeypatch.context() as m:
+        m.setattr(TB, "route", lambda o, vv, C, sstep=False, bicg=None: (
+            "band", o, vv, 0))
+        band = torch.stack(TB.bicg_st(r, v, 0.83, **kw)).double().cpu()
+    ulp = torch.tensor([np.spacing(np.float32(abs(x))) for x in k1.numpy()],
+                       dtype=torch.float64)
+    assert bool(((k1 - band).abs() <= 2 * ulp + 1e-9 * scale).all()), (
+        k1, band)
 
 
 @pytest.mark.cuda
@@ -2030,9 +2073,11 @@ def test_k1_k2_general_match_plain_on_card(stencil, shape, cuda_device):
     if max(abs(dx) for _, dx in offs) >= shape[1]:
         pytest.skip("|dx| >= C: off the gate at this width")
     # K1's band march, or past its gate (|dx| = 4095) the cooperative
-    # kernel
+    # kernel; K2's band march (its window clipped to the row for
+    # |dx| = 4095)
     assert T.route(offs, vals, shape[1], sstep=True)[0] == (
         "general" if T.band_stride(shape[1], offs) else "general_coop")
+    assert T.route(offs, vals, shape[1], sstep="gram2")[0] == "general"
     kw = dict(offsets=offs, values=vals)
     rng = np.random.default_rng(37)
     d = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
@@ -2061,6 +2106,62 @@ def test_k1_k2_general_match_plain_on_card(stencil, shape, cuda_device):
     bound = gram_bounds(d["r"].cpu().numpy(), d["p"].cpu().numpy(), offs,
                         vals)
     np.testing.assert_array_less(np.abs((g1 - gref).numpy()), 1e-4 * bound)
+
+
+def _gram2_ulps(a, b):
+    """Units in the last place between two f32 vectors, entrywise."""
+    ia, ib = (np.asarray(x, dtype=np.float32).view(np.int32).astype(np.int64)
+              for x in (a, b))
+    ia, ib = (np.where(i < 0, -(i & 0x7FFFFFFF), i) for i in (ia, ib))
+    return np.abs(ia - ib)
+
+
+# K2's band march at band and strip edges: a band of 16 rows and a ragged
+# last one (37, 203 rows), C not a multiple of 4, two or more strips
+# (1030, 4097 columns), and with S2_far and (+-1, -+842) at 4096 columns
+# (past K1's gate; the padded window, and the window clipped to the row)
+GRAM2_BAND_SHAPES = GENERAL_SHAPES + [(37, 1030), (203, 4096)]
+GRAM2_BAND = dict(GENERAL, **{
+    "S2_far": lambda C: (tuple((dy, 2 * dx if abs(dx) == 100 else dx)
+                               for dy, dx in _S2_GEN[0]), _S2_GEN[1]),
+    "(+-1, -+842)": lambda C: (KW["offsets"] + ((1, -842), (-1, 842)),
+                               (5.0, -1.0, -1.0, -1.0, -1.0, -0.5, -0.5)),
+})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GRAM2_BAND_SHAPES)
+@pytest.mark.parametrize("stencil", list(GRAM2_BAND))
+def test_k2_band_matches_plain_and_coop_on_card(stencil, shape,
+                                                cuda_device, monkeypatch):
+    """K2 on its band march against gram2_plain (Gram entries 1e-4 of
+    their Cauchy-Schwarz scale), one launch, a repeat bit for bit, and
+    against the cooperative kernel on the same inputs (the route forced):
+    A p, A^2 p and A r are the same terms in the same order, so the Gram
+    differs only by its double sums' order, at most 1 ulp an entry."""
+    offs, vals = GRAM2_BAND[stencil](shape[1])
+    if max(abs(dx) for _, dx in offs) >= shape[1]:
+        pytest.skip("|dx| >= C: off the gate at this width")
+    assert T.route(offs, vals, shape[1], sstep="gram2")[0] == "general"
+    kw = dict(offsets=offs, values=vals)
+    rng = np.random.default_rng(41)
+    r, p = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    rt, pt = (torch.from_numpy(a).to(cuda_device) for a in (r, p))
+    T.reset_launch_counts()
+    g1, g2, ref = (fn(rt, pt, **kw).cpu() for fn in (
+        T.grid2d_cg_gram2, T.grid2d_cg_gram2, T.gram2_plain))
+    assert dict(T.LAUNCHES) == {"gram2": 2}
+    assert torch.equal(g1, g2)
+    np.testing.assert_array_less(
+        np.abs(g1.double().numpy() - ref.double().numpy()),
+        1e-4 * gram_bounds(r, p, offs, vals))
+    route = T.route
+    with monkeypatch.context() as m:
+        m.setattr(T, "route", lambda o, v, C, sstep=False, bicg=None: (
+            ("general_coop", o, v, 0) if sstep == "gram2"
+            else route(o, v, C, sstep, bicg)))
+        coop = T.grid2d_cg_gram2(rt, pt, **kw).cpu()
+    assert _gram2_ulps(g1.numpy(), coop.numpy()).max() <= 1, (g1, coop)
 
 
 @pytest.mark.cuda
@@ -2128,6 +2229,17 @@ def test_general_attrs_on_card(cuda_device):
     # the rings, one more row and a block's width of slack
     stride = T.band_stride(4096, _S2_GEN[0])
     assert out[3] == 4 * ((T.BAND_RING_ROWS + 1) * stride + T.BAND_THREADS)
+    # K2's band march: no spill and two blocks per SM at S2_gen's rings,
+    # its shared memory as gram2_layout's; the library's gate as the
+    # mirror's
+    assert lib.ls_gram2_band_attrs(4096, ctypes.byref(st), out) == 0
+    assert 0 < out[0] <= 64 and out[1] == 0 and out[2] >= 2, list(out)
+    assert out[3] == T.gram2_layout(4096, _S2_GEN[0])[2]
+    lay = (ctypes.c_int * 3)()
+    for C, q in ((4096, 100), (4096, 841), (4096, 842), (4389, 4388),
+                 (5000, 841)):
+        assert lib.ls_gram2_band_layout(C, q, lay) == 0
+        assert tuple(lay) == T.gram2_layout(C, ((0, q),))
 
 
 # ---------------------------------------------------------------------------

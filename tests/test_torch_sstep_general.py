@@ -63,8 +63,15 @@ def wide_terms(C):
     return list(zip(*wide(C)))
 
 
+def edge1000(C):
+    """The cross with (+-1, -+1000): past K1's band gate at 1024 columns
+    (its window would take 1024 + 2000 floats a ring row), inside K2's."""
+    return list(zip(CROSS + ((1, -1000), (-1, 1000)),
+                    (5.0, -1.0, -1.0, -1.0, -1.0, -0.5, -0.5)))
+
+
 STENCILS = {"S2_GEN": lambda C: S2_GEN, "S2_4X": lambda C: S2_4X,
-            "wide": wide_terms}
+            "wide": wide_terms, "edge1000": edge1000}
 SHAPE = (64, 256)
 
 
@@ -112,7 +119,9 @@ GATES = {
 
 
 # the cases of GATES whose widest |dx| at 4096 columns is past K1's band
-# march (its rings would not fit): they keep the cooperative kernel
+# march (its rings would not fit): K1 keeps the cooperative kernel there;
+# K2's band march takes every case of GATES (its window clipped to the row
+# for |dx| = C - 1)
 COOP = {"wide(4096) 4096^2", "|dx| = C - 1 = 4095"}
 
 
@@ -121,7 +130,8 @@ def test_gates_of_both_packages(case):
     """JAX's ``step2_supported`` and the port's on the table above; the
     port routes what it takes past reach 1 and off the flat view to the
     general route: K1's band march (``general``), or the cooperative
-    kernel for the cases of COOP (``general_coop``)."""
+    kernel for the cases of COOP (``general_coop``), and K2's band march
+    for all of them."""
     R, C, o, jax_takes, port_takes = GATES[case]
     assert JS.step2_supported(R, C, o) is jax_takes
     assert TS.step2_supported(R, C, o) is port_takes
@@ -129,6 +139,7 @@ def test_gates_of_both_packages(case):
         vals = (1.0,) * len(o)
         assert TS.route(o, vals, C, sstep=True)[0] == (
             "general_coop" if case in COOP else "general")
+        assert TS.route(o, vals, C, sstep="gram2")[0] == "general"
         assert TS.route(o, vals, C)[0] == "band"
         assert TS.route(o, vals, C, bicg="pv")[0] == "band"
         assert TS.route(o, vals, C, bicg="st")[0] == "band"
@@ -172,22 +183,34 @@ def test_step2_eligible_matches_jax(case, mesh4):
 
 # -- the wrappers against JAX's interpret-mode kernels ------------------------
 
+# the last two are past K1's band gate and inside K2's: (+-1, -+1000) at
+# 1024 columns takes K2's padded window, wide(2048)'s (1, -2047) its window
+# clipped to the row
 KERNEL_CASES = {"S2_GEN (16, 128)": ("S2_GEN", (16, 128)),
                 "S2_GEN (64, 256)": ("S2_GEN", (64, 256)),
                 "S2_4X (16, 128)": ("S2_4X", (16, 128)),
                 "S2_4X (64, 256)": ("S2_4X", (64, 256)),
-                "wide(128) (16, 128)": ("wide", (16, 128))}
+                "wide(128) (16, 128)": ("wide", (16, 128)),
+                "(+-1, -+1000) (16, 1024)": ("edge1000", (16, 1024)),
+                "wide(2048) (16, 2048)": ("wide", (16, 2048))}
 
 
 @pytest.mark.parametrize("case", list(KERNEL_CASES))
 @pytest.mark.parametrize("mode", ["gram2", "step2"])
 def test_kernels_match_jax(mode, case):
     """K2 and K1 through the port's wrappers (the general route's plain
-    versions on CPU tensors; nothing launches) against JAX's kernels."""
+    versions on CPU tensors; nothing launches) against JAX's kernels; K2
+    takes its band march in every case, K1 its band march or, past its
+    gate, the cooperative kernel."""
     name, shape = KERNEL_CASES[case]
     kw = kw_of(STENCILS[name](shape[1]))
+    k1 = ("general" if TS.band_stride(shape[1], kw["offsets"])
+          else "general_coop")
     assert TS.route(kw["offsets"], kw["values"], shape[1],
-                    sstep=True)[0] == "general"
+                    sstep=True)[0] == k1
+    assert TS.route(kw["offsets"], kw["values"], shape[1],
+                    sstep="gram2")[0] == "general"
+    assert (k1 == "general_coop") is (shape[1] > 256)
     rng = np.random.default_rng(41 + len(mode))
     d = {k: rng.standard_normal(shape).astype(np.float32)
          for k in ("x", "r", "p")}
@@ -330,6 +353,139 @@ def test_band_gate_and_route(case):
     assert TS.band_stride(C, kw["offsets"]) == stride
     assert TS.route(kw["offsets"], kw["values"], C, sstep=True)[0] == (
         "general" if stride else "general_coop")
+
+
+# -- K2's band march: the Python mirrors of its gate ---------------------------
+
+def test_gram2_constants_mirror_csrc():
+    """G2_RING_ROWS and G2_MAX_STRIDE mirror the LS_G2_* defines of
+    csrc/sstep_general.cu: rings of p (4 rows), r (5) and A p (3), and the
+    widest ring row whose rings, one row more and a block's width of slack
+    fit LS_BAND_SMEM_MAX (225 KB)."""
+    src = (TS.__file__.rsplit("ops", 1)[0] + "csrc/sstep_general.cu")
+    with open(src) as f:
+        text = f.read()
+    rows = re.search(r"#define LS_G2_RING_ROWS (\d+)", text).group(1)
+    assert int(rows) == TS.G2_RING_ROWS == 4 + 5 + 3
+    assert ("#define LS_G2_MAX_STRIDE \\\n  ((LS_BAND_SMEM_MAX / 4 - "
+            "LS_BAND_THREADS) / (LS_G2_RING_ROWS + 1))") in text
+    assert TS.G2_MAX_STRIDE == 4391  # (57600 - 512) // 13
+
+
+def _csrc_gram2_stride(C, Q):
+    """``gram2_band_stride`` of csrc/sstep_general.cu, transcribed line for
+    line: (ring row floats, mask)."""
+    g_strip_cols = TS.band_geometry(1, C)[1]
+    mask = 0
+    for m in range(2):
+        wid = g_strip_cols + 4 * Q
+        edge = C if m else C + 2 * Q
+        if edge < wid:
+            wid = edge
+        wid = (wid + 3) // 4 * 4
+        mask = m
+        if wid <= TS.G2_MAX_STRIDE:
+            return wid, mask
+    return 0, mask
+
+
+@pytest.mark.parametrize("C", [1, 5, 101, 128, 130, 1024, 2048, 4096, 4097,
+                               4388, 4389, 5000, 8192])
+def test_gram2_layout_mirrors_csrc(C):
+    """``gram2_layout`` equals a transcription of the C gate at every |dx|
+    the general route takes at C columns (a sample of them), and its
+    shared memory is the rings, one row more and a block's width of
+    slack."""
+    for Q in sorted({0, 1, 2, 37, 100, 146, 200, 841, 842, 1000, 1700,
+                     C // 2, C - 1}):
+        if not 0 <= Q < C:
+            continue
+        stride, clipped, smem = TS.gram2_layout(C, ((0, Q),))
+        assert (stride, clipped) == _csrc_gram2_stride(C, Q), (C, Q)
+        want = ((TS.G2_RING_ROWS + 1) * stride + TS.BAND_THREADS) * 4
+        assert smem == (want if stride else 0)
+        assert smem <= 225 * 1024
+
+
+# (C, stencil, (ring-row floats or 0 past the gate, clipped), K1's route)
+GRAM2_GATE = {
+    "S2_GEN 4096": (4096, S2_GEN, (1424, 0), "general"),  # 1024 + 4 * 100
+    "S2_4X 4096": (4096, S2_4X, (1032, 0), "general"),     # 1024 + 4 * 2
+    "S2_GEN with |dx| = 200 at 4096": (
+        4096, [((dy, 2 * dx if abs(dx) == 100 else dx), v)
+               for (dy, dx), v in S2_GEN], (1824, 0), "general_coop"),
+    "|dx| = 841 at 4096": (4096, list(zip(pair(841), (5.0,) + (-1.0,) * 6)),
+                           (4388, 0), "general_coop"),  # the widest padded
+    "|dx| = 842 at 4096": (4096, list(zip(pair(842), (5.0,) + (-1.0,) * 6)),
+                           (4096, 1), "general_coop"),  # clipped to the row
+    "|dx| = 4095 at 4096": (4096, list(zip(CROSS + ((1, -4095), (-1, 4095)),
+                                           (5.0,) + (-1.0,) * 6)),
+                            (4096, 1), "general_coop"),
+    "wide(128) at 128": (128, wide_terms(128), (384, 0), "general"),
+    "S2_GEN 4097": (4097, S2_GEN, (1220, 0), "general"),   # 820 + 4 * 100
+    "|dx| = 4387 at 4388": (4388, list(zip(pair(4387),
+                                           (5.0,) + (-1.0,) * 6)),
+                            (4388, 1), "general_coop"),
+    "|dx| = 4388 at 4389": (4389, list(zip(pair(4388),
+                                           (5.0,) + (-1.0,) * 6)),
+                            (0, 1), "general_coop"),    # past both gates
+    "|dx| = 4999 at 5000": (5000, list(zip(CROSS + ((1, -4999), (-1, 4999)),
+                                           (5.0,) + (-1.0,) * 6)),
+                            (0, 1), "general_coop"),
+    "|dx| = 841 at 5000": (5000, list(zip(pair(841), (5.0,) + (-1.0,) * 6)),
+                           (4364, 0), "general_coop"),  # 1000 + 4 * 841
+}
+
+
+@pytest.mark.parametrize("case", list(GRAM2_GATE))
+def test_gram2_gate_and_route(case):
+    """K2's gate (``gram2_layout``: its padded window min(w + 4 Q, C + 2
+    Q), else the window clipped to the row, min(w + 4 Q, C), rounded up to
+    4, within 4391 floats a ring row) and ``route(..., sstep="gram2")``:
+    ``general`` where it fits, ``general_coop`` past it (more than 4388
+    columns with a wide |dx|); K1's route beside it."""
+    C, terms, want, k1 = GRAM2_GATE[case]
+    kw = kw_of(terms)
+    assert TS.gram2_layout(C, kw["offsets"])[:2] == want
+    assert TS.route(kw["offsets"], kw["values"], C, sstep="gram2")[0] == (
+        "general" if want[0] else "general_coop")
+    assert TS.route(kw["offsets"], kw["values"], C, sstep=True)[0] == k1
+    assert TS.route(kw["offsets"], kw["values"], C,
+                    sstep="step2")[0] == k1
+
+
+def _dispatch(monkeypatch, module, calls):
+    """Make ``module``'s wrappers take CPU tensors for CUDA ones and record
+    the entry point each would launch, (pass, entry), in ``calls``; the
+    scratch comes from the CPU."""
+    monkeypatch.setattr(module, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(module, "_launch", lambda name, fn, args, dev:
+                        calls.append((name, fn)))
+    scratch = lambda dev, R, C: (torch.zeros(10 * R * C, dtype=torch.float64),
+                                 R * C, torch.zeros(3, dtype=torch.int32))
+    for name in ("_band_scratch", "_step2_scratch", "_pass_scratch"):
+        if hasattr(module, name):
+            monkeypatch.setattr(module, name, scratch)
+    if hasattr(module, "_general_scratch"):
+        monkeypatch.setattr(module, "_general_scratch", lambda dev, R, C: (
+            torch.zeros(2 * R * C), torch.zeros(10 * R * C,
+                                                dtype=torch.float64),
+            R * C, torch.zeros(3, dtype=torch.int32)))
+
+
+@pytest.mark.parametrize("case", ["S2_GEN 4096", "|dx| = 4095 at 4096",
+                                  "|dx| = 4999 at 5000"])
+def test_gram2_wrapper_launches_its_route(case, monkeypatch):
+    """``grid2d_cg_gram2`` on a card launches ``ls_gram2_band`` on K2's
+    band route and ``ls_gram2_general`` past its gate, once (the launch
+    recorded, not run)."""
+    C, terms, want, _ = GRAM2_GATE[case]
+    calls = []
+    _dispatch(monkeypatch, TS, calls)
+    r = p = torch.zeros(2, C)
+    TS.grid2d_cg_gram2(r, p, **kw_of(terms))
+    assert calls == [("gram2", "ls_gram2_band" if want[0]
+                      else "ls_gram2_general")]
 
 
 # -- CG solves ---------------------------------------------------------------
