@@ -41,7 +41,11 @@ systems of 4e-f too, to compare),
 ``--wide3d`` phases 4m and 5m (wide z shifts on the 3-D kernels at 256^3)
 and K1's nop mode (its check and its time), ``--wide2d`` phases 4n and 5n
 (K1 and K2 on their general route and K3, K4 and K5a-c on the band
-route, 2-D stencils with wide column shifts, at 4096^2).
+route, 2-D stencils with wide column shifts, at 4096^2), ``--utils``
+phase 4o (the host library, Matrix Market files and checkpoints).
+``--builds`` prints the host seconds of phase 4e-g's three builds and 4k's
+four and the chains and geometries they pick (run it also under
+LEGIONSOLVERS_NO_NATIVE=1 for the numpy versions' seconds).
 
 Phases (any failure raises, and the exit code is non-zero):
 
@@ -428,7 +432,19 @@ with S2_past:
    kernels and plain versions, and the BiCGStab solves' ms/iter, host
    enqueue and idle share (S2_gen's also with K5c on its tile kernel).
    ``--wide2d``
-   runs 4n and 5n alone.
+   runs 4n and 5n alone;
+4o. (a) the host library (``native/csrc/kernels.cpp``, g++) loads, and
+   each entry point is held to its numpy version bit for bit with both
+   host times: the 2048^2 5-point fill, then on that Laplacian the halo
+   columns and ELL packing of its 4 pieces and its DIA offsets and f32
+   and f64 coefficients; RCM on the scrambled 1024^2 system against
+   scipy's (no wider); (b) that scrambled Laplacian written to a
+   Matrix Market file and read back exactly, built on the card from the
+   file and from memory: f32 CG solve(200) bit for bit, K8 or K9 launched
+   200 times; (c) 2-D CG at 4096^2 on 1 and 4 pieces: solve(100),
+   ``save_checkpoint``, ``load_checkpoint`` into a fresh solver, whose
+   solve(100) is the first one's next solve(100) bit for bit (history and
+   x).  ``--utils`` runs 4o alone.
 
 To make room for 4m and 5m, phase 5j's and 5k's idle traces cover about
 TRACE_OPS (2000) glue operations each, a third of what they did.
@@ -8191,6 +8207,296 @@ def band_rows(results, errs, times, bw, attrs, conv):
     return rows
 
 
+# -- phase 4o ------------------------------------------------------------------
+
+# 4o's sizes, cut to fit what the library saves in 4e-g and 4k (~30 s on
+# an H100's host): at 4096^2 for the ELL and DIA checks and 2048^2 for RCM
+# 4o took 49 s of a full run
+UTILS_GRID = 2048      # 4o(a): the 5-point Laplacian's fill, its 4 pieces'
+                       # halo columns and ELL slabs, its DIA offsets and
+                       # coefficients, each held to its numpy version
+UTILS_MM = 1024        # 4o(a) RCM and 4o(b): the scrambled Laplacian
+UTILS_ITERS = 100      # 4o(c): solve(100), checkpoint, solve(100)
+UTILS_DIR = pathlib.Path("build") / "utils_4o"  # the files 4o writes
+
+
+def unloaded(TN, fn, *args):
+    """(``fn(*args)`` with the host library's numpy versions, and its host
+    seconds)."""
+    with TN.numpy_versions():
+        return timed(fn, *args)
+
+
+def timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def same_arrays(np, a, b):
+    """Bit for bit, through tuples; None only equals None."""
+    if isinstance(a, tuple) or isinstance(b, tuple):
+        return (isinstance(a, tuple) and isinstance(b, tuple)
+                and len(a) == len(b)
+                and all(same_arrays(np, x, y) for x, y in zip(a, b)))
+    if a is None or b is None:
+        return a is None and b is None
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def bandwidth(np, rows, cols, perm):
+    iperm = np.empty(len(perm), np.int64)
+    iperm[perm] = np.arange(len(perm))
+    return int(np.abs(iperm[rows] - iperm[cols]).max())
+
+
+def scrambled_laplacian(np, lt, nx, options):
+    """The 5-point Laplacian on nx^2 with rows and columns scrambled by
+    ``default_rng(0).permutation`` (phase 4f's system at another size)."""
+    a = lt.create_coo_stencil_matrix((nx, nx), lt.laplacian_stencil(2))
+    n = a.n_range
+    pr = np.random.default_rng(0).permutation(n)
+    return lt.COOMatrix(pr[a.rows], pr[a.cols], a.vals, n, n, name="scr",
+                        options=options)
+
+
+def host_library(np, lt, scr, card):
+    """4o(a): the library loaded on the card's host, and each entry point
+    held to its numpy version bit for bit, with both host times: the
+    UTILS_GRID^2 5-point fill, then on that Laplacian the halo columns and
+    ELL packing of its PIECES pieces and its DIA offsets and f32 and f64
+    coefficients; RCM on the scrambled UTILS_MM^2 system (``scr``, 4o(b)'s)
+    against scipy's, its bandwidth no larger.  Returns (results,
+    failed)."""
+    from legionsolvers_tpu_torch.native import bindings as TN
+    from legionsolvers_tpu_torch.parallel.dia_op import MAX_DIAGONALS
+    from legionsolvers_tpu_torch.problems.stencil import stencil_coo_arrays
+
+    res, failed = {}, []
+    loaded = TN.available()  # built and loaded at its first use
+    log(f"[utils] host library: loaded {loaded} ({TN.BUILD_INFO})")
+    if not loaded:
+        return {"loaded": False, "error": TN.BUILD_INFO.get("error")}, [
+            "4o: the host library does not load"]
+    res["loaded"], res["build_s"] = True, TN.BUILD_INFO["seconds"]
+
+    def hold(name, fn, *args):
+        got, lib_s = timed(fn, *args)
+        want, np_s = unloaded(TN, fn, *args)
+        same = same_arrays(np, got, want)
+        res[name] = {"library_s": lib_s, "numpy_s": np_s, "bit_for_bit": same}
+        log(f"[utils] {name}: library {lib_s:.3f} s, numpy {np_s:.3f} s on "
+            f"the host; bit for bit {same}")
+        if not same:
+            failed.append(f"4o: {name} differs from its numpy version")
+        return got
+
+    g = f"{UTILS_GRID}^2"
+    rows, cols, vals, n = hold(f"5-point fill {g}", stencil_coo_arrays,
+                               (UTILS_GRID, UTILS_GRID),
+                               lt.laplacian_stencil(2))
+    B = -(-n // PIECES)
+    starts = np.searchsorted(rows, np.arange(PIECES + 1) * B)
+    pieces = [(rows[a:b] - s * B, cols[a:b], vals[a:b], s * B)
+              for s, (a, b) in enumerate(zip(starts[:-1], starts[1:]))]
+    halos = lambda: tuple(TN.shard_halo_columns(c, d0, B)
+                          for _, c, _, d0 in pieces)
+    halo = hold(f"halo columns, {PIECES} pieces of {g}", halos)
+    L = max(int(np.bincount(r).max()) for r, _, _, _ in pieces)
+    packs = lambda: tuple(
+        TN.pack_ell_shard(r, c, v, B, B, d0, h, L, B + len(h))
+        for (r, c, v, d0), h in zip(pieces, halo))
+    hold(f"ELL packing, {PIECES} pieces of {g}", packs)
+    del pieces
+
+    uoffs = hold(f"DIA offsets {g}", TN.dia_unique_offsets, rows, cols,
+                 MAX_DIAGONALS)
+    for dt in (np.float32, np.float64):
+        hold(f"DIA coefficients {g} {np.dtype(dt).name}", TN.dia_accumulate,
+             rows, cols, vals, uoffs, n, dt)
+
+    rows, cols, n = scr.rows, scr.cols, scr.n_range
+    perm, lib_s = timed(TN.rcm_permutation, n, rows, cols)
+    ref, sp_s = unloaded(TN, TN.rcm_permutation, n, rows, cols)
+    bw, bw_sp = (bandwidth(np, rows, cols, p) for p in (perm, ref))
+    is_perm = bool((np.sort(perm) == np.arange(n)).all())
+    same = same_arrays(np, perm, ref)
+    res[f"RCM scrambled {UTILS_MM}^2"] = {
+        "library_s": lib_s, "scipy_s": sp_s, "bandwidth": bw,
+        "bandwidth_scipy": bw_sp, "same_as_scipy": same}
+    log(f"[utils] RCM scrambled {UTILS_MM}^2: library {lib_s:.3f} s "
+        f"(bandwidth {bw}), scipy {sp_s:.3f} s (bandwidth {bw_sp}) on the "
+        f"host; the same permutation: {same}")
+    if not is_perm or bw > bw_sp:
+        failed.append("4o: RCM is not a permutation no wider than scipy's")
+    log(f"[utils] host seconds on {card}")
+    return res, failed
+
+
+def matrix_market_path(torch, np, lt, T, device, A):
+    """4o(b): the scrambled UTILS_MM^2 5-point Laplacian ``A`` (f32)
+    written to a Matrix Market file and read back (the arrays exactly the
+    in-memory matrix's), then built by ``entry.build_explicit_system`` on
+    the card from the file and from memory and solved by CG solve(N_ITERS)
+    with b = 1, x0 = 0: the two histories and x bit for bit, the kernel
+    (K8 or K9, where the planner's RCM upgrade sends it) launched once per
+    iteration and nothing else.  Returns (results, failed)."""
+    from legionsolvers_tpu_torch.utils import io as TIO
+
+    f32 = A.options
+    n = A.n_range
+    path = UTILS_DIR / f"scrambled_{UTILS_MM}.mtx"
+    _, write_s = timed(TIO.write_matrix_market, str(path), A)
+    size = path.stat().st_size
+    B, read_s = timed(TIO.read_matrix_market, str(path), f32)
+    path.unlink()
+    same = (same_arrays(np, A.rows, B.rows) and same_arrays(np, A.cols, B.cols)
+            and same_arrays(np, np.asarray(A.vals, np.float64), B.vals)
+            and (B.n_range, B.n_domain) == (n, n))
+    runs = {}
+    for label, M in (("file", B), ("memory", A)):
+        planner, build_s = timed(lt.build_explicit_system, M, f32, device)
+        solver = lt.CGSolver(planner)
+        torch.cuda.synchronize()
+        T.reset_launch_counts()
+        hist = solver.solve(N_ITERS)
+        torch.cuda.synchronize()
+        runs[label] = (hist, planner.sol_vectors[0].data.clone(),
+                       dict(T.LAUNCHES), build_s,
+                       chain(planner.row_partitioned_matrices[0][0]))
+    T.reset_launch_counts()
+    (hf, xf, cf, bf, chf), (hm, xm, cm, bm, chm) = runs["file"], runs["memory"]
+    kernel = {"DiaOperator": "dia2d_dot", "WinEllOperator": "winell"}.get(
+        chf[-1])
+    checks = {
+        "the file reads back to the in-memory arrays exactly": same,
+        "both builds pick one chain": chf == chm,
+        "the chain ends on K8 or K9": kernel is not None,
+        f"the kernel launched {N_ITERS} times, nothing else":
+            cf == cm == {kernel: N_ITERS},
+        "history bit for bit": same_bits(hf, hm),
+        "x bit for bit": same_bits(xf, xm),
+        "finite history": bool(torch.isfinite(hf).all()),
+    }
+    log(f"[utils] Matrix Market: {n} rows, {A.n_kernel} entries, "
+        f"{size / 1e6:.1f} MB; write {write_s:.3f} s, read {read_s:.3f} s on "
+        f"the host; builds from the file {bf:.2f} s, from memory {bm:.2f} s; "
+        f"{chf}; launches {cf}; residual^2 {hf[0].item():.6g} -> "
+        f"{hf[-1].item():.6g}; checks {checks}")
+    res = {"n": n, "nnz": A.n_kernel, "bytes": size, "write_s": write_s,
+           "read_s": read_s, "build_s": {"file": bf, "memory": bm},
+           "chain": chf, "launches": cf, "checks": checks}
+    return res, [f"4o Matrix Market: {k}" for k, ok in checks.items()
+                 if not ok]
+
+
+def checkpoint_path(torch, lt, T, device):
+    """4o(c): the main path (2-D 5-point CG, N_GRID^2, f32) on one piece
+    and on PIECES pieces: ``s1.solve(UTILS_ITERS)``, ``save_checkpoint``,
+    ``load_checkpoint`` into a fresh ``s2``; ``s2.solve(UTILS_ITERS)``
+    equals ``s1.solve(UTILS_ITERS)`` continued, bit for bit, in the
+    history and x.  Returns (results, failed)."""
+    from legionsolvers_tpu_torch.entry import build_system
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+    from legionsolvers_tpu_torch.utils import io as TIO
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    res, failed = {}, []
+    for pieces in (1, PIECES):
+        mesh = (make_mesh(pieces, devices=[device] * pieces) if pieces > 1
+                else None)
+        make = lambda: lt.CGSolver(build_system(N_GRID, f32, device,
+                                                mesh=mesh))
+        s1 = make()
+        s1.solve(UTILS_ITERS)
+        path = UTILS_DIR / f"checkpoint_{pieces}.npz"
+        torch.cuda.synchronize()
+        _, save_s = timed(TIO.save_checkpoint, str(path), s1)
+        s2 = make()
+        _, load_s = timed(TIO.load_checkpoint, str(path), s2)
+        size = path.stat().st_size
+        path.unlink()
+        torch.cuda.synchronize()
+        h1 = s1.solve(UTILS_ITERS)
+        x1 = s1.planner.sol_vectors[0].data.clone()
+        T.reset_launch_counts()
+        h2 = s2.solve(UTILS_ITERS)
+        torch.cuda.synchronize()
+        launches = dict(T.LAUNCHES)
+        T.reset_launch_counts()
+        checks = {"history bit for bit": same_bits(h1, h2),
+                  "x bit for bit": same_bits(
+                      x1, s2.planner.sol_vectors[0].data),
+                  "kernels launched": sum(launches.values()) > 0}
+        label = f"{pieces} piece{'s' if pieces > 1 else ''}"
+        log(f"[utils] checkpoint {N_GRID}^2 on {label}: {size / 1e6:.1f} MB, "
+            f"save {save_s:.3f} s, load {load_s:.3f} s on the host; resumed "
+            f"solve({UTILS_ITERS}) launches {launches}; residual^2 "
+            f"{h2[0].item():.6g} -> {h2[-1].item():.6g}; checks {checks}")
+        res[label] = {"bytes": size, "save_s": save_s, "load_s": load_s,
+                      "launches": launches, "checks": checks}
+        failed += [f"4o checkpoint {label}: {k}" for k, ok in checks.items()
+                   if not ok]
+        del s1, s2, x1
+    return res, failed
+
+
+def utils_path(torch, np, lt, T, device, card):
+    """Phase 4o: the host library (a), Matrix Market to the card (b) and
+    checkpoints on the card (c).  Returns (results, failed)."""
+    t0 = time.perf_counter()
+    seconds = {}
+    UTILS_DIR.mkdir(parents=True, exist_ok=True)
+    scr = scrambled_laplacian(np, lt, UTILS_MM,
+                              lt.SolverOptions(entry_dtype=torch.float32))
+    results, failed = {}, []
+    results["library"], f = host_library(np, lt, scr, card)
+    failed += f
+    seconds["a"] = time.perf_counter() - t0
+    results["matrix_market"], f = matrix_market_path(torch, np, lt, T, device,
+                                                     scr)
+    failed += f
+    del scr
+    seconds["b"] = time.perf_counter() - t0 - seconds["a"]
+    results["checkpoint"], f = checkpoint_path(torch, lt, T, device)
+    failed += f
+    seconds["c"] = time.perf_counter() - t0 - seconds["a"] - seconds["b"]
+    results["seconds"] = seconds
+    log(f"[utils] 4o's parts, s: {seconds}")
+    return results, failed
+
+
+def build_seconds(torch, np, lt, device):
+    """``--builds``: the host seconds of phase 4e-g's three builds and 4k's
+    four (each build's matrix and planner seconds), with the library
+    loaded or not (LEGIONSOLVERS_NO_NATIVE), and the operator chains and
+    geometries they pick, logged also where they are not the ones the
+    phases check."""
+    from legionsolvers_tpu_torch.native import bindings as TN
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    out = {"library": TN.available()}
+    mesh = make_mesh(PIECES, devices=[device] * PIECES)
+    one = {}
+    for name in EXPLICIT:
+        try:
+            one[name] = build_explicit(torch, np, lt, name, device)
+            out[name] = one[name]["host_s"]
+        except AssertionError as e:
+            out[name] = str(e)
+    for name, (system, _) in XP_BUILDS.items():
+        try:
+            b = build_explicit_pieces(torch, np, lt, name, device, mesh,
+                                      one.get(system))
+            out[f"{name} on {PIECES} pieces"] = b["host_s"]
+            del b
+        except AssertionError as e:
+            out[f"{name} on {PIECES} pieces"] = str(e)
+    return out
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
                nflops, bw, library_ms=None, op_rate=F32_PEAK,
                grid_launches=None):
@@ -8315,6 +8621,15 @@ def main() -> int:
                         "host_s": {k: v["host_s"] for k, v in
                                    xp_builds.items()}}, default=str))
         return 1 if failed else 0
+    if "--utils" in argv:
+        ut_results, failed = utils_path(torch, np, lt, T, device, card)
+        mark("phase 4o")
+        log(json.dumps({"card": card, "utils": ut_results}, default=str))
+        return 1 if failed else 0
+    if "--builds" in argv:
+        log(json.dumps({"card": card, "host_s": build_seconds(
+            torch, np, lt, device)}, default=str))
+        return 0
     if "--flat1d" in argv:
         fl_attrs = flat_attrs(build.load_library())
         errs_f, errs_w = compare_flat_kernels(torch, T, TB, device)
@@ -8469,6 +8784,9 @@ def main() -> int:
             k: (systems[k], solvers_x[k]) for k in EXPLICIT})
     failed += f
     mark("phase 4k")
+    ut_results, f = utils_path(torch, np, lt, T, device, card)
+    failed += f
+    mark("phase 4o")
     fl_attrs = flat_attrs(build.load_library())
     errs_f, errs_w = compare_flat_kernels(torch, T, TB, device)
     fl_launches, fl_grid, fl_results, fl_solvers, f = flat1d_path(
@@ -8770,6 +9088,7 @@ def main() -> int:
                                        for (m, c), t in ztimes.items()},
                          "conv3d_ms": conv_ms, "conv3d_note": conv_why},
               "nop_ms": nop_times,
+              "utils": ut_results,
               "band": {"paths": bd_results,
                        "kernel_ms": {f"{m} {st}": t for
                                      (m, st), t in band_times.items()},

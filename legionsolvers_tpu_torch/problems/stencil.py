@@ -4,8 +4,9 @@ Port of ``legionsolvers_tpu/problems/stencil.py`` (reference:
 StencilGenerator.hpp:270-643).  A stencil is a list of
 ``(offset_vector, entry_value)`` pairs over an N-D grid; the matrix has
 ``A[p, p+o] = v`` for every grid point ``p`` with ``p+o`` in bounds, grid
-points linearized row-major.  Only the vectorized numpy fill is ported; the
-JAX package's native C++ fill waits for the ``native/`` slice.
+points linearized row-major.  The fill is the host library's C++ loop
+(``native/``) where it is loaded, else vectorized numpy; both give the
+same arrays.
 """
 
 from __future__ import annotations
@@ -49,10 +50,24 @@ def linear_offset(shape: Sequence[int], off: Offset) -> int:
 def stencil_coo_arrays(shape: Sequence[int], offsets: Stencil):
     """(rows, cols, vals, n), sorted row-major by (row, col) so COO and CSR
     agree on layout."""
+    from ..native import stencil_fill_coo
+
     shape = tuple(int(n) for n in shape)
     if not (1 <= len(shape) <= MAX_DIM):
         raise ValueError(f"stencil dim must be 1..{MAX_DIM}, got {len(shape)}")
     n = int(np.prod(shape))
+    # the library's fill walks the grid points in order and the offsets in
+    # the given order per point: sorted by linear offset (stably), its
+    # stream is (row, col)-sorted with no lexsort, as in the JAX package
+    lin = np.asarray([linear_offset(shape, o) for o, _ in offsets], np.int64)
+    ordered = [offsets[int(i)] for i in np.argsort(lin, kind="stable")]
+    res = stencil_fill_coo(
+        np.asarray(shape, np.int64),
+        np.asarray([o for o, _ in ordered], np.int64).reshape(
+            len(ordered), len(shape)),
+        np.asarray([v for _, v in ordered], np.float64))
+    if res is not None:
+        return (*res, n)
     strides = _strides(shape)
     rows_l, cols_l, vals_l = [], [], []
     for off, val in offsets:

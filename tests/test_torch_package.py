@@ -42,6 +42,9 @@ def test_import_does_not_load_jax():
             "legionsolvers_tpu_torch.ops.cuda.winell, "
             "legionsolvers_tpu_torch.ops.cuda.rowperm, "
             "legionsolvers_tpu_torch.native.bindings, "
+            "legionsolvers_tpu_torch.utils.io, "
+            "legionsolvers_tpu_torch.utils.debug, "
+            "legionsolvers_tpu_torch.utils.initialize, "
             "legionsolvers_tpu_torch.parallel.dia_op, "
             "legionsolvers_tpu_torch.parallel.winell_op, "
             "legionsolvers_tpu_torch.parallel.genspmv, "
@@ -344,10 +347,6 @@ def test_stencil_rmatvec_is_the_transpose(shape):
 DEFERRED = {
     # ROADMAP item 5g, several cards and processes
     "parallel.mesh.initialize_distributed": "item 5g",
-    # ROADMAP item 4, utilities
-    "utils.debug": "item 4",
-    "utils.initialize": "item 4",
-    "utils.io": "item 4",
     # JAX's pytree protocol (jax.tree_util registration): no torch use
     "core.vector.PartitionedVector.tree_flatten": "jax only",
     "core.vector.PartitionedVector.tree_unflatten": "jax only",
