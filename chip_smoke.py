@@ -42,7 +42,9 @@ systems of 4e-f too, to compare),
 and K1's nop mode (its check and its time), ``--wide2d`` phases 4n and 5n
 (K1 and K2 on their general route and K3, K4 and K5a-c on the band
 route, 2-D stencils with wide column shifts, at 4096^2), ``--utils``
-phase 4o (the host library, Matrix Market files and checkpoints).
+phase 4o (the host library, Matrix Market files and checkpoints),
+``--processes`` phase 4p (the main path over two processes; it starts two
+workers of this script, ``--worker RANK PORT DIR``).
 ``--builds`` prints the host seconds of phase 4e-g's three builds and 4k's
 four and the chains and geometries they pick (run it also under
 LEGIONSOLVERS_NO_NATIVE=1 for the numpy versions' seconds).
@@ -259,8 +261,8 @@ Pieces on one card (``parallel/mesh.py``, ``overlap.py``,
    :class:`shadowed`), and each solve driven by the plain versions (its
    twin: no kernel launched; its distance from float64, one piece's
    twin's and the kernels' solve's distance from it reported); the
-   CLI's ``-dim 2 -solver 1 -vp 4`` (PIECE_CLI_ITERS, half of N_ITERS:
-   host-bound, and its checks do not turn on the length);
+   CLI's ``-dim 2 -solver 1 -vp 4`` (PIECE_CLI_ITERS, a fifth of
+   N_ITERS: host-bound, and its checks do not turn on the length);
 5j. those solves' ms/iter and host enqueue ms/iter beside one piece's in
    the same process, the torch glue operations per pass counted on the
    host, the host enqueue of one K1, K4 and K3 update wrapper call (on a
@@ -445,6 +447,16 @@ with S2_past:
    ``save_checkpoint``, ``load_checkpoint`` into a fresh solver, whose
    solve(100) is the first one's next solve(100) bit for bit (history and
    x).  ``--utils`` runs 4o alone.
+4p. the main path over two processes sharing the card (gloo, 2 of the 4
+   shards each, through ``initialize_distributed``): (a) 2-D CG at
+   4096^2, s-step and two-pass, solve(200): history and x bit for bit the
+   one-process 4-piece mesh's on both ranks, each process's K1/K2 and
+   K3/K4 launches half of one process's; (b) the explicit 2048^2
+   Laplacian on the DiaOperator (K8 per piece) and (c) on the sharded ELL
+   (K9 per piece): one matvec bit for bit, the solve(200) history and x
+   within phase 4k's envelope against float64 CG; (d) the f64 golden
+   exactly; the ms/iter beside one process's.  ``--processes`` runs 4p
+   alone.
 
 To make room for 4m and 5m, phase 5j's and 5k's idle traces cover about
 TRACE_OPS (2000) glue operations each, a third of what they did.
@@ -2604,7 +2616,7 @@ GAP_AT = {("cg", "dia"): N_ITERS, ("cg", "scrambled"): N_ITERS,
 X_GAP_FLOOR = 1e-3   # ||b - Ax||^2 vs history: twice textbook f32, or this
 X_F64_FLOOR = 1e-4   # history and x vs float64: twice textbook f32, or this
 EAGER_X_RTOL = 1e-5  # eager step()s vs the solve: other summation orders
-GRADED_N, GRADED_BW = 4 * 1024 * 1024, 512
+GRADED_N, GRADED_BW = 1 << 20, 512
 
 
 def chain(op):
@@ -3970,15 +3982,15 @@ def block_state(solver):
             for s in range(planner.num_spaces)]
 
 
-def block_run(torch, T, solver, modules):
-    """One solve(200) from x0 = 0: (history, [x per space], launches,
+def block_run(torch, T, solver, modules, iters=N_ITERS):
+    """One solve(iters) from x0 = 0: (history, [x per space], launches,
     calls of a plain version, calls of ``cg2_coeffs``)."""
     with counted_calls(plain_names(*modules), solver) as plain, \
             counted_calls([(T, "cg2_coeffs")], solver) as coeffs:
         restart(solver)
         torch.cuda.synchronize()
         T.reset_launch_counts()
-        hist = solver.solve(N_ITERS)
+        hist = solver.solve(iters)
         torch.cuda.synchronize()
         counts = dict(T.LAUNCHES)
         T.reset_launch_counts()
@@ -4185,7 +4197,7 @@ PIECE_SEED = 3
 # the CLI runs of phase 4j (-vp 4) iterate half of N_ITERS: they are
 # host-bound, and their checks (report, schedule, exact launches) do not
 # turn on the length
-PIECE_CLI_ITERS = N_ITERS // 2
+PIECE_CLI_ITERS = N_ITERS // 5
 PIECE_CLI = ["-dim", "2", "-nx", str(N_GRID), "-ny", str(N_GRID),
              "-solver", "1", "-it", str(PIECE_CLI_ITERS), "-vp", "4"]
 
@@ -4723,8 +4735,13 @@ def profile_piece_solves(torch, solvers, times, card):
 # (K5a-c zero-halo with its edge fix-ups), BiCGStab step() on 3-D pieces,
 # GMRES and PCG on 2-D pieces, block systems on pieces and the CLI's -vp
 PIECES = 4
-PIECE3_LAUNCHES = {"pq3d": PIECES, "update3d": PIECES * N_ITERS,
-                   "xpay_pq3d": PIECES * (N_ITERS - 1)}
+# 4j's 3-D CG and block systems on pieces run half as long as the other
+# solves: their checks do not turn on the length, and the phase is
+# host-bound
+PIECE_ITERS = N_ITERS // 2
+PIECE3_ONE = {"pq3d": 1, "update3d": PIECE_ITERS,
+              "xpay_pq3d": PIECE_ITERS - 1}
+PIECE3_LAUNCHES = {m: PIECES * k for m, k in PIECE3_ONE.items()}
 PIECE_BICG_LAUNCHES = {m: PIECES * N_ITERS for m in BICG_KERNELS}
 BICG3_STEP_ITERS = 50
 TRACE_OPS = 2000  # glue operations a 5j or 5k idle trace aims at
@@ -4805,8 +4822,9 @@ def pieces_solvers_path(torch, np, T, TB, T3, TB3, lt, device):
 
     * the 3-D matvec, 7- and 27-point, at 4 and 8 pieces of 256^3 against
       one piece (4 eps max|x| sum|v|; whether y is bit for bit);
-    * 3-D two-pass CG solve(200) on 4 pieces, 7- and 27-point: launches
-      exactly (K6a pq 4, K6b 796, K6a update 800), the history and x within
+    * 3-D two-pass CG solve(PIECE_ITERS = 100) on 4 pieces, 7- and
+      27-point: launches exactly (K6a pq 4, K6b 396, K6a update 400), one
+      piece's 1, 99, 100, the history and x within
       phase 4c's envelope against float64 CG, a repeat bit for bit;
     * the fused 2-D BiCGStab solve(200) on 4 pieces at 4096^2 with f32
       and with compensated dots, and at 256^2 with compensated dots: K5a-c
@@ -4828,7 +4846,8 @@ def pieces_solvers_path(torch, np, T, TB, T3, TB3, lt, device):
       test's bound) and within twice textbook f32 CG's distance from
       float64 CG (PCG: two f32 codes of one recurrence, as phase 4 holds
       f32 CG), launches 4 x one piece's;
-    * block systems of 2 spaces on 4 pieces (PIECE_BLOCK_RUNS): launches
+    * block systems of 2 spaces on 4 pieces (PIECE_BLOCK_RUNS),
+      solve(PIECE_ITERS): launches
       exactly twice one space's on the same pieces, the history exactly
       2x, every space's x bit for bit one space's;
     * the CLI's ``-vp 4`` for PIECE_CLI_RUNS: exits, reports 4 pieces, a
@@ -4856,6 +4875,8 @@ def pieces_solvers_path(torch, np, T, TB, T3, TB3, lt, device):
             launches[key] = launches.get(key, 0) + c
             grid[key] = grid.get(key, 0.0) + c / S
 
+    t_run = time.perf_counter()
+
     def record(name, chk, res):
         for k, ok in chk.items():
             checks[f"{name}: {k}"] = ok
@@ -4864,6 +4885,8 @@ def pieces_solvers_path(torch, np, T, TB, T3, TB3, lt, device):
         log(f"[pieces] {name}: " + "; ".join(
             f"{k} {v}" for k, v in res.items() if k != "checks")
             + "; checks " + "; ".join(f"{k} {ok}" for k, ok in chk.items()))
+        log(f"[elapsed] phase 4j, {name}: "
+            f"{time.perf_counter() - t_run:.1f} s")
 
     def shadow_run(solver, iters, **mods):
         with shadowed(T, solver, **mods) as sh:
@@ -4921,17 +4944,19 @@ def pieces_solvers_path(torch, np, T, TB, T3, TB3, lt, device):
         solver = lt.CGSolver(build_stencil_system(dim, SHAPE3, f32,
                                                   mesh=mesh(PIECES)))
         single = lt.CGSolver(build_stencil_system(dim, SHAPE3, f32, device))
-        solvers[name] = (solver, single, None, None, N_ITERS,
-                         (24 + 32 * (N_ITERS - 1)) * n3)
-        h1, (x1,), c1, p1, _ = block_run(torch, T, single, modules)
-        h, (xs,), c, p, _ = block_run(torch, T, solver, modules)
-        h2, (xs2,), c2, _, _ = block_run(torch, T, solver, modules)
-        sh = shadow_run(solver, N_ITERS, T3=T3)
+        solvers[name] = (solver, single, None, None, PIECE_ITERS,
+                         (24 + 32 * (PIECE_ITERS - 1)) * n3)
+        h1, (x1,), c1, p1, _ = block_run(torch, T, single, modules,
+                                         PIECE_ITERS)
+        h, (xs,), c, p, _ = block_run(torch, T, solver, modules, PIECE_ITERS)
+        h2, (xs2,), c2, _, _ = block_run(torch, T, solver, modules,
+                                         PIECE_ITERS)
+        sh = shadow_run(solver, PIECE_ITERS, T3=T3)
         A = stencil_matvec(torch, lt, dim)
-        h64, x64 = classic_cg(torch, SHAPE3, N_ITERS, torch.float64, device,
-                              A)
-        h32, x32 = classic_cg(torch, SHAPE3, N_ITERS, torch.float32, device,
-                              A)
+        h64, x64 = classic_cg(torch, SHAPE3, PIECE_ITERS, torch.float64,
+                              device, A)
+        h32, x32 = classic_cg(torch, SHAPE3, PIECE_ITERS, torch.float32,
+                              device, A)
         env = {"textbook f32": (max_rel(h32, h64), x_rel(x32, x64)),
                "pieces": (max_rel(h, h64), x_rel(xs, x64)),
                "one piece": (max_rel(h1, h64), x_rel(x1, x64))}
@@ -4939,7 +4964,7 @@ def pieces_solvers_path(torch, np, T, TB, T3, TB3, lt, device):
         add(c, PIECES, dim)
         record(name, {
             f"launches exactly {PIECE3_LAUNCHES}": c == c2 == PIECE3_LAUNCHES
-            and c1 == SOLVE3_LAUNCHES["cg"],
+            and c1 == PIECE3_ONE,
             "no plain version called": p + p1 == 0,
             "history and x within twice textbook f32 CG's distance from "
             f"float64 CG (floor {CG3_F64_FLOOR})":
@@ -5156,14 +5181,17 @@ def pieces_solvers_path(torch, np, T, TB, T3, TB3, lt, device):
                                          mesh=mesh(PIECES)))
         single = cls(build_stencil_system(dim, shape, f32, mesh=mesh(PIECES)))
         with env_route(env, block, single):
-            h1, (x1,), c1, p1, k1 = block_run(torch, T, single, modules)
-            h, xs, c, p, k = block_run(torch, T, block, modules)
-            h2, xs2, c2, _, _ = block_run(torch, T, block, modules)
-            sh = shadow_run(block, N_ITERS, TB=TB, T3=T3)
+            h1, (x1,), c1, p1, k1 = block_run(torch, T, single, modules,
+                                              PIECE_ITERS)
+            h, xs, c, p, k = block_run(torch, T, block, modules,
+                                       PIECE_ITERS)
+            h2, xs2, c2, _, _ = block_run(torch, T, block, modules,
+                                          PIECE_ITERS)
+            sh = shadow_run(block, PIECE_ITERS, TB=TB, T3=T3)
         twice = {m: 2 * n for m, n in c1.items()}
         add(c, PIECES, dim)
         solvers[f"{name}, {PIECES} pieces"] = (block, single, env, env,
-                                               N_ITERS, None)
+                                               PIECE_ITERS, None)
         record(f"{name}, {PIECES} pieces", {
             "launches exactly twice one space's on the same pieces":
                 bool(c1) and c == c2 == twice,
@@ -8468,6 +8496,330 @@ def utils_path(torch, np, lt, T, device, card):
     return results, failed
 
 
+# ---------------------------------------------------------------------------
+# phase 4p: a mesh over two processes sharing the card
+# ---------------------------------------------------------------------------
+
+PROC_RANKS = 2                # workers, PIECES // PROC_RANKS pieces each
+PROC_DIA = N_GRID // 2        # 4p(b), (c): the explicit 5-point Laplacian
+PROC_TIMEOUT_S = 300          # each worker's limit
+PROC_REPS = 200               # exchanges timed per helper
+PROC_TIMED = N_ITERS // 4     # iterations of each timed solve
+PROC_DIR = pathlib.Path("build") / "processes_4p"  # the workers' results
+PROC_LAUNCHES = {"s-step": ("step2", "gram2"),
+                 "two-pass": ("pq", "update", "xpay_pq"),
+                 "DIA": ("dia2d_dot",), "ELL": ("winell",)}
+
+
+def proc_runs(torch, np, lt, T, device, mesh):
+    """The solves of phase 4p on ``mesh`` (4 pieces, on one process or
+    this process's of a mesh over processes): (a) 2-D CG at N_GRID^2,
+    s-step and two-pass; (b) the explicit PROC_DIA^2 Laplacian on the
+    DiaOperator, (c) on the sharded ELL; each one matvec of a seeded x
+    and one counted solve(N_ITERS), then a timed solve(PROC_TIMED) after
+    a warm-up one; (d) the f64 golden.
+    {key: numpy array} of this process's pieces, launches as JSON."""
+    from legionsolvers_tpu_torch.entry import (
+        build_explicit_system,
+        build_stencil_system,
+    )
+
+    f32 = lt.SolverOptions(entry_dtype=torch.float32)
+    f64 = lt.SolverOptions(entry_dtype=torch.float64)
+    out = {}
+
+    def solve(label, planner):
+        solver = lt.CGSolver(planner)
+        torch.cuda.synchronize()
+        T.reset_launch_counts()
+        h = solver.solve(N_ITERS)
+        torch.cuda.synchronize()
+        out[f"{label} launches"] = np.array(json.dumps(dict(T.LAUNCHES)))
+        out[f"{label} hist"] = h.cpu().numpy()
+        out[f"{label} x"] = planner.sol_vectors[0].data.cpu().numpy() \
+            .reshape(-1)
+        restart(solver)
+        solver.solve(PROC_TIMED)  # its runner built before the clock
+        restart(solver)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve(PROC_TIMED)
+        torch.cuda.synchronize()
+        out[f"{label} ms"] = np.array(
+            (time.perf_counter() - t0) * 1e3 / PROC_TIMED)
+        T.reset_launch_counts()
+
+    for label, switch in (("s-step", None),
+                          ("two-pass", "LEGIONSOLVERS_NO_SSTEP")):
+        with env_route(switch):
+            solve(label, build_stencil_system(2, (N_GRID, N_GRID), f32,
+                                              mesh=mesh))
+    A = lt.create_coo_stencil_matrix((PROC_DIA, PROC_DIA),
+                                     lt.laplacian_stencil(2), options=f32)
+    n = PROC_DIA * PROC_DIA
+    x = np.random.default_rng(PIECE_SEED).standard_normal(n) \
+        .astype(np.float32)
+    for label, switches in (("DIA", ()), ("ELL", ("LEGIONSOLVERS_NO_DIA",
+                                                 "LEGIONSOLVERS_NO_RCM"))):
+        with contextlib.ExitStack() as stack:
+            for sw in switches:
+                stack.enter_context(env_route(sw))
+            planner = build_explicit_system(A, f32, mesh=mesh)
+        op = planner.row_partitioned_matrices[0][0]
+        out[f"{label} chain"] = np.array(json.dumps(chain(op)))
+        out[f"{label} windowed"] = np.array(
+            getattr(op, "_win", None) is not None)
+        v = lt.PartitionedVector.from_array(
+            "x", x, lt.BlockPartition(n, PIECES), mesh=mesh, options=f32,
+            device=device)
+        out[f"{label} matvec"] = op.matvec(v.data).cpu().numpy()
+        solve(label, planner)
+        del planner, op, v
+    golden = build_explicit_system(
+        lt.coo_negative_laplacian_1d(100, options=f64), f64, mesh=mesh)
+    out["golden"] = lt.CGSolver(golden).solve(10).cpu().numpy()
+    out["golden chain"] = np.array(json.dumps(chain(
+        golden.row_partitioned_matrices[0][0])))
+    return out
+
+
+def proc_exchange_us(torch, device, mesh):
+    """Host µs per call of the two helpers a pass of the 2-D CG crosses
+    processes with, on this process's pieces: a shift of 4-row halos of
+    r and p (``mesh.shift_pieces``) and a gather of Gram vectors
+    (``mesh.gather_pieces``), PROC_REPS calls each after a warm-up."""
+    from legionsolvers_tpu_torch.parallel.mesh import (
+        gather_pieces,
+        shift_pieces,
+    )
+
+    S = mesh.local_size
+    halo = torch.ones(S, 2, 4, N_GRID, device=device)
+    gram = torch.ones(S, 10, device=device)
+    us = {}
+    for name, fn in (("shift of 4-row halos", lambda: shift_pieces(
+            mesh, halo, 1, wrap=False)),
+                     ("gather of Gram vectors", lambda: gather_pieces(
+                         mesh, gram))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROC_REPS):
+            fn()
+        torch.cuda.synchronize()
+        us[name] = (time.perf_counter() - t0) * 1e6 / PROC_REPS
+    return us
+
+
+def proc_worker(torch, np, lt, T, build, rank, port, outdir,
+                device="cuda:0"):
+    """``--worker RANK PORT DIR``: one of PROC_RANKS processes of phase
+    4p.  It loads the kernel library the parent built (and fails if that
+    would start nvcc), joins the gloo group, builds the 4-shard mesh of
+    its PIECES // PROC_RANKS local shards on the card, runs
+    :func:`proc_runs` and writes ``DIR/rank<RANK>.npz``."""
+    from legionsolvers_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        make_mesh,
+    )
+
+    if device.startswith("cuda"):
+        torch.cuda.set_device(device)
+    if not build.library_path().exists():
+        raise RuntimeError("the kernel library is not built: a worker "
+                           "starts no nvcc")
+    build.load_library()
+    initialize_distributed(f"127.0.0.1:{port}", PROC_RANKS, rank)
+    mesh = make_mesh(PIECES, devices=[device] * (PIECES // PROC_RANKS))
+    assert mesh.spans_processes and mesh.rank == rank, mesh
+    out = proc_runs(torch, np, lt, T, device, mesh)
+    out["exchange us"] = np.array(json.dumps(proc_exchange_us(torch, device,
+                                                              mesh)))
+    out["local range"] = np.array(mesh.local_range)
+    out["library"] = np.array(build.BUILD_INFO["log"])
+    np.savez(pathlib.Path(outdir) / f"rank{rank}.npz", **out)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    log(f"[processes] worker {rank} done")
+    return 0
+
+
+def proc_start(outdir):
+    """Start the PROC_RANKS workers (fresh interpreters, never a fork of
+    this CUDA process) on a free loopback port; their (process, log
+    file) pairs."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(PROC_RANKS):
+        f = open(pathlib.Path(outdir) / f"rank{r}.log", "w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", str(r),
+             str(port), str(outdir)], stdout=f, stderr=subprocess.STDOUT),
+            f))
+    return procs
+
+
+def proc_finish(procs):
+    """Wait for the workers, each within PROC_TIMEOUT_S of the start,
+    killing all on a timeout; [(return code or "timeout", log tail)]."""
+    t_end = time.perf_counter() + PROC_TIMEOUT_S
+    res = []
+    for p, f in procs:
+        try:
+            rc = p.wait(timeout=max(1.0, t_end - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        res.append(rc)
+    for p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    tails = []
+    for (p, f), rc in zip(procs, res):
+        f.seek(0)
+        tails.append((rc, f.read()[-3000:]))
+        f.close()
+    return tails
+
+
+def processes_path(torch, np, lt, T, device, card):
+    """Phase 4p: the main path over two processes.  The same runs
+    (:func:`proc_runs`) on a one-process 4-piece mesh of the card, then in
+    PROC_RANKS worker processes of this script (``--worker``), each with
+    2 of the 4 shards on the same card, joined by
+    ``initialize_distributed`` (gloo; NCCL refuses two ranks on one card).
+    Held: (a) the s-step and the two-pass CG histories and x bit for bit
+    the one-process mesh's, the history on both ranks, each process's
+    K1/K2 (s-step) and K3/K4 (two-pass) launches half the one-process
+    ones; (b) the DiaOperator and (c) the sharded ELL (windowed, K9): one
+    matvec bit for bit, the solve(N_ITERS) history and x within twice
+    textbook f32's distance from float64 CG (phase 4k's envelope) and
+    equal on both ranks, half the launches; (d) the f64 golden exactly.
+    Every worker must finish within PROC_TIMEOUT_S with its results;
+    there is no fallback to one process.  Prints each solve's ms/iter
+    beside one process's and the host µs of the exchanges.  Returns
+    (results, failed)."""
+    from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    one_mesh = make_mesh(PIECES, devices=[device] * PIECES)
+    ref = proc_runs(torch, np, lt, T, device, one_mesh)
+    ref_us = proc_exchange_us(torch, device, one_mesh)
+    t_ref = time.perf_counter() - t0
+    shape = (PROC_DIA, PROC_DIA)
+    h64, x64 = classic_cg(torch, shape, N_ITERS, torch.float64, device)
+    h32, x32 = classic_cg(torch, shape, N_ITERS, torch.float32, device)
+    env_t = max_rel(h32, h64)
+    env_x = x_rel(x32, x64)
+    torch.cuda.empty_cache()
+    PROC_DIR.mkdir(parents=True, exist_ok=True)
+    for f in PROC_DIR.glob("rank*"):
+        f.unlink()
+    t1 = time.perf_counter()
+    tails = proc_finish(proc_start(PROC_DIR))
+    t_workers = time.perf_counter() - t1
+    checks, results = {}, {"one process": {
+        k: (v.tolist() if v.ndim == 0 else None) for k, v in ref.items()
+        if k.endswith(" ms")}}
+    ranks = []
+    for r, (rc, tail) in enumerate(tails):
+        path = PROC_DIR / f"rank{r}.npz"
+        ok = rc == 0 and path.exists()
+        checks[f"worker {r} finished within {PROC_TIMEOUT_S} s with its "
+               "results"] = ok
+        if not ok:
+            log(f"[processes] worker {r}: {rc}\n{tail}")
+            continue
+        with np.load(path) as f:
+            ranks.append({k: f[k] for k in f.files})
+        checks[f"worker {r} loaded the built library (no nvcc)"] = (
+            str(ranks[-1]["library"]) == "(cached)")
+    if len(ranks) == PROC_RANKS:
+        whole = lambda key: np.concatenate([o[key] for o in ranks])
+        launches = lambda o, lab: json.loads(str(o[f"{lab} launches"]))
+        bits = lambda a, b: a.dtype == b.dtype and a.shape == b.shape and (
+            a.tobytes() == b.tobytes())
+        for lab in ("s-step", "two-pass", "DIA", "ELL"):
+            want = launches(ref, lab)
+            half = all(all(launches(o, lab).get(m, 0) * PROC_RANKS
+                           == want.get(m, -1) > 0
+                           for m in PROC_LAUNCHES[lab]) for o in ranks)
+            checks[f"({lab}) each process launches half of one process's "
+                   f"{PROC_LAUNCHES[lab]}"] = half
+            checks[f"({lab}) the same history on every rank"] = all(
+                bits(o[f"{lab} hist"], ranks[0][f"{lab} hist"])
+                for o in ranks)
+            res = {"launches per process": [launches(o, lab) for o in ranks],
+                   "launches one process": want,
+                   "ms/iter per process": [float(o[f"{lab} ms"])
+                                           for o in ranks],
+                   "ms/iter one process": float(ref[f"{lab} ms"])}
+            h, x = ranks[0][f"{lab} hist"], whole(f"{lab} x")
+            if lab in ("s-step", "two-pass"):
+                checks[f"(a) {lab}: history and x bit for bit one "
+                       "process's"] = (bits(h, ref[f"{lab} hist"])
+                                       and bits(x, ref[f"{lab} x"]))
+            else:
+                want_chain = (["DiaOperator"] if lab == "DIA"
+                              else ["RowPartitionedMatrix"])
+                checks[f"({lab}) the planner picks {want_chain}"
+                       + (", windowed (K9)" if lab == "ELL" else "")] = all(
+                    json.loads(str(o[f"{lab} chain"])) == want_chain
+                    and (lab == "DIA" or bool(o[f"{lab} windowed"]))
+                    for o in ranks)
+                checks[f"({lab}) one matvec bit for bit one process's"] = \
+                    bits(whole(f"{lab} matvec"), ref[f"{lab} matvec"])
+                ht, xt = torch.from_numpy(h), torch.from_numpy(x).to(device)
+                dev_k = max_rel(ht.to(device), h64)
+                dev_x = x_rel(xt, x64)
+                res.update({
+                    "vs float64 (history, x)": (dev_k, dev_x),
+                    "textbook f32 vs float64": (env_t, env_x),
+                    "vs one process (history, x)": (
+                        max_rel(ht, torch.from_numpy(ref[f"{lab} hist"])),
+                        x_rel(xt, torch.from_numpy(ref[f"{lab} x"])
+                              .to(device).double()))})
+                checks[f"({lab}) history and x within twice textbook f32's "
+                       "distance from float64 (phase 4k's envelope)"] = (
+                    bool(np.isfinite(h).all()) and bool(np.isfinite(x).all())
+                    and dev_k <= max(2 * env_t, X_F64_FLOOR)
+                    and dev_x <= max(2 * env_x, X_F64_FLOOR))
+            results[lab] = res
+            log(f"[processes] {lab}: ms/iter per process "
+                f"{res['ms/iter per process']}, one process "
+                f"{res['ms/iter one process']:.4f}; launches per process "
+                f"{res['launches per process']}, one process {want}"
+                + (f"; vs float64 {res['vs float64 (history, x)']}, "
+                   f"textbook f32 {res['textbook f32 vs float64']}, vs one "
+                   f"process {res['vs one process (history, x)']}"
+                   if "vs float64 (history, x)" in res else "")
+                + f" on {card}")
+        checks["(d) the f64 golden exactly, on every rank and on one "
+               "process, through the DiaOperator"] = all(
+            o["golden"].tolist() == GOLDEN
+            and json.loads(str(o["golden chain"])) == ["DiaOperator"]
+            for o in ranks + [ref])
+        results["exchange us"] = {
+            "per process": [json.loads(str(o["exchange us"]))
+                            for o in ranks], "one process": ref_us}
+        log(f"[processes] host µs per call, per process "
+            f"{results['exchange us']['per process']}, one process (device "
+            f"copies) {ref_us} on {card}")
+    results["seconds"] = {"one process": t_ref, "workers": t_workers}
+    failed = [k for k, ok in checks.items() if not ok]
+    results["checks"] = checks
+    log(f"[processes] one process {t_ref:.1f} s, workers {t_workers:.1f} s; "
+        f"checks: {len(checks) - len(failed)} of {len(checks)} hold"
+        + (f"; FAILED: {failed}" if failed else ""))
+    for f in PROC_DIR.glob("rank*.npz"):
+        f.unlink()
+    return results, failed
+
+
 def build_seconds(torch, np, lt, device):
     """``--builds``: the host seconds of phase 4e-g's three builds and 4k's
     four (each build's matrix and planner seconds), with the library
@@ -8552,6 +8904,9 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 2
+    if argv and argv[0] == "--worker":  # one process of phase 4p
+        return proc_worker(torch, np, lt, T, build, int(argv[1]),
+                           int(argv[2]), argv[3])
 
     torch.cuda.set_device(0)
     device = "cuda:0"
@@ -8625,6 +8980,11 @@ def main() -> int:
         ut_results, failed = utils_path(torch, np, lt, T, device, card)
         mark("phase 4o")
         log(json.dumps({"card": card, "utils": ut_results}, default=str))
+        return 1 if failed else 0
+    if "--processes" in argv:
+        pp_results, failed = processes_path(torch, np, lt, T, device, card)
+        mark("phase 4p")
+        log(json.dumps({"card": card, "processes": pp_results}, default=str))
         return 1 if failed else 0
     if "--builds" in argv:
         log(json.dumps({"card": card, "host_s": build_seconds(
@@ -8787,6 +9147,9 @@ def main() -> int:
     ut_results, f = utils_path(torch, np, lt, T, device, card)
     failed += f
     mark("phase 4o")
+    pp_results, f = processes_path(torch, np, lt, T, device, card)
+    failed += f
+    mark("phase 4p")
     fl_attrs = flat_attrs(build.load_library())
     errs_f, errs_w = compare_flat_kernels(torch, T, TB, device)
     fl_launches, fl_grid, fl_results, fl_solvers, f = flat1d_path(
@@ -9089,6 +9452,7 @@ def main() -> int:
                          "conv3d_ms": conv_ms, "conv3d_note": conv_why},
               "nop_ms": nop_times,
               "utils": ut_results,
+              "processes": pp_results,
               "band": {"paths": bd_results,
                        "kernel_ms": {f"{m} {st}": t for
                                      (m, st), t in band_times.items()},

@@ -9,9 +9,13 @@ only inside the fused CG runners, on buffers the solver owns.
 
 On a mesh (``parallel/mesh.py``) the tensor stays one padded tensor on the
 mesh's one device: piece ``s`` is the row block ``[s * B, (s + 1) * B)``
-(in grid layout rows ``[s * Br, (s + 1) * Br)``), a contiguous view.  A
-mesh over several distinct devices raises NotImplementedError (ROADMAP §1
-item 5g).
+(in grid layout rows ``[s * Br, (s + 1) * Br)``), a contiguous view.  On a
+mesh over processes the tensor holds this process's pieces only, ``[lo,
+hi)``: ``[(hi - lo) * B]``, or ``[(hi - lo) * Br, ...]`` in grid layout;
+fills, ``from_array`` and ``random_fill`` give each process its slice of
+the one-process vector, and ``dot`` and ``to_numpy`` are collectives.  A
+mesh over several distinct devices of one process raises
+NotImplementedError (ROADMAP §1 item 5g (ii)).
 """
 
 from __future__ import annotations
@@ -23,7 +27,15 @@ import torch
 
 from ..options import DEFAULT_OPTIONS, SHARD_AXIS, SolverOptions
 from ..ops import blas1
-from ..parallel.mesh import NamedSharding, resolve_mesh
+from ..parallel.mesh import (
+    NamedSharding,
+    gather_pieces,
+    gather_vector,
+    ordered_sum,
+    piece_range,
+    resolve_mesh,
+    spans_processes,
+)
 from .partition import BlockPartition
 from .scalar import Scalar, alpha_from_scalars
 
@@ -38,6 +50,23 @@ def _resolve_alpha(args: Sequence[AlphaLike]) -> torch.Tensor:
     return alpha_from_scalars(
         [a if isinstance(a, Scalar) else Scalar(a) for a in args]
     )
+
+
+def piece_dot(mesh, a: torch.Tensor, b: torch.Tensor, num: int,
+              compensated: bool = False) -> torch.Tensor:
+    """<a, b> over a mesh over processes: each of the ``num`` local
+    pieces' sum (compensated: exact f32 products summed in float64 and
+    rounded once), gathered and added in piece order, the JAX package's
+    psum of per-shard sums; in ``a``'s dtype."""
+    a2, b2 = a.reshape(num, -1), b.reshape(num, -1)
+    if compensated:
+        parts = torch.stack([
+            torch.sum(a2[s].to(torch.float32).double()
+                      * b2[s].to(torch.float32).double()).to(torch.float32)
+            for s in range(num)])
+    else:
+        parts = torch.stack([torch.sum(a2[s] * b2[s]) for s in range(num)])
+    return ordered_sum(gather_pieces(mesh, parts), a.dtype)
 
 
 class PartitionedVector:
@@ -61,6 +90,8 @@ class PartitionedVector:
         self.name = name
         self.partition = partition
         self.mesh, self.device = resolve_mesh(mesh, partition, device)
+        # the pieces this process holds: all of them but on a process mesh
+        self._lo, self._hi = piece_range(self.mesh, partition.num_pieces)
         self.options = options
         if grid_shape is not None:
             grid_shape = tuple(int(d) for d in grid_shape)
@@ -80,7 +111,21 @@ class PartitionedVector:
             self._data = self._zeros()
 
     def _shape(self):
-        return self.grid_shape or (self.partition.padded_size,)
+        S, num = self.partition.num_pieces, self._hi - self._lo
+        if self.grid_shape is not None:
+            g = self.grid_shape
+            return (g[0] // S * num,) + g[1:]
+        return (self.partition.block_size * num,)
+
+    def _n_local(self) -> int:
+        """The true (unpadded) entries among this process's pieces."""
+        B = self.partition.block_size
+        return min(max(self.n - self._lo * B, 0), (self._hi - self._lo) * B)
+
+    def _slice(self, whole: torch.Tensor) -> torch.Tensor:
+        """This process's pieces of a whole padded flat vector."""
+        B = self.partition.block_size
+        return whole[self._lo * B: self._hi * B]
 
     def _zeros(self) -> torch.Tensor:
         return torch.zeros(
@@ -148,7 +193,7 @@ class PartitionedVector:
                 grid_shape=grid_shape, lazy=True, device=device)
         padded = torch.zeros(partition.padded_size, dtype=options.entry_dtype)
         padded[: partition.n] = torch.from_numpy(values.copy())
-        v.data = padded.reshape(v._shape()).to(v.device)
+        v.data = v._slice(padded).reshape(v._shape()).to(v.device)
         return v
 
     # -- fills (reference: PartitionedVector.cpp:151-172) -------------------
@@ -156,7 +201,7 @@ class PartitionedVector:
         if self.grid_shape is not None:  # grid layout has no padding
             self.data = torch.full_like(self.data, value)
         else:
-            self.data = blas1.masked_fill(self.data, value, self.n)
+            self.data = blas1.masked_fill(self.data, value, self._n_local())
         return self
 
     def zero_fill(self) -> "PartitionedVector":
@@ -172,7 +217,7 @@ class PartitionedVector:
         d = torch.full(self._shape(), value, dtype=self.options.entry_dtype,
                        device=self.device)
         if self.grid_shape is None:
-            d[self.n:] = 0
+            d[self._n_local():] = 0
         self.data = d
         return self
 
@@ -181,7 +226,9 @@ class PartitionedVector:
     ) -> "PartitionedVector":
         """Uniform fill from an explicit ``torch.Generator`` on the vector's
         device (reference: RandomFillTask, UtilityTasks.cpp:128-166).  The
-        default generator is seeded with 0."""
+        default generator is seeded with 0.  On a process mesh every
+        process draws the whole vector and keeps its pieces, so the values
+        are the one-process vector's."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         vals = torch.rand(
@@ -190,7 +237,7 @@ class PartitionedVector:
         )
         vals = vals * (hi - lo) + lo
         vals[self.n:] = 0
-        self.data = vals.reshape(self._shape())
+        self.data = self._slice(vals).reshape(self._shape())
         return self
 
     # -- copy (reference: operator=, PartitionedVector.cpp:176-191) ---------
@@ -231,15 +278,23 @@ class PartitionedVector:
         return self
 
     def dot(self, other: "PartitionedVector") -> Scalar:
+        """<self, other>; on a process mesh a collective
+        (:func:`piece_dot`)."""
+        if spans_processes(self.mesh):
+            return Scalar(piece_dot(self.mesh, self.data, other.data,
+                                    self._hi - self._lo))
         return Scalar(blas1.dot(self.data, other.data))
 
     def norm2(self) -> Scalar:
-        return Scalar(blas1.norm2(self.data))
+        return self.dot(self)
 
     # -- materialization ----------------------------------------------------
     def to_numpy(self) -> np.ndarray:
-        """The true (unpadded) values on the host, flattened."""
-        return self.data.detach().cpu().numpy().reshape(-1)[: self.n]
+        """The true (unpadded) values on the host, flattened.  On a process
+        mesh it gathers every process's pieces: a collective, which every
+        process must call."""
+        data = gather_vector(self.mesh, self.data.reshape(-1))
+        return data.detach().cpu().numpy()[: self.n]
 
     def print(self) -> None:
         """Debug dump (reference: PrintVectorTask path)."""

@@ -9,10 +9,12 @@ whenever the operator's kernel view is active (1-D vectors in the
 block system of ``--block``, the same operator registered once per space
 (reference: BenchmarkStencil.cpp:201-207).  ``pieces`` and ``mesh``
 partition the system as the JAX CLI's ``-vp`` does: a mesh from
-``parallel/mesh.make_mesh`` (all of its shards on one device) runs the
-operator on its pieces.  :func:`build_system` is its 2-D square case, as
-``__graft_entry__._build_system(n_grid, mesh, pieces, options)`` builds
-it.  ``stencil`` replaces the ``-dim`` stencil by any stencil over the
+``parallel/mesh.make_mesh`` (its shards on one device, or, after
+``initialize_distributed``, on the processes of a run, each process
+building and holding its own pieces; block systems are refused there)
+runs the operator on its pieces.  :func:`build_system` is its 2-D square
+case, as ``__graft_entry__._build_system(n_grid, mesh, pieces, options)``
+builds it.  ``stencil`` replaces the ``-dim`` stencil by any stencil over the
 same grid (a list of (offset, value) pairs, as ``laplacian_stencil``
 returns), with everything else as the CLI builds it.
 :func:`build_explicit_system` is the explicit-matrix counterpart of
@@ -33,7 +35,7 @@ import numpy as np
 from .core.partition import BlockPartition
 from .core.vector import PartitionedVector
 from .options import DEFAULT_OPTIONS, SolverOptions
-from .parallel.mesh import num_shards, resolve_mesh
+from .parallel.mesh import num_shards, refuse_processes, resolve_mesh
 from .parallel.stencil_op import StencilOperator
 from .planner import SquarePlanner
 from .problems.stencil import laplacian_stencil, stencil_grid_ndim
@@ -55,6 +57,8 @@ def build_stencil_system(dim: int, shape: Sequence[int],
         pieces = num_shards(mesh) if mesh is not None else 1
     part = BlockPartition(int(np.prod(shape)), pieces)
     mesh, device = resolve_mesh(mesh, part, device)
+    if num_spaces > 1:
+        refuse_processes(mesh, "a block system")
     if stencil is None:
         stencil = laplacian_stencil(dim)
     op = StencilOperator(shape, stencil, partition=part, mesh=mesh,

@@ -56,7 +56,7 @@ import os
 
 import torch
 
-from .mesh import ordered_sum
+from .mesh import ordered_sum, refuse_processes
 
 # ======================================================================
 # per-space phase builders
@@ -427,6 +427,8 @@ def _wrap(ops, local_run):
     if any(op.partition.num_pieces > 1 and op.mesh is None for op in ops):
         raise ValueError("a block runner over spaces of several pieces "
                          "needs a mesh")
+    for op in ops:
+        refuse_processes(op.mesh, "a block system")
     return local_run
 
 

@@ -23,7 +23,11 @@ and the terms the passes left out at the piece edges, with their share of
 (``parallel/overlap.py``), as the JAX package's overlapped matvec does.
 The linearized path reads each piece's band from its neighbours (a ring)
 or, for a band wider than a block, gathers it from the whole vector.
-Per-piece dots are summed in piece order.
+Per-piece dots are summed in piece order.  On a mesh over processes the
+host extracts the diagonals of every row and each process keeps its
+pieces' rows; the halo rows, the ring and the gather cross the processes
+(``parallel/mesh.py``) and the per-piece dots are gathered before their
+sum, as on one process.
 """
 
 from __future__ import annotations
@@ -36,7 +40,14 @@ import torch.nn.functional as F
 
 from ..core.partition import BlockPartition
 from ..options import DEFAULT_OPTIONS, SolverOptions
-from .mesh import ordered_sum, resolve_mesh
+from .mesh import (
+    full_stack,
+    gather_pieces,
+    local_stack,
+    ordered_sum,
+    piece_range,
+    resolve_mesh,
+)
 
 # The gate of the JAX package: at most MAX_DIAGONALS distinct diagonals,
 # and nnz / (D * padded_size) >= MIN_DIA_FILL (a 16x storage bloat cap).
@@ -107,6 +118,9 @@ class DiaOperator:
         self.matrix = matrix
         self.partition = partition
         self.mesh, self.device = resolve_mesh(mesh, partition, device)
+        # the pieces this process runs: all of them but on a process mesh
+        self._lo, hi = piece_range(self.mesh, partition.num_pieces)
+        self._nloc = hi - self._lo
         self.options = options
         extracted = dia_extract(matrix, partition.padded_size,
                                 numpy_dtype(options.entry_dtype))
@@ -130,7 +144,10 @@ class DiaOperator:
             if self._view is None and flat_coefs.any():
                 raise ValueError("no K8 view fits this f32 DIA matrix")
         if self._view is None:
-            self.flat_coefs = torch.as_tensor(flat_coefs, device=self.device)
+            B = partition.block_size
+            self.flat_coefs = torch.as_tensor(np.ascontiguousarray(
+                flat_coefs[:, self._lo * B: (self._lo + self._nloc) * B]),
+                device=self.device)
         self._transpose_op = None
         self._cache = {}
 
@@ -145,7 +162,8 @@ class DiaOperator:
         any width, and every term then has |dy| <= 1.  The coefficients
         are ``[D, S * Br, C]``, as in the JAX package; piece s's are the
         rows ``[s * Br, (s + 1) * Br)`` of each diagonal, which K8 reads
-        with the diagonals' stride."""
+        with the diagonals' stride (on a process mesh this process's
+        pieces' rows only)."""
         from ..ops.cuda.dia2d import supports_dia
 
         B = self.partition.block_size
@@ -173,6 +191,8 @@ class DiaOperator:
             if not supports_dia(Br, C, offs, len(offs)):
                 continue
             diags = np.stack(coefs).reshape(len(offs), N // C, C)
+            diags = np.ascontiguousarray(
+                diags[:, self._lo * Br: (self._lo + self._nloc) * Br])
             return {
                 "C": C,
                 "Br": Br,
@@ -222,9 +242,9 @@ class DiaOperator:
         )
 
         v = self._view
-        S, Br, C, offs = self.partition.num_pieces, v["Br"], v["C"], v["offs"]
+        S, Br, C, offs = self._nloc, v["Br"], v["C"], v["offs"]
         diags = v["diags"]
-        if S == 1:
+        if not self._sharded:
             out = dia2d_matvec(x.reshape(Br, C), None, None, diags,
                                offsets=offs, with_dot=with_dot)
             if with_dot:
@@ -234,7 +254,8 @@ class DiaOperator:
         rlo = max(0, -min(dy for dy, _ in offs))
         rhi = max(0, max(dy for dy, _ in offs))
         if rlo or rhi:
-            (top,), (bot,) = exchange_halos([xg], S, rlo, rhi)
+            (top,), (bot,) = exchange_halos([xg], S, rlo, rhi,
+                                            mesh=self.mesh)
         x3 = xg.view(S, Br, C)
         y3 = torch.empty_like(x3)
         outs = [dia2d_matvec(x3[s], None, None,
@@ -247,12 +268,14 @@ class DiaOperator:
         if with_dot:
             dots = torch.stack([d for _, d in outs])
             if rlo or rhi:
-                dots = dots + dot_fixup(x3, offs, top, bot, None, miss)
+                dots = dots + dot_fixup(x3, offs, top, bot, None, miss,
+                                        mesh=self.mesh)
         if rlo or rhi:
             apply_edge_fixup(y3, offs, top, bot, None, miss)
         y = y3.reshape(-1)
         if with_dot:
-            return y, ordered_sum(dots, torch.float32)
+            return y, ordered_sum(gather_pieces(self.mesh, dots),
+                                  torch.float32)
         return y
 
     def _windows(self, x: torch.Tensor) -> torch.Tensor:
@@ -262,7 +285,7 @@ class DiaOperator:
         (``overlap.piece_windows``)."""
         from .overlap import piece_windows
 
-        S, B = self.partition.num_pieces, self.partition.block_size
+        S, B = self._nloc, self.partition.block_size
         if not self._wide_band:
             lo, hi = min(self.band_lo, B), min(self.band_hi, B)
             if not self._sharded:
@@ -270,14 +293,14 @@ class DiaOperator:
         else:
             lo, hi = self.band_lo, self.band_hi
         return piece_windows(x.reshape(-1), S, lo, hi, self._wide_band,
-                             self._cache)
+                             self._cache, self.mesh)
 
     def _linear_local(self, x, with_dot: bool):
         """Shifted slices of each piece's window (:meth:`_windows`)
         weighted by the coefficient rows (zeros encode the boundaries),
         summed in offset order; the dot in the entry dtype, per piece, the
         pieces' sums added in piece order."""
-        S, B = self.partition.num_pieces, self.partition.block_size
+        S, B = self._nloc, self.partition.block_size
         lo = self.band_lo if self._wide_band else min(self.band_lo, B)
         x_ext = self._windows(x)
         y = x.new_zeros(S, B)
@@ -289,8 +312,9 @@ class DiaOperator:
             return y
         if not self._sharded:
             return y, torch.sum(x.reshape(-1) * y)
-        parts = torch.sum((x.reshape(-1) * y).view(S, B), dim=1)
-        return y, ordered_sum(parts, y.dtype)
+        parts = local_stack(self.mesh, torch.sum(
+            full_stack(self.mesh, (x.reshape(-1) * y).view(S, B)), dim=1))
+        return y, ordered_sum(gather_pieces(self.mesh, parts), y.dtype)
 
     def _apply(self, x, with_dot: bool):
         if self._view is not None:

@@ -27,6 +27,11 @@ succeeds (``_plan_sharded_winell``, the JAX package's plans array for
 array), and otherwise the gather-ELL in torch (JAX's XLA-gather fallback,
 which has no kernel).  LEGIONSOLVERS_NO_WINELL=1 turns the windowed path
 off.
+
+On a mesh over processes the host plans every piece as above and each
+process keeps its pieces' slabs, schedules and plans; the roll of each
+ring offset becomes ``parallel/mesh.shift_pieces``, which sends the
+blocks that cross a process boundary through host memory.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from ..core.partition import (
     kernel_partition_from_range,
 )
 from ..options import DEFAULT_OPTIONS, SolverOptions
-from .mesh import resolve_mesh
+from .mesh import piece_range, resolve_mesh, shift_pieces
 
 
 class RowPartitionedMatrix:
@@ -68,6 +73,8 @@ class RowPartitionedMatrix:
         self.mesh, self.device = resolve_mesh(mesh, range_partition, device)
         self.options = options
         self._S = range_partition.num_pieces
+        # the pieces this process runs: all of them but on a process mesh
+        self._lo, self._hi = piece_range(self.mesh, self._S)
         self._B_r = range_partition.block_size
         self._B_d = domain_partition.block_size
         self._win = None
@@ -132,9 +139,11 @@ class RowPartitionedMatrix:
         del pieces
 
         dev = self.device
-        idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
+        mine = slice(self._lo, self._hi)
+        idx = lambda a: torch.as_tensor(np.asarray(a)[mine],
+                                        dtype=torch.int64, device=dev)
         self.ell_cols = idx(ell_cols)
-        self.ell_vals = torch.as_tensor(ell_vals,
+        self.ell_vals = torch.as_tensor(ell_vals[mine],
                                         dtype=self.options.entry_dtype,
                                         device=dev)
         self.send_idx = {d: idx(self.halo.send_idx[d])
@@ -220,8 +229,9 @@ class RowPartitionedMatrix:
             if plans is None:
                 return None
         dev = self.device
-        stack = lambda k: torch.as_tensor(np.stack([p[k] for p in plans]),
-                                          device=dev)
+        mine = slice(self._lo, self._hi)
+        stack = lambda k: torch.as_tensor(
+            np.stack([p[k] for p in plans[mine]]), device=dev)
         return {
             "N": plans[0]["N"],
             "KR": KRmax,
@@ -230,8 +240,8 @@ class RowPartitionedMatrix:
             "wstart": stack("wstart"),
             "cols": stack("cols"),
             "vals": stack("vals"),
-            "recv_pos2": {d: torch.as_tensor(recv2[d], dtype=torch.int64,
-                                             device=dev)
+            "recv_pos2": {d: torch.as_tensor(recv2[d][mine],
+                                             dtype=torch.int64, device=dev)
                           for d in self.halo.offsets},
         }
 
@@ -266,23 +276,29 @@ class RowPartitionedMatrix:
                 setattr(self, k, v)
 
     # ------------------------------------------------------------------
+    @property
+    def _local(self) -> int:
+        """The number of pieces this process runs."""
+        return self._hi - self._lo
+
     def _exchange(self, x2: torch.Tensor, ext: torch.Tensor,
                   recv_pos) -> torch.Tensor:
         """Fill the halo slots of ``ext`` ([S, E], one extended buffer per
         piece) from ``x2`` ([S, B_d], the pieces' blocks): for each ring
         offset ``d``, piece s's ``x2[s, send_idx[d][s]]`` lands in piece
-        (s + d) % S's buffer at ``recv_pos[d]`` (JAX's ppermute).  Padded
-        sends read index 0 and land in the dump slot."""
+        (s + d) % S's buffer at ``recv_pos[d]`` (JAX's ppermute; across
+        processes ``mesh.shift_pieces``).  Padded sends read index 0 and
+        land in the dump slot."""
         for d in self.halo.offsets:
             send = torch.gather(x2, 1, self.send_idx[d])
-            ext.scatter_(1, recv_pos[d], torch.roll(send, d, 0))
+            ext.scatter_(1, recv_pos[d], shift_pieces(self.mesh, send, d))
         return ext
 
     def _matvec_gather(self, x: torch.Tensor) -> torch.Tensor:
         """The gather-ELL on pieces: every piece's extended buffer, one
         gather through its ELL columns and the row sums (JAX's
         ``_local_matvec``, all pieces in one set of torch launches)."""
-        S, B_d = self._S, self._B_d
+        S, B_d = self._local, self._B_d
         x2 = x.reshape(S, B_d)
         ext = x2.new_zeros(S, self.halo.ext_size)
         ext[:, :B_d] = x2
@@ -297,7 +313,7 @@ class RowPartitionedMatrix:
         from ..ops.cuda.winell import winell_spmv
 
         w = self._win
-        S, B_d, B_r = self._S, self._B_d, self._B_r
+        S, B_d, B_r = self._local, self._B_d, self._B_r
         x2 = x.reshape(S, B_d)
         ext = x2.new_zeros(S, max(w["N"], w["ext2"]))
         ext[:, w["n_lo_u"]: w["n_lo_u"] + B_d] = x2
@@ -334,7 +350,7 @@ class RowPartitionedMatrix:
         in each halo slot go back along the reversed ring to the owning
         piece and are added there."""
         if self.mesh is not None:
-            S, B_d = self._S, self._B_d
+            S, B_d = self._local, self._B_d
             x2 = x.reshape(S, self._B_r)
             contrib = (self.ell_vals * x2[:, :, None]).reshape(S, -1)
             c_ext = x2.new_zeros(S, self.halo.ext_size)
@@ -343,7 +359,7 @@ class RowPartitionedMatrix:
             for d in self.halo.offsets:
                 outgoing = torch.gather(c_ext, 1, self.recv_pos[d])
                 y.scatter_add_(1, self.send_idx[d],
-                               torch.roll(outgoing, -d, 0))
+                               shift_pieces(self.mesh, outgoing, -d))
             return y.reshape(-1)
         from ..ops.spmv import rmatvec_coo
 

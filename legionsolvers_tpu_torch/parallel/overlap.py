@@ -15,12 +15,24 @@ rows, ``bot``'s FIRST ``rhi`` rows the lower neighbour's; both are zeros at
 the grid's edges.  Every function also takes a stack of pieces, ``[S, Br,
 C]`` with ``[S, 8, C]`` halos, and then works on all pieces at once (one
 set of torch launches for any S); dots then come back per piece, ``[S]``.
+On a mesh over processes (``mesh``) the stack holds this process's pieces
+only, and the rows and windows that cross a process boundary come through
+``parallel/mesh.shift_pieces``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .mesh import (
+    full_stack,
+    gather_vector,
+    local_stack,
+    piece_range,
+    shift_pieces,
+    spans_processes,
+)
 
 
 def colshift(rows2d: torch.Tensor, dx: int) -> torch.Tensor:
@@ -37,7 +49,7 @@ def colshift(rows2d: torch.Tensor, dx: int) -> torch.Tensor:
 
 
 def exchange_halos(grids, S: int, rows_top: int, rows_bot: int,
-                   depth: int = 8):
+                   depth: int = 8, mesh=None):
     """(tops, bots): per grid of S pieces (``[S * Br, C]``), its ``[S,
     depth, C]`` halo blocks.  A top block's LAST ``rows_top`` rows are the
     rows above the piece, copied out of the piece before it; a bottom
@@ -46,13 +58,23 @@ def exchange_halos(grids, S: int, rows_top: int, rows_bot: int,
     of all grids are cut from one fresh tensor per side, so an exchange
     takes four torch launches for any number of grids and pieces; piece
     ``s``'s block is a contiguous ``[depth, C]`` tensor that shares no
-    storage with the grids.  Taken before any piece's pass writes."""
+    storage with the grids.  Taken before any piece's pass writes.  On a
+    mesh over processes the S pieces are this process's: the first one's
+    top rows come from the previous process and the last one's bottom
+    rows from the next (one shift each way, zeros at the grid's edges)."""
     C = grids[0].shape[-1]
     g3 = [g.view(S, -1, C) for g in grids]
+    across = spans_processes(mesh)
 
     def side(rows, top):
         if rows == 0:
             return grids[0].new_zeros(S, len(grids), depth, C).unbind(1)
+        if across:
+            edge = torch.stack([t[:, -rows:] if top else t[:, :rows]
+                                for t in g3], 1)
+            edge = shift_pieces(mesh, edge, 1 if top else -1, wrap=False)
+            pad = (0, 0, depth - rows, 0) if top else (0, 0, 0, depth - rows)
+            return F.pad(edge, pad).unbind(1)
         edge = torch.stack([t[:-1, -rows:] if top else t[1:, :rows]
                             for t in g3], 1)
         pad = ((0, 0, depth - rows, 0, 0, 0, 1, 0) if top
@@ -63,7 +85,7 @@ def exchange_halos(grids, S: int, rows_top: int, rows_bot: int,
 
 
 def piece_windows(x: torch.Tensor, S: int, lo: int, hi: int, wide: bool,
-                  cache: dict) -> torch.Tensor:
+                  cache: dict, mesh=None) -> torch.Tensor:
     """``[S, lo + B + hi]``: each piece's block of the flat vector ``x``
     (``S`` pieces of ``B``) with the ``lo`` entries before it and the
     ``hi`` after it, for the linearized paths on pieces.  From the
@@ -71,24 +93,28 @@ def piece_windows(x: torch.Tensor, S: int, lo: int, hi: int, wide: bool,
     JAX package's ring of ppermutes delivers it; such entries meet zero
     coefficients), or, where the band is wider than a block (``wide``),
     gathered from the whole vector modulo its size (JAX's all_gather),
-    the index kept in ``cache`` per device."""
+    the index kept in ``cache`` per device.  On a mesh over processes
+    ``x`` and the S pieces are this process's: the ring and the gather
+    cross the processes (``mesh.shift_pieces``, ``mesh.gather_vector``)."""
     B = x.numel() // S
     if not wide:
         x2 = x.view(S, B)
         parts = [x2]
         if lo:
-            parts.insert(0, torch.roll(x2[:, B - lo:], 1, 0))
+            parts.insert(0, shift_pieces(mesh, x2[:, B - lo:], 1))
         if hi:
-            parts.append(torch.roll(x2[:, :hi], -1, 0))
+            parts.append(shift_pieces(mesh, x2[:, :hi], -1))
         return torch.cat(parts, 1) if len(parts) > 1 else x2
     key = ("window", x.device)
     idx = cache.get(key)
+    first, _ = piece_range(mesh, S)
+    whole = gather_vector(mesh, x)
     if idx is None:
         idx = (torch.arange(B + lo + hi, device=x.device)
-               + (torch.arange(S, device=x.device) * B - lo)[:, None]
-               ) % (S * B)
+               + (torch.arange(first, first + S, device=x.device) * B
+                  - lo)[:, None]) % whole.numel()
         cache[key] = idx
-    return x[idx]
+    return whole[idx]
 
 
 def edge_missing(offsets, top, bot, Br: int, coeff):
@@ -135,20 +161,25 @@ def apply_edge_fixup(y: torch.Tensor, offsets, top, bot, coeff,
 
 
 def dot_fixup(x: torch.Tensor, offsets, top, bot, coeff,
-              missing=None) -> torch.Tensor:
+              missing=None, mesh=None) -> torch.Tensor:
     """Correction to a fused <x, A x> of a zero-halo pass: the sum over
     the edge rows of x * (the omitted A x terms), in f32; one per piece
-    for a stack.  ``missing`` as for :func:`apply_edge_fixup`."""
+    for a stack.  ``missing`` as for :func:`apply_edge_fixup`.  On a mesh
+    over processes the stack's sums run at the whole mesh's stack
+    (``mesh.full_stack``), so each piece rounds as on one process."""
     Br = x.shape[-2]
     miss_top, miss_bot = missing or edge_missing(offsets, top, bot, Br,
                                                  coeff)
     fix = torch.zeros(x.shape[:-2], dtype=torch.float32, device=x.device)
+
+    def edge_sum(t):
+        return local_stack(mesh, torch.sum(full_stack(mesh, t),
+                                           dim=(-2, -1), dtype=torch.float32))
+
     if miss_top is not None:
         k = miss_top.shape[-2]
-        fix = fix + torch.sum(x[..., :k, :] * miss_top, dim=(-2, -1),
-                              dtype=torch.float32)
+        fix = fix + edge_sum(x[..., :k, :] * miss_top)
     if miss_bot is not None:
         k = miss_bot.shape[-2]
-        fix = fix + torch.sum(x[..., Br - k:, :] * miss_bot, dim=(-2, -1),
-                              dtype=torch.float32)
+        fix = fix + edge_sum(x[..., Br - k:, :] * miss_bot)
     return fix

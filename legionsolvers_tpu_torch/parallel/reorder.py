@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..options import resolve_device
-from .mesh import resolve_mesh
+from .mesh import refuse_processes, resolve_mesh
 
 
 class _PermutedMatrix:
@@ -166,6 +166,7 @@ def try_reordered_operator(
     from .dia_op import DiaOperator, dia_offsets, numpy_dtype
 
     mesh, device = resolve_mesh(mesh, partition, device)
+    refuse_processes(mesh, "a reordered operator")
     if not force:
         if partition.num_pieces > 1 and mesh is None:
             return None
@@ -338,6 +339,7 @@ def cross_basis_operator(matrix, dom_partition, rng_partition, dom_basis,
     per-space basis entries (None for the identity)."""
     from .distmatrix import RowPartitionedMatrix
 
+    refuse_processes(mesh, "a cross-basis operator")
     pm = _PermutedMatrix(
         matrix,
         rng_basis["iperm_np"] if rng_basis else None,

@@ -26,7 +26,11 @@ copies of its neighbours' edge rows in fresh ``[S, HALO, C]`` tensors
 bottom, true and as the kernel saw them, are stacked into one ``[4 S,
 EXT, C]`` batch.  So the torch launches of a fix-up do not grow with S.
 The Gram corrections come back per piece (``[S, 10]``); the caller sums
-them over the pieces in piece order.
+them over the pieces in piece order.  On a mesh over processes (``mesh``)
+the S pieces are this process's: the halos cross the processes through
+``overlap.exchange_halos``, the edge masks follow the pieces' global
+indices, and the Gram sums run at the whole mesh's stack
+(``mesh.full_stack``), so that each piece rounds as on one process.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from .mesh import full_stack, local_stack, piece_range
 from .overlap import exchange_halos
 
 HALO = 4        # pre-exchanged rows per edge (= max application depth)
@@ -124,12 +129,13 @@ def _pieces(g: torch.Tensor, S: int) -> torch.Tensor:
     return g.view(S, g.shape[0] // S, g.shape[1])
 
 
-def exchange_halo4(r, p, S) -> Tuple:
+def exchange_halo4(r, p, S, mesh=None) -> Tuple:
     """(r_top, p_top, r_bot, p_bot), each ``[S, HALO, C]``: the HALO rows of
     r and p above and below every piece of the grids r and p ``[S * Br,
     C]``, copied out of the neighbouring pieces into fresh tensors, zeros
     at the grid's first and last edge (``overlap.exchange_halos``)."""
-    (rt, pt), (rb, pb) = exchange_halos((r, p), S, HALO, HALO, HALO)
+    (rt, pt), (rb, pb) = exchange_halos((r, p), S, HALO, HALO, HALO,
+                                        mesh=mesh)
     return rt, pt, rb, pb
 
 
@@ -154,14 +160,19 @@ def _edge_masks(Br: int, is_first, is_last, dtype, device=None):
 _BATCH = {}
 
 
-def _batch_consts(S: int, Br: int, C: int, dtype, device):
+def _batch_consts(S: int, Br: int, C: int, dtype, device, mesh=None):
     """(zero ``[S, HALO, C]`` block, ``[4 S, EXT]`` invalid mask of the
-    stacked strips), made once per geometry and never written."""
-    key = (S, Br, C, dtype, device)
+    stacked strips), made once per geometry and never written.  The
+    grid's first and last piece by global index (``mesh``: the S pieces
+    are a process's)."""
+    lo, _ = piece_range(mesh, S)
+    total = S if mesh is None else mesh.size
+    key = (S, Br, C, dtype, device, lo, total)
     consts = _BATCH.get(key)
     if consts is None:
-        first = torch.arange(S, device=device) == 0
-        masks = _edge_masks(Br, first, first.flip(0), dtype, device)
+        index = torch.arange(lo, lo + S, device=device)
+        masks = _edge_masks(Br, index == 0, index == total - 1, dtype,
+                            device)
         invalid = torch.stack(masks, 1).reshape(4 * S, EXT)
         consts = (torch.zeros(S, HALO, C, dtype=dtype, device=device),
                   invalid)
@@ -179,17 +190,20 @@ def _stack_strips(z4, top_halo, top, bot, bot_halo):
                      1).view(4 * S, EXT, C)
 
 
-def _gram_fix(g, q):
+def _gram_fix(g, q, mesh=None):
     """g ``[S, 10]`` plus the true minus the kernel's Gram contributions of
     each piece's outer 4 rows, top then bottom, in the JAX package's
     order; ``q`` holds the batch's (r, p, Ap, A2p, Ar)."""
     S = g.shape[0]
-    G = _gram10(*(t[:, HALO: 2 * HALO] for t in q)).view(S, 4, 10)
+    rows = [full_stack(mesh, t[:, HALO: 2 * HALO].reshape(S, 4, HALO, -1))
+            for t in q]
+    G = local_stack(mesh, _gram10(*(t.reshape(-1, HALO, t.shape[-1])
+                                    for t in rows)).view(-1, 4, 10))
     return (g + G[:, _TRUE_TOP] - G[:, _KERN_TOP] + G[:, _TRUE_BOT]
             - G[:, _KERN_BOT])
 
 
-def step2_fixup(outs, saves, halos, coef, offs, vals, S):
+def step2_fixup(outs, saves, halos, coef, offs, vals, S, mesh=None):
     """Repair the S zero-halo K1 passes of one s-step pass.
 
     outs  = (x_out, r_out, p_out, g): the passes' grids ``[S * Br, C]``
@@ -198,13 +212,14 @@ def step2_fixup(outs, saves, halos, coef, offs, vals, S):
             STRIP rows of the pass INPUTS, ``[S, STRIP, C]``, taken before
             the passes (x'' is written over x);
     halos = :func:`exchange_halo4` of the pass inputs.
+    ``mesh``: the S pieces are this process's of a mesh over processes.
     Returns (x_out, r_out, p_out, g) repaired, g per piece ``[S, 10]``."""
     x_out, r_out, p_out, g = outs
     x_t, r_t, p_t, x_b, r_b, p_b = saves
     rt4, pt4, rb4, pb4 = halos
     Br = x_out.shape[0] // S
     z4, invalid = _batch_consts(S, Br, x_out.shape[1], x_out.dtype,
-                                x_out.device)
+                                x_out.device, mesh)
     # the halos are zero at the grid's edges already, where the truth masks
     # its rows out
     xe = _stack_strips(z4, z4, x_t, x_b, z4)
@@ -219,18 +234,18 @@ def step2_fixup(outs, saves, halos, coef, offs, vals, S):
     x3[:, Br - 1:] = q[0][:, _TRUE_BOT, STRIP - 1: STRIP]
     r3[:, Br - 2:] = q[1][:, _TRUE_BOT, STRIP - 2: STRIP]
     p3[:, Br - 2:] = q[2][:, _TRUE_BOT, STRIP - 2: STRIP]
-    g = _gram_fix(g, [t.reshape(4 * S, EXT, -1) for t in q[1:]])
+    g = _gram_fix(g, [t.reshape(4 * S, EXT, -1) for t in q[1:]], mesh)
     return x_out, r_out, p_out, g
 
 
-def gram2_fixup(g, r, p, halos, offs, vals, S):
+def gram2_fixup(g, r, p, halos, offs, vals, S, mesh=None):
     """Repair the S zero-halo K2 passes over the grids r and p ``[S * Br,
     C]``: the corrupted contributions have depth <= 2, inside the step2
     strips, so the same 12-row strips are recomputed.  g: ``[S, 10]``."""
     rt4, pt4, rb4, pb4 = halos
     r3, p3 = _pieces(r, S), _pieces(p, S)
     Br = r3.shape[1]
-    z4, invalid = _batch_consts(S, Br, r.shape[1], r.dtype, r.device)
+    z4, invalid = _batch_consts(S, Br, r.shape[1], r.dtype, r.device, mesh)
     re = _stack_strips(z4, rt4, r3[:, :STRIP], r3[:, Br - STRIP:], rb4)
     pe = _stack_strips(z4, pt4, p3[:, :STRIP], p3[:, Br - STRIP:], pb4)
-    return _gram_fix(g, _chain_gram2(re, pe, offs, vals, invalid))
+    return _gram_fix(g, _chain_gram2(re, pe, offs, vals, invalid), mesh)

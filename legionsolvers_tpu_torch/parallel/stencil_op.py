@@ -44,6 +44,17 @@ reads its band from the neighbouring pieces.  A sharded operator runs
 these paths or raises; it never falls back to one piece.  The fused 3-D
 BiCGStab runner is one piece only, as in the JAX package: on 3-D pieces
 BiCGStab runs ``step()`` over the sharded matvec.
+
+On a mesh over processes (``parallel/mesh.py``) an operator runs the 2-D
+stencils only: the kernel view's matvec and its CG runners (s-step and
+two-pass) and the linearized path, each process on its own pieces
+(``_nloc`` of them from piece ``_lo``).  Its first piece's top halo rows come
+from the previous process and its last piece's bottom rows from the next;
+the edge flags go by global piece index; every per-piece partial (the
+dots, the Grams) is gathered and summed in piece order as on one process,
+so every rank computes the same coefficients and holds the same history.
+3-D pieces, other dimensions and the fused BiCGStab on pieces raise
+NotImplementedError (ROADMAP §1 item 5g (iii)).
 """
 
 from __future__ import annotations
@@ -57,7 +68,16 @@ import torch.nn.functional as F
 
 from ..core.partition import BlockPartition
 from ..options import DEFAULT_OPTIONS, SolverOptions
-from .mesh import num_shards, ordered_sum, resolve_mesh
+from .mesh import (
+    full_stack,
+    gather_pieces,
+    local_stack,
+    num_shards,
+    ordered_sum,
+    piece_range,
+    refuse_processes,
+    resolve_mesh,
+)
 from ..problems.stencil import (
     Stencil,
     _strides,
@@ -89,6 +109,11 @@ class StencilOperator:
             partition = BlockPartition(self.n, S)
         self.partition = partition
         self.mesh, self.device = resolve_mesh(mesh, partition, device)
+        if len(self.shape) != 2:
+            refuse_processes(self.mesh, f"a {len(self.shape)}-D stencil")
+        # the pieces this process runs: all of them but on a process mesh
+        self._lo, hi = piece_range(self.mesh, partition.num_pieces)
+        self._nloc = hi - self._lo
         self.strides = _strides(self.shape)
         self.lin_offsets = [linear_offset(self.shape, o) for o, _ in self.offsets]
         self.band_lo = max(0, -min(self.lin_offsets, default=0))
@@ -206,16 +231,16 @@ class StencilOperator:
         """``a`` in the grid layout of all pieces: ``[S * Br, C]`` or
         ``[S * Br, Y, Z]``."""
         v = self._view
-        rows = self.partition.num_pieces * v["Br"]
+        rows = self._nloc * v["Br"]
         if v["kind"] == "3d":
             return a.reshape(rows, v["Y"], v["Z"])
         return a.reshape(rows, v["C"])
 
     def _pieces(self, g: torch.Tensor) -> torch.Tensor:
         """The ``[S, Br, ...]`` view of a grid of all pieces (``[S * Br, C]``
-        or ``[S * Br, Y, Z]``): piece s is ``[s]``, a contiguous view."""
-        return g.view(self.partition.num_pieces, self._view["Br"],
-                      *g.shape[1:])
+        or ``[S * Br, Y, Z]``; on a process mesh this process's): piece s
+        is ``[s]``, a contiguous view."""
+        return g.view(self._nloc, self._view["Br"], *g.shape[1:])
 
     def _rows_reach(self):
         """(rows above, rows below) a piece that its stencil reads."""
@@ -232,14 +257,13 @@ class StencilOperator:
         blocks for the stencil's row reach (``overlap.exchange_halos``)."""
         from .overlap import exchange_halos
 
-        return exchange_halos(grids, self.partition.num_pieces,
-                              *self._rows_reach())
+        return exchange_halos(grids, self._nloc, *self._rows_reach(),
+                              mesh=self.mesh)
 
-    @staticmethod
-    def _psum(parts: torch.Tensor) -> torch.Tensor:
+    def _psum(self, parts: torch.Tensor) -> torch.Tensor:
         """The sum of per-piece f32 reductions ``[S]`` (or ``[S, k]``) in
-        piece order."""
-        return ordered_sum(parts, torch.float32)
+        piece order (on a process mesh every process's, gathered)."""
+        return ordered_sum(gather_pieces(self.mesh, parts), torch.float32)
 
     def _piece_dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """<a, b> in the entry dtype: on pieces each piece's sum, the sums
@@ -247,9 +271,11 @@ class StencilOperator:
         on one piece one sum."""
         if not self._sharded:
             return torch.sum(a * b)
-        S = self.partition.num_pieces
-        parts = torch.sum(a.reshape(S, -1) * b.reshape(S, -1), dim=1)
-        return ordered_sum(parts, a.dtype)
+        S = self._nloc
+        parts = local_stack(self.mesh, torch.sum(
+            full_stack(self.mesh, a.reshape(S, -1) * b.reshape(S, -1)),
+            dim=1))
+        return ordered_sum(gather_pieces(self.mesh, parts), a.dtype)
 
     def _edge_flags(self, device):
         """([S, 1, 1] is-first-piece, [S, 1, 1] is-last-piece) bool masks,
@@ -257,9 +283,9 @@ class StencilOperator:
         key = ("edge flags", device)
         flags = self._diag_cache.get(key)
         if flags is None:
-            first = (torch.arange(self.partition.num_pieces, device=device)
-                     == 0).view(-1, 1, 1)
-            flags = (first, first.flip(0))
+            index = torch.arange(self._lo, self._lo + self._nloc,
+                                 device=device).view(-1, 1, 1)
+            flags = (index == 0, index == self.partition.num_pieces - 1)
             self._diag_cache[key] = flags
         return flags
 
@@ -275,9 +301,9 @@ class StencilOperator:
         (top,), (bot,) = self._exchange(p)
         p3 = self._pieces(p)
         pq = torch.stack([grid2d_cg_pq(p3[s], **kw)
-                          for s in range(self.partition.num_pieces)])
+                          for s in range(self._nloc)])
         pq = self._psum(pq + dot_fixup(p3, kw["offsets"], top, bot,
-                                       self._coeff))
+                                       self._coeff, mesh=self.mesh))
         return pq, (top, bot)
 
     def _xpay_pq_pieces(self, r, p, beta, out):
@@ -293,12 +319,12 @@ class StencilOperator:
         r3, p3, o3 = (self._pieces(a) for a in (r, p, out))
         pq = torch.stack([
             grid2d_cg_xpay_pq(r3[s], p3[s], beta, out=o3[s], **kw)[1]
-            for s in range(self.partition.num_pieces)])
+            for s in range(self._nloc)])
         b = beta.to(p.dtype)
         top = r_top + b * p_top
         bot = r_bot + b * p_bot
         pq = self._psum(pq + dot_fixup(o3, kw["offsets"], top, bot,
-                                       self._coeff))
+                                       self._coeff, mesh=self.mesh))
         return out, pq, (top, bot)
 
     def _update_pieces(self, p, x, r, alpha, halos):
@@ -313,7 +339,7 @@ class StencilOperator:
         return self._psum(torch.stack([
             grid2d_cg_update(p3[s], x3[s], r3[s], alpha, top[s], bot[s],
                              **kw)[2]
-            for s in range(self.partition.num_pieces)]))
+            for s in range(self._nloc)]))
 
     def _gram2_pieces(self, r, p):
         """The Gram vector of (r, p): a zero-halo K2 per piece, repaired
@@ -323,13 +349,13 @@ class StencilOperator:
         from .sstep_sharded import exchange_halo4, gram2_fixup
 
         kw = self._kw()
-        S = self.partition.num_pieces
-        halos = exchange_halo4(r, p, S)
+        S = self._nloc
+        halos = exchange_halo4(r, p, S, self.mesh)
         r3, p3 = self._pieces(r), self._pieces(p)
         g = torch.stack([grid2d_cg_gram2(r3[s], p3[s], **kw)
                          for s in range(S)])
         return self._psum(gram2_fixup(g, r, p, halos, kw["offsets"],
-                                      kw["values"], S))
+                                      kw["values"], S, self.mesh))
 
     def _step2_pieces(self, x, r, p, coef, spare):
         """One s-step pass on every piece: x'' over x, r'' and p'' into the
@@ -341,9 +367,9 @@ class StencilOperator:
         from .sstep_sharded import STRIP, exchange_halo4, step2_fixup
 
         kw = self._kw()
-        S = self.partition.num_pieces
+        S = self._nloc
         Br = self._view["Br"]
-        halos = exchange_halo4(r, p, S)
+        halos = exchange_halo4(r, p, S, self.mesh)
         x3, r3, p3 = (self._pieces(a) for a in (x, r, p))
         # r and p are not written by the passes (r'' and p'' go to the
         # spares), x is: its strips are copied first
@@ -356,7 +382,8 @@ class StencilOperator:
                             out=(sr3[s], sp3[s]), **kw)[3]
             for s in range(S)])
         x, rn, pn, g = step2_fixup((x, spare[0], spare[1], g), saves, halos,
-                                   coef, kw["offsets"], kw["values"], S)
+                                   coef, kw["offsets"], kw["values"], S,
+                                   self.mesh)
         return x, rn, pn, self._psum(g)
 
     def _odd_update_pieces(self, p, x, r, alpha):
@@ -380,11 +407,12 @@ class StencilOperator:
         kw = self._kw()
         outs = [grid2d_stencil_matvec(x3[s], with_dot=with_dot, out=y3[s],
                                       **kw)
-                for s in range(self.partition.num_pieces)]
+                for s in range(self._nloc)]
         offs = kw["offsets"]
         if with_dot:
             dots = torch.stack([d for _, d in outs])
-            dots = dots + dot_fixup(x3, offs, top, bot, self._coeff)
+            dots = dots + dot_fixup(x3, offs, top, bot, self._coeff,
+                                    mesh=self.mesh)
         apply_edge_fixup(y3, offs, top, bot, self._coeff)
         if with_dot:
             return y.reshape(x.shape), self._psum(dots)
@@ -402,6 +430,7 @@ class StencilOperator:
         tensor.  A side the stencil does not read (no ``ox < 0``, or no
         ``ox > 0``) and every side of one piece is ``None``: zero planes."""
         S = self.partition.num_pieces
+        refuse_processes(self.mesh, "3-D pieces")
         offs3 = self._view["offs3"]
         vols = [self._pieces(g) for g in grids]
 
@@ -441,7 +470,7 @@ class StencilOperator:
         top, bot = self._exchange_planes3d(p)
         p3 = self._pieces(p)
         pq = torch.stack([grid3d_cg_pq(p3[s], pl(top, s), pl(bot, s), **kw)
-                          for s in range(self.partition.num_pieces)])
+                          for s in range(self._nloc)])
         return self._psum(pq), (top, bot)
 
     def _xpay_pq3d_pieces(self, r, p, beta, out):
@@ -459,7 +488,7 @@ class StencilOperator:
         pq = torch.stack([
             grid3d_cg_xpay_pq(r3[s], p3[s], beta, pl(top, s), pl(bot, s),
                               out=o3[s], **kw)[1]
-            for s in range(self.partition.num_pieces)])
+            for s in range(self._nloc)])
         return out, self._psum(pq), (top, bot)
 
     def _update3d_pieces(self, p, x, r, alpha, planes):
@@ -473,7 +502,7 @@ class StencilOperator:
         return self._psum(torch.stack([
             grid3d_cg_update(p3[s], x3[s], r3[s], alpha, pl(top, s),
                              pl(bot, s), **kw)[2]
-            for s in range(self.partition.num_pieces)]))
+            for s in range(self._nloc)]))
 
     def _pallas_local_3d(self, x: torch.Tensor, *, with_dot: bool = False):
         """The 3-D matvec: on one piece one K6a pass with zero planes; on S
@@ -496,7 +525,7 @@ class StencilOperator:
         pl = self._plane
         outs = [grid3d_stencil_matvec(g3[s], pl(top, s), pl(bot, s),
                                       with_dot=with_dot, out=y3[s], **kw)
-                for s in range(self.partition.num_pieces)]
+                for s in range(self._nloc)]
         if with_dot:
             return y.reshape(x.shape), self._psum(
                 torch.stack([d for _, d in outs]))
@@ -523,8 +552,9 @@ class StencilOperator:
         """Per-offset masked diagonal values over the padded index space."""
         key = (dtype, device)
         if key not in self._diag_cache:
-            N = self.partition.padded_size
-            g = torch.arange(N, device=device)
+            B = self.partition.block_size
+            g = torch.arange(self._lo * B, (self._lo + self._nloc) * B,
+                             device=device)
             dvals = []
             for off, v in self.offsets:
                 m = g < self.n
@@ -553,8 +583,8 @@ class StencilOperator:
         (``overlap.piece_windows``)."""
         from .overlap import piece_windows
 
-        return piece_windows(x, self.partition.num_pieces, self.band_lo,
-                             self.band_hi, self._wide_band, self._diag_cache)
+        return piece_windows(x, self._nloc, self.band_lo, self.band_hi,
+                             self._wide_band, self._diag_cache, self.mesh)
 
     def _linear_pieces(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x over the flat padded vector of several pieces, piece by
@@ -562,7 +592,7 @@ class StencilOperator:
         :meth:`_piece_windows`: the JAX package's sharded ``_linear_local``
         and, without a mesh, its ``_unsharded_multiblock`` (same
         values)."""
-        S, B = self.partition.num_pieces, self.partition.block_size
+        S, B = self._nloc, self.partition.block_size
         lo = self.band_lo
         x_ext = self._piece_windows(x)
         y = x.new_zeros(S, B)
@@ -949,6 +979,7 @@ class StencilOperator:
         or each other) and never into r~."""
         if not self.supports_fused_bicgstab:
             return None
+        refuse_processes(self.mesh, "the fused BiCGStab on pieces")
         if self._sharded:
             return self._sharded_bicgstab_runner(num_iterations)
         if self._view["kind"] == "3d":

@@ -20,6 +20,13 @@ mesh exchanges its halos between the pieces and runs K9 per piece where
 its windowed plan exists.  A space that adopts a
 reordered basis keeps it: later operators on it are expressed in it, and
 solvers enter the basis for the duration of ``solve()``.
+
+On a mesh over processes every vector holds its process's pieces, ``dot``
+is a collective (each piece's sum, gathered and added in piece order) and
+``dump_state``/``load_state`` carry the local tensors.  No basis is
+adopted there: where the one-process planner would try an RCM or
+degree-sorted basis, it raises NotImplementedError (ROADMAP §1 item 5g
+(iii)).
 """
 
 from __future__ import annotations
@@ -33,12 +40,18 @@ import torch
 from .core.matrix import AbstractMatrix
 from .core.partition import BlockPartition
 from .core.scalar import Scalar
-from .core.vector import PartitionedVector
+from .core.vector import PartitionedVector, piece_dot
 from .ops import blas1
 from .ops.ddsum import dd_dot
 from .options import DEFAULT_OPTIONS, SolverOptions
 from .parallel.distmatrix import RowPartitionedMatrix
-from .parallel.mesh import num_shards, ordered_sum, resolve_mesh
+from .parallel.mesh import (
+    num_shards,
+    ordered_sum,
+    refuse_processes,
+    resolve_mesh,
+    spans_processes,
+)
 
 SOL = 0
 RHS = 1
@@ -75,6 +88,7 @@ class SquarePlanner:
         planner's own RCM upgrade chose it."""
         from .parallel.reorder import inverse_perm, padded_perm
 
+        refuse_processes(self.mesh, "a reordered basis")
         if any(space in (d, r) for _, d, r in self.row_partitioned_matrices):
             raise ValueError(f"space {space} already has operators")
         perm = np.asarray(perm, np.int64)
@@ -203,6 +217,11 @@ class SquarePlanner:
                 # a fresh basis only on a space no other operator touches
                 and not any(range_index in (d, r)
                             for _, d, r in self.row_partitioned_matrices)):
+            # permuting across processes is not ported: refuse rather than
+            # pick another operator than one process would
+            refuse_processes(self.mesh, "the RCM or degree-sorted basis "
+                             "upgrade (set LEGIONSOLVERS_NO_RCM=1 or "
+                             "prefer_dia=False for the sharded ELL)")
             dist = try_reordered_operator(matrix, rp, self.options,
                                           mesh=self.mesh, device=self.device)
             if dist is not None:
@@ -278,7 +297,13 @@ class SquarePlanner:
     def dot(self, v_idx: int, w_idx: int) -> Scalar:
         """Sum of per-space dots (reference: SquarePlanner.hpp:331-338).
         Under ``options.compensated_dots`` each dot is :func:`dd_dot`."""
-        if self.options.compensated_dots:
+        if spans_processes(self.mesh):
+            # each local piece's sum, gathered, added in piece order
+            num = self.mesh.local_size
+            comp = bool(self.options.compensated_dots)
+            d = lambda a, b: piece_dot(self.mesh, a, b, num, comp).to(
+                self.options.entry_dtype)
+        elif self.options.compensated_dots:
             dtype = self.options.entry_dtype
             S = num_shards(self.mesh) if self.mesh is not None else 1
             if S > 1:
@@ -388,7 +413,8 @@ class SquarePlanner:
 
     # -- state snapshots -----------------------------------------------------
     def dump_state(self) -> Dict:
-        """The vectors and each operator's device buffers, by reference."""
+        """The vectors and each operator's device buffers, by reference
+        (on a mesh over processes, this process's pieces)."""
         state = {
             "sol": tuple(v.data for v in self.sol_vectors),
             "rhs": tuple(v.data for v in self.rhs_vectors),

@@ -23,6 +23,7 @@ from typing import List
 import torch
 
 from ..core.scalar import Scalar
+from ..parallel.mesh import refuse_processes
 from ..planner import SquarePlanner
 from .cg import _unshare_for_inplace
 
@@ -37,6 +38,7 @@ class BiCGStabSolver:
     V = 6
 
     def __init__(self, planner: SquarePlanner):
+        refuse_processes(planner.mesh, "BiCGStabSolver")
         self.planner = planner
         planner.allocate_workspace(5)
         self._solve_cache = {}

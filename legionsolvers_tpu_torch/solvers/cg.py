@@ -10,7 +10,9 @@ of a mesh the sharded runners of ``parallel/stencil_op.py``), on a
 block-diagonal multi-space system to the block runner of
 ``parallel/block_fused.py`` (the same passes per space), and loops over
 ``step()`` otherwise.
-No step reads a scalar back to the host.
+No step reads a scalar back to the host, except on a mesh over processes,
+where the per-piece partials of every dot cross the processes through
+host memory; every rank then holds the same history.
 """
 
 from __future__ import annotations

@@ -27,6 +27,7 @@ from typing import List
 import torch
 
 from ..core.scalar import Scalar, ScalarHistory
+from ..parallel.mesh import refuse_processes
 from ..planner import SquarePlanner
 
 
@@ -95,6 +96,7 @@ class GMRESSolver:
     RHS = 1
 
     def __init__(self, planner: SquarePlanner, restart: int):
+        refuse_processes(planner.mesh, "GMRESSolver")
         self.planner = planner
         self.restart = int(restart)
         planner.allocate_workspace(self.restart + 1)

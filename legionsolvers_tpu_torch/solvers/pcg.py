@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core.scalar import Scalar
+from ..parallel.mesh import refuse_processes
 from ..planner import SquarePlanner
 
 
@@ -107,6 +108,7 @@ class PCGSolver:
 
     def __init__(self, planner: SquarePlanner,
                  preconditioner: Optional[object] = None):
+        refuse_processes(planner.mesh, "PCGSolver")
         self.planner = planner
         self.M = preconditioner
         planner.allocate_workspace(4)

@@ -26,6 +26,7 @@ from ..core.matrix import COOMatrix
 from ..core.scalar import Scalar
 from ..native.bindings import matrix_market_lines
 from ..options import DEFAULT_OPTIONS, SolverOptions
+from ..parallel.mesh import refuse_processes
 
 SCALARS = ("residual_norm_squared", "rho", "alpha", "omega")
 
@@ -109,6 +110,7 @@ def save_checkpoint(path: str, solver) -> None:
     tensors of one shape, stacked, as the JAX package saves it; other
     operator states (None, nested buffers) are left out: the operator a
     solver is rebuilt with holds them already."""
+    refuse_processes(solver.planner.mesh, "a checkpoint")
     state = solver.planner.dump_state()
     arrays = {}
     for key, vecs in state.items():
@@ -141,6 +143,7 @@ def load_checkpoint(path: str, solver) -> None:
     package's) into ``solver``, which must be built over an identically
     shaped system; tensors go onto the planner's device."""
     planner = solver.planner
+    refuse_processes(planner.mesh, "a checkpoint")
     device = planner.device
     state = planner.dump_state()
     with np.load(path) as data:

@@ -345,8 +345,6 @@ def test_stencil_rmatvec_is_the_transpose(shape):
 # ROADMAP item that ports it (or why it does not apply to torch).  A name
 # ported later must leave this list.
 DEFERRED = {
-    # ROADMAP item 5g, several cards and processes
-    "parallel.mesh.initialize_distributed": "item 5g",
     # JAX's pytree protocol (jax.tree_util registration): no torch use
     "core.vector.PartitionedVector.tree_flatten": "jax only",
     "core.vector.PartitionedVector.tree_unflatten": "jax only",

@@ -1,0 +1,246 @@
+"""Worker of ``tests/test_torch_multiprocess.py`` (run via subprocess).
+
+The port's twin of ``tests/distributed_worker.py``: one of two OS
+processes, joined by ``initialize_distributed`` into one gloo group, each
+holding 2 CPU shards of a 4-shard mesh (``make_mesh(4, devices=["cpu"] *
+2)``).  It runs one case and writes what it got to ``<out>.<rank>.npz``;
+the test compares both ranks' files with each other and with the same
+systems on one process.  Imports torch, numpy and the port only.
+
+Usage: python torch_distributed_worker.py <rank> <nproc> <port> <case> <out>
+Prints "WORKER_OK <case> <rank>/<nproc>" at the end.
+"""
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+import legionsolvers_tpu_torch as T  # noqa: E402
+from legionsolvers_tpu_torch.entry import build_stencil_system  # noqa: E402
+from legionsolvers_tpu_torch.parallel import mesh as M  # noqa: E402
+
+DEV = "cpu"
+LOCAL = 2  # shards per process
+F32 = T.SolverOptions(entry_dtype=torch.float32)
+F64 = T.SolverOptions(entry_dtype=torch.float64)
+SHAPE = (64, 128)  # test_torch_sharded.py's 4-piece shape
+ITERS = 8
+GOLDEN_N = 100
+
+
+def stencil_cg(mesh, options, iters=ITERS):
+    """(history, x) of the 2-D 5-point Laplacian's CGSolver.solve on
+    ``mesh``, b = 1, x0 = 0, through ``entry.build_stencil_system``."""
+    planner = build_stencil_system(2, SHAPE, options, mesh=mesh)
+    hist = T.CGSolver(planner).solve(iters)
+    return hist.numpy(), planner.sol_vectors[0].to_numpy()
+
+
+def with_env(env, fn):
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def case_golden(mesh, out):
+    """JAX's test_19: the f64 n = 100 1-D Laplacian through the planner,
+    which upgrades it to a DiaOperator."""
+    part = T.BlockPartition(GOLDEN_N, mesh.size)
+    planner = T.SquarePlanner(mesh=mesh, options=F64)
+    planner.add_sol_vector(T.PartitionedVector(
+        "s", part, mesh=mesh, options=F64).zero_fill())
+    planner.add_rhs_vector(T.PartitionedVector(
+        "b", part, mesh=mesh, options=F64).constant_fill(1.0))
+    planner.add_row_partitioned_matrix(
+        T.coo_negative_laplacian_1d(GOLDEN_N, options=F64), 0, 0)
+    op = planner.row_partitioned_matrices[0][0]
+    out["operator"] = np.array(type(op).__name__)
+    out["hist"] = T.CGSolver(planner).solve(10).numpy()
+    out["x"] = planner.sol_vectors[0].to_numpy()
+
+
+def case_cg2d(mesh, out):
+    """The 2-D CG of the main path: f32 s-step and two-pass, and f64 (the
+    linearized path)."""
+    out["sstep_hist"], out["sstep_x"] = stencil_cg(mesh, F32)
+    op = build_stencil_system(2, SHAPE, F32, mesh=mesh) \
+        .row_partitioned_matrices[0][0]
+    out["sstep_eligible"] = np.array(op.step2_eligible)
+    out["twopass_hist"], out["twopass_x"] = with_env(
+        {"LEGIONSOLVERS_NO_SSTEP": "1"}, lambda: stencil_cg(mesh, F32))
+    out["f64_hist"], out["f64_x"] = stencil_cg(mesh, F64)
+    # the eager matvec with its fused dot, on a seeded x
+    x = np.random.default_rng(7).standard_normal(SHAPE).astype(np.float32)
+    v = T.PartitionedVector.from_array("x", x.reshape(-1),
+                                       T.BlockPartition(x.size, mesh.size),
+                                       mesh=mesh, options=F32,
+                                       grid_shape=SHAPE)
+    y, dot = op.matvec_dot(v.data)
+    out["matvec"] = M.gather_vector(mesh, y).numpy()
+    out["matvec_dot"] = dot.numpy()
+
+
+def explicit_planner(mesh, options):
+    A = T.create_coo_stencil_matrix(SHAPE, T.laplacian_stencil(2),
+                                     options=options)
+    return T.build_explicit_system(A, options, mesh=mesh)
+
+
+def case_ell(mesh, out):
+    """The sharded ELL (no DIA, no basis upgrade), windowed (K9's plain
+    version) and gathered: one matvec, one rmatvec, a CG history."""
+    env = {"LEGIONSOLVERS_NO_DIA": "1", "LEGIONSOLVERS_NO_RCM": "1"}
+    n = SHAPE[0] * SHAPE[1]
+    x = np.random.default_rng(8).standard_normal(n).astype(np.float32)
+    for tag, extra in (("win", {}), ("gather",
+                                     {"LEGIONSOLVERS_NO_WINELL": "1"})):
+        planner = with_env({**env, **extra},
+                           lambda: explicit_planner(mesh, F32))
+        op = planner.row_partitioned_matrices[0][0]
+        out[f"{tag}_operator"] = np.array(type(op).__name__)
+        out[f"{tag}_windowed"] = np.array(op._win is not None)
+        v = T.PartitionedVector.from_array(
+            "x", x, T.BlockPartition(n, mesh.size), mesh=mesh, options=F32)
+        out[f"{tag}_matvec"] = M.gather_vector(mesh, op.matvec(v.data)) \
+            .numpy()
+        out[f"{tag}_rmatvec"] = M.gather_vector(mesh, op.rmatvec(v.data)) \
+            .numpy()
+        out[f"{tag}_hist"] = T.CGSolver(planner).solve(ITERS).numpy()
+        out[f"{tag}_x"] = planner.sol_vectors[0].to_numpy()
+
+
+def case_vectors(mesh, out):
+    """Fills, to_numpy, random_fill and dot: n = 30 in 4 pieces of 8 (the
+    last piece padded), flat, and (8, 16) in grid layout."""
+    part = T.BlockPartition(30, mesh.size)
+    v = T.PartitionedVector("v", part, mesh=mesh, options=F64)
+    out["local_len"] = np.array(v.data.numel())
+    out["constant"] = v.constant_fill(2.5).to_numpy()
+    out["constant_padding"] = v.data.numpy()
+    out["refill"] = v.refill_constant(-1.0).to_numpy()
+    out["refill_padding"] = v.data.numpy()
+    out["zero"] = v.zero_fill().to_numpy()
+    gen = torch.Generator(DEV).manual_seed(11)
+    out["random"] = v.random_fill(gen, -1.0, 1.0).to_numpy()
+    ints = np.random.default_rng(9).integers(-8, 9, size=(2, 30))
+    a = T.PartitionedVector.from_array("a", ints[0].astype(np.float64), part,
+                                       mesh=mesh, options=F64)
+    b = T.PartitionedVector.from_array("b", ints[1].astype(np.float64), part,
+                                       mesh=mesh, options=F64)
+    out["from_array"] = a.to_numpy()
+    out["dot_exact"] = a.dot(b).value.numpy()
+    out["norm2_random"] = v.norm2().value.numpy()
+    planner = T.SquarePlanner(mesh=mesh, options=F64)
+    planner.add_sol_vector(a)
+    planner.add_rhs_vector(b)
+    out["planner_dot"] = planner.dot(0, 1).value.numpy()
+    gpart = T.BlockPartition(128, mesh.size)
+    g = T.PartitionedVector("g", gpart, mesh=mesh, options=F32,
+                            grid_shape=(8, 16))
+    out["grid_local_shape"] = np.array(g.data.shape)
+    out["grid_random"] = g.random_fill(
+        torch.Generator(DEV).manual_seed(12)).to_numpy()
+
+
+def refused(mesh):
+    """name -> a call that must raise NotImplementedError naming item 5g."""
+    part2 = T.BlockPartition(SHAPE[0] * SHAPE[1], mesh.size)
+
+    def f32_planner():
+        return build_stencil_system(2, SHAPE, F32, mesh=mesh)
+
+    def checkpoint(save):
+        from legionsolvers_tpu_torch.utils import io
+
+        solver = T.CGSolver(f32_planner())
+        path = os.path.join(os.environ["WORKER_TMP"], f"ck{mesh.rank}.npz")
+        return (io.save_checkpoint if save else io.load_checkpoint)(path,
+                                                                    solver)
+
+    def reorder():
+        from legionsolvers_tpu_torch.parallel.reorder import (
+            try_reordered_operator,
+        )
+
+        return try_reordered_operator(
+            T.create_coo_stencil_matrix(SHAPE, T.laplacian_stencil(2),
+                                         options=F32), part2, F32,
+            mesh=mesh)
+
+    return {
+        "3-D pieces": lambda: T.StencilOperator(
+            (8, 8, 8), T.laplacian_stencil(3), mesh=mesh, options=F32),
+        "1-D stencil": lambda: T.StencilOperator(
+            (512,), T.laplacian_stencil(1), mesh=mesh, options=F32),
+        "fused BiCGStab on pieces": lambda: f32_planner()
+        .row_partitioned_matrices[0][0].make_fused_bicgstab_runner(4),
+        "BiCGStabSolver": lambda: T.BiCGStabSolver(f32_planner()),
+        "GMRESSolver": lambda: T.GMRESSolver(f32_planner(), 4),
+        "PCGSolver": lambda: T.PCGSolver(f32_planner()),
+        "block system": lambda: build_stencil_system(
+            2, SHAPE, F32, mesh=mesh, num_spaces=2),
+        "reorder": reorder,
+        "planner basis upgrade": lambda: with_env(
+            {"LEGIONSOLVERS_NO_DIA": "1"},
+            lambda: explicit_planner(mesh, F32)),
+        "adopt_basis": lambda: f32_planner().adopt_basis(
+            0, np.arange(part2.n)),
+        "save_checkpoint": lambda: checkpoint(True),
+        "load_checkpoint": lambda: checkpoint(False),
+        "distinct local devices": lambda: M.make_mesh(
+            mesh.size, devices=[DEV, "meta"]),
+    }
+
+
+def case_refused(mesh, out):
+    """Every path a process mesh refuses, and initialize_distributed a
+    second time."""
+    for name, call in refused(mesh).items():
+        try:
+            call()
+            got = "no error"
+        except NotImplementedError as e:
+            got = "item 5g" if "item 5g" in str(e) else f"message: {e}"
+        except Exception as e:  # noqa: BLE001 - reported to the test
+            got = f"{type(e).__name__}: {e}"
+        out[f"refused {name}"] = np.array(got)
+    before = torch.distributed.get_world_size()
+    M.initialize_distributed("127.0.0.1:1", 5, 3)  # ignored: initialized
+    out["second init"] = np.array(
+        [before, torch.distributed.get_world_size(),
+         torch.distributed.get_rank() == mesh.rank])
+
+
+CASES = {"golden": case_golden, "cg2d": case_cg2d, "ell": case_ell,
+         "vectors": case_vectors, "refused": case_refused}
+
+
+def main() -> None:
+    rank, nproc, port, case, path = sys.argv[1:6]
+    rank, nproc = int(rank), int(nproc)
+    torch.set_num_threads(1)
+    M.initialize_distributed(f"127.0.0.1:{port}", nproc, rank)
+    mesh = M.make_mesh(LOCAL * nproc, devices=[DEV] * LOCAL)
+    assert mesh.spans_processes and mesh.rank == rank, mesh
+    assert mesh.local_range == (LOCAL * rank, LOCAL * (rank + 1)), mesh
+    out = {}
+    CASES[case](mesh, out)
+    np.savez(f"{path}.{rank}.npz", **out)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print(f"WORKER_OK {case} {rank}/{nproc}", flush=True)
+
+
+if __name__ == "__main__":
+    main()
