@@ -455,7 +455,19 @@ with S2_past:
    Laplacian on the DiaOperator (K8 per piece) and (c) on the sharded ELL
    (K9 per piece): one matvec bit for bit, the solve(200) history and x
    within phase 4k's envelope against float64 CG; (d) the f64 golden
-   exactly; the ms/iter beside one process's.  ``--processes`` runs 4p
+   exactly; (e) the fused 2-D BiCGStab at 4096^2 and (f) the block CG
+   (s-step phases) and block BiCGStab of 2 spaces (b = 1 and 2) at 4096^2,
+   solve(100): history and x bit for bit the one-process mesh's, each
+   process's K5a-c (K1/K2 for block CG) launches half of one process's;
+   (g) GMRES(10) for 3 cycles on the 4096^2 stencil (history within 2e-4
+   of one process's, 4j's rule) and PCG(Jacobi) solve(100) on (b)'s
+   DiaOperator (within phase 4k's envelope of one process and of float64
+   CG), equal on both ranks, half the launches; (h) ``entry.entry()``'s
+   step on the card against the same step on the CPU, and
+   ``entry.dryrun_multichip(4)`` on the one-process mesh and across the
+   workers: every number equal on both ranks, the fused sections bit for
+   bit one process's, the others within 1e-4; the ms/iter beside one
+   process's (timed solves of 25 iterations).  ``--processes`` runs 4p
    alone.
 
 To make room for 4m and 5m, phase 5j's and 5k's idle traces cover about
@@ -469,6 +481,7 @@ the last line is ``{"ok": true, "device": {...}}``.  Details also go to
 """
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -8504,49 +8517,75 @@ PROC_RANKS = 2                # workers, PIECES // PROC_RANKS pieces each
 PROC_DIA = N_GRID // 2        # 4p(b), (c): the explicit 5-point Laplacian
 PROC_TIMEOUT_S = 300          # each worker's limit
 PROC_REPS = 200               # exchanges timed per helper
-PROC_TIMED = N_ITERS // 4     # iterations of each timed solve
+PROC_TIMED = N_ITERS // 8     # iterations of each timed solve
+PROC_ITERS_E_G = N_ITERS // 2  # (e), (f) and PCG's counted solves
 PROC_DIR = pathlib.Path("build") / "processes_4p"  # the workers' results
 PROC_LAUNCHES = {"s-step": ("step2", "gram2"),
                  "two-pass": ("pq", "update", "xpay_pq"),
-                 "DIA": ("dia2d_dot",), "ELL": ("winell",)}
+                 "DIA": ("dia2d_dot",), "ELL": ("winell",),
+                 "BiCGStab": tuple(BICG_KERNELS),
+                 "block CG": ("step2", "gram2"),
+                 "block BiCGStab": tuple(BICG_KERNELS),
+                 "GMRES(10)": ("y",), "PCG(Jacobi)": ("dia2d_dot",)}
+# the part of 4p each run belongs to
+PROC_PART = {"s-step": "a", "two-pass": "a", "DIA": "b", "ELL": "c",
+             "BiCGStab": "e", "block CG": "f", "block BiCGStab": "f",
+             "GMRES(10)": "g", "PCG(Jacobi)": "g"}
+PROC_BITS = ("s-step", "two-pass", "BiCGStab", "block CG", "block BiCGStab")
+# (h): dryrun_multichip's sections on the fused runners, bit for bit one
+# process's; the eager ones' dots sum per piece across processes and over
+# the whole vector on one process: within PROC_DRYRUN_RTOL
+PROC_DRYRUN_BITS = ("fused", "sstep", "bicgstab", "block-cg", "block-bicg")
+PROC_DRYRUN_RTOL = 1e-4  # tests/test_torch_multiprocess.py's JAX_RTOL
+PROC_ENTRY_RTOL = 1e-5   # entry()'s step on the card vs on the CPU
 
 
 def proc_runs(torch, np, lt, T, device, mesh):
     """The solves of phase 4p on ``mesh`` (4 pieces, on one process or
     this process's of a mesh over processes): (a) 2-D CG at N_GRID^2,
     s-step and two-pass; (b) the explicit PROC_DIA^2 Laplacian on the
-    DiaOperator, (c) on the sharded ELL; each one matvec of a seeded x
-    and one counted solve(N_ITERS), then a timed solve(PROC_TIMED) after
-    a warm-up one; (d) the f64 golden.
-    {key: numpy array} of this process's pieces, launches as JSON."""
+    DiaOperator, (c) on the sharded ELL, each with one matvec of a seeded
+    x; (e) the fused 2-D BiCGStab at N_GRID^2; (f) block CG and block
+    BiCGStab of 2 spaces (b = 1 and 2) at N_GRID^2; (g) GMRES(10) on the
+    N_GRID^2 stencil and PCG(Jacobi) on (b)'s system; each one counted
+    solve(N_ITERS) ((e), (f) and PCG: PROC_ITERS_E_G; GMRES: GMRES_CYCLES
+    cycles), then a timed solve(PROC_TIMED) (GMRES: its cycles) after a
+    warm-up one; (d) the f64
+    golden; (h) ``entry.dryrun_multichip(PIECES)`` on the card (its own
+    mesh: all on this process, or split over the processes of the group).
+    {key: numpy array} of this process's pieces (x: ``[spaces, n]``),
+    launches as JSON."""
     from legionsolvers_tpu_torch.entry import (
         build_explicit_system,
         build_stencil_system,
+        dryrun_multichip,
     )
 
     f32 = lt.SolverOptions(entry_dtype=torch.float32)
     f64 = lt.SolverOptions(entry_dtype=torch.float64)
+    grid = (N_GRID, N_GRID)
     out = {}
 
-    def solve(label, planner):
-        solver = lt.CGSolver(planner)
+    def solve(label, planner, make=lt.CGSolver, iters=N_ITERS,
+              timed=PROC_TIMED):
+        solver = make(planner)
         torch.cuda.synchronize()
         T.reset_launch_counts()
-        h = solver.solve(N_ITERS)
+        h = solver.solve(iters)
         torch.cuda.synchronize()
         out[f"{label} launches"] = np.array(json.dumps(dict(T.LAUNCHES)))
         out[f"{label} hist"] = h.cpu().numpy()
-        out[f"{label} x"] = planner.sol_vectors[0].data.cpu().numpy() \
-            .reshape(-1)
+        out[f"{label} x"] = np.stack([v.data.cpu().numpy().reshape(-1)
+                                      for v in planner.sol_vectors])
         restart(solver)
-        solver.solve(PROC_TIMED)  # its runner built before the clock
+        solver.solve(timed)  # its runner built before the clock
         restart(solver)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        solver.solve(PROC_TIMED)
+        solver.solve(timed)
         torch.cuda.synchronize()
         out[f"{label} ms"] = np.array(
-            (time.perf_counter() - t0) * 1e3 / PROC_TIMED)
+            (time.perf_counter() - t0) * 1e3 / timed)
         T.reset_launch_counts()
 
     for label, switch in (("s-step", None),
@@ -8580,6 +8619,30 @@ def proc_runs(torch, np, lt, T, device, mesh):
     out["golden"] = lt.CGSolver(golden).solve(10).cpu().numpy()
     out["golden chain"] = np.array(json.dumps(chain(
         golden.row_partitioned_matrices[0][0])))
+    del golden
+    solve("BiCGStab", build_stencil_system(2, grid, f32, mesh=mesh),
+          lt.BiCGStabSolver, PROC_ITERS_E_G)
+    for label, make in (("block CG", lt.CGSolver),
+                        ("block BiCGStab", lt.BiCGStabSolver)):
+        planner = build_stencil_system(2, grid, f32, mesh=mesh,
+                                       num_spaces=2)
+        planner.rhs_vectors[1].constant_fill(2.0)
+        solve(label, planner, make, PROC_ITERS_E_G)
+        del planner
+    solve("GMRES(10)", build_stencil_system(2, grid, f32, mesh=mesh),
+          lambda p: lt.GMRESSolver(p, GMRES_RESTART), GMRES_CYCLES,
+          GMRES_CYCLES)
+    solve("PCG(Jacobi)", build_explicit_system(A, f32, mesh=mesh),
+          lambda p: pcg_solver(lt, p), PROC_ITERS_E_G)
+    t0 = time.perf_counter()
+    line = io.StringIO()
+    with contextlib.redirect_stdout(line):
+        hists = dryrun_multichip(PIECES, device=device)
+    out["dryrun s"] = np.array(time.perf_counter() - t0)
+    out["dryrun line"] = np.array(line.getvalue().strip())
+    for key, h in hists.items():
+        out[f"dryrun {key}"] = h
+    log(out["dryrun line"])
     return out
 
 
@@ -8698,23 +8761,62 @@ def processes_path(torch, np, lt, T, device, card):
     ones; (b) the DiaOperator and (c) the sharded ELL (windowed, K9): one
     matvec bit for bit, the solve(N_ITERS) history and x within twice
     textbook f32's distance from float64 CG (phase 4k's envelope) and
-    equal on both ranks, half the launches; (d) the f64 golden exactly.
-    Every worker must finish within PROC_TIMEOUT_S with its results;
-    there is no fallback to one process.  Prints each solve's ms/iter
-    beside one process's and the host µs of the exchanges.  Returns
-    (results, failed)."""
+    equal on both ranks, half the launches; (d) the f64 golden exactly;
+    (e) the fused 2-D BiCGStab and (f) block CG and block BiCGStab: as
+    (a); (g) GMRES(10): history within PIECE_GMRES_RTOL of one process's
+    (x logged), PCG(Jacobi) on (b)'s system: history and x within phase 4k's
+    envelope of one process's and of float64 CG, both equal on both ranks,
+    half the launches; (h) ``entry.entry()``'s step on the card (one K3
+    y_dot launch) within PROC_ENTRY_RTOL of the same step on the CPU, and
+    ``entry.dryrun_multichip(PIECES)`` across the workers: every section
+    equal on both ranks, the fused ones bit for bit one process's, the
+    others within PROC_DRYRUN_RTOL.  Every worker must finish within
+    PROC_TIMEOUT_S with its results; there is no fallback to one process.
+    Prints each solve's ms/iter beside one process's and the host µs of
+    the exchanges.  Returns (results, failed)."""
+    from legionsolvers_tpu_torch.entry import entry
     from legionsolvers_tpu_torch.parallel.mesh import make_mesh
+
+    checks, results = {}, {}
+    # (h) entry(): one CG step on the card, and the same step on the CPU
+    fn, example = entry()
+    torch.cuda.synchronize()
+    T.reset_launch_counts()
+    state, rr = fn(*example)
+    torch.cuda.synchronize()
+    launched = dict(T.LAUNCHES)
+    T.reset_launch_counts()
+    fn_c, example_c = entry(device="cpu")
+    state_c, rr_c = fn_c(*example_c)
+    x, x_c = state["sol"][0].cpu().double(), state_c["sol"][0].double()
+    dev_rr = abs(float(rr) - float(rr_c)) / abs(float(rr_c))
+    dev_x = ((x - x_c).abs().max() / x_c.abs().max()).item()
+    checks[f"(h) entry(): one CG step on the card (K3 y_dot once), rr and "
+           f"sol within {PROC_ENTRY_RTOL} of the step on the CPU"] = (
+        launched == {"y_dot": 1} and dev_rr <= PROC_ENTRY_RTOL
+        and dev_x <= PROC_ENTRY_RTOL)
+    results["entry"] = {"launches": launched, "rr": float(rr),
+                        "rr on the CPU": float(rr_c),
+                        "vs the CPU (rr, sol)": (dev_rr, dev_x)}
+    log(f"[processes] entry(): rr1 {float(rr):g} (CPU {float(rr_c):g}), "
+        f"launches {launched}, vs the CPU {(dev_rr, dev_x)}")
+    del fn, example, state, fn_c, example_c, state_c, x, x_c
 
     t0 = time.perf_counter()
     one_mesh = make_mesh(PIECES, devices=[device] * PIECES)
     ref = proc_runs(torch, np, lt, T, device, one_mesh)
     ref_us = proc_exchange_us(torch, device, one_mesh)
     t_ref = time.perf_counter() - t0
-    shape = (PROC_DIA, PROC_DIA)
-    h64, x64 = classic_cg(torch, shape, N_ITERS, torch.float64, device)
-    h32, x32 = classic_cg(torch, shape, N_ITERS, torch.float32, device)
-    env_t = max_rel(h32, h64)
-    env_x = x_rel(x32, x64)
+    # float64 CG and textbook f32's distance from it (phase 4k's envelope)
+    # at each counted solve's length on the explicit systems
+    f64_refs = {}
+    for iters in (N_ITERS, PROC_ITERS_E_G):
+        h64, x64 = classic_cg(torch, (PROC_DIA, PROC_DIA), iters,
+                              torch.float64, device)
+        h32, x32 = classic_cg(torch, (PROC_DIA, PROC_DIA), iters,
+                              torch.float32, device)
+        f64_refs[iters] = (h64, x64, max_rel(h32, h64), x_rel(x32, x64))
+    del h64, x64, h32, x32
     torch.cuda.empty_cache()
     PROC_DIR.mkdir(parents=True, exist_ok=True)
     for f in PROC_DIR.glob("rank*"):
@@ -8722,9 +8824,8 @@ def processes_path(torch, np, lt, T, device, card):
     t1 = time.perf_counter()
     tails = proc_finish(proc_start(PROC_DIR))
     t_workers = time.perf_counter() - t1
-    checks, results = {}, {"one process": {
-        k: (v.tolist() if v.ndim == 0 else None) for k, v in ref.items()
-        if k.endswith(" ms")}}
+    results["one process"] = {k: v.tolist() for k, v in ref.items()
+                              if k.endswith(" ms")}
     ranks = []
     for r, (rc, tail) in enumerate(tails):
         path = PROC_DIR / f"rank{r}.npz"
@@ -8739,18 +8840,21 @@ def processes_path(torch, np, lt, T, device, card):
         checks[f"worker {r} loaded the built library (no nvcc)"] = (
             str(ranks[-1]["library"]) == "(cached)")
     if len(ranks) == PROC_RANKS:
-        whole = lambda key: np.concatenate([o[key] for o in ranks])
+        whole = lambda key: np.concatenate([o[key] for o in ranks], -1)
         launches = lambda o, lab: json.loads(str(o[f"{lab} launches"]))
         bits = lambda a, b: a.dtype == b.dtype and a.shape == b.shape and (
             a.tobytes() == b.tobytes())
-        for lab in ("s-step", "two-pass", "DIA", "ELL"):
+        for lab in PROC_LAUNCHES:
+            part = PROC_PART[lab]
+            tag = (f"({lab})" if part in "abcd"
+                   else f"({part}) {lab}:")  # 4p's first checks' names
             want = launches(ref, lab)
             half = all(all(launches(o, lab).get(m, 0) * PROC_RANKS
                            == want.get(m, -1) > 0
                            for m in PROC_LAUNCHES[lab]) for o in ranks)
-            checks[f"({lab}) each process launches half of one process's "
+            checks[f"{tag} each process launches half of one process's "
                    f"{PROC_LAUNCHES[lab]}"] = half
-            checks[f"({lab}) the same history on every rank"] = all(
+            checks[f"{tag} the same history on every rank"] = all(
                 bits(o[f"{lab} hist"], ranks[0][f"{lab} hist"])
                 for o in ranks)
             res = {"launches per process": [launches(o, lab) for o in ranks],
@@ -8759,21 +8863,39 @@ def processes_path(torch, np, lt, T, device, card):
                                            for o in ranks],
                    "ms/iter one process": float(ref[f"{lab} ms"])}
             h, x = ranks[0][f"{lab} hist"], whole(f"{lab} x")
-            if lab in ("s-step", "two-pass"):
-                checks[f"(a) {lab}: history and x bit for bit one "
+            if lab in PROC_BITS:
+                checks[f"({part}) {lab}: history and x bit for bit one "
                        "process's"] = (bits(h, ref[f"{lab} hist"])
                                        and bits(x, ref[f"{lab} x"]))
+                res["history finite up to"] = int(
+                    np.isfinite(h).cumprod().sum())
+            elif lab == "GMRES(10)":
+                ht, xt = torch.from_numpy(h), torch.from_numpy(x).double()
+                x1 = torch.from_numpy(ref[f"{lab} x"]).double()
+                res["vs one process (history, x)"] = (
+                    max_rel(ht, torch.from_numpy(ref[f"{lab} hist"])),
+                    x_rel(xt, x1))
+                # 4j's rule for GMRES on pieces: the history (x moves
+                # along the slowest modes, ~1e-3 of max|x|, and is logged)
+                checks[f"(g) {lab}: history within {PIECE_GMRES_RTOL} of "
+                       "one process's"] = (
+                    bool(np.isfinite(h).all())
+                    and res["vs one process (history, x)"][0]
+                    <= PIECE_GMRES_RTOL)
             else:
-                want_chain = (["DiaOperator"] if lab == "DIA"
-                              else ["RowPartitionedMatrix"])
-                checks[f"({lab}) the planner picks {want_chain}"
-                       + (", windowed (K9)" if lab == "ELL" else "")] = all(
-                    json.loads(str(o[f"{lab} chain"])) == want_chain
-                    and (lab == "DIA" or bool(o[f"{lab} windowed"]))
-                    for o in ranks)
-                checks[f"({lab}) one matvec bit for bit one process's"] = \
-                    bits(whole(f"{lab} matvec"), ref[f"{lab} matvec"])
+                if lab != "PCG(Jacobi)":
+                    want_chain = (["DiaOperator"] if lab == "DIA"
+                                  else ["RowPartitionedMatrix"])
+                    checks[f"({lab}) the planner picks {want_chain}"
+                           + (", windowed (K9)" if lab == "ELL" else "")] = \
+                        all(json.loads(str(o[f"{lab} chain"])) == want_chain
+                            and (lab == "DIA" or bool(o[f"{lab} windowed"]))
+                            for o in ranks)
+                    checks[f"({lab}) one matvec bit for bit one "
+                           "process's"] = bits(whole(f"{lab} matvec"),
+                                               ref[f"{lab} matvec"])
                 ht, xt = torch.from_numpy(h), torch.from_numpy(x).to(device)
+                h64, x64, env_t, env_x = f64_refs[len(h) - 1]
                 dev_k = max_rel(ht.to(device), h64)
                 dev_x = x_rel(xt, x64)
                 res.update({
@@ -8783,26 +8905,66 @@ def processes_path(torch, np, lt, T, device, card):
                         max_rel(ht, torch.from_numpy(ref[f"{lab} hist"])),
                         x_rel(xt, torch.from_numpy(ref[f"{lab} x"])
                               .to(device).double()))})
-                checks[f"({lab}) history and x within twice textbook f32's "
+                checks[f"{tag} history and x within twice textbook f32's "
                        "distance from float64 (phase 4k's envelope)"] = (
                     bool(np.isfinite(h).all()) and bool(np.isfinite(x).all())
                     and dev_k <= max(2 * env_t, X_F64_FLOOR)
                     and dev_x <= max(2 * env_x, X_F64_FLOOR))
+                if lab == "PCG(Jacobi)":
+                    # two f32 codes of one recurrence, their sums in other
+                    # orders: held to each other by the same envelope
+                    one_k, one_x = res["vs one process (history, x)"]
+                    checks[f"{tag} history and x within phase 4k's "
+                           "envelope of one process's"] = (
+                        one_k <= max(2 * env_t, X_F64_FLOOR)
+                        and one_x <= max(2 * env_x, X_F64_FLOOR))
             results[lab] = res
             log(f"[processes] {lab}: ms/iter per process "
                 f"{res['ms/iter per process']}, one process "
-                f"{res['ms/iter one process']:.4f}; launches per process "
+                f"{res['ms/iter one process']:.4f}"
+                + (" (per cycle)" if lab == "GMRES(10)" else "")
+                + f"; launches per process "
                 f"{res['launches per process']}, one process {want}"
                 + (f"; vs float64 {res['vs float64 (history, x)']}, "
-                   f"textbook f32 {res['textbook f32 vs float64']}, vs one "
-                   f"process {res['vs one process (history, x)']}"
+                   f"textbook f32 {res['textbook f32 vs float64']}"
                    if "vs float64 (history, x)" in res else "")
+                + (f"; vs one process {res['vs one process (history, x)']}"
+                   if "vs one process (history, x)" in res else "")
+                + (f"; history finite up to {res['history finite up to']}"
+                   if "history finite up to" in res else "")
                 + f" on {card}")
         checks["(d) the f64 golden exactly, on every rank and on one "
                "process, through the DiaOperator"] = all(
             o["golden"].tolist() == GOLDEN
             and json.loads(str(o["golden chain"])) == ["DiaOperator"]
             for o in ranks + [ref])
+        # (h) the dry run across the workers
+        dry = {}
+        for key in (k[len("dryrun "):] for k in ref
+                    if k.startswith("dryrun ") and k not in (
+                        "dryrun s", "dryrun line")):
+            a = [o[f"dryrun {key}"] for o in ranks]
+            one = ref[f"dryrun {key}"]
+            dev = float(np.max(np.abs(a[0] - one) / np.abs(one)))
+            dry[key] = {"vs one process": dev, "bits": bits(a[0], one)}
+            held = all(bits(o, a[0]) for o in a) and (
+                bits(a[0], one) if key in PROC_DRYRUN_BITS
+                else dev <= PROC_DRYRUN_RTOL)
+            checks[f"(h) dryrun_multichip({PIECES}) {key}: equal on every "
+                   "rank, " + ("bit for bit one process's"
+                               if key in PROC_DRYRUN_BITS else
+                               f"within {PROC_DRYRUN_RTOL} of one "
+                               "process's")] = held
+        results["dryrun"] = {
+            "sections": dry, "lines": [str(o["dryrun line"]) for o in ranks],
+            "line one process": str(ref["dryrun line"]),
+            "s per process": [float(o["dryrun s"]) for o in ranks],
+            "s one process": float(ref["dryrun s"])}
+        for r, o in enumerate(ranks):
+            log(f"[processes] rank {r}: {o['dryrun line']}")
+        log(f"[processes] dryrun_multichip({PIECES}) vs one process: "
+            + ", ".join(f"{k} {v['vs one process']:.3g}"
+                        for k, v in dry.items()))
         results["exchange us"] = {
             "per process": [json.loads(str(o["exchange us"]))
                             for o in ranks], "one process": ref_us}

@@ -46,8 +46,11 @@ passes on their neighbours' halo planes, and the torch phases' dots per
 piece.  Sums: a phase returns its space's reduction summed over the
 space's pieces in piece order, and the runner adds the spaces' totals in
 space order (``mesh.ordered_sum``), as the JAX package's phases ``psum``
-over the pieces before its runner adds the spaces.  Several pieces without
-a mesh raise ValueError (:func:`_wrap`).
+over the pieces before its runner adds the spaces.  On a mesh over
+processes a space's total is its pieces' partials gathered from every
+process first, so every rank adds the same totals and the block runners
+are the one-process mesh's bit for bit.  Several pieces without a mesh
+raise ValueError (:func:`_wrap`).
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ import os
 
 import torch
 
-from .mesh import ordered_sum, refuse_processes
+from .mesh import ordered_sum
 
 # ======================================================================
 # per-space phase builders
@@ -427,8 +430,6 @@ def _wrap(ops, local_run):
     if any(op.partition.num_pieces > 1 and op.mesh is None for op in ops):
         raise ValueError("a block runner over spaces of several pieces "
                          "needs a mesh")
-    for op in ops:
-        refuse_processes(op.mesh, "a block system")
     return local_run
 
 

@@ -46,15 +46,17 @@ BiCGStab runner is one piece only, as in the JAX package: on 3-D pieces
 BiCGStab runs ``step()`` over the sharded matvec.
 
 On a mesh over processes (``parallel/mesh.py``) an operator runs the 2-D
-stencils only: the kernel view's matvec and its CG runners (s-step and
-two-pass) and the linearized path, each process on its own pieces
-(``_nloc`` of them from piece ``_lo``).  Its first piece's top halo rows come
-from the previous process and its last piece's bottom rows from the next;
-the edge flags go by global piece index; every per-piece partial (the
-dots, the Grams) is gathered and summed in piece order as on one process,
-so every rank computes the same coefficients and holds the same history.
-3-D pieces, other dimensions and the fused BiCGStab on pieces raise
-NotImplementedError (ROADMAP §1 item 5g (iii)).
+stencils only: the kernel view's matvec, its CG runners (s-step and
+two-pass), its fused BiCGStab runner and the linearized path, each process
+on its own pieces (``_nloc`` of them from piece ``_lo``).  Its first
+piece's top halo rows come from the previous process and its last piece's
+bottom rows from the next; the edge flags go by global piece index; every
+per-piece partial (the dots, the Grams) is gathered and summed in piece
+order as on one process, and every per-piece sum over a stack of pieces
+runs at the whole mesh's stack (``mesh.full_stack``), so every rank
+computes the one-process mesh's coefficients bit for bit and holds the
+same history.  3-D pieces and other dimensions raise NotImplementedError
+(ROADMAP §1 item 5g (iii)).
 """
 
 from __future__ import annotations
@@ -979,7 +981,6 @@ class StencilOperator:
         or each other) and never into r~."""
         if not self.supports_fused_bicgstab:
             return None
-        refuse_processes(self.mesh, "the fused BiCGStab on pieces")
         if self._sharded:
             return self._sharded_bicgstab_runner(num_iterations)
         if self._view["kind"] == "3d":
@@ -1041,28 +1042,33 @@ class StencilOperator:
 
     def _bicg_boot_pieces(self, r, rt):
         """(<r, r>, <r~, r>) on pieces: one dot per piece (compensated: one
-        rounding of a float64 sum per piece), summed in piece order."""
-        S = self.partition.num_pieces
+        rounding of a float64 sum per piece), each summed at the whole
+        mesh's stack, the sums added in piece order."""
+        S, mesh = self._nloc, self.mesh
         if self.options.compensated_dots:
             def d(a, b):
-                a2, b2 = (t.reshape(S, -1).to(torch.float32).double()
-                          for t in (a, b))
-                return torch.sum(a2 * b2, dim=1).to(torch.float32)
+                a2, b2 = (full_stack(mesh, t.reshape(S, -1))
+                          .to(torch.float32).double() for t in (a, b))
+                return local_stack(mesh, torch.sum(a2 * b2, dim=1)).to(
+                    torch.float32)
         else:
             def d(a, b):
-                return torch.sum(a.reshape(S, -1) * b.reshape(S, -1), dim=1,
-                                 dtype=torch.float32)
+                return local_stack(mesh, torch.sum(
+                    full_stack(mesh, a.reshape(S, -1) * b.reshape(S, -1)),
+                    dim=1, dtype=torch.float32))
         return self._psum(d(r, r)), self._psum(d(rt, r))
 
-    @staticmethod
-    def _edge_sum(*terms):
+    def _edge_sum(self, *terms):
         """Per piece, the f32 sum of the ``[S, rows, C]`` edge terms given
         (None: a side the stencil does not read), one term after the
-        other; 0.0 where there is none."""
+        other, each summed at the whole mesh's stack; 0.0 where there is
+        none."""
         f = None
         for t in terms:
             if t is not None:
-                t = torch.sum(t, dim=(-2, -1), dtype=torch.float32)
+                t = local_stack(self.mesh, torch.sum(
+                    full_stack(self.mesh, t), dim=(-2, -1),
+                    dtype=torch.float32))
                 f = t if f is None else f + t
         return 0.0 if f is None else f
 
@@ -1088,12 +1094,13 @@ class StencilOperator:
         from ..ops.cuda.bicgstab2d import bicg_pv
         from .overlap import edge_missing, exchange_halos
 
-        S = self.partition.num_pieces
+        S = self._nloc
         Br = self._view["Br"]
         rlo, rhi = self._rows_reach()
         kw = self._bicg_kw()
         depth = max(2 * rlo, 2 * rhi, 1)
-        tops, bots = exchange_halos((r, p, v), S, 2 * rlo, 2 * rhi, depth)
+        tops, bots = exchange_halos((r, p, v), S, 2 * rlo, 2 * rhi, depth,
+                                    mesh=self.mesh)
         r_t, p_t, v_t = (a[:, depth - 2 * rlo:] for a in tops)
         r_b, p_b, v_b = (a[:, :2 * rhi] for a in bots)
         r3, p3, v3, rt3 = (self._pieces(a) for a in (r, p, v, rt))
@@ -1132,7 +1139,7 @@ class StencilOperator:
         from .sstep_sharded import _apply
 
         r_t, r_b, pn2_t, pn2_b = ctx
-        S = self.partition.num_pieces
+        S = self._nloc
         Br = self._view["Br"]
         rlo, rhi = self._rows_reach()
         kw = self._bicg_kw()
@@ -1182,7 +1189,7 @@ class StencilOperator:
         from ..ops.cuda.bicgstab2d import bicg_update
 
         mt_t, mt_b, t0t, t0b, s_loc_t, s_loc_b = ctx
-        S = self.partition.num_pieces
+        S = self._nloc
         Br = self._view["Br"]
         rlo, rhi = self._rows_reach()
         kw = self._bicg_kw()

@@ -14,6 +14,11 @@ Numerics: at large n the f32 trajectory depends on the order in which the
 carried dots are summed.  ``SolverOptions(compensated_dots=True)`` sums them
 from exact products in float64 (``ops/ddsum.py``), on the fused and the
 transcription path alike.
+
+On a mesh over processes both paths run as on one process: the fused
+runner on each process's pieces (every dot gathered and added in piece
+order, bit for bit the one-process mesh's), ``step()`` over the planner's
+collective dots.
 """
 
 from __future__ import annotations
@@ -23,7 +28,6 @@ from typing import List
 import torch
 
 from ..core.scalar import Scalar
-from ..parallel.mesh import refuse_processes
 from ..planner import SquarePlanner
 from .cg import _unshare_for_inplace
 
@@ -38,7 +42,6 @@ class BiCGStabSolver:
     V = 6
 
     def __init__(self, planner: SquarePlanner):
-        refuse_processes(planner.mesh, "BiCGStabSolver")
         self.planner = planner
         planner.allocate_workspace(5)
         self._solve_cache = {}

@@ -17,6 +17,11 @@ tensor and each Arnoldi step's projections and rank updates are
 XLA.  Those products are held at full float32 (no TF32) whatever the
 caller enabled.  The operator's matvec is its kernel (K3 ``y`` on the 2-D
 view, K6a on the 3-D one).  No step reads a scalar back to the host.
+
+On a mesh over processes each process holds its rows of the basis: every
+dot and projection becomes per-piece partials, gathered and added in piece
+order (:func:`_reductions`), so ``H`` and the Givens solve are the same on
+every rank; the rank updates and the x update stay local.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from typing import List
 import torch
 
 from ..core.scalar import Scalar, ScalarHistory
-from ..parallel.mesh import refuse_processes
+from ..core.vector import piece_dot
+from ..parallel.mesh import gather_pieces, ordered_sum, spans_processes
 from ..planner import SquarePlanner
 
 
@@ -91,12 +97,33 @@ def _least_squares_givens(H: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _reductions(mesh):
+    """(dot, project) of the CGS2 runner on flat vectors: ``dot(a, b)`` =
+    <a, b> and ``project(V, w)`` = V @ w for the rows ``V`` of a basis.
+    On a mesh over processes each is per-piece partials of this process's
+    pieces, gathered and added in piece order (``core/vector.piece_dot``);
+    otherwise one ``torch.dot`` and one ``torch.matmul``."""
+    if not spans_processes(mesh):
+        return torch.dot, torch.matmul
+    num = mesh.local_size
+
+    def dot(a, b):
+        return piece_dot(mesh, a, b, num)
+
+    def project(V, w):
+        V3, w2 = V.reshape(V.shape[0], num, -1), w.reshape(num, -1)
+        parts = torch.stack([torch.matmul(V3[:, s], w2[s])
+                             for s in range(num)])
+        return ordered_sum(gather_pieces(mesh, parts), w.dtype)
+
+    return dot, project
+
+
 class GMRESSolver:
     SOL = 0
     RHS = 1
 
     def __init__(self, planner: SquarePlanner, restart: int):
-        refuse_processes(planner.mesh, "GMRESSolver")
         self.planner = planner
         self.restart = int(restart)
         planner.allocate_workspace(self.restart + 1)
@@ -178,6 +205,7 @@ class GMRESSolver:
         if di != 0 or ri != 0:
             return None
         m = self.restart
+        dot, project = _reductions(planner.mesh)
 
         def run(x, b, num_cycles):
             shape, dtype = x.shape, x.dtype
@@ -188,7 +216,7 @@ class GMRESSolver:
             history = torch.empty(num_cycles, dtype=dtype, device=x.device)
             for i in range(num_cycles):
                 r = b - op.matvec(x)
-                beta2 = torch.dot(r.reshape(-1), r.reshape(-1))
+                beta2 = dot(r.reshape(-1), r.reshape(-1))
                 history[i] = beta2
                 pos = beta2 > 0
                 inv_norm = torch.where(
@@ -200,11 +228,11 @@ class GMRESSolver:
                 for j in range(m):
                     w = op.matvec(V[j]).reshape(-1)
                     basis = Vf[: j + 1]
-                    h1 = torch.matmul(basis, w)
+                    h1 = project(basis, w)
                     w = w - torch.matmul(h1, basis)
-                    h2 = torch.matmul(basis, w)
+                    h2 = project(basis, w)
                     w = w - torch.matmul(h2, basis)
-                    d = torch.dot(w, w)
+                    d = dot(w, w)
                     H[: j + 1, j] = h1 + h2
                     H[j + 1, j] = torch.sqrt(d)
                     pos = d > 0
@@ -253,7 +281,8 @@ class GMRESSolver:
             op = planner.row_partitioned_matrices[0][0]
             r = bv.data - op.matvec(x_new)
             planner.get_vector(self.krylov_basis(0), 0).data = r
-            rr_final = torch.dot(r.reshape(-1), r.reshape(-1))
+            dot, _ = _reductions(planner.mesh)
+            rr_final = dot(r.reshape(-1), r.reshape(-1))
             return torch.cat([history, rr_final.reshape(1)])
 
         dtype = planner.options.entry_dtype

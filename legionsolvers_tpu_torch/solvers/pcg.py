@@ -10,7 +10,8 @@ CG's in exact arithmetic.
 ``solve`` loops over eager ``step()``s: q = A p and <p, q> come from one
 kernel pass where the operator fuses them (K3 ``y_dot`` on the 2-D view,
 K6a on the 3-D one), the rest is torch.  No step reads a scalar back to
-the host.
+the host.  On a mesh over processes each process holds its rows of the
+Jacobi diagonal, and the planner's dots are collectives.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from ..core.scalar import Scalar
-from ..parallel.mesh import refuse_processes
+from ..parallel.mesh import piece_range
 from ..planner import SquarePlanner
 
 
@@ -33,7 +34,8 @@ class JacobiPreconditioner:
     the wrapped base holds the permuted matrix and the solver applies M
     inside the solver basis, so the inverse diagonal is kept in both bases
     (built once, on the device) and :meth:`apply` picks by
-    ``planner._in_solver_basis``."""
+    ``planner._in_solver_basis``.  On a mesh over processes the device
+    tensors hold this process's pieces, as its vectors do."""
 
     def __init__(self, planner: SquarePlanner):
         from ..parallel.reorder import ReorderedOperator
@@ -69,10 +71,14 @@ class JacobiPreconditioner:
             nz = diag != 0
             inv[nz] = 1.0 / diag[nz]
             gs = planner.canonical_grid_shapes[space]
+            lo, hi = piece_range(planner.mesh, part.num_pieces)
+            B, S = part.block_size, part.num_pieces
 
             def to_dev(a):
-                return torch.as_tensor(a.reshape(gs) if gs else a,
-                                       dtype=dtype, device=planner.device)
+                a = a[lo * B: hi * B]  # this process's pieces
+                if gs:
+                    a = a.reshape((gs[0] // S * (hi - lo),) + tuple(gs[1:]))
+                return torch.as_tensor(a, dtype=dtype, device=planner.device)
 
             arr = to_dev(inv)
             self.inv_diags.append(arr)
@@ -108,7 +114,6 @@ class PCGSolver:
 
     def __init__(self, planner: SquarePlanner,
                  preconditioner: Optional[object] = None):
-        refuse_processes(planner.mesh, "PCGSolver")
         self.planner = planner
         self.M = preconditioner
         planner.allocate_workspace(4)

@@ -17,6 +17,16 @@ here on a one-process ``make_mesh(4, devices=["cpu"] * 4)``.  Held:
   eager dots sum per piece there, over the whole tensor on one process);
 * fills, ``to_numpy``, ``random_fill`` and ``dot`` equal to one process
   (dots exactly on integer data);
+* the fused 2-D BiCGStab (f32 and compensated dots) and the block systems
+  of 2 spaces (CG on the s-step and two-pass phases, BiCGStab, and both on
+  the f64 torch phases): bit for bit the one-process mesh's on both ranks;
+* BiCGStab ``step()``, GMRES (CGS2 runner and MGS ``step()``) and
+  PCG(Jacobi), whose eager dots sum per piece here and over the whole
+  vector on one process: equal on both ranks and within the bound stated
+  in each test of one process; their f64 runs and the f64 block systems
+  also within it of the JAX package's 4-device mesh;
+* ``entry.dryrun_multichip(4)`` with its shards over both processes: its
+  fused sections bit for bit one process's, the others within rtol 1e-5;
 * every path a process mesh refuses raises NotImplementedError naming
   item 5g, and ``initialize_distributed`` a second time is a no-op.
 
@@ -48,6 +58,14 @@ TIMEOUT_S = 240
 ELL_HIST_RTOL = 1e-4
 ELL_X_RTOL = 1e-3  # test_torch_sharded.test_fused_cg_overlap_agreement's
 JAX_RTOL = 1e-4  # test_torch_sharded.test_fused_cg_matches_generic_2d's
+# the eager solvers across processes against one process (and f64 against
+# JAX's 4-device mesh): f32 1e-5 and f64 1e-12 where they hold, else the
+# measured gap's next step, within test_torch_sharded_solvers.py's bound
+F32_RTOL = 1e-5
+F64_RTOL = 1e-12
+BICG_F32_RTOL = 3e-3   # step() f32: 1.33e-3 measured; its bound there 3e-3
+BICG_F64_RTOL = 1e-11  # step() f64: 2.05e-12 measured, 2.65e-12 vs JAX
+PCG_F32_RTOL = 3e-5    # 1.03e-5 measured; its bound there 1e-4
 
 
 def _free_port() -> int:
@@ -210,11 +228,177 @@ def test_vectors_match_one_process():
         assert ranks[1][key].tolist() == [value] * 14 + [0.0] * 2
 
 
+def close(a, b, rtol):
+    """History or x ``a`` within ``rtol`` of ``b``: elementwise relative
+    for a history, relative to max|b| for x (``[spaces, n]``)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.ndim == 1:
+        np.testing.assert_allclose(a, b, rtol=rtol)
+    else:
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=rtol * np.abs(b).max())
+
+
+def check_ranks(case, key, rtol=None, jax=None):
+    """``key``'s history and x on both ranks: equal to each other, and bit
+    for bit one process's (``rtol`` None) or within ``rtol`` of it (and of
+    ``jax`` = JAX's (history, x), where given)."""
+    ref = one_process(case)
+    ranks = run_case(case)
+    for part in ("hist", "x"):
+        k = f"{key}_{part}"
+        assert same(ranks[0][k], ranks[1][k]), k
+        for r in ranks:
+            if rtol is None:
+                assert same(r[k], ref[k]), k
+            else:
+                close(r[k], ref[k], rtol)
+                if jax is not None:
+                    close(r[k], jax[part == "x"], rtol)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_run(solver, iters, num_spaces=1, use_jit=True):
+    """JAX's f64 (history, x per space) on its 4-device mesh for the
+    worker's ``solver_run`` system."""
+    from tests.test_torch_sharded_solvers import system
+
+    from legionsolvers_tpu.solvers.pcg import (
+        JacobiPreconditioner as JJacobi,
+        PCGSolver as JPCG,
+    )
+
+    n = W.SHAPE[0] * W.SHAPE[1]
+    rhs = [np.full(n, 1.0 + i) for i in range(num_spaces)]
+    planner, _ = system(J, W.SHAPE, 4, rhs=rhs, num_spaces=num_spaces,
+                        options=J.SolverOptions(entry_dtype=jnp.float64))
+    kw = {}
+    if solver == "PCGSolver":
+        s = JPCG(planner, JJacobi(planner))
+    elif solver == "GMRESSolver":
+        s, kw = J.GMRESSolver(planner, restart=W.RESTART), {
+            "use_jit": use_jit}
+    else:
+        s = getattr(J, solver)(planner)
+    h = np.asarray(s.solve(iters, **kw))
+    return h, np.stack([np.asarray(v.to_numpy())
+                        for v in planner.sol_vectors])
+
+
+@pytest.mark.parametrize("key", ["fused", "compensated"])
+def test_bicgstab2d_fused_bit_for_bit(key):
+    """The fused 2-D BiCGStab on 16-row pieces (K5a-c per piece, one
+    exchange per iteration, the edge fix-ups' sums at the whole mesh's
+    stack), f32 dots and compensated ones: history and x bit for bit the
+    one-process 4-piece mesh's on both ranks."""
+    assert bool(one_process("bicgstab2d")["fused_supported"])
+    assert all(bool(r["fused_supported"]) for r in run_case("bicgstab2d"))
+    check_ranks("bicgstab2d", key)
+
+
+def test_bicgstab2d_steps_f32():
+    """BiCGStab ``step()`` in f32 (LEGIONSOLVERS_NO_FUSED_BICGSTAB=1), its
+    dots per piece here: within rtol 3e-3 of one process (1.33e-3
+    measured; test_torch_sharded_solvers.py's BiCGStab bound), x within
+    3e-3 max|x|."""
+    check_ranks("bicgstab2d", "steps", BICG_F32_RTOL)
+
+
+def test_bicgstab2d_steps_f64_matches_one_process_and_jax():
+    """BiCGStab in f64, which has no kernel view and runs ``step()``:
+    within rtol 1e-11 of one process and of JAX's 4-device mesh (2.05e-12
+    and 1.69e-12 measured)."""
+    check_ranks("bicgstab2d", "f64", BICG_F64_RTOL,
+                jax_run("BiCGStabSolver", W.ITERS))
+
+
+@pytest.mark.parametrize("key", ["f32_fused", "f32_eager", "f64_fused",
+                                 "f64_eager"])
+def test_gmres_across_processes(key):
+    """GMRES(4) over 2 cycles, the CGS2 runner (its dots and projections
+    per piece, gathered) and the MGS ``step()``: f32 within rtol 1e-5 of
+    one process, f64 within 1e-12 of one process and of JAX's 4-device
+    GMRES (its runner, or ``use_jit=False``: MGS)."""
+    if key.startswith("f32"):
+        check_ranks("gmres", key, F32_RTOL)
+    else:
+        check_ranks("gmres", key, F64_RTOL, jax_run(
+            "GMRESSolver", W.GMRES_CYCLES, use_jit=key == "f64_fused"))
+
+
+@pytest.mark.parametrize("key", ["f32", "f64", "dia"])
+def test_pcg_across_processes(key):
+    """PCG(Jacobi) over 8 iterations on the stencil (f32 within rtol 3e-5
+    of one process, 1.03e-5 measured, test_torch_sharded_solvers.py's PCG
+    bound 1e-4; f64 within 1e-12 of one process and of JAX's 4-device
+    PCG) and, in f32, on the explicit Laplacian's DiaOperator (rtol
+    3e-5), each process holding its 2 pieces' rows of the diagonal."""
+    if key == "f64":
+        check_ranks("pcg", key, F64_RTOL, jax_run("PCGSolver", W.ITERS))
+    else:
+        check_ranks("pcg", key, PCG_F32_RTOL)
+    if key == "dia":
+        for r in run_case("pcg"):
+            assert str(r["dia_operator"]) == "DiaOperator"
+            assert r["dia_local_diag"].shape == (W.SHAPE[0] * W.SHAPE[1]
+                                                 // 2,)
+            assert np.all(r["dia_local_diag"] == 0.25)
+
+
+@pytest.mark.parametrize("key", ["cg_sstep", "cg_twopass", "bicgstab",
+                                 "f64_cg", "f64_bicgstab"])
+def test_block_bit_for_bit(key):
+    """Block systems of 2 spaces (b = 1 and 2): each space's sums gathered
+    per piece, the spaces added in space order; history and x of both
+    spaces bit for bit the one-process mesh's on both ranks."""
+    check_ranks("block", key)
+
+
+@pytest.mark.parametrize("solver", ["CGSolver", "BiCGStabSolver"])
+def test_block_f64_matches_jax(solver):
+    """The f64 block systems against JAX's block runners on its 4-device
+    mesh: CG within rtol 1e-12, BiCGStab within 1e-11 (2.65e-12
+    measured)."""
+    key = "f64_cg" if solver == "CGSolver" else "f64_bicgstab"
+    rtol = F64_RTOL if solver == "CGSolver" else BICG_F64_RTOL
+    hj, xj = jax_run(solver, W.ITERS, num_spaces=2)
+    for r in run_case("block"):
+        close(r[f"{key}_hist"], hj, rtol)
+        close(r[f"{key}_x"], xj, rtol)
+
+
+DRYRUN_SECTIONS = ("step", "fused", "sstep", "bicgstab", "gmres", "winell",
+                   "block-cg", "block-bicg", "dia", "pcg")
+DRYRUN_BITS = ("fused", "sstep", "bicgstab", "block-cg", "block-bicg")
+
+
+@pytest.mark.parametrize("section", DRYRUN_SECTIONS)
+def test_dryrun_across_processes(section):
+    """``dryrun_multichip(4)`` with 2 shards on each process: the same
+    histories on both ranks; the fused runners' sections bit for bit the
+    one-process run's, the eager ones (the generic step, GMRES, the
+    sharded ELL's and the DIA's CG, PCG) within rtol 1e-5 (4.08e-6
+    measured, GMRES)."""
+    ref = one_process("dryrun")[f"dryrun {section}"]
+    a, b = (r[f"dryrun {section}"] for r in run_case("dryrun"))
+    assert same(a, b)
+    if section in DRYRUN_BITS:
+        assert same(a, ref)
+    else:
+        np.testing.assert_allclose(a, ref, rtol=F32_RTOL)
+
+
+def test_dryrun_refuses_uneven_split():
+    """3 shards over 2 processes raise ValueError on both ranks."""
+    for r in run_case("dryrun"):
+        assert str(r["uneven"]).startswith("ValueError: 3 shards"), r[
+            "uneven"]
+
+
 @pytest.mark.parametrize("path", [
-    "3-D pieces", "1-D stencil", "fused BiCGStab on pieces",
-    "BiCGStabSolver", "GMRESSolver", "PCGSolver", "block system", "reorder",
-    "planner basis upgrade", "adopt_basis", "save_checkpoint",
-    "load_checkpoint", "distinct local devices"])
+    "3-D pieces", "1-D stencil", "reorder", "planner basis upgrade",
+    "adopt_basis", "save_checkpoint", "load_checkpoint",
+    "distinct local devices"])
 def test_refused_on_process_mesh(path):
     """Every path the process mesh does not run raises
     NotImplementedError naming ROADMAP item 5g, on both ranks."""

@@ -27,9 +27,11 @@ DEV = "cpu"
 LOCAL = 2  # shards per process
 F32 = T.SolverOptions(entry_dtype=torch.float32)
 F64 = T.SolverOptions(entry_dtype=torch.float64)
+F32C = T.SolverOptions(entry_dtype=torch.float32, compensated_dots=True)
 SHAPE = (64, 128)  # test_torch_sharded.py's 4-piece shape
 ITERS = 8
 GOLDEN_N = 100
+RESTART, GMRES_CYCLES = 4, 2
 
 
 def stencil_cg(mesh, options, iters=ITERS):
@@ -38,6 +40,27 @@ def stencil_cg(mesh, options, iters=ITERS):
     planner = build_stencil_system(2, SHAPE, options, mesh=mesh)
     hist = T.CGSolver(planner).solve(iters)
     return hist.numpy(), planner.sol_vectors[0].to_numpy()
+
+
+def solver_run(mesh, options, solver, iters=ITERS, num_spaces=1,
+               **kw):
+    """(history, x of every space) of ``solver`` (a name of the package:
+    BiCGStabSolver, GMRESSolver, PCGSolver or CGSolver) on the 2-D
+    5-point Laplacian at SHAPE, b = 1 (space i: 1 + i), x0 = 0; PCG with
+    the Jacobi preconditioner, GMRES(RESTART) over ``iters`` cycles
+    (``kw`` to its solve)."""
+    planner = build_stencil_system(2, SHAPE, options, mesh=mesh,
+                                   num_spaces=num_spaces)
+    for i in range(1, num_spaces):
+        planner.rhs_vectors[i].constant_fill(1.0 + i)
+    if solver == "PCGSolver":
+        s = T.PCGSolver(planner, T.JacobiPreconditioner(planner))
+    elif solver == "GMRESSolver":
+        s = T.GMRESSolver(planner, RESTART)
+    else:
+        s = getattr(T, solver)(planner)
+    hist = s.solve(iters, **kw).numpy()
+    return hist, np.stack([v.to_numpy() for v in planner.sol_vectors])
 
 
 def with_env(env, fn):
@@ -153,6 +176,80 @@ def case_vectors(mesh, out):
         torch.Generator(DEV).manual_seed(12)).to_numpy()
 
 
+def case_bicgstab2d(mesh, out):
+    """BiCGStab on the 2-D 5-point system: the fused runner in f32 (the
+    three K5 passes per piece, 16-row pieces) with f32 and compensated
+    dots; step() in f32 (LEGIONSOLVERS_NO_FUSED_BICGSTAB=1) and in f64,
+    which has no kernel view and so no fused runner."""
+    op = build_stencil_system(2, SHAPE, F32, mesh=mesh) \
+        .row_partitioned_matrices[0][0]
+    out["fused_supported"] = np.array(op.supports_fused_bicgstab)
+    out["fused_hist"], out["fused_x"] = solver_run(mesh, F32,
+                                                   "BiCGStabSolver")
+    out["compensated_hist"], out["compensated_x"] = solver_run(
+        mesh, F32C, "BiCGStabSolver")
+    out["steps_hist"], out["steps_x"] = with_env(
+        {"LEGIONSOLVERS_NO_FUSED_BICGSTAB": "1"},
+        lambda: solver_run(mesh, F32, "BiCGStabSolver"))
+    out["f64_hist"], out["f64_x"] = solver_run(mesh, F64, "BiCGStabSolver")
+
+
+def case_gmres(mesh, out):
+    """GMRES(RESTART) over GMRES_CYCLES cycles, the batched-basis CGS2
+    runner and the MGS step(), in f32 (the K3 matvec) and f64."""
+    for tag, options in (("f32", F32), ("f64", F64)):
+        for path, fused in (("fused", True), ("eager", False)):
+            out[f"{tag}_{path}_hist"], out[f"{tag}_{path}_x"] = solver_run(
+                mesh, options, "GMRESSolver", GMRES_CYCLES, fused=fused)
+
+
+def case_pcg(mesh, out):
+    """PCG(Jacobi): on the stencil in f32 and f64, and on the explicit
+    Laplacian, which the planner upgrades to a DiaOperator, in f32."""
+    for tag, options in (("f32", F32), ("f64", F64)):
+        out[f"{tag}_hist"], out[f"{tag}_x"] = solver_run(mesh, options,
+                                                         "PCGSolver")
+    planner = explicit_planner(mesh, F32)
+    out["dia_operator"] = np.array(
+        type(planner.row_partitioned_matrices[0][0]).__name__)
+    M = T.JacobiPreconditioner(planner)
+    out["dia_local_diag"] = M.inv_diags[0].numpy()
+    out["dia_hist"] = T.PCGSolver(planner, M).solve(ITERS).numpy()
+    out["dia_x"] = planner.sol_vectors[0].to_numpy()
+
+
+def case_block(mesh, out):
+    """Block systems of 2 spaces (b = 1 and 2): CG on the s-step phases
+    and on the two-pass ones (LEGIONSOLVERS_NO_SSTEP=1), BiCGStab on the
+    three-pass phases, in f32; CG and BiCGStab on the torch phases in
+    f64."""
+    for tag, options, solver, env in (
+            ("cg_sstep", F32, "CGSolver", {}),
+            ("cg_twopass", F32, "CGSolver", {"LEGIONSOLVERS_NO_SSTEP": "1"}),
+            ("bicgstab", F32, "BiCGStabSolver", {}),
+            ("f64_cg", F64, "CGSolver", {}),
+            ("f64_bicgstab", F64, "BiCGStabSolver", {})):
+        out[f"{tag}_hist"], out[f"{tag}_x"] = with_env(
+            env, lambda: solver_run(mesh, options, solver, num_spaces=2))
+
+
+def case_dryrun(mesh, out):
+    """``entry.dryrun_multichip(4)`` on the CPU (the mesh it makes itself:
+    here 2 shards on each of the 2 processes), its histories by section;
+    and on 2 processes a shard count they cannot split evenly."""
+    from legionsolvers_tpu_torch.entry import dryrun_multichip
+
+    for key, h in dryrun_multichip(mesh.size, device=DEV).items():
+        out[f"dryrun {key}"] = h
+    if mesh.spans_processes:
+        try:
+            dryrun_multichip(3, device=DEV)
+            got = "no error"
+        except ValueError as e:
+            got = f"ValueError: {e}"
+        out["uneven"] = np.array(got)
+
+
 def refused(mesh):
     """name -> a call that must raise NotImplementedError naming item 5g."""
     part2 = T.BlockPartition(SHAPE[0] * SHAPE[1], mesh.size)
@@ -183,13 +280,6 @@ def refused(mesh):
             (8, 8, 8), T.laplacian_stencil(3), mesh=mesh, options=F32),
         "1-D stencil": lambda: T.StencilOperator(
             (512,), T.laplacian_stencil(1), mesh=mesh, options=F32),
-        "fused BiCGStab on pieces": lambda: f32_planner()
-        .row_partitioned_matrices[0][0].make_fused_bicgstab_runner(4),
-        "BiCGStabSolver": lambda: T.BiCGStabSolver(f32_planner()),
-        "GMRESSolver": lambda: T.GMRESSolver(f32_planner(), 4),
-        "PCGSolver": lambda: T.PCGSolver(f32_planner()),
-        "block system": lambda: build_stencil_system(
-            2, SHAPE, F32, mesh=mesh, num_spaces=2),
         "reorder": reorder,
         "planner basis upgrade": lambda: with_env(
             {"LEGIONSOLVERS_NO_DIA": "1"},
@@ -223,7 +313,9 @@ def case_refused(mesh, out):
 
 
 CASES = {"golden": case_golden, "cg2d": case_cg2d, "ell": case_ell,
-         "vectors": case_vectors, "refused": case_refused}
+         "vectors": case_vectors, "refused": case_refused,
+         "bicgstab2d": case_bicgstab2d, "gmres": case_gmres,
+         "pcg": case_pcg, "block": case_block, "dryrun": case_dryrun}
 
 
 def main() -> None:
