@@ -466,12 +466,25 @@ with S2_past:
    step on the card against the same step on the CPU, and
    ``entry.dryrun_multichip(4)`` on the one-process mesh and across the
    workers: every number equal on both ranks, the fused sections bit for
-   bit one process's, the others within 1e-4; the ms/iter beside one
+   bit one process's, the others within 1e-4; (i) 3-D pieces at 256^3
+   (-dim 3, 4): two-pass CG solve(100), history and x bit for bit, each
+   process's K6a pq/update and K6b launches half of one process's; one
+   27-point matvec bit for bit; BiCGStab step() on the 7-point stencil
+   within phase 4j's eager bound; (j) the 1-D view at 2^24 ([4096,
+   4096]): two-pass CG and the fused BiCGStab solve(100) bit for bit
+   (the s-step takes no 1-D pieces, on one process either), half the
+   K3/K4 and K5a-c launches; (k) the scrambled 2048^2 Laplacian of 4f
+   through the planner's RCM upgrade: one process's chain and
+   permutation on both ranks, CG solve(200) within phase 4k's envelope
+   of one process and of float64 CG, x in the natural order, half the K9
+   launches, the host build seconds per rank; the ms/iter beside one
    process's (timed solves of 25 iterations).  ``--processes`` runs 4p
    alone.
 
-To make room for 4m and 5m, phase 5j's and 5k's idle traces cover about
-TRACE_OPS (2000) glue operations each, a third of what they did.
+To make room for 4m and 5m, phase 5j's and 5k's idle traces covered about
+2000 glue operations each, a third of what they did; to make room for 4p
+(i)-(k), about TRACE_OPS (1000), at least a TRACE_SHARE-th (a twentieth,
+from a tenth) of each timed solve.
 
 The line before the last is one JSON object describing every kernel
 (``ms_lost``: launches x (ms - bound_ms) over the main path's launches,
@@ -4717,14 +4730,15 @@ def profile_piece_solves(torch, solvers, times, card):
     launches): each solve's idle share, 1 - profiler device time per
     iteration over the unprofiled wall's of :func:`time_piece_solves`, on
     pieces and on one piece, each traced over about TRACE_OPS glue
-    operations (at least a tenth of the timed iterations; an even count
-    on the s-step schedule), as :func:`profile_piece_solvers` traces."""
+    operations (at least 1 / TRACE_SHARE of the timed iterations; an even
+    count on the s-step schedule), as :func:`profile_piece_solvers`
+    traces."""
     for name, (solver, single) in solvers.items():
         env = PIECE_RUNS[name][1]
         for label, slv in (("pieces", solver), ("one piece", single)):
             row = times[name][label]
             per_iter = row["glue ops per pass"] / (2 if env is None else 1)
-            n = min(N_ITERS, max(1, N_ITERS // 10, round(
+            n = min(N_ITERS, max(1, N_ITERS // TRACE_SHARE, round(
                 TRACE_OPS / max(per_iter, 1))))
             if env is None:
                 n += n % 2
@@ -4757,7 +4771,8 @@ PIECE3_ONE = {"pq3d": 1, "update3d": PIECE_ITERS,
 PIECE3_LAUNCHES = {m: PIECES * k for m, k in PIECE3_ONE.items()}
 PIECE_BICG_LAUNCHES = {m: PIECES * N_ITERS for m in BICG_KERNELS}
 BICG3_STEP_ITERS = 50
-TRACE_OPS = 2000  # glue operations a 5j or 5k idle trace aims at
+TRACE_OPS = 1000  # glue operations a 5j or 5k idle trace aims at
+TRACE_SHARE = 20  # ... covering at least 1 / TRACE_SHARE of the timed solve
 GMRES_CYCLES = 3
 GMRES_RESTART = 10
 PIECE_GMRES_RTOL = 2e-4   # tests/test_torch_sharded_solvers.py's bounds
@@ -5285,14 +5300,14 @@ def profile_piece_solvers(torch, solvers, times, card):
     every timing.  A trace of the whole solve costs the tracer's host time
     per glue operation, so a solve of many glue operations per iteration
     is traced over fewer iterations (about TRACE_OPS operations, at least
-    a tenth of the timed iterations); a short trace of a device-bound
+    1 / TRACE_SHARE of the timed iterations); a short trace of a device-bound
     solve would read low (the first kernels of a trace go missing), and
     those keep their whole length."""
     for name, (solver, single, env, env1, iters, _) in solvers.items():
         for label, slv, e in (("pieces", solver, env),
                               ("one piece", single, env1)):
             row = times[name][label]
-            n = min(iters, max(1, iters // 10, round(
+            n = min(iters, max(1, iters // TRACE_SHARE, round(
                 TRACE_OPS / max(row["glue ops per iteration"], 1))))
             row["traced iterations"] = n
             with env_route(e, slv):
@@ -5661,8 +5676,9 @@ def time_explicit_pieces(torch, solvers, bw, card):
     pieces and of the one-piece solve of the same matrix in the same
     process, the torch glue operations per iteration counted on the host
     (:class:`glue_ops`), and after every timing each one's idle share from
-    a profiler trace (``TRACE_OPS`` glue operations, at least a tenth of
-    the iterations).  {run: {"pieces": {...}, "one piece": {...}}}."""
+    a profiler trace (``TRACE_OPS`` glue operations, at least 1 /
+    TRACE_SHARE of the iterations).  {run: {"pieces": {...}, "one piece":
+    {...}}}."""
     out = {}
     for name, (solver, single, iters, nbytes) in solvers.items():
         row = {}
@@ -5691,7 +5707,7 @@ def time_explicit_pieces(torch, solvers, bw, card):
             if slv is None:
                 continue
             row = out[name][label]
-            n = min(iters, max(1, iters // 10, round(
+            n = min(iters, max(1, iters // TRACE_SHARE, round(
                 TRACE_OPS / max(row["glue ops per iteration"], 1))))
             row["traced iterations"] = n
             dev = profile_solve(
@@ -8526,12 +8542,23 @@ PROC_LAUNCHES = {"s-step": ("step2", "gram2"),
                  "BiCGStab": tuple(BICG_KERNELS),
                  "block CG": ("step2", "gram2"),
                  "block BiCGStab": tuple(BICG_KERNELS),
-                 "GMRES(10)": ("y",), "PCG(Jacobi)": ("dia2d_dot",)}
+                 "GMRES(10)": ("y",), "PCG(Jacobi)": ("dia2d_dot",),
+                 "3-D CG": ("pq3d", "update3d", "xpay_pq3d"),
+                 "3-D BiCGStab step()": ("y3d", "y_dot3d"),
+                 "1-D CG": ("pq", "update", "xpay_pq"),
+                 "1-D BiCGStab": tuple(BICG_KERNELS),
+                 "RCM": ("winell",)}
 # the part of 4p each run belongs to
 PROC_PART = {"s-step": "a", "two-pass": "a", "DIA": "b", "ELL": "c",
              "BiCGStab": "e", "block CG": "f", "block BiCGStab": "f",
-             "GMRES(10)": "g", "PCG(Jacobi)": "g"}
-PROC_BITS = ("s-step", "two-pass", "BiCGStab", "block CG", "block BiCGStab")
+             "GMRES(10)": "g", "PCG(Jacobi)": "g", "3-D CG": "i",
+             "3-D BiCGStab step()": "i", "1-D CG": "j",
+             "1-D BiCGStab": "j", "RCM": "k"}
+PROC_BITS = ("s-step", "two-pass", "BiCGStab", "block CG", "block BiCGStab",
+             "3-D CG", "1-D CG", "1-D BiCGStab")
+# (k): the scrambled PROC_DIA^2 Laplacian of phase 4f through the
+# planner's RCM upgrade, the chain phase 4k's planner picks on 4 pieces
+PROC_RCM_CHAIN = XP_CHAIN["scrambled 2048^2"]
 # (h): dryrun_multichip's sections on the fused runners, bit for bit one
 # process's; the eager ones' dots sum per piece across processes and over
 # the whole vector on one process: within PROC_DRYRUN_RTOL
@@ -8552,15 +8579,28 @@ def proc_runs(torch, np, lt, T, device, mesh):
     cycles), then a timed solve(PROC_TIMED) (GMRES: its cycles) after a
     warm-up one; (d) the f64
     golden; (h) ``entry.dryrun_multichip(PIECES)`` on the card (its own
-    mesh: all on this process, or split over the processes of the group).
+    mesh: all on this process, or split over the processes of the group);
+    (i) 3-D pieces at SHAPE3: the 7-point two-pass CG, counted
+    solve(PROC_ITERS_E_G), one 27-point matvec of a seeded x, and
+    BiCGStab step()s (3-D pieces have no fused runner), counted and timed
+    over PROC_TIMED; (j) the 1-D view at N_GRID^2 ([N_GRID, N_GRID]): CG
+    (two-pass: its s-step is not eligible on pieces) and the fused
+    BiCGStab, solve(PROC_ITERS_E_G); (k) the scrambled PROC_DIA^2
+    Laplacian through the RCM upgrade (its host build seconds, chain,
+    windowed plan, the permutation's digest, one matvec of (b)'s x in the
+    natural order), CG solve(N_ITERS) and the gathered x's digest.
     {key: numpy array} of this process's pieces (x: ``[spaces, n]``),
     launches as JSON."""
+    import hashlib
+
     from legionsolvers_tpu_torch.entry import (
         build_explicit_system,
         build_stencil_system,
         dryrun_multichip,
     )
 
+    digest = lambda a: np.array(hashlib.sha256(
+        np.ascontiguousarray(a).tobytes()).hexdigest())
     f32 = lt.SolverOptions(entry_dtype=torch.float32)
     f64 = lt.SolverOptions(entry_dtype=torch.float64)
     grid = (N_GRID, N_GRID)
@@ -8634,6 +8674,55 @@ def proc_runs(torch, np, lt, T, device, mesh):
           GMRES_CYCLES)
     solve("PCG(Jacobi)", build_explicit_system(A, f32, mesh=mesh),
           lambda p: pcg_solver(lt, p), PROC_ITERS_E_G)
+    # (i) 3-D pieces
+    solve("3-D CG", build_stencil_system(3, SHAPE3, f32, mesh=mesh),
+          iters=PROC_ITERS_E_G)
+    op = build_stencil_system(4, SHAPE3, f32, mesh=mesh) \
+        .row_partitioned_matrices[0][0]
+    x3 = np.random.default_rng(PIECE_SEED).standard_normal(
+        SHAPE3[0] * SHAPE3[1] * SHAPE3[2]).astype(np.float32)
+    v = lt.PartitionedVector.from_array(
+        "x", x3, lt.BlockPartition(x3.size, PIECES), mesh=mesh, options=f32,
+        grid_shape=SHAPE3, device=device)
+    torch.cuda.synchronize()
+    T.reset_launch_counts()
+    out["27-point matvec"] = op.matvec(v.data).reshape(-1).cpu().numpy()
+    torch.cuda.synchronize()
+    out["27-point launches"] = np.array(json.dumps(dict(T.LAUNCHES)))
+    T.reset_launch_counts()
+    del op, v, x3
+    planner = build_stencil_system(3, SHAPE3, f32, mesh=mesh)
+    out["3-D fused BiCGStab"] = np.array(bool(
+        planner.row_partitioned_matrices[0][0].supports_fused_bicgstab))
+    solve("3-D BiCGStab step()", planner, lt.BiCGStabSolver, PROC_TIMED)
+    del planner
+    # (j) the 1-D view
+    grid1 = (N_GRID * N_GRID,)
+    planner = build_stencil_system(1, grid1, f32, mesh=mesh)
+    out["1-D s-step eligible"] = np.array(bool(
+        planner.row_partitioned_matrices[0][0].step2_eligible))
+    solve("1-D CG", planner, iters=PROC_ITERS_E_G)
+    del planner
+    solve("1-D BiCGStab", build_stencil_system(1, grid1, f32, mesh=mesh),
+          lt.BiCGStabSolver, PROC_ITERS_E_G)
+    # (k) the scrambled Laplacian in its RCM basis
+    rows, cols, vals, n_s, _ = explicit_coo(np, lt, "scrambled")
+    A = lt.COOMatrix(rows, cols, vals, n_s, n_s, options=f32)
+    t0 = time.perf_counter()
+    planner = build_explicit_system(A, f32, mesh=mesh)
+    out["RCM build s"] = np.array(time.perf_counter() - t0)
+    op = planner.row_partitioned_matrices[0][0]
+    out["RCM chain"] = np.array(json.dumps(chain(op)))
+    out["RCM windowed"] = np.array(
+        getattr(getattr(op, "base", op), "_win", None) is not None)
+    out["RCM perm"] = digest(planner.basis_perms[0]["perm_np"])
+    v = lt.PartitionedVector.from_array(
+        "x", x, lt.BlockPartition(n, PIECES), mesh=mesh, options=f32,
+        device=device)
+    out["RCM matvec"] = op.matvec(v.data).cpu().numpy()
+    solve("RCM", planner)
+    out["RCM x gathered"] = digest(planner.sol_vectors[0].to_numpy())
+    del planner, op, v, A, rows, cols, vals
     t0 = time.perf_counter()
     line = io.StringIO()
     with contextlib.redirect_stdout(line):
@@ -8770,10 +8859,25 @@ def processes_path(torch, np, lt, T, device, card):
     y_dot launch) within PROC_ENTRY_RTOL of the same step on the CPU, and
     ``entry.dryrun_multichip(PIECES)`` across the workers: every section
     equal on both ranks, the fused ones bit for bit one process's, the
-    others within PROC_DRYRUN_RTOL.  Every worker must finish within
-    PROC_TIMEOUT_S with its results; there is no fallback to one process.
-    Prints each solve's ms/iter beside one process's and the host µs of
-    the exchanges.  Returns (results, failed)."""
+    others within PROC_DRYRUN_RTOL; (i) the 7-point 3-D CG on 3-D pieces
+    (K6b + K6a per piece, the halo planes shifted across the processes):
+    as (a), its K6a pq/update and K6b launches half; one 27-point matvec
+    bit for bit one process's, half its K6a y launches; BiCGStab step()s
+    on the 7-point stencil, no fused runner on 3-D pieces as on one
+    process: the first entries within the eager bound of one process's
+    (EAGER3_RTOL, phase 4j's), half the launches; (j) the 1-D view at
+    N_GRID^2: the s-step not eligible on pieces, as on one process,
+    two-pass CG and the fused BiCGStab as (a); (k) the scrambled
+    PROC_DIA^2 Laplacian through the planner's RCM upgrade: the
+    one-process chain (PROC_RCM_CHAIN, windowed) and permutation on every
+    rank, one matvec in the natural order bit for bit one process's, CG
+    solve(N_ITERS) within phase 4k's envelope of one process's and of
+    float64 CG with x in the natural order, the same gathered x on both
+    ranks, half the K9 launches; the host build seconds logged per rank.
+    Every worker must finish within PROC_TIMEOUT_S with its results; there
+    is no fallback to one process.  Prints each solve's ms/iter beside one
+    process's and the host µs of the exchanges.  Returns (results,
+    failed)."""
     from legionsolvers_tpu_torch.entry import entry
     from legionsolvers_tpu_torch.parallel.mesh import make_mesh
 
@@ -8869,6 +8973,17 @@ def processes_path(torch, np, lt, T, device, card):
                                        and bits(x, ref[f"{lab} x"]))
                 res["history finite up to"] = int(
                     np.isfinite(h).cumprod().sum())
+            elif lab == "3-D BiCGStab step()":
+                dev = rel_dev(torch.from_numpy(h),
+                              torch.from_numpy(ref[f"{lab} hist"]))
+                res["vs one process (history)"] = dev.tolist()
+                checks[f"(i) {lab}: no fused runner on 3-D pieces, as on "
+                       "one process; the first three entries within "
+                       f"{EAGER3_RTOL} of one process's (phase 4j's eager "
+                       "bound)"] = (
+                    not any(bool(o["3-D fused BiCGStab"])
+                            for o in ranks + [ref])
+                    and bool(np.isfinite(h).all()) and eager_ok(dev[:3]))
             elif lab == "GMRES(10)":
                 ht, xt = torch.from_numpy(h), torch.from_numpy(x).double()
                 x1 = torch.from_numpy(ref[f"{lab} x"]).double()
@@ -8884,16 +8999,36 @@ def processes_path(torch, np, lt, T, device, card):
                     <= PIECE_GMRES_RTOL)
             else:
                 if lab != "PCG(Jacobi)":
-                    want_chain = (["DiaOperator"] if lab == "DIA"
-                                  else ["RowPartitionedMatrix"])
-                    checks[f"({lab}) the planner picks {want_chain}"
-                           + (", windowed (K9)" if lab == "ELL" else "")] = \
+                    want_chain = {"DIA": ["DiaOperator"],
+                                  "RCM": PROC_RCM_CHAIN}.get(
+                                      lab, ["RowPartitionedMatrix"])
+                    name = f"({lab})" if part in "bc" else f"(k) {lab}:"
+                    checks[f"{name} the planner picks {want_chain}"
+                           + (", windowed (K9)" if lab != "DIA" else "")] = \
                         all(json.loads(str(o[f"{lab} chain"])) == want_chain
                             and (lab == "DIA" or bool(o[f"{lab} windowed"]))
-                            for o in ranks)
-                    checks[f"({lab}) one matvec bit for bit one "
+                            for o in ranks + [ref])
+                    checks[f"{name} one matvec bit for bit one "
                            "process's"] = bits(whole(f"{lab} matvec"),
                                                ref[f"{lab} matvec"])
+                x_ref = ref[f"{lab} x"]
+                if lab == "RCM":
+                    # x in the scrambled system's natural order: x_s[pr[i]]
+                    # is the unscrambled grid's x[i], float64 CG's order
+                    pr = np.random.default_rng(0).permutation(x.shape[-1])
+                    x, x_ref = x[:, pr], x_ref[:, pr]
+                    checks["(k) RCM: the same permutation on every rank, "
+                           "one process's"] = all(
+                        str(o["RCM perm"]) == str(ref["RCM perm"])
+                        for o in ranks)
+                    checks["(k) RCM: the same gathered x on every rank"] = \
+                        all(str(o["RCM x gathered"])
+                            == str(ranks[0]["RCM x gathered"])
+                            for o in ranks)
+                    res["host build s per process"] = [
+                        float(o["RCM build s"]) for o in ranks]
+                    res["host build s one process"] = float(
+                        ref["RCM build s"])
                 ht, xt = torch.from_numpy(h), torch.from_numpy(x).to(device)
                 h64, x64, env_t, env_x = f64_refs[len(h) - 1]
                 dev_k = max_rel(ht.to(device), h64)
@@ -8903,14 +9038,14 @@ def processes_path(torch, np, lt, T, device, card):
                     "textbook f32 vs float64": (env_t, env_x),
                     "vs one process (history, x)": (
                         max_rel(ht, torch.from_numpy(ref[f"{lab} hist"])),
-                        x_rel(xt, torch.from_numpy(ref[f"{lab} x"])
-                              .to(device).double()))})
+                        x_rel(xt, torch.from_numpy(x_ref).to(device)
+                              .double()))})
                 checks[f"{tag} history and x within twice textbook f32's "
                        "distance from float64 (phase 4k's envelope)"] = (
                     bool(np.isfinite(h).all()) and bool(np.isfinite(x).all())
                     and dev_k <= max(2 * env_t, X_F64_FLOOR)
                     and dev_x <= max(2 * env_x, X_F64_FLOOR))
-                if lab == "PCG(Jacobi)":
+                if lab in ("PCG(Jacobi)", "RCM"):
                     # two f32 codes of one recurrence, their sums in other
                     # orders: held to each other by the same envelope
                     one_k, one_x = res["vs one process (history, x)"]
@@ -8919,6 +9054,10 @@ def processes_path(torch, np, lt, T, device, card):
                         one_k <= max(2 * env_t, X_F64_FLOOR)
                         and one_x <= max(2 * env_x, X_F64_FLOOR))
             results[lab] = res
+            if lab == "RCM":
+                log(f"[processes] RCM: host build s per process "
+                    f"{res['host build s per process']}, one process "
+                    f"{res['host build s one process']:.2f}")
             log(f"[processes] {lab}: ms/iter per process "
                 f"{res['ms/iter per process']}, one process "
                 f"{res['ms/iter one process']:.4f}"
@@ -8933,6 +9072,18 @@ def processes_path(torch, np, lt, T, device, card):
                 + (f"; history finite up to {res['history finite up to']}"
                    if "history finite up to" in res else "")
                 + f" on {card}")
+        got27 = [json.loads(str(o["27-point launches"])) for o in ranks]
+        one27 = json.loads(str(ref["27-point launches"]))
+        checks["(i) 27-point: one matvec bit for bit one process's, each "
+               "process's K6a y launches half of one process's"] = (
+            bits(whole("27-point matvec"), ref["27-point matvec"])
+            and one27 == {"y3d": PIECES}
+            and all(g == {"y3d": PIECES // PROC_RANKS} for g in got27))
+        results["27-point matvec launches"] = {"per process": got27,
+                                               "one process": one27}
+        checks["(j) 1-D: the s-step not eligible on pieces, as on one "
+               "process (two-pass CG)"] = not any(
+            bool(o["1-D s-step eligible"]) for o in ranks + [ref])
         checks["(d) the f64 golden exactly, on every rank and on one "
                "process, through the DiaOperator"] = all(
             o["golden"].tolist() == GOLDEN

@@ -23,17 +23,22 @@ rank owns one contiguous block of pieces (``Mesh.ranks``).  A vector then
 holds only its rank's pieces, and the helpers below move what crosses a
 process boundary: :func:`gather_pieces` (per-piece partials, summed
 afterwards in piece order by :func:`ordered_sum` as on one process),
-:func:`shift_pieces` (JAX's ``ppermute`` of per-piece blocks, the halo
-exchanges) and :func:`gather_vector`.  The group is gloo's, and every
-payload is copied through host memory, card tensors included.  NCCL and
-shards on several distinct devices of one process are not ported (ROADMAP
-§1 item 5g (ii)): such a mesh raises NotImplementedError.
+:func:`shift_pieces` (JAX's ``ppermute`` of per-piece blocks: the 2-D
+halo rows, the 3-D halo planes, the linearized windows and the ELL
+ring), :func:`gather_vector` and :func:`permute_rows` (a reordered
+basis's permutation of a vector, at a solve's entry and exit), and
+:func:`check_same_on_ranks` (a host array every rank must agree on, such
+as an RCM permutation).  The group is gloo's, and every payload is copied
+through host memory, card tensors included.  NCCL and shards on several
+distinct devices of one process are not ported (ROADMAP §1 item 5g
+(ii)): such a mesh raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import hashlib
 import os
 from typing import Optional, Sequence, Tuple
 
@@ -411,3 +416,31 @@ def shift_pieces(mesh, blocks: torch.Tensor, d: int,
     for rows, buf in bufs:
         out[rows] = buf.to(out.device)
     return out
+
+
+def permute_rows(mesh, local: torch.Tensor, index: torch.Tensor):
+    """This process's rows of ``x[perm]``, ``x`` the whole flat vector
+    whose pieces ``local`` holds and ``index`` this process's rows of the
+    padded permutation (``reorder.padded_perm``): the whole vector
+    gathered from every process (:func:`gather_vector`, a collective),
+    then indexed; off a process mesh ``local[index]``."""
+    return gather_vector(mesh, local)[index]
+
+
+def check_same_on_ranks(mesh, array, what: str) -> None:
+    """Raise RuntimeError unless every process holds the same host
+    ``array`` (a collective: its digest is gathered from every rank); a
+    no-op off a process mesh."""
+    if not spans_processes(mesh):
+        return
+    import numpy as np
+    import torch.distributed as dist
+
+    a = np.ascontiguousarray(array)
+    digest = hashlib.sha256(
+        str((a.dtype.str, a.shape)).encode() + a.tobytes()).hexdigest()
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, digest)
+    if len(set(everyone)) != 1:
+        raise RuntimeError(f"{what} differs between the processes of the "
+                           f"mesh (digests {everyone})")

@@ -18,7 +18,11 @@ outside (eager ``step()``s) it permutes on every call.  On the pieces of a
 mesh (``parallel/mesh.py``) the permuted matrix becomes a DIA operator on
 pieces or the sharded windowed ELL of ``parallel/distmatrix.py``; the
 windowed-ELL, sliced and routed-gather operators are one piece only, as in
-the JAX package.
+the JAX package.  On a mesh over processes every rank computes the
+permutation from the whole matrix (the host library's RCM), checks that
+every other rank computed the same one, and keeps its rows of the padded
+permutation; a permute gathers the whole vector from every process and
+takes those rows (``mesh.permute_rows``).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 
 from ..options import resolve_device
-from .mesh import refuse_processes, resolve_mesh
+from .mesh import check_same_on_ranks, permute_rows, piece_range, resolve_mesh
 
 
 class _PermutedMatrix:
@@ -60,11 +64,16 @@ def inverse_perm(perm: np.ndarray) -> np.ndarray:
     return iperm
 
 
-def padded_perm(perm: np.ndarray, padded: int, device) -> torch.Tensor:
+def padded_perm(perm: np.ndarray, padded: int, device, mesh=None,
+                num_pieces: int = 1) -> torch.Tensor:
     """``perm`` extended by the identity over the padding slots, as an
-    int64 device index."""
+    int64 device index; on a mesh over processes (``mesh``, the padded
+    size in ``num_pieces`` pieces) this process's rows of it."""
+    lo, hi = piece_range(mesh, num_pieces)
+    B = padded // num_pieces
     tail = np.arange(len(perm), padded, dtype=np.int64)
-    return torch.as_tensor(np.concatenate([perm, tail]), device=device)
+    return torch.as_tensor(np.concatenate([perm, tail])[lo * B: hi * B],
+                           device=device)
 
 
 def rcm_reorder(matrix) -> tuple:
@@ -79,18 +88,21 @@ def rcm_reorder(matrix) -> tuple:
 
 
 class ReorderedOperator:
-    """A in the original basis, computed by ``base`` in the reordered one."""
+    """A in the original basis, computed by ``base`` in the reordered one.
+    On a mesh over processes ``perm_dev`` and ``iperm_dev`` are this
+    process's rows of the padded permutations."""
 
     def __init__(self, base, perm: np.ndarray, iperm: np.ndarray, partition,
-                 options, device=None):
+                 options, device=None, mesh=None):
         self.base = base
         self.partition = partition
         self.options = options
         self.device = resolve_device(device)
-        P = partition.padded_size
+        self.mesh = mesh
+        P, S = partition.padded_size, partition.num_pieces
         self.perm_np, self.iperm_np = perm, iperm
-        self.perm_dev = padded_perm(perm, P, self.device)
-        self.iperm_dev = padded_perm(iperm, P, self.device)
+        self.perm_dev = padded_perm(perm, P, self.device, mesh, S)
+        self.iperm_dev = padded_perm(iperm, P, self.device, mesh, S)
         self.in_basis = False  # toggled by SquarePlanner.to_solver_basis
 
     @property
@@ -125,7 +137,8 @@ class ReorderedOperator:
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         if self.in_basis:
             return self.base.matvec(x)
-        return self.base.matvec(x[self.perm_dev])[self.iperm_dev]
+        py = self.base.matvec(permute_rows(self.mesh, x, self.perm_dev))
+        return permute_rows(self.mesh, py, self.iperm_dev)
 
     def matvec_add(self, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return y + self.matvec(x)
@@ -133,13 +146,15 @@ class ReorderedOperator:
     def matvec_dot(self, x: torch.Tensor):
         if self.in_basis:
             return self.base.matvec_dot(x)
-        py, d = self.base.matvec_dot(x[self.perm_dev])
-        return py[self.iperm_dev], d
+        py, d = self.base.matvec_dot(permute_rows(self.mesh, x,
+                                                  self.perm_dev))
+        return permute_rows(self.mesh, py, self.iperm_dev), d
 
     def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
         if self.in_basis:
             return self.base.rmatvec(x)
-        return self.base.rmatvec(x[self.perm_dev])[self.iperm_dev]
+        py = self.base.rmatvec(permute_rows(self.mesh, x, self.perm_dev))
+        return permute_rows(self.mesh, py, self.iperm_dev)
 
 
 def _env_flag(name: str) -> bool:
@@ -161,12 +176,13 @@ def try_reordered_operator(
     the ELL ``RowPartitionedMatrix``.  Matrices below n = 1024 stay
     unpermuted.  On pieces (``mesh``): DIA on pieces, else the sharded
     ``RowPartitionedMatrix`` of the permuted matrix, kept when its windowed
-    plan exists or under ``force``.  LEGIONSOLVERS_NO_SLICED_ELL and
+    plan exists or under ``force``.  On a mesh over processes every rank
+    computes (or is given) the permutation and raises RuntimeError unless
+    every other rank holds the same one.  LEGIONSOLVERS_NO_SLICED_ELL and
     LEGIONSOLVERS_NO_GENSPMV turn off those two operators."""
     from .dia_op import DiaOperator, dia_offsets, numpy_dtype
 
     mesh, device = resolve_mesh(mesh, partition, device)
-    refuse_processes(mesh, "a reordered operator")
     if not force:
         if partition.num_pieces > 1 and mesh is None:
             return None
@@ -181,6 +197,7 @@ def try_reordered_operator(
         perm = np.asarray(perm, np.int64)
         iperm = inverse_perm(perm)
         pm = _PermutedMatrix(matrix, iperm)
+    check_same_on_ranks(mesh, perm, "the reordered basis's permutation")
     dtype = numpy_dtype(options.entry_dtype)
     one_piece = partition.num_pieces == 1
 
@@ -256,31 +273,33 @@ def try_reordered_operator(
     if base is None:
         return None
     return ReorderedOperator(base, perm, iperm, partition, options,
-                             device=device)
+                             device=device, mesh=mesh)
 
 
 class CrossBasisOperator:
     """A cross-space operator expressed in the spaces' solver bases
     (identity on a side without one).  ``base`` is the ELL operator of the
     two-sided-permuted matrix; outside the basis every call permutes at
-    the edges."""
+    the edges (on a mesh over processes through ``mesh.permute_rows``)."""
 
     supports_matvec_dot = False
 
-    def __init__(self, base, dom_basis, rng_basis, dom_padded, rng_padded,
-                 device=None):
+    def __init__(self, base, dom_basis, rng_basis, dom_partition,
+                 rng_partition, device=None, mesh=None):
         self.base = base
         self.in_basis = False
         self.device = resolve_device(device)
+        self.mesh = mesh
 
-        def pair(basis, P):
+        def pair(basis, part):
             if basis is None:
                 return None, None
-            return (padded_perm(basis["perm_np"], P, self.device),
-                    padded_perm(basis["iperm_np"], P, self.device))
+            return tuple(padded_perm(basis[k], part.padded_size, self.device,
+                                     mesh, part.num_pieces)
+                         for k in ("perm_np", "iperm_np"))
 
-        self.dom_perm_dev, self.dom_iperm_dev = pair(dom_basis, dom_padded)
-        self.rng_perm_dev, self.rng_iperm_dev = pair(rng_basis, rng_padded)
+        self.dom_perm_dev, self.dom_iperm_dev = pair(dom_basis, dom_partition)
+        self.rng_perm_dev, self.rng_iperm_dev = pair(rng_basis, rng_partition)
 
     @property
     def n_domain(self) -> int:
@@ -309,9 +328,8 @@ class CrossBasisOperator:
         if base_state is not None:
             self.base.set_device_state(base_state)
 
-    @staticmethod
-    def _gather(x, idx):
-        return x if idx is None else x[idx]
+    def _gather(self, x, idx):
+        return x if idx is None else permute_rows(self.mesh, x, idx)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         if self.in_basis:
@@ -339,7 +357,6 @@ def cross_basis_operator(matrix, dom_partition, rng_partition, dom_basis,
     per-space basis entries (None for the identity)."""
     from .distmatrix import RowPartitionedMatrix
 
-    refuse_processes(mesh, "a cross-basis operator")
     pm = _PermutedMatrix(
         matrix,
         rng_basis["iperm_np"] if rng_basis else None,
@@ -348,6 +365,5 @@ def cross_basis_operator(matrix, dom_partition, rng_partition, dom_basis,
     base = RowPartitionedMatrix(
         pm, domain_partition=dom_partition, range_partition=rng_partition,
         mesh=mesh, options=options, device=device)
-    return CrossBasisOperator(base, dom_basis, rng_basis,
-                              dom_partition.padded_size,
-                              rng_partition.padded_size, device=device)
+    return CrossBasisOperator(base, dom_basis, rng_basis, dom_partition,
+                              rng_partition, device=device, mesh=base.mesh)

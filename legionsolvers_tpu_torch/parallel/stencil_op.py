@@ -45,18 +45,18 @@ these paths or raises; it never falls back to one piece.  The fused 3-D
 BiCGStab runner is one piece only, as in the JAX package: on 3-D pieces
 BiCGStab runs ``step()`` over the sharded matvec.
 
-On a mesh over processes (``parallel/mesh.py``) an operator runs the 2-D
-stencils only: the kernel view's matvec, its CG runners (s-step and
-two-pass), its fused BiCGStab runner and the linearized path, each process
-on its own pieces (``_nloc`` of them from piece ``_lo``).  Its first
-piece's top halo rows come from the previous process and its last piece's
-bottom rows from the next; the edge flags go by global piece index; every
-per-piece partial (the dots, the Grams) is gathered and summed in piece
-order as on one process, and every per-piece sum over a stack of pieces
-runs at the whole mesh's stack (``mesh.full_stack``), so every rank
-computes the one-process mesh's coefficients bit for bit and holds the
-same history.  3-D pieces and other dimensions raise NotImplementedError
-(ROADMAP §1 item 5g (iii)).
+On a mesh over processes (``parallel/mesh.py``) an operator runs every
+path it runs on one process's pieces: the kernel view of 2-D grids, of
+the 1-D view and of 3-D grids (its matvec, its CG runners, its fused
+BiCGStab runner where the pieces have one) and the linearized path, each
+process on its own pieces (``_nloc`` of them from piece ``_lo``).  Its
+first piece's top halo rows (3-D: plane) come from the previous process
+and its last piece's bottom rows from the next; the edge flags and the
+linearized path's masks go by global piece index; every per-piece
+partial (the dots, the Grams) is gathered and summed in piece order as on
+one process, and every per-piece sum over a stack of pieces runs at the
+whole mesh's stack (``mesh.full_stack``), so every rank computes the
+one-process mesh's coefficients bit for bit and holds the same history.
 """
 
 from __future__ import annotations
@@ -77,8 +77,9 @@ from .mesh import (
     num_shards,
     ordered_sum,
     piece_range,
-    refuse_processes,
     resolve_mesh,
+    shift_pieces,
+    spans_processes,
 )
 from ..problems.stencil import (
     Stencil,
@@ -111,8 +112,6 @@ class StencilOperator:
             partition = BlockPartition(self.n, S)
         self.partition = partition
         self.mesh, self.device = resolve_mesh(mesh, partition, device)
-        if len(self.shape) != 2:
-            refuse_processes(self.mesh, f"a {len(self.shape)}-D stencil")
         # the pieces this process runs: all of them but on a process mesh
         self._lo, hi = piece_range(self.mesh, partition.num_pieces)
         self._nloc = hi - self._lo
@@ -430,16 +429,26 @@ class StencilOperator:
         number of grids and pieces), so they are copies taken before any
         pass writes; piece s's plane ``[s]`` is a contiguous ``[Y, Z]``
         tensor.  A side the stencil does not read (no ``ox < 0``, or no
-        ``ox > 0``) and every side of one piece is ``None``: zero planes."""
+        ``ox > 0``) and every side of one piece is ``None``: zero planes.
+        On a mesh over processes the grids hold this process's pieces: the
+        first one's top plane comes from the previous process's last
+        piece, the last one's bottom plane from the next process's first
+        (``mesh.shift_pieces``, zeros at the grid's ends by global piece
+        index)."""
         S = self.partition.num_pieces
-        refuse_processes(self.mesh, "3-D pieces")
         offs3 = self._view["offs3"]
         vols = [self._pieces(g) for g in grids]
+        across = spans_processes(self.mesh)
 
         def side(top):
             need = any((o[0] < 0) if top else (o[0] > 0) for o in offs3)
             if S == 1 or not need:
                 return (None,) * len(grids)
+            if across:
+                edge = torch.stack([v[:, -1] if top else v[:, 0]
+                                    for v in vols], 1)
+                return shift_pieces(self.mesh, edge, 1 if top else -1,
+                                    wrap=False).unbind(1)
             edge = torch.stack([v[:-1, -1] if top else v[1:, 0]
                                 for v in vols], 1)
             pad = (0, 0, 0, 0, 0, 0, 1, 0) if top else (0, 0, 0, 0, 0, 0, 0,

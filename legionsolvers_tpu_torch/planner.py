@@ -23,10 +23,12 @@ solvers enter the basis for the duration of ``solve()``.
 
 On a mesh over processes every vector holds its process's pieces, ``dot``
 is a collective (each piece's sum, gathered and added in piece order) and
-``dump_state``/``load_state`` carry the local tensors.  No basis is
-adopted there: where the one-process planner would try an RCM or
-degree-sorted basis, it raises NotImplementedError (ROADMAP §1 item 5g
-(iii)).
+``dump_state``/``load_state`` carry the local tensors.  The planner picks
+the operators and the basis the one-process planner picks on the same
+pieces: every rank computes the RCM permutation from the whole matrix
+(and checks it equal on every rank), keeps its rows of the padded
+permutations, and permutes each space's vectors at a solve's entry and
+exit through ``mesh.permute_rows``.
 """
 
 from __future__ import annotations
@@ -46,9 +48,10 @@ from .ops.ddsum import dd_dot
 from .options import DEFAULT_OPTIONS, SolverOptions
 from .parallel.distmatrix import RowPartitionedMatrix
 from .parallel.mesh import (
+    check_same_on_ranks,
     num_shards,
     ordered_sum,
-    refuse_processes,
+    permute_rows,
     resolve_mesh,
     spans_processes,
 )
@@ -85,19 +88,21 @@ class SquarePlanner:
         """Put ``space`` in the solver basis ``perm`` (perm[i] = the
         original index at position i) before any operator touches it; the
         space's matrices are then expressed in that basis, as when the
-        planner's own RCM upgrade chose it."""
+        planner's own RCM upgrade chose it.  On a mesh over processes a
+        collective: every rank passes the same ``perm`` (checked)."""
         from .parallel.reorder import inverse_perm, padded_perm
 
-        refuse_processes(self.mesh, "a reordered basis")
         if any(space in (d, r) for _, d, r in self.row_partitioned_matrices):
             raise ValueError(f"space {space} already has operators")
         perm = np.asarray(perm, np.int64)
+        check_same_on_ranks(self.mesh, perm, f"space {space}'s basis")
         iperm = inverse_perm(perm)
-        P = self.canonical_partitions[space].padded_size
+        part = self.canonical_partitions[space]
+        P, S = part.padded_size, part.num_pieces
         self.basis_perms[space] = {
             "perm_np": perm, "iperm_np": iperm,
-            "perm_dev": padded_perm(perm, P, self.device),
-            "iperm_dev": padded_perm(iperm, P, self.device),
+            "perm_dev": padded_perm(perm, P, self.device, self.mesh, S),
+            "iperm_dev": padded_perm(iperm, P, self.device, self.mesh, S),
         }
 
     def _check_device(self, what: str, device) -> None:
@@ -217,11 +222,6 @@ class SquarePlanner:
                 # a fresh basis only on a space no other operator touches
                 and not any(range_index in (d, r)
                             for _, d, r in self.row_partitioned_matrices)):
-            # permuting across processes is not ported: refuse rather than
-            # pick another operator than one process would
-            refuse_processes(self.mesh, "the RCM or degree-sorted basis "
-                             "upgrade (set LEGIONSOLVERS_NO_RCM=1 or "
-                             "prefer_dia=False for the sharded ELL)")
             dist = try_reordered_operator(matrix, rp, self.options,
                                           mesh=self.mesh, device=self.device)
             if dist is not None:
@@ -397,14 +397,18 @@ class SquarePlanner:
 
     def _permute_vectors(self, key: str) -> None:
         """Permute each space's vectors with that space's own basis; lazy
-        vectors never materialized are zeros and stay lazy."""
+        vectors never materialized are zeros and stay lazy.  On a mesh
+        over processes each permute is a collective (``mesh.permute_rows``):
+        every rank holds the same vectors materialized, as they run the
+        same solver."""
         for space, basis in self.basis_perms.items():
             idx = basis[key]
             for vset in (self.sol_vectors, self.rhs_vectors,
                          *self.workspace_vectors):
                 v = vset[space]
                 if v._data is not None:
-                    v.data = v.data.reshape(-1)[idx].reshape(v.data.shape)
+                    v.data = permute_rows(self.mesh, v.data.reshape(-1),
+                                          idx).reshape(v.data.shape)
 
     def _set_ops_in_basis(self, flag: bool) -> None:
         for op, _, _ in self.row_partitioned_matrices:

@@ -9,7 +9,10 @@ re-derive everything else).  The functions build the port's planner and solver h
 so both packages continue the same computation.  For an explicit system
 whose JAX planner adopted a reordered basis, :func:`explicit_cg_system`
 takes that basis (``basis_perms[0]["perm_np"]``) too, so that both
-packages compute in it, on one piece or on the pieces of a mesh.  Nothing here imports jax.
+packages compute in it, on one piece or on the pieces of a mesh.  On a
+mesh over processes every rank passes the whole JAX arrays and keeps its
+rows of each (its pieces), and adopts the whole basis, so a JAX state
+carries onto a mesh over processes.  Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -34,16 +37,19 @@ from ..solvers.pcg import JacobiPreconditioner, PCGSolver
 
 
 def _tensor(a, like: PartitionedVector) -> torch.Tensor:
-    """A fresh buffer: ``np.asarray`` of a JAX array may be a view of JAX's
-    own memory, which the port's in-place runners would otherwise write."""
+    """A fresh buffer of ``like``'s pieces of the whole padded array ``a``
+    (on a mesh over processes this process's rows): ``np.asarray`` of a
+    JAX array may be a view of JAX's own memory, which the port's in-place
+    runners would otherwise write."""
     t = torch.tensor(np.array(a), dtype=like.options.entry_dtype)
-    return t.reshape(like._shape()).to(like.device)
+    return like._slice(t.reshape(-1)).reshape(like._shape()).to(like.device)
 
 
 def load_state(planner: SquarePlanner, state: Mapping) -> None:
     """Copy a numpy snapshot of ``SquarePlanner.dump_state()`` (keys
     ``sol``, ``rhs``, ``ws0``...; ``ops`` is ignored) into ``planner``'s
-    vectors, one fresh buffer per vector."""
+    vectors, one fresh buffer per vector (each rank's rows of it on a
+    mesh over processes)."""
     sets = [("sol", planner.sol_vectors), ("rhs", planner.rhs_vectors)]
     sets += [(f"ws{j}", ws) for j, ws in enumerate(planner.workspace_vectors)]
     for key, vectors in sets:
@@ -131,16 +137,18 @@ def _planner(op_or_matrix, partition, grid_shape, options, device,
 def stencil_cg_system(shape: Sequence[int], stencil, state: Mapping,
                       rr_history: Sequence[float], *,
                       options: SolverOptions = DEFAULT_OPTIONS,
-                      device=None):
-    """(planner, solver) for a single-piece stencil system in the state
-    ``state``.  Vectors take the grid layout when the kernel view is
-    active, as in ``entry.build_system``."""
+                      device=None, mesh=None):
+    """(planner, solver) for a stencil system in the state ``state``, on
+    one piece or on the pieces of ``mesh``, one per shard.  Vectors take
+    the grid layout when the kernel view is active, as in
+    ``entry.build_system``."""
     n = int(np.prod(shape))
-    part = BlockPartition(n, 1)
+    part = BlockPartition(n, num_shards(mesh) if mesh is not None else 1)
     op = StencilOperator(shape, [(tuple(o), float(v)) for o, v in stencil],
-                         partition=part, options=options, device=device)
+                         partition=part, mesh=mesh, options=options,
+                         device=device)
     gs = tuple(shape) if op.uses_pallas else None
-    planner = _planner(op, part, gs, options, device)
+    planner = _planner(op, part, gs, options, op.device, mesh=mesh)
     return planner, cg_solver_from_state(planner, state, rr_history)
 
 

@@ -27,8 +27,14 @@ here on a one-process ``make_mesh(4, devices=["cpu"] * 4)``.  Held:
   also within it of the JAX package's 4-device mesh;
 * ``entry.dryrun_multichip(4)`` with its shards over both processes: its
   fused sections bit for bit one process's, the others within rtol 1e-5;
-* every path a process mesh refuses raises NotImplementedError naming
-  item 5g, and ``initialize_distributed`` a second time is a no-op.
+* checkpoints and a mesh over distinct local devices, which a process
+  mesh refuses, raise NotImplementedError naming item 5g, and
+  ``initialize_distributed`` a second time is a no-op.
+
+3-D pieces and the 1-D view are held in
+``tests/test_torch_multiprocess_grids.py``, reordered bases in
+``tests/test_torch_multiprocess_reorder.py``; both use this file's
+helpers.
 
 Each run gives its workers 240 s and kills both on a timeout; a test skips
 only when no loopback port binds.
@@ -78,12 +84,15 @@ def _free_port() -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def run_case(case):
-    """Both ranks' results of one worker case, ``[rank 0, rank 1]``."""
+def run_case(case, inputs=None):
+    """Both ranks' results of one worker case, ``[rank 0, rank 1]``;
+    ``inputs``: a file the case reads (its ``WORKER_INPUT``)."""
     port = _free_port()
     tmp = tempfile.mkdtemp(prefix="torch_mp_")
     env = {k: v for k, v in os.environ.items() if k != "PYTEST_CURRENT_TEST"}
     env["WORKER_TMP"] = tmp
+    if inputs is not None:
+        env["WORKER_INPUT"] = inputs
     out = os.path.join(tmp, case)
     procs = [subprocess.Popen(
         [sys.executable, WORKER, str(r), "2", str(port), case, out],
@@ -396,12 +405,11 @@ def test_dryrun_refuses_uneven_split():
 
 
 @pytest.mark.parametrize("path", [
-    "3-D pieces", "1-D stencil", "reorder", "planner basis upgrade",
-    "adopt_basis", "save_checkpoint", "load_checkpoint",
-    "distinct local devices"])
+    "save_checkpoint", "load_checkpoint", "distinct local devices"])
 def test_refused_on_process_mesh(path):
-    """Every path the process mesh does not run raises
-    NotImplementedError naming ROADMAP item 5g, on both ranks."""
+    """Every path the process mesh does not run (checkpoints, several
+    distinct devices in one process) raises NotImplementedError naming
+    ROADMAP item 5g, on both ranks."""
     for r in run_case("refused"):
         assert str(r[f"refused {path}"]) == "item 5g", r[f"refused {path}"]
 

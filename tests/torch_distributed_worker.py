@@ -32,6 +32,12 @@ SHAPE = (64, 128)  # test_torch_sharded.py's 4-piece shape
 ITERS = 8
 GOLDEN_N = 100
 RESTART, GMRES_CYCLES = 4, 2
+SHAPE3 = (8, 8, 128)  # test_torch_sharded_3d.py's: 2 x-planes per piece
+WIDE3 = (2, 16, 128)  # 3-D pieces of half an x-plane: the band past a block
+# the 1-D view [64, 4096]: pieces of 16 rows, the least the fused BiCGStab
+# runner takes on pieces
+SHAPE1 = (1 << 18,)
+SCRAMBLED_NX = 64  # the scrambled 64^2 Laplacian: n = 4096 >= 1024, RCM on
 
 
 def stencil_cg(mesh, options, iters=ITERS):
@@ -43,13 +49,13 @@ def stencil_cg(mesh, options, iters=ITERS):
 
 
 def solver_run(mesh, options, solver, iters=ITERS, num_spaces=1,
-               **kw):
+               dim=2, shape=SHAPE, **kw):
     """(history, x of every space) of ``solver`` (a name of the package:
-    BiCGStabSolver, GMRESSolver, PCGSolver or CGSolver) on the 2-D
-    5-point Laplacian at SHAPE, b = 1 (space i: 1 + i), x0 = 0; PCG with
-    the Jacobi preconditioner, GMRES(RESTART) over ``iters`` cycles
-    (``kw`` to its solve)."""
-    planner = build_stencil_system(2, SHAPE, options, mesh=mesh,
+    BiCGStabSolver, GMRESSolver, PCGSolver or CGSolver) on the ``-dim``
+    ``dim`` Laplacian (default the 2-D 5-point) at ``shape``, b = 1 (space
+    i: 1 + i), x0 = 0; PCG with the Jacobi preconditioner, GMRES(RESTART)
+    over ``iters`` cycles (``kw`` to its solve)."""
+    planner = build_stencil_system(dim, shape, options, mesh=mesh,
                                    num_spaces=num_spaces)
     for i in range(1, num_spaces):
         planner.rhs_vectors[i].constant_fill(1.0 + i)
@@ -250,9 +256,184 @@ def case_dryrun(mesh, out):
         out["uneven"] = np.array(got)
 
 
+def matvec_out(mesh, op, shape, seed, out, key):
+    """One matvec and one fused matvec-dot of ``op`` on a seeded f32 x in
+    the operator's grid layout: the whole y and the dot."""
+    n = int(np.prod(shape))
+    x = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+    gs = None
+    if op.uses_pallas:
+        v = op._view
+        gs = shape if len(shape) == 3 else (n // v["C"], v["C"])
+    xv = T.PartitionedVector.from_array(
+        "x", x, T.BlockPartition(n, mesh.size), mesh=mesh,
+        options=op.options, grid_shape=gs)
+    out[key] = M.gather_vector(mesh, op.matvec(xv.data).reshape(-1)).numpy()
+    y, dot = op.matvec_dot(xv.data)
+    out[f"{key}_dot"] = dot.numpy()
+    out[f"{key}_y"] = M.gather_vector(mesh, y.reshape(-1)).numpy()
+
+
+def case_grids3d(mesh, out):
+    """3-D pieces at SHAPE3: the 7- and 27-point f32 CG on the two-pass
+    kernel schedule (K6b + K6a per piece on the neighbours' halo planes),
+    one matvec and its fused dot each; on the 7-point: f64 CG (the
+    linearized path), BiCGStab step() in f32 and f64 (no fused runner on
+    3-D pieces), GMRES's runner, PCG(Jacobi) and block CG and BiCGStab of
+    2 spaces; f64 CG on WIDE3, whose band gathers from the whole
+    vector."""
+    for dim in (3, 4):
+        op = build_stencil_system(dim, SHAPE3, F32, mesh=mesh) \
+            .row_partitioned_matrices[0][0]
+        out[f"view{dim}"] = np.array(str(op._view and op._view["kind"]))
+        out[f"fused_bicg{dim}"] = np.array(op.supports_fused_bicgstab)
+        out[f"cg{dim}_hist"], out[f"cg{dim}_x"] = solver_run(
+            mesh, F32, "CGSolver", dim=dim, shape=SHAPE3)
+        matvec_out(mesh, op, SHAPE3, 20 + dim, out, f"mv{dim}")
+    run = lambda tag, options, solver, **kw: out.update(zip(
+        (f"{tag}_hist", f"{tag}_x"),
+        solver_run(mesh, options, solver, dim=3, shape=SHAPE3, **kw)))
+    run("f64", F64, "CGSolver")
+    run("bicg", F32, "BiCGStabSolver")
+    run("bicg_f64", F64, "BiCGStabSolver")
+    run("gmres", F32, "GMRESSolver", iters=GMRES_CYCLES)
+    run("pcg", F32, "PCGSolver")
+    run("block_cg", F32, "CGSolver", num_spaces=2)
+    run("block_bicg", F32, "BiCGStabSolver", num_spaces=2)
+    op = build_stencil_system(3, WIDE3, F64, mesh=mesh) \
+        .row_partitioned_matrices[0][0]
+    out["wide_band"] = np.array(op._wide_band)
+    out["wide_hist"], out["wide_x"] = solver_run(mesh, F64, "CGSolver",
+                                                 dim=3, shape=WIDE3)
+
+
+def case_flat1d(mesh, out):
+    """The 1-D view at SHAPE1 ([64, 4096], 16-row pieces): the f32 CG
+    (two-pass: the s-step does not take the 1-D view on pieces), the fused
+    BiCGStab with f32 and compensated dots, one matvec and its fused dot,
+    GMRES's runner (and in f64), PCG(Jacobi), block CG and BiCGStab of 2
+    spaces, and f64 CG (the linearized path)."""
+    op = build_stencil_system(1, SHAPE1, F32, mesh=mesh) \
+        .row_partitioned_matrices[0][0]
+    v = op._view
+    out["view"] = np.array([v["flat"], v["Br"], v["C"]])
+    out["sstep_eligible"] = np.array(op.step2_eligible)
+    out["fused_bicg"] = np.array(op.supports_fused_bicgstab)
+    matvec_out(mesh, op, SHAPE1, 25, out, "mv")
+    run = lambda tag, options, solver, **kw: out.update(zip(
+        (f"{tag}_hist", f"{tag}_x"),
+        solver_run(mesh, options, solver, dim=1, shape=SHAPE1, **kw)))
+    run("cg", F32, "CGSolver")
+    run("bicg", F32, "BiCGStabSolver")
+    run("bicg_comp", F32C, "BiCGStabSolver")
+    run("gmres", F32, "GMRESSolver", iters=GMRES_CYCLES)
+    run("gmres_f64", F64, "GMRESSolver", iters=GMRES_CYCLES)
+    run("pcg", F32, "PCGSolver")
+    run("block_cg", F32, "CGSolver", num_spaces=2)
+    run("block_bicg", F32, "BiCGStabSolver", num_spaces=2)
+    run("f64", F64, "CGSolver")
+
+
+def scrambled_laplacian(options):
+    """The 5-point Laplacian on SCRAMBLED_NX^2 with rows and columns
+    scrambled by ``default_rng(0).permutation`` (the system of
+    chip_smoke.py's phase 4f at another size)."""
+    a = T.create_coo_stencil_matrix((SCRAMBLED_NX, SCRAMBLED_NX),
+                                    T.laplacian_stencil(2))
+    n = a.n_range
+    pr = np.random.default_rng(0).permutation(n)
+    return T.COOMatrix(pr[a.rows], pr[a.cols], a.vals, n, n, options=options)
+
+
+def chain(op):
+    names = [type(op).__name__]
+    while hasattr(op, "base"):
+        op = op.base
+        names.append(type(op).__name__)
+    return names
+
+
+def case_reorder(mesh, out):
+    """The scrambled Laplacian through the planner's RCM upgrade (f32 and
+    f64): the operator chain, the permutation, one matvec in the natural
+    order and a CG solve; a block system of 2 spaces whose second space
+    adopts the first's basis (``adopt_basis``), coupled by eps I between
+    the spaces (``CrossBasisOperator``); and a permutation that differs
+    between the ranks."""
+    for tag, options in (("f32", F32), ("f64", F64)):
+        A = scrambled_laplacian(options)
+        planner = T.build_explicit_system(A, options, mesh=mesh)
+        op = planner.row_partitioned_matrices[0][0]
+        out[f"{tag}_chain"] = np.array(chain(op))
+        out[f"{tag}_windowed"] = np.array(op.base._win is not None)
+        out[f"{tag}_perm"] = planner.basis_perms[0]["perm_np"]
+        out[f"{tag}_perm_local"] = op.perm_dev.numpy()
+        n = A.n_range
+        x = np.random.default_rng(26).standard_normal(n)
+        xv = T.PartitionedVector.from_array(
+            "x", x, T.BlockPartition(n, mesh.size), mesh=mesh,
+            options=options)
+        out[f"{tag}_matvec"] = M.gather_vector(mesh, op.matvec(xv.data)) \
+            .numpy()
+        out[f"{tag}_hist"] = T.CGSolver(planner).solve(ITERS).numpy()
+        out[f"{tag}_x"] = planner.sol_vectors[0].to_numpy()
+    A = scrambled_laplacian(F32)
+    n = A.n_range
+    part = T.BlockPartition(n, mesh.size)
+    planner = T.SquarePlanner(mesh=mesh, options=F32)
+    for i in range(2):
+        planner.add_sol_vector(T.PartitionedVector(f"s{i}", part, mesh=mesh,
+                                                   options=F32))
+    for i in range(2):
+        planner.add_rhs_vector(T.PartitionedVector(
+            f"b{i}", part, mesh=mesh, options=F32).constant_fill(1.0 + i))
+    planner.add_row_partitioned_matrix(A, 0, 0)
+    planner.adopt_basis(1, planner.basis_perms[0]["perm_np"])
+    planner.add_row_partitioned_matrix(A, 1, 1)
+    eye = np.arange(n)
+    eps = T.COOMatrix(eye, eye, np.full(n, 0.125, np.float32), n, n,
+                      options=F32)
+    planner.add_row_partitioned_matrix(eps, 0, 1)
+    planner.add_row_partitioned_matrix(eps, 1, 0)
+    out["block_chains"] = np.array([
+        "/".join(chain(op)) for op, _, _ in planner.row_partitioned_matrices])
+    out["block_same_basis"] = np.array(np.array_equal(
+        planner.basis_perms[0]["perm_np"], planner.basis_perms[1]["perm_np"]))
+    out["block_hist"] = T.CGSolver(planner).solve(ITERS).numpy()
+    out["block_x"] = np.stack([v.to_numpy() for v in planner.sol_vectors])
+    if mesh.spans_processes:
+        try:
+            M.check_same_on_ranks(mesh, np.array([mesh.rank]), "a rank")
+            got = "no error"
+        except RuntimeError as e:
+            got = f"RuntimeError: {e}"
+        out["differing perm"] = np.array(got)
+
+
+def case_convert3d(mesh, out):
+    """A JAX 3-D CG state (``WORKER_INPUT``: the npz the test wrote from
+    JAX's 4-device mesh: its ``dump_state()`` vectors as ``<key>/<space>``,
+    its residual² history ``rr`` and ``dim``) continued by
+    ``convert.stencil_cg_system`` on this mesh for ITERS iterations."""
+    from legionsolvers_tpu_torch.utils import convert
+
+    state = {}
+    with np.load(os.environ["WORKER_INPUT"]) as f:
+        for k in sorted(f.files):
+            if "/" in k:
+                key, i = k.split("/")
+                state.setdefault(key, {})[int(i)] = f[k]
+        rr, dim = f["rr"], int(f["dim"])
+    state = {k: tuple(v[i] for i in sorted(v)) for k, v in state.items()}
+    planner, solver = convert.stencil_cg_system(
+        SHAPE3, T.laplacian_stencil(dim), state, rr[-1:], options=F32,
+        mesh=mesh)
+    out["hist"] = solver.solve(ITERS).numpy()
+    out["x"] = planner.sol_vectors[0].to_numpy()
+
+
 def refused(mesh):
     """name -> a call that must raise NotImplementedError naming item 5g."""
-    part2 = T.BlockPartition(SHAPE[0] * SHAPE[1], mesh.size)
 
     def f32_planner():
         return build_stencil_system(2, SHAPE, F32, mesh=mesh)
@@ -265,27 +446,7 @@ def refused(mesh):
         return (io.save_checkpoint if save else io.load_checkpoint)(path,
                                                                     solver)
 
-    def reorder():
-        from legionsolvers_tpu_torch.parallel.reorder import (
-            try_reordered_operator,
-        )
-
-        return try_reordered_operator(
-            T.create_coo_stencil_matrix(SHAPE, T.laplacian_stencil(2),
-                                         options=F32), part2, F32,
-            mesh=mesh)
-
     return {
-        "3-D pieces": lambda: T.StencilOperator(
-            (8, 8, 8), T.laplacian_stencil(3), mesh=mesh, options=F32),
-        "1-D stencil": lambda: T.StencilOperator(
-            (512,), T.laplacian_stencil(1), mesh=mesh, options=F32),
-        "reorder": reorder,
-        "planner basis upgrade": lambda: with_env(
-            {"LEGIONSOLVERS_NO_DIA": "1"},
-            lambda: explicit_planner(mesh, F32)),
-        "adopt_basis": lambda: f32_planner().adopt_basis(
-            0, np.arange(part2.n)),
         "save_checkpoint": lambda: checkpoint(True),
         "load_checkpoint": lambda: checkpoint(False),
         "distinct local devices": lambda: M.make_mesh(
@@ -315,7 +476,9 @@ def case_refused(mesh, out):
 CASES = {"golden": case_golden, "cg2d": case_cg2d, "ell": case_ell,
          "vectors": case_vectors, "refused": case_refused,
          "bicgstab2d": case_bicgstab2d, "gmres": case_gmres,
-         "pcg": case_pcg, "block": case_block, "dryrun": case_dryrun}
+         "pcg": case_pcg, "block": case_block, "dryrun": case_dryrun,
+         "grids3d": case_grids3d, "flat1d": case_flat1d,
+         "reorder": case_reorder, "convert3d": case_convert3d}
 
 
 def main() -> None:
